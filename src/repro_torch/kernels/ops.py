@@ -1,0 +1,44 @@
+"""Public entry points for the port's CUDA kernels, plus the plain oracles.
+
+The same names as `repro/kernels/ops.py`, without its `interpret` argument:
+the route follows the tensors' device (CPU -> the plain PyTorch version,
+CUDA -> the hand-written kernel).  The entry points here are the wrapper
+functions themselves, so `ops.<name>.launches` is the wrapper's own launch
+count.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.floa_aggregate import (
+    floa_aggregate,
+    floa_aggregate_batched,
+    floa_step_batched,
+)
+from repro_torch.kernels.grad_stats import grad_stats
+
+# Every ported kernel wrapper, by name.
+KERNELS = {
+    "floa_step_batched": floa_step_batched,
+    "floa_aggregate_batched": floa_aggregate_batched,
+    "floa_aggregate": floa_aggregate,
+    "grad_stats": grad_stats,
+}
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+# oracles re-exported for tests/benchmarks
+floa_aggregate_ref = ref.floa_aggregate_ref
+floa_aggregate_batched_ref = ref.floa_aggregate_batched_ref
+floa_step_batched_ref = ref.floa_step_batched_ref
+grad_stats_ref = ref.grad_stats_ref

@@ -1,0 +1,57 @@
+"""Plain PyTorch versions of every ported kernel (the allclose ground truth).
+
+Same dtype rules as the JAX oracles in `repro/kernels/ref.py`: accumulate in
+float32, cast each output as the JAX oracle casts it.  These run wherever a
+kernel wrapper is handed CPU tensors, and `chip_smoke.py` holds each CUDA
+kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def floa_aggregate_ref(coeffs: Tensor, grads: Tensor, noise: Tensor,
+                       bias: Tensor, eps: Tensor) -> Tensor:
+    """out[d] = sum_u coeffs[u] grads[u,d] + bias + eps * noise[d].
+
+    coeffs [U] f32, grads [U, D], noise [D], bias/eps scalars.  f32 accumulate.
+    """
+    acc = torch.einsum("u,ud->d", coeffs.float(), grads.float())
+    return (acc + bias + eps * noise.float()).to(grads.dtype)
+
+
+def floa_aggregate_batched_ref(coeffs: Tensor, grads: Tensor, noise: Tensor,
+                               bias: Tensor, eps: Tensor) -> Tensor:
+    """out[s,d] = sum_u coeffs[s,u] grads[s,u,d] + bias[s] + eps[s] noise[s,d].
+
+    coeffs [S, U] f32, grads [S, U, D], noise [S, D], bias/eps [S].
+    """
+    acc = torch.einsum("su,sud->sd", coeffs.float(), grads.float())
+    out = acc + bias[:, None] + eps[:, None] * noise.float()
+    return out.to(grads.dtype)
+
+
+def floa_step_batched_ref(w: Tensor, coeffs: Tensor, grads: Tensor,
+                          noise: Tensor, bias: Tensor, eps: Tensor,
+                          alpha: Tensor):
+    """Fused combine + PS update for a scenario sweep.
+
+    gagg[s,d]  = sum_u coeffs[s,u] grads[s,u,d] + bias[s] + eps[s] noise[s,d]
+    w_new[s,d] = w[s,d] - alpha[s] * gagg[s,d]
+
+    Returns (w_new, gagg).  As in the JAX oracle, gagg is rounded to the
+    gradient dtype BEFORE the update (the CUDA kernel updates from the f32
+    aggregate, as the Pallas kernel does; in bf16 the two differ within the
+    bf16 tolerance).
+    """
+    gagg = floa_aggregate_batched_ref(coeffs, grads, noise, bias, eps)
+    w_new = w.float() - alpha[:, None].float() * gagg.float()
+    return w_new.to(w.dtype), gagg
+
+
+def grad_stats_ref(grads: Tensor) -> Tensor:
+    """Per-row [R, 2] f32: (sum_d g, sum_d g^2) — the eq. (3) stats."""
+    g = grads.float()
+    return torch.stack([g.sum(dim=1), (g * g).sum(dim=1)], dim=1)

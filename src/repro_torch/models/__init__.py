@@ -1,0 +1,6 @@
+"""Models of the port: the paper's MLP."""
+from repro_torch.models.mlp import (init_mlp, mlp_accuracy, mlp_logits,
+                                    mlp_loss, num_params, params_from_jax)
+
+__all__ = ["init_mlp", "mlp_accuracy", "mlp_logits", "mlp_loss",
+           "num_params", "params_from_jax"]

@@ -1,0 +1,263 @@
+"""The port's sweep (`repro_torch.fl.sweep`, `repro_torch.figures`) against
+the JAX `SweepEngine`, plus the port's own contracts.
+
+Parity: the lanes of Figs. 1-4 (EF / CI / BEV benign; CI / BEV x alpha_hat
+under one weak or strong attacker; CI / BEV under 1-4 attackers) and a
+GAUSSIAN-jamming sweep (the combine-only route) run through both engines from the same weights (carried across
+with `params_from_jax`), the same batches, and the same random draws: a
+replay provider re-derives the JAX engine's per-round key schedule
+(`split(keys)` -> subkeys -> `split(sub, 3)`: slot 0 gains, 1 noise, 2
+jamming) in this process, under the same `jax_threefry_partitionable`
+setting as the reference run.  Smoke-size data, a narrow MLP (d_hidden=16),
+5 rounds.  Tolerance: rtol 1e-5 on loss / grad norm / final state.  The two
+frameworks sum the per-worker gradients and the combine in different
+orders, and a CI lane's 1/|h| channel inversion and the strongest
+attacker's 1/(gbar^2 + eps^2) amplitude scale those ulp-level differences
+up round by round; measured here they stay near 1e-7.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+with warnings.catch_warnings():
+    # The installed jax deprecates jax.experimental.shard_map, which the JAX
+    # package imports; the reference is left as it is.
+    warnings.simplefilter("ignore", DeprecationWarning)
+    import repro.core as JC
+    import repro.fl as JFL
+    from repro.configs import PAPER_MLP as JPAPER
+    from repro.core import scenario as JSC
+    from repro.data import FederatedSampler, make_dataset, worker_split
+    from repro.models import init_mlp, mlp_accuracy
+    from repro.models import mlp_loss as jmlp_loss
+
+from repro_torch import figures as TF
+from repro_torch.configs import PAPER_MLP as TPAPER
+from repro_torch.core.attacks import AttackType
+from repro_torch.core.power_control import Policy
+from repro_torch.fl import sweep as TS
+from repro_torch.kernels import ops as tops
+from repro_torch.models import mlp as TM
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+ROUNDS = 5
+RTOL = 1e-5
+MC = dataclasses.replace(JPAPER.smoke(), d_hidden=16)
+TPAPER_SMOKE = dataclasses.replace(TPAPER.smoke(), d_hidden=16)
+
+LANES = {
+    "fig1": [TF.Experiment(n, p, rounds=ROUNDS)
+             for n, p in [("EF", Policy.EF), ("CI", Policy.CI),
+                          ("BEV", Policy.BEV)]],
+    "fig2": [TF.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
+                           attacker_sigma=0.3, rounds=ROUNDS)
+             for ah in (0.1, 1.0, 2.0) for n, p in [("CI", Policy.CI),
+                                                    ("BEV", Policy.BEV)]],
+    "fig3": [TF.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
+                           attacker_sigma=3.0, rounds=ROUNDS)
+             for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                               ("BEV", Policy.BEV)]],
+    "fig4": [TF.Experiment(f"{n}@N{k}", p, n_attackers=k, rounds=ROUNDS)
+             for k in (1, 2, 3, 4) for n, p in [("CI", Policy.CI),
+                                                ("BEV", Policy.BEV)]],
+    "gaussian": [TF.Experiment("BEV-gauss", Policy.BEV, n_attackers=2,
+                               attack=AttackType.GAUSSIAN, rounds=ROUNDS,
+                               seed=7),
+                 TF.Experiment("CI-strong", Policy.CI, n_attackers=1,
+                               rounds=ROUNDS, seed=8)],
+}
+
+
+def _jax_floa(cfg):
+    """The port's FLOAConfig as the JAX package's."""
+    return JC.FLOAConfig(
+        channel=JC.ChannelConfig(cfg.channel.num_workers, cfg.channel.sigma,
+                                 cfg.channel.noise_std),
+        power=JC.PowerConfig(cfg.power.num_workers, cfg.power.dim,
+                             cfg.power.p_max, JC.Policy(cfg.power.policy.value)),
+        attack=JC.AttackConfig(JC.AttackType(cfg.attack.attack.value),
+                               cfg.attack.byzantine_mask))
+
+
+def _replay_draws(jspec, rounds, d):
+    """The JAX engine's per-round draws, re-derived from its key schedule
+    (fl/sweep.py: split(keys) per round, split(sub, 3) per lane)."""
+    sp, keys = jspec.stacked_params(), jspec.keys()
+    normal = jax.vmap(lambda k: jax.random.normal(k, (d,), jnp.float32))
+    out = []
+    for _ in range(rounds):
+        split = jax.vmap(jax.random.split)(keys)
+        keys, subs = split[:, 0], split[:, 1]
+        ks = jax.vmap(lambda k: jax.random.split(k, 3))(subs)
+        out.append({
+            "h_abs": torch.from_numpy(np.array(
+                jax.vmap(JSC.sample_gains)(ks[:, 0], sp))),
+            "z": (torch.from_numpy(np.array(normal(ks[:, 1])))
+                  if jspec.any_noise else None),
+            "jam": (torch.from_numpy(np.array(normal(ks[:, 2])))
+                    if jspec.any_jamming else None)})
+    return lambda t: out[t]
+
+
+@pytest.mark.parametrize("fig", sorted(LANES))
+def test_sweep_matches_jax_engine(fig):
+    exps = LANES[fig]
+    tcases = [TS.ScenarioCase(e.name, *TF.experiment_floa(e, MC), seed=e.seed)
+              for e in exps]
+    jcases = [JFL.ScenarioCase(c.name, _jax_floa(c.floa), c.alpha,
+                               seed=c.seed) for c in tcases]
+    tspec, jspec = TS.SweepSpec.build(tcases), JFL.SweepSpec.build(jcases)
+    assert (tspec.any_noise, tspec.any_jamming) == (jspec.any_noise,
+                                                    jspec.any_jamming)
+    x, y = make_dataset(MC.train_samples, seed=0)
+    xt, yt = make_dataset(MC.test_samples, seed=99)
+    batches = FederatedSampler(worker_split(x, y, MC.num_workers),
+                               MC.batch_per_worker,
+                               seed=1).stack_rounds(ROUNDS)
+    jp = init_mlp(jax.random.PRNGKey(0), d_hidden=MC.d_hidden)
+    xt_j, yt_j = jnp.asarray(xt), jnp.asarray(yt)
+    want = JFL.SweepEngine(
+        jmlp_loss, jspec, eval_every=2,
+        eval_fn=lambda p: {"accuracy": mlp_accuracy(p, xt_j, yt_j)},
+    ).run(jp, batches)
+
+    tp = TM.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, "cpu")
+    xt_t = torch.from_numpy(xt.astype(np.float32))
+    yt_t = torch.from_numpy(yt)
+    d = sum(int(v.size) for v in jp.values())
+    got = TS.SweepEngine(
+        TM.mlp_loss, tspec, eval_every=2, device="cpu",
+        eval_fn=lambda p: {"accuracy": TM.mlp_accuracy(p, xt_t, yt_t)},
+    ).run(tp, batches, draws=_replay_draws(jspec, ROUNDS, d))
+
+    assert got.names == want.names
+    np.testing.assert_allclose(got.loss, want.loss, rtol=RTOL)
+    np.testing.assert_allclose(got.grad_norm, want.grad_norm, rtol=RTOL)
+    for k in want.params:
+        np.testing.assert_allclose(got.params[k].numpy(),
+                                   np.asarray(want.params[k]), rtol=RTOL,
+                                   atol=1e-7)
+    acc_t, acc_j = got.metrics["accuracy"], want.metrics["accuracy"]
+    assert np.array_equal(np.isnan(acc_t), np.isnan(acc_j))
+    assert np.isnan(acc_t[:, 1]).all() and not np.isnan(acc_t[:, -1]).any()
+    np.testing.assert_allclose(acc_t[~np.isnan(acc_t)],
+                               acc_j[~np.isnan(acc_j)], atol=0.011)
+
+
+def test_run_figure_on_cpu_learns_and_is_deterministic():
+    """The figures' entry point end to end at smoke size on the CPU: the
+    plain route, no kernel launched, losses fall, two runs agree exactly
+    (the draws come from per-lane seeded generators)."""
+    exps = [TF.Experiment(n, p, rounds=6)
+            for n, p in [("EF", Policy.EF), ("BEV", Policy.BEV)]]
+    tops.reset_launches()
+    r1 = TF.run_figure(exps, eval_every=3, mc=TPAPER_SMOKE, device="cpu")
+    r2 = TF.run_figure(exps, eval_every=3, mc=TPAPER_SMOKE, device="cpu")
+    assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
+    assert r1.loss.shape == r1.grad_norm.shape == (2, 6)
+    assert np.isfinite(r1.loss).all()
+    assert (r1.loss[:, -1] < r1.loss[:, 0]).all()
+    assert np.array_equal(r1.loss, r2.loss)
+    assert all(torch.equal(r1.params[k], r2.params[k]) for k in r1.params)
+    acc = r1.metrics["accuracy"]
+    assert np.isnan(acc[:, [1, 2, 4]]).all() and np.isfinite(
+        acc[:, [0, 3, 5]]).all()
+    assert r1.index("BEV") == 1
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, repro_torch.fl.sweep, repro_torch.figures, "
+            "repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+            "or m.startswith(('jax.', 'repro.'))]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    """Entry points default to 'cuda' and never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    exps = LANES["fig1"]
+    spec = TS.SweepSpec.build([TS.ScenarioCase(
+        e.name, *TF.experiment_floa(e, MC)) for e in exps])
+    with pytest.raises(RuntimeError, match="cuda"):
+        TS.SweepEngine(TM.mlp_loss, spec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TS.run_sweep(TM.mlp_loss, {}, {}, spec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TF.run_figure(exps, mc=TPAPER_SMOKE)
+
+
+def _case(**kw):
+    e = TF.Experiment("lane", Policy.BEV, n_attackers=1)
+    floa, alpha = TF.experiment_floa(e, MC)
+    if "attack" in kw:
+        floa = dataclasses.replace(floa, attack=dataclasses.replace(
+            floa.attack, attack=kw.pop("attack")))
+    if "markov_rho" in kw:
+        floa = dataclasses.replace(floa, channel=dataclasses.replace(
+            floa.channel, markov_rho=kw.pop("markov_rho")))
+    return TS.ScenarioCase("lane", floa, alpha, **kw)
+
+
+@dataclasses.dataclass
+class _Plan:
+    """Stands in for the JAX package's ExecutionPlan (its knob names)."""
+    flat_state: bool = True
+    mesh: object = None
+    strict_numerics: bool = False
+    chunk_rounds: object = None
+    checkpoint_dir: object = None
+
+
+REFUSED_LANES = {
+    "defense_median": dict(defense="median"),
+    "participants": dict(participants=5),
+    "markov_fading": dict(markov_rho=0.5),
+    "colluding": dict(attack=AttackType.COLLUDING),
+    "omniscient": dict(attack=AttackType.OMNISCIENT),
+}
+REFUSED_PLANS = {
+    "mesh": _Plan(mesh=object()),
+    "chunk_rounds": _Plan(chunk_rounds=4),
+    "checkpoint_dir": _Plan(checkpoint_dir="/nonexistent"),
+    "strict_numerics": _Plan(strict_numerics=True),
+    "tree_state": _Plan(flat_state=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_LANES))
+def test_out_of_slice_lanes_are_refused(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TS.SweepSpec.build([_case(**REFUSED_LANES[name])])
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_PLANS))
+def test_non_default_plans_are_refused(name):
+    spec = TS.SweepSpec.build([_case()])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TS.SweepEngine(TM.mlp_loss, spec, plan=REFUSED_PLANS[name],
+                       device="cpu")
+    TS.SweepEngine(TM.mlp_loss, spec, plan=_Plan(), device="cpu")
+
+
+def test_bad_draws_are_rejected():
+    engine, params, batches = TF.figure_engine(
+        [TF.Experiment("lane", Policy.BEV, rounds=1)], mc=TPAPER_SMOKE,
+        device="cpu")
+    with pytest.raises(ValueError, match="h_abs"):
+        engine.run(params, batches,
+                   draws=lambda t: {"h_abs": torch.ones(1, 3), "z": None,
+                                    "jam": None})
