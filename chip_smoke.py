@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
-                                      # breakdown of a warm Fig. 3 sweep
+                                      # breakdown of a warm Fig. 3 sweep,
+                                      # defense grid and U = 1000 grid
 
 Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
 
@@ -12,9 +13,11 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
   2. build    nvcc builds every kernel of csrc/ (seconds, ptxas -v lines).
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes and at awkward ones (D off any tile, U = 32,
-              bf16, S = 1), with times: kernel, plain, one library call,
-              and the bound (bytes over 3.35 TB/s vs f32 flops over
-              67 TFLOP/s, the larger).
+              bf16, S = 1; for the sorts U = 7, 33, 100, 4097 and the
+              bitonic cap, 8192), with times: kernel, plain, one library call, and the
+              bound (bytes over 3.35 TB/s vs f32 operations over
+              67 TFLOP/s, the larger).  The sorts must equal torch.sort
+              exactly.
   4-6. main path through `repro_torch.figures.run_figure` / SweepEngine at
               the paper's full width (D = 50890, U = 10): Fig. 1's benign
               lanes, Fig. 3's Byzantine lanes, and a GAUSSIAN-jamming sweep
@@ -22,13 +25,23 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               read after each, and must show every kernel of the path.
   7. parity   one Fig. 1 sweep through the kernels and again through the
               plain versions, from the same draws.
-  8. the `kernels` line; 9. the last line, {"ok": true, "device": ...}.
+  8-9. the digital-defense path (grouped dispatch) at full width:
+              `figures.run_defenses` (FLOA-BEV beside mean / median /
+              trimmed mean / Krum / geometric median, U = 10: the odd-even
+              sort) and `figures.worker_grid(1000, D)` through
+              `figures.run_cases` (U = 1000, 32000 training samples = 32
+              per worker: the bitonic sort and blocked Krum), counted as
+              phases 4-6 are.
+  10. parity  the defense grid through the kernels and again through the
+              plain versions, from the same draws.
+  11. the `kernels` line; 12. the last line, {"ok": true, "device": ...}.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +54,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
 ROUNDS = 20
+ROUNDS_LARGE_U = 5           # the U = 1000 grid: keeps the script short
 RTOL_WHOLE_RUN = 1e-4        # kernel route vs plain route over 20 rounds
 
 
@@ -96,9 +110,21 @@ def max_errors(torch, got, want) -> tuple:
     return float(err.max()), float((err / w.abs().clamp_min(1e-6)).max())
 
 
+def sort_ops(u: int, bitonic: bool) -> int:
+    """min/max operations per column of a sorting network: odd-even has
+    U(U-1)/2 compare-exchanges, bitonic log2(P)(log2(P)+1)/2 stages of P/2
+    over the padded P rows; two operations each."""
+    if not bitonic:
+        return u * (u - 1)
+    p = 1 << max(u - 1, 0).bit_length()
+    k = p.bit_length() - 1
+    return k * (k + 1) // 2 * p
+
+
 def kernel_cases(torch, ops):
     """(kernel, label, main?, run(plain) -> outputs, library fn or None,
-    bytes, flops, (rtol, atol)) for every comparison of phase 3."""
+    bytes, flops, (rtol, atol) or "exact") for every comparison of
+    phase 3."""
     gen = torch.Generator("cuda").manual_seed(0)
 
     def rnd(*shape, dtype=torch.float32):
@@ -146,6 +172,24 @@ def kernel_cases(torch, ops):
             lambda p, a=rows: ops.grad_stats(a, plain=p),
             lambda a=rows: torch.var_mean(a, dim=1, correction=0),
             s * u * d * eg + s * u * 2 * 4, 3 * s * u * d, tol_stats))
+    # the sorts: the defense grid's slab (U = 10) and the U = 1000 grid's
+    for name, s, u, d, dt, main in [
+            ("sort_columns", 1, 10, 50890, torch.float32, True),
+            ("sort_columns", 3, 32, 5000, torch.bfloat16, False),
+            ("sort_columns", 2, 7, 2049, torch.float32, False),
+            ("sort_columns_bitonic", 1, 1000, 50890, torch.float32, True),
+            ("sort_columns_bitonic", 2, 33, 515, torch.float32, False),
+            ("sort_columns_bitonic", 1, 100, 130, torch.float32, False),
+            ("sort_columns_bitonic", 1, 4097, 130, torch.float32, False),
+            ("sort_columns_bitonic", 1, ops.BITONIC_MAX_U, 130,
+             torch.float32, False)]:
+        x = rnd(s, u, d, dtype=dt)
+        cases.append((
+            name, f"S={s} U={u} D={d} {str(dt)[6:]}", main,
+            lambda p, f=ops.KERNELS[name], a=x: f(a, plain=p),
+            lambda a=x: torch.sort(a, dim=1),
+            2 * s * u * d * (torch.finfo(dt).bits // 8),
+            s * d * sort_ops(u, name == "sort_columns_bitonic"), "exact"))
     return cases
 
 
@@ -173,12 +217,37 @@ def lanes_report(result):
             for i, n in enumerate(result.names)}
 
 
-def profile_phase(torch, figures, exps) -> dict:
-    """Where a warm Fig. 3 sweep spends its time: torch.profiler over one
-    full run, device kernels grouped by name, and the device's busy share
-    of the run's wall time (one stream, so kernel times add up)."""
+def whole_run_check(name, rk, rp) -> None:
+    """A sweep through the kernels (rk) against the same sweep through the
+    plain versions (rp): loss, grad norm and final weights at
+    RTOL_WHOLE_RUN (atol 1e-6 on the weights)."""
+    import numpy as np
+    import torch
+    diffs = {"loss": max_errors(torch, torch.as_tensor(rk.loss),
+                                torch.as_tensor(rp.loss))[1],
+             "grad_norm": max_errors(torch, torch.as_tensor(rk.grad_norm),
+                                     torch.as_tensor(rp.grad_norm))[1]}
+    ok = np.allclose(rk.loss, rp.loss, rtol=RTOL_WHOLE_RUN) and np.allclose(
+        rk.grad_norm, rp.grad_norm, rtol=RTOL_WHOLE_RUN)
+    for k in rk.params:
+        diffs[f"params.{k}"] = max_errors(torch, rk.params[k],
+                                          rp.params[k])[0]
+        ok = ok and torch.allclose(rk.params[k], rp.params[k],
+                                   rtol=RTOL_WHOLE_RUN, atol=1e-6)
+    emit(name, rtol=RTOL_WHOLE_RUN, max_rel_err=diffs,
+         rounds=rk.loss.shape[1], ok=bool(ok))
+    if not ok:
+        raise AssertionError(f"{name}: kernel route and plain route "
+                             f"disagree")
+
+
+def profile_phase(torch, build) -> dict:
+    """Where a warm sweep spends its time: torch.profiler over one full run
+    of the engine that build() returns, device kernels grouped by name, and
+    the device's busy share of the run's wall time (one stream, so kernel
+    times add up)."""
     from torch.profiler import ProfilerActivity, profile
-    engine, params, batches = figures.figure_engine(exps, device="cuda")
+    engine, params, batches = build()
     engine.run(params, batches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -241,8 +310,11 @@ def main() -> int:
         torch.cuda.synchronize()
         abs_err, rel_err = 0.0, 0.0
         for g, w in zip(got, want):
-            if not torch.allclose(g.float(), w.float(), rtol=tol[0],
-                                  atol=tol[1]):
+            if tol == "exact" and not torch.equal(g, w):
+                raise AssertionError(f"{name} [{label}] is not equal to "
+                                     f"torch.sort")
+            if tol != "exact" and not torch.allclose(
+                    g.float(), w.float(), rtol=tol[0], atol=tol[1]):
                 raise AssertionError(f"{name} [{label}] disagrees with its "
                                      f"plain version at tol {tol}")
             a, r = max_errors(torch, g, w)
@@ -260,14 +332,26 @@ def main() -> int:
         if main_shape:
             table[name] = row
 
-    # 5's lanes, profiled alone: `python3 chip_smoke.py --profile`
+    # 5's, 8's and 9's sweeps, profiled alone: `chip_smoke.py --profile`
     fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
                                attacker_sigma=3.0, rounds=ROUNDS)
             for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
                                               ("BEV", Policy.BEV)]]
+    from repro_torch.configs import PAPER_MLP
+    mc_u = dataclasses.replace(PAPER_MLP.full(), num_workers=1000,
+                               train_samples=32000)
+    grid_u = figures.worker_grid(1000, mc_u.dim)
     if sys.argv[1:] == ["--profile"]:
-        emit("profile", sweep="fig3", rounds=ROUNDS,
-             **profile_phase(torch, figures, fig3))
+        for sweep, rounds, build in [
+                ("fig3", ROUNDS, lambda: figures.figure_engine(
+                    fig3, device="cuda")),
+                ("defenses", ROUNDS, lambda: figures.cases_engine(
+                    figures.defense_cases(), ROUNDS, device="cuda")),
+                ("worker_grid_u1000", ROUNDS_LARGE_U,
+                 lambda: figures.cases_engine(grid_u, ROUNDS_LARGE_U,
+                                              mc=mc_u, device="cuda"))]:
+            emit("profile", sweep=sweep, rounds=rounds,
+                 **profile_phase(torch, build))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -279,32 +363,34 @@ def main() -> int:
                          ("BEV", Policy.BEV)]]
     main_launches = {k: 0 for k in ops.KERNELS}
 
-    def drive(name, exps, expect):
-        """One main-path phase through run_figure (counted), then the
-        steady-state round rate of the same sweep (uncounted: one warm-up
-        run, one timed run of the built engine)."""
+    def drive(name, exps, expect, run=None, engine=None, rounds=ROUNDS):
+        """One main-path phase through its entry point (counted; default
+        run_figure), then the steady-state round rate of the same sweep
+        (uncounted: one warm-up run, one timed run of the built engine).
+        `expect` lists every kernel's launches (unlisted: 0)."""
         result, seconds, counts = run_phase(
             torch, ops, name,
-            lambda: figures.run_figure(exps, device="cuda"), expect)
+            run or (lambda: figures.run_figure(exps, device="cuda")),
+            {**{k: 0 for k in ops.KERNELS}, **expect})
         for k, v in counts.items():
             main_launches[k] += v
         if not np.isfinite(result.loss).all():
             raise AssertionError(f"{name}: non-finite loss")
-        engine, params, batches = figures.figure_engine(exps, device="cuda")
+        engine, params, batches = (engine or (lambda: figures.figure_engine(
+            exps, device="cuda")))()
         engine.run(params, batches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.run(params, batches)
         torch.cuda.synchronize()
         steady = time.perf_counter() - t0
-        emit(name, lanes=lanes_report(result), lanes_n=len(exps),
-             rounds=ROUNDS, run_figure_seconds=seconds,
-             steady_run_seconds=steady, rounds_per_s=ROUNDS / steady,
+        emit(name, lanes=lanes_report(result), lanes_n=len(result.names),
+             rounds=rounds, run_seconds=seconds,
+             steady_run_seconds=steady, rounds_per_s=rounds / steady,
              launches=counts)
         return result
 
-    fused = {"floa_step_batched": ROUNDS, "grad_stats": ROUNDS,
-             "floa_aggregate_batched": 0}
+    fused = {"floa_step_batched": ROUNDS, "grad_stats": ROUNDS}
     r1 = drive("main_benign", fig1, fused)
     if not (r1.loss[:, -1] < r1.loss[:, 0]).all():
         raise AssertionError(
@@ -319,8 +405,7 @@ def main() -> int:
            figures.Experiment("BEV-strong", Policy.BEV, n_attackers=1,
                               rounds=ROUNDS)]
     drive("main_combine_route", jam, {"floa_aggregate_batched": ROUNDS,
-                                      "grad_stats": ROUNDS,
-                                      "floa_step_batched": 0})
+                                      "grad_stats": ROUNDS})
 
     # 7. whole run: kernel route vs plain route from the same draws
     ops.reset_launches()
@@ -330,27 +415,40 @@ def main() -> int:
         raise AssertionError(f"expected one kernel-route run's launches and "
                              f"none from the plain route: "
                              f"{ops.launch_counts()}")
-    diffs = {"loss": max_errors(torch, torch.as_tensor(rk.loss),
-                                torch.as_tensor(rp.loss))[1],
-             "grad_norm": max_errors(torch, torch.as_tensor(rk.grad_norm),
-                                     torch.as_tensor(rp.grad_norm))[1]}
-    ok = np.allclose(rk.loss, rp.loss, rtol=RTOL_WHOLE_RUN) and np.allclose(
-        rk.grad_norm, rp.grad_norm, rtol=RTOL_WHOLE_RUN)
-    for k in rk.params:
-        diffs[f"params.{k}"] = max_errors(torch, rk.params[k],
-                                          rp.params[k])[0]
-        ok = ok and torch.allclose(rk.params[k], rp.params[k],
-                                   rtol=RTOL_WHOLE_RUN, atol=1e-6)
-    emit("kernel_vs_plain_run", rtol=RTOL_WHOLE_RUN, max_rel_err=diffs,
-         rounds=ROUNDS, ok=bool(ok))
-    if not ok:
-        raise AssertionError("kernel route and plain route disagree")
+    whole_run_check("kernel_vs_plain_run", rk, rp)
+
+    # 8. the digital-defense grid: one analog lane (the fused route) and
+    # five digital lanes; median and trimmed mean sort once per round each
+    defenses_expect = {**fused, "sort_columns": 2 * ROUNDS}
+    rd = drive("main_defenses", None, defenses_expect,
+               run=lambda: figures.run_defenses(ROUNDS, device="cuda"),
+               engine=lambda: figures.cases_engine(
+                   figures.defense_cases(), ROUNDS, device="cuda"))
+
+    # 9. the large-U grid at U = 1000: the bitonic sort, blocked Krum
+    drive("main_defenses_large_u", None,
+          {"floa_step_batched": ROUNDS_LARGE_U,
+           "grad_stats": ROUNDS_LARGE_U,
+           "sort_columns_bitonic": 2 * ROUNDS_LARGE_U},
+          run=lambda: figures.run_cases(grid_u, ROUNDS_LARGE_U, mc=mc_u,
+                                        device="cuda"),
+          engine=lambda: figures.cases_engine(grid_u, ROUNDS_LARGE_U,
+                                              mc=mc_u, device="cuda"),
+          rounds=ROUNDS_LARGE_U)
+
+    # 10. the defense grid: kernel route vs plain route from the same draws
+    ops.reset_launches()
+    rdp = figures.run_defenses(ROUNDS, device="cuda", force_plain=True)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the plain route launched kernels: "
+                             f"{ops.launch_counts()}")
+    whole_run_check("kernel_vs_plain_defenses", rd, rdp)
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
-    # 8. the kernel list
+    # 11. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",
@@ -358,7 +456,11 @@ def main() -> int:
                "floa_aggregate": ("floa_aggregate.cu",
                                   "src/repro/kernels/floa_aggregate.py:184"),
                "grad_stats": ("grad_stats.cu",
-                              "src/repro/kernels/grad_stats.py:37")}
+                              "src/repro/kernels/grad_stats.py:37"),
+               "sort_columns": ("defense_sort.cu",
+                                "src/repro/kernels/defense_sort.py:105"),
+               "sort_columns_bitonic": ("defense_sort.cu",
+                                        "src/repro/kernels/defense_sort.py:192")}
     kernels = []
     for name, (src, replaces) in sources.items():
         row = table[name]

@@ -9,12 +9,17 @@ policy/attack formula is computed for every lane and the lane's own is
 picked with `torch.where` on the codes.  The codes and formulas are those of
 `repro/core/scenario.py`, so lane coefficients match the JAX package's.
 
+Also here: the defense-code lane axis (`DEFENSE_CODES`, `DefenseSpec`) and
+the static partition of a sweep's lanes by defense code that the grouped
+dispatch runs on (`LaneGroups`, `build_lane_groups`, `permute_lanes`).
+
 Only the port's slice is here: full participation (the reference's
-`part=None` branch) and no digital defense codes.
+`part=None` branch) and a lane axis on one device (no shards).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+import dataclasses
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,6 +48,94 @@ _CI, _BEV, _EF, _TCI = 0, 1, 2, 3
 _NONE, _STRONGEST, _SIGN_FLIP, _GAUSSIAN = 0, 1, 2, 3
 _COLLUDING, _OMNISCIENT = 4, 5
 
+# Defense-code lane axis: 0 selects the analog FLOA combine (the paper's
+# scheme); every other code a digital screening defense applied to the
+# gathered [U, D] per-worker gradient slab (core/defenses.py).  "krum" and
+# "multi_krum" share a kernel but keep distinct codes so results name the
+# family they ran.
+DEFENSE_CODES = {
+    "floa": 0,
+    "mean": 1,
+    "median": 2,
+    "trimmed_mean": 3,
+    "krum": 4,
+    "multi_krum": 5,
+    "geometric_median": 6,
+}
+_FLOA_CODE = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DefenseSpec:
+    """Per-lane aggregation rule: analog FLOA (name="floa") or a digital
+    screening defense with its hyper-parameters.
+
+    The bounds of trim / f / multi are checked here, on Python ints: the
+    defense kernels take them as per-lane tensors and do not re-check.
+    gm_iters is the Weiszfeld iteration count; SweepSpec makes every
+    geometric-median lane of one sweep agree on it, as the reference does.
+    """
+
+    name: str = "floa"
+    trim: int = 1           # trimmed_mean: drop `trim` largest+smallest/coord
+    num_byzantine: int = 0  # krum / multi_krum: assumed attacker count f
+    multi: int = 1          # multi_krum: average the m best-scored workers
+    gm_iters: int = 8       # geometric_median: Weiszfeld iterations
+
+    @property
+    def code(self) -> int:
+        return DEFENSE_CODES[self.name]
+
+    @property
+    def is_digital(self) -> bool:
+        return self.name != "floa"
+
+    def validate(self, num_workers: int) -> "DefenseSpec":
+        if self.name not in DEFENSE_CODES:
+            raise ValueError(
+                f"unknown defense {self.name!r}; one of {sorted(DEFENSE_CODES)}")
+        u = num_workers
+        if self.name == "trimmed_mean" and not 0 <= 2 * self.trim < u:
+            raise ValueError(
+                f"trimmed_mean trim={self.trim} invalid for U={u}: "
+                f"need 0 <= 2*trim < U")
+        if self.name in ("krum", "multi_krum"):
+            if not 0 <= self.num_byzantine < u:
+                raise ValueError(
+                    f"krum num_byzantine={self.num_byzantine} invalid for "
+                    f"U={u}: need 0 <= f < U")
+            if not 1 <= self.multi <= u:
+                raise ValueError(
+                    f"krum multi={self.multi} invalid for U={u}: "
+                    f"need 1 <= multi <= U")
+        if self.name == "geometric_median" and self.gm_iters < 1:
+            raise ValueError(f"geometric_median gm_iters={self.gm_iters} < 1")
+        return self
+
+    _KWARGS_BY_DEFENSE = {
+        "trimmed_mean": frozenset({"trim"}),
+        "krum": frozenset({"num_byzantine", "multi"}),
+        "multi_krum": frozenset({"num_byzantine", "multi"}),
+        "geometric_median": frozenset({"iters", "gm_iters"}),
+    }
+
+    @classmethod
+    def from_kwargs(cls, name: str, **kw) -> "DefenseSpec":
+        """Build from a (defense, **defense_kwargs) pair.  Kwargs that do not
+        belong to `name` are rejected: dropping them would run another
+        defense than the caller asked for."""
+        extra = set(kw) - cls._KWARGS_BY_DEFENSE.get(name, frozenset())
+        if extra:
+            raise ValueError(
+                f"defense {name!r} does not accept kwargs {sorted(extra)}")
+        fields = dict(trim=kw.get("trim", 1),
+                      num_byzantine=kw.get("num_byzantine", 0),
+                      multi=kw.get("multi", 1),
+                      gm_iters=kw.get("iters", kw.get("gm_iters", 8)))
+        if name == "krum" and fields["multi"] > 1:
+            name = "multi_krum"
+        return cls(name=name, **fields)
+
 
 class ScenarioParams(NamedTuple):
     """One scenario's FLOA knobs as tensors, or S of them stacked on a
@@ -56,15 +149,23 @@ class ScenarioParams(NamedTuple):
     dim: Tensor        # f32   []  power-accounting gradient dim D (eq. 4)
     noise_std: Tensor  # f32   []  receiver AWGN std (0 under EF)
     alpha: Tensor      # f32   []  raw learning rate (eq. 8)
+    defense: Tensor    # int32 [] — DEFENSE_CODES (0 = analog FLOA combine)
+    def_trim: Tensor   # int32 []  trimmed_mean trim count
+    def_f: Tensor      # int32 []  (multi-)Krum assumed attacker count f
+    def_multi: Tensor  # int32 []  multi-Krum average count m
 
 
-def from_floa(cfg, alpha: float) -> ScenarioParams:
+def from_floa(cfg, alpha: float,
+              defense: Optional[DefenseSpec] = None) -> ScenarioParams:
     """FLOAConfig -> ScenarioParams (CPU tensors).
 
     EF scenarios get noise_std forced to 0 here: the branchless coefficients
-    always add the noise term, so the std itself must be zero."""
+    always add the noise term, so the std itself must be zero.  defense
+    (validated against U) fills the four defense fields; None means the
+    analog FLOA combine."""
     cfg.validate()
     u = cfg.num_workers
+    defense = (defense or DefenseSpec()).validate(u)
     mask = (cfg.attack.mask() if cfg.attack.byzantine_mask
             else torch.zeros((u,), dtype=torch.bool))
     is_ef = cfg.power.policy == Policy.EF
@@ -79,6 +180,10 @@ def from_floa(cfg, alpha: float) -> ScenarioParams:
         dim=f32(float(cfg.power.dim)),
         noise_std=f32(0.0 if is_ef else cfg.channel.noise_std),
         alpha=f32(alpha),
+        defense=i32(defense.code),
+        def_trim=i32(defense.trim),
+        def_f=i32(defense.num_byzantine),
+        def_multi=i32(defense.multi),
     )
 
 
@@ -87,6 +192,70 @@ def stack(params: Sequence[ScenarioParams], device=None) -> ScenarioParams:
     field, on `device`.  All scenarios must share U."""
     return ScenarioParams(*(torch.stack(xs).to(device)
                             for xs in zip(*params)))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneGroups:
+    """Static partition of a sweep's lane axis by defense code.
+
+    Defense codes are concrete config, so the partition is known when the
+    engine is built: the grouped dispatch (fl/sweep.py) runs each defense
+    family's kernel once over a contiguous sub-slab of its lanes.  The port
+    runs one device, so there are no ghost lanes and `perm` is a
+    permutation.
+
+      codes         group defense codes, ascending (one entry per group)
+      perm          [S] execution row -> source lane index
+      inverse       [S] source lane -> its execution row
+      local_slices  ((code, start, end), ...) group boundaries in execution
+                    rows
+    """
+
+    codes: Tuple[int, ...]
+    perm: Tuple[int, ...]
+    inverse: Tuple[int, ...]
+    local_slices: Tuple[Tuple[int, int, int], ...]
+
+
+def build_lane_groups(codes: Sequence[int]) -> LaneGroups:
+    """Lane defense codes (ints, lane order) -> LaneGroups.
+
+    Within a group the lanes keep their order (a stable partition); groups
+    run in ascending code order, so the analog FLOA group (code 0), when
+    present, is always the first slice.  The reference's per-shard ghost
+    padding (`shards > 1`) belongs to the mesh (ROADMAP.md Queue 1 item
+    8)."""
+    codes = [int(c) for c in codes]
+    if not codes:
+        raise ValueError("empty lane-code list")
+    group_codes = sorted(set(codes))
+    perm, local_slices = [], []
+    for c in group_codes:
+        members = [i for i, ci in enumerate(codes) if ci == c]
+        local_slices.append((c, len(perm), len(perm) + len(members)))
+        perm.extend(members)
+    inverse = [0] * len(codes)
+    for row, lane in enumerate(perm):
+        inverse[lane] = row
+    return LaneGroups(codes=tuple(group_codes), perm=tuple(perm),
+                      inverse=tuple(inverse),
+                      local_slices=tuple(local_slices))
+
+
+def permute_lanes(x, perm):
+    """Gather lane-stacked data (a tensor, a ScenarioParams, or a dict of
+    tensors / None) into execution order along the leading lane axis.
+    `perm` is a sequence of lane indices or a slice."""
+    if isinstance(x, torch.Tensor):
+        idx = (perm if isinstance(perm, slice)
+               else torch.as_tensor(perm, dtype=torch.long, device=x.device))
+        return x[idx]
+    if isinstance(x, ScenarioParams):
+        return ScenarioParams(*(permute_lanes(v, perm) for v in x))
+    if isinstance(x, dict):
+        return {k: None if v is None else permute_lanes(v, perm)
+                for k, v in x.items()}
+    raise TypeError(f"cannot permute lanes of {type(x).__name__}")
 
 
 def sample_gains(generators: Sequence[torch.Generator],

@@ -3,8 +3,8 @@
 The paper's experimental section (Figs. 1-4) is a grid of scenarios — power
 policy x attack x attacker count x learning rate — and the JAX package runs
 each figure as one `SweepEngine` call (`repro/fl/sweep.py`).  This is its
-port, restricted to the path every figure takes: analog lanes, flat [S, D]
-state on one device, no chunking, no mesh, no defenses.  One round:
+port, restricted to flat [S, D] state on one device, no chunking, no mesh,
+under full participation.  One round of an all-analog sweep (every figure):
 
   1. per-worker gradients as one [S, U, D] slab (nested torch.func.vmap of
      torch.func.grad over lanes and workers);
@@ -15,6 +15,24 @@ state on one device, no chunking, no mesh, no defenses.  One round:
      `floa_step_batched` kernel launch).  Sweeps with a GAUSSIAN-jamming
      lane take the combine-only kernel (`floa_aggregate_batched`), add the
      jamming row, then update — as the JAX engine does.
+
+Digital lanes (a `DefenseSpec` other than "floa") take the grouped
+dispatch, the default plan of the JAX engine: the lanes are partitioned by
+defense code (`scenario.build_lane_groups`), and each round computes one
+[S, U, D] gradient slab in that group order, then runs each group on its
+own sub-slab, in ascending code order:
+
+  - the analog group: steps 2-6 above on its own rows only (so
+    `grad_stats` sees the [S_a*U, D] analog rows, and an all-digital sweep
+    launches no FLOA kernel and no `grad_stats`);
+  - each digital group: its Byzantine rows sign-flipped (`_digital_flip`),
+    the family's kernel (core/defenses.py; median and trimmed mean sort
+    through the CUDA sort kernels, one launch per group), then
+    w - alpha * gagg.
+
+The groups' rows concatenate, and `run` hands the results back in lane
+order (`LaneGroups.inverse`).  A sweep with no digital lane runs the
+all-analog round above unchanged.
 
 The reported loss is the loss of the UPDATED weights on the round's batch,
 and the grad norm is that of the aggregate, as in the JAX engine.  Rounds are
@@ -27,11 +45,15 @@ fn(t) -> {"h_abs": [S, U], "z": [S, D] or None, "jam": [S, D] or None}
 (standard normal z / jam rows; the engine scales them).  By default each
 lane draws from its own three torch.Generators (gains, noise, jamming) on
 the engine's device, seeded from ScenarioCase.seed, so a lane's stream
-depends only on its own seed, as in the JAX engine.
+depends only on its own seed, as in the JAX engine.  Draws stay keyed by
+lane ([S, ...] in spec order); digital lanes do not consume theirs, and
+"z" / "jam" are needed only when an analog lane is noisy / jams
+(`analog_noise` / `analog_jamming`, the grouped engine's trace gates).
 
 Out of this slice, and refused with NotImplementedError naming the
-ROADMAP.md queue item: digital defenses, K-of-U participation, Gauss-Markov
-fading, COLLUDING/OMNISCIENT attacks, and any non-default execution plan.
+ROADMAP.md queue item: K-of-U participation, Gauss-Markov fading,
+COLLUDING/OMNISCIENT attacks, the switch dispatch (grouped_dispatch=False)
+and any other non-default execution plan.
 """
 from __future__ import annotations
 
@@ -43,6 +65,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.core import defenses as DEF
 from repro_torch.core import scenario as SC
 from repro_torch.core import standardize as S
 from repro_torch.core.aggregation import (
@@ -57,10 +80,11 @@ from repro_torch.core.power_control import Policy
 
 Tensor = torch.Tensor
 
-_Q_DEFENSES = "ROADMAP.md Queue 1 item 5 (digital defenses)"
 _Q_ADAPTIVE = "ROADMAP.md Queue 1 item 6 (adaptive-adversary axes)"
 _Q_PLAN = ("ROADMAP.md Queue 1 items 7-8 (execution plan, chunking, "
            "checkpointing, sharding)")
+_Q_SWITCH = ("ROADMAP.md Queue 1 item 7 (execution plan: the per-lane switch "
+             "dispatch)")
 
 # The execution-plan knobs of the JAX engine and their defaults: the only
 # plan the port runs.
@@ -99,14 +123,18 @@ def resolve_device(device) -> torch.device:
 class ScenarioCase:
     """One lane of the sweep: a frozen FLOAConfig plus its lr and seed.
 
-    defense / participants mirror the JAX ScenarioCase; the port runs only
-    the analog combine ("floa") under full participation (None)."""
+    defense selects the lane's aggregation rule: the analog FLOA combine
+    (the default), or a digital screening defense applied to the gathered
+    [U, D] gradient slab, with digital attackers reporting sign-flipped
+    gradients.  participants mirrors the JAX ScenarioCase; the port runs
+    full participation (None) only."""
 
     name: str
     floa: FLOAConfig
     alpha: float
     seed: int = 0
-    defense: object = "floa"
+    defense: SC.DefenseSpec = dataclasses.field(
+        default_factory=SC.DefenseSpec)
     participants: Optional[int] = None
 
 
@@ -130,11 +158,10 @@ class SweepSpec:
             c.floa.validate()
             if c.floa.num_workers != u:
                 raise ValueError("sweep scenarios must share U")
-            defense = getattr(c.defense, "name", c.defense)
-            if defense != "floa":
-                raise NotImplementedError(
-                    f"lane {c.name!r}: digital defense {defense!r} is not "
-                    f"ported yet — {_Q_DEFENSES}")
+            if not isinstance(c.defense, SC.DefenseSpec):
+                raise TypeError(f"lane {c.name!r}: defense must be a "
+                                f"DefenseSpec, got {c.defense!r}")
+            c.defense.validate(u)
             if c.participants is not None:
                 raise NotImplementedError(
                     f"lane {c.name!r}: K-of-U participation is not ported "
@@ -147,6 +174,12 @@ class SweepSpec:
                 raise NotImplementedError(
                     f"lane {c.name!r}: {c.floa.attack.attack.value} attack "
                     f"is not ported yet — {_Q_ADAPTIVE}")
+        gm_iters = {c.defense.gm_iters for c in self.cases
+                    if c.defense.name == "geometric_median"}
+        if len(gm_iters) > 1:
+            raise ValueError(
+                "geometric_median lanes must share gm_iters (one Weiszfeld "
+                f"depth per lane group); got {sorted(gm_iters)}")
 
     def __len__(self) -> int:
         return len(self.cases)
@@ -161,20 +194,51 @@ class SweepSpec:
 
     def stacked_params(self, device=None) -> SC.ScenarioParams:
         """Frozen dataclass configs -> stacked tensors, [S, ...]."""
-        return SC.stack([SC.from_floa(c.floa, c.alpha) for c in self.cases],
-                        device=device)
+        return SC.stack([SC.from_floa(c.floa, c.alpha, c.defense)
+                         for c in self.cases], device=device)
 
-    # Which draws any lane consumes (the JAX engine's trace gates).
+    # Defense-code lane axis: a sweep with no digital lane takes the
+    # all-analog round; any digital lane takes the grouped dispatch.
     @property
-    def any_noise(self) -> bool:
+    def any_digital(self) -> bool:
+        return any(c.defense.is_digital for c in self.cases)
+
+    @property
+    def all_digital(self) -> bool:
+        return all(c.defense.is_digital for c in self.cases)
+
+    @property
+    def digital_codes(self) -> Tuple[int, ...]:
+        return tuple(sorted({c.defense.code for c in self.cases
+                             if c.defense.is_digital}))
+
+    @property
+    def lane_codes(self) -> Tuple[int, ...]:
+        """Per-lane defense codes in lane order: the grouped partition's
+        input."""
+        return tuple(c.defense.code for c in self.cases)
+
+    # The draws the lanes consume (the grouped engine's trace gates): only
+    # analog lanes take noise and jamming rows (a digital lane's channel
+    # config is never used).
+    @property
+    def analog_noise(self) -> bool:
         return any(c.floa.channel.noise_std > 0.0
-                   and c.floa.power.policy != Policy.EF for c in self.cases)
+                   and c.floa.power.policy != Policy.EF
+                   and not c.defense.is_digital for c in self.cases)
 
     @property
-    def any_jamming(self) -> bool:
+    def analog_jamming(self) -> bool:
         return any(c.floa.attack.attack == AttackType.GAUSSIAN
                    and c.floa.attack.num_attackers > 0
-                   and c.floa.power.policy != Policy.EF for c in self.cases)
+                   and c.floa.power.policy != Policy.EF
+                   and not c.defense.is_digital for c in self.cases)
+
+    @property
+    def gm_iters(self) -> int:
+        its = {c.defense.gm_iters for c in self.cases
+               if c.defense.name == "geometric_median"}
+        return its.pop() if its else 8
 
 
 @dataclasses.dataclass
@@ -217,9 +281,21 @@ def make_row_unflatten(template: Dict[str, Tensor]):
     return unflatten_row, sizes
 
 
+def _digital_flip(flat: Tensor, sp: SC.ScenarioParams) -> Tensor:
+    """Digital attackers report -g (there is no channel to cheat on):
+    sign-flip the Byzantine rows of a lane group's [S_g, U, D] slab."""
+    flip = (sp.attack != 0)[:, None] & sp.byz_mask
+    sign = torch.where(flip, -1.0, 1.0)
+    return flat * sign[:, :, None]
+
+
 def _refuse_plan(plan) -> None:
     if plan is None:
         return
+    if getattr(plan, "grouped_dispatch", True) is False:
+        raise NotImplementedError(
+            f"execution plan grouped_dispatch=False is not ported yet — "
+            f"{_Q_SWITCH}")
     bad = []
     for knob, default in _PLAN_DEFAULTS.items():
         got = getattr(plan, knob, default)
@@ -231,7 +307,7 @@ def _refuse_plan(plan) -> None:
 
 
 class SweepEngine:
-    """The flat-state analog sweep for one (loss_fn, spec, eval_fn) triple.
+    """The flat-state sweep for one (loss_fn, spec, eval_fn) triple.
 
     loss_fn(params_dict, batch) -> scalar; eval_fn(params_dict) -> dict of
     scalars.  device defaults to 'cuda' and raises without a card.
@@ -252,6 +328,25 @@ class SweepEngine:
         self.force_plain = force_plain
         self._u = spec.num_workers
         self._sp = spec.stacked_params(self.device)
+        # The draws the analog lanes consume, fixed by the spec.
+        self._noise, self._jam = spec.analog_noise, spec.analog_jamming
+        # Grouped dispatch: rows run in group order (`_perm`), results go
+        # back to lane order (`_inverse`) in `run`.  Each group's rows, its
+        # ScenarioParams and its defense kernel (None for the analog group)
+        # are fixed here, so a round only indexes them.
+        self._group_runs = None
+        if spec.any_digital:
+            groups = SC.build_lane_groups(spec.lane_codes)
+            self._perm, self._inverse = (
+                torch.as_tensor(ix, dtype=torch.long, device=self.device)
+                for ix in (groups.perm, groups.inverse))
+            sp_run = SC.permute_lanes(self._sp, self._perm)
+            self._group_runs = [
+                (slice(start, end), SC.permute_lanes(sp_run, slice(start, end)),
+                 None if code == SC._FLOA_CODE
+                 else DEF.make_group_defense_kernel(code, spec.gm_iters,
+                                                   plain=force_plain))
+                for code, start, end in groups.local_slices]
 
     def seeded_draws(self, d: int) -> Callable[[int], Dict[str, Tensor]]:
         """The default draw provider: per lane, three generators (gains,
@@ -268,7 +363,7 @@ class SweepEngine:
             return out
 
         g_h, g_z, g_jam = generators(0), generators(1), generators(2)
-        any_noise, any_jam = self.spec.any_noise, self.spec.any_jamming
+        noise, jam = self._noise, self._jam
 
         def normal_rows(gens):
             return torch.stack([torch.randn(d, generator=g, device=dev)
@@ -276,15 +371,15 @@ class SweepEngine:
 
         def draws(t: int) -> Dict[str, Optional[Tensor]]:
             return {"h_abs": SC.sample_gains(g_h, sp),
-                    "z": normal_rows(g_z) if any_noise else None,
-                    "jam": normal_rows(g_jam) if any_jam else None}
+                    "z": normal_rows(g_z) if noise else None,
+                    "jam": normal_rows(g_jam) if jam else None}
 
         return draws
 
     def _check_draw(self, draw, s: int, d: int) -> None:
         want = {"h_abs": (s, self._u),
-                "z": (s, d) if self.spec.any_noise else None,
-                "jam": (s, d) if self.spec.any_jamming else None}
+                "z": (s, d) if self._noise else None,
+                "jam": (s, d) if self._jam else None}
         for key, shape in want.items():
             if shape is None:
                 continue
@@ -297,11 +392,36 @@ class SweepEngine:
                     f"{x if x is None else (x.dtype, tuple(x.shape), x.device)}")
 
     def _round(self, w: Tensor, batch, draw, grads_fn, loss_lanes):
-        """One round over every lane: (w [S, D]) -> (w_new, loss, gn)."""
-        sp, plain = self._sp, self.force_plain
-        s, d = w.shape
+        """One round over every lane, in execution order: (w [S, D]) ->
+        (w_new, loss, gn)."""
         # 1. per-worker gradients, already flat: [S, U, D].
         grads = grads_fn(w, batch).contiguous()
+        if self._group_runs is None:
+            w_new, gagg = self._analog_step(w, grads, draw, self._sp)
+        else:
+            w_parts, g_parts = [], []
+            for rows, spg, kernel in self._group_runs:
+                if kernel is None:
+                    w_g, g_g = self._analog_step(
+                        w[rows], grads[rows], SC.permute_lanes(draw, rows),
+                        spg)
+                else:
+                    g_g = kernel(_digital_flip(grads[rows], spg), spg.def_trim,
+                                 spg.def_f, spg.def_multi)
+                    w_g = w[rows] - spg.alpha[:, None] * g_g
+                w_parts.append(w_g)
+                g_parts.append(g_g)
+            w_new, gagg = torch.cat(w_parts), torch.cat(g_parts)
+        gn = torch.sqrt(torch.sum(gagg * gagg, dim=-1))
+        loss = loss_lanes(w_new, batch)
+        return w_new, loss, gn
+
+    def _analog_step(self, w: Tensor, grads: Tensor, draw,
+                     sp: SC.ScenarioParams) -> Tuple[Tensor, Tensor]:
+        """Steps 2-6 on analog lanes: (w [S_a, D], grads [S_a, U, D]) ->
+        (w_new, gagg), with `draw` and `sp` for the same lanes."""
+        plain = self.force_plain
+        s, d = w.shape
         # 2. standardization handshake (eq. 3): per-worker stats, PS mean.
         gbar_i, eps2_i = S.flat_scalar_stats(grads, plain=plain)
         gbar, eps2 = S.global_stats(gbar_i, eps2_i)
@@ -309,14 +429,14 @@ class SweepEngine:
         # 3+4. channel draw + branchless power/attack coefficients.
         coeff, bias_w, jam_std, noise_std, _ = SC.scenario_coefficients(
             draw["h_abs"], sp, gbar, eps2)
-        # 5. receiver noise row (all-zero when no lane is noisy).
-        if self.spec.any_noise:
+        # 5. receiver noise row (all-zero when no analog lane is noisy).
+        if self._noise:
             noise_row = noise_std[:, None] * draw["z"]
         else:
             noise_row = torch.zeros((s, d), device=w.device)
         bias_row = bias_w * gbar
         # 6. OTA combine + PS update: fused, or combine + jam + update.
-        if not self.spec.any_jamming:
+        if not self._jam:
             w_new, gagg = batched_floa_step(w, sp.alpha, coeff, grads,
                                             noise_row, bias_row, eps,
                                             plain=plain)
@@ -325,9 +445,7 @@ class SweepEngine:
                                         eps, plain=plain)
             gagg = gagg + jam_std[:, None] * draw["jam"]
             w_new = w - sp.alpha[:, None] * gagg
-        gn = torch.sqrt(torch.sum(gagg * gagg, dim=-1))
-        loss = loss_lanes(w_new, batch)
-        return w_new, loss, gn
+        return w_new, gagg
 
     @torch.no_grad()
     def _eval(self, w: Tensor, unflatten_row) -> Dict[str, Tensor]:
@@ -354,6 +472,9 @@ class SweepEngine:
         if rounds < 1:
             raise ValueError("batches must hold at least one round")
         draws = self.seeded_draws(d) if draws is None else draws
+        grouped = self._group_runs is not None
+        if grouped:   # every lane starts from params0 anyway
+            w = SC.permute_lanes(w, self._perm)
 
         loss_fn = self.loss_fn
 
@@ -369,6 +490,8 @@ class SweepEngine:
             batch = {k: v[t] for k, v in batches.items()}
             draw = draws(t)
             self._check_draw(draw, num, d)
+            if grouped:
+                draw = SC.permute_lanes(draw, self._perm)
             w, loss, gn = self._round(w, batch, draw, grads_fn, loss_lanes)
             losses.append(loss)
             gns.append(gn)
@@ -379,14 +502,20 @@ class SweepEngine:
 
         keys = next((e.keys() for e in evals if e is not None), ())
         nan = torch.full((num,), float("nan"), device=dev)
-        metrics = {k: torch.stack([nan if e is None else e[k] for e in evals],
-                                  dim=1).cpu().numpy() for k in keys}
+        # Back to lane order: execution row self._inverse[i] is lane i.
+        inv = self._inverse if grouped else slice(None)
+
+        def lanes(rows: List[Tensor]) -> np.ndarray:
+            return SC.permute_lanes(torch.stack(rows, dim=1),
+                                    inv).cpu().numpy()
+
+        metrics = {k: lanes([nan if e is None else e[k] for e in evals])
+                   for k in keys}
+        w = SC.permute_lanes(w, inv)
         final = {k: v.clone() for k, v in unflatten_row(w).items()}
         return SweepResult(
-            names=self.spec.names, params=final,
-            loss=torch.stack(losses, dim=1).cpu().numpy(),
-            grad_norm=torch.stack(gns, dim=1).cpu().numpy(),
-            metrics=metrics)
+            names=self.spec.names, params=final, loss=lanes(losses),
+            grad_norm=lanes(gns), metrics=metrics)
 
 
 def run_sweep(loss_fn: Callable, params0, batches, spec: SweepSpec,

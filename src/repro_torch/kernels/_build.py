@@ -48,6 +48,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "grad_stats": {
         "grad_stats": [_P, _P, _L, _L, _I, _P],
     },
+    "defense_sort": {
+        "sort_columns": [_P, _P, _I, _I, _L, _I, _P],
+        "sort_columns_bitonic": [_P, _P, _I, _I, _I, _I, _L, _I, _P],
+    },
 }
 
 # dtype codes shared with the C entry points

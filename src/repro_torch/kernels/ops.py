@@ -11,6 +11,12 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.defense_sort import (
+    BITONIC_MAX_U,
+    UNROLL_MAX_U,
+    sort_columns,
+    sort_columns_bitonic,
+)
 from repro_torch.kernels.floa_aggregate import (
     floa_aggregate,
     floa_aggregate_batched,
@@ -24,6 +30,8 @@ KERNELS = {
     "floa_aggregate_batched": floa_aggregate_batched,
     "floa_aggregate": floa_aggregate,
     "grad_stats": grad_stats,
+    "sort_columns": sort_columns,
+    "sort_columns_bitonic": sort_columns_bitonic,
 }
 
 
@@ -42,3 +50,5 @@ floa_aggregate_ref = ref.floa_aggregate_ref
 floa_aggregate_batched_ref = ref.floa_aggregate_batched_ref
 floa_step_batched_ref = ref.floa_step_batched_ref
 grad_stats_ref = ref.grad_stats_ref
+sort_columns_ref = ref.sort_columns_ref
+sort_columns_batched_ref = ref.sort_columns_batched_ref

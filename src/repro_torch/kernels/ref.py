@@ -51,6 +51,18 @@ def floa_step_batched_ref(w: Tensor, coeffs: Tensor, grads: Tensor,
     return w_new.to(w.dtype), gagg
 
 
+def sort_columns_ref(x: Tensor) -> Tensor:
+    """[U, D] -> [U, D] ascending along the worker axis (dim 0): the plain
+    version of both coordinate-sort kernels (finite inputs; the kernels'
+    min/max compare-exchanges do not reproduce sort's NaN ordering)."""
+    return torch.sort(x, dim=0).values
+
+
+def sort_columns_batched_ref(x: Tensor) -> Tensor:
+    """[S, U, D] -> [S, U, D] ascending along the worker axis (dim 1)."""
+    return torch.sort(x, dim=1).values
+
+
 def grad_stats_ref(grads: Tensor) -> Tensor:
     """Per-row [R, 2] f32: (sum_d g, sum_d g^2) — the eq. (3) stats."""
     g = grads.float()

@@ -14,9 +14,10 @@ import torch
 
 from repro_torch import figures as TF
 from repro_torch.configs import PAPER_MLP
+from repro_torch.core import defenses
 from repro_torch.core.attacks import AttackType
 from repro_torch.core.power_control import Policy
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import defense_sort, ops, ref
 
 # tests/test_kernels.py: combine 1e-5 (f32) / 0.15 (bf16); stats 1e-4/1e-3.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 0.15}
@@ -67,7 +68,11 @@ def test_cuda_kernels_match_plain(cuda_device, s, u, d, dtype):
                                ref.grad_stats_ref(rows).cpu().numpy(),
                                rtol=1e-4, atol=1e-3)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {k: 1 for k in ops.KERNELS}
+    counts = ops.launch_counts()
+    assert counts == {k: int(k in ("floa_step_batched",
+                                   "floa_aggregate_batched",
+                                   "floa_aggregate", "grad_stats"))
+                      for k in ops.KERNELS}
 
 
 @pytest.mark.gpu
@@ -111,6 +116,112 @@ def test_kernel_route_matches_plain_route(cuda_device, fig):
     assert counts["floa_step_batched"] == (ROUNDS if fused else 0)
     assert counts["floa_aggregate_batched"] == (0 if fused else ROUNDS)
     np.testing.assert_allclose(rk.loss, rp.loss, rtol=1e-4)
+    for k in rk.params:
+        torch.testing.assert_close(rk.params[k], rp.params[k], rtol=1e-4,
+                                   atol=1e-6)
+
+
+def _normal(dev, seed, *shape, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dev, dtype)
+
+
+def _sorts_exactly(kernel, x):
+    """The kernel's output equals the plain sort bit for bit (finite
+    inputs), on the [S, U, D] form and, for one lane, the [U, D] form."""
+    got = kernel(x)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got, ref.sort_columns_batched_ref(x))
+    assert torch.equal(kernel(x[0]), ref.sort_columns_ref(x[0]))
+
+
+# tests/test_defense_sort.py's grids
+@pytest.mark.gpu
+@pytest.mark.parametrize("u", [1, 2, 7, 10, 16, 32])
+@pytest.mark.parametrize("d", [128, 2048, 2049, 5000])
+@pytest.mark.parametrize("s", [1, 3])
+def test_sort_columns_equals_sort(cuda_device, s, u, d):
+    ops.reset_launches()
+    _sorts_exactly(ops.sort_columns, _normal(cuda_device, u * d + s, s, u, d))
+    assert ops.launch_counts()["sort_columns"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u", [33, 100, 1000, 4097,
+                               defense_sort.BITONIC_MAX_U])
+@pytest.mark.parametrize("d", [1, 130, 515])
+def test_sort_columns_bitonic_equals_sort(cuda_device, u, d):
+    ops.reset_launches()
+    _sorts_exactly(ops.sort_columns_bitonic,
+                   _normal(cuda_device, u * 1000 + d, 2, u, d))
+    assert ops.launch_counts()["sort_columns_bitonic"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sort_columns", "sort_columns_bitonic"])
+def test_sorts_bf16_duplicates_presorted(cuda_device, kernel):
+    """bf16 sorts in f32 and casts back exactly; ties and already-sorted
+    columns are fixed points of both networks."""
+    fn = ops.KERNELS[kernel]
+    u = 10 if kernel == "sort_columns" else 100
+    _sorts_exactly(fn, _normal(cuda_device, 0, 2, u, 640,
+                               dtype=torch.bfloat16))
+    col = torch.tensor([2.0, 2.0, -1.0, 2.0] * (u // 4) + [0.5] * (u % 4))
+    dup = col[None, :, None].expand(1, u, 257).contiguous().to(cuda_device)
+    _sorts_exactly(fn, dup)
+    srt = ref.sort_columns_batched_ref(_normal(cuda_device, 3, 1, u, 384))
+    assert torch.equal(fn(srt), srt)
+
+
+@pytest.mark.gpu
+def test_sort_guards_raise_on_the_card(cuda_device):
+    with pytest.raises(ValueError, match="U<=32"):
+        ops.sort_columns(torch.zeros(33, 8, device=cuda_device))
+    with pytest.raises(ValueError, match="BITONIC_MAX_U"):
+        ops.sort_columns_bitonic(torch.zeros(
+            defense_sort.BITONIC_MAX_U + 1, 2, device=cuda_device))
+    # no sort kernel past the bitonic cap: the router refuses, never falls
+    # back to torch.sort on the card
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        defenses.sorted_columns(torch.zeros(
+            defense_sort.BITONIC_MAX_U + 1, 2, device=cuda_device))
+
+
+DEFENSE_GRIDS = {
+    # figures.run_defenses' lanes: U = 10, the odd-even sort
+    "defenses": (lambda mc: TF.defense_cases(mc), SMOKE,
+                 {"sort_columns": 2 * ROUNDS, "floa_step_batched": ROUNDS,
+                  "grad_stats": ROUNDS}),
+    # figures.worker_grid at U = 100: the bitonic sort, blocked Krum
+    "worker_grid_u100": (
+        lambda mc: TF.worker_grid(100, mc.dim),
+        dataclasses.replace(SMOKE, num_workers=100, train_samples=800),
+        {"sort_columns_bitonic": 2 * ROUNDS, "floa_step_batched": ROUNDS,
+         "grad_stats": ROUNDS}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", sorted(DEFENSE_GRIDS))
+def test_grouped_defense_sweep_matches_plain_route(cuda_device, grid):
+    """A grouped digital-defense sweep through the kernels and again through
+    their plain versions, from the same seeded draws."""
+    cases, mc, expect = DEFENSE_GRIDS[grid]
+    runs = []
+    for plain in (False, True):
+        ops.reset_launches()
+        engine, params, batches = TF.cases_engine(
+            cases(mc), ROUNDS, eval_every=2, mc=mc, device=cuda_device,
+            force_plain=plain)
+        runs.append(engine.run(params, batches))
+        counts = ops.launch_counts()
+        assert counts == {k: 0 if plain else expect.get(k, 0)
+                          for k in ops.KERNELS}
+    rk, rp = runs
+    assert np.isfinite(rk.loss).all()
+    np.testing.assert_allclose(rk.loss, rp.loss, rtol=1e-4)
+    np.testing.assert_allclose(rk.grad_norm, rp.grad_norm, rtol=1e-4)
     for k in rk.params:
         torch.testing.assert_close(rk.params[k], rp.params[k], rtol=1e-4,
                                    atol=1e-6)

@@ -135,9 +135,12 @@ def test_cpu_route_launches_nothing():
     tops.floa_aggregate_batched(c, g, z, bias, eps)
     tops.floa_aggregate(c[0], g[0], z[0], 0.5, 1.5)
     tops.grad_stats(g[0])
+    tops.sort_columns(g)
+    tops.sort_columns_bitonic(g[0])
     assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
     assert set(tops.KERNELS) == {"floa_step_batched", "floa_aggregate",
-                                 "floa_aggregate_batched", "grad_stats"}
+                                 "floa_aggregate_batched", "grad_stats",
+                                 "sort_columns", "sort_columns_bitonic"}
 
 
 def _bad_inputs():

@@ -14,12 +14,18 @@ frameworks sum the per-worker gradients and the combine in different
 orders, and a CI lane's 1/|h| channel inversion and the strongest
 attacker's 1/(gbar^2 + eps^2) amplitude scale those ulp-level differences
 up round by round; measured here they stay near 1e-7.
+
+The digital-defense grids (FLOA-BEV beside mean / median / trimmed mean /
+Krum / geometric median, and the mixed large-U worker grid at U = 70 on
+sweep_bench's tiny MLP, where Krum takes the blocked distances) run the
+same way under the grouped dispatch, the default plan on both sides.
 """
 import dataclasses
 import os
 import subprocess
 import sys
 import warnings
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +44,9 @@ with warnings.catch_warnings():
     from repro.data import FederatedSampler, make_dataset, worker_split
     from repro.models import init_mlp, mlp_accuracy
     from repro.models import mlp_loss as jmlp_loss
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from benchmarks.defenses_bench import DEFENSES as JDEFENSES
+    from benchmarks.sweep_bench import worker_grid as jworker_grid
 
 from repro_torch import figures as TF
 from repro_torch.configs import PAPER_MLP as TPAPER
@@ -87,9 +96,17 @@ def _jax_floa(cfg):
                                cfg.attack.byzantine_mask))
 
 
+def _jax_case(c):
+    """The port's ScenarioCase as the JAX package's."""
+    return JFL.ScenarioCase(c.name, _jax_floa(c.floa), c.alpha, seed=c.seed,
+                            defense=JC.DefenseSpec(
+                                **dataclasses.asdict(c.defense)))
+
+
 def _replay_draws(jspec, rounds, d):
     """The JAX engine's per-round draws, re-derived from its key schedule
-    (fl/sweep.py: split(keys) per round, split(sub, 3) per lane)."""
+    (fl/sweep.py: split(keys) per round, split(sub, 3) per lane).  Every
+    lane gets its draws; the grouped engines consume the analog lanes'."""
     sp, keys = jspec.stacked_params(), jspec.keys()
     normal = jax.vmap(lambda k: jax.random.normal(k, (d,), jnp.float32))
     out = []
@@ -115,8 +132,9 @@ def test_sweep_matches_jax_engine(fig):
     jcases = [JFL.ScenarioCase(c.name, _jax_floa(c.floa), c.alpha,
                                seed=c.seed) for c in tcases]
     tspec, jspec = TS.SweepSpec.build(tcases), JFL.SweepSpec.build(jcases)
-    assert (tspec.any_noise, tspec.any_jamming) == (jspec.any_noise,
-                                                    jspec.any_jamming)
+    # all-analog lanes: the port's analog gates are the JAX engine's
+    assert (tspec.analog_noise, tspec.analog_jamming) == (jspec.any_noise,
+                                                          jspec.any_jamming)
     x, y = make_dataset(MC.train_samples, seed=0)
     xt, yt = make_dataset(MC.test_samples, seed=99)
     batches = FederatedSampler(worker_split(x, y, MC.num_workers),
@@ -152,6 +170,93 @@ def test_sweep_matches_jax_engine(fig):
                                acc_j[~np.isnan(acc_j)], atol=0.011)
 
 
+def _assert_sweeps_match(got, want):
+    """Every lane finite in both engines (NaN == NaN would pass
+    assert_allclose without checking anything), then equal at RTOL."""
+    for run in (got, want):
+        assert np.isfinite(run.loss).all() and np.isfinite(run.grad_norm).all()
+        assert all(np.isfinite(np.asarray(v)).all()
+                   for v in run.params.values())
+    assert got.names == want.names
+    np.testing.assert_allclose(got.loss, want.loss, rtol=RTOL)
+    np.testing.assert_allclose(got.grad_norm, want.grad_norm, rtol=RTOL)
+    for k in want.params:
+        np.testing.assert_allclose(got.params[k].numpy(),
+                                   np.asarray(want.params[k]), rtol=RTOL,
+                                   atol=1e-7)
+
+
+def _tiny_mlp_problem(u):
+    """benchmarks/sweep_bench.py::bench_workers' model: relu(x w1) w2, MSE,
+    d_in 16, d_h 4 (D = 68), one sample per worker per round."""
+    d_in, d_h = 16, 4
+    k = jax.random.PRNGKey(0)
+    jp = {"w1": jax.random.normal(k, (d_in, d_h)),
+          "w2": jax.random.normal(k, (d_h, 1))}
+    rng = np.random.default_rng(u)
+    batches = {"x": rng.normal(size=(ROUNDS, u, d_in)).astype(np.float32),
+               "y": rng.normal(size=(ROUNDS, u, 1)).astype(np.float32)}
+
+    def jloss(params, b):
+        pred = jax.nn.relu(b["x"] @ params["w1"]) @ params["w2"]
+        return jnp.mean((pred - b["y"]) ** 2)
+
+    def tloss(params, b):
+        pred = torch.relu(b["x"] @ params["w1"]) @ params["w2"]
+        return torch.mean((pred - b["y"]) ** 2)
+
+    return jp, batches, jloss, tloss, d_in * d_h + d_h
+
+
+@pytest.mark.parametrize("grid", ["defenses", "worker_grid_u70"])
+def test_grouped_sweep_matches_jax_engine(grid):
+    """The digital-defense grids through both engines' grouped dispatch,
+    from the same weights, batches and draws."""
+    if grid == "defenses":
+        tcases = TF.defense_cases(TPAPER_SMOKE)
+        x, y = make_dataset(MC.train_samples, seed=0)
+        batches = FederatedSampler(worker_split(x, y, MC.num_workers),
+                                   MC.batch_per_worker,
+                                   seed=1).stack_rounds(ROUNDS)
+        jp = init_mlp(jax.random.PRNGKey(0), d_hidden=MC.d_hidden)
+        jloss, tloss = jmlp_loss, TM.mlp_loss
+        d = sum(int(v.size) for v in jp.values())
+    else:
+        # lr 0.01, not the grid's 0.05: at 0.05 the analog BEV lane of this
+        # MSE regression diverges to NaN by round 3 in both engines
+        jp, batches, jloss, tloss, d = _tiny_mlp_problem(70)
+        tcases = [dataclasses.replace(c, alpha=0.01)
+                  for c in TF.worker_grid(70, d)]
+    jspec = JFL.SweepSpec.build([_jax_case(c) for c in tcases])
+    tspec = TS.SweepSpec.build(tcases)
+    for gate in ("lane_codes", "digital_codes", "any_digital", "all_digital",
+                 "analog_noise", "analog_jamming", "gm_iters"):
+        assert getattr(tspec, gate) == getattr(jspec, gate), gate
+    want = JFL.SweepEngine(jloss, jspec).run(jp, batches)
+    tp = TM.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, "cpu")
+    tops.reset_launches()
+    got = TS.SweepEngine(tloss, tspec, device="cpu").run(
+        tp, batches, draws=_replay_draws(jspec, ROUNDS, d))
+    assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
+    _assert_sweeps_match(got, want)
+
+
+def test_defense_grids_mirror_the_benchmarks():
+    """figures.defense_cases / worker_grid are benchmarks/defenses_bench.py's
+    and sweep_bench.py's grids: the same defenses, hyper-parameters,
+    attackers, policies, noise and seeds."""
+    assert [(n, dataclasses.asdict(s)) for n, s in TF.DEFENSES] == [
+        (n, dataclasses.asdict(s)) for n, s in JDEFENSES]
+    for u in (10, 1000):
+        got = [_jax_case(c) for c in TF.worker_grid(u, 68)]
+        assert got == jworker_grid(u, 68)
+    cases = TF.defense_cases(TPAPER_SMOKE)
+    assert [c.name for c in cases] == ["FLOA-BEV@N3"] + [
+        f"digital-{n}@N3" for n, _ in JDEFENSES]
+    assert all(c.floa.attack.byzantine_mask[:4] == (True, True, True, False)
+               for c in cases)
+
+
 def test_run_figure_on_cpu_learns_and_is_deterministic():
     """The figures' entry point end to end at smoke size on the CPU: the
     plain route, no kernel launched, losses fall, two runs agree exactly
@@ -175,7 +280,8 @@ def test_run_figure_on_cpu_learns_and_is_deterministic():
 
 def test_port_imports_no_jax():
     code = ("import sys, repro_torch.fl.sweep, repro_torch.figures, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.core.defenses, "
+            "repro_torch.kernels.defense_sort; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('clean')")
@@ -218,12 +324,14 @@ class _Plan:
     flat_state: bool = True
     mesh: object = None
     strict_numerics: bool = False
+    grouped_dispatch: bool = True
     chunk_rounds: object = None
     checkpoint_dir: object = None
 
 
 REFUSED_LANES = {
-    "defense_median": dict(defense="median"),
+    "digital_participants": dict(defense=TF.DefenseSpec(name="median"),
+                                 participants=5),
     "participants": dict(participants=5),
     "markov_fading": dict(markov_rho=0.5),
     "colluding": dict(attack=AttackType.COLLUDING),
@@ -235,6 +343,7 @@ REFUSED_PLANS = {
     "checkpoint_dir": _Plan(checkpoint_dir="/nonexistent"),
     "strict_numerics": _Plan(strict_numerics=True),
     "tree_state": _Plan(flat_state=False),
+    "switch_dispatch": _Plan(grouped_dispatch=False),
 }
 
 
@@ -242,6 +351,21 @@ REFUSED_PLANS = {
 def test_out_of_slice_lanes_are_refused(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TS.SweepSpec.build([_case(**REFUSED_LANES[name])])
+
+
+def test_spec_validates_digital_lanes():
+    """SweepSpec checks each digital lane's DefenseSpec against U and makes
+    the geometric-median lanes share gm_iters, as the JAX spec does."""
+    gm = lambda it: _case(defense=TF.DefenseSpec(  # noqa: E731
+        name="geometric_median", gm_iters=it))
+    with pytest.raises(ValueError, match="gm_iters"):
+        TS.SweepSpec.build([gm(4), gm(8)])
+    assert TS.SweepSpec.build([gm(4), gm(4)]).gm_iters == 4
+    with pytest.raises(ValueError, match="trim"):
+        TS.SweepSpec.build([_case(defense=TF.DefenseSpec(
+            name="trimmed_mean", trim=MC.num_workers // 2))])
+    with pytest.raises(TypeError, match="DefenseSpec"):
+        TS.SweepSpec.build([_case(defense="median")])
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED_PLANS))
