@@ -4,7 +4,8 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
-                                      # defense grid and U = 1000 grid
+                                      # defense grid, U = 1000 grid and
+                                      # qwen3-4b serve decode step
 
 Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
 
@@ -14,8 +15,11 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes and at awkward ones (D off any tile, U = 32,
               bf16, S = 1; for the sorts U = 7, 33, 100, 4097 and the
-              bitonic cap, 8192), with times: kernel, plain, one library call, and the
-              bound (bytes over 3.35 TB/s vs f32 operations over
+              bitonic cap, 8192; for decode attention decode_32k's
+              per-layer shape [128, 32768], the long-cache and serve
+              shapes, S = 777, MQA, MHA, dh 32/64, f32, pos = 0 and
+              mid-cache), with times: kernel, plain, one library call, and
+              the bound (bytes over 3.35 TB/s vs f32 operations over
               67 TFLOP/s, the larger).  The sorts must equal torch.sort
               exactly.
   4-6. main path through `repro_torch.figures.run_figure` / SweepEngine at
@@ -34,7 +38,20 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               phases 4-6 are.
   10. parity  the defense grid through the kernels and again through the
               plain versions, from the same draws.
-  11. the `kernels` line; 12. the last line, {"ok": true, "device": ...}.
+  11. serve   the serving path, `repro_torch.launch.serve.serve`, for
+              qwen3-4b at full width in bf16 (36 layers, 4.41 B random
+              parameters): batch 8, 32 prompt tokens decoded into the cache,
+              32 generated greedily; one decode_attention launch per layer
+              per step.
+  12. parity  the serve phase's 64 tokens again, teacher-forced, through the
+              kernel and through its plain version (bf16, full depth).
+  13. long    8 decode steps at pos 32760-32767 against caches of 32768
+              positions (decode_32k's length; its batch of 128 cut to 8 to
+              fit 80 GB), filled with seeded random bf16 as if prefilled;
+              ms per step against the bytes bound.
+  14. parity  the same token sequence through both routes in f32 at full
+              width and 2 layers, rtol 1e-4.
+  15. the `kernels` line; 16. the last line, {"ok": true, "device": ...}.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
@@ -56,6 +73,29 @@ F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
 ROUNDS = 20
 ROUNDS_LARGE_U = 5           # the U = 1000 grid: keeps the script short
 RTOL_WHOLE_RUN = 1e-4        # kernel route vs plain route over 20 rounds
+LM_ARCH = "qwen3-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
+LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
+# decode attention, kernel vs plain on the same inputs: f32 differs in
+# summation order and expf only, (rtol, atol) = (1e-5, 1e-5).  A bf16 row
+# is held against the plain version on its inputs upcast to f32: the kernel
+# accumulates in f32 and rounds once, at the output (2^-9 relative), so
+# rtol 1e-2 with atol 1e-2 of the mean |output|.  The outputs are small
+# (about sqrt(e / S), 0.009 at S = 32768), so an atol fixed in absolute
+# terms would pass an all-zero output; this one fails it 100x over.
+DECODE_TOL_F32 = (1e-5, 1e-5)
+DECODE_REL_BF16 = 1e-2
+# SDPA, the library yardstick, is checked against the same f32 reference;
+# its fused bf16 kernels round the probabilities to bf16 before P.V.
+SDPA_REL_BF16 = 4e-2
+# Teacher-forced qwen3-4b logits, kernel route vs plain route, bf16, 36
+# layers: the plain route rounds each layer's scores and probabilities to
+# bf16 (2^-9 relative), which the residual stream carries through 36
+# layers, and both routes round the logits (std ~0.9, |max| ~5) to bf16
+# (an ulp is 2^-8 relative, 0.03 at 5).  Predicted max |diff| ~0.05, mean
+# ~0.005; the bounds leave 5x and 4x of room, and a wrong kernel (a wrong
+# head, mask or scale) moves the logits by O(their std).
+BF16_LOGIT_MAX, BF16_LOGIT_MEAN = 0.25, 0.02
 
 
 def emit(phase: str, **fields) -> None:
@@ -190,6 +230,90 @@ def kernel_cases(torch, ops):
             lambda a=x: torch.sort(a, dim=1),
             2 * s * u * d * (torch.finfo(dt).bits // 8),
             s * d * sort_ops(u, name == "sort_columns_bitonic"), "exact"))
+    return cases + decode_cases(torch, ops)
+
+
+def decode_bytes_flops(b, h, kv, dh, pos, eb) -> tuple:
+    """Bytes decode attention must move (q in, out, K and V up to pos) and
+    its f32 operations (q.k and p.v, 2 each per element, and ~5 for the
+    softmax per score), for element size eb."""
+    n = pos + 1
+    return (2 * b * h * dh * eb + 2 * b * n * kv * dh * eb,
+            4 * b * h * n * dh + 5 * b * h * n)
+
+
+def sdpa_call(torch, q, k, v, pos, want, tol):
+    """The library yardstick: one `scaled_dot_product_attention` over the
+    positions <= pos, GQA in the call (enable_gqa), restricted to the
+    fused backends (the math backend would repeat K/V per query head).
+    None where no fused backend takes the inputs.  Checked against the
+    plain version first."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    args = (q[:, :, None], k[:, :pos + 1].transpose(1, 2),
+            v[:, :pos + 1].transpose(1, 2))
+
+    def fn():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(*args, enable_gqa=True)
+    try:
+        got = fn()[:, :, 0]
+    except RuntimeError:
+        return None
+    if not torch.allclose(got.float(), want.float(), rtol=tol[0],
+                          atol=tol[1]):
+        raise AssertionError("scaled_dot_product_attention disagrees with "
+                             "the plain decode attention")
+    return fn
+
+
+def decode_f32_ref(torch, ops, q, k, v, pos_t, rows: int = 8):
+    """The plain decode attention on q, k, v upcast to f32, a few batch rows
+    at a time (decode_32k's K and V would take 34 GB at once in f32)."""
+    return torch.cat([ops.decode_attention(
+        q[i:i + rows].float(), k[i:i + rows].float(), v[i:i + rows].float(),
+        pos_t, plain=True) for i in range(0, q.shape[0], rows)])
+
+
+def decode_cases(torch, ops):
+    """decode_attention's phase-3 rows; pos is a device tensor, as on the
+    serving path.  Each row carries its f32 reference (see DECODE_TOL_F32
+    and DECODE_REL_BF16) as a ninth element."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for b, s, h, kv, dh, dt, pos, main in [
+            (128, LONG_S, 32, 8, 128, bf16, LONG_S - 1, False),  # decode_32k
+            (LONG_BATCH, LONG_S, 32, 8, 128, bf16, LONG_S - 1, True),
+            (SERVE_BATCH, 64, 32, 8, 128, bf16, 63, False),   # serve, last
+            (SERVE_BATCH, 64, 32, 8, 128, bf16, 40, False),   # mid-cache
+            (2, 777, 8, 8, 128, bf16, 774, False),            # MHA, ragged
+            (1, 512, 4, 1, 64, bf16, 509, False),             # MQA
+            (1, 513, 12, 2, 32, bf16, 512, False),            # G = 6, dh 32
+            (2, 1024, 8, 2, 64, f32, 1021, False),
+            (LONG_BATCH, LONG_S, 32, 8, 128, f32, 16000, False),
+            (LONG_BATCH, 4096, 32, 8, 128, bf16, 0, False)]:  # pos = 0
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+                   for shape in [(b, h, dh), (b, s, kv, dh), (b, s, kv, dh)])
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        want = decode_f32_ref(torch, ops, q, k, v, pos_t)
+        typical = float(want.abs().mean())
+        if dt == f32:
+            tol = sdpa_tol = DECODE_TOL_F32
+        else:
+            tol = (DECODE_REL_BF16, DECODE_REL_BF16 * typical)
+            sdpa_tol = (SDPA_REL_BF16, SDPA_REL_BF16 * typical)
+        nbytes, flops = decode_bytes_flops(b, h, kv, dh, pos,
+                                           torch.finfo(dt).bits // 8)
+        cases.append((
+            "decode_attention",
+            f"B={b} S={s} H={h} KV={kv} dh={dh} {str(dt)[6:]} pos={pos}",
+            main, lambda p, a=(q, k, v, pos_t): ops.decode_attention(
+                *a, plain=p),
+            sdpa_call(torch, q, k, v, pos, want, sdpa_tol), nbytes, flops,
+            tol, lambda w=want: w))
     return cases
 
 
@@ -241,19 +365,18 @@ def whole_run_check(name, rk, rp) -> None:
                              f"disagree")
 
 
-def profile_phase(torch, build) -> dict:
-    """Where a warm sweep spends its time: torch.profiler over one full run
-    of the engine that build() returns, device kernels grouped by name, and
-    the device's busy share of the run's wall time (one stream, so kernel
+def profile_phase(torch, fn) -> dict:
+    """Where a warm call of fn() spends its time: torch.profiler over one
+    call after a warm-up call, device kernels grouped by name, and the
+    device's busy share of the call's wall time (one stream, so kernel
     times add up)."""
     from torch.profiler import ProfilerActivity, profile
-    engine, params, batches = build()
-    engine.run(params, batches)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run(params, batches)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -264,11 +387,42 @@ def profile_phase(torch, build) -> dict:
                                  n + 1)
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3),
             "kernel_launches": sum(n for _, n in kernels.values()),
             "top_kernels": [{"name": k[:120], "ms": ms, "count": n}
-                            for k, (ms, n) in top]}
+                            for k, (ms, n) in top],
+            "top_host_ops": [{"name": e.key[:80], "count": e.count,
+                              "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                             for e in host[:12]]}
+
+
+def engine_run(build):
+    """fn() for profile_phase: one full run of the engine build() returns."""
+    engine, params, batches = build()
+    return lambda: engine.run(params, batches)
+
+
+def lm_params(torch, cfg):
+    """cfg's random weights on the card, drawn as the serve phase draws
+    them (seed 0), so both give the same model."""
+    from repro_torch.launch.steps import init_model
+    return init_model(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+
+
+def teacher_forced(torch, cfg, params, seq, plain):
+    """Logits [steps, B, Vp] of cfg's decode steps fed seq [B, steps] one
+    position at a time from empty caches (the kernel route, or its plain
+    version)."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import transformer as LM
+    step, _ = make_decode_step(cfg, plain=plain)
+    b, n = seq.shape
+    caches = LM.init_caches(cfg, b, n, device="cuda")
+    positions = torch.arange(n, dtype=torch.int32, device="cuda")
+    return torch.stack([step(params, caches, seq[:, i:i + 1],
+                             positions[i])[0][:, 0] for i in range(n)])
 
 
 def main() -> int:
@@ -302,13 +456,14 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     table = {}
-    for name, label, main_shape, run, lib, nbytes, flops, tol in \
+    for name, label, main_shape, run, lib, nbytes, flops, tol, *ref in \
             kernel_cases(torch, ops):
-        got, want = run(False), run(True)
+        got = run(False)
+        want = ref[0]() if ref else run(True)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
-        abs_err, rel_err = 0.0, 0.0
+        abs_err, rel_err, typical = 0.0, 0.0, 0.0
         for g, w in zip(got, want):
             if tol == "exact" and not torch.equal(g, w):
                 raise AssertionError(f"{name} [{label}] is not equal to "
@@ -319,18 +474,27 @@ def main() -> int:
                                      f"plain version at tol {tol}")
             a, r = max_errors(torch, g, w)
             abs_err, rel_err = max(abs_err, a), max(rel_err, r)
+            typical = max(typical, float(w.float().abs().mean()))
         b_ms, b_by = bound(nbytes, flops)
+        big = nbytes > 2e9       # the decode_32k row: 17 GB of K and V
+        iters = 5 if big else 50
         row = {"kernel": name, "shape": label, "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "rtol_atol": tol,
-               "ms": time_ms(torch, lambda: run(False)),
-               "call_ms": call_ms(torch, lambda: run(False)),
-               "plain_ms": time_ms(torch, lambda: run(True)),
-               "library_ms": None if lib is None else time_ms(torch, lib),
+               "max_rel_err": rel_err, "mean_abs_want": typical,
+               "err_over_typical": abs_err / max(typical, 1e-30),
+               "rtol_atol": tol,
+               "ms": time_ms(torch, lambda: run(False), iters),
+               "call_ms": call_ms(torch, lambda: run(False),
+                                  10 if big else 200),
+               "plain_ms": time_ms(torch, lambda: run(True), iters),
+               "library_ms": None if lib is None else time_ms(torch, lib,
+                                                              iters),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "flops": flops}
         emit("kernel_check", **row)
         if main_shape:
             table[name] = row
+    del run, lib, got, want
+    torch.cuda.empty_cache()
 
     # 5's, 8's and 9's sweeps, profiled alone: `chip_smoke.py --profile`
     fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
@@ -341,6 +505,8 @@ def main() -> int:
     mc_u = dataclasses.replace(PAPER_MLP.full(), num_workers=1000,
                                train_samples=32000)
     grid_u = figures.worker_grid(1000, mc_u.dim)
+    from repro_torch.configs import get_config
+    lm = get_config(LM_ARCH)
     if sys.argv[1:] == ["--profile"]:
         for sweep, rounds, build in [
                 ("fig3", ROUNDS, lambda: figures.figure_engine(
@@ -351,7 +517,23 @@ def main() -> int:
                  lambda: figures.cases_engine(grid_u, ROUNDS_LARGE_U,
                                               mc=mc_u, device="cuda"))]:
             emit("profile", sweep=sweep, rounds=rounds,
-                 **profile_phase(torch, build))
+                 **profile_phase(torch, engine_run(build)))
+        # one warm decode step of the serve phase: qwen3-4b, batch 8, the
+        # 41st position of a 64-position cache
+        from repro_torch.launch.steps import make_decode_step
+        from repro_torch.models import transformer as LM
+        params = lm_params(torch, lm)
+        caches = LM.init_caches(lm, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN,
+                                device="cuda")
+        positions = torch.arange(SERVE_PROMPT + SERVE_GEN,
+                                 dtype=torch.int32, device="cuda")
+        step, _ = make_decode_step(lm)
+        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device="cuda")
+        for i in range(40):
+            step(params, caches, tok, positions[i])
+        emit("profile", sweep="serve_decode_step", rounds=1,
+             **profile_phase(torch, lambda: step(params, caches, tok,
+                                                 positions[40])))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -443,12 +625,163 @@ def main() -> int:
         raise AssertionError(f"the plain route launched kernels: "
                              f"{ops.launch_counts()}")
     whole_run_check("kernel_vs_plain_defenses", rd, rdp)
+    del rd, rdp, r1, rk, rp
+    torch.cuda.empty_cache()
+
+    # 11. the serving path at full width: qwen3-4b in bf16, batch 8
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, param_count
+    from repro_torch.models.common import count_params
+    n_steps = SERVE_PROMPT + SERVE_GEN
+    n_params = param_count(lm)
+    torch.cuda.reset_peak_memory_stats()
+    rs, seconds, counts = run_phase(
+        torch, ops, "main_serve",
+        lambda: serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                      device="cuda"),
+        {**{k: 0 for k in ops.KERNELS},
+         "decode_attention": lm.n_layers * n_steps})
+    for k, v in counts.items():
+        main_launches[k] += v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (torch.isfinite(rs.logits).all()
+            and 0 <= int(rs.tokens.min()) <= int(rs.tokens.max())
+            < lm.vocab_size):
+        raise AssertionError("serve: non-finite logits or tokens outside "
+                             "the vocabulary")
+    steady = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda")
+    if not torch.equal(steady.tokens, rs.tokens):
+        raise AssertionError("serve: two runs from one seed differ")
+    steady_ms = steady.decode_s * 1e3 / SERVE_GEN
+    emit("main_serve", arch=lm.name, dtype="bfloat16", layers=lm.n_layers,
+         params=n_params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+         gen=SERVE_GEN, run_seconds=seconds,
+         prefill_s=steady.prefill_s, decode_s=steady.decode_s,
+         prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / steady.prefill_s,
+         decode_tok_per_s=steady.tok_per_s,
+         ms_per_step=steady_ms,
+         first_run={"prefill_s": rs.prefill_s, "decode_s": rs.decode_s},
+         peak_memory_gb=peak_gb, launches=counts,
+         sample_tokens=rs.tokens[0, :12].tolist())
+    del steady
+
+    # 12. parity, bf16, full depth: the serve phase's 64 tokens teacher-
+    # forced through the kernel and through its plain version
+    params = lm_params(torch, lm)
+    seq = torch.cat([rs.prompts, rs.tokens], dim=1)
+    ops.reset_launches()
+    lk = teacher_forced(torch, lm, params, seq, False)
+    lp = teacher_forced(torch, lm, params, seq, True)
+    if ops.launch_counts()["decode_attention"] != lm.n_layers * n_steps:
+        raise AssertionError(f"parity: {ops.launch_counts()}")
+    diff = (lk.float() - lp.float()).abs()
+    top2 = lk[..., :lm.vocab_size].float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * BF16_LOGIT_MAX
+    same = (lk[..., :lm.vocab_size].argmax(-1)
+            == lp[..., :lm.vocab_size].argmax(-1))
+    parity = {"max_abs_diff": float(diff.max()),
+              "mean_abs_diff": float(diff.mean()),
+              "logit_std": float(lk.float().std()),
+              "max_abs_vs_serve": float((lk.float()
+                                         - rs.logits.float()).abs().max()),
+              "argmax_agree": float(same.float().mean()),
+              "clear_steps": int(clear.sum()),
+              "clear_agree": bool(same[clear].all())}
+    ok = (parity["max_abs_diff"] <= BF16_LOGIT_MAX
+          and parity["mean_abs_diff"] <= BF16_LOGIT_MEAN
+          and parity["clear_agree"])
+    emit("kernel_vs_plain_serve_bf16", layers=lm.n_layers, steps=n_steps,
+         tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
+         ok=ok, **parity)
+    if not ok:
+        raise AssertionError("bf16 serve: kernel route and plain route "
+                             "disagree")
+    del lk, lp, diff
+    # the same step's device time without the host: one decode step at
+    # the serve phase's last position, captured in a CUDA graph (pos is
+    # read on the device, so the step needs no host sync)
+    from repro_torch.models import transformer as LM
+    step, _ = make_decode_step(lm)
+    caches = LM.init_caches(lm, SERVE_BATCH, n_steps, device="cuda")
+    positions = torch.arange(n_steps, dtype=torch.int32, device="cuda")
+    emit("serve_step_device", batch=SERVE_BATCH, cache_len=n_steps,
+         graph_ms=time_ms(torch, lambda: step(params, caches, seq[:, -1:],
+                                              positions[-1]), 1),
+         eager_ms=steady_ms, bound_ms=2 * (
+             count_params(params) - params["embed"].numel()
+             + SERVE_BATCH * lm.d_model) / HBM_BYTES_PER_S * 1e3)
+    del caches
+
+    # 13. long-cache decode at full width: 8 steps against 32768 positions
+    caches = LM.init_caches(lm, LONG_BATCH, LONG_S, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(1)
+    for layer in [*caches["blocks"]["b0"]["k"], *caches["blocks"]["b0"]["v"]]:
+        layer.normal_(generator=gen)
+    positions = torch.arange(LONG_S, dtype=torch.int32, device="cuda")
+    tokens = torch.as_tensor(sample_tokens(LONG_BATCH, LONG_STEPS,
+                                           lm.vocab_size, seed=2),
+                             dtype=torch.long, device="cuda")
+    step, meta = make_decode_step(lm, "decode_32k")
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(LONG_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+
+    def long_run():
+        events[0].record()
+        for i in range(LONG_STEPS):
+            logits, _ = step(params, caches, tokens[:, i:i + 1],
+                             positions[LONG_S - LONG_STEPS + i])
+            events[i + 1].record()
+        return logits
+
+    logits, seconds, counts = run_phase(
+        torch, ops, "main_long_cache", long_run,
+        {**{k: 0 for k in ops.KERNELS},
+         "decode_attention": lm.n_layers * LONG_STEPS})
+    for k, v in counts.items():
+        main_launches[k] += v
+    if not torch.isfinite(logits).all():
+        raise AssertionError("long-cache decode: non-finite logits")
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(LONG_STEPS)]
+    cache_bytes = (2 * lm.n_layers * LONG_BATCH * LONG_S * lm.n_kv_heads
+                   * lm.hd * 2)
+    weight_bytes = 2 * (count_params(params) - params["embed"].numel()
+                        + LONG_BATCH * lm.d_model)
+    long_bound = (cache_bytes + weight_bytes) / HBM_BYTES_PER_S * 1e3
+    emit("main_long_cache", arch=lm.name, batch=LONG_BATCH, cache_len=LONG_S,
+         steps=LONG_STEPS, step_ms=step_ms,
+         ms_per_step=sum(step_ms[1:]) / (LONG_STEPS - 1),
+         graph_ms=time_ms(torch, lambda: step(
+             params, caches, tokens[:, -1:], positions[-1]), 1),
+         bound_ms=long_bound, cache_gb=cache_bytes / 1e9,
+         weights_read_gb=weight_bytes / 1e9, run_seconds=seconds,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         window=meta["window"], launches=counts)
+    del caches, params, logits
+    torch.cuda.empty_cache()
+
+    # 14. parity, f32, full widths, 2 layers
+    lm32 = dataclasses.replace(lm, n_layers=2, dtype=torch.float32)
+    params32 = lm_params(torch, lm32)
+    lk = teacher_forced(torch, lm32, params32, seq, False)
+    lp = teacher_forced(torch, lm32, params32, seq, True)
+    ok = torch.allclose(lk, lp, rtol=RTOL_WHOLE_RUN, atol=1e-5)
+    emit("kernel_vs_plain_serve_f32", layers=2, steps=n_steps,
+         rtol=RTOL_WHOLE_RUN, atol=1e-5, ok=bool(ok),
+         max_abs_diff=max_errors(torch, lk, lp)[0],
+         max_rel_diff=max_errors(torch, lk, lp)[1])
+    if not ok:
+        raise AssertionError("f32 serve: kernel route and plain route "
+                             "disagree")
+    del lk, lp, params32
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
-    # 11. the kernel list
+    # 15. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",
@@ -460,7 +793,9 @@ def main() -> int:
                "sort_columns": ("defense_sort.cu",
                                 "src/repro/kernels/defense_sort.py:105"),
                "sort_columns_bitonic": ("defense_sort.cu",
-                                        "src/repro/kernels/defense_sort.py:192")}
+                                        "src/repro/kernels/defense_sort.py:192"),
+               "decode_attention": ("decode_attention.cu",
+                                    "src/repro/kernels/decode_attention.py:72")}
     kernels = []
     for name, (src, replaces) in sources.items():
         row = table[name]

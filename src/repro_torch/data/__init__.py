@@ -1,5 +1,9 @@
-"""Data of the port: the synthetic digits and the federated sampler."""
+"""Data of the port: the synthetic digits, the federated sampler and the
+synthetic token streams."""
 from repro_torch.data.pipeline import FederatedSampler
 from repro_torch.data.synthetic_digits import make_dataset, worker_split
+from repro_torch.data.text import (make_markov_tables, sample_tokens,
+                                   stack_token_rounds)
 
-__all__ = ["FederatedSampler", "make_dataset", "worker_split"]
+__all__ = ["FederatedSampler", "make_dataset", "make_markov_tables",
+           "sample_tokens", "stack_token_rounds", "worker_split"]

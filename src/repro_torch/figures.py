@@ -27,9 +27,9 @@ from repro_torch.core.channel import ChannelConfig, noise_std_for_snr
 from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.core.scenario import DefenseSpec
 from repro_torch.data import FederatedSampler, make_dataset, worker_split
+from repro_torch.device import resolve_device
 from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepResult,
-                                  SweepSpec, as_device_array,
-                                  resolve_device)
+                                  SweepSpec, as_device_array)
 from repro_torch.models import init_mlp, mlp_accuracy, mlp_loss
 
 

@@ -77,6 +77,7 @@ from repro_torch.core.aggregation import (
 )
 from repro_torch.core.attacks import DIRECTIONAL_ATTACKS, AttackType
 from repro_torch.core.power_control import Policy
+from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -102,21 +103,6 @@ def as_device_array(x, device) -> Tensor:
     if np.issubdtype(x.dtype, np.floating):
         x = x.astype(np.float32)
     return torch.as_tensor(x, device=device)
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device.  'cuda' without a card raises: the port never
-    falls back to the CPU on its own (pass device='cpu' for that)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run the plain PyTorch versions "
-                "on the CPU")
-        if dev.index is None:   # tensors report an indexed device
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

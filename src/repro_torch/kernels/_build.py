@@ -52,6 +52,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sort_columns": [_P, _P, _I, _I, _L, _I, _P],
         "sort_columns_bitonic": [_P, _P, _I, _I, _I, _I, _L, _I, _P],
     },
+    "decode_attention": {
+        "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
+        "decode_attention_occupancy": [_I, _I],
+    },
 }
 
 # dtype codes shared with the C entry points
@@ -150,8 +155,7 @@ def check_tensor(name: str, x, shape: tuple, dtypes, device) -> None:
          f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     need(x.dtype in dtypes, f"{name} has dtype {x.dtype}, expected one of "
          f"{[str(d) for d in dtypes]}")
-    need(x.device == device,
-         f"{name} is on {x.device}, the gradient slab on {device}")
+    need(x.device == device, f"{name} is on {x.device}, expected {device}")
     need(x.is_contiguous(), f"{name} must be contiguous")
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.defense_sort import (
     BITONIC_MAX_U,
     UNROLL_MAX_U,
@@ -32,6 +33,7 @@ KERNELS = {
     "grad_stats": grad_stats,
     "sort_columns": sort_columns,
     "sort_columns_bitonic": sort_columns_bitonic,
+    "decode_attention": decode_attention,
 }
 
 
@@ -52,3 +54,4 @@ floa_step_batched_ref = ref.floa_step_batched_ref
 grad_stats_ref = ref.grad_stats_ref
 sort_columns_ref = ref.sort_columns_ref
 sort_columns_batched_ref = ref.sort_columns_batched_ref
+decode_attention_ref = ref.decode_attention_ref

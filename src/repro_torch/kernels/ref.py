@@ -7,6 +7,8 @@ kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 Tensor = torch.Tensor
@@ -67,3 +69,24 @@ def grad_stats_ref(grads: Tensor) -> Tensor:
     """Per-row [R, 2] f32: (sum_d g, sum_d g^2) — the eq. (3) stats."""
     g = grads.float()
     return torch.stack([g.sum(dim=1), (g * g).sum(dim=1)], dim=1)
+
+
+def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos) -> Tensor:
+    """GQA decode: one query token against a KV cache.
+
+    q [B, H, dh]; k/v [B, S, KV, dh]; pos a scalar (Python int or 0-d
+    tensor; cache positions > pos are masked with -1e30).  Returns
+    [B, H, dh].  As in the JAX oracle, the scores are the product in the
+    input dtype, then f32 and scaled by 1/sqrt(dh); the softmax is f32 and
+    the probabilities are cast to v's dtype before the PV product.
+    """
+    b, h, dh = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k).float() / math.sqrt(dh)
+    future = torch.arange(s, device=q.device) > torch.as_tensor(
+        pos, device=q.device)
+    scores = scores.masked_fill(future, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs.to(v.dtype), v)
+    return out.reshape(b, h, dh)

@@ -1,0 +1,147 @@
+"""Shared model substrate of the port: the config, a parameter initialiser,
+RMS norm and RoPE.
+
+The counterpart of `repro/models/common.py` for the serving path.  The JAX
+package's sharding machinery (PartitionSpecs, `shard_hint`, `maybe_scan`)
+has no counterpart: the port runs on one card and loops over layers in
+Python.  Parameters are nested dicts of tensors in the JAX layout, so
+`models/transformer.py::params_from_jax` carries JAX weights across as
+they are.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The JAX `ModelConfig` without its XLA execution knobs (model_parallel,
+    remat, scan_layers, unroll_for_analysis, lm_head_chunk, skip_shapes);
+    `dtype` is a torch dtype.  The sub-configs (moe, mla, ssm, encdec,
+    frontend) are carried only as None here: the port's serving path raises
+    NotImplementedError on any of them (ROADMAP.md Queue 1 item 10)."""
+    name: str
+    arch_type: str                    # dense|moe|ssm|hybrid|vlm|audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None    # default d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    window: Optional[int] = None      # native sliding window (None = full attn)
+    long_context_window: Optional[int] = None  # SWA used only for long_500k
+    block_pattern: Tuple[str, ...] = ("attn",)
+    moe: Optional[Any] = None
+    mla: Optional[Any] = None
+    ssm: Optional[Any] = None
+    encdec: Optional[Any] = None
+    frontend: Optional[Any] = None
+    rglru_width: Optional[int] = None
+    local_window: int = 2048
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    norm_eps: float = 1e-6
+    citation: str = ""
+    kv_cache_dtype: str = "native"    # or "int8" (not ported)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        mult = 256
+        return ((self.vocab_size + mult - 1) // mult) * mult
+
+
+class ParamInit:
+    """Draws parameters as the JAX `ParamFactory` does: truncated normal on
+    [-2, 2] in f32, times 1/sqrt(fan_in) (fan_in defaults to shape[0]), cast
+    to `dtype`; `init="zeros"` for norm scales.  The draws come from an
+    explicit `torch.Generator` on the parameters' device, so the bits are
+    the port's own, not JAX's.
+
+    With `stack=n` every parameter gets a leading layer axis of n and is
+    drawn one layer at a time, so at most one layer's slice exists in f32.
+    On the "meta" device nothing is drawn or allocated (shapes only)."""
+
+    def __init__(self, generator: Optional[torch.Generator], dtype,
+                 device=None, stack: int = 0):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = torch.device(
+            device if device is not None else generator.device)
+        self.stack = stack
+
+    def param(self, shape: Tuple[int, ...], fan_in: Optional[int] = None,
+              init: str = "normal") -> Tensor:
+        full = ((self.stack,) if self.stack else ()) + tuple(shape)
+        if init == "zeros":
+            return torch.zeros(full, dtype=self.dtype, device=self.device)
+        out = torch.empty(full, dtype=self.dtype, device=self.device)
+        if self.device.type == "meta":
+            return out
+        scale = 1.0 / math.sqrt(fan_in if fan_in else shape[0])
+        for piece in (out if self.stack else (out,)):
+            draw = torch.empty(piece.shape, dtype=torch.float32,
+                               device=self.device)
+            torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
+                                        generator=self.generator)
+            piece.copy_(draw.mul_(scale))
+        return out
+
+
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMS norm over the last axis, in f32, times (1 + scale), cast back."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_cos_sin(positions: Tensor, head_dim: int,
+                 theta: float) -> Tuple[Tensor, Tensor]:
+    """cos and sin of the f32 angles positions[..., None] * rope_freqs:
+    [..., head_dim // 2] each.  A decode step computes them once for all
+    its layers."""
+    ang = positions[..., None].float() * rope_freqs(head_dim, theta,
+                                                    positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_rotate(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """x [..., S, H?, Dh] rotated pairwise by cos/sin [..., S, Dh/2].
+
+    The pairs are interleaved, (x[..., 0::2], x[..., 1::2]), re-stacked on
+    the last axis as the JAX package does (not the half-split layout).  The
+    rotation is f32; the result is cast back to x's dtype."""
+    while cos.dim() < x.dim():     # broadcast over head axes before Dh
+        cos, sin = cos.unsqueeze(-2), sin.unsqueeze(-2)
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    xr = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return xr.reshape(x.shape).to(x.dtype)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """RoPE of x [..., S, H?, Dh] at positions [..., S] (`rope_rotate`)."""
+    return rope_rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def count_params(params: Dict) -> int:
+    """Number of elements over every tensor of a nested param dict."""
+    return sum(count_params(v) if isinstance(v, dict) else v.numel()
+               for v in params.values())

@@ -225,3 +225,102 @@ def test_grouped_defense_sweep_matches_plain_route(cuda_device, grid):
     for k in rk.params:
         torch.testing.assert_close(rk.params[k], rp.params[k], rtol=1e-4,
                                    atol=1e-6)
+
+
+# tests/test_kernels.py's decode-attention grid, plus head groups of 8 and 6
+# query heads per KV head (two blocks per KV head), dh = 32 (the smoke
+# config) and a long cache cut into many splits.
+DECODE_GRID = [(1, 4, 1, 64, 512),      # MQA
+               (2, 8, 2, 64, 1024),     # GQA
+               (2, 8, 8, 128, 777),     # MHA, ragged length
+               (1, 16, 4, 128, 2048),
+               (2, 32, 4, 128, 300),    # G = 8
+               (1, 12, 2, 32, 513),     # G = 6, dh = 32
+               (3, 8, 2, 32, 64),
+               (2, 32, 8, 128, 32768)]
+# The kernel against the plain version on the same inputs upcast to f32.
+# f32: they differ only in summation order and expf (rtol = atol = 1e-5).
+# bf16: the kernel accumulates in f32 and rounds once, at the output (2^-9
+# relative): rtol 1e-2, atol 1e-2 of the mean |output|.  The outputs are
+# about sqrt(e / S) in size, so a fixed atol would pass a zero output.
+DECODE_REL_BF16 = 1e-2
+
+
+def _decode_inputs(dev, seed, b, h, kv, dh, s, dtype):
+    return (_normal(dev, seed, b, h, dh, dtype=dtype),
+            _normal(dev, seed + 1, b, s, kv, dh, dtype=dtype),
+            _normal(dev, seed + 2, b, s, kv, dh, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,dh,s", DECODE_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain(cuda_device, b, h, kv, dh, s, dtype):
+    q, k, v = _decode_inputs(cuda_device, s + h, b, h, kv, dh, s, dtype)
+    ops.reset_launches()
+    for pos in sorted({0, 1, s // 2, s - 3, s - 1}):
+        got = ops.decode_attention(q, k, v, pos)
+        want = ops.decode_attention(q.float(), k.float(), v.float(), pos,
+                                    plain=True)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (b, h, dh)
+        if dtype == torch.float32:
+            _close(got, want, 1e-5)
+        else:
+            np.testing.assert_allclose(
+                got.float().cpu().numpy(), want.cpu().numpy(),
+                rtol=DECODE_REL_BF16,
+                atol=DECODE_REL_BF16 * float(want.abs().mean()))
+    assert ops.launch_counts()["decode_attention"] == len({0, 1, s // 2,
+                                                           s - 3, s - 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [256, 777, 32768])
+def test_decode_attention_ignores_the_future(cuda_device, s):
+    """Keys and values beyond pos are never read: overwriting them leaves
+    the output bit for bit unchanged; pos as a device tensor (int32 or
+    int64) equals pos as an int."""
+    q, k, v = _decode_inputs(cuda_device, 7, 2, 8, 2, 128, s,
+                             torch.bfloat16)
+    for pos in (0, s // 3, s - 2):
+        out1 = ops.decode_attention(q, k, v, pos)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, pos + 1:] = 99.0
+        v2[:, pos + 1:] = float("nan")
+        assert torch.equal(ops.decode_attention(q, k2, v2, pos), out1)
+        for t in (torch.tensor(pos, dtype=torch.int32, device=cuda_device),
+                  torch.tensor(pos, device=cuda_device)):
+            assert torch.equal(ops.decode_attention(q, k, v, t), out1)
+
+
+@pytest.mark.gpu
+def test_decode_attention_guards_raise_on_the_card(cuda_device):
+    q, k, v = _decode_inputs(cuda_device, 0, 1, 4, 1, 48, 64, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q, k, v, 3)
+    q, k, v = _decode_inputs(cuda_device, 0, 1, 4, 1, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.decode_attention(q, k.cpu(), v, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.decode_attention(q, k.flatten()[1:1 + k.numel() - 64]
+                             .reshape(1, 63, 1, 64), v[:, :63].contiguous(), 3)
+    with pytest.raises(ValueError, match="integer tensor"):
+        ops.decode_attention(q, k, v, torch.tensor(3))    # pos on the CPU
+
+
+@pytest.mark.gpu
+def test_serve_kernel_route_matches_plain_route(cuda_device):
+    """The smoke qwen3-4b (f32, 2 layers, dh = 32) served on the card through
+    the kernel and through its plain version from the same seed: the same
+    greedy tokens, logits at rtol 1e-4, one launch per layer per step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import serve
+    cfg = get_smoke("qwen3-4b")
+    ops.reset_launches()
+    rk = serve(cfg, 4, 8, 8, device=cuda_device)
+    assert ops.launch_counts()["decode_attention"] == cfg.n_layers * 16
+    rp = serve(cfg, 4, 8, 8, device=cuda_device, plain=True)
+    assert ops.launch_counts()["decode_attention"] == cfg.n_layers * 16
+    assert torch.equal(rk.tokens, rp.tokens)
+    torch.testing.assert_close(rk.logits, rp.logits, rtol=1e-4, atol=1e-5)

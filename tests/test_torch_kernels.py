@@ -137,10 +137,13 @@ def test_cpu_route_launches_nothing():
     tops.grad_stats(g[0])
     tops.sort_columns(g)
     tops.sort_columns_bitonic(g[0])
+    tops.decode_attention(torch.zeros(1, 4, 32), torch.zeros(1, 8, 2, 32),
+                          torch.zeros(1, 8, 2, 32), 3)
     assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
     assert set(tops.KERNELS) == {"floa_step_batched", "floa_aggregate",
                                  "floa_aggregate_batched", "grad_stats",
-                                 "sort_columns", "sort_columns_bitonic"}
+                                 "sort_columns", "sort_columns_bitonic",
+                                 "decode_attention"}
 
 
 def _bad_inputs():

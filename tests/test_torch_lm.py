@@ -1,0 +1,293 @@
+"""The port's serving path (`repro_torch.models`, `configs`, `data.text`,
+`launch`) against the JAX package.
+
+The qwen3-4b smoke config (f32, 2 layers) with the weights of JAX
+`init_lm(PRNGKey(0))`, carried across by `transformer.params_from_jax`:
+one attention decode step at several positions, 16 teacher-forced model
+decode steps (logits and caches), and the greedy tokens of `serve` against
+the JAX serving loop.  Also the numerics (RMS norm, RoPE, SwiGLU), the
+token streams, the configs and the parameter count at full width, and the
+parts that are not ported raising.  Everything runs on the CPU, where the
+attention takes the kernel's plain version.
+"""
+import dataclasses
+import functools
+import sys
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+with warnings.catch_warnings():
+    # The installed jax deprecates jax.experimental.shard_map, which the JAX
+    # package imports; the reference is left as it is.
+    warnings.simplefilter("ignore", DeprecationWarning)
+    from repro.configs import registry as JR
+    from repro.data import text as JTX
+    from repro.models import attention as JATT
+    from repro.models import common as JC
+    from repro.models import ffn as JFFN
+    from repro.models import transformer as JT
+
+from repro_torch.configs import get_config, get_smoke, registry as TR
+from repro_torch.data import text as TTX
+from repro_torch.kernels import ops as tops
+from repro_torch.launch import serve as TS
+from repro_torch.launch import steps as TSTEPS
+from repro_torch.models import attention as TATT
+from repro_torch.models import common as TC
+from repro_torch.models import ffn as TFFN
+from repro_torch.models import transformer as TT
+
+ARCH = "qwen3-4b"
+RTOL, ATOL = 1e-4, 1e-5      # f32 model steps, port vs JAX
+# XLA-only execution knobs of the JAX config that the port leaves out
+JAX_ONLY_FIELDS = {"model_parallel", "remat", "scan_layers",
+                   "unroll_for_analysis", "lm_head_chunk", "skip_shapes"}
+FULL_PARAMS = 4_412_079_616   # qwen3-4b at full width
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    """(JAX cfg, port cfg, JAX params, port params) of the smoke config."""
+    jcfg, tcfg = JR.get_smoke(ARCH), get_smoke(ARCH)
+    jparams, _ = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    return jcfg, tcfg, jparams, TT.params_from_jax(_np_tree(jparams), "cpu")
+
+
+def _rng(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+
+
+def test_rms_norm_rope_swiglu_match_jax():
+    x, scale = _rng(0, 3, 5, 4, 32), _rng(1, 32) * 0.1
+    _close(TC.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)),
+           JC.rms_norm(jnp.asarray(x), jnp.asarray(scale)), 1e-6, 1e-6)
+    pos = np.array([[0, 1, 7, 33, 4095]], np.int32).repeat(3, 0)
+    for theta in (1e4, 1e6):
+        got = TC.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+        want = JC.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+        _close(got, want, 1e-6, 1e-6)
+    # weights at the model's init scale, 1/sqrt(fan_in): the products sum in
+    # another order in the two frameworks, so atol is relative to O(1)
+    p = {"wi": _rng(2, 32, 48) / 32 ** 0.5, "wg": _rng(3, 32, 48) / 32 ** 0.5,
+         "wo": _rng(4, 48, 32) / 48 ** 0.5}
+    h = _rng(5, 2, 3, 32)
+    _close(TFFN.swiglu({k: torch.from_numpy(v) for k, v in p.items()},
+                       torch.from_numpy(h)),
+           JFFN.swiglu({k: jnp.asarray(v) for k, v in p.items()},
+                       jnp.asarray(h)), 1e-6, 1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_token_streams_byte_equal(seed):
+    for t, j in [(TTX.make_markov_tables(512, seed),
+                  JTX.make_markov_tables(512, seed)),
+                 (TTX.sample_tokens(4, 24, 512, seed=seed),
+                  JTX.sample_tokens(4, 24, 512, seed=seed)),
+                 (TTX.stack_token_rounds(2, 3, 8, 300, seed=seed),
+                  JTX.stack_token_rounds(2, 3, 8, 300, seed=seed))]:
+        assert t.dtype == j.dtype and t.tobytes() == j.tobytes()
+
+
+@pytest.mark.parametrize("variant", ["full", "smoke"])
+def test_config_fields_equal_jax(variant):
+    jcfg = JR.get_config(ARCH) if variant == "full" else JR.get_smoke(ARCH)
+    tcfg = get_config(ARCH) if variant == "full" else get_smoke(ARCH)
+    tfields = {f.name for f in dataclasses.fields(tcfg)}
+    assert {f.name for f in dataclasses.fields(jcfg)} - tfields \
+        == JAX_ONLY_FIELDS
+    for name in sorted(tfields):
+        want = getattr(jcfg, name)
+        got = getattr(tcfg, name)
+        if name == "dtype":
+            want = {jnp.float32: torch.float32,
+                    jnp.bfloat16: torch.bfloat16}[want]
+        assert got == want, name
+    assert (tcfg.hd, tcfg.padded_vocab) == (jcfg.hd, jcfg.padded_vocab)
+    assert TR.INPUT_SHAPES == JR.INPUT_SHAPES
+
+
+def test_full_width_param_count_on_meta():
+    """The full-width model built on the "meta" device (no allocation) has
+    the JAX package's tree of shapes and 4 412 079 616 parameters."""
+    cfg = get_config(ARCH)
+    tparams = TSTEPS.init_model(cfg, None, "meta")
+    jshapes, _ = JT.init_lm(jax.random.PRNGKey(0), JR.get_config(ARCH),
+                            shape_only=True)
+    flat_t = jax.tree_util.tree_leaves_with_path(tparams)
+    flat_j = jax.tree_util.tree_leaves_with_path(jshapes)
+    assert [(p, tuple(x.shape)) for p, x in flat_t] == \
+        [(p, tuple(x.shape)) for p, x in flat_j]
+    assert all(x.device.type == "meta" and x.dtype == torch.bfloat16
+               for _, x in flat_t)
+    assert TC.count_params(tparams) == FULL_PARAMS
+    assert TSTEPS.param_count(cfg) == FULL_PARAMS
+    _, meta = TSTEPS.make_decode_step(cfg)
+    assert meta == {"dim": FULL_PARAMS, "window": None}
+
+
+def test_random_init_statistics():
+    """The port's own draws: truncated at 2 sigma, scaled by 1/sqrt(fan_in),
+    norm scales zero; one seed gives one set of weights."""
+    cfg = get_smoke(ARCH)
+    p = TSTEPS.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    wq = p["blocks"]["b0"]["attn"]["wq"]
+    assert wq.shape == (2, 256, 8, 32)
+    assert float(wq.abs().max()) <= 2.0 / 256 ** 0.5 + 1e-7
+    assert abs(float(wq.std()) * 256 ** 0.5 - 0.88) < 0.02
+    assert not p["blocks"]["b0"]["ln1"].any()
+    p2 = TSTEPS.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(p2["lm_head"], p["lm_head"])
+
+
+@pytest.mark.parametrize("pos", [0, 5, 15])
+def test_attention_decode_step_matches_jax(pos):
+    jcfg, tcfg, jparams, tparams = _smoke()
+    jp = jax.tree_util.tree_map(lambda a: a[0],
+                                jparams["blocks"]["b0"]["attn"])
+    tp = {k: v[0] for k, v in tparams["blocks"]["b0"]["attn"].items()}
+    b, s = 2, 16
+    x1 = _rng(10 + pos, b, 1, tcfg.d_model)
+    ck = _rng(20, b, s, tcfg.n_kv_heads, tcfg.hd)
+    cv = _rng(21, b, s, tcfg.n_kv_heads, tcfg.hd)
+    jy, jcache = JATT.decode_step(jp, jnp.asarray(x1),
+                                  dict(k=jnp.asarray(ck), v=jnp.asarray(cv)),
+                                  jnp.int32(pos), jcfg)
+    tcache = {"k": torch.from_numpy(ck.copy()),
+              "v": torch.from_numpy(cv.copy())}
+    ty, tcache2 = TATT.decode_step(tp, torch.from_numpy(x1), tcache, pos,
+                                   tcfg)
+    assert tcache2 is tcache     # written in place
+    _close(ty, jy)
+    _close(tcache["k"], jcache["k"])
+    _close(tcache["v"], jcache["v"])
+
+
+def test_teacher_forced_decode_matches_jax():
+    """16 decode steps fed the same tokens: logits at every step and the
+    caches at the end agree at rtol 1e-4 / atol 1e-5."""
+    jcfg, tcfg, jparams, tparams = _smoke()
+    b, steps = 2, 16
+    tokens = TTX.sample_tokens(b, steps, tcfg.vocab_size, seed=5)
+    jstep = jax.jit(functools.partial(JT.decode_step, cfg=jcfg))
+    jcaches = JT.init_caches(jcfg, b, steps)
+    tcaches = TT.init_caches(tcfg, b, steps, device="cpu")
+    tops.reset_launches()
+    for i in range(steps):
+        jl, jcaches = jstep(jparams, jcaches, jnp.asarray(tokens[:, i:i + 1]),
+                            jnp.int32(i))
+        tl, tcaches = TT.decode_step(tparams, tcaches,
+                                     torch.from_numpy(tokens[:, i:i + 1]).long(),
+                                     torch.tensor(i, dtype=torch.int32), tcfg)
+        assert tl.shape == (b, 1, tcfg.padded_vocab)
+        _close(tl, jl)
+    for k in ("k", "v"):
+        _close(tcaches["blocks"]["b0"][k], jcaches["blocks"]["b0"][k])
+    assert tops.launch_counts()["decode_attention"] == 0   # CPU: plain route
+
+
+def _jax_serve(jcfg, jparams, batch, prompt_len, gen):
+    """The loop of repro/launch/serve.py on one device, greedy."""
+    max_len = prompt_len + gen
+    step = jax.jit(functools.partial(JT.decode_step, cfg=jcfg))
+    prompts = jnp.asarray(JTX.sample_tokens(batch, prompt_len,
+                                            vocab=jcfg.vocab_size, seed=0))
+    caches = JT.init_caches(jcfg, batch, max_len, window=jcfg.window)
+    for i in range(prompt_len):
+        logits, caches = step(jparams, caches, prompts[:, i:i + 1],
+                              jnp.int32(i))
+    out = []
+    tok = jnp.argmax(logits[:, :, :jcfg.vocab_size], axis=-1).astype(jnp.int32)
+    for i in range(prompt_len, max_len):
+        out.append(tok)
+        logits, caches = step(jparams, caches, tok, jnp.int32(i))
+        tok = jnp.argmax(logits[:, :, :jcfg.vocab_size],
+                         axis=-1).astype(jnp.int32)
+    return np.asarray(prompts), np.asarray(jnp.concatenate(out, axis=1))
+
+
+def test_greedy_serve_matches_jax_loop():
+    jcfg, tcfg, jparams, tparams = _smoke()
+    res = TS.serve(tcfg, 2, 8, 8, device="cpu", params=tparams)
+    jprompts, jtokens = _jax_serve(jcfg, jparams, 2, 8, 8)
+    np.testing.assert_array_equal(res.prompts.numpy(), jprompts)
+    np.testing.assert_array_equal(res.tokens.numpy(), jtokens)
+    assert res.logits.shape == (16, 2, tcfg.padded_vocab)
+    assert res.prefill_s > 0 and res.decode_s > 0 and res.tok_per_s > 0
+
+
+def test_sampled_serve_is_seeded():
+    cfg = get_smoke(ARCH)
+    a = TS.serve(cfg, 2, 4, 6, device="cpu", temperature=0.8, seed=1)
+    b = TS.serve(cfg, 2, 4, 6, device="cpu", temperature=0.8, seed=1)
+    assert torch.equal(a.tokens, b.tokens)
+    assert a.tokens.shape == (2, 6)
+    assert int(a.tokens.min()) >= 0 and int(a.tokens.max()) < cfg.vocab_size
+    # as in the JAX loop, the first generated token is the prompt's argmax
+    greedy = TS.serve(cfg, 2, 4, 6, device="cpu", seed=1)
+    assert torch.equal(a.tokens[:, 0], greedy.tokens[:, 0])
+
+
+def test_unported_paths_raise():
+    cfg = get_smoke(ARCH)
+    _, _, _, tparams = _smoke()
+    p = {k: v[0] for k, v in tparams["blocks"]["b0"]["attn"].items()}
+    cache = TATT.init_cache(cfg, 1, 8, None, torch.float32)
+    x1 = torch.zeros(1, 1, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="window"):
+        TATT.decode_step(p, x1, cache, 0, cfg, window=4)
+    with pytest.raises(NotImplementedError, match="window"):
+        TT.init_caches(cfg, 1, 8, window=4)
+    long_step, meta = TSTEPS.make_decode_step(cfg, "long_500k")
+    assert meta["window"] == 8192 == TSTEPS.decode_window(cfg, "long_500k")
+    with pytest.raises(NotImplementedError, match="window"):
+        long_step(tparams, None, torch.zeros(1, 1, dtype=torch.long), 0)
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="int8"):
+        TATT.init_cache(int8, 1, 8, None, torch.float32)
+    with pytest.raises(NotImplementedError, match="int8"):
+        TATT.decode_step(p, x1, cache, 0, int8)
+    mla = dataclasses.replace(cfg, mla=object())
+    with pytest.raises(NotImplementedError, match="MLA"):
+        TATT.decode_step(p, x1, cache, 0, mla)
+    with pytest.raises(NotImplementedError, match="mla"):
+        TT.init_lm(None, mla, "meta")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        get_config("starcoder2-3b")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        TSTEPS.init_model(dataclasses.replace(cfg, arch_type="audio"), None,
+                          "meta")
+    with pytest.raises(NotImplementedError, match="block_pattern"):
+        TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("ssm",)),
+                   "meta")
+
+
+def test_serve_entry_point(monkeypatch, capsys):
+    """`python -m repro_torch.launch.serve` defaults to the card (raises
+    without one), refuses a mesh, and serves the smoke config on the CPU."""
+    argv = ["serve", "--arch", ARCH, "--smoke", "--batch", "2",
+            "--prompt-len", "4", "--gen", "3"]
+    if not torch.cuda.is_available():
+        monkeypatch.setattr(sys, "argv", argv)
+        with pytest.raises(RuntimeError, match="cuda"):
+            TS.main()
+    monkeypatch.setattr(sys, "argv", argv + ["--mesh", "4x2"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        TS.main()
+    monkeypatch.setattr(sys, "argv", argv + ["--device", "cpu"])
+    TS.main()
+    assert "arch=qwen3-4b batch=2" in capsys.readouterr().out
