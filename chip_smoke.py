@@ -11,17 +11,23 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
 
   1. device   card name and power limit (also printed raw), torch/CUDA
               versions; TF32 off, as the float32 reference needs.
-  2. build    nvcc builds every kernel of csrc/ (seconds, ptxas -v lines).
+  2. build    nvcc builds every kernel of csrc/ (seconds, ptxas -v lines),
+              and the registers, shared memory and spills of the two
+              kernels redesigned for Hopper (decode_mma_kernel and the
+              bitonic_kernel instances) one line per instance.
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes and at awkward ones (D off any tile, U = 32,
               bf16, S = 1; for the sorts U = 7, 33, 100, 4097 and the
-              bitonic cap, 8192; for decode attention decode_32k's
+              bitonic cap, 8192, and U = 4097 at full width (several
+              warps per column); for decode attention decode_32k's
               per-layer shape [128, 32768], the long-cache and serve
               shapes, S = 777, MQA, MHA, dh 32/64, f32, pos = 0 and
               mid-cache), with times: kernel, plain, one library call, and
               the bound (bytes over 3.35 TB/s vs f32 operations over
-              67 TFLOP/s, the larger).  The sorts must equal torch.sort
-              exactly.
+              67 TFLOP/s, the larger) and bound / time.  The sorts must
+              equal torch.sort exactly.  At the serve shape the row also
+              times the decode kernel at 1, 2 and 4 splits (the split
+              rule's choice against its alternatives).
   4-6. main path through `repro_torch.figures.run_figure` / SweepEngine at
               the paper's full width (D = 50890, U = 10): Fig. 1's benign
               lanes, Fig. 3's Byzantine lanes, and a GAUSSIAN-jamming sweep
@@ -60,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -150,15 +157,12 @@ def max_errors(torch, got, want) -> tuple:
     return float(err.max()), float((err / w.abs().clamp_min(1e-6)).max())
 
 
-def sort_ops(u: int, bitonic: bool) -> int:
-    """min/max operations per column of a sorting network: odd-even has
-    U(U-1)/2 compare-exchanges, bitonic log2(P)(log2(P)+1)/2 stages of P/2
-    over the padded P rows; two operations each."""
-    if not bitonic:
-        return u * (u - 1)
-    p = 1 << max(u - 1, 0).bit_length()
-    k = p.bit_length() - 1
-    return k * (k + 1) // 2 * p
+def sort_ops(u: int) -> int:
+    """Comparisons a column's sort needs: ceil(log2(U!)), the fewest any
+    comparison sort of U values can make in the worst case (not the
+    network's compare-exchanges, which a padded bitonic network inflates
+    far beyond what the sort needs)."""
+    return math.ceil(math.lgamma(u + 1) / math.log(2))
 
 
 def kernel_cases(torch, ops):
@@ -222,14 +226,15 @@ def kernel_cases(torch, ops):
             ("sort_columns_bitonic", 1, 100, 130, torch.float32, False),
             ("sort_columns_bitonic", 1, 4097, 130, torch.float32, False),
             ("sort_columns_bitonic", 1, ops.BITONIC_MAX_U, 130,
-             torch.float32, False)]:
+             torch.float32, False),
+            ("sort_columns_bitonic", 1, 4097, 50890, torch.float32, False)]:
         x = rnd(s, u, d, dtype=dt)
         cases.append((
             name, f"S={s} U={u} D={d} {str(dt)[6:]}", main,
             lambda p, f=ops.KERNELS[name], a=x: f(a, plain=p),
             lambda a=x: torch.sort(a, dim=1),
             2 * s * u * d * (torch.finfo(dt).bits // 8),
-            s * d * sort_ops(u, name == "sort_columns_bitonic"), "exact"))
+            s * d * sort_ops(u), "exact"))
     return cases + decode_cases(torch, ops)
 
 
@@ -280,7 +285,8 @@ def decode_f32_ref(torch, ops, q, k, v, pos_t, rows: int = 8):
 def decode_cases(torch, ops):
     """decode_attention's phase-3 rows; pos is a device tensor, as on the
     serving path.  Each row carries its f32 reference (see DECODE_TOL_F32
-    and DECODE_REL_BF16) as a ninth element."""
+    and DECODE_REL_BF16) as a ninth element and its inputs (q, k, v,
+    pos_t) as a tenth."""
     gen = torch.Generator("cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []
@@ -313,8 +319,57 @@ def decode_cases(torch, ops):
             main, lambda p, a=(q, k, v, pos_t): ops.decode_attention(
                 *a, plain=p),
             sdpa_call(torch, q, k, v, pos, want, sdpa_tol), nbytes, flops,
-            tol, lambda w=want: w))
+            tol, lambda w=want: w, (q, k, v, pos_t)))
     return cases
+
+
+def redesigned_ptxas(ptxas: dict) -> dict:
+    """Registers, static shared memory and spill bytes per instance of the
+    two kernels redesigned for Hopper, from the build's ptxas -v lines."""
+    import re
+    found, entry = {}, None
+    for line in ptxas["decode_attention"] + ptxas["defense_sort"]:
+        if "Compiling entry" in line:
+            m = re.search(r"(decode_mma_kernel|bitonic_kernel)ILi(\d+)E"
+                          r"(f|13__nv_bfloat16)?", line)
+            entry = None
+            if m:
+                kind = {"f": ", f32", "13__nv_bfloat16": ", bf16"}.get(
+                    m[3], "")
+                entry = f"{m[1]}<{m[2]}{kind}>"
+                found[entry] = {"registers": None, "smem_bytes": 0,
+                                "spill_store_bytes": 0}
+        elif entry and "Used" in line:
+            found[entry]["registers"] = int(re.search(
+                r"Used (\d+) registers", line)[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[entry]["smem_bytes"] = int(smem[1]) if smem else 0
+        elif entry and "spill stores" in line:
+            found[entry]["spill_store_bytes"] = int(re.search(
+                r"(\d+) bytes spill stores", line)[1])
+    return found
+
+
+def decode_split_ms(torch, _build, q, k, v, pos_t) -> dict:
+    """The serve shape's decode kernel timed at 1, 2 and 4 splits (keyed by
+    split count), through its C entry point on a phase-3 row's inputs: what
+    the split rule's one pass is weighed against.  Not counted as
+    launches."""
+    b, h, dh = q.shape
+    lib = _build.library("decode_attention")
+    out = torch.empty_like(q)
+    times = {}
+    for n in (1, 2, 4):
+        ws = torch.empty(b * h * n * (dh + 2), device=q.device)
+
+        def launch(n=n, ws=ws):
+            _build.check(lib.decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), b, h, k.shape[2], k.shape[1],
+                dh, n, _build.DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream().cuda_stream), "decode_attention")
+        times[n] = time_ms(torch, launch)
+    return times
 
 
 def run_phase(torch, ops, name, fn, expect):
@@ -453,6 +508,12 @@ def main() -> int:
     # 2. build
     build = _build.build_all()
     emit("build", **build)
+    # decode_mma_kernel's ring is dynamic shared memory, which ptxas does
+    # not report: NSTAGE = 3 stages of K and V, TK = 64 keys x dh in bf16
+    # (csrc/decode_attention.cu::mma_smem_bytes)
+    emit("build_redesigned", dynamic_smem_bytes={
+        f"decode_mma_kernel<{dh}>": 3 * 2 * 64 * dh * 2
+        for dh in (32, 64, 128)}, **redesigned_ptxas(build["ptxas"]))
 
     # 3. kernels against their plain versions
     table = {}
@@ -476,7 +537,9 @@ def main() -> int:
             abs_err, rel_err = max(abs_err, a), max(rel_err, r)
             typical = max(typical, float(w.float().abs().mean()))
         b_ms, b_by = bound(nbytes, flops)
-        big = nbytes > 2e9       # the decode_32k row: 17 GB of K and V
+        # decode_32k's row (17 GB of K and V) and the U = 4097 sort at full
+        # width (0.83 GB in; torch.sort's graph keeps 2.5 GB a call)
+        big = nbytes > 1.5e9
         iters = 5 if big else 50
         row = {"kernel": name, "shape": label, "max_abs_err": abs_err,
                "max_rel_err": rel_err, "mean_abs_want": typical,
@@ -490,10 +553,14 @@ def main() -> int:
                                                               iters),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "flops": flops}
+        row["bound_share"] = b_ms / row["ms"]
+        if name == "decode_attention" and label.startswith(
+                f"B={SERVE_BATCH} S=64 ") and label.endswith("pos=63"):
+            row["split_ms"] = decode_split_ms(torch, _build, *ref[1])
         emit("kernel_check", **row)
         if main_shape:
             table[name] = row
-    del run, lib, got, want
+    del run, lib, got, want, ref
     torch.cuda.empty_cache()
 
     # 5's, 8's and 9's sweeps, profiled alone: `chip_smoke.py --profile`

@@ -50,7 +50,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "defense_sort": {
         "sort_columns": [_P, _P, _I, _I, _L, _I, _P],
-        "sort_columns_bitonic": [_P, _P, _I, _I, _I, _I, _L, _I, _P],
+        "sort_columns_bitonic": [_P, _P, _I, _I, _I, _I, _I, _L, _I, _P],
     },
     "decode_attention": {
         "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -149,7 +149,11 @@ def need(cond: bool, msg: str) -> None:
 
 def check_tensor(name: str, x, shape: tuple, dtypes, device) -> None:
     """x must be a contiguous tensor of `shape`, one of `dtypes`, on
-    `device`: what the kernels take."""
+    `device`: what the kernels take.  The messages are built only when a
+    check fails (the wrappers run once per layer per decode step)."""
+    if (isinstance(x, torch.Tensor) and x.shape == shape and x.dtype in dtypes
+            and x.device == device and x.is_contiguous()):
+        return
     need(isinstance(x, torch.Tensor), f"{name} must be a tensor")
     need(tuple(x.shape) == tuple(shape),
          f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")

@@ -6,9 +6,10 @@ replace the two Pallas kernels of `repro/kernels/defense_sort.py`:
   sort_columns          U <= UNROLL_MAX_U (32): an unrolled odd-even
                         transposition network, one column per thread, the U
                         values in registers
-  sort_columns_bitonic  U padded to a power of two U_pad <= BITONIC_MAX_U:
-                        the bitonic network over a [U_pad, T] tile in shared
-                        memory, rows U.. filled with +inf
+  sort_columns_bitonic  U padded to a power of two U_pad (64 <= U_pad <=
+                        BITONIC_MAX_U): the bitonic network in registers,
+                        32 values per thread, shared memory only to stage
+                        the tile and to move a thread's register window
 
 Both take [U, D] or [S, U, D] (f32 or bf16, contiguous) and sort ascending
 along the worker axis, computing in f32 and returning the input dtype.  The
@@ -17,17 +18,18 @@ JAX package gets that dimension from vmap); [U, D] is the same launch at
 S = 1.  On finite inputs the result equals `torch.sort(...).values` exactly;
 NaN ordering is out of contract, as in the reference.
 
-The bitonic cap, re-derived for Hopper (the reference's BITONIC_MAX_U = 8192
-and `bitonic_tile_d` come from a TPU's VMEM budget): a block may have
-SMEM_BYTES = 227 KB (232 448 bytes) of shared memory.  The tile is
-T = min(32, the largest power of two with U_pad * T * 4 <= SMEM_BYTES)
-columns, and U_pad may grow while T >= 4 (a tile row of 16 bytes, half a
-32-byte sector): BITONIC_MAX_U = 8192 (a [8192, 4] f32 tile, 128 KB), the
-reference's cap.  Tiles are [U_pad, 32] up to U_pad = 1024, [2048, 16],
-[4096, 8] and [8192, 4]; at U = 1000 the tile is [1024, 32], 128 KB.
-Above 48 KB the kernel requests the memory with cudaFuncSetAttribute.
-Above the cap there is no tile: `core/defenses.py::sorted_columns` raises
-on the card (ROADMAP.md Queue 2 item 6).
+The bitonic plan (`bitonic_plan`), re-derived for Hopper (the reference's
+BITONIC_MAX_U = 8192 and `bitonic_tile_d` come from a TPU's VMEM budget):
+each thread holds SORT_VALUES = 32 values of one column in registers, so a
+column takes U_pad / 32 threads, and a block of SORT_THREADS = 256 threads
+holds 256 / (U_pad / 32) columns (several per warp below U_pad = 1024, a
+few warps per column above it).  Its shared memory is the block's values
+once, column by column with one float of pad per 32 (U_pad * 33/32 * 4
+bytes a column, ~34 KB a block at every U_pad).  A column must fit one
+block, so BITONIC_MAX_U = 256 * 32 = 8192, the reference's cap.  Above it
+there is no kernel: `core/defenses.py::sorted_columns` raises on the card
+(ROADMAP.md Queue 2 item 6).  U > 32 pads to at least 64 (two threads a
+column).
 
 CPU tensors take the plain versions (`kernels/ref.py`); CUDA tensors launch
 the kernel or raise.  `plain=True` forces the plain version on the card; it
@@ -35,6 +37,8 @@ exists so a test can hold the kernel against it.  Each wrapper counts its
 launches in its `launches` attribute.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -44,9 +48,9 @@ from repro_torch.kernels._build import DTYPE_CODES, check_tensor, need
 Tensor = torch.Tensor
 
 UNROLL_MAX_U = 32          # the odd-even switch instantiates U = 1..32
-SMEM_BYTES = 232_448       # dynamic shared memory one block may have (H100)
-BITONIC_TILE_MAX = 32      # one warp-wide 128-byte row per tile row (f32)
-BITONIC_TILE_MIN = 4       # half a 32-byte sector per tile row (f32)
+SORT_THREADS = 256         # bitonic threads per block
+SORT_VALUES = 32           # bitonic values per thread, in registers
+BITONIC_MIN_U = 64         # the smallest padded U: two threads a column
 MAX_LANES = 65535          # grid.y limit
 
 
@@ -55,19 +59,34 @@ def pad_pow2(u: int) -> int:
     return 1 << max(u - 1, 0).bit_length()
 
 
-def bitonic_tile_d(u_pad: int) -> int:
-    """Columns per block: the widest power of two, at most BITONIC_TILE_MAX,
-    whose [u_pad, T] f32 tile fits SMEM_BYTES (below BITONIC_TILE_MIN the
-    padded U is over the cap)."""
-    t = BITONIC_TILE_MAX
-    while t > 1 and u_pad * t * 4 > SMEM_BYTES:
-        t //= 2
-    return t
+@functools.lru_cache(maxsize=None)
+def bitonic_plan(u_pad: int) -> dict:
+    """The bitonic kernel's launch plan for U_pad rows (a power of two from
+    BITONIC_MIN_U to BITONIC_MAX_U): values per thread, threads and warps
+    per column, columns per block, and the block's shared memory (column
+    stride U_pad + U_pad / 32 + a bank offset, in f32).  The launch takes
+    its grid from `columns_per_block`, and the kernel's C entry point
+    refuses a plan whose columns or shared memory differ from those its
+    template instance `Bitonic<L>` was compiled with."""
+    need(BITONIC_MIN_U <= u_pad <= SORT_THREADS * SORT_VALUES
+         and u_pad & (u_pad - 1) == 0,
+         f"bitonic_plan: U_pad={u_pad} is not a power of two in "
+         f"[{BITONIC_MIN_U}, {SORT_THREADS * SORT_VALUES}]")
+    threads = u_pad // SORT_VALUES
+    columns = SORT_THREADS // threads
+    offset = {1024: 4, 2048: 8, 4096: 16}.get(u_pad, 0)
+    return {"values_per_thread": SORT_VALUES,
+            "threads_per_column": threads,
+            "warps_per_column": max(1, threads // 32),
+            "columns_per_warp": max(1, 32 // threads),
+            "columns_per_block": columns,
+            "threads_per_block": SORT_THREADS,
+            "smem_bytes": 4 * columns * (u_pad + u_pad // 32 + offset)}
 
 
-# The largest power of two whose [U_pad, BITONIC_TILE_MIN] f32 tile fits.
-BITONIC_MAX_U = 1 << ((SMEM_BYTES // (4 * BITONIC_TILE_MIN)).bit_length() - 1)
-assert BITONIC_MAX_U == 8192 and bitonic_tile_d(BITONIC_MAX_U) == 4
+# A column must fit one block: 256 threads x 32 values.
+BITONIC_MAX_U = SORT_THREADS * SORT_VALUES
+assert BITONIC_MAX_U == 8192
 
 
 def _as_lanes(x: Tensor, name: str) -> Tensor:
@@ -118,17 +137,17 @@ def sort_columns_bitonic(x: Tensor, *, plain: bool = False) -> Tensor:
     u_pad = pad_pow2(u)
     need(u_pad <= BITONIC_MAX_U,
          f"sort_columns_bitonic: padded U={u_pad} exceeds "
-         f"BITONIC_MAX_U={BITONIC_MAX_U} (a [U_pad, {BITONIC_TILE_MIN}] f32 "
-         f"tile no longer fits a block's {SMEM_BYTES} bytes of shared "
-         f"memory)")
+         f"BITONIC_MAX_U={BITONIC_MAX_U} (a column no longer fits one "
+         f"block of {SORT_THREADS} threads x {SORT_VALUES} values)")
     if x.device.type == "cpu" or plain:
         return _plain(x)
-    tile = bitonic_tile_d(u_pad)
+    u_pad = max(u_pad, BITONIC_MIN_U)
+    plan = bitonic_plan(u_pad)
     out = torch.empty_like(x)
     err = _build.library("defense_sort").sort_columns_bitonic(
         x.data_ptr(), out.data_ptr(), s, u, u_pad.bit_length() - 1,
-        tile.bit_length() - 1, d, DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        plan["columns_per_block"], plan["smem_bytes"], d,
+        DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "sort_columns_bitonic")
     sort_columns_bitonic.launches += 1
     return out

@@ -123,19 +123,49 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("blocks,s_len,slots", [
-    (64, 32768, 396), (1024, 32768, 396), (64, 64, 396), (16, 777, 396),
-    (64, 32768, 528), (4096, 32768, 396), (1, 524288, 264)])
+    (64, 32768, 264), (1024, 32768, 264), (64, 64, 264), (64, 512, 264),
+    (16, 777, 396), (4096, 32768, 396), (1, 524288, 264)])
 def test_num_splits_fills_whole_waves(blocks, s_len, slots):
-    """The split count keeps chunks of at least MIN_CHUNK positions and,
-    where the cache is long enough, fills at least one wave of resident
-    blocks with its last wave at least 90 % full."""
+    """The split count keeps chunks of at least MIN_CHUNK positions and is
+    the smallest whose grid fills WAVE_FILL of one wave of resident blocks
+    with its last wave WAVE_FILL full; where no count does, the one with
+    the fullest waves."""
     n = DA.num_splits(blocks, s_len, slots)
     assert 1 <= n <= DA.MAX_SPLITS
     assert n == 1 or s_len // n >= DA.MIN_CHUNK
-    grid = blocks * n
-    fill = grid / (-(-grid // slots) * slots)
     n_max = max(1, min(DA.MAX_SPLITS, s_len // DA.MIN_CHUNK))
-    if blocks * n_max >= slots:
-        assert grid >= slots and fill >= 0.9
+
+    def fill(m):
+        grid = blocks * m
+        return grid / (-(-grid // slots) * slots)
+
+    def fills(m):
+        return blocks * m >= DA.WAVE_FILL * slots and fill(m) >= DA.WAVE_FILL
+
+    if any(fills(m) for m in range(1, n_max + 1)):
+        assert fills(n) and not any(fills(m) for m in range(1, n))
     else:
-        assert n == n_max   # too short to fill a wave: as many as allowed
+        assert fill(n) == max(fill(m) for m in range(1, n_max + 1))
+
+
+# (B, S, H, KV) of qwen3-4b's shapes in bf16 at dh = 128, and the split
+# count at 264 resident blocks (2 per SM on 132 SMs): the serve cache is
+# one pass; the long cache about one wave; decode_32k's 1024 blocks fill
+# waves alone.
+@pytest.mark.parametrize("b,s_len,want", [(8, 64, 1), (8, 512, 2),
+                                          (8, 32768, 4), (128, 32768, 1)])
+def test_split_rule_at_the_serving_shapes(b, s_len, want):
+    blocks, n = DA.launch_plan(b, 32, 8, s_len, torch.bfloat16, 264)
+    assert (blocks, n) == (b * 8, want)
+
+
+@pytest.mark.parametrize("h,kvh,dtype,groups", [
+    (32, 8, torch.bfloat16, 1), (32, 4, torch.bfloat16, 1),
+    (12, 2, torch.bfloat16, 1), (48, 4, torch.bfloat16, 2),
+    (32, 4, torch.float32, 2), (32, 8, torch.float32, 1),
+    (4, 1, torch.bfloat16, 1)])
+def test_launch_plan_heads_per_block(h, kvh, dtype, groups):
+    """bf16 takes all G <= 8 query heads of a KV head in one block (its
+    K/V is read once), f32 up to 4."""
+    blocks, _ = DA.launch_plan(2, h, kvh, 4096, dtype, 264)
+    assert blocks == 2 * kvh * groups

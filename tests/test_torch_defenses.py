@@ -174,8 +174,31 @@ def test_sort_router_by_u():
     assert [route(u) for u in (8193, 10_000)] == [None] * 2
     assert TDS.BITONIC_MAX_U == jops.BITONIC_MAX_U == 8192
     assert TDEF.SORT_UNROLL_MAX_U == JDEF.SORT_UNROLL_MAX_U
-    assert [TDS.bitonic_tile_d(p) for p in (64, 1024, 2048, 4096, 8192)] == [
-        32, 32, 16, 8, 4]
+    # the bitonic plan: 32 values per thread; a column takes U_pad / 32
+    # threads, so small U_pad packs columns into a warp and large U_pad
+    # spans warps; every block is 256 threads and ~34 KB of static shared
+    # memory (a static array's cap is 48 KB, under the 232 448 B a block
+    # may opt into on an H100)
+    pads = [1 << e for e in range(6, 14)]
+    plans = [TDS.bitonic_plan(p) for p in pads]
+    assert [pl["columns_per_block"] for pl in plans] == [
+        128, 64, 32, 16, 8, 4, 2, 1]
+    assert [pl["warps_per_column"] for pl in plans] == [
+        1, 1, 1, 1, 1, 2, 4, 8]
+    assert [pl["columns_per_warp"] for pl in plans] == [
+        16, 8, 4, 2, 1, 1, 1, 1]
+    for p, pl in zip(pads, plans):
+        assert pl["values_per_thread"] * pl["threads_per_column"] == p
+        assert (pl["columns_per_block"] * pl["threads_per_column"]
+                == pl["threads_per_block"] <= 1024)
+        assert 33 * 1024 <= pl["smem_bytes"] <= 48 * 1024
+        # registers: the values and ~16 working registers fit the 64 a
+        # thread has with four blocks of 256 threads on an SM's 65 536
+        assert pl["values_per_thread"] + 16 <= 65_536 // (
+            4 * pl["threads_per_block"])
+    for bad in (32, 100, 16384):
+        with pytest.raises(ValueError, match="bitonic_plan"):
+            TDS.bitonic_plan(bad)
     # above the cap the plain sort still answers on the CPU (the card
     # raises, tests/test_torch_gpu.py)
     x = torch.from_numpy(_slab(1, 8193, 2))

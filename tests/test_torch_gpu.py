@@ -17,7 +17,8 @@ from repro_torch.configs import PAPER_MLP
 from repro_torch.core import defenses
 from repro_torch.core.attacks import AttackType
 from repro_torch.core.power_control import Policy
-from repro_torch.kernels import defense_sort, ops, ref
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import _build, defense_sort, ops, ref
 
 # tests/test_kernels.py: combine 1e-5 (f32) / 0.15 (bf16); stats 1e-4/1e-3.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 0.15}
@@ -174,6 +175,50 @@ def test_sorts_bf16_duplicates_presorted(cuda_device, kernel):
     assert torch.equal(fn(srt), srt)
 
 
+# U around each path boundary of the bitonic kernel: 64 (the smallest pad,
+# two threads a column), 1024 (a warp a column, the last U_pad whose
+# windows need no __syncthreads), 2048 (two warps a column); D off every
+# column tile (128 / 8 / 4 columns a block there).
+@pytest.mark.gpu
+@pytest.mark.parametrize("u", [63, 64, 65, 1023, 1024, 1025, 2047, 2048,
+                               2049])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sort_columns_bitonic_path_boundaries(cuda_device, u, dtype):
+    """Random columns with +-inf and ties, and already-sorted columns, at
+    each boundary of the register / warp / block paths: equal to
+    torch.sort bit for bit."""
+    x = _normal(cuda_device, u, 2, u, 129, dtype=dtype)
+    x[0, : u // 3, ::3] = float("inf")
+    x[1, u // 2:, 1::4] = -float("inf")
+    x[:, ::5, 2::5] = 0.25
+    x[:, :, 7] = 1.0
+    ops.reset_launches()
+    _sorts_exactly(ops.sort_columns_bitonic, x)
+    srt = ref.sort_columns_batched_ref(x)
+    assert torch.equal(ops.sort_columns_bitonic(srt), srt)
+    assert ops.launch_counts()["sort_columns_bitonic"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log_u_pad", range(6, 14))
+def test_bitonic_plan_is_the_compiled_one(cuda_device, log_u_pad):
+    """The launch takes its columns and shared memory from `bitonic_plan`;
+    the kernel's entry point accepts that plan for its U_pad and refuses
+    any other."""
+    u = 1 << log_u_pad
+    x = _normal(cuda_device, u, 1, u, 37)
+    _sorts_exactly(ops.sort_columns_bitonic, x)
+    plan = defense_sort.bitonic_plan(u)
+    lib = _build.library("defense_sort")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for cols, smem in [(plan["columns_per_block"] * 2, plan["smem_bytes"]),
+                       (plan["columns_per_block"], plan["smem_bytes"] + 4)]:
+        assert lib.sort_columns_bitonic(
+            x.data_ptr(), out.data_ptr(), 1, u, log_u_pad, cols, smem, 37,
+            _build.DTYPE_CODES[x.dtype], stream) != 0
+
+
 @pytest.mark.gpu
 def test_sort_guards_raise_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="U<=32"):
@@ -292,6 +337,90 @@ def test_decode_attention_ignores_the_future(cuda_device, s):
         for t in (torch.tensor(pos, dtype=torch.int32, device=cuda_device),
                   torch.tensor(pos, device=cuda_device)):
             assert torch.equal(ops.decode_attention(q, k, v, t), out1)
+
+
+def _holds_plain(got, q, k, v, pos):
+    """The kernel's bf16 output against the plain version in f32, at the
+    tolerance of test_decode_attention_matches_plain."""
+    want = ops.decode_attention(q.float(), k.float(), v.float(), pos,
+                                plain=True)
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), want.cpu().numpy(), rtol=DECODE_REL_BF16,
+        atol=DECODE_REL_BF16 * float(want.abs().mean()))
+
+
+@pytest.mark.gpu
+def test_decode_attention_tile_and_chunk_edges(cuda_device):
+    """bf16 at pos + 1 on and off the 16-key warp slice and the 64-key ring
+    stage, and on, one before and one past a chunk boundary of the split
+    the card chooses (chunks of pos + 1 over n_split, in multiples of 16)."""
+    b, s, h, kv, dh = 2, 4096, 32, 8, 128
+    q, k, v = _decode_inputs(cuda_device, 11, b, h, kv, dh, s,
+                             torch.bfloat16)
+    n = DA._plan(cuda_device.index, b, h, kv, s, dh, torch.bfloat16)[0]
+    assert n > 1
+    edges = {15, 16, 17, 63, 64, 65, 127, 128}
+    for m in (16, 64):
+        edges |= {n * m - 2, n * m - 1, n * m}
+    for pos in sorted(edges | {s - 1}):
+        _holds_plain(ops.decode_attention(q, k, v, pos), q, k, v, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 5, 16, 63])
+def test_decode_attention_cache_shorter_than_a_tile(cuda_device, s):
+    q, k, v = _decode_inputs(cuda_device, s, 3, 8, 2, 64, s, torch.bfloat16)
+    for pos in range(s):
+        _holds_plain(ops.decode_attention(q, k, v, pos), q, k, v, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_decode_attention_eight_heads_in_one_block(cuda_device, dh):
+    """G = 8 query heads per KV head: one bf16 block per (row, KV head,
+    chunk), so K/V is read once."""
+    b, h, kv, s = 2, 32, 4, 700
+    assert DA.launch_plan(b, h, kv, s, torch.bfloat16, 264)[0] == b * kv
+    q, k, v = _decode_inputs(cuda_device, dh, b, h, kv, dh, s,
+                             torch.bfloat16)
+    for pos in (0, 333, s - 1):
+        _holds_plain(ops.decode_attention(q, k, v, pos), q, k, v, pos)
+
+
+@pytest.mark.gpu
+def test_decode_attention_serve_shape_every_pos(cuda_device):
+    """The serve shape [8, 64] (qwen3-4b, 32 heads over 8 KV heads) is one
+    pass at every pos."""
+    b, s, h, kv, dh = 8, 64, 32, 8, 128
+    assert DA._plan(cuda_device.index, b, h, kv, s, dh,
+                    torch.bfloat16)[0] == 1
+    q, k, v = _decode_inputs(cuda_device, 64, b, h, kv, dh, s,
+                             torch.bfloat16)
+    for pos in range(s):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+        _holds_plain(ops.decode_attention(q, k, v, pos_t), q, k, v, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [64, 4096])
+def test_decode_attention_graph_replay_matches_eager(cuda_device, s):
+    """One call captured in a CUDA graph and replayed as pos advances on
+    the device gives the eager call's bits (one pass at S = 64, split at
+    S = 4096)."""
+    q, k, v = _decode_inputs(cuda_device, 5, 2, 32, 8, 128, s,
+                             torch.bfloat16)
+    pos_t = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    ops.decode_attention(q, k, v, pos_t)   # build and plan outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, pos_t)
+    for pos in sorted({0, 1, 17, s // 2, s - 1}):
+        pos_t.fill_(pos)
+        graph.replay()
+        eager = ops.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 @pytest.mark.gpu
