@@ -12,11 +12,14 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
   1. device   card name and power limit (also printed raw), torch/CUDA
               versions; TF32 off, as the float32 reference needs.
   2. build    nvcc builds every kernel of csrc/ (seconds, ptxas -v lines),
-              and the registers, shared memory and spills of the two
-              kernels redesigned for Hopper (decode_mma_kernel and the
-              bitonic_kernel instances) one line per instance.
-  3. kernels  each kernel against its plain PyTorch version at the main
-              path's shapes and at awkward ones (D off any tile, U = 32,
+              and the registers, shared memory and spills of the kernels
+              redesigned for Hopper (decode_mma_kernel, bitonic_kernel,
+              floa_combine_kernel, grad_stats_kernel), one per instance.
+  3. kernels  the launch floor (`floor_ms`: one near-empty kernel, graph-
+              replayed), then each kernel against its plain PyTorch version
+              at every main-path shape (the FLOA kernels at [3|4|2|1, 10,
+              D] and [1, 1000, D], grad_stats at 10-40 and 1000 rows) and
+              at awkward ones (D off any tile, U = 32,
               bf16, S = 1; for the sorts U = 7, 33, 100, 4097 and the
               bitonic cap, 8192, and U = 4097 at full width (several
               warps per column); for decode attention decode_32k's
@@ -27,7 +30,9 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               67 TFLOP/s, the larger) and bound / time.  The sorts must
               equal torch.sort exactly.  At the serve shape the row also
               times the decode kernel at 1, 2 and 4 splits (the split
-              rule's choice against its alternatives).
+              rule's choice against its alternatives); likewise each FLOA
+              row times every (V, KU) plan (`plan_ms`) and each
+              grad_stats row every cluster size (`cluster_ms`).
   4-6. main path through `repro_torch.figures.run_figure` / SweepEngine at
               the paper's full width (D = 50890, U = 10): Fig. 1's benign
               lanes, Fig. 3's Byzantine lanes, and a GAUSSIAN-jamming sweep
@@ -57,7 +62,9 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               ms per step against the bytes bound.
   14. parity  the same token sequence through both routes in f32 at full
               width and 2 layers, rtol 1e-4.
-  15. the `kernels` line; 16. the last line, {"ok": true, "device": ...}.
+  15. the `kernels` line (with launches and times by shape where a
+      kernel runs at several main-path shapes, checked against the
+      phases' shapes); 16. the last line, {"ok": true, "device": ...}.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
@@ -165,10 +172,126 @@ def sort_ops(u: int) -> int:
     return math.ceil(math.lgamma(u + 1) / math.log(2))
 
 
+def combine_cases(torch, ops, rnd, gen, s, u, d, dt, main):
+    """The FLOA kernels' and grad_stats' phase-3 rows at [S, U, D]."""
+    eg = torch.finfo(dt).bits // 8
+    # tests/test_kernels.py's tolerances: the combine 1e-5 (f32) and 0.15
+    # (bf16); grad_stats (rtol 1e-4, atol 1e-3) and 2e-2 (bf16).  The f32
+    # combine's atol grows with U beyond 10 workers: its U unit-size terms
+    # are summed in another order by the plain version (cuBLAS), and the
+    # rounding of a running sum of U such terms grows about linearly in U
+    # (about 2e-5 rms at U = 1000, each route).
+    f32 = dt == torch.float32
+    tol = (1e-5, 1e-5 * max(1.0, u / 10)) if f32 else (0.15, 0.15)
+    tol_stats = (1e-4, 1e-3) if f32 else (2e-2, 2e-2)
+    w, c, g, z = rnd(s, d, dtype=dt), rnd(s, u), rnd(s, u, d, dtype=dt), \
+        rnd(s, d, dtype=dt)
+    bias, eps = rnd(s), rnd(s)
+    alpha = torch.rand(s, generator=gen, device="cuda") * 0.2
+    zb = (bias[:, None] + eps[:, None] * z.float()).to(dt)[:, None]
+    label = f"S={s} U={u} D={d} {str(dt)[6:]}"
+    rows = g.reshape(s * u, d)
+    step_args = (w, c, g, z, bias, eps, alpha)
+    s1_args = (c[:1], g[:1], z[:1], bias[:1], eps[:1])
+    return [
+        ("floa_step_batched", label, main,
+         lambda p, a=step_args: ops.floa_step_batched(*a, plain=p),
+         None,
+         s * u * d * eg + 4 * s * d * eg + s * u * 4 + 3 * s * 4,
+         2 * s * u * d + 4 * s * d, tol, None,
+         lambda a=step_args: combine_plans_ms(torch, True, *a)),
+        ("floa_aggregate_batched", label, main,
+         lambda p, a=(c, g, z, bias, eps):
+             ops.floa_aggregate_batched(*a, plain=p),
+         lambda a=(zb, c.to(dt)[:, None], g): torch.baddbmm(*a),
+         s * u * d * eg + 2 * s * d * eg + s * u * 4 + 2 * s * 4,
+         2 * s * u * d + 3 * s * d, tol, None,
+         lambda a=(None, c, g, z, bias, eps): combine_plans_ms(
+             torch, False, *a)),
+        ("floa_aggregate", f"U={u} D={d} {str(dt)[6:]} (S=1)", main,
+         lambda p, a=(c[0], g[0], z[0], bias[0], eps[0]):
+             ops.floa_aggregate(*a, plain=p),
+         lambda a=(zb[0, 0], g[0].t(), c[0].to(dt)): torch.addmv(*a),
+         u * d * eg + 2 * d * eg + u * 4 + 8,
+         2 * u * d + 3 * d, tol, None,
+         lambda a=(None, *s1_args): combine_plans_ms(torch, False, *a)),
+        ("grad_stats", f"R={s * u} D={d} {str(dt)[6:]}", main,
+         lambda p, a=rows: ops.grad_stats(a, plain=p),
+         lambda a=rows: torch.var_mean(a, dim=1, correction=0),
+         s * u * d * eg + s * u * 2 * 4, 3 * s * u * d, tol_stats, None,
+         lambda a=rows: cluster_sizes_ms(torch, a))]
+
+
+def combine_plans_ms(torch, update, w, c, g, z, bias, eps, alpha=None):
+    """The FLOA kernel on one phase-3 row's inputs at every (V, KU) plan the
+    shape allows (V = 1 or the widest vector; KU = 1, 2, 4, 8 worker
+    slices), through its C entry point: {"V=v KU=k": ms}, and the plan the
+    wrapper takes.  Not counted as launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import floa_aggregate as FA
+    lib = _build.library("floa_aggregate")
+    s, u, d = g.shape
+    code = _build.DTYPE_CODES
+    g_out = torch.empty_like(z)
+    w_out = torch.empty_like(w) if update else None
+    ptrs = [g.data_ptr(), z.data_ptr()] + ([w.data_ptr()] if update else [])
+    wdt = w.dtype if update else g.dtype
+
+    def launch(vec, ku):
+        stream = torch.cuda.current_stream().cuda_stream  # the capture's
+        if update:
+            err = lib.floa_step_batched(
+                w.data_ptr(), c.data_ptr(), g.data_ptr(), z.data_ptr(),
+                bias.data_ptr(), eps.data_ptr(), alpha.data_ptr(),
+                w_out.data_ptr(), g_out.data_ptr(), s, u, d, code[g.dtype],
+                code[wdt], vec, ku, stream)
+        else:
+            err = lib.floa_aggregate_batched(
+                c.data_ptr(), g.data_ptr(), z.data_ptr(), bias.data_ptr(),
+                eps.data_ptr(), g_out.data_ptr(), s, u, d, code[g.dtype], vec,
+                ku, stream)
+        _build.check(err, "floa_combine_kernel")
+
+    widest = FA.vector_width(d, g.element_size(), w_out.element_size()
+                             if update else g.element_size(),
+                             FA._align(*ptrs))
+    times = {}
+    for vec in sorted({1, widest}):
+        for ku in FA.WORKER_SLICES:
+            if ku <= u:
+                times[f"V={vec} KU={ku}"] = time_ms(
+                    torch, lambda v=vec, k=ku: launch(v, k))
+    plan = FA._plan(g.device.index, s, u, d, g.dtype, wdt, FA._align(*ptrs))
+    return {"plan": f"V={plan[0]} KU={plan[1]}", "plan_ms": times}
+
+
+def cluster_sizes_ms(torch, rows):
+    """grad_stats on one phase-3 row's rows at every cluster size C the card
+    runs, through its C entry point: {C: ms}, and the C the wrapper takes.
+    Not counted as launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import grad_stats as GS
+    lib = _build.library("grad_stats")
+    r, d = rows.shape
+    code = _build.DTYPE_CODES[rows.dtype]
+    out = torch.empty((r, 2), device=rows.device)
+    max_c = lib.grad_stats_max_cluster(code)
+    times = {}
+    for c in GS.CLUSTER_SIZES:
+        if c <= max_c:
+            times[c] = time_ms(torch, lambda c=c: _build.check(lib.grad_stats(
+                rows.data_ptr(), out.data_ptr(), r, d, code, c,
+                torch.cuda.current_stream().cuda_stream), "grad_stats"))
+    return {"cluster": GS._plan(rows.device.index, r, d, rows.dtype),
+            "max_cluster": max_c, "cluster_ms": times}
+
+
 def kernel_cases(torch, ops):
     """(kernel, label, main?, run(plain) -> outputs, library fn or None,
-    bytes, flops, (rtol, atol) or "exact") for every comparison of
-    phase 3."""
+    bytes, flops, (rtol, atol) or "exact", want() or None, extra() or
+    None) for every comparison of phase 3: want() gives the reference
+    (default: the plain version), extra() more fields for the row (the
+    timings of a kernel's alternative launch plans)."""
     gen = torch.Generator("cuda").manual_seed(0)
 
     def rnd(*shape, dtype=torch.float32):
@@ -177,45 +300,17 @@ def kernel_cases(torch, ops):
     cases = []
     for s, u, d, dt, main in [(4, 10, 50890, torch.float32, True),
                               (3, 32, 5000, torch.bfloat16, False)]:
-        eg = torch.finfo(dt).bits // 8
-        # tests/test_kernels.py's tolerances: the combine 1e-5 (f32) and
-        # 0.15 (bf16); grad_stats (rtol 1e-4, atol 1e-3) and 2e-2 (bf16).
-        f32 = dt == torch.float32
-        tol = (1e-5, 1e-5) if f32 else (0.15, 0.15)
-        tol_stats = (1e-4, 1e-3) if f32 else (2e-2, 2e-2)
-        w, c, g, z = rnd(s, d, dtype=dt), rnd(s, u), rnd(s, u, d, dtype=dt), \
-            rnd(s, d, dtype=dt)
-        bias, eps = rnd(s), rnd(s)
-        alpha = torch.rand(s, generator=gen, device="cuda") * 0.2
-        zb = (bias[:, None] + eps[:, None] * z.float()).to(dt)[:, None]
-        label = f"S={s} U={u} D={d} {str(dt)[6:]}"
-        cases.append((
-            "floa_step_batched", label, main,
-            lambda p, a=(w, c, g, z, bias, eps, alpha):
-                ops.floa_step_batched(*a, plain=p),
-            None,
-            s * u * d * eg + 4 * s * d * eg + s * u * 4 + 3 * s * 4,
-            2 * s * u * d + 4 * s * d, tol))
-        cases.append((
-            "floa_aggregate_batched", label, main,
-            lambda p, a=(c, g, z, bias, eps):
-                ops.floa_aggregate_batched(*a, plain=p),
-            lambda a=(zb, c.to(dt)[:, None], g): torch.baddbmm(*a),
-            s * u * d * eg + 2 * s * d * eg + s * u * 4 + 2 * s * 4,
-            2 * s * u * d + 3 * s * d, tol))
-        cases.append((
-            "floa_aggregate", f"U={u} D={d} {str(dt)[6:]} (S=1)", main,
-            lambda p, a=(c[0], g[0], z[0], bias[0], eps[0]):
-                ops.floa_aggregate(*a, plain=p),
-            lambda a=(zb[0, 0], g[0].t(), c[0].to(dt)): torch.addmv(*a),
-            u * d * eg + 2 * d * eg + u * 4 + 8,
-            2 * u * d + 3 * d, tol))
-        rows = g.reshape(s * u, d)
-        cases.append((
-            "grad_stats", f"R={s * u} D={d} {str(dt)[6:]}", main,
-            lambda p, a=rows: ops.grad_stats(a, plain=p),
-            lambda a=rows: torch.var_mean(a, dim=1, correction=0),
-            s * u * d * eg + s * u * 2 * 4, 3 * s * u * d, tol_stats))
+        cases += combine_cases(torch, ops, rnd, gen, s, u, d, dt, main)
+    # the other main-path shapes of the same kernels (PERF.md section 6):
+    # fig1's 3 lanes, the combine route's 2, and the single analog lane of
+    # the defense grid (U = 10) and of the U = 1000 grid
+    for s, u, kinds in [(3, 10, ("floa_step_batched", "grad_stats")),
+                        (2, 10, ("floa_aggregate_batched", "grad_stats")),
+                        (1, 10, ("floa_step_batched", "grad_stats")),
+                        (1, 1000, ("floa_step_batched", "grad_stats"))]:
+        cases += [c for c in combine_cases(torch, ops, rnd, gen, s, u, 50890,
+                                           torch.float32, True)
+                  if c[0] in kinds]
     # the sorts: the defense grid's slab (U = 10) and the U = 1000 grid's
     for name, s, u, d, dt, main in [
             ("sort_columns", 1, 10, 50890, torch.float32, True),
@@ -234,7 +329,7 @@ def kernel_cases(torch, ops):
             lambda p, f=ops.KERNELS[name], a=x: f(a, plain=p),
             lambda a=x: torch.sort(a, dim=1),
             2 * s * u * d * (torch.finfo(dt).bits // 8),
-            s * d * sort_ops(u), "exact"))
+            s * d * sort_ops(u), "exact", None, None))
     return cases + decode_cases(torch, ops)
 
 
@@ -285,8 +380,8 @@ def decode_f32_ref(torch, ops, q, k, v, pos_t, rows: int = 8):
 def decode_cases(torch, ops):
     """decode_attention's phase-3 rows; pos is a device tensor, as on the
     serving path.  Each row carries its f32 reference (see DECODE_TOL_F32
-    and DECODE_REL_BF16) as a ninth element and its inputs (q, k, v,
-    pos_t) as a tenth."""
+    and DECODE_REL_BF16) as its ninth element; the serve shape's row at
+    pos 63 also times the kernel at 1, 2 and 4 splits."""
     gen = torch.Generator("cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []
@@ -319,26 +414,44 @@ def decode_cases(torch, ops):
             main, lambda p, a=(q, k, v, pos_t): ops.decode_attention(
                 *a, plain=p),
             sdpa_call(torch, q, k, v, pos, want, sdpa_tol), nbytes, flops,
-            tol, lambda w=want: w, (q, k, v, pos_t)))
+            tol, lambda w=want: w,
+            (lambda a=(q, k, v, pos_t): {"split_ms": decode_split_ms(
+                torch, *a)}) if (b, s, pos) == (SERVE_BATCH, 64, 63)
+            else None))
     return cases
 
 
 def redesigned_ptxas(ptxas: dict) -> dict:
     """Registers, static shared memory and spill bytes per instance of the
-    two kernels redesigned for Hopper, from the build's ptxas -v lines."""
+    kernels redesigned for Hopper (decode_mma_kernel and bitonic_kernel,
+    floa_combine_kernel and grad_stats_kernel), from the build's ptxas -v
+    lines.  In a mangled name only bf16 can repeat as a substitution
+    (S<n>_): f is a builtin."""
     import re
+    ty = r"(f|13__nv_bfloat16|S\d*_)"
+    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    patterns = [
+        (r"(decode_mma_kernel|bitonic_kernel)ILi(\d+)E(f|13__nv_bfloat16)?",
+         lambda m: f"{m[1]}<{m[2]}"
+                   f"{', ' + names[m[3]] if m[3] else ''}>"),
+        (r"floa_combine_kernelILb([01])E" + ty + ty + r"Li(\d+)ELi(\d+)E",
+         lambda m: f"floa_combine_kernel<{'true' if m[1] == '1' else 'false'}"
+                   f", {names.get(m[2], 'bf16')}, {names.get(m[3], 'bf16')}"
+                   f", {m[4]}, {m[5]}>"),
+        (r"grad_stats_kernelI(f|13__nv_bfloat16)E",
+         lambda m: f"grad_stats_kernel<{names[m[1]]}>")]
     found, entry = {}, None
-    for line in ptxas["decode_attention"] + ptxas["defense_sort"]:
+    for line in (ptxas["decode_attention"] + ptxas["defense_sort"]
+                 + ptxas["floa_aggregate"] + ptxas["grad_stats"]):
         if "Compiling entry" in line:
-            m = re.search(r"(decode_mma_kernel|bitonic_kernel)ILi(\d+)E"
-                          r"(f|13__nv_bfloat16)?", line)
             entry = None
-            if m:
-                kind = {"f": ", f32", "13__nv_bfloat16": ", bf16"}.get(
-                    m[3], "")
-                entry = f"{m[1]}<{m[2]}{kind}>"
-                found[entry] = {"registers": None, "smem_bytes": 0,
-                                "spill_store_bytes": 0}
+            for pattern, name in patterns:
+                m = re.search(pattern, line)
+                if m:
+                    entry = name(m)
+                    found[entry] = {"registers": None, "smem_bytes": 0,
+                                    "spill_store_bytes": 0}
+                    break
         elif entry and "Used" in line:
             found[entry]["registers"] = int(re.search(
                 r"Used (\d+) registers", line)[1])
@@ -350,11 +463,12 @@ def redesigned_ptxas(ptxas: dict) -> dict:
     return found
 
 
-def decode_split_ms(torch, _build, q, k, v, pos_t) -> dict:
+def decode_split_ms(torch, q, k, v, pos_t) -> dict:
     """The serve shape's decode kernel timed at 1, 2 and 4 splits (keyed by
     split count), through its C entry point on a phase-3 row's inputs: what
     the split rule's one pass is weighed against.  Not counted as
     launches."""
+    from repro_torch.kernels import _build
     b, h, dh = q.shape
     lib = _build.library("decode_attention")
     out = torch.empty_like(q)
@@ -515,12 +629,15 @@ def main() -> int:
         f"decode_mma_kernel<{dh}>": 3 * 2 * 64 * dh * 2
         for dh in (32, 64, 128)}, **redesigned_ptxas(build["ptxas"]))
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions, beside the launch floor: the
+    # graph-replayed time of one near-empty kernel
+    floor_ms = time_ms(torch, lambda: torch.empty(1, device="cuda").zero_())
+    emit("launch_floor", floor_ms=floor_ms)
     table = {}
-    for name, label, main_shape, run, lib, nbytes, flops, tol, *ref in \
-            kernel_cases(torch, ops):
+    for name, label, main_shape, run, lib, nbytes, flops, tol, want_fn, \
+            extra in kernel_cases(torch, ops):
         got = run(False)
-        want = ref[0]() if ref else run(True)
+        want = want_fn() if want_fn else run(True)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
@@ -552,15 +669,14 @@ def main() -> int:
                "library_ms": None if lib is None else time_ms(torch, lib,
                                                               iters),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "flops": flops}
+               "flops": flops, "floor_ms": floor_ms}
         row["bound_share"] = b_ms / row["ms"]
-        if name == "decode_attention" and label.startswith(
-                f"B={SERVE_BATCH} S=64 ") and label.endswith("pos=63"):
-            row["split_ms"] = decode_split_ms(torch, _build, *ref[1])
+        if extra:
+            row.update(extra())
         emit("kernel_check", **row)
         if main_shape:
-            table[name] = row
-    del run, lib, got, want, ref
+            table.setdefault(name, []).append(row)
+    del run, lib, got, want, want_fn, extra
     torch.cuda.empty_cache()
 
     # 5's, 8's and 9's sweeps, profiled alone: `chip_smoke.py --profile`
@@ -611,6 +727,7 @@ def main() -> int:
             for n, p in [("EF", Policy.EF), ("CI", Policy.CI),
                          ("BEV", Policy.BEV)]]
     main_launches = {k: 0 for k in ops.KERNELS}
+    main_shapes = {k: {} for k in ops.launch_shapes()}
 
     def drive(name, exps, expect, run=None, engine=None, rounds=ROUNDS):
         """One main-path phase through its entry point (counted; default
@@ -623,6 +740,9 @@ def main() -> int:
             {**{k: 0 for k in ops.KERNELS}, **expect})
         for k, v in counts.items():
             main_launches[k] += v
+        for k, by_shape in ops.launch_shapes().items():
+            for shape, n in by_shape.items():
+                main_shapes[k][shape] = main_shapes[k].get(shape, 0) + n
         if not np.isfinite(result.loss).all():
             raise AssertionError(f"{name}: non-finite loss")
         engine, params, batches = (engine or (lambda: figures.figure_engine(
@@ -848,6 +968,34 @@ def main() -> int:
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
+    # every main-path shape of the FLOA kernels and grad_stats, with its
+    # launches: the paper's sweeps (3, 4 and 2 lanes of U = 10), the single
+    # analog lane of the defense grid (U = 10) and of the U = 1000 grid
+    d = mc_u.dim
+    want_shapes = {
+        "floa_step_batched": {(3, 10, d): ROUNDS, (4, 10, d): ROUNDS,
+                              (1, 10, d): ROUNDS, (1, 1000, d): ROUNDS_LARGE_U},
+        "floa_aggregate_batched": {(2, 10, d): ROUNDS},
+        "floa_aggregate": {},
+        "grad_stats": {(30, d): ROUNDS, (40, d): ROUNDS, (20, d): ROUNDS,
+                       (10, d): ROUNDS, (1000, d): ROUNDS_LARGE_U}}
+    if main_shapes != want_shapes:
+        raise AssertionError(f"main-path launches by shape: {main_shapes}, "
+                             f"expected {want_shapes}")
+
+    def by_shape(name):
+        """[{shape, launches, ms, bound_ms, bound_share, call_ms}] of a
+        kernel's main-path shapes, from their phase-3 rows."""
+        out = []
+        for shape, n in main_shapes.get(name, {}).items():
+            tag = (f"S={shape[0]} U={shape[1]} D={shape[2]} "
+                   if len(shape) == 3 else f"R={shape[0]} D={shape[1]} ")
+            row = next(r for r in table[name] if r["shape"].startswith(tag))
+            out.append({"shape": row["shape"], "launches": n,
+                        **{k: row[k] for k in ("ms", "bound_ms",
+                                               "bound_share", "call_ms")}})
+        return out
+
     # 15. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
@@ -865,7 +1013,7 @@ def main() -> int:
                                     "src/repro/kernels/decode_attention.py:72")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        row = table[name]
+        row = table[name][0]
         on_path = name != "floa_aggregate"
         if on_path and main_launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -876,7 +1024,10 @@ def main() -> int:
             "on_main_path": on_path, "shape": row["shape"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "call_ms": row["call_ms"]})
+        if len(main_shapes.get(name, {})) > 1:
+            kernels[-1]["launches_by_shape"] = by_shape(name)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -41,12 +41,14 @@ _L = ctypes.c_int64
 # C signatures per source file, as exported by csrc/<name>.cu.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "floa_aggregate": {
-        "floa_aggregate_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P],
+        "floa_aggregate_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I,
+                                   _I, _I, _P],
         "floa_step_batched": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
-                              _I, _I, _P],
+                              _I, _I, _I, _I, _P],
     },
     "grad_stats": {
-        "grad_stats": [_P, _P, _L, _L, _I, _P],
+        "grad_stats": [_P, _P, _L, _L, _I, _I, _P],
+        "grad_stats_max_cluster": [_I],
     },
     "defense_sort": {
         "sort_columns": [_P, _P, _I, _I, _L, _I, _P],

@@ -6,28 +6,83 @@
 //
 // The Pallas kernel walks D as a sequential grid and carries the [U, 2] sum
 // in one revisited output block (grad_stats.py:25-33).  Hopper's blocks run
-// in parallel and in no order, so nothing can be carried from one block to
-// the next.  This kernel gives each row its own block instead: the block's
-// threads stride over the row with coalesced reads, keep (s1, s2) in f32
-// registers, and finish with a warp-shuffle tree and one pass over the
-// per-warp partials in shared memory.  The reduction order is fixed by the
-// launch shape, so the result is deterministic and needs no atomics and no
-// second pass.  On the sweep's main path R = S*U rows (40 at the Fig. 3
-// shape) of D = 50 890: 40 blocks on 132 SMs, enough for a pass that is
-// bound by bytes (R*D elements read once over 3.35 TB/s) and, at this size,
-// by launch latency.  Splitting long rows over several blocks is later work.
+// in parallel and in no order, so nothing carries from one block to the
+// next.  What bounds the pass is bytes: R*D elements read once (one add and
+// one FMA each, far below the card's ridge).  To reach that bound the card
+// needs enough loads in flight, and the sweep's row counts are small (10 to
+// 40 rows of D = 50 890 on the paper's grids, 1000 on the U = 1000 grid), so
+// one block a row left most of the 132 SMs idle.
+//
+// Design: a row is split over the C blocks of one thread-block cluster
+// (C = 1, 2, 4, 8 or 16; `kernels/grad_stats.py::cluster_size` picks C from
+// R, D and the SM count, C = 1 at R = 1000).  Block `rank` of a row's
+// cluster reduces its share of the row's 16-byte vectors with UNROLL
+// independent 16-byte loads in flight per thread, keeps (s1, s2) in f32
+// registers, and folds them by fixed warp-shuffle trees (the lanes, then
+// the block's 8 warp sums in warp 0).  It then writes its pair into the
+// rank-0 block's shared memory through distributed shared memory; after
+// `cluster.sync()` rank 0 adds the C pairs by a fixed tree in rank order.
+// No atomics, no scratch, no second launch: the sum's order depends only on
+// (R, D, C, the row's alignment), so results are bit-equal across calls
+// and CUDA-graph replays.  A cluster is not free: each doubling of C adds
+// set-up and a longer sync, so the plan splits only as far as about 1.5
+// blocks an SM.
+//
+// Alignment rule.  A row starts wherever the caller's view puts it (D may be
+// odd, and a contiguous view may carry a storage offset), so each row peels
+// its own head: the elements before its first 16-byte boundary (fewer than V
+// = 16 / sizeof(T)), and its tail after the last whole vector.  Rank 0's
+// first threads add the head and the tail; every 16-byte load is aligned.
+// `kernels/grad_stats.py::row_chunks` mirrors this split on the host.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_CLUSTER = 16;  // non-portable on sm_90, opted in below
+constexpr int UNROLL = 4;  // 16-byte loads in flight a thread (grad_stats.py)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void add(float x, float& s1, float& s2) {
+  s1 += x;
+  s2 = fmaf(x, x, s2);
+}
+
+// The 16 bytes of q as f32 (4 floats, or 8 bf16 widened exactly).
+__device__ __forceinline__ void add16(uint4 q, const float*, float& s1,
+                                      float& s2) {
+  add(__uint_as_float(q.x), s1, s2);
+  add(__uint_as_float(q.y), s1, s2);
+  add(__uint_as_float(q.z), s1, s2);
+  add(__uint_as_float(q.w), s1, s2);
+}
+__device__ __forceinline__ void add16(uint4 q, const __nv_bfloat16*,
+                                      float& s1, float& s2) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    add(__uint_as_float(w[i] << 16), s1, s2);
+    add(__uint_as_float(w[i] & 0xffff0000u), s1, s2);
+  }
+}
+
+// Lane 0 gets the sum of lanes [0, n) of the warp (n a power of two, the
+// other lanes zero), by a fixed shuffle tree.
+__device__ __forceinline__ void tree(float& s1, float& s2, int n) {
+  for (int off = n / 2; off > 0; off >>= 1) {
+    s1 += __shfl_down_sync(0xffffffffu, s1, off);
+    s2 += __shfl_down_sync(0xffffffffu, s2, off);
+  }
 }
 
 template <typename T>
@@ -35,60 +90,167 @@ __global__ void __launch_bounds__(THREADS)
 grad_stats_kernel(const T* __restrict__ grads,  // [R, D]
                   float* __restrict__ out,      // [R, 2]
                   int64_t d_n) {
-  __shared__ float part1[WARPS];
-  __shared__ float part2[WARPS];
-  const T* g = grads + (int64_t)blockIdx.x * d_n;
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float warp_part[2][WARPS];
+  __shared__ float rank_part[2][MAX_CLUSTER];  // rank 0's: one pair a block
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c_n = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int64_t row = blockIdx.x / c_n;
+  const T* g = grads + row * d_n;
+
+  // this row's head, whole vectors and tail (row_chunks on the host)
+  const int mis = (int)((reinterpret_cast<uintptr_t>(g) & 15) / sizeof(T));
+  const int64_t head = mis == 0 ? 0 : (V - mis < d_n ? V - mis : d_n);
+  const int64_t n_vec = (d_n - head) / V;
+  const int64_t tail0 = head + n_vec * V;
+  const int64_t per = (n_vec + c_n - 1) / c_n;
+  const int64_t v0 = rank * per < n_vec ? rank * per : n_vec;
+  const int64_t v1 = v0 + per < n_vec ? v0 + per : n_vec;
+  const uint4* gv = reinterpret_cast<const uint4*>(g + head);
+
   float s1 = 0.0f, s2 = 0.0f;
-  for (int64_t d = threadIdx.x; d < d_n; d += THREADS) {
-    const float x = to_f32(g[d]);
-    s1 += x;
-    s2 = fmaf(x, x, s2);
+  for (int64_t i = v0 + threadIdx.x; i < v1; i += THREADS * UNROLL) {
+    uint4 q[UNROLL];
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      const int64_t j = i + (int64_t)k * THREADS;
+      q[k] = j < v1 ? __ldg(gv + j) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) add16(q[k], g, s1, s2);
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    s1 += __shfl_down_sync(0xffffffffu, s1, off);
-    s2 += __shfl_down_sync(0xffffffffu, s2, off);
+  if (rank == 0) {
+    const int t = threadIdx.x;
+    if (t < head) add(to_f32(g[t]), s1, s2);
+    if (t >= V && tail0 + (t - V) < d_n) {
+      add(to_f32(g[tail0 + t - V]), s1, s2);
+    }
   }
+
+  // warps, then the block's warps, then the cluster's blocks: fixed trees
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  tree(s1, s2, 32);
   if (lane == 0) {
-    part1[warp] = s1;
-    part2[warp] = s2;
+    warp_part[0][warp] = s1;
+    warp_part[1][warp] = s2;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float t1 = 0.0f, t2 = 0.0f;
-    for (int i = 0; i < WARPS; ++i) {
-      t1 += part1[i];
-      t2 += part2[i];
+  if (warp == 0) {
+    s1 = lane < WARPS ? warp_part[0][lane] : 0.0f;
+    s2 = lane < WARPS ? warp_part[1][lane] : 0.0f;
+    tree(s1, s2, WARPS);
+    if (c_n > 1 && lane == 0) {
+      float* dst = cluster.map_shared_rank(&rank_part[0][0], 0);
+      dst[rank] = s1;
+      dst[MAX_CLUSTER + rank] = s2;
     }
-    out[2 * (int64_t)blockIdx.x] = t1;
-    out[2 * (int64_t)blockIdx.x + 1] = t2;
+  }
+  if (c_n > 1) {  // uniform over the cluster
+    cluster.sync();  // the pairs are in rank 0's shared memory
+    if (rank != 0 || warp != 0) return;
+    s1 = lane < c_n ? rank_part[0][lane] : 0.0f;
+    s2 = lane < c_n ? rank_part[1][lane] : 0.0f;
+    tree(s1, s2, MAX_CLUSTER);
+  } else if (warp != 0) {
+    return;
+  }
+  if (lane == 0) {
+    out[2 * row] = s1;
+    out[2 * row + 1] = s2;
   }
 }
 
 constexpr int F32 = 0;
 constexpr int BF16 = 1;
 
+cudaLaunchConfig_t config(int64_t blocks, int c, cudaStream_t st,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
+cudaError_t allow_cluster(int c) {
+  if (c <= 8) return cudaSuccess;
+  return cudaFuncSetAttribute(grad_stats_kernel<T>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+template <typename T>
+cudaError_t launch(const void* grads, void* out, int64_t r_n, int64_t d_n,
+                   int c, cudaStream_t st) {
+  cudaError_t err = allow_cluster<T>(c);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(r_n * c, c, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, grad_stats_kernel<T>,
+                           static_cast<const T*>(grads),
+                           static_cast<float*>(out), d_n);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Largest C in {16, 8, 4, 2} of which at least one cluster fits the card
+// (cudaOccupancyMaxActiveClusters), else 1.
+template <typename T>
+int max_cluster() {
+  for (int c = MAX_CLUSTER; c > 1; c /= 2) {
+    if (allow_cluster<T>(c) != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config(c, c, nullptr, &attr);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, grad_stats_kernel<T>, &cfg) ==
+            cudaSuccess && n > 0)
+      return c;
+    cudaGetLastError();  // a refused query leaves no error for the launch
+  }
+  return 1;
+}
+
+bool valid_cluster(int c) {
+  return c == 1 || c == 2 || c == 4 || c == 8 || c == MAX_CLUSTER;
+}
+
 }  // namespace
 
 extern "C" {
 
-// grads [R, D] (dtype code 0 = f32, 1 = bf16) -> out [R, 2] f32.  Returns
-// cudaGetLastError() after the launch.
+// grads [R, D] (dtype code 0 = f32, 1 = bf16) -> out [R, 2] f32, each row
+// split over a cluster of `cluster` blocks (1, 2, 4, 8 or 16).  Returns the
+// launch's error code (cudaErrorInvalidValue for a bad dtype or cluster
+// size; a cluster the card cannot schedule fails the launch).
 int grad_stats(const void* grads, void* out, int64_t r_n, int64_t d_n,
-               int dtype, void* stream) {
+               int dtype, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)r_n);
-  if (dtype == F32) {
-    grad_stats_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(grads), static_cast<float*>(out), d_n);
-  } else if (dtype == BF16) {
-    grad_stats_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(grads), static_cast<float*>(out),
-        d_n);
-  } else {
+  if (!valid_cluster(cluster) || r_n < 1 || d_n < 1 ||
+      r_n * cluster > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == F32) return launch<float>(grads, out, r_n, d_n, cluster, st);
+  if (dtype == BF16)
+    return launch<__nv_bfloat16>(grads, out, r_n, d_n, cluster, st);
+  return cudaErrorInvalidValue;
+}
+
+// The largest cluster size the kernel can run at on the current card, or a
+// negative value for a bad dtype code.
+int grad_stats_max_cluster(int dtype) {
+  if (dtype == F32) return max_cluster<float>();
+  if (dtype == BF16) return max_cluster<__nv_bfloat16>();
+  return -1;
 }
 
 }  // extern "C"

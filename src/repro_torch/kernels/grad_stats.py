@@ -8,13 +8,26 @@ rows of its gradient slab; the mean/variance follow on scalars
 
 CPU tensors take the plain version (`kernels/ref.py::grad_stats_ref`), CUDA
 tensors launch the kernel or raise; `plain=True` forces the plain version
-for kernel-vs-plain tests.  Launches are counted in `grad_stats.launches`.
+for kernel-vs-plain tests.  Launches are counted in `grad_stats.launches`,
+and by (R, D) in `grad_stats.shapes`.
 
 Bound and design (details in the .cu source): one read of R*D elements,
-bound by bytes; one block per row with a fixed warp-shuffle tree, so the
-result is deterministic without atomics.
+bound by bytes.  Each row is split over the C blocks of one thread-block
+cluster (`cluster_size`: C grows while R*C is under TARGET_BLOCKS_PER_SM
+blocks an SM and a block keeps MIN_VECS_PER_BLOCK vectors, so C = 1 at
+R = 1000 and for short rows); a block reads its share with 16-byte
+loads and hands its partial sums to the cluster's rank-0 block through
+distributed shared memory, which adds them in rank order.  The alignment
+rule: each row peels the elements before its first 16-byte boundary and
+after its last whole vector (`row_chunks`), so any contiguous view, at any
+storage offset and any D, is read with aligned loads.  The sum's order
+depends only on (R, D, C, the row's alignment): deterministic, no atomics.
 """
 from __future__ import annotations
+
+import collections
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -23,7 +36,72 @@ from repro_torch.kernels._build import DTYPE_CODES, check_tensor, need
 
 Tensor = torch.Tensor
 
-MAX_ROWS = 2**31 - 1  # grid.x limit
+MAX_ROWS = 2**31 - 1       # grid.x limit (R * C blocks, checked at launch)
+THREADS = 256              # csrc/grad_stats.cu::THREADS
+VEC_BYTES = 16             # one load
+# A block's least share of a row, in 16-byte vectors: one round of the
+# kernel's UNROLL = 4 loads a thread.
+MIN_VECS_PER_BLOCK = THREADS * 4
+CLUSTER_SIZES = (1, 2, 4, 8, 16)   # 16 is non-portable on sm_90
+# A row is split until R * C reaches this many blocks an SM (or C the card's
+# largest cluster, or a block less than MIN_VECS_PER_BLOCK).  Each doubling
+# of C costs cluster set-up and a longer sync, so the best C at the paper's
+# 10-40 rows sits near 1.5 blocks an SM (`cluster_ms`, PERF.md).
+TARGET_BLOCKS_PER_SM = 1.5
+
+
+def cluster_size(r: int, d: int, esize: int, sms: int,
+                 max_cluster: int) -> int:
+    """Blocks per row (the cluster size C) for R rows of D elements of
+    `esize` bytes on a card of `sms` SMs whose largest cluster is
+    `max_cluster`: the smallest C in CLUSTER_SIZES with R*C >=
+    TARGET_BLOCKS_PER_SM * sms, capped at max_cluster and at the C that
+    leaves each block MIN_VECS_PER_BLOCK vectors."""
+    vecs = d * esize // VEC_BYTES
+    c = 1
+    while (c * 2 <= max_cluster and r * c < TARGET_BLOCKS_PER_SM * sms
+           and vecs // (c * 2) >= MIN_VECS_PER_BLOCK):
+        c *= 2
+    return c
+
+
+def row_chunks(d: int, c: int, esize: int, row_addr: int
+               ) -> List[Tuple[int, int, int]]:
+    """The kernel's split of one row of D elements starting at byte address
+    `row_addr` over C blocks, as (rank, start, end) element ranges: rank 0
+    takes the head (up to the first 16-byte boundary) and the tail (after
+    the last whole vector); the whole vectors between go to the ranks in
+    equal runs of ceil(n_vec / C).  Mirrors csrc/grad_stats.cu."""
+    v = VEC_BYTES // esize
+    mis = (row_addr % VEC_BYTES) // esize
+    head = min(d, v - mis) if mis else 0
+    n_vec = (d - head) // v
+    tail0 = head + n_vec * v
+    per = -(-n_vec // c)
+    out = [(0, 0, head)] if head else []
+    for rank in range(c):
+        v0 = min(n_vec, rank * per)
+        v1 = min(n_vec, v0 + per)
+        if v1 > v0:
+            out.append((rank, head + v0 * v, head + v1 * v))
+    if tail0 < d:
+        out.append((0, tail0, d))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _card(device_index: int, dtype_code: int) -> Tuple[int, int]:
+    """(SM count, largest cluster the kernel runs at) of one card."""
+    max_c = _build.library("grad_stats").grad_stats_max_cluster(dtype_code)
+    need(max_c >= 1, f"grad_stats: cluster query failed ({max_c})")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms, max_c
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(device_index: int, r: int, d: int, dtype) -> int:
+    sms, max_c = _card(device_index, DTYPE_CODES[dtype])
+    return cluster_size(r, d, dtype.itemsize, sms, max_c)
 
 
 def grad_stats(grads: Tensor, *, plain: bool = False) -> Tensor:
@@ -37,13 +115,16 @@ def grad_stats(grads: Tensor, *, plain: bool = False) -> Tensor:
     check_tensor("grads", grads, (r, d), tuple(DTYPE_CODES), grads.device)
     if grads.device.type == "cpu" or plain:
         return ref.grad_stats_ref(grads)
+    c = _plan(grads.device.index, r, d, grads.dtype)
     out = torch.empty((r, 2), dtype=torch.float32, device=grads.device)
     err = _build.library("grad_stats").grad_stats(
-        grads.data_ptr(), out.data_ptr(), r, d, DTYPE_CODES[grads.dtype],
+        grads.data_ptr(), out.data_ptr(), r, d, DTYPE_CODES[grads.dtype], c,
         torch.cuda.current_stream(grads.device).cuda_stream)
     _build.check(err, "grad_stats")
     grad_stats.launches += 1
+    grad_stats.shapes[(r, d)] += 1
     return out
 
 
 grad_stats.launches = 0
+grad_stats.shapes = collections.Counter()

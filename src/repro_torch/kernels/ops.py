@@ -8,7 +8,7 @@ count.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
@@ -38,13 +38,22 @@ KERNELS = {
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count to 0 (and its count by shape)."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def launch_shapes() -> Dict[str, Dict[Tuple[int, ...], int]]:
+    """Launches by input shape, for the wrappers that count them (the FLOA
+    kernels by (S, U, D), grad_stats by (R, D))."""
+    return {name: dict(fn.shapes) for name, fn in KERNELS.items()
+            if hasattr(fn, "shapes")}
 
 
 # oracles re-exported for tests/benchmarks

@@ -137,6 +137,213 @@ def _sorts_exactly(kernel, x):
     assert torch.equal(kernel(x[0]), ref.sort_columns_ref(x[0]))
 
 
+# The redesigned FLOA combine and grad_stats: every plan, alignment and
+# main-path shape against the plain versions.  The f32 combine's atol grows
+# with U beyond 10 workers, as in chip_smoke.py: the plain version (cuBLAS)
+# sums the U unit-size terms in another order, and the rounding of such a
+# running sum grows about linearly in U.
+def _combine_tol(dtype, u):
+    return 1e-5 * max(1.0, u / 10) if dtype == torch.float32 else TOL[dtype]
+
+
+STATS_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _offset_view(dev, seed, shape, offset, dtype):
+    """A contiguous view of `shape` at storage offset `offset` (its base
+    `offset` elements past an allocation's aligned start)."""
+    n = int(np.prod(shape))
+    return _normal(dev, seed, n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,u,d", [(1, 10, 50890), (1, 1000, 50890),
+                                   (3, 10, 50890), (1, 1, 4097),
+                                   (2, 7, 4093), (1, 33, 4094),
+                                   (3, 5, 4095), (1, 3, 1), (1, 1000, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_matches_plain_at_main_and_ragged_shapes(cuda_device, s, u,
+                                                         d, dtype):
+    """The fused step, the combine and the S = 1 entry point against their
+    plain versions: the main path's S = 1 lanes (U = 10, 1000), D off every
+    vector grid (D % 4 in {1, 2, 3}, D = 1) and U = 1."""
+    w, c, g, z, bias, eps, alpha = _inputs(cuda_device, d + u, s, u, d, dtype)
+    tol = _combine_tol(dtype, u)
+    args = (w, c, g, z, bias, eps, alpha)
+    for k, p in zip(ops.floa_step_batched(*args),
+                    ops.floa_step_batched(*args, plain=True)):
+        _close(k, p, tol)
+    _close(ops.floa_aggregate_batched(c, g, z, bias, eps),
+           ref.floa_aggregate_batched_ref(c, g, z, bias, eps), tol)
+    _close(ops.floa_aggregate(c[0], g[0], z[0], bias[0], eps[0]),
+           ref.floa_aggregate_ref(c[0], g[0], z[0], bias[0], eps[0]), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4096, 50890])
+def test_combine_at_a_misaligned_base(cuda_device, dtype, d):
+    """G, noise and w as contiguous views at storage offset 1: the plan
+    narrows its vectors to what the pointers allow, and the results hold."""
+    s, u = 1, 10
+    w, c, _, _, bias, eps, alpha = _inputs(cuda_device, 7, s, u, d, dtype)
+    g = _offset_view(cuda_device, 8, (s, u, d), 1, dtype)
+    z = _offset_view(cuda_device, 9, (s, d), 1, dtype)
+    w = _offset_view(cuda_device, 10, (s, d), 1, dtype)
+    from repro_torch.kernels import floa_aggregate as FA
+    align = FA._align(g.data_ptr(), z.data_ptr(), w.data_ptr())
+    vec, _ = FA._plan(cuda_device.index, s, u, d, dtype, dtype, align)
+    assert vec * g.element_size() <= align
+    tol = _combine_tol(dtype, u)
+    for k, p in zip(ops.floa_step_batched(w, c, g, z, bias, eps, alpha),
+                    ref.floa_step_batched_ref(w, c, g, z, bias, eps, alpha)):
+        _close(k, p, tol)
+    _close(ops.floa_aggregate(c[0], g[0], z[0], bias[0], eps[0]),
+           ref.floa_aggregate_ref(c[0], g[0], z[0], bias[0], eps[0]), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,u,d", [(1, 10, 50890), (1, 1000, 50890),
+                                   (4, 10, 50890), (2, 33, 4097)])
+def test_combine_is_deterministic_and_graph_replays_it(cuda_device, s, u, d):
+    """Two calls give the same bits, and so does a CUDA-graph replay of
+    the call (the plan, and with it every sum's order, is fixed)."""
+    args = _inputs(cuda_device, 3, s, u, d, torch.float32)
+    first = ops.floa_step_batched(*args)
+    again = ops.floa_step_batched(*args)
+    agg = ops.floa_aggregate_batched(*args[1:6])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.floa_step_batched(*args)
+        replayed_agg = ops.floa_aggregate_batched(*args[1:6])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, replayed))
+    assert torch.equal(agg, replayed_agg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vec,ku", [(1, 1), (2, 1), (1, 2), (2, 4),
+                                    (2, 8), (1, 8)])
+def test_combine_every_plan_matches_plain(cuda_device, vec, ku):
+    """Each (V, KU) the kernel takes, through its C entry point, at the
+    S = 1, U = 10 main-path shape."""
+    s, u, d = 1, 10, 50890
+    w, c, g, z, bias, eps, alpha = _inputs(cuda_device, 4, s, u, d,
+                                           torch.float32)
+    w_out, g_out = torch.empty_like(w), torch.empty_like(z)
+    lib = _build.library("floa_aggregate")
+    assert lib.floa_step_batched(
+        w.data_ptr(), c.data_ptr(), g.data_ptr(), z.data_ptr(),
+        bias.data_ptr(), eps.data_ptr(), alpha.data_ptr(), w_out.data_ptr(),
+        g_out.data_ptr(), s, u, d, 0, 0, vec, ku,
+        torch.cuda.current_stream(cuda_device).cuda_stream) == 0
+    want_w, want_g = ref.floa_step_batched_ref(w, c, g, z, bias, eps, alpha)
+    _close(w_out, want_w, TOL[torch.float32])
+    _close(g_out, want_g, TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_combine_entry_refuses_a_plan_the_shape_does_not_allow(cuda_device):
+    """V must divide D and fit every pointer; KU must be 1, 2, 4 or 8."""
+    s, u, d = 1, 10, 50890
+    _, c, g, z, bias, eps, _ = _inputs(cuda_device, 5, s, u, d,
+                                       torch.float32)
+    out = torch.empty_like(z)
+    lib = _build.library("floa_aggregate")
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    g_odd = _offset_view(cuda_device, 6, (s, u, d), 1, torch.float32)
+
+    def launch(grads, vec, ku):
+        return lib.floa_aggregate_batched(
+            c.data_ptr(), grads.data_ptr(), z.data_ptr(), bias.data_ptr(),
+            eps.data_ptr(), out.data_ptr(), s, u, d, 0, vec, ku, stream)
+    assert launch(g, 2, 1) == 0
+    assert launch(g, 4, 1) != 0          # 4 does not divide 50 890
+    assert launch(g_odd, 2, 1) != 0      # a 4-byte-aligned base
+    assert launch(g, 2, 3) != 0
+    assert launch(g, 16, 1) != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,d", [(10, 50890), (40, 50890), (1000, 50890),
+                                 (7, 4097), (3, 4093), (5, 4094), (2, 4095),
+                                 (4, 1), (1, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_grad_stats_matches_plain_at_any_alignment(cuda_device, r, d, dtype,
+                                                   offset):
+    """Rows at the main path's counts (10, 40, 1000), D off the vector grid
+    and D = 1, from an aligned base and from a view at storage offset 1:
+    each row peels its own head and tail."""
+    rows = _offset_view(cuda_device, r + d, (r, d), offset, dtype)
+    rtol, atol = STATS_TOL[dtype]
+    np.testing.assert_allclose(ops.grad_stats(rows).cpu().numpy(),
+                               ref.grad_stats_ref(rows).cpu().numpy(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [10, 40, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_stats_is_deterministic_and_graph_replays_it(cuda_device, r,
+                                                          dtype):
+    rows = _normal(cuda_device, 11, r, 50890, dtype=dtype)
+    first, again = ops.grad_stats(rows), ops.grad_stats(rows)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.grad_stats(rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, replayed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_stats_splits_rows_over_a_cluster(cuda_device, dtype):
+    """At the defense grid's 10 rows the plan splits each row over C > 1
+    blocks of a cluster; every C the card runs gives the plain sums, and a
+    C the kernel does not take is refused."""
+    from repro_torch.kernels import grad_stats as GS
+    r, d = 10, 50890
+    rows = _offset_view(cuda_device, 12, (r, d), 1, dtype)
+    code = _build.DTYPE_CODES[dtype]
+    assert GS._plan(cuda_device.index, r, d, dtype) > 1
+    lib = _build.library("grad_stats")
+    max_c = lib.grad_stats_max_cluster(code)
+    assert max_c >= 8                     # portable cluster sizes on sm_90
+    rtol, atol = STATS_TOL[dtype]
+    want = ref.grad_stats_ref(rows).cpu().numpy()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for c in [c for c in GS.CLUSTER_SIZES if c <= max_c]:
+        out = torch.empty((r, 2), device=cuda_device)
+        assert lib.grad_stats(rows.data_ptr(), out.data_ptr(), r, d, code, c,
+                              stream) == 0
+        np.testing.assert_allclose(out.cpu().numpy(), want, rtol=rtol,
+                                   atol=atol)
+    out = torch.empty((r, 2), device=cuda_device)
+    assert lib.grad_stats(rows.data_ptr(), out.data_ptr(), r, d, code, 3,
+                          stream) != 0
+
+
+@pytest.mark.gpu
+def test_main_path_counts_launches_by_shape(cuda_device):
+    """The FLOA wrappers count launches by (S, U, D), grad_stats by (R, D);
+    `reset_launches` clears both."""
+    ops.reset_launches()
+    args = _inputs(cuda_device, 13, 2, 3, 64, torch.float32)
+    ops.floa_step_batched(*args)
+    ops.floa_step_batched(*args)
+    ops.grad_stats(args[2].reshape(6, 64))
+    assert ops.launch_shapes() == {
+        "floa_step_batched": {(2, 3, 64): 2}, "floa_aggregate_batched": {},
+        "floa_aggregate": {}, "grad_stats": {(6, 64): 1}}
+    ops.reset_launches()
+    assert not any(ops.launch_shapes().values())
+
+
 # tests/test_defense_sort.py's grids
 @pytest.mark.gpu
 @pytest.mark.parametrize("u", [1, 2, 7, 10, 16, 32])
