@@ -4,8 +4,9 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
-                                      # defense grid, U = 1000 grid and
-                                      # qwen3-4b serve decode step
+                                      # defense grid, U = 1000 grid,
+                                      # showdown grid and qwen3-4b serve
+                                      # decode step
 
 Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
 
@@ -22,7 +23,11 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               at awkward ones (D off any tile, U = 32,
               bf16, S = 1; for the sorts U = 7, 33, 100, 4097 and the
               bitonic cap, 8192, and U = 4097 at full width (several
-              warps per column); for decode attention decode_32k's
+              warps per column; +inf-padded columns, the K-of-U
+              defenses' slabs, for both sorts), the showdown's shapes (the
+              combine at [36, 10, D], grad_stats at 360 rows, the odd-even
+              sort at [8, 10, D] with +inf rows, and at the trainer's
+              [10, D]); for decode attention decode_32k's
               per-layer shape [128, 32768], the long-cache and serve
               shapes, S = 777, MQA, MHA, dh 32/64, f32, pos = 0 and
               mid-cache), with times: kernel, plain, one library call, and
@@ -32,7 +37,9 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               times the decode kernel at 1, 2 and 4 splits (the split
               rule's choice against its alternatives); likewise each FLOA
               row times every (V, KU) plan (`plan_ms`) and each
-              grad_stats row every cluster size (`cluster_ms`).
+              grad_stats row every cluster size (`cluster_ms`).  Then the
+              sort past the bitonic cap (U = 8193, f32 and bf16): no
+              kernel, torch.sort, equal exactly, logged once.
   4-6. main path through `repro_torch.figures.run_figure` / SweepEngine at
               the paper's full width (D = 50890, U = 10): Fig. 1's benign
               lanes, Fig. 3's Byzantine lanes, and a GAUSSIAN-jamming sweep
@@ -49,22 +56,36 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               phases 4-6 are.
   10. parity  the defense grid through the kernels and again through the
               plain versions, from the same draws.
-  11. serve   the serving path, `repro_torch.launch.serve.serve`, for
+  11. trainer the looped `FLTrainer` at full width on Fig. 3's BEV lane
+              (one attacker, sigma 3): `run` in FLOA mode (no kernel: the
+              pytree combine is a tensordot, as in the reference),
+              `run_scan(flat=True)` (one sweep lane: grad_stats and the
+              fused step) and digital `run` with median and trimmed mean
+              (the odd-even sort), each against its plain route from the
+              same draws at rtol 1e-4, with rounds/s of each route.
+  12. showdown `figures.run_showdown`: the 68 lanes of
+              examples/byzantine_showdown.py at full width (Markov fading,
+              K-of-U, colluding and omniscient lanes: the combine-only
+              route at [36, 10, D]; median and trimmed-mean groups of 8
+              lanes with +inf-padded K-of-U columns), R cut from 100 to 20,
+              counted as phases 4-6 are, then against its plain route from
+              the same draws.
+  13. serve   the serving path, `repro_torch.launch.serve.serve`, for
               qwen3-4b at full width in bf16 (36 layers, 4.41 B random
               parameters): batch 8, 32 prompt tokens decoded into the cache,
               32 generated greedily; one decode_attention launch per layer
               per step.
-  12. parity  the serve phase's 64 tokens again, teacher-forced, through the
+  14. parity  the serve phase's 64 tokens again, teacher-forced, through the
               kernel and through its plain version (bf16, full depth).
-  13. long    8 decode steps at pos 32760-32767 against caches of 32768
+  15. long    8 decode steps at pos 32760-32767 against caches of 32768
               positions (decode_32k's length; its batch of 128 cut to 8 to
               fit 80 GB), filled with seeded random bf16 as if prefilled;
               ms per step against the bytes bound.
-  14. parity  the same token sequence through both routes in f32 at full
+  16. parity  the same token sequence through both routes in f32 at full
               width and 2 layers, rtol 1e-4.
-  15. the `kernels` line (with launches and times by shape where a
+  17. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
-      phases' shapes); 16. the last line, {"ok": true, "device": ...}.
+      phases' shapes); 18. the last line, {"ok": true, "device": ...}.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
@@ -302,18 +323,24 @@ def kernel_cases(torch, ops):
                               (3, 32, 5000, torch.bfloat16, False)]:
         cases += combine_cases(torch, ops, rnd, gen, s, u, d, dt, main)
     # the other main-path shapes of the same kernels (PERF.md section 6):
-    # fig1's 3 lanes, the combine route's 2, and the single analog lane of
-    # the defense grid (U = 10) and of the U = 1000 grid
+    # fig1's 3 lanes, the combine route's 2, the single analog lane of the
+    # defense grid and the trainer's flat scan (U = 10), of the U = 1000
+    # grid, and the showdown's 36 analog lanes (the combine-only route)
     for s, u, kinds in [(3, 10, ("floa_step_batched", "grad_stats")),
                         (2, 10, ("floa_aggregate_batched", "grad_stats")),
                         (1, 10, ("floa_step_batched", "grad_stats")),
-                        (1, 1000, ("floa_step_batched", "grad_stats"))]:
+                        (1, 1000, ("floa_step_batched", "grad_stats")),
+                        (36, 10, ("floa_aggregate_batched", "grad_stats"))]:
         cases += [c for c in combine_cases(torch, ops, rnd, gen, s, u, 50890,
                                            torch.float32, True)
                   if c[0] in kinds]
-    # the sorts: the defense grid's slab (U = 10) and the U = 1000 grid's
+    # the sorts: the defense grid's slab (U = 10), the digital trainer's
+    # [U, D] slab, the showdown's median / trimmed-mean groups (8 lanes,
+    # the last 4 with 3 of 10 rows +inf: K = 7) and the U = 1000 grid's
     for name, s, u, d, dt, main in [
             ("sort_columns", 1, 10, 50890, torch.float32, True),
+            ("sort_columns", 0, 10, 50890, torch.float32, True),
+            ("sort_columns", 8, 10, 50890, torch.float32, True),
             ("sort_columns", 3, 32, 5000, torch.bfloat16, False),
             ("sort_columns", 2, 7, 2049, torch.float32, False),
             ("sort_columns_bitonic", 1, 1000, 50890, torch.float32, True),
@@ -322,15 +349,60 @@ def kernel_cases(torch, ops):
             ("sort_columns_bitonic", 1, 4097, 130, torch.float32, False),
             ("sort_columns_bitonic", 1, ops.BITONIC_MAX_U, 130,
              torch.float32, False),
-            ("sort_columns_bitonic", 1, 4097, 50890, torch.float32, False)]:
-        x = rnd(s, u, d, dtype=dt)
+            ("sort_columns_bitonic", 1, 4097, 50890, torch.float32, False),
+            ("sort_columns_bitonic", 4, 100, 515, torch.float32, False)]:
+        x = rnd(max(s, 1), u, d, dtype=dt)
+        label = f"S={s} U={u} D={d} {str(dt)[6:]}"
+        if s == 0:          # the [U, D] form: one lane, no lane axis
+            x, label = x[0], f"U={u} D={d} {str(dt)[6:]}"
+        elif s >= 4:        # K-of-U: 3 in 10 rows +inf in half the lanes
+            rows = torch.randperm(u, generator=torch.Generator().manual_seed(
+                u))[:3 * u // 10].to("cuda")
+            x[s // 2:, rows] = torch.inf
+            label += " +inf rows"
         cases.append((
-            name, f"S={s} U={u} D={d} {str(dt)[6:]}", main,
+            name, label, main,
             lambda p, f=ops.KERNELS[name], a=x: f(a, plain=p),
-            lambda a=x: torch.sort(a, dim=1),
-            2 * s * u * d * (torch.finfo(dt).bits // 8),
-            s * d * sort_ops(u), "exact", None, None))
+            lambda a=x: torch.sort(a, dim=-2),
+            2 * x.numel() * (torch.finfo(dt).bits // 8),
+            max(s, 1) * d * sort_ops(u), "exact", None, None))
     return cases + decode_cases(torch, ops)
+
+
+def large_u_sort_check(torch, ops) -> dict:
+    """The sort past the bitonic cap (U = 8193 pads to 16384): no kernel,
+    `sorted_columns` takes torch.sort on the card.  Equal exactly, no
+    launch, one log record for the process; ms beside torch.sort's."""
+    import logging
+    from repro_torch.core import defenses
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = records.append
+    log = logging.getLogger(defenses.__name__)
+    log.addHandler(handler)
+    gen = torch.Generator("cuda").manual_seed(2)
+    rows = []
+    try:
+        ops.reset_launches()
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((2, ops.BITONIC_MAX_U + 1, 130), generator=gen,
+                            device="cuda").to(dt)
+            if not torch.equal(defenses.sorted_columns(x),
+                               torch.sort(x, dim=-2).values):
+                raise AssertionError(f"U = 8193 ({dt}): sorted_columns is "
+                                     f"not torch.sort")
+            rows.append({"shape": f"S=2 U=8193 D=130 {str(dt)[6:]}",
+                         "ms": time_ms(torch, lambda a=x:
+                                       defenses.sorted_columns(a), 10),
+                         "torch_sort_ms": time_ms(torch, lambda a=x:
+                                                  torch.sort(a, dim=-2), 10)})
+    finally:
+        log.removeHandler(handler)
+    if any(ops.launch_counts().values()) or len(records) != 1:
+        raise AssertionError(f"U = 8193: launches {ops.launch_counts()}, "
+                             f"{len(records)} log records (want 0 and 1)")
+    return {"rows": rows, "route": defenses.sort_route(8193),
+            "log": records[0].getMessage()}
 
 
 def decode_bytes_flops(b, h, kv, dh, pos, eb) -> tuple:
@@ -678,6 +750,7 @@ def main() -> int:
             table.setdefault(name, []).append(row)
     del run, lib, got, want, want_fn, extra
     torch.cuda.empty_cache()
+    emit("large_u_sort_route", **large_u_sort_check(torch, ops))
 
     # 5's, 8's and 9's sweeps, profiled alone: `chip_smoke.py --profile`
     fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
@@ -698,9 +771,19 @@ def main() -> int:
                     figures.defense_cases(), ROUNDS, device="cuda")),
                 ("worker_grid_u1000", ROUNDS_LARGE_U,
                  lambda: figures.cases_engine(grid_u, ROUNDS_LARGE_U,
-                                              mc=mc_u, device="cuda"))]:
+                                              mc=mc_u, device="cuda")),
+                ("showdown", ROUNDS, lambda: figures.showdown_engine(
+                    ROUNDS, device="cuda"))]:
+            prof = profile_phase(torch, engine_run(build))
             emit("profile", sweep=sweep, rounds=rounds,
-                 **profile_phase(torch, engine_run(build)))
+                 launches_per_round=prof["kernel_launches"] / rounds, **prof)
+        # the looped trainer on Fig. 3's BEV lane (phase 11's "loop" route)
+        tr, params_t, sampler_t = figures.experiment_trainer(
+            fig3[1], device="cuda")
+        prof = profile_phase(torch, lambda: tr.run(
+            params_t, sampler_t, ROUNDS, fig3[1].seed, eval_every=10))
+        emit("profile", sweep="trainer_loop", rounds=ROUNDS,
+             launches_per_round=prof["kernel_launches"] / ROUNDS, **prof)
         # one warm decode step of the serve phase: qwen3-4b, batch 8, the
         # 41st position of a 64-position cache
         from repro_torch.launch.steps import make_decode_step
@@ -729,6 +812,14 @@ def main() -> int:
     main_launches = {k: 0 for k in ops.KERNELS}
     main_shapes = {k: {} for k in ops.launch_shapes()}
 
+    def tally(counts):
+        """Add a main-path phase's launches (and by shape) to the totals."""
+        for k, v in counts.items():
+            main_launches[k] += v
+        for k, by_shape in ops.launch_shapes().items():
+            for shape, n in by_shape.items():
+                main_shapes[k][shape] = main_shapes[k].get(shape, 0) + n
+
     def drive(name, exps, expect, run=None, engine=None, rounds=ROUNDS):
         """One main-path phase through its entry point (counted; default
         run_figure), then the steady-state round rate of the same sweep
@@ -738,11 +829,7 @@ def main() -> int:
             torch, ops, name,
             run or (lambda: figures.run_figure(exps, device="cuda")),
             {**{k: 0 for k in ops.KERNELS}, **expect})
-        for k, v in counts.items():
-            main_launches[k] += v
-        for k, by_shape in ops.launch_shapes().items():
-            for shape, n in by_shape.items():
-                main_shapes[k][shape] = main_shapes[k].get(shape, 0) + n
+        tally(counts)
         if not np.isfinite(result.loss).all():
             raise AssertionError(f"{name}: non-finite loss")
         engine, params, batches = (engine or (lambda: figures.figure_engine(
@@ -815,7 +902,87 @@ def main() -> int:
     del rd, rdp, r1, rk, rp
     torch.cuda.empty_cache()
 
-    # 11. the serving path at full width: qwen3-4b in bf16, batch 8
+    # 11. the looped trainer at full width on Fig. 3's BEV lane (one
+    # attacker, sigma 3), each route against its plain route from the same
+    # seeded draws; counted as the sweeps are
+    from types import SimpleNamespace
+    exp_t = figures.Experiment("BEV@ah0.1", Policy.BEV, n_attackers=1,
+                               alpha_hat=0.1, attacker_sigma=3.0,
+                               rounds=ROUNDS)
+    trainer_routes = {   # mode, defense, flat, launches
+        "loop": ("floa", "mean", False, {}),
+        "flat": ("floa", "mean", True, {"floa_step_batched": ROUNDS,
+                                        "grad_stats": ROUNDS}),
+        "median": ("digital", "median", False, {"sort_columns": ROUNDS}),
+        "trimmed_mean": ("digital", "trimmed_mean", False,
+                         {"sort_columns": ROUNDS})}
+
+    def trainer_run(route, plain=False, eval_every=1):
+        """One route's run; its logs every eval_every rounds as [1, R']
+        loss and grad-norm rows (a sweep result's layout), and the seconds
+        of the run alone (set-up excluded)."""
+        mode, defense, flat, _ = trainer_routes[route]
+        tr, params_t, sampler = figures.experiment_trainer(
+            exp_t, device="cuda", mode=mode, defense=defense,
+            force_plain=plain)
+        batches = sampler.stack_rounds(ROUNDS) if flat else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if flat:
+            params, logs = tr.run_scan(params_t, batches, exp_t.seed,
+                                       eval_every=eval_every, flat=True)
+        else:
+            params, logs = tr.run(params_t, sampler, ROUNDS, exp_t.seed,
+                                  eval_every=eval_every)
+        torch.cuda.synchronize()
+        return SimpleNamespace(
+            loss=np.array([[lg.loss for lg in logs]]),
+            grad_norm=np.array([[lg.grad_norm for lg in logs]]),
+            params=params, accuracy_final=logs[-1].accuracy,
+            seconds=time.perf_counter() - t0)
+
+    trainer_rates = {}
+    for route, (_, _, _, expect) in trainer_routes.items():
+        rt, seconds, counts = run_phase(
+            torch, ops, f"main_trainer_{route}", lambda r=route:
+            trainer_run(r), {**{k: 0 for k in ops.KERNELS}, **expect})
+        tally(counts)
+        if not np.isfinite(rt.loss).all():
+            raise AssertionError(f"trainer {route}: non-finite loss")
+        ops.reset_launches()
+        rtp = trainer_run(route, plain=True)
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"trainer {route}: the plain route "
+                                 f"launched kernels {ops.launch_counts()}")
+        whole_run_check(f"kernel_vs_plain_trainer_{route}", rt, rtp)
+        # timed as the figures log: every 10th round
+        trainer_rates[route] = ROUNDS / trainer_run(
+            route, eval_every=10).seconds
+        emit(f"main_trainer_{route}", rounds=ROUNDS, run_seconds=seconds,
+             rounds_per_s=trainer_rates[route],
+             loss_first=float(rt.loss[0, 0]),
+             loss_final=float(rt.loss[0, -1]),
+             accuracy_final=rt.accuracy_final, launches=counts)
+    emit("main_trainer", lane=exp_t.name, rounds=ROUNDS,
+         rounds_per_s=trainer_rates)
+
+    # 12. the Byzantine showdown: 68 lanes at full width, R cut to 20
+    showdown_expect = {"floa_aggregate_batched": ROUNDS,
+                       "grad_stats": ROUNDS, "sort_columns": 2 * ROUNDS}
+    rsd = drive("main_showdown", None, showdown_expect,
+                run=lambda: figures.run_showdown(ROUNDS, device="cuda"),
+                engine=lambda: figures.showdown_engine(ROUNDS,
+                                                       device="cuda"))
+    ops.reset_launches()
+    rsp = figures.run_showdown(ROUNDS, device="cuda", force_plain=True)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the plain route launched kernels: "
+                             f"{ops.launch_counts()}")
+    whole_run_check("kernel_vs_plain_showdown", rsd, rsp)
+    del rsd, rsp
+    torch.cuda.empty_cache()
+
+    # 13. the serving path at full width: qwen3-4b in bf16, batch 8
     from repro_torch.data import sample_tokens
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_decode_step, param_count
@@ -853,7 +1020,7 @@ def main() -> int:
          sample_tokens=rs.tokens[0, :12].tolist())
     del steady
 
-    # 12. parity, bf16, full depth: the serve phase's 64 tokens teacher-
+    # 14. parity, bf16, full depth: the serve phase's 64 tokens teacher-
     # forced through the kernel and through its plain version
     params = lm_params(torch, lm)
     seq = torch.cat([rs.prompts, rs.tokens], dim=1)
@@ -900,7 +1067,7 @@ def main() -> int:
              + SERVE_BATCH * lm.d_model) / HBM_BYTES_PER_S * 1e3)
     del caches
 
-    # 13. long-cache decode at full width: 8 steps against 32768 positions
+    # 15. long-cache decode at full width: 8 steps against 32768 positions
     caches = LM.init_caches(lm, LONG_BATCH, LONG_S, device="cuda")
     gen = torch.Generator("cuda").manual_seed(1)
     for layer in [*caches["blocks"]["b0"]["k"], *caches["blocks"]["b0"]["v"]]:
@@ -949,7 +1116,7 @@ def main() -> int:
     del caches, params, logits
     torch.cuda.empty_cache()
 
-    # 14. parity, f32, full widths, 2 layers
+    # 16. parity, f32, full widths, 2 layers
     lm32 = dataclasses.replace(lm, n_layers=2, dtype=torch.float32)
     params32 = lm_params(torch, lm32)
     lk = teacher_forced(torch, lm32, params32, seq, False)
@@ -968,17 +1135,25 @@ def main() -> int:
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
-    # every main-path shape of the FLOA kernels and grad_stats, with its
-    # launches: the paper's sweeps (3, 4 and 2 lanes of U = 10), the single
-    # analog lane of the defense grid (U = 10) and of the U = 1000 grid
+    # every main-path shape of the FLOA kernels, grad_stats and the sorts,
+    # with its launches: the paper's sweeps (3, 4 and 2 lanes of U = 10),
+    # the single analog lane of the defense grid and of the trainer's flat
+    # scan (U = 10), of the U = 1000 grid, and the showdown's 36 analog
+    # lanes; the sorts of the defense grids' one-lane groups, the digital
+    # trainer's [U, D] slab and the showdown's 8-lane groups
     d = mc_u.dim
     want_shapes = {
         "floa_step_batched": {(3, 10, d): ROUNDS, (4, 10, d): ROUNDS,
-                              (1, 10, d): ROUNDS, (1, 1000, d): ROUNDS_LARGE_U},
-        "floa_aggregate_batched": {(2, 10, d): ROUNDS},
+                              (1, 10, d): 2 * ROUNDS,
+                              (1, 1000, d): ROUNDS_LARGE_U},
+        "floa_aggregate_batched": {(2, 10, d): ROUNDS, (36, 10, d): ROUNDS},
         "floa_aggregate": {},
         "grad_stats": {(30, d): ROUNDS, (40, d): ROUNDS, (20, d): ROUNDS,
-                       (10, d): ROUNDS, (1000, d): ROUNDS_LARGE_U}}
+                       (10, d): 2 * ROUNDS, (1000, d): ROUNDS_LARGE_U,
+                       (360, d): ROUNDS},
+        "sort_columns": {(1, 10, d): 2 * ROUNDS, (10, d): 2 * ROUNDS,
+                         (8, 10, d): 2 * ROUNDS},
+        "sort_columns_bitonic": {(1, 1000, d): 2 * ROUNDS_LARGE_U}}
     if main_shapes != want_shapes:
         raise AssertionError(f"main-path launches by shape: {main_shapes}, "
                              f"expected {want_shapes}")
@@ -988,15 +1163,19 @@ def main() -> int:
         kernel's main-path shapes, from their phase-3 rows."""
         out = []
         for shape, n in main_shapes.get(name, {}).items():
-            tag = (f"S={shape[0]} U={shape[1]} D={shape[2]} "
-                   if len(shape) == 3 else f"R={shape[0]} D={shape[1]} ")
+            if len(shape) == 3:
+                tag = f"S={shape[0]} U={shape[1]} D={shape[2]} "
+            elif name.startswith("sort"):
+                tag = f"U={shape[0]} D={shape[1]} "
+            else:
+                tag = f"R={shape[0]} D={shape[1]} "
             row = next(r for r in table[name] if r["shape"].startswith(tag))
             out.append({"shape": row["shape"], "launches": n,
                         **{k: row[k] for k in ("ms", "bound_ms",
                                                "bound_share", "call_ms")}})
         return out
 
-    # 15. the kernel list
+    # 17. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

@@ -1,8 +1,16 @@
-"""FLOA gradient aggregation — the paper's eq. (6)-(8) on flat gradients.
+"""FLOA gradient aggregation — the paper's eq. (6)-(8).
 
 The wireless MAC's superposition is a weighted reduction over the worker
-axis.  The sweep keeps per-worker gradients as one [S, U, D] slab and hands
-it to the fused CUDA kernels of `kernels/floa_aggregate.py`:
+axis.  Two paths compute it:
+
+  - `aggregate` / `floa_grad`, the looped trainer's branching path on
+    gradient dicts of one scenario: per-leaf stats, `signed_coefficients`,
+    a per-leaf weighted sum over U (`_weighted_reduce`, a tensordot, as in
+    the reference, where it reaches no Pallas kernel), bias, receiver noise
+    and jamming per leaf;
+  - the sweep's flat path, which keeps per-worker gradients as one
+    [S, U, D] slab and hands it to the fused CUDA kernels of
+    `kernels/floa_aggregate.py`:
 
     per-worker grads  g[S, U, D]    torch.func.vmap(torch.func.grad(...))
     round stats       gbar, eps2    core.standardize (grad_stats kernel)
@@ -17,14 +25,15 @@ port takes the kernel on CUDA at every D until the H100 has its own number.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.func import grad, vmap
 
 from repro_torch.core import attacks as A
-from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.power_control import PowerConfig
+from repro_torch.core import standardize as S
+from repro_torch.core.channel import ChannelConfig, sample_channel_gains
+from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -67,6 +76,117 @@ def per_worker_grads(loss_fn: Callable, params, batch: Dict[str, Tensor],
 
     worker_batch = {k: split(v) for k, v in batch.items()}
     return vmap(grad(loss_fn), in_dims=(None, 0))(params, worker_batch)
+
+
+def _weighted_reduce(grads_u: Dict[str, Tensor], weights: Tensor
+                     ) -> Dict[str, Tensor]:
+    """sum_i weights[i] * g_i over the leading worker axis (the OTA sum),
+    one tensordot per leaf."""
+    return {k: torch.tensordot(weights.to(g.dtype), g, dims=([0], [0]))
+            for k, g in grads_u.items()}
+
+
+def _leaf_noise(generator: Optional[torch.Generator],
+               template: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Standard-normal f32 draws shaped like each leaf of `template`, drawn
+    leaf by leaf in sorted key order from one generator (the reference's
+    `_sharded_noise` draws each leaf from its own folded key; the caller
+    scales them)."""
+    return {k: torch.randn(template[k].shape, generator=generator,
+                           device=template[k].device)
+            for k in sorted(template)}
+
+
+def round_draws(cfg: FLOAConfig, template: Dict[str, Tensor],
+                generator: Optional[torch.Generator] = None,
+                noise_generator: Optional[torch.Generator] = None,
+                jam_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, object]:
+    """The random draws one `aggregate` round of `cfg` consumes, on the
+    device of `template` (a dict of aggregate-shaped leaves):
+    {"h_abs": [U] or None, "z": leaf dict or None, "jam": leaf dict or
+    None}.  Gains come from `generator`, noise and jamming from their own
+    generators when given (else from `generator` too, in that order).
+    EF rounds draw nothing."""
+    out = {"h_abs": None, "z": None, "jam": None}
+    if cfg.power.policy == Policy.EF:
+        return out
+    dev = next(iter(template.values())).device
+    out["h_abs"] = sample_channel_gains(generator, cfg.channel, dev)
+    if cfg.channel.noise_std > 0.0:
+        out["z"] = _leaf_noise(noise_generator or generator, template)
+    if (cfg.attack.attack == A.AttackType.GAUSSIAN
+            and cfg.attack.num_attackers):
+        out["jam"] = _leaf_noise(jam_generator or generator, template)
+    return out
+
+
+def aggregate(grads_u: Dict[str, Tensor], cfg: FLOAConfig, *,
+              generator: Optional[torch.Generator] = None,
+              draws: Optional[Dict[str, object]] = None
+              ) -> Tuple[Dict[str, Tensor], dict]:
+    """One FLOA round of one scenario: per-worker grads {k: [U, ...]} ->
+    the noisy aggregate (eq. 7), and aux (the round's |h|, coefficients and
+    stats).
+
+    The round's random draws are an input: `draws` as `round_draws` builds
+    them ({"h_abs": [U], "z" / "jam": dicts of leaf-shaped standard
+    normals, or None}), else drawn from `generator` by `round_draws`.  EF
+    is the error-free benchmark: h = 1, z = 0, attackers a sign-flipped
+    mean share."""
+    cfg.validate()
+    u = cfg.num_workers
+    dev = next(iter(grads_u.values())).device
+    gbar_i, eps2_i = S.per_worker_scalar_stats(grads_u)
+    gbar, eps2 = S.global_stats(gbar_i, eps2_i)
+
+    if cfg.power.policy == Policy.EF:
+        sign = torch.ones((u,), device=dev)
+        if (cfg.attack.byzantine_mask
+                and cfg.attack.attack != A.AttackType.NONE):
+            sign = torch.where(cfg.attack.mask().to(dev), -1.0, 1.0)
+        s = sign / u
+        aux = dict(h_abs=torch.ones((u,), device=dev), coeffs=s, gbar=gbar,
+                   eps2=eps2, bias_w=torch.zeros((), device=dev))
+        return _weighted_reduce(grads_u, s), aux
+
+    template = {k: g[0] for k, g in grads_u.items()}
+    if draws is None:
+        draws = round_draws(cfg, template, generator)
+    h_abs = draws["h_abs"]
+    s, bias_w = A.signed_coefficients(h_abs, cfg.power, cfg.channel,
+                                      cfg.attack, gbar, eps2)
+    # OTA superposition, then the attackers' de-standardization bias
+    gagg = _weighted_reduce(grads_u, s)
+    gagg = {k: g + (bias_w * gbar).to(g.dtype) for k, g in gagg.items()}
+    # receiver AWGN, scaled by eps_t (eq. 7 fourth term)
+    eps = torch.sqrt(eps2)
+    if cfg.channel.noise_std > 0.0:
+        z = draws["z"]
+        gagg = {k: g + eps.to(g.dtype)
+                * (cfg.channel.noise_std * z[k]).to(g.dtype)
+                for k, g in gagg.items()}
+    # unstructured jamming (GAUSSIAN only)
+    jam_std = A.gaussian_jam_std(h_abs, cfg.power, cfg.attack, eps2)
+    if (cfg.attack.attack == A.AttackType.GAUSSIAN
+            and cfg.attack.num_attackers):
+        jam = draws["jam"]
+        gagg = {k: g + jam_std.to(g.dtype) * jam[k].to(g.dtype)
+                for k, g in gagg.items()}
+    aux = dict(h_abs=h_abs, coeffs=s, gbar=gbar, eps2=eps2, bias_w=bias_w)
+    return gagg, aux
+
+
+def mean_aggregate(grads_u: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Plain FedSGD mean (the EF path without the FLOA bookkeeping)."""
+    return {k: g.mean(dim=0) for k, g in grads_u.items()}
+
+
+def floa_grad(loss_fn: Callable, params, batch: Dict[str, Tensor],
+              cfg: FLOAConfig, *, generator=None, draws=None):
+    """Per-worker grads + FLOA aggregation in one call: (gagg, aux)."""
+    grads_u = per_worker_grads(loss_fn, params, batch, cfg.num_workers)
+    return aggregate(grads_u, cfg, generator=generator, draws=draws)
 
 
 def flatten_worker_grads(grads_u: Dict[str, Tensor], batch_dims: int = 1):

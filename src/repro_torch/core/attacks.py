@@ -9,13 +9,21 @@ while reporting truthful scalar stats, so the PS's de-standardization bias
 p_n |h_n| gbar_t does not cancel for it.
 
 Ablations: GAUSSIAN (white noise at max power), SIGN_FLIP_PROTOCOL_POWER (-g
-at protocol power), NONE.  The adaptive COLLUDING / OMNISCIENT cohorts are
-named here and their received weights are defined, because
-`core.scenario.scenario_coefficients` evaluates them for every lane; the
-port's sweep refuses lanes that use them (see ROADMAP.md).
+at protocol power), NONE.
 
-Helpers take per-worker arrays [..., U] and per-lane scalars [...] (dim,
-gbar, eps2) and reduce over the last axis, like `core.power_control`.
+Adaptive cohorts, whose payload is one shared rank-1 direction: COLLUDING
+(a cohort-common unit-RMS direction at max power) and OMNISCIENT (the
+negated honest mean at the eq. 18 power).  Their received weights are
+defined here; the direction itself needs round state, so the sweep
+(fl/sweep.py) injects it after the OTA combine, and the stateless
+`signed_coefficients` path models only their (zero) per-worker payload and
+their bias.
+
+The `*_arrays` / `*_weight` helpers take per-worker arrays [..., U] and
+per-lane scalars [...] (dim, gbar, eps2) and reduce over the last axis, like
+`core.power_control`; `signed_coefficients` and `gaussian_jam_std` are the
+dataclass path of one scenario ([U] arrays), which `core.aggregation`
+uses.
 """
 from __future__ import annotations
 
@@ -25,7 +33,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.power_control import per_worker
+from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.power_control import (PowerConfig, per_worker,
+                                            transmit_amplitudes)
 
 Tensor = torch.Tensor
 
@@ -68,6 +78,43 @@ def strongest_attack_amplitude(p_max: Tensor, dim, gbar, eps2) -> Tensor:
                                * (per_worker(gbar)**2 + per_worker(eps2))))
 
 
+def signed_coefficients(h_abs: Tensor, power: PowerConfig,
+                        channel: ChannelConfig, attack: AttackConfig,
+                        gbar: Tensor, eps2: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-worker signed payload coefficients and the de-standardization
+    bias weight of one scenario: (s [U], bias_w []).
+
+      s[i]    multiplies worker i's raw gradient in the aggregate: p_i |h_i|
+              if honest, -eps_t phat_n |h_n| for a strongest attacker
+              (eq. 7 with ghat = -g), -p_n |h_n| for a protocol-power sign
+              flip, 0 for GAUSSIAN / COLLUDING / OMNISCIENT (no gradient
+              payload).
+      bias_w  sum over attackers of p_n |h_n|, multiplying gbar_t * 1: the
+              PS de-standardizes as if every worker standardized, and only
+              the sign-flip attackers did (their bias is 0).
+    """
+    dev = h_abs.device
+    eps = torch.sqrt(eps2)
+    honest_s = transmit_amplitudes(h_abs, power, channel) * h_abs
+    mask = attack.mask().to(dev)
+    if attack.attack == AttackType.NONE or attack.num_attackers == 0:
+        return honest_s, torch.zeros((), device=dev)
+    if attack.attack == AttackType.STRONGEST:
+        phat = strongest_attack_amplitude(power.p_maxes().to(dev),
+                                          float(power.dim), gbar, eps2)
+        attacker_s = -eps * phat * h_abs
+    elif attack.attack == AttackType.SIGN_FLIP_PROTOCOL_POWER:
+        attacker_s = -honest_s
+    elif attack.attack in (AttackType.GAUSSIAN,) + DIRECTIONAL_ATTACKS:
+        attacker_s = torch.zeros_like(honest_s)
+    else:
+        raise ValueError(f"unknown attack {attack.attack}")
+    s = torch.where(mask, attacker_s, honest_s)
+    if attack.attack == AttackType.SIGN_FLIP_PROTOCOL_POWER:
+        return s, torch.zeros((), device=dev)
+    return s, torch.where(mask, honest_s, 0.0).sum()
+
+
 def jam_std_arrays(h_abs: Tensor, p_maxes: Tensor, dim, mask: Tensor,
                    eps2) -> Tensor:
     """GAUSSIAN jamming std: max-power white noise from masked workers,
@@ -90,3 +137,15 @@ def omniscient_dir_weight(h_abs: Tensor, p_maxes: Tensor, dim, mask: Tensor,
     sum_{n in B} (-eps_t phat_n |h_n|)."""
     phat = strongest_attack_amplitude(p_maxes, dim, gbar, eps2)
     return -torch.sqrt(eps2) * torch.where(mask, phat * h_abs, 0.0).sum(dim=-1)
+
+
+def gaussian_jam_std(h_abs: Tensor, power: PowerConfig, attack: AttackConfig,
+                     eps2: Tensor) -> Tensor:
+    """Std of the white noise GAUSSIAN attackers add, after
+    de-standardization (scaled by eps_t like any received symbol); 0 for
+    every other attack."""
+    dev = h_abs.device
+    if attack.attack != AttackType.GAUSSIAN or attack.num_attackers == 0:
+        return torch.zeros((), device=dev)
+    return jam_std_arrays(h_abs, power.p_maxes().to(dev), float(power.dim),
+                          attack.mask().to(dev), eps2)

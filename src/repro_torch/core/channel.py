@@ -6,11 +6,18 @@ E[|h|] = sigma_i sqrt(pi/2) and E[|h|^2] = 2 sigma_i^2 (so |h|^2 ~ Exp with
 rate lambda_i = 1/(2 sigma_i^2), paper §II-B.1).  Channels are resampled
 independently every round and known perfectly at workers and PS.
 
+Time-varying extension (beyond the paper): Gauss-Markov fading with
+per-round correlation rho on the complex gain, kept as a [..., 2] re/im
+state,
+
+    h_t = rho * h_{t-1} + sqrt(1 - rho^2) * w_t,   w_t ~ CN(0, 2 sigma^2),
+
+so each component is N(0, sigma^2) at every t and |h_t| stays Rayleigh.
+rho = 0 is the i.i.d. model; the sweep keeps rho = 0 lanes on the
+`rayleigh_gains` draw.
+
 AWGN: z_t ~ N(0, z^2 I_D) added to the received superposition; the paper sets
 the receive SNR via p_max/(D z^2) = 10 dB and `noise_std_for_snr` inverts it.
-
-The port covers the paper's block-i.i.d. model only; Gauss-Markov fading
-(`markov_rho > 0`) is refused by the sweep (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -56,6 +63,36 @@ def rayleigh_gains(generator: Optional[torch.Generator],
     e = torch.empty(sigmas.shape, dtype=torch.float32,
                     device=sigmas.device).exponential_(generator=generator)
     return sigmas * torch.sqrt(2.0 * e)
+
+
+def sample_channel_gains(generator: Optional[torch.Generator],
+                         cfg: ChannelConfig, device=None) -> Tensor:
+    """Draw |h_{i,t}| for all U workers for one round.  Shape [U]."""
+    return rayleigh_gains(generator, cfg.sigmas().to(device))
+
+
+def complex_gain_init(generator: Optional[torch.Generator],
+                      sigmas: Tensor) -> Tensor:
+    """Stationary complex-gain state for Gauss-Markov fading: re/im each
+    N(0, sigma^2), shape sigmas.shape + (2,), so `complex_gain_abs` of it
+    is Rayleigh(sigma), the marginal of `rayleigh_gains`.  The innovations
+    of `gauss_markov_step` are fresh draws of the same law."""
+    z = torch.randn(sigmas.shape + (2,), generator=generator,
+                    device=sigmas.device)
+    return sigmas[..., None] * z
+
+
+def gauss_markov_step(h_prev: Tensor, innovation: Tensor, rho) -> Tensor:
+    """One Gauss-Markov update h_t = rho h_{t-1} + sqrt(1-rho^2) w_t on
+    [..., 2] states; rho is a number or a tensor broadcasting against them
+    (one per lane)."""
+    return rho * h_prev + torch.sqrt(
+        torch.clamp_min(torch.as_tensor(1.0 - rho**2), 0.0)) * innovation
+
+
+def complex_gain_abs(h: Tensor) -> Tensor:
+    """|h| from the [..., 2] re/im state."""
+    return torch.sqrt(torch.square(h).sum(dim=-1))
 
 
 def min_sq_gain_from_sigmas(sigmas: Tensor) -> Tensor:

@@ -92,3 +92,11 @@ def transmit_amplitudes(h_abs: Tensor, power: PowerConfig,
         # p_i|h_i| = 1/U with h forced to 1 by the caller.
         return torch.full_like(h_abs, 1.0 / power.num_workers)
     raise ValueError(f"unknown policy {power.policy}")
+
+
+def received_coefficients(h_abs: Tensor, power: PowerConfig,
+                          channel: ChannelConfig) -> Tensor:
+    """s_i = p_i |h_i|: the per-worker weight the MAC applies to worker i."""
+    if power.policy == Policy.EF:
+        return torch.full_like(h_abs, 1.0 / power.num_workers)
+    return transmit_amplitudes(h_abs, power, channel) * h_abs

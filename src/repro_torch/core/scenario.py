@@ -13,8 +13,12 @@ Also here: the defense-code lane axis (`DEFENSE_CODES`, `DefenseSpec`) and
 the static partition of a sweep's lanes by defense code that the grouped
 dispatch runs on (`LaneGroups`, `build_lane_groups`, `permute_lanes`).
 
-Only the port's slice is here: full participation (the reference's
-`part=None` branch) and a lane axis on one device (no shards).
+Also the adaptive-adversary axes' per-lane knobs: Gauss-Markov fading
+(`chan_rho`) and K-of-U participation (`part_k`, `participation_mask`);
+`scenario_coefficients` takes an optional participation mask, under which
+non-participants drop out of the coefficients, the bias and the cohort
+sums.  The lane axis lives on one device (no shards; ROADMAP.md Queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -153,19 +157,29 @@ class ScenarioParams(NamedTuple):
     def_trim: Tensor   # int32 []  trimmed_mean trim count
     def_f: Tensor      # int32 []  (multi-)Krum assumed attacker count f
     def_multi: Tensor  # int32 []  multi-Krum average count m
+    chan_rho: Tensor   # f32   []  Gauss-Markov fading correlation rho
+    part_k: Tensor     # int32 []  K-of-U participants (U: everyone)
+
+    @property
+    def num_workers(self) -> int:
+        return self.byz_mask.shape[-1]
 
 
-def from_floa(cfg, alpha: float,
-              defense: Optional[DefenseSpec] = None) -> ScenarioParams:
+def from_floa(cfg, alpha: float, defense: Optional[DefenseSpec] = None,
+              participants: Optional[int] = None) -> ScenarioParams:
     """FLOAConfig -> ScenarioParams (CPU tensors).
 
     EF scenarios get noise_std forced to 0 here: the branchless coefficients
     always add the noise term, so the std itself must be zero.  defense
     (validated against U) fills the four defense fields; None means the
-    analog FLOA combine."""
+    analog FLOA combine.  participants is K of K-of-U client sampling, None
+    for full participation (part_k = U)."""
     cfg.validate()
     u = cfg.num_workers
     defense = (defense or DefenseSpec()).validate(u)
+    if participants is not None and not 1 <= participants <= u:
+        raise ValueError(
+            f"participants={participants} invalid for U={u}: need 1 <= K <= U")
     mask = (cfg.attack.mask() if cfg.attack.byzantine_mask
             else torch.zeros((u,), dtype=torch.bool))
     is_ef = cfg.power.policy == Policy.EF
@@ -184,6 +198,8 @@ def from_floa(cfg, alpha: float,
         def_trim=i32(defense.trim),
         def_f=i32(defense.num_byzantine),
         def_multi=i32(defense.multi),
+        chan_rho=f32(cfg.channel.markov_rho),
+        part_k=i32(u if participants is None else participants),
     )
 
 
@@ -266,8 +282,17 @@ def sample_gains(generators: Sequence[torch.Generator],
                         for g, sig in zip(generators, sp.sigma)])
 
 
+def participation_mask(scores: Tensor, part_k: Tensor) -> Tensor:
+    """K-of-U client sampling from uniform scores [..., U]: the part_k [...]
+    workers with the smallest scores participate (rank of rank, so exactly
+    K of U, every subset equally likely); part_k >= U is everyone."""
+    rank = torch.argsort(torch.argsort(scores, dim=-1), dim=-1)
+    return rank < per_worker(part_k)
+
+
 def scenario_coefficients(
     h_abs: Tensor, sp: ScenarioParams, gbar: Tensor, eps2: Tensor,
+    part: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Branchless eq. (7) coefficients for one scenario or a stacked sweep.
 
@@ -279,12 +304,17 @@ def scenario_coefficients(
       noise_std [...] effective receiver AWGN std (0 under EF)
       dir_w [...]   received weight of a COLLUDING/OMNISCIENT cohort's
                     shared direction (0 for every other attack)
+
+    part: optional [..., U] bool participation mask; non-participants
+    transmit nothing, so they drop out of the payload, of the bias /
+    jamming / cohort sums and of the EF mean share (1/K instead of 1/U).
     """
     pw = per_worker
     u = sp.byz_mask.shape[-1]
     dim = sp.dim   # power-accounting D from the config, NOT the model's size
     is_ef = sp.policy == _EF
     mask = sp.byz_mask
+    eff_mask = mask if part is None else mask & part
     eps = torch.sqrt(eps2)
 
     # --- power_control.transmit_amplitudes, all policies at once.
@@ -295,7 +325,12 @@ def scenario_coefficients(
     amp = torch.where(policy == _CI, ci_amp,
                       torch.where(policy == _TCI,
                                   torch.minimum(ci_amp, bev_amp), bev_amp))
-    honest_s = torch.where(pw(is_ef), 1.0 / u, amp * h_abs)
+    if part is None:
+        ef_share = 1.0 / u
+    else:  # (1/U) * (U/K): exactly 1/U at a full mask
+        cnt = part.float().sum(dim=-1)
+        ef_share = pw((1.0 / u) * (torch.full_like(cnt, u) / cnt))
+    honest_s = torch.where(pw(is_ef), ef_share, amp * h_abs)
 
     # --- attacks: per-worker payload coefficients.
     phat = A.strongest_attack_amplitude(sp.p_max, dim, gbar, eps2)
@@ -307,6 +342,8 @@ def scenario_coefficients(
     attacker_s = torch.where(pw(is_ef), -honest_s, attacker_s)
     active = sp.attack != _NONE
     s = torch.where(pw(active) & mask, attacker_s, honest_s)
+    if part is not None:
+        s = torch.where(part, s, 0.0)
 
     # PS de-standardizes assuming protocol power for every worker; attackers
     # that never standardized leave the bias behind.
@@ -315,13 +352,15 @@ def scenario_coefficients(
                                   | (sp.attack == _COLLUDING)
                                   | (sp.attack == _OMNISCIENT))
     bias_w = torch.where(has_bias,
-                         torch.where(mask, honest_s, 0.0).sum(dim=-1), 0.0)
+                         torch.where(eff_mask, honest_s, 0.0).sum(dim=-1),
+                         0.0)
 
-    jam = A.jam_std_arrays(h_abs, sp.p_max, dim, mask, eps2)
+    jam = A.jam_std_arrays(h_abs, sp.p_max, dim, eff_mask, eps2)
     jam_std = torch.where(active & ~is_ef & (sp.attack == _GAUSSIAN), jam, 0.0)
 
-    collude_w = A.colluding_dir_weight(h_abs, sp.p_max, dim, mask, eps2)
-    omni_w = A.omniscient_dir_weight(h_abs, sp.p_max, dim, mask, gbar, eps2)
+    collude_w = A.colluding_dir_weight(h_abs, sp.p_max, dim, eff_mask, eps2)
+    omni_w = A.omniscient_dir_weight(h_abs, sp.p_max, dim, eff_mask, gbar,
+                                     eps2)
     directional = active & ~is_ef
     dir_w = torch.where(directional & (sp.attack == _COLLUDING), collude_w,
                         torch.where(directional & (sp.attack == _OMNISCIENT),

@@ -10,19 +10,42 @@ The PS de-standardizes the received superposition y_t as
 
     gagg = eps_t * y_t + (sum_i p_i |h_i|) * gbar_t * 1 .    (eq. 7)
 
-The per-worker sums come off the flat gradient rows in one pass through the
-`grad_stats` kernel (its plain version on the CPU); the mean/variance
-epilogue runs on scalars.
+The sweep's per-worker sums come off the flat gradient rows in one pass
+through the `grad_stats` kernel (its plain version on the CPU); the
+mean/variance epilogue runs on scalars.  The looped trainer's pytree path
+(`per_worker_scalar_stats`, `standardize`, `destandardize`) is plain tensor
+math, as in the reference, where it reaches no Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
+
+
+def tree_size(tree: Dict[str, Tensor]) -> int:
+    """Total number of scalar entries D across all leaves."""
+    return sum(int(x.numel()) for x in tree.values())
+
+
+def per_worker_scalar_stats(grads_u: Dict[str, Tensor]
+                            ) -> Tuple[Tensor, Tensor]:
+    """(gbar_i, eps2_i) per worker from stacked per-worker gradients.
+
+    grads_u: dict whose leaves have a leading U axis ([U, ...]).  Returns
+    gbar [U] and eps2 [U], the per-worker mean and (biased) variance of the
+    D gradient entries: f32 sums per leaf, added leaf by leaf in sorted key
+    order (the reference's `tree_leaves` order)."""
+    leaves = [grads_u[k] for k in sorted(grads_u)]
+    u = leaves[0].shape[0]
+    d = sum(int(x.numel()) // u for x in leaves)
+    s1 = sum(x.float().reshape(u, -1).sum(dim=1) for x in leaves)
+    s2 = sum(x.float().square().reshape(u, -1).sum(dim=1) for x in leaves)
+    return stats_from_partials(s1, s2, d)
 
 
 def flat_scalar_stats(flat: Tensor, *, plain: bool = False
@@ -53,3 +76,34 @@ def global_stats(gbar_i: Tensor, eps2_i: Tensor) -> Tuple[Tensor, Tensor]:
     """PS-side averaging over the last (worker) axis: gbar_t = mean_i gbar_i,
     eps_t^2 = mean_i eps2_i."""
     return gbar_i.mean(dim=-1), eps2_i.mean(dim=-1)
+
+
+def participation_scale(mask: Tensor, dtype=torch.float32) -> Tensor:
+    """U / (participating workers) over the last axis of a [..., U] mask."""
+    cnt = mask.to(dtype).sum(dim=-1)
+    # a true divide: torch computes u / cnt as u * (1 / cnt)
+    return torch.full_like(cnt, mask.shape[-1]) / cnt
+
+
+def masked_global_stats(gbar_i: Tensor, eps2_i: Tensor, mask: Tensor
+                        ) -> Tuple[Tensor, Tensor]:
+    """`global_stats` over the participating workers only (K-of-U sampling:
+    non-participants never report).  Spelled mean(where(mask, x, 0)) *
+    (U / count), as in the reference, so a full mask scales by exactly 1.0."""
+    scale = participation_scale(mask)
+    return (torch.where(mask, gbar_i, 0.0).mean(dim=-1) * scale,
+            torch.where(mask, eps2_i, 0.0).mean(dim=-1) * scale)
+
+
+def standardize(tree: Dict[str, Tensor], gbar: Tensor, eps2: Tensor
+                ) -> Dict[str, Tensor]:
+    """eq. (3): (g - gbar 1) / eps, elementwise over the dict."""
+    inv = torch.rsqrt(eps2)
+    return {k: (g - gbar) * inv for k, g in tree.items()}
+
+
+def destandardize(tree: Dict[str, Tensor], coeff_sum: Tensor, gbar: Tensor,
+                  eps2: Tensor) -> Dict[str, Tensor]:
+    """eq. (7): eps * y + coeff_sum * gbar * 1, elementwise over the dict."""
+    eps = torch.sqrt(eps2)
+    return {k: eps * y + coeff_sum * gbar for k, y in tree.items()}

@@ -1,17 +1,65 @@
 """Per-worker federated batch sampling (numpy only).
 
-A copy of the `FederatedSampler` part of `repro/data/pipeline.py`: each
-worker holds an i.i.d. local shard and samples its own minibatch each round;
-the global batch is the concatenation ordered by worker index, so
-batch.reshape(U, -1, ...) recovers worker locality — the layout
-`core.aggregation.per_worker_grads` expects.  Same seed, same bytes as the
-JAX package's sampler.
+A copy of the `FederatedSampler` and `dirichlet_worker_split` parts of
+`repro/data/pipeline.py`: each worker holds a local shard and samples its
+own minibatch each round; the global batch is the concatenation ordered by
+worker index, so batch.reshape(U, -1, ...) recovers worker locality — the
+layout `core.aggregation.per_worker_grads` expects.  Same seed, same bytes
+as the JAX package's sampler and split.
+
+Non-IID partitions (beyond the paper's i.i.d. assumption):
+`dirichlet_worker_split` deals each class's samples across workers with
+proportions drawn from Dirichlet(alpha * 1_U), the standard federated
+label-skew benchmark; alpha = np.inf takes exact proportions 1/U, a
+stratified IID split.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+
+
+def dirichlet_worker_split(
+    x: np.ndarray, y: np.ndarray, num_workers: int, alpha: float,
+    seed: int = 0, min_per_worker: int = 1,
+) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    """Dirichlet(alpha) label-skew partition of (x, y) into U worker shards.
+
+    Per class: shuffle its sample indices, draw proportions
+    p ~ Dirichlet(alpha * 1_U) (p = 1/U exactly when alpha = np.inf), and
+    deal contiguous slices at the cumulative-proportion boundaries.  A
+    worker left under `min_per_worker` samples takes them from the largest
+    shard (deterministic, largest first), so every worker can draw a
+    batch."""
+    if not (alpha > 0.0):  # also rejects NaN
+        raise ValueError(f"dirichlet alpha must be > 0, got {alpha}")
+    if num_workers < 1:
+        raise ValueError(f"num_workers must be >= 1, got {num_workers}")
+    if len(x) < num_workers * min_per_worker:
+        raise ValueError(
+            f"{len(x)} samples cannot give {num_workers} workers "
+            f">= {min_per_worker} each")
+    rng = np.random.default_rng(seed)
+    per_worker = [[] for _ in range(num_workers)]
+    for c in np.unique(y):
+        idx = np.flatnonzero(y == c)
+        rng.shuffle(idx)
+        if np.isinf(alpha):
+            p = np.full(num_workers, 1.0 / num_workers)
+        else:
+            p = rng.dirichlet(np.full(num_workers, float(alpha)))
+        cuts = np.floor(np.cumsum(p)[:-1] * len(idx)).astype(np.int64)
+        for i, part in enumerate(np.split(idx, cuts)):
+            per_worker[i].append(part)
+    shards = [np.concatenate(parts) if parts else np.empty(0, np.int64)
+              for parts in per_worker]
+    for i in range(num_workers):
+        while len(shards[i]) < min_per_worker:
+            j = int(np.argmax([len(s) for s in shards]))
+            shards[i] = np.concatenate([shards[i], shards[j][-1:]])
+            shards[j] = shards[j][:-1]
+    return {i: (x[s], y[s]) for i, s in enumerate(shards)}
 
 
 class FederatedSampler:
@@ -21,6 +69,15 @@ class FederatedSampler:
         self.shards = shards
         self.bpw = batch_per_worker
         self.rng = np.random.default_rng(seed)
+
+    @classmethod
+    def dirichlet(cls, x: np.ndarray, y: np.ndarray, num_workers: int,
+                  alpha: float, batch_per_worker: int,
+                  seed: int = 0) -> "FederatedSampler":
+        """Sampler over a Dirichlet(alpha) label-skew partition
+        (`dirichlet_worker_split`)."""
+        shards = dirichlet_worker_split(x, y, num_workers, alpha, seed=seed)
+        return cls(shards, batch_per_worker, seed=seed)
 
     @property
     def num_workers(self) -> int:

@@ -7,10 +7,18 @@ The port's counterpart of `benchmarks/common.py::run_figure`: MLP 784-64-10
 learning rate set from the scaled alpha_hat = (Omega/omega) * alpha.  Each
 figure is ONE `SweepEngine.run`: every experiment is a lane.
 
-Two grids set the screening defenses the paper argues analog aggregation
-cannot use beside FLOA-BEV, each one sweep under the grouped dispatch:
-`defense_cases` / `run_defenses` (benchmarks/defenses_bench.py) and
-`worker_grid` (benchmarks/sweep_bench.py, the large-U grid).
+`run_experiment` is the looped path of one experiment (`FLTrainer.run`,
+benchmarks/common.py::run_experiment), the ground truth the sweep is held
+against.
+
+Three grids set the screening defenses the paper argues analog aggregation
+cannot use beside FLOA, each one sweep under the grouped dispatch:
+`defense_cases` / `run_defenses` (benchmarks/defenses_bench.py),
+`worker_grid` (benchmarks/sweep_bench.py, the large-U grid), and the
+Byzantine showdown `showdown_cases` / `run_showdown`
+(examples/byzantine_showdown.py: BEV and CI beside every defense, with the
+adaptive-adversary axes — Gauss-Markov fading, K-of-U participation,
+colluding and omniscient cohorts — as lanes of the same sweep).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.data import FederatedSampler, make_dataset, worker_split
 from repro_torch.device import resolve_device
 from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepResult,
                                   SweepSpec, as_device_array)
+from repro_torch.fl.trainer import FLTrainer, RoundLog
 from repro_torch.models import init_mlp, mlp_accuracy, mlp_loss
 
 
@@ -89,18 +98,47 @@ def figure_setup(mc=None, device="cuda"):
     return mc, shards, params, eval_fn
 
 
+def experiment_trainer(exp: Experiment, mc=None, device="cuda", **trainer_kw):
+    """One experiment's looped run, built but not run: (FLTrainer, params0,
+    sampler) on the figures' data and MLP (sampler seed=1).  trainer_kw go
+    to FLTrainer (mode, defense, ...)."""
+    mc, shards, params, eval_fn = figure_setup(mc, device)
+    floa, alpha = experiment_floa(exp, mc)
+    trainer = FLTrainer(loss_fn=mlp_loss, floa=floa, alpha=alpha,
+                        eval_fn=eval_fn, device=device, **trainer_kw)
+    return (trainer, params,
+            FederatedSampler(shards, mc.batch_per_worker, seed=1))
+
+
+def run_experiment(exp: Experiment, eval_every: int = 10, mc=None,
+                   device="cuda") -> List[RoundLog]:
+    """One experiment through the looped `FLTrainer.run` (draws seeded by
+    exp.seed): its RoundLogs."""
+    trainer, params, sampler = experiment_trainer(exp, mc, device)
+    _, logs = trainer.run(params, sampler, exp.rounds, exp.seed,
+                          eval_every=eval_every)
+    return logs
+
+
 def cases_engine(cases: List[ScenarioCase], rounds: int,
                  eval_every: int = 10, mc=None, device="cuda",
-                 force_plain: bool = False):
+                 force_plain: bool = False, dirichlet: Optional[float] = None):
     """A sweep of `cases` on the figures' data and MLP, built but not run:
     (engine, params0, batches).
 
-    Every lane uses the same dataset and batch sequence (sampler seed=1).
-    force_plain is SweepEngine's test-only switch to the kernels' plain
-    versions; the figures leave it off."""
+    Every lane uses the same dataset and batch sequence (sampler seed=1),
+    over the i.i.d. shards, or over a Dirichlet(dirichlet) label-skew split
+    (`FederatedSampler.dirichlet`, seed 1).  force_plain is SweepEngine's
+    test-only switch to the kernels' plain versions; the figures leave it
+    off."""
     mc, shards, params, eval_fn = figure_setup(mc, device)
-    batches = FederatedSampler(shards, mc.batch_per_worker,
-                               seed=1).stack_rounds(rounds)
+    if dirichlet is None:
+        sampler = FederatedSampler(shards, mc.batch_per_worker, seed=1)
+    else:
+        x, y = make_dataset(mc.train_samples, seed=0)
+        sampler = FederatedSampler.dirichlet(x, y, mc.num_workers, dirichlet,
+                                             mc.batch_per_worker, seed=1)
+    batches = sampler.stack_rounds(rounds)
     engine = SweepEngine(mlp_loss, SweepSpec.build(cases), eval_fn=eval_fn,
                          eval_every=eval_every, device=device,
                          force_plain=force_plain)
@@ -201,3 +239,108 @@ def worker_grid(u: int, dim: int) -> List[ScenarioCase]:
         cases.append(ScenarioCase(f"{name}@U{u}", floa, 0.05, seed=400 + i,
                                   defense=spec or DefenseSpec()))
     return cases
+
+
+# examples/byzantine_showdown.py's grid: attacker counts, the fading rho,
+# K of K-of-U participation (7 of 10 meets every digital lane's bound:
+# 2*trim < K, krum f <= K-3, m <= K) and the defense lanes, in its order.
+SHOWDOWN_NS = (0, 1, 3, 4)
+SHOWDOWN_MARKOV_RHO = 0.9
+SHOWDOWN_PART_K = 7
+SHOWDOWN_DIGITAL = [
+    ("digital mean (no defense)", DefenseSpec(name="mean")),
+    ("digital median", DefenseSpec(name="median")),
+    ("digital trimmed-mean(3)", DefenseSpec(name="trimmed_mean", trim=3)),
+    ("digital Krum(f=3)", DefenseSpec(name="krum", num_byzantine=3)),
+    ("digital multi-Krum(f=3,m=3)",
+     DefenseSpec(name="multi_krum", num_byzantine=3, multi=3)),
+    ("digital geometric-median", DefenseSpec(name="geometric_median")),
+]
+SHOWDOWN_DIGITAL_PART = SHOWDOWN_DIGITAL[1:3]
+SHOWDOWN_DIRECTIONAL = [("colluding", AttackType.COLLUDING),
+                        ("omniscient", AttackType.OMNISCIENT)]
+
+
+def _showdown_floa(mc, n_atk: int, policy: Policy, noise: float,
+                   attack: AttackType = AttackType.STRONGEST,
+                   markov_rho: float = 0.0) -> FLOAConfig:
+    u, d = mc.num_workers, mc.dim
+    return FLOAConfig(
+        channel=ChannelConfig(num_workers=u, sigma=1.0, noise_std=noise,
+                              markov_rho=markov_rho),
+        power=PowerConfig(num_workers=u, dim=d, p_max=mc.p_max,
+                          policy=policy),
+        attack=AttackConfig(attack=attack if n_atk else AttackType.NONE,
+                            byzantine_mask=first_n_mask(u, n_atk)))
+
+
+def _showdown_alpha(mc, n: int, policy: Policy) -> float:
+    tp = theory.TheoryParams(num_workers=mc.num_workers, num_attackers=n,
+                             dim=mc.dim)
+    return theory.alpha_from_alpha_hat(tp, policy.value, 0.1)
+
+
+def showdown_cases(mc=None) -> List[ScenarioCase]:
+    """The Byzantine showdown's 68 lanes, as
+    examples/byzantine_showdown.py::build_cases builds them: per policy
+    (BEV, CI) and attacker count, a plain, a Markov-fading and a K-of-U
+    lane, then the colluding and omniscient cohorts; each digital defense
+    per attacker count (EF, noiseless); median and trimmed mean under K-of-U
+    participation."""
+    mc = mc or PAPER_MLP.full()
+    noise = noise_std_for_snr(mc.p_max, mc.dim, mc.snr_db)
+    k, rho = SHOWDOWN_PART_K, SHOWDOWN_MARKOV_RHO
+    cases = []
+    for policy in (Policy.BEV, Policy.CI):
+        pv = policy.value
+        for n in SHOWDOWN_NS:
+            alpha = _showdown_alpha(mc, n, policy)
+            cases += [
+                ScenarioCase(f"{pv}@N{n}",
+                             _showdown_floa(mc, n, policy, noise), alpha,
+                             seed=5),
+                ScenarioCase(f"{pv}/markov@N{n}",
+                             _showdown_floa(mc, n, policy, noise,
+                                            markov_rho=rho), alpha, seed=5),
+                ScenarioCase(f"{pv}/K{k}@N{n}",
+                             _showdown_floa(mc, n, policy, noise), alpha,
+                             seed=5, participants=k)]
+        for tag, atk in SHOWDOWN_DIRECTIONAL:
+            for n in SHOWDOWN_NS[1:]:
+                cases.append(ScenarioCase(
+                    f"{pv}/{tag}@N{n}",
+                    _showdown_floa(mc, n, policy, noise, attack=atk),
+                    _showdown_alpha(mc, n, policy), seed=5))
+    for label, defense in SHOWDOWN_DIGITAL:
+        for n in SHOWDOWN_NS:
+            cases.append(ScenarioCase(
+                f"{label}@N{n}", _showdown_floa(mc, n, Policy.EF, 0.0), 0.1,
+                seed=5, defense=defense))
+    for label, defense in SHOWDOWN_DIGITAL_PART:
+        for n in SHOWDOWN_NS:
+            cases.append(ScenarioCase(
+                f"{label}/K{k}@N{n}", _showdown_floa(mc, n, Policy.EF, 0.0),
+                0.1, seed=5, defense=defense, participants=k))
+    return cases
+
+
+def showdown_engine(rounds: int, dirichlet: Optional[float] = None, mc=None,
+                    device="cuda", force_plain: bool = False):
+    """The showdown sweep, built but not run: (engine, params0, batches).
+    Eval on round 0 and the last (the example's eval_every=R)."""
+    mc = mc or PAPER_MLP.full()
+    return cases_engine(showdown_cases(mc), rounds, eval_every=rounds,
+                        mc=mc, device=device, force_plain=force_plain,
+                        dirichlet=dirichlet)
+
+
+def run_showdown(rounds: int = 100, dirichlet: Optional[float] = None,
+                 mc=None, device="cuda", force_plain: bool = False
+                 ) -> SweepResult:
+    """The Byzantine showdown as ONE sweep call on `device`: i.i.d. shards,
+    or a Dirichlet(dirichlet) label-skew split.  The example's
+    --checkpoint-dir / --resume are not ported (ROADMAP.md Queue 1 item
+    7)."""
+    engine, params, batches = showdown_engine(rounds, dirichlet, mc, device,
+                                              force_plain)
+    return engine.run(params, batches)

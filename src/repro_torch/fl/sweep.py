@@ -3,8 +3,8 @@
 The paper's experimental section (Figs. 1-4) is a grid of scenarios — power
 policy x attack x attacker count x learning rate — and the JAX package runs
 each figure as one `SweepEngine` call (`repro/fl/sweep.py`).  This is its
-port, restricted to flat [S, D] state on one device, no chunking, no mesh,
-under full participation.  One round of an all-analog sweep (every figure):
+port, restricted to flat [S, D] state on one device, no chunking and no
+mesh.  One round of an all-analog sweep (every figure):
 
   1. per-worker gradients as one [S, U, D] slab (nested torch.func.vmap of
      torch.func.grad over lanes and workers);
@@ -13,8 +13,9 @@ under full participation.  One round of an all-analog sweep (every figure):
   5. a receiver-noise row;
   6. the fused OTA combine + PS update of eq. 7 + eq. 8 (one
      `floa_step_batched` kernel launch).  Sweeps with a GAUSSIAN-jamming
-     lane take the combine-only kernel (`floa_aggregate_batched`), add the
-     jamming row, then update — as the JAX engine does.
+     or a COLLUDING / OMNISCIENT lane take the combine-only kernel
+     (`floa_aggregate_batched`), add the jamming row and the cohort's
+     direction, then update — as the JAX engine does.
 
 Digital lanes (a `DefenseSpec` other than "floa") take the grouped
 dispatch, the default plan of the JAX engine: the lanes are partitioned by
@@ -34,6 +35,22 @@ The groups' rows concatenate, and `run` hands the results back in lane
 order (`LaneGroups.inverse`).  A sweep with no digital lane runs the
 all-analog round above unchanged.
 
+The adaptive-adversary axes, each gated by the spec so that sweeps without
+it run exactly as before:
+
+  - Gauss-Markov fading (`markov_rho > 0`, `any_markov`): a [S, U, 2]
+    complex-gain state carried across rounds; rho > 0 lanes take |h| off
+    it, rho = 0 lanes keep the i.i.d. draw.
+  - K-of-U participation (`participants`, `any_partial`): a [S, U] mask
+    per round; the analog stats average the participants only
+    (`masked_global_stats`), non-participants drop out of the
+    coefficients, and every digital group runs its masked twin (median and
+    trimmed mean sort +inf-padded columns through the same kernels).
+  - COLLUDING / OMNISCIENT cohorts (`any_directional`): after the combine
+    the lane adds its cohort's received weight times a shared direction,
+    a unit-RMS random row (COLLUDING) or the mean of the honest
+    participating rows (OMNISCIENT).
+
 The reported loss is the loss of the UPDATED weights on the round's batch,
 and the grad norm is that of the aggregate, as in the JAX engine.  Rounds are
 a Python loop (PyTorch runs eagerly); eval runs on rounds with
@@ -41,19 +58,31 @@ t % eval_every == 0 and on the last round, NaN elsewhere.
 
 Random draws.  JAX's threefry and PyTorch's Philox cannot give the same
 numbers, so a round takes its draws as inputs: `run(..., draws=fn)` with
-fn(t) -> {"h_abs": [S, U], "z": [S, D] or None, "jam": [S, D] or None}
-(standard normal z / jam rows; the engine scales them).  By default each
-lane draws from its own three torch.Generators (gains, noise, jamming) on
-the engine's device, seeded from ScenarioCase.seed, so a lane's stream
-depends only on its own seed, as in the JAX engine.  Draws stay keyed by
-lane ([S, ...] in spec order); digital lanes do not consume theirs, and
-"z" / "jam" are needed only when an analog lane is noisy / jams
-(`analog_noise` / `analog_jamming`, the grouped engine's trace gates).
+fn(t) -> a dict keyed by lane ([S, ...] in spec order):
+
+  "h_abs"  [S, U]     Rayleigh gains (every round)
+  "z"      [S, D]     standard normal noise rows, or None (`analog_noise`)
+  "jam"    [S, D]     standard normal jamming rows, or None
+                      (`analog_jamming`)
+  "part"   [S, U]     bool participation masks (`any_partial`)
+  "h_init" [S, U, 2]  standard normals of the initial complex gains (round
+                      0 only, `any_markov`)
+  "markov" [S, U, 2]  standard normals of the fading innovations
+                      (`any_markov`)
+  "dir"    [S, D]     standard normal colluding directions
+                      (`any_directional`)
+
+The engine scales them (noise std, sigma, unit RMS).  By default each lane
+draws from its own torch.Generators on the engine's device, one per stream,
+seeded from ScenarioCase.seed and the stream's slot (0 gains, 1 noise, 2
+jamming, 3 direction, 4 fading, 5 participation, 7 initial gains: the JAX
+engine's split slots and fold_in constants), so a lane's stream depends
+only on its own seed, and a new axis leaves the older streams unchanged.
+Digital lanes do not consume their channel draws.
 
 Out of this slice, and refused with NotImplementedError naming the
-ROADMAP.md queue item: K-of-U participation, Gauss-Markov fading,
-COLLUDING/OMNISCIENT attacks, the switch dispatch (grouped_dispatch=False)
-and any other non-default execution plan.
+ROADMAP.md queue item: the switch dispatch (grouped_dispatch=False) and any
+other non-default execution plan (chunking, checkpoints, mesh, sharding).
 """
 from __future__ import annotations
 
@@ -65,6 +94,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.core import channel as CH
 from repro_torch.core import defenses as DEF
 from repro_torch.core import scenario as SC
 from repro_torch.core import standardize as S
@@ -81,7 +111,6 @@ from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
 
-_Q_ADAPTIVE = "ROADMAP.md Queue 1 item 6 (adaptive-adversary axes)"
 _Q_PLAN = ("ROADMAP.md Queue 1 items 7-8 (execution plan, chunking, "
            "checkpointing, sharding)")
 _Q_SWITCH = ("ROADMAP.md Queue 1 item 7 (execution plan: the per-lane switch "
@@ -112,8 +141,10 @@ class ScenarioCase:
     defense selects the lane's aggregation rule: the analog FLOA combine
     (the default), or a digital screening defense applied to the gathered
     [U, D] gradient slab, with digital attackers reporting sign-flipped
-    gradients.  participants mirrors the JAX ScenarioCase; the port runs
-    full participation (None) only."""
+    gradients.  participants is K of K-of-U client sampling: each round
+    the lane draws K participants (non-participants transmit nothing, and
+    digital defenses screen the K rows only); None is full participation
+    with no masking at all, while participants=U runs the masked path."""
 
     name: str
     floa: FLOAConfig
@@ -122,6 +153,27 @@ class ScenarioCase:
     defense: SC.DefenseSpec = dataclasses.field(
         default_factory=SC.DefenseSpec)
     participants: Optional[int] = None
+
+
+def _check_participants(c: ScenarioCase, u: int) -> None:
+    """K-of-U bounds of one lane: 1 <= K <= U, and its digital defense's
+    bounds must hold for the K rows it screens each round."""
+    k, d = c.participants, c.defense
+    if not 1 <= k <= u:
+        raise ValueError(f"lane {c.name!r}: participants={k} invalid for "
+                         f"U={u}: need 1 <= K <= U")
+    if d.name == "trimmed_mean" and not 2 * d.trim < k:
+        raise ValueError(f"lane {c.name!r}: trimmed_mean trim={d.trim} "
+                         f"invalid for K={k} participants: need 2*trim < K")
+    if d.name in ("krum", "multi_krum"):
+        if d.num_byzantine > k - 3:
+            raise ValueError(
+                f"lane {c.name!r}: krum num_byzantine={d.num_byzantine} "
+                f"invalid for K={k} participants: need f <= K - 3")
+        if d.multi > k:
+            raise ValueError(
+                f"lane {c.name!r}: krum multi={d.multi} invalid for K={k} "
+                f"participants: need multi <= K")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,17 +201,7 @@ class SweepSpec:
                                 f"DefenseSpec, got {c.defense!r}")
             c.defense.validate(u)
             if c.participants is not None:
-                raise NotImplementedError(
-                    f"lane {c.name!r}: K-of-U participation is not ported "
-                    f"yet — {_Q_ADAPTIVE}")
-            if c.floa.channel.markov_rho > 0.0:
-                raise NotImplementedError(
-                    f"lane {c.name!r}: Gauss-Markov fading is not ported "
-                    f"yet — {_Q_ADAPTIVE}")
-            if c.floa.attack.attack in DIRECTIONAL_ATTACKS:
-                raise NotImplementedError(
-                    f"lane {c.name!r}: {c.floa.attack.attack.value} attack "
-                    f"is not ported yet — {_Q_ADAPTIVE}")
+                _check_participants(c, u)
         gm_iters = {c.defense.gm_iters for c in self.cases
                     if c.defense.name == "geometric_median"}
         if len(gm_iters) > 1:
@@ -180,7 +222,8 @@ class SweepSpec:
 
     def stacked_params(self, device=None) -> SC.ScenarioParams:
         """Frozen dataclass configs -> stacked tensors, [S, ...]."""
-        return SC.stack([SC.from_floa(c.floa, c.alpha, c.defense)
+        return SC.stack([SC.from_floa(c.floa, c.alpha, c.defense,
+                                      participants=c.participants)
                          for c in self.cases], device=device)
 
     # Defense-code lane axis: a sweep with no digital lane takes the
@@ -226,6 +269,31 @@ class SweepSpec:
                if c.defense.name == "geometric_median"}
         return its.pop() if its else 8
 
+    # The adaptive-adversary gates: each is False for every lane without
+    # the axis, so such sweeps draw and run exactly what they did before.
+    @property
+    def any_markov(self) -> bool:
+        """Gauss-Markov fading consumers: rho > 0 on an analog, non-EF lane
+        (digital lanes ignore the channel; EF ignores |h|)."""
+        return any(c.floa.channel.markov_rho > 0.0
+                   and c.floa.power.policy != Policy.EF
+                   and not c.defense.is_digital for c in self.cases)
+
+    @property
+    def any_partial(self) -> bool:
+        """K-of-U participation on any lane (participants=U counts: it runs
+        the masked path)."""
+        return any(c.participants is not None for c in self.cases)
+
+    @property
+    def any_directional(self) -> bool:
+        """COLLUDING / OMNISCIENT cohorts with a member, on an analog non-EF
+        lane: gates the direction added after the combine."""
+        return any(c.floa.attack.attack in DIRECTIONAL_ATTACKS
+                   and c.floa.attack.num_attackers > 0
+                   and c.floa.power.policy != Policy.EF
+                   and not c.defense.is_digital for c in self.cases)
+
 
 @dataclasses.dataclass
 class SweepResult:
@@ -239,6 +307,23 @@ class SweepResult:
 
     def index(self, name: str) -> int:
         return self.names.index(name)
+
+    def logs(self, name_or_idx, eval_every: int = 1) -> list:
+        """RoundLog list of one lane, on the `FLTrainer.run(eval_every=...)`
+        schedule (t % eval_every == 0 and the last round), for the figure
+        CSV writers.  Pass the engine's own eval_every: rounds it did not
+        evaluate carry NaN accuracy."""
+        from repro_torch.fl.trainer import RoundLog
+        i = (name_or_idx if isinstance(name_or_idx, int)
+             else self.index(name_or_idx))
+        rounds = self.loss.shape[1]
+        acc = self.metrics.get("accuracy")
+        return [RoundLog(step=t, loss=float(self.loss[i, t]),
+                         accuracy=(float(acc[i, t]) if acc is not None
+                                   else float("nan")),
+                         grad_norm=float(self.grad_norm[i, t]))
+                for t in range(rounds)
+                if eval_every and (t % eval_every == 0 or t == rounds - 1)]
 
 
 def stack_params(params: Dict[str, Tensor], num: int) -> Dict[str, Tensor]:
@@ -275,6 +360,14 @@ def _digital_flip(flat: Tensor, sp: SC.ScenarioParams) -> Tensor:
     return flat * sign[:, :, None]
 
 
+def lane_generator(seed: int, slot: int, device) -> torch.Generator:
+    """The generator of stream `slot` (`SweepEngine._SLOTS`) of a lane
+    seeded `seed`: the engine's default draws and the trainer's."""
+    state = np.random.SeedSequence([seed, slot]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(state))
+
+
 def _refuse_plan(plan) -> None:
     if plan is None:
         return
@@ -302,6 +395,11 @@ class SweepEngine:
     the plain one from the same draws, and the figures never set it.
     """
 
+    # Generator slots of the default draws (the JAX engine's split slots
+    # 0-2 and fold_in constants 3, 4, 5, 7).
+    _SLOTS = {"h_abs": 0, "z": 1, "jam": 2, "dir": 3, "markov": 4,
+              "part": 5, "h_init": 7}
+
     def __init__(self, loss_fn: Callable, spec: SweepSpec,
                  eval_fn: Optional[Callable] = None, eval_every: int = 1,
                  plan=None, *, device="cuda", force_plain: bool = False):
@@ -314,66 +412,88 @@ class SweepEngine:
         self.force_plain = force_plain
         self._u = spec.num_workers
         self._sp = spec.stacked_params(self.device)
-        # The draws the analog lanes consume, fixed by the spec.
+        # The draws the lanes consume and the route, fixed by the spec.
         self._noise, self._jam = spec.analog_noise, spec.analog_jamming
+        self._markov, self._partial = spec.any_markov, spec.any_partial
+        self._dir = spec.any_directional
         # Grouped dispatch: rows run in group order (`_perm`), results go
         # back to lane order (`_inverse`) in `run`.  Each group's rows, its
         # ScenarioParams and its defense kernel (None for the analog group)
         # are fixed here, so a round only indexes them.
         self._group_runs = None
+        self._sp_exec = self._sp
         if spec.any_digital:
             groups = SC.build_lane_groups(spec.lane_codes)
             self._perm, self._inverse = (
                 torch.as_tensor(ix, dtype=torch.long, device=self.device)
                 for ix in (groups.perm, groups.inverse))
-            sp_run = SC.permute_lanes(self._sp, self._perm)
+            self._sp_exec = SC.permute_lanes(self._sp, self._perm)
             self._group_runs = [
-                (slice(start, end), SC.permute_lanes(sp_run, slice(start, end)),
+                (slice(start, end),
+                 SC.permute_lanes(self._sp_exec, slice(start, end)),
                  None if code == SC._FLOA_CODE
-                 else DEF.make_group_defense_kernel(code, spec.gm_iters,
-                                                   plain=force_plain))
+                 else DEF.make_group_defense_kernel(
+                     code, spec.gm_iters, masked=self._partial,
+                     plain=force_plain))
                 for code, start, end in groups.local_slices]
 
+    def _wanted_draws(self, s: int, d: int, t: int) -> Dict[str, tuple]:
+        """key -> (shape, dtype) of every draw round t consumes."""
+        u, f32 = self._u, torch.float32
+        want = {"h_abs": ((s, u), f32)}
+        for key, on, shape in [("z", self._noise, (s, d)),
+                               ("jam", self._jam, (s, d)),
+                               ("part", self._partial, (s, u)),
+                               ("h_init", self._markov and t == 0, (s, u, 2)),
+                               ("markov", self._markov, (s, u, 2)),
+                               ("dir", self._dir, (s, d))]:
+            if on:
+                want[key] = (shape, torch.bool if key == "part" else f32)
+        return want
+
     def seeded_draws(self, d: int) -> Callable[[int], Dict[str, Tensor]]:
-        """The default draw provider: per lane, three generators (gains,
-        noise, jamming) on the engine's device, seeded from the lane's seed
-        alone.  Call the provider once per round, in round order."""
-        dev, sp = self.device, self._sp
+        """The default draw provider: per lane and per stream one generator
+        on the engine's device, seeded from the lane's seed and the
+        stream's slot (`_SLOTS`) alone.  Call the provider once per round,
+        in round order."""
+        dev, sp, s = self.device, self._sp, len(self.spec)
+        gens = {}
 
-        def generators(slot: int) -> List[torch.Generator]:
-            out = []
-            for c in self.spec.cases:
-                seed = np.random.SeedSequence([c.seed, slot]).generate_state(
-                    1, np.uint64)[0]
-                out.append(torch.Generator(dev).manual_seed(int(seed)))
-            return out
+        def generators(key: str) -> List[torch.Generator]:
+            if key not in gens:
+                gens[key] = []
+                for c in self.spec.cases:
+                    gens[key].append(
+                        lane_generator(c.seed, self._SLOTS[key], dev))
+            return gens[key]
 
-        g_h, g_z, g_jam = generators(0), generators(1), generators(2)
-        noise, jam = self._noise, self._jam
-
-        def normal_rows(gens):
-            return torch.stack([torch.randn(d, generator=g, device=dev)
-                                for g in gens])
+        def normal(key: str, shape) -> Tensor:
+            return torch.stack([torch.randn(shape, generator=g, device=dev)
+                                for g in generators(key)])
 
         def draws(t: int) -> Dict[str, Optional[Tensor]]:
-            return {"h_abs": SC.sample_gains(g_h, sp),
-                    "z": normal_rows(g_z) if noise else None,
-                    "jam": normal_rows(g_jam) if jam else None}
+            want = self._wanted_draws(s, d, t)
+            out = {"h_abs": SC.sample_gains(generators("h_abs"), sp),
+                   "z": None, "jam": None}
+            for key, (shape, _) in want.items():
+                if key == "part":
+                    scores = torch.stack([
+                        torch.rand(self._u, generator=g, device=dev)
+                        for g in generators(key)])
+                    out[key] = SC.participation_mask(scores, sp.part_k)
+                elif key != "h_abs":
+                    out[key] = normal(key, shape[1:])
+            return out
 
         return draws
 
-    def _check_draw(self, draw, s: int, d: int) -> None:
-        want = {"h_abs": (s, self._u),
-                "z": (s, d) if self._noise else None,
-                "jam": (s, d) if self._jam else None}
-        for key, shape in want.items():
-            if shape is None:
-                continue
+    def _check_draw(self, draw, s: int, d: int, t: int) -> None:
+        for key, (shape, dtype) in self._wanted_draws(s, d, t).items():
             x = draw.get(key)
             if (not isinstance(x, torch.Tensor) or tuple(x.shape) != shape
-                    or x.dtype != torch.float32 or x.device != self.device):
+                    or x.dtype != dtype or x.device != self.device):
                 raise ValueError(
-                    f"draw {key!r} must be a float32 {shape} tensor on "
+                    f"draw {key!r} must be a {dtype} {shape} tensor on "
                     f"{self.device}, got "
                     f"{x if x is None else (x.dtype, tuple(x.shape), x.device)}")
 
@@ -382,18 +502,22 @@ class SweepEngine:
         (w_new, loss, gn)."""
         # 1. per-worker gradients, already flat: [S, U, D].
         grads = grads_fn(w, batch).contiguous()
+        part = draw.get("part") if self._partial else None
         if self._group_runs is None:
-            w_new, gagg = self._analog_step(w, grads, draw, self._sp)
+            w_new, gagg = self._analog_step(w, grads, draw, self._sp, part)
         else:
             w_parts, g_parts = [], []
             for rows, spg, kernel in self._group_runs:
+                part_g = None if part is None else part[rows]
                 if kernel is None:
                     w_g, g_g = self._analog_step(
                         w[rows], grads[rows], SC.permute_lanes(draw, rows),
-                        spg)
+                        spg, part_g)
                 else:
-                    g_g = kernel(_digital_flip(grads[rows], spg), spg.def_trim,
-                                 spg.def_f, spg.def_multi)
+                    args = (_digital_flip(grads[rows], spg), spg.def_trim,
+                            spg.def_f, spg.def_multi)
+                    g_g = kernel(*args) if part_g is None else kernel(
+                        *args, part_g)
                     w_g = w[rows] - spg.alpha[:, None] * g_g
                 w_parts.append(w_g)
                 g_parts.append(g_g)
@@ -403,35 +527,72 @@ class SweepEngine:
         return w_new, loss, gn
 
     def _analog_step(self, w: Tensor, grads: Tensor, draw,
-                     sp: SC.ScenarioParams) -> Tuple[Tensor, Tensor]:
+                     sp: SC.ScenarioParams, part: Optional[Tensor] = None
+                     ) -> Tuple[Tensor, Tensor]:
         """Steps 2-6 on analog lanes: (w [S_a, D], grads [S_a, U, D]) ->
-        (w_new, gagg), with `draw` and `sp` for the same lanes."""
+        (w_new, gagg), with `draw`, `sp` and the participation masks
+        `part` [S_a, U] (or None) for the same lanes."""
         plain = self.force_plain
         s, d = w.shape
-        # 2. standardization handshake (eq. 3): per-worker stats, PS mean.
+        # 2. standardization handshake (eq. 3): per-worker stats, PS mean
+        # over the participants.
         gbar_i, eps2_i = S.flat_scalar_stats(grads, plain=plain)
-        gbar, eps2 = S.global_stats(gbar_i, eps2_i)
+        if part is None:
+            gbar, eps2 = S.global_stats(gbar_i, eps2_i)
+        else:
+            gbar, eps2 = S.masked_global_stats(gbar_i, eps2_i, part)
         eps = torch.sqrt(eps2)
         # 3+4. channel draw + branchless power/attack coefficients.
-        coeff, bias_w, jam_std, noise_std, _ = SC.scenario_coefficients(
-            draw["h_abs"], sp, gbar, eps2)
+        coeff, bias_w, jam_std, noise_std, dir_w = SC.scenario_coefficients(
+            draw["h_abs"], sp, gbar, eps2, part)
         # 5. receiver noise row (all-zero when no analog lane is noisy).
         if self._noise:
             noise_row = noise_std[:, None] * draw["z"]
         else:
             noise_row = torch.zeros((s, d), device=w.device)
         bias_row = bias_w * gbar
-        # 6. OTA combine + PS update: fused, or combine + jam + update.
-        if not self._jam:
-            w_new, gagg = batched_floa_step(w, sp.alpha, coeff, grads,
-                                            noise_row, bias_row, eps,
-                                            plain=plain)
-        else:
-            gagg = batched_floa_combine(coeff, grads, noise_row, bias_row,
-                                        eps, plain=plain)
+        # 6. OTA combine + PS update: fused, or the combine, then jamming
+        # and the cohorts' direction, then the update.
+        if not (self._jam or self._dir):
+            return batched_floa_step(w, sp.alpha, coeff, grads, noise_row,
+                                     bias_row, eps, plain=plain)
+        gagg = batched_floa_combine(coeff, grads, noise_row, bias_row, eps,
+                                    plain=plain)
+        if self._jam:
             gagg = gagg + jam_std[:, None] * draw["jam"]
-            w_new = w - sp.alpha[:, None] * gagg
-        return w_new, gagg
+        if self._dir:
+            gagg = gagg + dir_w[:, None] * self._direction(grads, draw, sp,
+                                                           part)
+        return w - sp.alpha[:, None] * gagg, gagg
+
+    @staticmethod
+    def _direction(grads: Tensor, draw, sp: SC.ScenarioParams,
+                   part: Optional[Tensor]) -> Tensor:
+        """The cohort's shared row [S_a, D]: COLLUDING lanes a unit-RMS
+        random direction, every other lane the mean of its honest
+        (participating) rows, which OMNISCIENT lanes transmit negated (the
+        sign is in dir_w, 0 for other attacks)."""
+        dvec = draw["dir"]
+        rms = torch.sqrt(torch.mean(dvec * dvec, dim=-1, keepdim=True))
+        dvec = dvec / torch.clamp_min(rms, 1e-20)
+        honest = (~sp.byz_mask).float()
+        if part is not None:
+            honest = honest * part.float()
+        cnt = torch.clamp_min(honest.sum(dim=-1), 1.0)
+        hmean = torch.einsum("su,sud->sd", honest, grads) / cnt[:, None]
+        return torch.where((sp.attack == SC._COLLUDING)[:, None], dvec,
+                           hmean)
+
+    def _fade(self, h: Tensor, draw) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """One Gauss-Markov step of the [S, U, 2] gains (execution order),
+        and the draw with each rho > 0 lane's |h| taken off it (rho = 0
+        lanes keep the i.i.d. draw)."""
+        sp = self._sp_exec
+        h = CH.gauss_markov_step(h, sp.sigma[..., None] * draw["markov"],
+                                 sp.chan_rho[:, None, None])
+        h_abs = torch.where((sp.chan_rho > 0.0)[:, None],
+                            CH.complex_gain_abs(h), draw["h_abs"])
+        return h, {**draw, "h_abs": h_abs}
 
     @torch.no_grad()
     def _eval(self, w: Tensor, unflatten_row) -> Dict[str, Tensor]:
@@ -471,13 +632,18 @@ class SweepEngine:
                         in_dims=(0, None))
         loss_lanes = vmap(flat_loss, in_dims=(0, None))
 
+        h = None   # the Gauss-Markov state [S, U, 2], execution order
         losses, gns, evals = [], [], []
         for t in range(rounds):
             batch = {k: v[t] for k, v in batches.items()}
             draw = draws(t)
-            self._check_draw(draw, num, d)
+            self._check_draw(draw, num, d, t)
             if grouped:
                 draw = SC.permute_lanes(draw, self._perm)
+            if self._markov:
+                if t == 0:   # stationary: every marginal Rayleigh(sigma)
+                    h = self._sp_exec.sigma[..., None] * draw["h_init"]
+                h, draw = self._fade(h, draw)
             w, loss, gn = self._round(w, batch, draw, grads_fn, loss_lanes)
             losses.append(loss)
             gns.append(gn)

@@ -27,17 +27,18 @@ few warps per column above it).  Its shared memory is the block's values
 once, column by column with one float of pad per 32 (U_pad * 33/32 * 4
 bytes a column, ~34 KB a block at every U_pad).  A column must fit one
 block, so BITONIC_MAX_U = 256 * 32 = 8192, the reference's cap.  Above it
-there is no kernel: `core/defenses.py::sorted_columns` raises on the card
-(ROADMAP.md Queue 2 item 6).  U > 32 pads to at least 64 (two threads a
-column).
+there is no kernel: `core/defenses.py::sorted_columns` takes `torch.sort`
+there, as the reference takes `jnp.sort` (ROADMAP.md Queue 2 item 6).
+U > 32 pads to at least 64 (two threads a column).
 
 CPU tensors take the plain versions (`kernels/ref.py`); CUDA tensors launch
 the kernel or raise.  `plain=True` forces the plain version on the card; it
 exists so a test can hold the kernel against it.  Each wrapper counts its
-launches in its `launches` attribute.
+launches in its `launches` attribute, and by input shape in `shapes`.
 """
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -123,10 +124,12 @@ def sort_columns(x: Tensor, *, plain: bool = False) -> Tensor:
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "sort_columns")
     sort_columns.launches += 1
+    sort_columns.shapes[tuple(x.shape)] += 1
     return out
 
 
 sort_columns.launches = 0
+sort_columns.shapes = collections.Counter()
 
 
 def sort_columns_bitonic(x: Tensor, *, plain: bool = False) -> Tensor:
@@ -150,7 +153,9 @@ def sort_columns_bitonic(x: Tensor, *, plain: bool = False) -> Tensor:
         DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "sort_columns_bitonic")
     sort_columns_bitonic.launches += 1
+    sort_columns_bitonic.shapes[tuple(x.shape)] += 1
     return out
 
 
 sort_columns_bitonic.launches = 0
+sort_columns_bitonic.shapes = collections.Counter()

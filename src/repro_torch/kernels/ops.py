@@ -51,7 +51,8 @@ def launch_counts() -> Dict[str, int]:
 
 def launch_shapes() -> Dict[str, Dict[Tuple[int, ...], int]]:
     """Launches by input shape, for the wrappers that count them (the FLOA
-    kernels by (S, U, D), grad_stats by (R, D))."""
+    kernels by (S, U, D), grad_stats by (R, D), the sorts by their input's
+    shape, [U, D] or [S, U, D])."""
     return {name: dict(fn.shapes) for name, fn in KERNELS.items()
             if hasattr(fn, "shapes")}
 

@@ -199,11 +199,27 @@ def test_sort_router_by_u():
     for bad in (32, 100, 16384):
         with pytest.raises(ValueError, match="bitonic_plan"):
             TDS.bitonic_plan(bad)
-    # above the cap the plain sort still answers on the CPU (the card
-    # raises, tests/test_torch_gpu.py)
+    # above the cap no kernel exists: every device sorts with torch.sort
+    # (on the card too, logged once, tests/test_torch_gpu.py), as the
+    # reference takes jnp.sort there
     x = torch.from_numpy(_slab(1, 8193, 2))
     np.testing.assert_array_equal(TDEF.sorted_columns(x).numpy(),
                                   np.sort(x.numpy(), axis=0))
+    x3 = torch.from_numpy(_slab(2, 2, 8193, 3))
+    np.testing.assert_array_equal(TDEF.sorted_columns(x3).numpy(),
+                                  np.sort(x3.numpy(), axis=1))
+
+
+def test_defenses_past_the_sort_cap_match_jax():
+    """Median and trimmed mean at U = 8193, past the bitonic cap, where both
+    packages sort with their library sort: equal to the JAX flat
+    defenses."""
+    x = _slab(3, 8193, 5)
+    tx = torch.from_numpy(x)
+    np.testing.assert_array_equal(TDEF.flat_median(tx).numpy(),
+                                  np.asarray(JDEF.flat_median(jnp.asarray(x))))
+    _close(TDEF.flat_trimmed_mean(tx, 800),
+           JDEF.flat_trimmed_mean(jnp.asarray(x), 800))
 
 
 def test_sort_wrappers_check_their_inputs():

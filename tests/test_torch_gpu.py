@@ -330,16 +330,21 @@ def test_grad_stats_splits_rows_over_a_cluster(cuda_device, dtype):
 
 @pytest.mark.gpu
 def test_main_path_counts_launches_by_shape(cuda_device):
-    """The FLOA wrappers count launches by (S, U, D), grad_stats by (R, D);
-    `reset_launches` clears both."""
+    """The FLOA wrappers count launches by (S, U, D), grad_stats by (R, D),
+    the sorts by input shape; `reset_launches` clears them."""
     ops.reset_launches()
     args = _inputs(cuda_device, 13, 2, 3, 64, torch.float32)
     ops.floa_step_batched(*args)
     ops.floa_step_batched(*args)
     ops.grad_stats(args[2].reshape(6, 64))
+    ops.sort_columns(args[2])
+    ops.sort_columns(args[2][0])
+    ops.sort_columns_bitonic(torch.zeros(40, 8, device=cuda_device))
     assert ops.launch_shapes() == {
         "floa_step_batched": {(2, 3, 64): 2}, "floa_aggregate_batched": {},
-        "floa_aggregate": {}, "grad_stats": {(6, 64): 1}}
+        "floa_aggregate": {}, "grad_stats": {(6, 64): 1},
+        "sort_columns": {(2, 3, 64): 1, (3, 64): 1},
+        "sort_columns_bitonic": {(40, 8): 1}}
     ops.reset_launches()
     assert not any(ops.launch_shapes().values())
 
@@ -433,11 +438,60 @@ def test_sort_guards_raise_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="BITONIC_MAX_U"):
         ops.sort_columns_bitonic(torch.zeros(
             defense_sort.BITONIC_MAX_U + 1, 2, device=cuda_device))
-    # no sort kernel past the bitonic cap: the router refuses, never falls
-    # back to torch.sort on the card
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        defenses.sorted_columns(torch.zeros(
-            defense_sort.BITONIC_MAX_U + 1, 2, device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sort_past_the_bitonic_cap_is_torch_sort(cuda_device, dtype,
+                                                 monkeypatch, caplog):
+    """U = 8193 pads past the bitonic cap: no kernel, the card sorts with
+    torch.sort (the reference's jnp.sort route), logged once per process,
+    and launches nothing."""
+    monkeypatch.setattr(defenses, "_sort_fallback_logged", False)
+    u = defense_sort.BITONIC_MAX_U + 1
+    assert defenses.sort_route(u) is None
+    x = _normal(cuda_device, 3, 2, u, 37, dtype=dtype)
+    ops.reset_launches()
+    with caplog.at_level("WARNING", logger=defenses.__name__):
+        for _ in range(2):
+            got = defenses.sorted_columns(x)
+            assert torch.equal(got, torch.sort(x, dim=-2).values)
+        assert torch.equal(defenses.sorted_columns(x[0]),
+                           torch.sort(x[0], dim=0).values)
+    assert not any(ops.launch_counts().values())
+    notes = [r for r in caplog.records if "BITONIC_MAX_U" in r.getMessage()]
+    assert len(notes) == 1 and "torch.sort" in notes[0].getMessage()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,u,d", [("sort_columns", 10, 50890),
+                                      ("sort_columns", 7, 129),
+                                      ("sort_columns_bitonic", 100, 515),
+                                      ("sort_columns_bitonic", 1000, 130)])
+def test_sorts_of_inf_padded_slabs(cuda_device, name, u, d):
+    """The masked defenses' slabs: each lane's non-participating rows are
+    +inf (lanes with none, some, all but one).  Both CUDA sorts equal
+    torch.sort exactly; the masked median and trimmed mean equal their
+    plain route."""
+    s = 4
+    x = _normal(cuda_device, u + d, s, u, d)
+    mask = torch.ones(s, u, dtype=torch.bool, device=cuda_device)
+    gen = torch.Generator().manual_seed(u)
+    for lane, k in enumerate([u, max(1, (2 * u) // 3), u // 2 + 1, 1]):
+        mask[lane, torch.randperm(u, generator=gen)[k:]] = False
+    padded = torch.where(mask[..., None], x, torch.inf)
+    ops.reset_launches()
+    assert torch.equal(ops.KERNELS[name](padded),
+                       torch.sort(padded, dim=1).values)
+    assert ops.launch_counts()[name] == 1
+    med = defenses.flat_masked_median(x, mask)
+    assert torch.equal(med, defenses.flat_masked_median(x, mask, plain=True))
+    trim = torch.zeros(s, dtype=torch.int32, device=cuda_device)
+    tm = defenses.flat_masked_trimmed_mean(x, trim, mask)
+    torch.testing.assert_close(
+        tm, defenses.flat_masked_trimmed_mean(x, trim, mask, plain=True),
+        rtol=0, atol=0)
+    assert torch.isfinite(med).all() and torch.isfinite(tm).all()
 
 
 DEFENSE_GRIDS = {
@@ -660,3 +714,82 @@ def test_serve_kernel_route_matches_plain_route(cuda_device):
     assert ops.launch_counts()["decode_attention"] == cfg.n_layers * 16
     assert torch.equal(rk.tokens, rp.tokens)
     torch.testing.assert_close(rk.logits, rp.logits, rtol=1e-4, atol=1e-5)
+
+
+def _trainer_runs(dev, mode, defense, flat):
+    """The smoke-width fig3 BEV lane (one attacker, sigma 3) through
+    `FLTrainer` on the card, by the kernel route and by the plain route from
+    the same seeded draws: [(params, logs, launch counts)] * 2."""
+    exp = TF.Experiment("BEV", Policy.BEV, n_attackers=1, alpha_hat=0.1,
+                        attacker_sigma=3.0, rounds=ROUNDS)
+    runs = []
+    for plain in (False, True):
+        tr, params, sampler = TF.experiment_trainer(
+            exp, SMOKE, dev, mode=mode, defense=defense, force_plain=plain)
+        ops.reset_launches()
+        if flat:
+            out = tr.run_scan(params, sampler.stack_rounds(ROUNDS), exp.seed,
+                              eval_every=1, flat=True)
+        else:
+            out = tr.run(params, sampler, ROUNDS, exp.seed, eval_every=1)
+        runs.append((*out, ops.launch_counts()))
+    return runs
+
+
+TRAINER_ROUTES = {
+    "floa_loop": ("floa", "mean", False, {}),
+    "floa_flat": ("floa", "mean", True, {"floa_step_batched": ROUNDS,
+                                         "grad_stats": ROUNDS}),
+    "median_loop": ("digital", "median", False, {"sort_columns": ROUNDS}),
+    "trimmed_flat": ("digital", "trimmed_mean", True,
+                     {"sort_columns": ROUNDS}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(TRAINER_ROUTES))
+def test_trainer_kernel_route_matches_plain_route(cuda_device, route):
+    mode, defense, flat, expect = TRAINER_ROUTES[route]
+    (pk, lk, ck), (pp, lp, cp) = _trainer_runs(cuda_device, mode, defense,
+                                               flat)
+    assert ck == {k: expect.get(k, 0) for k in ops.KERNELS}
+    assert not any(cp.values())
+    loss_k = np.array([lg.loss for lg in lk])
+    assert np.isfinite(loss_k).all()
+    np.testing.assert_allclose(loss_k, [lg.loss for lg in lp], rtol=1e-4)
+    np.testing.assert_allclose([lg.grad_norm for lg in lk],
+                               [lg.grad_norm for lg in lp], rtol=1e-4)
+    for k in pk:
+        torch.testing.assert_close(pk[k], pp[k], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_showdown_kernel_route_matches_plain_route(cuda_device):
+    """The 68-lane showdown at smoke width through the kernels and through
+    their plain versions from the same seeded draws: the combine-only route
+    for the 36 analog lanes (directional lanes in the spec), one sort per
+    round for the median and trimmed-mean groups (+inf-padded K-of-U
+    lanes among them)."""
+    runs = []
+    for plain in (False, True):
+        ops.reset_launches()
+        runs.append(TF.run_showdown(ROUNDS, mc=SMOKE, device=cuda_device,
+                                    force_plain=plain))
+        counts = ops.launch_counts()
+        expect = {"floa_aggregate_batched": ROUNDS, "grad_stats": ROUNDS,
+                  "sort_columns": 2 * ROUNDS}
+        assert counts == {k: 0 if plain else expect.get(k, 0)
+                          for k in ops.KERNELS}
+        if not plain:
+            d = SMOKE.dim
+            assert ops.launch_shapes()["floa_aggregate_batched"] == {
+                (36, 10, d): ROUNDS}
+            assert ops.launch_shapes()["sort_columns"] == {
+                (8, 10, d): 2 * ROUNDS}
+    rk, rp = runs
+    assert rk.loss.shape == (68, ROUNDS) and np.isfinite(rk.loss).all()
+    np.testing.assert_allclose(rk.loss, rp.loss, rtol=1e-4)
+    np.testing.assert_allclose(rk.grad_norm, rp.grad_norm, rtol=1e-4)
+    for k in rk.params:
+        torch.testing.assert_close(rk.params[k], rp.params[k], rtol=1e-4,
+                                   atol=1e-6)

@@ -40,7 +40,6 @@ with warnings.catch_warnings():
     import repro.core as JC
     import repro.fl as JFL
     from repro.configs import PAPER_MLP as JPAPER
-    from repro.core import scenario as JSC
     from repro.data import FederatedSampler, make_dataset, worker_split
     from repro.models import init_mlp, mlp_accuracy
     from repro.models import mlp_loss as jmlp_loss
@@ -55,6 +54,8 @@ from repro_torch.core.power_control import Policy
 from repro_torch.fl import sweep as TS
 from repro_torch.kernels import ops as tops
 from repro_torch.models import mlp as TM
+from torch_parity import (assert_sweeps_match, jax_case, jax_floa,
+                          replay_sweep_draws)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ROUNDS = 5
@@ -85,43 +86,9 @@ LANES = {
 }
 
 
-def _jax_floa(cfg):
-    """The port's FLOAConfig as the JAX package's."""
-    return JC.FLOAConfig(
-        channel=JC.ChannelConfig(cfg.channel.num_workers, cfg.channel.sigma,
-                                 cfg.channel.noise_std),
-        power=JC.PowerConfig(cfg.power.num_workers, cfg.power.dim,
-                             cfg.power.p_max, JC.Policy(cfg.power.policy.value)),
-        attack=JC.AttackConfig(JC.AttackType(cfg.attack.attack.value),
-                               cfg.attack.byzantine_mask))
-
-
-def _jax_case(c):
-    """The port's ScenarioCase as the JAX package's."""
-    return JFL.ScenarioCase(c.name, _jax_floa(c.floa), c.alpha, seed=c.seed,
-                            defense=JC.DefenseSpec(
-                                **dataclasses.asdict(c.defense)))
-
-
-def _replay_draws(jspec, rounds, d):
-    """The JAX engine's per-round draws, re-derived from its key schedule
-    (fl/sweep.py: split(keys) per round, split(sub, 3) per lane).  Every
-    lane gets its draws; the grouped engines consume the analog lanes'."""
-    sp, keys = jspec.stacked_params(), jspec.keys()
-    normal = jax.vmap(lambda k: jax.random.normal(k, (d,), jnp.float32))
-    out = []
-    for _ in range(rounds):
-        split = jax.vmap(jax.random.split)(keys)
-        keys, subs = split[:, 0], split[:, 1]
-        ks = jax.vmap(lambda k: jax.random.split(k, 3))(subs)
-        out.append({
-            "h_abs": torch.from_numpy(np.array(
-                jax.vmap(JSC.sample_gains)(ks[:, 0], sp))),
-            "z": (torch.from_numpy(np.array(normal(ks[:, 1])))
-                  if jspec.any_noise else None),
-            "jam": (torch.from_numpy(np.array(normal(ks[:, 2])))
-                    if jspec.any_jamming else None)})
-    return lambda t: out[t]
+_jax_floa, _jax_case = jax_floa, jax_case
+# the JAX engine's draws (split slots and fold_in side channels), replayed
+_replay_draws = replay_sweep_draws
 
 
 @pytest.mark.parametrize("fig", sorted(LANES))
@@ -170,20 +137,7 @@ def test_sweep_matches_jax_engine(fig):
                                acc_j[~np.isnan(acc_j)], atol=0.011)
 
 
-def _assert_sweeps_match(got, want):
-    """Every lane finite in both engines (NaN == NaN would pass
-    assert_allclose without checking anything), then equal at RTOL."""
-    for run in (got, want):
-        assert np.isfinite(run.loss).all() and np.isfinite(run.grad_norm).all()
-        assert all(np.isfinite(np.asarray(v)).all()
-                   for v in run.params.values())
-    assert got.names == want.names
-    np.testing.assert_allclose(got.loss, want.loss, rtol=RTOL)
-    np.testing.assert_allclose(got.grad_norm, want.grad_norm, rtol=RTOL)
-    for k in want.params:
-        np.testing.assert_allclose(got.params[k].numpy(),
-                                   np.asarray(want.params[k]), rtol=RTOL,
-                                   atol=1e-7)
+_assert_sweeps_match = assert_sweeps_match
 
 
 def _tiny_mlp_problem(u):
@@ -281,7 +235,8 @@ def test_run_figure_on_cpu_learns_and_is_deterministic():
 def test_port_imports_no_jax():
     code = ("import sys, repro_torch.fl.sweep, repro_torch.figures, "
             "repro_torch.kernels.ops, repro_torch.core.defenses, "
-            "repro_torch.kernels.defense_sort; "
+            "repro_torch.kernels.defense_sort, repro_torch.fl.trainer, "
+            "repro_torch.data.pipeline; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('clean')")
@@ -329,14 +284,6 @@ class _Plan:
     checkpoint_dir: object = None
 
 
-REFUSED_LANES = {
-    "digital_participants": dict(defense=TF.DefenseSpec(name="median"),
-                                 participants=5),
-    "participants": dict(participants=5),
-    "markov_fading": dict(markov_rho=0.5),
-    "colluding": dict(attack=AttackType.COLLUDING),
-    "omniscient": dict(attack=AttackType.OMNISCIENT),
-}
 REFUSED_PLANS = {
     "mesh": _Plan(mesh=object()),
     "chunk_rounds": _Plan(chunk_rounds=4),
@@ -345,12 +292,6 @@ REFUSED_PLANS = {
     "tree_state": _Plan(flat_state=False),
     "switch_dispatch": _Plan(grouped_dispatch=False),
 }
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED_LANES))
-def test_out_of_slice_lanes_are_refused(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TS.SweepSpec.build([_case(**REFUSED_LANES[name])])
 
 
 def test_spec_validates_digital_lanes():

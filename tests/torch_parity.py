@@ -1,0 +1,159 @@
+"""Shared helpers for the port's parity tests (tests/test_torch_*.py): the
+port's configs as the JAX package's, replays of the JAX engines' key
+schedules as the port's draws, the tiny regression MLP in both frameworks,
+and the sweep comparison.
+
+Replays: threefry and Philox cannot give the same numbers, so the JAX
+engines' draws are re-derived here from their key schedules and handed to
+the port as inputs.
+
+  - `replay_sweep_draws`: the sweep (repro/fl/sweep.py) splits each lane's
+    key per round (`split(keys)` -> subkeys), then `split(sub, 3)` for
+    gains / noise / jamming, and draws the adaptive axes from fold_in side
+    channels: 3 the colluding direction, 4 the fading innovation, 5 the
+    participation mask, and 7, on the lane's base key, the initial gains.
+  - `replay_trainer_draws`: the looped trainer (repro/fl/trainer.py) splits
+    its key per round, then `split(sub, 3)` in `aggregate`, and draws
+    noise and jamming per leaf with `fold_in(k, i)` in `tree_flatten`
+    order (sorted dict keys).
+"""
+import dataclasses
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+with warnings.catch_warnings():
+    # The installed jax deprecates jax.experimental.shard_map, which the JAX
+    # package imports; the reference is left as it is.
+    warnings.simplefilter("ignore", DeprecationWarning)
+    import repro.core as JC
+    import repro.fl as JFL
+    from repro.core import scenario as JSC
+    from repro.core.channel import rayleigh_gains
+
+RTOL = 1e-5
+
+# The JAX sweep's fold_in constants (repro/fl/sweep.py).
+FOLD_COLLUDE, FOLD_MARKOV, FOLD_PART, FOLD_H_INIT = 3, 4, 5, 7
+
+
+def jax_floa(cfg):
+    """The port's FLOAConfig as the JAX package's."""
+    return JC.FLOAConfig(
+        channel=JC.ChannelConfig(cfg.channel.num_workers, cfg.channel.sigma,
+                                 cfg.channel.noise_std,
+                                 cfg.channel.markov_rho),
+        power=JC.PowerConfig(cfg.power.num_workers, cfg.power.dim,
+                             cfg.power.p_max, JC.Policy(cfg.power.policy.value)),
+        attack=JC.AttackConfig(JC.AttackType(cfg.attack.attack.value),
+                               cfg.attack.byzantine_mask))
+
+
+def jax_case(c):
+    """The port's ScenarioCase as the JAX package's."""
+    return JFL.ScenarioCase(c.name, jax_floa(c.floa), c.alpha, seed=c.seed,
+                            defense=JC.DefenseSpec(
+                                **dataclasses.asdict(c.defense)),
+                            participants=c.participants)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def replay_sweep_draws(jspec, rounds, d):
+    """The JAX sweep's per-round draws for every lane of `jspec`, in the
+    port's draw format (fl/sweep.py); the grouped engines consume the
+    analog lanes' channel draws."""
+    sp, keys = jspec.stacked_params(), jspec.keys()
+    u = jspec.num_workers
+
+    def normal(shape, fold=None):
+        def one(k):
+            k = k if fold is None else jax.random.fold_in(k, fold)
+            return jax.random.normal(k, shape, jnp.float32)
+        return jax.vmap(one)
+
+    h_init = normal((u, 2), FOLD_H_INIT)(keys)
+    out = []
+    for t in range(rounds):
+        split = jax.vmap(jax.random.split)(keys)
+        keys, subs = split[:, 0], split[:, 1]
+        ks = jax.vmap(lambda k: jax.random.split(k, 3))(subs)
+        draw = {
+            "h_abs": _t(jax.vmap(JSC.sample_gains)(ks[:, 0], sp)),
+            "z": _t(normal((d,))(ks[:, 1])) if jspec.any_noise else None,
+            "jam": _t(normal((d,))(ks[:, 2])) if jspec.any_jamming else None}
+        if jspec.any_partial:
+            draw["part"] = _t(jax.vmap(lambda k, pk: JSC.participation_mask(
+                jax.random.fold_in(k, FOLD_PART), pk, u))(subs, sp.part_k))
+        if jspec.any_markov:
+            draw["markov"] = _t(normal((u, 2), FOLD_MARKOV)(subs))
+            if t == 0:
+                draw["h_init"] = _t(h_init)
+        if jspec.any_directional:
+            draw["dir"] = _t(normal((d,), FOLD_COLLUDE)(subs))
+        out.append(draw)
+    return lambda t: out[t]
+
+
+def replay_trainer_draws(key, rounds, sigmas, shapes):
+    """The JAX FLTrainer's per-round draws (`aggregate`'s gains, and noise
+    and jamming per leaf), in the port's format ({"h_abs": [U], "z": dict,
+    "jam": dict}); shapes: {leaf name: shape}."""
+    names = sorted(shapes)
+
+    def leaves(k):
+        return {n: _t(jax.random.normal(jax.random.fold_in(k, i), shapes[n],
+                                        jnp.float32))
+                for i, n in enumerate(names)}
+
+    out = []
+    for _ in range(rounds):
+        key, sub = jax.random.split(key)
+        k_ch, k_z, k_jam = jax.random.split(sub, 3)
+        out.append({"h_abs": _t(rayleigh_gains(k_ch, jnp.asarray(sigmas))),
+                    "z": leaves(k_z), "jam": leaves(k_jam)})
+    return lambda t: out[t]
+
+
+def tiny_torch_loss(params, b):
+    """tests/sweep_testlib.py::tiny_problem's loss in PyTorch."""
+    pred = torch.relu(b["x"] @ params["w1"]) @ params["w2"]
+    return torch.mean((pred - b["y"]) ** 2)
+
+
+def torch_params(jparams):
+    return {k: torch.from_numpy(np.array(v)) for k, v in jparams.items()}
+
+
+class Replay:
+    """Sampler stand-in that replays a pre-stacked batch dict round by
+    round."""
+
+    def __init__(self, batches):
+        self.batches, self.t = batches, 0
+
+    def next_round(self):
+        out = {k: v[self.t] for k, v in self.batches.items()}
+        self.t += 1
+        return out
+
+
+def assert_sweeps_match(got, want, rtol=RTOL):
+    """Every lane finite in both engines (NaN == NaN would pass
+    assert_allclose without checking anything), then equal at rtol."""
+    for run in (got, want):
+        assert np.isfinite(run.loss).all() and np.isfinite(run.grad_norm).all()
+        assert all(np.isfinite(np.asarray(v)).all()
+                   for v in run.params.values())
+    assert got.names == want.names
+    np.testing.assert_allclose(got.loss, want.loss, rtol=rtol)
+    np.testing.assert_allclose(got.grad_norm, want.grad_norm, rtol=rtol)
+    for k in want.params:
+        np.testing.assert_allclose(got.params[k].numpy(),
+                                   np.asarray(want.params[k]), rtol=rtol,
+                                   atol=1e-7)
