@@ -2,6 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (`src/repro_torch`).
 
     python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --resume-child ckpt|resume DIR [OUT]
+                                      # phase 13's child processes
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -27,7 +29,11 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               defenses' slabs, for both sorts), the showdown's shapes (the
               combine at [36, 10, D], grad_stats at 360 rows, the odd-even
               sort at [8, 10, D] with +inf rows, and at the trainer's
-              [10, D]); for decode attention decode_32k's
+              [10, D]), the plan phase's (the switch dispatch's combine at
+              [6, 10, D], grad_stats at 60 rows and sort at [6, 10, D];
+              `grad_stats_fixed`, the strict route, on each of the paper
+              MLP's four leaf segments at 10, 40 and 60 rows); for decode
+              attention decode_32k's
               per-layer shape [128, 32768], the long-cache and serve
               shapes, S = 777, MQA, MHA, dh 32/64, f32, pos = 0 and
               mid-cache), with times: kernel, plain, one library call, and
@@ -70,22 +76,38 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               lanes with +inf-padded K-of-U columns), R cut from 100 to 20,
               counted as phases 4-6 are, then against its plain route from
               the same draws.
-  13. serve   the serving path, `repro_torch.launch.serve.serve`, for
+  13. plan    the execution plan (`ExecutionPlan`) at full width, each
+              counted as phases 4-6 are: (a) fig3's four lanes, R = 20,
+              monolithic, chunked at C = 7 and chunked with async staging
+              (pinned buffers, a side stream): bitwise equal, rounds/s of
+              each; (b) the showdown with the example's checkpoint plan
+              (C = 5): a child process (`--resume-child ckpt`) SIGKILLs
+              itself after its 2nd checkpoint commits, a fresh child
+              (`--resume-child resume`) resumes it, and its result equals
+              the uninterrupted run bitwise through SweepResult.save /
+              load; MB and ms per checkpoint write, the resume's seconds
+              to its first round; (c) `worker_grid(1000)` at R = 20: peak
+              device memory monolithic and at C = 5 with async staging;
+              (d) the switch dispatch on the defense grid and the tree
+              state on fig3, default and strict_numerics, each against its
+              plain route (rtol 1e-4) and against the grouped / flat run
+              (reported: bitwise or the largest difference), rounds/s each.
+  14. serve   the serving path, `repro_torch.launch.serve.serve`, for
               qwen3-4b at full width in bf16 (36 layers, 4.41 B random
               parameters): batch 8, 32 prompt tokens decoded into the cache,
               32 generated greedily; one decode_attention launch per layer
               per step.
-  14. parity  the serve phase's 64 tokens again, teacher-forced, through the
+  15. parity  the serve phase's 64 tokens again, teacher-forced, through the
               kernel and through its plain version (bf16, full depth).
-  15. long    8 decode steps at pos 32760-32767 against caches of 32768
+  16. long    8 decode steps at pos 32760-32767 against caches of 32768
               positions (decode_32k's length; its batch of 128 cut to 8 to
               fit 80 GB), filled with seeded random bf16 as if prefilled;
               ms per step against the bytes bound.
-  16. parity  the same token sequence through both routes in f32 at full
+  17. parity  the same token sequence through both routes in f32 at full
               width and 2 layers, rtol 1e-4.
-  17. the `kernels` line (with launches and times by shape where a
+  18. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
-      phases' shapes); 18. the last line, {"ok": true, "device": ...}.
+      phases' shapes); 19. the last line, {"ok": true, "device": ...}.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
@@ -109,6 +131,14 @@ ROUNDS = 20
 ROUNDS_LARGE_U = 5           # the U = 1000 grid: keeps the script short
 RTOL_WHOLE_RUN = 1e-4        # kernel route vs plain route over 20 rounds
 LM_ARCH = "qwen3-4b"
+# The plan phase: fig3 chunked at C = 7 (R % C != 0), the showdown resumed
+# at the example's C = R // 4 after a SIGKILL at the 2nd checkpoint, the
+# U = 1000 grid at C = 5 for its device memory; the paper MLP's leaf
+# segments (b1 | b2 | w1 | w2), the strict route's grad_stats launches.
+PLAN_CHUNK, MEM_CHUNK, KILL_AFTER_SAVES = 7, 5, 2
+MLP_SEGMENTS = (64, 10, 50176, 640)
+BATCH_MB_PER_ROUND_U1000 = 32000 * 784 * 4 / 1e6   # f32 x of one round
+T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
 # decode attention, kernel vs plain on the same inputs: f32 differs in
@@ -326,36 +356,46 @@ def kernel_cases(torch, ops):
     # fig1's 3 lanes, the combine route's 2, the single analog lane of the
     # defense grid and the trainer's flat scan (U = 10), of the U = 1000
     # grid, and the showdown's 36 analog lanes (the combine-only route)
+    # (the plan phase adds the switch dispatch's analog step over all six
+    # lanes of the defense grid, [6, 10, D] and 60 rows)
     for s, u, kinds in [(3, 10, ("floa_step_batched", "grad_stats")),
                         (2, 10, ("floa_aggregate_batched", "grad_stats")),
                         (1, 10, ("floa_step_batched", "grad_stats")),
                         (1, 1000, ("floa_step_batched", "grad_stats")),
-                        (36, 10, ("floa_aggregate_batched", "grad_stats"))]:
+                        (36, 10, ("floa_aggregate_batched", "grad_stats")),
+                        (6, 10, ("floa_aggregate_batched", "grad_stats"))]:
         cases += [c for c in combine_cases(torch, ops, rnd, gen, s, u, 50890,
                                            torch.float32, True)
                   if c[0] in kinds]
     # the sorts: the defense grid's slab (U = 10), the digital trainer's
     # [U, D] slab, the showdown's median / trimmed-mean groups (8 lanes,
-    # the last 4 with 3 of 10 rows +inf: K = 7) and the U = 1000 grid's
-    for name, s, u, d, dt, main in [
-            ("sort_columns", 1, 10, 50890, torch.float32, True),
-            ("sort_columns", 0, 10, 50890, torch.float32, True),
-            ("sort_columns", 8, 10, 50890, torch.float32, True),
-            ("sort_columns", 3, 32, 5000, torch.bfloat16, False),
-            ("sort_columns", 2, 7, 2049, torch.float32, False),
-            ("sort_columns_bitonic", 1, 1000, 50890, torch.float32, True),
-            ("sort_columns_bitonic", 2, 33, 515, torch.float32, False),
-            ("sort_columns_bitonic", 1, 100, 130, torch.float32, False),
-            ("sort_columns_bitonic", 1, 4097, 130, torch.float32, False),
+    # the last 4 with 3 of 10 rows +inf: K = 7), the switch dispatch's
+    # every-lane sort of the defense grid (6 lanes) and the U = 1000 grid's
+    for name, s, u, d, dt, main, inf in [
+            ("sort_columns", 1, 10, 50890, torch.float32, True, False),
+            ("sort_columns", 0, 10, 50890, torch.float32, True, False),
+            ("sort_columns", 8, 10, 50890, torch.float32, True, True),
+            ("sort_columns", 6, 10, 50890, torch.float32, True, False),
+            ("sort_columns", 3, 32, 5000, torch.bfloat16, False, False),
+            ("sort_columns", 2, 7, 2049, torch.float32, False, False),
+            ("sort_columns_bitonic", 1, 1000, 50890, torch.float32, True,
+             False),
+            ("sort_columns_bitonic", 2, 33, 515, torch.float32, False, False),
+            ("sort_columns_bitonic", 1, 100, 130, torch.float32, False,
+             False),
+            ("sort_columns_bitonic", 1, 4097, 130, torch.float32, False,
+             False),
             ("sort_columns_bitonic", 1, ops.BITONIC_MAX_U, 130,
-             torch.float32, False),
-            ("sort_columns_bitonic", 1, 4097, 50890, torch.float32, False),
-            ("sort_columns_bitonic", 4, 100, 515, torch.float32, False)]:
+             torch.float32, False, False),
+            ("sort_columns_bitonic", 1, 4097, 50890, torch.float32, False,
+             False),
+            ("sort_columns_bitonic", 4, 100, 515, torch.float32, False,
+             True)]:
         x = rnd(max(s, 1), u, d, dtype=dt)
         label = f"S={s} U={u} D={d} {str(dt)[6:]}"
         if s == 0:          # the [U, D] form: one lane, no lane axis
             x, label = x[0], f"U={u} D={d} {str(dt)[6:]}"
-        elif s >= 4:        # K-of-U: 3 in 10 rows +inf in half the lanes
+        elif inf:           # K-of-U: 3 in 10 rows +inf in half the lanes
             rows = torch.randperm(u, generator=torch.Generator().manual_seed(
                 u))[:3 * u // 10].to("cuda")
             x[s // 2:, rows] = torch.inf
@@ -366,7 +406,28 @@ def kernel_cases(torch, ops):
             lambda a=x: torch.sort(a, dim=-2),
             2 * x.numel() * (torch.finfo(dt).bits // 8),
             max(s, 1) * d * sort_ops(u), "exact", None, None))
-    return cases + decode_cases(torch, ops)
+    return cases + fixed_stats_cases(torch, ops, rnd) + decode_cases(torch,
+                                                                     ops)
+
+
+def fixed_stats_cases(torch, ops, rnd):
+    """The strict route's `grad_stats_fixed` rows: each leaf segment of the
+    paper MLP's [R, D] slab (b1 | b2 | w1 | w2, a row-strided view), at the
+    plan phase's R: 10 (the defense grid's analog group), 40 (fig3's four
+    lanes) and 60 (the switch dispatch's six lanes).  grad_stats'
+    tolerance, (rtol 1e-4, atol 1e-3)."""
+    cases = []
+    for r in (10, 40, 60):
+        slab, off = rnd(r, sum(MLP_SEGMENTS)), 0
+        for n in MLP_SEGMENTS:
+            seg = slab[:, off:off + n]
+            off += n
+            cases.append((
+                "grad_stats_fixed", f"R={r} D={n} float32 (leaf segment)",
+                True, lambda p, a=seg: ops.grad_stats_fixed(a, plain=p),
+                lambda a=seg: torch.var_mean(a, dim=1, correction=0),
+                r * n * 4 + r * 2 * 4, 3 * r * n, (1e-4, 1e-3), None, None))
+    return cases
 
 
 def large_u_sort_check(torch, ops) -> dict:
@@ -666,7 +727,337 @@ def teacher_forced(torch, cfg, params, seq, plain):
                              positions[i])[0][:, 0] for i in range(n)])
 
 
+def result_diff(np, torch, a, b) -> dict:
+    """Two sweep results: whether they are equal bit for bit (NaN == NaN
+    in the metrics), the lanes that are not, and the largest |a - b| of
+    each output."""
+    out, equal = {}, True
+    differ = np.zeros(len(a.names), bool)
+    for k in ("loss", "grad_norm"):
+        x, y = np.asarray(getattr(a, k)), np.asarray(getattr(b, k))
+        equal = equal and np.array_equal(x, y)
+        differ |= (x != y).any(axis=1)
+        out[k] = float(np.abs(x - y).max()) if x.size else 0.0
+    for k in a.metrics:
+        equal = equal and np.array_equal(a.metrics[k], b.metrics[k],
+                                         equal_nan=True)
+    for k in a.params:
+        x, y = a.params[k].cpu(), b.params[k].cpu()
+        equal = equal and torch.equal(x, y)
+        differ |= (x != y).reshape(len(a.names), -1).any(dim=1).numpy()
+        out[f"params.{k}"] = float((x - y).abs().max())
+    return {"bitwise": bool(equal), "max_abs_diff": out,
+            "lanes_differing": [n for n, f in zip(a.names, differ) if f],
+            "max_rel_diff": {
+                k: float(np.max(np.abs(np.asarray(getattr(a, k))
+                                       - np.asarray(getattr(b, k)))
+                                / np.maximum(np.abs(np.asarray(
+                                    getattr(b, k))), 1e-30)))
+                for k in ("loss", "grad_norm")}}
+
+
+def resume_child(args) -> int:
+    """`chip_smoke.py --resume-child ckpt DIR`: the showdown with the
+    example's checkpoint plan, SIGKILLed right after its KILL_AFTER_SAVES-th
+    checkpoint commits.  `--resume-child resume DIR OUT`: a fresh process
+    resuming it, saving the result to OUT (`SweepResult.save`) and printing
+    one JSON line of its timings.  Prints no result line."""
+    import signal
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import figures
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.core import scenario as SC
+    mode, ckpt_dir = args[0], args[1]
+    if mode == "ckpt":
+        orig, count = CK.save_pytree, [0]
+
+        def save_then_die(*a, **k):
+            out = orig(*a, **k)
+            count[0] += 1
+            if count[0] >= KILL_AFTER_SAVES:
+                os.kill(os.getpid(), signal.SIGKILL)   # no clean-up
+            return out
+
+        CK.save_pytree = save_then_die   # the engine calls it by attribute
+        figures.run_showdown(ROUNDS, device="cuda", checkpoint_dir=ckpt_dir)
+        print("resume child: the sweep outlived its SIGKILL", file=sys.stderr)
+        return 3
+    times = {}
+    orig_gains, orig_restore = SC.sample_gains, CK.restore_pytree
+
+    def first_round(*a, **k):   # the first resumed round's gain draw
+        times.setdefault("first_round", time.perf_counter())
+        return orig_gains(*a, **k)
+
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_restore(*a, **k)
+        times["restore_s"] = time.perf_counter() - t0
+        times["resumed_at_round"] = out[1]["extra"]["t_next"]
+        return out
+
+    SC.sample_gains, CK.restore_pytree = first_round, timed_restore
+    t_call = time.perf_counter()
+    result = figures.run_showdown(ROUNDS, device="cuda",
+                                  checkpoint_dir=ckpt_dir, resume=True)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    result.save(args[2])
+    print(json.dumps({"phase": "resume_child", "mode": "resume",
+                      "resumed_at_round": times["resumed_at_round"],
+                      "process_to_first_round_s":
+                          times["first_round"] - T_START,
+                      "call_to_first_round_s": times["first_round"] - t_call,
+                      "restore_s": times["restore_s"],
+                      "call_s": t_end - t_call}), flush=True)
+    return 0
+
+
+def plan_phase(torch, np, ops, figures, tally, grid_u, mc_u) -> None:
+    """The execution plan at the paper's width: (a) fig3 chunked and async
+    staged against monolithic, (b) the showdown resumed in a fresh process
+    after a SIGKILL against the uninterrupted run, (c) the U = 1000 grid's
+    peak device memory monolithic vs chunked, (d) the switch dispatch and
+    the tree state (and both under strict_numerics), each against its plain
+    route and against the grouped / flat run.  Every counted run's launches
+    go to the main-path totals; any disagreement raises."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.core.power_control import Policy
+    from repro_torch.fl import ExecutionPlan, SweepResult
+    zero = {k: 0 for k in ops.KERNELS}
+    fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
+                               attacker_sigma=3.0, rounds=ROUNDS)
+            for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                              ("BEV", Policy.BEV)]]
+
+    def counted(name, build, expect, steady=True):
+        """build() -> (engine, params, batches): one counted run, then the
+        round rate of a second, uncounted run of the same engine."""
+        engine, params, batches = build()
+        result, seconds, counts = run_phase(
+            torch, ops, name, lambda: engine.run(params, batches),
+            {**zero, **expect})
+        tally(counts)
+        if not np.isfinite(result.loss).all():
+            raise AssertionError(f"{name}: non-finite loss")
+        info = {"run_seconds": seconds, "launches": {
+            k: v for k, v in counts.items() if v}}
+        if steady:   # host-bound rates spread: the median of 3 runs
+            rates = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                engine.run(params, batches)
+                torch.cuda.synchronize()
+                rates.append(ROUNDS / (time.perf_counter() - t0))
+            info["rounds_per_s"] = sorted(rates)[1]
+            info["rounds_per_s_runs"] = rates
+        return result, info
+
+    def plain(name, build):
+        engine, params, batches = build()
+        ops.reset_launches()
+        result = engine.run(params, batches)
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"{name}: the plain route launched "
+                                 f"{ops.launch_counts()}")
+        return result
+
+    # (a) chunking: fig3's four lanes, R = 20, C = 7 (the last block 6)
+    fused = {"floa_step_batched": ROUNDS, "grad_stats": ROUNDS}
+    fig = lambda plan, fp=False: (lambda: figures.figure_engine(  # noqa
+        fig3, device="cuda", plan=plan, force_plain=fp))
+    runs, rates = {}, {}
+    for name, plan in [
+            ("monolithic", ExecutionPlan()),
+            ("chunked", ExecutionPlan(chunk_rounds=PLAN_CHUNK)),
+            ("chunked_async", ExecutionPlan(chunk_rounds=PLAN_CHUNK,
+                                            async_staging=True))]:
+        runs[name], rates[name] = counted(f"plan_fig3_{name}", fig(plan),
+                                          fused)
+    chunk_eq = result_diff(np, torch, runs["chunked"], runs["monolithic"])
+    async_eq = result_diff(np, torch, runs["chunked_async"],
+                           runs["chunked"])
+    emit("plan_chunking", lanes=len(fig3), rounds=ROUNDS, chunk=PLAN_CHUNK,
+         routes=rates, chunked_vs_monolithic=chunk_eq,
+         async_vs_sync=async_eq)
+    if not (chunk_eq["bitwise"] and async_eq["bitwise"]):
+        raise AssertionError("plan: chunked or async-staged fig3 differs "
+                             "from the monolithic run")
+
+    # (b) resume after a real preemption: the showdown, R = 20, the
+    # example's chunks of R // 4 = 5; a child SIGKILLs itself after its 2nd
+    # checkpoint, a fresh child resumes
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="plan_resume_", dir=os.path.join(
+        ROOT, "build"))
+    try:
+        writes = []
+        orig = CK.save_pytree
+
+        def timed_save(path, step, tree, extra=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(path, step, tree, extra=extra)
+            base = out[:-len(".npz")]
+            writes.append({"step": step, "ms": (time.perf_counter() - t0)
+                           * 1e3, "mb": (os.path.getsize(out)
+                                         + os.path.getsize(base + ".meta.json"))
+                           / 1e6})
+            return out
+
+        CK.save_pytree = timed_save
+        try:
+            full, info = counted(
+                "plan_showdown_checkpointed",
+                lambda: figures.showdown_engine(
+                    ROUNDS, device="cuda",
+                    checkpoint_dir=os.path.join(work, "parent")),
+                {"floa_aggregate_batched": ROUNDS, "grad_stats": ROUNDS,
+                 "sort_columns": 2 * ROUNDS}, steady=False)
+        finally:
+            CK.save_pytree = orig
+        full.save(os.path.join(work, "full"))
+        torch.cuda.empty_cache()
+        child_dir = os.path.join(work, "child")
+        children = {}
+        for mode, args, want_rc in [
+                ("ckpt", [child_dir], -9),
+                ("resume", [child_dir, os.path.join(work, "resumed")], 0)]:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--resume-child",
+                 mode, *args], capture_output=True, text=True, timeout=600,
+                cwd=ROOT)
+            for line in proc.stdout.splitlines():
+                print(line, flush=True)
+            children[mode] = {"returncode": proc.returncode,
+                              "wall_s": time.perf_counter() - t0}
+            if proc.returncode != want_rc:
+                raise AssertionError(
+                    f"plan: resume child {mode} exited {proc.returncode}, "
+                    f"expected {want_rc}: {proc.stderr[-2000:]}")
+            if mode == "ckpt":
+                at = CK.latest_step(child_dir)
+                children[mode]["latest_step"] = at
+                if at != KILL_AFTER_SAVES * (ROUNDS // 4):
+                    raise AssertionError(f"plan: the killed child left step "
+                                         f"{at}")
+        resumed = SweepResult.load(os.path.join(work, "resumed"))
+        saved = SweepResult.load(os.path.join(work, "full"))
+        resume_eq = result_diff(np, torch, resumed, saved)
+        emit("plan_resume", lanes=len(full.names), rounds=ROUNDS,
+             chunk=ROUNDS // 4, checkpoint_writes=writes,
+             mb_per_write=sum(w["mb"] for w in writes) / len(writes),
+             ms_per_write=sum(w["ms"] for w in writes) / len(writes),
+             uninterrupted=info, children=children,
+             resumed_vs_uninterrupted=resume_eq)
+        if not resume_eq["bitwise"]:
+            raise AssertionError("plan: the resumed showdown differs from "
+                                 "the uninterrupted run")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del full, resumed, saved
+    torch.cuda.empty_cache()
+
+    # (c) device memory: worker_grid(1000) at R = 20, monolithic and C = 5
+    # with async staging (predicted: the difference is the batch blocks,
+    # (R - 2 C) x 100.4 MB)
+    mem, mem_runs = {}, {}
+    large = {"floa_step_batched": ROUNDS, "grad_stats": ROUNDS,
+             "sort_columns_bitonic": 2 * ROUNDS}
+    for name, plan in [("monolithic", ExecutionPlan()),
+                       ("chunked_async", ExecutionPlan(
+                           chunk_rounds=MEM_CHUNK, async_staging=True))]:
+        engine, params, batches = figures.cases_engine(
+            grid_u, ROUNDS, mc=mc_u, device="cuda", plan=plan)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mem_runs[name], seconds, counts = run_phase(
+            torch, ops, f"plan_memory_{name}",
+            lambda: engine.run(params, batches), {**zero, **large})
+        tally(counts)
+        peak = torch.cuda.max_memory_allocated()
+        mem[name] = {"peak_gb": peak / 1e9,
+                     "peak_above_start_gb": (peak - base) / 1e9,
+                     "run_seconds": seconds,
+                     "rounds_per_s": ROUNDS / seconds}
+        del engine, params, batches
+    mem_eq = result_diff(np, torch, mem_runs["chunked_async"],
+                         mem_runs["monolithic"])
+    emit("plan_memory", grid="worker_grid(1000)", lanes=len(grid_u),
+         rounds=ROUNDS, chunk=MEM_CHUNK, runs=mem,
+         saved_gb=mem["monolithic"]["peak_gb"]
+         - mem["chunked_async"]["peak_gb"],
+         batches_gb_predicted_saved=(ROUNDS - 2 * MEM_CHUNK)
+         * BATCH_MB_PER_ROUND_U1000 / 1e3,
+         chunked_vs_monolithic=mem_eq)
+    if not mem_eq["bitwise"]:
+        raise AssertionError("plan: the chunked U = 1000 grid differs from "
+                             "the monolithic run")
+    del mem_runs
+    torch.cuda.empty_cache()
+
+    # (d) the reference paths: the switch dispatch on the defense grid and
+    # the tree state on fig3, default and strict_numerics, each against
+    # its plain route, and against the grouped / flat run of the same plan
+    d = mc_u.dim
+    fixed = {"grad_stats_fixed": 4 * ROUNDS}   # one launch a leaf a round
+    defense = lambda plan, fp=False: (lambda: figures.cases_engine(  # noqa
+        figures.defense_cases(), ROUNDS, device="cuda", plan=plan,
+        force_plain=fp))
+    routes = {   # name: (build, plan, launches, reference route)
+        "defenses_grouped": (defense, {}, {
+            "floa_step_batched": ROUNDS, "grad_stats": ROUNDS,
+            "sort_columns": 2 * ROUNDS}, None),
+        "defenses_switch": (defense, dict(grouped_dispatch=False), {
+            "floa_aggregate_batched": ROUNDS, "grad_stats": ROUNDS,
+            "sort_columns": 2 * ROUNDS}, "defenses_grouped"),
+        "defenses_grouped_strict": (defense, dict(strict_numerics=True), {
+            "floa_step_batched": ROUNDS, **fixed,
+            "sort_columns": 2 * ROUNDS}, None),
+        "defenses_switch_strict": (defense, dict(
+            grouped_dispatch=False, strict_numerics=True), {
+            "floa_aggregate_batched": ROUNDS, **fixed,
+            "sort_columns": 2 * ROUNDS}, "defenses_grouped_strict"),
+        "fig3_tree": (fig, dict(flat_state=False), {
+            "floa_aggregate_batched": ROUNDS}, "fig3_flat"),
+        "fig3_flat_strict": (fig, dict(strict_numerics=True), {
+            "floa_step_batched": ROUNDS, **fixed}, None),
+        "fig3_tree_strict": (fig, dict(flat_state=False,
+                                       strict_numerics=True), {
+            "floa_aggregate_batched": ROUNDS, **fixed},
+            "fig3_flat_strict")}
+    results = {"fig3_flat": runs["monolithic"]}
+    report = {"fig3_flat": rates["monolithic"]}
+    for name, (build, plan, expect, ref) in routes.items():
+        results[name], report[name] = counted(
+            f"plan_{name}", build(ExecutionPlan(**plan)), expect)
+        if ref is None:
+            continue
+        rp = plain(f"plan_{name}_plain", build(ExecutionPlan(**plan), True))
+        whole_run_check(f"kernel_vs_plain_{name}", results[name], rp)
+        report[name]["vs_reference_route"] = {
+            "reference": ref, **result_diff(np, torch, results[name],
+                                            results[ref])}
+        diff = report[name]["vs_reference_route"]["max_rel_diff"]
+        if max(diff.values()) > RTOL_WHOLE_RUN:
+            raise AssertionError(f"plan: {name} differs from {ref} beyond "
+                                 f"rtol {RTOL_WHOLE_RUN}: {diff}")
+    emit("plan_reference_paths", rounds=ROUNDS, D=d, routes=report)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--resume-child"]:
+        return resume_child(sys.argv[2:])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -982,7 +1373,12 @@ def main() -> int:
     del rsd, rsp
     torch.cuda.empty_cache()
 
-    # 13. the serving path at full width: qwen3-4b in bf16, batch 8
+    # 13. the execution plan: chunking, resume, device memory, the
+    # reference paths
+    plan_phase(torch, np, ops, figures, tally, grid_u, mc_u)
+    torch.cuda.empty_cache()
+
+    # 14. the serving path at full width: qwen3-4b in bf16, batch 8
     from repro_torch.data import sample_tokens
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_decode_step, param_count
@@ -1020,7 +1416,7 @@ def main() -> int:
          sample_tokens=rs.tokens[0, :12].tolist())
     del steady
 
-    # 14. parity, bf16, full depth: the serve phase's 64 tokens teacher-
+    # 15. parity, bf16, full depth: the serve phase's 64 tokens teacher-
     # forced through the kernel and through its plain version
     params = lm_params(torch, lm)
     seq = torch.cat([rs.prompts, rs.tokens], dim=1)
@@ -1067,7 +1463,7 @@ def main() -> int:
              + SERVE_BATCH * lm.d_model) / HBM_BYTES_PER_S * 1e3)
     del caches
 
-    # 15. long-cache decode at full width: 8 steps against 32768 positions
+    # 16. long-cache decode at full width: 8 steps against 32768 positions
     caches = LM.init_caches(lm, LONG_BATCH, LONG_S, device="cuda")
     gen = torch.Generator("cuda").manual_seed(1)
     for layer in [*caches["blocks"]["b0"]["k"], *caches["blocks"]["b0"]["v"]]:
@@ -1116,7 +1512,7 @@ def main() -> int:
     del caches, params, logits
     torch.cuda.empty_cache()
 
-    # 16. parity, f32, full widths, 2 layers
+    # 17. parity, f32, full widths, 2 layers
     lm32 = dataclasses.replace(lm, n_layers=2, dtype=torch.float32)
     params32 = lm_params(torch, lm32)
     lk = teacher_forced(torch, lm32, params32, seq, False)
@@ -1141,19 +1537,29 @@ def main() -> int:
     # scan (U = 10), of the U = 1000 grid, and the showdown's 36 analog
     # lanes; the sorts of the defense grids' one-lane groups, the digital
     # trainer's [U, D] slab and the showdown's 8-lane groups
-    d = mc_u.dim
+    # The plan phase adds: fig3 three times (monolithic, chunked, async),
+    # the checkpointed showdown, the U = 1000 grid twice at R = 20, the
+    # defense grid grouped and switched (each default and strict), fig3's
+    # tree state and the strict flat and tree runs; the switch dispatch at
+    # [6, 10, D] and 60 rows, the strict route's leaf segments at 10, 40
+    # and 60 rows.
+    d, r = mc_u.dim, ROUNDS
     want_shapes = {
-        "floa_step_batched": {(3, 10, d): ROUNDS, (4, 10, d): ROUNDS,
-                              (1, 10, d): 2 * ROUNDS,
-                              (1, 1000, d): ROUNDS_LARGE_U},
-        "floa_aggregate_batched": {(2, 10, d): ROUNDS, (36, 10, d): ROUNDS},
+        "floa_step_batched": {(3, 10, d): r, (4, 10, d): 5 * r,
+                              (1, 10, d): 4 * r,
+                              (1, 1000, d): ROUNDS_LARGE_U + 2 * r},
+        "floa_aggregate_batched": {(2, 10, d): r, (36, 10, d): 2 * r,
+                                   (6, 10, d): 2 * r, (4, 10, d): 2 * r},
         "floa_aggregate": {},
-        "grad_stats": {(30, d): ROUNDS, (40, d): ROUNDS, (20, d): ROUNDS,
-                       (10, d): 2 * ROUNDS, (1000, d): ROUNDS_LARGE_U,
-                       (360, d): ROUNDS},
-        "sort_columns": {(1, 10, d): 2 * ROUNDS, (10, d): 2 * ROUNDS,
-                         (8, 10, d): 2 * ROUNDS},
-        "sort_columns_bitonic": {(1, 1000, d): 2 * ROUNDS_LARGE_U}}
+        "grad_stats": {(30, d): r, (40, d): 4 * r, (20, d): r,
+                       (10, d): 3 * r, (1000, d): ROUNDS_LARGE_U + 2 * r,
+                       (360, d): 2 * r, (60, d): r},
+        "grad_stats_fixed": {(rows, n): k * r for rows, k in
+                             ((10, 1), (40, 2), (60, 1))
+                             for n in MLP_SEGMENTS},
+        "sort_columns": {(1, 10, d): 6 * r, (10, d): 2 * r,
+                         (8, 10, d): 4 * r, (6, 10, d): 4 * r},
+        "sort_columns_bitonic": {(1, 1000, d): 2 * ROUNDS_LARGE_U + 4 * r}}
     if main_shapes != want_shapes:
         raise AssertionError(f"main-path launches by shape: {main_shapes}, "
                              f"expected {want_shapes}")
@@ -1175,7 +1581,7 @@ def main() -> int:
                                                "bound_share", "call_ms")}})
         return out
 
-    # 17. the kernel list
+    # 18. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",
@@ -1184,6 +1590,8 @@ def main() -> int:
                                   "src/repro/kernels/floa_aggregate.py:184"),
                "grad_stats": ("grad_stats.cu",
                               "src/repro/kernels/grad_stats.py:37"),
+               "grad_stats_fixed": ("grad_stats.cu",
+                                    "src/repro/kernels/grad_stats.py:37"),
                "sort_columns": ("defense_sort.cu",
                                 "src/repro/kernels/defense_sort.py:105"),
                "sort_columns_bitonic": ("defense_sort.cu",

@@ -1,6 +1,31 @@
 """PyTorch + CUDA port of the BEV-SGD reproduction (the JAX package `repro`
 is the reference).  Subpackages mirror `repro`'s layout: kernels, core,
-models, configs, data, fl, launch; `figures` builds the paper's Figs. 1-4
-sweeps, `launch.serve` serves an LM; `device` picks the entry points'
-device.
+models, configs, data, fl, checkpoint, launch; `figures` builds the paper's
+Figs. 1-4 sweeps, `launch.serve` serves an LM; `device` picks the entry
+points' device.  The sweep's public surface is exported here too, loaded on
+first use.
 Nothing here imports JAX or `repro`."""
+import importlib
+
+_EXPORTS = {
+    "ExecutionPlan": "repro_torch.fl.plan",
+    "ScenarioCase": "repro_torch.fl.sweep",
+    "SweepEngine": "repro_torch.fl.sweep",
+    "SweepResult": "repro_torch.fl.sweep",
+    "SweepSpec": "repro_torch.fl.sweep",
+    "run_sweep": "repro_torch.fl.sweep",
+    "FLTrainer": "repro_torch.fl.trainer",
+    "RoundLog": "repro_torch.fl.trainer",
+    "save_pytree": "repro_torch.checkpoint.ckpt",
+    "restore_pytree": "repro_torch.checkpoint.ckpt",
+    "latest_step": "repro_torch.checkpoint.ckpt",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module 'repro_torch' has no attribute "
+                             f"{name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name]), name)

@@ -31,14 +31,15 @@ The pytree API (`digital_aggregate` and the named wrappers) flattens a
 {name: [U, ...]} gradient dict to the slab, runs the flat function, and
 unravels: the digital `FLTrainer`'s entry point.
 
-Not ported: the per-lane switch selector that only the switch dispatch
-reaches (ROADMAP.md Queue 1 item 7).
+The switch dispatch (`make_flat_defense_selector`, the sweep's
+grouped_dispatch=False reference) runs every family present once over all
+lanes, through the same kernels, and keeps each lane's own family's row.
 """
 from __future__ import annotations
 
 import functools
 import logging
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -402,6 +403,46 @@ def make_group_defense_kernel(code: int, gm_iters: int = 8,
     engine's force_plain)."""
     table = _MASKED_FLAT_KERNELS_BY_CODE if masked else _FLAT_KERNELS_BY_CODE
     return functools.partial(table[int(code)], it=gm_iters, pl=plain)
+
+
+def make_flat_defense_selector(codes: Optional[Sequence[int]] = None,
+                               gm_iters: int = 8, masked: bool = False, *,
+                               plain: bool = False) -> Callable:
+    """The per-lane defense switch over the codes present in a sweep (the
+    reference's vmapped `lax.switch`, which computes every listed branch
+    for every lane and then selects).
+
+    Returns fn(code [S], flat [S, U, D], trim, f, multi each [S]) -> [S, D],
+    with a trailing [S, U] bool participation mask when masked=True: each
+    family in `codes` (default: all of DEFENSE_CODES) runs once over all S
+    lanes through its group kernel (`make_group_defense_kernel`, so the
+    sorts and Krum's blocked distances take the grouped path's routes),
+    and lane s keeps the row of its own code's family.  Codes outside the
+    list (the analog lanes' 0 in a digital-only list) take the first
+    branch; the caller overrides those lanes.  plain=True sends the sorts
+    to their plain versions."""
+    if codes is None:
+        codes = sorted(DEFENSE_CODES.values())
+    codes = sorted({int(c) for c in codes})
+    if not codes:
+        raise ValueError("empty defense-code set")
+    lookup = torch.zeros(max(DEFENSE_CODES.values()) + 1, dtype=torch.long)
+    for i, c in enumerate(codes):
+        lookup[c] = i
+    branches = [make_group_defense_kernel(c, gm_iters, masked, plain=plain)
+                for c in codes]
+
+    def select(code: Tensor, flat: Tensor, trim, num_byzantine, multi,
+               *mask) -> Tensor:
+        rows = [branch(flat, trim, num_byzantine, multi, *mask)
+                for branch in branches]
+        idx = lookup.to(code.device)[code.long()]
+        out = rows[0]
+        for i, row in enumerate(rows[1:], start=1):
+            out = torch.where((idx == i)[:, None], row, out)
+        return out
+
+    return select
 
 
 # ----------------------------------------------------------- pytree wrappers

@@ -12,13 +12,17 @@ The PS de-standardizes the received superposition y_t as
 
 The sweep's per-worker sums come off the flat gradient rows in one pass
 through the `grad_stats` kernel (its plain version on the CPU); the
-mean/variance epilogue runs on scalars.  The looped trainer's pytree path
-(`per_worker_scalar_stats`, `standardize`, `destandardize`) is plain tensor
-math, as in the reference, where it reaches no Pallas kernel.
+mean/variance epilogue runs on scalars.  Under strict_numerics the sums are
+taken per leaf segment (`flat_scalar_stats(flat, sizes)`, the kernel's
+fixed-order route `grad_stats_fixed`, one launch a segment) and added in
+leaf order, the reduction tree of the per-leaf path.  The looped trainer's and the
+tree-state sweep's pytree path (`per_worker_scalar_stats`, `standardize`,
+`destandardize`) is plain tensor math, as in the reference, where it
+reaches no Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,35 +36,53 @@ def tree_size(tree: Dict[str, Tensor]) -> int:
     return sum(int(x.numel()) for x in tree.values())
 
 
-def per_worker_scalar_stats(grads_u: Dict[str, Tensor]
+def per_worker_scalar_stats(grads_u: Dict[str, Tensor], batch_dims: int = 1
                             ) -> Tuple[Tensor, Tensor]:
     """(gbar_i, eps2_i) per worker from stacked per-worker gradients.
 
-    grads_u: dict whose leaves have a leading U axis ([U, ...]).  Returns
-    gbar [U] and eps2 [U], the per-worker mean and (biased) variance of the
-    D gradient entries: f32 sums per leaf, added leaf by leaf in sorted key
-    order (the reference's `tree_leaves` order)."""
+    grads_u: dict whose leaves have `batch_dims` leading axes ([U, ...], or
+    [S, U, ...] with batch_dims=2, the reference's vmap over lanes).
+    Returns gbar and eps2 of those leading shape, the per-worker mean and
+    (biased) variance of the D gradient entries: f32 sums per leaf, added
+    leaf by leaf in sorted key order (the reference's `tree_leaves`
+    order)."""
     leaves = [grads_u[k] for k in sorted(grads_u)]
-    u = leaves[0].shape[0]
-    d = sum(int(x.numel()) // u for x in leaves)
-    s1 = sum(x.float().reshape(u, -1).sum(dim=1) for x in leaves)
-    s2 = sum(x.float().square().reshape(u, -1).sum(dim=1) for x in leaves)
+    lead = leaves[0].shape[:batch_dims]
+    d = sum(int(x[(0,) * batch_dims].numel()) for x in leaves)
+    s1 = sum(x.float().reshape(*lead, -1).sum(dim=-1) for x in leaves)
+    s2 = sum(x.float().square().reshape(*lead, -1).sum(dim=-1)
+             for x in leaves)
     return stats_from_partials(s1, s2, d)
 
 
-def flat_scalar_stats(flat: Tensor, *, plain: bool = False
-                      ) -> Tuple[Tensor, Tensor]:
+def flat_scalar_stats(flat: Tensor, sizes: Optional[Sequence[int]] = None,
+                      *, plain: bool = False) -> Tuple[Tensor, Tensor]:
     """(gbar_i, eps2_i) per flat gradient row: flat [..., D] -> two [...]
     tensors, the per-row mean and (biased) variance of the D entries.
 
-    All rows go through ONE `grad_stats` launch over the [prod(...), D]
-    view, so flat must be contiguous.  `plain` forces the kernel's plain
-    version (kernel-vs-plain tests only)."""
+    sizes=None: all rows go through ONE `grad_stats` launch over the
+    [prod(...), D] view, so flat must be contiguous.  With `sizes` (the
+    per-leaf entry counts in flatten order, summing to D) the sums are
+    taken per leaf segment, one fixed-order launch a segment on a view of
+    the rows, and the partial sums are added in leaf order, as
+    `per_worker_scalar_stats` adds its leaves: the strict_numerics route,
+    whose order depends on the leaf sizes alone.  `plain` forces the
+    kernel's plain version (kernel-vs-plain tests only)."""
     d = flat.shape[-1]
-    sums = ops.grad_stats(flat.reshape(-1, d), plain=plain)
-    s1 = sums[:, 0].reshape(flat.shape[:-1])
-    s2 = sums[:, 1].reshape(flat.shape[:-1])
-    return stats_from_partials(s1, s2, d)
+    rows = flat.reshape(-1, d)
+    if sizes is None:
+        sums = ops.grad_stats(rows, plain=plain)
+        s1, s2 = sums[:, 0], sums[:, 1]
+    else:
+        off, s1, s2 = 0, 0, 0
+        for n in sizes:
+            part = ops.grad_stats_fixed(rows[:, off:off + n], plain=plain)
+            s1, s2 = s1 + part[:, 0], s2 + part[:, 1]
+            off += n
+        if off != d:
+            raise ValueError(f"leaf sizes sum to {off}, flat D is {d}")
+    return stats_from_partials(s1.reshape(flat.shape[:-1]),
+                               s2.reshape(flat.shape[:-1]), d)
 
 
 def stats_from_partials(s1: Tensor, s2: Tensor, d: int

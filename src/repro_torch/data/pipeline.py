@@ -12,10 +12,15 @@ Non-IID partitions (beyond the paper's i.i.d. assumption):
 proportions drawn from Dirichlet(alpha * 1_U), the standard federated
 label-skew benchmark; alpha = np.inf takes exact proportions 1/U, a
 stratified IID split.
+
+Chunked input (the chunked sweep's host side): `iter_chunk_blocks` cuts a
+stacked [R, ...] batch dict into [C, ...] blocks, and
+`FederatedSampler.iter_round_chunks` draws the same rounds block by block
+without the whole stack; both concatenate to exactly `stack_rounds(R)`.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -62,6 +67,19 @@ def dirichlet_worker_split(
     return {i: (x[s], y[s]) for i, s in enumerate(shards)}
 
 
+def iter_chunk_blocks(batches: Dict[str, np.ndarray],
+                      chunk_rounds: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Slice a stacked [R, ...] batch dict into consecutive [C, ...] blocks:
+    ceil(R / C) blocks in round order, the last one R % C rounds long when
+    C does not divide R, so their concatenation is the input.  On numpy
+    inputs each block's arrays are views."""
+    if chunk_rounds < 1:
+        raise ValueError(f"chunk_rounds must be >= 1, got {chunk_rounds}")
+    rounds = next(iter(batches.values())).shape[0]
+    for start in range(0, rounds, chunk_rounds):
+        yield {k: v[start:start + chunk_rounds] for k, v in batches.items()}
+
+
 class FederatedSampler:
     """Round-based sampler over per-worker data shards."""
 
@@ -99,3 +117,14 @@ class FederatedSampler:
         identical sequence."""
         draws = [self.next_round() for _ in range(rounds)]
         return {k: np.stack([d[k] for d in draws]) for k in draws[0]}
+
+    def iter_round_chunks(self, rounds: int, chunk_rounds: int
+                          ) -> Iterator[Dict[str, np.ndarray]]:
+        """`rounds` rounds of batches as stacked [C, ...] blocks of
+        `chunk_rounds` rounds (the last shorter when C does not divide R),
+        from the same RNG stream as `stack_rounds(rounds)`: the blocks
+        concatenate to its stack, but only one block is held at a time."""
+        done = 0
+        while done < rounds:
+            yield self.stack_rounds(min(chunk_rounds, rounds - done))
+            done += chunk_rounds

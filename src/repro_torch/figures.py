@@ -18,7 +18,9 @@ cannot use beside FLOA, each one sweep under the grouped dispatch:
 Byzantine showdown `showdown_cases` / `run_showdown`
 (examples/byzantine_showdown.py: BEV and CI beside every defense, with the
 adaptive-adversary axes — Gauss-Markov fading, K-of-U participation,
-colluding and omniscient cohorts — as lanes of the same sweep).
+colluding and omniscient cohorts — as lanes of the same sweep), with the
+example's preemption-safe --checkpoint-dir / --resume as `run_showdown`'s
+checkpoint_dir / resume.
 """
 from __future__ import annotations
 
@@ -36,9 +38,11 @@ from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.core.scenario import DefenseSpec
 from repro_torch.data import FederatedSampler, make_dataset, worker_split
 from repro_torch.device import resolve_device
+from repro_torch.fl.plan import ExecutionPlan
 from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepResult,
-                                  SweepSpec, as_device_array)
+                                  SweepSpec)
 from repro_torch.fl.trainer import FLTrainer, RoundLog
+from repro_torch.launch.staging import as_device_array
 from repro_torch.models import init_mlp, mlp_accuracy, mlp_loss
 
 
@@ -122,9 +126,10 @@ def run_experiment(exp: Experiment, eval_every: int = 10, mc=None,
 
 def cases_engine(cases: List[ScenarioCase], rounds: int,
                  eval_every: int = 10, mc=None, device="cuda",
-                 force_plain: bool = False, dirichlet: Optional[float] = None):
+                 force_plain: bool = False, dirichlet: Optional[float] = None,
+                 plan: Optional[ExecutionPlan] = None):
     """A sweep of `cases` on the figures' data and MLP, built but not run:
-    (engine, params0, batches).
+    (engine, params0, batches), under `plan` (default: the default plan).
 
     Every lane uses the same dataset and batch sequence (sampler seed=1),
     over the i.i.d. shards, or over a Dirichlet(dirichlet) label-skew split
@@ -140,7 +145,7 @@ def cases_engine(cases: List[ScenarioCase], rounds: int,
                                              mc.batch_per_worker, seed=1)
     batches = sampler.stack_rounds(rounds)
     engine = SweepEngine(mlp_loss, SweepSpec.build(cases), eval_fn=eval_fn,
-                         eval_every=eval_every, device=device,
+                         eval_every=eval_every, plan=plan, device=device,
                          force_plain=force_plain)
     return engine, params, batches
 
@@ -156,15 +161,18 @@ def run_cases(cases: List[ScenarioCase], rounds: int, eval_every: int = 10,
 
 
 def figure_engine(exps: List[Experiment], eval_every: int = 10, mc=None,
-                  device="cuda", force_plain: bool = False):
-    """A figure's sweep, built but not run: (engine, params0, batches)."""
+                  device="cuda", force_plain: bool = False,
+                  plan: Optional[ExecutionPlan] = None):
+    """A figure's sweep, built but not run: (engine, params0, batches),
+    under `plan` (default: the default plan)."""
     mc = mc or PAPER_MLP.full()
     rounds = exps[0].rounds
     if any(e.rounds != rounds for e in exps):
         raise ValueError("one sweep, one R: experiments disagree on rounds")
     cases = [ScenarioCase(e.name, *experiment_floa(e, mc), seed=e.seed)
              for e in exps]
-    return cases_engine(cases, rounds, eval_every, mc, device, force_plain)
+    return cases_engine(cases, rounds, eval_every, mc, device, force_plain,
+                        plan=plan)
 
 
 def run_figure(exps: List[Experiment], eval_every: int = 10, mc=None,
@@ -325,22 +333,33 @@ def showdown_cases(mc=None) -> List[ScenarioCase]:
 
 
 def showdown_engine(rounds: int, dirichlet: Optional[float] = None, mc=None,
-                    device="cuda", force_plain: bool = False):
+                    device="cuda", force_plain: bool = False,
+                    checkpoint_dir: Optional[str] = None):
     """The showdown sweep, built but not run: (engine, params0, batches).
-    Eval on round 0 and the last (the example's eval_every=R)."""
+    Eval on round 0 and the last (the example's eval_every=R).  With a
+    checkpoint directory the example's plan: chunks of max(1, R // 4)
+    rounds, a checkpoint at each chunk boundary."""
     mc = mc or PAPER_MLP.full()
+    plan = (ExecutionPlan() if checkpoint_dir is None
+            else ExecutionPlan(chunk_rounds=max(1, rounds // 4),
+                               checkpoint_dir=checkpoint_dir))
     return cases_engine(showdown_cases(mc), rounds, eval_every=rounds,
                         mc=mc, device=device, force_plain=force_plain,
-                        dirichlet=dirichlet)
+                        dirichlet=dirichlet, plan=plan)
 
 
 def run_showdown(rounds: int = 100, dirichlet: Optional[float] = None,
-                 mc=None, device="cuda", force_plain: bool = False
+                 mc=None, device="cuda", force_plain: bool = False,
+                 checkpoint_dir: Optional[str] = None, resume: bool = False
                  ) -> SweepResult:
     """The Byzantine showdown as ONE sweep call on `device`: i.i.d. shards,
-    or a Dirichlet(dirichlet) label-skew split.  The example's
-    --checkpoint-dir / --resume are not ported (ROADMAP.md Queue 1 item
-    7)."""
+    or a Dirichlet(dirichlet) label-skew split.  As the example's
+    --checkpoint-dir / --resume: `checkpoint_dir` snapshots the sweep at
+    chunk boundaries (`showdown_engine`), and resume=True continues a killed
+    run from its latest checkpoint, bitwise as the uninterrupted run (a
+    fresh run when there is none yet)."""
+    if resume and checkpoint_dir is None:
+        raise ValueError("resume=True requires checkpoint_dir")
     engine, params, batches = showdown_engine(rounds, dirichlet, mc, device,
-                                              force_plain)
-    return engine.run(params, batches)
+                                              force_plain, checkpoint_dir)
+    return engine.run(params, batches, resume=resume)

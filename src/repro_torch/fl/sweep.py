@@ -1,10 +1,11 @@
-"""Multi-scenario sweep engine on flat state: S scenarios x R rounds.
+"""Multi-scenario sweep engine: S scenarios x R rounds on one device.
 
 The paper's experimental section (Figs. 1-4) is a grid of scenarios — power
 policy x attack x attacker count x learning rate — and the JAX package runs
 each figure as one `SweepEngine` call (`repro/fl/sweep.py`).  This is its
-port, restricted to flat [S, D] state on one device, no chunking and no
-mesh.  One round of an all-analog sweep (every figure):
+port on one device, under every `ExecutionPlan` (fl/plan.py) one device can
+express.  One round of an all-analog sweep on flat [S, D] state (every
+figure, the default plan):
 
   1. per-worker gradients as one [S, U, D] slab (nested torch.func.vmap of
      torch.func.grad over lanes and workers);
@@ -18,10 +19,10 @@ mesh.  One round of an all-analog sweep (every figure):
      direction, then update — as the JAX engine does.
 
 Digital lanes (a `DefenseSpec` other than "floa") take the grouped
-dispatch, the default plan of the JAX engine: the lanes are partitioned by
-defense code (`scenario.build_lane_groups`), and each round computes one
-[S, U, D] gradient slab in that group order, then runs each group on its
-own sub-slab, in ascending code order:
+dispatch by default: the lanes are partitioned by defense code
+(`scenario.build_lane_groups`), and each round computes one [S, U, D]
+gradient slab in that group order, then runs each group on its own
+sub-slab, in ascending code order:
 
   - the analog group: steps 2-6 above on its own rows only (so
     `grad_stats` sees the [S_a*U, D] analog rows, and an all-digital sweep
@@ -32,8 +33,14 @@ own sub-slab, in ascending code order:
     w - alpha * gagg.
 
 The groups' rows concatenate, and `run` hands the results back in lane
-order (`LaneGroups.inverse`).  A sweep with no digital lane runs the
-all-analog round above unchanged.
+order (`LaneGroups.inverse`).  grouped_dispatch=False is the reference's
+per-lane switch: the analog step runs over all S lanes (the combine-only
+route), every family present runs once over all S lanes
+(`defenses.make_flat_defense_selector`), and a per-lane select keeps each
+lane's own aggregate.  flat_state=False keeps params as a dict of [S, ...]
+leaves (the tree-state reference).  The other knobs — strict_numerics,
+chunk_rounds, async_staging, checkpoint_dir — and their contracts are in
+the `SweepEngine` docstring.
 
 The adaptive-adversary axes, each gated by the spec so that sweeps without
 it run exactly as before:
@@ -44,8 +51,8 @@ it run exactly as before:
   - K-of-U participation (`participants`, `any_partial`): a [S, U] mask
     per round; the analog stats average the participants only
     (`masked_global_stats`), non-participants drop out of the
-    coefficients, and every digital group runs its masked twin (median and
-    trimmed mean sort +inf-padded columns through the same kernels).
+    coefficients, and every digital defense runs its masked twin (median
+    and trimmed mean sort +inf-padded columns through the same kernels).
   - COLLUDING / OMNISCIENT cohorts (`any_directional`): after the combine
     the lane adds its cohort's received weight times a shared direction,
     a unit-RMS random row (COLLUDING) or the mean of the honest
@@ -80,20 +87,21 @@ engine's split slots and fold_in constants), so a lane's stream depends
 only on its own seed, and a new axis leaves the older streams unchanged.
 Digital lanes do not consume their channel draws.
 
-Out of this slice, and refused with NotImplementedError naming the
-ROADMAP.md queue item: the switch dispatch (grouped_dispatch=False) and any
-other non-default execution plan (chunking, checkpoints, mesh, sharding).
+Refused with NotImplementedError naming the ROADMAP.md queue item: a plan
+with a mesh, worker shards or model shards (item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.checkpoint import ckpt as CKPT
 from repro_torch.core import channel as CH
 from repro_torch.core import defenses as DEF
 from repro_torch.core import scenario as SC
@@ -107,31 +115,25 @@ from repro_torch.core.aggregation import (
 )
 from repro_torch.core.attacks import DIRECTIONAL_ATTACKS, AttackType
 from repro_torch.core.power_control import Policy
+from repro_torch.data.pipeline import iter_chunk_blocks
 from repro_torch.device import resolve_device
+from repro_torch.fl.plan import ExecutionPlan
+from repro_torch.launch.staging import BlockStager
 
 Tensor = torch.Tensor
 
-_Q_PLAN = ("ROADMAP.md Queue 1 items 7-8 (execution plan, chunking, "
-           "checkpointing, sharding)")
-_Q_SWITCH = ("ROADMAP.md Queue 1 item 7 (execution plan: the per-lane switch "
-             "dispatch)")
+_Q_SHARD = ("ROADMAP.md Queue 1 item 8 (sharded lanes, workers and model "
+            "axes)")
 
-# The execution-plan knobs of the JAX engine and their defaults: the only
-# plan the port runs.
-_PLAN_DEFAULTS = {"flat_state": True, "mesh": None, "strict_numerics": False,
-                  "grouped_dispatch": True, "chunk_rounds": None,
-                  "async_staging": False, "worker_shards": 1,
-                  "model_shards": 1, "checkpoint_dir": None}
+# The resume manifest's layout version and the port's draw scheme: a
+# checkpoint carries the state of every lane's and stream's generator, not
+# the JAX engine's keys, so the two engines refuse each other's checkpoints.
+_RESUME_VERSION = 1
+_SEEDED_DRAWS = "repro_torch seeded_draws: a torch.Generator a lane and stream"
+_CALLER_DRAWS = "caller draws(t)"
 
-
-def as_device_array(x, device) -> Tensor:
-    """Host array -> tensor on `device`, floating data as float32 (what
-    `jnp.asarray` gives the JAX engine: the synthetic digits are float64
-    under NumPy 2's promotion rules)."""
-    x = np.array(x)   # a writable copy: torch refuses read-only buffers
-    if np.issubdtype(x.dtype, np.floating):
-        x = x.astype(np.float32)
-    return torch.as_tensor(x, device=device)
+# Marks a legacy per-knob kwarg the caller did not pass.
+_UNSET = object()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,6 +310,34 @@ class SweepResult:
     def index(self, name: str) -> int:
         return self.names.index(name)
 
+    def save(self, path: str) -> str:
+        """Write to <path>.npz + <path>.meta.json in the checkpoint tree
+        format (`repro_torch.checkpoint.write_tree`, atomic): every params
+        leaf, the [S, R] trajectories and each metric as exact arrays, the
+        lane names in the manifest's `extra`, as the JAX package's
+        `SweepResult.save` writes them (each package loads the other's).
+        Returns the payload path."""
+        tree = {"params": self.params, "loss": self.loss,
+                "grad_norm": self.grad_norm, "metrics": dict(self.metrics)}
+        return CKPT.write_tree(path, tree, extra={
+            "kind": "SweepResult", "version": 1, "names": list(self.names)})
+
+    @classmethod
+    def load(cls, path: str) -> "SweepResult":
+        """Inverse of `save`: byte-exact arrays (params as CPU tensors,
+        trajectories and metrics as numpy arrays), names, metrics.  A file
+        that is not a saved SweepResult raises ValueError."""
+        tree, meta = CKPT.read_tree(path)
+        kind = meta.get("extra", {}).get("kind")
+        if kind != "SweepResult":
+            raise ValueError(f"{path!r} is not a saved SweepResult "
+                             f"(manifest extra.kind={kind!r})")
+        return cls(names=tuple(meta["extra"]["names"]),
+                   params=dict(tree["params"]), loss=tree["loss"].numpy(),
+                   grad_norm=tree["grad_norm"].numpy(),
+                   metrics={k: v.numpy()
+                            for k, v in tree.get("metrics", {}).items()})
+
     def logs(self, name_or_idx, eval_every: int = 1) -> list:
         """RoundLog list of one lane, on the `FLTrainer.run(eval_every=...)`
         schedule (t % eval_every == 0 and the last round), for the figure
@@ -368,31 +398,200 @@ def lane_generator(seed: int, slot: int, device) -> torch.Generator:
     return torch.Generator(device).manual_seed(int(state))
 
 
-def _refuse_plan(plan) -> None:
-    if plan is None:
-        return
-    if getattr(plan, "grouped_dispatch", True) is False:
-        raise NotImplementedError(
-            f"execution plan grouped_dispatch=False is not ported yet — "
-            f"{_Q_SWITCH}")
-    bad = []
-    for knob, default in _PLAN_DEFAULTS.items():
-        got = getattr(plan, knob, default)
-        if (got is not default) if default is None else (got != default):
-            bad.append(f"{knob}={got!r}")
+
+
+def _refuse_sharding(plan: ExecutionPlan) -> None:
+    """The plan knobs one device cannot run: a mesh, worker or model
+    shards."""
+    bad = [f"{k}={v!r}" for k, v in (("mesh", plan.mesh),
+                                      ("worker_shards", plan.worker_shards),
+                                      ("model_shards", plan.model_shards))
+           if (v is not None if k == "mesh" else v != 1)]
     if bad:
         raise NotImplementedError(
-            f"execution plan {', '.join(bad)} is not ported yet — {_Q_PLAN}")
+            f"execution plan {', '.join(bad)} is not ported yet — "
+            f"{_Q_SHARD}")
+
+
+def _plan_from(plan: Optional[ExecutionPlan], legacy: dict,
+               caller: str) -> ExecutionPlan:
+    """The plan of a call: `plan`, or the deprecated per-knob kwargs the
+    caller passed (a DeprecationWarning), or the default; both raise."""
+    knobs = ", ".join(legacy)
+    legacy = {k: v for k, v in legacy.items() if v is not _UNSET}
+    if plan is not None and not isinstance(plan, ExecutionPlan):
+        raise TypeError(f"plan must be a repro_torch.fl.ExecutionPlan, got "
+                        f"{type(plan).__name__}")
+    if not legacy:
+        return plan or ExecutionPlan()
+    if plan is not None:
+        raise ValueError(
+            f"pass the execution strategy as plan=ExecutionPlan(...) OR as "
+            f"the legacy per-knob kwargs, not both (got plan and "
+            f"{sorted(legacy)})")
+    warnings.warn(
+        f"{caller}'s per-knob execution kwargs ({knobs}) are deprecated; "
+        f"pass plan=ExecutionPlan(...) instead",
+        DeprecationWarning, stacklevel=3)
+    return ExecutionPlan(**legacy)
+
+
+class _SeededDraws:
+    """The default draw provider (`SweepEngine.seeded_draws`): per lane and
+    per stream one generator on the engine's device, seeded from the lane's
+    seed and the stream's slot (`SweepEngine._SLOTS`) alone.  Call it once
+    per round, in round order.  `state()` / `load_state()` carry every
+    generator's state (uint8, [S, n] a stream) through a checkpoint."""
+
+    def __init__(self, engine: "SweepEngine", d: int):
+        self.engine, self.d = engine, d
+        dev, spec = engine.device, engine.spec
+        keys = ["h_abs"] + [k for k, on in (
+            ("z", engine._noise), ("jam", engine._jam),
+            ("part", engine._partial), ("h_init", engine._markov),
+            ("markov", engine._markov), ("dir", engine._dir)) if on]
+        self.gens = {k: [lane_generator(c.seed, engine._SLOTS[k], dev)
+                         for c in spec.cases] for k in keys}
+
+    def __call__(self, t: int) -> Dict[str, Optional[Tensor]]:
+        eng, dev = self.engine, self.engine.device
+        want = eng._wanted_draws(len(eng.spec), self.d, t)
+        out = {"h_abs": SC.sample_gains(self.gens["h_abs"], eng._sp),
+               "z": None, "jam": None}
+        for key, (shape, _) in want.items():
+            if key == "part":
+                scores = torch.stack([torch.rand(eng._u, generator=g,
+                                                 device=dev)
+                                      for g in self.gens[key]])
+                out[key] = SC.participation_mask(scores, eng._sp.part_k)
+            elif key != "h_abs":
+                out[key] = torch.stack([
+                    torch.randn(shape[1:], generator=g, device=dev)
+                    for g in self.gens[key]])
+        return out
+
+    def state(self) -> Dict[str, Tensor]:
+        return {k: torch.stack([g.get_state() for g in gens])
+                for k, gens in self.gens.items()}
+
+    def load_state(self, states: Dict[str, Tensor]) -> None:
+        if set(states) != set(self.gens):
+            raise ValueError(f"checkpoint generator streams {sorted(states)}"
+                             f" differ from this run's {sorted(self.gens)}")
+        for k, gens in self.gens.items():
+            for g, st in zip(gens, states[k]):
+                g.set_state(st.clone())   # its own storage, offset 0
+
+
+class _Trajectory:
+    """Per-round loss, grad norm and evals in execution order: the rows
+    restored from a checkpoint (host arrays) and the rows of this run
+    (device tensors, fetched only at a checkpoint or at the end)."""
+
+    def __init__(self, num: int, prior: Optional[dict] = None):
+        self.num = num
+        self.prior = prior or {
+            "loss": np.zeros((0, num), np.float32),
+            "grad_norm": np.zeros((0, num), np.float32), "metrics": {}}
+        self.loss: List[Tensor] = []
+        self.gn: List[Tensor] = []
+        self.evals: List[Optional[Dict[str, Tensor]]] = []
+
+    def add(self, loss: Tensor, gn: Tensor, ev) -> None:
+        self.loss.append(loss)
+        self.gn.append(gn)
+        self.evals.append(ev)
+
+    def host(self, keys=None) -> dict:
+        """{"loss", "grad_norm": [T, S], "metrics": {k: [T, S]}} over every
+        round so far; rounds without an eval carry NaN.  `keys` names the
+        metrics when no eval has run (the zero-round run)."""
+        def rows(prior, new):
+            if not new:
+                return prior
+            return np.concatenate([prior, torch.stack(new).cpu().numpy()])
+
+        keys = next((e.keys() for e in self.evals if e is not None),
+                    keys if keys is not None else self.prior["metrics"])
+        t_prior = len(self.prior["loss"])
+        metrics = {}
+        for k in keys:
+            prior = self.prior["metrics"].get(k)
+            if prior is None:
+                prior = np.full((t_prior, self.num), np.nan, np.float32)
+            nan = np.full((self.num,), np.nan, np.float32)
+            new = [nan if e is None else e[k].cpu().numpy()
+                   for e in self.evals]
+            metrics[k] = (np.concatenate([prior, np.stack(new)]) if new
+                          else prior)
+        return {"loss": rows(self.prior["loss"], self.loss),
+                "grad_norm": rows(self.prior["grad_norm"], self.gn),
+                "metrics": metrics}
 
 
 class SweepEngine:
-    """The flat-state sweep for one (loss_fn, spec, eval_fn) triple.
+    """The sweep of one (loss_fn, spec, eval_fn) triple under one
+    `ExecutionPlan`.
 
     loss_fn(params_dict, batch) -> scalar; eval_fn(params_dict) -> dict of
     scalars.  device defaults to 'cuda' and raises without a card.
     force_plain=True sends every kernel wrapper to its plain PyTorch version
     even on the card; it exists so a test can hold the kernel route against
     the plain one from the same draws, and the figures never set it.
+
+    Every plan knob changes HOW the sweep executes, never WHAT it computes.
+    The contracts, as the reference's (`repro/fl/sweep.py`), within the port
+    and from the same draws:
+
+    flat_state=True (default) keeps params as one [S, D] f32 matrix, with
+    the combine and the PS update fused (`batched_floa_step`).
+    flat_state=False is the tree-state reference: params a dict of [S, ...]
+    leaves, each round pays the flatten/concat of the gradients and a
+    per-leaf update, the stats are per leaf by default
+    (`per_worker_scalar_stats`), and the combine takes the two-step route
+    (`batched_floa_combine`, then the update); non-f32 leaves round-trip
+    through f32, as the gradients' flatten makes them.  The two agree to fp
+    rounding (rtol ~1e-5), bitwise when BOTH engines run strict_numerics.
+
+    strict_numerics=True takes the stats per leaf segment of the slab (the
+    fixed-order route of the `grad_stats` kernel, one launch a segment,
+    summed in leaf order), so the stats' reduction no longer depends on
+    where a lane's rows sit or how many rows a launch takes: every strategy
+    — tree vs flat state, grouped vs switch dispatch, chunked vs monolithic
+    — replays the same stats bitwise.
+
+    grouped_dispatch=True (default) runs each defense family once over its
+    own lanes (module docstring); False is the per-lane switch reference:
+    the analog step over all S lanes, every family present over all S
+    lanes, and a per-lane select.  Pure-FLOA sweeps ignore the flag.  The
+    two agree at rtol 1e-6 (the per-lane math is shared; reductions over
+    differently sized batches may round differently on the card).
+
+    chunk_rounds=C runs the rounds in ceil(R/C) blocks (the last one short
+    when C does not divide R), carrying (w, h, the generators' states, t)
+    across the boundaries; the batch stack stays on the host and only
+    [C, ...] blocks reach the device; the eval schedule stays anchored to
+    the absolute round.  Chunked == monolithic bitwise: every round runs
+    the same operations on the same bytes.  A chunk boundary is where a
+    later CUDA graph of C rounds would go.
+
+    async_staging=True (requires chunk_rounds) stages block k+1 through
+    pinned host buffers on a side stream while chunk k's rounds are
+    enqueued (`launch.staging.BlockStager`).  A pure scheduling change:
+    bitwise equal to async_staging=False.
+
+    checkpoint_dir (requires chunk_rounds) writes the resume carry with
+    `checkpoint.save_pytree` after every checkpoint_every_chunks-th chunk
+    boundary (never the final one): the execution-order state (w or the
+    params leaves, and h under Markov fading), the trajectory rows so far,
+    and, under the default seeded draws, the state of every lane's and
+    stream's torch.Generator (the port's streams are sequential; the
+    reference carries its keys instead).  `run(..., resume=True)` restores
+    the latest committed checkpoint, checks its manifest against this run
+    (rounds, chunking, lanes, eval schedule, state representation, draw
+    scheme) and runs the remaining chunks: resumed == uninterrupted
+    bitwise.  A caller's `draws(t)` is addressed by the absolute round, so
+    it carries no state.  A failed write raises out of `run`.
     """
 
     # Generator slots of the default draws (the JAX engine's split slots
@@ -402,8 +601,26 @@ class SweepEngine:
 
     def __init__(self, loss_fn: Callable, spec: SweepSpec,
                  eval_fn: Optional[Callable] = None, eval_every: int = 1,
-                 plan=None, *, device="cuda", force_plain: bool = False):
-        _refuse_plan(plan)
+                 plan: Optional[ExecutionPlan] = None, *, device="cuda",
+                 force_plain: bool = False, flat_state=_UNSET, mesh=_UNSET,
+                 strict_numerics=_UNSET, grouped_dispatch=_UNSET,
+                 chunk_rounds=_UNSET, async_staging=_UNSET):
+        plan = _plan_from(plan, dict(
+            flat_state=flat_state, mesh=mesh,
+            strict_numerics=strict_numerics,
+            grouped_dispatch=grouped_dispatch, chunk_rounds=chunk_rounds,
+            async_staging=async_staging), "SweepEngine")
+        _refuse_sharding(plan)
+        self.plan = plan
+        # The reference's legacy surface: the knobs as plain attributes.
+        self.flat_state = plan.flat_state
+        self.mesh = plan.mesh
+        self.strict_numerics = plan.strict_numerics
+        self.grouped_dispatch = plan.grouped_dispatch
+        self.chunk_rounds = plan.chunk_rounds
+        self.async_staging = plan.async_staging
+        self.checkpoint_dir = plan.checkpoint_dir
+        self.checkpoint_every_chunks = plan.checkpoint_every_chunks
         self.loss_fn = loss_fn
         self.spec = spec
         self.eval_fn = eval_fn
@@ -419,10 +636,13 @@ class SweepEngine:
         # Grouped dispatch: rows run in group order (`_perm`), results go
         # back to lane order (`_inverse`) in `run`.  Each group's rows, its
         # ScenarioParams and its defense kernel (None for the analog group)
-        # are fixed here, so a round only indexes them.
+        # are fixed here, so a round only indexes them.  The switch
+        # dispatch keeps lane order and one selector over every family.
         self._group_runs = None
+        self._selector = None
+        self._perm = self._inverse = None
         self._sp_exec = self._sp
-        if spec.any_digital:
+        if spec.any_digital and plan.grouped_dispatch:
             groups = SC.build_lane_groups(spec.lane_codes)
             self._perm, self._inverse = (
                 torch.as_tensor(ix, dtype=torch.long, device=self.device)
@@ -436,6 +656,12 @@ class SweepEngine:
                      code, spec.gm_iters, masked=self._partial,
                      plain=force_plain))
                 for code, start, end in groups.local_slices]
+        elif spec.any_digital:
+            self._selector = DEF.make_flat_defense_selector(
+                spec.digital_codes, spec.gm_iters, masked=self._partial,
+                plain=force_plain)
+
+    # ------------------------------------------------------------ draws
 
     def _wanted_draws(self, s: int, d: int, t: int) -> Dict[str, tuple]:
         """key -> (shape, dtype) of every draw round t consumes."""
@@ -452,40 +678,10 @@ class SweepEngine:
         return want
 
     def seeded_draws(self, d: int) -> Callable[[int], Dict[str, Tensor]]:
-        """The default draw provider: per lane and per stream one generator
-        on the engine's device, seeded from the lane's seed and the
-        stream's slot (`_SLOTS`) alone.  Call the provider once per round,
-        in round order."""
-        dev, sp, s = self.device, self._sp, len(self.spec)
-        gens = {}
-
-        def generators(key: str) -> List[torch.Generator]:
-            if key not in gens:
-                gens[key] = []
-                for c in self.spec.cases:
-                    gens[key].append(
-                        lane_generator(c.seed, self._SLOTS[key], dev))
-            return gens[key]
-
-        def normal(key: str, shape) -> Tensor:
-            return torch.stack([torch.randn(shape, generator=g, device=dev)
-                                for g in generators(key)])
-
-        def draws(t: int) -> Dict[str, Optional[Tensor]]:
-            want = self._wanted_draws(s, d, t)
-            out = {"h_abs": SC.sample_gains(generators("h_abs"), sp),
-                   "z": None, "jam": None}
-            for key, (shape, _) in want.items():
-                if key == "part":
-                    scores = torch.stack([
-                        torch.rand(self._u, generator=g, device=dev)
-                        for g in generators(key)])
-                    out[key] = SC.participation_mask(scores, sp.part_k)
-                elif key != "h_abs":
-                    out[key] = normal(key, shape[1:])
-            return out
-
-        return draws
+        """The default draw provider (`_SeededDraws`): one generator a lane
+        and stream on the engine's device.  Call it once per round, in
+        round order."""
+        return _SeededDraws(self, d)
 
     def _check_draw(self, draw, s: int, d: int, t: int) -> None:
         for key, (shape, dtype) in self._wanted_draws(s, d, t).items():
@@ -497,46 +693,82 @@ class SweepEngine:
                     f"{self.device}, got "
                     f"{x if x is None else (x.dtype, tuple(x.shape), x.device)}")
 
-    def _round(self, w: Tensor, batch, draw, grads_fn, loss_lanes):
-        """One round over every lane, in execution order: (w [S, D]) ->
-        (w_new, loss, gn)."""
-        # 1. per-worker gradients, already flat: [S, U, D].
-        grads = grads_fn(w, batch).contiguous()
+    # ------------------------------------------------------------ a round
+
+    def _stats(self, flat: Tensor, sizes) -> Tuple[Tensor, Tensor]:
+        """Per-worker (gbar_i, eps2_i) of a [S_g, U, D] slab: one launch,
+        or per leaf segment under strict_numerics."""
+        return S.flat_scalar_stats(
+            flat, sizes if self.strict_numerics else None,
+            plain=self.force_plain)
+
+    def _select(self, gagg: Optional[Tensor], flat: Tensor,
+                sp: SC.ScenarioParams, part: Optional[Tensor]) -> Tensor:
+        """The switch dispatch's digital leg over all lanes: Byzantine rows
+        sign-flipped, every family present run over every lane, each lane
+        keeping its own family's row; analog lanes (code 0) keep `gagg`."""
+        args = (sp.defense, _digital_flip(flat, sp), sp.def_trim, sp.def_f,
+                sp.def_multi)
+        dig = self._selector(*args) if part is None else self._selector(
+            *args, part)
+        if gagg is None:   # all-digital: no analog leg at all
+            return dig
+        return torch.where((sp.defense == SC._FLOA_CODE)[:, None], gagg, dig)
+
+    def _aggregate(self, w: Optional[Tensor], flat: Tensor, draw, sizes,
+                   stats=None) -> Tuple[Optional[Tensor], Tensor]:
+        """The round's aggregate from the [S, U, D] slab `flat` (execution
+        order): (w_new, gagg), w_new None when `w` is None (the two-step
+        route the tree state needs).  `stats` overrides the analog lanes'
+        per-worker stats (the tree state's per-leaf sums)."""
+        sp = self._sp_exec
         part = draw.get("part") if self._partial else None
-        if self._group_runs is None:
-            w_new, gagg = self._analog_step(w, grads, draw, self._sp, part)
-        else:
+        if self._group_runs is not None:
             w_parts, g_parts = [], []
             for rows, spg, kernel in self._group_runs:
                 part_g = None if part is None else part[rows]
                 if kernel is None:
+                    st = (self._stats(flat[rows], sizes) if stats is None
+                          else stats(rows))
                     w_g, g_g = self._analog_step(
-                        w[rows], grads[rows], SC.permute_lanes(draw, rows),
-                        spg, part_g)
+                        None if w is None else w[rows], flat[rows],
+                        SC.permute_lanes(draw, rows), spg, part_g, *st)
                 else:
-                    args = (_digital_flip(grads[rows], spg), spg.def_trim,
+                    args = (_digital_flip(flat[rows], spg), spg.def_trim,
                             spg.def_f, spg.def_multi)
                     g_g = kernel(*args) if part_g is None else kernel(
                         *args, part_g)
-                    w_g = w[rows] - spg.alpha[:, None] * g_g
+                    w_g = (None if w is None
+                           else w[rows] - spg.alpha[:, None] * g_g)
                 w_parts.append(w_g)
                 g_parts.append(g_g)
-            w_new, gagg = torch.cat(w_parts), torch.cat(g_parts)
-        gn = torch.sqrt(torch.sum(gagg * gagg, dim=-1))
-        loss = loss_lanes(w_new, batch)
-        return w_new, loss, gn
+            gagg = torch.cat(g_parts)
+            return (None if w is None else torch.cat(w_parts)), gagg
+        if self._selector is None:   # all-analog
+            st = self._stats(flat, sizes) if stats is None else stats(
+                slice(None))
+            return self._analog_step(w, flat, draw, sp, part, *st)
+        if self.spec.all_digital:
+            gagg = self._select(None, flat, sp, part)
+        else:
+            st = self._stats(flat, sizes) if stats is None else stats(
+                slice(None))
+            _, gagg = self._analog_step(None, flat, draw, sp, part, *st)
+            gagg = self._select(gagg, flat, sp, part)
+        return (None if w is None else w - sp.alpha[:, None] * gagg), gagg
 
-    def _analog_step(self, w: Tensor, grads: Tensor, draw,
-                     sp: SC.ScenarioParams, part: Optional[Tensor] = None
-                     ) -> Tuple[Tensor, Tensor]:
-        """Steps 2-6 on analog lanes: (w [S_a, D], grads [S_a, U, D]) ->
-        (w_new, gagg), with `draw`, `sp` and the participation masks
-        `part` [S_a, U] (or None) for the same lanes."""
+    def _analog_step(self, w: Optional[Tensor], grads: Tensor, draw,
+                     sp: SC.ScenarioParams, part: Optional[Tensor],
+                     gbar_i: Tensor, eps2_i: Tensor
+                     ) -> Tuple[Optional[Tensor], Tensor]:
+        """Steps 3-6 on analog lanes: (w [S_a, D] or None, grads
+        [S_a, U, D], per-worker stats) -> (w_new or None, gagg), with
+        `draw`, `sp` and the participation masks `part` [S_a, U] (or None)
+        for the same lanes.  With w the combine and update fuse unless
+        jamming or a cohort direction lands in between."""
         plain = self.force_plain
-        s, d = w.shape
-        # 2. standardization handshake (eq. 3): per-worker stats, PS mean
-        # over the participants.
-        gbar_i, eps2_i = S.flat_scalar_stats(grads, plain=plain)
+        s, d = grads.shape[0], grads.shape[-1]
+        # the PS mean over the participants of the per-worker stats (eq. 3)
         if part is None:
             gbar, eps2 = S.global_stats(gbar_i, eps2_i)
         else:
@@ -549,11 +781,11 @@ class SweepEngine:
         if self._noise:
             noise_row = noise_std[:, None] * draw["z"]
         else:
-            noise_row = torch.zeros((s, d), device=w.device)
+            noise_row = torch.zeros((s, d), device=grads.device)
         bias_row = bias_w * gbar
         # 6. OTA combine + PS update: fused, or the combine, then jamming
         # and the cohorts' direction, then the update.
-        if not (self._jam or self._dir):
+        if w is not None and not (self._jam or self._dir):
             return batched_floa_step(w, sp.alpha, coeff, grads, noise_row,
                                      bias_row, eps, plain=plain)
         gagg = batched_floa_combine(coeff, grads, noise_row, bias_row, eps,
@@ -563,7 +795,7 @@ class SweepEngine:
         if self._dir:
             gagg = gagg + dir_w[:, None] * self._direction(grads, draw, sp,
                                                            part)
-        return w - sp.alpha[:, None] * gagg, gagg
+        return (None if w is None else w - sp.alpha[:, None] * gagg), gagg
 
     @staticmethod
     def _direction(grads: Tensor, draw, sp: SC.ScenarioParams,
@@ -594,86 +826,243 @@ class SweepEngine:
                             CH.complex_gain_abs(h), draw["h_abs"])
         return h, {**draw, "h_abs": h_abs}
 
+    def _round_fn(self, unflatten_row, sizes):
+        """round(state, batch, draw) -> (state_new, loss [S], gn [S]) and
+        eval(state) -> dict of [S] for this plan's state representation:
+        the flat [S, D] matrix or the dict of [S, ...] leaves."""
+        loss_fn, u = self.loss_fn, self._u
+        if self.flat_state:
+            def flat_loss(w_row, batch):
+                return loss_fn(unflatten_row(w_row), batch)
+
+            grads_fn = vmap(lambda wr, b: per_worker_grads(flat_loss, wr, b,
+                                                           u),
+                            in_dims=(0, None))
+            loss_lanes = vmap(flat_loss, in_dims=(0, None))
+
+            def one_round(w, batch, draw):
+                grads = grads_fn(w, batch).contiguous()        # [S, U, D]
+                w_new, gagg = self._aggregate(w, grads, draw, sizes)
+                gn = torch.sqrt(torch.sum(gagg * gagg, dim=-1))
+                return w_new, loss_lanes(w_new, batch), gn
+
+            return one_round, lambda w, i: unflatten_row(w[i])
+
+        tree_grads = vmap(lambda p, b: per_worker_grads(loss_fn, p, b, u),
+                          in_dims=(0, None))
+        loss_lanes = vmap(loss_fn, in_dims=(0, None))
+
+        def one_round(params, batch, draw):
+            grads = tree_grads(params, batch)               # [S, U, ...]
+            flat, unflatten = flatten_worker_grads(grads, batch_dims=2)
+            stats = None
+            if not self.strict_numerics:   # per leaf, off the tree
+                def stats(rows):
+                    return S.per_worker_scalar_stats(
+                        {k: g[rows] for k, g in grads.items()}, batch_dims=2)
+            _, gagg_flat = self._aggregate(None, flat, draw, sizes, stats)
+            gagg = unflatten(gagg_flat)
+            alpha = self._sp_exec.alpha
+            new = {k: p - (alpha.reshape(-1, *([1] * (p.dim() - 1)))
+                           * gagg[k]).to(p.dtype)
+                   for k, p in params.items()}
+            gn = torch.sqrt(torch.sum(gagg_flat * gagg_flat, dim=-1))
+            return new, loss_lanes(new, batch), gn
+
+        return one_round, lambda p, i: {k: v[i] for k, v in p.items()}
+
     @torch.no_grad()
-    def _eval(self, w: Tensor, unflatten_row) -> Dict[str, Tensor]:
-        rows = [self.eval_fn(unflatten_row(w[i])) for i in range(w.shape[0])]
-        return {k: torch.stack([torch.as_tensor(r[k], device=w.device).float()
+    def _eval(self, state, lane_view, num: int) -> Dict[str, Tensor]:
+        rows = [self.eval_fn(lane_view(state, i)) for i in range(num)]
+        return {k: torch.stack([torch.as_tensor(r[k],
+                                                device=self.device).float()
                                 for r in rows]) for k in rows[0]}
 
+    # ------------------------------------------------------------ resume
+
+    def _resume_extra(self, rounds: int, seeded: bool) -> dict:
+        """The fingerprint a resume checkpoint carries: what its carry is
+        valid for.  The reference's fields (without its model_shards, so
+        the JAX engine refuses the port's checkpoints), the execution order
+        and state representation, and the draw scheme (so the port refuses
+        the JAX engine's)."""
+        return {"resume_version": _RESUME_VERSION,
+                "rounds_total": int(rounds),
+                "chunk_rounds": int(self.chunk_rounds),
+                "exec_lanes": len(self.spec),
+                "eval_every": int(self.eval_every),
+                "names": list(self.spec.names),
+                "flat_state": bool(self.flat_state),
+                "exec_order": (list(range(len(self.spec)))
+                               if self._perm is None
+                               else self._perm.tolist()),
+                "draws": _SEEDED_DRAWS if seeded else _CALLER_DRAWS}
+
+    def _save_checkpoint(self, t_next: int, rounds: int, state, h, draws,
+                         traj: _Trajectory, seeded: bool) -> None:
+        carry = {"state": state}
+        if h is not None:
+            carry["h"] = h
+        if seeded:
+            carry["rng"] = draws.state()
+        extra = self._resume_extra(rounds, seeded)
+        extra["t_next"] = int(t_next)
+        CKPT.save_pytree(self.checkpoint_dir, int(t_next),
+                         {"carry": carry, "blocks": traj.host()},
+                         extra=extra)
+
+    def _restore_checkpoint(self, rounds: int, state, draws, seeded: bool):
+        """The latest committed checkpoint, checked against this run:
+        (t_start, state, h, trajectory prior) on the engine's device, or
+        None when there is none yet (a fresh run)."""
+        step = CKPT.latest_step(self.checkpoint_dir)
+        if step is None:
+            return None
+        saved, meta = CKPT.restore_pytree(self.checkpoint_dir, step)
+        ex = meta.get("extra", {})
+        want = self._resume_extra(rounds, seeded)
+        got = {k: ex.get(k) for k in want}
+        if got != want:
+            mismatch = sorted(k for k in want if got[k] != want[k])
+            raise ValueError(
+                f"resume checkpoint step {step} in {self.checkpoint_dir!r} "
+                f"was written by an incompatible run: manifest keys "
+                f"{mismatch} differ (checkpoint "
+                f"{ {k: got[k] for k in mismatch} } vs engine "
+                f"{ {k: want[k] for k in mismatch} })")
+        carry, dev = saved["carry"], self.device
+        if isinstance(state, dict):
+            state = {k: carry["state"][k].to(dev) for k in state}
+        else:
+            state = carry["state"].to(dev)
+        h = carry["h"].to(dev) if "h" in carry else None
+        if seeded:
+            draws.load_state(carry["rng"])
+        blocks = saved["blocks"]
+        prior = {"loss": blocks["loss"].numpy(),
+                 "grad_norm": blocks["grad_norm"].numpy(),
+                 "metrics": {k: v.numpy()
+                             for k, v in blocks.get("metrics", {}).items()}}
+        return int(ex["t_next"]), state, h, prior
+
+    # ------------------------------------------------------------ run
+
     def run(self, params0: Dict[str, Tensor], batches: Dict[str, np.ndarray],
-            draws: Optional[Callable[[int], Dict[str, Tensor]]] = None
-            ) -> SweepResult:
+            draws: Optional[Callable[[int], Dict[str, Tensor]]] = None,
+            resume: bool = False) -> SweepResult:
         """params0: one init dict (JAX layout), broadcast to every lane.
-        batches: dict of [R, U*B, ...] arrays shared by every lane.
-        draws: optional per-round draw provider (module docstring); None
-        uses `seeded_draws`."""
-        dev, num, u = self.device, len(self.spec), self._u
+        batches: dict of [R, U*B, ...] arrays shared by every lane (host
+        arrays; chunked plans stage [C, ...] blocks of them).  draws:
+        optional per-round draw provider (module docstring); None uses
+        `seeded_draws`.  resume=True (requires the plan's checkpoint_dir)
+        continues from the latest committed checkpoint, bitwise as the
+        uninterrupted run; with none on disk it is a fresh run."""
+        if resume and self.checkpoint_dir is None:
+            raise ValueError(
+                "resume=True needs a checkpoint to restore: construct the "
+                "engine with plan=ExecutionPlan(checkpoint_dir=..., "
+                "chunk_rounds=...)")
+        dev, num = self.device, len(self.spec)
         params0 = {k: torch.as_tensor(v, device=dev)
                    for k, v in params0.items()}
-        w, _ = flatten_worker_grads(stack_params(params0, num), batch_dims=1)
-        w = w.contiguous()                                     # [S, D] f32
-        unflatten_row, _ = make_row_unflatten(params0)
-        d = w.shape[1]
-        batches = {k: as_device_array(v, dev) for k, v in batches.items()}
+        unflatten_row, sizes = make_row_unflatten(params0)
+        d = sum(sizes)
         rounds = next(iter(batches.values())).shape[0]
-        if rounds < 1:
-            raise ValueError("batches must hold at least one round")
-        draws = self.seeded_draws(d) if draws is None else draws
-        grouped = self._group_runs is not None
-        if grouped:   # every lane starts from params0 anyway
-            w = SC.permute_lanes(w, self._perm)
-
-        loss_fn = self.loss_fn
-
-        def flat_loss(w_row, batch):
-            return loss_fn(unflatten_row(w_row), batch)
-
-        grads_fn = vmap(lambda wr, b: per_worker_grads(flat_loss, wr, b, u),
-                        in_dims=(0, None))
-        loss_lanes = vmap(flat_loss, in_dims=(0, None))
+        seeded = draws is None
+        draws = self.seeded_draws(d) if seeded else draws
+        stacked = stack_params(params0, num)
+        if self.flat_state:
+            state, _ = flatten_worker_grads(stacked, batch_dims=1)
+            state = state.contiguous()                          # [S, D] f32
+        else:
+            state = {k: v.contiguous() for k, v in stacked.items()}
+        if self._perm is not None:   # every lane starts from params0 anyway
+            state = SC.permute_lanes(state, self._perm)
+        one_round, lane_view = self._round_fn(unflatten_row, sizes)
 
         h = None   # the Gauss-Markov state [S, U, 2], execution order
-        losses, gns, evals = [], [], []
-        for t in range(rounds):
-            batch = {k: v[t] for k, v in batches.items()}
-            draw = draws(t)
-            self._check_draw(draw, num, d, t)
-            if grouped:
-                draw = SC.permute_lanes(draw, self._perm)
-            if self._markov:
-                if t == 0:   # stationary: every marginal Rayleigh(sigma)
-                    h = self._sp_exec.sigma[..., None] * draw["h_init"]
-                h, draw = self._fade(h, draw)
-            w, loss, gn = self._round(w, batch, draw, grads_fn, loss_lanes)
-            losses.append(loss)
-            gns.append(gn)
-            due = t == rounds - 1 or (self.eval_every > 0
-                                      and t % self.eval_every == 0)
-            evals.append(self._eval(w, unflatten_row)
+        t, prior = 0, None
+        if resume:
+            restored = self._restore_checkpoint(rounds, state, draws, seeded)
+            if restored is not None:
+                t, state, h, prior = restored
+        traj = _Trajectory(num, prior)
+        chunk = self.chunk_rounds or max(rounds, 1)
+        host = {k: np.asarray(v)[t:] for k, v in batches.items()}
+        blocks = iter_chunk_blocks(host, chunk)
+        stager = BlockStager(dev, self.async_staging)
+
+        def stage():
+            blk = next(blocks, None)
+            return None if blk is None else stager.stage(blk)
+
+        nxt = stage() if self.async_staging else None
+        every, i = self.checkpoint_every_chunks, 0
+        while t < rounds:
+            staged = nxt if self.async_staging else stage()
+            block = staged.ready()
+            n = next(iter(block.values())).shape[0]
+            for j in range(n):   # round t + j reads row j of the block
+                batch = {k: v[j] for k, v in block.items()}
+                draw = draws(t + j)
+                self._check_draw(draw, num, d, t + j)
+                if self._perm is not None:
+                    draw = SC.permute_lanes(draw, self._perm)
+                if self._markov:
+                    if t + j == 0:   # stationary: every marginal Rayleigh
+                        h = self._sp_exec.sigma[..., None] * draw["h_init"]
+                    h, draw = self._fade(h, draw)
+                state, loss, gn = one_round(state, batch, draw)
+                due = t + j == rounds - 1 or (
+                    self.eval_every > 0 and (t + j) % self.eval_every == 0)
+                traj.add(loss, gn, self._eval(state, lane_view, num)
                          if due and self.eval_fn is not None else None)
+            t += n
+            del staged, block
+            if self.async_staging:   # overlaps the rounds just enqueued
+                nxt = stage()
+            i += 1
+            if (self.checkpoint_dir is not None and t < rounds
+                    and i % every == 0):
+                self._save_checkpoint(t, rounds, state, h, draws, traj,
+                                      seeded)
 
-        keys = next((e.keys() for e in evals if e is not None), ())
-        nan = torch.full((num,), float("nan"), device=dev)
+        keys = None
+        if rounds == 0 and self.eval_fn is not None:
+            # no round ran: the eval's keys, as the JAX engine's traced
+            # eval gives them
+            keys = self._eval(state, lane_view, num).keys()
+        out = traj.host(keys)
         # Back to lane order: execution row self._inverse[i] is lane i.
-        inv = self._inverse if grouped else slice(None)
+        inv = (np.arange(num) if self._inverse is None
+               else self._inverse.cpu().numpy())
 
-        def lanes(rows: List[Tensor]) -> np.ndarray:
-            return SC.permute_lanes(torch.stack(rows, dim=1),
-                                    inv).cpu().numpy()
+        def lanes(x: np.ndarray) -> np.ndarray:
+            return np.ascontiguousarray(x.T[inv])
 
-        metrics = {k: lanes([nan if e is None else e[k] for e in evals])
-                   for k in keys}
-        w = SC.permute_lanes(w, inv)
-        final = {k: v.clone() for k, v in unflatten_row(w).items()}
+        final = (unflatten_row(state) if self.flat_state else state)
+        if self._inverse is not None:
+            final = SC.permute_lanes(final, self._inverse)
         return SweepResult(
-            names=self.spec.names, params=final, loss=lanes(losses),
-            grad_norm=lanes(gns), metrics=metrics)
+            names=self.spec.names,
+            params={k: v.clone() for k, v in final.items()},
+            loss=lanes(out["loss"]), grad_norm=lanes(out["grad_norm"]),
+            metrics={k: lanes(v) for k, v in out["metrics"].items()})
 
 
 def run_sweep(loss_fn: Callable, params0, batches, spec: SweepSpec,
               eval_fn: Optional[Callable] = None, eval_every: int = 1,
-              plan=None, *, device="cuda", draws=None) -> SweepResult:
-    """One-shot convenience wrapper around SweepEngine."""
+              plan: Optional[ExecutionPlan] = None, *, resume: bool = False,
+              device="cuda", draws=None, flat_state=_UNSET, mesh=_UNSET,
+              chunk_rounds=_UNSET, async_staging=_UNSET) -> SweepResult:
+    """One-shot convenience wrapper around SweepEngine.  plan= is the
+    execution strategy; the loose per-knob kwargs are the deprecated
+    spelling (a DeprecationWarning; mixing them with plan= raises).
+    resume= forwards to `SweepEngine.run`."""
+    plan = _plan_from(plan, dict(flat_state=flat_state, mesh=mesh,
+                                 chunk_rounds=chunk_rounds,
+                                 async_staging=async_staging), "run_sweep")
     return SweepEngine(loss_fn, spec, eval_fn=eval_fn, eval_every=eval_every,
                        plan=plan, device=device).run(params0, batches,
-                                                     draws=draws)
+                                                     draws=draws,
+                                                     resume=resume)

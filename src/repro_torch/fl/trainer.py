@@ -43,7 +43,8 @@ from repro_torch.core.attacks import AttackType
 from repro_torch.core.scenario import DefenseSpec
 from repro_torch.device import resolve_device
 from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepSpec,
-                                  as_device_array, lane_generator)
+                                  lane_generator)
+from repro_torch.launch.staging import as_device_array
 
 Tensor = torch.Tensor
 Draws = Callable[[int], Dict[str, object]]

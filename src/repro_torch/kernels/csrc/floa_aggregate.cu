@@ -43,9 +43,13 @@
 // of vectors and the ragged edge is masked per vector; the wrappers never
 // pad.  Accumulation is f32 for f32 and bf16 inputs alike (bf16 widened
 // exactly from its bits); with UPDATE the new weights come from the f32
-// aggregate, as the Pallas body does (floa_aggregate.py:161-163).  The
-// order of every sum is fixed by (S, U, D, V, KU): bit-equal results
-// across calls and graph replays, no atomics.
+// aggregate, as the Pallas body does (floa_aggregate.py:161-163), as
+// w - (alpha * gagg) rounded twice (`__fmul_rn`, `__fsub_rn`: never
+// contracted into an FMA), the update the two-step route and the plain
+// version compute, so the fused flat-state update equals the tree state's
+// bit for bit under strict_numerics.  The order of every sum is fixed by
+// (S, U, D, V, KU): bit-equal results across calls and graph replays, no
+// atomics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -209,7 +213,8 @@ floa_combine_kernel(const float* __restrict__ coeffs,  // [S, U]
   store_f32<TG, V>(g_out + row, gagg);
   if constexpr (UPDATE) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) wv[j] = wv[j] - a * gagg[j];
+    for (int j = 0; j < V; ++j)
+      wv[j] = __fsub_rn(wv[j], __fmul_rn(a, gagg[j]));
     store_f32<TW, V>(w_out + row, wv);
   }
 }

@@ -34,6 +34,18 @@
 // = 16 / sizeof(T)), and its tail after the last whole vector.  Rank 0's
 // first threads add the head and the tail; every 16-byte load is aligned.
 // `kernels/grad_stats.py::row_chunks` mirrors this split on the host.
+//
+// The fixed-order route (`grad_stats_fixed_kernel`, the sweep's
+// strict_numerics stats over leaf segments).  The cluster kernel's order
+// depends on R (through C) and on where each row starts (the peel), so the
+// same row summed inside two different slabs (the grouped and the switch
+// dispatch, the tree and the flat state) may round differently.  This
+// route sums element j of a row into thread j % FIXED_THREADS's partials in
+// increasing j, then by the same fixed trees: the order depends on D
+// alone.  Rows are [R, D] views with a row stride (a leaf segment of the
+// [R, D_total] slab), one block a row, plain loads (no alignment rule),
+// FIXED_UNROLL loads in flight a thread.  It is a reference route: rows of
+// the paper's grids leave most SMs idle (PERF.md records its time).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,6 +173,56 @@ grad_stats_kernel(const T* __restrict__ grads,  // [R, D]
   }
 }
 
+constexpr int FIXED_THREADS = 512;
+constexpr int FIXED_WARPS = FIXED_THREADS / 32;
+constexpr int FIXED_UNROLL = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(FIXED_THREADS)
+grad_stats_fixed_kernel(const T* __restrict__ grads,  // [R, stride]
+                        float* __restrict__ out,      // [R, 2]
+                        int64_t d_n, int64_t stride) {
+  __shared__ float warp_part[2][FIXED_WARPS];
+  const T* g = grads + (int64_t)blockIdx.x * stride;
+  float s1 = 0.0f, s2 = 0.0f;
+  int64_t j = threadIdx.x;
+  // element j goes to thread j % FIXED_THREADS, in increasing j
+  for (; j + (int64_t)(FIXED_UNROLL - 1) * FIXED_THREADS < d_n;
+       j += (int64_t)FIXED_UNROLL * FIXED_THREADS) {
+    float x[FIXED_UNROLL];
+#pragma unroll
+    for (int k = 0; k < FIXED_UNROLL; ++k)
+      x[k] = to_f32(g[j + (int64_t)k * FIXED_THREADS]);
+#pragma unroll
+    for (int k = 0; k < FIXED_UNROLL; ++k) add(x[k], s1, s2);
+  }
+  for (; j < d_n; j += FIXED_THREADS) add(to_f32(g[j]), s1, s2);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  tree(s1, s2, 32);
+  if (lane == 0) {
+    warp_part[0][warp] = s1;
+    warp_part[1][warp] = s2;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  s1 = lane < FIXED_WARPS ? warp_part[0][lane] : 0.0f;
+  s2 = lane < FIXED_WARPS ? warp_part[1][lane] : 0.0f;
+  tree(s1, s2, FIXED_WARPS);
+  if (lane == 0) {
+    out[2 * blockIdx.x] = s1;
+    out[2 * blockIdx.x + 1] = s2;
+  }
+}
+
+template <typename T>
+cudaError_t launch_fixed(const void* grads, void* out, int64_t r_n,
+                         int64_t d_n, int64_t stride, cudaStream_t st) {
+  grad_stats_fixed_kernel<T><<<(unsigned)r_n, FIXED_THREADS, 0, st>>>(
+      static_cast<const T*>(grads), static_cast<float*>(out), d_n, stride);
+  return cudaGetLastError();
+}
+
 constexpr int F32 = 0;
 constexpr int BF16 = 1;
 
@@ -242,6 +304,21 @@ int grad_stats(const void* grads, void* out, int64_t r_n, int64_t d_n,
   if (dtype == F32) return launch<float>(grads, out, r_n, d_n, cluster, st);
   if (dtype == BF16)
     return launch<__nv_bfloat16>(grads, out, r_n, d_n, cluster, st);
+  return cudaErrorInvalidValue;
+}
+
+// grads: R rows of D elements, row r at grads + r * stride elements (a leaf
+// segment of a wider slab; stride >= D) -> out [R, 2] f32, summed in the
+// fixed order of grad_stats_fixed_kernel.  Returns the launch's error code.
+int grad_stats_fixed(const void* grads, void* out, int64_t r_n, int64_t d_n,
+                     int64_t stride, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r_n < 1 || d_n < 1 || stride < d_n || r_n > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (dtype == F32)
+    return launch_fixed<float>(grads, out, r_n, d_n, stride, st);
+  if (dtype == BF16)
+    return launch_fixed<__nv_bfloat16>(grads, out, r_n, d_n, stride, st);
   return cudaErrorInvalidValue;
 }
 

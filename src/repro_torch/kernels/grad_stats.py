@@ -11,6 +11,12 @@ tensors launch the kernel or raise; `plain=True` forces the plain version
 for kernel-vs-plain tests.  Launches are counted in `grad_stats.launches`,
 and by (R, D) in `grad_stats.shapes`.
 
+`grad_stats_fixed` is the fixed-order route (`grad_stats_fixed_kernel`,
+its own wrapper and counts): the sum's order depends on D alone, not on R
+or on where a row starts, and rows may be a row-strided view (a leaf
+segment of the [R, D_total] slab): what the sweep's strict_numerics stats
+launch once per leaf segment.
+
 Bound and design (details in the .cu source): one read of R*D elements,
 bound by bytes.  Each row is split over the C blocks of one thread-block
 cluster (`cluster_size`: C grows while R*C is under TARGET_BLOCKS_PER_SM
@@ -105,7 +111,8 @@ def _plan(device_index: int, r: int, d: int, dtype) -> int:
 
 
 def grad_stats(grads: Tensor, *, plain: bool = False) -> Tensor:
-    """grads [R, D] f32|bf16 -> [R, 2] f32 (sum, sum of squares)."""
+    """grads [R, D] f32|bf16, contiguous -> [R, 2] f32 (sum, sum of
+    squares)."""
     need(isinstance(grads, torch.Tensor) and grads.dim() == 2,
          "grads must be an [R, D] tensor")
     r, d = grads.shape
@@ -128,3 +135,36 @@ def grad_stats(grads: Tensor, *, plain: bool = False) -> Tensor:
 
 grad_stats.launches = 0
 grad_stats.shapes = collections.Counter()
+
+
+def grad_stats_fixed(grads: Tensor, *, plain: bool = False) -> Tensor:
+    """The fixed-order route: grads [R, D] f32|bf16, rows at any row
+    stride with unit stride within a row (a leaf segment of the
+    [R, D_total] slab) -> [R, 2] f32, summed in an order that depends on D
+    alone (`grad_stats_fixed_kernel`)."""
+    need(isinstance(grads, torch.Tensor) and grads.dim() == 2,
+         "grads must be an [R, D] tensor")
+    r, d = grads.shape
+    need(grads.device.type in ("cpu", "cuda"),
+         f"unsupported device {grads.device}")
+    need(1 <= r <= MAX_ROWS and d >= 1, f"bad shape {(r, d)}")
+    need(grads.dtype in DTYPE_CODES, f"grads has dtype {grads.dtype}")
+    need((grads.stride(1) == 1 or d == 1)
+         and (grads.stride(0) >= d or r == 1),
+         f"grads rows must be unit-stride and not overlap, got strides "
+         f"{grads.stride()}")
+    if grads.device.type == "cpu" or plain:
+        return ref.grad_stats_ref(grads)
+    out = torch.empty((r, 2), dtype=torch.float32, device=grads.device)
+    err = _build.library("grad_stats").grad_stats_fixed(
+        grads.data_ptr(), out.data_ptr(), r, d,
+        grads.stride(0) if r > 1 else d, DTYPE_CODES[grads.dtype],
+        torch.cuda.current_stream(grads.device).cuda_stream)
+    _build.check(err, "grad_stats_fixed")
+    grad_stats_fixed.launches += 1
+    grad_stats_fixed.shapes[(r, d)] += 1
+    return out
+
+
+grad_stats_fixed.launches = 0
+grad_stats_fixed.shapes = collections.Counter()

@@ -23,7 +23,7 @@ from repro_torch.kernels.floa_aggregate import (
     floa_aggregate_batched,
     floa_step_batched,
 )
-from repro_torch.kernels.grad_stats import grad_stats
+from repro_torch.kernels.grad_stats import grad_stats, grad_stats_fixed
 
 # Every ported kernel wrapper, by name.
 KERNELS = {
@@ -31,6 +31,7 @@ KERNELS = {
     "floa_aggregate_batched": floa_aggregate_batched,
     "floa_aggregate": floa_aggregate,
     "grad_stats": grad_stats,
+    "grad_stats_fixed": grad_stats_fixed,
     "sort_columns": sort_columns,
     "sort_columns_bitonic": sort_columns_bitonic,
     "decode_attention": decode_attention,
@@ -51,8 +52,8 @@ def launch_counts() -> Dict[str, int]:
 
 def launch_shapes() -> Dict[str, Dict[Tuple[int, ...], int]]:
     """Launches by input shape, for the wrappers that count them (the FLOA
-    kernels by (S, U, D), grad_stats by (R, D), the sorts by their input's
-    shape, [U, D] or [S, U, D])."""
+    kernels by (S, U, D), both grad_stats routes by (R, D), the sorts by
+    their input's shape, [U, D] or [S, U, D])."""
     return {name: dict(fn.shapes) for name, fn in KERNELS.items()
             if hasattr(fn, "shapes")}
 

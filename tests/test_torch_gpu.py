@@ -330,19 +330,22 @@ def test_grad_stats_splits_rows_over_a_cluster(cuda_device, dtype):
 
 @pytest.mark.gpu
 def test_main_path_counts_launches_by_shape(cuda_device):
-    """The FLOA wrappers count launches by (S, U, D), grad_stats by (R, D),
-    the sorts by input shape; `reset_launches` clears them."""
+    """The FLOA wrappers count launches by (S, U, D), both grad_stats
+    routes by (R, D), the sorts by input shape; `reset_launches` clears
+    them."""
     ops.reset_launches()
     args = _inputs(cuda_device, 13, 2, 3, 64, torch.float32)
     ops.floa_step_batched(*args)
     ops.floa_step_batched(*args)
     ops.grad_stats(args[2].reshape(6, 64))
+    ops.grad_stats_fixed(args[2].reshape(6, 64)[:, 10:30])
     ops.sort_columns(args[2])
     ops.sort_columns(args[2][0])
     ops.sort_columns_bitonic(torch.zeros(40, 8, device=cuda_device))
     assert ops.launch_shapes() == {
         "floa_step_batched": {(2, 3, 64): 2}, "floa_aggregate_batched": {},
         "floa_aggregate": {}, "grad_stats": {(6, 64): 1},
+        "grad_stats_fixed": {(6, 20): 1},
         "sort_columns": {(2, 3, 64): 1, (3, 64): 1},
         "sort_columns_bitonic": {(40, 8): 1}}
     ops.reset_launches()
@@ -793,3 +796,209 @@ def test_showdown_kernel_route_matches_plain_route(cuda_device):
     for k in rk.params:
         torch.testing.assert_close(rk.params[k], rp.params[k], rtol=1e-4,
                                    atol=1e-6)
+
+
+# The execution plan on the card: staging, checkpointed generator states,
+# the strict route's fixed-order grad_stats and the switch dispatch's sort.
+
+
+@pytest.mark.gpu
+def test_async_staging_equals_sync_staging(cuda_device):
+    """Blocks staged through the pinned buffers and the side stream equal
+    the synchronous pageable copies bitwise, short last block and float64
+    input included, while the compute stream is busy."""
+    from repro_torch.launch.staging import BlockStager
+    rng = np.random.default_rng(0)
+    host = {"x": rng.standard_normal((7, 256, 784)),          # float64
+            "y": rng.integers(0, 10, (7, 256))}
+    blocks = [{k: v[i:i + 3] for k, v in host.items()} for i in (0, 3, 6)]
+    sync = BlockStager(cuda_device, False)
+    fast = BlockStager(cuda_device, True)
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    staged = []
+    for blk in blocks:
+        for _ in range(4):   # keep the compute stream busy during copies
+            busy = busy @ busy / 64.0
+        staged.append(fast.stage(blk))
+    for blk, st in zip(blocks, staged):
+        got, want = st.ready(), sync.stage(blk).ready()
+        for k in blk:
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k])
+    assert fast._buffers[0]["x"].is_pinned()
+
+
+@pytest.mark.gpu
+def test_chunked_async_sweep_equals_monolithic_on_the_card(cuda_device):
+    """Fig. 1's lanes at smoke width: chunked (C = 2, R = 5) with and
+    without async staging equal the monolithic run bitwise on the card."""
+    from repro_torch.fl.plan import ExecutionPlan
+    exps = [TF.Experiment(n, p, rounds=ROUNDS)
+            for n, p in [("EF", Policy.EF), ("CI", Policy.CI),
+                         ("BEV", Policy.BEV)]]
+    runs = []
+    for plan in (ExecutionPlan(), ExecutionPlan(chunk_rounds=2),
+                 ExecutionPlan(chunk_rounds=2, async_staging=True)):
+        engine, params, batches = TF.figure_engine(
+            exps, eval_every=2, mc=SMOKE, device=cuda_device, plan=plan)
+        runs.append(engine.run(params, batches))
+    for other in runs[1:]:
+        np.testing.assert_array_equal(other.loss, runs[0].loss)
+        np.testing.assert_array_equal(other.grad_norm, runs[0].grad_norm)
+        for k in runs[0].params:
+            assert torch.equal(other.params[k], runs[0].params[k])
+
+
+@pytest.mark.gpu
+def test_cuda_generator_states_survive_a_checkpoint(cuda_device, tmp_path):
+    """A CUDA generator's state (seed and Philox offset) saved with
+    save_pytree and set back continues the stream exactly."""
+    from repro_torch import checkpoint as CK
+    gens = [torch.Generator(cuda_device).manual_seed(s) for s in (1, 2)]
+    for g in gens:
+        torch.randn(1000, generator=g, device=cuda_device)
+    CK.save_pytree(str(tmp_path), 1, {"rng": torch.stack(
+        [g.get_state() for g in gens])})
+    want = [torch.randn(50890, generator=g, device=cuda_device)
+            for g in gens]
+    saved, _ = CK.restore_pytree(str(tmp_path), 1)
+    fresh = [torch.Generator(cuda_device).manual_seed(9) for _ in gens]
+    for g, st in zip(fresh, saved["rng"]):
+        g.set_state(st.clone())
+    for g, w in zip(fresh, want):
+        assert torch.equal(torch.randn(50890, generator=g,
+                                       device=cuda_device), w)
+
+
+@pytest.mark.gpu
+def test_resumed_sweep_equals_uninterrupted_on_the_card(cuda_device,
+                                                        tmp_path):
+    """The showdown at smoke width, R = 4, chunks of 1 round, preempted
+    after round 2: resumed == uninterrupted, bitwise, from the CUDA
+    generators' saved states."""
+    import os
+    plain = TF.run_showdown(4, mc=SMOKE, device=cuda_device)
+    ckpt = str(tmp_path / "ckpt")
+    TF.run_showdown(4, mc=SMOKE, device=cuda_device, checkpoint_dir=ckpt)
+    for f in os.listdir(ckpt):
+        if int(f[len("ckpt_"):].split(".")[0]) > 2:
+            os.remove(os.path.join(ckpt, f))
+    resumed = TF.run_showdown(4, mc=SMOKE, device=cuda_device,
+                              checkpoint_dir=ckpt, resume=True)
+    np.testing.assert_array_equal(resumed.loss, plain.loss)
+    np.testing.assert_array_equal(resumed.metrics["accuracy"],
+                                  plain.metrics["accuracy"])
+    for k in plain.params:
+        assert torch.equal(resumed.params[k], plain.params[k])
+
+
+SEGMENTS = (64, 10, 50176, 640)   # the paper MLP's leaves: b1, b2, w1, w2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [10, 40, 360])
+def test_grad_stats_over_leaf_segments_matches_plain(cuda_device, rows):
+    """The fixed-order route on each leaf segment (a row-strided view of
+    the [R, D] slab) against the plain version, and its sums of a row do
+    not depend on the slab the row sits in (R and the row's alignment)."""
+    from repro_torch.core import standardize
+    slab = _normal(cuda_device, rows, rows, sum(SEGMENTS))
+    off = 0
+    for n in SEGMENTS:
+        seg = slab[:, off:off + n]
+        got = ops.grad_stats_fixed(seg)
+        want = ref.grad_stats_ref(seg)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-3)
+        off += n
+    whole = standardize.flat_scalar_stats(slab, SEGMENTS)
+    part = standardize.flat_scalar_stats(slab[3:], SEGMENTS)
+    for w, p in zip(whole, part):
+        assert torch.equal(w[3:], p)
+    plain = standardize.flat_scalar_stats(slab, SEGMENTS, plain=True)
+    for w, p in zip(whole, plain):
+        np.testing.assert_allclose(w.cpu().numpy(), p.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_switch_dispatch_sort_equals_torch_sort(cuda_device):
+    """The switch dispatch sorts every lane of the defense grid's slab,
+    [6, 10, D]: equal to torch.sort exactly."""
+    x = _normal(cuda_device, 17, 6, 10, 50890)
+    _sorts_exactly(ops.sort_columns, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["switch", "tree", "switch_strict",
+                                  "tree_strict"])
+def test_plan_routes_match_plain_route(cuda_device, plan):
+    """The defense grid (switch) and Fig. 1's lanes (tree) through the
+    kernels and again through their plain versions, from the same seeded
+    draws, at rtol 1e-4."""
+    from repro_torch.fl.plan import ExecutionPlan
+    strict = plan.endswith("strict")
+    knob = (dict(grouped_dispatch=False) if plan.startswith("switch")
+            else dict(flat_state=False))
+    runs = []
+    for force_plain in (False, True):
+        if plan.startswith("switch"):
+            engine, params, batches = TF.cases_engine(
+                TF.defense_cases(SMOKE), ROUNDS, eval_every=2, mc=SMOKE,
+                device=cuda_device, force_plain=force_plain,
+                plan=ExecutionPlan(strict_numerics=strict, **knob))
+        else:
+            exps = [TF.Experiment(n, p, rounds=ROUNDS)
+                    for n, p in [("CI", Policy.CI), ("BEV", Policy.BEV)]]
+            engine, params, batches = TF.figure_engine(
+                exps, eval_every=2, mc=SMOKE, device=cuda_device,
+                force_plain=force_plain,
+                plan=ExecutionPlan(strict_numerics=strict, **knob))
+        ops.reset_launches()
+        runs.append(engine.run(params, batches))
+        counts = ops.launch_counts()
+        assert (sum(counts.values()) == 0) == force_plain, counts
+    rk, rp = runs
+    assert np.isfinite(rk.loss).all()
+    np.testing.assert_allclose(rk.loss, rp.loss, rtol=1e-4)
+    np.testing.assert_allclose(rk.grad_norm, rp.grad_norm, rtol=1e-4)
+    for k in rk.params:
+        torch.testing.assert_close(rk.params[k], rp.params[k], rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_strict_plan_routes_hold_their_contracts_on_the_card(cuda_device):
+    """Under strict_numerics on the card: the tree state equals the flat
+    state bitwise (fig3's lanes: the same fixed-order stats, combine bits
+    and update rounding); the switch dispatch equals the grouped one at
+    rtol 1e-6, the reference's contract (the defense grid's reductions
+    over 6 lanes instead of 1 round differently: 2.0e-7 relative at full
+    width over 20 rounds, PERF.md)."""
+    from repro_torch.fl.plan import ExecutionPlan
+    exps = [TF.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
+                          attacker_sigma=3.0, rounds=ROUNDS)
+            for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                              ("BEV", Policy.BEV)]]
+    fig = [TF.figure_engine(exps, eval_every=2, mc=SMOKE, device=cuda_device,
+                            plan=ExecutionPlan(strict_numerics=True,
+                                               flat_state=flat))
+           for flat in (True, False)]
+    flat, tree = (e.run(p, b) for e, p, b in fig)
+    np.testing.assert_array_equal(tree.loss, flat.loss)
+    np.testing.assert_array_equal(tree.grad_norm, flat.grad_norm)
+    for k in flat.params:
+        assert torch.equal(tree.params[k], flat.params[k])
+    grids = [TF.cases_engine(TF.defense_cases(SMOKE), ROUNDS, eval_every=2,
+                             mc=SMOKE, device=cuda_device,
+                             plan=ExecutionPlan(strict_numerics=True,
+                                                grouped_dispatch=grouped))
+             for grouped in (True, False)]
+    grouped, switch = (e.run(p, b) for e, p, b in grids)
+    assert np.isfinite(switch.loss).all()
+    np.testing.assert_allclose(switch.loss, grouped.loss, rtol=1e-6)
+    np.testing.assert_allclose(switch.grad_norm, grouped.grad_norm,
+                               rtol=1e-6)
+    for k in grouped.params:
+        torch.testing.assert_close(switch.params[k], grouped.params[k],
+                                   rtol=1e-6, atol=1e-7)

@@ -26,6 +26,7 @@ import subprocess
 import sys
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -236,9 +237,10 @@ def test_port_imports_no_jax():
     code = ("import sys, repro_torch.fl.sweep, repro_torch.figures, "
             "repro_torch.kernels.ops, repro_torch.core.defenses, "
             "repro_torch.kernels.defense_sort, repro_torch.fl.trainer, "
-            "repro_torch.data.pipeline; "
-            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
-            "or m.startswith(('jax.', 'repro.'))]; "
+            "repro_torch.data.pipeline, repro_torch.fl.plan, "
+            "repro_torch.checkpoint, repro_torch.launch.staging; "
+            "bad = [m for m in sys.modules if m in ('jax', 'repro', "
+            "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]; "
             "assert not bad, bad; print('clean')")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -273,24 +275,26 @@ def _case(**kw):
     return TS.ScenarioCase("lane", floa, alpha, **kw)
 
 
-@dataclasses.dataclass
-class _Plan:
-    """Stands in for the JAX package's ExecutionPlan (its knob names)."""
-    flat_state: bool = True
-    mesh: object = None
-    strict_numerics: bool = False
-    grouped_dispatch: bool = True
-    chunk_rounds: object = None
-    checkpoint_dir: object = None
+def _mesh(**axes):
+    """A stand-in for a JAX sweep mesh: its axis names and shape."""
+    return SimpleNamespace(axis_names=tuple(axes), shape=dict(axes))
 
 
+# The plans one device cannot run (ROADMAP.md Queue 1 item 8), and the
+# single-device plans the port runs since the execution-plan slice.
 REFUSED_PLANS = {
-    "mesh": _Plan(mesh=object()),
-    "chunk_rounds": _Plan(chunk_rounds=4),
-    "checkpoint_dir": _Plan(checkpoint_dir="/nonexistent"),
-    "strict_numerics": _Plan(strict_numerics=True),
-    "tree_state": _Plan(flat_state=False),
-    "switch_dispatch": _Plan(grouped_dispatch=False),
+    "mesh": lambda: TS.ExecutionPlan(mesh=_mesh(data=2)),
+    "worker_shards": lambda: TS.ExecutionPlan(mesh=_mesh(workers=2)),
+    "model_shards": lambda: TS.ExecutionPlan(mesh=_mesh(model=2)),
+    "mesh_3d": lambda: TS.ExecutionPlan(mesh=_mesh(data=1, workers=2,
+                                                   model=2)),
+}
+ACCEPTED_PLANS = {
+    "chunk_rounds": dict(chunk_rounds=4),
+    "checkpoint_dir": dict(chunk_rounds=4, checkpoint_dir="/nonexistent"),
+    "strict_numerics": dict(strict_numerics=True),
+    "tree_state": dict(flat_state=False),
+    "switch_dispatch": dict(grouped_dispatch=False),
 }
 
 
@@ -311,11 +315,24 @@ def test_spec_validates_digital_lanes():
 
 @pytest.mark.parametrize("name", sorted(REFUSED_PLANS))
 def test_non_default_plans_are_refused(name):
+    """A mesh, worker shards or model shards: refused at construction,
+    naming ROADMAP.md Queue 1 item 8."""
     spec = TS.SweepSpec.build([_case()])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TS.SweepEngine(TM.mlp_loss, spec, plan=REFUSED_PLANS[name],
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        TS.SweepEngine(TM.mlp_loss, spec, plan=REFUSED_PLANS[name](),
                        device="cpu")
-    TS.SweepEngine(TM.mlp_loss, spec, plan=_Plan(), device="cpu")
+    TS.SweepEngine(TM.mlp_loss, spec, plan=TS.ExecutionPlan(), device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPTED_PLANS))
+def test_single_device_plans_are_accepted(name):
+    """Every knob one device can express builds an engine that mirrors it."""
+    spec = TS.SweepSpec.build([_case()])
+    plan = TS.ExecutionPlan(**ACCEPTED_PLANS[name])
+    engine = TS.SweepEngine(TM.mlp_loss, spec, plan=plan, device="cpu")
+    assert engine.plan == plan
+    for knob, value in ACCEPTED_PLANS[name].items():
+        assert getattr(engine, knob) == value
 
 
 def test_bad_draws_are_rejected():

@@ -33,6 +33,14 @@ with warnings.catch_warnings():
     import repro.fl as JFL
     from repro.core import scenario as JSC
     from repro.core.channel import rayleigh_gains
+    from sweep_testlib import U
+
+from repro_torch.core.aggregation import FLOAConfig
+from repro_torch.core.attacks import AttackConfig, AttackType, first_n_mask
+from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.power_control import Policy, PowerConfig
+from repro_torch.core.scenario import DefenseSpec
+from repro_torch.fl import sweep as TS
 
 RTOL = 1e-5
 
@@ -157,3 +165,83 @@ def assert_sweeps_match(got, want, rtol=RTOL):
         np.testing.assert_allclose(got.params[k].numpy(),
                                    np.asarray(want.params[k]), rtol=rtol,
                                    atol=1e-7)
+
+
+# ------------------------------------ tiny grids (U = 4, sweep_testlib)
+
+def floa(dim, policy, n_atk, noise=0.05, attack=AttackType.STRONGEST,
+         rho=0.0):
+    """sweep_testlib.floa in the port, with the fading rho."""
+    return FLOAConfig(
+        channel=ChannelConfig(num_workers=U, sigma=1.0,
+                              noise_std=0.0 if policy == Policy.EF else noise,
+                              markov_rho=rho),
+        power=PowerConfig(num_workers=U, dim=dim, p_max=1.0, policy=policy),
+        attack=AttackConfig(attack=attack if n_atk else AttackType.NONE,
+                            byzantine_mask=first_n_mask(U, n_atk)))
+
+
+def lane(name, dim, policy, n_atk, seed, **kw):
+    case_kw = {k: kw.pop(k) for k in ("defense", "participants") if k in kw}
+    return TS.ScenarioCase(name, floa(dim, policy, n_atk, **kw), 0.05,
+                           seed=seed, **case_kw)
+
+
+def digital(name, dim, n_atk, seed, defense, participants=None):
+    return TS.ScenarioCase(name, floa(dim, Policy.EF, n_atk, 0.0), 0.05,
+                           seed=seed, defense=defense,
+                           participants=participants)
+
+
+def axis_grids(dim):
+    """The adaptive-axes grids of tests/test_torch_axes.py (U = 4): name ->
+    lanes."""
+    col, omni = AttackType.COLLUDING, AttackType.OMNISCIENT
+    return {
+        "markov": [
+            lane("legacy-bev", dim, Policy.BEV, 2, 300),
+            lane("markov-bev", dim, Policy.BEV, 1, 301, rho=0.9),
+            lane("markov-ci", dim, Policy.CI, 0, 302, rho=0.5),
+            lane("rho0", dim, Policy.BEV, 1, 303, rho=0.0)],
+        "partial_analog": [
+            lane("bev-k3", dim, Policy.BEV, 1, 310, participants=3),
+            lane("ci-k2", dim, Policy.CI, 2, 311, participants=2),
+            lane("ef-k3", dim, Policy.EF, 1, 312, participants=3),
+            lane("tci-k3", dim, Policy.TRUNCATED_CI, 1, 313, participants=3),
+            lane("bev-full", dim, Policy.BEV, 1, 314)],
+        "partial_digital": [
+            lane("bev-k3", dim, Policy.BEV, 1, 320, participants=3),
+            digital("median-k3", dim, 1, 321, DefenseSpec(name="median"), 3),
+            digital("trimmed-k3", dim, 2, 322,
+                    DefenseSpec(name="trimmed_mean", trim=1), 3),
+            digital("krum-k3", dim, 1, 323,
+                    DefenseSpec(name="krum", num_byzantine=0), 3),
+            digital("gm-k3", dim, 1, 324,
+                    DefenseSpec(name="geometric_median"), 3),
+            digital("mean-k2", dim, 1, 325, DefenseSpec(name="mean"), 2),
+            digital("median-full", dim, 1, 326, DefenseSpec(name="median"))],
+        "colluding": [
+            lane("collude-ci", dim, Policy.CI, 2, 330, attack=col),
+            lane("collude-bev", dim, Policy.BEV, 1, 331, attack=col),
+            lane("legacy-bev", dim, Policy.BEV, 1, 332)],
+        "omniscient": [
+            lane("omni-bev", dim, Policy.BEV, 1, 340, attack=omni),
+            lane("omni-ci", dim, Policy.CI, 2, 341, attack=omni),
+            lane("legacy-ci", dim, Policy.CI, 1, 342)],
+        "mixed": [
+            lane("legacy-bev", dim, Policy.BEV, 2, 350),
+            lane("legacy-ci", dim, Policy.CI, 1, 351),
+            lane("jam", dim, Policy.BEV, 2, 352, attack=AttackType.GAUSSIAN),
+            lane("markov", dim, Policy.BEV, 1, 353, rho=0.9),
+            lane("collude", dim, Policy.CI, 2, 354, attack=col),
+            lane("omni", dim, Policy.BEV, 1, 355, attack=omni),
+            lane("part3", dim, Policy.BEV, 1, 356, participants=3),
+            lane("markov+collude+part", dim, Policy.CI, 2, 357, attack=col,
+                 rho=0.5, participants=3),
+            digital("median-part", dim, 1, 358, DefenseSpec(name="median"),
+                    3),
+            digital("trimmed-part", dim, 2, 359,
+                    DefenseSpec(name="trimmed_mean", trim=1), 3),
+            digital("krum", dim, 1, 360,
+                    DefenseSpec(name="krum", num_byzantine=1))],
+    }
