@@ -7,8 +7,8 @@
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
-                                      # showdown grid and qwen3-4b serve
-                                      # decode step
+                                      # showdown grid, LM lane, qwen3-4b
+                                      # serve decode step and train step
 
 Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
 
@@ -105,9 +105,29 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               ms per step against the bytes bound.
   17. parity  the same token sequence through both routes in f32 at full
               width and 2 layers, rtol 1e-4.
-  18. the `kernels` line (with launches and times by shape where a
+  18. lm_lane `figures.run_lm_lane`: examples/train_floa_lm.py's three lanes
+              (clean BEV, the Thm-1 sign-flip attack, median screening of
+              it) on the full lm_sweep config (qwen3-shaped, f32,
+              D = 2 950 528), U = 8 workers of 2 sequences of 64 tokens,
+              2 attackers, lr 0.2, R = 20: the step at [2, 8, D],
+              grad_stats at 16 rows and the odd-even sort at [1, 8, D],
+              counted as phases 4-6 are; rounds/s of a warm run, peak
+              device memory, each lane's first-round loss and tail mean;
+              the clean lane descends, the attacked lane ends above it.
+  19. parity  the same 20 rounds through the plain versions from the same
+              draws, rtol 1e-4 (the largest relative difference of the
+              final params printed).
+  20. train   `launch.steps.make_train_step` (the FLOA train step of
+              `python -m repro_torch.launch.train`) on qwen3-4b at full
+              width with the serve phase's weights (bf16, 4.41 B): 5 BEV
+              steps at batch 8 x seq 64, U = 1, every loss finite and the
+              weights moved, ms a warm step, peak device memory; then
+              `make_prefill_step` at batch 8 x seq 512 (logits [8, Vp]).
+              The train step runs no kernel of the port (its combine is
+              the backward itself), which the counts confirm.
+  21. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
-      phases' shapes); 19. the last line, {"ok": true, "device": ...}.
+      phases' shapes); 22. the last line, {"ok": true, "device": ...}.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
@@ -127,10 +147,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # bf16 on the tensor cores, dense
 ROUNDS = 20
 ROUNDS_LARGE_U = 5           # the U = 1000 grid: keeps the script short
 RTOL_WHOLE_RUN = 1e-4        # kernel route vs plain route over 20 rounds
 LM_ARCH = "qwen3-4b"
+# The LM lane (phase 18): lm_sweep's flat D, examples/train_floa_lm.py's
+# defaults (U = 8 workers of 2 sequences of 64 tokens, 2 attackers, lr 0.2)
+LM_D = 2950528
+LM_WORKERS, LM_BATCH, LM_SEQ = 8, 2, 64
+# The train phase (20): launch/train.py's shape, the prefill's
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_ALPHA = 8, 64, 5, 0.02
+PREFILL_BATCH, PREFILL_SEQ = 8, 512
 # The plan phase: fig3 chunked at C = 7 (R % C != 0), the showdown resumed
 # at the example's C = R // 4 after a SIGKILL at the 2nd checkpoint, the
 # U = 1000 grid at C = 5 for its device memory; the paper MLP's leaf
@@ -406,8 +434,25 @@ def kernel_cases(torch, ops):
             lambda a=x: torch.sort(a, dim=-2),
             2 * x.numel() * (torch.finfo(dt).bits // 8),
             max(s, 1) * d * sort_ops(u), "exact", None, None))
-    return cases + fixed_stats_cases(torch, ops, rnd) + decode_cases(torch,
-                                                                     ops)
+    return (cases + lm_lane_cases(torch, ops, rnd, gen)
+            + fixed_stats_cases(torch, ops, rnd) + decode_cases(torch, ops))
+
+
+def lm_lane_cases(torch, ops, rnd, gen):
+    """The LM lane's rows (phase 18, D = 2 950 528, every input beyond the
+    50 MB L2): the fused step over its two analog lanes at U = 8, their 16
+    grad_stats rows, and the median lane's odd-even sort at [1, 8, D],
+    which must equal torch.sort."""
+    cases = [c for c in combine_cases(torch, ops, rnd, gen, 2, LM_WORKERS,
+                                      LM_D, torch.float32, True)
+             if c[0] in ("floa_step_batched", "grad_stats")]
+    x = rnd(1, LM_WORKERS, LM_D)
+    cases.append((
+        "sort_columns", f"S=1 U={LM_WORKERS} D={LM_D} float32", True,
+        lambda p, a=x: ops.sort_columns(a, plain=p),
+        lambda a=x: torch.sort(a, dim=-2), 2 * x.numel() * 4,
+        LM_D * sort_ops(LM_WORKERS), "exact", None, None))
+    return cases
 
 
 def fixed_stats_cases(torch, ops, rnd):
@@ -646,22 +691,28 @@ def lanes_report(result):
 def whole_run_check(name, rk, rp) -> None:
     """A sweep through the kernels (rk) against the same sweep through the
     plain versions (rp): loss, grad norm and final weights at
-    RTOL_WHOLE_RUN (atol 1e-6 on the weights)."""
+    RTOL_WHOLE_RUN (atol 1e-6 on the weights; nested params leaf by leaf,
+    each leaf's largest |diff| and, over all leaves, the largest |diff|
+    relative to its leaf's largest |value|)."""
     import numpy as np
     import torch
+    from repro_torch.tree import tree_leaves, tree_paths
     diffs = {"loss": max_errors(torch, torch.as_tensor(rk.loss),
                                 torch.as_tensor(rp.loss))[1],
              "grad_norm": max_errors(torch, torch.as_tensor(rk.grad_norm),
                                      torch.as_tensor(rp.grad_norm))[1]}
     ok = np.allclose(rk.loss, rp.loss, rtol=RTOL_WHOLE_RUN) and np.allclose(
         rk.grad_norm, rp.grad_norm, rtol=RTOL_WHOLE_RUN)
-    for k in rk.params:
-        diffs[f"params.{k}"] = max_errors(torch, rk.params[k],
-                                          rp.params[k])[0]
-        ok = ok and torch.allclose(rk.params[k], rp.params[k],
-                                   rtol=RTOL_WHOLE_RUN, atol=1e-6)
+    params_rel = 0.0
+    for path, a, b in zip(tree_paths(rk.params), tree_leaves(rk.params),
+                          tree_leaves(rp.params)):
+        diffs[f"params.{path}"] = max_errors(torch, a, b)[0]
+        params_rel = max(params_rel, diffs[f"params.{path}"]
+                         / max(float(b.float().abs().max()), 1e-30))
+        ok = ok and torch.allclose(a, b, rtol=RTOL_WHOLE_RUN, atol=1e-6)
     emit(name, rtol=RTOL_WHOLE_RUN, max_rel_err=diffs,
-         rounds=rk.loss.shape[1], ok=bool(ok))
+         params_max_rel_diff=params_rel, rounds=rk.loss.shape[1],
+         ok=bool(ok))
     if not ok:
         raise AssertionError(f"{name}: kernel route and plain route "
                              f"disagree")
@@ -1055,6 +1106,156 @@ def plan_phase(torch, np, ops, figures, tally, grid_u, mc_u) -> None:
     emit("plan_reference_paths", rounds=ROUNDS, D=d, routes=report)
 
 
+def lm_lane_phase(torch, np, ops, figures, tally) -> None:
+    """Phases 18-19: the LM lane at the full lm_sweep config through
+    `figures.run_lm_lane` (counted; its launches by shape checked), a warm
+    run's rate, the example's claims, then the plain route from the same
+    seeded draws."""
+    from repro_torch.configs import flat_param_dim, get_lm_sweep
+    cfg = get_lm_sweep()
+    d = flat_param_dim(cfg)
+    if d != LM_D:
+        raise AssertionError(f"lm_sweep's flat D is {d}, expected {LM_D}")
+    u = LM_WORKERS
+    expect = {"floa_step_batched": ROUNDS, "grad_stats": ROUNDS,
+              "sort_columns": ROUNDS}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, seconds, counts = run_phase(
+        torch, ops, "main_lm_lane",
+        lambda: figures.run_lm_lane(ROUNDS, device="cuda"),
+        {**{k: 0 for k in ops.KERNELS}, **expect})
+    peak = torch.cuda.max_memory_allocated()
+    tally(counts)
+    shapes = ops.launch_shapes()
+    want = {"floa_step_batched": {(2, u, d): ROUNDS},
+            "grad_stats": {(2 * u, d): ROUNDS},
+            "sort_columns": {(1, u, d): ROUNDS}}
+    for k, v in want.items():
+        if shapes[k] != v:
+            raise AssertionError(f"lm_lane: {k} launched at {shapes[k]}, "
+                                 f"expected {v}")
+    if not (np.isfinite(res.loss).all() and np.isfinite(res.grad_norm).all()):
+        raise AssertionError("lm_lane: non-finite loss or grad norm")
+    engine, params0, batches = figures.lm_lane_engine(ROUNDS, device="cuda")
+    engine.run(params0, batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(params0, batches)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    del engine, params0
+    tail = max(1, ROUNDS // 5)   # the example's tail
+    lanes = {n: {"loss_first": float(res.loss[i, 0]),
+                 "loss_tail_mean": float(np.mean(res.loss[i, -tail:])),
+                 "loss_final": float(res.loss[i, -1]),
+                 "grad_norm_final": float(res.grad_norm[i, -1])}
+             for i, n in enumerate(res.names)}
+    emit("main_lm_lane", config="qwen3-4b lm_sweep", D=d, workers=u,
+         batch=LM_BATCH, seq=LM_SEQ, rounds=ROUNDS, lanes=lanes, tail=tail,
+         run_seconds=seconds, steady_run_seconds=steady,
+         rounds_per_s=ROUNDS / steady, peak_memory_gb=peak / 1e9,
+         peak_above_start_gb=(peak - base) / 1e9, launches=counts,
+         launches_by_shape={k: {str(list(sh)): n for sh, n in v.items()}
+                            for k, v in want.items()})
+    clean = res.loss[res.names.index("bev-clean")]
+    attacked = res.loss[res.names.index("bev-signflip")]
+    if not np.mean(clean[-tail:]) < clean[0]:
+        raise AssertionError("lm_lane: the clean BEV lane failed to reduce "
+                             "the LM loss")
+    if not attacked[-1] > clean[-1]:
+        raise AssertionError("lm_lane: the sign-flip lane does not end above "
+                             "the clean lane")
+    # 19. the same rounds through the plain versions, from the same draws
+    ops.reset_launches()
+    rp = figures.run_lm_lane(ROUNDS, device="cuda", plain=True)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"lm_lane: the plain route launched "
+                             f"{ops.launch_counts()}")
+    whole_run_check("kernel_vs_plain_lm_lane", res, rp)
+    del res, rp
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, ops, lm, params) -> None:
+    """Phase 20: the FLOA train step at full width from `params`, then the
+    prefill step.  Counted: the step launches no kernel of the port."""
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.steps import (init_floa_state, make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models.common import count_params
+    from repro_torch.tree import tree_leaves
+    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    step, meta = make_train_step(lm, None, shape, alpha=TRAIN_ALPHA)
+    tokens = [torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
+                                            lm.vocab_size, seed=t),
+                              device="cuda") for t in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        p, state, log = params, init_floa_state("cuda"), []
+        for t in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, state, m = step(p, state, {"tokens": tokens[t]}, t)
+            torch.cuda.synchronize()
+            log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "loss": float(m["loss"]),
+                        "grad_scale": float(m["grad_scale"]),
+                        "gbar": float(state["gbar"]),
+                        "eps2": float(state["eps2"])})
+        return p, log
+
+    (trained, log), seconds, counts = run_phase(
+        torch, ops, "main_train", run, {k: 0 for k in ops.KERNELS})
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x["loss"]) for x in log):
+        raise AssertionError(f"train: non-finite loss {log}")
+    changed = [int((a != b).sum()) for a, b in
+               zip(tree_leaves(trained), tree_leaves(params))]
+    if not any(changed):
+        raise AssertionError("train: no parameter moved in 5 steps")
+    n = meta["dim"]
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    # a step's least time: 6 bf16 operations a parameter a token (forward
+    # and backward) at 989 TFLOP/s, against reading the weights, writing
+    # and reading the gradients and writing the weights (bf16)
+    t_ops = 6 * n * tokens_step / BF16_FLOPS_PER_S * 1e3
+    t_bytes = 4 * 2 * n / HBM_BYTES_PER_S * 1e3
+    warm = [x["ms"] for x in log[1:]]
+    pf, _ = make_prefill_step(lm, None, dict(
+        global_batch=PREFILL_BATCH, seq_len=PREFILL_SEQ, kind="prefill"))
+    batch = {"tokens": torch.as_tensor(sample_tokens(
+        PREFILL_BATCH, PREFILL_SEQ, lm.vocab_size, seed=7), device="cuda")}
+    logits = pf(trained, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = pf(trained, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if (tuple(logits.shape) != (PREFILL_BATCH, lm.padded_vocab)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    emit("main_train", arch=lm.name, dtype=str(lm.dtype)[6:],
+         layers=lm.n_layers, params=n, counted_params=count_params(params),
+         workers=meta["num_workers"], policy=meta["policy"],
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=log,
+         ms_per_step_warm=sum(warm) / len(warm), run_seconds=seconds,
+         bound_ms=max(t_ops, t_bytes),
+         bound_by="operations" if t_ops >= t_bytes else "bytes",
+         peak_memory_gb=peak / 1e9,
+         leaves_changed=sum(c > 0 for c in changed),
+         leaves=len(changed),
+         elements_changed_share=sum(changed) / n, launches=counts,
+         prefill={"batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
+                  "ms": prefill_ms, "logits_shape": list(logits.shape)})
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(sys.argv[2:])
@@ -1164,6 +1365,8 @@ def main() -> int:
                  lambda: figures.cases_engine(grid_u, ROUNDS_LARGE_U,
                                               mc=mc_u, device="cuda")),
                 ("showdown", ROUNDS, lambda: figures.showdown_engine(
+                    ROUNDS, device="cuda")),
+                ("lm_lane", ROUNDS, lambda: figures.lm_lane_engine(
                     ROUNDS, device="cuda"))]:
             prof = profile_phase(torch, engine_run(build))
             emit("profile", sweep=sweep, rounds=rounds,
@@ -1191,6 +1394,19 @@ def main() -> int:
         emit("profile", sweep="serve_decode_step", rounds=1,
              **profile_phase(torch, lambda: step(params, caches, tok,
                                                  positions[40])))
+        del caches
+        # one warm FLOA train step of phase 20 on the same weights
+        from repro_torch.data import sample_tokens
+        from repro_torch.launch.steps import init_floa_state, make_train_step
+        train, _ = make_train_step(lm, None, dict(
+            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train"),
+            alpha=TRAIN_ALPHA)
+        state = init_floa_state("cuda")
+        batch = {"tokens": torch.as_tensor(sample_tokens(
+            TRAIN_BATCH, TRAIN_SEQ + 1, lm.vocab_size, seed=0),
+            device="cuda")}
+        emit("profile", sweep="train_step", rounds=1,
+             **profile_phase(torch, lambda: train(params, state, batch, 0)))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -1509,7 +1725,8 @@ def main() -> int:
          weights_read_gb=weight_bytes / 1e9, run_seconds=seconds,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          window=meta["window"], launches=counts)
-    del caches, params, logits
+    # `layer`, the fill loop's last view, would keep a 19 GB cache alive
+    del caches, logits, layer
     torch.cuda.empty_cache()
 
     # 17. parity, f32, full widths, 2 layers
@@ -1526,6 +1743,16 @@ def main() -> int:
         raise AssertionError("f32 serve: kernel route and plain route "
                              "disagree")
     del lk, lp, params32
+    torch.cuda.empty_cache()
+
+    # 18-19. the LM lane at production D, and against its plain route
+    lm_lane_phase(torch, np, ops, figures, tally)
+
+    # 20. the FLOA train step and the prefill step at full width, from the
+    # serve phase's weights
+    train_phase(torch, ops, lm, params)
+    del params
+    torch.cuda.empty_cache()
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -1542,23 +1769,27 @@ def main() -> int:
     # defense grid grouped and switched (each default and strict), fig3's
     # tree state and the strict flat and tree runs; the switch dispatch at
     # [6, 10, D] and 60 rows, the strict route's leaf segments at 10, 40
-    # and 60 rows.
+    # and 60 rows.  The LM lane adds the step at [2, 8, D_lm], 16 rows of
+    # D_lm and the sort at [1, 8, D_lm].
     d, r = mc_u.dim, ROUNDS
     want_shapes = {
         "floa_step_batched": {(3, 10, d): r, (4, 10, d): 5 * r,
                               (1, 10, d): 4 * r,
-                              (1, 1000, d): ROUNDS_LARGE_U + 2 * r},
+                              (1, 1000, d): ROUNDS_LARGE_U + 2 * r,
+                              (2, LM_WORKERS, LM_D): r},
         "floa_aggregate_batched": {(2, 10, d): r, (36, 10, d): 2 * r,
                                    (6, 10, d): 2 * r, (4, 10, d): 2 * r},
         "floa_aggregate": {},
         "grad_stats": {(30, d): r, (40, d): 4 * r, (20, d): r,
                        (10, d): 3 * r, (1000, d): ROUNDS_LARGE_U + 2 * r,
-                       (360, d): 2 * r, (60, d): r},
+                       (360, d): 2 * r, (60, d): r,
+                       (2 * LM_WORKERS, LM_D): r},
         "grad_stats_fixed": {(rows, n): k * r for rows, k in
                              ((10, 1), (40, 2), (60, 1))
                              for n in MLP_SEGMENTS},
         "sort_columns": {(1, 10, d): 6 * r, (10, d): 2 * r,
-                         (8, 10, d): 4 * r, (6, 10, d): 4 * r},
+                         (8, 10, d): 4 * r, (6, 10, d): 4 * r,
+                         (1, LM_WORKERS, LM_D): r},
         "sort_columns_bitonic": {(1, 1000, d): 2 * ROUNDS_LARGE_U + 4 * r}}
     if main_shapes != want_shapes:
         raise AssertionError(f"main-path launches by shape: {main_shapes}, "
@@ -1581,7 +1812,7 @@ def main() -> int:
                                                "bound_share", "call_ms")}})
         return out
 
-    # 18. the kernel list
+    # 21. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of the BEV-SGD reproduction (the JAX package `repro`
 is the reference).  Subpackages mirror `repro`'s layout: kernels, core,
-models, configs, data, fl, checkpoint, launch; `figures` builds the paper's
-Figs. 1-4 sweeps, `launch.serve` serves an LM; `device` picks the entry
-points' device.  The sweep's public surface is exported here too, loaded on
+models, configs, data, fl, checkpoint, launch, optim; `figures` builds the
+paper's Figs. 1-4 sweeps and the real-model LM lane, `launch.train` trains
+an LM and `launch.serve` serves one; `tree` lays nested parameter dicts out
+in the JAX package's leaf order; `device` picks the entry points' device.  The sweep's public surface is exported here too, loaded on
 first use.
 Nothing here imports JAX or `repro`."""
 import importlib

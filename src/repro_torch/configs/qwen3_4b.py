@@ -2,8 +2,8 @@
 (`repro/configs/qwen3_4b.py`).
 
 Full attention natively; long_500k's 8192 SWA variant is a windowed cache,
-which the port does not have yet.  `lm_sweep()` waits for the LM lane
-(ROADMAP.md Queue 1 item 9).
+which the port does not have yet.  `lm_sweep()` is the sweep engine's
+real-model LM lane (D = 2 950 528, `figures.run_lm_lane`).
 """
 import dataclasses
 
@@ -37,3 +37,15 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         full(), n_layers=2, d_model=256, n_heads=8, n_kv_heads=2,
         head_dim=32, d_ff=512, vocab_size=512, dtype=torch.float32)
+
+
+def lm_sweep() -> ModelConfig:
+    """The sweep engine's real-model LM lane: a shrunk qwen3-shaped
+    transformer whose flat parameter count is D = 2 950 528, large enough
+    to drive `floa_step_batched` / `grad_stats` / `sort_columns` at
+    production D, small enough that the [S, U, D] gradient slab of a
+    few-lane sweep fits one card.  f32, so the flat-state sweeps stay
+    reproducible."""
+    return dataclasses.replace(
+        full(), n_layers=2, d_model=256, n_heads=8, n_kv_heads=2,
+        head_dim=32, d_ff=1024, vocab_size=2048, dtype=torch.float32)

@@ -32,3 +32,18 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).smoke()
+
+
+def get_lm_sweep(arch: str = "qwen3-4b") -> ModelConfig:
+    """The config an arch contributes to the sweep engine's real-model LM
+    lane; only archs with an `lm_sweep()` variant have one
+    (AttributeError otherwise)."""
+    return _module(arch).lm_sweep()
+
+
+def flat_param_dim(cfg: ModelConfig) -> int:
+    """Flat parameter count D of a config, the sweep engine's state-row
+    width: counted off an init on the "meta" device (nothing is
+    allocated)."""
+    from repro_torch.launch.steps import param_count
+    return param_count(cfg)

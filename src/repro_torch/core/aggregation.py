@@ -35,6 +35,8 @@ from repro_torch.core import standardize as S
 from repro_torch.core.channel import ChannelConfig, sample_channel_gains
 from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.kernels import ops
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_unflatten)
 
 Tensor = torch.Tensor
 
@@ -66,8 +68,8 @@ def per_worker_grads(loss_fn: Callable, params, batch: Dict[str, Tensor],
     """Per-worker gradients of loss_fn(params, batch) over a worker-split
     batch: leaves [U*B, ...] -> [U, B, ...], then vmap(grad) over U.
 
-    params may be one tensor (a flat row) or a dict of tensors; the result
-    has the same structure with a leading U axis."""
+    params may be one tensor (a flat row) or a nested dict of tensors; the
+    result has the same structure with a leading U axis."""
     def split(x):
         if x.shape[0] % num_workers:
             raise ValueError(f"global batch {x.shape[0]} not divisible by "
@@ -82,19 +84,21 @@ def _weighted_reduce(grads_u: Dict[str, Tensor], weights: Tensor
                      ) -> Dict[str, Tensor]:
     """sum_i weights[i] * g_i over the leading worker axis (the OTA sum),
     one tensordot per leaf."""
-    return {k: torch.tensordot(weights.to(g.dtype), g, dims=([0], [0]))
-            for k, g in grads_u.items()}
+    return tree_map(lambda g: torch.tensordot(weights.to(g.dtype), g,
+                                              dims=([0], [0])), grads_u)
 
 
 def _leaf_noise(generator: Optional[torch.Generator],
                template: Dict[str, Tensor]) -> Dict[str, Tensor]:
-    """Standard-normal f32 draws shaped like each leaf of `template`, drawn
-    leaf by leaf in sorted key order from one generator (the reference's
+    """Standard-normal f32 draws shaped like each leaf of `template` (a
+    nested dict), drawn leaf by leaf in the JAX package's leaf order (keys
+    sorted at every level) from one generator (the reference's
     `_sharded_noise` draws each leaf from its own folded key; the caller
     scales them)."""
-    return {k: torch.randn(template[k].shape, generator=generator,
-                           device=template[k].device)
-            for k in sorted(template)}
+    leaves, treedef = tree_flatten(template)
+    return tree_unflatten(treedef, [
+        torch.randn(x.shape, generator=generator, device=x.device)
+        for x in leaves])
 
 
 def round_draws(cfg: FLOAConfig, template: Dict[str, Tensor],
@@ -111,7 +115,7 @@ def round_draws(cfg: FLOAConfig, template: Dict[str, Tensor],
     out = {"h_abs": None, "z": None, "jam": None}
     if cfg.power.policy == Policy.EF:
         return out
-    dev = next(iter(template.values())).device
+    dev = tree_leaves(template)[0].device
     out["h_abs"] = sample_channel_gains(generator, cfg.channel, dev)
     if cfg.channel.noise_std > 0.0:
         out["z"] = _leaf_noise(noise_generator or generator, template)
@@ -136,7 +140,7 @@ def aggregate(grads_u: Dict[str, Tensor], cfg: FLOAConfig, *,
     mean share."""
     cfg.validate()
     u = cfg.num_workers
-    dev = next(iter(grads_u.values())).device
+    dev = tree_leaves(grads_u)[0].device
     gbar_i, eps2_i = S.per_worker_scalar_stats(grads_u)
     gbar, eps2 = S.global_stats(gbar_i, eps2_i)
 
@@ -150,7 +154,7 @@ def aggregate(grads_u: Dict[str, Tensor], cfg: FLOAConfig, *,
                    eps2=eps2, bias_w=torch.zeros((), device=dev))
         return _weighted_reduce(grads_u, s), aux
 
-    template = {k: g[0] for k, g in grads_u.items()}
+    template = tree_map(lambda g: g[0], grads_u)
     if draws is None:
         draws = round_draws(cfg, template, generator)
     h_abs = draws["h_abs"]
@@ -158,28 +162,27 @@ def aggregate(grads_u: Dict[str, Tensor], cfg: FLOAConfig, *,
                                       cfg.attack, gbar, eps2)
     # OTA superposition, then the attackers' de-standardization bias
     gagg = _weighted_reduce(grads_u, s)
-    gagg = {k: g + (bias_w * gbar).to(g.dtype) for k, g in gagg.items()}
+    gagg = tree_map(lambda g: g + (bias_w * gbar).to(g.dtype), gagg)
     # receiver AWGN, scaled by eps_t (eq. 7 fourth term)
     eps = torch.sqrt(eps2)
     if cfg.channel.noise_std > 0.0:
         z = draws["z"]
-        gagg = {k: g + eps.to(g.dtype)
-                * (cfg.channel.noise_std * z[k]).to(g.dtype)
-                for k, g in gagg.items()}
+        gagg = tree_map(lambda g, zk: g + eps.to(g.dtype)
+                        * (cfg.channel.noise_std * zk).to(g.dtype), gagg, z)
     # unstructured jamming (GAUSSIAN only)
     jam_std = A.gaussian_jam_std(h_abs, cfg.power, cfg.attack, eps2)
     if (cfg.attack.attack == A.AttackType.GAUSSIAN
             and cfg.attack.num_attackers):
         jam = draws["jam"]
-        gagg = {k: g + jam_std.to(g.dtype) * jam[k].to(g.dtype)
-                for k, g in gagg.items()}
+        gagg = tree_map(lambda g, jk: g + jam_std.to(g.dtype)
+                        * jk.to(g.dtype), gagg, jam)
     aux = dict(h_abs=h_abs, coeffs=s, gbar=gbar, eps2=eps2, bias_w=bias_w)
     return gagg, aux
 
 
 def mean_aggregate(grads_u: Dict[str, Tensor]) -> Dict[str, Tensor]:
     """Plain FedSGD mean (the EF path without the FLOA bookkeeping)."""
-    return {k: g.mean(dim=0) for k, g in grads_u.items()}
+    return tree_map(lambda g: g.mean(dim=0), grads_u)
 
 
 def floa_grad(loss_fn: Callable, params, batch: Dict[str, Tensor],
@@ -190,28 +193,27 @@ def floa_grad(loss_fn: Callable, params, batch: Dict[str, Tensor],
 
 
 def flatten_worker_grads(grads_u: Dict[str, Tensor], batch_dims: int = 1):
-    """Dict with [*lead, ...] leaves -> ([*lead, D] f32 matrix, unflatten).
+    """Nested dict with [*lead, ...] leaves -> ([*lead, D] f32 matrix,
+    unflatten).
 
-    Leaves are concatenated in SORTED key order — the order in which
-    `jax.tree_util.tree_flatten` visits a dict — so a flat row here is the
-    JAX package's flat row (b1 | b2 | w1 | w2 for the paper MLP).
-    unflatten maps a [*lead[:-1], D] aggregate back to the dict."""
-    keys = sorted(grads_u)
-    first = grads_u[keys[0]]
-    lead = first.shape[:batch_dims]
-    shapes = {k: grads_u[k].shape[batch_dims:] for k in keys}
-    dtypes = {k: grads_u[k].dtype for k in keys}
-    flat = torch.cat([grads_u[k].reshape(*lead, -1).float() for k in keys],
-                     dim=-1)
+    Leaves are concatenated in the order in which `jax.tree_util` visits a
+    nested dict (keys sorted at every level, `repro_torch.tree`), so a flat
+    row here is the JAX package's flat row (b1 | b2 | w1 | w2 for the paper
+    MLP).  unflatten maps a [*lead[:-1], D] aggregate back to the tree."""
+    leaves, treedef = tree_flatten(grads_u)
+    lead = leaves[0].shape[:batch_dims]
+    shapes = [x.shape[batch_dims:] for x in leaves]
+    dtypes = [x.dtype for x in leaves]
+    flat = torch.cat([x.reshape(*lead, -1).float() for x in leaves], dim=-1)
 
     def unflatten(vec: Tensor) -> Dict[str, Tensor]:
-        out, off = {}, 0
-        for k in keys:
-            n = shapes[k].numel()
-            out[k] = (vec[..., off:off + n]
-                      .reshape(*vec.shape[:-1], *shapes[k]).to(dtypes[k]))
+        out, off = [], 0
+        for shape, dtype in zip(shapes, dtypes):
+            n = shape.numel()
+            out.append(vec[..., off:off + n]
+                       .reshape(*vec.shape[:-1], *shape).to(dtype))
             off += n
-        return out
+        return tree_unflatten(treedef, out)
 
     return flat, unflatten
 

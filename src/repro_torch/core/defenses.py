@@ -43,7 +43,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.core.aggregation import mean_aggregate
+from repro_torch.core.aggregation import flatten_worker_grads, mean_aggregate
 from repro_torch.core.scenario import DEFENSE_CODES
 from repro_torch.core.standardize import participation_scale
 from repro_torch.kernels import ops
@@ -446,50 +446,32 @@ def make_flat_defense_selector(codes: Optional[Sequence[int]] = None,
 
 
 # ----------------------------------------------------------- pytree wrappers
-
-
-def _flatten_u(grads_u: Dict[str, Tensor]):
-    """{name: [U, ...]} -> ([U, D] f32 slab in sorted key order, unravel),
-    unravel mapping a [D] row back to the dict (leaf shapes and dtypes)."""
-    keys = sorted(grads_u)
-    u = grads_u[keys[0]].shape[0]
-    flat = torch.cat([grads_u[k].reshape(u, -1).float() for k in keys],
-                     dim=1)
-
-    def unravel(vec: Tensor) -> Dict[str, Tensor]:
-        out, off = {}, 0
-        for k in keys:
-            x = grads_u[k]
-            n = x[0].numel()
-            out[k] = vec[off:off + n].reshape(x.shape[1:]).to(x.dtype)
-            off += n
-        return out
-
-    return flat, unravel
+# Each flattens the (nested) {name: [U, ...]} gradients to the [U, D] slab
+# in the JAX package's leaf order and unravels the [D] aggregate back.
 
 
 def coordinate_median(grads_u, *, plain: bool = False):
-    flat, unravel = _flatten_u(grads_u)
+    flat, unravel = flatten_worker_grads(grads_u)
     return unravel(flat_median(flat, plain=plain))
 
 
 def trimmed_mean(grads_u, trim: int = 1, *, plain: bool = False):
     """Remove the `trim` largest and smallest per coordinate, then mean."""
-    flat, unravel = _flatten_u(grads_u)
+    flat, unravel = flatten_worker_grads(grads_u)
     return unravel(flat_trimmed_mean(flat, trim, plain=plain))
 
 
 def krum(grads_u, num_byzantine: int, multi: int = 1, *,
          plain: bool = False):
     """(Multi-)Krum: the mean of the `multi` lowest-scoring workers."""
-    flat, unravel = _flatten_u(grads_u)
+    flat, unravel = flatten_worker_grads(grads_u)
     return unravel(flat_krum(flat, num_byzantine, multi))
 
 
 def geometric_median(grads_u, iters: int = 8, eps: float = 1e-8, *,
                      plain: bool = False):
     """Weiszfeld iterations for the geometric median."""
-    flat, unravel = _flatten_u(grads_u)
+    flat, unravel = flatten_worker_grads(grads_u)
     return unravel(flat_geometric_median(flat, iters=iters, eps=eps))
 
 

@@ -27,26 +27,23 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ops
+# tree_size lives here in the reference
+from repro_torch.tree import tree_leaves, tree_map, tree_size  # noqa: F401
 
 Tensor = torch.Tensor
-
-
-def tree_size(tree: Dict[str, Tensor]) -> int:
-    """Total number of scalar entries D across all leaves."""
-    return sum(int(x.numel()) for x in tree.values())
 
 
 def per_worker_scalar_stats(grads_u: Dict[str, Tensor], batch_dims: int = 1
                             ) -> Tuple[Tensor, Tensor]:
     """(gbar_i, eps2_i) per worker from stacked per-worker gradients.
 
-    grads_u: dict whose leaves have `batch_dims` leading axes ([U, ...], or
-    [S, U, ...] with batch_dims=2, the reference's vmap over lanes).
-    Returns gbar and eps2 of those leading shape, the per-worker mean and
-    (biased) variance of the D gradient entries: f32 sums per leaf, added
-    leaf by leaf in sorted key order (the reference's `tree_leaves`
-    order)."""
-    leaves = [grads_u[k] for k in sorted(grads_u)]
+    grads_u: nested dict whose leaves have `batch_dims` leading axes ([U,
+    ...], or [S, U, ...] with batch_dims=2, the reference's vmap over
+    lanes).  Returns gbar and eps2 of those leading shape, the per-worker
+    mean and (biased) variance of the D gradient entries: f32 sums per
+    leaf, added leaf by leaf in the reference's `tree_leaves` order (keys
+    sorted at every level)."""
+    leaves = tree_leaves(grads_u)
     lead = leaves[0].shape[:batch_dims]
     d = sum(int(x[(0,) * batch_dims].numel()) for x in leaves)
     s1 = sum(x.float().reshape(*lead, -1).sum(dim=-1) for x in leaves)
@@ -121,11 +118,11 @@ def standardize(tree: Dict[str, Tensor], gbar: Tensor, eps2: Tensor
                 ) -> Dict[str, Tensor]:
     """eq. (3): (g - gbar 1) / eps, elementwise over the dict."""
     inv = torch.rsqrt(eps2)
-    return {k: (g - gbar) * inv for k, g in tree.items()}
+    return tree_map(lambda g: (g - gbar) * inv, tree)
 
 
 def destandardize(tree: Dict[str, Tensor], coeff_sum: Tensor, gbar: Tensor,
                   eps2: Tensor) -> Dict[str, Tensor]:
     """eq. (7): eps * y + coeff_sum * gbar * 1, elementwise over the dict."""
     eps = torch.sqrt(eps2)
-    return {k: eps * y + coeff_sum * gbar for k, y in tree.items()}
+    return tree_map(lambda y: eps * y + coeff_sum * gbar, tree)

@@ -1,7 +1,7 @@
 """Per-worker federated batch sampling (numpy only).
 
-A copy of the `FederatedSampler` and `dirichlet_worker_split` parts of
-`repro/data/pipeline.py`: each worker holds a local shard and samples its
+A copy of the `FederatedSampler`, `dirichlet_worker_split` and
+`TokenBatcher` parts of `repro/data/pipeline.py`: each worker holds a local shard and samples its
 own minibatch each round; the global batch is the concatenation ordered by
 worker index, so batch.reshape(U, -1, ...) recovers worker locality — the
 layout `core.aggregation.per_worker_grads` expects.  Same seed, same bytes
@@ -20,7 +20,7 @@ without the whole stack; both concatenate to exactly `stack_rounds(R)`.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -128,3 +128,26 @@ class FederatedSampler:
         while done < rounds:
             yield self.stack_rounds(min(chunk_rounds, rounds - done))
             done += chunk_rounds
+
+
+class TokenBatcher:
+    """Iterates [global_batch, seq_len + 1] token batches from a generator
+    fn (`sample_fn(n_seqs, seq_len)`, e.g. `data.text.sample_tokens` with
+    its vocab bound): the train step's {"tokens"} batches, one more
+    position than the loss trains on."""
+
+    def __init__(self, sample_fn: Callable[[int, int], np.ndarray],
+                 global_batch: int, seq_len: int, seed: int = 0):
+        self.sample_fn = sample_fn
+        self.global_batch = global_batch
+        self.seq_len = seq_len
+        self.seed = seed
+        self.step = 0
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        batch = self.sample_fn(self.global_batch, self.seq_len + 1)
+        self.step += 1
+        return {"tokens": batch}

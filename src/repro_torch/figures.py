@@ -21,6 +21,12 @@ adaptive-adversary axes — Gauss-Markov fading, K-of-U participation,
 colluding and omniscient cohorts — as lanes of the same sweep), with the
 example's preemption-safe --checkpoint-dir / --resume as `run_showdown`'s
 checkpoint_dir / resume.
+
+The real-model LM lane (examples/train_floa_lm.py): `lm_lanes` /
+`run_lm_lane` train the qwen3-shaped `lm_sweep` transformer (D = 2 950 528)
+on the synthetic Markov token stream through ONE sweep: clean BEV, the
+Thm-1 sign-flip attack on the same channel, and median screening of that
+attack, at U = 8.
 """
 from __future__ import annotations
 
@@ -29,14 +35,15 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs import PAPER_MLP
+from repro_torch.configs import PAPER_MLP, flat_param_dim, get_lm_sweep
 from repro_torch.core import theory
 from repro_torch.core.aggregation import FLOAConfig
 from repro_torch.core.attacks import AttackConfig, AttackType, first_n_mask
 from repro_torch.core.channel import ChannelConfig, noise_std_for_snr
 from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.core.scenario import DefenseSpec
-from repro_torch.data import FederatedSampler, make_dataset, worker_split
+from repro_torch.data import (FederatedSampler, make_dataset,
+                              stack_token_rounds, worker_split)
 from repro_torch.device import resolve_device
 from repro_torch.fl.plan import ExecutionPlan
 from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepResult,
@@ -44,6 +51,7 @@ from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepResult,
 from repro_torch.fl.trainer import FLTrainer, RoundLog
 from repro_torch.launch.staging import as_device_array
 from repro_torch.models import init_mlp, mlp_accuracy, mlp_loss
+from repro_torch.models.transformer import init_lm, lm_loss
 
 
 @dataclasses.dataclass
@@ -363,3 +371,83 @@ def run_showdown(rounds: int = 100, dirichlet: Optional[float] = None,
     engine, params, batches = showdown_engine(rounds, dirichlet, mc, device,
                                               force_plain, checkpoint_dir)
     return engine.run(params, batches, resume=resume)
+
+
+def lm_lanes(u: int, dim: int, n_atk: int, lr: float) -> List[ScenarioCase]:
+    """The LM lane's three lanes (examples/train_floa_lm.py::lm_lanes):
+    no-attack BEV FLOA (noise 0.05, seed 11), the Thm-1 sign-flip attack
+    on the same channel (seed 12), and median screening of that attack
+    (EF, noiseless, seed 13)."""
+    def floa(policy, attack, n, noise=0.05):
+        return FLOAConfig(
+            channel=ChannelConfig(num_workers=u, sigma=1.0,
+                                  noise_std=0.0 if policy == Policy.EF
+                                  else noise),
+            power=PowerConfig(num_workers=u, dim=dim, p_max=1.0,
+                              policy=policy),
+            attack=AttackConfig(attack=attack if n else AttackType.NONE,
+                                byzantine_mask=first_n_mask(u, n)))
+
+    return [
+        ScenarioCase("bev-clean", floa(Policy.BEV, AttackType.NONE, 0),
+                     lr, seed=11),
+        ScenarioCase("bev-signflip",
+                     floa(Policy.BEV, AttackType.STRONGEST, n_atk),
+                     lr, seed=12),
+        ScenarioCase("median-signflip",
+                     floa(Policy.EF, AttackType.STRONGEST, n_atk, noise=0.0),
+                     lr, seed=13, defense=DefenseSpec(name="median")),
+    ]
+
+
+def lm_lane_engine(rounds: int, *, cfg=None, workers: int = 8,
+                   batch: int = 2, seq: int = 64, byzantine: int = 2,
+                   lr: float = 0.2, chunk_rounds: Optional[int] = None,
+                   checkpoint_dir: Optional[str] = None, device="cuda",
+                   plain: bool = False, model_shards: int = 1):
+    """The LM lane's sweep, built but not run: (engine, params0, batches).
+    cfg defaults to `configs.get_lm_sweep()`; the weights are the port's
+    own draw from a seed-0 generator; the batches one Markov token batch a
+    round, [R, U*B, seq+1] (`stack_token_rounds(..., seed=0)`), which
+    `per_worker_grads` splits into U workers of B sequences.  As the
+    example: a checkpoint directory without chunk_rounds takes chunks of
+    max(1, R // 4); model_shards > 1 raises (ROADMAP.md Queue 1 item 8).
+    plain=True is SweepEngine's force_plain (kernel-vs-plain checks)."""
+    if model_shards > 1:
+        raise NotImplementedError(
+            f"model_shards={model_shards}: sharding the flat state is not "
+            f"ported (ROADMAP.md Queue 1 item 8)")
+    cfg = cfg or get_lm_sweep()
+    dev = resolve_device(device)
+    dim = flat_param_dim(cfg)
+    spec = SweepSpec.build(lm_lanes(workers, dim, byzantine, lr))
+    batches = {"tokens": stack_token_rounds(
+        rounds, workers * batch, seq + 1, cfg.vocab_size, seed=0)}
+    params0 = init_lm(torch.Generator(dev).manual_seed(0), cfg, dev)
+    if checkpoint_dir is not None and chunk_rounds is None:
+        chunk_rounds = max(1, rounds // 4)
+    plan = ExecutionPlan(chunk_rounds=chunk_rounds,
+                         checkpoint_dir=checkpoint_dir)
+    engine = SweepEngine(lambda p, b: lm_loss(p, b, cfg), spec, plan=plan,
+                         device=dev, force_plain=plain)
+    return engine, params0, batches
+
+
+def run_lm_lane(rounds: int, *, cfg=None, workers: int = 8, batch: int = 2,
+                seq: int = 64, byzantine: int = 2, lr: float = 0.2,
+                chunk_rounds: Optional[int] = None,
+                checkpoint_dir: Optional[str] = None, resume: bool = False,
+                device="cuda", plain: bool = False, draws=None,
+                model_shards: int = 1) -> SweepResult:
+    """examples/train_floa_lm.py as ONE sweep call on `device`
+    (`lm_lane_engine`); resume=True continues from checkpoint_dir's latest
+    checkpoint (a fresh run when there is none yet); draws overrides the
+    lanes' seeded draws (`SweepEngine.run`)."""
+    if resume and checkpoint_dir is None:
+        raise ValueError("resume=True requires checkpoint_dir")
+    engine, params, batches = lm_lane_engine(
+        rounds, cfg=cfg, workers=workers, batch=batch, seq=seq,
+        byzantine=byzantine, lr=lr, chunk_rounds=chunk_rounds,
+        checkpoint_dir=checkpoint_dir, device=device, plain=plain,
+        model_shards=model_shards)
+    return engine.run(params, batches, draws=draws, resume=resume)

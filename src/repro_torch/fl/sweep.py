@@ -119,6 +119,7 @@ from repro_torch.data.pipeline import iter_chunk_blocks
 from repro_torch.device import resolve_device
 from repro_torch.fl.plan import ExecutionPlan
 from repro_torch.launch.staging import BlockStager
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -302,7 +303,7 @@ class SweepResult:
     """Per-scenario, per-round trajectories ([S, R] numpy arrays)."""
 
     names: Tuple[str, ...]
-    params: Dict[str, Tensor]       # final params, leaves [S, ...]
+    params: Dict[str, object]       # final params (nested), leaves [S, ...]
     loss: np.ndarray                # [S, R]
     grad_norm: np.ndarray           # [S, R]
     metrics: Dict[str, np.ndarray]  # each [S, R]
@@ -324,9 +325,10 @@ class SweepResult:
 
     @classmethod
     def load(cls, path: str) -> "SweepResult":
-        """Inverse of `save`: byte-exact arrays (params as CPU tensors,
-        trajectories and metrics as numpy arrays), names, metrics.  A file
-        that is not a saved SweepResult raises ValueError."""
+        """Inverse of `save`: byte-exact arrays (params as CPU tensors in
+        their nested dicts, trajectories and metrics as numpy arrays),
+        names, metrics.  A file that is not a saved SweepResult raises
+        ValueError."""
         tree, meta = CKPT.read_tree(path)
         kind = meta.get("extra", {}).get("kind")
         if kind != "SweepResult":
@@ -356,28 +358,29 @@ class SweepResult:
                 if eval_every and (t % eval_every == 0 or t == rounds - 1)]
 
 
-def stack_params(params: Dict[str, Tensor], num: int) -> Dict[str, Tensor]:
-    """Broadcast one init dict to a stacked [S, ...] scenario axis."""
-    return {k: v[None].expand(num, *v.shape) for k, v in params.items()}
+def stack_params(params, num: int):
+    """Broadcast one init tree to a stacked [S, ...] scenario axis."""
+    return tree_map(lambda v: v[None].expand(num, *v.shape), params)
 
 
-def make_row_unflatten(template: Dict[str, Tensor]):
-    """[..., D] flat rows -> params dict, as VIEWS of the row (so gradients
-    taken with respect to the row reach every leaf).
+def make_row_unflatten(template):
+    """[..., D] flat rows -> params tree (nested dicts), as VIEWS of the row
+    (so gradients taken with respect to the row reach every leaf).
 
-    Leaves are laid out in sorted key order — the JAX package's flat order
-    (`jax.tree_util.tree_flatten` sorts dict keys): b1 | b2 | w1 | w2 for the
-    paper MLP.  Returns (unflatten_row, sizes), sizes in that order."""
-    keys = sorted(template)
-    shapes = [tuple(template[k].shape) for k in keys]
+    Leaves are laid out in the JAX package's flat order
+    (`jax.tree_util.tree_flatten` sorts dict keys at every level,
+    `repro_torch.tree`): b1 | b2 | w1 | w2 for the paper MLP.  Returns
+    (unflatten_row, sizes), sizes in that order."""
+    leaves, treedef = tree_flatten(template)
+    shapes = [tuple(x.shape) for x in leaves]
     sizes = tuple(math.prod(s) for s in shapes)
 
-    def unflatten_row(w: Tensor) -> Dict[str, Tensor]:
-        out, off = {}, 0
-        for k, shape, n in zip(keys, shapes, sizes):
-            out[k] = w[..., off:off + n].reshape(*w.shape[:-1], *shape)
+    def unflatten_row(w: Tensor):
+        out, off = [], 0
+        for shape, n in zip(shapes, sizes):
+            out.append(w[..., off:off + n].reshape(*w.shape[:-1], *shape))
             off += n
-        return out
+        return tree_unflatten(treedef, out)
 
     return unflatten_row, sizes
 
@@ -859,17 +862,17 @@ class SweepEngine:
             if not self.strict_numerics:   # per leaf, off the tree
                 def stats(rows):
                     return S.per_worker_scalar_stats(
-                        {k: g[rows] for k, g in grads.items()}, batch_dims=2)
+                        tree_map(lambda g: g[rows], grads), batch_dims=2)
             _, gagg_flat = self._aggregate(None, flat, draw, sizes, stats)
             gagg = unflatten(gagg_flat)
             alpha = self._sp_exec.alpha
-            new = {k: p - (alpha.reshape(-1, *([1] * (p.dim() - 1)))
-                           * gagg[k]).to(p.dtype)
-                   for k, p in params.items()}
+            new = tree_map(lambda p, g: p - (
+                alpha.reshape(-1, *([1] * (p.dim() - 1))) * g).to(p.dtype),
+                params, gagg)
             gn = torch.sqrt(torch.sum(gagg_flat * gagg_flat, dim=-1))
             return new, loss_lanes(new, batch), gn
 
-        return one_round, lambda p, i: {k: v[i] for k, v in p.items()}
+        return one_round, lambda p, i: tree_map(lambda v: v[i], p)
 
     @torch.no_grad()
     def _eval(self, state, lane_view, num: int) -> Dict[str, Tensor]:
@@ -932,7 +935,7 @@ class SweepEngine:
                 f"{ {k: want[k] for k in mismatch} })")
         carry, dev = saved["carry"], self.device
         if isinstance(state, dict):
-            state = {k: carry["state"][k].to(dev) for k in state}
+            state = tree_map(lambda _, v: v.to(dev), state, carry["state"])
         else:
             state = carry["state"].to(dev)
         h = carry["h"].to(dev) if "h" in carry else None
@@ -950,7 +953,8 @@ class SweepEngine:
     def run(self, params0: Dict[str, Tensor], batches: Dict[str, np.ndarray],
             draws: Optional[Callable[[int], Dict[str, Tensor]]] = None,
             resume: bool = False) -> SweepResult:
-        """params0: one init dict (JAX layout), broadcast to every lane.
+        """params0: one init tree (nested dicts, JAX layout), broadcast to
+        every lane.
         batches: dict of [R, U*B, ...] arrays shared by every lane (host
         arrays; chunked plans stage [C, ...] blocks of them).  draws:
         optional per-round draw provider (module docstring); None uses
@@ -963,8 +967,7 @@ class SweepEngine:
                 "engine with plan=ExecutionPlan(checkpoint_dir=..., "
                 "chunk_rounds=...)")
         dev, num = self.device, len(self.spec)
-        params0 = {k: torch.as_tensor(v, device=dev)
-                   for k, v in params0.items()}
+        params0 = tree_map(lambda v: torch.as_tensor(v, device=dev), params0)
         unflatten_row, sizes = make_row_unflatten(params0)
         d = sum(sizes)
         rounds = next(iter(batches.values())).shape[0]
@@ -975,7 +978,7 @@ class SweepEngine:
             state, _ = flatten_worker_grads(stacked, batch_dims=1)
             state = state.contiguous()                          # [S, D] f32
         else:
-            state = {k: v.contiguous() for k, v in stacked.items()}
+            state = tree_map(lambda v: v.contiguous(), stacked)
         if self._perm is not None:   # every lane starts from params0 anyway
             state = SC.permute_lanes(state, self._perm)
         one_round, lane_view = self._round_fn(unflatten_row, sizes)
@@ -1045,7 +1048,7 @@ class SweepEngine:
             final = SC.permute_lanes(final, self._inverse)
         return SweepResult(
             names=self.spec.names,
-            params={k: v.clone() for k, v in final.items()},
+            params=tree_map(lambda v: v.clone(), final),
             loss=lanes(out["loss"]), grad_norm=lanes(out["grad_norm"]),
             metrics={k: lanes(v) for k, v in out["metrics"].items()})
 

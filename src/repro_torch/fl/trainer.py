@@ -45,6 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepSpec,
                                   lane_generator)
 from repro_torch.launch.staging import as_device_array
+from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 Draws = Callable[[int], Dict[str, object]]
@@ -97,16 +98,17 @@ class FLTrainer:
                     and floa.attack.attack != AttackType.NONE):
                 sgn = torch.where(floa.attack.mask().to(self.device),
                                   -1.0, 1.0)
-                grads_u = {k: g * sgn.reshape((-1,) + (1,) * (g.ndim - 1))
-                           .to(g.dtype) for k, g in grads_u.items()}
+                grads_u = tree_map(
+                    lambda g: g * sgn.reshape((-1,) + (1,) * (g.ndim - 1))
+                    .to(g.dtype), grads_u)
             gagg = DEF.digital_aggregate(grads_u, self.defense,
                                          plain=self.force_plain,
                                          **self.defense_kwargs)
         with torch.no_grad():
-            new_params = {k: p - self.alpha * gagg[k].to(p.dtype)
-                          for k, p in params.items()}
-            gn = torch.sqrt(sum(torch.sum(torch.square(gagg[k].float()))
-                                for k in sorted(gagg)))
+            new_params = tree_map(lambda p, g: p - self.alpha * g.to(p.dtype),
+                                  params, gagg)
+            gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                for g in tree_leaves(gagg)))
             loss = self.loss_fn(new_params, batch)
         return new_params, loss, gn
 
@@ -122,12 +124,11 @@ class FLTrainer:
         else:
             gens = tuple(lane_generator(int(rng), slot, self.device)
                          for slot in (0, 1, 2))
-        template = {k: v for k, v in params.items()}
-        return lambda t: AGG.round_draws(self.floa, template, *gens)
+        return lambda t: AGG.round_draws(self.floa, params, *gens)
 
     def _to_device(self, params) -> Dict[str, Tensor]:
-        return {k: torch.as_tensor(v, device=self.device).clone()
-                for k, v in params.items()}
+        return tree_map(lambda v: torch.as_tensor(v, device=self.device)
+                        .clone(), params)
 
     def _eval(self, params) -> dict:
         if self.eval_fn is None:
@@ -240,11 +241,11 @@ class FLTrainer:
 
     def _lane_draws(self, draws: Draws) -> Draws:
         """This trainer's draws in the sweep's one-lane format: [1, U]
-        gains, [1, D] rows flattened in sorted leaf order."""
+        gains, [1, D] rows flattened in the JAX package's leaf order."""
         def flat(x):
             if x is None:
                 return None
-            return torch.cat([x[k].reshape(-1) for k in sorted(x)])[None]
+            return torch.cat([v.reshape(-1) for v in tree_leaves(x)])[None]
 
         def lane(t):
             dr = draws(t) or {}
@@ -275,7 +276,7 @@ class FLTrainer:
         res = engine.run(params, batches, draws=draws)
         wall = (time.perf_counter() - t0) / rounds
         acc = res.metrics.get("accuracy")
-        params_out = {k: v[0] for k, v in res.params.items()}
+        params_out = tree_map(lambda v: v[0], res.params)
         return params_out, self._scan_logs(
             res.loss[0], res.grad_norm[0],
             None if acc is None else acc[0, -1], eval_every, wall)

@@ -1,10 +1,15 @@
-"""GQA attention of the port: weights, q/k/v with qk-norm and RoPE, and the
-one-token KV-cache decode step (`repro/models/attention.py`).
+"""GQA attention of the port: weights, q/k/v with qk-norm and RoPE, the
+full-sequence attention of training and prefill, and the one-token KV-cache
+decode step (`repro/models/attention.py`).
 
 Weight layout as in the JAX package: wq [d, H, hd], wk/wv [d, KV, hd],
 wo [H, hd, d].  The projections are plain `torch.matmul`s over the
 flattened head axes; the attention of a decode step is the hand-written
-CUDA kernel behind `kernels/ops.py::decode_attention`.
+CUDA kernel behind `kernels/ops.py::decode_attention`.  The full-sequence
+attention (`gqa_full`: `_gqa_core` over query chunks of Q_CHUNK) is plain
+`torch.einsum` and softmax in f32, as the reference computes it in XLA
+einsums outside any Pallas kernel.  The encoder-decoder
+`cross_attention` is not ported (ROADMAP.md Queue 1 item 10).
 
 Only the dense, native-dtype cache of full attention is ported.  A window
 (the ring-buffer cache of sliding-window archs and of long_500k's SWA),
@@ -18,7 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import (ModelConfig, ParamInit, rms_norm,
+from repro_torch.models.common import (ModelConfig, ParamInit,
+                                       make_causal_mask, rms_norm,
                                        rope_cos_sin, rope_rotate)
 
 Tensor = torch.Tensor
@@ -57,6 +63,62 @@ def _qkv(p: Dict, x: Tensor, cfg: ModelConfig,
     if rope is not None:
         q, k = rope_rotate(q, *rope), rope_rotate(k, *rope)
     return q, k, v
+
+
+def _gqa_core(q: Tensor, k: Tensor, v: Tensor,
+              mask: Optional[Tensor]) -> Tensor:
+    """q [B, Sq, H, hd], k/v [B, Sk, KV, hd] -> [B, Sq, H, hd]; scores and
+    softmax in f32, masked-out scores set to -1e30 (mask broadcasts to
+    [B, KV, G, Sq, Sk])."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    scores = torch.einsum("bqhgd,bshd->bhgqs", qg, k).float()
+    # sqrt(hd) rounded in f32, as the reference's jnp.sqrt(float32(hd)),
+    # taken on the host: a device scalar built from a host value would
+    # wait for the stream
+    scores = scores / float(torch.tensor(float(hd)).sqrt())
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqs,bshd->bqhgd", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+Q_CHUNK = 1024  # query-block size for memory-bounded full attention
+
+
+def _chunked_attn(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  window: Optional[int], q_chunk: int = Q_CHUNK) -> Tensor:
+    """Query-chunked attention: the scores never exceed
+    [B, H, q_chunk, Sk] at once (the chunks run one after another; each
+    chunk's causal mask is offset by its first query's position)."""
+    b, sq, h, hd = q.shape
+    if sq <= q_chunk:
+        mask = (make_causal_mask(sq, sq, 0, window, q.device)[None, None, None]
+                if causal else None)
+        return _gqa_core(q, k, v, mask)
+    if sq % q_chunk:
+        raise ValueError(f"sequence {sq} is not a multiple of the query "
+                         f"chunk {q_chunk}")
+    outs = []
+    for off in range(0, sq, q_chunk):
+        mask = (make_causal_mask(q_chunk, sq, off, window,
+                                 q.device)[None, None, None]
+                if causal else None)
+        outs.append(_gqa_core(q[:, off:off + q_chunk], k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
+def gqa_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
+             window: Optional[int] = None, causal: bool = True) -> Tensor:
+    """Self-attention over a full [B, S, d] block (train / prefill);
+    positions [B, S]."""
+    rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    q, k, v = _qkv(p, x, cfg, rope)
+    out = _chunked_attn(q, k, v, causal, window)
+    h, hd, d = p["wo"].shape
+    return out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
 
 
 def check_cache_supported(cfg: ModelConfig, window: Optional[int]) -> None:

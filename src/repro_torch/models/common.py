@@ -1,12 +1,13 @@
 """Shared model substrate of the port: the config, a parameter initialiser,
 RMS norm and RoPE.
 
-The counterpart of `repro/models/common.py` for the serving path.  The JAX
-package's sharding machinery (PartitionSpecs, `shard_hint`, `maybe_scan`)
-has no counterpart: the port runs on one card and loops over layers in
-Python.  Parameters are nested dicts of tensors in the JAX layout, so
-`models/transformer.py::params_from_jax` carries JAX weights across as
-they are.
+The counterpart of `repro/models/common.py` for the serving and training
+paths: the config, the causal mask and the vocab-padded cross-entropy
+beside the norms and RoPE.  The JAX package's sharding machinery
+(PartitionSpecs, `shard_hint`, `maybe_scan`) has no counterpart: the port
+runs on one card and loops over layers in Python.  Parameters are nested
+dicts of tensors in the JAX layout, so `models/transformer.py::
+params_from_jax` carries JAX weights across as they are.
 """
 from __future__ import annotations
 
@@ -22,10 +23,12 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The JAX `ModelConfig` without its XLA execution knobs (model_parallel,
-    remat, scan_layers, unroll_for_analysis, lm_head_chunk, skip_shapes);
-    `dtype` is a torch dtype.  The sub-configs (moe, mla, ssm, encdec,
-    frontend) are carried only as None here: the port's serving path raises
-    NotImplementedError on any of them (ROADMAP.md Queue 1 item 10)."""
+    remat, scan_layers, unroll_for_analysis, skip_shapes); `dtype` is a
+    torch dtype.  `lm_head_chunk` stays: it decides how many positions the
+    training loss projects to logits at once (`transformer.chunked_ce`).
+    The sub-configs (moe, mla, ssm, encdec, frontend) are carried only as
+    None here: the port's model raises NotImplementedError on any of them
+    (ROADMAP.md Queue 1 item 10)."""
     name: str
     arch_type: str                    # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
@@ -51,6 +54,9 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     norm_eps: float = 1e-6
     citation: str = ""
+    # CE/logits are computed in sequence chunks of this many positions so the
+    # [B, S, vocab] tensor never materializes.
+    lm_head_chunk: int = 1024
     kv_cache_dtype: str = "native"    # or "int8" (not ported)
 
     @property
@@ -139,6 +145,32 @@ def rope_rotate(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     """RoPE of x [..., S, H?, Dh] at positions [..., S] (`rope_rotate`)."""
     return rope_rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def make_causal_mask(sq: int, sk: int, q_offset, window: Optional[int],
+                     device=None) -> Tensor:
+    """Boolean [Sq, Sk] mask (True = attend); query i sits at position
+    q_offset + i, key j at j."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m
+
+
+def softmax_xent(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
+    """Stable CE over possibly vocab-padded logits, in f32: logits
+    [..., Vp], labels [...] -> [...].  The padding columns (ids >= vocab)
+    are set to -1e30, out of the log-sum-exp."""
+    logits = logits.float()
+    vp = logits.shape[-1]
+    if vp > vocab:
+        pad = torch.arange(vp, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - ll
 
 
 def count_params(params: Dict) -> int:

@@ -1,17 +1,22 @@
-"""Decoder-only LM of the port: init, embeddings, KV caches and the one-token
-decode step (`repro/models/transformer.py`), for `block_pattern ==
-("attn",)` (dense GQA blocks with SwiGLU, e.g. qwen3-4b).
+"""Decoder-only LM of the port: init, embeddings, the full-sequence forward
+and loss of training and prefill, KV caches and the one-token decode step
+(`repro/models/transformer.py`), for `block_pattern == ("attn",)` (dense
+GQA blocks with SwiGLU, e.g. qwen3-4b).
 
 The parameter and cache trees keep the JAX package's layout, including the
 stacked `blocks` leaves with a leading layer axis, so JAX weights carry
 across with `params_from_jax`.  The JAX scan over layers is a Python loop
-over layer indices here.  Other block kinds, MoE, MLA, SSM, encoder-decoder
-and frontends raise NotImplementedError (ROADMAP.md Queue 1 item 10); the
-prefill / training `forward` is not ported either (Queue 1 item 9).
+over layer indices here, and `remat` has no counterpart: the backward
+keeps every layer's activations.  `chunked_ce` projects `lm_head_chunk`
+positions to logits at a time, as the reference does, without
+`torch.utils.checkpoint` (it does not compose with `torch.func.grad` /
+`vmap`, through which the sweep takes per-worker gradients).  Other block
+kinds, MoE, MLA, SSM, encoder-decoder and frontends (a VLM's
+`embeds_prefix`) raise NotImplementedError (ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +24,8 @@ import torch
 from repro_torch.models import attention as ATT
 from repro_torch.models import ffn as FFN
 from repro_torch.models.common import (ModelConfig, ParamInit, rms_norm,
-                                       rope_cos_sin)
+                                       rope_cos_sin, softmax_xent)
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -79,7 +85,7 @@ def params_from_jax(params_np: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def embed_tokens(params: Dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return params["embed"][tokens]
+    return params["embed"][tokens.long()]
 
 
 def logits_from_hidden(params: Dict, h: Tensor, cfg: ModelConfig) -> Tensor:
@@ -100,10 +106,97 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         for k, x in one.items()}}}
 
 
-def _layer(tree: Dict, i: int) -> Dict:
-    """Layer i of a stacked tree (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree: Dict, n: int) -> List[Dict]:
+    """The n layers of a stacked tree (views), each leaf unbound once: the
+    backward of `unbind` stacks the layers' gradients in one pass, where a
+    select per layer would each add a zero-filled gradient of the whole
+    stack."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [x.unbind(0) for x in leaves]
+    return [tree_unflatten(treedef, [p[i] for p in per_leaf])
+            for i in range(n)]
+
+
+def _apply_subblock(p: Dict, x: Tensor, positions: Tensor,
+                    cfg: ModelConfig, window: Optional[int]) -> Tensor:
+    """The full-sequence "attn" block: x + attn(norm(x)), then
+    + swiglu(norm(x))."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + ATT.gqa_full(p["attn"], h, cfg, positions, window=window)
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + FFN.swiglu(p["ffn"], h2)
+
+
+def forward_hidden(params: Dict, x: Tensor, positions: Tensor,
+                   cfg: ModelConfig, window: Optional[int] = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """Embedded inputs [B, S, d] -> (final hidden [B, S, d], aux loss).
+    The aux loss is MoE's, so 0 for every ported config."""
+    check_supported(cfg)
+    window = window if window is not None else cfg.window
+    n_rep, _ = layer_counts(cfg)
+    for p in _unstack(params["blocks"]["b0"], n_rep):
+        x = _apply_subblock(p, x, positions, cfg, window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def hidden_for_batch(params: Dict, tokens: Tensor, cfg: ModelConfig,
+                     window: Optional[int] = None,
+                     embeds_prefix: Optional[Tensor] = None
+                     ) -> Tuple[Tensor, Tensor]:
+    """tokens [B, S] -> (final hidden [B, S, d], aux).  A projected
+    prefix (`embeds_prefix`, the VLM / audio stubs) raises: the frontends
+    are not ported."""
+    if embeds_prefix is not None:
+        raise NotImplementedError(f"embeds_prefix (the VLM / audio "
+                                  f"frontends) {ATT.NOT_PORTED}")
+    x = embed_tokens(params, tokens, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    return forward_hidden(params, x, positions, cfg, window)
+
+
+def forward(params: Dict, tokens: Tensor, cfg: ModelConfig,
+            window: Optional[int] = None,
+            embeds_prefix: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """tokens [B, S] -> (logits [B, S, Vp], aux)."""
+    h, aux = hidden_for_batch(params, tokens, cfg, window, embeds_prefix)
+    return logits_from_hidden(params, h, cfg), aux
+
+
+def chunked_ce(params: Dict, h: Tensor, labels: Tensor,
+               cfg: ModelConfig) -> Tensor:
+    """Per-position CE [B, S] from hidden states [B, S, d], the lm_head
+    applied to `cfg.lm_head_chunk` positions at a time (the last slice
+    holds the remainder), so the [B, S, vocab] logits never exist at
+    once."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    s = h.shape[1]
+    ck = min(cfg.lm_head_chunk, s)
+    return torch.cat([
+        softmax_xent(h[:, i:i + ck] @ head, labels[:, i:i + ck],
+                     cfg.vocab_size) for i in range(0, s, ck)], dim=1)
+
+
+def lm_per_example_loss(params: Dict, batch: Dict, cfg: ModelConfig,
+                        window: Optional[int] = None
+                        ) -> Tuple[Tensor, Tensor]:
+    """Per-sequence mean next-token CE [B], and the aux loss.  batch:
+    tokens [B, S + 1]; labels are the tokens shifted left."""
+    tokens = batch["tokens"]
+    h, aux = hidden_for_batch(params, tokens[:, :-1], cfg, window,
+                              batch.get("embeds_prefix"))
+    ce = chunked_ce(params, h, tokens[:, 1:], cfg)
+    return ce.mean(dim=-1), aux
+
+
+def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig,
+            window: Optional[int] = None) -> Tensor:
+    """Next-token CE over the batch (the sweep's and the trainer's
+    loss_fn: `lambda p, b: lm_loss(p, b, cfg)`)."""
+    per_ex, _ = lm_per_example_loss(params, batch, cfg, window)
+    return per_ex.mean()
 
 
 def _decode_subblock(p: Dict, cache: Dict, x1: Tensor, pos,
@@ -133,9 +226,8 @@ def decode_step(params: Dict, caches: Dict, tokens1: Tensor, pos,
     x = embed_tokens(params, tokens1, cfg)
     rope = rope_cos_sin(pos.reshape(1, 1), cfg.hd, cfg.rope_theta)
     n_rep, _ = layer_counts(cfg)
-    blocks, cb = params["blocks"]["b0"], caches["blocks"]["b0"]
-    for i in range(n_rep):
-        x, _ = _decode_subblock(_layer(blocks, i), _layer(cb, i), x, pos,
-                                cfg, window, rope, plain)
+    for p, c in zip(_unstack(params["blocks"]["b0"], n_rep),
+                    _unstack(caches["blocks"]["b0"], n_rep)):
+        x, _ = _decode_subblock(p, c, x, pos, cfg, window, rope, plain)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(params, h, cfg), caches

@@ -1002,3 +1002,48 @@ def test_strict_plan_routes_hold_their_contracts_on_the_card(cuda_device):
     for k in grouped.params:
         torch.testing.assert_close(switch.params[k], grouped.params[k],
                                    rtol=1e-6, atol=1e-7)
+
+
+# The LM lane's shapes (figures.run_lm_lane: lm_sweep, D = 2 950 528,
+# U = 8; the step over two analog lanes, 16 grad_stats rows, the median
+# lane's sort), every input far beyond the L2.
+LM_D, LM_U = 2_950_528, 8
+
+
+@pytest.mark.gpu
+def test_lm_lane_kernels_at_production_d(cuda_device):
+    w, c, g, z, bias, eps, alpha = _inputs(cuda_device, 18, 2, LM_U, LM_D,
+                                           torch.float32)
+    ops.reset_launches()
+    args = (w, c, g, z, bias, eps, alpha)
+    for k, p in zip(ops.floa_step_batched(*args),
+                    ops.floa_step_batched(*args, plain=True)):
+        _close(k, p, TOL[torch.float32])
+    rows = g.reshape(2 * LM_U, LM_D)
+    np.testing.assert_allclose(ops.grad_stats(rows).cpu().numpy(),
+                               ref.grad_stats_ref(rows).cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    _sorts_exactly(ops.sort_columns, g[:1])
+    torch.cuda.synchronize()
+    assert ops.launch_shapes()["floa_step_batched"] == {(2, LM_U, LM_D): 1}
+    assert ops.launch_shapes()["grad_stats"] == {(2 * LM_U, LM_D): 1}
+    assert ops.launch_shapes()["sort_columns"] == {(1, LM_U, LM_D): 1,
+                                                   (LM_U, LM_D): 1}
+
+
+@pytest.mark.gpu
+def test_lm_lane_round_matches_plain_route(cuda_device):
+    """Two rounds of the full LM lane through the kernels and through
+    their plain versions, from the same seeded draws."""
+    ops.reset_launches()
+    rk = TF.run_lm_lane(2, device=cuda_device)
+    counts = ops.launch_counts()
+    rp = TF.run_lm_lane(2, device=cuda_device, plain=True)
+    assert ops.launch_counts() == counts
+    assert {k: v for k, v in counts.items() if v} == {
+        "floa_step_batched": 2, "grad_stats": 2, "sort_columns": 2}
+    np.testing.assert_allclose(rk.loss, rp.loss, rtol=1e-4)
+    np.testing.assert_allclose(rk.grad_norm, rp.grad_norm, rtol=1e-4)
+    from repro_torch.tree import tree_leaves
+    for a, b in zip(tree_leaves(rk.params), tree_leaves(rp.params)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

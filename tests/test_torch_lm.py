@@ -46,7 +46,7 @@ ARCH = "qwen3-4b"
 RTOL, ATOL = 1e-4, 1e-5      # f32 model steps, port vs JAX
 # XLA-only execution knobs of the JAX config that the port leaves out
 JAX_ONLY_FIELDS = {"model_parallel", "remat", "scan_layers",
-                   "unroll_for_analysis", "lm_head_chunk", "skip_shapes"}
+                   "unroll_for_analysis", "skip_shapes"}
 FULL_PARAMS = 4_412_079_616   # qwen3-4b at full width
 
 

@@ -238,7 +238,10 @@ def test_port_imports_no_jax():
             "repro_torch.kernels.ops, repro_torch.core.defenses, "
             "repro_torch.kernels.defense_sort, repro_torch.fl.trainer, "
             "repro_torch.data.pipeline, repro_torch.fl.plan, "
-            "repro_torch.checkpoint, repro_torch.launch.staging; "
+            "repro_torch.checkpoint, repro_torch.launch.staging, "
+            "repro_torch.tree, repro_torch.optim, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.models.transformer, repro_torch.configs.registry; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', "
             "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]; "
             "assert not bad, bad; print('clean')")

@@ -41,6 +41,7 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.core.scenario import DefenseSpec
 from repro_torch.fl import sweep as TS
+from repro_torch.tree import tree_leaves, tree_paths
 
 RTOL = 1e-5
 
@@ -151,20 +152,23 @@ class Replay:
         return out
 
 
-def assert_sweeps_match(got, want, rtol=RTOL):
+def assert_sweeps_match(got, want, rtol=RTOL, atol=1e-7):
     """Every lane finite in both engines (NaN == NaN would pass
-    assert_allclose without checking anything), then equal at rtol."""
-    for run in (got, want):
+    assert_allclose without checking anything), then equal at rtol (the
+    final params leaf by leaf, nested trees in the JAX package's leaf
+    order, with `atol`)."""
+    got_leaves = tree_leaves(got.params)
+    want_leaves = jax.tree_util.tree_leaves(want.params)
+    for run, leaves in ((got, got_leaves), (want, want_leaves)):
         assert np.isfinite(run.loss).all() and np.isfinite(run.grad_norm).all()
-        assert all(np.isfinite(np.asarray(v)).all()
-                   for v in run.params.values())
+        assert all(np.isfinite(np.asarray(v)).all() for v in leaves)
     assert got.names == want.names
     np.testing.assert_allclose(got.loss, want.loss, rtol=rtol)
     np.testing.assert_allclose(got.grad_norm, want.grad_norm, rtol=rtol)
-    for k in want.params:
-        np.testing.assert_allclose(got.params[k].numpy(),
-                                   np.asarray(want.params[k]), rtol=rtol,
-                                   atol=1e-7)
+    assert len(got_leaves) == len(want_leaves)
+    for path, g, w in zip(tree_paths(got.params), got_leaves, want_leaves):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
+                                   atol=atol, err_msg=path)
 
 
 # ------------------------------------ tiny grids (U = 4, sweep_testlib)
