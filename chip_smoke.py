@@ -4,6 +4,12 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --resume-child ckpt|resume DIR [OUT]
                                       # phase 13's child processes
+    python3 chip_smoke.py --mesh      # phases 1-2 and 21 alone
+    python3 chip_smoke.py --mesh-child RANK STORE OUT
+                                      # phase 21's ranks
+    python3 chip_smoke.py --strict-rates
+                                      # phases 1-2, then the warm rounds/s
+                                      # of the strict_numerics routes
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -125,9 +131,33 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               `make_prefill_step` at batch 8 x seq 512 (logits [8, Vp]).
               The train step runs no kernel of the port (its combine is
               the backward itself), which the counts confirm.
-  21. the `kernels` line (with launches and times by shape where a
+  21. mesh    the sweep sharded over ranks (`plan.mesh`, a
+              `launch.mesh.SweepMesh`): (1) a one-rank NCCL group, fig3's
+              four lanes on its ("data",) mesh, bitwise the unmeshed run;
+              (2) 2 ranks on this card over gloo (`--mesh-child`, NCCL
+              refuses two ranks on one device), each against the same
+              configuration run unsharded here: (a) the defense grid over
+              "data", grouped (each family ghost-padded to one lane a
+              rank) and switched, (b) worker_grid(1000) over "workers" (the
+              bitonic sort on the gathered slab), (c) the LM lane at
+              D = 2 950 528 with model_shards = 2 (the step at
+              [2, 8, 1 475 264]), (d) (b) and (c) under strict_numerics
+              (the LM lane at 5 rounds).  (a)-(b) at rtol 5e-6 / atol 1e-6,
+              (c) at rtol 5e-5 / atol 1e-5, (d) bitwise, every rank's
+              result the same; each rank's launches by shard-local shape
+              checked; rounds/s of a warm run, labelled "2 ranks, gloo, one
+              card" (not a scaling figure).
+  22. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
-      phases' shapes); 22. the last line, {"ok": true, "device": ...}.
+      phases' shapes, and the mesh phase's launches by shard-local
+      shape, each with the times of its phase-3 row: every launch shape,
+      a rank's too, must have one); 23. the last line, {"ok": true,
+      "device": ...}.
+
+`--strict-rates` times the strict_numerics routes of the plan phase and the
+mesh phase's unsharded U = 1000 twin.  Copied into the root of another
+checkout (`git archive` of an earlier commit), it times that checkout's
+src/ the same way: two versions compared within one call.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
@@ -166,6 +196,17 @@ PREFILL_BATCH, PREFILL_SEQ = 8, 512
 PLAN_CHUNK, MEM_CHUNK, KILL_AFTER_SAVES = 7, 5, 2
 MLP_SEGMENTS = (64, 10, 50176, 640)
 BATCH_MB_PER_ROUND_U1000 = 32000 * 784 * 4 / 1e6   # f32 x of one round
+# The mesh phase (21): 2 ranks on one card over gloo (NCCL refuses two
+# ranks on one device), each sharded configuration against its unsharded
+# twin; the LM lane's strict run is cut to 5 rounds.
+MESH_RANKS = 2
+MESH_CASES = ("defenses", "defenses_switch", "grid_u1000", "lm",
+              "grid_u1000_strict", "lm_strict")
+ROUNDS_LM_STRICT = 5
+# sharded vs unsharded (tests/test_sweep_workers.py:127,
+# tests/test_lm_lane.py:135); the strict routes and one rank: bitwise
+MESH_TOL = {"defenses": (5e-6, 1e-6), "defenses_switch": (5e-6, 1e-6),
+            "grid_u1000": (5e-6, 1e-6), "lm": (5e-5, 1e-5)}
 T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
@@ -391,7 +432,13 @@ def kernel_cases(torch, ops):
                         (1, 10, ("floa_step_batched", "grad_stats")),
                         (1, 1000, ("floa_step_batched", "grad_stats")),
                         (36, 10, ("floa_aggregate_batched", "grad_stats")),
-                        (6, 10, ("floa_aggregate_batched", "grad_stats"))]:
+                        (6, 10, ("floa_aggregate_batched", "grad_stats")),
+                        # a rank's shapes in the mesh phase (mesh_expect):
+                        # the switched defense grid's 3 lanes (its 30
+                        # grad_stats rows are fig1's), and the U = 1000
+                        # grid's 500 workers of a worker shard
+                        (3, 10, ("floa_aggregate_batched",)),
+                        (1, 500, ("grad_stats",))]:
         cases += [c for c in combine_cases(torch, ops, rnd, gen, s, u, 50890,
                                            torch.float32, True)
                   if c[0] in kinds]
@@ -404,6 +451,7 @@ def kernel_cases(torch, ops):
             ("sort_columns", 0, 10, 50890, torch.float32, True, False),
             ("sort_columns", 8, 10, 50890, torch.float32, True, True),
             ("sort_columns", 6, 10, 50890, torch.float32, True, False),
+            ("sort_columns", 3, 10, 50890, torch.float32, True, False),
             ("sort_columns", 3, 32, 5000, torch.bfloat16, False, False),
             ("sort_columns", 2, 7, 2049, torch.float32, False, False),
             ("sort_columns_bitonic", 1, 1000, 50890, torch.float32, True,
@@ -438,40 +486,64 @@ def kernel_cases(torch, ops):
             + fixed_stats_cases(torch, ops, rnd) + decode_cases(torch, ops))
 
 
+def lm_leaf_sizes() -> list:
+    """The LM lane's flat row, leaf by leaf (lm_sweep's 14 leaves, in the
+    tree order the flat state keeps)."""
+    import torch
+    from repro_torch.configs import get_lm_sweep
+    from repro_torch.fl.sweep import make_row_unflatten
+    from repro_torch.models.transformer import init_lm
+    return make_row_unflatten(init_lm(torch.Generator().manual_seed(0),
+                                      get_lm_sweep(), "cpu"))[1]
+
+
 def lm_lane_cases(torch, ops, rnd, gen):
     """The LM lane's rows (phase 18, D = 2 950 528, every input beyond the
     50 MB L2): the fused step over its two analog lanes at U = 8, their 16
     grad_stats rows, and the median lane's odd-even sort at [1, 8, D],
-    which must equal torch.sort."""
-    cases = [c for c in combine_cases(torch, ops, rnd, gen, 2, LM_WORKERS,
-                                      LM_D, torch.float32, True)
-             if c[0] in ("floa_step_batched", "grad_stats")]
-    x = rnd(1, LM_WORKERS, LM_D)
-    cases.append((
-        "sort_columns", f"S=1 U={LM_WORKERS} D={LM_D} float32", True,
-        lambda p, a=x: ops.sort_columns(a, plain=p),
-        lambda a=x: torch.sort(a, dim=-2), 2 * x.numel() * 4,
-        LM_D * sort_ops(LM_WORKERS), "exact", None, None))
+    which must equal torch.sort; and the same three at a model shard's
+    D / 2 columns (the mesh phase's "lm" case: LM_D pads to itself)."""
+    cases = []
+    for d in (LM_D, LM_D // MESH_RANKS):
+        cases += [c for c in combine_cases(torch, ops, rnd, gen, 2,
+                                           LM_WORKERS, d, torch.float32, True)
+                  if c[0] in ("floa_step_batched", "grad_stats")]
+        x = rnd(1, LM_WORKERS, d)
+        cases.append((
+            "sort_columns", f"S=1 U={LM_WORKERS} D={d} float32", True,
+            lambda p, a=x: ops.sort_columns(a, plain=p),
+            lambda a=x: torch.sort(a, dim=-2), 2 * x.numel() * 4,
+            d * sort_ops(LM_WORKERS), "exact", None, None))
     return cases
 
 
 def fixed_stats_cases(torch, ops, rnd):
-    """The strict route's `grad_stats_fixed` rows: each leaf segment of the
-    paper MLP's [R, D] slab (b1 | b2 | w1 | w2, a row-strided view), at the
-    plan phase's R: 10 (the defense grid's analog group), 40 (fig3's four
-    lanes) and 60 (the switch dispatch's six lanes).  grad_stats'
-    tolerance, (rtol 1e-4, atol 1e-3)."""
+    """The strict route's `grad_stats_fixed` rows: each leaf segment of a
+    flat [R, D] slab (a row-strided view).  The paper MLP's (b1 | b2 | w1 |
+    w2) at the plan phase's R: 10 (the defense grid's analog group), 40
+    (fig3's four lanes) and 60 (the switch dispatch's six lanes), and at
+    the mesh phase's 1000 (the U = 1000 grid's analog lane, gathered over
+    the worker shards); the LM lane's leaves at R = 16 (its two analog
+    lanes x 8 workers, the mesh phase's strict LM case), one row a leaf
+    size.  grad_stats' tolerance, (rtol 1e-4, atol 1e-3)."""
     cases = []
-    for r in (10, 40, 60):
-        slab, off = rnd(r, sum(MLP_SEGMENTS)), 0
-        for n in MLP_SEGMENTS:
+    lm = lm_leaf_sizes()
+    for r, sizes in [(10, MLP_SEGMENTS), (40, MLP_SEGMENTS),
+                     (60, MLP_SEGMENTS), (1000, MLP_SEGMENTS),
+                     (2 * LM_WORKERS, lm)]:
+        slab, off, seen = rnd(r, sum(sizes)), 0, set()
+        for n in sizes:
             seg = slab[:, off:off + n]
             off += n
+            if n in seen:
+                continue
+            seen.add(n)
             cases.append((
                 "grad_stats_fixed", f"R={r} D={n} float32 (leaf segment)",
                 True, lambda p, a=seg: ops.grad_stats_fixed(a, plain=p),
                 lambda a=seg: torch.var_mean(a, dim=1, correction=0),
                 r * n * 4 + r * 2 * 4, 3 * r * n, (1e-4, 1e-3), None, None))
+        del slab
     return cases
 
 
@@ -869,6 +941,284 @@ def resume_child(args) -> int:
     return 0
 
 
+def mesh_case(name: str, sharded: bool):
+    """One configuration of the mesh phase, built but not run: (engine,
+    params0, batches, rounds).  The ranks build it sharded (every rank in
+    the same order: a mesh's groups are made collectively); the parent
+    builds its unsharded twin.
+
+      defenses          the defense grid, "data" over the ranks, grouped
+                        (each family ghost-padded to one lane a rank)
+      defenses_switch   the same, the switch dispatch (3 lanes a rank)
+      grid_u1000        worker_grid(1000), "workers" over the ranks
+      lm                the LM lane at D = 2 950 528, model_shards = 2
+                        (`figures.lm_lane_engine`, the example's path)
+      *_strict          the same under strict_numerics"""
+    from repro_torch import figures
+    from repro_torch.configs import PAPER_MLP
+    from repro_torch.fl import ExecutionPlan, SweepEngine
+    from repro_torch.launch.mesh import make_sweep_mesh
+    strict = name.endswith("_strict")
+    if name.startswith("defenses"):
+        plan = ExecutionPlan(mesh=make_sweep_mesh() if sharded else None,
+                             grouped_dispatch=name == "defenses")
+        return (*figures.cases_engine(figures.defense_cases(), ROUNDS,
+                                      device="cuda", plan=plan), ROUNDS)
+    if name.startswith("grid_u1000"):
+        mc_u = dataclasses.replace(PAPER_MLP.full(), num_workers=1000,
+                                   train_samples=32000)
+        mesh = make_sweep_mesh(worker_shards=MESH_RANKS) if sharded else None
+        return (*figures.cases_engine(
+            figures.worker_grid(1000, mc_u.dim), ROUNDS_LARGE_U, mc=mc_u,
+            device="cuda", plan=ExecutionPlan(mesh=mesh,
+                                              strict_numerics=strict)),
+            ROUNDS_LARGE_U)
+    if not strict:
+        return (*figures.lm_lane_engine(
+            ROUNDS, device="cuda", model_shards=MESH_RANKS if sharded else 1),
+            ROUNDS)
+    engine, params, batches = figures.lm_lane_engine(ROUNDS_LM_STRICT,
+                                                     device="cuda")
+    mesh = make_sweep_mesh(model_shards=MESH_RANKS) if sharded else None
+    return (SweepEngine(engine.loss_fn, engine.spec, plan=ExecutionPlan(
+        mesh=mesh, strict_numerics=True), device="cuda"), params, batches,
+        ROUNDS_LM_STRICT)
+
+
+def mesh_expect(name: str, d: int, lm_sizes) -> dict:
+    """A rank's launches by shape in one sharded run of `name`: the
+    shard-local shapes (lanes, workers or columns of one rank)."""
+    r, ru, rl = ROUNDS, ROUNDS_LARGE_U, ROUNDS_LM_STRICT
+    u, half = LM_WORKERS, LM_D // MESH_RANKS   # LM_D pads to itself
+    fixed_lm = {}
+    for n in lm_sizes:   # the analog group's 2 lanes x 8 workers
+        fixed_lm[(2 * u, n)] = fixed_lm.get((2 * u, n), 0) + rl
+    return {
+        "defenses": {"floa_step_batched": {(1, 10, d): r},
+                     "grad_stats": {(10, d): r},
+                     "sort_columns": {(1, 10, d): 2 * r}},
+        "defenses_switch": {"floa_aggregate_batched": {(3, 10, d): r},
+                            "grad_stats": {(30, d): r},
+                            "sort_columns": {(3, 10, d): 2 * r}},
+        "grid_u1000": {"grad_stats": {(500, d): ru},
+                       "sort_columns_bitonic": {(1, 1000, d): 2 * ru}},
+        "grid_u1000_strict": {
+            "floa_step_batched": {(1, 1000, d): ru},
+            "grad_stats_fixed": {(1000, n): ru for n in MLP_SEGMENTS},
+            "sort_columns_bitonic": {(1, 1000, d): 2 * ru}},
+        "lm": {"floa_step_batched": {(2, u, half): r},
+               "grad_stats": {(2 * u, half): r},
+               "sort_columns": {(1, u, half): r}},
+        "lm_strict": {"floa_step_batched": {(2, u, LM_D): rl},
+                      "grad_stats_fixed": fixed_lm,
+                      "sort_columns": {(1, u, LM_D): rl}}}[name]
+
+
+def mesh_child(args) -> int:
+    """`chip_smoke.py --mesh-child RANK STORE OUT`: one of the mesh phase's
+    MESH_RANKS ranks on cuda:0, in a gloo group (init_method
+    file://STORE).  Runs every MESH_CASES configuration sharded: the launch
+    counts zeroed just before and read just after (checked against
+    `mesh_expect`), then an uncounted warm run for the rate; saves each
+    result to OUT/<case>.r<rank> (`SweepResult.save`) and prints one JSON
+    line a case.  Prints no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.fl.sweep import make_row_unflatten
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import initialize_distributed
+    rank, store, out = int(args[0]), args[1], args[2]
+    if not initialize_distributed(f"file://{store}", world_size=MESH_RANKS,
+                                  rank=rank, backend="gloo", device="cuda:0",
+                                  timeout_s=600):
+        raise AssertionError("mesh child: no process group")
+    print(json.dumps({"phase": "mesh_child", "rank": rank,
+                      "backend": dist.get_backend(),
+                      "world_size": dist.get_world_size()}), flush=True)
+    for name in MESH_CASES:
+        engine, params, batches, rounds = mesh_case(name, sharded=True)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = engine.run(params, batches)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: v for k, v in ops.launch_shapes().items() if v}
+        d = engine.spec.cases[0].floa.power.dim
+        want = mesh_expect(name, d, make_row_unflatten(params)[1]
+                           if name == "lm_strict" else ())
+        if got != want:
+            raise AssertionError(f"mesh {name} rank {rank}: launches by "
+                                 f"shape {got}, expected {want}")
+        t0 = time.perf_counter()
+        engine.run(params, batches)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        res.save(os.path.join(out, f"{name}.r{rank}"))
+        print(json.dumps({
+            "phase": "mesh_child", "rank": rank, "case": name,
+            "rounds": rounds, "run_seconds": seconds,
+            "warm_run_seconds": warm, "rounds_per_s": rounds / warm,
+            "rate_label": f"{MESH_RANKS} ranks, gloo, one card",
+            "launches_by_shape": {k: [[list(sh), n] for sh, n in v.items()]
+                                  for k, v in got.items()}}), flush=True)
+        del engine, params, batches, res
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
+                                   for m in sys.modules):
+        raise AssertionError("mesh child: imported JAX or the JAX package")
+    return 0
+
+
+def tree_diff(np, torch, a, b, tol=None) -> dict:
+    """Two sweep results with nested params: bitwise or not, the largest
+    |a - b| and |a - b| / |b| of the loss, the grad norm and the params,
+    and, with tol = (rtol, atol), whether they agree within it."""
+    from repro_torch.tree import tree_leaves, tree_paths
+    pairs = [("loss", np.asarray(a.loss), np.asarray(b.loss)),
+             ("grad_norm", np.asarray(a.grad_norm), np.asarray(b.grad_norm))]
+    pairs += [(k, np.asarray(a.metrics[k]), np.asarray(b.metrics[k]))
+              for k in b.metrics]
+    pairs += [(f"params.{p}", x.cpu().numpy(), y.cpu().numpy())
+              for p, x, y in zip(tree_paths(b.params), tree_leaves(a.params),
+                                 tree_leaves(b.params))]
+    out = {"bitwise": a.names == b.names and all(
+        np.array_equal(x, y, equal_nan=True) for _, x, y in pairs),
+        "max_abs_diff": {}, "max_rel_diff": {}}
+    ok = a.names == b.names
+    for k, x, y in pairs:
+        fin = np.isfinite(y)
+        diff = np.abs(x - y)[fin]
+        out["max_abs_diff"][k] = float(diff.max()) if diff.size else 0.0
+        out["max_rel_diff"][k] = float((diff / np.maximum(
+            np.abs(y[fin]), 1e-30)).max()) if diff.size else 0.0
+        if tol is not None:
+            ok = ok and np.allclose(x, y, rtol=tol[0], atol=tol[1],
+                                    equal_nan=True)
+    out["ok"] = bool(out["bitwise"] if tol is None else ok)
+    return out
+
+
+def mesh_phase(torch, np, ops, figures, tally, shard_tally) -> None:
+    """Phase 21: (1) a one-rank NCCL group and its ("data",) mesh: Fig. 3's
+    sweep bitwise the unmeshed run; (2) MESH_RANKS ranks on cuda:0 over
+    gloo (`--mesh-child`), each sharded configuration of MESH_CASES against
+    its unsharded twin run here: the defense grid over "data" and the
+    U = 1000 grid over "workers" at rtol 5e-6 / atol 1e-6, the LM lane over
+    "model" at rtol 5e-5 / atol 1e-5, the strict runs bitwise; every rank's
+    result the same.  The ranks' launches go to `shard_tally`."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core.power_control import Policy
+    from repro_torch.fl import ExecutionPlan, SweepResult
+    from repro_torch.launch.mesh import make_sweep_mesh
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT, "build"))
+    try:
+        # (1) one rank, NCCL
+        fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1,
+                                   alpha_hat=ah, attacker_sigma=3.0,
+                                   rounds=ROUNDS)
+                for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                                  ("BEV", Policy.BEV)]]
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(work, 'nccl')}",
+            world_size=1, rank=0)
+        try:
+            mesh = make_sweep_mesh()
+            engine, params, batches = figures.figure_engine(
+                fig3, device="cuda", plan=ExecutionPlan(mesh=mesh))
+            if engine._lane_group is None:
+                raise AssertionError("mesh: the one-rank mesh has no group")
+            meshed, seconds, counts = run_phase(
+                torch, ops, "mesh_one_rank_nccl",
+                lambda: engine.run(params, batches),
+                {**{k: 0 for k in ops.KERNELS},
+                 "floa_step_batched": ROUNDS, "grad_stats": ROUNDS})
+            tally(counts)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        engine, params, batches = figures.figure_engine(fig3, device="cuda")
+        diff = tree_diff(np, torch, meshed, engine.run(params, batches))
+        emit("mesh_one_rank", backend=backend, lanes=len(fig3),
+             rounds=ROUNDS, run_seconds=seconds, vs_unmeshed=diff)
+        if not diff["bitwise"]:
+            raise AssertionError("mesh: the one-rank NCCL mesh differs from "
+                                 "the unmeshed run")
+        del engine, params, batches, meshed
+        torch.cuda.empty_cache()
+
+        # (2) MESH_RANKS ranks on cuda:0, gloo
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+                for r in range(MESH_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-child",
+             str(r), os.path.join(work, "gloo"), work], cwd=ROOT,
+            stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(MESH_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        child_lines = {}
+        for r, p in enumerate(procs):
+            text = open(os.path.join(work, f"rank{r}.log")).read()
+            lines = [json.loads(x) for x in text.splitlines()
+                     if x.startswith('{"phase": "mesh_child"')]
+            if p.returncode != 0:
+                raise AssertionError(f"mesh: rank {r} exited "
+                                     f"{p.returncode}: {text[-3000:]}")
+            for line in lines:
+                print(json.dumps(line), flush=True)
+                if "case" in line:
+                    child_lines[(line["case"], r)] = line
+        for (name, r), line in child_lines.items():
+            shard_tally(name, {k: {tuple(sh): n for sh, n in v}
+                               for k, v in line["launches_by_shape"].items()})
+        report = {}
+        for name in MESH_CASES:
+            got = [SweepResult.load(os.path.join(work, f"{name}.r{r}"))
+                   for r in range(MESH_RANKS)]
+            ranks_eq = [tree_diff(np, torch, g, got[0])["bitwise"]
+                        for g in got[1:]]
+            engine, params, batches, rounds = mesh_case(name, sharded=False)
+            want = engine.run(params, batches)
+            del engine, params, batches
+            tol = MESH_TOL.get(name)   # None: bitwise
+            diff = tree_diff(np, torch, got[0], want, tol)
+            report[name] = {"tolerance": tol or "bitwise",
+                            "ranks_bitwise_equal": all(ranks_eq), **diff,
+                            **{k: child_lines[(name, 0)][k] for k in (
+                                "rounds", "run_seconds", "warm_run_seconds",
+                                "rounds_per_s", "rate_label")}}
+            emit("mesh_compare", case=name, **report[name])
+            if not (all(ranks_eq) and diff["ok"]):
+                raise AssertionError(f"mesh: {name} sharded vs unsharded "
+                                     f"failed: {report[name]}")
+            del got, want
+            torch.cuda.empty_cache()
+        emit("mesh", ranks=MESH_RANKS, backend="gloo", device="cuda:0",
+             children_wall_s=wall, cases=list(MESH_CASES))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def plan_phase(torch, np, ops, figures, tally, grid_u, mc_u) -> None:
     """The execution plan at the paper's width: (a) fig3 chunked and async
     staged against monolithic, (b) the showdown resumed in a fresh process
@@ -1106,6 +1456,53 @@ def plan_phase(torch, np, ops, figures, tally, grid_u, mc_u) -> None:
     emit("plan_reference_paths", rounds=ROUNDS, D=d, routes=report)
 
 
+def strict_rates(torch, figures) -> dict:
+    """`--strict-rates`: warm rounds/s of the strict_numerics routes (the
+    defense grid grouped and switched, fig3 flat and tree, the U = 1000
+    grid), uncounted: one run to warm up, then the median of 3."""
+    from repro_torch.configs import PAPER_MLP
+    from repro_torch.core.power_control import Policy
+    from repro_torch.fl import ExecutionPlan
+    fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
+                               attacker_sigma=3.0, rounds=ROUNDS)
+            for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                              ("BEV", Policy.BEV)]]
+    mc_u = dataclasses.replace(PAPER_MLP.full(), num_workers=1000,
+                               train_samples=32000)
+    strict = dict(strict_numerics=True)
+    routes = {
+        "defenses_grouped_strict": (ROUNDS, lambda: figures.cases_engine(
+            figures.defense_cases(), ROUNDS, device="cuda",
+            plan=ExecutionPlan(**strict))),
+        "defenses_switch_strict": (ROUNDS, lambda: figures.cases_engine(
+            figures.defense_cases(), ROUNDS, device="cuda",
+            plan=ExecutionPlan(grouped_dispatch=False, **strict))),
+        "fig3_flat_strict": (ROUNDS, lambda: figures.figure_engine(
+            fig3, device="cuda", plan=ExecutionPlan(**strict))),
+        "fig3_tree_strict": (ROUNDS, lambda: figures.figure_engine(
+            fig3, device="cuda", plan=ExecutionPlan(flat_state=False,
+                                                    **strict))),
+        "grid_u1000_strict": (ROUNDS_LARGE_U, lambda: figures.cases_engine(
+            figures.worker_grid(1000, mc_u.dim), ROUNDS_LARGE_U, mc=mc_u,
+            device="cuda", plan=ExecutionPlan(**strict)))}
+    out = {}
+    for name, (rounds, build) in routes.items():
+        engine, params, batches = build()
+        engine.run(params, batches)
+        rates = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.run(params, batches)
+            torch.cuda.synchronize()
+            rates.append(rounds / (time.perf_counter() - t0))
+        out[name] = {"rounds": rounds, "rounds_per_s": sorted(rates)[1],
+                     "rounds_per_s_runs": rates}
+        del engine, params, batches
+        torch.cuda.empty_cache()
+    return out
+
+
 def lm_lane_phase(torch, np, ops, figures, tally) -> None:
     """Phases 18-19: the LM lane at the full lm_sweep config through
     `figures.run_lm_lane` (counted; its launches by shape checked), a warm
@@ -1259,6 +1656,8 @@ def train_phase(torch, ops, lm, params) -> None:
 def main() -> int:
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(sys.argv[2:])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -1292,6 +1691,22 @@ def main() -> int:
     emit("build_redesigned", dynamic_smem_bytes={
         f"decode_mma_kernel<{dh}>": 3 * 2 * 64 * dh * 2
         for dh in (32, 64, 128)}, **redesigned_ptxas(build["ptxas"]))
+
+    if sys.argv[1:] == ["--strict-rates"]:
+        emit("strict_rates", src=os.path.join(ROOT, "src"),
+             routes=strict_rates(torch, figures))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if sys.argv[1:] == ["--mesh"]:   # phases 1-2 and the mesh phase alone
+        mesh_phase(torch, np, ops, figures, lambda counts: None,
+                   lambda case, by_shape: None)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. kernels against their plain versions, beside the launch floor: the
     # graph-replayed time of one near-empty kernel
@@ -1426,6 +1841,17 @@ def main() -> int:
         for k, by_shape in ops.launch_shapes().items():
             for shape, n in by_shape.items():
                 main_shapes[k][shape] = main_shapes[k].get(shape, 0) + n
+
+    shard_shapes = {k: {} for k in ops.launch_shapes()}
+
+    def shard_tally(case, by_shape):
+        """Add one rank's launches of a sharded run (the mesh phase's
+        children) to the totals, by shard-local shape and case."""
+        for k, shapes in by_shape.items():
+            for shape, n in shapes.items():
+                main_launches[k] += n
+                key = (case, shape)
+                shard_shapes[k][key] = shard_shapes[k].get(key, 0) + n
 
     def drive(name, exps, expect, run=None, engine=None, rounds=ROUNDS):
         """One main-path phase through its entry point (counted; default
@@ -1754,6 +2180,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # 21. the sweep sharded over ranks: one rank on NCCL, and MESH_RANKS
+    # ranks on this card over gloo against the unsharded runs
+    mesh_phase(torch, np, ops, figures, tally, shard_tally)
+
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1773,14 +2203,14 @@ def main() -> int:
     # D_lm and the sort at [1, 8, D_lm].
     d, r = mc_u.dim, ROUNDS
     want_shapes = {
-        "floa_step_batched": {(3, 10, d): r, (4, 10, d): 5 * r,
+        "floa_step_batched": {(3, 10, d): r, (4, 10, d): 6 * r,
                               (1, 10, d): 4 * r,
                               (1, 1000, d): ROUNDS_LARGE_U + 2 * r,
                               (2, LM_WORKERS, LM_D): r},
         "floa_aggregate_batched": {(2, 10, d): r, (36, 10, d): 2 * r,
                                    (6, 10, d): 2 * r, (4, 10, d): 2 * r},
         "floa_aggregate": {},
-        "grad_stats": {(30, d): r, (40, d): 4 * r, (20, d): r,
+        "grad_stats": {(30, d): r, (40, d): 5 * r, (20, d): r,
                        (10, d): 3 * r, (1000, d): ROUNDS_LARGE_U + 2 * r,
                        (360, d): 2 * r, (60, d): r,
                        (2 * LM_WORKERS, LM_D): r},
@@ -1794,25 +2224,53 @@ def main() -> int:
     if main_shapes != want_shapes:
         raise AssertionError(f"main-path launches by shape: {main_shapes}, "
                              f"expected {want_shapes}")
+    # the mesh phase's ranks: every rank at every shard-local shape
+    from repro_torch.configs import flat_param_dim, get_lm_sweep
+    lm_sizes = lm_leaf_sizes()
+    want_shard = {k: {} for k in ops.launch_shapes()}
+    for case in MESH_CASES:
+        for k, shapes in mesh_expect(case, d, lm_sizes if case == "lm_strict"
+                                     else ()).items():
+            for shape, n in shapes.items():
+                want_shard[k][(case, shape)] = MESH_RANKS * n
+    if shard_shapes != want_shard or flat_param_dim(get_lm_sweep()) != LM_D:
+        raise AssertionError(f"sharded launches by shape: {shard_shapes}, "
+                             f"expected {want_shard}")
+
+    def phase3_row(name, shape):
+        """{shape, ms, bound_ms, bound_share, call_ms} of the phase-3 row
+        that held `name` against its plain version at `shape`; a launch
+        shape without one fails the run."""
+        if len(shape) == 3:
+            tag = f"S={shape[0]} U={shape[1]} D={shape[2]} "
+        elif name.startswith("sort"):
+            tag = f"U={shape[0]} D={shape[1]} "
+        else:
+            tag = f"R={shape[0]} D={shape[1]} "
+        row = next((r for r in table.get(name, [])
+                    if r["shape"].startswith(tag)), None)
+        if row is None:
+            raise AssertionError(f"{name} launched at {list(shape)} on the "
+                                 f"main path, which no phase-3 row holds "
+                                 f"against its plain version")
+        return {k: row[k] for k in ("shape", "ms", "bound_ms", "bound_share",
+                                    "call_ms")}
 
     def by_shape(name):
         """[{shape, launches, ms, bound_ms, bound_share, call_ms}] of a
         kernel's main-path shapes, from their phase-3 rows."""
-        out = []
-        for shape, n in main_shapes.get(name, {}).items():
-            if len(shape) == 3:
-                tag = f"S={shape[0]} U={shape[1]} D={shape[2]} "
-            elif name.startswith("sort"):
-                tag = f"U={shape[0]} D={shape[1]} "
-            else:
-                tag = f"R={shape[0]} D={shape[1]} "
-            row = next(r for r in table[name] if r["shape"].startswith(tag))
-            out.append({"shape": row["shape"], "launches": n,
-                        **{k: row[k] for k in ("ms", "bound_ms",
-                                               "bound_share", "call_ms")}})
-        return out
+        return [{**phase3_row(name, shape), "launches": n}
+                for shape, n in main_shapes.get(name, {}).items()]
 
-    # 21. the kernel list
+    # every launch shape of the main path, the mesh phase's ranks' too, has
+    # its phase-3 row
+    for name in main_launches:
+        for shape in main_shapes.get(name, {}):
+            phase3_row(name, shape)
+        for _, shape in shard_shapes.get(name, {}):
+            phase3_row(name, shape)
+
+    # 22. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",
@@ -1846,6 +2304,12 @@ def main() -> int:
             "call_ms": row["call_ms"]})
         if len(main_shapes.get(name, {})) > 1:
             kernels[-1]["launches_by_shape"] = by_shape(name)
+        if shard_shapes.get(name):
+            kernels[-1]["launches_by_shard_shape"] = [
+                {"case": case, **phase3_row(name, shape),
+                 "shard_shape": list(shape), "launches": n,
+                 "ranks": MESH_RANKS}
+                for (case, shape), n in shard_shapes[name].items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

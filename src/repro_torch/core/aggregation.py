@@ -64,12 +64,20 @@ class FLOAConfig:
 
 
 def per_worker_grads(loss_fn: Callable, params, batch: Dict[str, Tensor],
-                     num_workers: int):
+                     num_workers: int, *, fixed_shapes: bool = False):
     """Per-worker gradients of loss_fn(params, batch) over a worker-split
     batch: leaves [U*B, ...] -> [U, B, ...], then vmap(grad) over U.
 
     params may be one tensor (a flat row) or a nested dict of tensors; the
-    result has the same structure with a leading U axis."""
+    result has the same structure with a leading U axis.
+
+    By default vmap folds the workers into the rows of each matmul (one
+    [U*B, ...] product), whose rounding may depend on U.  fixed_shapes=True
+    hands each worker its own (expanded, copy-free) view of params, so each
+    worker's products are batch entries of [B, ...] rows: a worker's
+    gradient is then bitwise the same whatever the number of workers in the
+    call (the sweep's strict_numerics, where a worker-sharded rank holds
+    ceil(U / W) of them)."""
     def split(x):
         if x.shape[0] % num_workers:
             raise ValueError(f"global batch {x.shape[0]} not divisible by "
@@ -77,7 +85,10 @@ def per_worker_grads(loss_fn: Callable, params, batch: Dict[str, Tensor],
         return x.reshape(num_workers, x.shape[0] // num_workers, *x.shape[1:])
 
     worker_batch = {k: split(v) for k, v in batch.items()}
-    return vmap(grad(loss_fn), in_dims=(None, 0))(params, worker_batch)
+    if not fixed_shapes:
+        return vmap(grad(loss_fn), in_dims=(None, 0))(params, worker_batch)
+    params = tree_map(lambda p: p[None].expand(num_workers, *p.shape), params)
+    return vmap(grad(loss_fn), in_dims=(0, 0))(params, worker_batch)
 
 
 def _weighted_reduce(grads_u: Dict[str, Tensor], weights: Tensor

@@ -17,8 +17,9 @@ Also the adaptive-adversary axes' per-lane knobs: Gauss-Markov fading
 (`chan_rho`) and K-of-U participation (`part_k`, `participation_mask`);
 `scenario_coefficients` takes an optional participation mask, under which
 non-participants drop out of the coefficients, the bias and the cohort
-sums.  The lane axis lives on one device (no shards; ROADMAP.md Queue 1
-item 8).
+sums.  Under a sharded sweep (fl/sweep.py) `build_lane_groups(codes,
+shards)` and `pad_lanes` ghost-pad the lane axis to a multiple of the lane
+shards.
 """
 from __future__ import annotations
 
@@ -216,52 +217,81 @@ class LaneGroups:
 
     Defense codes are concrete config, so the partition is known when the
     engine is built: the grouped dispatch (fl/sweep.py) runs each defense
-    family's kernel once over a contiguous sub-slab of its lanes.  The port
-    runs one device, so there are no ghost lanes and `perm` is a
-    permutation.
+    family's kernel once over a contiguous sub-slab of its lanes.
+
+    The execution order is shard-uniform: each group is ghost-padded to a
+    multiple of `shards` (replicating its LAST member, as `pad_lanes` does)
+    and laid out shard-major, so every rank's block of lanes has the same
+    group layout `local_slices`.  shards=1 is the unsharded engine, whose
+    `perm` is a permutation.
 
       codes         group defense codes, ascending (one entry per group)
-      perm          [S] execution row -> source lane index
-      inverse       [S] source lane -> its execution row
-      local_slices  ((code, start, end), ...) group boundaries in execution
-                    rows
+      perm          [S_exec] execution row -> source lane index (ghost rows
+                    repeat their group's last real lane)
+      inverse       [S] source lane -> its first execution row
+      local_slices  ((code, start, end), ...) group boundaries in one
+                    shard's execution rows
+      shards        the shard count the layout was built for
     """
 
     codes: Tuple[int, ...]
     perm: Tuple[int, ...]
     inverse: Tuple[int, ...]
     local_slices: Tuple[Tuple[int, int, int], ...]
+    shards: int = 1
+
+    @property
+    def exec_lanes(self) -> int:
+        return len(self.perm)
+
+    @property
+    def lanes_per_shard(self) -> int:
+        return len(self.perm) // self.shards
+
+    @property
+    def num_ghosts(self) -> int:
+        return len(self.perm) - len(self.inverse)
 
 
-def build_lane_groups(codes: Sequence[int]) -> LaneGroups:
+def build_lane_groups(codes: Sequence[int], shards: int = 1) -> LaneGroups:
     """Lane defense codes (ints, lane order) -> LaneGroups.
 
     Within a group the lanes keep their order (a stable partition); groups
     run in ascending code order, so the analog FLOA group (code 0), when
-    present, is always the first slice.  The reference's per-shard ghost
-    padding (`shards > 1`) belongs to the mesh (ROADMAP.md Queue 1 item
-    8)."""
+    present, is always the first slice of every shard."""
     codes = [int(c) for c in codes]
     if not codes:
         raise ValueError("empty lane-code list")
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     group_codes = sorted(set(codes))
-    perm, local_slices = [], []
+    padded = {}
     for c in group_codes:
         members = [i for i, ci in enumerate(codes) if ci == c]
-        local_slices.append((c, len(perm), len(perm) + len(members)))
-        perm.extend(members)
-    inverse = [0] * len(codes)
+        padded[c] = members + [members[-1]] * (-len(members) % shards)
+    per_shard = {c: len(padded[c]) // shards for c in group_codes}
+    perm = []
+    for d in range(shards):
+        for c in group_codes:
+            k = per_shard[c]
+            perm.extend(padded[c][d * k:(d + 1) * k])
+    first_row = {}
     for row, lane in enumerate(perm):
-        inverse[lane] = row
+        first_row.setdefault(lane, row)
+    local_slices, off = [], 0
+    for c in group_codes:
+        local_slices.append((c, off, off + per_shard[c]))
+        off += per_shard[c]
     return LaneGroups(codes=tuple(group_codes), perm=tuple(perm),
-                      inverse=tuple(inverse),
-                      local_slices=tuple(local_slices))
+                      inverse=tuple(first_row[i] for i in range(len(codes))),
+                      local_slices=tuple(local_slices), shards=shards)
 
 
 def permute_lanes(x, perm):
     """Gather lane-stacked data (a tensor, a ScenarioParams, or a dict of
     tensors / None) into execution order along the leading lane axis.
-    `perm` is a sequence of lane indices or a slice."""
+    `perm` is a sequence of lane indices (which may repeat a lane: ghost
+    lanes) or a slice."""
     if isinstance(x, torch.Tensor):
         idx = (perm if isinstance(perm, slice)
                else torch.as_tensor(perm, dtype=torch.long, device=x.device))
@@ -272,6 +302,20 @@ def permute_lanes(x, perm):
         return {k: None if v is None else permute_lanes(v, perm)
                 for k, v in x.items()}
     raise TypeError(f"cannot permute lanes of {type(x).__name__}")
+
+
+def pad_lanes(x, total: int):
+    """Pad lane-stacked data (as `permute_lanes` takes it) to `total` lanes
+    by replicating the last lane: the ghost lanes of a lane-sharded sweep
+    run real, discarded scenarios."""
+    s = (x if isinstance(x, torch.Tensor) else
+         next(v for v in (x if isinstance(x, ScenarioParams)
+                          else x.values()) if v is not None)).shape[0]
+    if total < s:
+        raise ValueError(f"cannot pad {s} lanes to {total}")
+    if total == s:
+        return x
+    return permute_lanes(x, list(range(s)) + [s - 1] * (total - s))
 
 
 def sample_gains(generators: Sequence[torch.Generator],

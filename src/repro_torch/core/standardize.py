@@ -15,8 +15,10 @@ through the `grad_stats` kernel (its plain version on the CPU); the
 mean/variance epilogue runs on scalars.  Under strict_numerics the sums are
 taken per leaf segment (`flat_scalar_stats(flat, sizes)`, the kernel's
 fixed-order route `grad_stats_fixed`, one launch a segment) and added in
-leaf order, the reduction tree of the per-leaf path.  The looped trainer's and the
-tree-state sweep's pytree path (`per_worker_scalar_stats`, `standardize`,
+leaf order, the reduction tree of the per-leaf path.  Under model sharding
+each rank sums its own columns (`flat_partial_stats`, the same kernel) and
+the ranks add the partial sums.  The looped trainer's and the tree-state
+sweep's pytree path (`per_worker_scalar_stats`, `standardize`,
 `destandardize`) is plain tensor math, as in the reference, where it
 reaches no Pallas kernel.
 """
@@ -80,6 +82,23 @@ def flat_scalar_stats(flat: Tensor, sizes: Optional[Sequence[int]] = None,
             raise ValueError(f"leaf sizes sum to {off}, flat D is {d}")
     return stats_from_partials(s1.reshape(flat.shape[:-1]),
                                s2.reshape(flat.shape[:-1]), d)
+
+
+def flat_partial_stats(flat: Tensor, *, plain: bool = False
+                       ) -> Tuple[Tensor, Tensor]:
+    """Partial sums (s1, s2) = (sum g, sum g^2) over the last axis of a
+    model-sharded flat gradient [..., d_loc] (each rank's column block):
+    one `grad_stats` launch over the [prod(...), d_loc] rows.  The sweep
+    adds them over the "model" ranks (two scalars a row) and finishes with
+    `stats_from_partials(s1, s2, d)`, d the real, unpadded D.  Ghost
+    columns are zeros and add exactly 0.0; the ranks' partials are added in
+    the backend's order, another reduction tree than one sum over the whole
+    row, so the stats agree with `flat_scalar_stats` to f32 rounding, not
+    bitwise (strict_numerics gathers full rows instead)."""
+    d = flat.shape[-1]
+    sums = ops.grad_stats(flat.reshape(-1, d), plain=plain)
+    lead = flat.shape[:-1]
+    return sums[:, 0].reshape(lead), sums[:, 1].reshape(lead)
 
 
 def stats_from_partials(s1: Tensor, s2: Tensor, d: int

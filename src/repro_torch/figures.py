@@ -49,6 +49,7 @@ from repro_torch.fl.plan import ExecutionPlan
 from repro_torch.fl.sweep import (ScenarioCase, SweepEngine, SweepResult,
                                   SweepSpec)
 from repro_torch.fl.trainer import FLTrainer, RoundLog
+from repro_torch.launch.mesh import make_sweep_mesh
 from repro_torch.launch.staging import as_device_array
 from repro_torch.models import init_mlp, mlp_accuracy, mlp_loss
 from repro_torch.models.transformer import init_lm, lm_loss
@@ -411,12 +412,13 @@ def lm_lane_engine(rounds: int, *, cfg=None, workers: int = 8,
     round, [R, U*B, seq+1] (`stack_token_rounds(..., seed=0)`), which
     `per_worker_grads` splits into U workers of B sequences.  As the
     example: a checkpoint directory without chunk_rounds takes chunks of
-    max(1, R // 4); model_shards > 1 raises (ROADMAP.md Queue 1 item 8).
-    plain=True is SweepEngine's force_plain (kernel-vs-plain checks)."""
-    if model_shards > 1:
-        raise NotImplementedError(
-            f"model_shards={model_shards}: sharding the flat state is not "
-            f"ported (ROADMAP.md Queue 1 item 8)")
+    max(1, R // 4); model_shards > 1 shards the flat state's D over the
+    ("model",) mesh of every rank of the process group
+    (`make_sweep_mesh(model_shards=...)`, as the example's
+    --model-shards), so every rank calls it.  plain=True is SweepEngine's
+    force_plain (kernel-vs-plain checks)."""
+    mesh = (make_sweep_mesh(model_shards=model_shards) if model_shards > 1
+            else None)
     cfg = cfg or get_lm_sweep()
     dev = resolve_device(device)
     dim = flat_param_dim(cfg)
@@ -426,7 +428,7 @@ def lm_lane_engine(rounds: int, *, cfg=None, workers: int = 8,
     params0 = init_lm(torch.Generator(dev).manual_seed(0), cfg, dev)
     if checkpoint_dir is not None and chunk_rounds is None:
         chunk_rounds = max(1, rounds // 4)
-    plan = ExecutionPlan(chunk_rounds=chunk_rounds,
+    plan = ExecutionPlan(mesh=mesh, chunk_rounds=chunk_rounds,
                          checkpoint_dir=checkpoint_dir)
     engine = SweepEngine(lambda p, b: lm_loss(p, b, cfg), spec, plan=plan,
                          device=dev, force_plain=plain)
@@ -442,7 +444,8 @@ def run_lm_lane(rounds: int, *, cfg=None, workers: int = 8, batch: int = 2,
     """examples/train_floa_lm.py as ONE sweep call on `device`
     (`lm_lane_engine`); resume=True continues from checkpoint_dir's latest
     checkpoint (a fresh run when there is none yet); draws overrides the
-    lanes' seeded draws (`SweepEngine.run`)."""
+    lanes' seeded draws (`SweepEngine.run`); model_shards > 1 runs on every
+    rank of the process group, each returning the full result."""
     if resume and checkpoint_dir is None:
         raise ValueError("resume=True requires checkpoint_dir")
     engine, params, batches = lm_lane_engine(

@@ -22,10 +22,9 @@ Rules checked at construction:
   - ``worker_shards`` / ``model_shards`` > 1 need a mesh axis of that size
     (ValueError), and are derived from the mesh when left at 1.
 
-The port imports no JAX, so ``mesh`` is any value with the reference mesh's
-``axis_names`` and ``shape``.  The port runs on one device: `SweepEngine`
-refuses a plan with a mesh or with worker or model shards
-(NotImplementedError, ROADMAP.md Queue 1 item 8).
+The port imports no JAX, so these rules read only the mesh's
+``axis_names`` and ``shape``; `SweepEngine` runs a `launch.mesh.SweepMesh`
+(`make_sweep_mesh`), whose devices are the ranks of a process group.
 """
 from __future__ import annotations
 
@@ -51,13 +50,16 @@ class ExecutionPlan:
     strict_numerics pin the standardization stats' reduction (leaf-
                     segmented sums in a fixed order) so every strategy
                     replays the same trajectory bitwise.
-    mesh            a sweep mesh (refused by the port's engine).
+    mesh            a sweep mesh (`launch.mesh.make_sweep_mesh`): "data"
+                    shards the lanes, "workers" the worker axis, "model"
+                    the flat parameter axis.
     grouped_dispatch  static per-defense-family lane partition (vs the
                     per-lane switch reference).
     chunk_rounds    rounds in blocks of C, with only [C, ...] batch blocks
                     on the device.
     async_staging   stage block k+1 while chunk k's rounds are enqueued.
-    worker_shards / model_shards  mesh sharding (refused by the engine).
+    worker_shards / model_shards  the mesh's "workers" / "model" axis
+                    sizes (derived from the mesh when left at 1).
     checkpoint_dir  directory of the preemption-safe resume checkpoints,
                     written at chunk boundaries (requires chunk_rounds).
     checkpoint_every_chunks  a checkpoint after every Nth chunk.

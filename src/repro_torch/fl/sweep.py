@@ -1,11 +1,11 @@
-"""Multi-scenario sweep engine: S scenarios x R rounds on one device.
+"""Multi-scenario sweep engine: S scenarios x R rounds.
 
 The paper's experimental section (Figs. 1-4) is a grid of scenarios — power
 policy x attack x attacker count x learning rate — and the JAX package runs
 each figure as one `SweepEngine` call (`repro/fl/sweep.py`).  This is its
-port on one device, under every `ExecutionPlan` (fl/plan.py) one device can
-express.  One round of an all-analog sweep on flat [S, D] state (every
-figure, the default plan):
+port, under every `ExecutionPlan` (fl/plan.py), on one device or sharded
+over the ranks of a process group (below).  One round of an all-analog
+sweep on flat [S, D] state (every figure, the default plan):
 
   1. per-worker gradients as one [S, U, D] slab (nested torch.func.vmap of
      torch.func.grad over lanes and workers);
@@ -87,8 +87,23 @@ engine's split slots and fold_in constants), so a lane's stream depends
 only on its own seed, and a new axis leaves the older streams unchanged.
 Digital lanes do not consume their channel draws.
 
-Refused with NotImplementedError naming the ROADMAP.md queue item: a plan
-with a mesh, worker shards or model shards (item 8).
+Sharding (`plan.mesh`, a `launch.mesh.SweepMesh` over the ranks of a
+`torch.distributed` process group, one rank a device).  Every rank runs the
+same `run` and returns the same full SweepResult.  The mesh's axes:
+
+  - "data" shards the lanes: S is ghost-padded to a multiple of the data
+    shards (`scenario.pad_lanes`, or per family under the grouped dispatch,
+    `build_lane_groups(codes, shards)`), each rank runs its block of lanes,
+    and the results are gathered, ghosts dropped.  A ghost replicates a
+    real lane, seed included, and runs a real, discarded scenario.
+  - "workers" shards the [S, U, D] slab's worker axis (`_WorkerShards`).
+  - "model" shards the flat state's D axis (`_ModelShards`).
+
+The draws are the unsharded engine's: every lane draws from its own seed on
+whichever rank runs it, at the full U and the full real D; a caller's
+`draws(t)` gives full-S rows, of which each rank takes its own.  The
+collectives are the reference's: all_reduce (its psum), all_gather, and a
+broadcast of the resume step.
 """
 from __future__ import annotations
 
@@ -99,6 +114,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import vmap
 
 from repro_torch.checkpoint import ckpt as CKPT
@@ -118,13 +134,12 @@ from repro_torch.core.power_control import Policy
 from repro_torch.data.pipeline import iter_chunk_blocks
 from repro_torch.device import resolve_device
 from repro_torch.fl.plan import ExecutionPlan
+from repro_torch.launch import distributed as DIST
+from repro_torch.launch.mesh import SweepMesh
 from repro_torch.launch.staging import BlockStager
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
-
-_Q_SHARD = ("ROADMAP.md Queue 1 item 8 (sharded lanes, workers and model "
-            "axes)")
 
 # The resume manifest's layout version and the port's draw scheme: a
 # checkpoint carries the state of every lane's and stream's generator, not
@@ -401,19 +416,105 @@ def lane_generator(seed: int, slot: int, device) -> torch.Generator:
     return torch.Generator(device).manual_seed(int(state))
 
 
+# The "model" axis pads D to a multiple of model_shards * COL_ALIGN columns:
+# the widest load of the FLOA kernels on the f32 flat state, one 16-byte
+# vector of 4 columns (kernels/floa_aggregate.py::vector_width), so each
+# rank's column block keeps the kernels' widest loads.
+COL_ALIGN = 16 // 4
 
 
-def _refuse_sharding(plan: ExecutionPlan) -> None:
-    """The plan knobs one device cannot run: a mesh, worker or model
-    shards."""
-    bad = [f"{k}={v!r}" for k, v in (("mesh", plan.mesh),
-                                      ("worker_shards", plan.worker_shards),
-                                      ("model_shards", plan.model_shards))
-           if (v is not None if k == "mesh" else v != 1)]
-    if bad:
-        raise NotImplementedError(
-            f"execution plan {', '.join(bad)} is not ported yet — "
-            f"{_Q_SHARD}")
+class _WorkerShards:
+    """The "workers" axis: each rank computes the gradients of its own
+    u_loc = ceil(U / W) workers.  U is ghost-padded to u_pad = W * u_loc:
+    a ghost worker replicates worker U-1's batch rows (finite gradients)
+    and gets a zero combine coefficient, so it adds exactly nothing, and
+    its stats are sliced away after the gather.  Gains, coefficients and
+    noise are drawn at the full U on every rank, as unsharded."""
+
+    def __init__(self, u: int, shards: int, index: int, group):
+        self.u, self.shards, self.index, self.group = u, shards, index, group
+        self.u_loc = -(-u // shards)
+        self.u_pad = self.u_loc * shards
+
+    def local_batch(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """[U*b, ...] rows of the round's batch -> this rank's workers'
+        [u_loc*b, ...] (global worker indices clipped to U-1)."""
+        x0 = next(iter(batch.values()))
+        b, dev = x0.shape[0] // self.u, x0.device
+        gi = torch.clamp(self.index * self.u_loc
+                         + torch.arange(self.u_loc, device=dev),
+                         max=self.u - 1)
+        rows = (gi[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
+        return {k: v[rows] for k, v in batch.items()}
+
+    def gather_slab(self, x: Tensor) -> Tensor:
+        """[S, u_loc, D] -> the full [S, U, D] slab (the digital screens
+        are order statistics over every worker)."""
+        return DIST.all_gather(x, self.group, dim=1)[:, :self.u].contiguous()
+
+    def gather_stats(self, gbar_i: Tensor, eps2_i: Tensor):
+        """Per-worker stats [S, u_loc] -> [S, U]: the global mean then
+        reduces the unsharded engine's [S, U] vector."""
+        return tuple(DIST.all_gather(x, self.group, dim=1)[:, :self.u]
+                     for x in (gbar_i, eps2_i))
+
+    def local_coeff(self, coeff: Tensor) -> Tensor:
+        """[S, U] coefficients -> this rank's [S, u_loc], ghosts zero."""
+        coeff = F.pad(coeff, (0, self.u_pad - self.u))
+        lo = self.index * self.u_loc
+        return coeff[:, lo:lo + self.u_loc]
+
+    def psum(self, x: Tensor) -> Tensor:
+        return DIST.all_reduce_sum(x, self.group)
+
+    def psum_combine(self, coeff, flat_loc, noise_row, bias_row, eps):
+        """The OTA superposition as a sum over worker shards: each rank's
+        weighted sum of its own workers' rows (an einsum outside any
+        kernel, as the reference's), the all_reduce, then the bias and the
+        receiver noise once."""
+        part = torch.einsum("su,sud->sd", self.local_coeff(coeff), flat_loc)
+        return (self.psum(part) + bias_row[:, None]
+                + eps[:, None] * noise_row)
+
+
+class _ModelShards:
+    """The "model" axis: each rank holds a block of d_loc columns of the
+    flat state.  D is zero-padded to d_pad = M * d_loc, d_loc a multiple of
+    COL_ALIGN; the ghost columns stay exact zeros (the loss reads the D
+    real columns only, and every aggregate is masked there), and are
+    sliced away at the end.  [D]-shaped draws happen at the full real D on
+    every rank, then are sliced."""
+
+    def __init__(self, d: int, shards: int, index: int, group):
+        self.d, self.shards, self.index, self.group = d, shards, index, group
+        chunk = shards * COL_ALIGN
+        self.d_pad = -(-d // chunk) * chunk
+        self.d_loc = self.d_pad // shards
+        self.lo = index * self.d_loc
+
+    def local_cols(self, x: Tensor) -> Tensor:
+        """[..., D or d_pad] -> this rank's [..., d_loc] block, contiguous
+        (the real-D tail zero-padded first)."""
+        if x.shape[-1] != self.d_pad:
+            x = F.pad(x, (0, self.d_pad - x.shape[-1]))
+        return x[..., self.lo:self.lo + self.d_loc].contiguous()
+
+    def gather_cols(self, x: Tensor) -> Tensor:
+        """[..., d_loc] blocks of every rank -> [..., D] real columns."""
+        full = DIST.all_gather(x, self.group, dim=x.dim() - 1)
+        return full[..., :self.d].contiguous()
+
+    def col_mask(self, device) -> Tensor:
+        """[d_loc] bool, True on this rank's real columns."""
+        return self.lo + torch.arange(self.d_loc, device=device) < self.d
+
+    def mask(self, x: Tensor) -> Tensor:
+        """x with its ghost columns zeroed (a bitwise identity on the real
+        ones)."""
+        return torch.where(self.col_mask(x.device), x, 0.0)
+
+    def psum(self, x: Tensor) -> Tensor:
+        return DIST.all_reduce_sum(x, self.group)
 
 
 def _plan_from(plan: Optional[ExecutionPlan], legacy: dict,
@@ -442,31 +543,34 @@ def _plan_from(plan: Optional[ExecutionPlan], legacy: dict,
 class _SeededDraws:
     """The default draw provider (`SweepEngine.seeded_draws`): per lane and
     per stream one generator on the engine's device, seeded from the lane's
-    seed and the stream's slot (`SweepEngine._SLOTS`) alone.  Call it once
-    per round, in round order.  `state()` / `load_state()` carry every
-    generator's state (uint8, [S, n] a stream) through a checkpoint."""
+    seed and the stream's slot (`SweepEngine._SLOTS`) alone, for the rows
+    this rank executes (`SweepEngine._rows`: its lanes in execution order,
+    ghosts included), which it returns.  Call it once per round, in round
+    order.  `state()` / `load_state()` carry every generator's state
+    (uint8, [rows, n] a stream) through a checkpoint."""
 
     def __init__(self, engine: "SweepEngine", d: int):
         self.engine, self.d = engine, d
-        dev, spec = engine.device, engine.spec
+        dev, cases = engine.device, engine.spec.cases
         keys = ["h_abs"] + [k for k, on in (
             ("z", engine._noise), ("jam", engine._jam),
             ("part", engine._partial), ("h_init", engine._markov),
             ("markov", engine._markov), ("dir", engine._dir)) if on]
-        self.gens = {k: [lane_generator(c.seed, engine._SLOTS[k], dev)
-                         for c in spec.cases] for k in keys}
+        self.gens = {k: [lane_generator(cases[i].seed, engine._SLOTS[k], dev)
+                         for i in engine._rows] for k in keys}
 
     def __call__(self, t: int) -> Dict[str, Optional[Tensor]]:
         eng, dev = self.engine, self.engine.device
-        want = eng._wanted_draws(len(eng.spec), self.d, t)
-        out = {"h_abs": SC.sample_gains(self.gens["h_abs"], eng._sp),
+        sp = eng._sp_exec
+        want = eng._wanted_draws(len(eng._rows), self.d, t)
+        out = {"h_abs": SC.sample_gains(self.gens["h_abs"], sp),
                "z": None, "jam": None}
         for key, (shape, _) in want.items():
             if key == "part":
                 scores = torch.stack([torch.rand(eng._u, generator=g,
                                                  device=dev)
                                       for g in self.gens[key]])
-                out[key] = SC.participation_mask(scores, eng._sp.part_k)
+                out[key] = SC.participation_mask(scores, sp.part_k)
             elif key != "h_abs":
                 out[key] = torch.stack([
                     torch.randn(shape[1:], generator=g, device=dev)
@@ -559,9 +663,12 @@ class SweepEngine:
     strict_numerics=True takes the stats per leaf segment of the slab (the
     fixed-order route of the `grad_stats` kernel, one launch a segment,
     summed in leaf order), so the stats' reduction no longer depends on
-    where a lane's rows sit or how many rows a launch takes: every strategy
-    — tree vs flat state, grouped vs switch dispatch, chunked vs monolithic
-    — replays the same stats bitwise.
+    where a lane's rows sit or how many rows a launch takes, and gives each
+    worker its own matmuls in the gradients (`per_worker_grads(...,
+    fixed_shapes=True)`), so a worker's gradient does not depend on how many
+    workers one call takes: every strategy — tree vs flat state, grouped vs
+    switch dispatch, chunked vs monolithic, sharded vs not — replays the
+    same trajectory bitwise.
 
     grouped_dispatch=True (default) runs each defense family once over its
     own lanes (module docstring); False is the per-lane switch reference:
@@ -595,6 +702,39 @@ class SweepEngine:
     scheme) and runs the remaining chunks: resumed == uninterrupted
     bitwise.  A caller's `draws(t)` is addressed by the absolute round, so
     it carries no state.  A failed write raises out of `run`.
+
+    mesh (a `launch.mesh.SweepMesh`; requires flat_state) shards the sweep
+    over the ranks of the process group, one rank a device (module
+    docstring); the mesh spans every rank, or is the one-device mesh.  The
+    contracts, as the reference's, against the unsharded engine from the
+    same draws:
+
+      "data": every real lane's trajectory at rtol 1e-6 (a lane's math
+        does not depend on its rank; bitwise under strict_numerics).
+      "workers" (worker_shards=W): the stats gather the per-worker scalars
+        (the same [S, U] vector is reduced), the combine is each rank's
+        weighted sum of its workers, then an all_reduce over the ranks
+        (`_WorkerShards.psum_combine`), and the digital lanes gather the
+        full slab; rtol 5e-6 over a run (the all_reduce adds the ranks'
+        partial sums in another order).  Under strict_numerics every rank
+        gathers the full slab and runs the unsharded math on it: bitwise
+        (its gradients give each worker its own matmuls, so ceil(U / W)
+        workers a call round as U workers do).
+      "model" (model_shards=M): gradients come off the gathered full rows,
+        the stats add each rank's partial sums (`flat_partial_stats`, two
+        all_reduces), the combine, the fused step and the column-wise
+        screens (mean, median, trimmed mean) run on each rank's columns,
+        the row-geometry screens (Krum, geometric median) on gathered full
+        rows, and the grad norm adds the ranks' squared sums; rtol 5e-6
+        (5e-5 for the LM lane).  Under strict_numerics the round runs at
+        full width and only the carry is sliced: bitwise.
+
+    With chunking, every rank gathers the full carry at a checkpoint (the
+    state at the real D, the Markov gains, every lane's generator states
+    in lane order, the trajectory rows) and rank 0 alone writes it, in the
+    unsharded run's layout; on resume rank 0's latest step is broadcast,
+    and every rank reads it from checkpoint_dir (a filesystem every rank
+    shares).
     """
 
     # Generator slots of the default draws (the JAX engine's split slots
@@ -613,7 +753,6 @@ class SweepEngine:
             strict_numerics=strict_numerics,
             grouped_dispatch=grouped_dispatch, chunk_rounds=chunk_rounds,
             async_staging=async_staging), "SweepEngine")
-        _refuse_sharding(plan)
         self.plan = plan
         # The reference's legacy surface: the knobs as plain attributes.
         self.flat_state = plan.flat_state
@@ -636,23 +775,66 @@ class SweepEngine:
         self._noise, self._jam = spec.analog_noise, spec.analog_jamming
         self._markov, self._partial = spec.any_markov, spec.any_partial
         self._dir = spec.any_directional
-        # Grouped dispatch: rows run in group order (`_perm`), results go
-        # back to lane order (`_inverse`) in `run`.  Each group's rows, its
-        # ScenarioParams and its defense kernel (None for the analog group)
-        # are fixed here, so a round only indexes them.  The switch
-        # dispatch keeps lane order and one selector over every family.
+        mesh = plan.mesh
+        if mesh is not None and not isinstance(mesh, SweepMesh):
+            raise TypeError(
+                f"plan.mesh must be a repro_torch.launch.mesh.SweepMesh "
+                f"(make_sweep_mesh), got {type(mesh).__name__}")
+        self._mesh_size = 1 if mesh is None else mesh.size
+        axis = (lambda name: (0, None) if mesh is None
+                else (mesh.axis_index(name), mesh.group(name)))
+        # Worker and model shards (the model shards need D: built in run).
+        self._ws = (_WorkerShards(self._u, plan.worker_shards,
+                                  *axis("workers"))
+                    if plan.worker_sharded else None)
+        self._ms = None
+        self._cols_cache = None
+        self._model_axis = axis("model")
+        # The lanes in execution order (`exec_src`: execution row -> source
+        # lane, ghosts included) and this rank's block of them (`_rows`).
+        # Grouped dispatch: the rows run in group order, ghost-padded per
+        # family, and each group's rows, ScenarioParams and defense kernel
+        # (None for the analog group) are fixed here, so a round only
+        # indexes them.  The switch dispatch keeps lane order and one
+        # selector over every family.  Results go back to lane order
+        # (`_inverse`: each lane's first execution row) in `run`.
+        shards = plan.data_shards
+        num = len(spec)
         self._group_runs = None
         self._selector = None
-        self._perm = self._inverse = None
-        self._sp_exec = self._sp
         if spec.any_digital and plan.grouped_dispatch:
-            groups = SC.build_lane_groups(spec.lane_codes)
-            self._perm, self._inverse = (
-                torch.as_tensor(ix, dtype=torch.long, device=self.device)
-                for ix in (groups.perm, groups.inverse))
-            self._sp_exec = SC.permute_lanes(self._sp, self._perm)
+            groups = SC.build_lane_groups(spec.lane_codes, shards)
+            exec_src, inverse = list(groups.perm), list(groups.inverse)
+            if groups.num_ghosts > num:
+                warnings.warn(
+                    f"grouped dispatch executes {groups.exec_lanes} lanes "
+                    f"for {num} scenarios ({groups.num_ghosts} ghosts: "
+                    f"{len(groups.codes)} defense-code groups each padded to "
+                    f"a multiple of {shards} ranks); grouped_dispatch=False "
+                    f"may be faster")
+        else:
+            groups = None
+            exec_src = list(range(num)) + [num - 1] * (-num % shards)
+            inverse = list(range(num))
+        self._exec_src = exec_src
+        s_loc = len(exec_src) // shards
+        lo = axis("data")[0] * s_loc
+        self._lanes = slice(lo, lo + s_loc)
+        self._lane_group = axis("data")[1]
+        self._rows = exec_src[lo:lo + s_loc]
+        dev = self.device
+        self._local_src = (None if self._rows == list(range(num))
+                           else torch.as_tensor(self._rows, dtype=torch.long,
+                                                device=dev))
+        self._inverse_rows = inverse
+        self._inverse = (None if exec_src == inverse
+                         else torch.as_tensor(inverse, dtype=torch.long,
+                                              device=dev))
+        self._sp_exec = (self._sp if self._local_src is None
+                         else SC.permute_lanes(self._sp, self._local_src))
+        if groups is not None:
             self._group_runs = [
-                (slice(start, end),
+                (slice(start, end), code,
                  SC.permute_lanes(self._sp_exec, slice(start, end)),
                  None if code == SC._FLOA_CODE
                  else DEF.make_group_defense_kernel(
@@ -663,6 +845,18 @@ class SweepEngine:
             self._selector = DEF.make_flat_defense_selector(
                 spec.digital_codes, spec.gm_iters, masked=self._partial,
                 plain=force_plain)
+
+    @property
+    def _ws_run(self) -> Optional[_WorkerShards]:
+        """The worker shards the round's math sees: none under
+        strict_numerics, which gathers the full slab first."""
+        return None if self.strict_numerics else self._ws
+
+    @property
+    def _ms_run(self) -> Optional[_ModelShards]:
+        """The model shards the round's math sees: none under
+        strict_numerics, which runs at full width."""
+        return None if self.strict_numerics else self._ms
 
     # ------------------------------------------------------------ draws
 
@@ -699,48 +893,83 @@ class SweepEngine:
     # ------------------------------------------------------------ a round
 
     def _stats(self, flat: Tensor, sizes) -> Tuple[Tensor, Tensor]:
-        """Per-worker (gbar_i, eps2_i) of a [S_g, U, D] slab: one launch,
-        or per leaf segment under strict_numerics."""
-        return S.flat_scalar_stats(
-            flat, sizes if self.strict_numerics else None,
-            plain=self.force_plain)
+        """Per-worker (gbar_i, eps2_i) [S_g, U] of a [S_g, U, D] slab: one
+        launch, or per leaf segment under strict_numerics.  Sharded: this
+        rank's workers' stats gathered, or its columns' partial sums added
+        over the "model" ranks."""
+        plain = self.force_plain
+        if self.strict_numerics:
+            return S.flat_scalar_stats(flat, sizes, plain=plain)
+        ws, ms = self._ws_run, self._ms_run
+        if ms is not None:
+            s1, s2 = S.flat_partial_stats(flat, plain=plain)
+            gbar_i, eps2_i = S.stats_from_partials(ms.psum(s1), ms.psum(s2),
+                                                   ms.d)
+        else:
+            gbar_i, eps2_i = S.flat_scalar_stats(flat, plain=plain)
+        if ws is not None:
+            gbar_i, eps2_i = ws.gather_stats(gbar_i, eps2_i)
+        return gbar_i, eps2_i
 
     def _select(self, gagg: Optional[Tensor], flat: Tensor,
                 sp: SC.ScenarioParams, part: Optional[Tensor]) -> Tensor:
         """The switch dispatch's digital leg over all lanes: Byzantine rows
         sign-flipped, every family present run over every lane, each lane
-        keeping its own family's row; analog lanes (code 0) keep `gagg`."""
+        keeping its own family's row; analog lanes (code 0) keep `gagg`.
+        `flat` is the full [S, U, D] slab; under model sharding the result
+        is this rank's columns."""
         args = (sp.defense, _digital_flip(flat, sp), sp.def_trim, sp.def_f,
                 sp.def_multi)
         dig = self._selector(*args) if part is None else self._selector(
             *args, part)
+        if self._ms_run is not None:
+            dig = self._ms_run.local_cols(dig)
         if gagg is None:   # all-digital: no analog leg at all
             return dig
         return torch.where((sp.defense == SC._FLOA_CODE)[:, None], gagg, dig)
 
     def _aggregate(self, w: Optional[Tensor], flat: Tensor, draw, sizes,
                    stats=None) -> Tuple[Optional[Tensor], Tensor]:
-        """The round's aggregate from the [S, U, D] slab `flat` (execution
-        order): (w_new, gagg), w_new None when `w` is None (the two-step
-        route the tree state needs).  `stats` overrides the analog lanes'
-        per-worker stats (the tree state's per-leaf sums)."""
+        """The round's aggregate from the slab `flat` (execution order,
+        every column; this rank's workers under worker sharding, all of
+        them under strict_numerics or an all-digital switch dispatch):
+        (w_new, gagg), w_new None when `w` is None (the two-step route the
+        tree state needs).  `stats` overrides the analog lanes' per-worker
+        stats (the tree state's per-leaf sums).  Under model sharding `w`
+        and the results are this rank's columns."""
         sp = self._sp_exec
+        ws, ms = self._ws_run, self._ms_run
         part = draw.get("part") if self._partial else None
+        if self._selector is not None and self.spec.all_digital:
+            gagg = self._select(None, flat, sp, part)
+            return (None if w is None else w - sp.alpha[:, None] * gagg), gagg
+        local = flat if ms is None else ms.local_cols(flat)
         if self._group_runs is not None:
             w_parts, g_parts = [], []
-            for rows, spg, kernel in self._group_runs:
+            for rows, code, spg, kernel in self._group_runs:
                 part_g = None if part is None else part[rows]
                 if kernel is None:
-                    st = (self._stats(flat[rows], sizes) if stats is None
+                    st = (self._stats(local[rows], sizes) if stats is None
                           else stats(rows))
                     w_g, g_g = self._analog_step(
-                        None if w is None else w[rows], flat[rows],
+                        None if w is None else w[rows], local[rows],
                         SC.permute_lanes(draw, rows), spg, part_g, *st)
                 else:
-                    args = (_digital_flip(flat[rows], spg), spg.def_trim,
+                    # Column-wise screens run on this rank's columns; the
+                    # row-geometry ones score whole rows.
+                    row_geo = (ms is not None
+                               and code not in DEF.COLUMNWISE_CODES)
+                    fg = flat[rows] if row_geo else local[rows]
+                    if ws is not None:
+                        fg = ws.gather_slab(fg)
+                    args = (_digital_flip(fg, spg), spg.def_trim,
                             spg.def_f, spg.def_multi)
                     g_g = kernel(*args) if part_g is None else kernel(
                         *args, part_g)
+                    if row_geo:
+                        g_g = ms.local_cols(g_g)
+                    elif ms is not None:
+                        g_g = ms.mask(g_g)
                     w_g = (None if w is None
                            else w[rows] - spg.alpha[:, None] * g_g)
                 w_parts.append(w_g)
@@ -748,16 +977,14 @@ class SweepEngine:
             gagg = torch.cat(g_parts)
             return (None if w is None else torch.cat(w_parts)), gagg
         if self._selector is None:   # all-analog
-            st = self._stats(flat, sizes) if stats is None else stats(
+            st = self._stats(local, sizes) if stats is None else stats(
                 slice(None))
-            return self._analog_step(w, flat, draw, sp, part, *st)
-        if self.spec.all_digital:
-            gagg = self._select(None, flat, sp, part)
-        else:
-            st = self._stats(flat, sizes) if stats is None else stats(
-                slice(None))
-            _, gagg = self._analog_step(None, flat, draw, sp, part, *st)
-            gagg = self._select(gagg, flat, sp, part)
+            return self._analog_step(w, local, draw, sp, part, *st)
+        st = self._stats(local, sizes) if stats is None else stats(
+            slice(None))
+        _, gagg = self._analog_step(None, local, draw, sp, part, *st)
+        gagg = self._select(gagg, flat if ws is None
+                            else ws.gather_slab(flat), sp, part)
         return (None if w is None else w - sp.alpha[:, None] * gagg), gagg
 
     def _analog_step(self, w: Optional[Tensor], grads: Tensor, draw,
@@ -765,11 +992,14 @@ class SweepEngine:
                      gbar_i: Tensor, eps2_i: Tensor
                      ) -> Tuple[Optional[Tensor], Tensor]:
         """Steps 3-6 on analog lanes: (w [S_a, D] or None, grads
-        [S_a, U, D], per-worker stats) -> (w_new or None, gagg), with
-        `draw`, `sp` and the participation masks `part` [S_a, U] (or None)
-        for the same lanes.  With w the combine and update fuse unless
-        jamming or a cohort direction lands in between."""
+        [S_a, U, D], per-worker stats [S_a, U]) -> (w_new or None, gagg),
+        with `draw`, `sp` and the participation masks `part` [S_a, U] (or
+        None) for the same lanes.  With w the combine and update fuse unless
+        jamming or a cohort direction lands in between.  Sharded: grads are
+        this rank's workers (the combine an all_reduce of their weighted
+        sum) or its columns (the draws sliced, the ghost columns masked)."""
         plain = self.force_plain
+        ws, ms = self._ws_run, self._ms_run
         s, d = grads.shape[0], grads.shape[-1]
         # the PS mean over the participants of the per-worker stats (eq. 3)
         if part is None:
@@ -783,38 +1013,57 @@ class SweepEngine:
         # 5. receiver noise row (all-zero when no analog lane is noisy).
         if self._noise:
             noise_row = noise_std[:, None] * draw["z"]
+            if ms is not None:
+                noise_row = ms.local_cols(noise_row)
         else:
             noise_row = torch.zeros((s, d), device=grads.device)
         bias_row = bias_w * gbar
         # 6. OTA combine + PS update: fused, or the combine, then jamming
         # and the cohorts' direction, then the update.
-        if w is not None and not (self._jam or self._dir):
-            return batched_floa_step(w, sp.alpha, coeff, grads, noise_row,
-                                     bias_row, eps, plain=plain)
-        gagg = batched_floa_combine(coeff, grads, noise_row, bias_row, eps,
-                                    plain=plain)
+        if ws is not None:
+            gagg = ws.psum_combine(coeff, grads, noise_row, bias_row, eps)
+        elif w is not None and not (self._jam or self._dir):
+            w_new, gagg = batched_floa_step(w, sp.alpha, coeff, grads,
+                                            noise_row, bias_row, eps,
+                                            plain=plain)
+            if ms is not None:
+                return ms.mask(w_new), ms.mask(gagg)
+            return w_new, gagg
+        else:
+            gagg = batched_floa_combine(coeff, grads, noise_row, bias_row,
+                                        eps, plain=plain)
+        if ms is not None:   # the bias is a per-lane scalar broadcast
+            gagg = ms.mask(gagg)
         if self._jam:
-            gagg = gagg + jam_std[:, None] * draw["jam"]
+            jam_row = jam_std[:, None] * draw["jam"]
+            gagg = gagg + (jam_row if ms is None else ms.local_cols(jam_row))
         if self._dir:
             gagg = gagg + dir_w[:, None] * self._direction(grads, draw, sp,
                                                            part)
         return (None if w is None else w - sp.alpha[:, None] * gagg), gagg
 
-    @staticmethod
-    def _direction(grads: Tensor, draw, sp: SC.ScenarioParams,
+    def _direction(self, grads: Tensor, draw, sp: SC.ScenarioParams,
                    part: Optional[Tensor]) -> Tensor:
         """The cohort's shared row [S_a, D]: COLLUDING lanes a unit-RMS
-        random direction, every other lane the mean of its honest
-        (participating) rows, which OMNISCIENT lanes transmit negated (the
-        sign is in dir_w, 0 for other attacks)."""
+        random direction (normalised at the full real D), every other lane
+        the mean of its honest (participating) rows, which OMNISCIENT lanes
+        transmit negated (the sign is in dir_w, 0 for other attacks)."""
+        ws, ms = self._ws_run, self._ms_run
         dvec = draw["dir"]
         rms = torch.sqrt(torch.mean(dvec * dvec, dim=-1, keepdim=True))
         dvec = dvec / torch.clamp_min(rms, 1e-20)
+        if ms is not None:
+            dvec = ms.local_cols(dvec)
         honest = (~sp.byz_mask).float()
         if part is not None:
             honest = honest * part.float()
         cnt = torch.clamp_min(honest.sum(dim=-1), 1.0)
-        hmean = torch.einsum("su,sud->sd", honest, grads) / cnt[:, None]
+        if ws is None:
+            hsum = torch.einsum("su,sud->sd", honest, grads)
+        else:
+            hsum = ws.psum(torch.einsum("su,sud->sd", ws.local_coeff(honest),
+                                        grads))
+        hmean = hsum / cnt[:, None]
         return torch.where((sp.attack == SC._COLLUDING)[:, None], dvec,
                            hmean)
 
@@ -838,21 +1087,53 @@ class SweepEngine:
             def flat_loss(w_row, batch):
                 return loss_fn(unflatten_row(w_row), batch)
 
-            grads_fn = vmap(lambda wr, b: per_worker_grads(flat_loss, wr, b,
-                                                           u),
-                            in_dims=(0, None))
+            ws, ms = self._ws, self._ms
+            ws_run, ms_run = self._ws_run, self._ms_run
+            u_run = u if ws is None else ws.u_loc
+            fixed = self.strict_numerics
+            grads_fn = vmap(lambda wr, b: per_worker_grads(
+                flat_loss, wr, b, u_run, fixed_shapes=fixed),
+                in_dims=(0, None))
             loss_lanes = vmap(flat_loss, in_dims=(0, None))
+            # Worker sharding keeps this rank's workers unless the round
+            # needs every worker's row: strict_numerics, and the switch
+            # dispatch of an all-digital sweep (its screens are order
+            # statistics over the workers).
+            gather = ws is not None and (
+                ws_run is None or (self._selector is not None
+                                   and self.spec.all_digital))
 
             def one_round(w, batch, draw):
-                grads = grads_fn(w, batch).contiguous()        # [S, U, D]
-                w_new, gagg = self._aggregate(w, grads, draw, sizes)
-                gn = torch.sqrt(torch.sum(gagg * gagg, dim=-1))
-                return w_new, loss_lanes(w_new, batch), gn
+                # Model sharding: the gradients come off the gathered full
+                # rows; the update runs on this rank's columns, or at full
+                # width under strict_numerics (only the carry is sliced).
+                # The full rows of the state a round returns are kept for
+                # the next round and the eval (`_full_cols`): one gather a
+                # round.
+                w_full = self._full_cols(w)
+                grads = grads_fn(w_full, batch if ws is None
+                                 else ws.local_batch(batch)).contiguous()
+                if gather:
+                    grads = ws.gather_slab(grads)
+                w_new, gagg = self._aggregate(
+                    w if ms_run is not None else w_full, grads, draw, sizes)
+                if ms_run is None:
+                    gn = torch.sqrt(torch.sum(gagg * gagg, dim=-1))
+                    loss = loss_lanes(w_new, batch)
+                    if ms is not None:
+                        self._cols_cache = (ms.local_cols(w_new), w_new)
+                        w_new = self._cols_cache[0]
+                else:
+                    gn = torch.sqrt(ms.psum(torch.sum(gagg * gagg, dim=-1)))
+                    self._cols_cache = (w_new, ms.gather_cols(w_new))
+                    loss = loss_lanes(self._cols_cache[1], batch)
+                return w_new, loss, gn
 
             return one_round, lambda w, i: unflatten_row(w[i])
 
-        tree_grads = vmap(lambda p, b: per_worker_grads(loss_fn, p, b, u),
-                          in_dims=(0, None))
+        tree_grads = vmap(lambda p, b: per_worker_grads(
+            loss_fn, p, b, u, fixed_shapes=self.strict_numerics),
+            in_dims=(0, None))
         loss_lanes = vmap(loss_fn, in_dims=(0, None))
 
         def one_round(params, batch, draw):
@@ -881,47 +1162,105 @@ class SweepEngine:
                                                 device=self.device).float()
                                 for r in rows]) for k in rows[0]}
 
+    # ------------------------------------------------------------ gathers
+
+    def _gather_lanes(self, x: Tensor, dim: int = 0) -> Tensor:
+        """This rank's lanes of `x` (along `dim`) -> every execution row,
+        the ranks' blocks in "data" order (`x` itself without lane
+        shards).  Host tensors travel on the engine's device."""
+        if self._lane_group is None:
+            return x
+        return DIST.all_gather(x.to(self.device), self._lane_group,
+                               dim).to(x.device)
+
+    def _full_cols(self, w: Tensor) -> Tensor:
+        """The flat state's real D columns (gathered over "model"; the last
+        round's gather when `w` is the state that round returned)."""
+        if self._ms is None:
+            return w
+        if self._cols_cache is not None and self._cols_cache[0] is w:
+            return self._cols_cache[1]
+        return self._ms.gather_cols(w)
+
+    def _full_state(self, state):
+        """The state in the unsharded layout: every execution row, the real
+        D columns (the tree state is never sharded)."""
+        if isinstance(state, dict):
+            return state
+        return self._gather_lanes(self._full_cols(state))
+
+    def _host_blocks(self, traj: _Trajectory, keys=None) -> dict:
+        """The trajectory so far on the host, every execution row:
+        {"loss", "grad_norm": [T, S_exec], "metrics": {k: [T, S_exec]}}."""
+        out = traj.host(keys)
+
+        def rows(x: np.ndarray) -> np.ndarray:
+            return self._gather_lanes(torch.from_numpy(
+                np.ascontiguousarray(x)), dim=1).numpy()
+
+        return {"loss": rows(out["loss"]), "grad_norm": rows(out["grad_norm"]),
+                "metrics": {k: rows(v) for k, v in out["metrics"].items()}}
+
     # ------------------------------------------------------------ resume
 
     def _resume_extra(self, rounds: int, seeded: bool) -> dict:
         """The fingerprint a resume checkpoint carries: what its carry is
-        valid for.  The reference's fields (without its model_shards, so
-        the JAX engine refuses the port's checkpoints), the execution order
-        and state representation, and the draw scheme (so the port refuses
-        the JAX engine's)."""
+        valid for.  The reference's fields (its model_shards under a key of
+        the port's own, so the JAX engine refuses the port's checkpoints),
+        the execution order (ghost lanes included) and state
+        representation, and the draw scheme (so the port refuses the JAX
+        engine's)."""
         return {"resume_version": _RESUME_VERSION,
                 "rounds_total": int(rounds),
                 "chunk_rounds": int(self.chunk_rounds),
-                "exec_lanes": len(self.spec),
+                "exec_lanes": len(self._exec_src),
                 "eval_every": int(self.eval_every),
+                "model_column_shards": int(self.plan.model_shards),
                 "names": list(self.spec.names),
                 "flat_state": bool(self.flat_state),
-                "exec_order": (list(range(len(self.spec)))
-                               if self._perm is None
-                               else self._perm.tolist()),
+                "exec_order": list(self._exec_src),
                 "draws": _SEEDED_DRAWS if seeded else _CALLER_DRAWS}
 
     def _save_checkpoint(self, t_next: int, rounds: int, state, h, draws,
                          traj: _Trajectory, seeded: bool) -> None:
-        carry = {"state": state}
+        """Every rank gathers the carry in the unsharded layout (the
+        generator states in lane order: each lane's first execution row);
+        rank 0 alone writes it."""
+        carry = {"state": self._full_state(state)}
         if h is not None:
-            carry["h"] = h
+            carry["h"] = self._gather_lanes(h)
         if seeded:
-            carry["rng"] = draws.state()
+            first = self._inverse_rows
+            carry["rng"] = {k: self._gather_lanes(v)[first]
+                            for k, v in draws.state().items()}
+        blocks = self._host_blocks(traj)
+        if self._mesh_size > 1 and DIST.world()[0] != 0:
+            return
         extra = self._resume_extra(rounds, seeded)
         extra["t_next"] = int(t_next)
         CKPT.save_pytree(self.checkpoint_dir, int(t_next),
-                         {"carry": carry, "blocks": traj.host()},
-                         extra=extra)
+                         {"carry": carry, "blocks": blocks}, extra=extra)
 
     def _restore_checkpoint(self, rounds: int, state, draws, seeded: bool):
         """The latest committed checkpoint, checked against this run:
-        (t_start, state, h, trajectory prior) on the engine's device, or
-        None when there is none yet (a fresh run)."""
+        (t_start, state, h, trajectory prior) on the engine's device, this
+        rank's share of them, or None when there is none yet (a fresh run).
+        Sharded: rank 0's latest step, broadcast, is every rank's."""
         step = CKPT.latest_step(self.checkpoint_dir)
+        if self._mesh_size > 1:
+            step = DIST.broadcast_int(-1 if step is None else step,
+                                      self.device)
+            step = None if step < 0 else step
         if step is None:
             return None
-        saved, meta = CKPT.restore_pytree(self.checkpoint_dir, step)
+        try:
+            saved, meta = CKPT.restore_pytree(self.checkpoint_dir, step)
+        except FileNotFoundError as e:
+            raise FileNotFoundError(
+                f"rank {DIST.world()[0]} cannot read resume checkpoint step "
+                f"{step} from {self.checkpoint_dir!r}: multi-process resume "
+                f"requires checkpoint_dir on a filesystem shared by every "
+                f"process (process 0 writes, the rest read)") from e
         ex = meta.get("extra", {})
         want = self._resume_extra(rounds, seeded)
         got = {k: ex.get(k) for k in want}
@@ -933,18 +1272,21 @@ class SweepEngine:
                 f"{mismatch} differ (checkpoint "
                 f"{ {k: got[k] for k in mismatch} } vs engine "
                 f"{ {k: want[k] for k in mismatch} })")
-        carry, dev = saved["carry"], self.device
+        carry, dev, lanes = saved["carry"], self.device, self._lanes
         if isinstance(state, dict):
             state = tree_map(lambda _, v: v.to(dev), state, carry["state"])
         else:
-            state = carry["state"].to(dev)
-        h = carry["h"].to(dev) if "h" in carry else None
+            state = carry["state"][lanes].to(dev)
+            if self._ms is not None:
+                state = self._ms.local_cols(state)
+        h = carry["h"][lanes].to(dev) if "h" in carry else None
         if seeded:
-            draws.load_state(carry["rng"])
+            draws.load_state({k: v[self._rows]
+                              for k, v in carry["rng"].items()})
         blocks = saved["blocks"]
-        prior = {"loss": blocks["loss"].numpy(),
-                 "grad_norm": blocks["grad_norm"].numpy(),
-                 "metrics": {k: v.numpy()
+        prior = {"loss": blocks["loss"].numpy()[:, lanes],
+                 "grad_norm": blocks["grad_norm"].numpy()[:, lanes],
+                 "metrics": {k: v.numpy()[:, lanes]
                              for k, v in blocks.get("metrics", {}).items()}}
         return int(ex["t_next"]), state, h, prior
 
@@ -956,40 +1298,45 @@ class SweepEngine:
         """params0: one init tree (nested dicts, JAX layout), broadcast to
         every lane.
         batches: dict of [R, U*B, ...] arrays shared by every lane (host
-        arrays; chunked plans stage [C, ...] blocks of them).  draws:
-        optional per-round draw provider (module docstring); None uses
-        `seeded_draws`.  resume=True (requires the plan's checkpoint_dir)
-        continues from the latest committed checkpoint, bitwise as the
-        uninterrupted run; with none on disk it is a fresh run."""
+        arrays; chunked plans stage [C, ...] blocks of them; every rank
+        passes the same).  draws: optional per-round draw provider (module
+        docstring); None uses `seeded_draws`.  resume=True (requires the
+        plan's checkpoint_dir) continues from the latest committed
+        checkpoint, bitwise as the uninterrupted run; with none on disk it
+        is a fresh run.  Sharded, every rank returns the full result."""
         if resume and self.checkpoint_dir is None:
             raise ValueError(
                 "resume=True needs a checkpoint to restore: construct the "
                 "engine with plan=ExecutionPlan(checkpoint_dir=..., "
                 "chunk_rounds=...)")
-        dev, num = self.device, len(self.spec)
+        dev, num, s_loc = self.device, len(self.spec), len(self._rows)
         params0 = tree_map(lambda v: torch.as_tensor(v, device=dev), params0)
         unflatten_row, sizes = make_row_unflatten(params0)
         d = sum(sizes)
+        self._ms = (_ModelShards(d, self.plan.model_shards, *self._model_axis)
+                    if self.plan.model_sharded else None)
+        self._cols_cache = None   # (local state, its full columns)
         rounds = next(iter(batches.values())).shape[0]
         seeded = draws is None
         draws = self.seeded_draws(d) if seeded else draws
-        stacked = stack_params(params0, num)
+        # every lane starts from params0: this rank's rows of it
+        stacked = stack_params(params0, s_loc)
         if self.flat_state:
             state, _ = flatten_worker_grads(stacked, batch_dims=1)
-            state = state.contiguous()                          # [S, D] f32
+            state = state.contiguous()                      # [S_loc, D] f32
+            if self._ms is not None:
+                state = self._ms.local_cols(state)          # [S_loc, d_loc]
         else:
             state = tree_map(lambda v: v.contiguous(), stacked)
-        if self._perm is not None:   # every lane starts from params0 anyway
-            state = SC.permute_lanes(state, self._perm)
         one_round, lane_view = self._round_fn(unflatten_row, sizes)
 
-        h = None   # the Gauss-Markov state [S, U, 2], execution order
+        h = None   # the Gauss-Markov state [S_loc, U, 2], execution order
         t, prior = 0, None
         if resume:
             restored = self._restore_checkpoint(rounds, state, draws, seeded)
             if restored is not None:
                 t, state, h, prior = restored
-        traj = _Trajectory(num, prior)
+        traj = _Trajectory(s_loc, prior)
         chunk = self.chunk_rounds or max(rounds, 1)
         host = {k: np.asarray(v)[t:] for k, v in batches.items()}
         blocks = iter_chunk_blocks(host, chunk)
@@ -1008,9 +1355,10 @@ class SweepEngine:
             for j in range(n):   # round t + j reads row j of the block
                 batch = {k: v[j] for k, v in block.items()}
                 draw = draws(t + j)
-                self._check_draw(draw, num, d, t + j)
-                if self._perm is not None:
-                    draw = SC.permute_lanes(draw, self._perm)
+                if not seeded:   # full-S rows: this rank's, in its order
+                    self._check_draw(draw, num, d, t + j)
+                    if self._local_src is not None:
+                        draw = SC.permute_lanes(draw, self._local_src)
                 if self._markov:
                     if t + j == 0:   # stationary: every marginal Rayleigh
                         h = self._sp_exec.sigma[..., None] * draw["h_init"]
@@ -1018,7 +1366,8 @@ class SweepEngine:
                 state, loss, gn = one_round(state, batch, draw)
                 due = t + j == rounds - 1 or (
                     self.eval_every > 0 and (t + j) % self.eval_every == 0)
-                traj.add(loss, gn, self._eval(state, lane_view, num)
+                traj.add(loss, gn, self._eval(self._full_cols(state),
+                                              lane_view, s_loc)
                          if due and self.eval_fn is not None else None)
             t += n
             del staged, block
@@ -1034,16 +1383,19 @@ class SweepEngine:
         if rounds == 0 and self.eval_fn is not None:
             # no round ran: the eval's keys, as the JAX engine's traced
             # eval gives them
-            keys = self._eval(state, lane_view, num).keys()
-        out = traj.host(keys)
+            keys = self._eval(self._full_cols(state), lane_view,
+                              s_loc).keys()
+        out = self._host_blocks(traj, keys)
         # Back to lane order: execution row self._inverse[i] is lane i.
         inv = (np.arange(num) if self._inverse is None
-               else self._inverse.cpu().numpy())
+               else np.asarray(self._inverse_rows))
 
         def lanes(x: np.ndarray) -> np.ndarray:
             return np.ascontiguousarray(x.T[inv])
 
-        final = (unflatten_row(state) if self.flat_state else state)
+        final = self._full_state(state)
+        self._cols_cache = None
+        final = unflatten_row(final) if self.flat_state else final
         if self._inverse is not None:
             final = SC.permute_lanes(final, self._inverse)
         return SweepResult(

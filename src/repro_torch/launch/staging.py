@@ -1,10 +1,13 @@
 """Host-to-device staging of the chunked sweep's batch blocks.
 
-The counterpart of `repro/launch/mesh.py::stage_batch_block` on one device:
+The counterpart of `repro/launch/mesh.py::stage_batch_block`:
 `BlockStager.stage(block)` moves one host block (a dict of [C, ...] numpy
 arrays) to the engine's device, floating data as float32, as
 `as_device_array` stages the monolithic run's whole stack: every staging
-gives the same bytes.
+gives the same bytes.  In a sharded sweep every rank stages the whole
+(replicated) block to its own device with its own stager, where the
+reference lands one block replicated over the mesh; a worker-sharded rank
+then reads its workers' rows of it.
 
 Synchronous staging is a pageable copy on the compute stream: the host waits
 for it, and it waits for the rounds already enqueued.  Asynchronous staging

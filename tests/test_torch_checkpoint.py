@@ -307,9 +307,11 @@ def test_port_sources_import_no_jax_repro_or_ml_dtypes():
         r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.M)
     files = sorted((root / "src" / "repro_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
+    files.append(root / "tests" / "torch_dist_driver.py")
     assert len(files) > 40
     for new in ("tree.py", "optim/optimizers.py", "optim/schedules.py",
-                "launch/train.py", "launch/steps.py"):
+                "launch/train.py", "launch/steps.py",
+                "launch/distributed.py", "launch/mesh.py"):
         assert root / "src" / "repro_torch" / new in files, new
     bad = [str(f.relative_to(root)) for f in files
            if pattern.search(f.read_text())]

@@ -1047,3 +1047,35 @@ def test_lm_lane_round_matches_plain_route(cuda_device):
     from repro_torch.tree import tree_leaves
     for a, b in zip(tree_leaves(rk.params), tree_leaves(rp.params)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_matches_unmeshed(cuda_device, tmp_path):
+    """A one-rank NCCL process group and its ("data",) mesh: Fig. 3's lanes
+    at smoke width equal the unmeshed run bitwise (the mesh's lane gathers
+    go through NCCL as one-rank copies)."""
+    import torch.distributed as dist
+    from repro_torch.fl import ExecutionPlan
+    from repro_torch.launch.mesh import make_sweep_mesh
+    exps = [TF.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
+                          attacker_sigma=3.0, rounds=ROUNDS)
+            for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                              ("BEV", Policy.BEV)]]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 's'}",
+                            world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_sweep_mesh()
+        engine, params, batches = TF.figure_engine(
+            exps, mc=SMOKE, device=cuda_device, plan=ExecutionPlan(mesh=mesh))
+        assert engine._lane_group is not None
+        meshed = engine.run(params, batches)
+    finally:
+        dist.destroy_process_group()
+    engine, params, batches = TF.figure_engine(exps, mc=SMOKE,
+                                               device=cuda_device)
+    plain = engine.run(params, batches)
+    assert np.array_equal(meshed.loss, plain.loss)
+    assert np.array_equal(meshed.grad_norm, plain.grad_norm)
+    assert all(torch.equal(meshed.params[k], plain.params[k])
+               for k in plain.params)

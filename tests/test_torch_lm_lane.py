@@ -191,7 +191,9 @@ def test_lm_lane_tree_state_resumes_bitwise(tmp_path):
 def test_run_lm_lane_on_the_cpu():
     """The example's entry point on the CPU (plain versions, no launch):
     three lanes by name, finite, clean descending over 8 rounds; the
-    example's --model-shards and a resume without a directory raise."""
+    example's --model-shards in one process (its ("model",) mesh needs a
+    rank a shard, tests/test_torch_model_sharded.py) and a resume without
+    a directory raise."""
     tops.reset_launches()
     res = TF.run_lm_lane(8, cfg=_port_cfg(), seq=SEQ, byzantine=N_ATK,
                          lr=LR, device="cpu")
@@ -202,7 +204,7 @@ def test_run_lm_lane_on_the_cpu():
     clean = res.loss[0]
     assert np.mean(clean[-tail:]) < clean[0]
     assert res.params["embed"].shape == (3, 256, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(AssertionError, match="model_shards=2"):
         TF.run_lm_lane(2, cfg=_port_cfg(), device="cpu", model_shards=2)
     with pytest.raises(ValueError, match="checkpoint_dir"):
         TF.run_lm_lane(2, cfg=_port_cfg(), device="cpu", resume=True)

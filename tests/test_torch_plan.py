@@ -196,12 +196,13 @@ def test_plan_is_exported_from_fl_and_the_root():
 @pytest.mark.parametrize("axes", [dict(data=1), dict(workers=1),
                                   dict(data=1, workers=1, model=1)])
 def test_mesh_plans_are_refused_citing_item_8(axes):
-    """Any mesh (a JAX mesh here): refused at engine construction with
-    Queue 1 item 8 named."""
+    """A JAX mesh: refused at engine construction, naming the port's own
+    mesh (`launch.mesh.make_sweep_mesh`, over the ranks of a process group;
+    Queue 1 item 8's sweep half, tests/test_torch_sharded.py)."""
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape((1,) * len(axes)),
                 tuple(axes))
     cases = axis_grids(_problem(2)[2])["mixed"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="make_sweep_mesh"):
         _port(cases, plan=ExecutionPlan(mesh=mesh))
     with pytest.raises(TypeError, match="ExecutionPlan"):
         _port(cases, plan=JPlan())

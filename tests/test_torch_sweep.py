@@ -241,7 +241,8 @@ def test_port_imports_no_jax():
             "repro_torch.checkpoint, repro_torch.launch.staging, "
             "repro_torch.tree, repro_torch.optim, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.launch.serve, "
-            "repro_torch.models.transformer, repro_torch.configs.registry; "
+            "repro_torch.models.transformer, repro_torch.configs.registry, "
+            "repro_torch.launch.distributed, repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', "
             "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]; "
             "assert not bad, bad; print('clean')")
@@ -283,7 +284,9 @@ def _mesh(**axes):
     return SimpleNamespace(axis_names=tuple(axes), shape=dict(axes))
 
 
-# The plans one device cannot run (ROADMAP.md Queue 1 item 8), and the
+# Plans whose mesh is a stand-in with the reference mesh's axis names and
+# shape but no process groups: the engine refuses them (a sharded sweep
+# needs a `launch.mesh.SweepMesh`, tests/test_torch_sharded.py), and the
 # single-device plans the port runs since the execution-plan slice.
 REFUSED_PLANS = {
     "mesh": lambda: TS.ExecutionPlan(mesh=_mesh(data=2)),
@@ -318,10 +321,11 @@ def test_spec_validates_digital_lanes():
 
 @pytest.mark.parametrize("name", sorted(REFUSED_PLANS))
 def test_non_default_plans_are_refused(name):
-    """A mesh, worker shards or model shards: refused at construction,
-    naming ROADMAP.md Queue 1 item 8."""
+    """A mesh, worker shards or model shards on a stand-in mesh without
+    process groups: refused at construction, naming the mesh type the
+    engine needs."""
     spec = TS.SweepSpec.build([_case()])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="make_sweep_mesh"):
         TS.SweepEngine(TM.mlp_loss, spec, plan=REFUSED_PLANS[name](),
                        device="cpu")
     TS.SweepEngine(TM.mlp_loss, spec, plan=TS.ExecutionPlan(), device="cpu")

@@ -18,7 +18,12 @@ the port as inputs.
     order (sorted dict keys).
 """
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
 import warnings
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +74,26 @@ def jax_case(c):
                             participants=c.participants)
 
 
+def port_floa(cfg):
+    """The JAX package's FLOAConfig as the port's (`jax_floa`'s inverse)."""
+    return FLOAConfig(
+        channel=ChannelConfig(cfg.channel.num_workers, cfg.channel.sigma,
+                              cfg.channel.noise_std, cfg.channel.markov_rho),
+        power=PowerConfig(cfg.power.num_workers, cfg.power.dim,
+                          cfg.power.p_max, Policy(cfg.power.policy.value)),
+        attack=AttackConfig(AttackType(cfg.attack.attack.value),
+                            cfg.attack.byzantine_mask))
+
+
+def port_case(c):
+    """The JAX package's ScenarioCase as the port's (`jax_case`'s
+    inverse)."""
+    return TS.ScenarioCase(c.name, port_floa(c.floa), c.alpha, seed=c.seed,
+                           defense=DefenseSpec(
+                               **dataclasses.asdict(c.defense)),
+                           participants=c.participants)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -107,6 +132,138 @@ def replay_sweep_draws(jspec, rounds, d):
             draw["dir"] = _t(normal((d,), FOLD_COLLUDE)(subs))
         out.append(draw)
     return lambda t: out[t]
+
+
+def replay_numpy_draws(jspec, rounds, d):
+    """`replay_sweep_draws` as a list (by round) of dicts of numpy arrays:
+    what the multi-process drivers load (`run_ranks`)."""
+    draws = replay_sweep_draws(jspec, rounds, d)
+    return [{k: None if v is None else v.numpy() for k, v in draws(t).items()}
+            for t in range(rounds)]
+
+
+# ------------------------------------------ multi-process runs of the port
+
+DRIVER = Path(__file__).resolve().parent / "torch_dist_driver.py"
+SPAWN_TIMEOUT_S = 300
+
+
+def run_ranks(jobs, world, workdir):
+    """Run `jobs` (tests/torch_dist_driver.py's job dicts) on `world` CPU
+    ranks of a gloo process group (a FileStore in `workdir`, no ports);
+    every rank's exit must be 0.  Returns {file stem: result dict}, one
+    stem per job and rank (`<name>.r<rank>`), and the `.base` and
+    `.resumed.r<rank>` runs the jobs ask for."""
+    workdir = Path(workdir)
+    out = workdir / "out"
+    out.mkdir(parents=True)
+    with open(workdir / "jobs.pkl", "wb") as f:
+        pickle.dump(jobs, f)
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    logs = [open(workdir / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(DRIVER), str(r), str(world),
+         str(workdir / "store"), str(workdir / "jobs.pkl"), str(out)],
+        env=env, cwd=root, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=SPAWN_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        text = (workdir / f"rank{r}.log").read_text()
+        assert p.returncode == 0 and f"TORCH_DIST_OK rank={r}" in text, (
+            f"rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    return {f.name[:-len(".pt")]: torch.load(f, weights_only=False)
+            for f in out.glob("*.pt")}
+
+
+def numpy_problem(problem):
+    """A JAX test problem (loss, params, dim, batches) with numpy leaves."""
+    loss, params, dim, batches = problem
+    return (loss, jax.tree_util.tree_map(np.asarray, params), dim,
+            {k: np.asarray(v) for k, v in batches.items()})
+
+
+def sweep_job(name, jcases, problem, mesh, plan=None, seeded=False,
+              **options):
+    """A tiny-MLP sweep job for tests/torch_dist_driver.py: the JAX lanes
+    `jcases` as the port's, `problem` (`numpy_problem`), the mesh's
+    (num_devices, worker_shards, model_shards), the other plan knobs, and
+    the JAX engine's replayed draws (None with seeded=True: the port's
+    seeded draws)."""
+    _, params, dim, batches = problem
+    rounds = next(iter(batches.values())).shape[0]
+    draws = None if seeded else replay_numpy_draws(
+        JFL.SweepSpec.build(jcases), rounds, dim)
+    return dict(name=name, kind="sweep", mesh=mesh, plan=dict(plan or {}),
+                loss="mlp", cases=[port_case(c) for c in jcases],
+                params=params, batches=batches, draws=draws, eval=True,
+                **options)
+
+
+def port_sweep(job, mesh=None, plan=None, resume=False):
+    """The port's own run of a sweep job's lanes and draws in this process,
+    under the plan knobs `plan` (default: the job's): (engine, result)."""
+    import torch_dist_driver as DRV
+    engine = TS.SweepEngine(
+        DRV.mlp_loss, TS.SweepSpec.build(job["cases"]),
+        eval_fn=DRV.pnorm_eval,
+        plan=TS.ExecutionPlan(mesh=mesh, **(job["plan"] if plan is None
+                                            else plan)),
+        device="cpu")
+    params = {k: torch.from_numpy(np.array(v))
+              for k, v in job["params"].items()}
+    return engine, engine.run(params, job["batches"],
+                              draws=DRV._draws(job["draws"]), resume=resume)
+
+
+def as_result(d):
+    """A driver's result dict as a port SweepResult."""
+    return TS.SweepResult(names=tuple(d["names"]), params=d["params"],
+                          loss=d["loss"], grad_norm=d["grad_norm"],
+                          metrics=d["metrics"])
+
+
+def assert_ranks_agree(results, name, world):
+    """Every rank returned the same full result, bitwise."""
+    first = results[f"{name}.r0"]
+    for r in range(1, world):
+        assert_bitwise(as_result(results[f"{name}.r{r}"]), as_result(first))
+
+
+def assert_bitwise(got, want):
+    assert got.names == want.names
+    np.testing.assert_array_equal(got.loss, want.loss)
+    np.testing.assert_array_equal(got.grad_norm, want.grad_norm)
+    assert sorted(got.metrics) == sorted(want.metrics)
+    for k in want.metrics:
+        np.testing.assert_array_equal(got.metrics[k], want.metrics[k])
+    for path, g, w in zip(tree_paths(got.params), tree_leaves(got.params),
+                          tree_leaves(want.params)):
+        assert torch.equal(g, w), path
+
+
+def assert_port_close(got, want, rtol, atol):
+    """Two port results at (rtol, atol): trajectories, metrics, params."""
+    assert got.names == want.names
+    for a, b in ((got.loss, want.loss), (got.grad_norm, want.grad_norm)):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+    for k in want.metrics:
+        np.testing.assert_allclose(got.metrics[k], want.metrics[k],
+                                   rtol=rtol, atol=atol)
+    for path, g, w in zip(tree_paths(got.params), tree_leaves(got.params),
+                          tree_leaves(want.params)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=path)
 
 
 def replay_trainer_draws(key, rounds, sigmas, shapes):
