@@ -23,7 +23,8 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
   2. build    nvcc builds every kernel of csrc/ (seconds, ptxas -v lines),
               and the registers, shared memory and spills of the kernels
               redesigned for Hopper (decode_mma_kernel, bitonic_kernel,
-              floa_combine_kernel, grad_stats_kernel), one per instance.
+              floa_combine_kernel, grad_stats_kernel, segment_parts_kernel,
+              segment_fold_kernel), one per instance.
   3. kernels  the launch floor (`floor_ms`: one near-empty kernel, graph-
               replayed), then each kernel against its plain PyTorch version
               at every main-path shape (the FLOA kernels at [3|4|2|1, 10,
@@ -37,8 +38,10 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               sort at [8, 10, D] with +inf rows, and at the trainer's
               [10, D]), the plan phase's (the switch dispatch's combine at
               [6, 10, D], grad_stats at 60 rows and sort at [6, 10, D];
-              `grad_stats_fixed`, the strict route, on each of the paper
-              MLP's four leaf segments at 10, 40 and 60 rows); for decode
+              `grad_stats_segments`, the strict route, over the paper
+              MLP's four leaf segments at 10, 40, 60 and 1000 rows and
+              the LM lane's 14 at 16, and on each leaf segment alone);
+              for decode
               attention decode_32k's
               per-layer shape [128, 32768], the long-cache and serve
               shapes, S = 777, MQA, MHA, dh 32/64, f32, pos = 0 and
@@ -48,7 +51,7 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               equal torch.sort exactly.  At the serve shape the row also
               times the decode kernel at 1, 2 and 4 splits (the split
               rule's choice against its alternatives); likewise each FLOA
-              row times every (V, KU) plan (`plan_ms`) and each
+              row times every (V, KU) plan (`plan_ms`), each
               grad_stats row every cluster size (`cluster_ms`).  Then the
               sort past the bitonic cap (U = 8193, f32 and bf16): no
               kernel, torch.sort, equal exactly, logged once.
@@ -517,20 +520,36 @@ def lm_lane_cases(torch, ops, rnd, gen):
     return cases
 
 
+def sizes_label(sizes) -> str:
+    """A leaf-size tuple as it stands in a phase-3 row's shape."""
+    return "+".join(str(n) for n in sizes)
+
+
 def fixed_stats_cases(torch, ops, rnd):
-    """The strict route's `grad_stats_fixed` rows: each leaf segment of a
-    flat [R, D] slab (a row-strided view).  The paper MLP's (b1 | b2 | w1 |
-    w2) at the plan phase's R: 10 (the defense grid's analog group), 40
-    (fig3's four lanes) and 60 (the switch dispatch's six lanes), and at
-    the mesh phase's 1000 (the U = 1000 grid's analog lane, gathered over
-    the worker shards); the LM lane's leaves at R = 16 (its two analog
-    lanes x 8 workers, the mesh phase's strict LM case), one row a leaf
-    size.  grad_stats' tolerance, (rtol 1e-4, atol 1e-3)."""
+    """The strict route's `grad_stats_segments` rows: one call over every
+    leaf segment of a flat [R, D] slab, at each (R, sizes) of the main
+    path: the LM lane's 14 leaves at R = 16 (its two analog lanes x 8
+    workers, the mesh phase's strict LM case) and the paper MLP's (b1 | b2
+    | w1 | w2) at the plan phase's R: 10 (the defense grid's analog group),
+    40 (fig3's four lanes) and 60 (the switch dispatch's six lanes), and
+    at the mesh phase's 1000 (the U = 1000 grid's analog lane, gathered
+    over the worker shards), each beside `var_mean` over the same rows.
+    Then the one-segment case, `grad_stats_fixed` on each leaf segment (a
+    row-strided view).  grad_stats' tolerance, (rtol 1e-4, atol 1e-3)."""
     cases = []
-    lm = lm_leaf_sizes()
-    for r, sizes in [(10, MLP_SEGMENTS), (40, MLP_SEGMENTS),
-                     (60, MLP_SEGMENTS), (1000, MLP_SEGMENTS),
-                     (2 * LM_WORKERS, lm)]:
+    lm = tuple(lm_leaf_sizes())
+    shapes = [(2 * LM_WORKERS, lm), (10, MLP_SEGMENTS), (40, MLP_SEGMENTS),
+              (60, MLP_SEGMENTS), (1000, MLP_SEGMENTS)]
+    for r, sizes in shapes:
+        slab = rnd(r, sum(sizes))
+        cases.append((
+            "grad_stats_segments", f"R={r} sizes={sizes_label(sizes)} float32",
+            True,
+            lambda p, a=slab, z=sizes: ops.grad_stats_segments(a, z, plain=p),
+            lambda a=slab: torch.var_mean(a, dim=1, correction=0),
+            r * sum(sizes) * 4 + r * 2 * 4, 3 * r * sum(sizes),
+            (1e-4, 1e-3), None, None))
+    for r, sizes in shapes:
         slab, off, seen = rnd(r, sum(sizes)), 0, set()
         for n in sizes:
             seg = slab[:, off:off + n]
@@ -539,8 +558,9 @@ def fixed_stats_cases(torch, ops, rnd):
                 continue
             seen.add(n)
             cases.append((
-                "grad_stats_fixed", f"R={r} D={n} float32 (leaf segment)",
-                True, lambda p, a=seg: ops.grad_stats_fixed(a, plain=p),
+                "grad_stats_segments",
+                f"R={r} sizes={n} float32 (one leaf segment)", False,
+                lambda p, a=seg: ops.grad_stats_fixed(a, plain=p),
                 lambda a=seg: torch.var_mean(a, dim=1, correction=0),
                 r * n * 4 + r * 2 * 4, 3 * r * n, (1e-4, 1e-3), None, None))
         del slab
@@ -674,8 +694,9 @@ def decode_cases(torch, ops):
 def redesigned_ptxas(ptxas: dict) -> dict:
     """Registers, static shared memory and spill bytes per instance of the
     kernels redesigned for Hopper (decode_mma_kernel and bitonic_kernel,
-    floa_combine_kernel and grad_stats_kernel), from the build's ptxas -v
-    lines.  In a mangled name only bf16 can repeat as a substitution
+    floa_combine_kernel, grad_stats_kernel and the strict route's
+    segment_parts_kernel and segment_fold_kernel), from the build's
+    ptxas -v lines.  In a mangled name only bf16 can repeat as a substitution
     (S<n>_): f is a builtin."""
     import re
     ty = r"(f|13__nv_bfloat16|S\d*_)"
@@ -689,7 +710,10 @@ def redesigned_ptxas(ptxas: dict) -> dict:
                    f", {names.get(m[2], 'bf16')}, {names.get(m[3], 'bf16')}"
                    f", {m[4]}, {m[5]}>"),
         (r"grad_stats_kernelI(f|13__nv_bfloat16)E",
-         lambda m: f"grad_stats_kernel<{names[m[1]]}>")]
+         lambda m: f"grad_stats_kernel<{names[m[1]]}>"),
+        (r"segment_parts_kernelI(f|13__nv_bfloat16)E",
+         lambda m: f"segment_parts_kernel<{names[m[1]]}>"),
+        (r"segment_fold_kernel", lambda m: "segment_fold_kernel")]
     found, entry = {}, None
     for line in (ptxas["decode_attention"] + ptxas["defense_sort"]
                  + ptxas["floa_aggregate"] + ptxas["grad_stats"]):
@@ -990,9 +1014,6 @@ def mesh_expect(name: str, d: int, lm_sizes) -> dict:
     shard-local shapes (lanes, workers or columns of one rank)."""
     r, ru, rl = ROUNDS, ROUNDS_LARGE_U, ROUNDS_LM_STRICT
     u, half = LM_WORKERS, LM_D // MESH_RANKS   # LM_D pads to itself
-    fixed_lm = {}
-    for n in lm_sizes:   # the analog group's 2 lanes x 8 workers
-        fixed_lm[(2 * u, n)] = fixed_lm.get((2 * u, n), 0) + rl
     return {
         "defenses": {"floa_step_batched": {(1, 10, d): r},
                      "grad_stats": {(10, d): r},
@@ -1004,13 +1025,16 @@ def mesh_expect(name: str, d: int, lm_sizes) -> dict:
                        "sort_columns_bitonic": {(1, 1000, d): 2 * ru}},
         "grid_u1000_strict": {
             "floa_step_batched": {(1, 1000, d): ru},
-            "grad_stats_fixed": {(1000, n): ru for n in MLP_SEGMENTS},
+            "grad_stats_segments": {(1000, MLP_SEGMENTS): 2 * ru},
             "sort_columns_bitonic": {(1, 1000, d): 2 * ru}},
         "lm": {"floa_step_batched": {(2, u, half): r},
                "grad_stats": {(2 * u, half): r},
                "sort_columns": {(1, u, half): r}},
         "lm_strict": {"floa_step_batched": {(2, u, LM_D): rl},
-                      "grad_stats_fixed": fixed_lm,
+                      # the analog group's 2 lanes x 8 workers, two
+                      # launches a round (the parts and the fold kernel)
+                      "grad_stats_segments": {(2 * u, tuple(lm_sizes)):
+                                              2 * rl},
                       "sort_columns": {(1, u, LM_D): rl}}}[name]
 
 
@@ -1074,6 +1098,12 @@ def mesh_child(args) -> int:
                                    for m in sys.modules):
         raise AssertionError("mesh child: imported JAX or the JAX package")
     return 0
+
+
+def shape_key(shape) -> tuple:
+    """A launch shape read back from JSON as the wrapper counted it: lists
+    to tuples ((R, sizes) for `grad_stats_segments`)."""
+    return tuple(tuple(x) if isinstance(x, list) else x for x in shape)
 
 
 def tree_diff(np, torch, a, b, tol=None) -> dict:
@@ -1189,7 +1219,7 @@ def mesh_phase(torch, np, ops, figures, tally, shard_tally) -> None:
                 if "case" in line:
                     child_lines[(line["case"], r)] = line
         for (name, r), line in child_lines.items():
-            shard_tally(name, {k: {tuple(sh): n for sh, n in v}
+            shard_tally(name, {k: {shape_key(sh): n for sh, n in v}
                                for k, v in line["launches_by_shape"].items()})
         report = {}
         for name in MESH_CASES:
@@ -1411,7 +1441,7 @@ def plan_phase(torch, np, ops, figures, tally, grid_u, mc_u) -> None:
     # the tree state on fig3, default and strict_numerics, each against
     # its plain route, and against the grouped / flat run of the same plan
     d = mc_u.dim
-    fixed = {"grad_stats_fixed": 4 * ROUNDS}   # one launch a leaf a round
+    fixed = {"grad_stats_segments": 2 * ROUNDS}   # parts + fold a round
     defense = lambda plan, fp=False: (lambda: figures.cases_engine(  # noqa
         figures.defense_cases(), ROUNDS, device="cuda", plan=plan,
         force_plain=fp))
@@ -1459,10 +1489,12 @@ def plan_phase(torch, np, ops, figures, tally, grid_u, mc_u) -> None:
 def strict_rates(torch, figures) -> dict:
     """`--strict-rates`: warm rounds/s of the strict_numerics routes (the
     defense grid grouped and switched, fig3 flat and tree, the U = 1000
-    grid), uncounted: one run to warm up, then the median of 3."""
+    grid, and the LM lane unsharded at R = 20, built as the mesh phase
+    builds its strict twin), uncounted: one run to warm up, then the
+    median of 3."""
     from repro_torch.configs import PAPER_MLP
     from repro_torch.core.power_control import Policy
-    from repro_torch.fl import ExecutionPlan
+    from repro_torch.fl import ExecutionPlan, SweepEngine
     fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
                                attacker_sigma=3.0, rounds=ROUNDS)
             for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
@@ -1470,6 +1502,13 @@ def strict_rates(torch, figures) -> dict:
     mc_u = dataclasses.replace(PAPER_MLP.full(), num_workers=1000,
                                train_samples=32000)
     strict = dict(strict_numerics=True)
+
+    def lm_strict():
+        engine, params, batches = figures.lm_lane_engine(ROUNDS,
+                                                         device="cuda")
+        return (SweepEngine(engine.loss_fn, engine.spec, plan=ExecutionPlan(
+            **strict), device="cuda"), params, batches)
+
     routes = {
         "defenses_grouped_strict": (ROUNDS, lambda: figures.cases_engine(
             figures.defense_cases(), ROUNDS, device="cuda",
@@ -1484,7 +1523,8 @@ def strict_rates(torch, figures) -> dict:
                                                     **strict))),
         "grid_u1000_strict": (ROUNDS_LARGE_U, lambda: figures.cases_engine(
             figures.worker_grid(1000, mc_u.dim), ROUNDS_LARGE_U, mc=mc_u,
-            device="cuda", plan=ExecutionPlan(**strict)))}
+            device="cuda", plan=ExecutionPlan(**strict))),
+        "lm_strict": (ROUNDS, lm_strict)}
     out = {}
     for name, (rounds, build) in routes.items():
         engine, params, batches = build()
@@ -2214,9 +2254,8 @@ def main() -> int:
                        (10, d): 3 * r, (1000, d): ROUNDS_LARGE_U + 2 * r,
                        (360, d): 2 * r, (60, d): r,
                        (2 * LM_WORKERS, LM_D): r},
-        "grad_stats_fixed": {(rows, n): k * r for rows, k in
-                             ((10, 1), (40, 2), (60, 1))
-                             for n in MLP_SEGMENTS},
+        "grad_stats_segments": {(rows, MLP_SEGMENTS): 2 * k * r
+                                for rows, k in ((10, 1), (40, 2), (60, 1))},
         "sort_columns": {(1, 10, d): 6 * r, (10, d): 2 * r,
                          (8, 10, d): 4 * r, (6, 10, d): 4 * r,
                          (1, LM_WORKERS, LM_D): r},
@@ -2243,6 +2282,8 @@ def main() -> int:
         shape without one fails the run."""
         if len(shape) == 3:
             tag = f"S={shape[0]} U={shape[1]} D={shape[2]} "
+        elif name == "grad_stats_segments":
+            tag = f"R={shape[0]} sizes={sizes_label(shape[1])} "
         elif name.startswith("sort"):
             tag = f"U={shape[0]} D={shape[1]} "
         else:
@@ -2279,7 +2320,7 @@ def main() -> int:
                                   "src/repro/kernels/floa_aggregate.py:184"),
                "grad_stats": ("grad_stats.cu",
                               "src/repro/kernels/grad_stats.py:37"),
-               "grad_stats_fixed": ("grad_stats.cu",
+               "grad_stats_segments": ("grad_stats.cu",
                                     "src/repro/kernels/grad_stats.py:37"),
                "sort_columns": ("defense_sort.cu",
                                 "src/repro/kernels/defense_sort.py:105"),

@@ -13,9 +13,10 @@ The PS de-standardizes the received superposition y_t as
 The sweep's per-worker sums come off the flat gradient rows in one pass
 through the `grad_stats` kernel (its plain version on the CPU); the
 mean/variance epilogue runs on scalars.  Under strict_numerics the sums are
-taken per leaf segment (`flat_scalar_stats(flat, sizes)`, the kernel's
-fixed-order route `grad_stats_fixed`, one launch a segment) and added in
-leaf order, the reduction tree of the per-leaf path.  Under model sharding
+taken per leaf segment and added in leaf order, the reduction tree of the
+per-leaf path (`flat_scalar_stats(flat, sizes)`: one call of the kernel's
+fixed-order route `grad_stats_segments` over every segment, whose order
+depends on the leaf sizes alone).  Under model sharding
 each rank sums its own columns (`flat_partial_stats`, the same kernel) and
 the ranks add the partial sums.  The looped trainer's and the tree-state
 sweep's pytree path (`per_worker_scalar_stats`, `standardize`,
@@ -62,24 +63,18 @@ def flat_scalar_stats(flat: Tensor, sizes: Optional[Sequence[int]] = None,
     sizes=None: all rows go through ONE `grad_stats` launch over the
     [prod(...), D] view, so flat must be contiguous.  With `sizes` (the
     per-leaf entry counts in flatten order, summing to D) the sums are
-    taken per leaf segment, one fixed-order launch a segment on a view of
-    the rows, and the partial sums are added in leaf order, as
-    `per_worker_scalar_stats` adds its leaves: the strict_numerics route,
+    taken per leaf segment and added in leaf order, as
+    `per_worker_scalar_stats` adds its leaves, by one
+    `grad_stats_segments` call on the rows: the strict_numerics route,
     whose order depends on the leaf sizes alone.  `plain` forces the
     kernel's plain version (kernel-vs-plain tests only)."""
     d = flat.shape[-1]
     rows = flat.reshape(-1, d)
     if sizes is None:
         sums = ops.grad_stats(rows, plain=plain)
-        s1, s2 = sums[:, 0], sums[:, 1]
     else:
-        off, s1, s2 = 0, 0, 0
-        for n in sizes:
-            part = ops.grad_stats_fixed(rows[:, off:off + n], plain=plain)
-            s1, s2 = s1 + part[:, 0], s2 + part[:, 1]
-            off += n
-        if off != d:
-            raise ValueError(f"leaf sizes sum to {off}, flat D is {d}")
+        sums = ops.grad_stats_segments(rows, sizes, plain=plain)
+    s1, s2 = sums[:, 0], sums[:, 1]
     return stats_from_partials(s1.reshape(flat.shape[:-1]),
                                s2.reshape(flat.shape[:-1]), d)
 

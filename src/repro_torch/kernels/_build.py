@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "grad_stats": {
         "grad_stats": [_P, _P, _L, _L, _I, _I, _P],
-        "grad_stats_fixed": [_P, _P, _L, _L, _L, _I, _P],
+        "grad_stats_segments": [_P, _P, _P, _L, _L, _P, _L, _L, _I, _P],
         "grad_stats_max_cluster": [_I],
     },
     "defense_sort": {

@@ -35,17 +35,24 @@
 // first threads add the head and the tail; every 16-byte load is aligned.
 // `kernels/grad_stats.py::row_chunks` mirrors this split on the host.
 //
-// The fixed-order route (`grad_stats_fixed_kernel`, the sweep's
-// strict_numerics stats over leaf segments).  The cluster kernel's order
-// depends on R (through C) and on where each row starts (the peel), so the
-// same row summed inside two different slabs (the grouped and the switch
-// dispatch, the tree and the flat state) may round differently.  This
-// route sums element j of a row into thread j % FIXED_THREADS's partials in
-// increasing j, then by the same fixed trees: the order depends on D
-// alone.  Rows are [R, D] views with a row stride (a leaf segment of the
-// [R, D_total] slab), one block a row, plain loads (no alignment rule),
-// FIXED_UNROLL loads in flight a thread.  It is a reference route: rows of
-// the paper's grids leave most SMs idle (PERF.md records its time).
+// The fixed-order route (`segment_parts_kernel` and `segment_fold_kernel`,
+// the sweep's strict_numerics stats over the leaf segments of a slab).  The
+// cluster kernel's order depends on R (through C) and on where each row
+// starts (the peel), so the same row summed inside two different slabs
+// (the grouped and the switch dispatch, the tree and the flat state) may
+// round differently.  This route's order depends on the leaf sizes alone.
+// Each segment is cut into parts of PART_ELEMS elements at fixed offsets
+// from the segment's start; one block a (row, part) sums element j of its
+// part into thread j % SEG_THREADS in increasing j, then by the fixed
+// trees, and writes a pair to scratch; a second launch, one block a row,
+// folds each segment's pairs in part order and the segments in leaf order,
+// both from 0.  What bounds it is bytes, as above; one block a row would
+// leave most SMs idle at the sweep's 10-60 rows, while a block a part puts
+// R * n_parts blocks in flight (5 840 at the LM lane's 16 rows).
+// Rows start at any element (a leaf offset is arbitrary, D is odd), so each
+// thread loads its elements one at a time, all of them in flight before the
+// first add: the order is fixed by the element index, never by the address.
+// One call, every leaf, two launches, no atomics.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,32 +180,54 @@ grad_stats_kernel(const T* __restrict__ grads,  // [R, D]
   }
 }
 
-constexpr int FIXED_THREADS = 512;
-constexpr int FIXED_WARPS = FIXED_THREADS / 32;
-constexpr int FIXED_UNROLL = 8;
+// ---- the strict route: leaf-segment statistics in a fixed order ----
+//
+// One call covers every leaf segment of [R, D] rows: `segment_parts_kernel`
+// sums each (row, part) of the work list into a partial pair, then
+// `segment_fold_kernel` folds a row's pairs.  The work list depends on the
+// leaf sizes alone (`kernels/grad_stats.py::work_list` builds it): segment s
+// of n_s elements is cut into ceil(n_s / PART_ELEMS) parts of PART_ELEMS
+// elements (the last shorter), each part at a fixed element range of its
+// segment.  The table is [item start (n_items), item length (n_items),
+// segment's first item (n_seg + 1)], int64, starts counted from the row's
+// first element.
+constexpr int SEG_THREADS = 256;
+constexpr int SEG_WARPS = SEG_THREADS / 32;
+constexpr int PART_ELEMS = 8192;                      // grad_stats.py
+constexpr int PART_SLOTS = PART_ELEMS / SEG_THREADS;  // elements a thread
+constexpr int FOLD_THREADS = 128;
+constexpr int MAX_FOLD_PAIRS = 16384;  // items + segments of one call
 
+// One block a (row, part).  Element j of the part (j < m <= PART_ELEMS)
+// goes to thread j % SEG_THREADS, slot j / SEG_THREADS, added in increasing
+// slot; then the lanes' and the warps' fixed shuffle trees.  So the pair
+// depends on the part's elements alone, never on R, the row stride or the
+// address.  Each thread loads its PART_SLOTS elements straight from memory,
+// all in flight before the first add.
 template <typename T>
-__global__ void __launch_bounds__(FIXED_THREADS)
-grad_stats_fixed_kernel(const T* __restrict__ grads,  // [R, stride]
-                        float* __restrict__ out,      // [R, 2]
-                        int64_t d_n, int64_t stride) {
-  __shared__ float warp_part[2][FIXED_WARPS];
-  const T* g = grads + (int64_t)blockIdx.x * stride;
+__global__ void __launch_bounds__(SEG_THREADS)
+segment_parts_kernel(const T* __restrict__ rows,     // [R, stride]
+                     float* __restrict__ parts,      // [R, n_items, 2]
+                     const int64_t* __restrict__ table,
+                     int64_t n_items, int64_t stride) {
+  __shared__ float warp_part[2][SEG_WARPS];
+  const int64_t row = blockIdx.x / n_items;
+  const int64_t item = blockIdx.x - row * n_items;
+  const int m = (int)table[n_items + item];
+  const T* g = rows + row * stride + table[item];
+  const int t = threadIdx.x;
   float s1 = 0.0f, s2 = 0.0f;
-  int64_t j = threadIdx.x;
-  // element j goes to thread j % FIXED_THREADS, in increasing j
-  for (; j + (int64_t)(FIXED_UNROLL - 1) * FIXED_THREADS < d_n;
-       j += (int64_t)FIXED_UNROLL * FIXED_THREADS) {
-    float x[FIXED_UNROLL];
+  float x[PART_SLOTS];
 #pragma unroll
-    for (int k = 0; k < FIXED_UNROLL; ++k)
-      x[k] = to_f32(g[j + (int64_t)k * FIXED_THREADS]);
-#pragma unroll
-    for (int k = 0; k < FIXED_UNROLL; ++k) add(x[k], s1, s2);
+  for (int k = 0; k < PART_SLOTS; ++k) {
+    const int j = t + k * SEG_THREADS;
+    x[k] = j < m ? to_f32(g[j]) : 0.0f;
   }
-  for (; j < d_n; j += FIXED_THREADS) add(to_f32(g[j]), s1, s2);
+#pragma unroll
+  for (int k = 0; k < PART_SLOTS; ++k)
+    if (t + k * SEG_THREADS < m) add(x[k], s1, s2);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = t / 32, lane = t % 32;
   tree(s1, s2, 32);
   if (lane == 0) {
     warp_part[0][warp] = s1;
@@ -206,20 +235,76 @@ grad_stats_fixed_kernel(const T* __restrict__ grads,  // [R, stride]
   }
   __syncthreads();
   if (warp != 0) return;
-  s1 = lane < FIXED_WARPS ? warp_part[0][lane] : 0.0f;
-  s2 = lane < FIXED_WARPS ? warp_part[1][lane] : 0.0f;
-  tree(s1, s2, FIXED_WARPS);
+  s1 = lane < SEG_WARPS ? warp_part[0][lane] : 0.0f;
+  s2 = lane < SEG_WARPS ? warp_part[1][lane] : 0.0f;
+  tree(s1, s2, SEG_WARPS);
   if (lane == 0) {
-    out[2 * blockIdx.x] = s1;
-    out[2 * blockIdx.x + 1] = s2;
+    float* p = parts + 2 * blockIdx.x;   // = 2 * (row * n_items + item)
+    p[0] = s1;
+    p[1] = s2;
   }
 }
 
+// One block a row: the row's (n_items) pairs staged in shared memory, then
+// thread s folds segment s's parts in part order from 0 (threads take
+// segments s, s + FOLD_THREADS, ...), and thread 0 folds the segment sums
+// in leaf order from 0: out[row] = sum_s (sum_p part[s, p]), each sum a
+// left fold.  No atomics, nothing carried between calls.
+__global__ void __launch_bounds__(FOLD_THREADS)
+segment_fold_kernel(const float* __restrict__ parts,  // [R, n_items, 2]
+                    float* __restrict__ out,          // [R, 2]
+                    const int64_t* __restrict__ table, int64_t n_items,
+                    int64_t n_seg) {
+  extern __shared__ float pairs[];   // [n_items + n_seg][2]
+  const float* src = parts + (int64_t)blockIdx.x * n_items * 2;
+  for (int64_t i = threadIdx.x; i < 2 * n_items; i += FOLD_THREADS)
+    pairs[i] = src[i];
+  __syncthreads();
+  const int64_t* first = table + 2 * n_items;
+  float* seg = pairs + 2 * n_items;
+  for (int64_t s = threadIdx.x; s < n_seg; s += FOLD_THREADS) {
+    float a = 0.0f, b = 0.0f;
+    for (int64_t p = first[s]; p < first[s + 1]; ++p) {
+      a += pairs[2 * p];
+      b += pairs[2 * p + 1];
+    }
+    seg[2 * s] = a;
+    seg[2 * s + 1] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  float a = 0.0f, b = 0.0f;
+  for (int64_t s = 0; s < n_seg; ++s) {
+    a += seg[2 * s];
+    b += seg[2 * s + 1];
+  }
+  out[2 * blockIdx.x] = a;
+  out[2 * blockIdx.x + 1] = b;
+}
+
 template <typename T>
-cudaError_t launch_fixed(const void* grads, void* out, int64_t r_n,
-                         int64_t d_n, int64_t stride, cudaStream_t st) {
-  grad_stats_fixed_kernel<T><<<(unsigned)r_n, FIXED_THREADS, 0, st>>>(
-      static_cast<const T*>(grads), static_cast<float*>(out), d_n, stride);
+cudaError_t launch_segments(const void* rows, void* out, void* parts,
+                            int64_t r_n, int64_t stride, const void* table,
+                            int64_t n_items, int64_t n_seg, cudaStream_t st) {
+  static bool fold_smem = false;
+  const size_t smem = (size_t)(n_items + n_seg) * 2 * sizeof(float);
+  if (!fold_smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        segment_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MAX_FOLD_PAIRS * 2 * (int)sizeof(float));
+    if (err != cudaSuccess) return err;
+    fold_smem = true;
+  }
+  const int64_t* tab = static_cast<const int64_t*>(table);
+  segment_parts_kernel<T><<<(unsigned)(r_n * n_items), SEG_THREADS, 0,
+                            st>>>(
+      static_cast<const T*>(rows), static_cast<float*>(parts), tab, n_items,
+      stride);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segment_fold_kernel<<<(unsigned)r_n, FOLD_THREADS, smem, st>>>(
+      static_cast<const float*>(parts), static_cast<float*>(out), tab,
+      n_items, n_seg);
   return cudaGetLastError();
 }
 
@@ -307,18 +392,24 @@ int grad_stats(const void* grads, void* out, int64_t r_n, int64_t d_n,
   return cudaErrorInvalidValue;
 }
 
-// grads: R rows of D elements, row r at grads + r * stride elements (a leaf
-// segment of a wider slab; stride >= D) -> out [R, 2] f32, summed in the
-// fixed order of grad_stats_fixed_kernel.  Returns the launch's error code.
-int grad_stats_fixed(const void* grads, void* out, int64_t r_n, int64_t d_n,
-                     int64_t stride, int dtype, void* stream) {
+// rows: R rows, row r at rows + r * stride elements, each the leaf
+// segments of the work list `table` (see segment_parts_kernel; n_items
+// parts of n_seg segments) -> out [R, 2] f32, each segment's (sum, sum of
+// squares) folded in leaf order; `parts` is [R, n_items, 2] f32 scratch.
+// Two launches on `stream`.  Returns the first error code.
+int grad_stats_segments(const void* rows, void* out, void* parts, int64_t r_n,
+                        int64_t stride, const void* table, int64_t n_items,
+                        int64_t n_seg, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r_n < 1 || d_n < 1 || stride < d_n || r_n > 0x7fffffffLL)
+  if (r_n < 1 || n_items < 1 || n_seg < 1 || stride < 1 ||
+      r_n * n_items > 0x7fffffffLL || n_items + n_seg > MAX_FOLD_PAIRS)
     return cudaErrorInvalidValue;
   if (dtype == F32)
-    return launch_fixed<float>(grads, out, r_n, d_n, stride, st);
+    return launch_segments<float>(rows, out, parts, r_n, stride, table,
+                                  n_items, n_seg, st);
   if (dtype == BF16)
-    return launch_fixed<__nv_bfloat16>(grads, out, r_n, d_n, stride, st);
+    return launch_segments<__nv_bfloat16>(rows, out, parts, r_n, stride,
+                                          table, n_items, n_seg, st);
   return cudaErrorInvalidValue;
 }
 

@@ -11,11 +11,15 @@ tensors launch the kernel or raise; `plain=True` forces the plain version
 for kernel-vs-plain tests.  Launches are counted in `grad_stats.launches`,
 and by (R, D) in `grad_stats.shapes`.
 
-`grad_stats_fixed` is the fixed-order route (`grad_stats_fixed_kernel`,
-its own wrapper and counts): the sum's order depends on D alone, not on R
-or on where a row starts, and rows may be a row-strided view (a leaf
-segment of the [R, D_total] slab): what the sweep's strict_numerics stats
-launch once per leaf segment.
+`grad_stats_segments(rows, sizes)` is the fixed-order route, the sweep's
+strict_numerics stats: each leaf segment's sums of [R, D] rows (a
+row-strided view of the slab), folded in leaf order from 0, in one call
+(`segment_parts_kernel`, a block a (row, part), then `segment_fold_kernel`,
+a block a row; csrc/grad_stats.cu).  The sum's order depends on the leaf
+sizes alone, not on R, the row stride or where a row starts: `work_list`
+mirrors the parts the kernel cuts.  Its kernel launches, two a call, are
+counted in `grad_stats_segments.launches`, and by (R, sizes) in `.shapes`.  `grad_stats_fixed(rows)` is its
+one-segment case, sizes = (D,).
 
 Bound and design (details in the .cu source): one read of R*D elements,
 bound by bytes.  Each row is split over the C blocks of one thread-block
@@ -137,11 +141,53 @@ grad_stats.launches = 0
 grad_stats.shapes = collections.Counter()
 
 
-def grad_stats_fixed(grads: Tensor, *, plain: bool = False) -> Tensor:
-    """The fixed-order route: grads [R, D] f32|bf16, rows at any row
-    stride with unit stride within a row (a leaf segment of the
-    [R, D_total] slab) -> [R, 2] f32, summed in an order that depends on D
-    alone (`grad_stats_fixed_kernel`)."""
+# The strict route's work list (csrc/grad_stats.cu::PART_ELEMS,
+# MAX_FOLD_PAIRS): a segment of n elements is cut into ceil(n / PART_ELEMS)
+# parts; one call holds at most MAX_FOLD_PAIRS parts and segments together
+# (the fold's shared memory) and R * parts blocks.
+PART_ELEMS = 8192
+MAX_FOLD_PAIRS = 16384
+MAX_BLOCKS = 2**31 - 1
+SEGMENT_LAUNCHES = 2       # a call launches the parts and the fold kernel
+
+
+def segment_parts(n: int) -> int:
+    """Parts of a leaf segment of n elements: P(n) = ceil(n / PART_ELEMS)."""
+    return -(-n // PART_ELEMS)
+
+
+@functools.lru_cache(maxsize=256)
+def work_list(sizes: Tuple[int, ...]) -> Tuple[Tuple[int, int, int], ...]:
+    """The strict route's parts for leaf sizes `sizes` (flatten order), in
+    the order the kernel folds them: (segment, start, length), `start`
+    counted from the row's first element.  Segment s's parts tile its
+    elements in order, PART_ELEMS each (the last shorter): a function of
+    `sizes` alone.  Mirrors csrc/grad_stats.cu's table."""
+    out, off = [], 0
+    for s, n in enumerate(sizes):
+        for p in range(segment_parts(n)):
+            start = p * PART_ELEMS
+            out.append((s, off + start, min(PART_ELEMS, n - start)))
+        off += n
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def _table(device: torch.device, sizes: Tuple[int, ...]) -> Tensor:
+    """The kernel's int64 table on `device`: item starts, item lengths, then
+    each segment's first item and the item count (n_seg + 1 entries)."""
+    items = work_list(sizes)
+    first = [0] * (len(sizes) + 1)
+    for s, _, _ in items:
+        first[s + 1] += 1
+    for s in range(len(sizes)):
+        first[s + 1] += first[s]
+    flat = ([start for _, start, _ in items] + [n for _, _, n in items]
+            + first)
+    return torch.tensor(flat, dtype=torch.int64).to(device)
+
+
+def _check_rows(grads: Tensor) -> Tuple[int, int]:
     need(isinstance(grads, torch.Tensor) and grads.dim() == 2,
          "grads must be an [R, D] tensor")
     r, d = grads.shape
@@ -153,18 +199,51 @@ def grad_stats_fixed(grads: Tensor, *, plain: bool = False) -> Tensor:
          and (grads.stride(0) >= d or r == 1),
          f"grads rows must be unit-stride and not overlap, got strides "
          f"{grads.stride()}")
-    if grads.device.type == "cpu" or plain:
-        return ref.grad_stats_ref(grads)
-    out = torch.empty((r, 2), dtype=torch.float32, device=grads.device)
-    err = _build.library("grad_stats").grad_stats_fixed(
-        grads.data_ptr(), out.data_ptr(), r, d,
-        grads.stride(0) if r > 1 else d, DTYPE_CODES[grads.dtype],
-        torch.cuda.current_stream(grads.device).cuda_stream)
-    _build.check(err, "grad_stats_fixed")
-    grad_stats_fixed.launches += 1
-    grad_stats_fixed.shapes[(r, d)] += 1
+    return r, d
+
+
+def grad_stats_segments(rows: Tensor, sizes, *, plain: bool = False
+                        ) -> Tensor:
+    """The fixed-order route: rows [R, D] f32|bf16, at any row stride with
+    unit stride within a row, and `sizes` the per-leaf entry counts in
+    flatten order (each >= 1, summing to D) -> [R, 2] f32: per row, each
+    segment's (sum, sum of squares), folded in leaf order from 0.  The
+    order depends on `sizes` alone (`work_list`)."""
+    r, d = _check_rows(rows)
+    sizes = tuple(int(n) for n in sizes)
+    need(len(sizes) >= 1 and min(sizes) >= 1,
+         f"leaf sizes must be >= 1, got {sizes}")
+    need(sum(sizes) == d, f"leaf sizes sum to {sum(sizes)}, flat D is {d}")
+    if rows.device.type == "cpu" or plain:
+        return ref.grad_stats_segments_ref(rows, sizes)
+    items = work_list(sizes)
+    need(len(items) + len(sizes) <= MAX_FOLD_PAIRS
+         and r * len(items) <= MAX_BLOCKS,
+         f"{len(items)} parts of {len(sizes)} segments at R = {r} exceed "
+         f"the kernel's limits")
+    table = _table(rows.device, sizes)
+    parts = torch.empty((r, len(items), 2), dtype=torch.float32,
+                        device=rows.device)
+    out = torch.empty((r, 2), dtype=torch.float32, device=rows.device)
+    err = _build.library("grad_stats").grad_stats_segments(
+        rows.data_ptr(), out.data_ptr(), parts.data_ptr(), r,
+        rows.stride(0) if r > 1 else d, table.data_ptr(), len(items),
+        len(sizes), DTYPE_CODES[rows.dtype],
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    _build.check(err, "grad_stats_segments")
+    grad_stats_segments.launches += SEGMENT_LAUNCHES
+    grad_stats_segments.shapes[(r, sizes)] += SEGMENT_LAUNCHES
     return out
 
 
-grad_stats_fixed.launches = 0
-grad_stats_fixed.shapes = collections.Counter()
+grad_stats_segments.launches = 0
+grad_stats_segments.shapes = collections.Counter()
+
+
+def grad_stats_fixed(grads: Tensor, *, plain: bool = False) -> Tensor:
+    """The fixed-order route on one segment: grads [R, D] f32|bf16, rows at
+    any row stride with unit stride within a row (a leaf segment of the
+    [R, D_total] slab) -> [R, 2] f32, `grad_stats_segments(grads, (D,))`
+    (counted there)."""
+    _, d = _check_rows(grads)
+    return grad_stats_segments(grads, (d,), plain=plain)

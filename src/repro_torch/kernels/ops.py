@@ -23,7 +23,11 @@ from repro_torch.kernels.floa_aggregate import (
     floa_aggregate_batched,
     floa_step_batched,
 )
-from repro_torch.kernels.grad_stats import grad_stats, grad_stats_fixed
+from repro_torch.kernels.grad_stats import (
+    grad_stats,
+    grad_stats_fixed,
+    grad_stats_segments,
+)
 
 # Every ported kernel wrapper, by name.
 KERNELS = {
@@ -31,7 +35,7 @@ KERNELS = {
     "floa_aggregate_batched": floa_aggregate_batched,
     "floa_aggregate": floa_aggregate,
     "grad_stats": grad_stats,
-    "grad_stats_fixed": grad_stats_fixed,
+    "grad_stats_segments": grad_stats_segments,
     "sort_columns": sort_columns,
     "sort_columns_bitonic": sort_columns_bitonic,
     "decode_attention": decode_attention,
@@ -52,8 +56,9 @@ def launch_counts() -> Dict[str, int]:
 
 def launch_shapes() -> Dict[str, Dict[Tuple[int, ...], int]]:
     """Launches by input shape, for the wrappers that count them (the FLOA
-    kernels by (S, U, D), both grad_stats routes by (R, D), the sorts by
-    their input's shape, [U, D] or [S, U, D])."""
+    kernels by (S, U, D), grad_stats by (R, D) and its fixed-order route by
+    (R, leaf sizes), the sorts by their input's shape, [U, D] or
+    [S, U, D])."""
     return {name: dict(fn.shapes) for name, fn in KERNELS.items()
             if hasattr(fn, "shapes")}
 

@@ -71,6 +71,18 @@ def grad_stats_ref(grads: Tensor) -> Tensor:
     return torch.stack([g.sum(dim=1), (g * g).sum(dim=1)], dim=1)
 
 
+def grad_stats_segments_ref(rows: Tensor, sizes) -> Tensor:
+    """Per-row [R, 2] f32 over leaf segments: `grad_stats_ref` of each
+    segment of `sizes` (flatten order) on a view of the rows, the pairs
+    added in leaf order from 0 (the strict_numerics stats)."""
+    off, s1, s2 = 0, 0, 0
+    for n in sizes:
+        part = grad_stats_ref(rows[:, off:off + n])
+        s1, s2 = s1 + part[:, 0], s2 + part[:, 1]
+        off += n
+    return torch.stack([s1, s2], dim=1)
+
+
 def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos) -> Tensor:
     """GQA decode: one query token against a KV cache.
 

@@ -330,22 +330,25 @@ def test_grad_stats_splits_rows_over_a_cluster(cuda_device, dtype):
 
 @pytest.mark.gpu
 def test_main_path_counts_launches_by_shape(cuda_device):
-    """The FLOA wrappers count launches by (S, U, D), both grad_stats
-    routes by (R, D), the sorts by input shape; `reset_launches` clears
-    them."""
+    """The FLOA wrappers count launches by (S, U, D), grad_stats by
+    (R, D), its fixed-order route by (R, leaf sizes) (`grad_stats_fixed`
+    as the one-segment case), the sorts by input shape; `reset_launches`
+    clears them."""
     ops.reset_launches()
     args = _inputs(cuda_device, 13, 2, 3, 64, torch.float32)
     ops.floa_step_batched(*args)
     ops.floa_step_batched(*args)
     ops.grad_stats(args[2].reshape(6, 64))
     ops.grad_stats_fixed(args[2].reshape(6, 64)[:, 10:30])
+    ops.grad_stats_segments(args[2].reshape(6, 64), (10, 20, 34))
     ops.sort_columns(args[2])
     ops.sort_columns(args[2][0])
     ops.sort_columns_bitonic(torch.zeros(40, 8, device=cuda_device))
     assert ops.launch_shapes() == {
         "floa_step_batched": {(2, 3, 64): 2}, "floa_aggregate_batched": {},
         "floa_aggregate": {}, "grad_stats": {(6, 64): 1},
-        "grad_stats_fixed": {(6, 20): 1},
+        # two kernel launches a call (the parts and the fold kernel)
+        "grad_stats_segments": {(6, (20,)): 2, (6, (10, 20, 34)): 2},
         "sort_columns": {(2, 3, 64): 1, (3, 64): 1},
         "sort_columns_bitonic": {(40, 8): 1}}
     ops.reset_launches()
@@ -919,6 +922,77 @@ def test_grad_stats_over_leaf_segments_matches_plain(cuda_device, rows):
     for w, p in zip(whole, plain):
         np.testing.assert_allclose(w.cpu().numpy(), p.cpu().numpy(),
                                    rtol=1e-4, atol=1e-6)
+
+
+LM_SEGMENTS = (64, 64, 32768, 131072, 131072, 32768, 524288, 524288, 524288,
+               512, 512, 524288, 256, 524288)   # lm_sweep's 14 leaves
+
+
+def _segments_fold(rows, sizes):
+    """One `grad_stats_fixed` call a segment, the pairs added in leaf order
+    from 0 (the strict stats as a per-leaf loop)."""
+    off, s1, s2 = 0, 0, 0
+    for n in sizes:
+        part = ops.grad_stats_fixed(rows[:, off:off + n])
+        s1, s2 = s1 + part[:, 0], s2 + part[:, 1]
+        off += n
+    return torch.stack([s1, s2], dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,sizes", [(10, SEGMENTS), (40, SEGMENTS),
+                                        (360, SEGMENTS), (1000, SEGMENTS),
+                                        (16, LM_SEGMENTS)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_stats_segments_matches_plain(cuda_device, rows, sizes, dtype):
+    """One call over every leaf segment against the plain version (rtol
+    1e-4, atol 1e-3, grad_stats' tolerance; bf16 is widened exactly and
+    summed in f32 by both); its sum column equals the numpy mirror of its
+    add order bit for bit; and it equals the per-segment calls plus the
+    leaf-order fold."""
+    from fixed_order import fixed_order_sums
+    slab = _normal(cuda_device, rows, rows, sum(sizes), dtype=dtype)
+    ops.reset_launches()
+    got = ops.grad_stats_segments(slab, sizes)
+    assert ops.launch_shapes()["grad_stats_segments"] == {
+        (rows, tuple(sizes)): 2}   # the parts and the fold kernel
+    want = ops.grad_stats_segments(slab, sizes, plain=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    mirror = fixed_order_sums(slab.float().cpu().numpy(), sizes)
+    assert np.array_equal(got[:, 0].cpu().numpy(), mirror)
+    assert torch.equal(got, _segments_fold(slab, sizes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [SEGMENTS, (7, 8193, 1, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_stats_segments_bits_depend_on_sizes_alone(cuda_device, sizes,
+                                                        dtype):
+    """A row's sums are the same bits in any slab: `slab` against
+    `slab[3:]`, the rows copied into buffers of row stride D + 1, D + 2 and
+    D + 3 (every element alignment), rows permuted; a CUDA-graph replay
+    repeats the eager result."""
+    d = sum(sizes)
+    slab = _normal(cuda_device, 40, 40, d, dtype=dtype)
+    whole = ops.grad_stats_segments(slab, sizes)
+    assert torch.equal(ops.grad_stats_segments(slab[3:], sizes), whole[3:])
+    for pad in (1, 2, 3):
+        buf = torch.zeros(40, d + pad, device=cuda_device, dtype=dtype)
+        buf[:, pad:] = slab
+        view = buf[:, pad:]
+        assert view.stride(0) == d + pad
+        assert torch.equal(ops.grad_stats_segments(view, sizes), whole)
+    perm = torch.randperm(40, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(ops.grad_stats_segments(slab[perm.to(cuda_device)],
+                                               sizes), whole[perm])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.grad_stats_segments(slab, sizes)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, whole)
 
 
 @pytest.mark.gpu

@@ -136,6 +136,7 @@ def test_cpu_route_launches_nothing():
     tops.floa_aggregate(c[0], g[0], z[0], 0.5, 1.5)
     tops.grad_stats(g[0])
     tops.grad_stats_fixed(g[0][:, 10:200])
+    tops.grad_stats_segments(g[0], (100, 200))
     tops.sort_columns(g)
     tops.sort_columns_bitonic(g[0])
     tops.decode_attention(torch.zeros(1, 4, 32), torch.zeros(1, 8, 2, 32),
@@ -143,7 +144,7 @@ def test_cpu_route_launches_nothing():
     assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
     assert set(tops.KERNELS) == {"floa_step_batched", "floa_aggregate",
                                  "floa_aggregate_batched", "grad_stats",
-                                 "grad_stats_fixed", "sort_columns",
+                                 "grad_stats_segments", "sort_columns",
                                  "sort_columns_bitonic", "decode_attention"}
 
 
