@@ -1,9 +1,15 @@
 """Experiment and model configs of the port (dataclasses only)."""
-from repro_torch.configs import paper_mlp, qwen3_4b
-from repro_torch.configs.registry import (INPUT_SHAPES, flat_param_dim,
-                                          get_config, get_lm_sweep, get_smoke)
+from repro_torch.configs import (granite_8b, llama4_maverick_400b_a17b,
+                                 moonshot_v1_16b_a3b, paper_mlp, qwen3_4b,
+                                 starcoder2_3b)
+from repro_torch.configs.registry import (ARCH_IDS, INPUT_SHAPES,
+                                          flat_param_dim, get_config,
+                                          get_lm_sweep, get_smoke,
+                                          shape_applicable)
 
 PAPER_MLP = paper_mlp
 
-__all__ = ["INPUT_SHAPES", "PAPER_MLP", "flat_param_dim", "get_config",
-           "get_lm_sweep", "get_smoke", "paper_mlp", "qwen3_4b"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "PAPER_MLP", "flat_param_dim",
+           "get_config", "get_lm_sweep", "get_smoke", "granite_8b",
+           "llama4_maverick_400b_a17b", "moonshot_v1_16b_a3b", "paper_mlp",
+           "qwen3_4b", "shape_applicable", "starcoder2_3b"]

@@ -1,8 +1,8 @@
 """Qwen3-4B [hf:Qwen/Qwen3-8B family]: dense GQA with qk-norm, head_dim 128
 (`repro/configs/qwen3_4b.py`).
 
-Full attention natively; long_500k's 8192 SWA variant is a windowed cache,
-which the port does not have yet.  `lm_sweep()` is the sweep engine's
+Full attention natively; long_500k's 8192 SWA variant is a ring-buffer
+cache of 8192 slots.  `lm_sweep()` is the sweep engine's
 real-model LM lane (D = 2 950 528, `figures.run_lm_lane`).
 """
 import dataclasses

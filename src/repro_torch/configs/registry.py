@@ -1,13 +1,18 @@
 """Architecture registry of the port: --arch <id> -> config
-(`repro/configs/registry.py`).  Only qwen3-4b is ported; every other
-architecture of the JAX package raises NotImplementedError (ROADMAP.md
-Queue 1 item 10)."""
+(`repro/configs/registry.py`).  The dense archs (qwen3-4b, granite-8b,
+starcoder2-3b) and the MoE archs (moonshot-v1-16b-a3b,
+llama4-maverick-400b-a17b) are ported; every other architecture of the JAX
+package raises NotImplementedError (ROADMAP.md Queue 1 item 10)."""
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_4b
+from repro_torch.configs import (granite_8b, llama4_maverick_400b_a17b,
+                                 moonshot_v1_16b_a3b, qwen3_4b, starcoder2_3b)
 from repro_torch.models.common import ModelConfig
 
-ARCH_MODULES = {qwen3_4b.ARCH_ID: qwen3_4b}
+ARCH_MODULES = {m.ARCH_ID: m for m in [
+    starcoder2_3b, moonshot_v1_16b_a3b, qwen3_4b, granite_8b,
+    llama4_maverick_400b_a17b]}
+ARCH_IDS = list(ARCH_MODULES)
 
 # The assigned input shapes (system spec).
 INPUT_SHAPES = {
@@ -47,3 +52,8 @@ def flat_param_dim(cfg: ModelConfig) -> int:
     allocated)."""
     from repro_torch.launch.steps import param_count
     return param_count(cfg)
+
+
+def shape_applicable(cfg: ModelConfig, shape_name: str) -> bool:
+    """Whether cfg runs an input shape (not in its `skip_shapes`)."""
+    return shape_name not in cfg.skip_shapes

@@ -22,6 +22,7 @@ the receive SNR via p_max/(D z^2) = 10 dB and `noise_std_for_snr` inverts it.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import torch
@@ -95,12 +96,28 @@ def complex_gain_abs(h: Tensor) -> Tensor:
     return torch.sqrt(torch.square(h).sum(dim=-1))
 
 
+def expected_abs_gain(cfg: ChannelConfig, device) -> Tensor:
+    """E[|h_i|] = sigma_i sqrt(pi/2), [U] f32 on `device`."""
+    return cfg.sigmas().to(device) * math.sqrt(math.pi / 2.0)
+
+
+def expected_sq_gain(cfg: ChannelConfig, device) -> Tensor:
+    """E[|h_i|^2] = 2 sigma_i^2, [U] f32 on `device`."""
+    return 2.0 * cfg.sigmas().to(device) ** 2
+
+
 def min_sq_gain_from_sigmas(sigmas: Tensor) -> Tensor:
     """E[min_i |h_i|^2] = 1 / sum_i lambda_i with lambda_i = 1/(2 sigma_i^2),
     over the last (worker) axis: the minimum of independent exponentials is
     exponential with rate = sum of rates."""
     lam = 1.0 / (2.0 * sigmas**2)
     return 1.0 / lam.sum(dim=-1)
+
+
+def expected_min_sq_gain(cfg: ChannelConfig, device) -> Tensor:
+    """The `lambda` of the CI scaling factor b0^2 = P0_max * lambda (paper
+    eq. 9-10): E[min_i |h_i|^2], a 0-d f32 tensor on `device`."""
+    return min_sq_gain_from_sigmas(cfg.sigmas().to(device))
 
 
 def noise_std_for_snr(p_max: float, dim: int, snr_db: float) -> float:

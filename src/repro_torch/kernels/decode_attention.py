@@ -15,9 +15,16 @@ block takes all query heads of its KV head (up to 8, `HEADS_PER_BLOCK`),
 streams K/V through a cp.async ring and forms both products on the tensor
 cores; f32 keeps CUDA-core arithmetic.  `pos` may be a Python int or a 0-d
 integer tensor on q's device; the kernel reads it on the device, so a
-decode step that passes a device tensor needs no host sync.  pos must lie
-in [0, S) (positions past S attend the whole cache; a negative pos is out
-of contract).
+decode step that passes a device tensor needs no host sync.  Any pos >= 0
+is in contract: the valid length is min(pos + 1, S), so a pos at or past
+S attends every slot.  That is what a ring-buffer (windowed) cache of S
+slots needs, whose decode step passes the token's true position
+(`models/attention.py::decode_step`), and the plain version does the
+same.  A negative pos is out of contract (a Python int raises; the kernel
+attends nothing for a negative device pos).  The split count is planned
+from S on the host and the chunks are cut from min(pos + 1, S) on the
+device, so a 4096-slot ring at pos 524 287 is planned and cut as a
+4096-position cache.
 
 CPU tensors take the plain version (`kernels/ref.py::decode_attention_ref`),
 CUDA tensors launch the kernel or raise; `plain=True` forces the plain
@@ -140,13 +147,14 @@ def _check(q, k, v, pos) -> None:
     check_tensor("q", q, (b, h, dh), DTYPE_CODES, q.device)
     check_tensor("k", k, (b, s_len, kvh, dh), (q.dtype,), q.device)
     check_tensor("v", v, (b, s_len, kvh, dh), (q.dtype,), q.device)
-    if not isinstance(pos, torch.Tensor) and not 0 <= int(pos) < s_len:
-        raise ValueError(f"pos={pos} outside the cache [0, {s_len})")
+    if not isinstance(pos, torch.Tensor) and int(pos) < 0:
+        raise ValueError(f"pos={pos} is negative")
 
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos, *,
                      plain: bool = False) -> Tensor:
-    """q [B, H, dh]; k/v [B, S, KV, dh]; pos scalar -> [B, H, dh]."""
+    """q [B, H, dh]; k/v [B, S, KV, dh]; pos scalar >= 0 -> [B, H, dh]:
+    the attention over slots [0, min(pos + 1, S))."""
     _check(q, k, v, pos)
     if q.device.type == "cpu" or plain:
         return ref.decode_attention_ref(q, k, v, pos)

@@ -87,7 +87,8 @@ def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos) -> Tensor:
     """GQA decode: one query token against a KV cache.
 
     q [B, H, dh]; k/v [B, S, KV, dh]; pos a scalar (Python int or 0-d
-    tensor; cache positions > pos are masked with -1e30).  Returns
+    tensor; cache positions > pos are masked with -1e30, so a pos >= S,
+    a ring-buffer cache's, attends every slot).  Returns
     [B, H, dh].  As in the JAX oracle, the scores are the product in the
     input dtype, then f32 and scaled by 1/sqrt(dh); the softmax is f32 and
     the probabilities are cast to v's dtype before the PV product.

@@ -3,7 +3,15 @@ of a prompt batch, then generation, with a KV cache on one device.
 
   python -m repro_torch.launch.serve --arch qwen3-4b [--smoke] --batch 8 \
       --prompt-len 32 --gen 16 [--temperature T] [--device cuda|cpu] \
-      [--seed N]
+      [--seed N] [--shape decode_32k|long_500k]
+
+Any ported arch serves (qwen3-4b, granite-8b, starcoder2-3b,
+moonshot-v1-16b-a3b, llama4-maverick-400b-a17b).  The attention window is
+the reference serve's: the model's native one (starcoder2-3b's 4096, a
+ring-buffer cache), else full attention; `--shape long_500k` takes that
+shape's window instead (`steps.decode_window`: the 8192-slot SWA variant of
+the full-attention archs), so the caches are rings of min(prompt + gen,
+window) slots.
 
 As in the JAX serve script the weights are random (drawn from `--seed`) and the
 prompts are synthetic Markov token streams (`data/text.py`).  Greedy
@@ -53,22 +61,27 @@ def _sync(device: torch.device) -> None:
 
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
           device="cuda", temperature: float = 0.0, seed: int = 0,
-          params: Optional[Dict] = None, plain: bool = False) -> ServeResult:
+          params: Optional[Dict] = None, plain: bool = False,
+          shape: str = "decode_32k") -> ServeResult:
     """Prefill `batch` prompts of `prompt_len` tokens by decoding them one
     position at a time, then generate `gen` tokens.  `params` (e.g. from
     `transformer.params_from_jax`) replaces the random weights; `plain=True`
-    routes the attention through the kernel's plain version.  The caches,
-    the step positions and the tokens stay on the device, so the loop syncs
-    with the host only at the phase boundaries."""
+    routes the attention through the kernel's plain version; `shape` names
+    the decode shape whose attention window the step and the caches take
+    (`steps.decode_window`: decode_32k keeps cfg.window, as the reference's
+    serve does).  The caches, the step positions and the tokens stay on the
+    device, so the loop syncs with the host only at the phase
+    boundaries."""
     dev = resolve_device(device)
     if params is None:
         params = init_model(cfg, torch.Generator(dev).manual_seed(seed), dev)
     max_len = prompt_len + gen
-    step, _ = make_decode_step(cfg, "decode_32k", plain=plain)
+    step, meta = make_decode_step(cfg, shape, plain=plain)
     prompts = torch.as_tensor(
         sample_tokens(batch, prompt_len, vocab=cfg.vocab_size, seed=seed),
         dtype=torch.long, device=dev)
-    caches = T.init_caches(cfg, batch, max_len, window=cfg.window, device=dev)
+    caches = T.init_caches(cfg, batch, max_len, window=meta["window"],
+                           device=dev)
     positions = torch.arange(max_len, dtype=torch.int32, device=dev)
     sampler = torch.Generator(dev).manual_seed(seed + 7)
     v = cfg.vocab_size
@@ -115,6 +128,8 @@ def main() -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["decode_32k", "long_500k"])
     args = ap.parse_args()
     if args.mesh != "1x1":
         raise NotImplementedError(
@@ -123,7 +138,7 @@ def main() -> None:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     res = serve(cfg, args.batch, args.prompt_len, args.gen,
                 device=args.device, temperature=args.temperature,
-                seed=args.seed)
+                seed=args.seed, shape=args.shape)
     print(f"arch={cfg.name} batch={args.batch} prefill={res.prefill_s:.2f}s "
           f"decode={res.decode_s:.2f}s ({res.tok_per_s:.1f} tok/s)")
     print("sample tokens:", res.tokens[0, :12].tolist())

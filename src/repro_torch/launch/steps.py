@@ -147,11 +147,15 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     floa = default_floa(mesh, dim, policy=policy, n_byzantine=n_byzantine)
     channel, power, attack = floa["channel"], floa["power"], floa["attack"]
     noisy = use_floa and channel.noise_std > 0.0
+    moe_coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
 
     def weighted_loss(params, batch, coeffs):
-        per_ex, _ = T.lm_per_example_loss(params, batch, cfg)    # [B]
+        per_ex, aux = T.lm_per_example_loss(params, batch, cfg)  # [B]
         per_worker = per_ex.reshape(u, -1).mean(dim=1)   # [U] local losses
-        return coeffs @ per_worker.float(), per_worker.mean()
+        wl = coeffs @ per_worker.float()
+        if moe_coef:   # the MoE load-balance term, weighted as the losses
+            wl = wl + moe_coef * aux * torch.sum(coeffs) / u
+        return wl, per_worker.mean()
 
     def train_step(params, state, batch, seed, draws=None):
         leaves_p, treedef = tree_flatten(params)
@@ -255,7 +259,11 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
                      plain: bool = False) -> Tuple[Callable, Dict]:
     """The serve step of one new token against a KV cache:
     `step(params, caches, tokens1, pos) -> (logits [B, 1, Vp], caches)`,
-    and `meta` with the parameter count `dim` and the attention `window`.
+    and `meta` with the parameter count `dim` and the attention `window`
+    (`decode_window`).  A windowed step writes ring caches of
+    min(max_len, window) slots: build them with
+    `transformer.init_caches(cfg, B, max_len, window=meta["window"])`
+    (long_500k on qwen3-4b: 8192 slots for 524 288 positions).
     `plain=True` routes the attention through the kernel's plain version
     (for kernel-vs-plain comparisons)."""
     _refuse_audio(cfg)

@@ -11,10 +11,16 @@ attention (`gqa_full`: `_gqa_core` over query chunks of Q_CHUNK) is plain
 einsums outside any Pallas kernel.  The encoder-decoder
 `cross_attention` is not ported (ROADMAP.md Queue 1 item 10).
 
-Only the dense, native-dtype cache of full attention is ported.  A window
-(the ring-buffer cache of sliding-window archs and of long_500k's SWA),
-`kv_cache_dtype="int8"` and MLA raise NotImplementedError (ROADMAP.md
-Queue 1 item 10).
+The native-dtype cache is ported, full or windowed: a window makes it a
+ring buffer of min(max_len, window) slots (sliding-window archs, and
+long_500k's SWA variant), written at slot pos % slots.  The reference
+rebuilds each slot's true position and masks `kpos <= pos, kpos >= 0,
+kpos > pos - window`; over a ring of `slots` that is exactly "every slot
+<= min(pos, slots - 1)", which the decode attention applies itself (it
+clamps its valid length to min(pos + 1, S)), and the softmax does not
+depend on slot order (RoPE is applied to k at its true position when it
+is written).  `kv_cache_dtype="int8"` and MLA raise NotImplementedError
+(ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -121,11 +127,8 @@ def gqa_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
     return out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
 
 
-def check_cache_supported(cfg: ModelConfig, window: Optional[int]) -> None:
+def check_cache_supported(cfg: ModelConfig) -> None:
     """Raise on the cache layouts the port does not have yet."""
-    if window:
-        raise NotImplementedError(f"a windowed (ring-buffer) KV cache, "
-                                  f"window={window}, {NOT_PORTED}")
     if cfg.kv_cache_dtype != "native":
         raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} "
                                   f"{NOT_PORTED}")
@@ -135,9 +138,11 @@ def check_cache_supported(cfg: ModelConfig, window: Optional[int]) -> None:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                window: Optional[int], dtype, device=None) -> Dict[str, Tensor]:
-    """Zeroed KV cache of one attention layer: k/v [B, max_len, KV, hd]."""
-    check_cache_supported(cfg, window)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    """Zeroed KV cache of one attention layer: k/v [B, slots, KV, hd], a ring
+    of slots = min(max_len, window) if windowed, else max_len."""
+    check_cache_supported(cfg)
+    slots = min(max_len, window) if window else max_len
+    shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -148,20 +153,25 @@ def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
                 plain: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token decode.  x1 [B, 1, d]; pos the 0-based index of the new
     token (an int, or a 0-d integer tensor on x1's device: then nothing
-    syncs with the host); cache k/v [B, S, KV, hd] with pos < S.  `rope`,
-    the (cos, sin) of pos, lets a caller compute them once for every layer.
+    syncs with the host); cache k/v [B, S, KV, hd] with pos < S, or, with
+    a window, a ring of S slots and any pos >= 0.  `rope`, the (cos, sin)
+    of pos, lets a caller compute them once for every layer.
 
     Unlike the JAX package, which returns a new cache, the port writes k1/v1
-    into slot pos of the given cache tensors in place and returns the same
-    dict.  The attention over slots <= pos is `ops.decode_attention` (the
-    CUDA kernel on the card; `plain=True` takes its plain version)."""
-    check_cache_supported(cfg, window)
+    into the given cache tensors in place, at slot pos (pos % S when
+    windowed, computed on the device), and returns the same dict.  The
+    attention over slots <= min(pos, S - 1) is `ops.decode_attention` with
+    the true pos (the CUDA kernel on the card; `plain=True` takes its plain
+    version)."""
+    check_cache_supported(cfg)
     b = x1.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x1.device)
     if rope is None:
         rope = rope_cos_sin(pos.reshape(1, 1), cfg.hd, cfg.rope_theta)
     q, k1, v1 = _qkv(p, x1, cfg, rope)
     slot = pos.reshape(1).long()
+    if window:
+        slot = torch.remainder(slot, cache["k"].shape[1])
     cache["k"].index_copy_(1, slot, k1)
     cache["v"].index_copy_(1, slot, v1)
     out = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],

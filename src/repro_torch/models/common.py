@@ -21,13 +21,29 @@ Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-Experts settings (`repro/models/common.py::MoEConfig`),
+    every field and default as the reference's."""
+    num_experts: int
+    top_k: int
+    d_expert: int                     # per-expert FFN hidden size
+    num_shared: int = 0               # shared (always-on) experts
+    interleave: int = 1               # every `interleave`-th block is MoE (1 = all)
+    capacity_factor: float = 1.25
+    impl: str = "capacity_gather"     # or "scan_dense" (masked full compute)
+    router_aux_coef: float = 0.01     # load-balance loss weight
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The JAX `ModelConfig` without its XLA execution knobs (model_parallel,
-    remat, scan_layers, unroll_for_analysis, skip_shapes); `dtype` is a
-    torch dtype.  `lm_head_chunk` stays: it decides how many positions the
-    training loss projects to logits at once (`transformer.chunked_ce`).
-    The sub-configs (moe, mla, ssm, encdec, frontend) are carried only as
-    None here: the port's model raises NotImplementedError on any of them
+    remat, scan_layers, unroll_for_analysis); `dtype` is a torch dtype.
+    `lm_head_chunk` stays: it decides how many positions the training loss
+    projects to logits at once (`transformer.chunked_ce`).  `skip_shapes`
+    stays: it is a model property, the input shapes a config does not run
+    (`configs.registry.shape_applicable`).  `moe` is a `MoEConfig`; the
+    other sub-configs (mla, ssm, encdec, frontend) are carried only as None
+    here: the port's model raises NotImplementedError on any of them
     (ROADMAP.md Queue 1 item 10)."""
     name: str
     arch_type: str                    # dense|moe|ssm|hybrid|vlm|audio
@@ -43,7 +59,7 @@ class ModelConfig:
     window: Optional[int] = None      # native sliding window (None = full attn)
     long_context_window: Optional[int] = None  # SWA used only for long_500k
     block_pattern: Tuple[str, ...] = ("attn",)
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     mla: Optional[Any] = None
     ssm: Optional[Any] = None
     encdec: Optional[Any] = None
@@ -54,6 +70,8 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     norm_eps: float = 1e-6
     citation: str = ""
+    # decode-shape applicability: the input shapes this config skips
+    skip_shapes: Tuple[str, ...] = ()
     # CE/logits are computed in sequence chunks of this many positions so the
     # [B, S, vocab] tensor never materializes.
     lm_head_chunk: int = 1024
@@ -72,7 +90,9 @@ class ModelConfig:
 class ParamInit:
     """Draws parameters as the JAX `ParamFactory` does: truncated normal on
     [-2, 2] in f32, times 1/sqrt(fan_in) (fan_in defaults to shape[0]), cast
-    to `dtype`; `init="zeros"` for norm scales.  The draws come from an
+    to `dtype` (or the parameter's own `dtype`: the MoE router is f32
+    whatever the model's dtype); `init="zeros"` for norm scales.  The draws
+    come from an
     explicit `torch.Generator` on the parameters' device, so the bits are
     the port's own, not JAX's.
 
@@ -89,11 +109,12 @@ class ParamInit:
         self.stack = stack
 
     def param(self, shape: Tuple[int, ...], fan_in: Optional[int] = None,
-              init: str = "normal") -> Tensor:
+              init: str = "normal", dtype=None) -> Tensor:
         full = ((self.stack,) if self.stack else ()) + tuple(shape)
+        dtype = dtype or self.dtype
         if init == "zeros":
-            return torch.zeros(full, dtype=self.dtype, device=self.device)
-        out = torch.empty(full, dtype=self.dtype, device=self.device)
+            return torch.zeros(full, dtype=dtype, device=self.device)
+        out = torch.empty(full, dtype=dtype, device=self.device)
         if self.device.type == "meta":
             return out
         scale = 1.0 / math.sqrt(fan_in if fan_in else shape[0])

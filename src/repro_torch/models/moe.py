@@ -1,0 +1,203 @@
+"""Mixture-of-Experts of the port: router, the two dispatch implementations
+and shared experts (`repro/models/moe.py`).
+
+Expert weights are stacked [E, d, f] / [E, f, d], as in the reference, so
+JAX weights carry across unchanged.  The expert products are plain batched
+matrix products (`torch.bmm`, cuBLAS): in the reference they are XLA
+einsums outside any Pallas kernel.
+
+  * `moe_scan_dense` ("scan_dense"): every expert computes every token,
+    weighted by the router's combine weights.  The reference scans the
+    experts one at a time and adds their weighted outputs in expert order;
+    here one `bmm` computes all E experts at once and the weighted outputs
+    are summed over the expert axis (E launches fewer; the sum order
+    differs from the reference's by rounding only).
+  * `moe_capacity_gather` ("capacity_gather"): sort-based token -> expert
+    buckets of capacity C = ceil(top_k T / E) * capacity_factor, overflow
+    dropped (the reference's `.at[slot].set(mode="drop")`: dropped pairs
+    write a spare row that is never read).  The reference scatter-adds each
+    (token, k) contribution back with `.at[stok].add`; here the
+    contributions are gathered back into [T, k] order and summed over k, a
+    fixed order (`index_add_` on the card would add with float atomics, in
+    an order that varies from run to run at top_k > 1).
+
+`torch.topk` and `jax.lax.top_k` may order exact ties differently; on
+continuous router probabilities ties have measure zero.  Routing is a
+discontinuous function of its input: a difference at rounding level
+between two routes of the same model (the decode kernel against its plain
+version in bf16, say) can swap two nearly tied experts, and one swapped
+expert moves that token's output by a whole expert's share.  To compare
+two such routes, `RoutingTape` records the experts one run chooses and
+replays them in the other (`with routing(tape): ...`), counting the
+choices the replayed run would have made otherwise.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, ParamInit
+from repro_torch.models.ffn import init_swiglu, swiglu
+
+Tensor = torch.Tensor
+
+
+def init_moe(pi: ParamInit, cfg: ModelConfig) -> Dict:
+    """The router (f32 whatever cfg.dtype is, as the reference draws it),
+    the stacked expert weights w1 / wg [E, d, f], w2 [E, f, d], and the
+    shared experts' SwiGLU of width num_shared * f."""
+    d, m = cfg.d_model, cfg.moe
+    e, f = m.num_experts, m.d_expert
+    p = {"router": pi.param((d, e), fan_in=d, dtype=torch.float32),
+         "w1": pi.param((e, d, f), fan_in=d),
+         "wg": pi.param((e, d, f), fan_in=d),
+         "w2": pi.param((e, f, d), fan_in=f)}
+    if m.num_shared:
+        p["shared"] = init_swiglu(pi, cfg, d_ff=m.num_shared * f)
+    return p
+
+
+def router_probs(p: Dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """[T, E] softmax router probabilities in f32."""
+    return torch.softmax(x.float() @ p["router"], dim=-1)
+
+
+def load_balance_loss(probs: Tensor, idx: Tensor, num_experts: int) -> Tensor:
+    """Switch-style aux loss: E * sum_e f_e * P_e, f_e the share of top-k
+    slots routed to expert e, P_e the mean router probability."""
+    f = F.one_hot(idx.long(), num_experts).float().sum(dim=1).mean(dim=0)
+    return num_experts * torch.sum(f * probs.mean(dim=0))
+
+
+class RoutingTape:
+    """The experts chosen by every MoE call of a run, in call order.
+
+    Under `routing(tape)` a first run records each call's top-k experts
+    [T, k]; once `tape.replay()` is called, the calls of a second run take
+    the recorded experts instead of their own (their gates are the second
+    run's probabilities of those experts), and `tape.flips` (a device
+    tensor: no host sync) counts the tokens whose own top-k set differs
+    from the recorded one.  For kernel-vs-plain comparisons only."""
+
+    def __init__(self):
+        self.recorded: List[Tensor] = []
+        self.replaying = False
+        self.cursor = 0
+        self.flips: Optional[Tensor] = None
+        self.decisions = 0
+
+    def replay(self) -> "RoutingTape":
+        self.replaying, self.cursor = True, 0
+        return self
+
+    def route(self, idx: Tensor) -> Tensor:
+        if not self.replaying:
+            self.recorded.append(idx)
+            return idx
+        want = self.recorded[self.cursor]
+        self.cursor += 1
+        differ = (torch.sort(idx, dim=-1).values
+                  != torch.sort(want, dim=-1).values).any(dim=-1).sum()
+        self.flips = differ if self.flips is None else self.flips + differ
+        self.decisions += idx.shape[0]
+        return want
+
+
+# the tape of the innermost `routing` block of this context (as the
+# reference scopes its sharding hints, `repro/models/common.py::_SHARD_CTX`)
+_TAPE = contextvars.ContextVar("repro_torch_routing_tape", default=None)
+
+
+@contextlib.contextmanager
+def routing(tape: RoutingTape) -> Iterator[RoutingTape]:
+    """Route every MoE call inside the block through `tape`."""
+    token = _TAPE.set(tape)
+    try:
+        yield tape
+    finally:
+        _TAPE.reset(token)
+
+
+def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """The top-k gates renormalized to sum 1, and their experts [T, k]
+    (under `routing`, the tape's experts)."""
+    gates, idx = torch.topk(probs, k, dim=-1)
+    tape = _TAPE.get()
+    if tape is not None:
+        idx = tape.route(idx)
+        gates = probs.gather(-1, idx)
+    return gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9), idx
+
+
+def _experts(w1: Tensor, wg: Tensor, w2: Tensor, x: Tensor) -> Tensor:
+    """silu(x @ w1) * (x @ wg) @ w2 for a stack of experts: x [E, C, d]
+    (or [C, d], every expert on the same rows) -> [E, C, d]."""
+    if x.dim() == 2:
+        x = x.expand(w1.shape[0], *x.shape)
+    h = F.silu(torch.bmm(x, w1)) * torch.bmm(x, wg)
+    return torch.bmm(h, w2)
+
+
+def moe_scan_dense(p: Dict, x2: Tensor, cfg: ModelConfig
+                   ) -> Tuple[Tensor, Tensor]:
+    """x2 [T, d] -> ([T, d], aux loss): every expert on every token, each
+    output weighted by its (token, expert) combine weight (the top-k gates,
+    0 elsewhere)."""
+    m = cfg.moe
+    probs = router_probs(p, x2, cfg)                              # [T, E]
+    gates, idx = _top_k(probs, m.top_k)
+    comb = torch.zeros_like(probs).scatter(1, idx, gates)         # [T, E]
+    out = _experts(p["w1"], p["wg"], p["w2"], x2)                 # [E, T, d]
+    y = (comb.T[:, :, None].to(out.dtype) * out).sum(dim=0)
+    return y, load_balance_loss(probs, idx, m.num_experts)
+
+
+def moe_capacity_gather(p: Dict, x2: Tensor, cfg: ModelConfig
+                        ) -> Tuple[Tensor, Tensor]:
+    """x2 [T, d] -> ([T, d], aux loss): sort-based bucketed dispatch with
+    capacity; pairs past an expert's capacity are dropped."""
+    m = cfg.moe
+    t, d = x2.shape
+    e, k = m.num_experts, m.top_k
+    cap = max(int(-(-k * t // e) * m.capacity_factor), 1)
+    probs = router_probs(p, x2, cfg)
+    gates, idx = _top_k(probs, k)
+
+    flat_e = idx.reshape(-1)                                      # [T k]
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    stok = torch.div(order, k, rounding_mode="floor")             # token
+    seg_start = torch.searchsorted(se, torch.arange(e, device=se.device))
+    rank = torch.arange(t * k, device=se.device) - seg_start[se]
+    ok = rank < cap
+    slot = torch.where(ok, se * cap + rank, torch.full_like(rank, e * cap))
+    # row e * cap takes every dropped pair and is never read
+    buf = x2.new_zeros((e * cap + 1, d))
+    buf[slot] = x2[stok]
+    ye = _experts(p["w1"], p["wg"], p["w2"],
+                  buf[:e * cap].reshape(e, cap, d)).reshape(e * cap, d)
+    out = torch.where(ok[:, None], ye[torch.clamp_max(slot, e * cap - 1)],
+                      torch.zeros((), dtype=ye.dtype, device=ye.device))
+    # back to (token, k) order, then a fixed-order sum over k
+    pairs = torch.empty_like(out)
+    pairs[order] = out
+    w = (gates.reshape(-1) * ok[torch.argsort(order)])[:, None]
+    y = (w.to(x2.dtype) * pairs).reshape(t, k, d).sum(dim=1)
+    return y, load_balance_loss(probs, idx, e)
+
+
+def moe_ffn(p: Dict, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """[B, S, d] -> ([B, S, d], aux loss), plus the shared experts if the
+    config has them."""
+    b, s, d = x.shape
+    impl = (moe_scan_dense if cfg.moe.impl == "scan_dense"
+            else moe_capacity_gather)
+    y2, aux = impl(p, x.reshape(b * s, d), cfg)
+    y = y2.reshape(b, s, d)
+    if cfg.moe.num_shared:
+        y = y + swiglu(p["shared"], x)
+    return y, aux

@@ -1,18 +1,28 @@
 """Decoder-only LM of the port: init, embeddings, the full-sequence forward
 and loss of training and prefill, KV caches and the one-token decode step
-(`repro/models/transformer.py`), for `block_pattern == ("attn",)` (dense
-GQA blocks with SwiGLU, e.g. qwen3-4b).
+(`repro/models/transformer.py`), for the block kinds
 
-The parameter and cache trees keep the JAX package's layout, including the
-stacked `blocks` leaves with a leading layer axis, so JAX weights carry
-across with `params_from_jax`.  The JAX scan over layers is a Python loop
-over layer indices here, and `remat` has no counterpart: the backward
-keeps every layer's activations.  `chunked_ce` projects `lm_head_chunk`
-positions to logits at a time, as the reference does, without
-`torch.utils.checkpoint` (it does not compose with `torch.func.grad` /
-`vmap`, through which the sweep takes per-worker gradients).  Other block
-kinds, MoE, MLA, SSM, encoder-decoder and frontends (a VLM's
-`embeds_prefix`) raise NotImplementedError (ROADMAP.md Queue 1 item 10).
+  attn       causal self-attention (GQA) + SwiGLU
+  attn_moe   causal self-attention (GQA) + MoE FFN (+ shared experts)
+
+in any `block_pattern` of them (qwen3-4b, granite-8b and starcoder2-3b are
+("attn",), moonshot ("attn_moe",), llama4 ("attn", "attn_moe")).  A
+"super-block" is one repeat of the pattern: n_layers // len(pattern) of
+them are stacked with a leading layer axis under `blocks` ({"b0", "b1",
+...}, one sub-block per pattern entry), and the n_layers % len(pattern)
+left over are unstacked `tail{t}` blocks of kind pattern[t].
+
+The parameter and cache trees keep the JAX package's layout, so JAX weights
+carry across with `params_from_jax` and a flat row lays its leaves out as
+`jax.tree_util` does (`repro_torch.tree`).  The JAX scan over layers is a
+Python loop over layer indices here, and `remat` has no counterpart: the
+backward keeps every layer's activations.  `chunked_ce` projects
+`lm_head_chunk` positions to logits at a time, as the reference does,
+without `torch.utils.checkpoint` (it does not compose with
+`torch.func.grad` / `vmap`, through which the sweep takes per-worker
+gradients).  The other block kinds (local_attn, ssm, rglru), MLA, SSM,
+encoder-decoder and frontends (a VLM's `embeds_prefix`) raise
+NotImplementedError (ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -23,19 +33,26 @@ import torch
 
 from repro_torch.models import attention as ATT
 from repro_torch.models import ffn as FFN
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import (ModelConfig, ParamInit, rms_norm,
                                        rope_cos_sin, softmax_xent)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
 
+BLOCK_KINDS = ("attn", "attn_moe")
+
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a decoder-only stack of dense "attn" blocks."""
-    if cfg.block_pattern != ("attn",):
-        raise NotImplementedError(f"block_pattern {cfg.block_pattern} "
-                                  f"{ATT.NOT_PORTED}")
-    for sub in ("moe", "mla", "ssm", "encdec", "frontend"):
+    """Raise unless cfg is a decoder-only stack of ported block kinds
+    ("attn", and "attn_moe" with a MoE config)."""
+    for kind in cfg.block_pattern:
+        if kind not in BLOCK_KINDS:
+            raise NotImplementedError(f"block_pattern {cfg.block_pattern}: "
+                                      f"{kind!r} {ATT.NOT_PORTED}")
+    if "attn_moe" in cfg.block_pattern and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: an attn_moe block needs cfg.moe")
+    for sub in ("mla", "ssm", "encdec", "frontend"):
         if getattr(cfg, sub) is not None:
             raise NotImplementedError(f"{cfg.name}: {sub} {ATT.NOT_PORTED}")
 
@@ -44,6 +61,15 @@ def layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
     """(n_scanned_repeats, n_tail_blocks)."""
     k = len(cfg.block_pattern)
     return cfg.n_layers // k, cfg.n_layers % k
+
+
+def _init_subblock(pi: ParamInit, kind: str, cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    return {"ln1": pi.param((d,), init="zeros"),
+            "attn": ATT.init_gqa(pi, cfg),
+            "ln2": pi.param((d,), init="zeros"),
+            "ffn": (MOE.init_moe(pi, cfg) if kind == "attn_moe"
+                    else FFN.init_swiglu(pi, cfg))}
 
 
 def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -59,13 +85,14 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
                               "final_norm": pi.param((d,), init="zeros")}
     if not cfg.tie_embeddings:
         params["lm_head"] = pi.param((d, vp), fan_in=d)
-    n_rep, _ = layer_counts(cfg)
-    stacked = ParamInit(generator, cfg.dtype, pi.device, stack=n_rep)
-    params["blocks"] = {"b0": {
-        "ln1": stacked.param((d,), init="zeros"),
-        "attn": ATT.init_gqa(stacked, cfg),
-        "ln2": stacked.param((d,), init="zeros"),
-        "ffn": FFN.init_swiglu(stacked, cfg)}}
+    n_rep, n_tail = layer_counts(cfg)
+    if n_rep:
+        stacked = ParamInit(generator, cfg.dtype, pi.device, stack=n_rep)
+        params["blocks"] = {f"b{i}": _init_subblock(stacked, kind, cfg)
+                            for i, kind in enumerate(cfg.block_pattern)}
+    for t in range(n_tail):
+        params[f"tail{t}"] = {"b0": _init_subblock(pi, cfg.block_pattern[t],
+                                                   cfg)}
     return params
 
 
@@ -95,15 +122,28 @@ def logits_from_hidden(params: Dict, h: Tensor, cfg: ModelConfig) -> Tensor:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 window: Optional[int] = None, device=None) -> Dict:
-    """Stacked decode caches {"blocks": {"b0": {"k", "v": [L, B, S, KV, hd]}}}.
-    `window` overrides cfg.window (any window raises: not ported)."""
+    """Decode caches in the reference's layout: {"blocks": {"b<i>": {"k",
+    "v": [L, B, S, KV, hd]}}} for the stacked super-blocks and
+    {"tail<t>": {"b0": {"k", "v": [B, S, KV, hd]}}} for the tail blocks.
+    `window` overrides cfg.window for every attention block (long_500k's
+    SWA variant); a window makes each cache a ring of min(max_len, window)
+    slots."""
     check_supported(cfg)
-    n_rep, _ = layer_counts(cfg)
+    n_rep, n_tail = layer_counts(cfg)
     w_attn = window if window is not None else cfg.window
-    one = ATT.init_cache(cfg, batch, max_len, w_attn, cfg.dtype, device)
-    return {"blocks": {"b0": {
-        k: torch.zeros((n_rep,) + x.shape, dtype=x.dtype, device=x.device)
-        for k, x in one.items()}}}
+
+    def one(stack=()):
+        c = ATT.init_cache(cfg, batch, max_len, w_attn, cfg.dtype, "meta")
+        return {k: torch.zeros(stack + x.shape, dtype=x.dtype, device=device)
+                for k, x in c.items()}
+
+    caches: Dict[str, Any] = {}
+    if n_rep:
+        caches["blocks"] = {f"b{i}": one((n_rep,))
+                            for i in range(len(cfg.block_pattern))}
+    for t in range(n_tail):
+        caches[f"tail{t}"] = {"b0": one()}
+    return caches
 
 
 def _unstack(tree: Dict, n: int) -> List[Dict]:
@@ -117,27 +157,52 @@ def _unstack(tree: Dict, n: int) -> List[Dict]:
             for i in range(n)]
 
 
-def _apply_subblock(p: Dict, x: Tensor, positions: Tensor,
-                    cfg: ModelConfig, window: Optional[int]) -> Tensor:
-    """The full-sequence "attn" block: x + attn(norm(x)), then
-    + swiglu(norm(x))."""
+def _layers(cfg: ModelConfig, tree: Dict) -> List[Tuple[str, Dict]]:
+    """(kind, sub-block tree) of every layer in order: each stacked
+    super-block's sub-blocks, then the tail blocks."""
+    n_rep, n_tail = layer_counts(cfg)
+    out = []
+    if n_rep:
+        for sb in _unstack(tree["blocks"], n_rep):
+            out += [(kind, sb[f"b{i}"])
+                    for i, kind in enumerate(cfg.block_pattern)]
+    out += [(cfg.block_pattern[t], tree[f"tail{t}"]["b0"])
+            for t in range(n_tail)]
+    return out
+
+
+def _ffn(kind: str, p: Dict, h: Tensor, cfg: ModelConfig
+         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The block's FFN: SwiGLU, or the MoE FFN and its aux loss."""
+    if kind == "attn_moe":
+        return MOE.moe_ffn(p, h, cfg)
+    return FFN.swiglu(p, h), None
+
+
+def _apply_subblock(kind: str, p: Dict, x: Tensor, positions: Tensor,
+                    cfg: ModelConfig, window: Optional[int]
+                    ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The full-sequence block: x + attn(norm(x)), then + ffn(norm(x));
+    returns (x, the MoE aux loss or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + ATT.gqa_full(p["attn"], h, cfg, positions, window=window)
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + FFN.swiglu(p["ffn"], h2)
+    y, aux = _ffn(kind, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, aux
 
 
 def forward_hidden(params: Dict, x: Tensor, positions: Tensor,
                    cfg: ModelConfig, window: Optional[int] = None
                    ) -> Tuple[Tensor, Tensor]:
-    """Embedded inputs [B, S, d] -> (final hidden [B, S, d], aux loss).
-    The aux loss is MoE's, so 0 for every ported config."""
+    """Embedded inputs [B, S, d] -> (final hidden [B, S, d], aux loss):
+    the aux loss is the sum of the MoE blocks' load-balance losses (0 for
+    a dense model), f32."""
     check_supported(cfg)
     window = window if window is not None else cfg.window
-    n_rep, _ = layer_counts(cfg)
-    for p in _unstack(params["blocks"]["b0"], n_rep):
-        x = _apply_subblock(p, x, positions, cfg, window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in _layers(cfg, params):
+        x, a = _apply_subblock(kind, p, x, positions, cfg, window)
+        if a is not None:
+            aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -193,41 +258,44 @@ def lm_per_example_loss(params: Dict, batch: Dict, cfg: ModelConfig,
 
 def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig,
             window: Optional[int] = None) -> Tensor:
-    """Next-token CE over the batch (the sweep's and the trainer's
-    loss_fn: `lambda p, b: lm_loss(p, b, cfg)`)."""
-    per_ex, _ = lm_per_example_loss(params, batch, cfg, window)
-    return per_ex.mean()
+    """Next-token CE over the batch, plus router_aux_coef times the MoE aux
+    loss (the sweep's and the trainer's loss_fn: `lambda p, b: lm_loss(p,
+    b, cfg)`)."""
+    per_ex, aux = lm_per_example_loss(params, batch, cfg, window)
+    moe_coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
+    return per_ex.mean() + moe_coef * aux if moe_coef else per_ex.mean()
 
 
-def _decode_subblock(p: Dict, cache: Dict, x1: Tensor, pos,
+def _decode_subblock(kind: str, p: Dict, cache: Dict, x1: Tensor, pos,
                      cfg: ModelConfig, window: Optional[int],
                      rope: Tuple[Tensor, Tensor],
                      plain: bool) -> Tuple[Tensor, Dict]:
-    """The "attn" block: x + attn(norm(x)), then + swiglu(norm(x))."""
+    """One block of a decode step: x + attn(norm(x)), then + ffn(norm(x))
+    (the MoE FFN's aux loss is dropped, as in the reference)."""
     h = rms_norm(x1, p["ln1"], cfg.norm_eps)
     h, cache = ATT.decode_step(p["attn"], h, cache, pos, cfg, window=window,
                                rope=rope, plain=plain)
     x1 = x1 + h
-    h2 = rms_norm(x1, p["ln2"], cfg.norm_eps)
-    return x1 + FFN.swiglu(p["ffn"], h2), cache
+    y, _ = _ffn(kind, p["ffn"], rms_norm(x1, p["ln2"], cfg.norm_eps), cfg)
+    return x1 + y, cache
 
 
 def decode_step(params: Dict, caches: Dict, tokens1: Tensor, pos,
                 cfg: ModelConfig, window: Optional[int] = None, *,
                 plain: bool = False) -> Tuple[Tensor, Dict]:
     """One decode step.  tokens1 [B, 1] integer, pos the 0-based index of the
-    new token (an int or a 0-d integer tensor on the device).  Returns
-    (logits [B, 1, Vp], caches); the caches are written in place (see
-    `attention.decode_step`)."""
+    new token (an int or a 0-d integer tensor on the device).  `window`
+    overrides cfg.window for every attention block; a windowed step
+    writes slot pos % S of its ring caches (`init_caches` with the same
+    window).  Returns (logits [B, 1, Vp], caches); the caches are written
+    in place (see `attention.decode_step`)."""
     check_supported(cfg)
     window = window if window is not None else cfg.window
-    ATT.check_cache_supported(cfg, window)
+    ATT.check_cache_supported(cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens1.device)
     x = embed_tokens(params, tokens1, cfg)
     rope = rope_cos_sin(pos.reshape(1, 1), cfg.hd, cfg.rope_theta)
-    n_rep, _ = layer_counts(cfg)
-    for p, c in zip(_unstack(params["blocks"]["b0"], n_rep),
-                    _unstack(caches["blocks"]["b0"], n_rep)):
-        x, _ = _decode_subblock(p, c, x, pos, cfg, window, rope, plain)
+    for (kind, p), (_, c) in zip(_layers(cfg, params), _layers(cfg, caches)):
+        x, _ = _decode_subblock(kind, p, c, x, pos, cfg, window, rope, plain)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(params, h, cfg), caches

@@ -311,7 +311,10 @@ def test_port_sources_import_no_jax_repro_or_ml_dtypes():
     assert len(files) > 40
     for new in ("tree.py", "optim/optimizers.py", "optim/schedules.py",
                 "launch/train.py", "launch/steps.py",
-                "launch/distributed.py", "launch/mesh.py"):
+                "launch/distributed.py", "launch/mesh.py", "models/moe.py",
+                "configs/granite_8b.py", "configs/starcoder2_3b.py",
+                "configs/moonshot_v1_16b_a3b.py",
+                "configs/llama4_maverick_400b_a17b.py"):
         assert root / "src" / "repro_torch" / new in files, new
     bad = [str(f.relative_to(root)) for f in files
            if pattern.search(f.read_text())]

@@ -262,6 +262,56 @@ def test_rayleigh_gains_statistics():
     assert float(h.min()) >= 0.0
 
 
+SIGMAS3 = (0.5, 1.0, 2.0)
+
+
+def test_expected_gain_helpers_match_jax():
+    """E|h|, E|h|^2 and E[min |h|^2] of a [U] sigma tuple against the JAX
+    helpers (tests/test_stat_contracts.py:52), rtol 1e-6."""
+    jcfg = JCH.ChannelConfig(num_workers=3, sigma=SIGMAS3)
+    tcfg = TCH.ChannelConfig(num_workers=3, sigma=SIGMAS3)
+    for name in ("expected_abs_gain", "expected_sq_gain",
+                 "expected_min_sq_gain"):
+        got = getattr(TCH, name)(tcfg, "cpu")
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(getattr(JCH, name)(jcfg)),
+                                   rtol=1e-6, err_msg=name)
+    np.testing.assert_allclose(TCH.expected_abs_gain(tcfg, "cpu").numpy(),
+                               np.array(SIGMAS3) * np.sqrt(np.pi / 2),
+                               rtol=1e-6)
+    np.testing.assert_allclose(TCH.expected_sq_gain(tcfg, "cpu").numpy(),
+                               2 * np.array(SIGMAS3) ** 2, rtol=1e-6)
+
+
+def test_expected_gains_are_the_moments_of_the_ports_draws():
+    """200 000 rounds of the port's own gains (`rayleigh_gains`, the draw
+    of `sample_channel_gains`, on a seeded CPU generator) against the
+    helpers, at tests/test_stat_contracts.py's tolerances: E|h| rtol 5e-3,
+    E|h|^2 rtol 1e-2, the exponential tail of |h|^2 rtol 0.05 / atol 2e-3,
+    and E[min_i |h_i|^2] rtol 1e-2."""
+    n = 200_000
+    cfg = TCH.ChannelConfig(num_workers=3, sigma=SIGMAS3)
+    gen = torch.Generator().manual_seed(0)
+    h = TCH.rayleigh_gains(gen, cfg.sigmas().expand(n, 3)).double().numpy()
+    one = TCH.sample_channel_gains(torch.Generator().manual_seed(0), cfg)
+    assert one.shape == (3,) and torch.equal(one, torch.from_numpy(
+        h[0]).float())
+    np.testing.assert_allclose(h.mean(0),
+                               TCH.expected_abs_gain(cfg, "cpu").numpy(),
+                               rtol=5e-3)
+    sq = h ** 2
+    mean_sq = TCH.expected_sq_gain(cfg, "cpu").numpy()
+    np.testing.assert_allclose(sq.mean(0), mean_sq, rtol=1e-2)
+    for t in (0.5, 1.0, 2.0, 4.0):
+        np.testing.assert_allclose((sq > t * mean_sq).mean(0),
+                                   np.full(3, np.exp(-t)), rtol=0.05,
+                                   atol=2e-3)
+    np.testing.assert_allclose(
+        sq.min(axis=1).mean(),
+        float(TCH.expected_min_sq_gain(cfg, "cpu")), rtol=1e-2)
+
+
 def _engine(lanes):
     from repro_torch.figures import experiment_floa
     from repro_torch.configs import PAPER_MLP

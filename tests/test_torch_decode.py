@@ -114,8 +114,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                               .transpose(1, 2), 3)
     with pytest.raises(ValueError, match="shape"):
         tops.decode_attention(q, k, torch.zeros(2, 15, 2, 64), 3)
-    with pytest.raises(ValueError, match="outside the cache"):
-        tops.decode_attention(q, k, k, 16)
+    # a pos at or past S (a ring-buffer cache's) attends every slot; a
+    # negative one is refused
+    with pytest.raises(ValueError, match="negative"):
+        tops.decode_attention(q, k, k, -1)
     with pytest.raises(ValueError, match="scalar"):
         DA._pos_tensor(torch.zeros(2, dtype=torch.int32), q.device)
     with pytest.raises(ValueError, match="integer tensor"):

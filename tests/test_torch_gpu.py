@@ -541,7 +541,8 @@ def test_grouped_defense_sweep_matches_plain_route(cuda_device, grid):
 
 # tests/test_kernels.py's decode-attention grid, plus head groups of 8 and 6
 # query heads per KV head (two blocks per KV head), dh = 32 (the smoke
-# config) and a long cache cut into many splits.
+# config), a long cache cut into many splits, and the zoo's groups (G = 12,
+# 5 and 1).
 DECODE_GRID = [(1, 4, 1, 64, 512),      # MQA
                (2, 8, 2, 64, 1024),     # GQA
                (2, 8, 8, 128, 777),     # MHA, ragged length
@@ -549,7 +550,10 @@ DECODE_GRID = [(1, 4, 1, 64, 512),      # MQA
                (2, 32, 4, 128, 300),    # G = 8
                (1, 12, 2, 32, 513),     # G = 6, dh = 32
                (3, 8, 2, 32, 64),
-               (2, 32, 8, 128, 32768)]
+               (2, 32, 8, 128, 32768),
+               (2, 24, 2, 128, 600),    # G = 12: starcoder2-3b
+               (2, 40, 8, 128, 600),    # G = 5: llama4
+               (2, 16, 16, 128, 600)]   # G = 1 at KV = 16: moonshot
 # The kernel against the plain version on the same inputs upcast to f32.
 # f32: they differ only in summation order and expf (rtol = atol = 1e-5).
 # bf16: the kernel accumulates in f32 and rounds once, at the output (2^-9
@@ -1153,3 +1157,104 @@ def test_one_rank_nccl_mesh_matches_unmeshed(cuda_device, tmp_path):
     assert np.array_equal(meshed.grad_norm, plain.grad_norm)
     assert all(torch.equal(meshed.params[k], plain.params[k])
                for k in plain.params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,kv", [(64, 24, 2), (4096, 24, 2),
+                                    (8192, 32, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_a_ring_past_its_wrap(cuda_device, s, h, kv,
+                                                  dtype):
+    """A ring-buffer cache's pos runs past S: every slot is attended.  The
+    kernel against the plain version in f32 at pos S, S + 1, 7 S + 5 and
+    long_500k's 524 287 (f32 at 1e-5, bf16 at the relative bound of
+    test_decode_attention_matches_plain), bit for bit its own output at
+    pos = S - 1, for an int pos and a device pos alike."""
+    b, dh = 1, 128
+    q, k, v = _decode_inputs(cuda_device, s + h, b, h, kv, dh, s, dtype)
+    full = ops.decode_attention(q, k, v, s - 1)
+    for pos in (s, s + 1, 7 * s + 5, 524287):
+        for p in (pos, torch.tensor(pos, dtype=torch.int32,
+                                    device=cuda_device)):
+            got = ops.decode_attention(q, k, v, p)
+            assert torch.equal(got, full)
+        want = ops.decode_attention(q.float(), k.float(), v.float(), pos,
+                                    plain=True)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            _close(got, want, 1e-5)
+        else:
+            _holds_plain(got, q, k, v, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape", [("starcoder2-3b", "decode_32k"),
+                                        ("qwen3-4b", "long_500k")])
+def test_ring_serve_kernel_route_matches_plain_route(cuda_device, arch,
+                                                     shape):
+    """Smoke starcoder2-3b (its native 64-slot ring) and qwen3-4b's
+    long_500k window cut to 16 (f32, 2 layers), 40 + 40 tokens served past
+    the ring's wrap through the kernel and through its plain version: the
+    same greedy tokens, logits at rtol 1e-4, one launch a layer a step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import serve
+    cfg = get_smoke(arch)
+    if shape == "long_500k":
+        cfg = dataclasses.replace(cfg, long_context_window=16)
+    ops.reset_launches()
+    rk = serve(cfg, 2, 40, 40, device=cuda_device, shape=shape)
+    assert ops.launch_counts()["decode_attention"] == cfg.n_layers * 80
+    rp = serve(cfg, 2, 40, 40, device=cuda_device, plain=True, shape=shape)
+    assert ops.launch_counts()["decode_attention"] == cfg.n_layers * 80
+    assert torch.equal(rk.tokens, rp.tokens)
+    torch.testing.assert_close(rk.logits, rp.logits, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_serve_kernel_route_matches_plain_route(cuda_device, arch):
+    """The MoE archs on the card, kernel route against plain route.  Smoke
+    (f32, 2 layers): the same greedy tokens over 16 + 16, logits at rtol
+    1e-4.  Full width cut to 2 layers in bf16, 24 teacher-forced steps,
+    the plain run replaying the kernel run's expert choices
+    (`moe.RoutingTape`; a rounding-level difference can swap two nearly
+    tied experts): logits within chip_smoke.py's bf16 bounds (max 0.25,
+    mean 0.02)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import init_model, make_decode_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as LM
+    cfg = get_smoke(arch)
+    ops.reset_launches()
+    rk = serve(cfg, 4, 16, 16, device=cuda_device)
+    rp = serve(cfg, 4, 16, 16, device=cuda_device, plain=True)
+    assert ops.launch_counts()["decode_attention"] == cfg.n_layers * 32
+    assert torch.equal(rk.tokens, rp.tokens)
+    torch.testing.assert_close(rk.logits, rp.logits, rtol=1e-4, atol=1e-5)
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params = init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                        cuda_device)
+    b, n = 4, 24
+    seq = torch.as_tensor(sample_tokens(b, n, cfg.vocab_size, seed=1),
+                          device=cuda_device)
+    pos = torch.arange(n, dtype=torch.int32, device=cuda_device)
+
+    def logits(plain):
+        step, _ = make_decode_step(cfg, plain=plain)
+        caches = LM.init_caches(cfg, b, n, device=cuda_device)
+        return torch.stack([step(params, caches, seq[:, i:i + 1],
+                                 pos[i])[0][:, 0] for i in range(n)]).float()
+
+    tape = MOE.RoutingTape()
+    with MOE.routing(tape):
+        lk = logits(False)
+        tape.replay()
+        lp = logits(True)
+    assert tape.decisions == b * n * (cfg.n_layers // 2 if arch.startswith(
+        "llama4") else cfg.n_layers)
+    diff = (lk - lp).abs()
+    assert float(diff.max()) <= 0.25 and float(diff.mean()) <= 0.02

@@ -163,10 +163,15 @@ def _tiny_mlp_problem(u):
     return jp, batches, jloss, tloss, d_in * d_h + d_h
 
 
-@pytest.mark.parametrize("grid", ["defenses", "worker_grid_u70"])
+@pytest.mark.parametrize("grid", [
+    "defenses", "worker_grid_u70",
+    pytest.param("worker_grid_u1000", marks=pytest.mark.slow)])
 def test_grouped_sweep_matches_jax_engine(grid):
     """The digital-defense grids through both engines' grouped dispatch,
-    from the same weights, batches and draws."""
+    from the same weights, batches and draws.  U = 70 is one block of
+    Krum's blocked distances (KRUM_BLOCK_ROWS = 128); U = 1000 (slow) is
+    eight, the last one ragged, and the sorts' U of the paper's U = 1000
+    grid (the bitonic kernel's on the card)."""
     if grid == "defenses":
         tcases = TF.defense_cases(TPAPER_SMOKE)
         x, y = make_dataset(MC.train_samples, seed=0)
@@ -177,11 +182,13 @@ def test_grouped_sweep_matches_jax_engine(grid):
         jloss, tloss = jmlp_loss, TM.mlp_loss
         d = sum(int(v.size) for v in jp.values())
     else:
-        # lr 0.01, not the grid's 0.05: at 0.05 the analog BEV lane of this
-        # MSE regression diverges to NaN by round 3 in both engines
-        jp, batches, jloss, tloss, d = _tiny_mlp_problem(70)
-        tcases = [dataclasses.replace(c, alpha=0.01)
-                  for c in TF.worker_grid(70, d)]
+        # lr 0.01 at U = 70, not the grid's 0.05: at 0.05 the analog BEV
+        # lane of this MSE regression diverges to NaN by round 3 in both
+        # engines; at U = 1000 it does so at 0.01 too, so 1e-4 there
+        u = int(grid.rsplit("u", 1)[1])
+        jp, batches, jloss, tloss, d = _tiny_mlp_problem(u)
+        tcases = [dataclasses.replace(c, alpha=0.01 if u == 70 else 1e-4)
+                  for c in TF.worker_grid(u, d)]
     jspec = JFL.SweepSpec.build([_jax_case(c) for c in tcases])
     tspec = TS.SweepSpec.build(tcases)
     for gate in ("lane_codes", "digital_codes", "any_digital", "all_digital",
@@ -242,7 +249,8 @@ def test_port_imports_no_jax():
             "repro_torch.tree, repro_torch.optim, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.launch.serve, "
             "repro_torch.models.transformer, repro_torch.configs.registry, "
-            "repro_torch.launch.distributed, repro_torch.launch.mesh; "
+            "repro_torch.launch.distributed, repro_torch.launch.mesh, "
+            "repro_torch.models.moe, repro_torch.configs; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', "
             "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]; "
             "assert not bad, bad; print('clean')")
