@@ -5,13 +5,17 @@
     python3 chip_smoke.py --resume-child ckpt|resume DIR [OUT]
                                       # phase 13's child processes
     python3 chip_smoke.py --mesh      # phases 1-2 and 21 alone
-    python3 chip_smoke.py --mesh-child RANK STORE OUT
+    python3 chip_smoke.py --mesh-child RANK WORLD STORE OUT
                                       # phase 21's ranks
     python3 chip_smoke.py --strict-rates
                                       # phases 1-2, then the warm rounds/s
                                       # of the strict_numerics routes
+    python3 chip_smoke.py --lm-mesh   # phases 1-2, phase 3's decode rows
+                                      # and phase 22 alone
+    python3 chip_smoke.py --lm-mesh-child RANK WORLD STORE OUT
+                                      # phase 22's ranks
     python3 chip_smoke.py --zoo       # phases 1-2, phase 3's decode rows
-                                      # and phases 22-23 alone
+                                      # and phases 23-24 alone
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -47,7 +51,8 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               for decode
               attention decode_32k's
               per-layer shape [128, 32768], the long-cache and serve
-              shapes, the zoo's serve shapes (G = 12, 5 and 1), long_500k's
+              shapes, the zoo's serve shapes (G = 12, 5 and 1), a rank's
+              half of the serve batch (phase 22), long_500k's
               rings of 8192 and 4096 slots at pos 524 287, S = 777, MQA,
               MHA, dh 32/64, f32, pos = 0 and mid-cache), with times: kernel, plain, one library call, and
               the bound (bytes over 3.35 TB/s vs f32 operations over
@@ -154,7 +159,25 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               result the same; each rank's launches by shard-local shape
               checked; rounds/s of a warm run, labelled "2 ranks, gloo, one
               card" (not a scaling figure).
-  22. zoo     `launch.serve.serve` in bf16 with random weights, batch 8,
+  22. lm_mesh the LM steps over the worker axes of a mesh
+              (`launch.mesh.SweepMesh` over ranks on this card, gloo:
+              `--lm-mesh-child`, `lm_mesh_child`): (a) 3 BEV train steps of
+              qwen3-4b at full width (bf16, the serve weights) on a (2, 1)
+              mesh, batch 8 x 64, U = 2: losses finite, the weights moved,
+              the ranks' params bitwise equal (exact checksums of every
+              leaf's bits), ms a warm step, the gradients' all_reduce ms of
+              it, peak memory a rank; (b) its 2-layer f32 cut on (4, 1),
+              U = 4 with one attacker, BEV and CI, 3 steps each, against
+              the same steps over all 4 workers in one process
+              (`WorkerAxes.every`) at rtol 1e-4, the ranks bitwise equal;
+              (c) `serve` on (2, 1), batch 8, 32 + 32 tokens, each rank's
+              decode kernel counted at [4, 64, H32, KV8]: the serve's
+              sequence teacher-forced through the mesh's decode step at
+              phase 15's bf16 bounds of phase 14's one-rank logits, greedy
+              tokens equal to the one-rank serve's up to each row's first
+              step whose top-2 margin is not clear, tok/s labelled "2
+              ranks, gloo, one card" (not a scaling figure).
+  23. zoo     `launch.serve.serve` in bf16 with random weights, batch 8,
               32 + 32 tokens (as phase 14), for granite-8b, starcoder2-3b
               (its native 4096 window: ring caches), moonshot-v1-16b-a3b
               (48 MoE layers, 64 experts top-6 + 2 shared) at full width
@@ -168,18 +191,18 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               plain run replays the kernel run's expert choices, whose
               flips it counts, and is reported unreplayed beside); then
               moonshot's FLOA train step and prefill at 4 layers.
-  23. long    long_500k for qwen3-4b, granite-8b (8192-slot rings) and
+  24. long    long_500k for qwen3-4b, granite-8b (8192-slot rings) and
               starcoder2-3b (4096): batch 1, the ring filled as phase 16
               fills its cache, 8 steps at pos 524 280-524 287 (counted),
               eager and as a graph against the bytes bound; the plain
               route from the same ring at phase 15's bf16 bounds; then 2
               layers in f32 through both routes across a wrap of the ring,
               rtol 1e-4.
-  24. the `kernels` line (with launches and times by shape where a
+  25. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
-      phases' shapes, and the mesh phase's launches by shard-local
+      phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 25. the last line, {"ok": true,
+      a rank's too, must have one); 26. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -235,6 +258,11 @@ ROUNDS_LM_STRICT = 5
 # tests/test_lm_lane.py:135); the strict routes and one rank: bitwise
 MESH_TOL = {"defenses": (5e-6, 1e-6), "defenses_switch": (5e-6, 1e-6),
             "grid_u1000": (5e-6, 1e-6), "lm": (5e-5, 1e-5)}
+# The LM-mesh phase (22): the train step and the serve over the worker axes,
+# ranks on cuda:0 over gloo: 3 steps a run; (b)'s 2-layer f32 cut of
+# qwen3-4b at U = 4 (one attacker) under BEV and CI
+LM_MESH_STEPS, LM_MESH_B_LAYERS = 3, 2
+LM_MESH_POLICIES = ("bev", "ci")
 T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
@@ -752,7 +780,7 @@ def decode_cases(torch, ops):
     for b, s, h, kv, dh, dt, pos, main in [
             (128, LONG_S, 32, 8, 128, bf16, LONG_S - 1, False),  # decode_32k
             (LONG_BATCH, LONG_S, 32, 8, 128, bf16, LONG_S - 1, True),
-            (SERVE_BATCH, 64, 32, 8, 128, bf16, 63, False),   # serve, last
+            (SERVE_BATCH, 64, 32, 8, 128, bf16, 63, True),    # serve, last
             (SERVE_BATCH, 64, 32, 8, 128, bf16, 40, False),   # mid-cache
             (2, 777, 8, 8, 128, bf16, 774, False),            # MHA, ragged
             (1, 512, 4, 1, 64, bf16, 509, False),             # MQA
@@ -760,14 +788,17 @@ def decode_cases(torch, ops):
             (2, 1024, 8, 2, 64, f32, 1021, False),
             (LONG_BATCH, LONG_S, 32, 8, 128, f32, 16000, False),
             (LONG_BATCH, 4096, 32, 8, 128, bf16, 0, False),   # pos = 0
-            # the zoo's serve shapes (phase 22): starcoder2-3b (G = 12, two
+            # the zoo's serve shapes (phase 23): starcoder2-3b (G = 12, two
             # blocks a KV head), llama4 (G = 5), moonshot (G = 1, MHA)
             (SERVE_BATCH, 64, 24, 2, 128, bf16, 63, True),
             (SERVE_BATCH, 64, 40, 8, 128, bf16, 63, True),
             (SERVE_BATCH, 64, 16, 16, 128, bf16, 63, True),
-            # long_500k's rings (phase 23) at its last position: qwen3-4b
+            # a rank's share of the serve batch on the LM-mesh phase's
+            # (2, 1) mesh (phase 22)
+            (SERVE_BATCH // 2, 64, 32, 8, 128, bf16, 63, True),
+            # long_500k's rings (phase 24) at its last position: qwen3-4b
             # and granite-8b (8192 slots), starcoder2-3b (4096), and both
-            # in f32 (phase 23's f32 runs across a wrap)
+            # in f32 (phase 24's f32 runs across a wrap)
             (1, 8192, 32, 8, 128, bf16, LONG500_POS, True),
             (1, 4096, 24, 2, 128, bf16, LONG500_POS, True),
             (1, 8192, 32, 8, 128, f32, LONG500_POS, False),
@@ -1173,8 +1204,8 @@ def mesh_expect(name: str, d: int, lm_sizes) -> dict:
 
 
 def mesh_child(args) -> int:
-    """`chip_smoke.py --mesh-child RANK STORE OUT`: one of the mesh phase's
-    MESH_RANKS ranks on cuda:0, in a gloo group (init_method
+    """`chip_smoke.py --mesh-child RANK WORLD STORE OUT`: one of the mesh
+    phase's WORLD = MESH_RANKS ranks on cuda:0, in a gloo group (init_method
     file://STORE).  Runs every MESH_CASES configuration sharded: the launch
     counts zeroed just before and read just after (checked against
     `mesh_expect`), then an uncounted warm run for the rate; saves each
@@ -1190,7 +1221,9 @@ def mesh_child(args) -> int:
     from repro_torch.fl.sweep import make_row_unflatten
     from repro_torch.kernels import ops
     from repro_torch.launch.distributed import initialize_distributed
-    rank, store, out = int(args[0]), args[1], args[2]
+    rank, store, out = int(args[0]), args[2], args[3]
+    if int(args[1]) != MESH_RANKS:
+        raise AssertionError(f"mesh child: {args[1]} ranks, not {MESH_RANKS}")
     if not initialize_distributed(f"file://{store}", world_size=MESH_RANKS,
                                   rank=rank, backend="gloo", device="cuda:0",
                                   timeout_s=600):
@@ -1321,34 +1354,10 @@ def mesh_phase(torch, np, ops, figures, tally, shard_tally) -> None:
         torch.cuda.empty_cache()
 
         # (2) MESH_RANKS ranks on cuda:0, gloo
-        t0 = time.perf_counter()
-        logs = [open(os.path.join(work, f"rank{r}.log"), "w")
-                for r in range(MESH_RANKS)]
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-child",
-             str(r), os.path.join(work, "gloo"), work], cwd=ROOT,
-            stdout=logs[r], stderr=subprocess.STDOUT)
-            for r in range(MESH_RANKS)]
-        try:
-            for p in procs:
-                p.wait(timeout=900)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        wall = time.perf_counter() - t0
+        lines, wall = spawn_ranks("--mesh-child", MESH_RANKS, work, 900)
         child_lines = {}
-        for r, p in enumerate(procs):
-            text = open(os.path.join(work, f"rank{r}.log")).read()
-            lines = [json.loads(x) for x in text.splitlines()
-                     if x.startswith('{"phase": "mesh_child"')]
-            if p.returncode != 0:
-                raise AssertionError(f"mesh: rank {r} exited "
-                                     f"{p.returncode}: {text[-3000:]}")
-            for line in lines:
+        for r, rank_lines in lines.items():
+            for line in rank_lines:
                 print(json.dumps(line), flush=True)
                 if "case" in line:
                     child_lines[(line["case"], r)] = line
@@ -1379,6 +1388,362 @@ def mesh_phase(torch, np, ops, figures, tally, shard_tally) -> None:
             torch.cuda.empty_cache()
         emit("mesh", ranks=MESH_RANKS, backend="gloo", device="cuda:0",
              children_wall_s=wall, cases=list(MESH_CASES))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def bit_checksums(torch, leaves) -> "torch.Tensor":
+    """[leaves, 2] exact int64 checksums of each leaf's bits: the sum of its
+    16- or 32-bit words, and the sum of each word times (its index mod
+    65521) + 1, wrapping mod 2^64 (integer sums do not depend on the order
+    of the adds).  Two ranks whose leaves are equal bit for bit give equal
+    rows; the rows are compared over the process group."""
+    words = {2: torch.int16, 4: torch.int32}
+    out = []
+    for x in leaves:
+        flat = x.detach().reshape(-1).view(words[x.element_size()])
+        plain = weighted = torch.zeros((), dtype=torch.int64,
+                                       device=x.device)
+        for i in range(0, flat.numel(), 1 << 26):
+            w = flat[i:i + (1 << 26)].to(torch.int64)
+            pos = torch.arange(i, i + w.numel(), device=x.device) % 65521 + 1
+            plain = plain + w.sum()
+            weighted = weighted + (w * pos).sum()
+        out.append(torch.stack([plain, weighted]))
+    return torch.stack(out).cpu()
+
+
+def ranks_agree(sums) -> bool:
+    """Whether every rank of the process group holds the same checksums
+    (`bit_checksums`, gathered on the CPU over gloo)."""
+    import torch.distributed as dist
+    from repro_torch.launch.distributed import all_gather
+    every = all_gather(sums[None], dist.group.WORLD)
+    return bool((every == every[:1]).all())
+
+
+def lm_mesh_child(args) -> int:
+    """`chip_smoke.py --lm-mesh-child RANK WORLD STORE OUT`: one of the
+    LM-mesh phase's ranks on cuda:0 in a WORLD-rank gloo group (init_method
+    file://STORE).  WORLD = 2: (a) LM_MESH_STEPS BEV train steps of
+    qwen3-4b at full width on the (2, 1) mesh from the serve weights, then
+    (c) the serve on it, counted, and the serve's sequence (OUT/seq.pt)
+    teacher-forced through the mesh's decode step; rank 0 saves the serve's
+    tokens and logits and the teacher-forced logits to OUT/serve.pt.
+    WORLD = 4: (b) LM_MESH_STEPS train steps of the 2-layer f32 cut on
+    (4, 1) for each policy of LM_MESH_POLICIES, then rank 0 alone the same
+    steps over all U workers in one process (`WorkerAxes.every(4)`),
+    compared at RTOL_WHOLE_RUN.  Every rank's params are compared by
+    `bit_checksums`.  One JSON line a part; no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.power_control import Policy
+    from repro_torch.data import sample_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.distributed import initialize_distributed
+    from repro_torch.launch.mesh import WorkerAxes, make_debug_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as LM
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+    rank, world, store, out = int(args[0]), int(args[1]), args[2], args[3]
+    if not initialize_distributed(f"file://{store}", world_size=world,
+                                  rank=rank, backend="gloo", device="cuda:0",
+                                  timeout_s=600):
+        raise AssertionError("lm mesh child: no process group")
+    lm = get_config(LM_ARCH)
+    mesh = make_debug_mesh((world, 1), ("data", "model"))
+    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    tokens = [torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
+                                            lm.vocab_size, seed=t),
+                              device="cuda") for t in range(LM_MESH_STEPS)]
+    reduce_ms = []
+    sum_over_workers = ST._sum_over_workers
+
+    def timed_sum(grads, group):   # the gradients' all_reduce, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sum_over_workers(grads, group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    ST._sum_over_workers = timed_sum
+
+    def train(cfg, where, policy):
+        """LM_MESH_STEPS steps on `where` (a mesh or a WorkerAxes) from
+        cfg's weights (`lm_params`), made here so that no caller holds the
+        first step's input through the run (a step's peak is its input,
+        its gradients and its output): (checksums of the weights drawn,
+        params, log, meta)."""
+        step, meta = ST.make_train_step(cfg, where, shape, alpha=TRAIN_ALPHA,
+                                        policy=Policy(policy))
+        params = lm_params(torch, cfg)
+        before = bit_checksums(torch, tree_leaves(params))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, log = ST.init_floa_state("cuda"), []
+        for t in range(LM_MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_reduce = len(reduce_ms)
+            params, state, m = step(params, state, {"tokens": tokens[t]}, t)
+            torch.cuda.synchronize()
+            log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "all_reduce_ms": sum(reduce_ms[n_reduce:]),
+                        "loss": float(m["loss"]),
+                        "grad_scale": float(m["grad_scale"]),
+                        "gbar": float(state["gbar"]),
+                        "eps2": float(state["eps2"])})
+        return before, params, log, meta
+
+    if world == 2:
+        # (a) the full-width train step
+        ops.reset_launches()
+        before, params, log, meta = train(lm, mesh, "bev")
+        peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        counts = ops.launch_counts()
+        torch.cuda.empty_cache()
+        after = bit_checksums(torch, tree_leaves(params))
+        equal = ranks_agree(after)
+        moved = int((after != before).any(dim=1).sum())
+        del params
+        torch.cuda.empty_cache()
+        print(json.dumps({
+            "phase": "lm_mesh_child", "rank": rank, "part": "train",
+            "arch": lm.name, "dtype": str(lm.dtype)[6:],
+            "layers": lm.n_layers,
+            "mesh": dict(mesh.shape), "workers": meta["num_workers"],
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": log,
+            "ms_per_step_warm": sum(x["ms"] for x in log[1:])
+            / (LM_MESH_STEPS - 1),
+            "all_reduce_ms_warm": sum(x["all_reduce_ms"] for x in log[1:])
+            / (LM_MESH_STEPS - 1),
+            "grad_bytes": 2 * meta["dim"], "peak_memory_gb": peak / 1e9,
+            "peak_reserved_gb": peak_reserved / 1e9,
+            "leaves_moved": moved, "leaves": len(after),
+            "ranks_bitwise_equal": equal, "launches": counts,
+            "rate_label": f"{world} ranks, gloo, one card"}), flush=True)
+        if not (equal and moved and all(math.isfinite(x["loss"])
+                                        for x in log)
+                and not any(counts.values())):
+            raise AssertionError(f"lm mesh train: ranks equal {equal}, "
+                                 f"{moved} leaves moved, {log}, {counts}")
+        # (c) the serve, counted, and its sequence teacher-forced
+        ops.reset_launches()
+        res = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda",
+                    mesh=mesh)
+        torch.cuda.synchronize()
+        shapes = {k: [[list(sh), n] for sh, n in v.items()]
+                  for k, v in ops.launch_shapes().items() if v}
+        equal = ranks_agree(bit_checksums(
+            torch, [res.tokens.to(torch.int32), res.logits]))
+        seq = torch.load(os.path.join(out, "seq.pt")).to("cuda")
+        step, meta = ST.make_decode_step(lm, mesh=mesh)
+        rows = ST.batch_rows(mesh, SERVE_BATCH)
+        params = lm_params(torch, lm)
+        n = seq.shape[1]
+        caches = LM.init_caches(lm, rows.stop - rows.start, n,
+                                device="cuda")
+        positions = torch.arange(n, dtype=torch.int32, device="cuda")
+        tf = torch.stack([step(params, caches, seq[:, i:i + 1],
+                               positions[i])[0][:, 0] for i in range(n)])
+        if rank == 0:
+            torch.save({"tokens": res.tokens.cpu(), "logits": res.logits.cpu(),
+                        "teacher_forced": tf.cpu()},
+                       os.path.join(out, "serve.pt"))
+        print(json.dumps({
+            "phase": "lm_mesh_child", "rank": rank, "part": "serve",
+            "batch": SERVE_BATCH, "rank_rows": rows.stop - rows.start,
+            "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "decode_tok_per_s": res.tok_per_s,
+            "ms_per_step": res.decode_s * 1e3 / SERVE_GEN,
+            "ranks_bitwise_equal": equal, "launches_by_shape": shapes,
+            "rate_label": f"{world} ranks, gloo, one card"}), flush=True)
+        del params, caches, res, tf
+        if not equal:
+            raise AssertionError("lm mesh serve: the ranks' tokens or "
+                                 "logits differ")
+    else:
+        # (b) the 2-layer f32 cut, one attacker, against the one-process twin
+        cfg = dataclasses.replace(lm, n_layers=LM_MESH_B_LAYERS,
+                                  dtype=torch.float32)
+        runs = {}
+        for policy in LM_MESH_POLICIES:
+            _, params, log, meta = train(cfg, mesh, policy)
+            equal = ranks_agree(bit_checksums(torch, tree_leaves(params)))
+            runs[policy] = (tree_map(lambda x: x.cpu(), params)
+                            if rank == 0 else None, log, equal)
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        # rank 0 alone: the twin, every worker in this process
+        for policy, (got, log, equal) in (runs.items() if rank == 0
+                                           else ()):
+            _, want, wlog, wmeta = train(cfg, WorkerAxes.every(world), policy)
+            worst, ok = 0.0, equal
+            for path, a, b in zip(tree_paths(want), tree_leaves(got),
+                                  tree_leaves(want)):
+                a = a.to("cuda")
+                ok = ok and bool(torch.allclose(a, b, rtol=RTOL_WHOLE_RUN,
+                                                atol=1e-6))
+                worst = max(worst, float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30))
+            # the metrics as the params: |a - b| <= atol + rtol |b| (gbar,
+            # the mean gradient over ~1e9 cancelling terms, is ~1e-9)
+            keys = ("loss", "grad_scale", "gbar", "eps2")
+            metric_abs = {k: max(abs(x[k] - y[k]) for x, y in zip(log, wlog))
+                          for k in keys}
+            metric_rel = {k: max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                                 for x, y in zip(log, wlog)) for k in keys}
+            ok = ok and all(abs(x[k] - y[k]) <= 1e-6 + RTOL_WHOLE_RUN
+                            * abs(y[k]) for x, y in zip(log, wlog)
+                            for k in keys)
+            print(json.dumps({
+                "phase": "lm_mesh_child", "rank": rank, "part": "byzantine",
+                "policy": policy, "arch": cfg.name, "dtype": "float32",
+                "layers": cfg.n_layers, "mesh": dict(mesh.shape),
+                "workers": wmeta["num_workers"],
+                "attackers": ST.default_floa(
+                    WorkerAxes.every(world),
+                    wmeta["dim"])["attack"].byzantine_mask,
+                "steps": log, "twin_steps": wlog,
+                "rtol": RTOL_WHOLE_RUN, "atol": 1e-6,
+                "params_max_rel_diff": worst, "metrics_max_abs_diff":
+                metric_abs, "metrics_max_rel_diff": metric_rel,
+                "ranks_bitwise_equal": equal, "ok": ok}),
+                flush=True)
+            if not ok:
+                raise AssertionError(f"lm mesh byzantine {policy}: the ranks "
+                                     f"and the one-process twin disagree")
+            del want
+            torch.cuda.empty_cache()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
+                                   for m in sys.modules):
+        raise AssertionError("lm mesh child: imported JAX or the JAX package")
+    return 0
+
+
+def spawn_ranks(flag: str, world: int, work: str, timeout: int):
+    """Run `chip_smoke.py FLAG RANK WORLD STORE WORK` as `world` ranks on
+    this card (a FileStore under `work`, logs in work/<flag>.rank<r>.log);
+    every rank must exit 0.  The ranks share the card, so their allocators
+    map expandable segments (unless PYTORCH_CUDA_ALLOC_CONF says
+    otherwise): a rank's cache then holds little beyond what it has
+    allocated, where fixed segments fragment to half as much again and more
+    and can starve the other ranks.  Returns the JSON lines each rank
+    printed, by rank, and the seconds the ranks took."""
+    tag = flag.strip("-")
+    env = dict(os.environ)
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(work, f"{tag}.rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(world),
+         os.path.join(work, f"{tag}.store"), work], cwd=ROOT, env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    lines, failed = {}, []
+    for r, p in enumerate(procs):
+        text = open(os.path.join(work, f"{tag}.rank{r}.log")).read()
+        if p.returncode != 0:
+            failed.append(f"rank {r} exited {p.returncode}: {text[-3000:]}")
+        lines[r] = [json.loads(x) for x in text.splitlines()
+                    if x.startswith('{"phase": ')]
+    if failed:
+        raise AssertionError(f"{tag}: " + "\n".join(failed))
+    return lines, time.perf_counter() - t0
+
+
+def lm_mesh_phase(torch, lm, rs, shard_tally) -> None:
+    """Phase 22: the LM steps over the worker axes, ranks on cuda:0 over
+    gloo (`--lm-mesh-child`): (a) and (c) on 2 ranks, (b) on 4 (see
+    `lm_mesh_child`).  Here: (c)'s logits against the one-process serve
+    `rs` (phase 14's; served here when None) at phase 15's bf16 bounds,
+    the teacher-forced ones on rs's sequence, and its greedy tokens equal
+    to rs's up to each row's first step whose top-2 margin is not clear.
+    The ranks' decode launches by shape go to `shard_tally`."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.serve import serve
+    if rs is None:
+        rs = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                 "reserved": torch.cuda.memory_reserved() / 1e9}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="lm_mesh_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        seq = torch.cat([rs.prompts, rs.tokens], dim=1)
+        torch.save(seq.cpu(), os.path.join(work, "seq.pt"))
+        two, wall2 = spawn_ranks("--lm-mesh-child", 2, work, 900)
+        for r, lines in two.items():
+            for line in lines:
+                print(json.dumps(line), flush=True)
+                if line["part"] == "serve":
+                    shard_tally("lm_mesh_serve", {
+                        k: {shape_key(sh): n for sh, n in v}
+                        for k, v in line["launches_by_shape"].items()})
+        got = torch.load(os.path.join(work, "serve.pt"))
+        parity, ok = logit_parity(torch, got["teacher_forced"].to("cuda"),
+                                  rs.logits, lm.vocab_size)
+        ref = rs.logits[SERVE_PROMPT - 1:-1, :, :lm.vocab_size].float()
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1] > 2 * BF16_LOGIT_MAX).cpu()
+        same = got["tokens"] == rs.tokens.cpu()            # [B, gen]
+        # a step is held where the row's earlier tokens agree (the same
+        # inputs so far) and the one-rank top-2 margin is clear
+        prefix = torch.cat([torch.ones(SERVE_BATCH, 1, dtype=torch.bool),
+                            same[:, :-1].cumprod(dim=1).bool()], dim=1)
+        held = prefix & clear.T
+        tokens_ok = bool(same[held].all())
+        serve_diff = (got["logits"].to("cuda").float()
+                      - rs.logits.float()).abs()
+        emit("lm_mesh_serve", ranks=2, backend="gloo", device="cuda:0",
+             tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
+             teacher_forced_vs_one_rank=parity,
+             serve_max_abs_diff=float(serve_diff.max()),
+             serve_mean_abs_diff=float(serve_diff.mean()),
+             tokens_equal_share=float(same.float().mean()),
+             tokens_held=int(held.sum()), tokens_ok=tokens_ok,
+             one_rank_tok_per_s=rs.tok_per_s, children_wall_s=wall2,
+             ok=ok and tokens_ok)
+        if not (ok and tokens_ok):
+            raise AssertionError("lm mesh serve: the 2-rank serve and the "
+                                 "one-rank serve disagree")
+        del got, serve_diff
+        four, wall4 = spawn_ranks("--lm-mesh-child", 4, work, 900)
+        for line in four[0]:
+            print(json.dumps(line), flush=True)
+        parts = [x["part"] for x in four[0]]
+        if parts != ["byzantine"] * len(LM_MESH_POLICIES):
+            raise AssertionError(f"lm mesh: rank 0 reported {parts}")
+        emit("lm_mesh", ranks=[2, 4], backend="gloo", device="cuda:0",
+             children_wall_s={"2": wall2, "4": wall4},
+             parent_memory_gb=parent_gb)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2173,11 +2538,40 @@ def long500_phase(torch, ops, tally) -> None:
         torch.cuda.empty_cache()
 
 
+def decode_shapes(lm) -> dict:
+    """decode_attention's main-path launches by (B, S, H, KV, dh): the
+    serve (phase 14) and long-cache (16) runs of lm, the zoo's serves
+    (23) and long_500k's bf16 runs and f32 wrap runs (24)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.steps import decode_window
+    n_steps = SERVE_PROMPT + SERVE_GEN
+    out = {}
+
+    def add(cfg, b, s, n):
+        key = (b, s, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        out[key] = out.get(key, 0) + n
+
+    add(lm, SERVE_BATCH, n_steps, lm.n_layers * n_steps)
+    add(lm, LONG_BATCH, LONG_S, lm.n_layers * LONG_STEPS)
+    for arch, depth in ZOO:
+        cfg = get_config(arch)
+        add(cfg, SERVE_BATCH, n_steps, (depth or cfg.n_layers) * n_steps)
+    long500 = INPUT_SHAPES["long_500k"]
+    for arch in LONG500_ARCHS:
+        cfg = get_config(arch)
+        slots = min(long500["seq_len"], decode_window(cfg, "long_500k"))
+        add(cfg, long500["global_batch"], slots,
+            (cfg.n_layers + 2) * LONG_STEPS)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(sys.argv[2:])
     if sys.argv[1:2] == ["--mesh-child"]:
         return mesh_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--lm-mesh-child"]:
+        return lm_mesh_child(sys.argv[2:])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2232,10 +2626,19 @@ def main() -> int:
     # graph-replayed time of one near-empty kernel
     floor_ms = time_ms(torch, lambda: torch.empty(1, device="cuda").zero_())
     emit("launch_floor", floor_ms=floor_ms)
-    if sys.argv[1:] == ["--zoo"]:   # 1-2, 3's decode rows, 22-23 alone
+    if sys.argv[1:] == ["--zoo"]:   # 1-2, 3's decode rows, 23-24 alone
         check_kernels(torch, decode_cases(torch, ops), floor_ms)
         zoo_phase(torch, ops, lambda counts: None)
         long500_phase(torch, ops, lambda counts: None)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--lm-mesh"]:   # 1-2, 3's decode rows, 22 alone
+        from repro_torch.configs import get_config
+        check_kernels(torch, decode_cases(torch, ops), floor_ms)
+        lm_mesh_phase(torch, get_config(LM_ARCH), None,
+                      lambda case, by_shape: None)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2532,8 +2935,7 @@ def main() -> int:
                       device="cuda"),
         {**{k: 0 for k in ops.KERNELS},
          "decode_attention": lm.n_layers * n_steps})
-    for k, v in counts.items():
-        main_launches[k] += v
+    tally(counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not (torch.isfinite(rs.logits).all()
             and 0 <= int(rs.tokens.min()) <= int(rs.tokens.max())
@@ -2616,8 +3018,7 @@ def main() -> int:
         torch, ops, "main_long_cache", long_run,
         {**{k: 0 for k in ops.KERNELS},
          "decode_attention": lm.n_layers * LONG_STEPS})
-    for k, v in counts.items():
-        main_launches[k] += v
+    tally(counts)
     if not torch.isfinite(logits).all():
         raise AssertionError("long-cache decode: non-finite logits")
     step_ms = [events[i].elapsed_time(events[i + 1])
@@ -2669,10 +3070,16 @@ def main() -> int:
     # ranks on this card over gloo against the unsharded runs
     mesh_phase(torch, np, ops, figures, tally, shard_tally)
 
-    # 22. the zoo's dense and MoE archs served at full width
+    # 22. the LM steps over the worker axes: the train step on 2 and 4
+    # ranks, the serve on 2, against phase 14's one-rank serve
+    lm_mesh_phase(torch, lm, rs, shard_tally)
+    del rs
+    torch.cuda.empty_cache()
+
+    # 23. the zoo's dense and MoE archs served at full width
     zoo_phase(torch, ops, tally)
 
-    # 23. long_500k: rings of decode_window slots at pos 524 287
+    # 24. long_500k: rings of decode_window slots at pos 524 287
     long500_phase(torch, ops, tally)
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
@@ -2710,7 +3117,8 @@ def main() -> int:
         "sort_columns": {(1, 10, d): 6 * r, (10, d): 2 * r,
                          (8, 10, d): 4 * r, (6, 10, d): 4 * r,
                          (1, LM_WORKERS, LM_D): r},
-        "sort_columns_bitonic": {(1, 1000, d): 2 * ROUNDS_LARGE_U + 4 * r}}
+        "sort_columns_bitonic": {(1, 1000, d): 2 * ROUNDS_LARGE_U + 4 * r},
+        "decode_attention": decode_shapes(lm)}
     if main_shapes != want_shapes:
         raise AssertionError(f"main-path launches by shape: {main_shapes}, "
                              f"expected {want_shapes}")
@@ -2723,6 +3131,11 @@ def main() -> int:
                                      else ()).items():
             for shape, n in shapes.items():
                 want_shard[k][(case, shape)] = MESH_RANKS * n
+    # the LM-mesh phase's serve: each of its 2 ranks decodes half the batch
+    want_shard["decode_attention"][(
+        "lm_mesh_serve", (SERVE_BATCH // 2, SERVE_PROMPT + SERVE_GEN,
+                          lm.n_heads, lm.n_kv_heads, lm.hd))] = (
+        2 * lm.n_layers * (SERVE_PROMPT + SERVE_GEN))
     if shard_shapes != want_shard or flat_param_dim(get_lm_sweep()) != LM_D:
         raise AssertionError(f"sharded launches by shape: {shard_shapes}, "
                              f"expected {want_shard}")
@@ -2731,7 +3144,9 @@ def main() -> int:
         """{shape, ms, bound_ms, bound_share, call_ms} of the phase-3 row
         that held `name` against its plain version at `shape`; a launch
         shape without one fails the run."""
-        if len(shape) == 3:
+        if name == "decode_attention":
+            tag = "B={} S={} H={} KV={} dh={} ".format(*shape)
+        elif len(shape) == 3:
             tag = f"S={shape[0]} U={shape[1]} D={shape[2]} "
         elif name == "grad_stats_segments":
             tag = f"R={shape[0]} sizes={sizes_label(shape[1])} "
@@ -2762,7 +3177,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 24. the kernel list
+    # 25. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

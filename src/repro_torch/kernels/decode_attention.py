@@ -29,7 +29,7 @@ device, so a 4096-slot ring at pos 524 287 is planned and cut as a
 CPU tensors take the plain version (`kernels/ref.py::decode_attention_ref`),
 CUDA tensors launch the kernel or raise; `plain=True` forces the plain
 version for kernel-vs-plain tests.  Launches are counted per wrapper call in
-`decode_attention.launches`.  At bf16 the two routes differ by rounding:
+`decode_attention.launches`, and by (B, S, H, KV, dh) in `.shapes`.  At bf16 the two routes differ by rounding:
 the plain version rounds the scores and the probabilities to bf16, as the
 JAX oracle does; the kernel keeps the scores in f32 and rounds the
 probabilities to tf32 (10-bit mantissa) for the P.V product.  The input
@@ -38,6 +38,7 @@ wrapper runs once per layer per decode step.
 """
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -174,7 +175,9 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos, *,
         DTYPE_CODES[q.dtype], torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.shapes[(b, s_len, h, kvh, dh)] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.shapes = collections.Counter()

@@ -19,7 +19,11 @@ several ranks sharing one card name the gloo backend themselves (gloo's
 all_reduce, all_gather and broadcast take CUDA tensors).
 
 `fetch` is the counterpart of the reference's `process_allgather` fetch
-edge.  The reference's `setup_compilation_cache` has no counterpart: the
+edge.  The LM steps over the worker axes take two more collectives:
+`all_reduce_sum_local_grad`, a psum whose backward is the identity (a
+rank's local term feeds the global sum linearly, and the over-the-air
+all_reduce of the gradients already sums the ranks' contributions), and
+`all_reduce_max`, the reference's pmax.  The reference's `setup_compilation_cache` has no counterpart: the
 port compiles nothing at run time except its CUDA kernels, which
 `kernels/_build.py` builds once into `build/kernels/` and reuses.
 """
@@ -145,6 +149,40 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The reference's pmax: the elementwise max of every rank's `x` over
+    `group` (a new tensor); `x` itself when group is None."""
+    if group is None:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+class _SumLocalGrad(torch.autograd.Function):
+    """all_reduce_sum forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def all_reduce_sum_local_grad(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`all_reduce_sum` whose gradient is the identity: each rank's
+    gradient through it is the part its own `x` contributes, so a later
+    sum of the ranks' gradients (the train step's over-the-air all_reduce)
+    gives the global gradient once.  `torch.distributed.nn`'s all_reduce
+    sums the gradient over the ranks in its backward as well, which would
+    count it R times.  `x` itself when group is None."""
+    if group is None:
+        return x
+    return _SumLocalGrad.apply(x, group)
 
 
 def fetch(x, dim: Optional[int] = None, group=None) -> np.ndarray:

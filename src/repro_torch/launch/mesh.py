@@ -20,6 +20,14 @@ process group and has no groups.  The DeviceMesh's groups take the process
 group's backend and timeout, named explicitly: nothing switches to another
 backend (several ranks sharing one card run gloo over CUDA tensors).
 
+The LM steps (`launch/steps.py`) take a mesh of the reference's
+("data", "model") or ("pod", "data", "model") axes: U, the FL worker
+count, is the size of the worker axes ("pod", "data"), and each rank is
+one worker, at its row-major position over them (`worker_axes`).  Their
+"model" axis must be 1 (tensor parallelism is ROADMAP.md Queue 1 item
+8c), and so is `--mesh single|multi`, the reference's TPU pod layout
+(`mesh_from_arg`).
+
 The reference's `NamedSharding` placement helpers (`lane_sharding`,
 `sweep_state_sharding`, `put_with_sharding`, `stage_batch_block`) have no
 torch meaning: the sweep engine slices each rank's own lanes, workers and
@@ -29,6 +37,7 @@ batch blocks to its own device (`launch.staging`).
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -147,3 +156,98 @@ def num_workers(mesh) -> int:
 
 def model_parallel(mesh) -> int:
     return mesh.shape.get("model", 1)
+
+
+# The message of every refusal of the LM steps' "model" axis.
+Q_MODEL_AXIS = ("the LM steps' \"model\" axis (tensor parallelism through "
+                "every layer, the FSDP and cache specs) is not ported "
+                "(ROADMAP.md Queue 1 item 8c)")
+STEP_AXES = ("pod", "data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerAxes:
+    """This process's share of an LM step's U FL workers: it holds workers
+    [first, first + count) and rows [first * B / U, (first + count) * B / U)
+    of a global batch of B (the reference's `batch_specs` layout); `group`
+    is the process group over the worker axes, None when this process
+    holds every worker."""
+    num_workers: int
+    first: int = 0
+    count: int = 1
+    group: object = None
+
+    @classmethod
+    def every(cls, num_workers: int) -> "WorkerAxes":
+        """All U workers in this process: the one-process twin of a
+        U-worker mesh (the weighted-loss identity over U row blocks)."""
+        return cls(num_workers, 0, num_workers, None)
+
+    def rows(self, batch: int) -> slice:
+        """This process's rows of a global batch of `batch` (which U
+        divides)."""
+        per = batch // self.num_workers
+        return slice(self.first * per, (self.first + self.count) * per)
+
+
+def worker_axes(mesh) -> WorkerAxes:
+    """The worker layout of an LM step's mesh.  None, a one-device mesh
+    and a one-device (data, model) shape are U = 1.  A `SweepMesh` over the
+    ranks has U = the product of its "pod" and "data" sizes; a rank is
+    worker pod * |data| + data (row-major), which is its rank in the
+    process group (`init_device_mesh` lays the ranks out row-major and the
+    mesh spans every rank), so the worker group is the process group.  A
+    "model" axis larger than 1 raises NotImplementedError; an axis other
+    than "pod", "data" and "model", or a tuple shape of several devices
+    (it names no ranks), ValueError.  A `WorkerAxes` is returned as
+    is."""
+    if isinstance(mesh, WorkerAxes):
+        return mesh
+    if mesh is None:
+        return WorkerAxes(1)
+    if isinstance(mesh, (tuple, list)):   # a (data, model) shape
+        if math.prod(mesh) == 1:
+            return WorkerAxes(1)
+        if len(mesh) > 1 and mesh[-1] > 1:
+            raise NotImplementedError(f"mesh {tuple(mesh)}: {Q_MODEL_AXIS}")
+        raise ValueError(f"mesh {tuple(mesh)}: a shape names no ranks; pass "
+                         f"make_debug_mesh(shape, axes) over the process "
+                         f"group")
+    other = [a for a in mesh.axis_names if a not in STEP_AXES]
+    if other:
+        raise ValueError(f"mesh axes {mesh.axis_names}: the LM steps take "
+                         f"{STEP_AXES}")
+    if model_parallel(mesh) > 1:
+        raise NotImplementedError(f"mesh {dict(mesh.shape)}: {Q_MODEL_AXIS}")
+    u = num_workers(mesh)
+    if u == 1:
+        return WorkerAxes(1)
+    w = 0
+    for a in batch_axes(mesh):
+        w = w * mesh.shape[a] + mesh.axis_index(a)
+    if w != dist.get_rank():
+        raise AssertionError(f"worker {w} on rank {dist.get_rank()}: the "
+                             f"mesh's ranks are not laid out row-major")
+    return WorkerAxes(u, w, 1, dist.group.WORLD)
+
+
+def mesh_from_arg(spec: str) -> Optional[SweepMesh]:
+    """The drivers' --mesh "RxM" over the process group: the (R, M)
+    ("data", "model") debug mesh of every rank, or None for "1x1" in one
+    process (no mesh).  M > 1 and the reference's production layouts
+    "single" / "multi" (16 x 16 and 2 x 16 x 16 TPU chips) raise
+    NotImplementedError; R x M other than the number of ranks
+    ValueError."""
+    if spec in ("single", "multi"):
+        raise NotImplementedError(
+            f"--mesh {spec}: make_production_mesh is a TPU pod layout with "
+            f"a 16-chip \"model\" axis; {Q_MODEL_AXIS}")
+    r, m = (int(x) for x in spec.lower().split("x"))
+    if m > 1:
+        raise NotImplementedError(f"--mesh {spec}: {Q_MODEL_AXIS}")
+    ranks = world()[1]
+    if r * m != ranks:
+        raise ValueError(f"--mesh {spec}: a mesh spans every rank of the "
+                         f"process group, which has {ranks} (ROADMAP.md "
+                         f"Queue 1 item 8b)")
+    return None if ranks == 1 else make_debug_mesh((r, m), ("data", "model"))

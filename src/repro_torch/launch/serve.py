@@ -1,9 +1,21 @@
 """Serving entry point of the port (`repro/launch/serve.py`): prefill-by-decode
-of a prompt batch, then generation, with a KV cache on one device.
+of a prompt batch, then generation, with a KV cache on one device or with
+the batch split over the ranks of a mesh.
 
   python -m repro_torch.launch.serve --arch qwen3-4b [--smoke] --batch 8 \
       --prompt-len 32 --gen 16 [--temperature T] [--device cuda|cpu] \
-      [--seed N] [--shape decode_32k|long_500k]
+      [--seed N] [--shape decode_32k|long_500k] [--mesh Rx1 [--backend B]]
+
+`--mesh Rx1` serves on R ranks started by torchrun (WORLD_SIZE, RANK,
+MASTER_ADDR / MASTER_PORT; `launch.distributed.initialize_distributed`):
+the ("data", "model") mesh of R x 1, each rank decoding its B / R rows
+against its own caches (all B rows when R does not divide B) and every
+rank taking the next tokens from the gathered logits, so all ranks emit
+the same stream; rank 0 prints.  Several ranks on one card name
+`--backend gloo` and `--device cuda:0` (NCCL refuses two ranks on one
+device); nothing picks another backend or device on its own.  A "model"
+axis larger than 1 and `--mesh single|multi` raise (ROADMAP.md Queue 1
+item 8c).
 
 Any ported arch serves (qwen3-4b, granite-8b, starcoder2-3b,
 moonshot-v1-16b-a3b, llama4-maverick-400b-a17b).  The attention window is
@@ -33,7 +45,9 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data import sample_tokens
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import init_model, make_decode_step
+from repro_torch.launch.distributed import initialize_distributed, world
+from repro_torch.launch.mesh import mesh_from_arg
+from repro_torch.launch.steps import batch_rows, init_model, make_decode_step
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 
@@ -62,26 +76,30 @@ def _sync(device: torch.device) -> None:
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
           device="cuda", temperature: float = 0.0, seed: int = 0,
           params: Optional[Dict] = None, plain: bool = False,
-          shape: str = "decode_32k") -> ServeResult:
+          shape: str = "decode_32k", mesh=None) -> ServeResult:
     """Prefill `batch` prompts of `prompt_len` tokens by decoding them one
     position at a time, then generate `gen` tokens.  `params` (e.g. from
     `transformer.params_from_jax`) replaces the random weights; `plain=True`
     routes the attention through the kernel's plain version; `shape` names
     the decode shape whose attention window the step and the caches take
     (`steps.decode_window`: decode_32k keeps cfg.window, as the reference's
-    serve does).  The caches, the step positions and the tokens stay on the
-    device, so the loop syncs with the host only at the phase
+    serve does).  On a mesh (`launch.mesh.SweepMesh` over the ranks) every
+    rank draws the same prompts, keeps the caches of its
+    `steps.batch_rows` and returns the same result: the logits and tokens
+    of all rows.  The caches, the step positions and the tokens stay on
+    the device, so the loop syncs with the host only at the phase
     boundaries."""
     dev = resolve_device(device)
     if params is None:
         params = init_model(cfg, torch.Generator(dev).manual_seed(seed), dev)
     max_len = prompt_len + gen
-    step, meta = make_decode_step(cfg, shape, plain=plain)
+    step, meta = make_decode_step(cfg, shape, plain=plain, mesh=mesh)
     prompts = torch.as_tensor(
         sample_tokens(batch, prompt_len, vocab=cfg.vocab_size, seed=seed),
         dtype=torch.long, device=dev)
-    caches = T.init_caches(cfg, batch, max_len, window=meta["window"],
-                           device=dev)
+    rows = batch_rows(mesh, batch)
+    caches = T.init_caches(cfg, rows.stop - rows.start, max_len,
+                           window=meta["window"], device=dev)
     positions = torch.arange(max_len, dtype=torch.int32, device=dev)
     sampler = torch.Generator(dev).manual_seed(seed + 7)
     v = cfg.vocab_size
@@ -121,7 +139,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--mesh", default="1x1",
+                    help="Rx1: the batch split over R ranks (torchrun)")
+    ap.add_argument("--backend", default=None,
+                    help="the process group's backend (gloo for several "
+                         "ranks on one card); default NCCL on a card")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -131,17 +153,21 @@ def main() -> None:
     ap.add_argument("--shape", default="decode_32k",
                     choices=["decode_32k", "long_500k"])
     args = ap.parse_args()
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port serves on one device; meshes are "
-            f"not ported (ROADMAP.md Queue 1 item 8)")
+    started = initialize_distributed(
+        backend=args.backend,
+        device=None if args.device == "cuda" else args.device)
+    mesh = mesh_from_arg(args.mesh)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     res = serve(cfg, args.batch, args.prompt_len, args.gen,
                 device=args.device, temperature=args.temperature,
-                seed=args.seed, shape=args.shape)
-    print(f"arch={cfg.name} batch={args.batch} prefill={res.prefill_s:.2f}s "
-          f"decode={res.decode_s:.2f}s ({res.tok_per_s:.1f} tok/s)")
-    print("sample tokens:", res.tokens[0, :12].tolist())
+                seed=args.seed, shape=args.shape, mesh=mesh)
+    if world()[0] == 0:
+        print(f"arch={cfg.name} batch={args.batch} ranks={world()[1]} "
+              f"prefill={res.prefill_s:.2f}s decode={res.decode_s:.2f}s "
+              f"({res.tok_per_s:.1f} tok/s)")
+        print("sample tokens:", res.tokens[0, :12].tolist())
+    if started:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

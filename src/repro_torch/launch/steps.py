@@ -17,11 +17,23 @@ the reference.  The step runs no kernel of the port: its combine is the
 backward itself (autograd and cuBLAS), as the reference's is XLA's.
 
 The JAX versions also derive shardings for a mesh and compile with pjit;
-the port runs eagerly on one card, so each builder returns the step
-function itself and a `meta` dict.  On one card U = 1 (the JAX package's
-1x1 mesh has one worker), so `default_floa` sets no attacker; a mesh of
-more than one device raises (ROADMAP.md Queue 1 item 8), and so do the
-encoder-decoder (audio) and VLM inputs (item 10).
+the port runs eagerly, so each builder returns the step function itself
+and a `meta` dict.  A mesh (`launch.mesh.SweepMesh`, over the ranks of a
+process group) spans FL workers: U is the size of its worker axes
+("pod", "data"), and each rank is one worker holding its B / U rows of the
+global batch (`launch.mesh.worker_axes`; the reference's `batch_specs`).
+In the train step rank w backpropagates s_w L_w (and its tokens' share of
+the MoE term), and one all_reduce of the gradients over the worker group
+(`_sum_over_workers`, a few flat buckets) forms the superposition
+sum_u s_u grad L_u: the reference's psum over the worker axes, which is
+the over-the-air sum.  Every rank draws the same gains and noise and
+applies the same update, so the replicas stay bitwise equal.  Prefill and
+decode split the batch over the worker axes when U divides it (the
+reference's `tok_spec` rule) and gather the logits, so every rank returns
+the global tensor; each rank keeps its own rows' KV caches
+(`batch_rows`).  None and a one-device mesh are U = 1 (no attacker); a
+"model" axis larger than 1 raises (ROADMAP.md Queue 1 item 8c), and so do
+the encoder-decoder (audio) and VLM inputs (item 10).
 """
 from __future__ import annotations
 
@@ -29,19 +41,28 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import attacks as ATK
 from repro_torch.core.attacks import AttackConfig, AttackType, first_n_mask
 from repro_torch.core.channel import (ChannelConfig, noise_std_for_snr,
                                       sample_channel_gains)
 from repro_torch.core.power_control import Policy, PowerConfig
+from repro_torch.launch.distributed import all_gather, all_reduce_sum
+from repro_torch.launch.mesh import worker_axes
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig, count_params
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
 
-_Q_MESH = "meshes are not ported (ROADMAP.md Queue 1 item 8)"
+# The gradients' all_reduce packs the leaves into flat buffers of at most
+# this many bytes: a few calls a step (gloo pays per call), and one
+# buffer's worth of memory beside the gradients.
+BUCKET_BYTES = 256 * 2 ** 20
+# Elements of a leaf the update computes at once (`_noisy_sgd`).
+UPDATE_CHUNK = 2 ** 26
 
 
 def _refuse_audio(cfg: ModelConfig) -> None:
@@ -65,14 +86,62 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 def num_workers(mesh) -> int:
-    """U of a mesh: None (one card) or a (data, model) shape of one device
-    gives 1, as the JAX package's 1x1 mesh does; a mesh of more than one
-    device raises."""
-    if mesh is None:
-        return 1
-    if math.prod(tuple(mesh)) != 1:
-        raise NotImplementedError(f"mesh {tuple(mesh)}: {_Q_MESH}")
-    return 1
+    """U of a mesh (`launch.mesh.worker_axes`): None and a one-device mesh
+    give 1, as the JAX package's 1x1 mesh does; a SweepMesh the product of
+    its "pod" and "data" sizes."""
+    return worker_axes(mesh).num_workers
+
+
+def batch_rows(mesh, batch: int) -> slice:
+    """The rows of a global batch of `batch` this rank computes in prefill
+    and decode on `mesh`: its worker's B / U rows when U divides the batch
+    (the reference's `tok_spec` rule), else all of them.  A decode step on
+    a mesh takes caches of this many rows."""
+    wa = worker_axes(mesh)
+    if wa.group is None or batch % wa.num_workers:
+        return slice(0, batch)
+    return wa.rows(batch)
+
+
+def _noisy_sgd(p: Tensor, g: Tensor, shift: Tensor, z: Optional[Tensor],
+               scale: Tensor, alpha: float) -> Tensor:
+    """One leaf's update, p - alpha (g + shift + scale z): the bias `shift`
+    and the noise added in g's dtype, the SGD step in f32 and cast to p's
+    dtype (z None: no noise).  Computed UPDATE_CHUNK elements at a time:
+    every op is elementwise, so the bits are those of one pass, and the f32
+    transients of a stacked leaf stay a chunk's size."""
+    out = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+    pf, gf, of = p.reshape(-1), g.reshape(-1), out.view(-1)
+    zf = None if z is None else z.reshape(-1)
+    for a in range(0, pf.numel(), UPDATE_CHUNK):
+        c = slice(a, a + UPDATE_CHUNK)
+        x = gf[c] + shift
+        if zf is not None:
+            x = x + (scale * zf[c]).to(g.dtype)
+        of[c] = (pf[c].float() - alpha * x.float()).to(p.dtype)
+    return out
+
+
+def _sum_over_workers(grads, group, bucket_bytes: int = BUCKET_BYTES):
+    """The gradient leaves (a list, replaced in place) summed over `group`:
+    consecutive leaves of one dtype packed into a flat buffer of at most
+    bucket_bytes (a larger leaf alone), one all_reduce in place a buffer;
+    each leaf becomes a view of its summed buffer, so the unsummed leaves
+    are freed as their buffer is filled (the caller holds no other
+    reference to them)."""
+    i = 0
+    while i < len(grads):
+        j, size = i, 0
+        while j < len(grads) and grads[j].dtype == grads[i].dtype and (
+                j == i or size + grads[j].nbytes <= bucket_bytes):
+            size += grads[j].nbytes
+            j += 1
+        shapes = [g.shape for g in grads[i:j]]
+        flat = torch.cat([g.reshape(-1) for g in grads[i:j]])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        grads[i:j] = [part.view(sh) for part, sh in zip(
+            flat.split([math.prod(sh) for sh in shapes]), shapes)]
+        i = j
 
 
 def batch_shapes(cfg: ModelConfig, shape: Dict, kind: str
@@ -133,31 +202,46 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             -> (new_params, new_state, metrics)
 
     params a nested dict, state {"gbar", "eps2"} (`init_floa_state`),
-    batch {"tokens": [B, S + 1]} on the params' device.  The round's random
+    batch {"tokens": [B, S + 1]}, the global batch, on the params' device
+    (on a mesh every rank passes it; rank w computes rows
+    [w B / U, (w + 1) B / U), and U must divide B).  mesh: None, a
+    `launch.mesh.SweepMesh` whose worker axes span the ranks, or a
+    `launch.mesh.WorkerAxes` (`WorkerAxes.every(U)`: all U workers in one
+    process, the mesh's one-process twin).  The round's random
     draws are an input: draws = {"h_abs": [U] Rayleigh gains, "z": one
     standard-normal f32 tensor per leaf, in the JAX package's leaf order
     (`repro_torch.tree`)}; without them the step draws both from a Philox
     generator on the params' device seeded from `seed` (gains, then the
-    leaves in order).  use_floa=False is the plain mean: s = 1/U, no bias,
-    no noise, nothing drawn.  metrics: {"loss": the mean per-worker loss,
+    leaves in order); every rank of a mesh takes the same draws.
+    use_floa=False is the plain mean: s = 1/U, no bias, no noise, nothing
+    drawn.  metrics: {"loss": the mean per-worker loss over all U,
     "grad_scale": sum(s) + bias_w}."""
     shape = shape or dict(global_batch=256, seq_len=4096)
-    u = num_workers(mesh)
+    wa = worker_axes(mesh)
+    u, group = wa.num_workers, wa.group
     dim = param_count(cfg)
     floa = default_floa(mesh, dim, policy=policy, n_byzantine=n_byzantine)
     channel, power, attack = floa["channel"], floa["power"], floa["attack"]
     noisy = use_floa and channel.noise_std > 0.0
     moe_coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
 
-    def weighted_loss(params, batch, coeffs):
-        per_ex, aux = T.lm_per_example_loss(params, batch, cfg)  # [B]
-        per_worker = per_ex.reshape(u, -1).mean(dim=1)   # [U] local losses
-        wl = coeffs @ per_worker.float()
+    def weighted_loss(params, rows, coeffs):
+        # this process's rows; on a mesh the MoE aux is the global batch's
+        with MOE.worker_batch(group):
+            per_ex, aux = T.lm_per_example_loss(params, rows, cfg)
+        # the local losses L_i of this process's workers
+        per_worker = per_ex.reshape(wa.count, -1).mean(dim=1)
+        wl = coeffs[wa.first:wa.first + wa.count] @ per_worker.float()
         if moe_coef:   # the MoE load-balance term, weighted as the losses
             wl = wl + moe_coef * aux * torch.sum(coeffs) / u
-        return wl, per_worker.mean()
+        return wl, per_worker
 
     def train_step(params, state, batch, seed, draws=None):
+        b = batch["tokens"].shape[0]
+        if b % u:
+            raise ValueError(f"global batch {b} is not a multiple of "
+                             f"U = {u} workers")
+        rows = {k: v[wa.rows(b)] for k, v in batch.items()}
         leaves_p, treedef = tree_flatten(params)
         dev = leaves_p[0].device
         gbar, eps2 = state["gbar"], state["eps2"]
@@ -173,25 +257,18 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             bias_w = torch.zeros((), device=dev)
         # one backward of the coefficient-weighted per-worker losses: its
         # gradient IS the over-the-air superposition sum_i s_i grad L_i
+        # (on a mesh, of this rank's worker, then summed over the ranks)
         xs = [x.detach().requires_grad_(True) for x in leaves_p]
         with torch.enable_grad():
-            wl, mean_loss = weighted_loss(tree_unflatten(treedef, xs), batch,
-                                          s)
-            grads = torch.autograd.grad(wl, xs)
-        # de-standardization bias (eq. 7 third term) + receiver AWGN, leaf
-        # by leaf; then SGD on the noisy aggregate (eq. 8), in f32
-        eps = torch.sqrt(eps2)
-        new_leaves = []
+            wl, per_worker = weighted_loss(tree_unflatten(treedef, xs), rows,
+                                           s)
+            grads = list(torch.autograd.grad(wl, xs))
+        if group is None:
+            mean_loss = per_worker.mean()
+        else:
+            _sum_over_workers(grads, group)
+            mean_loss = all_reduce_sum(per_worker.detach().sum(), group) / u
         with torch.no_grad():
-            for i, (p, g) in enumerate(zip(leaves_p, grads)):
-                x = g + (bias_w * gbar).to(g.dtype)
-                if noisy:
-                    z = (torch.randn(g.shape, generator=gen, device=dev)
-                         if gen is not None else draws["z"][i])
-                    x = x + (eps * channel.noise_std * z).to(g.dtype)
-                new_leaves.append(
-                    (p.float() - alpha * x.float()).to(p.dtype))
-                del x
             # stale-stat estimators for the next round, off the noiseless
             # aggregate; every sum in f32
             ssum = torch.sum(s) + bias_w
@@ -206,6 +283,21 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                 gbar=0.9 * gbar + 0.1 * mean_g,
                 eps2=torch.clamp(0.9 * eps2 + 0.1 * var_g / denom,
                                  1e-12, 1e12))
+            # de-standardization bias (eq. 7 third term) + receiver AWGN,
+            # leaf by leaf; then SGD on the noisy aggregate (eq. 8), in
+            # f32; each gradient is dropped once applied
+            eps = torch.sqrt(eps2)
+            new_leaves = []
+            for i, p in enumerate(leaves_p):
+                g, grads[i] = grads[i], None
+                z = None
+                if noisy:
+                    z = (torch.randn(g.shape, generator=gen, device=dev)
+                         if gen is not None else draws["z"][i])
+                new_leaves.append(_noisy_sgd(
+                    p, g, (bias_w * gbar).to(g.dtype), z,
+                    eps * channel.noise_std, alpha))
+                del g, z
         metrics = dict(loss=mean_loss.detach(), grad_scale=ssum)
         return tree_unflatten(treedef, new_leaves), new_state, metrics
 
@@ -222,16 +314,23 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
                       shape: Optional[Dict] = None) -> Tuple[Callable, Dict]:
     """The prefill (scoring) step: `step(params, batch) -> logits [B, Vp]`
     of the LAST position only (the full [B, S, vocab] logits are never
-    formed), batch {"tokens": [B, S]}; no gradients."""
-    num_workers(mesh)
+    formed), batch {"tokens": [B, S]}, the global batch; no gradients.  On
+    a mesh each rank scores its `batch_rows` and the logits are gathered,
+    so every rank returns all B rows."""
+    wa = worker_axes(mesh)
     _refuse_audio(cfg)
 
     @torch.no_grad()
     def prefill(params, batch):
-        h, _ = T.hidden_for_batch(params, batch["tokens"], cfg,
-                                  embeds_prefix=batch.get("embeds_prefix"))
+        rows = batch_rows(wa, batch["tokens"].shape[0])
+        split = rows.stop - rows.start < batch["tokens"].shape[0]
+        with MOE.worker_batch(wa.group if split else None, aux=False):
+            h, _ = T.hidden_for_batch(
+                params, batch["tokens"][rows], cfg,
+                embeds_prefix=batch.get("embeds_prefix"))
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return h[:, -1, :] @ head
+        logits = h[:, -1, :] @ head
+        return all_gather(logits, wa.group) if split else logits
 
     meta = dict(dim=param_count(cfg))
     if shape is not None:
@@ -256,7 +355,8 @@ def decode_window(cfg: ModelConfig, shape_name: str) -> Optional[int]:
 
 
 def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
-                     plain: bool = False) -> Tuple[Callable, Dict]:
+                     plain: bool = False, mesh=None
+                     ) -> Tuple[Callable, Dict]:
     """The serve step of one new token against a KV cache:
     `step(params, caches, tokens1, pos) -> (logits [B, 1, Vp], caches)`,
     and `meta` with the parameter count `dim` and the attention `window`
@@ -265,13 +365,24 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
     `transformer.init_caches(cfg, B, max_len, window=meta["window"])`
     (long_500k on qwen3-4b: 8192 slots for 524 288 positions).
     `plain=True` routes the attention through the kernel's plain version
-    (for kernel-vs-plain comparisons)."""
+    (for kernel-vs-plain comparisons).  On a mesh tokens1 is the global
+    [B, 1], each rank decodes its `batch_rows(mesh, B)` against caches of
+    that many rows, and the logits are gathered: every rank returns all B
+    rows."""
     _refuse_audio(cfg)
     window = decode_window(cfg, shape_name)
+    wa = worker_axes(mesh)
 
     def step(params, caches, tokens1, pos):
-        return T.decode_step(params, caches, tokens1, pos, cfg,
-                             window=window, plain=plain)
+        rows = batch_rows(wa, tokens1.shape[0])
+        if rows.stop - rows.start == tokens1.shape[0]:
+            return T.decode_step(params, caches, tokens1, pos, cfg,
+                                 window=window, plain=plain)
+        with MOE.worker_batch(wa.group, aux=False):
+            logits, caches = T.decode_step(params, caches, tokens1[rows],
+                                           pos, cfg, window=window,
+                                           plain=plain)
+        return all_gather(logits, wa.group), caches
 
     return step, dict(dim=param_count(cfg), window=window)
 
@@ -283,5 +394,4 @@ def make_step(cfg: ModelConfig, mesh, shape_name: str,
         return make_train_step(cfg, mesh, shape)
     if shape["kind"] == "prefill":
         return make_prefill_step(cfg, mesh, shape)
-    num_workers(mesh)
-    return make_decode_step(cfg, shape_name)
+    return make_decode_step(cfg, shape_name, mesh=mesh)

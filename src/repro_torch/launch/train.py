@@ -1,18 +1,28 @@
 """Training driver of the port (`repro/launch/train.py`): FLOA-federated LM
-training on one device.
+training on one device, or on U ranks, one FL worker each.
 
   python -m repro_torch.launch.train --arch qwen3-4b [--smoke] \
       [--device cuda|cpu] --steps 5 --batch 8 --seq 64 --policy bev \
-      [--alpha 0.02] [--byzantine N] [--ckpt DIR [--ckpt-every K]]
+      [--alpha 0.02] [--byzantine N] [--ckpt DIR [--ckpt-every K]] \
+      [--mesh Ux1 [--backend gloo|nccl]]
 
 Runs real steps of `launch.steps.make_train_step` on random weights drawn
 from seed 0, with the synthetic Markov token stream (`data.text`) as the
-batches (step t draws from seed t).  One card is U = 1 worker, so
---byzantine has no attacker to place (as on the JAX package's 1x1 mesh);
---mesh other than 1x1 raises (meshes are ROADMAP.md Queue 1 item 8).
---ckpt writes the params in the checkpoint format both packages read
-(`checkpoint.save`).  The default device is the card; --device cpu runs
-the same steps on the CPU (use --smoke there).
+batches (step t draws from seed t).  One device is U = 1 worker, so
+--byzantine has no attacker to place (as on the JAX package's 1x1 mesh).
+`--mesh Ux1` trains on U ranks started by torchrun (WORLD_SIZE, RANK,
+MASTER_ADDR / MASTER_PORT; `launch.distributed.initialize_distributed`, as
+the reference's driver starts its processes): the ("data", "model") mesh
+of U x 1, each rank one FL worker on its B / U rows, the gradients summed
+over the ranks (the over-the-air sum), the first min(N, U // 2 - 1)
+workers the attackers.  Several ranks on one card name `--backend gloo`
+and `--device cuda:0` (NCCL refuses two ranks on one device); nothing
+picks another backend or device on its own.  A "model" axis larger than 1
+and `--mesh single|multi` raise (ROADMAP.md Queue 1 item 8c).  Rank 0
+prints and writes the checkpoint.  --ckpt writes the params in the
+checkpoint format both packages read (`checkpoint.save`).  The default
+device is the card; --device cpu runs the same steps on the CPU (use
+--smoke there).
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.power_control import Policy
 from repro_torch.data import sample_tokens
 from repro_torch.device import resolve_device
+from repro_torch.launch.distributed import initialize_distributed, world
+from repro_torch.launch.mesh import mesh_from_arg
 from repro_torch.launch.steps import (init_floa_state, init_model,
                                       make_train_step)
 
@@ -36,7 +48,11 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
-    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--mesh", default="1x1",
+                    help="Ux1: U ranks (torchrun), one FL worker each")
+    ap.add_argument("--backend", default=None,
+                    help="the process group's backend (gloo for several "
+                         "ranks on one card); default NCCL on a card")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -47,22 +63,24 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; meshes are "
-            f"not ported (ROADMAP.md Queue 1 item 8)")
+    started = initialize_distributed(
+        backend=args.backend,
+        device=None if args.device == "cuda" else args.device)
+    lead = world()[0] == 0
+    mesh = mesh_from_arg(args.mesh)
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
 
     shape = dict(seq_len=args.seq, global_batch=args.batch, kind="train")
-    step_fn, meta = make_train_step(cfg, None, shape, alpha=args.alpha,
+    step_fn, meta = make_train_step(cfg, mesh, shape, alpha=args.alpha,
                                     policy=Policy(args.policy),
                                     n_byzantine=args.byzantine)
     params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
     state = init_floa_state(dev)
-    print(f"arch={cfg.name} params={meta['dim']:,} workers="
-          f"{meta['num_workers']} policy={args.policy} "
-          f"byzantine={args.byzantine} device={dev}")
+    if lead:
+        print(f"arch={cfg.name} params={meta['dim']:,} workers="
+              f"{meta['num_workers']} policy={args.policy} "
+              f"byzantine={args.byzantine} device={dev}")
 
     for t in range(args.steps):
         batch = {"tokens": torch.as_tensor(
@@ -71,15 +89,19 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         params, state, metrics = step_fn(params, state, batch, t)
         loss = float(metrics["loss"])
-        print(f"step {t:4d} loss {loss:8.4f} "
-              f"({time.perf_counter() - t0:5.2f}s)", flush=True)
+        if lead:
+            print(f"step {t:4d} loss {loss:8.4f} "
+                  f"({time.perf_counter() - t0:5.2f}s)", flush=True)
         if not math.isfinite(loss):
             raise RuntimeError("training diverged")
-        if args.ckpt and args.ckpt_every and (t + 1) % args.ckpt_every == 0:
+        if (lead and args.ckpt and args.ckpt_every
+                and (t + 1) % args.ckpt_every == 0):
             CK.save(args.ckpt, t + 1, params)
-    if args.ckpt:
+    if lead and args.ckpt:
         CK.save(args.ckpt, args.steps, params)
         print(f"checkpoint -> {args.ckpt}")
+    if started:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

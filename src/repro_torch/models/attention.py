@@ -21,6 +21,12 @@ clamps its valid length to min(pos + 1, S)), and the softmax does not
 depend on slot order (RoPE is applied to k at its true position when it
 is written).  `kv_cache_dtype="int8"` and MLA raise NotImplementedError
 (ROADMAP.md Queue 1 item 10).
+
+The sequence-sharded decode of the reference (`decode_local_partial`,
+`combine_partials`: each rank holds a shard of the cache's positions and
+the partial softmax states are combined with a max and two sums) is plain
+torch here, as the reference's is jnp; its pmax and psums are all_reduces
+over a process group.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.distributed import all_reduce_max, all_reduce_sum
 from repro_torch.models.common import (ModelConfig, ParamInit,
                                        make_causal_mask, rms_norm,
                                        rope_cos_sin, rope_rotate)
@@ -179,3 +186,36 @@ def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
     h, hd, d = p["wo"].shape
     y = out.reshape(b, 1, h * hd) @ p["wo"].reshape(h * hd, d)
     return y, cache
+
+
+def decode_local_partial(q: Tensor, k_loc: Tensor, v_loc: Tensor,
+                         valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Partial flash-decode over a local shard of the KV positions.
+    q [B, H, hd]; k_loc / v_loc [B, S_loc, KV, hd]; valid [B, S_loc] bool.
+    Returns the partial softmax state (m [B, H], l [B, H], acc [B, H, hd]),
+    f32: the largest score, the sum of exp(score - m) and the sum of
+    exp(score - m) v over the shard's valid positions."""
+    b, h, hd = q.shape
+    kvh = k_loc.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_loc).float()
+    s = s / float(torch.tensor(float(hd)).sqrt())
+    s = s.masked_fill(~valid[:, None, None, :], -1e30)
+    m = s.amax(dim=-1)                                       # [B, KV, G]
+    e = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgs,bshd->bhgd", e.to(v_loc.dtype), v_loc)
+    return (m.reshape(b, h), e.sum(dim=-1).reshape(b, h),
+            acc.reshape(b, h, hd).float())
+
+
+def combine_partials(m: Tensor, l: Tensor, acc: Tensor,
+                     group=None) -> Tensor:
+    """The partial softmax states of every rank of `group` combined into the
+    attention output [B, H, hd] (f32): the reference's pmax of m, then the
+    psums of l and acc rescaled to the global max (one all_reduce for
+    both).  group None combines this rank's state alone."""
+    mg = all_reduce_max(m, group)
+    scale = torch.exp(m - mg)
+    la = all_reduce_sum(torch.cat([(l * scale)[..., None],
+                                   acc * scale[..., None]], dim=-1), group)
+    return la[..., 1:] / torch.clamp_min(la[..., :1], 1e-30)

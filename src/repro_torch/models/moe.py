@@ -30,6 +30,16 @@ expert moves that token's output by a whole expert's share.  To compare
 two such routes, `RoutingTape` records the experts one run chooses and
 replays them in the other (`with routing(tape): ...`), counting the
 choices the replayed run would have made otherwise.
+
+Over the worker axes of a mesh (`launch/steps.py`) each rank holds its
+rows of the global batch, and `with worker_batch(group): ...` makes the
+MoE calls inside see the global batch where the reference's do: the aux
+loss `E * sum_e f_e * P_e` is a product of batch means, so its routed
+counts and probability sums are summed over the group before it is
+formed (the sums through `all_reduce_sum_local_grad`, so each rank's
+backward holds its own tokens' share), and `moe_capacity_gather` raises:
+its capacity ceil(k T / E) * cf and its drops are the global batch's,
+which one rank's tokens cannot reproduce.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.distributed import all_reduce_sum_local_grad
 from repro_torch.models.common import ModelConfig, ParamInit
 from repro_torch.models.ffn import init_swiglu, swiglu
 
@@ -68,9 +79,19 @@ def router_probs(p: Dict, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 def load_balance_loss(probs: Tensor, idx: Tensor, num_experts: int) -> Tensor:
     """Switch-style aux loss: E * sum_e f_e * P_e, f_e the share of top-k
-    slots routed to expert e, P_e the mean router probability."""
-    f = F.one_hot(idx.long(), num_experts).float().sum(dim=1).mean(dim=0)
-    return num_experts * torch.sum(f * probs.mean(dim=0))
+    slots routed to expert e, P_e the mean router probability; under
+    `worker_batch`, both means over the global batch."""
+    hot = F.one_hot(idx.long(), num_experts).float().sum(dim=1)   # [T, E]
+    group, aux = _WORKER_GROUP.get()
+    if group is None or not aux:
+        return num_experts * torch.sum(hot.mean(dim=0) * probs.mean(dim=0))
+    # one all_reduce: [sum_t P, routed counts, T]
+    t = torch.full((1,), probs.shape[0], dtype=probs.dtype,
+                   device=probs.device)
+    sums = all_reduce_sum_local_grad(
+        torch.cat([probs.sum(dim=0), hot.sum(dim=0), t]), group)
+    p_sum, counts, t_all = sums.split([num_experts, num_experts, 1])
+    return num_experts * torch.sum((counts / t_all) * (p_sum / t_all))
 
 
 class RoutingTape:
@@ -110,6 +131,24 @@ class RoutingTape:
 # the tape of the innermost `routing` block of this context (as the
 # reference scopes its sharding hints, `repro/models/common.py::_SHARD_CTX`)
 _TAPE = contextvars.ContextVar("repro_torch_routing_tape", default=None)
+# (the worker group, whether the aux loss is wanted) of the innermost
+# `worker_batch` block
+_WORKER_GROUP = contextvars.ContextVar("repro_torch_worker_group",
+                                       default=(None, False))
+
+
+@contextlib.contextmanager
+def worker_batch(group, aux: bool = True) -> Iterator[None]:
+    """Inside the block each rank of `group` holds its rows of a global
+    batch: `moe_capacity_gather` raises, and with aux=True the aux loss is
+    the global batch's (one all_reduce a MoE call; aux=False, for the
+    steps that drop the aux loss, leaves it rank-local).  group None
+    changes nothing."""
+    token = _WORKER_GROUP.set((group, aux))
+    try:
+        yield
+    finally:
+        _WORKER_GROUP.reset(token)
 
 
 @contextlib.contextmanager
@@ -160,6 +199,12 @@ def moe_capacity_gather(p: Dict, x2: Tensor, cfg: ModelConfig
                         ) -> Tuple[Tensor, Tensor]:
     """x2 [T, d] -> ([T, d], aux loss): sort-based bucketed dispatch with
     capacity; pairs past an expert's capacity are dropped."""
+    if _WORKER_GROUP.get()[0] is not None:
+        raise NotImplementedError(
+            "moe_capacity_gather over the worker axes: its capacity "
+            "ceil(k T / E) * capacity_factor and the pairs it drops are the "
+            "global batch's, which a rank's rows cannot reproduce (the zoo's "
+            "MoE archs take scan_dense)")
     m = cfg.moe
     t, d = x2.shape
     e, k = m.num_experts, m.top_k

@@ -332,10 +332,12 @@ def test_grad_stats_splits_rows_over_a_cluster(cuda_device, dtype):
 def test_main_path_counts_launches_by_shape(cuda_device):
     """The FLOA wrappers count launches by (S, U, D), grad_stats by
     (R, D), its fixed-order route by (R, leaf sizes) (`grad_stats_fixed`
-    as the one-segment case), the sorts by input shape; `reset_launches`
-    clears them."""
+    as the one-segment case), the sorts by input shape, decode attention
+    by (B, S, H, KV, dh); `reset_launches` clears them."""
     ops.reset_launches()
     args = _inputs(cuda_device, 13, 2, 3, 64, torch.float32)
+    kv = torch.zeros(2, 16, 2, 32, device=cuda_device)
+    ops.decode_attention(torch.zeros(2, 4, 32, device=cuda_device), kv, kv, 5)
     ops.floa_step_batched(*args)
     ops.floa_step_batched(*args)
     ops.grad_stats(args[2].reshape(6, 64))
@@ -350,7 +352,8 @@ def test_main_path_counts_launches_by_shape(cuda_device):
         # two kernel launches a call (the parts and the fold kernel)
         "grad_stats_segments": {(6, (20,)): 2, (6, (10, 20, 34)): 2},
         "sort_columns": {(2, 3, 64): 1, (3, 64): 1},
-        "sort_columns_bitonic": {(40, 8): 1}}
+        "sort_columns_bitonic": {(40, 8): 1},
+        "decode_attention": {(2, 16, 4, 2, 32): 1}}
     ops.reset_launches()
     assert not any(ops.launch_shapes().values())
 

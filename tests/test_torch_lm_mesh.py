@@ -1,0 +1,493 @@
+"""The port's LM steps over the worker axes of a mesh against the JAX
+package: `launch.steps` with a `launch.mesh.SweepMesh` over gloo CPU ranks
+(tests/torch_dist_driver.py's LM-step jobs), one rank a FL worker.
+
+One JAX subprocess on 4 host devices (`JAX_REF`) runs the reference: the
+FLOA train step of the smoke qwen3-4b (f32) on a (4, 1) ("data", "model")
+debug mesh, B = 8, 3 steps, for BEV, CI and EF with n_byzantine = 2 (one
+strongest attacker at U = 4) and for use_floa=False; the smoke moonshot
+(MoE) on a (2, 1) mesh; the prefill step on a (2, 1) mesh; and the smoke
+starcoder2-3b's decode step on one device, teacher-forced 72 steps into its
+64-slot ring.  It also replays each train step's draws (gains off
+PRNGKey(t)'s first key, leaf i's noise off fold_in(second key, i)), which
+the port's ranks consume, from the JAX initial weights.  Then one spawn of
+4 ranks and one of 2:
+
+- the train step on (4, 1): params, gbar, eps2 and the metrics at rtol
+  1e-5 / atol 1e-6, every rank's result bitwise equal; the same BEV case
+  on a (2, 2, 1) ("pod", "data", "model") mesh equals the (4, 1) run;
+- the smoke moonshot on (2, 1) at the same tolerance (the global aux);
+- prefill on (2, 1) at rtol 1e-5; decode on (4, 1) (a rank-local batch of
+  2 against rank-local ring caches) at rtol 1e-4, every rank's gathered
+  logits equal; greedy `serve` on (2, 1) gives the one-process tokens;
+- `combine_partials` over a 4-rank ("model",) mesh within 1e-5 of both
+  decode_attention_refs;
+- the refusals, and the training entry point on 2 torchrun-style ranks.
+
+Marked slow, as tests/test_distributed.py is: the JAX subprocess and the
+rank spawns take about two minutes on one core.
+"""
+import dataclasses
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import textwrap
+import warnings
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+with warnings.catch_warnings():
+    # The installed jax deprecates jax.experimental.shard_map, which the JAX
+    # package imports; the reference is left as it is.
+    warnings.simplefilter("ignore", DeprecationWarning)
+    from repro.kernels.ref import decode_attention_ref as jdecode_ref
+
+from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
+
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import ref as TREF
+from repro_torch.launch import steps as TSTEPS
+from repro_torch.launch.mesh import (Q_MODEL_AXIS, WorkerAxes,
+                                     make_debug_mesh, mesh_from_arg,
+                                     worker_axes)
+from repro_torch.launch.serve import serve
+from repro_torch.models import moe as TMOE
+from repro_torch.models import transformer as TT
+from repro_torch.tree import tree_leaves, tree_paths
+
+pytestmark = pytest.mark.slow
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL, ATOL = 1e-5, 1e-6
+DECODE_RTOL = 1e-4
+STEPS, BATCH, SEQ, ALPHA = 3, 8, 16, 0.02
+ROUTES = [("bev", True), ("ci", True), ("ef", True), ("bev", False)]
+MESH_41 = ((4, 1), ("data", "model"))
+MESH_221 = ((2, 2, 1), ("pod", "data", "model"))
+MESH_21 = ((2, 1), ("data", "model"))
+SERVE = dict(batch=4, prompt_len=8, gen=8, seed=3)
+# module 6's contract (tests/test_distributed.py:140-170)
+SEQ_SHAPE = dict(b=2, h=8, kv=2, dh=32, s=256, pos=200)
+
+JAX_REF = textwrap.dedent("""
+    import pickle, sys, warnings
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        from repro.configs import get_smoke
+        from repro.core.channel import sample_channel_gains
+        from repro.core.power_control import Policy
+        from repro.data import sample_tokens
+        from repro.launch import steps as S
+        from repro.launch.mesh import make_debug_mesh
+        from repro.models import transformer as T
+
+    STEPS, BATCH, SEQ, ALPHA = {steps}, {batch}, {seq}, {alpha}
+    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+
+
+    def draws(mesh, dim, leaves):
+        channel = S.default_floa(mesh, dim)["channel"]
+        out = []
+        for t in range(STEPS):
+            k_ch, k_z = jax.random.split(jax.random.PRNGKey(t))
+            out.append({{
+                "h_abs": np.asarray(sample_channel_gains(k_ch, channel)),
+                "z": [np.asarray(jax.random.normal(
+                    jax.random.fold_in(k_z, i), x.shape, jnp.float32))
+                    for i, x in enumerate(leaves)]}})
+        return out
+
+
+    def train(arch, mesh_shape, routes, batch):
+        cfg = get_smoke(arch)
+        params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
+        mesh = make_debug_mesh(mesh_shape, ("data", "model"))
+        toks = [sample_tokens(batch, SEQ + 1, vocab=cfg.vocab_size, seed=t)
+                for t in range(STEPS)]
+        res = {{"params0": np_tree(params), "tokens": toks}}
+        for policy, use_floa in routes:
+            art = S.make_train_step(
+                cfg, mesh, dict(global_batch=batch, seq_len=SEQ,
+                                kind="train"),
+                policy=Policy(policy), alpha=ALPHA, use_floa=use_floa)
+            p, state, log = params, S.init_floa_state(), []
+            with mesh:
+                fn = jax.jit(art.fn, in_shardings=art.in_shardings)
+                for t in range(STEPS):
+                    p, state, m = fn(p, state,
+                                     {{"tokens": jnp.asarray(toks[t])}},
+                                     jnp.uint32(t))
+                    log.append({{**np_tree(state), **np_tree(m)}})
+            res[(policy, use_floa)] = {{"params": np_tree(p), "log": log,
+                                       "meta": art.meta}}
+        res["draws"] = draws(mesh, art.meta["dim"],
+                             jax.tree_util.tree_leaves(params))
+        return res
+
+
+    out = {{"train": train("qwen3-4b", (4, 1), {routes}, BATCH),
+           "moe": train("moonshot-v1-16b-a3b", (2, 1), [("bev", True)],
+                        4)}}
+
+    cfg = get_smoke("qwen3-4b")
+    params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
+    mesh = make_debug_mesh((2, 1), ("data", "model"))
+    art = S.make_prefill_step(cfg, mesh, dict(global_batch=4, seq_len=24,
+                                              kind="prefill"))
+    toks = sample_tokens(4, 24, vocab=cfg.vocab_size, seed=9)
+    with mesh:
+        logits = jax.jit(art.fn, in_shardings=art.in_shardings)(
+            params, {{"tokens": jnp.asarray(toks)}})
+    out["prefill"] = {{"params0": np_tree(params), "tokens": toks,
+                      "logits": np.asarray(logits)}}
+
+    cfg = get_smoke("starcoder2-3b")
+    params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
+    n = cfg.window + 8
+    toks = sample_tokens(8, n, vocab=cfg.vocab_size, seed=3)
+    caches = T.init_caches(cfg, 8, n, window=cfg.window)
+    step = jax.jit(lambda p, c, t, pos: T.decode_step(
+        p, c, t, pos, cfg, window=cfg.window))
+    logits = []
+    for i in range(n):
+        lg, caches = step(params, caches, jnp.asarray(toks[:, i:i + 1]),
+                          jnp.int32(i))
+        logits.append(np.asarray(lg[:, 0]))
+    out["decode"] = {{"params0": np_tree(params), "tokens": toks,
+                     "logits": np.stack(logits)}}
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(out, f)
+    print("JAX_REF_OK", flush=True)
+""").format(steps=STEPS, batch=BATCH, seq=SEQ, alpha=ALPHA, routes=ROUTES)
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    """The JAX package's results (`JAX_REF`), run once in a subprocess with
+    4 host devices."""
+    path = tmp_path_factory.mktemp("jax_ref") / "ref.pkl"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    r = subprocess.run([sys.executable, "-c", JAX_REF, str(path)],
+                       capture_output=True, text=True, timeout=600, env=env,
+                       cwd=ROOT)
+    assert r.returncode == 0 and "JAX_REF_OK" in r.stdout, (
+        r.stdout[-3000:] + r.stderr[-3000:])
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _train_job(name, ref, mesh, policy, use_floa, arch="qwen3-4b",
+               batch=BATCH):
+    return dict(name=name, kind="train_step", mesh=mesh, arch=arch,
+                params0=ref["params0"], tokens=ref["tokens"],
+                draws=ref["draws"], policy=policy, use_floa=use_floa,
+                alpha=ALPHA, batch=batch, seq=SEQ)
+
+
+def _seq_inputs():
+    g = np.random.default_rng(0)
+    b, h, kv, dh, s = (SEQ_SHAPE[k] for k in ("b", "h", "kv", "dh", "s"))
+    return {"q": g.standard_normal((b, h, dh)).astype(np.float32),
+            "k": g.standard_normal((b, s, kv, dh)).astype(np.float32),
+            "v": g.standard_normal((b, s, kv, dh)).astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def ranks4(jax_ref, tmp_path_factory):
+    """One spawn of 4 gloo ranks: the train step on (4, 1) for every route
+    and BEV on (2, 2, 1), decode on (4, 1), combine_partials over a
+    ("model",) mesh of 4, the refusals."""
+    tr, dec = jax_ref["train"], jax_ref["decode"]
+    jobs = [_train_job(f"train_{p}_{f}", tr, MESH_41, p, f)
+            for p, f in ROUTES]
+    jobs.append(_train_job("train_bev_pod", tr, MESH_221, "bev", True))
+    jobs.append(dict(name="decode", kind="decode", mesh=MESH_41,
+                     arch="starcoder2-3b", params0=dec["params0"],
+                     tokens=dec["tokens"]))
+    jobs.append(dict(name="seq", kind="seq_partial", mesh=((4,), ("model",)),
+                     pos=SEQ_SHAPE["pos"], **_seq_inputs()))
+    jobs.append(dict(name="refusals", kind="refusals"))
+    return run_ranks(jobs, 4, tmp_path_factory.mktemp("ranks4"))
+
+
+@pytest.fixture(scope="module")
+def ranks2(jax_ref, tmp_path_factory):
+    """One spawn of 2 gloo ranks on (2, 1): the MoE train step, prefill and
+    greedy serve."""
+    pf = jax_ref["prefill"]
+    jobs = [_train_job("moe", jax_ref["moe"], MESH_21, "bev", True,
+                       arch="moonshot-v1-16b-a3b", batch=4),
+            dict(name="prefill", kind="prefill", mesh=MESH_21,
+                 arch="qwen3-4b", params0=pf["params0"], tokens=pf["tokens"]),
+            dict(name="serve", kind="serve", mesh=MESH_21, arch="qwen3-4b",
+                 **SERVE)]
+    return run_ranks(jobs, 2, tmp_path_factory.mktemp("ranks2"))
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL, err_msg=""):
+    np.testing.assert_allclose(np.asarray(torch.as_tensor(got).float()),
+                               np.asarray(want, np.float32), rtol=rtol,
+                               atol=atol, err_msg=err_msg)
+
+
+def _assert_train_matches(got, want):
+    """A rank's train-step result against the JAX run at RTOL / ATOL."""
+    assert got["meta"]["num_workers"] == want["meta"]["num_workers"]
+    assert got["meta"]["dim"] == want["meta"]["dim"]
+    for t, (g, w) in enumerate(zip(got["log"], want["log"])):
+        for k in ("gbar", "eps2", "loss", "grad_scale"):
+            _close(g[k], w[k], err_msg=f"step {t} {k}")
+    jleaves = [v for _, v in sorted(_flat(want["params"]).items())]
+    for path, g, w in zip(tree_paths(got["params"]),
+                          tree_leaves(got["params"]), jleaves):
+        assert np.isfinite(w).all()
+        _close(g, w, err_msg=path)
+
+
+def _flat(tree, prefix=""):
+    """A nested dict of numpy leaves by "/"-joined sorted keys (the JAX leaf
+    order)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+@pytest.mark.parametrize("policy,use_floa", ROUTES)
+def test_train_step_on_four_ranks_matches_jax(ranks4, jax_ref, policy,
+                                              use_floa):
+    """U = 4 workers, one a rank: with FLOA one strongest attacker (worker
+    0), and the port's ranks bitwise equal to each other."""
+    name = f"train_{policy}_{use_floa}"
+    assert_ranks_agree(ranks4, name, 4, skip=("worker",))
+    got = ranks4[f"{name}.r0"]
+    assert [ranks4[f"{name}.r{r}"]["worker"] for r in range(4)] == [
+        (4, r, 1) for r in range(4)]
+    _assert_train_matches(got, jax_ref["train"][(policy, use_floa)])
+    assert got["meta"]["num_workers"] == 4
+    floa = TSTEPS.default_floa(WorkerAxes(4), got["meta"]["dim"])
+    assert floa["attack"].byzantine_mask == (True, False, False, False)
+
+
+def test_pod_data_mesh_orders_workers_row_major(ranks4):
+    """On (2, 2, 1) ("pod", "data", "model") rank r is worker pod * 2 +
+    data = r, holding rows [2r, 2r + 2): the same BEV run as on (4, 1),
+    attacker and all, bit for bit."""
+    assert [ranks4[f"train_bev_pod.r{r}"]["worker"] for r in range(4)] == [
+        (4, r, 1) for r in range(4)]
+    pod, flat = ranks4["train_bev_pod.r0"], ranks4["train_bev_True.r0"]
+    assert_trees_equal(pod["params"], flat["params"], "params")
+    assert_trees_equal(pod["log"], flat["log"], "log")
+
+
+def test_moe_train_step_on_two_ranks_matches_jax(ranks2, jax_ref):
+    """The smoke moonshot on (2, 1): the MoE aux term of the weighted loss
+    is the global batch's (its counts and probability sums all_reduced),
+    as in the reference."""
+    assert_ranks_agree(ranks2, "moe", 2, skip=("worker",))
+    _assert_train_matches(ranks2["moe.r0"], jax_ref["moe"][("bev", True)])
+
+
+def test_moe_aux_loss_is_the_global_batch_s(monkeypatch):
+    """Under `worker_batch` one row block's aux loss, its sums added to the
+    other block's (a stand-in for the all_reduce of two ranks), equals the
+    whole batch's aux, which the block's own aux does not; the gradient
+    through the sums is the block's own share.  capacity_gather refuses
+    the worker axes."""
+    g = torch.Generator().manual_seed(0)
+    probs = torch.softmax(torch.randn(12, 4, generator=g), dim=-1)
+    idx = torch.topk(probs, 2, dim=-1).indices
+    whole = TMOE.load_balance_loss(probs, idx, 4)
+    first = TMOE.load_balance_loss(probs[:6], idx[:6], 4)
+    assert not torch.allclose(first, whole)
+    hot = torch.nn.functional.one_hot(idx[6:], 4).float().sum(dim=1)
+    other = torch.cat([probs[6:].sum(0), hot.sum(0), torch.tensor([6.0])])
+    monkeypatch.setattr(TMOE, "all_reduce_sum_local_grad",
+                        lambda x, group: x + other)
+    with TMOE.worker_batch(group="two ranks"):
+        got = TMOE.load_balance_loss(probs[:6], idx[:6], 4)
+    torch.testing.assert_close(got, whole, rtol=1e-6, atol=1e-7)
+    cfg = get_smoke("moonshot-v1-16b-a3b")
+    p = TT.init_lm(torch.Generator().manual_seed(0), cfg)["blocks"]["b0"]
+    expert = {k: v[0] for k, v in p["ffn"].items() if k != "shared"}
+    with pytest.raises(NotImplementedError, match="capacity"):
+        with TMOE.worker_batch(group="two ranks"):
+            TMOE.moe_capacity_gather(expert, torch.zeros(4, cfg.d_model),
+                                     cfg)
+
+
+def test_prefill_on_two_ranks_matches_jax(ranks2, jax_ref):
+    assert_ranks_agree(ranks2, "prefill", 2)
+    got, want = ranks2["prefill.r0"]["logits"], jax_ref["prefill"]["logits"]
+    assert got.shape == want.shape == (4, get_smoke("qwen3-4b").padded_vocab)
+    _close(got, want, rtol=RTOL, atol=RTOL * float(np.abs(want).max()))
+
+
+def test_decode_on_four_ranks_matches_jax(ranks4, jax_ref):
+    """starcoder2-3b's 64-slot ring past its wrap, each rank decoding 2 of
+    the 8 rows against its own caches; every rank returns all 8 rows."""
+    assert_ranks_agree(ranks4, "decode", 4)
+    got, want = ranks4["decode.r0"], jax_ref["decode"]["logits"]
+    assert got["cache_batch"] == 2
+    assert got["logits"].shape == want.shape
+    for i, (g, w) in enumerate(zip(got["logits"], want)):
+        _close(g, w, rtol=DECODE_RTOL,
+               atol=DECODE_RTOL * float(np.abs(want).max()),
+               err_msg=f"step {i}")
+
+
+def test_greedy_serve_on_two_ranks_equals_one_process(ranks2):
+    assert_ranks_agree(ranks2, "serve", 2)
+    cfg = get_smoke("qwen3-4b")
+    one = serve(cfg, SERVE["batch"], SERVE["prompt_len"], SERVE["gen"],
+                device="cpu", seed=SERVE["seed"])
+    got = ranks2["serve.r0"]
+    assert torch.equal(got["tokens"], one.tokens)
+    _close(got["logits"], one.logits.numpy(), rtol=RTOL,
+           atol=RTOL * float(one.logits.abs().max()))
+
+
+def test_combine_partials_over_four_ranks(ranks4):
+    """Module 6's contract: err < 1e-5 against decode_attention_ref, the
+    port's and the JAX package's."""
+    assert_ranks_agree(ranks4, "seq", 4)
+    x = _seq_inputs()
+    got = ranks4["seq.r0"]["out"]
+    pos = SEQ_SHAPE["pos"]
+    port = TREF.decode_attention_ref(*(torch.as_tensor(x[n]) for n in "qkv"),
+                                     pos)
+    jref = np.asarray(jdecode_ref(*(jnp.asarray(x[n]) for n in "qkv"),
+                                  jnp.int32(pos)))
+    assert float((got - port).abs().max()) < 1e-5
+    assert float(np.abs(got.numpy() - jref).max()) < 1e-5
+
+
+def test_mesh_refusals(ranks4):
+    """Raised on 4 ranks: a "model" axis of 2 (NotImplementedError naming
+    item 8c), a mesh of half the ranks and a batch of 6 over U = 4
+    (ValueError)."""
+    r = ranks4["refusals.r0"]
+    assert r["model_axis"] == ("NotImplementedError",
+                               "mesh {'data': 2, 'model': 2}: "
+                               + Q_MODEL_AXIS)
+    assert r["half_mesh"][0] == "ValueError" and "spans every rank" in \
+        r["half_mesh"][1]
+    assert r["batch"] == ("ValueError", "global batch 6 is not a multiple "
+                                        "of U = 4 workers")
+    assert_ranks_agree(ranks4, "refusals", 4)
+
+
+def test_mesh_refusals_in_one_process():
+    cfg = get_smoke("qwen3-4b")
+    for spec in ("single", "multi", "4x2"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
+            mesh_from_arg(spec)
+    with pytest.raises(ValueError, match="item 8b"):
+        mesh_from_arg("2x1")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
+        TSTEPS.make_prefill_step(cfg, (2, 2))
+    with pytest.raises(ValueError, match="names no ranks"):
+        TSTEPS.make_decode_step(cfg, mesh=(2, 1))
+    assert mesh_from_arg("1x1") is None
+    assert worker_axes(make_debug_mesh((1, 1), ("data", "model"))) == \
+        WorkerAxes(1)
+    assert TSTEPS.batch_rows(None, 6) == slice(0, 6)
+
+
+def test_one_process_twin_is_the_reference_layout():
+    """`WorkerAxes.every(U)` holds all U workers in one process: the
+    weighted loss over U row blocks, the same step the ranks take
+    together; at U = 1 it is the mesh-free step bit for bit."""
+    cfg = get_smoke("qwen3-4b")
+    shape = dict(global_batch=4, seq_len=8, kind="train")
+    params = TT.init_lm(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 9),
+                           generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for name, mesh in (("none", None), ("every1", WorkerAxes.every(1)),
+                       ("every4", WorkerAxes.every(4))):
+        step, meta = TSTEPS.make_train_step(cfg, mesh, shape, alpha=ALPHA)
+        runs[name] = step(params, TSTEPS.init_floa_state(),
+                          {"tokens": tokens}, 5)
+    assert_trees_equal(runs["every1"][0], runs["none"][0])
+    assert_trees_equal(runs["every1"][1], runs["none"][1])
+    assert meta["num_workers"] == 4
+    assert not torch.equal(runs["every4"][0]["embed"],
+                           runs["none"][0]["embed"])
+    with pytest.raises(ValueError, match="not a multiple of U = 4"):
+        step(params, TSTEPS.init_floa_state(), {"tokens": tokens[:3]}, 0)
+
+
+def test_update_in_chunks_is_one_pass_bit_for_bit(monkeypatch):
+    """The train step's per-leaf update (`_noisy_sgd`) cut into chunks of
+    4097 elements gives the bits of one pass, bf16 and f32, with noise."""
+    runs = []
+    for chunk in (4097, 2 ** 26):
+        monkeypatch.setattr(TSTEPS, "UPDATE_CHUNK", chunk)
+        out = []
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = dataclasses.replace(get_smoke("qwen3-4b"), dtype=dtype)
+            step, _ = TSTEPS.make_train_step(
+                cfg, None, dict(global_batch=2, seq_len=8, kind="train"),
+                alpha=ALPHA)
+            params = TT.init_lm(torch.Generator().manual_seed(0), cfg)
+            tokens = torch.randint(0, cfg.vocab_size, (2, 9),
+                                   generator=torch.Generator().manual_seed(1))
+            out.append(step(params, TSTEPS.init_floa_state(),
+                            {"tokens": tokens}, 3)[0])
+        runs.append(out)
+    assert_trees_equal(runs[0], runs[1], "params")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_train_entry_point_on_two_ranks(tmp_path):
+    """`python -m repro_torch.launch.train --mesh 2x1 --device cpu` on two
+    ranks started as torchrun starts them (WORLD_SIZE, RANK, MASTER_ADDR /
+    MASTER_PORT on localhost): rank 0 prints one finite loss line a step
+    and writes the checkpoint, rank 1 prints nothing."""
+    port = _free_port()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen3-4b", "--smoke", "--device", "cpu", "--mesh", "2x1",
+           "--steps", "2", "--batch", "4", "--seq", "8", "--byzantine",
+           "2", "--ckpt", str(tmp_path)]
+    procs = [subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                            OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+                            MASTER_PORT=str(port), WORLD_SIZE="2",
+                            RANK=str(r), LOCAL_RANK=str(r)))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    outs = [out for out, _ in outs]
+    lines = [x for x in outs[0].splitlines() if x.startswith("step")]
+    assert len(lines) == 2 and "workers=2" in outs[0], outs[0]
+    assert all(np.isfinite(float(x.split()[3])) for x in lines)
+    assert outs[1].strip() == "", outs[1]
+    assert (tmp_path / "ckpt_2.meta.json").exists()

@@ -1,6 +1,7 @@
-"""One rank of the port's multi-process sweep tests (tests/test_torch_
-sharded.py, test_torch_workers.py, test_torch_model_sharded.py,
-test_torch_distributed.py).  Imports no JAX and nothing of the JAX package.
+"""One rank of the port's multi-process tests (tests/test_torch_sharded.py,
+test_torch_workers.py, test_torch_model_sharded.py,
+test_torch_distributed.py: sweeps; test_torch_lm_mesh.py: the LM steps over
+the worker axes).  Imports no JAX and nothing of the JAX package.
 
     torch_dist_driver.py RANK WORLD STORE JOBS OUT
 
@@ -29,7 +30,31 @@ Each rank writes OUT/<name>.r<rank>.pt (and <name>.base.pt,
 <name>.resumed.r<rank>.pt): the result's names, loss, grad norm, metrics,
 params and the engine's layout (execution lanes, this rank's rows, the
 shard sizes, the DeviceMesh's dims, the run's gathers of the state's
-columns).  Prints TORCH_DIST_OK rank=<rank> at the end.
+columns).
+
+The LM-step jobs (`run_lm_job`) build `make_debug_mesh(*job["mesh"])`
+(shape, axis names) over every rank and write OUT/<name>.r<rank>.pt, a
+dict of tensors:
+
+    train_step  `make_train_step` on job["arch"]'s smoke config from the
+                numpy params `params0`, one step a `tokens` entry (the
+                global batch) with `draws` (h_abs and one z a leaf, a list
+                by step; None: seeded) and the `policy`, `use_floa`,
+                `alpha`, `batch`, `seq`: the final params, and per step
+                gbar, eps2, loss and grad_scale; the mesh's worker layout
+    prefill     `make_prefill_step` on `tokens` [B, S]: the logits
+    decode      `make_decode_step(cfg, mesh=...)` teacher-forced through
+                `tokens` [B, n] from empty caches of `batch_rows` rows:
+                logits [n, B, Vp], the caches' batch, decode launches
+    serve       `launch.serve.serve(cfg, batch, prompt_len, gen, seed,
+                mesh=...)`: tokens and logits
+    seq_partial `decode_local_partial` on this rank's share of the S
+                positions of q, k, v (numpy) at `pos`, then
+                `combine_partials` over the mesh's "model" group
+    refusals    the messages of the mesh refusals: a "model" axis of 2,
+                a mesh of half the ranks, a batch U does not divide
+
+Prints TORCH_DIST_OK rank=<rank> at the end.
 """
 import os
 import pickle
@@ -41,11 +66,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import figures as TF  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.core.power_control import Policy  # noqa: E402
 from repro_torch.fl import ExecutionPlan, SweepEngine, SweepSpec  # noqa: E402
 from repro_torch.fl import sweep as SW  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch.distributed import (fetch,  # noqa: E402
                                             initialize_distributed)
-from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
+from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
+                                     make_sweep_mesh, worker_axes)
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -141,6 +173,84 @@ def run_job(job, sharded=True, resume=False):
                  "col_gathers": COL_GATHERS[0]}
 
 
+LM_KINDS = ("train_step", "prefill", "decode", "serve", "seq_partial",
+            "refusals")
+
+
+def _raised(fn):
+    """(exception type name, message) of fn()'s exception; None if none."""
+    try:
+        fn()
+    except Exception as e:   # noqa: BLE001 -- the parent checks the type
+        return type(e).__name__, str(e)
+    return None
+
+
+def run_lm_job(job):
+    """One LM-step job on this rank (see the module docstring)."""
+    kind = job["kind"]
+    if kind == "refusals":
+        step, _ = ST.make_train_step(get_smoke("qwen3-4b"), make_debug_mesh(
+            (4, 1), ("data", "model")))
+        six = {"tokens": torch.zeros(6, 9, dtype=torch.int32)}
+        return {"model_axis": _raised(lambda: worker_axes(make_debug_mesh(
+                    (2, 2), ("data", "model")))),
+                "half_mesh": _raised(lambda: make_debug_mesh(
+                    (2, 1), ("data", "model"))),
+                "batch": _raised(lambda: step(None, None, six, 0))}
+    mesh = make_debug_mesh(*job["mesh"])
+    if kind == "seq_partial":
+        q, k, v = (torch.as_tensor(job[n]) for n in "qkv")
+        ranks, r = mesh.shape["model"], mesh.axis_index("model")
+        s_loc = k.shape[1] // ranks
+        local = slice(r * s_loc, (r + 1) * s_loc)
+        valid = (torch.arange(r * s_loc, (r + 1) * s_loc)[None, :]
+                 <= job["pos"]).expand(q.shape[0], s_loc)
+        m, l, acc = ATT.decode_local_partial(q, k[:, local], v[:, local],
+                                             valid)
+        return {"out": ATT.combine_partials(m, l, acc, mesh.group("model"))}
+    cfg = get_smoke(job["arch"])
+    if kind == "serve":
+        res = serve(cfg, job["batch"], job["prompt_len"], job["gen"],
+                    device="cpu", seed=job["seed"], mesh=mesh)
+        return {"tokens": res.tokens, "logits": res.logits}
+    params = TT.params_from_jax(job["params0"], "cpu")
+    if kind == "prefill":
+        step, _ = ST.make_prefill_step(cfg, mesh)
+        return {"logits": step(params, {"tokens": torch.as_tensor(
+            job["tokens"])})}
+    if kind == "decode":
+        tokens = torch.as_tensor(job["tokens"])
+        b, n = tokens.shape
+        step, meta = ST.make_decode_step(cfg, mesh=mesh)
+        rows = ST.batch_rows(mesh, b)
+        caches = TT.init_caches(cfg, rows.stop - rows.start, n,
+                                window=meta["window"])
+        ops.reset_launches()
+        logits = torch.stack([step(params, caches, tokens[:, i:i + 1],
+                                   i)[0][:, 0] for i in range(n)])
+        return {"logits": logits, "cache_batch": rows.stop - rows.start,
+                "decode_launches": ops.launch_counts()["decode_attention"]}
+    step, meta = ST.make_train_step(
+        cfg, mesh, dict(global_batch=job["batch"], seq_len=job["seq"],
+                        kind="train"),
+        policy=Policy(job["policy"]), alpha=job["alpha"],
+        use_floa=job["use_floa"])
+    wa = worker_axes(mesh)
+    state, log = ST.init_floa_state(), []
+    for t, toks in enumerate(job["tokens"]):
+        draws = job["draws"][t] if job["draws"] and job["use_floa"] else None
+        if draws is not None:
+            draws = {"h_abs": torch.as_tensor(draws["h_abs"]),
+                     "z": [torch.as_tensor(z) for z in draws["z"]]}
+        params, state, m = step(params, state,
+                                {"tokens": torch.as_tensor(toks)}, t,
+                                draws=draws)
+        log.append({**state, **m})
+    return {"params": params, "log": log, "meta": meta,
+            "worker": (wa.num_workers, wa.first, wa.count)}
+
+
 def _save(res, layout, path):
     torch.save({"names": res.names, "loss": res.loss,
                 "grad_norm": res.grad_norm, "metrics": res.metrics,
@@ -158,6 +268,10 @@ def main(argv) -> int:
         jobs = pickle.load(f)
     counting_gathers()
     for job in jobs:
+        if job["kind"] in LM_KINDS:
+            torch.save(run_lm_job(job),
+                       os.path.join(out, f"{job['name']}.r{rank}.pt"))
+            continue
         res, layout = run_job(job)
         if res is not None:
             _save(res, layout, os.path.join(out, f"{job['name']}.r{rank}.pt"))

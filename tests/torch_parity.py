@@ -149,11 +149,13 @@ SPAWN_TIMEOUT_S = 300
 
 
 def run_ranks(jobs, world, workdir):
-    """Run `jobs` (tests/torch_dist_driver.py's job dicts) on `world` CPU
-    ranks of a gloo process group (a FileStore in `workdir`, no ports);
-    every rank's exit must be 0.  Returns {file stem: result dict}, one
-    stem per job and rank (`<name>.r<rank>`), and the `.base` and
-    `.resumed.r<rank>` runs the jobs ask for."""
+    """Run `jobs` (tests/torch_dist_driver.py's job dicts: the sweep kinds
+    and the LM-step kinds train_step, prefill, decode, serve, seq_partial
+    and refusals) on `world` CPU ranks of a gloo process group (a
+    FileStore in `workdir`, no ports); every rank's exit must be 0.
+    Returns {file stem: result dict}, one stem per job and rank
+    (`<name>.r<rank>`), and the `.base` and `.resumed.r<rank>` runs the
+    jobs ask for."""
     workdir = Path(workdir)
     out = workdir / "out"
     out.mkdir(parents=True)
@@ -232,11 +234,38 @@ def as_result(d):
                           metrics=d["metrics"])
 
 
-def assert_ranks_agree(results, name, world):
-    """Every rank returned the same full result, bitwise."""
+def assert_ranks_agree(results, name, world, skip=()):
+    """Every rank returned the same full result, bitwise: a sweep result
+    (`as_result`), or an LM-step job's dict of tensors, lists and values
+    (tests/torch_dist_driver.py::run_lm_job), keys in `skip` aside (a
+    rank's own worker index, say)."""
     first = results[f"{name}.r0"]
     for r in range(1, world):
-        assert_bitwise(as_result(results[f"{name}.r{r}"]), as_result(first))
+        got = results[f"{name}.r{r}"]
+        if "names" in first:
+            assert_bitwise(as_result(got), as_result(first))
+        else:
+            assert sorted(got) == sorted(first)
+            for k in first:
+                if k not in skip:
+                    assert_trees_equal(got[k], first[k], f"rank {r} {k}")
+
+
+def assert_trees_equal(got, want, where=""):
+    """Nested dicts / lists of tensors and plain values, equal bit for
+    bit."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), where
+        for k in want:
+            assert_trees_equal(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_equal(g, w, f"{where}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        assert torch.equal(got, want), where
+    else:
+        assert got == want, where
 
 
 def assert_bitwise(got, want):
