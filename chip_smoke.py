@@ -16,6 +16,10 @@
                                       # phase 22's ranks
     python3 chip_smoke.py --zoo       # phases 1-2, phase 3's decode rows
                                       # and phases 23-24 alone
+    python3 chip_smoke.py --lm-model  # phases 1-2, phase 3's decode rows
+                                      # and phase 25 alone
+    python3 chip_smoke.py --lm-model-child RANK WORLD STORE OUT
+                                      # phase 25's ranks
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -161,13 +165,13 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               card" (not a scaling figure).
   22. lm_mesh the LM steps over the worker axes of a mesh
               (`launch.mesh.SweepMesh` over ranks on this card, gloo:
-              `--lm-mesh-child`, `lm_mesh_child`): (a) 3 BEV train steps of
+              `--lm-mesh-child`, `lm_mesh_child`): (a) 2 BEV train steps of
               qwen3-4b at full width (bf16, the serve weights) on a (2, 1)
               mesh, batch 8 x 64, U = 2: losses finite, the weights moved,
               the ranks' params bitwise equal (exact checksums of every
               leaf's bits), ms a warm step, the gradients' all_reduce ms of
               it, peak memory a rank; (b) its 2-layer f32 cut on (4, 1),
-              U = 4 with one attacker, BEV and CI, 3 steps each, against
+              U = 4 with one attacker, BEV and CI, 2 steps each, against
               the same steps over all 4 workers in one process
               (`WorkerAxes.every`) at rtol 1e-4, the ranks bitwise equal;
               (c) `serve` on (2, 1), batch 8, 32 + 32 tokens, each rank's
@@ -198,11 +202,36 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               route from the same ring at phase 15's bf16 bounds; then 2
               layers in f32 through both routes across a wrap of the ring,
               rtol 1e-4.
-  25. the `kernels` line (with launches and times by shape where a
+  25. lm_model the LM steps over a "model" axis, tensor parallel (ranks on
+              this card over gloo, `--lm-model-child`, `lm_model_child`;
+              every rank holds its shards of the weights,
+              `launch.sharding`): (a) `serve` of qwen3-4b at full width
+              on (1, 2), batch 8, 32 + 32 tokens, each rank's decode
+              kernel counted at [8, 64, H16, KV4], its logits at phase
+              15's bf16 bounds of phase 14's one-rank serve on the (step,
+              row) pairs whose inputs agree so far, ms a step, tok/s,
+              weight bytes and peak memory a rank (the weights drawn leaf
+              by leaf, `steps.init_model(..., mesh=)`);
+              (b) 3 BEV train steps of qwen3-4b on (1, 2): losses finite,
+              weights moved, the replicated leaves' checksums equal across
+              ranks, ms a step, the collectives' share, peak memory a
+              rank; (c) its 2-layer f32 cut on (2, 2) (U = 2) against its
+              one-process twin at rtol 1e-4; (d) moonshot at 4 layers,
+              train and serve on (1, 2), the expert choices recorded and
+              replayed on one rank: the serve's logits at phase 15's
+              bounds, the trained params within two bf16 ulps, the
+              gradient of the step's loss within 1e-1 relative a leaf,
+              the replicated leaves and their gradients bitwise across
+              ranks; (e) starcoder2-3b at full width cut to 8 of its 30
+              layers, served on (1, 4), 16 + 16 tokens (KV 2 < 4: wk / wv
+              split d; the kernel at [8, 32, H6, KV1]), against one rank
+              teacher-forced through its sequence at phase 15's bounds.
+              Times labelled "N ranks, gloo, one card".
+  26. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 26. the last line, {"ok": true,
+      a rank's too, must have one); 27. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -263,6 +292,22 @@ MESH_TOL = {"defenses": (5e-6, 1e-6), "defenses_switch": (5e-6, 1e-6),
 # qwen3-4b at U = 4 (one attacker) under BEV and CI
 LM_MESH_STEPS, LM_MESH_B_LAYERS = 3, 2
 LM_MESH_POLICIES = ("bev", "ci")
+# The LM-model phase (25): tensor parallelism over a "model" axis, ranks on
+# cuda:0 over gloo, 3 steps a train run: (a) qwen3-4b's serve and (b) its
+# train step on (1, 2); (c) the 2-layer f32 cut on (2, 2) against its
+# one-process twin; (d) moonshot at MOE_TRAIN_LAYERS, train and serve on
+# (1, 2), against one rank replaying the expert choices; (e) starcoder2-3b's
+# serve on (1, 4) at full width, cut to TP_SC_LAYERS of its 30 layers, 16 +
+# 16 tokens (wk / wv split d: KV 2 < M 4)
+LM_MODEL_STEPS = 3
+TP_SC_ARCH, TP_SC_LAYERS, TP_SC_PROMPT, TP_SC_GEN = "starcoder2-3b", 8, 16, 16
+# (d)'s bf16 params, TP against one rank: each element within two bf16 ulps
+# (an ulp is 2^-8 to 2^-7 of the value) of the other, above a floor
+TP_PARAM_ULPS, TP_PARAM_FLOOR = 2 ** -6, 1e-6
+# (d)'s gradient of the step's loss, TP against one rank: each leaf's
+# |a - b|_2 / |b|_2: bf16 partial sums move it by about 1e-2; a gradient
+# missing a rank's share is off by a third or more
+TP_GRAD_REL = 1e-1
 T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
@@ -299,7 +344,9 @@ BF16_LOGIT_MAX, BF16_LOGIT_MEAN = 0.25, 0.02
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's seconds so far (`t_s`)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def time_ms(torch, fn, iters: int = 50) -> float:
@@ -796,6 +843,12 @@ def decode_cases(torch, ops):
             # a rank's share of the serve batch on the LM-mesh phase's
             # (2, 1) mesh (phase 22)
             (SERVE_BATCH // 2, 64, 32, 8, 128, bf16, 63, True),
+            # a rank's heads on the LM-model phase's meshes (phase 25):
+            # qwen3-4b and moonshot on (1, 2), starcoder2-3b on (1, 4)
+            (SERVE_BATCH, 64, 16, 4, 128, bf16, 63, True),
+            (SERVE_BATCH, 64, 8, 8, 128, bf16, 63, True),
+            (SERVE_BATCH, TP_SC_PROMPT + TP_SC_GEN, 6, 1, 128, bf16,
+             TP_SC_PROMPT + TP_SC_GEN - 1, True),
             # long_500k's rings (phase 24) at its last position: qwen3-4b
             # and granite-8b (8192 slots), starcoder2-3b (4096), and both
             # in f32 (phase 24's f32 runs across a wrap)
@@ -1748,6 +1801,464 @@ def lm_mesh_phase(torch, lm, rs, shard_tally) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def timed_collectives(torch) -> list:
+    """Time every collective of the LM steps on this rank (the
+    all_reduces of `launch.distributed`, the CE's max, the stale stats'
+    sum and the logits' gathers), the device synced around each: gloo
+    stages CUDA tensors through the host, which syncs the stream anyway.
+    Returns the one-element list the milliseconds accumulate in."""
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as LM
+    acc = [0.0]
+
+    def timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[0] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    D.all_reduce_sum = timed(D.all_reduce_sum)
+    C.all_reduce_max = timed(C.all_reduce_max)
+    ST.all_reduce_sum = timed(ST.all_reduce_sum)
+    LM.all_gather = timed(LM.all_gather)
+    return acc
+
+
+def tp_train(torch, cfg, mesh, coll, tape=None):
+    """LM_MODEL_STEPS BEV train steps of cfg on `mesh` (a model mesh, or
+    None / a WorkerAxes: one process) from cfg's weights (`lm_params`'s,
+    this rank's shards of them), under `tape`'s routing when given:
+    (checksums of the initial shards, the final shards, the log, meta,
+    peak memory GB).
+    Each step's collectives' ms (`timed_collectives`) in its log entry."""
+    import contextlib
+    from repro_torch.core.power_control import Policy
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_leaves
+    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    step, meta = ST.make_train_step(cfg, mesh, shape, alpha=TRAIN_ALPHA,
+                                    policy=Policy.BEV)
+    params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                           "cuda", mesh=mesh)
+    before = bit_checksums(torch, tree_leaves(params))
+    tokens = [torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
+                                            cfg.vocab_size, seed=t),
+                              device="cuda") for t in range(LM_MODEL_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, log = ST.init_floa_state("cuda"), []
+    with (MOE.routing(tape) if tape is not None else contextlib.nullcontext()):
+        for t in range(LM_MODEL_STEPS):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), coll[0]
+            params, state, m = step(params, state, {"tokens": tokens[t]}, t)
+            torch.cuda.synchronize()
+            log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "collective_ms": coll[0] - c0,
+                        "loss": float(m["loss"]),
+                        "grad_scale": float(m["grad_scale"]),
+                        "gbar": float(state["gbar"]),
+                        "eps2": float(state["eps2"])})
+    return (before, params, log, meta,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def tp_tape_sums(torch, tape):
+    """`bit_checksums` of a RoutingTape's recorded choices (as int32)."""
+    return bit_checksums(torch, [x.to(torch.int32) for x in tape.recorded])
+
+
+def tp_grads(torch, cfg, mesh, tape):
+    """The gradient of the train step's loss at U = 1 and unit weight (the
+    mean per-sequence CE plus the MoE aux term) on step 0's batch, from
+    cfg's weights (`lm_params`'s; this rank's shards on a model mesh),
+    under `tape`'s routing: a list of leaves (this rank's shards)."""
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import model_axis
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as LM
+    from repro_torch.models.common import tensor_parallel
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                           "cuda", mesh=mesh)
+    leaves, treedef = tree_flatten(params)
+    xs = [x.requires_grad_(True) for x in leaves]
+    tokens = torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
+                                           cfg.vocab_size, seed=0),
+                             device="cuda")
+    with MOE.routing(tape), tensor_parallel(model_axis(mesh)):
+        per_ex, aux = LM.lm_per_example_loss(
+            tree_unflatten(treedef, xs), {"tokens": tokens}, cfg)
+        loss = per_ex.float().mean() + cfg.moe.router_aux_coef * aux
+    return list(torch.autograd.grad(loss, xs))
+
+
+def lm_model_child(args) -> int:
+    """`chip_smoke.py --lm-model-child RANK WORLD STORE OUT`: one of the
+    LM-model phase's ranks on cuda:0 in a WORLD-rank gloo group
+    (init_method file://STORE).  WORLD = 2, on (1, 2): (a) the qwen3-4b
+    serve, counted (rank 0 saves its sequence and logits to
+    OUT/serve_a.pt); (b) LM_MODEL_STEPS BEV train steps of qwen3-4b; (d)
+    moonshot at MOE_TRAIN_LAYERS: the train steps, the gradient of the
+    step's loss (`tp_grads`) and the serve (counted), each recording its
+    expert choices, then rank 0 alone the same train steps, gradient and
+    the serve's sequence teacher-forced on one rank, replaying them.
+    WORLD = 4: (e) the starcoder2-3b serve at TP_SC_LAYERS on (1, 4), counted
+    (rank 0 saves OUT/serve_e.pt); (c) the 2-layer f32 cut on (2, 2), then
+    rank 0 alone its one-process twin (`WorkerAxes.every(2)`).  Replicated
+    leaves and replicas are compared across ranks by `bit_checksums`.  One
+    JSON line a part; no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.distributed import initialize_distributed
+    from repro_torch.launch.mesh import WorkerAxes, make_debug_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.sharding import gather_params
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
+                                  tree_unflatten)
+    rank, world, store, out = int(args[0]), int(args[1]), args[2], args[3]
+    if not initialize_distributed(f"file://{store}", world_size=world,
+                                  rank=rank, backend="gloo", device="cuda:0",
+                                  timeout_s=600):
+        raise AssertionError("lm model child: no process group")
+    coll = timed_collectives(torch)
+    axes = ("data", "model")
+    label = f"{world} ranks, gloo, one card"
+
+    def emit_part(part, **fields):
+        print(json.dumps({"phase": "lm_model_child", "rank": rank,
+                          "part": part, **fields,
+                          "t_s": time.perf_counter() - T_START}), flush=True)
+
+    def counted_serve(cfg, mesh, prompt, gen, tape=None):
+        """The serve on `mesh`, its decode launches by shape, its
+        collectives' ms, and whether every rank's tokens and logits are
+        the same bits."""
+        import contextlib
+        ops.reset_launches()
+        c0 = coll[0]
+        with (MOE.routing(tape) if tape is not None
+              else contextlib.nullcontext()):
+            res = serve(cfg, SERVE_BATCH, prompt, gen, device="cuda",
+                        mesh=mesh)
+        torch.cuda.synchronize()
+        shapes = {k: [[list(sh), n] for sh, n in v.items()]
+                  for k, v in ops.launch_shapes().items() if v}
+        equal = ranks_agree(bit_checksums(
+            torch, [res.tokens.to(torch.int32), res.logits]))
+        return res, shapes, coll[0] - c0, equal
+
+    def serve_part(part, cfg, mesh, prompt, gen, save):
+        """The counted serve on `mesh`, and its peak memory a rank (the
+        weights drawn included); rank 0 saves its prompts, tokens and
+        logits to OUT/save for the parent's one-rank check."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, shapes, cms, equal = counted_serve(cfg, mesh, prompt, gen)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        local = ST.init_model(cfg, None, "meta", mesh=mesh)
+        if rank == 0:
+            torch.save({"prompts": res.prompts.cpu(),
+                        "tokens": res.tokens.cpu(),
+                        "logits": res.logits.cpu()}, os.path.join(out, save))
+        emit_part(part, arch=cfg.name, layers=cfg.n_layers,
+                  mesh=dict(mesh.shape), batch=SERVE_BATCH,
+                  prompt_len=prompt, gen=gen, prefill_s=res.prefill_s,
+                  decode_s=res.decode_s, decode_tok_per_s=res.tok_per_s,
+                  ms_per_step=res.decode_s * 1e3 / gen,
+                  collective_ms=cms, weight_bytes_rank=weight_bytes(local)
+                  + local["embed"].numel() * local["embed"].element_size(),
+                  peak_memory_gb=peak, ranks_bitwise_equal=equal,
+                  launches_by_shape=shapes,
+                  rate_label=label)
+        if not equal:
+            raise AssertionError(f"lm model {part}: the ranks' tokens or "
+                                 f"logits differ")
+
+    lm = get_config(LM_ARCH)
+    if world == 2:
+        mesh = make_debug_mesh((1, 2), axes)
+        # (a) the full-width serve on (1, 2)
+        serve_part("serve", lm, mesh, SERVE_PROMPT, SERVE_GEN, "serve_a.pt")
+        torch.cuda.empty_cache()
+        # (b) the full-width train step on (1, 2)
+        ops.reset_launches()
+        before, params, log, meta, peak = tp_train(torch, lm, mesh, coll)
+        counts = ops.launch_counts()
+        split = tree_leaves(meta["params_specs"])
+        after = bit_checksums(torch, tree_leaves(params))
+        moved = int((after != before).any(dim=1).sum())
+        replicated = [i for i, d in enumerate(split) if d is None]
+        equal = ranks_agree(after[replicated])
+        wb = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+        del params
+        torch.cuda.empty_cache()
+        warm = log[1:]
+        emit_part("train", arch=lm.name, layers=lm.n_layers,
+                  mesh=dict(mesh.shape), workers=meta["num_workers"],
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=log,
+                  ms_per_step_warm=sum(x["ms"] for x in warm) / len(warm),
+                  collective_ms_warm=sum(x["collective_ms"] for x in warm)
+                  / len(warm),
+                  collective_share_warm=sum(x["collective_ms"] for x in warm)
+                  / sum(x["ms"] for x in warm),
+                  peak_memory_gb=peak, weight_bytes_rank=wb,
+                  leaves=len(split), leaves_split=len(split)
+                  - len(replicated), leaves_moved=moved,
+                  replicated_bitwise_equal=equal, launches=counts,
+                  rate_label=label)
+        if not (equal and moved and all(math.isfinite(x["loss"])
+                                        for x in log)
+                and not any(counts.values())):
+            raise AssertionError(f"lm model train: replicated equal {equal}, "
+                                 f"{moved} leaves moved, {log}, {counts}")
+        # (d) moonshot at MOE_TRAIN_LAYERS: train and serve, recording the
+        # expert choices
+        moe = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                                  n_layers=MOE_TRAIN_LAYERS)
+        tape = MOE.RoutingTape()
+        _, params, log, meta, peak = tp_train(torch, moe, mesh, coll, tape)
+        specs = meta["params_specs"]
+        replicated = [i for i, d in enumerate(tree_leaves(specs))
+                      if d is None]
+        equal = ranks_agree(bit_checksums(torch, tree_leaves(params))[
+            replicated])
+        full = gather_params(params, specs, mesh)
+        del params
+        full = tree_map(lambda x: x.cpu(), full) if rank == 0 else None
+        # the gradient of the step's loss, its replicated leaves compared
+        # across the ranks
+        gtape = MOE.RoutingTape()
+        grads = tp_grads(torch, moe, mesh, gtape)
+        grads_equal = ranks_agree(bit_checksums(torch, grads)[replicated])
+        grads = tree_leaves(gather_params(
+            tree_unflatten(specs, grads), specs, mesh))
+        grads = [g.cpu() for g in grads] if rank == 0 else None
+        torch.cuda.empty_cache()
+        routes_equal = ranks_agree(tp_tape_sums(torch, tape))
+        stape = MOE.RoutingTape()
+        res, shapes, cms, sequal = counted_serve(moe, mesh, SERVE_PROMPT,
+                                                 SERVE_GEN, stape)
+        routes_equal = (routes_equal and ranks_agree(tp_tape_sums(
+            torch, stape)) and ranks_agree(tp_tape_sums(torch, gtape)))
+        emit_part("moe", arch=moe.name, layers=moe.n_layers,
+                  mesh=dict(mesh.shape), steps=log, peak_memory_gb=peak,
+                  serve_ms_per_step=res.decode_s * 1e3 / SERVE_GEN,
+                  serve_collective_ms=cms, serve_tok_per_s=res.tok_per_s,
+                  replicated_bitwise_equal=equal,
+                  replicated_grads_bitwise_equal=grads_equal,
+                  ranks_bitwise_equal=sequal,
+                  routes_bitwise_equal=routes_equal,
+                  launches_by_shape=shapes, rate_label=label)
+        if not (equal and grads_equal and sequal and routes_equal):
+            raise AssertionError("lm model moe: the ranks' replicated "
+                                 "leaves or gradients, serves or expert "
+                                 "choices differ")
+        dist.barrier()
+        dist.destroy_process_group()
+        if rank == 0:   # one rank, the same choices replayed
+            torch.cuda.empty_cache()
+            _, want, wlog, _, _ = tp_train(torch, moe, None, coll,
+                                           tape.replay())
+            worst, bad = 0.0, []
+            for path, a, b in zip(tree_paths(want), tree_leaves(full),
+                                  tree_leaves(want)):
+                a, b = a.to("cuda").float(), b.float()
+                d = (a - b).abs()
+                lim = TP_PARAM_ULPS * torch.maximum(a.abs(), b.abs())
+                if bool((d > lim + TP_PARAM_FLOOR).any()):
+                    bad.append(path)
+                worst = max(worst, float(d.max()) / max(float(b.abs().max()),
+                                                        1e-30))
+            loss_diff = max(abs(x["loss"] - y["loss"])
+                            for x, y in zip(log, wlog))
+            eps2_rel = max(abs(x["eps2"] - y["eps2"]) / abs(y["eps2"])
+                           for x, y in zip(log, wlog))
+            del want, full
+            torch.cuda.empty_cache()
+            gwant = tp_grads(torch, moe, None, gtape.replay())
+            grad_rel = {path: float(torch.linalg.vector_norm(
+                a.to("cuda").float() - b.float()) / max(float(
+                    torch.linalg.vector_norm(b.float())), 1e-30))
+                for path, a, b in zip(tree_paths(specs), grads, gwant)}
+            del gwant, grads
+            torch.cuda.empty_cache()
+            seq = torch.cat([res.prompts, res.tokens], dim=1)
+            with MOE.routing(stape.replay()):
+                one = teacher_forced(torch, moe, lm_params(torch, moe), seq,
+                                     False)
+            parity, ok = logit_parity(torch, res.logits, one,
+                                      moe.vocab_size)
+            ok = (ok and not bad and loss_diff <= BF16_LOGIT_MEAN
+                  and eps2_rel <= 1e-2
+                  and max(grad_rel.values()) <= TP_GRAD_REL)
+            emit_part("moe_one_rank", arch=moe.name, twin_steps=wlog,
+                      params_max_rel_diff=worst, params_outside=bad,
+                      param_tol={"rel": TP_PARAM_ULPS,
+                                 "floor": TP_PARAM_FLOOR},
+                      grads_rel_diff=grad_rel, grads_tol=TP_GRAD_REL,
+                      loss_max_abs_diff=loss_diff, eps2_max_rel_diff=eps2_rel,
+                      serve_vs_one_rank=parity,
+                      router_flips=int(tape.flips) + int(stape.flips),
+                      ok=ok)
+            if not ok:
+                raise AssertionError("lm model moe: the mesh and one rank "
+                                     "disagree")
+    else:
+        # (e) starcoder2-3b served on (1, 4): wk / wv split d
+        sc = dataclasses.replace(get_config(TP_SC_ARCH),
+                                 n_layers=TP_SC_LAYERS)
+        serve_part("sc_serve", sc, make_debug_mesh((1, 4), axes),
+                   TP_SC_PROMPT, TP_SC_GEN, "serve_e.pt")
+        torch.cuda.empty_cache()
+        # (c) the 2-layer f32 cut on (2, 2) against its one-process twin
+        cfg = dataclasses.replace(lm, n_layers=LM_MESH_B_LAYERS,
+                                  dtype=torch.float32)
+        mesh = make_debug_mesh((2, 2), axes)
+        _, params, log, meta, peak = tp_train(torch, cfg, mesh, coll)
+        full = gather_params(params, meta["params_specs"], mesh)
+        equal = ranks_agree(bit_checksums(torch, tree_leaves(full)))
+        full = tree_map(lambda x: x.cpu(), full) if rank == 0 else None
+        del params
+        dist.barrier()
+        dist.destroy_process_group()
+        if rank == 0:
+            _, want, wlog, wmeta, _ = tp_train(
+                torch, cfg, WorkerAxes.every(2), coll)
+            worst, ok = 0.0, equal
+            for a, b in zip(tree_leaves(full), tree_leaves(want)):
+                a = a.to("cuda")
+                ok = ok and bool(torch.allclose(a, b, rtol=RTOL_WHOLE_RUN,
+                                                atol=1e-6))
+                worst = max(worst, float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30))
+            # gbar (~1e-9, the gradient's mean) at the rtol alone
+            atol = {"loss": 1e-6, "grad_scale": 1e-6, "gbar": 0.0,
+                    "eps2": 1e-6}
+            ok = ok and all(abs(x[k] - y[k]) <= atol[k] + RTOL_WHOLE_RUN
+                            * abs(y[k]) for x, y in zip(log, wlog)
+                            for k in atol)
+            emit_part("f32_cut", arch=cfg.name, dtype="float32",
+                      layers=cfg.n_layers, mesh=dict(mesh.shape),
+                      workers=wmeta["num_workers"], steps=log,
+                      twin_steps=wlog, rtol=RTOL_WHOLE_RUN, atol=atol,
+                      params_max_rel_diff=worst, peak_memory_gb=peak,
+                      ranks_bitwise_equal=equal, ok=ok)
+            if not ok:
+                raise AssertionError("lm model f32 cut: the mesh and its "
+                                     "one-process twin disagree")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
+                                   for m in sys.modules):
+        raise AssertionError("lm model child: imported JAX or the JAX "
+                             "package")
+    return 0
+
+
+# the phase-25 serves' cases: (child part, shard_tally case, ranks)
+TP_SERVES = (("serve", "lm_model_serve", 2), ("moe", "lm_model_moe_serve", 2),
+             ("sc_serve", "lm_model_sc_serve", 4))
+
+
+def lm_model_phase(torch, lm, rs, shard_tally) -> None:
+    """Phase 25: the LM steps over a "model" axis, ranks on cuda:0 over
+    gloo (`--lm-model-child`): (a), (b) and (d) on 2 ranks, (c) and (e) on
+    4.  Here, at phase 15's bf16 bounds with every clear step's argmax
+    equal: (a)'s serve against the one-rank serve `rs` (phase 14's; served
+    here when None) on the (step, row) pairs whose inputs agree so far,
+    and (e)'s against one rank teacher-forced through its sequence from
+    the same weights (`teacher_forced`).  The ranks' decode launches by
+    shape go to `shard_tally`."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    if rs is None:
+        rs = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="lm_model_",
+                            dir=os.path.join(ROOT, "build"))
+    cases = {part: case for part, case, _ in TP_SERVES}
+    try:
+        walls = {}
+        for world in (2, 4):
+            lines, walls[world] = spawn_ranks("--lm-model-child", world,
+                                              work, 900)
+            for r, rank_lines in lines.items():
+                for line in rank_lines:
+                    print(json.dumps(line), flush=True)
+                    if line["part"] in cases:
+                        shard_tally(cases[line["part"]], {
+                            k: {shape_key(sh): n for sh, n in v}
+                            for k, v in line["launches_by_shape"].items()})
+            parts = [x["part"] for x in lines[0]]
+            want = (["serve", "train", "moe", "moe_one_rank"] if world == 2
+                    else ["sc_serve", "f32_cut"])
+            if parts != want:
+                raise AssertionError(f"lm model: rank 0 of {world} reported "
+                                     f"{parts}")
+        # (a): the pairs whose inputs agree with the one-rank serve's
+        got = torch.load(os.path.join(work, "serve_a.pt"))
+        seq = torch.cat([got["prompts"], got["tokens"]], dim=1)
+        ref = torch.cat([rs.prompts, rs.tokens], dim=1).cpu()
+        held = (seq == ref).int().cumprod(dim=1).bool().T.cuda()
+        parity, ok = logit_parity(torch, got["logits"].cuda()[held],
+                                  rs.logits[held], lm.vocab_size)
+        parity["held_pairs"] = int(held.sum())
+        parity["prompts_equal"] = bool(held[:SERVE_PROMPT].all())
+        ok = ok and parity["prompts_equal"]
+        emit("lm_model_serve", arch=lm.name, backend="gloo",
+             device="cuda:0", tol={"max_abs": BF16_LOGIT_MAX,
+                                   "mean_abs": BF16_LOGIT_MEAN}, ok=ok,
+             mesh_vs_one_rank=parity)
+        del got, seq, ref, held
+        if not ok:
+            raise AssertionError("lm_model_serve: the mesh serve and one "
+                                 "rank disagree")
+        # (e): one rank teacher-forced through the mesh serve's sequence
+        sc = dataclasses.replace(get_config(TP_SC_ARCH),
+                                 n_layers=TP_SC_LAYERS)
+        got = torch.load(os.path.join(work, "serve_e.pt"))
+        seq = torch.cat([got["prompts"], got["tokens"]], dim=1).cuda()
+        one = teacher_forced(torch, sc, lm_params(torch, sc), seq, False)
+        parity, ok = logit_parity(torch, got["logits"].cuda(), one,
+                                  sc.vocab_size)
+        emit("lm_model_sc_serve", arch=sc.name, layers=sc.n_layers,
+             backend="gloo", device="cuda:0",
+             tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
+             ok=ok, mesh_vs_one_rank=parity)
+        del got, seq, one
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError("lm_model_sc_serve: the mesh serve and one "
+                                 "rank disagree")
+        emit("lm_model", backend="gloo", device="cuda:0",
+             children_wall_s=walls)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def plan_phase(torch, np, ops, figures, tally, grid_u, mc_u) -> None:
     """The execution plan at the paper's width: (a) fig3 chunked and async
     staged against monolithic, (b) the showdown resumed in a fresh process
@@ -2572,6 +3083,8 @@ def main() -> int:
         return mesh_child(sys.argv[2:])
     if sys.argv[1:2] == ["--lm-mesh-child"]:
         return lm_mesh_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--lm-model-child"]:
+        return lm_model_child(sys.argv[2:])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2630,6 +3143,15 @@ def main() -> int:
         check_kernels(torch, decode_cases(torch, ops), floor_ms)
         zoo_phase(torch, ops, lambda counts: None)
         long500_phase(torch, ops, lambda counts: None)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--lm-model"]:   # 1-2, 3's decode rows, 25 alone
+        from repro_torch.configs import get_config
+        check_kernels(torch, decode_cases(torch, ops), floor_ms)
+        lm_model_phase(torch, get_config(LM_ARCH), None,
+                       lambda case, by_shape: None)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3073,7 +3595,6 @@ def main() -> int:
     # 22. the LM steps over the worker axes: the train step on 2 and 4
     # ranks, the serve on 2, against phase 14's one-rank serve
     lm_mesh_phase(torch, lm, rs, shard_tally)
-    del rs
     torch.cuda.empty_cache()
 
     # 23. the zoo's dense and MoE archs served at full width
@@ -3081,6 +3602,11 @@ def main() -> int:
 
     # 24. long_500k: rings of decode_window slots at pos 524 287
     long500_phase(torch, ops, tally)
+
+    # 25. the LM steps over a "model" axis: tensor parallel serves and
+    # train steps on 2 and 4 ranks, against phase 14's one-rank serve
+    lm_model_phase(torch, lm, rs, shard_tally)
+    del rs
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -3136,6 +3662,18 @@ def main() -> int:
         "lm_mesh_serve", (SERVE_BATCH // 2, SERVE_PROMPT + SERVE_GEN,
                           lm.n_heads, lm.n_kv_heads, lm.hd))] = (
         2 * lm.n_layers * (SERVE_PROMPT + SERVE_GEN))
+    # the LM-model phase's serves: each rank's query heads and KV heads
+    from repro_torch.models.attention import local_heads
+    for (_, case, ranks), (cfg, n, layers) in zip(TP_SERVES, (
+            (lm, SERVE_PROMPT + SERVE_GEN, lm.n_layers),
+            (get_config(MOE_TRAIN_ARCH), SERVE_PROMPT + SERVE_GEN,
+             MOE_TRAIN_LAYERS),
+            (get_config(TP_SC_ARCH), TP_SC_PROMPT + TP_SC_GEN,
+             TP_SC_LAYERS))):
+        q, kv = local_heads(cfg, ranks, 0)
+        want_shard["decode_attention"][(case, (
+            SERVE_BATCH, n, q.stop - q.start, kv.stop - kv.start,
+            cfg.hd))] = ranks * layers * n
     if shard_shapes != want_shard or flat_param_dim(get_lm_sweep()) != LM_D:
         raise AssertionError(f"sharded launches by shape: {shard_shapes}, "
                              f"expected {want_shard}")
@@ -3212,10 +3750,11 @@ def main() -> int:
         if len(main_shapes.get(name, {})) > 1:
             kernels[-1]["launches_by_shape"] = by_shape(name)
         if shard_shapes.get(name):
+            ranks_of = {case: ranks for _, case, ranks in TP_SERVES}
             kernels[-1]["launches_by_shard_shape"] = [
                 {"case": case, **phase3_row(name, shape),
                  "shard_shape": list(shape), "launches": n,
-                 "ranks": MESH_RANKS}
+                 "ranks": ranks_of.get(case, MESH_RANKS)}
                 for (case, shape), n in shard_shapes[name].items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

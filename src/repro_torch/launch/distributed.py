@@ -23,7 +23,13 @@ edge.  The LM steps over the worker axes take two more collectives:
 `all_reduce_sum_local_grad`, a psum whose backward is the identity (a
 rank's local term feeds the global sum linearly, and the over-the-air
 all_reduce of the gradients already sums the ranks' contributions), and
-`all_reduce_max`, the reference's pmax.  The reference's `setup_compilation_cache` has no counterpart: the
+`all_reduce_max`, the reference's pmax.  Tensor parallelism over a
+"model" group takes Megatron's pair: `copy_in` (identity forward, psum
+backward) where a replicated activation enters a rank's shard of a layer,
+and `reduce_out` (psum forward, identity backward: the same op as
+`all_reduce_sum_local_grad`) where the shard's partial product leaves it;
+`all_gather` along the last dim joins vocab-sharded logits.  The
+reference's `setup_compilation_cache` has no counterpart: the
 port compiles nothing at run time except its CUDA kernels, which
 `kernels/_build.py` builds once into `build/kernels/` and reuses.
 """
@@ -183,6 +189,37 @@ def all_reduce_sum_local_grad(x: torch.Tensor, group=None) -> torch.Tensor:
     if group is None:
         return x
     return _SumLocalGrad.apply(x, group)
+
+
+class _CopyIn(torch.autograd.Function):
+    """identity forward, all_reduce_sum backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+def copy_in(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's "copy to the tensor-parallel region": `x`, replicated on
+    every rank of `group`, feeds this rank's shard of a layer; the
+    gradient is summed over the group, since each rank's backward holds
+    only its own shard's share of it.  `x` itself when group is None."""
+    if group is None:
+        return x
+    return _CopyIn.apply(x, group)
+
+
+def reduce_out(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's "reduce from the tensor-parallel region": the sum over
+    `group` of every rank's partial product, replicated; its gradient is
+    the identity, since the replicated loss downstream gives every rank
+    the whole gradient already (`all_reduce_sum_local_grad`)."""
+    return all_reduce_sum_local_grad(x, group)
 
 
 def fetch(x, dim: Optional[int] = None, group=None) -> np.ndarray:

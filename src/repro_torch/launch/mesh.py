@@ -21,12 +21,15 @@ group's backend and timeout, named explicitly: nothing switches to another
 backend (several ranks sharing one card run gloo over CUDA tensors).
 
 The LM steps (`launch/steps.py`) take a mesh of the reference's
-("data", "model") or ("pod", "data", "model") axes: U, the FL worker
-count, is the size of the worker axes ("pod", "data"), and each rank is
-one worker, at its row-major position over them (`worker_axes`).  Their
-"model" axis must be 1 (tensor parallelism is ROADMAP.md Queue 1 item
-8c), and so is `--mesh single|multi`, the reference's TPU pod layout
-(`mesh_from_arg`).
+("data", "model") or ("pod", "data", "model") axes, its ranks laid out
+row-major over them as `init_device_mesh` lays them out: U, the FL worker
+count, is the size of the worker axes ("pod", "data"), and each worker is
+the M ranks of one position on them (`worker_axes`), which split every
+layer over the "model" axis (`model_axis`: tensor parallelism, M the
+"model" size).  A worker's group of ranks is the ranks that share this
+rank's model index.  `--mesh single|multi`, the reference's 256- and
+512-chip TPU pod layouts, raise (`mesh_from_arg`): over GPU ranks the
+counterpart is `--mesh RxM`.
 
 The reference's `NamedSharding` placement helpers (`lane_sharding`,
 `sweep_state_sharding`, `put_with_sharding`, `stage_batch_block`) have no
@@ -41,6 +44,7 @@ import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -66,6 +70,7 @@ class SweepMesh:
         self.axis_names = axis_names
         self.shape = collections.OrderedDict(zip(axis_names, shape))
         self.rank = rank
+        self.subgroups = {}   # `_subgroup`'s groups, by axes
         self.device_mesh = None
         if dist.is_initialized() and n == size:
             backend = dist.get_backend()
@@ -158,10 +163,12 @@ def model_parallel(mesh) -> int:
     return mesh.shape.get("model", 1)
 
 
-# The message of every refusal of the LM steps' "model" axis.
-Q_MODEL_AXIS = ("the LM steps' \"model\" axis (tensor parallelism through "
-                "every layer, the FSDP and cache specs) is not ported "
-                "(ROADMAP.md Queue 1 item 8c)")
+# What of the LM steps' "model" axis is still to port: the message of its
+# refusals.
+Q_MODEL_AXIS = ("is not ported (ROADMAP.md Queue 1 item 8d: FSDP storage "
+                "sharding over \"data\", sequence-parallel residuals, and "
+                "attention layouts whose query heads the \"model\" axis "
+                "does not divide)")
 STEP_AXES = ("pod", "data", "model")
 
 
@@ -170,8 +177,8 @@ class WorkerAxes:
     """This process's share of an LM step's U FL workers: it holds workers
     [first, first + count) and rows [first * B / U, (first + count) * B / U)
     of a global batch of B (the reference's `batch_specs` layout); `group`
-    is the process group over the worker axes, None when this process
-    holds every worker."""
+    is the process group over the worker axes (the ranks of this rank's
+    model index), None when this process holds every worker."""
     num_workers: int
     first: int = 0
     count: int = 1
@@ -190,17 +197,64 @@ class WorkerAxes:
         return slice(self.first * per, (self.first + self.count) * per)
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This rank's place on an LM step's "model" axis: `size` M ranks split
+    every layer (tensor parallelism), this rank is the `index`-th, and
+    `group` is the process group of the M ranks (None for M = 1)."""
+    size: int = 1
+    index: int = 0
+    group: object = None
+
+    def __post_init__(self):
+        if self.size > 1 and self.group is None:
+            raise ValueError(f"a \"model\" axis of {self.size} ranks needs "
+                             f"their process group: take it from the mesh "
+                             f"(model_axis(mesh))")
+
+    def shards(self, n: int) -> bool:
+        """Whether a dim of n is split over the axis: the reference's
+        `ModelConfig.shard` rule, n a multiple of M (and M > 1)."""
+        return self.size > 1 and n % self.size == 0
+
+    def part(self, n: int) -> slice:
+        """This rank's indices of a dim of n split over the axis."""
+        per = n // self.size
+        return slice(self.index * per, (self.index + 1) * per)
+
+
+def _subgroup(mesh, axes: Tuple[str, ...]):
+    """The process group of this rank's line over several axes of `mesh`
+    (the ranks that differ only along `axes`), made once a mesh: every
+    rank makes every line's group together, in one order, on first use."""
+    cache = mesh.subgroups
+    if axes not in cache:
+        grid = np.arange(mesh.size).reshape(tuple(mesh.shape.values()))
+        keep = [mesh.axis_names.index(a) for a in axes]
+        rest = [i for i in range(grid.ndim) if i not in keep]
+        lines = grid.transpose(rest + keep).reshape(
+            -1, math.prod(mesh.shape[a] for a in axes))
+        backend = dist.get_backend()
+        opts = group_options(backend)
+        mine, _ = dist.new_subgroups_by_enumeration(
+            [list(map(int, line)) for line in lines], backend=backend,
+            pg_options=opts,
+            timeout=None if opts is None else opts._timeout)
+        cache[axes] = mine
+    return cache[axes]
+
+
 def worker_axes(mesh) -> WorkerAxes:
     """The worker layout of an LM step's mesh.  None, a one-device mesh
     and a one-device (data, model) shape are U = 1.  A `SweepMesh` over the
     ranks has U = the product of its "pod" and "data" sizes; a rank is
-    worker pod * |data| + data (row-major), which is its rank in the
-    process group (`init_device_mesh` lays the ranks out row-major and the
-    mesh spans every rank), so the worker group is the process group.  A
-    "model" axis larger than 1 raises NotImplementedError; an axis other
-    than "pod", "data" and "model", or a tuple shape of several devices
-    (it names no ranks), ValueError.  A `WorkerAxes` is returned as
-    is."""
+    worker pod * |data| + data, and its rank is that worker times M plus
+    its model index (`init_device_mesh` lays the ranks out row-major and
+    the mesh spans every rank).  The worker group is the ranks of this
+    rank's model index: the process group when M = 1.  An axis other than
+    "pod", "data" and "model", or a tuple shape of several devices (it
+    names no ranks), raises ValueError, anything else but a mesh
+    TypeError.  A `WorkerAxes` is returned as is."""
     if isinstance(mesh, WorkerAxes):
         return mesh
     if mesh is None:
@@ -208,43 +262,63 @@ def worker_axes(mesh) -> WorkerAxes:
     if isinstance(mesh, (tuple, list)):   # a (data, model) shape
         if math.prod(mesh) == 1:
             return WorkerAxes(1)
-        if len(mesh) > 1 and mesh[-1] > 1:
-            raise NotImplementedError(f"mesh {tuple(mesh)}: {Q_MODEL_AXIS}")
         raise ValueError(f"mesh {tuple(mesh)}: a shape names no ranks; pass "
                          f"make_debug_mesh(shape, axes) over the process "
                          f"group")
+    if not hasattr(mesh, "axis_names"):
+        raise TypeError(f"{mesh!r} is not a mesh: the LM steps take None, "
+                        f"a SweepMesh over the ranks or a WorkerAxes")
     other = [a for a in mesh.axis_names if a not in STEP_AXES]
     if other:
         raise ValueError(f"mesh axes {mesh.axis_names}: the LM steps take "
                          f"{STEP_AXES}")
-    if model_parallel(mesh) > 1:
-        raise NotImplementedError(f"mesh {dict(mesh.shape)}: {Q_MODEL_AXIS}")
-    u = num_workers(mesh)
-    if u == 1:
-        return WorkerAxes(1)
+    m = model_parallel(mesh)
     w = 0
     for a in batch_axes(mesh):
         w = w * mesh.shape[a] + mesh.axis_index(a)
-    if w != dist.get_rank():
+    if mesh.device_mesh is not None and (
+            w * m + mesh.axis_index("model") != dist.get_rank()):
         raise AssertionError(f"worker {w} on rank {dist.get_rank()}: the "
                              f"mesh's ranks are not laid out row-major")
-    return WorkerAxes(u, w, 1, dist.group.WORLD)
+    u = num_workers(mesh)
+    if u == 1:
+        return WorkerAxes(1)
+    if m == 1:
+        return WorkerAxes(u, w, 1, dist.group.WORLD)
+    wide = tuple(a for a in batch_axes(mesh) if mesh.shape[a] > 1)
+    group = (mesh.group(wide[0]) if len(wide) == 1
+             else _subgroup(mesh, wide))
+    return WorkerAxes(u, w, 1, group)
+
+
+def model_axis(mesh) -> ModelAxis:
+    """The "model" axis of an LM step's mesh (`worker_axes`'s meshes):
+    (M, this rank's model index, the group of the M ranks); M = 1 for
+    None, a `WorkerAxes` and a mesh without the axis."""
+    worker_axes(mesh)
+    if mesh is None or isinstance(mesh, (WorkerAxes, tuple, list)) \
+            or model_parallel(mesh) == 1:
+        return ModelAxis()
+    return ModelAxis(model_parallel(mesh), mesh.axis_index("model"),
+                     mesh.group("model"))
 
 
 def mesh_from_arg(spec: str) -> Optional[SweepMesh]:
     """The drivers' --mesh "RxM" over the process group: the (R, M)
-    ("data", "model") debug mesh of every rank, or None for "1x1" in one
-    process (no mesh).  M > 1 and the reference's production layouts
-    "single" / "multi" (16 x 16 and 2 x 16 x 16 TPU chips) raise
-    NotImplementedError; R x M other than the number of ranks
-    ValueError."""
+    ("data", "model") debug mesh of every rank (R FL workers of M ranks
+    each, tensor parallel over "model"), or None for "1x1" in one process
+    (no mesh).  R x M other than the number of ranks raises ValueError;
+    "single" / "multi", the reference's production layouts (16 x 16 and
+    2 x 16 x 16 TPU chips), raise NotImplementedError."""
     if spec in ("single", "multi"):
         raise NotImplementedError(
-            f"--mesh {spec}: make_production_mesh is a TPU pod layout with "
-            f"a 16-chip \"model\" axis; {Q_MODEL_AXIS}")
+            f"--mesh {spec}: make_production_mesh is a "
+            f"{256 if spec == 'single' else 512}-chip TPU pod layout "
+            f"(16 x 16, 2 x 16 x 16 chips); over GPU ranks its counterpart "
+            f"is --mesh RxM on the ranks this process group has (R FL "
+            f"workers of M tensor-parallel ranks; ROADMAP.md Queue 1 item "
+            f"8d)")
     r, m = (int(x) for x in spec.lower().split("x"))
-    if m > 1:
-        raise NotImplementedError(f"--mesh {spec}: {Q_MODEL_AXIS}")
     ranks = world()[1]
     if r * m != ranks:
         raise ValueError(f"--mesh {spec}: a mesh spans every rank of the "

@@ -4,18 +4,20 @@ the batch split over the ranks of a mesh.
 
   python -m repro_torch.launch.serve --arch qwen3-4b [--smoke] --batch 8 \
       --prompt-len 32 --gen 16 [--temperature T] [--device cuda|cpu] \
-      [--seed N] [--shape decode_32k|long_500k] [--mesh Rx1 [--backend B]]
+      [--seed N] [--shape decode_32k|long_500k] [--mesh RxM [--backend B]]
 
-`--mesh Rx1` serves on R ranks started by torchrun (WORLD_SIZE, RANK,
+`--mesh RxM` serves on R x M ranks started by torchrun (WORLD_SIZE, RANK,
 MASTER_ADDR / MASTER_PORT; `launch.distributed.initialize_distributed`):
-the ("data", "model") mesh of R x 1, each rank decoding its B / R rows
-against its own caches (all B rows when R does not divide B) and every
-rank taking the next tokens from the gathered logits, so all ranks emit
-the same stream; rank 0 prints.  Several ranks on one card name
+the ("data", "model") mesh of R x M.  Each of the R row groups decodes its
+B / R rows against its own caches (all B rows when R does not divide B),
+every layer split over its M ranks (tensor parallel: each rank holds its
+shard of the weights, `launch.sharding`, and the KV heads of its query
+heads); every rank takes the next tokens from the gathered logits, so all
+ranks emit the same stream; rank 0 prints.  Several ranks on one card name
 `--backend gloo` and `--device cuda:0` (NCCL refuses two ranks on one
-device); nothing picks another backend or device on its own.  A "model"
-axis larger than 1 and `--mesh single|multi` raise (ROADMAP.md Queue 1
-item 8c).
+device); nothing picks another backend or device on its own.  `--mesh
+single|multi`, the reference's TPU pod layouts, raise (`--mesh RxM` is
+their counterpart over GPU ranks).
 
 Any ported arch serves (qwen3-4b, granite-8b, starcoder2-3b,
 moonshot-v1-16b-a3b, llama4-maverick-400b-a17b).  The attention window is
@@ -46,7 +48,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.data import sample_tokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.distributed import initialize_distributed, world
-from repro_torch.launch.mesh import mesh_from_arg
+from repro_torch.launch.mesh import mesh_from_arg, model_axis
 from repro_torch.launch.steps import batch_rows, init_model, make_decode_step
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
@@ -86,20 +88,26 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
     serve does).  On a mesh (`launch.mesh.SweepMesh` over the ranks) every
     rank draws the same prompts, keeps the caches of its
     `steps.batch_rows` and returns the same result: the logits and tokens
-    of all rows.  The caches, the step positions and the tokens stay on
-    the device, so the loop syncs with the host only at the phase
-    boundaries."""
+    of all rows.  Over a "model" axis of M > 1 `params` are this rank's
+    shards (`launch.sharding.shard_params`; the random weights are those
+    of one rank from `seed`, each leaf sliced as it is drawn:
+    `steps.init_model`) and the caches hold its KV heads.  The caches,
+    the step positions and the tokens stay on the device, so the loop
+    syncs with the host only at the phase boundaries."""
     dev = resolve_device(device)
-    if params is None:
-        params = init_model(cfg, torch.Generator(dev).manual_seed(seed), dev)
     max_len = prompt_len + gen
     step, meta = make_decode_step(cfg, shape, plain=plain, mesh=mesh)
+    m = model_axis(mesh).size
+    if params is None:
+        params = init_model(cfg, torch.Generator(dev).manual_seed(seed),
+                            dev, mesh=mesh)
     prompts = torch.as_tensor(
         sample_tokens(batch, prompt_len, vocab=cfg.vocab_size, seed=seed),
         dtype=torch.long, device=dev)
     rows = batch_rows(mesh, batch)
     caches = T.init_caches(cfg, rows.stop - rows.start, max_len,
-                           window=meta["window"], device=dev)
+                           window=meta["window"], device=dev,
+                           model_parallel=m)
     positions = torch.arange(max_len, dtype=torch.int32, device=dev)
     sampler = torch.Generator(dev).manual_seed(seed + 7)
     v = cfg.vocab_size
@@ -140,7 +148,8 @@ def main() -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mesh", default="1x1",
-                    help="Rx1: the batch split over R ranks (torchrun)")
+                    help="RxM: the batch split over R row groups of M "
+                         "tensor-parallel ranks (torchrun)")
     ap.add_argument("--backend", default=None,
                     help="the process group's backend (gloo for several "
                          "ranks on one card); default NCCL on a card")

@@ -31,9 +31,20 @@ applies the same update, so the replicas stay bitwise equal.  Prefill and
 decode split the batch over the worker axes when U divides it (the
 reference's `tok_spec` rule) and gather the logits, so every rank returns
 the global tensor; each rank keeps its own rows' KV caches
-(`batch_rows`).  None and a one-device mesh are U = 1 (no attacker); a
-"model" axis larger than 1 raises (ROADMAP.md Queue 1 item 8c), and so do
-the encoder-decoder (audio) and VLM inputs (item 10).
+(`batch_rows`).  None and a one-device mesh are U = 1 (no attacker).
+
+A "model" axis of M > 1 (`launch.mesh.model_axis`) splits every layer of
+each worker over M ranks, tensor parallel (`common.tensor_parallel`): the
+params a step takes and returns are this rank's shards
+(`launch.sharding.shard_params` of `param_specs(cfg, M)`), the worker
+group is the ranks of this rank's model index, and the gradients' sum runs
+over it alone.  Each rank draws each leaf's noise at the leaf's full shape
+from the same stream and keeps its slice, so the draws are the one-process
+run's; the stale stats sum each split leaf's shards over the model group
+and count a replicated leaf once.  Prefill and decode gather the vocab
+shards of the logits over the model group, then the rows over the worker
+group.  The encoder-decoder (audio) and VLM inputs raise (ROADMAP.md Queue
+1 item 10).
 """
 from __future__ import annotations
 
@@ -49,11 +60,14 @@ from repro_torch.core.channel import (ChannelConfig, noise_std_for_snr,
                                       sample_channel_gains)
 from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.launch.distributed import all_gather, all_reduce_sum
-from repro_torch.launch.mesh import worker_axes
+from repro_torch.launch.mesh import model_axis, worker_axes
+from repro_torch.launch.sharding import init_shards, param_specs
+from repro_torch.models import attention as ATT
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
-from repro_torch.models.common import ModelConfig, count_params
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.models.common import (ModelConfig, count_params,
+                                       tensor_parallel)
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -73,10 +87,12 @@ def _refuse_audio(cfg: ModelConfig) -> None:
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator],
-               device=None) -> Dict:
-    """Random weights of cfg (see `transformer.init_lm`)."""
+               device=None, mesh=None) -> Dict:
+    """Random weights of cfg (see `transformer.init_lm`); on a mesh with a
+    "model" axis, this rank's shards of them (`launch.sharding.
+    init_shards`: the whole weights are never formed)."""
     _refuse_audio(cfg)
-    return T.init_lm(generator, cfg, device)
+    return init_shards(cfg, generator, device, mesh)
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -215,10 +231,17 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     leaves in order); every rank of a mesh takes the same draws.
     use_floa=False is the plain mean: s = 1/U, no bias, no noise, nothing
     drawn.  metrics: {"loss": the mean per-worker loss over all U,
-    "grad_scale": sum(s) + bias_w}."""
+    "grad_scale": sum(s) + bias_w}.  On a mesh with a "model" axis of
+    M > 1 params are this rank's shards (`launch.sharding.shard_params`
+    of meta["params_specs"]) and so are the new params; draws["z"] stays
+    one full-shape tensor a leaf, of which each rank takes its slice."""
     shape = shape or dict(global_batch=256, seq_len=4096)
     wa = worker_axes(mesh)
+    axis = model_axis(mesh)
+    ATT.check_heads(cfg, axis.size)
     u, group = wa.num_workers, wa.group
+    specs = param_specs(cfg, axis.size)
+    split = tree_leaves(specs)   # each leaf's split dim, or None
     dim = param_count(cfg)
     floa = default_floa(mesh, dim, policy=policy, n_byzantine=n_byzantine)
     channel, power, attack = floa["channel"], floa["power"], floa["attack"]
@@ -227,7 +250,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
 
     def weighted_loss(params, rows, coeffs):
         # this process's rows; on a mesh the MoE aux is the global batch's
-        with MOE.worker_batch(group):
+        with MOE.worker_batch(group), tensor_parallel(axis):
             per_ex, aux = T.lm_per_example_loss(params, rows, cfg)
         # the local losses L_i of this process's workers
         per_worker = per_ex.reshape(wa.count, -1).mean(dim=1)
@@ -272,8 +295,11 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             # stale-stat estimators for the next round, off the noiseless
             # aggregate; every sum in f32
             ssum = torch.sum(s) + bias_w
-            s1 = sum(torch.sum(g, dtype=torch.float32) for g in grads)
-            s2 = sum(torch.sum(torch.square(g.float())) for g in grads)
+            if axis.size == 1:
+                s1 = sum(torch.sum(g, dtype=torch.float32) for g in grads)
+                s2 = sum(torch.sum(torch.square(g.float())) for g in grads)
+            else:   # the split leaves' shards summed over the model group
+                s1, s2 = _split_stats(grads, split, axis.group)
             fdim = float(dim)
             mean_g = s1 / fdim / torch.where(torch.abs(ssum) > 1e-9, ssum,
                                              torch.ones_like(ssum))
@@ -291,9 +317,13 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             for i, p in enumerate(leaves_p):
                 g, grads[i] = grads[i], None
                 z = None
-                if noisy:
-                    z = (torch.randn(g.shape, generator=gen, device=dev)
+                if noisy:   # the leaf's full shape, then this rank's slice
+                    z = (torch.randn(_full_shape(g, split[i], axis),
+                                     generator=gen, device=dev)
                          if gen is not None else draws["z"][i])
+                    if split[i] is not None:
+                        z = z.narrow(split[i], axis.index * g.shape[split[i]],
+                                     g.shape[split[i]])
                 new_leaves.append(_noisy_sgd(
                     p, g, (bias_w * gbar).to(g.dtype), z,
                     eps * channel.noise_std, alpha))
@@ -302,7 +332,31 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return tree_unflatten(treedef, new_leaves), new_state, metrics
 
     return train_step, dict(dim=dim, num_workers=u, policy=str(policy),
-                            batch=batch_shapes(cfg, shape, "train"))
+                            batch=batch_shapes(cfg, shape, "train"),
+                            params_specs=specs)
+
+
+def _full_shape(x: Tensor, dim: Optional[int], axis) -> Tuple[int, ...]:
+    """The full shape of a leaf whose shard is x (split on dim, or not)."""
+    if dim is None:
+        return tuple(x.shape)
+    return tuple(n * axis.size if i == dim else n
+                 for i, n in enumerate(x.shape))
+
+
+def _split_stats(grads, split, group) -> Tuple[Tensor, Tensor]:
+    """(sum g, sum g^2) over the whole model, f32, from this rank's
+    gradient shards: the split leaves' local sums all_reduced over the
+    model group, plus the replicated leaves' sums, counted once."""
+    def sums(gs):
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        return torch.stack([
+            sum((torch.sum(g, dtype=torch.float32) for g in gs), zero),
+            sum((torch.sum(torch.square(g.float())) for g in gs), zero)])
+    local = all_reduce_sum(sums([g for g, d in zip(grads, split)
+                                 if d is not None]), group)
+    s = local + sums([g for g, d in zip(grads, split) if d is None])
+    return s[0], s[1]
 
 
 # ---------------------------------------------------------------------------
@@ -316,20 +370,23 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
     of the LAST position only (the full [B, S, vocab] logits are never
     formed), batch {"tokens": [B, S]}, the global batch; no gradients.  On
     a mesh each rank scores its `batch_rows` and the logits are gathered,
-    so every rank returns all B rows."""
+    so every rank returns all B rows.  Over a "model" axis params are this
+    rank's shards and the vocab shards of the logits are gathered."""
     wa = worker_axes(mesh)
+    axis = model_axis(mesh)
+    ATT.check_heads(cfg, axis.size)
     _refuse_audio(cfg)
 
     @torch.no_grad()
     def prefill(params, batch):
         rows = batch_rows(wa, batch["tokens"].shape[0])
         split = rows.stop - rows.start < batch["tokens"].shape[0]
-        with MOE.worker_batch(wa.group if split else None, aux=False):
+        with MOE.worker_batch(wa.group if split else None, aux=False), \
+                tensor_parallel(axis):
             h, _ = T.hidden_for_batch(
                 params, batch["tokens"][rows], cfg,
                 embeds_prefix=batch.get("embeds_prefix"))
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = h[:, -1, :] @ head
+            logits = T.logits_from_hidden(params, h[:, -1, :], cfg)
         return all_gather(logits, wa.group) if split else logits
 
     meta = dict(dim=param_count(cfg))
@@ -368,20 +425,25 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
     (for kernel-vs-plain comparisons).  On a mesh tokens1 is the global
     [B, 1], each rank decodes its `batch_rows(mesh, B)` against caches of
     that many rows, and the logits are gathered: every rank returns all B
-    rows."""
+    rows.  Over a "model" axis of M > 1 params are this rank's shards
+    (`launch.sharding.shard_params` of `param_specs(cfg, M)`) and the
+    caches its KV heads (`transformer.init_caches(..., model_parallel=M)`)."""
     _refuse_audio(cfg)
     window = decode_window(cfg, shape_name)
     wa = worker_axes(mesh)
+    axis = model_axis(mesh)
+    ATT.check_heads(cfg, axis.size)
 
     def step(params, caches, tokens1, pos):
         rows = batch_rows(wa, tokens1.shape[0])
-        if rows.stop - rows.start == tokens1.shape[0]:
-            return T.decode_step(params, caches, tokens1, pos, cfg,
-                                 window=window, plain=plain)
-        with MOE.worker_batch(wa.group, aux=False):
-            logits, caches = T.decode_step(params, caches, tokens1[rows],
-                                           pos, cfg, window=window,
-                                           plain=plain)
+        with tensor_parallel(axis):
+            if rows.stop - rows.start == tokens1.shape[0]:
+                return T.decode_step(params, caches, tokens1, pos, cfg,
+                                     window=window, plain=plain)
+            with MOE.worker_batch(wa.group, aux=False):
+                logits, caches = T.decode_step(params, caches, tokens1[rows],
+                                               pos, cfg, window=window,
+                                               plain=plain)
         return all_gather(logits, wa.group), caches
 
     return step, dict(dim=param_count(cfg), window=window)

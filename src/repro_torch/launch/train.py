@@ -4,23 +4,26 @@ training on one device, or on U ranks, one FL worker each.
   python -m repro_torch.launch.train --arch qwen3-4b [--smoke] \
       [--device cuda|cpu] --steps 5 --batch 8 --seq 64 --policy bev \
       [--alpha 0.02] [--byzantine N] [--ckpt DIR [--ckpt-every K]] \
-      [--mesh Ux1 [--backend gloo|nccl]]
+      [--mesh UxM [--backend gloo|nccl]]
 
 Runs real steps of `launch.steps.make_train_step` on random weights drawn
 from seed 0, with the synthetic Markov token stream (`data.text`) as the
 batches (step t draws from seed t).  One device is U = 1 worker, so
 --byzantine has no attacker to place (as on the JAX package's 1x1 mesh).
-`--mesh Ux1` trains on U ranks started by torchrun (WORLD_SIZE, RANK,
+`--mesh UxM` trains on U x M ranks started by torchrun (WORLD_SIZE, RANK,
 MASTER_ADDR / MASTER_PORT; `launch.distributed.initialize_distributed`, as
 the reference's driver starts its processes): the ("data", "model") mesh
-of U x 1, each rank one FL worker on its B / U rows, the gradients summed
-over the ranks (the over-the-air sum), the first min(N, U // 2 - 1)
-workers the attackers.  Several ranks on one card name `--backend gloo`
-and `--device cuda:0` (NCCL refuses two ranks on one device); nothing
-picks another backend or device on its own.  A "model" axis larger than 1
-and `--mesh single|multi` raise (ROADMAP.md Queue 1 item 8c).  Rank 0
-prints and writes the checkpoint.  --ckpt writes the params in the
-checkpoint format both packages read (`checkpoint.save`).  The default
+of U x M, each row of M ranks one FL worker on its B / U rows, every layer
+split over its M ranks (tensor parallel; each rank holds its shard of the
+weights, `launch.sharding`), the gradients summed over the U workers (the
+over-the-air sum), the first min(N, U // 2 - 1) workers the attackers.
+Several ranks on one card name `--backend gloo` and `--device cuda:0`
+(NCCL refuses two ranks on one device); nothing picks another backend or
+device on its own.  `--mesh single|multi`, the reference's TPU pod
+layouts, raise (`--mesh UxM` is their counterpart over GPU ranks).  Rank 0
+prints and writes the checkpoint: --ckpt gathers the shards and writes the
+whole params in the checkpoint format both packages read
+(`checkpoint.save`).  The default
 device is the card; --device cpu runs the same steps on the CPU (use
 --smoke there).
 """
@@ -39,6 +42,7 @@ from repro_torch.data import sample_tokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.distributed import initialize_distributed, world
 from repro_torch.launch.mesh import mesh_from_arg
+from repro_torch.launch.sharding import gather_params
 from repro_torch.launch.steps import (init_floa_state, init_model,
                                       make_train_step)
 
@@ -49,7 +53,8 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--mesh", default="1x1",
-                    help="Ux1: U ranks (torchrun), one FL worker each")
+                    help="UxM: U FL workers of M tensor-parallel ranks "
+                         "each (torchrun)")
     ap.add_argument("--backend", default=None,
                     help="the process group's backend (gloo for several "
                          "ranks on one card); default NCCL on a card")
@@ -75,7 +80,9 @@ def main(argv=None) -> None:
     step_fn, meta = make_train_step(cfg, mesh, shape, alpha=args.alpha,
                                     policy=Policy(args.policy),
                                     n_byzantine=args.byzantine)
-    params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    specs = meta["params_specs"]
+    params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev,
+                        mesh=mesh)
     state = init_floa_state(dev)
     if lead:
         print(f"arch={cfg.name} params={meta['dim']:,} workers="
@@ -94,12 +101,17 @@ def main(argv=None) -> None:
                   f"({time.perf_counter() - t0:5.2f}s)", flush=True)
         if not math.isfinite(loss):
             raise RuntimeError("training diverged")
-        if (lead and args.ckpt and args.ckpt_every
+        if (args.ckpt and args.ckpt_every
                 and (t + 1) % args.ckpt_every == 0):
-            CK.save(args.ckpt, t + 1, params)
-    if lead and args.ckpt:
-        CK.save(args.ckpt, args.steps, params)
-        print(f"checkpoint -> {args.ckpt}")
+            full = gather_params(params, specs, mesh)   # every rank calls
+            if lead:
+                CK.save(args.ckpt, t + 1, full)
+            del full
+    if args.ckpt:
+        full = gather_params(params, specs, mesh)
+        if lead:
+            CK.save(args.ckpt, args.steps, full)
+            print(f"checkpoint -> {args.ckpt}")
     if started:
         torch.distributed.destroy_process_group()
 

@@ -22,6 +22,22 @@ depend on slot order (RoPE is applied to k at its true position when it
 is written).  `kv_cache_dtype="int8"` and MLA raise NotImplementedError
 (ROADMAP.md Queue 1 item 10).
 
+Over a "model" axis of M ranks (`common.tensor_parallel`) each rank holds
+the query heads axis.part(H) of wq and wo (the reference's `_wspec`
+prefers the head dims) and computes their attention: the input enters
+through `copy_in`, and wo's partial product leaves through one
+`reduce_out`.  Its KV heads are axis.part(KV) when M divides KV.  When it
+does not, the reference's spec shards wk / wv on d instead (the smoke
+qwen3-4b and starcoder2-3b at M = 4): the rank's k / v projection is a
+partial product over its d rows, summed over the ranks (one all_reduce,
+and one in the backward), and the rank keeps the KV heads its query heads
+read (`local_heads`; M a multiple of KV).  A rank's decode cache holds
+those KV heads only: where KV does not divide, the reference's
+`cache_specs` shards another dim of the cache (hd, or the sequence), and
+the port does not copy that, since the decode kernel reads whole heads.
+It changes no value.  Query heads M does not divide raise
+NotImplementedError (`check_heads`).
+
 The sequence-sharded decode of the reference (`decode_local_partial`,
 `combine_partials`: each rank holds a shard of the cache's positions and
 the partial softmax states are combined with a max and two sums) is plain
@@ -35,10 +51,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.launch.distributed import all_reduce_max, all_reduce_sum
+from repro_torch.launch.distributed import (all_reduce_max, all_reduce_sum,
+                                            copy_in, reduce_out)
+from repro_torch.launch.mesh import Q_MODEL_AXIS
 from repro_torch.models.common import (ModelConfig, ParamInit,
-                                       make_causal_mask, rms_norm,
-                                       rope_cos_sin, rope_rotate)
+                                       make_causal_mask, model_shards,
+                                       rms_norm, rope_cos_sin, rope_rotate)
 
 Tensor = torch.Tensor
 
@@ -63,19 +81,71 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
     return (x @ w.reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
 
 
+def check_heads(cfg: ModelConfig, m: int) -> None:
+    """Raise NotImplementedError unless the port computes cfg's attention
+    over m "model" ranks: m divides the query heads, and divides the KV
+    heads or (wk / wv sharded on d) divides d and is a multiple of KV."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if m > 1 and (h % m or (kv % m and (m % kv or cfg.d_model % m))):
+        raise NotImplementedError(
+            f"{cfg.name} on {m} \"model\" ranks (H {h}, KV {kv}, d "
+            f"{cfg.d_model}): {Q_MODEL_AXIS}")
+
+
+def local_heads(cfg: ModelConfig, m: int, index: int) -> Tuple[slice, slice]:
+    """(query heads, KV heads) of "model" rank `index` of m: its
+    H / m query heads, and the KV heads they read (KV / m of them, or one
+    when m is a multiple of KV)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    hq = h // m
+    if kv % m == 0:
+        return slice(index * hq, (index + 1) * hq), slice(
+            index * kv // m, (index + 1) * kv // m)
+    g = index * hq * kv // h
+    return slice(index * hq, (index + 1) * hq), slice(g, g + 1)
+
+
 def _qkv(p: Dict, x: Tensor, cfg: ModelConfig,
          rope: Optional[Tuple[Tensor, Tensor]]
          ) -> Tuple[Tensor, Tensor, Tensor]:
     """Projection, then qk-norm (RMS over hd), then RoPE on q and k; v gets
     neither.  x [B, S, d], rope the (cos, sin) of the positions [B, S]
-    (`rope_cos_sin`) -> [B, S, heads, hd] each."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    (`rope_cos_sin`) -> [B, S, heads, hd] each (this rank's heads under
+    `tensor_parallel`)."""
+    axis = model_shards()
+    if axis is None:
+        q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+        norms = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else None
+    else:
+        x = copy_in(x, axis.group)
+        q = _proj(x, p["wq"])
+        if cfg.n_kv_heads % axis.size == 0:
+            k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+        else:   # wk / wv sharded on d: partial products, summed
+            xd = x[..., axis.part(cfg.d_model)]
+            kv = torch.cat([_proj(xd, p["wk"]), _proj(xd, p["wv"])], dim=-2)
+            kv = copy_in(reduce_out(kv, axis.group), axis.group)
+            heads = local_heads(cfg, axis.size, axis.index)[1]
+            k = kv[..., heads, :]
+            v = kv[..., cfg.n_kv_heads:, :][..., heads, :]
+        # replicated scales on this rank's heads: their gradient is summed
+        norms = (copy_in(torch.stack([p["q_norm"], p["k_norm"]]),
+                         axis.group) if cfg.qk_norm else None)
+    if norms is not None:
+        q = rms_norm(q, norms[0], cfg.norm_eps)
+        k = rms_norm(k, norms[1], cfg.norm_eps)
     if rope is not None:
         q, k = rope_rotate(q, *rope), rope_rotate(k, *rope)
     return q, k, v
+
+
+def _out(p: Dict, out: Tensor) -> Tensor:
+    """The output projection of [B, S, H, hd] attention: wo's product, the
+    ranks' partial products summed under `tensor_parallel`."""
+    h, hd, d = p["wo"].shape
+    y = out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
+    axis = model_shards()
+    return y if axis is None else reduce_out(y, axis.group)
 
 
 def _gqa_core(q: Tensor, k: Tensor, v: Tensor,
@@ -129,9 +199,7 @@ def gqa_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
     positions [B, S]."""
     rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     q, k, v = _qkv(p, x, cfg, rope)
-    out = _chunked_attn(q, k, v, causal, window)
-    h, hd, d = p["wo"].shape
-    return out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
+    return _out(p, _chunked_attn(q, k, v, causal, window))
 
 
 def check_cache_supported(cfg: ModelConfig) -> None:
@@ -144,12 +212,16 @@ def check_cache_supported(cfg: ModelConfig) -> None:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               window: Optional[int], dtype, device=None) -> Dict[str, Tensor]:
+               window: Optional[int], dtype, device=None,
+               model_parallel: int = 1) -> Dict[str, Tensor]:
     """Zeroed KV cache of one attention layer: k/v [B, slots, KV, hd], a ring
-    of slots = min(max_len, window) if windowed, else max_len."""
+    of slots = min(max_len, window) if windowed, else max_len; over
+    model_parallel ranks, the KV heads of one rank (`local_heads`)."""
     check_cache_supported(cfg)
+    check_heads(cfg, model_parallel)
     slots = min(max_len, window) if window else max_len
-    shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
+    kv = local_heads(cfg, model_parallel, 0)[1]
+    shape = (batch, slots, kv.stop - kv.start, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -183,9 +255,7 @@ def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
     cache["v"].index_copy_(1, slot, v1)
     out = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                                pos, plain=plain)
-    h, hd, d = p["wo"].shape
-    y = out.reshape(b, 1, h * hd) @ p["wo"].reshape(h * hd, d)
-    return y, cache
+    return _out(p, out.reshape(b, 1, *out.shape[1:])), cache
 
 
 def decode_local_partial(q: Tensor, k_loc: Tensor, v_loc: Tensor,

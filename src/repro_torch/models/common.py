@@ -4,18 +4,28 @@ RMS norm and RoPE.
 The counterpart of `repro/models/common.py` for the serving and training
 paths: the config, the causal mask and the vocab-padded cross-entropy
 beside the norms and RoPE.  The JAX package's sharding machinery
-(PartitionSpecs, `shard_hint`, `maybe_scan`) has no counterpart: the port
-runs on one card and loops over layers in Python.  Parameters are nested
-dicts of tensors in the JAX layout, so `models/transformer.py::
-params_from_jax` carries JAX weights across as they are.
+(PartitionSpecs, `shard_hint`) becomes explicit tensor parallelism: the
+layout is `launch/sharding.py`'s, and inside `with tensor_parallel(axis):`
+(a `launch.mesh.ModelAxis` of M > 1 ranks) each layer computes this rank's
+shard and writes its own collectives, Megatron style
+(`launch.distributed.copy_in` / `reduce_out`), where XLA derives them from
+the specs; `softmax_xent_sharded` is the CE over vocab-sharded logits.
+`maybe_scan` has no counterpart: the port loops over layers in Python.
+Parameters are nested dicts of tensors in the JAX layout, so
+`models/transformer.py::params_from_jax` carries JAX weights across as they
+are.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+
+from repro_torch.launch.distributed import all_reduce_max, reduce_out
 
 Tensor = torch.Tensor
 
@@ -98,18 +108,26 @@ class ParamInit:
 
     With `stack=n` every parameter gets a leading layer axis of n and is
     drawn one layer at a time, so at most one layer's slice exists in f32.
-    On the "meta" device nothing is drawn or allocated (shapes only)."""
+    On the "meta" device nothing is drawn or allocated (shapes only).
+    `keep`, given, maps each parameter as soon as it is drawn to what is
+    kept of it (a rank's shard: `launch.sharding.init_shards`)."""
 
     def __init__(self, generator: Optional[torch.Generator], dtype,
-                 device=None, stack: int = 0):
+                 device=None, stack: int = 0,
+                 keep: Optional[Callable[[Tensor], Tensor]] = None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(
             device if device is not None else generator.device)
         self.stack = stack
+        self.keep = keep
 
     def param(self, shape: Tuple[int, ...], fan_in: Optional[int] = None,
               init: str = "normal", dtype=None) -> Tensor:
+        out = self._draw(shape, fan_in, init, dtype)
+        return out if self.keep is None else self.keep(out)
+
+    def _draw(self, shape, fan_in, init, dtype) -> Tensor:
         full = ((self.stack,) if self.stack else ()) + tuple(shape)
         dtype = dtype or self.dtype
         if init == "zeros":
@@ -192,6 +210,57 @@ def softmax_xent(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - ll
+
+
+def softmax_xent_sharded(logits: Tensor, labels: Tensor, vocab: int,
+                         axis) -> Tensor:
+    """`softmax_xent` over logits whose last dim is split over the "model"
+    ranks of `axis` (this rank's [..., Vp / M] columns, global ids
+    axis.part(Vp)): the row max by an all_reduce MAX, the sum of exps by an
+    all_reduce SUM, and the label's logit from the rank that holds it
+    (zeros elsewhere, in the same SUM).  The padding ids (>= vocab) are
+    masked in global ids, so they may fill the last ranks' columns."""
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    lo = axis.index * v_loc
+    if lo + v_loc > vocab:
+        pad = torch.arange(lo, lo + v_loc, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    # the max only shifts the exps: the log-sum-exp's gradient is the
+    # softmax whatever it is
+    m = all_reduce_max(logits.detach().amax(dim=-1), axis.group)
+    t = labels.long() - lo
+    mine = (t >= 0) & (t < v_loc)
+    ll = torch.gather(logits, -1, torch.where(mine, t, 0)[..., None])[..., 0]
+    sums = reduce_out(torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        ll.masked_fill(~mine, 0.0)], dim=-1), axis.group)
+    return m + torch.log(sums[..., 0]) - sums[..., 1]
+
+
+# the "model" axis of the innermost `tensor_parallel` block (as the
+# reference scopes its sharding hints, `repro/models/common.py::_SHARD_CTX`)
+_MODEL_AXIS = contextvars.ContextVar("repro_torch_model_axis", default=None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(axis) -> Iterator[None]:
+    """Inside the block every layer runs split over `axis` (a
+    `launch.mesh.ModelAxis`): the parameters are this rank's shards
+    (`launch.sharding.shard_params`) and the residual stream is replicated
+    over the axis.  None or an axis of one rank changes nothing."""
+    token = _MODEL_AXIS.set(axis if axis is not None and axis.size > 1
+                            else None)
+    try:
+        yield
+    finally:
+        _MODEL_AXIS.reset(token)
+
+
+def model_shards():
+    """The `ModelAxis` of the innermost `tensor_parallel` block, None
+    outside one (or for one rank)."""
+    return _MODEL_AXIS.get()
 
 
 def count_params(params: Dict) -> int:

@@ -40,6 +40,16 @@ formed (the sums through `all_reduce_sum_local_grad`, so each rank's
 backward holds its own tokens' share), and `moe_capacity_gather` raises:
 its capacity ceil(k T / E) * cf and its drops are the global batch's,
 which one rank's tokens cannot reproduce.
+
+Over a "model" axis of M ranks (`common.tensor_parallel`) the router stays
+replicated in f32: the residual stream is the same bytes on every model
+rank, so the top-k choices are too.  `moe_scan_dense` splits each expert's
+f over the ranks (the reference's spec), `moe_capacity_gather` splits the
+experts (E / M a rank; the tokens are replicated, so the capacity and the
+dropped pairs stay the global ones), and the shared experts split their f;
+the routed and shared partial outputs are summed before the layer's one
+`reduce_out`.  The combine weights enter the split through `copy_in`, so
+the router's gradient is whole on every rank.
 """
 from __future__ import annotations
 
@@ -50,8 +60,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.distributed import all_reduce_sum_local_grad
-from repro_torch.models.common import ModelConfig, ParamInit
+from repro_torch.launch.distributed import (all_reduce_sum_local_grad,
+                                            copy_in, reduce_out)
+from repro_torch.models.common import ModelConfig, ParamInit, model_shards
 from repro_torch.models.ffn import init_swiglu, swiglu
 
 Tensor = torch.Tensor
@@ -181,15 +192,28 @@ def _experts(w1: Tensor, wg: Tensor, w2: Tensor, x: Tensor) -> Tensor:
     return torch.bmm(h, w2)
 
 
+def _routed_split(cfg: ModelConfig) -> bool:
+    """Whether the routed experts are split over the `tensor_parallel`
+    axis: their f (scan_dense) or their E (capacity_gather), as the
+    reference's specs split them."""
+    axis, m = model_shards(), cfg.moe
+    return axis is not None and axis.shards(
+        m.d_expert if m.impl == "scan_dense" else m.num_experts)
+
+
 def moe_scan_dense(p: Dict, x2: Tensor, cfg: ModelConfig
                    ) -> Tuple[Tensor, Tensor]:
     """x2 [T, d] -> ([T, d], aux loss): every expert on every token, each
     output weighted by its (token, expert) combine weight (the top-k gates,
-    0 elsewhere)."""
+    0 elsewhere).  Under `tensor_parallel` with the f split, the output is
+    this rank's partial sum."""
     m = cfg.moe
     probs = router_probs(p, x2, cfg)                              # [T, E]
     gates, idx = _top_k(probs, m.top_k)
     comb = torch.zeros_like(probs).scatter(1, idx, gates)         # [T, E]
+    if _routed_split(cfg):
+        group = model_shards().group
+        x2, comb = copy_in(x2, group), copy_in(comb, group)
     out = _experts(p["w1"], p["wg"], p["w2"], x2)                 # [E, T, d]
     y = (comb.T[:, :, None].to(out.dtype) * out).sum(dim=0)
     return y, load_balance_loss(probs, idx, m.num_experts)
@@ -198,7 +222,9 @@ def moe_scan_dense(p: Dict, x2: Tensor, cfg: ModelConfig
 def moe_capacity_gather(p: Dict, x2: Tensor, cfg: ModelConfig
                         ) -> Tuple[Tensor, Tensor]:
     """x2 [T, d] -> ([T, d], aux loss): sort-based bucketed dispatch with
-    capacity; pairs past an expert's capacity are dropped."""
+    capacity; pairs past an expert's capacity are dropped.  Under
+    `tensor_parallel` with the experts split, this rank computes the
+    buckets of its experts and the output is its partial sum."""
     if _WORKER_GROUP.get()[0] is not None:
         raise NotImplementedError(
             "moe_capacity_gather over the worker axes: its capacity "
@@ -211,6 +237,13 @@ def moe_capacity_gather(p: Dict, x2: Tensor, cfg: ModelConfig
     cap = max(int(-(-k * t // e) * m.capacity_factor), 1)
     probs = router_probs(p, x2, cfg)
     gates, idx = _top_k(probs, k)
+    # this rank's experts [e0, e0 + e_loc): all of them off the split
+    e_loc = p["w1"].shape[0]
+    e0 = 0
+    if _routed_split(cfg):
+        axis = model_shards()
+        e0 = axis.index * e_loc
+        x2, gates = copy_in(x2, axis.group), copy_in(gates, axis.group)
 
     flat_e = idx.reshape(-1)                                      # [T k]
     order = torch.argsort(flat_e, stable=True)
@@ -218,14 +251,18 @@ def moe_capacity_gather(p: Dict, x2: Tensor, cfg: ModelConfig
     stok = torch.div(order, k, rounding_mode="floor")             # token
     seg_start = torch.searchsorted(se, torch.arange(e, device=se.device))
     rank = torch.arange(t * k, device=se.device) - seg_start[se]
-    ok = rank < cap
-    slot = torch.where(ok, se * cap + rank, torch.full_like(rank, e * cap))
-    # row e * cap takes every dropped pair and is never read
-    buf = x2.new_zeros((e * cap + 1, d))
+    ok = (rank < cap) & (se >= e0) & (se < e0 + e_loc)
+    slot = torch.where(ok, (se - e0) * cap + rank,
+                       torch.full_like(rank, e_loc * cap))
+    # row e_loc * cap takes every dropped (or other rank's) pair and is
+    # never read
+    buf = x2.new_zeros((e_loc * cap + 1, d))
     buf[slot] = x2[stok]
     ye = _experts(p["w1"], p["wg"], p["w2"],
-                  buf[:e * cap].reshape(e, cap, d)).reshape(e * cap, d)
-    out = torch.where(ok[:, None], ye[torch.clamp_max(slot, e * cap - 1)],
+                  buf[:e_loc * cap].reshape(e_loc, cap, d)
+                  ).reshape(e_loc * cap, d)
+    out = torch.where(ok[:, None],
+                      ye[torch.clamp_max(slot, e_loc * cap - 1)],
                       torch.zeros((), dtype=ye.dtype, device=ye.device))
     # back to (token, k) order, then a fixed-order sum over k
     pairs = torch.empty_like(out)
@@ -237,12 +274,27 @@ def moe_capacity_gather(p: Dict, x2: Tensor, cfg: ModelConfig
 
 def moe_ffn(p: Dict, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """[B, S, d] -> ([B, S, d], aux loss), plus the shared experts if the
-    config has them."""
+    config has them.  Under `tensor_parallel` the split parts' partial
+    outputs are summed, then reduced over the ranks once."""
     b, s, d = x.shape
     impl = (moe_scan_dense if cfg.moe.impl == "scan_dense"
             else moe_capacity_gather)
     y2, aux = impl(p, x.reshape(b * s, d), cfg)
     y = y2.reshape(b, s, d)
+    axis = model_shards()
+    # the split parts' partial sum, and the whole parts' sum
+    partial, whole = (y, None) if _routed_split(cfg) else (None, y)
     if cfg.moe.num_shared:
-        y = y + swiglu(p["shared"], x)
-    return y, aux
+        if axis is not None and axis.shards(cfg.moe.num_shared
+                                            * cfg.moe.d_expert):
+            partial = _plus(partial, swiglu(p["shared"],
+                                            copy_in(x, axis.group)))
+        else:
+            whole = _plus(whole, swiglu(p["shared"], x))
+    if partial is not None:
+        whole = _plus(whole, reduce_out(partial, axis.group))
+    return whole, aux
+
+
+def _plus(a: Optional[Tensor], b: Tensor) -> Tensor:
+    return b if a is None else a + b

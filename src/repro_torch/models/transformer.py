@@ -23,6 +23,16 @@ without `torch.utils.checkpoint` (it does not compose with
 gradients).  The other block kinds (local_attn, ssm, rglru), MLA, SSM,
 encoder-decoder and frontends (a VLM's `embeds_prefix`) raise
 NotImplementedError (ROADMAP.md Queue 1 item 10).
+
+Under `common.tensor_parallel` (a "model" axis of M ranks, the parameters
+this rank's shards, `launch/sharding.py`) the residual stream stays
+replicated: the attention, the SwiGLU (wi / wg split on f, wo on f) and
+the MoE each take their input through `copy_in` and reduce their output
+once; the embedding is split on its vocab rows (each rank looks up the
+ids in its rows, zeros elsewhere, one `reduce_out`), the head on its vocab
+columns, and the CE is `softmax_xent_sharded`, so the [B, S, Vp] logits
+are never gathered in training.  `logits_from_hidden` gathers the vocab
+shards (prefill and decode).
 """
 from __future__ import annotations
 
@@ -34,8 +44,10 @@ import torch
 from repro_torch.models import attention as ATT
 from repro_torch.models import ffn as FFN
 from repro_torch.models import moe as MOE
-from repro_torch.models.common import (ModelConfig, ParamInit, rms_norm,
-                                       rope_cos_sin, softmax_xent)
+from repro_torch.launch.distributed import all_gather, copy_in, reduce_out
+from repro_torch.models.common import (ModelConfig, ParamInit, model_shards,
+                                       rms_norm, rope_cos_sin, softmax_xent,
+                                       softmax_xent_sharded)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
@@ -73,13 +85,13 @@ def _init_subblock(pi: ParamInit, kind: str, cfg: ModelConfig) -> Dict:
 
 
 def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
-            device=None) -> Dict[str, Any]:
+            device=None, keep=None) -> Dict[str, Any]:
     """Random weights in the JAX layout, drawn from `generator` on its
     device (or `device`; on "meta" nothing is allocated, for counting).
     Stacked leaves are drawn one layer at a time, so the model never exists
-    in f32."""
+    in f32.  `keep` maps each leaf as it is drawn (`ParamInit`)."""
     check_supported(cfg)
-    pi = ParamInit(generator, cfg.dtype, device)
+    pi = ParamInit(generator, cfg.dtype, device, keep=keep)
     vp, d = cfg.padded_vocab, cfg.d_model
     params: Dict[str, Any] = {"embed": pi.param((vp, d), fan_in=d),
                               "final_norm": pi.param((d,), init="zeros")}
@@ -87,7 +99,8 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
         params["lm_head"] = pi.param((d, vp), fan_in=d)
     n_rep, n_tail = layer_counts(cfg)
     if n_rep:
-        stacked = ParamInit(generator, cfg.dtype, pi.device, stack=n_rep)
+        stacked = ParamInit(generator, cfg.dtype, pi.device, stack=n_rep,
+                            keep=keep)
         params["blocks"] = {f"b{i}": _init_subblock(stacked, kind, cfg)
                             for i, kind in enumerate(cfg.block_pattern)}
     for t in range(n_tail):
@@ -111,29 +124,55 @@ def params_from_jax(params_np: Dict[str, Any], device) -> Dict[str, Any]:
             else _to_tensor(v, device) for k, v in params_np.items()}
 
 
+def _vocab_axis(cfg: ModelConfig):
+    """The `tensor_parallel` axis when it splits the vocab, else None."""
+    axis = model_shards()
+    return axis if axis is not None and axis.shards(cfg.padded_vocab) \
+        else None
+
+
 def embed_tokens(params: Dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return params["embed"][tokens.long()]
+    axis = _vocab_axis(cfg)
+    if axis is None:
+        return params["embed"][tokens.long()]
+    emb = params["embed"]                        # this rank's vocab rows
+    t = tokens.long() - axis.index * emb.shape[0]
+    mine = (t >= 0) & (t < emb.shape[0])
+    x = emb[torch.where(mine, t, 0)].masked_fill(~mine[..., None], 0.0)
+    return reduce_out(x, axis.group)
+
+
+def _head(params: Dict, cfg: ModelConfig) -> Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def logits_from_hidden(params: Dict, h: Tensor, cfg: ModelConfig) -> Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    """h [..., d] -> the logits [..., Vp]; under `tensor_parallel` each
+    rank's vocab columns, gathered."""
+    axis = _vocab_axis(cfg)
+    if axis is None:
+        return h @ _head(params, cfg)
+    return all_gather(copy_in(h, axis.group) @ _head(params, cfg),
+                      axis.group, dim=-1)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                window: Optional[int] = None, device=None) -> Dict:
+                window: Optional[int] = None, device=None,
+                model_parallel: int = 1) -> Dict:
     """Decode caches in the reference's layout: {"blocks": {"b<i>": {"k",
     "v": [L, B, S, KV, hd]}}} for the stacked super-blocks and
     {"tail<t>": {"b0": {"k", "v": [B, S, KV, hd]}}} for the tail blocks.
     `window` overrides cfg.window for every attention block (long_500k's
     SWA variant); a window makes each cache a ring of min(max_len, window)
-    slots."""
+    slots.  Over model_parallel "model" ranks, a rank's caches: the KV
+    heads its query heads read (`attention.local_heads`)."""
     check_supported(cfg)
     n_rep, n_tail = layer_counts(cfg)
     w_attn = window if window is not None else cfg.window
 
     def one(stack=()):
-        c = ATT.init_cache(cfg, batch, max_len, w_attn, cfg.dtype, "meta")
+        c = ATT.init_cache(cfg, batch, max_len, w_attn, cfg.dtype, "meta",
+                           model_parallel)
         return {k: torch.zeros(stack + x.shape, dtype=x.dtype, device=device)
                 for k, x in c.items()}
 
@@ -173,10 +212,15 @@ def _layers(cfg: ModelConfig, tree: Dict) -> List[Tuple[str, Dict]]:
 
 def _ffn(kind: str, p: Dict, h: Tensor, cfg: ModelConfig
          ) -> Tuple[Tensor, Optional[Tensor]]:
-    """The block's FFN: SwiGLU, or the MoE FFN and its aux loss."""
+    """The block's FFN: SwiGLU, or the MoE FFN and its aux loss; under
+    `tensor_parallel` the SwiGLU's f is split when M divides it."""
     if kind == "attn_moe":
         return MOE.moe_ffn(p, h, cfg)
-    return FFN.swiglu(p, h), None
+    axis = model_shards()
+    if axis is None or not axis.shards(cfg.d_ff):
+        return FFN.swiglu(p, h), None
+    return reduce_out(FFN.swiglu(p, copy_in(h, axis.group)),
+                      axis.group), None
 
 
 def _apply_subblock(kind: str, p: Dict, x: Tensor, positions: Tensor,
@@ -235,13 +279,21 @@ def chunked_ce(params: Dict, h: Tensor, labels: Tensor,
     """Per-position CE [B, S] from hidden states [B, S, d], the lm_head
     applied to `cfg.lm_head_chunk` positions at a time (the last slice
     holds the remainder), so the [B, S, vocab] logits never exist at
-    once."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    once.  Under `tensor_parallel` each chunk's logits are this rank's
+    vocab columns (`softmax_xent_sharded`)."""
+    head = _head(params, cfg)
     s = h.shape[1]
     ck = min(cfg.lm_head_chunk, s)
+    axis = _vocab_axis(cfg)
+    if axis is None:
+        return torch.cat([
+            softmax_xent(h[:, i:i + ck] @ head, labels[:, i:i + ck],
+                         cfg.vocab_size) for i in range(0, s, ck)], dim=1)
+    h = copy_in(h, axis.group)
     return torch.cat([
-        softmax_xent(h[:, i:i + ck] @ head, labels[:, i:i + ck],
-                     cfg.vocab_size) for i in range(0, s, ck)], dim=1)
+        softmax_xent_sharded(h[:, i:i + ck] @ head, labels[:, i:i + ck],
+                             cfg.vocab_size, axis)
+        for i in range(0, s, ck)], dim=1)
 
 
 def lm_per_example_loss(params: Dict, batch: Dict, cfg: ModelConfig,

@@ -293,7 +293,7 @@ def test_serve_entry_point(monkeypatch, capsys):
         monkeypatch.setattr(sys, "argv", argv)
         with pytest.raises(RuntimeError, match="cuda"):
             TS.main()
-    monkeypatch.setattr(sys, "argv", argv + ["--mesh", "4x2"])
+    monkeypatch.setattr(sys, "argv", argv + ["--mesh", "single"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         TS.main()
     monkeypatch.setattr(sys, "argv", argv + ["--device", "cpu"])

@@ -53,10 +53,11 @@ from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import ref as TREF
 from repro_torch.launch import steps as TSTEPS
-from repro_torch.launch.mesh import (Q_MODEL_AXIS, WorkerAxes,
+from repro_torch.launch.mesh import (Q_MODEL_AXIS, ModelAxis, WorkerAxes,
                                      make_debug_mesh, mesh_from_arg,
                                      worker_axes)
 from repro_torch.launch.serve import serve
+from repro_torch.models import attention as TATT
 from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves, tree_paths
@@ -377,13 +378,12 @@ def test_combine_partials_over_four_ranks(ranks4):
 
 
 def test_mesh_refusals(ranks4):
-    """Raised on 4 ranks: a "model" axis of 2 (NotImplementedError naming
-    item 8c), a mesh of half the ranks and a batch of 6 over U = 4
+    """Raised on 4 ranks: a (data, model) shape of 2 x 2, which names no
+    ranks, a mesh of half the ranks and a batch of 6 over U = 4
     (ValueError)."""
     r = ranks4["refusals.r0"]
-    assert r["model_axis"] == ("NotImplementedError",
-                               "mesh {'data': 2, 'model': 2}: "
-                               + Q_MODEL_AXIS)
+    assert r["model_axis"][0] == "ValueError" and "names no ranks" in \
+        r["model_axis"][1]
     assert r["half_mesh"][0] == "ValueError" and "spans every rank" in \
         r["half_mesh"][1]
     assert r["batch"] == ("ValueError", "global batch 6 is not a multiple "
@@ -393,13 +393,24 @@ def test_mesh_refusals(ranks4):
 
 def test_mesh_refusals_in_one_process():
     cfg = get_smoke("qwen3-4b")
-    for spec in ("single", "multi", "4x2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
+    for spec, chips in (("single", 256), ("multi", 512)):
+        with pytest.raises(NotImplementedError,
+                           match=f"{chips}-chip TPU pod layout.*--mesh RxM"):
             mesh_from_arg(spec)
-    with pytest.raises(ValueError, match="item 8b"):
-        mesh_from_arg("2x1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
+    for spec in ("2x1", "4x2"):
+        with pytest.raises(ValueError, match="item 8b"):
+            mesh_from_arg(spec)
+    with pytest.raises(ValueError, match="names no ranks"):
         TSTEPS.make_prefill_step(cfg, (2, 2))
+    big = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
+        TATT.check_heads(big, 4)
+    assert Q_MODEL_AXIS in str(pytest.raises(
+        NotImplementedError, TATT.check_heads, big, 2).value)
+    with pytest.raises(ValueError, match="process group"):
+        ModelAxis(2, 1, None)
+    with pytest.raises(TypeError, match="is not a mesh"):
+        TSTEPS.make_decode_step(cfg, mesh=ModelAxis())
     with pytest.raises(ValueError, match="names no ranks"):
         TSTEPS.make_decode_step(cfg, mesh=(2, 1))
     assert mesh_from_arg("1x1") is None

@@ -42,6 +42,8 @@ from repro_torch.data import sample_tokens as tsample_tokens
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import steps as TSTEPS
 from repro_torch.launch import train as TTRAIN
+from repro_torch.launch.mesh import ModelAxis
+from repro_torch.models import attention as TATT
 from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
@@ -178,7 +180,11 @@ def test_step_builders_follow_the_reference():
     assert got["attack"].attack.value == want["attack"].attack.value
     assert got["attack"].byzantine_mask == want["attack"].byzantine_mask
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TSTEPS.make_train_step(tcfg, (4, 2))
+        TATT.check_heads(tcfg, 16)
+    with pytest.raises(ValueError, match="process group"):
+        ModelAxis(16)
+    with pytest.raises(TypeError, match="is not a mesh"):
+        TSTEPS.make_train_step(tcfg, ModelAxis(1))
     _, meta = TSTEPS.make_step(tcfg, None, "decode_32k",
                                dict(global_batch=2, seq_len=8,
                                     kind="decode"))
@@ -242,7 +248,7 @@ def test_train_entry_point_on_the_cpu(capsys, tmp_path):
     assert (tmp_path / "ckpt_2.meta.json").exists()
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         TTRAIN.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                     "--mesh", "4x2"])
+                     "--mesh", "multi"])
 
 
 def test_train_entry_point_defaults_to_the_card(monkeypatch):

@@ -51,11 +51,30 @@ dict of tensors:
     seq_partial `decode_local_partial` on this rank's share of the S
                 positions of q, k, v (numpy) at `pos`, then
                 `combine_partials` over the mesh's "model" group
-    refusals    the messages of the mesh refusals: a "model" axis of 2,
-                a mesh of half the ranks, a batch U does not divide
+    refusals    the messages of the mesh refusals: a tuple (data, model)
+                shape, a mesh of half the ranks, a batch U does not divide
+
+On a mesh with a "model" axis of M > 1 (test_torch_lm_tp.py) the train,
+prefill and decode jobs shard `params0` (`launch.sharding.shard_params` of
+the step's `params_specs`), the train job returns the params gathered back
+(`gather_params`) and every job its `model` (M, index) and the local
+shapes; `moe_impl` replaces the MoE config's impl.  Two more kinds:
+
+    ce          the vocab-parallel CE: `transformer.chunked_ce` of numpy
+                `h` [B, S, d] against `labels` under `tensor_parallel`,
+                plus the embedding of `labels` weighted by `r`, from the
+                shards of `params0` ({"embed"[, "lm_head"]}) of the config
+                job["cfg"]: the CE and the gradients of h and of the
+                gathered params
+    layout      shard_params / gather_params of `params0` on `mesh`,
+                `init_model(..., mesh=)` and the shards of the whole
+                draw, the worker and model axes, default_floa's worker
+                count, and the refusals of an unported head layout and
+                of --mesh single
 
 Prints TORCH_DIST_OK rank=<rank> at the end.
 """
+import dataclasses
 import os
 import pickle
 import sys
@@ -75,10 +94,14 @@ from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch.distributed import (fetch,  # noqa: E402
                                             initialize_distributed)
 from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
-                                     make_sweep_mesh, worker_axes)
+                                     make_sweep_mesh, mesh_from_arg,
+                                     model_axis, worker_axes)
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.sharding import (gather_params,  # noqa: E402
+                                         param_specs, shard_params)
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.models.common import tensor_parallel  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 
@@ -174,7 +197,7 @@ def run_job(job, sharded=True, resume=False):
 
 
 LM_KINDS = ("train_step", "prefill", "decode", "serve", "seq_partial",
-            "refusals")
+            "refusals", "ce", "layout")
 
 
 def _raised(fn):
@@ -193,12 +216,14 @@ def run_lm_job(job):
         step, _ = ST.make_train_step(get_smoke("qwen3-4b"), make_debug_mesh(
             (4, 1), ("data", "model")))
         six = {"tokens": torch.zeros(6, 9, dtype=torch.int32)}
-        return {"model_axis": _raised(lambda: worker_axes(make_debug_mesh(
-                    (2, 2), ("data", "model")))),
+        return {"model_axis": _raised(lambda: worker_axes((2, 2))),
                 "half_mesh": _raised(lambda: make_debug_mesh(
                     (2, 1), ("data", "model"))),
                 "batch": _raised(lambda: step(None, None, six, 0))}
     mesh = make_debug_mesh(*job["mesh"])
+    axis = model_axis(mesh)
+    if kind in ("ce", "layout"):
+        return (ce_job if kind == "ce" else layout_job)(job, mesh, axis)
     if kind == "seq_partial":
         q, k, v = (torch.as_tensor(job[n]) for n in "qkv")
         ranks, r = mesh.shape["model"], mesh.axis_index("model")
@@ -210,27 +235,36 @@ def run_lm_job(job):
                                              valid)
         return {"out": ATT.combine_partials(m, l, acc, mesh.group("model"))}
     cfg = get_smoke(job["arch"])
+    if job.get("moe_impl"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl=job["moe_impl"]))
     if kind == "serve":
         res = serve(cfg, job["batch"], job["prompt_len"], job["gen"],
                     device="cpu", seed=job["seed"], mesh=mesh)
         return {"tokens": res.tokens, "logits": res.logits}
     params = TT.params_from_jax(job["params0"], "cpu")
+    specs = param_specs(cfg, axis.size)
+    params = shard_params(params, specs, mesh)
+    model = {"model": (axis.size, axis.index)} if axis.size > 1 else {}
     if kind == "prefill":
         step, _ = ST.make_prefill_step(cfg, mesh)
         return {"logits": step(params, {"tokens": torch.as_tensor(
-            job["tokens"])})}
+            job["tokens"])}), **model}
     if kind == "decode":
         tokens = torch.as_tensor(job["tokens"])
         b, n = tokens.shape
         step, meta = ST.make_decode_step(cfg, mesh=mesh)
         rows = ST.batch_rows(mesh, b)
         caches = TT.init_caches(cfg, rows.stop - rows.start, n,
-                                window=meta["window"])
+                                window=meta["window"],
+                                model_parallel=axis.size)
         ops.reset_launches()
         logits = torch.stack([step(params, caches, tokens[:, i:i + 1],
                                    i)[0][:, 0] for i in range(n)])
         return {"logits": logits, "cache_batch": rows.stop - rows.start,
-                "decode_launches": ops.launch_counts()["decode_attention"]}
+                "cache_shape": tuple(tree_leaves(caches)[0].shape),
+                "decode_launches": ops.launch_counts()["decode_attention"],
+                **model}
     step, meta = ST.make_train_step(
         cfg, mesh, dict(global_batch=job["batch"], seq_len=job["seq"],
                         kind="train"),
@@ -247,8 +281,59 @@ def run_lm_job(job):
                                 {"tokens": torch.as_tensor(toks)}, t,
                                 draws=draws)
         log.append({**state, **m})
+    if axis.size > 1:
+        model["shapes"] = [tuple(x.shape) for x in tree_leaves(params)]
+        params = gather_params(params, specs, mesh)
     return {"params": params, "log": log, "meta": meta,
-            "worker": (wa.num_workers, wa.first, wa.count)}
+            "worker": (wa.num_workers, wa.first, wa.count), **model}
+
+
+def ce_job(job, mesh, axis):
+    """The vocab-parallel CE and its gradients on this rank (see the module
+    docstring)."""
+    cfg = job["cfg"]
+    specs = {k: v for k, v in param_specs(cfg, axis.size).items()
+             if k in job["params0"]}
+    full = tree_map(torch.as_tensor, job["params0"])
+    local = shard_params(full, specs, mesh)
+    local = {k: v.clone().requires_grad_(True) for k, v in local.items()}
+    h = torch.as_tensor(job["h"]).requires_grad_(True)
+    labels = torch.as_tensor(job["labels"])
+    with tensor_parallel(axis):
+        ce = TT.chunked_ce(local, h, labels, cfg)
+        x = TT.embed_tokens(local, labels, cfg)
+    loss = ce.sum() + (x * torch.as_tensor(job["r"])).sum()
+    gh, *gp = torch.autograd.grad(loss, [h] + [local[k] for k in
+                                               sorted(local)])
+    grads = dict(zip(sorted(local), gp))
+    return {"ce": ce.detach(), "embedded": x.detach(), "grad_h": gh,
+            "grads": gather_params(grads, specs, mesh),
+            "model": (axis.size, axis.index)}
+
+
+def layout_job(job, mesh, axis):
+    """The shard / gather round trip and the mesh's axes on this rank."""
+    cfg = get_smoke(job["arch"])
+    full = TT.params_from_jax(job["params0"], "cpu")
+    specs = param_specs(cfg, axis.size)
+    local = shard_params(full, specs, mesh)
+    wa = worker_axes(mesh)
+    floa = ST.default_floa(mesh, ST.param_count(cfg))
+    big = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3, head_dim=32)
+    return {"round_trip": gather_params(local, specs, mesh),
+            "drawn": ST.init_model(cfg, torch.Generator().manual_seed(4),
+                                   "cpu", mesh=mesh),
+            "sliced": shard_params(ST.init_model(
+                cfg, torch.Generator().manual_seed(4), "cpu"), specs, mesh),
+            "local_shapes": [tuple(x.shape) for x in tree_leaves(local)],
+            "worker": (wa.num_workers, wa.first, wa.count),
+            "model": (axis.size, axis.index),
+            "num_workers": ST.num_workers(mesh),
+            "floa_workers": (floa["channel"].num_workers,
+                             floa["power"].num_workers,
+                             len(floa["attack"].byzantine_mask)),
+            "heads_refused": _raised(lambda: ST.make_train_step(big, mesh)),
+            "single": _raised(lambda: mesh_from_arg("single"))}
 
 
 def _save(res, layout, path):
