@@ -4,22 +4,16 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --resume-child ckpt|resume DIR [OUT]
                                       # phase 13's child processes
-    python3 chip_smoke.py --mesh      # phases 1-2 and 21 alone
-    python3 chip_smoke.py --mesh-child RANK WORLD STORE OUT
-                                      # phase 21's ranks
+    python3 chip_smoke.py --ranks     # phases 1-2, phase 3's decode rows
+                                      # and the rank phases 21, 22, 25
+    python3 chip_smoke.py --ranks-child RANK WORLD STORE OUT
+                                      # the rank phases' ranks
     python3 chip_smoke.py --strict-rates
                                       # phases 1-2, then the warm rounds/s
                                       # of the strict_numerics routes
-    python3 chip_smoke.py --lm-mesh   # phases 1-2, phase 3's decode rows
-                                      # and phase 22 alone
-    python3 chip_smoke.py --lm-mesh-child RANK WORLD STORE OUT
-                                      # phase 22's ranks
     python3 chip_smoke.py --zoo       # phases 1-2, phase 3's decode rows
                                       # and phases 23-24 alone
-    python3 chip_smoke.py --lm-model  # phases 1-2, phase 3's decode rows
-                                      # and phase 25 alone
-    python3 chip_smoke.py --lm-model-child RANK WORLD STORE OUT
-                                      # phase 25's ranks
+    python3 chip_smoke.py --mla-ssm   # phases 1-2 and 26 alone
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -27,7 +21,9 @@
                                       # serve decode step and train step,
                                       # and one moonshot (MoE) decode step
 
-Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
+Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
+(the rank phases 21, 22 and 25 share one spawn of 2 ranks and one of 4,
+`--ranks-child`, and run before 23, 24 and 26):
 
   1. device   card name and power limit (also printed raw), torch/CUDA
               versions; TF32 off, as the float32 reference needs.
@@ -150,12 +146,12 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
   21. mesh    the sweep sharded over ranks (`plan.mesh`, a
               `launch.mesh.SweepMesh`): (1) a one-rank NCCL group, fig3's
               four lanes on its ("data",) mesh, bitwise the unmeshed run;
-              (2) 2 ranks on this card over gloo (`--mesh-child`, NCCL
+              (2) 2 ranks on this card over gloo (`--ranks-child`, NCCL
               refuses two ranks on one device), each against the same
               configuration run unsharded here: (a) the defense grid over
               "data", grouped (each family ghost-padded to one lane a
               rank) and switched, (b) worker_grid(1000) over "workers" (the
-              bitonic sort on the gathered slab), (c) the LM lane at
+              bitonic sort on the gathered slab; 2 rounds), (c) the LM lane at
               D = 2 950 528 with model_shards = 2 (the step at
               [2, 8, 1 475 264]), (d) (b) and (c) under strict_numerics
               (the LM lane at 5 rounds).  (a)-(b) at rtol 5e-6 / atol 1e-6,
@@ -165,7 +161,7 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               card" (not a scaling figure).
   22. lm_mesh the LM steps over the worker axes of a mesh
               (`launch.mesh.SweepMesh` over ranks on this card, gloo:
-              `--lm-mesh-child`, `lm_mesh_child`): (a) 2 BEV train steps of
+              `--ranks-child`, `lm_mesh_parts`): (a) 2 BEV train steps of
               qwen3-4b at full width (bf16, the serve weights) on a (2, 1)
               mesh, batch 8 x 64, U = 2: losses finite, the weights moved,
               the ranks' params bitwise equal (exact checksums of every
@@ -203,7 +199,7 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               layers in f32 through both routes across a wrap of the ring,
               rtol 1e-4.
   25. lm_model the LM steps over a "model" axis, tensor parallel (ranks on
-              this card over gloo, `--lm-model-child`, `lm_model_child`;
+              this card over gloo, `--ranks-child`, `lm_model_parts`;
               every rank holds its shards of the weights,
               `launch.sharding`): (a) `serve` of qwen3-4b at full width
               on (1, 2), batch 8, 32 + 32 tokens, each rank's decode
@@ -218,20 +214,44 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each:
               rank; (c) its 2-layer f32 cut on (2, 2) (U = 2) against its
               one-process twin at rtol 1e-4; (d) moonshot at 4 layers,
               train and serve on (1, 2), the expert choices recorded and
-              replayed on one rank: the serve's logits at phase 15's
-              bounds, the trained params within two bf16 ulps, the
-              gradient of the step's loss within 1e-1 relative a leaf,
-              the replicated leaves and their gradients bitwise across
-              ranks; (e) starcoder2-3b at full width cut to 8 of its 30
-              layers, served on (1, 4), 16 + 16 tokens (KV 2 < 4: wk / wv
-              split d; the kernel at [8, 32, H6, KV1]), against one rank
-              teacher-forced through its sequence at phase 15's bounds.
-              Times labelled "N ranks, gloo, one card".
-  26. the `kernels` line (with launches and times by shape where a
+              replayed on one rank (each rank in turn against its
+              shards; per-leaf scalars cross the group): the serve's
+              logits at phase 15's bounds, the trained params within two
+              bf16 ulps, the gradient of the step's loss within 1e-1
+              relative a leaf, the replicated leaves and their gradients
+              bitwise across ranks; (e) starcoder2-3b at full width cut to
+              8 of its 30 layers, served on (1, 4), 16 + 16 tokens (KV 2 <
+              4: wk / wv split d; the kernel at [8, 32, H6, KV1]), against
+              one rank teacher-forced through its sequence at phase 15's
+              bounds; (f) deepseek-v2-236b (MLA) cut to 1 layer (bf16)
+              and mamba2-1.3b (SSD) cut to 4 (f32) on (1, 2): served (no
+              kernel), its logits against one rank replaying the expert
+              choices at phase 15's bounds (f32: rtol 1e-4), the gradient
+              of the step's loss within 1e-1 (f32: 1e-3) relative a leaf
+              of one rank's, the replicated leaves' gradients bitwise
+              across ranks.  Times labelled "N ranks,
+              gloo, one card".
+  26. mla_ssm MLA and the SSD block, no kernel of the port (all counts 0):
+              deepseek-v2-236b at full width (d 5120, 128 heads, q_lora
+              1536, kv_lora 512, 160 experts top-6 + 2 shared) cut to 4 of
+              60 layers, served as phase 14 (ms a step eager and as a
+              graph, launches a step, peak memory) and long_500k at batch
+              1 over a full latent cache of 524 288 slots, 8 steps at pos
+              524 280-524 287; at 2 layers the absorbed decode against the
+              materialized prefill in f32 (rtol 1e-4), the bf16 serve and
+              long_500k steps against f32 on the same weights and cache
+              (phase 15's bounds, expert choices replayed), the train step
+              (8 x 64) and prefill (8 x 512).  mamba2-1.3b at full width
+              and depth (48 layers): served, long_500k from filled states
+              (bitwise the steps at pos 33-40 from the same states), the
+              SSD duality (recurrent decode against chunked prefill, f32,
+              2 layers, 2 x 320 tokens: two chunks, rtol 1e-4), the train
+              step and prefill.
+  27. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 27. the last line, {"ok": true,
+      a rank's too, must have one); 28. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -260,6 +280,7 @@ F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # bf16 on the tensor cores, dense
 ROUNDS = 20
 ROUNDS_LARGE_U = 5           # the U = 1000 grid: keeps the script short
+MESH_ROUNDS_LARGE_U = 2      # the mesh phase's U = 1000 grids (cut from 5)
 RTOL_WHOLE_RUN = 1e-4        # kernel route vs plain route over 20 rounds
 LM_ARCH = "qwen3-4b"
 # The LM lane (phase 18): lm_sweep's flat D, examples/train_floa_lm.py's
@@ -288,9 +309,9 @@ ROUNDS_LM_STRICT = 5
 MESH_TOL = {"defenses": (5e-6, 1e-6), "defenses_switch": (5e-6, 1e-6),
             "grid_u1000": (5e-6, 1e-6), "lm": (5e-5, 1e-5)}
 # The LM-mesh phase (22): the train step and the serve over the worker axes,
-# ranks on cuda:0 over gloo: 3 steps a run; (b)'s 2-layer f32 cut of
-# qwen3-4b at U = 4 (one attacker) under BEV and CI
-LM_MESH_STEPS, LM_MESH_B_LAYERS = 3, 2
+# ranks on cuda:0 over gloo: 2 steps a run (cut from 3); (b)'s 2-layer f32
+# cut of qwen3-4b at U = 4 (one attacker) under BEV and CI
+LM_MESH_STEPS, LM_MESH_B_LAYERS = 2, 2
 LM_MESH_POLICIES = ("bev", "ci")
 # The LM-model phase (25): tensor parallelism over a "model" axis, ranks on
 # cuda:0 over gloo, 3 steps a train run: (a) qwen3-4b's serve and (b) its
@@ -308,6 +329,25 @@ TP_PARAM_ULPS, TP_PARAM_FLOOR = 2 ** -6, 1e-6
 # |a - b|_2 / |b|_2: bf16 partial sums move it by about 1e-2; a gradient
 # missing a rank's share is off by a third or more
 TP_GRAD_REL = 1e-1
+# (f) in phase 25's 2-rank child: deepseek-v2-236b (MLA) cut to
+# TP_MLA_LAYERS (bf16) and mamba2-1.3b (SSD) cut to TP_SSD_LAYERS, served
+# and differentiated on (1, 2) against one rank.  mamba2 runs in f32, its
+# gradient held at TP_GRAD_REL_F32: in bf16 the SSD block's gradient
+# stands 18-29 % (relative L2, a leaf) from its f32 gradient in the JAX
+# reference itself (4 smoke layers, CPU), so no TP-vs-one-rank gate in
+# bf16 could tell a wrong backward from rounding.  In f32 the smoke cut's
+# gap is 4e-5 (CPU, gloo); a gradient missing a rank's share is off by a
+# third or more
+TP_MLA_LAYERS, TP_SSD_LAYERS = 1, 4
+TP_GRAD_REL_F32 = 1e-3
+# The MLA / SSD phase (26): deepseek-v2-236b at full width cut to MLA_LAYERS
+# of its 60 layers (serve, long_500k), to MLA_CUT_LAYERS for the f32 checks
+# and the train step and prefill; mamba2-1.3b at full width and depth, its
+# SSD duality (the recurrent decode against the chunked prefill) in f32 on
+# SSD_DUAL_LAYERS, SSD_DUAL_BATCH x SSD_DUAL_SEQ tokens (two chunks of 256)
+MLA_ARCH, MLA_LAYERS, MLA_CUT_LAYERS = "deepseek-v2-236b", 4, 2
+SSD_ARCH, SSD_DUAL_LAYERS, SSD_DUAL_BATCH, SSD_DUAL_SEQ = (
+    "mamba2-1.3b", 2, 2, 320)
 T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
@@ -1211,10 +1251,10 @@ def mesh_case(name: str, sharded: bool):
                                    train_samples=32000)
         mesh = make_sweep_mesh(worker_shards=MESH_RANKS) if sharded else None
         return (*figures.cases_engine(
-            figures.worker_grid(1000, mc_u.dim), ROUNDS_LARGE_U, mc=mc_u,
-            device="cuda", plan=ExecutionPlan(mesh=mesh,
-                                              strict_numerics=strict)),
-            ROUNDS_LARGE_U)
+            figures.worker_grid(1000, mc_u.dim), MESH_ROUNDS_LARGE_U,
+            mc=mc_u, device="cuda", plan=ExecutionPlan(
+                mesh=mesh, strict_numerics=strict)),
+            MESH_ROUNDS_LARGE_U)
     if not strict:
         return (*figures.lm_lane_engine(
             ROUNDS, device="cuda", model_shards=MESH_RANKS if sharded else 1),
@@ -1230,7 +1270,7 @@ def mesh_case(name: str, sharded: bool):
 def mesh_expect(name: str, d: int, lm_sizes) -> dict:
     """A rank's launches by shape in one sharded run of `name`: the
     shard-local shapes (lanes, workers or columns of one rank)."""
-    r, ru, rl = ROUNDS, ROUNDS_LARGE_U, ROUNDS_LM_STRICT
+    r, ru, rl = ROUNDS, MESH_ROUNDS_LARGE_U, ROUNDS_LM_STRICT
     u, half = LM_WORKERS, LM_D // MESH_RANKS   # LM_D pads to itself
     return {
         "defenses": {"floa_step_batched": {(1, 10, d): r},
@@ -1256,31 +1296,19 @@ def mesh_expect(name: str, d: int, lm_sizes) -> dict:
                       "sort_columns": {(1, u, LM_D): rl}}}[name]
 
 
-def mesh_child(args) -> int:
-    """`chip_smoke.py --mesh-child RANK WORLD STORE OUT`: one of the mesh
-    phase's WORLD = MESH_RANKS ranks on cuda:0, in a gloo group (init_method
-    file://STORE).  Runs every MESH_CASES configuration sharded: the launch
-    counts zeroed just before and read just after (checked against
+def mesh_child_cases(torch, rank: int, out: str) -> None:
+    """Phase 21's part of a 2-rank `--ranks-child`: every MESH_CASES
+    configuration sharded over the MESH_RANKS ranks, the launch counts
+    zeroed just before and read just after (checked against
     `mesh_expect`), then an uncounted warm run for the rate; saves each
     result to OUT/<case>.r<rank> (`SweepResult.save`) and prints one JSON
-    line a case.  Prints no result line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    line a case."""
     import torch.distributed as dist
     from repro_torch.fl.sweep import make_row_unflatten
     from repro_torch.kernels import ops
-    from repro_torch.launch.distributed import initialize_distributed
-    rank, store, out = int(args[0]), args[2], args[3]
-    if int(args[1]) != MESH_RANKS:
-        raise AssertionError(f"mesh child: {args[1]} ranks, not {MESH_RANKS}")
-    if not initialize_distributed(f"file://{store}", world_size=MESH_RANKS,
-                                  rank=rank, backend="gloo", device="cuda:0",
-                                  timeout_s=600):
-        raise AssertionError("mesh child: no process group")
+    if dist.get_world_size() != MESH_RANKS:
+        raise AssertionError(f"mesh child: {dist.get_world_size()} ranks, "
+                             f"not {MESH_RANKS}")
     print(json.dumps({"phase": "mesh_child", "rank": rank,
                       "backend": dist.get_backend(),
                       "world_size": dist.get_world_size()}), flush=True)
@@ -1313,11 +1341,6 @@ def mesh_child(args) -> int:
                                   for k, v in got.items()}}), flush=True)
         del engine, params, batches, res
         torch.cuda.empty_cache()
-    dist.destroy_process_group()
-    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
-                                   for m in sys.modules):
-        raise AssertionError("mesh child: imported JAX or the JAX package")
-    return 0
 
 
 def shape_key(shape) -> tuple:
@@ -1355,94 +1378,85 @@ def tree_diff(np, torch, a, b, tol=None) -> dict:
     return out
 
 
-def mesh_phase(torch, np, ops, figures, tally, shard_tally) -> None:
-    """Phase 21: (1) a one-rank NCCL group and its ("data",) mesh: Fig. 3's
-    sweep bitwise the unmeshed run; (2) MESH_RANKS ranks on cuda:0 over
-    gloo (`--mesh-child`), each sharded configuration of MESH_CASES against
-    its unsharded twin run here: the defense grid over "data" and the
-    U = 1000 grid over "workers" at rtol 5e-6 / atol 1e-6, the LM lane over
-    "model" at rtol 5e-5 / atol 1e-5, the strict runs bitwise; every rank's
-    result the same.  The ranks' launches go to `shard_tally`."""
-    import shutil
-    import tempfile
+def mesh_one_rank(torch, np, ops, figures, tally, work) -> None:
+    """Phase 21 (1): a one-rank NCCL group and its ("data",) mesh: Fig. 3's
+    sweep bitwise the unmeshed run (the FileStore under `work`)."""
     import torch.distributed as dist
     from repro_torch.core.power_control import Policy
-    from repro_torch.fl import ExecutionPlan, SweepResult
+    from repro_torch.fl import ExecutionPlan
     from repro_torch.launch.mesh import make_sweep_mesh
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT, "build"))
+    fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1,
+                               alpha_hat=ah, attacker_sigma=3.0,
+                               rounds=ROUNDS)
+            for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                              ("BEV", Policy.BEV)]]
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(work, 'nccl')}",
+        world_size=1, rank=0)
     try:
-        # (1) one rank, NCCL
-        fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1,
-                                   alpha_hat=ah, attacker_sigma=3.0,
-                                   rounds=ROUNDS)
-                for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
-                                                  ("BEV", Policy.BEV)]]
-        dist.init_process_group(
-            "nccl", init_method=f"file://{os.path.join(work, 'nccl')}",
-            world_size=1, rank=0)
-        try:
-            mesh = make_sweep_mesh()
-            engine, params, batches = figures.figure_engine(
-                fig3, device="cuda", plan=ExecutionPlan(mesh=mesh))
-            if engine._lane_group is None:
-                raise AssertionError("mesh: the one-rank mesh has no group")
-            meshed, seconds, counts = run_phase(
-                torch, ops, "mesh_one_rank_nccl",
-                lambda: engine.run(params, batches),
-                {**{k: 0 for k in ops.KERNELS},
-                 "floa_step_batched": ROUNDS, "grad_stats": ROUNDS})
-            tally(counts)
-            backend = dist.get_backend()
-        finally:
-            dist.destroy_process_group()
-        engine, params, batches = figures.figure_engine(fig3, device="cuda")
-        diff = tree_diff(np, torch, meshed, engine.run(params, batches))
-        emit("mesh_one_rank", backend=backend, lanes=len(fig3),
-             rounds=ROUNDS, run_seconds=seconds, vs_unmeshed=diff)
-        if not diff["bitwise"]:
-            raise AssertionError("mesh: the one-rank NCCL mesh differs from "
-                                 "the unmeshed run")
-        del engine, params, batches, meshed
-        torch.cuda.empty_cache()
-
-        # (2) MESH_RANKS ranks on cuda:0, gloo
-        lines, wall = spawn_ranks("--mesh-child", MESH_RANKS, work, 900)
-        child_lines = {}
-        for r, rank_lines in lines.items():
-            for line in rank_lines:
-                print(json.dumps(line), flush=True)
-                if "case" in line:
-                    child_lines[(line["case"], r)] = line
-        for (name, r), line in child_lines.items():
-            shard_tally(name, {k: {shape_key(sh): n for sh, n in v}
-                               for k, v in line["launches_by_shape"].items()})
-        report = {}
-        for name in MESH_CASES:
-            got = [SweepResult.load(os.path.join(work, f"{name}.r{r}"))
-                   for r in range(MESH_RANKS)]
-            ranks_eq = [tree_diff(np, torch, g, got[0])["bitwise"]
-                        for g in got[1:]]
-            engine, params, batches, rounds = mesh_case(name, sharded=False)
-            want = engine.run(params, batches)
-            del engine, params, batches
-            tol = MESH_TOL.get(name)   # None: bitwise
-            diff = tree_diff(np, torch, got[0], want, tol)
-            report[name] = {"tolerance": tol or "bitwise",
-                            "ranks_bitwise_equal": all(ranks_eq), **diff,
-                            **{k: child_lines[(name, 0)][k] for k in (
-                                "rounds", "run_seconds", "warm_run_seconds",
-                                "rounds_per_s", "rate_label")}}
-            emit("mesh_compare", case=name, **report[name])
-            if not (all(ranks_eq) and diff["ok"]):
-                raise AssertionError(f"mesh: {name} sharded vs unsharded "
-                                     f"failed: {report[name]}")
-            del got, want
-            torch.cuda.empty_cache()
-        emit("mesh", ranks=MESH_RANKS, backend="gloo", device="cuda:0",
-             children_wall_s=wall, cases=list(MESH_CASES))
+        mesh = make_sweep_mesh()
+        engine, params, batches = figures.figure_engine(
+            fig3, device="cuda", plan=ExecutionPlan(mesh=mesh))
+        if engine._lane_group is None:
+            raise AssertionError("mesh: the one-rank mesh has no group")
+        meshed, seconds, counts = run_phase(
+            torch, ops, "mesh_one_rank_nccl",
+            lambda: engine.run(params, batches),
+            {**{k: 0 for k in ops.KERNELS},
+             "floa_step_batched": ROUNDS, "grad_stats": ROUNDS})
+        tally(counts)
+        backend = dist.get_backend()
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        dist.destroy_process_group()
+    engine, params, batches = figures.figure_engine(fig3, device="cuda")
+    diff = tree_diff(np, torch, meshed, engine.run(params, batches))
+    emit("mesh_one_rank", backend=backend, lanes=len(fig3),
+         rounds=ROUNDS, run_seconds=seconds, vs_unmeshed=diff)
+    if not diff["bitwise"]:
+        raise AssertionError("mesh: the one-rank NCCL mesh differs from "
+                             "the unmeshed run")
+    del engine, params, batches, meshed
+    torch.cuda.empty_cache()
+
+
+def mesh_compare(torch, np, lines, work, shard_tally) -> None:
+    """Phase 21 (2), in the parent after the 2-rank spawn: each sharded
+    configuration of MESH_CASES (the ranks' results under `work`, their
+    JSON `lines` by rank) against its unsharded twin run here: the defense
+    grid over "data" and the U = 1000 grid over "workers" at rtol 5e-6 /
+    atol 1e-6, the LM lane over "model" at rtol 5e-5 / atol 1e-5, the
+    strict runs bitwise; every rank's result the same.  The ranks'
+    launches go to `shard_tally`."""
+    from repro_torch.fl import SweepResult
+    child_lines = {(line["case"], r): line for r, rank_lines in lines.items()
+                   for line in rank_lines
+                   if line["phase"] == "mesh_child" and "case" in line}
+    for (name, r), line in child_lines.items():
+        shard_tally(name, {k: {shape_key(sh): n for sh, n in v}
+                           for k, v in line["launches_by_shape"].items()})
+    for name in MESH_CASES:
+        got = [SweepResult.load(os.path.join(work, f"{name}.r{r}"))
+               for r in range(MESH_RANKS)]
+        ranks_eq = [tree_diff(np, torch, g, got[0])["bitwise"]
+                    for g in got[1:]]
+        engine, params, batches, rounds = mesh_case(name, sharded=False)
+        want = engine.run(params, batches)
+        del engine, params, batches
+        tol = MESH_TOL.get(name)   # None: bitwise
+        diff = tree_diff(np, torch, got[0], want, tol)
+        report = {"tolerance": tol or "bitwise",
+                  "ranks_bitwise_equal": all(ranks_eq), **diff,
+                  **{k: child_lines[(name, 0)][k] for k in (
+                      "rounds", "run_seconds", "warm_run_seconds",
+                      "rounds_per_s", "rate_label")}}
+        emit("mesh_compare", case=name, **report)
+        if not (all(ranks_eq) and diff["ok"]):
+            raise AssertionError(f"mesh: {name} sharded vs unsharded "
+                                 f"failed: {report}")
+        del got, want
+        torch.cuda.empty_cache()
+    emit("mesh", ranks=MESH_RANKS, backend="gloo", device="cuda:0",
+         cases=list(MESH_CASES))
 
 
 def bit_checksums(torch, leaves) -> "torch.Tensor":
@@ -1475,41 +1489,28 @@ def ranks_agree(sums) -> bool:
     return bool((every == every[:1]).all())
 
 
-def lm_mesh_child(args) -> int:
-    """`chip_smoke.py --lm-mesh-child RANK WORLD STORE OUT`: one of the
-    LM-mesh phase's ranks on cuda:0 in a WORLD-rank gloo group (init_method
-    file://STORE).  WORLD = 2: (a) LM_MESH_STEPS BEV train steps of
-    qwen3-4b at full width on the (2, 1) mesh from the serve weights, then
-    (c) the serve on it, counted, and the serve's sequence (OUT/seq.pt)
-    teacher-forced through the mesh's decode step; rank 0 saves the serve's
-    tokens and logits and the teacher-forced logits to OUT/serve.pt.
-    WORLD = 4: (b) LM_MESH_STEPS train steps of the 2-layer f32 cut on
-    (4, 1) for each policy of LM_MESH_POLICIES, then rank 0 alone the same
-    steps over all U workers in one process (`WorkerAxes.every(4)`),
-    compared at RTOL_WHOLE_RUN.  Every rank's params are compared by
-    `bit_checksums`.  One JSON line a part; no result line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
+    """Phase 22's part of a `--ranks-child` (WORLD ranks on cuda:0, gloo).
+    WORLD = 2: (a) LM_MESH_STEPS BEV train steps of qwen3-4b at full width
+    on the (2, 1) mesh from the serve weights, then (c) the serve on it,
+    counted, and the serve's sequence (OUT/seq.pt) teacher-forced through
+    the mesh's decode step; rank 0 saves the serve's tokens and logits and
+    the teacher-forced logits to OUT/serve.pt.  WORLD = 4: (b)
+    LM_MESH_STEPS train steps of the 2-layer f32 cut on (4, 1) for each
+    policy of LM_MESH_POLICIES, then rank 0 the same steps over all U
+    workers in one process (`WorkerAxes.every(4)`, the other ranks at a
+    barrier), compared at RTOL_WHOLE_RUN.  Every rank's params are
+    compared by `bit_checksums`.  One JSON line a part."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core.power_control import Policy
     from repro_torch.data import sample_tokens
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as ST
-    from repro_torch.launch.distributed import initialize_distributed
     from repro_torch.launch.mesh import WorkerAxes, make_debug_mesh
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as LM
     from repro_torch.tree import tree_leaves, tree_map, tree_paths
-    rank, world, store, out = int(args[0]), int(args[1]), args[2], args[3]
-    if not initialize_distributed(f"file://{store}", world_size=world,
-                                  rank=rank, backend="gloo", device="cuda:0",
-                                  timeout_s=600):
-        raise AssertionError("lm mesh child: no process group")
     lm = get_config(LM_ARCH)
     mesh = make_debug_mesh((world, 1), ("data", "model"))
     shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
@@ -1637,9 +1638,7 @@ def lm_mesh_child(args) -> int:
                             if rank == 0 else None, log, equal)
             del params
             torch.cuda.empty_cache()
-        dist.barrier()
-        dist.destroy_process_group()
-        # rank 0 alone: the twin, every worker in this process
+        # rank 0: the twin, every worker in this process
         for policy, (got, log, equal) in (runs.items() if rank == 0
                                            else ()):
             _, want, wlog, wmeta = train(cfg, WorkerAxes.every(world), policy)
@@ -1680,18 +1679,15 @@ def lm_mesh_child(args) -> int:
                                      f"and the one-process twin disagree")
             del want
             torch.cuda.empty_cache()
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
-                                   for m in sys.modules):
-        raise AssertionError("lm mesh child: imported JAX or the JAX package")
-    return 0
+        dist.barrier()
+    ST._sum_over_workers = sum_over_workers
 
 
 def spawn_ranks(flag: str, world: int, work: str, timeout: int):
     """Run `chip_smoke.py FLAG RANK WORLD STORE WORK` as `world` ranks on
     this card (a FileStore under `work`, logs in work/<flag>.rank<r>.log);
-    every rank must exit 0.  The ranks share the card, so their allocators
+    every rank must exit 0, and the first that does not (or the timeout)
+    ends the others.  The ranks share the card, so their allocators
     map expandable segments (unless PYTORCH_CUDA_ALLOC_CONF says
     otherwise): a rank's cache then holds little beyond what it has
     allocated, where fixed segments fragment to half as much again and more
@@ -1708,8 +1704,12 @@ def spawn_ranks(flag: str, world: int, work: str, timeout: int):
          os.path.join(work, f"{tag}.store"), work], cwd=ROOT, env=env,
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
     try:
-        for p in procs:
-            p.wait(timeout=timeout)
+        # a rank that fails ends the others at once: they would wait for
+        # it in their next collective until the group's timeout
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.perf_counter() - t0 < timeout):
+            time.sleep(0.5)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1729,76 +1729,51 @@ def spawn_ranks(flag: str, world: int, work: str, timeout: int):
     return lines, time.perf_counter() - t0
 
 
-def lm_mesh_phase(torch, lm, rs, shard_tally) -> None:
-    """Phase 22: the LM steps over the worker axes, ranks on cuda:0 over
-    gloo (`--lm-mesh-child`): (a) and (c) on 2 ranks, (b) on 4 (see
-    `lm_mesh_child`).  Here: (c)'s logits against the one-process serve
-    `rs` (phase 14's; served here when None) at phase 15's bf16 bounds,
-    the teacher-forced ones on rs's sequence, and its greedy tokens equal
-    to rs's up to each row's first step whose top-2 margin is not clear.
-    The ranks' decode launches by shape go to `shard_tally`."""
-    import shutil
-    import tempfile
-    from repro_torch.launch.serve import serve
-    if rs is None:
-        rs = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
-                 "reserved": torch.cuda.memory_reserved() / 1e9}
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="lm_mesh_",
-                            dir=os.path.join(ROOT, "build"))
-    try:
-        seq = torch.cat([rs.prompts, rs.tokens], dim=1)
-        torch.save(seq.cpu(), os.path.join(work, "seq.pt"))
-        two, wall2 = spawn_ranks("--lm-mesh-child", 2, work, 900)
-        for r, lines in two.items():
-            for line in lines:
-                print(json.dumps(line), flush=True)
-                if line["part"] == "serve":
-                    shard_tally("lm_mesh_serve", {
-                        k: {shape_key(sh): n for sh, n in v}
-                        for k, v in line["launches_by_shape"].items()})
-        got = torch.load(os.path.join(work, "serve.pt"))
-        parity, ok = logit_parity(torch, got["teacher_forced"].to("cuda"),
-                                  rs.logits, lm.vocab_size)
-        ref = rs.logits[SERVE_PROMPT - 1:-1, :, :lm.vocab_size].float()
-        top2 = ref.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1] > 2 * BF16_LOGIT_MAX).cpu()
-        same = got["tokens"] == rs.tokens.cpu()            # [B, gen]
-        # a step is held where the row's earlier tokens agree (the same
-        # inputs so far) and the one-rank top-2 margin is clear
-        prefix = torch.cat([torch.ones(SERVE_BATCH, 1, dtype=torch.bool),
-                            same[:, :-1].cumprod(dim=1).bool()], dim=1)
-        held = prefix & clear.T
-        tokens_ok = bool(same[held].all())
-        serve_diff = (got["logits"].to("cuda").float()
-                      - rs.logits.float()).abs()
-        emit("lm_mesh_serve", ranks=2, backend="gloo", device="cuda:0",
-             tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
-             teacher_forced_vs_one_rank=parity,
-             serve_max_abs_diff=float(serve_diff.max()),
-             serve_mean_abs_diff=float(serve_diff.mean()),
-             tokens_equal_share=float(same.float().mean()),
-             tokens_held=int(held.sum()), tokens_ok=tokens_ok,
-             one_rank_tok_per_s=rs.tok_per_s, children_wall_s=wall2,
-             ok=ok and tokens_ok)
-        if not (ok and tokens_ok):
-            raise AssertionError("lm mesh serve: the 2-rank serve and the "
-                                 "one-rank serve disagree")
-        del got, serve_diff
-        four, wall4 = spawn_ranks("--lm-mesh-child", 4, work, 900)
-        for line in four[0]:
-            print(json.dumps(line), flush=True)
-        parts = [x["part"] for x in four[0]]
-        if parts != ["byzantine"] * len(LM_MESH_POLICIES):
-            raise AssertionError(f"lm mesh: rank 0 reported {parts}")
-        emit("lm_mesh", ranks=[2, 4], backend="gloo", device="cuda:0",
-             children_wall_s={"2": wall2, "4": wall4},
-             parent_memory_gb=parent_gb)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+def lm_mesh_check(torch, lm, rs, lines, work, shard_tally) -> None:
+    """Phase 22, in the parent after the spawns: the ranks' JSON `lines`
+    by world size and rank; (c)'s logits (work/serve.pt) against the
+    one-process serve `rs` (phase 14's) at phase 15's bf16 bounds, the
+    teacher-forced ones on rs's sequence, and its greedy tokens equal to
+    rs's up to each row's first step whose top-2 margin is not clear.  The
+    ranks' decode launches by shape go to `shard_tally`."""
+    for r, rank_lines in lines[2].items():
+        for line in rank_lines:
+            if line["phase"] == "lm_mesh_child" and line["part"] == "serve":
+                shard_tally("lm_mesh_serve", {
+                    k: {shape_key(sh): n for sh, n in v}
+                    for k, v in line["launches_by_shape"].items()})
+    parts = {w: [x["part"] for x in lines[w][0]
+                 if x["phase"] == "lm_mesh_child"] for w in (2, 4)}
+    if parts != {2: ["train", "serve"],
+                 4: ["byzantine"] * len(LM_MESH_POLICIES)}:
+        raise AssertionError(f"lm mesh: rank 0 reported {parts}")
+    got = torch.load(os.path.join(work, "serve.pt"))
+    parity, ok = logit_parity(torch, got["teacher_forced"].to("cuda"),
+                              rs.logits, lm.vocab_size)
+    ref = rs.logits[SERVE_PROMPT - 1:-1, :, :lm.vocab_size].float()
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > 2 * BF16_LOGIT_MAX).cpu()
+    same = got["tokens"] == rs.tokens.cpu()            # [B, gen]
+    # a step is held where the row's earlier tokens agree (the same
+    # inputs so far) and the one-rank top-2 margin is clear
+    prefix = torch.cat([torch.ones(SERVE_BATCH, 1, dtype=torch.bool),
+                        same[:, :-1].cumprod(dim=1).bool()], dim=1)
+    held = prefix & clear.T
+    tokens_ok = bool(same[held].all())
+    serve_diff = (got["logits"].to("cuda").float()
+                  - rs.logits.float()).abs()
+    emit("lm_mesh_serve", ranks=2, backend="gloo", device="cuda:0",
+         tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
+         teacher_forced_vs_one_rank=parity,
+         serve_max_abs_diff=float(serve_diff.max()),
+         serve_mean_abs_diff=float(serve_diff.mean()),
+         tokens_equal_share=float(same.float().mean()),
+         tokens_held=int(held.sum()), tokens_ok=tokens_ok,
+         one_rank_tok_per_s=rs.tok_per_s, ok=ok and tokens_ok)
+    if not (ok and tokens_ok):
+        raise AssertionError("lm mesh serve: the 2-rank serve and the "
+                             "one-rank serve disagree")
+    emit("lm_mesh", ranks=[2, 4], backend="gloo", device="cuda:0")
 
 
 def timed_collectives(torch) -> list:
@@ -1898,48 +1873,148 @@ def tp_grads(torch, cfg, mesh, tape):
     with MOE.routing(tape), tensor_parallel(model_axis(mesh)):
         per_ex, aux = LM.lm_per_example_loss(
             tree_unflatten(treedef, xs), {"tokens": tokens}, cfg)
-        loss = per_ex.float().mean() + cfg.moe.router_aux_coef * aux
+        loss = per_ex.float().mean()
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_coef * aux
     return list(torch.autograd.grad(loss, xs))
 
 
-def lm_model_child(args) -> int:
-    """`chip_smoke.py --lm-model-child RANK WORLD STORE OUT`: one of the
-    LM-model phase's ranks on cuda:0 in a WORLD-rank gloo group
-    (init_method file://STORE).  WORLD = 2, on (1, 2): (a) the qwen3-4b
-    serve, counted (rank 0 saves its sequence and logits to
-    OUT/serve_a.pt); (b) LM_MODEL_STEPS BEV train steps of qwen3-4b; (d)
-    moonshot at MOE_TRAIN_LAYERS: the train steps, the gradient of the
-    step's loss (`tp_grads`) and the serve (counted), each recording its
-    expert choices, then rank 0 alone the same train steps, gradient and
-    the serve's sequence teacher-forced on one rank, replaying them.
-    WORLD = 4: (e) the starcoder2-3b serve at TP_SC_LAYERS on (1, 4), counted
-    (rank 0 saves OUT/serve_e.pt); (c) the 2-layer f32 cut on (2, 2), then
-    rank 0 alone its one-process twin (`WorkerAxes.every(2)`).  Replicated
-    leaves and replicas are compared across ranks by `bit_checksums`.  One
-    JSON line a part; no result line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def one_rank_stats(torch, cfg, mesh, specs, grads, gtape, coll,
+                   trained=None) -> dict:
+    """cfg's gradient of the step's loss (`tp_grads`) and, with `trained`
+    = (this rank's trained shards, their RoutingTape, their log), its
+    train steps (`tp_train`) on one rank, replaying this rank's expert
+    choices: each rank in turn (the others at a barrier) holds its shards
+    (`grads`, the trained params) against its slices of the one-rank
+    result, each split leaf's shard against the same slice of the whole
+    leaf, a replicated leaf whole.  Only per-leaf scalars cross the group
+    (in place of gathering the shards): the params' largest |diff| and
+    |value| and their elements outside two bf16 ulps (TP_PARAM_ULPS above
+    TP_PARAM_FLOOR), the gradient's squared L2 gap and squared norm.
+    Returns the same dict on every rank: grads_rel_diff by leaf (|a - b|_2
+    / |b|_2) and, with `trained`, params_max_rel_diff, params_outside (the
+    leaves with an element outside), loss_max_abs_diff and
+    eps2_max_rel_diff over the steps."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import model_axis
+    from repro_torch.tree import tree_leaves, tree_paths
+    axis = model_axis(mesh)
+    split, paths = tree_leaves(specs), tree_paths(specs)
+    n, world = len(split), dist.get_world_size()
+    top = torch.zeros(n, 2, dtype=torch.float64)     # max |a - b|, max |b|
+    sums = torch.zeros(n, 3, dtype=torch.float64)    # outside, |a-b|^2, |b|^2
+    out = {}
+
+    def mine(whole, shard, dim):
+        return whole if dim is None else whole.narrow(
+            dim, axis.index * shard.shape[dim], shard.shape[dim])
+
+    for r in range(world):
+        if dist.get_rank() == r and trained is not None:
+            params, tape, log = trained
+            _, want, wlog, _, _ = tp_train(torch, cfg, None, coll,
+                                           tape.replay())
+            for i, (a, b, dim) in enumerate(zip(tree_leaves(params),
+                                                tree_leaves(want), split)):
+                a, b = a.float(), mine(b, a, dim).float()
+                d = (a - b).abs()
+                lim = TP_PARAM_ULPS * torch.maximum(a.abs(), b.abs())
+                top[i] = torch.stack([d.max(), b.abs().max()]).cpu()
+                sums[i, 0] = float((d > lim + TP_PARAM_FLOOR).sum())
+            out["loss_max_abs_diff"] = max(abs(x["loss"] - y["loss"])
+                                           for x, y in zip(log, wlog))
+            out["eps2_max_rel_diff"] = max(
+                abs(x["eps2"] - y["eps2"]) / abs(y["eps2"])
+                for x, y in zip(log, wlog))
+            del want, a, b, d, lim
+            torch.cuda.empty_cache()
+        if dist.get_rank() == r:
+            gwant = tp_grads(torch, cfg, None, gtape.replay())
+            for i, (a, b, dim) in enumerate(zip(grads, gwant, split)):
+                a, b = a.float(), mine(b, a, dim).float()
+                sums[i, 1] = float(torch.sum(torch.square(a - b),
+                                             dtype=torch.float64))
+                sums[i, 2] = float(torch.sum(torch.square(b),
+                                             dtype=torch.float64))
+            del gwant, a, b
+            torch.cuda.empty_cache()
+        dist.barrier()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM)
+    # a replicated leaf is whole on every rank: count it once (world is a
+    # power of two, so the division is exact)
+    sums[torch.tensor([d is None for d in split])] /= world
+    out["grads_rel_diff"] = {p: float(sums[i, 1].sqrt()
+                                      / max(float(sums[i, 2].sqrt()), 1e-30))
+                             for i, p in enumerate(paths)}
+    if trained is not None:
+        out["params_max_rel_diff"] = float(
+            (top[:, 0] / top[:, 1].clamp_min(1e-30)).max())
+        out["params_outside"] = [p for i, p in enumerate(paths)
+                                 if sums[i, 0] > 0]
+        # every rank's verdict from the same numbers
+        rel = torch.tensor([out["loss_max_abs_diff"],
+                            out["eps2_max_rel_diff"]], dtype=torch.float64)
+        dist.all_reduce(rel, op=dist.ReduceOp.MAX)
+        out["loss_max_abs_diff"], out["eps2_max_rel_diff"] = rel.tolist()
+    return out
+
+
+def rank0_parity(torch, cfg, res, stape):
+    """Rank 0: the mesh serve `res`'s sequence teacher-forced on one rank
+    from the same weights (`lm_params`), replaying the serve's expert
+    choices (`stape`), its logits against the serve's at phase 15's bf16
+    bounds (f32: rtol 1e-4, atol 1e-4 of the largest |logit|); the other
+    ranks wait at a barrier.  (parity, ok) on rank 0, ({}, True) on the
+    others."""
+    import torch.distributed as dist
+    from repro_torch.models import moe as MOE
+    parity, ok = {}, True
+    if dist.get_rank() == 0:
+        seq = torch.cat([res.prompts, res.tokens], dim=1)
+        with MOE.routing(stape.replay()):
+            one = teacher_forced(torch, cfg, lm_params(torch, cfg), seq,
+                                 False)
+        parity, ok = logit_parity(torch, res.logits, one, cfg.vocab_size)
+        if cfg.dtype == torch.float32:
+            atol = RTOL_WHOLE_RUN * float(one.abs().max())
+            ok = bool(torch.allclose(res.logits, one, rtol=RTOL_WHOLE_RUN,
+                                     atol=atol))
+            parity.update(rtol=RTOL_WHOLE_RUN, atol=atol)
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return parity, ok
+
+
+def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
+    """Phase 25's part of a `--ranks-child` (WORLD ranks on cuda:0, gloo;
+    `coll` the collectives' ms, `timed_collectives`).  WORLD = 2, on
+    (1, 2): (a) the qwen3-4b serve, counted (rank 0 saves its sequence and
+    logits to OUT/serve_a.pt); (b) LM_MODEL_STEPS BEV train steps of
+    qwen3-4b; (d) moonshot at MOE_TRAIN_LAYERS: the train steps, the
+    gradient of the step's loss (`tp_grads`) and the serve (counted), each
+    recording its expert choices, then each rank in turn the same train
+    steps and gradient on one rank replaying them, its shards against its
+    slices of the one-rank result (`one_rank_stats`: per-leaf scalars
+    cross the group), and rank 0 the serve's sequence teacher-forced on
+    one rank; (f) deepseek-v2-236b (MLA) at TP_MLA_LAYERS and mamba2-1.3b
+    (SSD) at TP_SSD_LAYERS, served (counted: no kernel) and
+    differentiated, against one rank the same way.  WORLD = 4: (e) the
+    starcoder2-3b serve at TP_SC_LAYERS on (1, 4), counted (rank 0 saves
+    OUT/serve_e.pt); (c) the 2-layer f32 cut on (2, 2), then rank 0 its
+    one-process twin (`WorkerAxes.every(2)`).  Replicated leaves and
+    replicas are compared across ranks by `bit_checksums`; while rank 0
+    works alone the others wait at a barrier.  One JSON line a part."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as ST
-    from repro_torch.launch.distributed import initialize_distributed
     from repro_torch.launch.mesh import WorkerAxes, make_debug_mesh
     from repro_torch.launch.serve import serve
-    from repro_torch.launch.sharding import gather_params
+    from repro_torch.launch.sharding import gather_params, param_specs
     from repro_torch.models import moe as MOE
-    from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
-                                  tree_unflatten)
-    rank, world, store, out = int(args[0]), int(args[1]), args[2], args[3]
-    if not initialize_distributed(f"file://{store}", world_size=world,
-                                  rank=rank, backend="gloo", device="cuda:0",
-                                  timeout_s=600):
-        raise AssertionError("lm model child: no process group")
-    coll = timed_collectives(torch)
+    from repro_torch.tree import tree_leaves, tree_map
     axes = ("data", "model")
     label = f"{world} ranks, gloo, one card"
 
@@ -2041,17 +2116,11 @@ def lm_model_child(args) -> int:
                       if d is None]
         equal = ranks_agree(bit_checksums(torch, tree_leaves(params))[
             replicated])
-        full = gather_params(params, specs, mesh)
-        del params
-        full = tree_map(lambda x: x.cpu(), full) if rank == 0 else None
         # the gradient of the step's loss, its replicated leaves compared
         # across the ranks
         gtape = MOE.RoutingTape()
         grads = tp_grads(torch, moe, mesh, gtape)
         grads_equal = ranks_agree(bit_checksums(torch, grads)[replicated])
-        grads = tree_leaves(gather_params(
-            tree_unflatten(specs, grads), specs, mesh))
-        grads = [g.cpu() for g in grads] if rank == 0 else None
         torch.cuda.empty_cache()
         routes_equal = ranks_agree(tp_tape_sums(torch, tape))
         stape = MOE.RoutingTape()
@@ -2072,56 +2141,80 @@ def lm_model_child(args) -> int:
             raise AssertionError("lm model moe: the ranks' replicated "
                                  "leaves or gradients, serves or expert "
                                  "choices differ")
-        dist.barrier()
-        dist.destroy_process_group()
-        if rank == 0:   # one rank, the same choices replayed
-            torch.cuda.empty_cache()
-            _, want, wlog, _, _ = tp_train(torch, moe, None, coll,
-                                           tape.replay())
-            worst, bad = 0.0, []
-            for path, a, b in zip(tree_paths(want), tree_leaves(full),
-                                  tree_leaves(want)):
-                a, b = a.to("cuda").float(), b.float()
-                d = (a - b).abs()
-                lim = TP_PARAM_ULPS * torch.maximum(a.abs(), b.abs())
-                if bool((d > lim + TP_PARAM_FLOOR).any()):
-                    bad.append(path)
-                worst = max(worst, float(d.max()) / max(float(b.abs().max()),
-                                                        1e-30))
-            loss_diff = max(abs(x["loss"] - y["loss"])
-                            for x, y in zip(log, wlog))
-            eps2_rel = max(abs(x["eps2"] - y["eps2"]) / abs(y["eps2"])
-                           for x, y in zip(log, wlog))
-            del want, full
-            torch.cuda.empty_cache()
-            gwant = tp_grads(torch, moe, None, gtape.replay())
-            grad_rel = {path: float(torch.linalg.vector_norm(
-                a.to("cuda").float() - b.float()) / max(float(
-                    torch.linalg.vector_norm(b.float())), 1e-30))
-                for path, a, b in zip(tree_paths(specs), grads, gwant)}
-            del gwant, grads
-            torch.cuda.empty_cache()
-            seq = torch.cat([res.prompts, res.tokens], dim=1)
-            with MOE.routing(stape.replay()):
-                one = teacher_forced(torch, moe, lm_params(torch, moe), seq,
-                                     False)
-            parity, ok = logit_parity(torch, res.logits, one,
-                                      moe.vocab_size)
-            ok = (ok and not bad and loss_diff <= BF16_LOGIT_MEAN
-                  and eps2_rel <= 1e-2
-                  and max(grad_rel.values()) <= TP_GRAD_REL)
-            emit_part("moe_one_rank", arch=moe.name, twin_steps=wlog,
-                      params_max_rel_diff=worst, params_outside=bad,
+        # one rank, the same choices replayed: each rank in turn, against
+        # its shards
+        t0 = time.perf_counter()
+        stats = one_rank_stats(torch, moe, mesh, specs, grads, gtape, coll,
+                               (params, tape, log))
+        del params, grads
+        torch.cuda.empty_cache()
+        parity, ok = rank0_parity(torch, moe, res, stape)
+        ok = (ok and not stats["params_outside"]
+              and stats["loss_max_abs_diff"] <= BF16_LOGIT_MEAN
+              and stats["eps2_max_rel_diff"] <= 1e-2
+              and max(stats["grads_rel_diff"].values()) <= TP_GRAD_REL)
+        if rank == 0:
+            emit_part("moe_one_rank", arch=moe.name, **stats,
                       param_tol={"rel": TP_PARAM_ULPS,
                                  "floor": TP_PARAM_FLOOR},
-                      grads_rel_diff=grad_rel, grads_tol=TP_GRAD_REL,
-                      loss_max_abs_diff=loss_diff, eps2_max_rel_diff=eps2_rel,
-                      serve_vs_one_rank=parity,
+                      grads_tol=TP_GRAD_REL, serve_vs_one_rank=parity,
                       router_flips=int(tape.flips) + int(stape.flips),
-                      ok=ok)
+                      seconds=time.perf_counter() - t0, ok=ok)
             if not ok:
                 raise AssertionError("lm model moe: the mesh and one rank "
                                      "disagree")
+        dist.barrier()
+        del res
+        # (f) the MLA and SSD archs on (1, 2), against one rank
+        for arch, layers, dtype, grad_tol in (
+                (MLA_ARCH, TP_MLA_LAYERS, torch.bfloat16, TP_GRAD_REL),
+                (SSD_ARCH, TP_SSD_LAYERS, torch.float32, TP_GRAD_REL_F32)):
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                      dtype=dtype)
+            t0 = time.perf_counter()
+            stape = MOE.RoutingTape()
+            res, shapes, cms, sequal = counted_serve(
+                cfg, mesh, SERVE_PROMPT, SERVE_GEN, stape)
+            gtape = MOE.RoutingTape()
+            grads = tp_grads(torch, cfg, mesh, gtape)
+            specs = param_specs(cfg, mesh.shape["model"])
+            replicated = [i for i, d in enumerate(tree_leaves(specs))
+                          if d is None]
+            grads_equal = ranks_agree(bit_checksums(torch, grads)[
+                replicated])
+            routes_equal = all(ranks_agree(tp_tape_sums(torch, t))
+                               for t in (stape, gtape) if t.recorded)
+            stats = one_rank_stats(torch, cfg, mesh, specs, grads, gtape,
+                                   coll)
+            del grads
+            torch.cuda.empty_cache()
+            parity, ok = rank0_parity(torch, cfg, res, stape)
+            ok = (ok and sequal and grads_equal and routes_equal
+                  and not shapes
+                  and max(stats["grads_rel_diff"].values()) <= grad_tol)
+            if rank == 0:
+                emit_part("mla_ssm", arch=cfg.name, layers=cfg.n_layers,
+                          mesh=dict(mesh.shape), batch=SERVE_BATCH,
+                          prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                          serve_ms_per_step=res.decode_s * 1e3 / SERVE_GEN,
+                          serve_collective_ms=cms,
+                          serve_tok_per_s=res.tok_per_s,
+                          ranks_bitwise_equal=sequal,
+                          replicated_grads_bitwise_equal=grads_equal,
+                          routes_bitwise_equal=routes_equal,
+                          launches_by_shape=shapes,
+                          dtype=str(dtype)[6:], serve_vs_one_rank=parity,
+                          **stats, grads_tol=grad_tol,
+                          router_flips=(int(stape.flips) if stape.flips
+                                        is not None else 0),
+                          seconds=time.perf_counter() - t0,
+                          rate_label=label, ok=ok)
+                if not ok:
+                    raise AssertionError(f"lm model {arch}: the mesh and "
+                                         f"one rank disagree")
+            dist.barrier()
+            del res
+            torch.cuda.empty_cache()
     else:
         # (e) starcoder2-3b served on (1, 4): wk / wv split d
         sc = dataclasses.replace(get_config(TP_SC_ARCH),
@@ -2138,8 +2231,7 @@ def lm_model_child(args) -> int:
         equal = ranks_agree(bit_checksums(torch, tree_leaves(full)))
         full = tree_map(lambda x: x.cpu(), full) if rank == 0 else None
         del params
-        dist.barrier()
-        dist.destroy_process_group()
+        torch.cuda.empty_cache()
         if rank == 0:
             _, want, wlog, wmeta, _ = tp_train(
                 torch, cfg, WorkerAxes.every(2), coll)
@@ -2165,13 +2257,7 @@ def lm_model_child(args) -> int:
             if not ok:
                 raise AssertionError("lm model f32 cut: the mesh and its "
                                      "one-process twin disagree")
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
-                                   for m in sys.modules):
-        raise AssertionError("lm model child: imported JAX or the JAX "
-                             "package")
-    return 0
+        dist.barrier()
 
 
 # the phase-25 serves' cases: (child part, shard_tally case, ranks)
@@ -2179,82 +2265,136 @@ TP_SERVES = (("serve", "lm_model_serve", 2), ("moe", "lm_model_moe_serve", 2),
              ("sc_serve", "lm_model_sc_serve", 4))
 
 
-def lm_model_phase(torch, lm, rs, shard_tally) -> None:
-    """Phase 25: the LM steps over a "model" axis, ranks on cuda:0 over
-    gloo (`--lm-model-child`): (a), (b) and (d) on 2 ranks, (c) and (e) on
-    4.  Here, at phase 15's bf16 bounds with every clear step's argmax
-    equal: (a)'s serve against the one-rank serve `rs` (phase 14's; served
-    here when None) on the (step, row) pairs whose inputs agree so far,
-    and (e)'s against one rank teacher-forced through its sequence from
-    the same weights (`teacher_forced`).  The ranks' decode launches by
-    shape go to `shard_tally`."""
+def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
+    """Phase 25, in the parent after the spawns (the ranks' JSON `lines` by
+    world size and rank, their files under `work`): at phase 15's bf16
+    bounds with every clear step's argmax equal, (a)'s serve against the
+    one-rank serve `rs` (phase 14's) on the (step, row) pairs whose inputs
+    agree so far, and (e)'s against one rank teacher-forced through its
+    sequence from the same weights (`teacher_forced`).  The ranks' decode
+    launches by shape go to `shard_tally`."""
+    from repro_torch.configs import get_config
+    cases = {part: case for part, case, _ in TP_SERVES}
+    for world in (2, 4):
+        for r, rank_lines in lines[world].items():
+            for line in rank_lines:
+                if (line["phase"] == "lm_model_child"
+                        and line["part"] in cases):
+                    shard_tally(cases[line["part"]], {
+                        k: {shape_key(sh): n for sh, n in v}
+                        for k, v in line["launches_by_shape"].items()})
+        parts = [x["part"] for x in lines[world][0]
+                 if x["phase"] == "lm_model_child"]
+        want = (["serve", "train", "moe", "moe_one_rank", "mla_ssm",
+                 "mla_ssm"] if world == 2 else ["sc_serve", "f32_cut"])
+        if parts != want:
+            raise AssertionError(f"lm model: rank 0 of {world} reported "
+                                 f"{parts}")
+    # (a): the pairs whose inputs agree with the one-rank serve's
+    got = torch.load(os.path.join(work, "serve_a.pt"))
+    seq = torch.cat([got["prompts"], got["tokens"]], dim=1)
+    ref = torch.cat([rs.prompts, rs.tokens], dim=1).cpu()
+    held = (seq == ref).int().cumprod(dim=1).bool().T.cuda()
+    parity, ok = logit_parity(torch, got["logits"].cuda()[held],
+                              rs.logits[held], lm.vocab_size)
+    parity["held_pairs"] = int(held.sum())
+    parity["prompts_equal"] = bool(held[:SERVE_PROMPT].all())
+    ok = ok and parity["prompts_equal"]
+    emit("lm_model_serve", arch=lm.name, backend="gloo",
+         device="cuda:0", tol={"max_abs": BF16_LOGIT_MAX,
+                               "mean_abs": BF16_LOGIT_MEAN}, ok=ok,
+         mesh_vs_one_rank=parity)
+    del got, seq, ref, held
+    if not ok:
+        raise AssertionError("lm_model_serve: the mesh serve and one "
+                             "rank disagree")
+    # (e): one rank teacher-forced through the mesh serve's sequence
+    sc = dataclasses.replace(get_config(TP_SC_ARCH), n_layers=TP_SC_LAYERS)
+    got = torch.load(os.path.join(work, "serve_e.pt"))
+    seq = torch.cat([got["prompts"], got["tokens"]], dim=1).cuda()
+    one = teacher_forced(torch, sc, lm_params(torch, sc), seq, False)
+    parity, ok = logit_parity(torch, got["logits"].cuda(), one,
+                              sc.vocab_size)
+    emit("lm_model_sc_serve", arch=sc.name, layers=sc.n_layers,
+         backend="gloo", device="cuda:0",
+         tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
+         ok=ok, mesh_vs_one_rank=parity)
+    del got, seq, one
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("lm_model_sc_serve: the mesh serve and one "
+                             "rank disagree")
+    emit("lm_model", backend="gloo", device="cuda:0")
+
+
+def ranks_child(args) -> int:
+    """`chip_smoke.py --ranks-child RANK WORLD STORE OUT`: one of the rank
+    phases' WORLD ranks on cuda:0 in a gloo group (init_method
+    file://STORE; NCCL refuses two ranks on one device).  Each world size
+    is started once and runs every rank phase's jobs: WORLD = 2 phase 21's
+    sharded sweeps (`mesh_child_cases`), phase 22's (a) and (c) and phase
+    25's (a), (b), (d) and (f); WORLD = 4 phase 22's (b) and phase 25's (e)
+    and (c) (`lm_mesh_parts`, `lm_model_parts`).  Prints no result
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.launch.distributed import initialize_distributed
+    rank, world, store, out = int(args[0]), int(args[1]), args[2], args[3]
+    if not initialize_distributed(f"file://{store}", world_size=world,
+                                  rank=rank, backend="gloo", device="cuda:0",
+                                  timeout_s=600):
+        raise AssertionError("ranks child: no process group")
+    if world == MESH_RANKS:
+        mesh_child_cases(torch, rank, out)
+    lm_mesh_parts(torch, rank, world, out)
+    torch.cuda.empty_cache()
+    lm_model_parts(torch, rank, world, out, timed_collectives(torch))
+    dist.destroy_process_group()
+    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
+                                   for m in sys.modules):
+        raise AssertionError("ranks child: imported JAX or the JAX package")
+    return 0
+
+
+def rank_phases(torch, np, ops, figures, tally, shard_tally, lm, rs) -> None:
+    """Phases 21, 22 and 25: phase 21's one-rank NCCL mesh here, then one
+    spawn of 2 ranks and one of 4 on this card over gloo (`--ranks-child`)
+    run every rank job of the three phases, and the parent holds their
+    results against its own: the sharded sweeps against their unsharded
+    twins (`mesh_compare`), the worker-axes serve against phase 14's
+    one-rank serve `rs` (served here when None; `lm_mesh_check`), the
+    tensor-parallel serves against one rank (`lm_model_check`)."""
     import shutil
     import tempfile
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     if rs is None:
         rs = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda")
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="lm_model_",
-                            dir=os.path.join(ROOT, "build"))
-    cases = {part: case for part, case, _ in TP_SERVES}
+    work = tempfile.mkdtemp(prefix="ranks_", dir=os.path.join(ROOT, "build"))
     try:
-        walls = {}
+        mesh_one_rank(torch, np, ops, figures, tally, work)
+        seq = torch.cat([rs.prompts, rs.tokens], dim=1)
+        torch.save(seq.cpu(), os.path.join(work, "seq.pt"))
+        torch.cuda.empty_cache()
+        parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                     "reserved": torch.cuda.memory_reserved() / 1e9}
+        lines, walls = {}, {}
         for world in (2, 4):
-            lines, walls[world] = spawn_ranks("--lm-model-child", world,
-                                              work, 900)
-            for r, rank_lines in lines.items():
+            lines[world], walls[world] = spawn_ranks("--ranks-child", world,
+                                                     work, 900)
+            for rank_lines in lines[world].values():
                 for line in rank_lines:
                     print(json.dumps(line), flush=True)
-                    if line["part"] in cases:
-                        shard_tally(cases[line["part"]], {
-                            k: {shape_key(sh): n for sh, n in v}
-                            for k, v in line["launches_by_shape"].items()})
-            parts = [x["part"] for x in lines[0]]
-            want = (["serve", "train", "moe", "moe_one_rank"] if world == 2
-                    else ["sc_serve", "f32_cut"])
-            if parts != want:
-                raise AssertionError(f"lm model: rank 0 of {world} reported "
-                                     f"{parts}")
-        # (a): the pairs whose inputs agree with the one-rank serve's
-        got = torch.load(os.path.join(work, "serve_a.pt"))
-        seq = torch.cat([got["prompts"], got["tokens"]], dim=1)
-        ref = torch.cat([rs.prompts, rs.tokens], dim=1).cpu()
-        held = (seq == ref).int().cumprod(dim=1).bool().T.cuda()
-        parity, ok = logit_parity(torch, got["logits"].cuda()[held],
-                                  rs.logits[held], lm.vocab_size)
-        parity["held_pairs"] = int(held.sum())
-        parity["prompts_equal"] = bool(held[:SERVE_PROMPT].all())
-        ok = ok and parity["prompts_equal"]
-        emit("lm_model_serve", arch=lm.name, backend="gloo",
-             device="cuda:0", tol={"max_abs": BF16_LOGIT_MAX,
-                                   "mean_abs": BF16_LOGIT_MEAN}, ok=ok,
-             mesh_vs_one_rank=parity)
-        del got, seq, ref, held
-        if not ok:
-            raise AssertionError("lm_model_serve: the mesh serve and one "
-                                 "rank disagree")
-        # (e): one rank teacher-forced through the mesh serve's sequence
-        sc = dataclasses.replace(get_config(TP_SC_ARCH),
-                                 n_layers=TP_SC_LAYERS)
-        got = torch.load(os.path.join(work, "serve_e.pt"))
-        seq = torch.cat([got["prompts"], got["tokens"]], dim=1).cuda()
-        one = teacher_forced(torch, sc, lm_params(torch, sc), seq, False)
-        parity, ok = logit_parity(torch, got["logits"].cuda(), one,
-                                  sc.vocab_size)
-        emit("lm_model_sc_serve", arch=sc.name, layers=sc.n_layers,
-             backend="gloo", device="cuda:0",
-             tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
-             ok=ok, mesh_vs_one_rank=parity)
-        del got, seq, one
-        torch.cuda.empty_cache()
-        if not ok:
-            raise AssertionError("lm_model_sc_serve: the mesh serve and one "
-                                 "rank disagree")
-        emit("lm_model", backend="gloo", device="cuda:0",
-             children_wall_s=walls)
+        emit("ranks", children_wall_s=walls, parent_memory_gb=parent_gb)
+        mesh_compare(torch, np, lines[MESH_RANKS], work, shard_tally)
+        lm_mesh_check(torch, lm, rs, lines, work, shard_tally)
+        lm_model_check(torch, lm, rs, lines, work, shard_tally)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2743,17 +2883,21 @@ def zoo_parity(torch, ops, cfg, params, seq) -> dict:
     return parity
 
 
-def moe_train_prefill(torch, ops, cfg) -> dict:
+def lm_train_prefill(torch, ops, cfg) -> dict:
     """The FLOA train step (two BEV steps at phase 20's batch and length:
-    U = 1, the MoE aux term in the weighted loss) and the prefill (phase
-    20's 8 x 512) of cfg, from its own random weights; neither launches a
-    kernel of the port."""
+    U = 1, an MoE model's aux term in the weighted loss) and the prefill
+    (phase 20's 8 x 512, on the trained weights) of cfg, from its own
+    random weights; neither launches a kernel of the port.  Nothing holds
+    the drawn weights past the first step (their checksums tell the
+    leaves that moved), so the peak is one step's: its input, gradients,
+    output and one leaf's noise."""
     from repro_torch.data import sample_tokens
     from repro_torch.launch.steps import (init_floa_state, make_prefill_step,
                                           make_train_step)
     from repro_torch.models import transformer as LM
     from repro_torch.tree import tree_leaves
     params = lm_params(torch, cfg)
+    before = bit_checksums(torch, tree_leaves(params))
     shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
     step, meta = make_train_step(cfg, None, shape, alpha=TRAIN_ALPHA)
     tokens = [torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
@@ -2761,11 +2905,13 @@ def moe_train_prefill(torch, ops, cfg) -> dict:
                               device="cuda") for t in range(2)]
     with torch.no_grad():
         _, aux = LM.lm_per_example_loss(params, {"tokens": tokens[0]}, cfg)
+    held = [params]
+    del params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     def run():
-        p, state, log = params, init_floa_state("cuda"), []
+        p, state, log = held.pop(), init_floa_state("cuda"), []
         for t in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2776,21 +2922,22 @@ def moe_train_prefill(torch, ops, cfg) -> dict:
                         "grad_scale": float(m["grad_scale"])})
         return p, log
 
-    (trained, log), _, counts = run_phase(
-        torch, ops, "moe_train", run, {k: 0 for k in ops.KERNELS})
+    (params, log), _, counts = run_phase(
+        torch, ops, "lm_train", run, {k: 0 for k in ops.KERNELS})
     train_peak = torch.cuda.max_memory_allocated() / 1e9
-    moved = sum(int((a != b).any()) for a, b in
-                zip(tree_leaves(trained), tree_leaves(params)))
+    moved = int((bit_checksums(torch, tree_leaves(params)) != before)
+                .any(dim=1).sum())
     if not (all(math.isfinite(x["loss"]) for x in log) and moved
-            and float(aux) > 0):
-        raise AssertionError(f"moe train: {log}, {moved} leaves moved, "
-                             f"aux {float(aux)}")
-    del trained
+            and (cfg.moe is None or float(aux) > 0)):
+        raise AssertionError(f"{cfg.name} train: {log}, {moved} leaves "
+                             f"moved, aux {float(aux)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     pf, _ = make_prefill_step(cfg, None, dict(
         global_batch=PREFILL_BATCH, seq_len=PREFILL_SEQ, kind="prefill"))
     batch = {"tokens": torch.as_tensor(sample_tokens(
         PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size, seed=7), device="cuda")}
-    logits, _, pcounts = run_phase(torch, ops, "moe_prefill",
+    logits, _, pcounts = run_phase(torch, ops, "lm_prefill",
                                    lambda: pf(params, batch),
                                    {k: 0 for k in ops.KERNELS})
     torch.cuda.synchronize()
@@ -2800,27 +2947,77 @@ def moe_train_prefill(torch, ops, cfg) -> dict:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     if (tuple(logits.shape) != (PREFILL_BATCH, cfg.padded_vocab)
             or not torch.isfinite(logits).all()):
-        raise AssertionError(f"moe prefill: logits {tuple(logits.shape)}")
+        raise AssertionError(f"{cfg.name} prefill: logits "
+                             f"{tuple(logits.shape)}")
     return {"layers": cfg.n_layers, "params": meta["dim"],
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": log,
             "warm_step_ms": log[-1]["ms"], "aux_loss": float(aux),
-            "leaves_moved": moved, "peak_memory_gb": train_peak,
-            "launches": counts, "prefill": {
+            "leaves_moved": moved, "leaves": len(before),
+            "peak_memory_gb": train_peak, "launches": counts, "prefill": {
                 "batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
-                "ms": prefill_ms, "launches": pcounts}}
+                "ms": prefill_ms, "launches": pcounts,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}}
 
 
-def zoo_phase(torch, ops, tally) -> None:
-    """Phase 22: each ZOO arch served at full width in bf16 with random
-    weights (batch 8, 32 + 32 tokens, as phase 14; counted), its decode
-    step's eager and graph times, launches a step and peak memory, its
-    routes held against each other (`zoo_parity`, full depth), and
-    moonshot's train step and prefill at 4 layers."""
-    from repro_torch.configs import get_config
+def serve_cell(torch, ops, cfg, params, expect, tally) -> tuple:
+    """cfg served from `params` as phase 14 serves qwen3-4b (bf16, batch 8,
+    32 + 32 tokens), counted (`expect`: every kernel's launches; `tally`
+    reads them at once, by shape too), and again for the steady rates;
+    its decode step at the last position as one CUDA graph, and its
+    launches and the device's busy share (torch.profiler): (the first
+    serve's result, the report's fields)."""
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_decode_step, param_count
     from repro_torch.models import transformer as LM
     n_steps = SERVE_PROMPT + SERVE_GEN
+    rs, seconds, counts = run_phase(
+        torch, ops, f"serve {cfg.name}",
+        lambda: serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                      device="cuda", params=params),
+        {**{k: 0 for k in ops.KERNELS}, **expect})
+    tally(counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (torch.isfinite(rs.logits).all()
+            and 0 <= int(rs.tokens.min()) <= int(rs.tokens.max())
+            < cfg.vocab_size):
+        raise AssertionError(f"serve {cfg.name}: non-finite logits or "
+                             f"tokens outside the vocabulary")
+    steady = serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                   device="cuda", params=params)
+    if not torch.equal(steady.tokens, rs.tokens):
+        raise AssertionError(f"serve {cfg.name}: two runs differ")
+    step, meta = make_decode_step(cfg)
+    caches = LM.init_caches(cfg, SERVE_BATCH, n_steps, device="cuda")
+    seq = torch.cat([rs.prompts, rs.tokens], dim=1)
+    last = torch.tensor(n_steps - 1, dtype=torch.int32, device="cuda")
+    one = lambda: step(params, caches, seq[:, -1:], last)  # noqa: E731
+    graph_ms = time_ms(torch, one, 1)
+    prof = profile_phase(torch, one)
+    del caches, one
+    wb = weight_bytes(params)
+    return rs, dict(
+        arch=cfg.name, dtype=str(cfg.dtype)[6:], layers=cfg.n_layers,
+        params=param_count(cfg),
+        weights_gb=(wb + params["embed"].numel() * 2) / 1e9,
+        window=meta["window"], batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        gen=SERVE_GEN, run_seconds=seconds, prefill_s=steady.prefill_s,
+        decode_s=steady.decode_s,
+        eager_ms_per_step=steady.decode_s * 1e3 / SERVE_GEN,
+        graph_ms=graph_ms, tok_per_s=steady.tok_per_s,
+        graph_tok_per_s=SERVE_BATCH / graph_ms * 1e3,
+        launches_per_step=prof["kernel_launches"],
+        device_busy_share_eager=prof["device_busy_share"], profile=prof,
+        weights_bound_ms=wb / HBM_BYTES_PER_S * 1e3, peak_memory_gb=peak_gb,
+        launches=counts, sample_tokens=rs.tokens[0, :12].tolist())
+
+
+def zoo_phase(torch, ops, tally) -> None:
+    """Phase 23: each ZOO arch served at full width in bf16 with random
+    weights (batch 8, 32 + 32 tokens, as phase 14; counted), its decode
+    step's eager and graph times, launches a step and peak memory
+    (`serve_cell`), its routes held against each other (`zoo_parity`,
+    full depth), and moonshot's train step and prefill at 4 layers."""
+    from repro_torch.configs import get_config
     for arch, depth in ZOO:
         full = get_config(arch)
         cfg = dataclasses.replace(full, n_layers=depth or full.n_layers)
@@ -2830,55 +3027,20 @@ def zoo_phase(torch, ops, tally) -> None:
         params = lm_params(torch, cfg)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        rs, seconds, counts = run_phase(
-            torch, ops, f"zoo_serve {arch}",
-            lambda: serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
-                          device="cuda", params=params),
-            {**{k: 0 for k in ops.KERNELS},
-             "decode_attention": cfg.n_layers * n_steps})
-        tally(counts)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if not (torch.isfinite(rs.logits).all()
-                and 0 <= int(rs.tokens.min()) <= int(rs.tokens.max())
-                < cfg.vocab_size):
-            raise AssertionError(f"zoo {arch}: non-finite logits or tokens "
-                                 f"outside the vocabulary")
-        steady = serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
-                       device="cuda", params=params)
-        if not torch.equal(steady.tokens, rs.tokens):
-            raise AssertionError(f"zoo {arch}: two runs differ")
-        step, meta = make_decode_step(cfg)
-        caches = LM.init_caches(cfg, SERVE_BATCH, n_steps, device="cuda")
+        rs, report = serve_cell(torch, ops, cfg, params, {
+            "decode_attention": cfg.n_layers * (SERVE_PROMPT + SERVE_GEN)},
+            tally)
         seq = torch.cat([rs.prompts, rs.tokens], dim=1)
-        last = torch.tensor(n_steps - 1, dtype=torch.int32, device="cuda")
-        one = lambda: step(params, caches, seq[:, -1:], last)  # noqa: E731
-        graph_ms = time_ms(torch, one, 1)
-        prof = profile_phase(torch, one)
-        del caches, one
         parity = zoo_parity(torch, ops, cfg, params, seq)
-        wb = weight_bytes(params)
-        emit("zoo_serve", arch=arch, dtype="bfloat16", layers=cfg.n_layers,
-             full_layers=full.n_layers, params=param_count(cfg),
-             weights_gb=(wb + params["embed"].numel() * 2) / 1e9,
-             window=meta["window"], batch=SERVE_BATCH,
-             prompt_len=SERVE_PROMPT, gen=SERVE_GEN, init_s=init_s,
-             run_seconds=seconds, prefill_s=steady.prefill_s,
-             decode_s=steady.decode_s,
-             eager_ms_per_step=steady.decode_s * 1e3 / SERVE_GEN,
-             graph_ms=graph_ms, tok_per_s=steady.tok_per_s,
-             graph_tok_per_s=SERVE_BATCH / graph_ms * 1e3,
-             launches_per_step=prof["kernel_launches"],
-             device_busy_share_eager=prof["device_busy_share"],
-             profile=prof, weights_bound_ms=wb / HBM_BYTES_PER_S * 1e3,
-             peak_memory_gb=peak_gb, launches=counts,
-             sample_tokens=rs.tokens[0, :12].tolist(), parity=parity)
+        emit("zoo_serve", **report, full_layers=full.n_layers,
+             init_s=init_s, parity=parity)
         if not parity["ok"]:
             raise AssertionError(f"zoo {arch}: kernel route and plain route "
                                  f"disagree")
-        del params, rs, steady, seq
+        del params, rs, seq
         torch.cuda.empty_cache()
         if arch == MOE_TRAIN_ARCH:
-            emit("zoo_moe_train", arch=arch, **moe_train_prefill(
+            emit("zoo_moe_train", arch=arch, **lm_train_prefill(
                 torch, ops, dataclasses.replace(
                     full, n_layers=MOE_TRAIN_LAYERS)))
             torch.cuda.empty_cache()
@@ -3049,6 +3211,218 @@ def long500_phase(torch, ops, tally) -> None:
         torch.cuda.empty_cache()
 
 
+def events_ms(events) -> list:
+    """The ms between consecutive recorded CUDA events."""
+    return [events[i].elapsed_time(events[i + 1])
+            for i in range(len(events) - 1)]
+
+
+def long_steps(torch, ops, name, cfg, params, caches, tokens, first) -> dict:
+    """LONG_STEPS long_500k decode steps of cfg from pos `first` against
+    filled caches (counted: no kernel of the port), eager ms a step
+    (CUDA events) and the last step as one CUDA graph: (logits [steps, B,
+    Vp], report)."""
+    from repro_torch.launch.steps import make_decode_step
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(LONG_STEPS + 1)]
+    logits, seconds, counts = run_phase(
+        torch, ops, name, lambda: ring_run(torch, cfg, params, caches,
+                                           tokens, first, events=events),
+        {k: 0 for k in ops.KERNELS})
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{name}: non-finite logits")
+    step, _ = make_decode_step(cfg, "long_500k")
+    last = torch.tensor(first + LONG_STEPS - 1, dtype=torch.int32,
+                        device="cuda")
+    graph_ms = time_ms(torch, lambda: step(params, caches, tokens[:, -1:],
+                                           last), 1)
+    step_ms = events_ms(events)
+    return logits, {"positions": [first, first + LONG_STEPS - 1],
+                    "step_ms": step_ms,
+                    "ms_per_step": sum(step_ms[1:]) / (LONG_STEPS - 1),
+                    "graph_ms": graph_ms, "run_seconds": seconds,
+                    "launches": counts}
+
+
+def decode_vs_prefill(torch, cfg, params, seq) -> dict:
+    """cfg's decode steps teacher-forced through seq [B, S] from empty
+    caches against its full-sequence forward on the same tokens, the
+    forward's expert choices replayed in the decode (an MoE model): MLA's
+    absorbed decode against the materialized prefill, the SSD block's
+    recurrent form against its chunked dual form.  Held at rtol 1e-4 with
+    an atol of 1e-4 of the largest |logit|, as the CPU tests hold decode
+    against prefill."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as LM
+    ftape = MOE.RoutingTape()
+    with torch.no_grad(), MOE.routing(ftape):
+        want = LM.forward(params, seq, cfg)[0].transpose(0, 1)
+    b, n = seq.shape
+    dtape = ftape.by_step(b, n)
+    with MOE.routing(dtape):
+        got = teacher_forced(torch, cfg, params, seq, False)
+    atol = RTOL_WHOLE_RUN * float(want.abs().max())
+    ok = bool(torch.allclose(got, want, rtol=RTOL_WHOLE_RUN, atol=atol))
+    err = (got - want).abs()
+    return {"layers": cfg.n_layers, "dtype": str(cfg.dtype)[6:],
+            "batch": b, "seq": n, "rtol": RTOL_WHOLE_RUN, "atol": atol,
+            "max_abs_diff": float(err.max()),
+            "max_excess": float((err - RTOL_WHOLE_RUN * want.abs()).max()),
+            "logit_max": float(want.abs().max()),
+            "router_flips": int(dtape.flips) if dtape.flips is not None
+            else 0, "ok": ok}
+
+
+def mla_ssm_phase(torch, ops, tally) -> None:
+    """Phase 26: MLA and the SSD block, which run no kernel of the port
+    (the reference computes both outside any Pallas kernel), so every
+    count stays 0.  (a) deepseek-v2-236b at full width cut to MLA_LAYERS
+    of 60 layers (bf16), served (`serve_cell`); (b) its long_500k: batch 1
+    over a full, unwindowed latent cache of 524 288 slots filled as phase
+    16 fills its cache, LONG_STEPS steps at pos 524 280-524 287
+    (`long_steps`).  Then at MLA_CUT_LAYERS: the absorbed decode against
+    the materialized prefill in f32 on the serve's tokens
+    (`decode_vs_prefill`), and the bf16 serve's teacher-forced logits and
+    the bf16 long_500k steps against f32 on the same weights (upcast) and
+    cache, the bf16 run's expert choices replayed, at phase 15's bf16
+    bounds; (c) the train step and prefill at MLA_CUT_LAYERS
+    (`lm_train_prefill`).  (d) mamba2-1.3b at full width and depth:
+    served; long_500k from filled states at pos 524 280-524 287 and from
+    the same states at pos 33-40, bitwise equal (the recurrence ignores
+    pos) with their ms a step; the SSD duality in f32 at SSD_DUAL_LAYERS
+    on SSD_DUAL_SEQ tokens (two chunks); the train step and prefill."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.steps import decode_window
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as LM
+    from repro_torch.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    slots = INPUT_SHAPES["long_500k"]["seq_len"]
+    first = LONG500_POS - LONG_STEPS + 1
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    # (a) deepseek-v2-236b at MLA_LAYERS, served
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    tokens = torch.as_tensor(sample_tokens(1, LONG_STEPS, cfg.vocab_size,
+                                           seed=2), device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(torch, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rs, report = serve_cell(torch, ops, cfg, params, {}, tally)
+    emit("mla_serve", **report, full_layers=full.n_layers, init_s=init_s)
+    seq = torch.cat([rs.prompts, rs.tokens], dim=1)
+    # (b) long_500k over the full latent cache
+    if decode_window(cfg, "long_500k") is not None:
+        raise AssertionError("mla long_500k: a window")
+    caches = LM.init_caches(cfg, 1, slots, device="cuda")
+    fill_caches(torch, caches, 1)
+    _, long_report = long_steps(torch, ops, "mla_long_500k", cfg, params,
+                                caches, tokens, first)
+    cache_bytes, wb = nbytes(caches), weight_bytes(params)
+    long_report.update(
+        arch=cfg.name, layers=cfg.n_layers, batch=1, slots=slots,
+        cache_gb=cache_bytes / 1e9, weights_read_gb=wb / 1e9,
+        bound_ms=(cache_bytes + wb) / HBM_BYTES_PER_S * 1e3,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, caches, rs
+    torch.cuda.empty_cache()
+    # (a), (b) at MLA_CUT_LAYERS: bf16 runs, then f32 on the same weights
+    cut = dataclasses.replace(full, n_layers=MLA_CUT_LAYERS)
+    cut32 = dataclasses.replace(cut, dtype=torch.float32)
+    p16 = lm_params(torch, cut)
+    stape = MOE.RoutingTape()
+    with MOE.routing(stape):
+        s16 = teacher_forced(torch, cut, p16, seq, False)
+    c16 = LM.init_caches(cut, 1, slots, device="cuda")
+    fill_caches(torch, c16, 1)
+    c32 = tree_map(lambda x: x.float(), c16)
+    ltape = MOE.RoutingTape()
+    with MOE.routing(ltape):
+        l16 = ring_run(torch, cut, p16, c16, tokens, first)
+    del c16
+    p32 = tree_map(lambda x: x.float(), p16)
+    del p16
+    torch.cuda.empty_cache()
+    dual = decode_vs_prefill(torch, cut32, p32, seq)
+    with MOE.routing(stape.replay()):
+        s32 = teacher_forced(torch, cut32, p32, seq, False)
+    serve_parity, serve_ok = logit_parity(torch, s16, s32, cut.vocab_size)
+    with MOE.routing(ltape.replay()):
+        l32 = ring_run(torch, cut32, p32, c32, tokens, first)
+    long_parity, long_ok = logit_parity(torch, l16, l32, cut.vocab_size)
+    flips = {"serve": int(stape.flips), "long": int(ltape.flips)}
+    emit("mla_long_500k", **long_report, bf16_vs_f32={
+        "layers": cut.n_layers, **long_parity, "ok": long_ok})
+    emit("mla_parity", layers=cut.n_layers, absorbed_vs_prefill=dual,
+         serve_bf16_vs_f32={**serve_parity, "ok": serve_ok},
+         tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
+         router_flips_bf16_vs_f32=flips)
+    if not (dual["ok"] and serve_ok and long_ok):
+        raise AssertionError("mla parity: the absorbed decode and the "
+                             "prefill, or bf16 and f32, disagree")
+    del p32, c32, s16, s32, l16, l32
+    torch.cuda.empty_cache()
+    # (c) the train step and prefill at MLA_CUT_LAYERS
+    emit("mla_train", arch=cut.name, **lm_train_prefill(torch, ops, cut))
+    torch.cuda.empty_cache()
+
+    # (d) mamba2-1.3b at full width and depth
+    cfg = get_config(SSD_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(torch, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rs, report = serve_cell(torch, ops, cfg, params, {}, tally)
+    emit("ssd_serve", **report, init_s=init_s)
+    del rs
+    tokens = torch.as_tensor(sample_tokens(1, LONG_STEPS, cfg.vocab_size,
+                                           seed=2), device="cuda")
+    caches = LM.init_caches(cfg, 1, slots, device="cuda")
+    fill_caches(torch, caches, 1)
+    early = tree_map(lambda x: x.clone(), caches)
+    lk, long_report = long_steps(torch, ops, "ssd_long_500k", cfg, params,
+                                 caches, tokens, first)
+    le, early_report = long_steps(torch, ops, "ssd_long_early", cfg,
+                                  params, early, tokens,
+                                  SERVE_PROMPT + 1)
+    same = bool(torch.equal(lk, le)) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(caches),
+                                          tree_leaves(early)))
+    emit("ssd_long_500k", arch=cfg.name, layers=cfg.n_layers, batch=1,
+         **long_report, state_gb=nbytes(caches) / 1e9,
+         bound_ms=(nbytes(caches) + weight_bytes(params))
+         / HBM_BYTES_PER_S * 1e3, early=early_report,
+         bitwise_equal_to_early=same)
+    if not same:
+        raise AssertionError("ssd long_500k: the step depends on pos")
+    del params, caches, early, lk, le
+    torch.cuda.empty_cache()
+    dual_cfg = dataclasses.replace(cfg, n_layers=SSD_DUAL_LAYERS,
+                                   dtype=torch.float32)
+    dseq = torch.as_tensor(sample_tokens(SSD_DUAL_BATCH, SSD_DUAL_SEQ,
+                                         cfg.vocab_size, seed=5),
+                           device="cuda")
+    dual = decode_vs_prefill(torch, dual_cfg, lm_params(torch, dual_cfg),
+                             dseq)
+    emit("ssd_duality", arch=cfg.name, chunk=cfg.ssm.chunk,
+         chunks=-(-SSD_DUAL_SEQ // cfg.ssm.chunk), **dual)
+    if not dual["ok"]:
+        raise AssertionError("ssd duality: the recurrent decode and the "
+                             "chunked prefill disagree")
+    torch.cuda.empty_cache()
+    emit("ssd_train", arch=cfg.name, **lm_train_prefill(torch, ops, cfg))
+    torch.cuda.empty_cache()
+    emit("mla_ssm", seconds=time.perf_counter() - t_phase)
+
+
 def decode_shapes(lm) -> dict:
     """decode_attention's main-path launches by (B, S, H, KV, dh): the
     serve (phase 14) and long-cache (16) runs of lm, the zoo's serves
@@ -3079,12 +3453,8 @@ def decode_shapes(lm) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(sys.argv[2:])
-    if sys.argv[1:2] == ["--mesh-child"]:
-        return mesh_child(sys.argv[2:])
-    if sys.argv[1:2] == ["--lm-mesh-child"]:
-        return lm_mesh_child(sys.argv[2:])
-    if sys.argv[1:2] == ["--lm-model-child"]:
-        return lm_model_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--ranks-child"]:
+        return ranks_child(sys.argv[2:])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -3127,9 +3497,8 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    if sys.argv[1:] == ["--mesh"]:   # phases 1-2 and the mesh phase alone
-        mesh_phase(torch, np, ops, figures, lambda counts: None,
-                   lambda case, by_shape: None)
+    if sys.argv[1:] == ["--mla-ssm"]:   # phases 1-2 and 26 alone
+        mla_ssm_phase(torch, ops, lambda counts: None)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3147,20 +3516,11 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    if sys.argv[1:] == ["--lm-model"]:   # 1-2, 3's decode rows, 25 alone
+    if sys.argv[1:] == ["--ranks"]:   # 1-2, 3's decode rows, 21, 22, 25
         from repro_torch.configs import get_config
         check_kernels(torch, decode_cases(torch, ops), floor_ms)
-        lm_model_phase(torch, get_config(LM_ARCH), None,
-                       lambda case, by_shape: None)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind,
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
-    if sys.argv[1:] == ["--lm-mesh"]:   # 1-2, 3's decode rows, 22 alone
-        from repro_torch.configs import get_config
-        check_kernels(torch, decode_cases(torch, ops), floor_ms)
-        lm_mesh_phase(torch, get_config(LM_ARCH), None,
-                      lambda case, by_shape: None)
+        rank_phases(torch, np, ops, figures, lambda counts: None,
+                    lambda case, by_shape: None, get_config(LM_ARCH), None)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3588,13 +3948,12 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 21. the sweep sharded over ranks: one rank on NCCL, and MESH_RANKS
-    # ranks on this card over gloo against the unsharded runs
-    mesh_phase(torch, np, ops, figures, tally, shard_tally)
-
-    # 22. the LM steps over the worker axes: the train step on 2 and 4
-    # ranks, the serve on 2, against phase 14's one-rank serve
-    lm_mesh_phase(torch, lm, rs, shard_tally)
+    # 21, 22 and 25. the rank phases, one spawn of 2 ranks and one of 4 on
+    # this card over gloo: the sweep sharded over ranks (and one rank on
+    # NCCL) against the unsharded runs; the LM steps over the worker axes
+    # and over a "model" axis, against phase 14's one-rank serve
+    rank_phases(torch, np, ops, figures, tally, shard_tally, lm, rs)
+    del rs
     torch.cuda.empty_cache()
 
     # 23. the zoo's dense and MoE archs served at full width
@@ -3603,10 +3962,9 @@ def main() -> int:
     # 24. long_500k: rings of decode_window slots at pos 524 287
     long500_phase(torch, ops, tally)
 
-    # 25. the LM steps over a "model" axis: tensor parallel serves and
-    # train steps on 2 and 4 ranks, against phase 14's one-rank serve
-    lm_model_phase(torch, lm, rs, shard_tally)
-    del rs
+    # 26. MLA (deepseek-v2-236b) and the SSD block (mamba2-1.3b): serve,
+    # long_500k, train step and prefill; no kernel of the port
+    mla_ssm_phase(torch, ops, tally)
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -3715,7 +4073,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 25. the kernel list
+    # 27. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

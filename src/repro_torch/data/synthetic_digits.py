@@ -9,6 +9,7 @@ a genuinely learnable 10-class problem with MNIST's input dimensionality
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -60,10 +61,23 @@ def _render(digit: int, rng: np.random.Generator) -> np.ndarray:
 
 
 def make_dataset(n: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
-    """Returns (x [n,784] float32 in [0,1], y [n] int32), label-balanced."""
+    """Returns (x [n,784] float32 in [0,1], y [n] int32), label-balanced.
+
+    Rendering takes ~0.35 ms an image on one CPU core (11 s for the
+    U = 1000 grid's 32 000), and every figure, grid and trainer built in a
+    process draws the same few datasets: the process keeps the last 8 it
+    rendered (`_rendered`) and returns copies of them."""
+    x, y = _rendered(int(n), int(seed))
+    return x.copy(), y.copy()
+
+
+@functools.lru_cache(maxsize=8)
+def _rendered(n: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """`make_dataset`'s arrays, read-only."""
     rng = np.random.default_rng(seed)
     y = rng.integers(0, 10, size=n).astype(np.int32)
     x = np.stack([_render(int(d), rng).reshape(-1) for d in y])
+    x.flags.writeable = y.flags.writeable = False
     return x, y
 
 

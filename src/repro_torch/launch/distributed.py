@@ -28,7 +28,11 @@ all_reduce of the gradients already sums the ranks' contributions), and
 backward) where a replicated activation enters a rank's shard of a layer,
 and `reduce_out` (psum forward, identity backward: the same op as
 `all_reduce_sum_local_grad`) where the shard's partial product leaves it;
-`all_gather` along the last dim joins vocab-sharded logits.  The
+`all_gather` along the last dim joins vocab-sharded logits.
+`gather_shards` is the differentiable gather of a column-parallel product
+that every rank then reads in its own way (MLA's q_lora columns, the SSD
+block's in_proj columns): all_gather forward, and backward this rank's
+slice of the group-summed gradient.  The
 reference's `setup_compilation_cache` has no counterpart: the
 port compiles nothing at run time except its CUDA kernels, which
 `kernels/_build.py` builds once into `build/kernels/` and reuses.
@@ -220,6 +224,33 @@ def reduce_out(x: torch.Tensor, group=None) -> torch.Tensor:
     the identity, since the replicated loss downstream gives every rank
     the whole gradient already (`all_reduce_sum_local_grad`)."""
     return all_reduce_sum_local_grad(x, group)
+
+
+class _GatherShards(torch.autograd.Function):
+    """all_gather forward, all_reduce_sum then this rank's slice
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = all_reduce_sum(grad, ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def gather_shards(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
+    """Every rank's shard `x` of `group` concatenated along `dim` (rank
+    order), where each rank then reads the whole tensor in its own way:
+    the gradient of this rank's shard is its slice of the gradient summed
+    over the group (the reference's all_gather, whose transpose is a
+    reduce-scatter).  `x` itself when group is None."""
+    if group is None:
+        return x
+    return _GatherShards.apply(x, group, dim % x.dim())
 
 
 def fetch(x, dim: Optional[int] = None, group=None) -> np.ndarray:

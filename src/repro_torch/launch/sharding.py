@@ -11,6 +11,12 @@ rules, as the reference's (a dim is split when M divides it):
   divides (`_wspec`: d for the KV heads of the smoke qwen3-4b and
   starcoder2-3b at M = 4); wo its head dim the same way; q_norm / k_norm
   are replicated;
+- MLA (`repro/models/attention.py::init_mla`): wq_a its q_lora, wq_b /
+  wk_b / wv_b their heads and wo its heads, each by `_wspec`'s rule;
+  wkv_a, q_norm and kv_norm are replicated;
+- the SSD mixer (`repro/models/ssm.py::init_ssm`): in_proj its output
+  columns, A_log / D / dt_bias their heads, norm and out_proj's rows
+  d_inner; conv_w / conv_b are replicated;
 - the SwiGLU's wi / wg split f, its wo f;
 - the MoE experts split each expert's f ("scan_dense") or the experts
   ("capacity_gather"); the shared experts are a SwiGLU; the f32 router is
@@ -24,7 +30,8 @@ A spec tree has the parameter tree's structure, each leaf the split dim
 nothing.  A rank's decode caches are built by
 `transformer.init_caches(..., model_parallel=M)`: its KV heads, whole (the
 reference's `cache_specs` splits another dim where M does not divide KV;
-`models/attention.py`).  `fsdp_augment`'s storage sharding over "data"
+`models/attention.py`), the whole MLA latent, and its heads' SSD state
+(`models/ssm.py`).  `fsdp_augment`'s storage sharding over "data"
 and the sequence-parallel residuals of `make_constrain` are not ported
 (ROADMAP.md Queue 1 item 8d); `sweep_state_spec` is the sweep engine's
 column split (`fl/sweep.py::_ModelShards`).
@@ -67,9 +74,15 @@ def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
     if path == ("lm_head",):
         return _split(shape[1], 1, m)
     if parent == "attn":
-        if name in ("wq", "wk", "wv"):
+        if name in ("wq", "wk", "wv", "wq_a", "wq_b", "wk_b", "wv_b"):
             return _first_split(shape, 1, m)
         return _first_split(shape, 0, m) if name == "wo" else None
+    if parent == "mixer":   # the SSD block
+        if name == "in_proj":
+            return _split(shape[1], 1, m)
+        if name in ("A_log", "D", "dt_bias", "norm", "out_proj"):
+            return _split(shape[0], 0, m)
+        return None         # conv_w, conv_b
     if len(shape) == 3:   # stacked experts [E, d, f] / [E, f, d]
         if cfg.moe.impl == "scan_dense":
             f_dim = 1 if name == "w2" else 2

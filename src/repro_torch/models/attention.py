@@ -1,8 +1,9 @@
-"""GQA attention of the port: weights, q/k/v with qk-norm and RoPE, the
-full-sequence attention of training and prefill, and the one-token KV-cache
-decode step (`repro/models/attention.py`).
+"""Attention of the port: GQA (weights, q/k/v with qk-norm and RoPE, the
+full-sequence attention of training and prefill, the one-token KV-cache
+decode step) and DeepSeek-V2's multi-head latent attention (MLA)
+(`repro/models/attention.py`).
 
-Weight layout as in the JAX package: wq [d, H, hd], wk/wv [d, KV, hd],
+GQA weight layout as in the JAX package: wq [d, H, hd], wk/wv [d, KV, hd],
 wo [H, hd, d].  The projections are plain `torch.matmul`s over the
 flattened head axes; the attention of a decode step is the hand-written
 CUDA kernel behind `kernels/ops.py::decode_attention`.  The full-sequence
@@ -19,8 +20,19 @@ kpos > pos - window`; over a ring of `slots` that is exactly "every slot
 <= min(pos, slots - 1)", which the decode attention applies itself (it
 clamps its valid length to min(pos + 1, S)), and the softmax does not
 depend on slot order (RoPE is applied to k at its true position when it
-is written).  `kv_cache_dtype="int8"` and MLA raise NotImplementedError
+is written).  `kv_cache_dtype="int8"` raises NotImplementedError
 (ROADMAP.md Queue 1 item 10).
+
+MLA (`init_mla`, `mla_full`, `init_mla_cache`, `mla_decode_step`) is plain
+torch, as the reference's is plain einsums outside any Pallas kernel:
+wq_a [d, q_lora] and q_norm, wq_b [q_lora, H, nope + rope], wkv_a
+[d, kv_lora + rope] and kv_norm, wk_b [kv_lora, H, nope], wv_b
+[kv_lora, H, v], wo [H, v, d].  Training and prefill materialize each
+head's K / V from the latent (`mla_full`, the reference's query chunking
+and its casts); decode is the absorbed form over a cache of the latent
+c_kv [B, S, kv_lora] and the shared rope keys k_rope [B, S, rope], which
+it writes in place at slot pos, as the GQA decode does (full attention
+always: long_500k keeps its 524 288 slots).
 
 Over a "model" axis of M ranks (`common.tensor_parallel`) each rank holds
 the query heads axis.part(H) of wq and wo (the reference's `_wspec`
@@ -36,7 +48,13 @@ those KV heads only: where KV does not divide, the reference's
 `cache_specs` shards another dim of the cache (hd, or the sequence), and
 the port does not copy that, since the decode kernel reads whole heads.
 It changes no value.  Query heads M does not divide raise
-NotImplementedError (`check_heads`).
+NotImplementedError (`check_heads`).  MLA splits wq_a on q_lora (each
+rank's columns of the latent query, gathered with
+`launch.distributed.gather_shards`), wq_b / wk_b / wv_b / wo on the heads;
+wkv_a and the norms are replicated and enter through `copy_in`, and every
+rank keeps the whole latent cache, since each head reads all of it (the
+reference's `cache_specs` splits kv_lora or the sequence; it changes no
+value).  M must divide H and q_lora.
 
 The sequence-sharded decode of the reference (`decode_local_partial`,
 `combine_partials`: each rank holds a shard of the cache's positions and
@@ -52,7 +70,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.launch.distributed import (all_reduce_max, all_reduce_sum,
-                                            copy_in, reduce_out)
+                                            copy_in, gather_shards,
+                                            reduce_out)
 from repro_torch.launch.mesh import Q_MODEL_AXIS
 from repro_torch.models.common import (ModelConfig, ParamInit,
                                        make_causal_mask, model_shards,
@@ -82,11 +101,24 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
 
 
 def check_heads(cfg: ModelConfig, m: int) -> None:
-    """Raise NotImplementedError unless the port computes cfg's attention
-    over m "model" ranks: m divides the query heads, and divides the KV
-    heads or (wk / wv sharded on d) divides d and is a multiple of KV."""
+    """Raise NotImplementedError unless the port computes cfg's mixers
+    over m "model" ranks: for GQA m divides the query heads, and divides
+    the KV heads or (wk / wv sharded on d) divides d and is a multiple of
+    KV; for MLA m divides the heads and q_lora; for the SSD block m
+    divides its heads (d_inner / headdim)."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    if m > 1 and (h % m or (kv % m and (m % kv or cfg.d_model % m))):
+    if m == 1:
+        return
+    bad = False
+    if cfg.ssm is not None:
+        bad = (cfg.ssm.expand * cfg.d_model // cfg.ssm.headdim) % m != 0
+    if any(k != "ssm" for k in cfg.block_pattern):
+        if cfg.mla is not None:
+            bad = bad or h % m != 0 or cfg.mla.q_lora % m != 0
+        else:
+            bad = bad or h % m != 0 or (kv % m != 0 and (
+                m % kv != 0 or cfg.d_model % m != 0))
+    if bad:
         raise NotImplementedError(
             f"{cfg.name} on {m} \"model\" ranks (H {h}, KV {kv}, d "
             f"{cfg.d_model}): {Q_MODEL_AXIS}")
@@ -207,8 +239,6 @@ def check_cache_supported(cfg: ModelConfig) -> None:
     if cfg.kv_cache_dtype != "native":
         raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} "
                                   f"{NOT_PORTED}")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"MLA decode {NOT_PORTED}")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -256,6 +286,166 @@ def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
     out = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                                pos, plain=plain)
     return _out(p, out.reshape(b, 1, *out.shape[1:])), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(pi: ParamInit, cfg: ModelConfig) -> Dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    return {"wq_a": pi.param((d, m.q_lora), fan_in=d),
+            "q_norm": pi.param((m.q_lora,), init="zeros"),
+            "wq_b": pi.param((m.q_lora, h, qd), fan_in=m.q_lora),
+            "wkv_a": pi.param((d, m.kv_lora + m.qk_rope_dim), fan_in=d),
+            "kv_norm": pi.param((m.kv_lora,), init="zeros"),
+            "wk_b": pi.param((m.kv_lora, h, m.qk_nope_dim),
+                             fan_in=m.kv_lora),
+            "wv_b": pi.param((m.kv_lora, h, m.v_dim), fan_in=m.kv_lora),
+            "wo": pi.param((h, m.v_dim, d), fan_in=h * m.v_dim)}
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(nope + rope), rounded in f32 as the reference's
+    1.0 / jnp.sqrt(float32(...)), taken on the host."""
+    qd = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+    return float(1.0 / torch.tensor(float(qd)).sqrt())
+
+
+def _mla_q(p: Dict, x: Tensor, cfg: ModelConfig,
+           rope: Tuple[Tensor, Tensor]) -> Tuple[Tensor, Tensor]:
+    """x [B, S, d] (already through `copy_in` under `tensor_parallel`),
+    rope the (cos, sin) of the positions [B, S] at qk_rope_dim ->
+    (q_nope [B, S, H, nope], q_rope [B, S, H, rope]), this rank's heads."""
+    m = cfg.mla
+    axis = model_shards()
+    if axis is None:
+        cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    else:   # this rank's q_lora columns, gathered
+        cq = rms_norm(gather_shards(x @ p["wq_a"], axis.group),
+                      copy_in(p["q_norm"], axis.group), cfg.norm_eps)
+    q = _proj(cq, p["wq_b"])
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, rope_rotate(q_rope, *rope)
+
+
+def _mla_ckv(p: Dict, x: Tensor, cfg: ModelConfig,
+             rope: Tuple[Tensor, Tensor]) -> Tuple[Tensor, Tensor]:
+    """x [B, S, d] -> (c_kv [B, S, kv_lora], k_rope [B, S, rope]), whole on
+    every rank (the replicated wkv_a and kv_norm enter through
+    `copy_in`)."""
+    m = cfg.mla
+    axis = model_shards()
+    wkv, norm = p["wkv_a"], p["kv_norm"]
+    if axis is not None:
+        wkv, norm = copy_in(wkv, axis.group), copy_in(norm, axis.group)
+    kv_a = x @ wkv
+    c_kv = rms_norm(kv_a[..., :m.kv_lora], norm, cfg.norm_eps)
+    return c_kv, rope_rotate(kv_a[..., m.kv_lora:], *rope)
+
+
+def _latent_proj(c: Tensor, w: Tensor) -> Tensor:
+    """c [B, S, kv_lora] @ w [kv_lora, H, k] -> [B, S, H, k]."""
+    e, h, k = w.shape
+    return (c @ w.reshape(e, h * k)).reshape(*c.shape[:-1], h, k)
+
+
+def _mla_out(p: Dict, out: Tensor) -> Tensor:
+    """[B, S, H, v] through wo -> [B, S, d]; the ranks' partial products
+    summed under `tensor_parallel`."""
+    h, v, d = p["wo"].shape
+    y = out.reshape(*out.shape[:-2], h * v) @ p["wo"].reshape(h * v, d)
+    axis = model_shards()
+    return y if axis is None else reduce_out(y, axis.group)
+
+
+def mla_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
+             window: Optional[int] = None) -> Tensor:
+    """Train / prefill MLA over x [B, S, d] at positions [B, S]: each head's
+    K / V materialized from the latent (decode takes the absorbed form).
+    The queries run in chunks of Q_CHUNK as the reference's do, with its
+    rule: a length that is not a multiple of Q_CHUNK, or one chunk's
+    worth, runs as one chunk.  Scores in the activation dtype, then f32
+    times the scale; the probabilities cast to v's dtype."""
+    m = cfg.mla
+    axis = model_shards()
+    if axis is not None:
+        x = copy_in(x, axis.group)
+    rope = rope_cos_sin(positions, m.qk_rope_dim, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(p, x, cfg, rope)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, rope)
+    k_nope = _latent_proj(c_kv, p["wk_b"])
+    v = _latent_proj(c_kv, p["wv_b"])
+    scale = _mla_scale(cfg)
+    sq = x.shape[1]
+    qc = Q_CHUNK
+    if sq % qc or max(sq // qc, 1) == 1:
+        qc = sq
+    outs = []
+    for off in range(0, sq, qc):
+        qn, qr = q_nope[:, off:off + qc], q_rope[:, off:off + qc]
+        s = (torch.einsum("bqhk,bshk->bhqs", qn, k_nope)
+             + torch.einsum("bqhk,bsk->bhqs", qr, k_rope)).float() * scale
+        mask = make_causal_mask(qc, sq, off, window, x.device)
+        s = s.masked_fill(~mask, -1e30)
+        probs = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhqs,bshk->bqhk", probs, v))
+    return _mla_out(p, outs[0] if len(outs) == 1 else torch.cat(outs, 1))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device=None, model_parallel: int = 1) -> Dict[str, Tensor]:
+    """Zeroed latent cache of one MLA layer: c_kv [B, max_len, kv_lora] and
+    k_rope [B, max_len, rope], whole on every "model" rank (every head
+    reads all of it)."""
+    check_cache_supported(cfg)
+    check_heads(cfg, model_parallel)
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
+                    cfg: ModelConfig, *,
+                    rope: Optional[Tuple[Tensor, Tensor]] = None
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Absorbed-form MLA decode of x1 [B, 1, d] at pos (an int, or a 0-d
+    integer tensor on x1's device): the new token's latent and rope key
+    are written into the cache in place at slot pos (pos < S), then
+    q_eff = q_nope . wk_b scores the [B, S, kv_lora] latent, q_rope the
+    rope keys, over the slots <= pos (the rest set to -1e30); the context
+    stays in the latent until wv_b and wo.  `rope`, the (cos, sin) of pos
+    at qk_rope_dim, lets a caller compute them once for every layer.
+    Returns ([B, 1, d], the same cache dict)."""
+    m = cfg.mla
+    axis = model_shards()
+    if axis is not None:
+        x1 = copy_in(x1, axis.group)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x1.device)
+    if rope is None:
+        rope = rope_cos_sin(pos.reshape(1, 1), m.qk_rope_dim, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(p, x1, cfg, rope)            # [B, 1, H, *]
+    c1, r1 = _mla_ckv(p, x1, cfg, rope)                  # [B, 1, *]
+    slot = pos.reshape(1).long()
+    cache["c_kv"].index_copy_(1, slot, c1)
+    cache["k_rope"].index_copy_(1, slot, r1)
+    ck, cr = cache["c_kv"], cache["k_rope"]
+    # absorb wk_b into the query: q_eff [B, H, kv_lora]
+    q_eff = torch.einsum("bhk,ehk->bhe", q_nope[:, 0], p["wk_b"])
+    s = (torch.bmm(q_eff, ck.transpose(1, 2))
+         + torch.bmm(q_rope[:, 0], cr.transpose(1, 2))).float()
+    s = s * _mla_scale(cfg)
+    valid = torch.arange(ck.shape[1], device=ck.device) <= pos
+    s = s.masked_fill(~valid, -1e30)
+    probs = torch.softmax(s, dim=-1).to(ck.dtype)
+    ctx = torch.bmm(probs, ck)                           # [B, H, kv_lora]
+    out = torch.einsum("bhe,ehk->bhk", ctx, p["wv_b"])   # [B, H, v]
+    return _mla_out(p, out[:, None]), cache
 
 
 def decode_local_partial(q: Tensor, k_loc: Tensor, v_loc: Tensor,

@@ -45,16 +45,41 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention (`repro/models/common.py::
+    MLAConfig`), every field and default as the reference's:
+    `models/attention.py`'s `mla_full` / `mla_decode_step`."""
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """The Mamba-2 SSD block (`repro/models/common.py::SSMConfig`), every
+    field and default as the reference's: `models/ssm.py`."""
+    d_state: int = 128
+    expand: int = 2
+    headdim: int = 64
+    chunk: int = 256
+    d_conv: int = 4
+    ngroups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The JAX `ModelConfig` without its XLA execution knobs (model_parallel,
     remat, scan_layers, unroll_for_analysis); `dtype` is a torch dtype.
     `lm_head_chunk` stays: it decides how many positions the training loss
     projects to logits at once (`transformer.chunked_ce`).  `skip_shapes`
     stays: it is a model property, the input shapes a config does not run
-    (`configs.registry.shape_applicable`).  `moe` is a `MoEConfig`; the
-    other sub-configs (mla, ssm, encdec, frontend) are carried only as None
-    here: the port's model raises NotImplementedError on any of them
-    (ROADMAP.md Queue 1 item 10)."""
+    (`configs.registry.shape_applicable`).  `moe` is a `MoEConfig`, `mla`
+    an `MLAConfig` (deepseek-v2-236b) and `ssm` an `SSMConfig`
+    (mamba2-1.3b); encdec and frontend are carried only as None here: the
+    port's model raises NotImplementedError on either (ROADMAP.md Queue 1
+    item 10)."""
     name: str
     arch_type: str                    # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
@@ -70,8 +95,8 @@ class ModelConfig:
     long_context_window: Optional[int] = None  # SWA used only for long_500k
     block_pattern: Tuple[str, ...] = ("attn",)
     moe: Optional[MoEConfig] = None
-    mla: Optional[Any] = None
-    ssm: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     encdec: Optional[Any] = None
     frontend: Optional[Any] = None
     rglru_width: Optional[int] = None

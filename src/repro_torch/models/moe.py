@@ -126,6 +126,16 @@ class RoutingTape:
         self.replaying, self.cursor = True, 0
         return self
 
+    def by_step(self, batch: int, steps: int) -> "RoutingTape":
+        """A new tape, set to replay, of this one's choices in the order
+        a decode of the same tokens makes them: this tape recorded one
+        full-sequence forward of [batch, steps] tokens ([batch steps, k]
+        a MoE layer); a decode step calls each layer with [batch, k]."""
+        tape = RoutingTape()
+        tape.recorded = [r.reshape(batch, steps, -1)[:, i]
+                         for i in range(steps) for r in self.recorded]
+        return tape.replay()
+
     def route(self, idx: Tensor) -> Tensor:
         if not self.replaying:
             self.recorded.append(idx)

@@ -1,38 +1,44 @@
 """Decoder-only LM of the port: init, embeddings, the full-sequence forward
-and loss of training and prefill, KV caches and the one-token decode step
-(`repro/models/transformer.py`), for the block kinds
+and loss of training and prefill, decode caches and the one-token decode
+step (`repro/models/transformer.py`), for the block kinds
 
-  attn       causal self-attention (GQA) + SwiGLU
-  attn_moe   causal self-attention (GQA) + MoE FFN (+ shared experts)
+  attn       causal self-attention (GQA, or MLA when cfg.mla) + SwiGLU
+  attn_moe   causal self-attention (GQA or MLA) + MoE FFN (+ shared experts)
+  ssm        Mamba-2 SSD mixer (no separate FFN, per the paper)
 
 in any `block_pattern` of them (qwen3-4b, granite-8b and starcoder2-3b are
-("attn",), moonshot ("attn_moe",), llama4 ("attn", "attn_moe")).  A
-"super-block" is one repeat of the pattern: n_layers // len(pattern) of
-them are stacked with a leading layer axis under `blocks` ({"b0", "b1",
-...}, one sub-block per pattern entry), and the n_layers % len(pattern)
-left over are unstacked `tail{t}` blocks of kind pattern[t].
+("attn",), moonshot and deepseek-v2-236b (MLA) ("attn_moe",), llama4
+("attn", "attn_moe"), mamba2-1.3b ("ssm",)).  A "super-block" is one
+repeat of the pattern: n_layers // len(pattern) of them are stacked with a
+leading layer axis under `blocks` ({"b0", "b1", ...}, one sub-block per
+pattern entry), and the n_layers % len(pattern) left over are unstacked
+`tail{t}` blocks of kind pattern[t].  An "ssm" sub-block is ln1 and the
+mixer alone.
 
 The parameter and cache trees keep the JAX package's layout, so JAX weights
 carry across with `params_from_jax` and a flat row lays its leaves out as
-`jax.tree_util` does (`repro_torch.tree`).  The JAX scan over layers is a
-Python loop over layer indices here, and `remat` has no counterpart: the
-backward keeps every layer's activations.  `chunked_ce` projects
-`lm_head_chunk` positions to logits at a time, as the reference does,
-without `torch.utils.checkpoint` (it does not compose with
-`torch.func.grad` / `vmap`, through which the sweep takes per-worker
-gradients).  The other block kinds (local_attn, ssm, rglru), MLA, SSM,
-encoder-decoder and frontends (a VLM's `embeds_prefix`) raise
-NotImplementedError (ROADMAP.md Queue 1 item 10).
+`jax.tree_util` does (`repro_torch.tree`).  The decode caches of a layer are
+a GQA layer's k / v, an MLA layer's latent c_kv / k_rope, or an SSD layer's
+conv window and ssm state.  The JAX scan over layers is a Python loop over
+layer indices here, and `remat` has no counterpart: the backward keeps
+every layer's activations.  `chunked_ce` projects `lm_head_chunk`
+positions to logits at a time, as the reference does, without
+`torch.utils.checkpoint` (it does not compose with `torch.func.grad` /
+`vmap`, through which the sweep takes per-worker gradients).  The other
+block kinds (local_attn, rglru), the encoder-decoder and frontends (a
+VLM's `embeds_prefix`) raise NotImplementedError (ROADMAP.md Queue 1 item
+10).
 
 Under `common.tensor_parallel` (a "model" axis of M ranks, the parameters
 this rank's shards, `launch/sharding.py`) the residual stream stays
-replicated: the attention, the SwiGLU (wi / wg split on f, wo on f) and
-the MoE each take their input through `copy_in` and reduce their output
-once; the embedding is split on its vocab rows (each rank looks up the
-ids in its rows, zeros elsewhere, one `reduce_out`), the head on its vocab
-columns, and the CE is `softmax_xent_sharded`, so the [B, S, Vp] logits
-are never gathered in training.  `logits_from_hidden` gathers the vocab
-shards (prefill and decode).
+replicated: the attention (GQA or MLA), the SSD mixer, the SwiGLU (wi / wg
+split on f, wo on f) and the MoE each take their input through `copy_in`
+and reduce their output once; the embedding is split on its vocab rows
+(each rank looks up the ids in its rows, zeros elsewhere, one
+`reduce_out`), the head on its vocab columns, and the CE is
+`softmax_xent_sharded`, so the [B, S, Vp] logits are never gathered in
+training.  `logits_from_hidden` gathers the vocab shards (prefill and
+decode).
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import torch
 from repro_torch.models import attention as ATT
 from repro_torch.models import ffn as FFN
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.launch.distributed import all_gather, copy_in, reduce_out
 from repro_torch.models.common import (ModelConfig, ParamInit, model_shards,
                                        rms_norm, rope_cos_sin, softmax_xent,
@@ -52,19 +59,22 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
 
-BLOCK_KINDS = ("attn", "attn_moe")
+BLOCK_KINDS = ("attn", "attn_moe", "ssm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless cfg is a decoder-only stack of ported block kinds
-    ("attn", and "attn_moe" with a MoE config)."""
+    ("attn", "attn_moe" with a MoE config, "ssm" with an SSM config; the
+    attention GQA, or MLA with an MLA config)."""
     for kind in cfg.block_pattern:
         if kind not in BLOCK_KINDS:
             raise NotImplementedError(f"block_pattern {cfg.block_pattern}: "
                                       f"{kind!r} {ATT.NOT_PORTED}")
     if "attn_moe" in cfg.block_pattern and cfg.moe is None:
         raise ValueError(f"{cfg.name}: an attn_moe block needs cfg.moe")
-    for sub in ("mla", "ssm", "encdec", "frontend"):
+    if "ssm" in cfg.block_pattern and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: an ssm block needs cfg.ssm")
+    for sub in ("encdec", "frontend"):
         if getattr(cfg, sub) is not None:
             raise NotImplementedError(f"{cfg.name}: {sub} {ATT.NOT_PORTED}")
 
@@ -77,8 +87,12 @@ def layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
 
 def _init_subblock(pi: ParamInit, kind: str, cfg: ModelConfig) -> Dict:
     d = cfg.d_model
+    if kind == "ssm":
+        return {"ln1": pi.param((d,), init="zeros"),
+                "mixer": SSM.init_ssm(pi, cfg)}
     return {"ln1": pi.param((d,), init="zeros"),
-            "attn": ATT.init_gqa(pi, cfg),
+            "attn": (ATT.init_mla(pi, cfg) if cfg.mla is not None
+                     else ATT.init_gqa(pi, cfg)),
             "ln2": pi.param((d,), init="zeros"),
             "ffn": (MOE.init_moe(pi, cfg) if kind == "attn_moe"
                     else FFN.init_swiglu(pi, cfg))}
@@ -159,29 +173,41 @@ def logits_from_hidden(params: Dict, h: Tensor, cfg: ModelConfig) -> Tensor:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 window: Optional[int] = None, device=None,
                 model_parallel: int = 1) -> Dict:
-    """Decode caches in the reference's layout: {"blocks": {"b<i>": {"k",
-    "v": [L, B, S, KV, hd]}}} for the stacked super-blocks and
-    {"tail<t>": {"b0": {"k", "v": [B, S, KV, hd]}}} for the tail blocks.
-    `window` overrides cfg.window for every attention block (long_500k's
-    SWA variant); a window makes each cache a ring of min(max_len, window)
-    slots.  Over model_parallel "model" ranks, a rank's caches: the KV
-    heads its query heads read (`attention.local_heads`)."""
+    """Decode caches in the reference's layout: {"blocks": {"b<i>": {...}}}
+    for the stacked super-blocks (a leading layer axis L) and {"tail<t>":
+    {"b0": {...}}} for the tail blocks, each a GQA layer's {"k", "v":
+    [B, S, KV, hd]}, an MLA layer's {"c_kv": [B, S, kv_lora], "k_rope":
+    [B, S, rope]} or an SSD layer's {"conv": [B, d_conv - 1, conv_ch],
+    "ssm": [B, H, N, P] f32}.  `window` overrides cfg.window for every GQA
+    block (long_500k's SWA variant); a window makes each GQA cache a ring
+    of min(max_len, window) slots (an MLA cache is always max_len slots,
+    as the reference's).  Over model_parallel "model" ranks, a rank's
+    caches: the KV heads its query heads read (`attention.local_heads`),
+    the whole MLA latent, the SSD state of its heads (`ssm.py`)."""
     check_supported(cfg)
+    ATT.check_heads(cfg, model_parallel)
     n_rep, n_tail = layer_counts(cfg)
     w_attn = window if window is not None else cfg.window
 
-    def one(stack=()):
-        c = ATT.init_cache(cfg, batch, max_len, w_attn, cfg.dtype, "meta",
-                           model_parallel)
+    def one(kind, stack=()):
+        if kind == "ssm":
+            c = SSM.init_ssm_state(cfg, batch, cfg.dtype, "meta",
+                                   model_parallel)
+        elif cfg.mla is not None:
+            c = ATT.init_mla_cache(cfg, batch, max_len, cfg.dtype, "meta",
+                                   model_parallel)
+        else:
+            c = ATT.init_cache(cfg, batch, max_len, w_attn, cfg.dtype,
+                               "meta", model_parallel)
         return {k: torch.zeros(stack + x.shape, dtype=x.dtype, device=device)
                 for k, x in c.items()}
 
     caches: Dict[str, Any] = {}
     if n_rep:
-        caches["blocks"] = {f"b{i}": one((n_rep,))
-                            for i in range(len(cfg.block_pattern))}
+        caches["blocks"] = {f"b{i}": one(kind, (n_rep,))
+                            for i, kind in enumerate(cfg.block_pattern)}
     for t in range(n_tail):
-        caches[f"tail{t}"] = {"b0": one()}
+        caches[f"tail{t}"] = {"b0": one(cfg.block_pattern[t])}
     return caches
 
 
@@ -227,9 +253,14 @@ def _apply_subblock(kind: str, p: Dict, x: Tensor, positions: Tensor,
                     cfg: ModelConfig, window: Optional[int]
                     ) -> Tuple[Tensor, Optional[Tensor]]:
     """The full-sequence block: x + attn(norm(x)), then + ffn(norm(x));
-    returns (x, the MoE aux loss or None)."""
+    or x + ssd(norm(x)); returns (x, the MoE aux loss or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + ATT.gqa_full(p["attn"], h, cfg, positions, window=window)
+    if kind == "ssm":
+        return x + SSM.ssd_full(p["mixer"], h, cfg), None
+    if cfg.mla is not None:
+        x = x + ATT.mla_full(p["attn"], h, cfg, positions, window=window)
+    else:
+        x = x + ATT.gqa_full(p["attn"], h, cfg, positions, window=window)
     y, aux = _ffn(kind, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + y, aux
 
@@ -323,10 +354,18 @@ def _decode_subblock(kind: str, p: Dict, cache: Dict, x1: Tensor, pos,
                      rope: Tuple[Tensor, Tensor],
                      plain: bool) -> Tuple[Tensor, Dict]:
     """One block of a decode step: x + attn(norm(x)), then + ffn(norm(x))
-    (the MoE FFN's aux loss is dropped, as in the reference)."""
+    (the MoE FFN's aux loss is dropped, as in the reference); or x +
+    ssd(norm(x))."""
     h = rms_norm(x1, p["ln1"], cfg.norm_eps)
-    h, cache = ATT.decode_step(p["attn"], h, cache, pos, cfg, window=window,
-                               rope=rope, plain=plain)
+    if kind == "ssm":
+        y, cache = SSM.ssd_decode_step(p["mixer"], h, cache, cfg)
+        return x1 + y, cache
+    if cfg.mla is not None:
+        h, cache = ATT.mla_decode_step(p["attn"], h, cache, pos, cfg,
+                                       rope=rope)
+    else:
+        h, cache = ATT.decode_step(p["attn"], h, cache, pos, cfg,
+                                   window=window, rope=rope, plain=plain)
     x1 = x1 + h
     y, _ = _ffn(kind, p["ffn"], rms_norm(x1, p["ln2"], cfg.norm_eps), cfg)
     return x1 + y, cache
@@ -337,16 +376,22 @@ def decode_step(params: Dict, caches: Dict, tokens1: Tensor, pos,
                 plain: bool = False) -> Tuple[Tensor, Dict]:
     """One decode step.  tokens1 [B, 1] integer, pos the 0-based index of the
     new token (an int or a 0-d integer tensor on the device).  `window`
-    overrides cfg.window for every attention block; a windowed step
-    writes slot pos % S of its ring caches (`init_caches` with the same
-    window).  Returns (logits [B, 1, Vp], caches); the caches are written
-    in place (see `attention.decode_step`)."""
+    overrides cfg.window for every GQA block; a windowed step writes slot
+    pos % S of its ring caches (`init_caches` with the same window).  MLA
+    and SSD layers take no window (an SSD layer no pos either).  Returns
+    (logits [B, 1, Vp], caches); the caches are written in place (see
+    `attention.decode_step`, `attention.mla_decode_step`,
+    `ssm.ssd_decode_step`)."""
     check_supported(cfg)
     window = window if window is not None else cfg.window
     ATT.check_cache_supported(cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens1.device)
     x = embed_tokens(params, tokens1, cfg)
-    rope = rope_cos_sin(pos.reshape(1, 1), cfg.hd, cfg.rope_theta)
+    rope = None
+    if any(kind != "ssm" for kind in cfg.block_pattern):
+        rope = rope_cos_sin(pos.reshape(1, 1), cfg.mla.qk_rope_dim
+                            if cfg.mla is not None else cfg.hd,
+                            cfg.rope_theta)
     for (kind, p), (_, c) in zip(_layers(cfg, params), _layers(cfg, caches)):
         x, _ = _decode_subblock(kind, p, c, x, pos, cfg, window, rope, plain)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -37,6 +37,21 @@ def test_dataset_byte_equal(seed):
     assert tx.tobytes() == jx.tobytes() and ty.tobytes() == jy.tobytes()
 
 
+def test_dataset_is_rendered_once_and_returned_as_copies():
+    """A second call with the same (n, seed) takes the kept render: equal
+    bytes, writable arrays of its own (a caller's writes reach neither
+    the kept arrays nor the next call), the JAX bytes still."""
+    TD._rendered.cache_clear()
+    x, y = TD.make_dataset(30, seed=5)
+    x[:] = -1.0
+    y[:] = -1
+    x2, y2 = TD.make_dataset(30, seed=5)
+    assert TD._rendered.cache_info().hits == 1
+    assert x2.flags.writeable and not np.shares_memory(x, x2)
+    jx, jy = JD.make_dataset(30, seed=5)
+    assert x2.tobytes() == jx.tobytes() and y2.tobytes() == jy.tobytes()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 99])
 def test_split_and_sampler_byte_equal(seed):
     x, y = JD.make_dataset(60, seed=seed)

@@ -1261,3 +1261,64 @@ def test_moe_serve_kernel_route_matches_plain_route(cuda_device, arch):
         "llama4") else cfg.n_layers)
     diff = (lk - lp).abs()
     assert float(diff.max()) <= 0.25 and float(diff.mean()) <= 0.02
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-1.3b"])
+def test_mla_and_ssd_decode_matches_prefill_on_the_card(cuda_device, arch):
+    """The smoke MLA and SSD archs (f32) on the card: 40 teacher-forced
+    decode steps (MLA's absorbed form over the latent cache, the SSD
+    block's recurrence; the SSD smoke chunk is 16, so three chunks)
+    against the full-sequence forward on the same tokens, the forward's
+    expert choices replayed in the decode, at rtol 1e-4 with an atol of
+    1e-4 of the largest |logit|; neither path launches a kernel of the
+    port."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.steps import init_model, make_decode_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as LM
+    cfg = get_smoke(arch)
+    params = init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                        cuda_device)
+    b, n = 2, 40
+    seq = torch.as_tensor(sample_tokens(b, n, cfg.vocab_size, seed=2),
+                          device=cuda_device)
+    ops.reset_launches()
+    ftape = MOE.RoutingTape()
+    with torch.no_grad(), MOE.routing(ftape):
+        want = LM.forward(params, seq, cfg)[0]
+    dtape = ftape.by_step(b, n)
+    step, _ = make_decode_step(cfg)
+    caches = LM.init_caches(cfg, b, n, device=cuda_device)
+    pos = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    with MOE.routing(dtape):
+        got = torch.stack([step(params, caches, seq[:, i:i + 1],
+                                pos[i])[0][:, 0] for i in range(n)], dim=1)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    assert len(dtape.recorded) == (n * cfg.n_layers if cfg.moe else 0)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_gather_shards_on_a_one_rank_group(cuda_device, tmp_path):
+    """`gather_shards` over a one-rank NCCL group: the forward is the
+    shard itself, and the backward this rank's slice of the summed
+    gradient, the gradient itself."""
+    import torch.distributed as dist
+    from repro_torch.launch.distributed import gather_shards
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 's'}",
+                            world_size=1, rank=0)
+    try:
+        gen = torch.Generator(cuda_device).manual_seed(0)
+        x = torch.randn(3, 5, 8, device=cuda_device,
+                        generator=gen).requires_grad_(True)
+        r = torch.randn(3, 5, 8, device=cuda_device, generator=gen)
+        y = gather_shards(x, dist.group.WORLD, dim=-1)
+        (g,) = torch.autograd.grad((y * r).sum(), [x])
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(y, x) and torch.equal(g, r)
+    assert gather_shards(x, None) is x

@@ -32,6 +32,8 @@ with warnings.catch_warnings():
     from repro.models import ffn as JFFN
     from repro.models import transformer as JT
 
+from torch_arch_parity import jax_serve
+
 from repro_torch.configs import get_config, get_smoke, registry as TR
 from repro_torch.data import text as TTX
 from repro_torch.kernels import ops as tops
@@ -106,8 +108,9 @@ def test_token_streams_byte_equal(seed):
 @pytest.mark.parametrize("arch", TR.ARCH_IDS)
 @pytest.mark.parametrize("variant", ["full", "smoke"])
 def test_config_fields_equal_jax(arch, variant):
-    """Every ported arch's configs field for field (the MoE sub-config as a
-    dict), and `shape_applicable` as the reference's for every shape."""
+    """Every ported arch's configs field for field (the MoE, MLA and SSM
+    sub-configs as dicts), and `shape_applicable` as the reference's for
+    every shape."""
     jcfg = JR.get_config(arch) if variant == "full" else JR.get_smoke(arch)
     tcfg = get_config(arch) if variant == "full" else get_smoke(arch)
     tfields = {f.name for f in dataclasses.fields(tcfg)}
@@ -119,7 +122,7 @@ def test_config_fields_equal_jax(arch, variant):
         if name == "dtype":
             want = {jnp.float32: torch.float32,
                     jnp.bfloat16: torch.bfloat16}[want]
-        elif name == "moe" and want is not None:
+        elif name in ("moe", "mla", "ssm") and want is not None:
             want, got = dataclasses.asdict(want), dataclasses.asdict(got)
         assert got == want, name
     assert (tcfg.hd, tcfg.padded_vocab) == (jcfg.hd, jcfg.padded_vocab)
@@ -209,30 +212,10 @@ def test_teacher_forced_decode_matches_jax():
     assert tops.launch_counts()["decode_attention"] == 0   # CPU: plain route
 
 
-def _jax_serve(jcfg, jparams, batch, prompt_len, gen):
-    """The loop of repro/launch/serve.py on one device, greedy."""
-    max_len = prompt_len + gen
-    step = jax.jit(functools.partial(JT.decode_step, cfg=jcfg))
-    prompts = jnp.asarray(JTX.sample_tokens(batch, prompt_len,
-                                            vocab=jcfg.vocab_size, seed=0))
-    caches = JT.init_caches(jcfg, batch, max_len, window=jcfg.window)
-    for i in range(prompt_len):
-        logits, caches = step(jparams, caches, prompts[:, i:i + 1],
-                              jnp.int32(i))
-    out = []
-    tok = jnp.argmax(logits[:, :, :jcfg.vocab_size], axis=-1).astype(jnp.int32)
-    for i in range(prompt_len, max_len):
-        out.append(tok)
-        logits, caches = step(jparams, caches, tok, jnp.int32(i))
-        tok = jnp.argmax(logits[:, :, :jcfg.vocab_size],
-                         axis=-1).astype(jnp.int32)
-    return np.asarray(prompts), np.asarray(jnp.concatenate(out, axis=1))
-
-
 def test_greedy_serve_matches_jax_loop():
     jcfg, tcfg, jparams, tparams = _smoke()
     res = TS.serve(tcfg, 2, 8, 8, device="cpu", params=tparams)
-    jprompts, jtokens = _jax_serve(jcfg, jparams, 2, 8, 8)
+    jprompts, jtokens = jax_serve(jcfg, jparams, 2, 8, 8)
     np.testing.assert_array_equal(res.prompts.numpy(), jprompts)
     np.testing.assert_array_equal(res.tokens.numpy(), jtokens)
     assert res.logits.shape == (16, 2, tcfg.padded_vocab)
@@ -253,9 +236,12 @@ def test_sampled_serve_is_seeded():
 
 def test_unported_paths_raise():
     """What stays unported raises NotImplementedError naming ROADMAP item
-    10: an int8 cache, MLA, the archs not yet registered (mamba2-1.3b and
-    the rest), the audio model and an "ssm" block; a windowed cache is
-    ported (tests/test_torch_window.py)."""
+    10: an int8 cache, the archs not yet registered (recurrentgemma-9b,
+    llava-next-mistral-7b, seamless-m4t-large-v2), the audio model and an
+    "rglru" block.  MLA (deepseek-v2-236b) and the "ssm" block
+    (mamba2-1.3b) are ported: their configs, trees and caches build
+    (tests/test_torch_mla.py, tests/test_torch_ssm.py hold them against
+    JAX); a windowed cache is ported (tests/test_torch_window.py)."""
     cfg = get_smoke(ARCH)
     _, _, _, tparams = _smoke()
     p = {k: v[0] for k, v in tparams["blocks"]["b0"]["attn"].items()}
@@ -266,20 +252,27 @@ def test_unported_paths_raise():
         TATT.init_cache(int8, 1, 8, None, torch.float32)
     with pytest.raises(NotImplementedError, match="int8"):
         TATT.decode_step(p, x1, cache, 0, int8)
-    mla = dataclasses.replace(cfg, mla=object())
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TATT.decode_step(p, x1, cache, 0, mla)
-    with pytest.raises(NotImplementedError, match="mla"):
-        TT.init_lm(None, mla, "meta")
-    for arch in ("mamba2-1.3b", "recurrentgemma-9b", "deepseek-v2-236b",
-                 "llava-next-mistral-7b", "seamless-m4t-large-v2"):
+    for arch in ("recurrentgemma-9b", "llava-next-mistral-7b",
+                 "seamless-m4t-large-v2"):
         assert arch in JR.ARCH_IDS
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             get_config(arch)
+    mla, ssm = get_config("deepseek-v2-236b"), get_config("mamba2-1.3b")
+    assert isinstance(mla.mla, TC.MLAConfig) and mla.ssm is None
+    assert isinstance(ssm.ssm, TC.SSMConfig) and ssm.block_pattern == ("ssm",)
+    for c in (get_smoke("deepseek-v2-236b"), get_smoke("mamba2-1.3b")):
+        caches = TT.init_caches(c, 1, 8, device="meta")["blocks"]["b0"]
+        assert sorted(caches) == (["c_kv", "k_rope"] if c.mla else
+                                  ["conv", "ssm"])
+        assert TT.init_lm(None, c, "meta")["blocks"]["b0"]["ln1"].shape == (
+            c.n_layers, c.d_model)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         TSTEPS.init_model(dataclasses.replace(cfg, arch_type="audio"), None,
                           "meta")
-    with pytest.raises(NotImplementedError, match="block_pattern"):
+    with pytest.raises(NotImplementedError, match="block_pattern.*item 10"):
+        TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("rglru",)),
+                   "meta")
+    with pytest.raises(ValueError, match="needs cfg.ssm"):
         TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("ssm",)),
                    "meta")
 

@@ -6,7 +6,8 @@ One JAX subprocess on 4 host devices (`JAX_REF`) runs the reference: the
 FLOA train step of the smoke qwen3-4b (f32) on a (4, 1) ("data", "model")
 debug mesh, B = 8, 3 steps, for BEV, CI and EF with n_byzantine = 2 (one
 strongest attacker at U = 4) and for use_floa=False; the smoke moonshot
-(MoE) on a (2, 1) mesh; the prefill step on a (2, 1) mesh; and the smoke
+(MoE), deepseek-v2-236b (MLA) and mamba2-1.3b (SSD) on a (2, 1) mesh
+(BEV); the prefill step on a (2, 1) mesh; and the smoke
 starcoder2-3b's decode step on one device, teacher-forced 72 steps into its
 64-slot ring.  It also replays each train step's draws (gains off
 PRNGKey(t)'s first key, leaf i's noise off fold_in(second key, i)), which
@@ -16,7 +17,8 @@ the port's ranks consume, from the JAX initial weights.  Then one spawn of
 - the train step on (4, 1): params, gbar, eps2 and the metrics at rtol
   1e-5 / atol 1e-6, every rank's result bitwise equal; the same BEV case
   on a (2, 2, 1) ("pod", "data", "model") mesh equals the (4, 1) run;
-- the smoke moonshot on (2, 1) at the same tolerance (the global aux);
+- the smoke moonshot, deepseek-v2-236b and mamba2-1.3b on (2, 1) at the
+  same tolerance (the global aux);
 - prefill on (2, 1) at rtol 1e-5; decode on (4, 1) (a rank-local batch of
   2 against rank-local ring caches) at rtol 1e-4, every rank's gathered
   logits equal; greedy `serve` on (2, 1) gives the one-process tokens;
@@ -73,6 +75,8 @@ MESH_41 = ((4, 1), ("data", "model"))
 MESH_221 = ((2, 2, 1), ("pod", "data", "model"))
 MESH_21 = ((2, 1), ("data", "model"))
 SERVE = dict(batch=4, prompt_len=8, gen=8, seed=3)
+# the MLA and SSD archs' train step on (2, 1)
+MLA_SSM = ("deepseek-v2-236b", "mamba2-1.3b")
 # module 6's contract (tests/test_distributed.py:140-170)
 SEQ_SHAPE = dict(b=2, h=8, kv=2, dh=32, s=256, pos=200)
 
@@ -138,6 +142,8 @@ JAX_REF = textwrap.dedent("""
     out = {{"train": train("qwen3-4b", (4, 1), {routes}, BATCH),
            "moe": train("moonshot-v1-16b-a3b", (2, 1), [("bev", True)],
                         4)}}
+    for arch in {mla_ssm}:
+        out[arch] = train(arch, (2, 1), [("bev", True)], 4)
 
     cfg = get_smoke("qwen3-4b")
     params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
@@ -168,7 +174,8 @@ JAX_REF = textwrap.dedent("""
     with open(sys.argv[1], "wb") as f:
         pickle.dump(out, f)
     print("JAX_REF_OK", flush=True)
-""").format(steps=STEPS, batch=BATCH, seq=SEQ, alpha=ALPHA, routes=ROUTES)
+""").format(steps=STEPS, batch=BATCH, seq=SEQ, alpha=ALPHA, routes=ROUTES,
+           mla_ssm=MLA_SSM)
 
 
 @pytest.fixture(scope="module")
@@ -232,6 +239,8 @@ def ranks2(jax_ref, tmp_path_factory):
                  arch="qwen3-4b", params0=pf["params0"], tokens=pf["tokens"]),
             dict(name="serve", kind="serve", mesh=MESH_21, arch="qwen3-4b",
                  **SERVE)]
+    jobs += [_train_job(arch, jax_ref[arch], MESH_21, "bev", True,
+                        arch=arch, batch=4) for arch in MLA_SSM]
     return run_ranks(jobs, 2, tmp_path_factory.mktemp("ranks2"))
 
 
@@ -301,6 +310,18 @@ def test_moe_train_step_on_two_ranks_matches_jax(ranks2, jax_ref):
     as in the reference."""
     assert_ranks_agree(ranks2, "moe", 2, skip=("worker",))
     _assert_train_matches(ranks2["moe.r0"], jax_ref["moe"][("bev", True)])
+
+
+@pytest.mark.parametrize("arch", MLA_SSM)
+def test_mla_and_ssd_train_step_on_two_ranks_matches_jax(ranks2, jax_ref,
+                                                         arch):
+    """deepseek-v2-236b (MLA + MoE: the global aux) and mamba2-1.3b (SSD)
+    on (2, 1), U = 2, each rank 2 of the 4 rows: no new code, the batch
+    split and the gradients' all_reduce of PR 22."""
+    assert_ranks_agree(ranks2, arch, 2, skip=("worker",))
+    assert [ranks2[f"{arch}.r{r}"]["worker"] for r in range(2)] == [
+        (2, r, 1) for r in range(2)]
+    _assert_train_matches(ranks2[f"{arch}.r0"], jax_ref[arch][("bev", True)])
 
 
 def test_moe_aux_loss_is_the_global_batch_s(monkeypatch):

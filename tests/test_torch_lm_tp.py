@@ -10,9 +10,11 @@ train step of the smoke qwen3-4b (f32, B = 8, 3 steps) on (1, 2) and
 (2, 2) for BEV, CI, EF and use_floa=False, on (4, 2) for BEV with one
 strongest attacker (U = 4) and on (1, 4), where KV 2 < M and wk / wv split
 d; the smoke moonshot (MoE) on (1, 2) and (2, 2), and with
-impl="capacity_gather" on (1, 2); the qwen3 prefill on (1, 4); the
-one-device decode of the smoke qwen3-4b and of starcoder2-3b (72 steps
-into its 64-slot ring).  It replays each train step's draws (gains off
+impl="capacity_gather" on (1, 2); deepseek-v2-236b (MLA + MoE) on (1, 2)
+and mamba2-1.3b (SSD) on (1, 2) and (1, 4) (B = 4, BEV); the qwen3
+prefill on (1, 4); the one-device decode of the smoke qwen3-4b, of
+starcoder2-3b (72 steps into its 64-slot ring), and of deepseek and
+mamba2 (10 steps).  It replays each train step's draws (gains off
 PRNGKey(t)'s first key, leaf i's noise off fold_in(second key, i), at the
 leaf's full shape), which the port's ranks slice.  Then one spawn of 2
 ranks, one of 4 and one of 8:
@@ -21,9 +23,10 @@ ranks, one of 4 and one of 8:
   1e-5 / atol 1e-6; every rank's gathered params bitwise equal (the model
   replicas of the workers, and each replicated leaf across the model
   ranks);
-- the MoE at the same tolerance; prefill at rtol 1e-5, decode at rtol
-  1e-4 against the one-device step; greedy `serve` on (1, 2) gives the
-  one-process tokens;
+- the MoE, MLA and SSD at the same tolerance; prefill at rtol 1e-5,
+  decode at rtol 1e-4 against the one-device step (MLA and SSD on their
+  model meshes too); greedy `serve` on (1, 2) gives the one-process
+  tokens;
 - the vocab-parallel CE and the embed / lm_head gradients at M = 2 and 4
   against the unsharded `chunked_ce` at rtol 1e-6;
 - the layout: `param_specs` and the caches of `init_caches(...,
@@ -92,9 +95,16 @@ TRAIN_CASES = {   # name: (mesh shape, routes, arch, moe impl, batch)
     "moe22": ((2, 2), [("bev", True)], "moonshot-v1-16b-a3b", None, 4),
     "cap12": ((1, 2), [("bev", True)], "moonshot-v1-16b-a3b",
               "capacity_gather", 4),
+    "ds12": ((1, 2), [("bev", True)], "deepseek-v2-236b", None, 4),
+    "mb12": ((1, 2), [("bev", True)], "mamba2-1.3b", None, 4),
+    "mb14": ((1, 4), [("bev", True)], "mamba2-1.3b", None, 4),
 }
-SPAWNS = {2: ("m12", "moe12", "cap12"), 4: ("m22", "m14", "moe22"),
-          8: ("m42",)}
+SPAWNS = {2: ("m12", "moe12", "cap12", "ds12", "mb12"),
+          4: ("m22", "m14", "moe22", "mb14"), 8: ("m42",)}
+# the one-device decode of the MLA and SSD archs, against their model-axis
+# decodes: (arch, meshes)
+MLA_SSM_DECODE = {"deepseek-v2-236b": ((1, 2),),
+                  "mamba2-1.3b": ((1, 2), (1, 4))}
 SERVE = dict(batch=4, prompt_len=8, gen=8, seed=3)
 PREFILL = dict(batch=4, seq=24, seed=9)
 QWEN_DECODE = dict(batch=4, n=12, seed=5)
@@ -201,6 +211,8 @@ JAX_REF = textwrap.dedent("""
     out["decode_qwen"] = decode("qwen3-4b", *{qwen_decode})
     sc = get_smoke("starcoder2-3b")
     out["decode_sc"] = decode("starcoder2-3b", 8, sc.window + 8, 3)
+    for arch in ("deepseek-v2-236b", "mamba2-1.3b"):
+        out["decode_" + arch] = decode(arch, 4, 10, 5)
     with open(sys.argv[1], "wb") as f:
         pickle.dump(out, f)
     print("JAX_REF_OK", flush=True)
@@ -232,6 +244,16 @@ def _train_jobs(ref, name):
                  params0=ref[name]["params0"], tokens=ref[name]["tokens"],
                  draws=ref[name]["draws"], policy=p, use_floa=f,
                  alpha=ALPHA, batch=batch, seq=SEQ) for p, f in routes]
+
+
+def _mla_ssm_decode_jobs(ref, world):
+    """The MLA and SSD decode jobs on the meshes of `world` ranks."""
+    return [dict(name=f"decode_{arch}_{shape[1]}", kind="decode",
+                 mesh=(shape, AXES), arch=arch,
+                 params0=ref["decode_" + arch]["params0"],
+                 tokens=ref["decode_" + arch]["tokens"])
+            for arch, shapes in MLA_SSM_DECODE.items() for shape in shapes
+            if shape[0] * shape[1] == world]
 
 
 def _ce_inputs(m, tied):
@@ -266,6 +288,7 @@ def ranks2(jax_ref, tmp_path_factory):
     jobs.append(dict(name="serve", kind="serve", mesh=((1, 2), AXES),
                      arch="qwen3-4b", **SERVE))
     jobs += _ce_jobs((1, 2))
+    jobs += _mla_ssm_decode_jobs(jax_ref, 2)
     return run_ranks(jobs, 2, tmp_path_factory.mktemp("tp2"))
 
 
@@ -286,6 +309,7 @@ def ranks4(jax_ref, tmp_path_factory):
     jobs += [dict(name=f"layout_{a}{b}", kind="layout", mesh=((a, b), AXES),
                   arch="qwen3-4b", params0=dq["params0"])
              for a, b in ((2, 2), (1, 4))]
+    jobs += _mla_ssm_decode_jobs(jax_ref, 4)
     return run_ranks(jobs, 4, tmp_path_factory.mktemp("tp4"))
 
 
@@ -410,6 +434,57 @@ def test_moe_on_model_meshes_matches_jax(ranks2, ranks4, jax_ref, name):
     _check_train(ranks, jax_ref, world, name, ("bev", True))
 
 
+@pytest.mark.parametrize("name", ["ds12", "mb12", "mb14"])
+def test_mla_and_ssd_on_model_meshes_match_jax(ranks2, ranks4, jax_ref,
+                                               name):
+    """deepseek-v2-236b (MLA: wq_a's q_lora columns gathered, the heads
+    split, the latent whole on every rank; the MoE's f split) on (1, 2);
+    mamba2-1.3b (the SSD mixer: in_proj's columns gathered, the heads
+    split, the gated norm's mean square summed over the ranks) on (1, 2),
+    and on (1, 4), where in_proj's 138-column shards cut across the z /
+    xBC boundary at 256; against the reference on the same mesh, the
+    gathered trees bitwise across ranks."""
+    world = TRAIN_CASES[name][0][1]
+    ranks = ranks2 if world == 2 else ranks4
+    _check_train(ranks, jax_ref, world, name, ("bev", True))
+    specs = ranks[f"{name}_bev_True.r0"]["meta"]["params_specs"]["blocks"][
+        "b0"]
+    if name == "ds12":
+        assert {k: specs["attn"][k] for k in ("wq_a", "wq_b", "wkv_a",
+                                              "wk_b", "wv_b", "wo")} == {
+            "wq_a": 2, "wq_b": 2, "wkv_a": None, "wk_b": 2, "wv_b": 2,
+            "wo": 1}
+    else:
+        assert specs["mixer"] == {"in_proj": 2, "conv_w": None,
+                                  "conv_b": None, "A_log": 1, "D": 1,
+                                  "dt_bias": 1, "norm": 1, "out_proj": 1}
+
+
+@pytest.mark.parametrize("arch,m", [("deepseek-v2-236b", 2),
+                                    ("mamba2-1.3b", 2), ("mamba2-1.3b", 4)])
+def test_mla_and_ssd_decode_on_model_meshes(ranks2, ranks4, jax_ref, arch,
+                                            m):
+    """Teacher-forced decode on (1, M) against the one-device JAX step: an
+    MLA rank keeps the whole latent cache [L, B, S, kv_lora], an SSD rank
+    the conv window of its x channels plus B and C."""
+    ranks = ranks2 if m == 2 else ranks4
+    name = f"decode_{arch}_{m}"
+    assert_ranks_agree(ranks, name, m, skip=("model",))
+    got, want = ranks[f"{name}.r0"], jax_ref["decode_" + arch]["logits"]
+    cfg = get_smoke(arch)
+    if cfg.mla is not None:
+        assert got["cache_shape"] == (cfg.n_layers, 4, 10, cfg.mla.kv_lora)
+    else:
+        s = cfg.ssm
+        assert got["cache_shape"] == (
+            cfg.n_layers, 4, s.d_conv - 1,
+            s.expand * cfg.d_model // m + 2 * s.ngroups * s.d_state)
+    for i, (g, w) in enumerate(zip(got["logits"], want)):
+        _close(g, w, rtol=DECODE_RTOL,
+               atol=DECODE_RTOL * float(np.abs(want).max()),
+               err_msg=f"step {i}")
+
+
 def test_prefill_and_decode_on_the_fallback_layout(ranks4, jax_ref):
     """The smoke qwen3-4b on (1, 4): prefill against the reference's (1, 4)
     prefill; decode from rank-local caches of one KV head against the
@@ -502,7 +577,11 @@ def test_param_specs_equal_the_reference(m, full):
     caches `init_caches(..., model_parallel=M)` builds split the dim the
     reference's `cache_specs` splits, the KV heads, where M divides them;
     where it does not, a rank caches the one KV head its query heads read,
-    whole (the deviation `models/attention.py` states)."""
+    whole (the deviation `models/attention.py` states).  An MLA rank keeps
+    the whole latent, which the reference splits (kv_lora or the
+    sequence); an SSD rank the ssm state of its heads, the dim the
+    reference splits, and the conv window of its x channels plus B and C,
+    where the reference splits the channels evenly (`models/ssm.py`)."""
     for arch in ARCH_IDS:
         cfg = get_config(arch) if full else get_smoke(arch)
         jcfg = dataclasses.replace(
@@ -524,12 +603,29 @@ def test_param_specs_equal_the_reference(m, full):
         jcaches = jax.eval_shape(lambda c=jcfg: JT.init_caches(c, 4, 64))
         mesh = SimpleNamespace(shape={"data": 1, "model": m},
                                axis_names=AXES)
-        full = tree_leaves(TT.init_caches(cfg, 4, 64, device="meta"))
+        whole = tree_leaves(TT.init_caches(cfg, 4, 64, device="meta"))
         local = tree_leaves(TT.init_caches(cfg, 4, 64, device="meta",
                                            model_parallel=m))
         jdims = _model_dims(jcache_specs(jcaches, jcfg, mesh, 4))
-        assert len(full) == len(local) == len(jdims), (arch, m)
-        for f, loc, d in zip(full, local, jdims):
+        assert len(whole) == len(local) == len(jdims), (arch, m)
+        if cfg.mla is not None:
+            for f, loc, d in zip(whole, local, jdims):
+                assert loc.shape == f.shape and d is not None, (arch, m)
+            continue
+        if cfg.ssm is not None:
+            # [L, B, H, N, P]: the reference's rule splits the heads, or at
+            # full width P, whose 64 equals the bookkeeping n_kv_heads it
+            # looks for; [L, B, d_conv - 1, channels]: the channels
+            (fc, lc, dc), (fs, ls, ds) = zip(whole, local, jdims)
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            assert ds in (2, 4) and ls.shape[2] == fs.shape[2] // m, (
+                arch, m)
+            assert ds == 2 or s.headdim == cfg.n_kv_heads, (arch, m)
+            assert dc == 3 and lc.shape[3] == (
+                d_in // m + 2 * s.ngroups * s.d_state), (arch, m)
+            continue
+        for f, loc, d in zip(whole, local, jdims):
             heads = f.dim() - 2
             assert loc.shape[:heads] == f.shape[:heads], (arch, m)
             assert loc.shape[heads + 1:] == f.shape[heads + 1:], (arch, m)

@@ -15,7 +15,6 @@ step's last-position logits agree at rtol 1e-5, 8 teacher-forced decode
 steps at rtol 1e-4, and one FLOA train step (BEV, U = 1, the JAX step's
 draws replayed) at rtol 1e-5.  Everything runs on the CPU.
 """
-import dataclasses
 import functools
 import warnings
 
@@ -29,14 +28,14 @@ with warnings.catch_warnings():
     # The installed jax deprecates jax.experimental.shard_map, which the JAX
     # package imports; the reference is left as it is.
     warnings.simplefilter("ignore", DeprecationWarning)
-    from repro.configs import registry as JR
-    from repro.core.channel import sample_channel_gains as jgains
     from repro.data import sample_tokens
     from repro.launch import steps as JSTEPS
     from repro.launch.mesh import make_debug_mesh
     from repro.models import transformer as JT
 
-from repro_torch.configs import get_smoke
+from torch_arch_parity import JDTYPE, close as _close, jpaths as _jpaths
+from torch_arch_parity import check_train_step, setup as _setup
+
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import steps as TSTEPS
 from repro_torch.models import transformer as TT
@@ -49,32 +48,6 @@ CASES = [(a, None) for a in ZOO] + [("llama4-maverick-400b-a17b", 3)]
 IDS = [a if n is None else f"{a}-L{n}" for a, n in CASES]
 RTOL, DECODE_RTOL = 1e-5, 1e-4
 BATCH, SEQ, STEPS, ALPHA = 2, 12, 8, 0.02
-JDTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
-
-
-def _close(got, want, rtol, err_msg=""):
-    """rtol, with an atol of rtol times the largest |want|."""
-    want = np.asarray(want, np.float32)
-    np.testing.assert_allclose(
-        np.asarray(torch.as_tensor(got).detach().float()), want, rtol=rtol,
-        atol=rtol * float(np.abs(want).max()), err_msg=err_msg)
-
-
-@functools.lru_cache(maxsize=None)
-def _setup(arch, n_layers):
-    """(JAX cfg, port cfg, JAX params as numpy, port params)."""
-    jcfg, tcfg = JR.get_smoke(arch), get_smoke(arch)
-    if n_layers is not None:
-        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
-        tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
-    jparams, _ = JT.init_lm(jax.random.PRNGKey(0), jcfg)
-    jparams = jax.tree_util.tree_map(np.asarray, jparams)
-    return jcfg, tcfg, jparams, TT.params_from_jax(jparams, "cpu")
-
-
-def _jpaths(tree):
-    return ["/".join(k.key for k in path) for path, _ in
-            jax.tree_util.tree_leaves_with_path(tree)]
 
 
 @pytest.mark.parametrize("arch,n_layers", CASES, ids=IDS)
@@ -148,34 +121,7 @@ def test_teacher_forced_decode_matches_jax(arch, n_layers):
 
 @pytest.mark.parametrize("arch,n_layers", CASES, ids=IDS)
 def test_floa_train_step_matches_jax(arch, n_layers):
-    """One BEV step on a 1x1 mesh (U = 1), the JAX step's gains and
-    per-leaf noise replayed; the weighted loss carries the MoE aux term
-    (router_aux_coef * aux * sum(s) / U) on the MoE archs."""
-    jcfg, tcfg, jparams, tparams = _setup(arch, n_layers)
-    mesh = make_debug_mesh((1, 1), ("data", "model"))
-    shape = dict(global_batch=BATCH, seq_len=SEQ, kind="train")
-    toks = sample_tokens(BATCH, SEQ + 1, vocab=jcfg.vocab_size, seed=5)
-    art = JSTEPS.make_train_step(jcfg, mesh, shape, alpha=ALPHA)
-    with mesh:
-        wparams, wstate, wm = jax.jit(art.fn, in_shardings=art.in_shardings)(
-            jparams, JSTEPS.init_floa_state(), {"tokens": jnp.asarray(toks)},
-            jnp.uint32(0))
-    step, meta = TSTEPS.make_train_step(tcfg, None, shape, alpha=ALPHA)
-    assert meta["dim"] == art.meta["dim"]
-    channel = JSTEPS.default_floa(mesh, meta["dim"])["channel"]
-    k_ch, k_z = jax.random.split(jax.random.PRNGKey(0))
-    draws = {"h_abs": torch.as_tensor(np.array(jgains(k_ch, channel))),
-             "z": [torch.as_tensor(np.array(jax.random.normal(
-                 jax.random.fold_in(k_z, i), x.shape, jnp.float32)))
-                   for i, x in enumerate(jax.tree_util.tree_leaves(
-                       jparams))]}
-    params, state, m = step(tparams, TSTEPS.init_floa_state(),
-                            {"tokens": torch.as_tensor(toks)}, 0,
-                            draws=draws)
-    for k in ("gbar", "eps2"):
-        _close(state[k], wstate[k], RTOL, err_msg=k)
-    for k in ("loss", "grad_scale"):
-        _close(m[k], wm[k], RTOL, err_msg=k)
-    for p, g, w in zip(tree_paths(params), tree_leaves(params),
-                       jax.tree_util.tree_leaves(wparams)):
-        _close(g, w, RTOL, err_msg=p)
+    """One BEV step on a 1x1 mesh (U = 1), the JAX step's draws replayed;
+    the weighted loss carries the MoE aux term (router_aux_coef * aux *
+    sum(s) / U) on the MoE archs."""
+    check_train_step(arch, BATCH, SEQ, 5, alpha=ALPHA, n_layers=n_layers)
