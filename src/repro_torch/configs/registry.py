@@ -1,20 +1,22 @@
 """Architecture registry of the port: --arch <id> -> config
 (`repro/configs/registry.py`).  The dense archs (qwen3-4b, granite-8b,
 starcoder2-3b), the MoE archs (moonshot-v1-16b-a3b,
-llama4-maverick-400b-a17b), the MLA + MoE deepseek-v2-236b and the
-Mamba-2 SSD mamba2-1.3b are ported; recurrentgemma-9b,
+llama4-maverick-400b-a17b), the MLA + MoE deepseek-v2-236b, the Mamba-2
+SSD mamba2-1.3b and the RG-LRU hybrid recurrentgemma-9b are ported;
 llava-next-mistral-7b and seamless-m4t-large-v2 raise NotImplementedError
 (ROADMAP.md Queue 1 item 10)."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v2_236b, granite_8b,
                                  llama4_maverick_400b_a17b, mamba2_1_3b,
-                                 moonshot_v1_16b_a3b, qwen3_4b, starcoder2_3b)
+                                 moonshot_v1_16b_a3b, qwen3_4b,
+                                 recurrentgemma_9b, starcoder2_3b)
 from repro_torch.models.common import ModelConfig
 
 ARCH_MODULES = {m.ARCH_ID: m for m in [
     starcoder2_3b, moonshot_v1_16b_a3b, qwen3_4b, granite_8b,
-    llama4_maverick_400b_a17b, deepseek_v2_236b, mamba2_1_3b]}
+    llama4_maverick_400b_a17b, deepseek_v2_236b, mamba2_1_3b,
+    recurrentgemma_9b]}
 ARCH_IDS = list(ARCH_MODULES)
 
 # The assigned input shapes (system spec).

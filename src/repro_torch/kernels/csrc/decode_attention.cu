@@ -62,6 +62,17 @@
 // f32 pass 1 (decode_f32_kernel, the parity route): CUDA-core arithmetic
 // in f32 (TF32 would break its 1e-5 tolerance), GB = 4 heads per block,
 // 16-byte loads, UNROLL keys per row group in flight, shuffle reductions.
+// A key row is spread over DH / VEC lanes of one warp, VEC = 4 floats a
+// lane up to dh = 128 and 8 (two 16-byte loads) at dh = 256, so a row
+// never straddles two warps.
+//
+// Head dim 256 (recurrentgemma-9b's local attention, MQA with G = 16) is
+// one more instance of both kernels.  The bf16 ring is then NSTAGE * 2 *
+// TK * DH * 2 = 192 KB of dynamic shared memory, under Hopper's 227 KB
+// opt-in, so one block fits an SM; its two stages in flight (128 KB) are
+// still four times the bytes an SM needs in flight.  O takes 64 f32
+// registers a thread and q^T 32.  G = 16 takes two head groups of GB = 8,
+// so a KV head's K/V are read twice (ROADMAP.md Queue 2 item 7).
 //
 // The chunks are cut from pos, which the kernel reads on the device: keys
 // above pos are never loaded, the work is balanced over the positions that
@@ -99,7 +110,8 @@ decode_f32_kernel(const float* __restrict__ q,        // [B, H, DH]
                   float* __restrict__ ws_acc,         // [B, H, n_split, DH]
                   int s_len, int kvh, int g, int hgroups, int n_split) {
   constexpr int GB = GB_F32;
-  constexpr int VEC = 4;
+  constexpr int VEC = DH > 128 ? DH / 32 : 4;   // floats a lane loads
+  constexpr int NV = VEC / 4;           // 16-byte loads a lane
   constexpr int LPK = DH / VEC;         // lanes per key row
   constexpr int RG = THREADS / LPK;     // row groups per block
   static_assert(LPK <= 32 && 32 % LPK == 0, "a key row must fit one warp");
@@ -129,14 +141,17 @@ decode_f32_kernel(const float* __restrict__ q,        // [B, H, DH]
   float qf[GB][VEC];
 #pragma unroll
   for (int gi = 0; gi < GB; ++gi) {
-    float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gi < gcount)
-      r = *reinterpret_cast<const float4*>(
-          q + ((int64_t)b * heads + h0 + gi) * DH + d0);
-    qf[gi][0] = r.x;
-    qf[gi][1] = r.y;
-    qf[gi][2] = r.z;
-    qf[gi][3] = r.w;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gi < gcount)
+        r = *reinterpret_cast<const float4*>(
+            q + ((int64_t)b * heads + h0 + gi) * DH + d0 + 4 * n);
+      qf[gi][4 * n] = r.x;
+      qf[gi][4 * n + 1] = r.y;
+      qf[gi][4 * n + 2] = r.z;
+      qf[gi][4 * n + 3] = r.w;
+    }
   }
 
   float m[GB], l[GB], acc[GB][VEC];
@@ -156,24 +171,36 @@ decode_f32_kernel(const float* __restrict__ q,        // [B, H, DH]
   // The loop bound is the block's, so every lane of a warp takes part in
   // the shuffles; a row group's keys past `end` are not loaded and weigh 0.
   for (int base = start + row; base - row < end; base += RG * UNROLL) {
-    float4 kr[UNROLL], vr[UNROLL];
+    float4 kr[UNROLL][NV], vr[UNROLL][NV];
     bool ok[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * RG;
       ok[u] = j < end;
-      if (ok[u]) {
-        kr[u] = *reinterpret_cast<const float4*>(kb + j * key_stride);
-        vr[u] = *reinterpret_cast<const float4*>(vb + j * key_stride);
-      } else {
-        kr[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        vr[u] = kr[u];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        if (ok[u]) {
+          kr[u][n] = *reinterpret_cast<const float4*>(kb + j * key_stride +
+                                                      4 * n);
+          vr[u][n] = *reinterpret_cast<const float4*>(vb + j * key_stride +
+                                                      4 * n);
+        } else {
+          kr[u][n] = make_float4(0.f, 0.f, 0.f, 0.f);
+          vr[u][n] = kr[u][n];
+        }
       }
     }
     float sc[UNROLL][GB];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const float kf[VEC] = {kr[u].x, kr[u].y, kr[u].z, kr[u].w};
+      float kf[VEC];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        kf[4 * n] = kr[u][n].x;
+        kf[4 * n + 1] = kr[u][n].y;
+        kf[4 * n + 2] = kr[u][n].z;
+        kf[4 * n + 3] = kr[u][n].w;
+      }
 #pragma unroll
       for (int gi = 0; gi < GB; ++gi) {
         float dot = 0.0f;
@@ -216,7 +243,14 @@ decode_f32_kernel(const float* __restrict__ q,        // [B, H, DH]
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const float vf[VEC] = {vr[u].x, vr[u].y, vr[u].z, vr[u].w};
+      float vf[VEC];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        vf[4 * n] = vr[u][n].x;
+        vf[4 * n + 1] = vr[u][n].y;
+        vf[4 * n + 2] = vr[u][n].z;
+        vf[4 * n + 3] = vr[u][n].w;
+      }
 #pragma unroll
       for (int gi = 0; gi < GB; ++gi) {
 #pragma unroll
@@ -695,6 +729,9 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, pos, out, ws, b, h, kvh, s_len,
                             n_split, st);
+    case 256:
+      return launch<T, 256>(q, k, v, pos, out, ws, b, h, kvh, s_len,
+                            n_split, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -751,6 +788,8 @@ int decode_attention_occupancy(int dh, int dtype) {
       return occupancy<64>(dtype);
     case 128:
       return occupancy<128>(dtype);
+    case 256:
+      return occupancy<256>(dtype);
     default:
       return -1;
   }

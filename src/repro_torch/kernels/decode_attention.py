@@ -48,7 +48,7 @@ from repro_torch.kernels._build import DTYPE_CODES, check_tensor, need
 
 Tensor = torch.Tensor
 
-HEAD_DIMS = (32, 64, 128)   # the kernel's template instances
+HEAD_DIMS = (32, 64, 128, 256)   # the kernel's template instances
 # Query heads of one KV head per block: bf16 takes all of up to 8 (the
 # tensor-core tile's N), so G <= 8 reads K/V once; f32 takes up to 4.
 HEADS_PER_BLOCK = {torch.float32: 4, torch.bfloat16: 8}

@@ -31,7 +31,7 @@ and `reduce_out` (psum forward, identity backward: the same op as
 `all_gather` along the last dim joins vocab-sharded logits.
 `gather_shards` is the differentiable gather of a column-parallel product
 that every rank then reads in its own way (MLA's q_lora columns, the SSD
-block's in_proj columns): all_gather forward, and backward this rank's
+block's in_proj columns, the RG-LRU's convolved x): all_gather forward, and backward this rank's
 slice of the group-summed gradient.  The
 reference's `setup_compilation_cache` has no counterpart: the
 port compiles nothing at run time except its CUDA kernels, which

@@ -21,7 +21,8 @@ their counterpart over GPU ranks).
 
 Any ported arch serves (qwen3-4b, granite-8b, starcoder2-3b,
 moonshot-v1-16b-a3b, llama4-maverick-400b-a17b, deepseek-v2-236b with MLA,
-mamba2-1.3b with the SSD block).  The attention window is
+mamba2-1.3b with the SSD block, recurrentgemma-9b with the RG-LRU and
+2048-slot local-attention rings).  The attention window is
 the reference serve's: the model's native one (starcoder2-3b's 4096, a
 ring-buffer cache), else full attention; `--shape long_500k` takes that
 shape's window instead (`steps.decode_window`: the 8192-slot SWA variant of
@@ -34,8 +35,9 @@ decoding by default; with a temperature every generated token after the
 first (which, as in the JAX loop, is the argmax of the prompt's last
 logits) is drawn with `torch.multinomial` from a seeded generator, whose
 bits differ from `jax.random.categorical`'s.  Every GQA attention of
-every step goes through the decode-attention kernel on the card (MLA and
-the SSD block are plain torch, as in the reference).
+every step goes through the decode-attention kernel on the card
+(recurrentgemma-9b's local attention at head dim 256 included; MLA, the
+SSD block and the RG-LRU are plain torch, as in the reference).
 """
 from __future__ import annotations
 

@@ -17,6 +17,9 @@ rules, as the reference's (a dim is split when M divides it):
 - the SSD mixer (`repro/models/ssm.py::init_ssm`): in_proj its output
   columns, A_log / D / dt_bias their heads, norm and out_proj's rows
   d_inner; conv_w / conv_b are replicated;
+- the RG-LRU mixer (`repro/models/rglru.py::init_rglru`): in_x, in_gate,
+  conv_w, w_a and w_i their W columns, conv_b, b_a, b_i and lam W, out
+  its W rows;
 - the SwiGLU's wi / wg split f, its wo f;
 - the MoE experts split each expert's f ("scan_dense") or the experts
   ("capacity_gather"); the shared experts are a SwiGLU; the f32 router is
@@ -30,8 +33,9 @@ A spec tree has the parameter tree's structure, each leaf the split dim
 nothing.  A rank's decode caches are built by
 `transformer.init_caches(..., model_parallel=M)`: its KV heads, whole (the
 reference's `cache_specs` splits another dim where M does not divide KV;
-`models/attention.py`), the whole MLA latent, and its heads' SSD state
-(`models/ssm.py`).  `fsdp_augment`'s storage sharding over "data"
+`models/attention.py`), the whole MLA latent, its heads' SSD state
+(`models/ssm.py`) and its W / M channels of the RG-LRU state
+(`models/rglru.py`).  `fsdp_augment`'s storage sharding over "data"
 and the sequence-parallel residuals of `make_constrain` are not ported
 (ROADMAP.md Queue 1 item 8d); `sweep_state_spec` is the sweep engine's
 column split (`fl/sweep.py::_ModelShards`).
@@ -64,6 +68,14 @@ def _split(n: int, dim: int, m: int) -> Optional[int]:
     return dim if n % m == 0 else None
 
 
+def _kind(path: Tuple[str, ...], cfg: ModelConfig) -> str:
+    """The block kind of the sub-block a leaf path lies in: blocks/b<i>
+    is pattern[i], tail<t> pattern[t]."""
+    if path[0] == "blocks":
+        return cfg.block_pattern[int(path[1][1:])]
+    return cfg.block_pattern[int(path[0][4:])]
+
+
 def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
                cfg: ModelConfig, m: int) -> Optional[int]:
     """The split dim of one unstacked leaf at `path`."""
@@ -77,6 +89,10 @@ def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
         if name in ("wq", "wk", "wv", "wq_a", "wq_b", "wk_b", "wv_b"):
             return _first_split(shape, 1, m)
         return _first_split(shape, 0, m) if name == "wo" else None
+    if parent == "mixer" and _kind(path, cfg) == "rglru":
+        if name in ("in_x", "in_gate", "conv_w", "w_a", "w_i"):
+            return _split(shape[1], 1, m)
+        return _split(shape[0], 0, m)   # conv_b, b_a, b_i, lam; out's rows
     if parent == "mixer":   # the SSD block
         if name == "in_proj":
             return _split(shape[1], 1, m)

@@ -403,7 +403,9 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
 def decode_window(cfg: ModelConfig, shape_name: str) -> Optional[int]:
     """Effective attention window for a decode shape: the native window if the
     model has one; for long_500k on full-attention dense archs, the explicit
-    long-context SWA variant; otherwise full attention."""
+    long-context SWA variant; otherwise full attention.  It applies to the
+    attn / attn_moe blocks only: recurrentgemma-9b's local_attn blocks
+    always keep their cfg.local_window ring (None here at every shape)."""
     if cfg.window:
         return cfg.window
     if shape_name == "long_500k" and cfg.long_context_window and cfg.mla is None:

@@ -20,8 +20,22 @@ kpos > pos - window`; over a ring of `slots` that is exactly "every slot
 <= min(pos, slots - 1)", which the decode attention applies itself (it
 clamps its valid length to min(pos + 1, S)), and the softmax does not
 depend on slot order (RoPE is applied to k at its true position when it
-is written).  `kv_cache_dtype="int8"` raises NotImplementedError
-(ROADMAP.md Queue 1 item 10).
+is written).  A local_attn block (the RG-LRU hybrid) is this GQA
+attention with window=cfg.local_window: its ring holds min(max_len,
+local_window) slots.
+
+`kv_cache_dtype="int8"` (the reference's `init_cache` / `_quantize_kv` /
+`_dequantize_kv`) stores k / v as int8 [B, slots, KV, hd] with f16
+absmax scales k_scale / v_scale [B, slots, KV]: the scale is max |x| /
+127 over hd in f32, floored at 1e-8, and the values are
+clip(round(x / scale), -127, 127), rounded half to even as `jnp.round`
+rounds.  A decode step quantizes the new k / v, writes all four leaves in
+place at its slot, dequantizes the whole cache to q's dtype (an f32
+multiply, then the cast) and runs `ops.decode_attention` on it, the same
+CUDA kernel as the native cache's; a kernel that reads int8 with its
+scales fused in is not written (ROADMAP.md Queue 2 item 7).  The MLA
+latent cache and the SSD and RG-LRU states ignore the flag, as in the
+reference.
 
 MLA (`init_mla`, `mla_full`, `init_mla_cache`, `mla_decode_step`) is plain
 torch, as the reference's is plain einsums outside any Pallas kernel:
@@ -105,14 +119,17 @@ def check_heads(cfg: ModelConfig, m: int) -> None:
     over m "model" ranks: for GQA m divides the query heads, and divides
     the KV heads or (wk / wv sharded on d) divides d and is a multiple of
     KV; for MLA m divides the heads and q_lora; for the SSD block m
-    divides its heads (d_inner / headdim)."""
+    divides its heads (d_inner / headdim); for the RG-LRU block m divides
+    its width."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     if m == 1:
         return
     bad = False
     if cfg.ssm is not None:
         bad = (cfg.ssm.expand * cfg.d_model // cfg.ssm.headdim) % m != 0
-    if any(k != "ssm" for k in cfg.block_pattern):
+    if "rglru" in cfg.block_pattern:
+        bad = bad or (cfg.rglru_width or cfg.d_model) % m != 0
+    if any(k not in ("ssm", "rglru") for k in cfg.block_pattern):
         if cfg.mla is not None:
             bad = bad or h % m != 0 or cfg.mla.q_lora % m != 0
         else:
@@ -234,11 +251,15 @@ def gqa_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
     return _out(p, _chunked_attn(q, k, v, causal, window))
 
 
+KV_CACHE_DTYPES = ("native", "int8")
+
+
 def check_cache_supported(cfg: ModelConfig) -> None:
-    """Raise on the cache layouts the port does not have yet."""
-    if cfg.kv_cache_dtype != "native":
-        raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} "
-                                  f"{NOT_PORTED}")
+    """Raise ValueError on a kv_cache_dtype other than "native" and
+    "int8"."""
+    if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r}: not one "
+                         f"of {KV_CACHE_DTYPES}")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -246,14 +267,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                model_parallel: int = 1) -> Dict[str, Tensor]:
     """Zeroed KV cache of one attention layer: k/v [B, slots, KV, hd], a ring
     of slots = min(max_len, window) if windowed, else max_len; over
-    model_parallel ranks, the KV heads of one rank (`local_heads`)."""
+    model_parallel ranks, the KV heads of one rank (`local_heads`).  Under
+    kv_cache_dtype="int8" k / v are int8 and k_scale / v_scale [B, slots,
+    KV] f16 (the scales of the rank's KV heads)."""
     check_cache_supported(cfg)
     check_heads(cfg, model_parallel)
     slots = min(max_len, window) if window else max_len
     kv = local_heads(cfg, model_parallel, 0)[1]
     shape = (batch, slots, kv.stop - kv.start, cfg.hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float16,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def quantize_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """[..., hd] -> (int8 values [..., hd], f16 absmax scales [...]): the
+    reference's `_quantize_kv`."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def dequantize_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    """int8 values [..., hd] times their f16 scales [...], in f32, cast to
+    `dtype`: the reference's `_dequantize_kv`."""
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
@@ -271,7 +316,9 @@ def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
     windowed, computed on the device), and returns the same dict.  The
     attention over slots <= min(pos, S - 1) is `ops.decode_attention` with
     the true pos (the CUDA kernel on the card; `plain=True` takes its plain
-    version)."""
+    version).  An int8 cache (kv_cache_dtype="int8") gets the quantized
+    k1 / v1 and their scales at the slot, and the attention reads the
+    whole cache dequantized to q's dtype."""
     check_cache_supported(cfg)
     b = x1.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x1.device)
@@ -281,10 +328,19 @@ def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
     slot = pos.reshape(1).long()
     if window:
         slot = torch.remainder(slot, cache["k"].shape[1])
-    cache["k"].index_copy_(1, slot, k1)
-    cache["v"].index_copy_(1, slot, v1)
-    out = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
-                               pos, plain=plain)
+    if cfg.kv_cache_dtype == "int8":
+        for name, x in (("k", k1), ("v", v1)):
+            xq, xs = quantize_kv(x)
+            cache[name].index_copy_(1, slot, xq)
+            cache[name + "_scale"].index_copy_(1, slot, xs)
+        ck = dequantize_kv(cache["k"], cache["k_scale"], q.dtype)
+        cv = dequantize_kv(cache["v"], cache["v_scale"], q.dtype)
+    else:
+        cache["k"].index_copy_(1, slot, k1)
+        cache["v"].index_copy_(1, slot, v1)
+        ck, cv = cache["k"], cache["v"]
+    out = ops.decode_attention(q[:, 0].contiguous(), ck, cv, pos,
+                               plain=plain)
     return _out(p, out.reshape(b, 1, *out.shape[1:])), cache
 
 

@@ -77,7 +77,8 @@ class ModelConfig:
     stays: it is a model property, the input shapes a config does not run
     (`configs.registry.shape_applicable`).  `moe` is a `MoEConfig`, `mla`
     an `MLAConfig` (deepseek-v2-236b) and `ssm` an `SSMConfig`
-    (mamba2-1.3b); encdec and frontend are carried only as None here: the
+    (mamba2-1.3b); `rglru_width` and `local_window` shape the RG-LRU
+    hybrid (recurrentgemma-9b); encdec and frontend are carried only as None here: the
     port's model raises NotImplementedError on either (ROADMAP.md Queue 1
     item 10)."""
     name: str
@@ -110,7 +111,7 @@ class ModelConfig:
     # CE/logits are computed in sequence chunks of this many positions so the
     # [B, S, vocab] tensor never materializes.
     lm_head_chunk: int = 1024
-    kv_cache_dtype: str = "native"    # or "int8" (not ported)
+    kv_cache_dtype: str = "native"    # or "int8" (models/attention.py)
 
     @property
     def hd(self) -> int:

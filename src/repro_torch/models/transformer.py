@@ -4,38 +4,44 @@ step (`repro/models/transformer.py`), for the block kinds
 
   attn       causal self-attention (GQA, or MLA when cfg.mla) + SwiGLU
   attn_moe   causal self-attention (GQA or MLA) + MoE FFN (+ shared experts)
+  local_attn sliding-window GQA self-attention (cfg.local_window) + SwiGLU
   ssm        Mamba-2 SSD mixer (no separate FFN, per the paper)
+  rglru      RG-LRU recurrent mixer + SwiGLU
 
 in any `block_pattern` of them (qwen3-4b, granite-8b and starcoder2-3b are
 ("attn",), moonshot and deepseek-v2-236b (MLA) ("attn_moe",), llama4
-("attn", "attn_moe"), mamba2-1.3b ("ssm",)).  A "super-block" is one
+("attn", "attn_moe"), mamba2-1.3b ("ssm",), recurrentgemma-9b ("rglru",
+"rglru", "local_attn")).  A "super-block" is one
 repeat of the pattern: n_layers // len(pattern) of them are stacked with a
 leading layer axis under `blocks` ({"b0", "b1", ...}, one sub-block per
 pattern entry), and the n_layers % len(pattern) left over are unstacked
 `tail{t}` blocks of kind pattern[t].  An "ssm" sub-block is ln1 and the
-mixer alone.
+mixer alone; an "rglru" sub-block is ln1, the mixer, ln2 and the SwiGLU.
 
 The parameter and cache trees keep the JAX package's layout, so JAX weights
 carry across with `params_from_jax` and a flat row lays its leaves out as
 `jax.tree_util` does (`repro_torch.tree`).  The decode caches of a layer are
-a GQA layer's k / v, an MLA layer's latent c_kv / k_rope, or an SSD layer's
-conv window and ssm state.  The JAX scan over layers is a Python loop over
-layer indices here, and `remat` has no counterpart: the backward keeps
-every layer's activations.  `chunked_ce` projects `lm_head_chunk`
+a GQA layer's k / v (int8 with f16 scales under kv_cache_dtype="int8"),
+an MLA layer's latent c_kv / k_rope, an SSD layer's conv window and ssm
+state, or an RG-LRU layer's conv window and h.  A local_attn layer's
+cache is always a ring of min(max_len, cfg.local_window) slots; the
+`window` of `init_caches` and `decode_step` (long_500k's) applies to the
+attn / attn_moe blocks only.  The JAX scan over layers is a Python loop
+over layer indices here, and `remat` has no counterpart: the backward
+keeps every layer's activations.  `chunked_ce` projects `lm_head_chunk`
 positions to logits at a time, as the reference does, without
 `torch.utils.checkpoint` (it does not compose with `torch.func.grad` /
-`vmap`, through which the sweep takes per-worker gradients).  The other
-block kinds (local_attn, rglru), the encoder-decoder and frontends (a
-VLM's `embeds_prefix`) raise NotImplementedError (ROADMAP.md Queue 1 item
-10).
+`vmap`, through which the sweep takes per-worker gradients).  The
+encoder-decoder and frontends (a VLM's `embeds_prefix`) raise
+NotImplementedError (ROADMAP.md Queue 1 item 10).
 
 Under `common.tensor_parallel` (a "model" axis of M ranks, the parameters
 this rank's shards, `launch/sharding.py`) the residual stream stays
-replicated: the attention (GQA or MLA), the SSD mixer, the SwiGLU (wi / wg
-split on f, wo on f) and the MoE each take their input through `copy_in`
-and reduce their output once; the embedding is split on its vocab rows
-(each rank looks up the ids in its rows, zeros elsewhere, one
-`reduce_out`), the head on its vocab columns, and the CE is
+replicated: the attention (GQA or MLA), the SSD and RG-LRU mixers, the
+SwiGLU (wi / wg split on f, wo on f) and the MoE each take their input
+through `copy_in` and reduce their output once; the embedding is split on
+its vocab rows (each rank looks up the ids in its rows, zeros elsewhere,
+one `reduce_out`), the head on its vocab columns, and the CE is
 `softmax_xent_sharded`, so the [B, S, Vp] logits are never gathered in
 training.  `logits_from_hidden` gathers the vocab shards (prefill and
 decode).
@@ -50,6 +56,7 @@ import torch
 from repro_torch.models import attention as ATT
 from repro_torch.models import ffn as FFN
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RGL
 from repro_torch.models import ssm as SSM
 from repro_torch.launch.distributed import all_gather, copy_in, reduce_out
 from repro_torch.models.common import (ModelConfig, ParamInit, model_shards,
@@ -59,17 +66,20 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
 
-BLOCK_KINDS = ("attn", "attn_moe", "ssm")
+BLOCK_KINDS = ("attn", "attn_moe", "local_attn", "ssm", "rglru")
+# the kinds whose decode reads a KV cache at a position (rotary keys)
+ATTN_KINDS = ("attn", "attn_moe", "local_attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a decoder-only stack of ported block kinds
-    ("attn", "attn_moe" with a MoE config, "ssm" with an SSM config; the
-    attention GQA, or MLA with an MLA config)."""
+    """Raise unless cfg is a decoder-only stack of known block kinds
+    ("attn", "attn_moe" with a MoE config, "local_attn", "ssm" with an SSM
+    config, "rglru"; the attention of attn / attn_moe GQA, or MLA with an
+    MLA config; local_attn always GQA)."""
     for kind in cfg.block_pattern:
         if kind not in BLOCK_KINDS:
-            raise NotImplementedError(f"block_pattern {cfg.block_pattern}: "
-                                      f"{kind!r} {ATT.NOT_PORTED}")
+            raise ValueError(f"block_pattern {cfg.block_pattern}: unknown "
+                             f"block kind {kind!r}")
     if "attn_moe" in cfg.block_pattern and cfg.moe is None:
         raise ValueError(f"{cfg.name}: an attn_moe block needs cfg.moe")
     if "ssm" in cfg.block_pattern and cfg.ssm is None:
@@ -85,13 +95,23 @@ def layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.n_layers // k, cfg.n_layers % k
 
 
+def _mla(kind: str, cfg: ModelConfig) -> bool:
+    """Whether a block of this kind is MLA (local_attn never is)."""
+    return cfg.mla is not None and kind != "local_attn"
+
+
 def _init_subblock(pi: ParamInit, kind: str, cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     if kind == "ssm":
         return {"ln1": pi.param((d,), init="zeros"),
                 "mixer": SSM.init_ssm(pi, cfg)}
+    if kind == "rglru":
+        return {"ln1": pi.param((d,), init="zeros"),
+                "mixer": RGL.init_rglru(pi, cfg),
+                "ln2": pi.param((d,), init="zeros"),
+                "ffn": FFN.init_swiglu(pi, cfg)}
     return {"ln1": pi.param((d,), init="zeros"),
-            "attn": (ATT.init_mla(pi, cfg) if cfg.mla is not None
+            "attn": (ATT.init_mla(pi, cfg) if _mla(kind, cfg)
                      else ATT.init_gqa(pi, cfg)),
             "ln2": pi.param((d,), init="zeros"),
             "ffn": (MOE.init_moe(pi, cfg) if kind == "attn_moe"
@@ -178,12 +198,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     {"b0": {...}}} for the tail blocks, each a GQA layer's {"k", "v":
     [B, S, KV, hd]}, an MLA layer's {"c_kv": [B, S, kv_lora], "k_rope":
     [B, S, rope]} or an SSD layer's {"conv": [B, d_conv - 1, conv_ch],
-    "ssm": [B, H, N, P] f32}.  `window` overrides cfg.window for every GQA
-    block (long_500k's SWA variant); a window makes each GQA cache a ring
-    of min(max_len, window) slots (an MLA cache is always max_len slots,
-    as the reference's).  Over model_parallel "model" ranks, a rank's
+    "ssm": [B, H, N, P] f32} or an RG-LRU layer's {"conv": [B, 3, W],
+    "h": [B, W] f32}; under kv_cache_dtype="int8" a GQA layer's k / v are
+    int8 with f16 "k_scale" / "v_scale" [B, S, KV].  `window` overrides
+    cfg.window for every attn / attn_moe GQA block (long_500k's SWA
+    variant); a window makes each GQA cache a ring of min(max_len, window)
+    slots (an MLA cache is always max_len slots, as the reference's); a
+    local_attn cache is a ring of min(max_len, cfg.local_window) slots
+    whatever `window` is.  Over model_parallel "model" ranks, a rank's
     caches: the KV heads its query heads read (`attention.local_heads`),
-    the whole MLA latent, the SSD state of its heads (`ssm.py`)."""
+    the whole MLA latent, the SSD state of its heads (`ssm.py`), its W / M
+    RG-LRU channels (`rglru.py`)."""
     check_supported(cfg)
     ATT.check_heads(cfg, model_parallel)
     n_rep, n_tail = layer_counts(cfg)
@@ -193,6 +218,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         if kind == "ssm":
             c = SSM.init_ssm_state(cfg, batch, cfg.dtype, "meta",
                                    model_parallel)
+        elif kind == "rglru":
+            c = RGL.init_rglru_state(cfg, batch, cfg.dtype, "meta",
+                                     model_parallel)
+        elif kind == "local_attn":
+            c = ATT.init_cache(cfg, batch, max_len, cfg.local_window,
+                               cfg.dtype, "meta", model_parallel)
         elif cfg.mla is not None:
             c = ATT.init_mla_cache(cfg, batch, max_len, cfg.dtype, "meta",
                                    model_parallel)
@@ -252,12 +283,18 @@ def _ffn(kind: str, p: Dict, h: Tensor, cfg: ModelConfig
 def _apply_subblock(kind: str, p: Dict, x: Tensor, positions: Tensor,
                     cfg: ModelConfig, window: Optional[int]
                     ) -> Tuple[Tensor, Optional[Tensor]]:
-    """The full-sequence block: x + attn(norm(x)), then + ffn(norm(x));
-    or x + ssd(norm(x)); returns (x, the MoE aux loss or None)."""
+    """The full-sequence block: x + attn(norm(x)) (or + rglru(norm(x))),
+    then + ffn(norm(x)); or x + ssd(norm(x)); returns (x, the MoE aux loss
+    or None).  A local_attn block attends within cfg.local_window."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         return x + SSM.ssd_full(p["mixer"], h, cfg), None
-    if cfg.mla is not None:
+    if kind == "rglru":
+        x = x + RGL.rglru_full(p["mixer"], h, cfg)
+    elif kind == "local_attn":
+        x = x + ATT.gqa_full(p["attn"], h, cfg, positions,
+                             window=cfg.local_window)
+    elif cfg.mla is not None:
         x = x + ATT.mla_full(p["attn"], h, cfg, positions, window=window)
     else:
         x = x + ATT.gqa_full(p["attn"], h, cfg, positions, window=window)
@@ -353,19 +390,24 @@ def _decode_subblock(kind: str, p: Dict, cache: Dict, x1: Tensor, pos,
                      cfg: ModelConfig, window: Optional[int],
                      rope: Tuple[Tensor, Tensor],
                      plain: bool) -> Tuple[Tensor, Dict]:
-    """One block of a decode step: x + attn(norm(x)), then + ffn(norm(x))
-    (the MoE FFN's aux loss is dropped, as in the reference); or x +
-    ssd(norm(x))."""
+    """One block of a decode step: x + attn(norm(x)) (or + rglru(norm(x))),
+    then + ffn(norm(x)) (the MoE FFN's aux loss is dropped, as in the
+    reference); or x + ssd(norm(x)).  A local_attn block's ring holds
+    cfg.local_window slots."""
     h = rms_norm(x1, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         y, cache = SSM.ssd_decode_step(p["mixer"], h, cache, cfg)
         return x1 + y, cache
-    if cfg.mla is not None:
+    if kind == "rglru":
+        h, cache = RGL.rglru_decode_step(p["mixer"], h, cache, cfg)
+    elif _mla(kind, cfg):
         h, cache = ATT.mla_decode_step(p["attn"], h, cache, pos, cfg,
                                        rope=rope)
     else:
-        h, cache = ATT.decode_step(p["attn"], h, cache, pos, cfg,
-                                   window=window, rope=rope, plain=plain)
+        h, cache = ATT.decode_step(
+            p["attn"], h, cache, pos, cfg,
+            window=cfg.local_window if kind == "local_attn" else window,
+            rope=rope, plain=plain)
     x1 = x1 + h
     y, _ = _ffn(kind, p["ffn"], rms_norm(x1, p["ln2"], cfg.norm_eps), cfg)
     return x1 + y, cache
@@ -376,19 +418,21 @@ def decode_step(params: Dict, caches: Dict, tokens1: Tensor, pos,
                 plain: bool = False) -> Tuple[Tensor, Dict]:
     """One decode step.  tokens1 [B, 1] integer, pos the 0-based index of the
     new token (an int or a 0-d integer tensor on the device).  `window`
-    overrides cfg.window for every GQA block; a windowed step writes slot
-    pos % S of its ring caches (`init_caches` with the same window).  MLA
-    and SSD layers take no window (an SSD layer no pos either).  Returns
-    (logits [B, 1, Vp], caches); the caches are written in place (see
+    overrides cfg.window for every attn / attn_moe GQA block; a windowed
+    step writes slot pos % S of its ring caches (`init_caches` with the
+    same window); a local_attn block always writes its ring of
+    cfg.local_window slots.  MLA, SSD and RG-LRU layers take no window
+    (SSD and RG-LRU layers no pos either).  Returns (logits [B, 1, Vp],
+    caches); the caches are written in place (see
     `attention.decode_step`, `attention.mla_decode_step`,
-    `ssm.ssd_decode_step`)."""
+    `ssm.ssd_decode_step`, `rglru.rglru_decode_step`)."""
     check_supported(cfg)
     window = window if window is not None else cfg.window
     ATT.check_cache_supported(cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens1.device)
     x = embed_tokens(params, tokens1, cfg)
     rope = None
-    if any(kind != "ssm" for kind in cfg.block_pattern):
+    if any(kind in ATTN_KINDS for kind in cfg.block_pattern):
         rope = rope_cos_sin(pos.reshape(1, 1), cfg.mla.qk_rope_dim
                             if cfg.mla is not None else cfg.hd,
                             cfg.rope_theta)

@@ -544,8 +544,10 @@ def test_grouped_defense_sweep_matches_plain_route(cuda_device, grid):
 
 # tests/test_kernels.py's decode-attention grid, plus head groups of 8 and 6
 # query heads per KV head (two blocks per KV head), dh = 32 (the smoke
-# config), a long cache cut into many splits, and the zoo's groups (G = 12,
-# 5 and 1).
+# config), a long cache cut into many splits, the zoo's groups (G = 12,
+# 5 and 1), and head dim 256 (recurrentgemma-9b's MQA local attention:
+# G = 16, two head groups a KV head; its ring, its serve, S off the tile,
+# and a rank's 8 heads on (1, 2)).
 DECODE_GRID = [(1, 4, 1, 64, 512),      # MQA
                (2, 8, 2, 64, 1024),     # GQA
                (2, 8, 8, 128, 777),     # MHA, ragged length
@@ -556,7 +558,11 @@ DECODE_GRID = [(1, 4, 1, 64, 512),      # MQA
                (2, 32, 8, 128, 32768),
                (2, 24, 2, 128, 600),    # G = 12: starcoder2-3b
                (2, 40, 8, 128, 600),    # G = 5: llama4
-               (2, 16, 16, 128, 600)]   # G = 1 at KV = 16: moonshot
+               (2, 16, 16, 128, 600),   # G = 1 at KV = 16: moonshot
+               (1, 16, 1, 256, 2048),   # dh 256, G = 16: the ring
+               (8, 16, 1, 256, 64),     # dh 256: the serve
+               (2, 16, 1, 256, 777),    # dh 256, off the tile
+               (2, 8, 1, 256, 300)]     # dh 256, G = 8: a rank's heads
 # The kernel against the plain version on the same inputs upcast to f32.
 # f32: they differ only in summation order and expf (rtol = atol = 1e-5).
 # bf16: the kernel accumulates in f32 and rounds once, at the output (2^-9
@@ -649,7 +655,7 @@ def test_decode_attention_cache_shorter_than_a_tile(cuda_device, s):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
 def test_decode_attention_eight_heads_in_one_block(cuda_device, dh):
     """G = 8 query heads per KV head: one bf16 block per (row, KV head,
     chunk), so K/V is read once."""
@@ -1322,3 +1328,49 @@ def test_gather_shards_on_a_one_rank_group(cuda_device, tmp_path):
         dist.destroy_process_group()
     assert torch.equal(y, x) and torch.equal(g, r)
     assert gather_shards(x, None) is x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_cache_dtype", ["native", "int8"])
+def test_hybrid_serve_kernel_route_matches_plain_route(cuda_device,
+                                                       kv_cache_dtype):
+    """The smoke recurrentgemma-9b at head dim 256 (f32, 5 layers: one
+    local attention), its cache native or int8, served 40 + 40 tokens past
+    its 32-slot local ring through the kernel and through its plain
+    version: the same greedy tokens, logits at rtol 1e-4, one launch a
+    local-attention layer a step (the int8 step dequantizes its cache and
+    runs the same kernel); and the decode against the full-sequence
+    forward (native) at rtol 1e-4 of the largest |logit|."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import init_model, make_decode_step
+    from repro_torch.models import transformer as LM
+    cfg = dataclasses.replace(get_smoke("recurrentgemma-9b"), head_dim=256,
+                              kv_cache_dtype=kv_cache_dtype)
+    local = sum(k == "local_attn" for k in cfg.block_pattern)
+    ops.reset_launches()
+    rk = serve(cfg, 2, 40, 40, device=cuda_device)
+    assert ops.launch_counts()["decode_attention"] == local * 80
+    assert ops.launch_shapes()["decode_attention"] == {
+        (2, 32, 4, 1, 256): local * 80}
+    rp = serve(cfg, 2, 40, 40, device=cuda_device, plain=True)
+    assert ops.launch_counts()["decode_attention"] == local * 80
+    assert torch.equal(rk.tokens, rp.tokens)
+    torch.testing.assert_close(rk.logits, rp.logits, rtol=1e-4, atol=1e-5)
+    if kv_cache_dtype == "int8":
+        return
+    params = init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                        cuda_device)
+    b, n = 2, 48
+    seq = torch.as_tensor(sample_tokens(b, n, cfg.vocab_size, seed=2),
+                          device=cuda_device)
+    with torch.no_grad():
+        want = LM.forward(params, seq, cfg)[0]
+    step, _ = make_decode_step(cfg)
+    caches = LM.init_caches(cfg, b, n, device=cuda_device)
+    pos = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    got = torch.stack([step(params, caches, seq[:, i:i + 1], pos[i])[0][:, 0]
+                       for i in range(n)], dim=1)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))

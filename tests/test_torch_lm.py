@@ -236,41 +236,48 @@ def test_sampled_serve_is_seeded():
 
 def test_unported_paths_raise():
     """What stays unported raises NotImplementedError naming ROADMAP item
-    10: an int8 cache, the archs not yet registered (recurrentgemma-9b,
-    llava-next-mistral-7b, seamless-m4t-large-v2), the audio model and an
-    "rglru" block.  MLA (deepseek-v2-236b) and the "ssm" block
-    (mamba2-1.3b) are ported: their configs, trees and caches build
-    (tests/test_torch_mla.py, tests/test_torch_ssm.py hold them against
-    JAX); a windowed cache is ported (tests/test_torch_window.py)."""
+    10: the archs not yet registered (llava-next-mistral-7b,
+    seamless-m4t-large-v2) and the audio model.  MLA (deepseek-v2-236b),
+    the "ssm" block (mamba2-1.3b), the "rglru" and "local_attn" blocks
+    (recurrentgemma-9b) and the int8 cache are ported: their configs,
+    trees and caches build (tests/test_torch_mla.py, test_torch_ssm.py,
+    test_torch_rglru.py and test_torch_kv_quant.py hold them against JAX);
+    a windowed cache is ported (tests/test_torch_window.py).  An unknown
+    block kind or cache dtype is a ValueError."""
     cfg = get_smoke(ARCH)
-    _, _, _, tparams = _smoke()
-    p = {k: v[0] for k, v in tparams["blocks"]["b0"]["attn"].items()}
-    cache = TATT.init_cache(cfg, 1, 8, None, torch.float32)
-    x1 = torch.zeros(1, 1, cfg.d_model)
     int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TATT.init_cache(int8, 1, 8, None, torch.float32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        TATT.decode_step(p, x1, cache, 0, int8)
-    for arch in ("recurrentgemma-9b", "llava-next-mistral-7b",
-                 "seamless-m4t-large-v2"):
+    cache = TATT.init_cache(int8, 1, 8, None, torch.float32)
+    assert {k: v.dtype for k, v in cache.items()} == {
+        "k": torch.int8, "v": torch.int8, "k_scale": torch.float16,
+        "v_scale": torch.float16}
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        TATT.init_cache(dataclasses.replace(cfg, kv_cache_dtype="fp8"), 1,
+                        8, None, torch.float32)
+    for arch in ("llava-next-mistral-7b", "seamless-m4t-large-v2"):
         assert arch in JR.ARCH_IDS
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             get_config(arch)
     mla, ssm = get_config("deepseek-v2-236b"), get_config("mamba2-1.3b")
     assert isinstance(mla.mla, TC.MLAConfig) and mla.ssm is None
     assert isinstance(ssm.ssm, TC.SSMConfig) and ssm.block_pattern == ("ssm",)
-    for c in (get_smoke("deepseek-v2-236b"), get_smoke("mamba2-1.3b")):
+    assert get_config("recurrentgemma-9b").block_pattern == (
+        "rglru", "rglru", "local_attn")
+    for c in (get_smoke("deepseek-v2-236b"), get_smoke("mamba2-1.3b"),
+              get_smoke("recurrentgemma-9b")):
         caches = TT.init_caches(c, 1, 8, device="meta")["blocks"]["b0"]
         assert sorted(caches) == (["c_kv", "k_rope"] if c.mla else
-                                  ["conv", "ssm"])
+                                  ["conv", "ssm"] if c.ssm else ["conv", "h"])
         assert TT.init_lm(None, c, "meta")["blocks"]["b0"]["ln1"].shape == (
-            c.n_layers, c.d_model)
+            c.n_layers // len(c.block_pattern), c.d_model)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         TSTEPS.init_model(dataclasses.replace(cfg, arch_type="audio"), None,
                           "meta")
-    with pytest.raises(NotImplementedError, match="block_pattern.*item 10"):
-        TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("rglru",)),
+    rg = TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("rglru",)),
+                    "meta")
+    assert rg["blocks"]["b0"]["mixer"]["w_a"].shape == (
+        cfg.n_layers, cfg.d_model, cfg.d_model)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("conv",)),
                    "meta")
     with pytest.raises(ValueError, match="needs cfg.ssm"):
         TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("ssm",)),

@@ -6,10 +6,11 @@ One JAX subprocess on 4 host devices (`JAX_REF`) runs the reference: the
 FLOA train step of the smoke qwen3-4b (f32) on a (4, 1) ("data", "model")
 debug mesh, B = 8, 3 steps, for BEV, CI and EF with n_byzantine = 2 (one
 strongest attacker at U = 4) and for use_floa=False; the smoke moonshot
-(MoE), deepseek-v2-236b (MLA) and mamba2-1.3b (SSD) on a (2, 1) mesh
-(BEV); the prefill step on a (2, 1) mesh; and the smoke
-starcoder2-3b's decode step on one device, teacher-forced 72 steps into its
-64-slot ring.  It also replays each train step's draws (gains off
+(MoE), deepseek-v2-236b (MLA), mamba2-1.3b (SSD) and recurrentgemma-9b
+(RG-LRU + local attention) on a (2, 1) mesh (BEV); the prefill step on a
+(2, 1) mesh; the smoke starcoder2-3b's decode step on one device,
+teacher-forced 72 steps into its 64-slot ring, and recurrentgemma's, 40
+steps into its 32-slot local ring.  It also replays each train step's draws (gains off
 PRNGKey(t)'s first key, leaf i's noise off fold_in(second key, i)), which
 the port's ranks consume, from the JAX initial weights.  Then one spawn of
 4 ranks and one of 2:
@@ -17,11 +18,11 @@ the port's ranks consume, from the JAX initial weights.  Then one spawn of
 - the train step on (4, 1): params, gbar, eps2 and the metrics at rtol
   1e-5 / atol 1e-6, every rank's result bitwise equal; the same BEV case
   on a (2, 2, 1) ("pod", "data", "model") mesh equals the (4, 1) run;
-- the smoke moonshot, deepseek-v2-236b and mamba2-1.3b on (2, 1) at the
-  same tolerance (the global aux);
+- the smoke moonshot, deepseek-v2-236b, mamba2-1.3b and
+  recurrentgemma-9b on (2, 1) at the same tolerance (the global aux);
 - prefill on (2, 1) at rtol 1e-5; decode on (4, 1) (a rank-local batch of
   2 against rank-local ring caches) at rtol 1e-4, every rank's gathered
-  logits equal; greedy `serve` on (2, 1) gives the one-process tokens;
+  logits equal; recurrentgemma's on (2, 1) the same way; greedy `serve` on (2, 1) gives the one-process tokens;
 - `combine_partials` over a 4-rank ("model",) mesh within 1e-5 of both
   decode_attention_refs;
 - the refusals, and the training entry point on 2 torchrun-style ranks.
@@ -75,8 +76,10 @@ MESH_41 = ((4, 1), ("data", "model"))
 MESH_221 = ((2, 2, 1), ("pod", "data", "model"))
 MESH_21 = ((2, 1), ("data", "model"))
 SERVE = dict(batch=4, prompt_len=8, gen=8, seed=3)
-# the MLA and SSD archs' train step on (2, 1)
-MLA_SSM = ("deepseek-v2-236b", "mamba2-1.3b")
+# the MLA, SSD and RG-LRU archs' train step on (2, 1)
+MLA_SSM = ("deepseek-v2-236b", "mamba2-1.3b", "recurrentgemma-9b")
+# recurrentgemma's decode on (2, 1): batch 4, 40 steps (its ring is 32)
+RG_DECODE = dict(batch=4, n=40, seed=6)
 # module 6's contract (tests/test_distributed.py:140-170)
 SEQ_SHAPE = dict(b=2, h=8, kv=2, dh=32, s=256, pos=200)
 
@@ -157,25 +160,30 @@ JAX_REF = textwrap.dedent("""
     out["prefill"] = {{"params0": np_tree(params), "tokens": toks,
                       "logits": np.asarray(logits)}}
 
-    cfg = get_smoke("starcoder2-3b")
-    params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
-    n = cfg.window + 8
-    toks = sample_tokens(8, n, vocab=cfg.vocab_size, seed=3)
-    caches = T.init_caches(cfg, 8, n, window=cfg.window)
-    step = jax.jit(lambda p, c, t, pos: T.decode_step(
-        p, c, t, pos, cfg, window=cfg.window))
-    logits = []
-    for i in range(n):
-        lg, caches = step(params, caches, jnp.asarray(toks[:, i:i + 1]),
-                          jnp.int32(i))
-        logits.append(np.asarray(lg[:, 0]))
-    out["decode"] = {{"params0": np_tree(params), "tokens": toks,
-                     "logits": np.stack(logits)}}
+    def decode(arch, b, n, seed):
+        cfg = get_smoke(arch)
+        params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
+        toks = sample_tokens(b, n, vocab=cfg.vocab_size, seed=seed)
+        caches = T.init_caches(cfg, b, n, window=cfg.window)
+        step = jax.jit(lambda p, c, t, pos: T.decode_step(
+            p, c, t, pos, cfg, window=cfg.window))
+        logits = []
+        for i in range(n):
+            lg, caches = step(params, caches, jnp.asarray(toks[:, i:i + 1]),
+                              jnp.int32(i))
+            logits.append(np.asarray(lg[:, 0]))
+        return {{"params0": np_tree(params), "tokens": toks,
+                "logits": np.stack(logits)}}
+
+
+    sc = get_smoke("starcoder2-3b")
+    out["decode"] = decode("starcoder2-3b", 8, sc.window + 8, 3)
+    out["decode_rg"] = decode("recurrentgemma-9b", *{rg_decode})
     with open(sys.argv[1], "wb") as f:
         pickle.dump(out, f)
     print("JAX_REF_OK", flush=True)
 """).format(steps=STEPS, batch=BATCH, seq=SEQ, alpha=ALPHA, routes=ROUTES,
-           mla_ssm=MLA_SSM)
+           mla_ssm=MLA_SSM, rg_decode=tuple(RG_DECODE.values()))
 
 
 @pytest.fixture(scope="module")
@@ -230,8 +238,8 @@ def ranks4(jax_ref, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ranks2(jax_ref, tmp_path_factory):
-    """One spawn of 2 gloo ranks on (2, 1): the MoE train step, prefill and
-    greedy serve."""
+    """One spawn of 2 gloo ranks on (2, 1): the MoE, MLA, SSD and RG-LRU
+    train steps, prefill, greedy serve and recurrentgemma's decode."""
     pf = jax_ref["prefill"]
     jobs = [_train_job("moe", jax_ref["moe"], MESH_21, "bev", True,
                        arch="moonshot-v1-16b-a3b", batch=4),
@@ -241,6 +249,10 @@ def ranks2(jax_ref, tmp_path_factory):
                  **SERVE)]
     jobs += [_train_job(arch, jax_ref[arch], MESH_21, "bev", True,
                         arch=arch, batch=4) for arch in MLA_SSM]
+    rg = jax_ref["decode_rg"]
+    jobs.append(dict(name="decode_rg", kind="decode", mesh=MESH_21,
+                     arch="recurrentgemma-9b", params0=rg["params0"],
+                     tokens=rg["tokens"]))
     return run_ranks(jobs, 2, tmp_path_factory.mktemp("ranks2"))
 
 
@@ -315,9 +327,10 @@ def test_moe_train_step_on_two_ranks_matches_jax(ranks2, jax_ref):
 @pytest.mark.parametrize("arch", MLA_SSM)
 def test_mla_and_ssd_train_step_on_two_ranks_matches_jax(ranks2, jax_ref,
                                                          arch):
-    """deepseek-v2-236b (MLA + MoE: the global aux) and mamba2-1.3b (SSD)
-    on (2, 1), U = 2, each rank 2 of the 4 rows: no new code, the batch
-    split and the gradients' all_reduce of PR 22."""
+    """deepseek-v2-236b (MLA + MoE: the global aux), mamba2-1.3b (SSD)
+    and recurrentgemma-9b (RG-LRU + local attention) on (2, 1), U = 2,
+    each rank 2 of the 4 rows: the batch split and the gradients'
+    all_reduce of the worker axes, no code of their own."""
     assert_ranks_agree(ranks2, arch, 2, skip=("worker",))
     assert [ranks2[f"{arch}.r{r}"]["worker"] for r in range(2)] == [
         (2, r, 1) for r in range(2)]
@@ -365,6 +378,20 @@ def test_decode_on_four_ranks_matches_jax(ranks4, jax_ref):
     assert_ranks_agree(ranks4, "decode", 4)
     got, want = ranks4["decode.r0"], jax_ref["decode"]["logits"]
     assert got["cache_batch"] == 2
+    assert got["logits"].shape == want.shape
+    for i, (g, w) in enumerate(zip(got["logits"], want)):
+        _close(g, w, rtol=DECODE_RTOL,
+               atol=DECODE_RTOL * float(np.abs(want).max()),
+               err_msg=f"step {i}")
+
+
+def test_rglru_hybrid_decode_on_two_ranks_matches_jax(ranks2, jax_ref):
+    """recurrentgemma-9b on (2, 1), each rank decoding 2 of the 4 rows
+    against its own RG-LRU states and local rings, 40 steps past the
+    32-slot ring, against the JAX one-device step."""
+    assert_ranks_agree(ranks2, "decode_rg", 2)
+    got, want = ranks2["decode_rg.r0"], jax_ref["decode_rg"]["logits"]
+    assert got["cache_batch"] == RG_DECODE["batch"] // 2
     assert got["logits"].shape == want.shape
     for i, (g, w) in enumerate(zip(got["logits"], want)):
         _close(g, w, rtol=DECODE_RTOL,

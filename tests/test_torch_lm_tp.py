@@ -10,11 +10,12 @@ train step of the smoke qwen3-4b (f32, B = 8, 3 steps) on (1, 2) and
 (2, 2) for BEV, CI, EF and use_floa=False, on (4, 2) for BEV with one
 strongest attacker (U = 4) and on (1, 4), where KV 2 < M and wk / wv split
 d; the smoke moonshot (MoE) on (1, 2) and (2, 2), and with
-impl="capacity_gather" on (1, 2); deepseek-v2-236b (MLA + MoE) on (1, 2)
-and mamba2-1.3b (SSD) on (1, 2) and (1, 4) (B = 4, BEV); the qwen3
-prefill on (1, 4); the one-device decode of the smoke qwen3-4b, of
-starcoder2-3b (72 steps into its 64-slot ring), and of deepseek and
-mamba2 (10 steps).  It replays each train step's draws (gains off
+impl="capacity_gather" on (1, 2); deepseek-v2-236b (MLA + MoE) on (1, 2),
+and mamba2-1.3b (SSD) and recurrentgemma-9b (RG-LRU + local attention)
+on (1, 2) and (1, 4) (B = 4, BEV); the qwen3 prefill on (1, 4); the
+one-device decode of the smoke qwen3-4b, of starcoder2-3b (72 steps into
+its 64-slot ring), of deepseek and mamba2 (10 steps), and of
+recurrentgemma (40 steps, past its 32-slot local ring).  It replays each train step's draws (gains off
 PRNGKey(t)'s first key, leaf i's noise off fold_in(second key, i), at the
 leaf's full shape), which the port's ranks slice.  Then one spawn of 2
 ranks, one of 4 and one of 8:
@@ -23,10 +24,10 @@ ranks, one of 4 and one of 8:
   1e-5 / atol 1e-6; every rank's gathered params bitwise equal (the model
   replicas of the workers, and each replicated leaf across the model
   ranks);
-- the MoE, MLA and SSD at the same tolerance; prefill at rtol 1e-5,
-  decode at rtol 1e-4 against the one-device step (MLA and SSD on their
-  model meshes too); greedy `serve` on (1, 2) gives the one-process
-  tokens;
+- the MoE, MLA, SSD and RG-LRU at the same tolerance; prefill at rtol
+  1e-5, decode at rtol 1e-4 against the one-device step (MLA, SSD and
+  the hybrid on their model meshes too); greedy `serve` on (1, 2) gives
+  the one-process tokens;
 - the vocab-parallel CE and the embed / lm_head gradients at M = 2 and 4
   against the unsharded `chunked_ce` at rtol 1e-6;
 - the layout: `param_specs` and the caches of `init_caches(...,
@@ -98,13 +99,19 @@ TRAIN_CASES = {   # name: (mesh shape, routes, arch, moe impl, batch)
     "ds12": ((1, 2), [("bev", True)], "deepseek-v2-236b", None, 4),
     "mb12": ((1, 2), [("bev", True)], "mamba2-1.3b", None, 4),
     "mb14": ((1, 4), [("bev", True)], "mamba2-1.3b", None, 4),
+    "rg12": ((1, 2), [("bev", True)], "recurrentgemma-9b", None, 4),
+    "rg14": ((1, 4), [("bev", True)], "recurrentgemma-9b", None, 4),
 }
-SPAWNS = {2: ("m12", "moe12", "cap12", "ds12", "mb12"),
-          4: ("m22", "m14", "moe22", "mb14"), 8: ("m42",)}
-# the one-device decode of the MLA and SSD archs, against their model-axis
-# decodes: (arch, meshes)
+SPAWNS = {2: ("m12", "moe12", "cap12", "ds12", "mb12", "rg12"),
+          4: ("m22", "m14", "moe22", "mb14", "rg14"), 8: ("m42",)}
+# the one-device decode of the MLA, SSD and RG-LRU archs, against their
+# model-axis decodes: (arch, meshes)
 MLA_SSM_DECODE = {"deepseek-v2-236b": ((1, 2),),
-                  "mamba2-1.3b": ((1, 2), (1, 4))}
+                  "mamba2-1.3b": ((1, 2), (1, 4)),
+                  "recurrentgemma-9b": ((1, 2), (1, 4))}
+# decode steps of each of them: recurrentgemma's run past its 32-slot ring
+DECODE_STEPS = {"deepseek-v2-236b": 10, "mamba2-1.3b": 10,
+                "recurrentgemma-9b": 40}
 SERVE = dict(batch=4, prompt_len=8, gen=8, seed=3)
 PREFILL = dict(batch=4, seq=24, seed=9)
 QWEN_DECODE = dict(batch=4, n=12, seed=5)
@@ -211,14 +218,15 @@ JAX_REF = textwrap.dedent("""
     out["decode_qwen"] = decode("qwen3-4b", *{qwen_decode})
     sc = get_smoke("starcoder2-3b")
     out["decode_sc"] = decode("starcoder2-3b", 8, sc.window + 8, 3)
-    for arch in ("deepseek-v2-236b", "mamba2-1.3b"):
-        out["decode_" + arch] = decode(arch, 4, 10, 5)
+    for arch, n in {decode_steps}.items():
+        out["decode_" + arch] = decode(arch, 4, n, 5)
     with open(sys.argv[1], "wb") as f:
         pickle.dump(out, f)
     print("JAX_REF_OK", flush=True)
 """).format(steps=STEPS, seq=SEQ, alpha=ALPHA, cases=TRAIN_CASES,
             prefill=tuple(PREFILL.values()),
-            qwen_decode=tuple(QWEN_DECODE.values()))
+            qwen_decode=tuple(QWEN_DECODE.values()),
+            decode_steps=DECODE_STEPS)
 
 
 @pytest.fixture(scope="module")
@@ -247,7 +255,8 @@ def _train_jobs(ref, name):
 
 
 def _mla_ssm_decode_jobs(ref, world):
-    """The MLA and SSD decode jobs on the meshes of `world` ranks."""
+    """The MLA, SSD and RG-LRU decode jobs on the meshes of `world`
+    ranks."""
     return [dict(name=f"decode_{arch}_{shape[1]}", kind="decode",
                  mesh=(shape, AXES), arch=arch,
                  params0=ref["decode_" + arch]["params0"],
@@ -485,6 +494,47 @@ def test_mla_and_ssd_decode_on_model_meshes(ranks2, ranks4, jax_ref, arch,
                err_msg=f"step {i}")
 
 
+@pytest.mark.parametrize("name", ["rg12", "rg14"])
+def test_rglru_hybrid_on_model_meshes_matches_jax(ranks2, ranks4, jax_ref,
+                                                  name):
+    """recurrentgemma-9b on (1, 2) and (1, 4): the RG-LRU mixer split on
+    W (the convolved x gathered for w_a / w_i, whose columns are split),
+    the local MQA attention with wk / wv split on d (KV 1 < M); against
+    the reference on the same mesh, the gathered trees bitwise across
+    ranks."""
+    world = TRAIN_CASES[name][0][1]
+    ranks = ranks2 if world == 2 else ranks4
+    _check_train(ranks, jax_ref, world, name, ("bev", True))
+    specs = ranks[f"{name}_bev_True.r0"]["meta"]["params_specs"]
+    assert specs["blocks"]["b0"]["mixer"] == {
+        "in_x": 2, "in_gate": 2, "conv_w": 2, "conv_b": 1, "w_a": 2,
+        "b_a": 1, "w_i": 2, "b_i": 1, "lam": 1, "out": 1}
+    assert specs["tail1"]["b0"]["mixer"]["w_a"] == 1
+    assert {k: specs["blocks"]["b2"]["attn"][k]
+            for k in ("wq", "wk", "wv", "wo")} == {"wq": 2, "wk": 1,
+                                                    "wv": 1, "wo": 1}
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_rglru_hybrid_decode_on_model_meshes(ranks2, ranks4, jax_ref, m):
+    """recurrentgemma-9b teacher-forced 40 steps on (1, M), past the
+    32-slot local ring, against the one-device JAX step: a rank's RG-LRU
+    state is its W / M channels ([L, B, 3, W / M] conv window), its local
+    ring the one KV head."""
+    arch = "recurrentgemma-9b"
+    ranks = ranks2 if m == 2 else ranks4
+    name = f"decode_{arch}_{m}"
+    assert_ranks_agree(ranks, name, m, skip=("model",))
+    got, want = ranks[f"{name}.r0"], jax_ref["decode_" + arch]["logits"]
+    cfg = get_smoke(arch)
+    assert got["cache_shape"] == (1, 4, 3, cfg.rglru_width // m)
+    assert len(got["logits"]) == DECODE_STEPS[arch]
+    for i, (g, w) in enumerate(zip(got["logits"], want)):
+        _close(g, w, rtol=DECODE_RTOL,
+               atol=DECODE_RTOL * float(np.abs(want).max()),
+               err_msg=f"step {i}")
+
+
 def test_prefill_and_decode_on_the_fallback_layout(ranks4, jax_ref):
     """The smoke qwen3-4b on (1, 4): prefill against the reference's (1, 4)
     prefill; decode from rank-local caches of one KV head against the
@@ -581,7 +631,9 @@ def test_param_specs_equal_the_reference(m, full):
     the whole latent, which the reference splits (kv_lora or the
     sequence); an SSD rank the ssm state of its heads, the dim the
     reference splits, and the conv window of its x channels plus B and C,
-    where the reference splits the channels evenly (`models/ssm.py`)."""
+    where the reference splits the channels evenly (`models/ssm.py`); an
+    RG-LRU rank its W / M channels of the conv window and of h, the dim
+    the reference splits, beside its local attention's KV caches."""
     for arch in ARCH_IDS:
         cfg = get_config(arch) if full else get_smoke(arch)
         jcfg = dataclasses.replace(
@@ -608,6 +660,19 @@ def test_param_specs_equal_the_reference(m, full):
                                            model_parallel=m))
         jdims = _model_dims(jcache_specs(jcaches, jcfg, mesh, 4))
         assert len(whole) == len(local) == len(jdims), (arch, m)
+        if "rglru" in cfg.block_pattern:
+            # the RG-LRU state [.., B, 3, W] / [.., B, W] splits W; the
+            # rest are the local attention's KV caches
+            paths = tree_paths(TT.init_caches(cfg, 4, 64, device="meta"))
+            keep = []
+            for p, f, loc, d in zip(paths, whole, local, jdims):
+                if p.endswith("/conv") or p.endswith("/h"):
+                    assert d == f.dim() - 1, (arch, m, p)
+                    assert loc.shape[-1] == f.shape[-1] // m, (arch, m, p)
+                    assert loc.shape[:-1] == f.shape[:-1], (arch, m, p)
+                else:
+                    keep.append((f, loc, d))
+            whole, local, jdims = zip(*keep)
         if cfg.mla is not None:
             for f, loc, d in zip(whole, local, jdims):
                 assert loc.shape == f.shape and d is not None, (arch, m)
