@@ -16,6 +16,8 @@
     python3 chip_smoke.py --mla-ssm   # phases 1-2 and 26 alone
     python3 chip_smoke.py --hybrid    # phases 1-2, phase 3's decode rows
                                       # and phase 27 alone
+    python3 chip_smoke.py --frontends # phases 1-2, phase 3's decode rows
+                                      # and phase 28 alone
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -59,7 +61,10 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               MHA, dh 32/64, f32, pos = 0 and mid-cache; at dh 256 the
               hybrid's serve [8, 64, H16, KV1] and long_500k ring
               [1, 2048, H16, KV1] in bf16 and f32, and a rank's heads on
-              (1, 2), [8, 64, H8, KV1]), with times: kernel, plain, one
+              (1, 2), [8, 64, H8, KV1]; the frontends' seamless decode
+              [8, 64, H16, KV16, 64] and its cross-attention [8, 512,
+              H16, KV16, 64] at pos 511, llava's long_500k ring [1, 4096,
+              H32, KV8, 128]), with times: kernel, plain, one
               library call, and
               the bound (bytes over 3.35 TB/s vs f32 operations over
               67 TFLOP/s, the larger) and bound / time.  The sorts must
@@ -239,7 +244,12 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               cut to 3 layers on (1, 2), in f32 (logits at rtol 1e-4,
               the gradient within 1e-3 relative a leaf) and in bf16
               (phase 15's bounds, 1e-1), its decode kernel counted at a
-              rank's [8, 64, H8, KV1, 256].  Times labelled "N ranks,
+              rank's [8, 64, H8, KV1, 256]; llava-next-mistral-7b at 2
+              layers and seamless-m4t-large-v2 at 2 + 2, f32, on (1, 2)
+              (their full-sequence logits and the gradient of the
+              step's loss, a prefix of 64 positions or 64 frames a row,
+              within 1e-4 of one rank) and seamless's train step on
+              (2, 1), the replicas bitwise.  Times labelled "N ranks,
               gloo, one card".
   26. mla_ssm MLA and the SSD block, no kernel of the port (all counts 0):
               deepseek-v2-236b at full width (d 5120, 128 heads, q_lora
@@ -287,11 +297,31 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               15's bounds (and against the native fill at the
               reference's bounds, reported), the bytes at rest against
               native, ms a step and the dequantization's ms apart.
-  28. the `kernels` line (with launches and times by shape where a
+  28. frontends llava-next-mistral-7b (the projected image prefix; 32
+              layers, 14.5 GB in bf16) and seamless-m4t-large-v2 (the
+              encoder-decoder, 12 + 12 layers): (a) llava served as
+              phase 14 serves qwen3-4b (its text tokens; counted: the
+              kernel at [8, 64, H32, KV8, 128]), eager and graph ms a
+              step, launches a step, peak, its routes at phase 15's
+              bounds at full depth; (b) its long_500k on the 4096-slot
+              rings as phase 24 runs an arch; (c) at 4 layers the train
+              step and prefill at train_4k's layout cut to batch 2 (2880
+              prefix positions of 1024 features and 1216 text tokens);
+              (d) seamless at full depth: 512 frames encoded into the
+              cross K / V, 32 + 32 greedy decode steps at batch 8
+              (counted: the kernel for the self-attention at [8, 64,
+              H16, KV16, 64] and the cross-attention at [8, 512, H16,
+              KV16, 64] in every decoder layer), eager and graph ms,
+              launches a step, the routes at phase 15's bounds, the
+              train step (8 x 512 frames x 513 tokens, the chunked CE
+              over 256 256 columns) and prefill; (e) its f32 cut at 2 +
+              2 layers, the decode against `decode_full` at rtol 1e-4
+              of the largest |logit|.
+  29. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 29. the last line, {"ok": true,
+      a rank's too, must have one); 30. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -399,6 +429,23 @@ RG_ARCH, RG_CUT_LAYERS, RG_TRAIN_LAYERS, TP_RG_LAYERS = (
     "recurrentgemma-9b", 3, 5, 3)
 RG_WRAP_BATCH, RG_WRAP_SEQ = 1, 3072
 KV_INT8_MAX_REL, KV_INT8_AGREE = 0.05, 0.9
+# The frontends phase (28): llava-next-mistral-7b at full width and depth
+# (served as phase 14 serves qwen3-4b; long_500k on its native 4096-slot
+# rings as phase 24 runs it), cut to FRONT_CUT_LAYERS of its 32 layers for
+# the train step and prefill at train_4k's layout cut in batch to
+# FRONT_TRAIN_BATCH rows (its 2880 prefix positions and 1216 text tokens:
+# S = FRONT_TRAIN_SEQ); seamless-m4t-large-v2 at full width and depth:
+# AUDIO_FRAMES frames encoded, SERVE_PROMPT + SERVE_GEN decode steps at
+# batch SERVE_BATCH, the train step at SERVE_BATCH x AUDIO_FRAMES frames
+# and AUDIO_FRAMES + 1 tokens, the prefill at the same layout, and in f32
+# at AUDIO_CUT + AUDIO_CUT layers its decode against `decode_full`.
+# FRONT_TP_N: the prefix positions (or frames) of the rank phases' batches
+# (phase 25 (f): llava at FRONT_TP_LAYERS, seamless at AUDIO_CUT +
+# AUDIO_CUT, f32, on (1, 2) against one rank within FRONT_TP_RTOL)
+VLM_ARCH, AUDIO_ARCH = "llava-next-mistral-7b", "seamless-m4t-large-v2"
+FRONT_CUT_LAYERS, FRONT_TRAIN_BATCH, FRONT_TRAIN_SEQ = 4, 2, 4096
+AUDIO_FRAMES, AUDIO_CUT = 512, 2
+FRONT_TP_N, FRONT_TP_LAYERS, FRONT_TP_RTOL = 64, 2, 1e-4
 T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
@@ -954,7 +1001,15 @@ def decode_cases(torch, ops):
             (1, 2048, 16, 1, 256, bf16, LONG500_POS, True),
             (SERVE_BATCH, 64, 16, 1, 256, f32, 63, False),
             (1, 2048, 16, 1, 256, f32, LONG500_POS, False),
-            (SERVE_BATCH, 64, 8, 1, 256, bf16, 63, True)]:
+            (SERVE_BATCH, 64, 8, 1, 256, bf16, 63, True),
+            # the frontends (phase 28): seamless-m4t-large-v2's decode
+            # self-attention and its cross-attention over AUDIO_FRAMES
+            # encoder positions (dh 64, G = 1), llava-next-mistral-7b's
+            # 4096-slot long_500k ring
+            (SERVE_BATCH, 64, 16, 16, 64, bf16, 63, True),
+            (SERVE_BATCH, AUDIO_FRAMES, 16, 16, 64, bf16, AUDIO_FRAMES - 1,
+             True),
+            (1, 4096, 32, 8, 128, bf16, LONG500_POS, True)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=dt)
                    for shape in [(b, h, dh), (b, s, kv, dh), (b, s, kv, dh)])
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
@@ -1872,19 +1927,17 @@ def tp_train(torch, cfg, mesh, coll, tape=None):
     Each step's collectives' ms (`timed_collectives`) in its log entry."""
     import contextlib
     from repro_torch.core.power_control import Policy
-    from repro_torch.data import sample_tokens
     from repro_torch.launch import steps as ST
     from repro_torch.models import moe as MOE
     from repro_torch.tree import tree_leaves
-    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    shape = dict(global_batch=TRAIN_BATCH, seq_len=tp_seq(cfg), kind="train")
     step, meta = ST.make_train_step(cfg, mesh, shape, alpha=TRAIN_ALPHA,
                                     policy=Policy.BEV)
     params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
                            "cuda", mesh=mesh)
     before = bit_checksums(torch, tree_leaves(params))
-    tokens = [torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
-                                            cfg.vocab_size, seed=t),
-                              device="cuda") for t in range(LM_MODEL_STEPS)]
+    batches = [lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, t, FRONT_TP_N)
+               for t in range(LM_MODEL_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1893,7 +1946,7 @@ def tp_train(torch, cfg, mesh, coll, tape=None):
         for t in range(LM_MODEL_STEPS):
             torch.cuda.synchronize()
             t0, c0 = time.perf_counter(), coll[0]
-            params, state, m = step(params, state, {"tokens": tokens[t]}, t)
+            params, state, m = step(params, state, batches[t], t)
             torch.cuda.synchronize()
             log.append({"ms": (time.perf_counter() - t0) * 1e3,
                         "collective_ms": coll[0] - c0,
@@ -1910,28 +1963,30 @@ def tp_tape_sums(torch, tape):
     return bit_checksums(torch, [x.to(torch.int32) for x in tape.recorded])
 
 
+def tp_seq(cfg) -> int:
+    """The train steps' input-shape length of the rank phases: TRAIN_SEQ
+    text positions, after a VLM's FRONT_TP_N prefix positions."""
+    return TRAIN_SEQ + (FRONT_TP_N if cfg.arch_type == "vlm" else 0)
+
+
 def tp_grads(torch, cfg, mesh, tape):
     """The gradient of the train step's loss at U = 1 and unit weight (the
     mean per-sequence CE plus the MoE aux term) on step 0's batch, from
     cfg's weights (`lm_params`'s; this rank's shards on a model mesh),
     under `tape`'s routing: a list of leaves (this rank's shards)."""
-    from repro_torch.data import sample_tokens
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import model_axis
     from repro_torch.models import moe as MOE
-    from repro_torch.models import transformer as LM
     from repro_torch.models.common import tensor_parallel
     from repro_torch.tree import tree_flatten, tree_unflatten
     params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
                            "cuda", mesh=mesh)
     leaves, treedef = tree_flatten(params)
     xs = [x.requires_grad_(True) for x in leaves]
-    tokens = torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
-                                           cfg.vocab_size, seed=0),
-                             device="cuda")
+    batch = lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, FRONT_TP_N)
     with MOE.routing(tape), tensor_parallel(model_axis(mesh)):
-        per_ex, aux = LM.lm_per_example_loss(
-            tree_unflatten(treedef, xs), {"tokens": tokens}, cfg)
+        per_ex, aux = ST.per_example_loss(tree_unflatten(treedef, xs),
+                                          batch, cfg)
         loss = per_ex.float().mean()
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_coef * aux
@@ -2046,6 +2101,50 @@ def rank0_parity(torch, cfg, res, stape):
     return parity, ok
 
 
+def front_cuts(torch) -> tuple:
+    """The frontends' f32 cuts of the rank phases (phase 25 (f)):
+    llava-next-mistral-7b at FRONT_TP_LAYERS, seamless-m4t-large-v2 at
+    AUDIO_CUT + AUDIO_CUT layers, full width."""
+    from repro_torch.configs import get_config
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    return (dataclasses.replace(vlm, n_layers=FRONT_TP_LAYERS,
+                                dtype=torch.float32),
+            dataclasses.replace(audio, dtype=torch.float32, encdec=(
+                dataclasses.replace(audio.encdec, n_enc_layers=AUDIO_CUT,
+                                    n_dec_layers=AUDIO_CUT))))
+
+
+def front_depth(cfg):
+    """cfg's layers: n_layers, or an encoder-decoder's [encoder, decoder]
+    layers."""
+    if cfg.encdec is None:
+        return cfg.n_layers
+    return [cfg.encdec.n_enc_layers, cfg.encdec.n_dec_layers]
+
+
+def front_logits(torch, cfg, mesh):
+    """cfg's full-sequence logits [B, S, Vp] on step 0's batch of the rank
+    phases (`lm_batch`: FRONT_TP_N prefix positions or frames), from its
+    weights (this rank's shards on a model mesh, the logits' vocab shards
+    gathered): a VLM's forward after its projected prefix, an
+    encoder-decoder's `decode_full` over its encoded frames."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import model_axis
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as LM
+    from repro_torch.models.common import tensor_parallel
+    params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                           "cuda", mesh=mesh)
+    batch = lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, FRONT_TP_N)
+    tokens = batch["tokens"][:, :-1]
+    with torch.no_grad(), tensor_parallel(model_axis(mesh)):
+        if cfg.arch_type == "audio":
+            return ED.decode_full(params, tokens, ED.encode(
+                params, batch["frames"], cfg), cfg)
+        return LM.forward(params, tokens, cfg,
+                          embeds_prefix=batch["embeds_prefix"])[0]
+
+
 def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
     """Phase 25's part of a `--ranks-child` (WORLD ranks on cuda:0, gloo;
     `coll` the collectives' ms, `timed_collectives`).  WORLD = 2, on
@@ -2061,7 +2160,12 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
     (SSD) at TP_SSD_LAYERS, served (counted: no kernel) and
     differentiated, against one rank the same way, and recurrentgemma-9b
     at TP_RG_LAYERS in f32 and in bf16 (part "hybrid": the kernel in its
-    local-attention layer, counted by shape).  WORLD = 4: (e) the
+    local-attention layer, counted by shape); then the frontends in f32
+    (`front_cuts`: llava-next-mistral-7b at FRONT_TP_LAYERS, seamless at
+    AUDIO_CUT + AUDIO_CUT), their full-sequence logits (`front_logits`)
+    and gradients against one rank within FRONT_TP_RTOL (part
+    "frontend"), and seamless's train step on (2, 1), the replicas
+    bitwise (part "frontend_workers").  WORLD = 4: (e) the
     starcoder2-3b serve at TP_SC_LAYERS on (1, 4), counted (rank 0 saves
     OUT/serve_e.pt); (c) the 2-layer f32 cut on (2, 2), then rank 0 its
     one-process twin (`WorkerAxes.every(2)`).  Replicated leaves and
@@ -2289,6 +2393,76 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
             dist.barrier()
             del res
             torch.cuda.empty_cache()
+        # (f) the frontends in f32: llava at FRONT_TP_LAYERS and seamless
+        # at AUDIO_CUT + AUDIO_CUT on (1, 2), logits and gradients against
+        # one rank; seamless's train step on (2, 1), the replicas bitwise
+        for cfg in front_cuts(torch):
+            t0 = time.perf_counter()
+            gtape = MOE.RoutingTape()
+            grads = tp_grads(torch, cfg, mesh, gtape)
+            specs = param_specs(cfg, mesh.shape["model"])
+            replicated = [i for i, d in enumerate(tree_leaves(specs))
+                          if d is None]
+            grads_equal = ranks_agree(bit_checksums(torch, grads)[
+                replicated])
+            stats = one_rank_stats(torch, cfg, mesh, specs, grads, gtape,
+                                   coll)
+            del grads
+            torch.cuda.empty_cache()
+            logits = front_logits(torch, cfg, mesh)
+            equal = ranks_agree(bit_checksums(torch, [logits]))
+            parity = {}
+            if rank == 0:
+                one = front_logits(torch, cfg, None)
+                atol = FRONT_TP_RTOL * float(one.abs().max())
+                parity = {"max_abs_diff": float((logits - one).abs().max()),
+                          "logit_max": float(one.abs().max()),
+                          "rtol": FRONT_TP_RTOL, "atol": atol,
+                          "ok": bool(torch.allclose(logits, one,
+                                                    rtol=FRONT_TP_RTOL,
+                                                    atol=atol))}
+                del one
+            del logits
+            torch.cuda.empty_cache()
+            worst = max(stats["grads_rel_diff"].values())
+            if rank == 0:
+                ok = (parity["ok"] and equal and grads_equal
+                      and worst <= FRONT_TP_RTOL)
+                emit_part("frontend", arch=cfg.name, dtype="float32",
+                          layers=front_depth(cfg), mesh=dict(mesh.shape),
+                          batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          frontend_positions=FRONT_TP_N,
+                          logits_vs_one_rank=parity,
+                          ranks_logits_bitwise_equal=equal,
+                          replicated_grads_bitwise_equal=grads_equal,
+                          grads_rel_diff_max=worst, grads_tol=FRONT_TP_RTOL,
+                          **stats, seconds=time.perf_counter() - t0,
+                          rate_label=label, ok=ok)
+                if not ok:
+                    raise AssertionError(f"lm model frontends {cfg.name}: "
+                                         f"the mesh and one rank disagree")
+            dist.barrier()
+        cfg = front_cuts(torch)[1]
+        wmesh = make_debug_mesh((2, 1), axes)
+        before, params, log, meta, peak = tp_train(torch, cfg, wmesh, coll)
+        after = bit_checksums(torch, tree_leaves(params))
+        equal = ranks_agree(after)
+        moved = int((after != before).any(dim=1).sum())
+        del params
+        torch.cuda.empty_cache()
+        if rank == 0:
+            emit_part("frontend_workers", arch=cfg.name, dtype="float32",
+                      layers=front_depth(cfg), mesh=dict(wmesh.shape),
+                      workers=meta["num_workers"], batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, frames=FRONT_TP_N, steps=log,
+                      peak_memory_gb=peak, leaves_moved=moved,
+                      replicas_bitwise_equal=equal, rate_label=label)
+        if not (equal and moved and all(math.isfinite(x["loss"])
+                                        for x in log)):
+            raise AssertionError(f"lm model frontends on (2, 1): replicas "
+                                 f"equal {equal}, {moved} leaves moved, "
+                                 f"{log}")
+        dist.barrier()
     else:
         # (e) starcoder2-3b served on (1, 4): wk / wv split d
         sc = dataclasses.replace(get_config(TP_SC_ARCH),
@@ -2363,7 +2537,8 @@ def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
         parts = [x["part"] for x in lines[world][0]
                  if x["phase"] == "lm_model_child"]
         want = (["serve", "train", "moe", "moe_one_rank", "mla_ssm",
-                 "mla_ssm", "hybrid", "mla_ssm", "hybrid", "mla_ssm"]
+                 "mla_ssm", "hybrid", "mla_ssm", "hybrid", "mla_ssm",
+                 "frontend", "frontend", "frontend_workers"]
                 if world == 2 else ["sc_serve", "f32_cut"])
         if parts != want:
             raise AssertionError(f"lm model: rank 0 of {world} reported "
@@ -2923,10 +3098,19 @@ def train_phase(torch, ops, lm, params) -> None:
 
 def weight_bytes(params) -> int:
     """Bytes a decode step reads of the weights: every leaf but the
-    embedding table, of which it gathers a few rows."""
+    embedding table, of which it gathers a few rows, and the leaves only
+    the full sequence reads (a VLM's projector; an encoder-decoder's
+    encoder and its cross-attention's wk / wv, whose K / V a decode step
+    takes precomputed)."""
     from repro_torch.tree import tree_leaves
+    skip = [params["embed"], *tree_leaves(params.get("projector", {}))]
+    if "dec_blocks" in params:
+        cross = params["dec_blocks"]["cross_attn"]
+        skip += [params["enc_in"], params["enc_norm"], cross["wk"],
+                 cross["wv"], *tree_leaves(params["enc_blocks"])]
+    ids = {id(x) for x in skip}
     return sum(x.numel() * x.element_size() for x in tree_leaves(params)
-               if x is not params["embed"])
+               if id(x) not in ids)
 
 
 def attn_layers(cfg) -> int:
@@ -2971,28 +3155,51 @@ def zoo_parity(torch, ops, cfg, params, seq) -> dict:
     return parity
 
 
-def lm_train_prefill(torch, ops, cfg) -> dict:
+def lm_batch(torch, cfg, b, seq, seed, n_front=0) -> dict:
+    """A batch of cfg on the card: tokens [b, seq + 1] of the Markov stream
+    of `seed`, and a VLM's `embeds_prefix` of n_front positions or an
+    encoder-decoder's `frames` of n_front positions, standard normal from
+    `seed`, in bf16 (`steps.batch_shapes`' dtype)."""
+    from repro_torch.data import sample_tokens
+    out = {"tokens": torch.as_tensor(sample_tokens(b, seq + 1,
+                                                   cfg.vocab_size, seed=seed),
+                                     device="cuda")}
+    if cfg.arch_type in ("vlm", "audio"):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        name = "embeds_prefix" if cfg.arch_type == "vlm" else "frames"
+        out[name] = torch.randn((b, n_front, cfg.frontend.feature_dim),
+                                generator=gen, device="cuda").bfloat16()
+    return out
+
+
+def lm_train_prefill(torch, ops, cfg, batches=None) -> dict:
     """The FLOA train step (two BEV steps at phase 20's batch and length:
     U = 1, an MoE model's aux term in the weighted loss) and the prefill
     (phase 20's 8 x 512, on the trained weights) of cfg, from its own
-    random weights; neither launches a kernel of the port.  Nothing holds
-    the drawn weights past the first step (their checksums tell the
+    random weights; neither launches a kernel of the port.  `batches`
+    replaces phase 20's: (two train batches, their input shape's seq_len,
+    the prefill batch, its seq_len), for the frontends' layouts.  Nothing
+    holds the drawn weights past the first step (their checksums tell the
     leaves that moved), so the peak is one step's: its input, gradients,
     output and one leaf's noise."""
     from repro_torch.data import sample_tokens
     from repro_torch.launch.steps import (init_floa_state, make_prefill_step,
-                                          make_train_step)
-    from repro_torch.models import transformer as LM
+                                          make_train_step, per_example_loss)
     from repro_torch.tree import tree_leaves
+    if batches is None:
+        batches = ([lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, t)
+                    for t in range(2)], TRAIN_SEQ,
+                   {"tokens": torch.as_tensor(sample_tokens(
+                       PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size, seed=7),
+                       device="cuda")}, PREFILL_SEQ)
+    train_batches, seq_len, prefill_batch, prefill_seq = batches
+    b = train_batches[0]["tokens"].shape[0]
     params = lm_params(torch, cfg)
     before = bit_checksums(torch, tree_leaves(params))
-    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    shape = dict(global_batch=b, seq_len=seq_len, kind="train")
     step, meta = make_train_step(cfg, None, shape, alpha=TRAIN_ALPHA)
-    tokens = [torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
-                                            cfg.vocab_size, seed=t),
-                              device="cuda") for t in range(2)]
     with torch.no_grad():
-        _, aux = LM.lm_per_example_loss(params, {"tokens": tokens[0]}, cfg)
+        _, aux = per_example_loss(params, train_batches[0], cfg)
     held = [params]
     del params
     torch.cuda.synchronize()
@@ -3003,7 +3210,7 @@ def lm_train_prefill(torch, ops, cfg) -> dict:
         for t in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p, state, m = step(p, state, {"tokens": tokens[t]}, t)
+            p, state, m = step(p, state, train_batches[t], t)
             torch.cuda.synchronize()
             log.append({"ms": (time.perf_counter() - t0) * 1e3,
                         "loss": float(m["loss"]),
@@ -3021,29 +3228,31 @@ def lm_train_prefill(torch, ops, cfg) -> dict:
                              f"moved, aux {float(aux)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    pb, ps = prefill_batch["tokens"].shape
     pf, _ = make_prefill_step(cfg, None, dict(
-        global_batch=PREFILL_BATCH, seq_len=PREFILL_SEQ, kind="prefill"))
-    batch = {"tokens": torch.as_tensor(sample_tokens(
-        PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size, seed=7), device="cuda")}
+        global_batch=pb, seq_len=prefill_seq, kind="prefill"))
     logits, _, pcounts = run_phase(torch, ops, "lm_prefill",
-                                   lambda: pf(params, batch),
+                                   lambda: pf(params, prefill_batch),
                                    {k: 0 for k in ops.KERNELS})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = pf(params, batch)
+    logits = pf(params, prefill_batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    if (tuple(logits.shape) != (PREFILL_BATCH, cfg.padded_vocab)
+    if (tuple(logits.shape) != (pb, cfg.padded_vocab)
             or not torch.isfinite(logits).all()):
         raise AssertionError(f"{cfg.name} prefill: logits "
                              f"{tuple(logits.shape)}")
+    front = {k: list(v.shape) for k, v in train_batches[0].items()
+             if k != "tokens"}
     return {"layers": cfg.n_layers, "params": meta["dim"],
-            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": log,
-            "warm_step_ms": log[-1]["ms"], "aux_loss": float(aux),
-            "leaves_moved": moved, "leaves": len(before),
-            "peak_memory_gb": train_peak, "launches": counts, "prefill": {
-                "batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
-                "ms": prefill_ms, "launches": pcounts,
+            "batch": b, "seq": train_batches[0]["tokens"].shape[1] - 1,
+            **({"frontend_inputs": front} if front else {}),
+            "steps": log, "warm_step_ms": log[-1]["ms"],
+            "aux_loss": float(aux), "leaves_moved": moved,
+            "leaves": len(before), "peak_memory_gb": train_peak,
+            "launches": counts, "prefill": {
+                "batch": pb, "seq": ps, "ms": prefill_ms, "launches": pcounts,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}}
 
 
@@ -3233,6 +3442,13 @@ def long500_phase(torch, ops, tally) -> None:
     |diff| of about 0.03 and a max of about 0.2 from the kernel route over
     30-36 layers (measured on an H100 80GB HBM3 at 700 W), from the
     residual stream's bf16 rounding alone."""
+    for arch in LONG500_ARCHS:
+        long500_arch(torch, ops, tally, arch)
+
+
+def long500_arch(torch, ops, tally, arch) -> None:
+    """Phase 24's run of one arch (`long500_phase`); phase 28 runs it for
+    llava-next-mistral-7b's 4096-slot rings."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.data import sample_tokens
     from repro_torch.launch.steps import decode_window
@@ -3240,97 +3456,96 @@ def long500_phase(torch, ops, tally) -> None:
     from repro_torch.tree import tree_map
     shape = INPUT_SHAPES["long_500k"]
     b, first = shape["global_batch"], LONG500_POS - LONG_STEPS + 1
-    for arch in LONG500_ARCHS:
-        cfg = get_config(arch)
-        window = decode_window(cfg, "long_500k")
-        slots = min(shape["seq_len"], window)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        params = lm_params(torch, cfg)
-        caches = LM.init_caches(cfg, b, shape["seq_len"], window=window,
-                                device="cuda")
-        fill_caches(torch, caches, 1)
-        pristine = tree_map(lambda x: x.clone(), caches)
-        tokens = torch.as_tensor(sample_tokens(b, LONG_STEPS, cfg.vocab_size,
-                                               seed=2), device="cuda")
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(LONG_STEPS + 1)]
-        lk, seconds, counts = run_phase(
-            torch, ops, f"long_500k {arch}",
-            lambda: ring_run(torch, cfg, params, caches, tokens, first,
-                             events=events),
-            {**{k: 0 for k in ops.KERNELS},
-             "decode_attention": cfg.n_layers * LONG_STEPS})
-        tally(counts)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if not torch.isfinite(lk).all():
-            raise AssertionError(f"long_500k {arch}: non-finite logits")
-        step_ms = [events[i].elapsed_time(events[i + 1])
-                   for i in range(LONG_STEPS)]
-        from repro_torch.launch.steps import make_decode_step
-        step, _ = make_decode_step(cfg, "long_500k")
-        last = torch.tensor(LONG500_POS, dtype=torch.int32, device="cuda")
-        graph_ms = time_ms(torch, lambda: step(params, caches,
-                                               tokens[:, -1:], last), 1)
-        del caches
-        ref_caches = tree_map(lambda x: x.clone(), pristine)
-        lp = ring_run(torch, cfg, params, pristine, tokens, first,
+    cfg = get_config(arch)
+    window = decode_window(cfg, "long_500k")
+    slots = min(shape["seq_len"], window)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_params(torch, cfg)
+    caches = LM.init_caches(cfg, b, shape["seq_len"], window=window,
+                            device="cuda")
+    fill_caches(torch, caches, 1)
+    pristine = tree_map(lambda x: x.clone(), caches)
+    tokens = torch.as_tensor(sample_tokens(b, LONG_STEPS, cfg.vocab_size,
+                                           seed=2), device="cuda")
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(LONG_STEPS + 1)]
+    lk, seconds, counts = run_phase(
+        torch, ops, f"long_500k {arch}",
+        lambda: ring_run(torch, cfg, params, caches, tokens, first,
+                         events=events),
+        {**{k: 0 for k in ops.KERNELS},
+         "decode_attention": cfg.n_layers * LONG_STEPS})
+    tally(counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.isfinite(lk).all():
+        raise AssertionError(f"long_500k {arch}: non-finite logits")
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(LONG_STEPS)]
+    from repro_torch.launch.steps import make_decode_step
+    step, _ = make_decode_step(cfg, "long_500k")
+    last = torch.tensor(LONG500_POS, dtype=torch.int32, device="cuda")
+    graph_ms = time_ms(torch, lambda: step(params, caches,
+                                           tokens[:, -1:], last), 1)
+    del caches
+    ref_caches = tree_map(lambda x: x.clone(), pristine)
+    lp = ring_run(torch, cfg, params, pristine, tokens, first,
+                  plain=True)
+    with f32_attention(ops):
+        lf = ring_run(torch, cfg, params, ref_caches, tokens, first,
                       plain=True)
-        with f32_attention(ops):
-            lf = ring_run(torch, cfg, params, ref_caches, tokens, first,
-                          plain=True)
-        parity, _ = logit_parity(torch, lk, lp, cfg.vocab_size)
-        to_ref = {name: {"max_abs_diff": float((a.float() - lf.float())
-                                               .abs().max()),
-                         "mean_abs_diff": float((a.float() - lf.float())
-                                                .abs().mean())}
-                  for name, a in (("kernel", lk), ("plain", lp))}
-        ok = parity["clear_agree"] and all(
-            to_ref["kernel"][k] <= to_ref["plain"][k]
-            for k in to_ref["kernel"])
-        parity["to_f32_attention"] = to_ref
-        del ref_caches, lf
-        cache_bytes = (2 * cfg.n_layers * b * slots * cfg.n_kv_heads
-                       * cfg.hd * 2)
-        wb = weight_bytes(params)
-        del pristine, lk, lp, params
-        torch.cuda.empty_cache()
-        # f32, 2 layers, across the ring's second wrap
-        cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
-        params32 = lm_params(torch, cfg32)
-        c32 = LM.init_caches(cfg32, b, shape["seq_len"], window=window,
-                             device="cuda")
-        fill_caches(torch, c32, 3)
-        c32p = tree_map(lambda x: x.clone(), c32)
-        ops.reset_launches()
-        wrap = 2 * slots - LONG_STEPS // 2
-        fk = ring_run(torch, cfg32, params32, c32, tokens, wrap)
-        fp = ring_run(torch, cfg32, params32, c32p, tokens, wrap, plain=True)
-        f32_counts = ops.launch_counts()
-        tally(f32_counts)
-        f32_ok = bool(torch.allclose(fk, fp, rtol=RTOL_WHOLE_RUN, atol=1e-5))
-        emit("long_500k", arch=arch, dtype="bfloat16", layers=cfg.n_layers,
-             batch=b, window=window, slots=slots, positions=[first,
-                                                             LONG500_POS],
-             steps=LONG_STEPS, step_ms=step_ms,
-             ms_per_step=sum(step_ms[1:]) / (LONG_STEPS - 1),
-             graph_ms=graph_ms,
-             bound_ms=(cache_bytes + wb) / HBM_BYTES_PER_S * 1e3,
-             cache_gb=cache_bytes / 1e9, weights_read_gb=wb / 1e9,
-             run_seconds=seconds, peak_memory_gb=peak_gb, launches=counts,
-             parity_bf16={**parity, "ok": ok},
-             f32_wrap={"layers": 2, "positions": [wrap, wrap + LONG_STEPS
-                                                  - 1],
-                       "wrap_at": 2 * slots, "ok": f32_ok,
-                       "rtol": RTOL_WHOLE_RUN, "atol": 1e-5,
-                       "max_abs_diff": max_errors(torch, fk, fp)[0],
-                       "max_rel_diff": max_errors(torch, fk, fp)[1],
-                       "launches": f32_counts})
-        if not (ok and f32_ok):
-            raise AssertionError(f"long_500k {arch}: kernel route and plain "
-                                 f"route disagree")
-        del params32, c32, c32p, fk, fp
-        torch.cuda.empty_cache()
+    parity, _ = logit_parity(torch, lk, lp, cfg.vocab_size)
+    to_ref = {name: {"max_abs_diff": float((a.float() - lf.float())
+                                           .abs().max()),
+                     "mean_abs_diff": float((a.float() - lf.float())
+                                            .abs().mean())}
+              for name, a in (("kernel", lk), ("plain", lp))}
+    ok = parity["clear_agree"] and all(
+        to_ref["kernel"][k] <= to_ref["plain"][k]
+        for k in to_ref["kernel"])
+    parity["to_f32_attention"] = to_ref
+    del ref_caches, lf
+    cache_bytes = (2 * cfg.n_layers * b * slots * cfg.n_kv_heads
+                   * cfg.hd * 2)
+    wb = weight_bytes(params)
+    del pristine, lk, lp, params
+    torch.cuda.empty_cache()
+    # f32, 2 layers, across the ring's second wrap
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params32 = lm_params(torch, cfg32)
+    c32 = LM.init_caches(cfg32, b, shape["seq_len"], window=window,
+                         device="cuda")
+    fill_caches(torch, c32, 3)
+    c32p = tree_map(lambda x: x.clone(), c32)
+    ops.reset_launches()
+    wrap = 2 * slots - LONG_STEPS // 2
+    fk = ring_run(torch, cfg32, params32, c32, tokens, wrap)
+    fp = ring_run(torch, cfg32, params32, c32p, tokens, wrap, plain=True)
+    f32_counts = ops.launch_counts()
+    tally(f32_counts)
+    f32_ok = bool(torch.allclose(fk, fp, rtol=RTOL_WHOLE_RUN, atol=1e-5))
+    emit("long_500k", arch=arch, dtype="bfloat16", layers=cfg.n_layers,
+         batch=b, window=window, slots=slots, positions=[first,
+                                                         LONG500_POS],
+         steps=LONG_STEPS, step_ms=step_ms,
+         ms_per_step=sum(step_ms[1:]) / (LONG_STEPS - 1),
+         graph_ms=graph_ms,
+         bound_ms=(cache_bytes + wb) / HBM_BYTES_PER_S * 1e3,
+         cache_gb=cache_bytes / 1e9, weights_read_gb=wb / 1e9,
+         run_seconds=seconds, peak_memory_gb=peak_gb, launches=counts,
+         parity_bf16={**parity, "ok": ok},
+         f32_wrap={"layers": 2, "positions": [wrap, wrap + LONG_STEPS
+                                              - 1],
+                   "wrap_at": 2 * slots, "ok": f32_ok,
+                   "rtol": RTOL_WHOLE_RUN, "atol": 1e-5,
+                   "max_abs_diff": max_errors(torch, fk, fp)[0],
+                   "max_rel_diff": max_errors(torch, fk, fp)[1],
+                   "launches": f32_counts})
+    if not (ok and f32_ok):
+        raise AssertionError(f"long_500k {arch}: kernel route and plain "
+                             f"route disagree")
+    del params32, c32, c32p, fk, fp
+    torch.cuda.empty_cache()
 
 
 def events_ms(events) -> list:
@@ -3885,12 +4100,246 @@ def kv_int8_part(torch, ops, tally, lm) -> dict:
     return out
 
 
+def encdec_run(torch, cfg, params, cross, seq, plain=False):
+    """The encoder-decoder's decode steps (`steps.make_decode_step`)
+    teacher-forced through seq [B, n] from empty self-attention caches
+    against the cross K / V `cross`: logits [n, B, Vp]."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import encdec as ED
+    step, _ = make_decode_step(cfg, plain=plain)
+    b, n = seq.shape
+    caches = ED.init_dec_caches(cfg, b, n, device="cuda")
+    positions = torch.arange(n, dtype=torch.int32, device="cuda")
+    return torch.stack([step(params, caches, cross, seq[:, i:i + 1],
+                             positions[i])[0][:, 0] for i in range(n)])
+
+
+def encdec_serve(torch, cfg, params, cross, prompts, gen) -> dict:
+    """Greedy decoding of the encoder-decoder as `launch.serve.serve`
+    decodes a decoder-only model: the prompts [B, P] fed one position at a
+    time, then `gen` tokens, each the argmax of the last logits (the
+    first the prompt's), against the cross K / V `cross`, the tokens and
+    positions on the device: {tokens [B, gen], logits [P + gen, B, Vp],
+    prefill_s, decode_s}."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import encdec as ED
+    step, _ = make_decode_step(cfg)
+    b, p = prompts.shape
+    n = p + gen
+    caches = ED.init_dec_caches(cfg, b, n, device="cuda")
+    positions = torch.arange(n, dtype=torch.int32, device="cuda")
+    v, logits_all, out = cfg.vocab_size, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(p):
+        logits, _ = step(params, caches, cross, prompts[:, i:i + 1],
+                         positions[i])
+        logits_all.append(logits[:, 0])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = logits[:, 0, :v].argmax(dim=-1, keepdim=True)
+    t0 = time.perf_counter()
+    for i in range(p, n):
+        out.append(tok)
+        logits, _ = step(params, caches, cross, tok, positions[i])
+        logits_all.append(logits[:, 0])
+        tok = logits[:, 0, :v].argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    return {"tokens": torch.cat(out, dim=1), "logits": torch.stack(logits_all),
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0}
+
+
+def frontends_phase(torch, ops, tally) -> None:
+    """Phase 28: the frontends.  (a) llava-next-mistral-7b served at full
+    width and depth (`serve_cell`, counted: the kernel in all 32 layers;
+    the text tokens alone, as the reference serves it) and its routes
+    held against each other at full depth (`zoo_parity`); (b) its
+    long_500k on 4096-slot rings (`long500_arch`); (c) at
+    FRONT_CUT_LAYERS the train step and prefill at train_4k's layout cut
+    in batch (the projected 2880-position prefix and 1216 text tokens);
+    (d) seamless-m4t-large-v2 at full width and depth: AUDIO_FRAMES frames
+    encoded into the cross K / V (`steps.make_cross_kv_step`), then
+    greedy decoding (`encdec_serve`, counted: the kernel twice a decoder
+    layer a step, self and cross, by shape), its eager and graph ms a
+    step, launches a step, the routes against each other at phase 15's
+    bounds, the train step and prefill; (e) its f32 cut at AUDIO_CUT +
+    AUDIO_CUT layers, the decode against `decode_full` on the same tokens
+    at rtol 1e-4 of the largest |logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.steps import (make_cross_kv_step,
+                                          make_decode_step, param_count)
+    from repro_torch.models import encdec as ED
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in ops.KERNELS}
+    n_steps = SERVE_PROMPT + SERVE_GEN
+
+    # (a) llava at full width and depth, served
+    full = get_config(VLM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(torch, full)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rs, report = serve_cell(torch, ops, full, params, {
+        "decode_attention": full.n_layers * n_steps}, tally)
+    seq = torch.cat([rs.prompts, rs.tokens], dim=1)
+    parity = zoo_parity(torch, ops, full, params, seq)
+    emit("frontends_vlm_serve", **report, init_s=init_s, parity=parity)
+    if not parity["ok"]:
+        raise AssertionError("frontends: llava's kernel route and plain "
+                             "route disagree")
+    del params, rs, seq
+    torch.cuda.empty_cache()
+
+    # (b) llava's long_500k: its native 4096-slot rings
+    long500_arch(torch, ops, tally, VLM_ARCH)
+
+    # (c) llava at FRONT_CUT_LAYERS: train step and prefill at train_4k's
+    # layout, cut in batch
+    cut = dataclasses.replace(full, n_layers=FRONT_CUT_LAYERS)
+    pfx = full.frontend.n_prefix
+    text = FRONT_TRAIN_SEQ - pfx
+    train_b = [lm_batch(torch, cut, FRONT_TRAIN_BATCH, text, t, pfx)
+               for t in range(2)]
+    pre_b = lm_batch(torch, cut, FRONT_TRAIN_BATCH, text, 7, pfx)
+    pre_b["tokens"] = pre_b["tokens"][:, :-1]
+    emit("frontends_vlm_train", arch=cut.name, full_layers=full.n_layers,
+         **lm_train_prefill(torch, ops, cut, (train_b, FRONT_TRAIN_SEQ,
+                                              pre_b, FRONT_TRAIN_SEQ)))
+    del train_b, pre_b
+    torch.cuda.empty_cache()
+
+    # (d) seamless at full width and depth: encode, then greedy decoding
+    audio = get_config(AUDIO_ARCH)
+    layers = audio.encdec.n_dec_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(torch, audio)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = lm_batch(torch, audio, SERVE_BATCH, 0, 3, AUDIO_FRAMES)["frames"]
+    encode, _ = make_cross_kv_step(audio)
+    cross, encode_s, encode_counts = run_phase(
+        torch, ops, "frontends_audio_encode", lambda: encode(params, frames),
+        zero)
+    prompts = torch.as_tensor(sample_tokens(SERVE_BATCH, SERVE_PROMPT,
+                                            audio.vocab_size, seed=0),
+                              device="cuda")
+    res, seconds, counts = run_phase(
+        torch, ops, "frontends_audio_serve",
+        lambda: encdec_serve(torch, audio, params, cross, prompts,
+                             SERVE_GEN),
+        {**zero, "decode_attention": 2 * layers * n_steps})
+    tally(counts)
+    shapes = ops.launch_shapes()["decode_attention"]
+    heads = (audio.n_heads, audio.n_kv_heads, audio.hd)
+    want = {(SERVE_BATCH, n_steps) + heads: layers * n_steps,
+            (SERVE_BATCH, AUDIO_FRAMES) + heads: layers * n_steps}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if shapes != want or not torch.isfinite(res["logits"]).all():
+        raise AssertionError(f"frontends: seamless's decode launched "
+                             f"{shapes}, expected {want}, or its logits "
+                             f"are not finite")
+    steady = encdec_serve(torch, audio, params, cross, prompts, SERVE_GEN)
+    if not torch.equal(steady["tokens"], res["tokens"]):
+        raise AssertionError("frontends: two seamless decodes differ")
+    seq = torch.cat([prompts, res["tokens"]], dim=1)
+    step, _ = make_decode_step(audio)
+    caches = ED.init_dec_caches(audio, SERVE_BATCH, n_steps, device="cuda")
+    last = torch.tensor(n_steps - 1, dtype=torch.int32, device="cuda")
+    one = lambda: step(params, caches, cross, seq[:, -1:], last)  # noqa: E731
+    graph_ms = time_ms(torch, one, 1)
+    prof = profile_phase(torch, one)
+    del caches, one
+    ops.reset_launches()
+    lk = encdec_run(torch, audio, params, cross, seq)
+    lp = encdec_run(torch, audio, params, cross, seq, plain=True)
+    if ops.launch_counts()["decode_attention"] != 2 * layers * n_steps:
+        raise AssertionError(f"frontends parity: {ops.launch_counts()}")
+    parity, ok = logit_parity(torch, lk, lp, audio.vocab_size)
+    del lk, lp
+    wb = weight_bytes(params)
+    cross_bytes = sum(x.numel() * x.element_size() for x in cross)
+    cache_bytes = 2 * layers * SERVE_BATCH * n_steps * audio.n_kv_heads \
+        * audio.hd * 2
+    emit("frontends_audio_serve", arch=audio.name, dtype="bfloat16",
+         enc_layers=audio.encdec.n_enc_layers, dec_layers=layers,
+         params=param_count(audio), weights_gb=(wb + params["embed"].numel()
+                                                * 2) / 1e9,
+         init_s=init_s, frames=AUDIO_FRAMES, encode_seconds=encode_s,
+         encode_launches=encode_counts, cross_kv_gb=cross_bytes / 1e9,
+         batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+         run_seconds=seconds, prefill_s=steady["prefill_s"],
+         decode_s=steady["decode_s"],
+         eager_ms_per_step=steady["decode_s"] * 1e3 / SERVE_GEN,
+         graph_ms=graph_ms,
+         tok_per_s=SERVE_BATCH * SERVE_GEN / steady["decode_s"],
+         graph_tok_per_s=SERVE_BATCH / graph_ms * 1e3,
+         launches_per_step=prof["kernel_launches"],
+         device_busy_share_eager=prof["device_busy_share"], profile=prof,
+         bound_ms=(wb + cross_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+         peak_memory_gb=peak_gb, launches=counts,
+         decode_launches_by_kind={
+             "self": shapes[(SERVE_BATCH, n_steps) + heads],
+             "cross": shapes[(SERVE_BATCH, AUDIO_FRAMES) + heads]},
+         parity={**parity, "ok": ok},
+         tol={"max_abs": BF16_LOGIT_MAX, "mean_abs": BF16_LOGIT_MEAN},
+         sample_tokens=res["tokens"][0, :12].tolist())
+    if not ok:
+        raise AssertionError("frontends: seamless's kernel route and plain "
+                             "route disagree")
+    del params, cross, res, steady
+    torch.cuda.empty_cache()
+    train_b = [lm_batch(torch, audio, SERVE_BATCH, AUDIO_FRAMES, t,
+                        AUDIO_FRAMES) for t in range(2)]
+    pre_b = lm_batch(torch, audio, SERVE_BATCH, AUDIO_FRAMES, 7,
+                     AUDIO_FRAMES)
+    pre_b["tokens"] = pre_b["tokens"][:, :-1]
+    emit("frontends_audio_train", arch=audio.name, **lm_train_prefill(
+        torch, ops, audio, (train_b, AUDIO_FRAMES, pre_b, AUDIO_FRAMES)))
+    del train_b, pre_b
+    torch.cuda.empty_cache()
+
+    # (e) f32 at AUDIO_CUT + AUDIO_CUT layers: decode against decode_full
+    cut = dataclasses.replace(audio, dtype=torch.float32, encdec=(
+        dataclasses.replace(audio.encdec, n_enc_layers=AUDIO_CUT,
+                            n_dec_layers=AUDIO_CUT)))
+    params = lm_params(torch, cut)
+    cross = make_cross_kv_step(cut)[0](params, frames)
+    ops.reset_launches()
+    got = encdec_run(torch, cut, params, cross, seq)
+    f32_counts = ops.launch_counts()
+    tally(f32_counts)
+    with torch.no_grad():
+        want = ED.decode_full(params, seq, ED.encode(params, frames, cut),
+                              cut).transpose(0, 1)
+    atol = RTOL_WHOLE_RUN * float(want.abs().max())
+    err = (got - want).abs()
+    f32_ok = bool(torch.allclose(got, want, rtol=RTOL_WHOLE_RUN, atol=atol))
+    emit("frontends_audio_f32", arch=cut.name, dtype="float32",
+         enc_layers=AUDIO_CUT, dec_layers=AUDIO_CUT, batch=SERVE_BATCH,
+         steps=n_steps, frames=AUDIO_FRAMES, rtol=RTOL_WHOLE_RUN, atol=atol,
+         max_abs_diff=float(err.max()),
+         max_excess=float((err - RTOL_WHOLE_RUN * want.abs()).max()),
+         logit_max=float(want.abs().max()), launches=f32_counts, ok=f32_ok)
+    if not f32_ok:
+        raise AssertionError("frontends: seamless's f32 decode and "
+                             "decode_full disagree")
+    del params, cross, got, want, err, frames
+    torch.cuda.empty_cache()
+    emit("frontends", seconds=time.perf_counter() - t_phase)
+
+
 def decode_shapes(lm) -> dict:
     """decode_attention's main-path launches by (B, S, H, KV, dh): the
     serve (phase 14) and long-cache (16) runs of lm, the zoo's serves
     (23) and long_500k's bf16 runs and f32 wrap runs (24), the hybrid's
-    serve and long_500k run (27 (a), (b)), and lm's int8 serve and long
-    cache (27 (e))."""
+    serve and long_500k run (27 (a), (b)), lm's int8 serve and long
+    cache (27 (e)), and the frontends' (28): llava's serve and long_500k
+    run, seamless's self- and cross-attention in its bf16 serve and its
+    f32 cut (`frontends_phase`)."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch.steps import decode_window
     n_steps = SERVE_PROMPT + SERVE_GEN
@@ -3917,6 +4366,13 @@ def decode_shapes(lm) -> dict:
         attn_layers(rg) * LONG_STEPS)
     add(lm, SERVE_BATCH, n_steps, lm.n_layers * n_steps)
     add(lm, LONG_BATCH, LONG_S, lm.n_layers * LONG_STEPS)
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    add(vlm, SERVE_BATCH, n_steps, vlm.n_layers * n_steps)
+    add(vlm, long500["global_batch"], decode_window(vlm, "long_500k"),
+        (vlm.n_layers + 2) * LONG_STEPS)
+    for s in (n_steps, AUDIO_FRAMES):   # self- and cross-attention
+        add(audio, SERVE_BATCH, s,
+            (audio.encdec.n_dec_layers + AUDIO_CUT) * n_steps)
     return out
 
 
@@ -3982,6 +4438,13 @@ def main() -> int:
         check_kernels(torch, decode_cases(torch, ops), floor_ms)
         zoo_phase(torch, ops, lambda counts: None)
         long500_phase(torch, ops, lambda counts: None)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--frontends"]:   # 1-2, 3's decode rows, 28 alone
+        check_kernels(torch, decode_cases(torch, ops), floor_ms)
+        frontends_phase(torch, ops, lambda counts: None)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4448,6 +4911,11 @@ def main() -> int:
     # serve, long_500k, train step and prefill; the int8 KV cache
     hybrid_phase(torch, ops, tally, lm)
 
+    # 28. the frontends: llava-next-mistral-7b's projected prefix and
+    # seamless-m4t-large-v2's encoder-decoder (cross-attention through the
+    # decode kernel at dh 64)
+    frontends_phase(torch, ops, tally)
+
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -4558,7 +5026,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 28. the kernel list
+    # 29. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

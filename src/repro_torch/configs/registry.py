@@ -1,22 +1,24 @@
 """Architecture registry of the port: --arch <id> -> config
-(`repro/configs/registry.py`).  The dense archs (qwen3-4b, granite-8b,
-starcoder2-3b), the MoE archs (moonshot-v1-16b-a3b,
-llama4-maverick-400b-a17b), the MLA + MoE deepseek-v2-236b, the Mamba-2
-SSD mamba2-1.3b and the RG-LRU hybrid recurrentgemma-9b are ported;
-llava-next-mistral-7b and seamless-m4t-large-v2 raise NotImplementedError
-(ROADMAP.md Queue 1 item 10)."""
+(`repro/configs/registry.py`).  All ten of the reference's archs: the
+dense qwen3-4b, granite-8b and starcoder2-3b, the MoE moonshot-v1-16b-a3b
+and llama4-maverick-400b-a17b, the MLA + MoE deepseek-v2-236b, the
+Mamba-2 SSD mamba2-1.3b, the RG-LRU hybrid recurrentgemma-9b, the VLM
+llava-next-mistral-7b and the encoder-decoder seamless-m4t-large-v2."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v2_236b, granite_8b,
-                                 llama4_maverick_400b_a17b, mamba2_1_3b,
+                                 llama4_maverick_400b_a17b,
+                                 llava_next_mistral_7b, mamba2_1_3b,
                                  moonshot_v1_16b_a3b, qwen3_4b,
-                                 recurrentgemma_9b, starcoder2_3b)
+                                 recurrentgemma_9b, seamless_m4t_large_v2,
+                                 starcoder2_3b)
 from repro_torch.models.common import ModelConfig
 
+# in the reference registry's order
 ARCH_MODULES = {m.ARCH_ID: m for m in [
-    starcoder2_3b, moonshot_v1_16b_a3b, qwen3_4b, granite_8b,
-    llama4_maverick_400b_a17b, deepseek_v2_236b, mamba2_1_3b,
-    recurrentgemma_9b]}
+    starcoder2_3b, llava_next_mistral_7b, moonshot_v1_16b_a3b, mamba2_1_3b,
+    deepseek_v2_236b, qwen3_4b, recurrentgemma_9b, granite_8b,
+    llama4_maverick_400b_a17b, seamless_m4t_large_v2]}
 ARCH_IDS = list(ARCH_MODULES)
 
 # The assigned input shapes (system spec).
@@ -30,9 +32,8 @@ INPUT_SHAPES = {
 
 def _module(arch: str):
     if arch not in ARCH_MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported (ROADMAP.md Queue 1 item 10); "
-            f"ported: {sorted(ARCH_MODULES)}")
+        raise ValueError(f"unknown arch {arch!r}; registered: "
+                         f"{sorted(ARCH_MODULES)}")
     return ARCH_MODULES[arch]
 
 

@@ -253,6 +253,33 @@ def gather_shards(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
     return _GatherShards.apply(x, group, dim % x.dim())
 
 
+class _GatherOut(torch.autograd.Function):
+    """all_gather forward, this rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = dist.get_rank(ctx.group)
+        return grad.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def gather_out(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
+    """Megatron's "gather from the tensor-parallel region": every rank's
+    shard `x` of `group` concatenated along `dim` (rank order) into a
+    tensor replicated over the group, such as the residual stream; the
+    gradient of this rank's shard is its slice of the gradient, which the
+    replicated loss downstream gives every rank whole (where
+    `gather_shards` sums it over the group first, for a gathered tensor
+    each rank reads only in part).  `x` itself when group is None."""
+    if group is None:
+        return x
+    return _GatherOut.apply(x, group, dim % x.dim())
+
+
 def fetch(x, dim: Optional[int] = None, group=None) -> np.ndarray:
     """Host numpy copy of `x`.  With `dim`, every rank's `x` (over `group`,
     the whole process group by default) concatenated along `dim` in rank

@@ -19,15 +19,19 @@ device); nothing picks another backend or device on its own.  `--mesh
 single|multi`, the reference's TPU pod layouts, raise (`--mesh RxM` is
 their counterpart over GPU ranks).
 
-Any ported arch serves (qwen3-4b, granite-8b, starcoder2-3b,
+Every decoder-only arch serves (qwen3-4b, granite-8b, starcoder2-3b,
 moonshot-v1-16b-a3b, llama4-maverick-400b-a17b, deepseek-v2-236b with MLA,
 mamba2-1.3b with the SSD block, recurrentgemma-9b with the RG-LRU and
-2048-slot local-attention rings).  The attention window is
-the reference serve's: the model's native one (starcoder2-3b's 4096, a
-ring-buffer cache), else full attention; `--shape long_500k` takes that
-shape's window instead (`steps.decode_window`: the 8192-slot SWA variant of
-the full-attention archs), so the caches are rings of min(prompt + gen,
-window) slots.
+2048-slot local-attention rings, llava-next-mistral-7b's text tokens with
+no image prefix, as the reference serves it, on 4096-slot rings).  The
+encoder-decoder seamless-m4t-large-v2 is refused, as the reference's
+serve refuses it: its decode step takes the encoder's cross K / V
+(`steps.make_cross_kv_step`, then `steps.make_decode_step`).  The
+attention window is the reference serve's: the model's native one
+(starcoder2-3b's 4096, a ring-buffer cache), else full attention;
+`--shape long_500k` takes that shape's window instead
+(`steps.decode_window`: the 8192-slot SWA variant of the full-attention
+archs), so the caches are rings of min(prompt + gen, window) slots.
 
 As in the JAX serve script the weights are random (drawn from `--seed`) and the
 prompts are synthetic Markov token streams (`data/text.py`).  Greedy
@@ -98,6 +102,11 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
     `steps.init_model`) and the caches hold its KV heads.  The caches,
     the step positions and the tokens stay on the device, so the loop
     syncs with the host only at the phase boundaries."""
+    if cfg.arch_type == "audio":
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: serve runs the decoder-only "
+            f"archs; decode it with launch.steps.make_decode_step, which "
+            f"takes the cross K / V of launch.steps.make_cross_kv_step")
     dev = resolve_device(device)
     max_len = prompt_len + gen
     step, meta = make_decode_step(cfg, shape, plain=plain, mesh=mesh)

@@ -25,7 +25,11 @@ rules, as the reference's (a dim is split when M divides it):
   ("capacity_gather"); the shared experts are a SwiGLU; the f32 router is
   replicated;
 - embed splits its vocab rows, lm_head its vocab columns; the norms are
-  replicated.
+  replicated;
+- a VLM's projector w1 / w2 and the encoder-decoder's enc_in split their
+  columns (d), b1 / b2 are replicated; the encoder-decoder's attn,
+  self_attn and cross_attn take the attention's rule, and its stacked
+  enc_blocks / dec_blocks count the layer dim as `blocks` does.
 
 A spec tree has the parameter tree's structure, each leaf the split dim
 (an int, stacked layers' leading dim counted) or None.  The port's
@@ -48,6 +52,7 @@ import torch
 
 from repro_torch.launch.distributed import all_gather
 from repro_torch.launch.mesh import model_axis
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
@@ -68,12 +73,26 @@ def _split(n: int, dim: int, m: int) -> Optional[int]:
     return dim if n % m == 0 else None
 
 
+# the parameter subtrees stacked with a leading layer axis
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+# the attention subtrees: a decoder-only block's, the encoder-decoder's
+ATTENTION = ("attn", "self_attn", "cross_attn")
+
+
 def _kind(path: Tuple[str, ...], cfg: ModelConfig) -> str:
-    """The block kind of the sub-block a leaf path lies in: blocks/b<i>
-    is pattern[i], tail<t> pattern[t]."""
+    """The block kind of the decoder-only sub-block a leaf path lies in:
+    blocks/b<i> is pattern[i], tail<t> pattern[t]."""
     if path[0] == "blocks":
         return cfg.block_pattern[int(path[1][1:])]
     return cfg.block_pattern[int(path[0][4:])]
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                device=None, keep=None) -> Dict:
+    """cfg's random weights: `encdec.init_encdec` for the encoder-decoder
+    (arch_type "audio"), else `transformer.init_lm`."""
+    init = ED.init_encdec if cfg.arch_type == "audio" else T.init_lm
+    return init(generator, cfg, device, keep=keep)
 
 
 def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
@@ -85,7 +104,9 @@ def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
         return _split(shape[0], 0, m)
     if path == ("lm_head",):
         return _split(shape[1], 1, m)
-    if parent == "attn":
+    if path in (("projector", "w1"), ("projector", "w2"), ("enc_in",)):
+        return _split(shape[1], 1, m)
+    if parent in ATTENTION:
         if name in ("wq", "wk", "wv", "wq_a", "wq_b", "wk_b", "wv_b"):
             return _first_split(shape, 1, m)
         return _first_split(shape, 0, m) if name == "wo" else None
@@ -117,7 +138,7 @@ def _specs(tree: Dict, prefix: Tuple[str, ...], stacked: bool,
     for k, v in tree.items():
         path = prefix + (k,)
         if isinstance(v, dict):
-            out[k] = _specs(v, path, stacked or k == "blocks", cfg, m)
+            out[k] = _specs(v, path, stacked or k in STACKED, cfg, m)
             continue
         shape = tuple(v.shape[1:] if stacked else v.shape)
         dim = _leaf_spec(path, shape, cfg, m) if m > 1 else None
@@ -129,7 +150,7 @@ def param_specs(cfg: ModelConfig, m: int) -> Dict:
     """Each parameter leaf's "model" dim over m ranks (or None), in the
     parameter tree's structure (`repro_torch.tree` leaf order); shapes from
     an init on the "meta" device, so nothing is allocated."""
-    return _specs(T.init_lm(None, cfg, "meta"), (), False, cfg, m)
+    return _specs(init_params(cfg, None, "meta"), (), False, cfg, m)
 
 
 def _slice(x: Tensor, dim: Optional[int], axis) -> Tensor:
@@ -152,21 +173,22 @@ def shard_params(params: Dict, specs: Dict, mesh) -> Dict:
 
 def init_shards(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device, mesh) -> Dict:
-    """This rank's shards of `transformer.init_lm(generator, cfg, device)`,
+    """This rank's shards of `init_params(cfg, generator, device)`,
     bit for bit `shard_params` of the whole draw, without the whole draw:
     each leaf is drawn whole from the generator, so the stream is one
     rank's, and sliced at once, so a rank holds at most one whole leaf
     beside its shards."""
     axis = model_axis(mesh)
     if axis.size == 1:
-        return T.init_lm(generator, cfg, device)
+        return init_params(cfg, generator, device)
     drawn = []   # the leaves in the order they are drawn
-    meta = T.init_lm(None, cfg, "meta", keep=lambda x: drawn.append(x) or x)
+    meta = init_params(cfg, None, "meta",
+                       keep=lambda x: drawn.append(x) or x)
     dim_of = {id(x): d for x, d in zip(tree_leaves(meta), tree_leaves(
         param_specs(cfg, axis.size)))}
     dims = iter([dim_of[id(x)] for x in drawn])
-    return T.init_lm(generator, cfg, device,
-                     keep=lambda x: _slice(x, next(dims), axis))
+    return init_params(cfg, generator, device,
+                       keep=lambda x: _slice(x, next(dims), axis))
 
 
 def gather_params(local: Dict, specs: Dict, mesh) -> Dict:

@@ -43,8 +43,16 @@ from the same stream and keeps its slice, so the draws are the one-process
 run's; the stale stats sum each split leaf's shards over the model group
 and count a replicated leaf once.  Prefill and decode gather the vocab
 shards of the logits over the model group, then the rows over the worker
-group.  The encoder-decoder (audio) and VLM inputs raise (ROADMAP.md Queue
-1 item 10).
+group.
+
+The VLM (arch_type "vlm") batches carry `embeds_prefix` [B, P, feat]
+beside the tokens, and the encoder-decoder's (arch_type "audio") `frames`
+[B, T, feat] (`batch_shapes`); the train step and the prefill split them
+over the workers as they split the tokens.  The encoder-decoder's loss is
+`encdec.encdec_per_example_loss` (no aux term), its prefill encodes the
+frames, runs the decoder over the tokens and projects the last position,
+and its decode step takes the precomputed cross K / V as an argument, as
+the reference's does (`make_cross_kv_step` builds them on a mesh).
 """
 from __future__ import annotations
 
@@ -63,6 +71,7 @@ from repro_torch.launch.distributed import all_gather, all_reduce_sum
 from repro_torch.launch.mesh import model_axis, worker_axes
 from repro_torch.launch.sharding import init_shards, param_specs
 from repro_torch.models import attention as ATT
+from repro_torch.models import encdec as ED
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (ModelConfig, count_params,
@@ -79,19 +88,13 @@ BUCKET_BYTES = 256 * 2 ** 20
 UPDATE_CHUNK = 2 ** 26
 
 
-def _refuse_audio(cfg: ModelConfig) -> None:
-    if cfg.arch_type == "audio":
-        raise NotImplementedError(
-            "the encoder-decoder (audio) models are not ported (ROADMAP.md "
-            "Queue 1 item 10)")
-
-
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator],
                device=None, mesh=None) -> Dict:
-    """Random weights of cfg (see `transformer.init_lm`); on a mesh with a
-    "model" axis, this rank's shards of them (`launch.sharding.
-    init_shards`: the whole weights are never formed)."""
-    _refuse_audio(cfg)
+    """Random weights of cfg (`transformer.init_lm`, or
+    `encdec.init_encdec` for the encoder-decoder, arch_type "audio"); on a
+    mesh with a "model" axis, this rank's shards of them
+    (`launch.sharding.init_shards`: the whole weights are never
+    formed)."""
     return init_shards(cfg, generator, device, mesh)
 
 
@@ -162,16 +165,45 @@ def _sum_over_workers(grads, group, bucket_bytes: int = BUCKET_BYTES):
 
 def batch_shapes(cfg: ModelConfig, shape: Dict, kind: str
                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of every model input of a given input shape: tokens
-    [B, S + 1] for training (the loss trains on S positions), [B, S] for
-    prefill.  The VLM and audio layouts raise (not ported)."""
-    if cfg.arch_type in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.arch_type} inputs are not ported (ROADMAP.md Queue 1 "
-            f"item 10)")
+    """(shape, dtype) of every model input of a given input shape, as the
+    reference lays them out:
+
+      lm:    tokens [B, S + 1] (the loss trains on S positions)
+      vlm:   embeds_prefix [B, P, feat] + tokens [B, S - P + 1] (P + the
+             text positions = S)
+      audio: frames [B, min(S, enc_seq_cap), feat] + tokens [B, S + 1]
+
+    the prefix and the frames bf16 whatever cfg.dtype; a prefill's tokens
+    one shorter (no next-token shift)."""
     b, s = shape["global_batch"], shape["seq_len"]
-    return {"tokens": ((b, s if kind == "prefill" else s + 1),
-                       torch.int32)}
+    out = {}
+    toks = s
+    if cfg.arch_type == "vlm":
+        pfx = cfg.frontend.n_prefix
+        toks = s - pfx
+        if toks <= 0:
+            raise ValueError(f"{cfg.name}: seq_len {s} leaves no text "
+                             f"positions after the {pfx}-position prefix")
+        out["embeds_prefix"] = ((b, pfx, cfg.frontend.feature_dim),
+                                torch.bfloat16)
+    elif cfg.arch_type == "audio":
+        out["frames"] = ((b, min(s, cfg.encdec.enc_seq_cap),
+                          cfg.frontend.feature_dim), torch.bfloat16)
+    out["tokens"] = ((b, toks if kind == "prefill" else toks + 1),
+                     torch.int32)
+    return out
+
+
+def per_example_loss(params: Dict, batch: Dict, cfg: ModelConfig
+                     ) -> Tuple[Tensor, Tensor]:
+    """(per-sequence loss [B], aux) of cfg's model on batch: the
+    encoder-decoder's with a zero aux (as the reference's train step
+    has it), else `transformer.lm_per_example_loss`."""
+    if cfg.arch_type == "audio":
+        per_ex = ED.encdec_per_example_loss(params, batch, cfg)
+        return per_ex, torch.zeros((), dtype=torch.float32,
+                                   device=per_ex.device)
+    return T.lm_per_example_loss(params, batch, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +250,9 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             -> (new_params, new_state, metrics)
 
     params a nested dict, state {"gbar", "eps2"} (`init_floa_state`),
-    batch {"tokens": [B, S + 1]}, the global batch, on the params' device
+    batch {"tokens": [B, S + 1]} (and a VLM's "embeds_prefix", an
+    encoder-decoder's "frames": `batch_shapes`), the global batch, on the
+    params' device
     (on a mesh every rank passes it; rank w computes rows
     [w B / U, (w + 1) B / U), and U must divide B).  mesh: None, a
     `launch.mesh.SweepMesh` whose worker axes span the ranks, or a
@@ -251,7 +285,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     def weighted_loss(params, rows, coeffs):
         # this process's rows; on a mesh the MoE aux is the global batch's
         with MOE.worker_batch(group), tensor_parallel(axis):
-            per_ex, aux = T.lm_per_example_loss(params, rows, cfg)
+            per_ex, aux = per_example_loss(params, rows, cfg)
         # the local losses L_i of this process's workers
         per_worker = per_ex.reshape(wa.count, -1).mean(dim=1)
         wl = coeffs[wa.first:wa.first + wa.count] @ per_worker.float()
@@ -368,24 +402,31 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
                       shape: Optional[Dict] = None) -> Tuple[Callable, Dict]:
     """The prefill (scoring) step: `step(params, batch) -> logits [B, Vp]`
     of the LAST position only (the full [B, S, vocab] logits are never
-    formed), batch {"tokens": [B, S]}, the global batch; no gradients.  On
-    a mesh each rank scores its `batch_rows` and the logits are gathered,
-    so every rank returns all B rows.  Over a "model" axis params are this
-    rank's shards and the vocab shards of the logits are gathered."""
+    formed), batch {"tokens": [B, S]} (and a VLM's "embeds_prefix", an
+    encoder-decoder's "frames"), the global batch; no gradients.  The
+    encoder-decoder encodes the frames and runs the decoder over the
+    tokens.  On a mesh each rank scores its `batch_rows` and the logits
+    are gathered, so every rank returns all B rows.  Over a "model" axis
+    params are this rank's shards and the vocab shards of the logits are
+    gathered."""
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
     ATT.check_heads(cfg, axis.size)
-    _refuse_audio(cfg)
 
     @torch.no_grad()
     def prefill(params, batch):
         rows = batch_rows(wa, batch["tokens"].shape[0])
         split = rows.stop - rows.start < batch["tokens"].shape[0]
+        mine = {k: v[rows] for k, v in batch.items()}
         with MOE.worker_batch(wa.group if split else None, aux=False), \
                 tensor_parallel(axis):
-            h, _ = T.hidden_for_batch(
-                params, batch["tokens"][rows], cfg,
-                embeds_prefix=batch.get("embeds_prefix"))
+            if cfg.arch_type == "audio":
+                h = ED.decode_hidden(params, mine["tokens"], ED.encode(
+                    params, mine["frames"], cfg), cfg)
+            else:
+                h, _ = T.hidden_for_batch(
+                    params, mine["tokens"], cfg,
+                    embeds_prefix=mine.get("embeds_prefix"))
             logits = T.logits_from_hidden(params, h[:, -1, :], cfg)
         return all_gather(logits, wa.group) if split else logits
 
@@ -418,6 +459,11 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
                      ) -> Tuple[Callable, Dict]:
     """The serve step of one new token against a KV cache:
     `step(params, caches, tokens1, pos) -> (logits [B, 1, Vp], caches)`,
+    or for the encoder-decoder (arch_type "audio"), as the reference's,
+    `step(params, caches, cross_kv, tokens1, pos)` with the decoder's
+    self-attention caches (`encdec.init_dec_caches`) and the cross K / V
+    (`encdec.precompute_cross_kv`, or `make_cross_kv_step` on a mesh: this
+    rank's rows and KV heads),
     and `meta` with the parameter count `dim` and the attention `window`
     (`decode_window`).  A windowed step writes ring caches of
     min(max_len, window) slots: build them with
@@ -430,11 +476,23 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
     rows.  Over a "model" axis of M > 1 params are this rank's shards
     (`launch.sharding.shard_params` of `param_specs(cfg, M)`) and the
     caches its KV heads (`transformer.init_caches(..., model_parallel=M)`)."""
-    _refuse_audio(cfg)
     window = decode_window(cfg, shape_name)
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
     ATT.check_heads(cfg, axis.size)
+    meta = dict(dim=param_count(cfg), window=window)
+    if cfg.arch_type == "audio":
+        def encdec_step(params, caches, cross_kv, tokens1, pos):
+            rows = batch_rows(wa, tokens1.shape[0])
+            with tensor_parallel(axis):
+                logits, caches = ED.decode_step(params, caches, cross_kv,
+                                                tokens1[rows], pos, cfg,
+                                                plain=plain)
+            if rows.stop - rows.start == tokens1.shape[0]:
+                return logits, caches
+            return all_gather(logits, wa.group), caches
+
+        return encdec_step, meta
 
     def step(params, caches, tokens1, pos):
         rows = batch_rows(wa, tokens1.shape[0])
@@ -448,7 +506,28 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
                                                plain=plain)
         return all_gather(logits, wa.group), caches
 
-    return step, dict(dim=param_count(cfg), window=window)
+    return step, meta
+
+
+def make_cross_kv_step(cfg: ModelConfig, mesh=None) -> Tuple[Callable, Dict]:
+    """The encoder-decoder's encoder for decoding: `step(params, frames) ->
+    cross_kv`, frames [B, T, feat] the global batch; `encdec.encode`, then
+    `encdec.precompute_cross_kv` ([L, B, T, KV, hd] x 2), no gradients.
+    On a mesh each rank encodes its `batch_rows(mesh, B)` rows, and over a
+    "model" axis the cross K / V are this rank's KV heads: what its
+    decode step (`make_decode_step`) takes."""
+    wa = worker_axes(mesh)
+    axis = model_axis(mesh)
+    ATT.check_heads(cfg, axis.size)
+
+    @torch.no_grad()
+    def step(params, frames):
+        mine = frames[batch_rows(wa, frames.shape[0])]
+        with tensor_parallel(axis):
+            return ED.precompute_cross_kv(params, ED.encode(
+                params, mine, cfg), cfg)
+
+    return step, dict(dim=param_count(cfg))
 
 
 def make_step(cfg: ModelConfig, mesh, shape_name: str,

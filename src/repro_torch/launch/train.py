@@ -8,7 +8,10 @@ training on one device, or on U ranks, one FL worker each.
 
 Runs real steps of `launch.steps.make_train_step` on random weights drawn
 from seed 0, with the synthetic Markov token stream (`data.text`) as the
-batches (step t draws from seed t).  One device is U = 1 worker, so
+batches (step t draws from seed t); as in the reference driver, a VLM's
+batch adds a zero image prefix of its n_prefix positions and an
+encoder-decoder's standard-normal frames of min(seq, enc_seq_cap)
+positions (drawn from seed t on the device).  One device is U = 1 worker, so
 --byzantine has no attacker to place (as on the JAX package's 1x1 mesh).
 `--mesh UxM` trains on U x M ranks started by torchrun (WORLD_SIZE, RANK,
 MASTER_ADDR / MASTER_PORT; `launch.distributed.initialize_distributed`, as
@@ -45,6 +48,26 @@ from repro_torch.launch.mesh import mesh_from_arg
 from repro_torch.launch.sharding import gather_params
 from repro_torch.launch.steps import (init_floa_state, init_model,
                                       make_train_step)
+
+
+def make_batch(cfg, batch: int, seq: int, step: int, device) -> dict:
+    """Step `step`'s global batch: tokens [batch, seq + 1] from the Markov
+    stream of seed `step`, and a VLM's zero `embeds_prefix` or an
+    encoder-decoder's normal `frames` (bf16, `steps.batch_shapes`'
+    dtype)."""
+    out = {"tokens": torch.as_tensor(sample_tokens(
+        batch, seq + 1, vocab=cfg.vocab_size, seed=step), device=device)}
+    if cfg.arch_type == "vlm":
+        out["embeds_prefix"] = torch.zeros(
+            (batch, cfg.frontend.n_prefix, cfg.frontend.feature_dim),
+            dtype=torch.bfloat16, device=device)
+    if cfg.arch_type == "audio":
+        gen = torch.Generator(device).manual_seed(step)
+        out["frames"] = torch.randn(
+            (batch, min(seq, cfg.encdec.enc_seq_cap),
+             cfg.frontend.feature_dim), generator=gen,
+            device=device).to(torch.bfloat16)
+    return out
 
 
 def main(argv=None) -> None:
@@ -90,9 +113,7 @@ def main(argv=None) -> None:
               f"byzantine={args.byzantine} device={dev}")
 
     for t in range(args.steps):
-        batch = {"tokens": torch.as_tensor(
-            sample_tokens(args.batch, args.seq + 1, vocab=cfg.vocab_size,
-                          seed=t), device=dev)}
+        batch = make_batch(cfg, args.batch, args.seq, t, dev)
         t0 = time.perf_counter()
         params, state, metrics = step_fn(params, state, batch, t)
         loss = float(metrics["loss"])

@@ -9,8 +9,11 @@ flattened head axes; the attention of a decode step is the hand-written
 CUDA kernel behind `kernels/ops.py::decode_attention`.  The full-sequence
 attention (`gqa_full`: `_gqa_core` over query chunks of Q_CHUNK) is plain
 `torch.einsum` and softmax in f32, as the reference computes it in XLA
-einsums outside any Pallas kernel.  The encoder-decoder
-`cross_attention` is not ported (ROADMAP.md Queue 1 item 10).
+einsums outside any Pallas kernel.  The encoder-decoder's cross-attention
+(`encode_kv`, `cross_attention`, `cross_decode`: no RoPE, every encoder
+position valid) is the same plain attention, non-causal, over a full
+decoder block; one decoder token's runs through the decode-attention
+kernel at pos = Se - 1.
 
 The native-dtype cache is ported, full or windowed: a window makes it a
 ring buffer of min(max_len, window) slots (sliding-window archs, and
@@ -93,9 +96,6 @@ from repro_torch.models.common import (ModelConfig, ParamInit,
 
 Tensor = torch.Tensor
 
-NOT_PORTED = "is not ported (ROADMAP.md Queue 1 item 10)"
-
-
 def init_gqa(pi: ParamInit, cfg: ModelConfig) -> Dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {"wq": pi.param((d, h, hd), fan_in=d),
@@ -154,6 +154,21 @@ def local_heads(cfg: ModelConfig, m: int, index: int) -> Tuple[slice, slice]:
     return slice(index * hq, (index + 1) * hq), slice(g, g + 1)
 
 
+def _kv_heads(p: Dict, x: Tensor, cfg: ModelConfig,
+              axis) -> Tuple[Tensor, Tensor]:
+    """k and v [B, S, heads, hd] of x [B, S, d] (through `copy_in` under a
+    "model" axis): every KV head, or this rank's (wk / wv split on the
+    heads; or on d when M does not divide KV: the partial products
+    summed, then the KV heads of this rank's query heads)."""
+    if axis is None or cfg.n_kv_heads % axis.size == 0:
+        return _proj(x, p["wk"]), _proj(x, p["wv"])
+    xd = x[..., axis.part(cfg.d_model)]
+    kv = torch.cat([_proj(xd, p["wk"]), _proj(xd, p["wv"])], dim=-2)
+    kv = copy_in(reduce_out(kv, axis.group), axis.group)
+    heads = local_heads(cfg, axis.size, axis.index)[1]
+    return kv[..., heads, :], kv[..., cfg.n_kv_heads:, :][..., heads, :]
+
+
 def _qkv(p: Dict, x: Tensor, cfg: ModelConfig,
          rope: Optional[Tuple[Tensor, Tensor]]
          ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -168,15 +183,7 @@ def _qkv(p: Dict, x: Tensor, cfg: ModelConfig,
     else:
         x = copy_in(x, axis.group)
         q = _proj(x, p["wq"])
-        if cfg.n_kv_heads % axis.size == 0:
-            k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
-        else:   # wk / wv sharded on d: partial products, summed
-            xd = x[..., axis.part(cfg.d_model)]
-            kv = torch.cat([_proj(xd, p["wk"]), _proj(xd, p["wv"])], dim=-2)
-            kv = copy_in(reduce_out(kv, axis.group), axis.group)
-            heads = local_heads(cfg, axis.size, axis.index)[1]
-            k = kv[..., heads, :]
-            v = kv[..., cfg.n_kv_heads:, :][..., heads, :]
+        k, v = _kv_heads(p, x, cfg, axis)
         # replicated scales on this rank's heads: their gradient is summed
         norms = (copy_in(torch.stack([p["q_norm"], p["k_norm"]]),
                          axis.group) if cfg.qk_norm else None)
@@ -249,6 +256,61 @@ def gqa_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
     rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     q, k, v = _qkv(p, x, cfg, rope)
     return _out(p, _chunked_attn(q, k, v, causal, window))
+
+
+def _replicated(w: Tensor, axis) -> Tensor:
+    """A replicated leaf read on this rank's heads (`copy_in`: its gradient
+    summed over the "model" group)."""
+    return w if axis is None else copy_in(w, axis.group)
+
+
+def _cross_q(p: Dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The cross-attention query [B, S, heads, hd] of x [B, S, d]: no RoPE,
+    q_norm under qk_norm; this rank's heads under `tensor_parallel`."""
+    axis = model_shards()
+    q = _proj(_replicated(x, axis), p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, _replicated(p["q_norm"], axis), cfg.norm_eps)
+    return q
+
+
+def encode_kv(p: Dict, enc_out: Tensor, cfg: ModelConfig
+              ) -> Tuple[Tensor, Tensor]:
+    """A decoder layer's cross K / V [B, Se, KV, hd] of the encoder output
+    [B, Se, d]: no RoPE, k_norm under qk_norm (the reference's
+    `encode_kv`); this rank's KV heads under `tensor_parallel`."""
+    axis = model_shards()
+    k, v = _kv_heads(p, _replicated(enc_out, axis), cfg, axis)
+    if cfg.qk_norm:
+        k = rms_norm(k, _replicated(p["k_norm"], axis), cfg.norm_eps)
+    return k, v
+
+
+def cross_attention(p: Dict, x: Tensor, enc_kv: Tuple[Tensor, Tensor],
+                    cfg: ModelConfig) -> Tensor:
+    """The decoder's cross-attention over a full [B, S, d] block (train /
+    prefill): every query attends every encoder position of enc_kv
+    (`encode_kv`), plain torch (`_chunked_attn`, non-causal), as the
+    reference's XLA einsums."""
+    k, v = enc_kv
+    return _out(p, _chunked_attn(_cross_q(p, x, cfg), k, v, causal=False,
+                                 window=None))
+
+
+def cross_decode(p: Dict, x1: Tensor, enc_kv: Tuple[Tensor, Tensor],
+                 cfg: ModelConfig, *, plain: bool = False) -> Tensor:
+    """The cross-attention of one decoder token x1 [B, 1, d] over the Se
+    encoder positions of enc_kv: the decode-attention kernel with
+    pos = Se - 1, whose valid length min(pos + 1, Se) is every position
+    and whose scale is the same 1 / sqrt(hd) (`plain=True` takes its plain
+    version).  pos is made on the device, so the step needs no host
+    sync."""
+    k, v = enc_kv
+    b = x1.shape[0]
+    q = _cross_q(p, x1, cfg)
+    pos = torch.full((), k.shape[1] - 1, dtype=torch.int32, device=k.device)
+    out = ops.decode_attention(q[:, 0].contiguous(), k, v, pos, plain=plain)
+    return _out(p, out.reshape(b, 1, *out.shape[1:]))
 
 
 KV_CACHE_DTYPES = ("native", "int8")

@@ -21,7 +21,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -69,6 +69,26 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    """The encoder-decoder's stacks (`repro/models/common.py::
+    EncDecConfig`), every field and default as the reference's:
+    `models/encdec.py`."""
+    n_enc_layers: int = 12
+    n_dec_layers: int = 12
+    enc_seq_cap: int = 4096           # the encoder's (stub frames') length cap
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """A stubbed modality frontend (`repro/models/common.py::
+    FrontendConfig`): a VLM's projected prefix (`transformer.
+    project_prefix`) or an encoder-decoder's frames (`encdec.encode`)."""
+    kind: str                         # "vision" | "audio" (stubbed per spec)
+    feature_dim: int = 1024
+    n_prefix: int = 2880              # vision: anyres patch count; audio: n/a
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The JAX `ModelConfig` without its XLA execution knobs (model_parallel,
     remat, scan_layers, unroll_for_analysis); `dtype` is a torch dtype.
@@ -98,8 +118,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
-    encdec: Optional[Any] = None
-    frontend: Optional[Any] = None
+    encdec: Optional[EncDecConfig] = None
+    frontend: Optional[FrontendConfig] = None
     rglru_width: Optional[int] = None
     local_window: int = 2048
     tie_embeddings: bool = False

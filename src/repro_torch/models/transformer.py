@@ -31,15 +31,24 @@ over layer indices here, and `remat` has no counterpart: the backward
 keeps every layer's activations.  `chunked_ce` projects `lm_head_chunk`
 positions to logits at a time, as the reference does, without
 `torch.utils.checkpoint` (it does not compose with `torch.func.grad` /
-`vmap`, through which the sweep takes per-worker gradients).  The
-encoder-decoder and frontends (a VLM's `embeds_prefix`) raise
-NotImplementedError (ROADMAP.md Queue 1 item 10).
+`vmap`, through which the sweep takes per-worker gradients).
+
+A VLM (cfg.frontend, llava-next-mistral-7b) adds the `projector` leaves
+w1 [feat, d], b1, w2 [d, d], b2: `hidden_for_batch` projects a batch's
+`embeds_prefix` [B, P, feat] through them (w1, the tanh GELU, w2: the
+reference's `jax.nn.gelu` default), prepends it to the token embeddings,
+runs the stack over the whole row and returns the token region.  Decode
+and serve take the text tokens alone, as the reference's do.  The
+encoder-decoder (cfg.encdec) is `models/encdec.py`, which reuses this
+module's embedding, head and CE.
 
 Under `common.tensor_parallel` (a "model" axis of M ranks, the parameters
 this rank's shards, `launch/sharding.py`) the residual stream stays
 replicated: the attention (GQA or MLA), the SSD and RG-LRU mixers, the
 SwiGLU (wi / wg split on f, wo on f) and the MoE each take their input
-through `copy_in` and reduce their output once; the embedding is split on
+through `copy_in` and reduce their output once; the projector's w1 and w2
+split their columns (each rank's columns of the product, gathered into
+the replicated stream by `gather_out`); the embedding is split on
 its vocab rows (each rank looks up the ids in its rows, zeros elsewhere,
 one `reduce_out`), the head on its vocab columns, and the CE is
 `softmax_xent_sharded`, so the [B, S, Vp] logits are never gathered in
@@ -58,7 +67,8 @@ from repro_torch.models import ffn as FFN
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RGL
 from repro_torch.models import ssm as SSM
-from repro_torch.launch.distributed import all_gather, copy_in, reduce_out
+from repro_torch.launch.distributed import (all_gather, copy_in, gather_out,
+                                            reduce_out)
 from repro_torch.models.common import (ModelConfig, ParamInit, model_shards,
                                        rms_norm, rope_cos_sin, softmax_xent,
                                        softmax_xent_sharded)
@@ -72,10 +82,14 @@ ATTN_KINDS = ("attn", "attn_moe", "local_attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a decoder-only stack of known block kinds
-    ("attn", "attn_moe" with a MoE config, "local_attn", "ssm" with an SSM
-    config, "rglru"; the attention of attn / attn_moe GQA, or MLA with an
-    MLA config; local_attn always GQA)."""
+    """Raise ValueError unless cfg is a decoder-only stack of known block
+    kinds ("attn", "attn_moe" with a MoE config, "local_attn", "ssm" with
+    an SSM config, "rglru"; the attention of attn / attn_moe GQA, or MLA
+    with an MLA config; local_attn always GQA); an encoder-decoder config
+    belongs to `models/encdec.py`."""
+    if cfg.encdec is not None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: "
+                         f"models/encdec.py builds and runs it")
     for kind in cfg.block_pattern:
         if kind not in BLOCK_KINDS:
             raise ValueError(f"block_pattern {cfg.block_pattern}: unknown "
@@ -84,9 +98,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: an attn_moe block needs cfg.moe")
     if "ssm" in cfg.block_pattern and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: an ssm block needs cfg.ssm")
-    for sub in ("encdec", "frontend"):
-        if getattr(cfg, sub) is not None:
-            raise NotImplementedError(f"{cfg.name}: {sub} {ATT.NOT_PORTED}")
 
 
 def layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
@@ -131,6 +142,12 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
                               "final_norm": pi.param((d,), init="zeros")}
     if not cfg.tie_embeddings:
         params["lm_head"] = pi.param((d, vp), fan_in=d)
+    if cfg.frontend is not None:
+        fd = cfg.frontend.feature_dim
+        params["projector"] = {"w1": pi.param((fd, d), fan_in=fd),
+                               "b1": pi.param((d,), init="zeros"),
+                               "w2": pi.param((d, d), fan_in=d),
+                               "b2": pi.param((d,), init="zeros")}
     n_rep, n_tail = layer_counts(cfg)
     if n_rep:
         stacked = ParamInit(generator, cfg.dtype, pi.device, stack=n_rep,
@@ -318,26 +335,58 @@ def forward_hidden(params: Dict, x: Tensor, positions: Tensor,
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
+def _column_product(x: Tensor, w: Tensor, cfg: ModelConfig) -> Tensor:
+    """x @ w for a leaf w [n, d] whose columns the "model" axis splits when
+    M divides d: this rank's columns, gathered into the replicated stream
+    (x enters through `copy_in`: each rank's backward holds its columns'
+    share of x's gradient)."""
+    axis = model_shards()
+    if axis is None or not axis.shards(cfg.d_model):
+        return x @ w
+    return gather_out(copy_in(x, axis.group) @ w, axis.group)
+
+
+def project_prefix(params: Dict, embeds_prefix: Tensor,
+                   cfg: ModelConfig) -> Tensor:
+    """The VLM projector: embeds_prefix [B, P, feat], cast to cfg.dtype,
+    through w1 + b1, the tanh GELU (`jax.nn.gelu`'s default), w2 + b2 ->
+    [B, P, d]."""
+    pr = params["projector"]
+    e = _column_product(embeds_prefix.to(cfg.dtype), pr["w1"], cfg) + pr["b1"]
+    e = torch.nn.functional.gelu(e, approximate="tanh")
+    return _column_product(e, pr["w2"], cfg) + pr["b2"]
+
+
 def hidden_for_batch(params: Dict, tokens: Tensor, cfg: ModelConfig,
                      window: Optional[int] = None,
                      embeds_prefix: Optional[Tensor] = None
                      ) -> Tuple[Tensor, Tensor]:
-    """tokens [B, S] -> (final hidden [B, S, d], aux).  A projected
-    prefix (`embeds_prefix`, the VLM / audio stubs) raises: the frontends
-    are not ported."""
-    if embeds_prefix is not None:
-        raise NotImplementedError(f"embeds_prefix (the VLM / audio "
-                                  f"frontends) {ATT.NOT_PORTED}")
+    """tokens [B, S] -> (final hidden [B, S, d], aux).  With
+    `embeds_prefix` [B, P, feat] (a VLM's stub features) the projected
+    prefix (`project_prefix`) is prepended to the token embeddings and the
+    stack runs over all P + S positions; the hidden states are the token
+    region's.  A prefix on a config without a frontend raises
+    ValueError."""
     x = embed_tokens(params, tokens, cfg)
+    npfx = 0
+    if embeds_prefix is not None:
+        if cfg.frontend is None:
+            raise ValueError(f"{cfg.name} has no frontend: no projector "
+                             f"for embeds_prefix")
+        e = project_prefix(params, embeds_prefix, cfg)
+        x = torch.cat([e, x], dim=1)
+        npfx = e.shape[1]
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    return forward_hidden(params, x, positions, cfg, window)
+    h, aux = forward_hidden(params, x, positions, cfg, window)
+    return h[:, npfx:], aux
 
 
 def forward(params: Dict, tokens: Tensor, cfg: ModelConfig,
             window: Optional[int] = None,
             embeds_prefix: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """tokens [B, S] -> (logits [B, S, Vp], aux)."""
+    """tokens [B, S] -> (logits [B, S, Vp], aux): the token region's,
+    after a projected `embeds_prefix` when given."""
     h, aux = hidden_for_batch(params, tokens, cfg, window, embeds_prefix)
     return logits_from_hidden(params, h, cfg), aux
 

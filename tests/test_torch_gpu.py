@@ -547,7 +547,10 @@ def test_grouped_defense_sweep_matches_plain_route(cuda_device, grid):
 # config), a long cache cut into many splits, the zoo's groups (G = 12,
 # 5 and 1), and head dim 256 (recurrentgemma-9b's MQA local attention:
 # G = 16, two head groups a KV head; its ring, its serve, S off the tile,
-# and a rank's 8 heads on (1, 2)).
+# and a rank's 8 heads on (1, 2)); the frontends' shapes:
+# seamless-m4t-large-v2's self-attention serve and its cross-attention
+# over 512 encoder positions (dh 64, G = 1), llava-next-mistral-7b's
+# 4096-slot long_500k ring.
 DECODE_GRID = [(1, 4, 1, 64, 512),      # MQA
                (2, 8, 2, 64, 1024),     # GQA
                (2, 8, 8, 128, 777),     # MHA, ragged length
@@ -562,7 +565,10 @@ DECODE_GRID = [(1, 4, 1, 64, 512),      # MQA
                (1, 16, 1, 256, 2048),   # dh 256, G = 16: the ring
                (8, 16, 1, 256, 64),     # dh 256: the serve
                (2, 16, 1, 256, 777),    # dh 256, off the tile
-               (2, 8, 1, 256, 300)]     # dh 256, G = 8: a rank's heads
+               (2, 8, 1, 256, 300),     # dh 256, G = 8: a rank's heads
+               (8, 16, 16, 64, 64),     # seamless: self-attention
+               (8, 16, 16, 64, 512),    # seamless: cross-attention
+               (1, 32, 8, 128, 4096)]   # llava: the long_500k ring
 # The kernel against the plain version on the same inputs upcast to f32.
 # f32: they differ only in summation order and expf (rtol = atol = 1e-5).
 # bf16: the kernel accumulates in f32 and rounds once, at the output (2^-9
@@ -1373,4 +1379,45 @@ def test_hybrid_serve_kernel_route_matches_plain_route(cuda_device,
     got = torch.stack([step(params, caches, seq[:, i:i + 1], pos[i])[0][:, 0]
                        for i in range(n)], dim=1)
     torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_encdec_decode_kernel_route_matches_plain_route(cuda_device):
+    """The smoke seamless-m4t-large-v2 (f32, 2 + 2 layers, dh 32) decoded
+    24 steps over 40 encoder frames through the kernel and through its
+    plain version: two launches a decoder layer a step (self and cross,
+    by shape), logits at rtol 1e-4; and the kernel route against
+    `decode_full` at rtol 1e-4 of the largest |logit|."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch.steps import (init_model, make_cross_kv_step,
+                                          make_decode_step)
+    from repro_torch.models import encdec as ED
+    cfg = get_smoke("seamless-m4t-large-v2")
+    b, n, se = 2, 24, 40
+    params = init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                        cuda_device)
+    frames = _normal(cuda_device, 3, b, se, cfg.frontend.feature_dim)
+    seq = torch.as_tensor(sample_tokens(b, n, cfg.vocab_size, seed=4),
+                          device=cuda_device)
+    kv_step, _ = make_cross_kv_step(cfg)
+    cross = kv_step(params, frames)
+    pos = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    runs = {}
+    for plain in (False, True):
+        step, _ = make_decode_step(cfg, plain=plain)
+        caches = ED.init_dec_caches(cfg, b, n, device=cuda_device)
+        ops.reset_launches()
+        runs[plain] = torch.stack([step(params, caches, cross, seq[:, i:i + 1],
+                                        pos[i])[0][:, 0] for i in range(n)],
+                                  dim=1)
+        layers = cfg.encdec.n_dec_layers
+        assert ops.launch_shapes()["decode_attention"] == ({} if plain else {
+            (b, n, 4, 4, 32): layers * n, (b, se, 4, 4, 32): layers * n})
+    torch.testing.assert_close(runs[False], runs[True], rtol=1e-4, atol=1e-5)
+    with torch.no_grad():
+        want = ED.decode_full(params, seq, ED.encode(params, frames, cfg),
+                              cfg)
+    torch.testing.assert_close(runs[False], want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))

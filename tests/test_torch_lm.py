@@ -108,9 +108,10 @@ def test_token_streams_byte_equal(seed):
 @pytest.mark.parametrize("arch", TR.ARCH_IDS)
 @pytest.mark.parametrize("variant", ["full", "smoke"])
 def test_config_fields_equal_jax(arch, variant):
-    """Every ported arch's configs field for field (the MoE, MLA and SSM
-    sub-configs as dicts), and `shape_applicable` as the reference's for
-    every shape."""
+    """Every arch's configs field for field (the MoE, MLA, SSM, encdec and
+    frontend sub-configs as dicts), and `shape_applicable` as the
+    reference's for every shape; the port registers the reference's ten
+    archs."""
     jcfg = JR.get_config(arch) if variant == "full" else JR.get_smoke(arch)
     tcfg = get_config(arch) if variant == "full" else get_smoke(arch)
     tfields = {f.name for f in dataclasses.fields(tcfg)}
@@ -122,7 +123,8 @@ def test_config_fields_equal_jax(arch, variant):
         if name == "dtype":
             want = {jnp.float32: torch.float32,
                     jnp.bfloat16: torch.bfloat16}[want]
-        elif name in ("moe", "mla", "ssm") and want is not None:
+        elif name in ("moe", "mla", "ssm", "encdec",
+                      "frontend") and want is not None:
             want, got = dataclasses.asdict(want), dataclasses.asdict(got)
         assert got == want, name
     assert (tcfg.hd, tcfg.padded_vocab) == (jcfg.hd, jcfg.padded_vocab)
@@ -130,7 +132,7 @@ def test_config_fields_equal_jax(arch, variant):
     for shape in JR.INPUT_SHAPES:
         assert TR.shape_applicable(tcfg, shape) == \
             JR.shape_applicable(jcfg, shape), shape
-    assert set(TR.ARCH_IDS) < set(JR.ARCH_IDS)
+    assert TR.ARCH_IDS == JR.ARCH_IDS
 
 
 def test_full_width_param_count_on_meta():
@@ -235,15 +237,14 @@ def test_sampled_serve_is_seeded():
 
 
 def test_unported_paths_raise():
-    """What stays unported raises NotImplementedError naming ROADMAP item
-    10: the archs not yet registered (llava-next-mistral-7b,
-    seamless-m4t-large-v2) and the audio model.  MLA (deepseek-v2-236b),
-    the "ssm" block (mamba2-1.3b), the "rglru" and "local_attn" blocks
-    (recurrentgemma-9b) and the int8 cache are ported: their configs,
-    trees and caches build (tests/test_torch_mla.py, test_torch_ssm.py,
-    test_torch_rglru.py and test_torch_kv_quant.py hold them against JAX);
-    a windowed cache is ported (tests/test_torch_window.py).  An unknown
-    block kind or cache dtype is a ValueError."""
+    """Every reference arch builds in the port: its full and smoke configs
+    and its "meta" parameter tree (`steps.init_model`: the
+    encoder-decoder's for seamless-m4t-large-v2, the projector's leaves
+    beside the decoder's for llava-next-mistral-7b), with the reference's
+    parameter count, and its decode caches; an unknown arch is a
+    ValueError.  The int8 cache builds; an unknown block kind or cache
+    dtype is a ValueError, as is an encoder-decoder config given to the
+    decoder-only model."""
     cfg = get_smoke(ARCH)
     int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     cache = TATT.init_cache(int8, 1, 8, None, torch.float32)
@@ -253,25 +254,29 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         TATT.init_cache(dataclasses.replace(cfg, kv_cache_dtype="fp8"), 1,
                         8, None, torch.float32)
-    for arch in ("llava-next-mistral-7b", "seamless-m4t-large-v2"):
-        assert arch in JR.ARCH_IDS
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            get_config(arch)
-    mla, ssm = get_config("deepseek-v2-236b"), get_config("mamba2-1.3b")
-    assert isinstance(mla.mla, TC.MLAConfig) and mla.ssm is None
-    assert isinstance(ssm.ssm, TC.SSMConfig) and ssm.block_pattern == ("ssm",)
-    assert get_config("recurrentgemma-9b").block_pattern == (
-        "rglru", "rglru", "local_attn")
-    for c in (get_smoke("deepseek-v2-236b"), get_smoke("mamba2-1.3b"),
-              get_smoke("recurrentgemma-9b")):
-        caches = TT.init_caches(c, 1, 8, device="meta")["blocks"]["b0"]
-        assert sorted(caches) == (["c_kv", "k_rope"] if c.mla else
-                                  ["conv", "ssm"] if c.ssm else ["conv", "h"])
-        assert TT.init_lm(None, c, "meta")["blocks"]["b0"]["ln1"].shape == (
-            c.n_layers // len(c.block_pattern), c.d_model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TSTEPS.init_model(dataclasses.replace(cfg, arch_type="audio"), None,
-                          "meta")
+    assert len(TR.ARCH_IDS) == len(JR.ARCH_IDS) == 10
+    for arch in JR.ARCH_IDS:
+        for c in (get_config(arch), get_smoke(arch)):
+            tree = TSTEPS.init_model(c, None, "meta")
+            assert all(x.device.type == "meta"
+                       for x in jax.tree_util.tree_leaves(tree))
+            if c.arch_type == "audio":
+                assert sorted(tree) == ["dec_blocks", "dec_norm", "embed",
+                                        "enc_blocks", "enc_in", "enc_norm",
+                                        "lm_head"]
+                continue
+            assert ("projector" in tree) == (c.arch_type == "vlm")
+            caches = TT.init_caches(c, 1, 8, device="meta")
+            assert caches and all(x.device.type == "meta" for x in
+                                  jax.tree_util.tree_leaves(caches))
+    assert TSTEPS.param_count(get_config("llava-next-mistral-7b")) == \
+        JR.flat_param_dim(JR.get_config("llava-next-mistral-7b"))
+    assert TSTEPS.param_count(get_config("seamless-m4t-large-v2")) == \
+        JR.flat_param_dim(JR.get_config("seamless-m4t-large-v2"))
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("no-such-arch")
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        TT.init_lm(None, get_smoke("seamless-m4t-large-v2"), "meta")
     rg = TT.init_lm(None, dataclasses.replace(cfg, block_pattern=("rglru",)),
                     "meta")
     assert rg["blocks"]["b0"]["mixer"]["w_a"].shape == (

@@ -1,44 +1,38 @@
 """The port's LM steps over the worker axes of a mesh against the JAX
 package: `launch.steps` with a `launch.mesh.SweepMesh` over gloo CPU ranks
-(tests/torch_dist_driver.py's LM-step jobs), one rank a FL worker.
+(tests/torch_dist_driver.py's LM-step jobs), one rank a FL worker.  The
+smoke qwen3-4b and starcoder2-3b; the other archs over the worker axes
+are in tests/test_torch_lm_mesh_zoo.py (and the frontends' in
+tests/test_torch_lm_tp_frontends.py).
 
-One JAX subprocess on 4 host devices (`JAX_REF`) runs the reference: the
-FLOA train step of the smoke qwen3-4b (f32) on a (4, 1) ("data", "model")
-debug mesh, B = 8, 3 steps, for BEV, CI and EF with n_byzantine = 2 (one
-strongest attacker at U = 4) and for use_floa=False; the smoke moonshot
-(MoE), deepseek-v2-236b (MLA), mamba2-1.3b (SSD) and recurrentgemma-9b
-(RG-LRU + local attention) on a (2, 1) mesh (BEV); the prefill step on a
-(2, 1) mesh; the smoke starcoder2-3b's decode step on one device,
-teacher-forced 72 steps into its 64-slot ring, and recurrentgemma's, 40
-steps into its 32-slot local ring.  It also replays each train step's draws (gains off
-PRNGKey(t)'s first key, leaf i's noise off fold_in(second key, i)), which
-the port's ranks consume, from the JAX initial weights.  Then one spawn of
-4 ranks and one of 2:
+One JAX subprocess on 4 host devices (`torch_lm_ranks.JAX_REF`) runs the
+reference: the FLOA train step of the smoke qwen3-4b (f32) on a (4, 1)
+("data", "model") debug mesh, B = 8, 3 steps, for BEV, CI and EF with
+n_byzantine = 2 (one strongest attacker at U = 4) and for use_floa=False;
+the smoke starcoder2-3b's decode step on one device, teacher-forced 72
+steps into its 64-slot ring.  It also replays each train step's draws
+(gains off PRNGKey(t)'s first key, leaf i's noise off fold_in(second
+key, i)), which the port's ranks consume, from the JAX initial weights.
+Then one spawn of 4 ranks:
 
 - the train step on (4, 1): params, gbar, eps2 and the metrics at rtol
   1e-5 / atol 1e-6, every rank's result bitwise equal; the same BEV case
   on a (2, 2, 1) ("pod", "data", "model") mesh equals the (4, 1) run;
-- the smoke moonshot, deepseek-v2-236b, mamba2-1.3b and
-  recurrentgemma-9b on (2, 1) at the same tolerance (the global aux);
-- prefill on (2, 1) at rtol 1e-5; decode on (4, 1) (a rank-local batch of
-  2 against rank-local ring caches) at rtol 1e-4, every rank's gathered
-  logits equal; recurrentgemma's on (2, 1) the same way; greedy `serve` on (2, 1) gives the one-process tokens;
+- decode on (4, 1) (a rank-local batch of 2 against rank-local ring
+  caches) at rtol 1e-4, every rank's gathered logits equal;
 - `combine_partials` over a 4-rank ("model",) mesh within 1e-5 of both
   decode_attention_refs;
-- the refusals, and the training entry point on 2 torchrun-style ranks.
+- the refusals, the one-process twin, the chunked update, and the
+  training entry point on 2 torchrun-style ranks.
 
-Marked slow, as tests/test_distributed.py is: the JAX subprocess and the
-rank spawns take about two minutes on one core.
+Marked slow, as tests/test_distributed.py is.
 """
 import dataclasses
 import os
-import pickle
 import socket
 import subprocess
 import sys
-import textwrap
 import warnings
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +45,8 @@ with warnings.catch_warnings():
     warnings.simplefilter("ignore", DeprecationWarning)
     from repro.kernels.ref import decode_attention_ref as jdecode_ref
 
+from torch_lm_ranks import (ALPHA, ROOT, ROUTES, assert_train_matches,
+                            close_decode, jax_reference, train_job)
 from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
 
 from repro_torch.configs import get_smoke
@@ -59,156 +55,27 @@ from repro_torch.launch import steps as TSTEPS
 from repro_torch.launch.mesh import (Q_MODEL_AXIS, ModelAxis, WorkerAxes,
                                      make_debug_mesh, mesh_from_arg,
                                      worker_axes)
-from repro_torch.launch.serve import serve
 from repro_torch.models import attention as TATT
 from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
-from repro_torch.tree import tree_leaves, tree_paths
 
 pytestmark = pytest.mark.slow
 
-ROOT = Path(__file__).resolve().parents[1]
-RTOL, ATOL = 1e-5, 1e-6
-DECODE_RTOL = 1e-4
-STEPS, BATCH, SEQ, ALPHA = 3, 8, 16, 0.02
-ROUTES = [("bev", True), ("ci", True), ("ef", True), ("bev", False)]
+BATCH = 8
 MESH_41 = ((4, 1), ("data", "model"))
 MESH_221 = ((2, 2, 1), ("pod", "data", "model"))
-MESH_21 = ((2, 1), ("data", "model"))
-SERVE = dict(batch=4, prompt_len=8, gen=8, seed=3)
-# the MLA, SSD and RG-LRU archs' train step on (2, 1)
-MLA_SSM = ("deepseek-v2-236b", "mamba2-1.3b", "recurrentgemma-9b")
-# recurrentgemma's decode on (2, 1): batch 4, 40 steps (its ring is 32)
-RG_DECODE = dict(batch=4, n=40, seed=6)
 # module 6's contract (tests/test_distributed.py:140-170)
 SEQ_SHAPE = dict(b=2, h=8, kv=2, dh=32, s=256, pos=200)
-
-JAX_REF = textwrap.dedent("""
-    import pickle, sys, warnings
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        from repro.configs import get_smoke
-        from repro.core.channel import sample_channel_gains
-        from repro.core.power_control import Policy
-        from repro.data import sample_tokens
-        from repro.launch import steps as S
-        from repro.launch.mesh import make_debug_mesh
-        from repro.models import transformer as T
-
-    STEPS, BATCH, SEQ, ALPHA = {steps}, {batch}, {seq}, {alpha}
-    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
-
-
-    def draws(mesh, dim, leaves):
-        channel = S.default_floa(mesh, dim)["channel"]
-        out = []
-        for t in range(STEPS):
-            k_ch, k_z = jax.random.split(jax.random.PRNGKey(t))
-            out.append({{
-                "h_abs": np.asarray(sample_channel_gains(k_ch, channel)),
-                "z": [np.asarray(jax.random.normal(
-                    jax.random.fold_in(k_z, i), x.shape, jnp.float32))
-                    for i, x in enumerate(leaves)]}})
-        return out
-
-
-    def train(arch, mesh_shape, routes, batch):
-        cfg = get_smoke(arch)
-        params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
-        mesh = make_debug_mesh(mesh_shape, ("data", "model"))
-        toks = [sample_tokens(batch, SEQ + 1, vocab=cfg.vocab_size, seed=t)
-                for t in range(STEPS)]
-        res = {{"params0": np_tree(params), "tokens": toks}}
-        for policy, use_floa in routes:
-            art = S.make_train_step(
-                cfg, mesh, dict(global_batch=batch, seq_len=SEQ,
-                                kind="train"),
-                policy=Policy(policy), alpha=ALPHA, use_floa=use_floa)
-            p, state, log = params, S.init_floa_state(), []
-            with mesh:
-                fn = jax.jit(art.fn, in_shardings=art.in_shardings)
-                for t in range(STEPS):
-                    p, state, m = fn(p, state,
-                                     {{"tokens": jnp.asarray(toks[t])}},
-                                     jnp.uint32(t))
-                    log.append({{**np_tree(state), **np_tree(m)}})
-            res[(policy, use_floa)] = {{"params": np_tree(p), "log": log,
-                                       "meta": art.meta}}
-        res["draws"] = draws(mesh, art.meta["dim"],
-                             jax.tree_util.tree_leaves(params))
-        return res
-
-
-    out = {{"train": train("qwen3-4b", (4, 1), {routes}, BATCH),
-           "moe": train("moonshot-v1-16b-a3b", (2, 1), [("bev", True)],
-                        4)}}
-    for arch in {mla_ssm}:
-        out[arch] = train(arch, (2, 1), [("bev", True)], 4)
-
-    cfg = get_smoke("qwen3-4b")
-    params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
-    mesh = make_debug_mesh((2, 1), ("data", "model"))
-    art = S.make_prefill_step(cfg, mesh, dict(global_batch=4, seq_len=24,
-                                              kind="prefill"))
-    toks = sample_tokens(4, 24, vocab=cfg.vocab_size, seed=9)
-    with mesh:
-        logits = jax.jit(art.fn, in_shardings=art.in_shardings)(
-            params, {{"tokens": jnp.asarray(toks)}})
-    out["prefill"] = {{"params0": np_tree(params), "tokens": toks,
-                      "logits": np.asarray(logits)}}
-
-    def decode(arch, b, n, seed):
-        cfg = get_smoke(arch)
-        params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
-        toks = sample_tokens(b, n, vocab=cfg.vocab_size, seed=seed)
-        caches = T.init_caches(cfg, b, n, window=cfg.window)
-        step = jax.jit(lambda p, c, t, pos: T.decode_step(
-            p, c, t, pos, cfg, window=cfg.window))
-        logits = []
-        for i in range(n):
-            lg, caches = step(params, caches, jnp.asarray(toks[:, i:i + 1]),
-                              jnp.int32(i))
-            logits.append(np.asarray(lg[:, 0]))
-        return {{"params0": np_tree(params), "tokens": toks,
-                "logits": np.stack(logits)}}
-
-
-    sc = get_smoke("starcoder2-3b")
-    out["decode"] = decode("starcoder2-3b", 8, sc.window + 8, 3)
-    out["decode_rg"] = decode("recurrentgemma-9b", *{rg_decode})
-    with open(sys.argv[1], "wb") as f:
-        pickle.dump(out, f)
-    print("JAX_REF_OK", flush=True)
-""").format(steps=STEPS, batch=BATCH, seq=SEQ, alpha=ALPHA, routes=ROUTES,
-           mla_ssm=MLA_SSM, rg_decode=tuple(RG_DECODE.values()))
 
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    """The JAX package's results (`JAX_REF`), run once in a subprocess with
-    4 host devices."""
-    path = tmp_path_factory.mktemp("jax_ref") / "ref.pkl"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    r = subprocess.run([sys.executable, "-c", JAX_REF, str(path)],
-                       capture_output=True, text=True, timeout=600, env=env,
-                       cwd=ROOT)
-    assert r.returncode == 0 and "JAX_REF_OK" in r.stdout, (
-        r.stdout[-3000:] + r.stderr[-3000:])
-    with open(path, "rb") as f:
-        return pickle.load(f)
-
-
-def _train_job(name, ref, mesh, policy, use_floa, arch="qwen3-4b",
-               batch=BATCH):
-    return dict(name=name, kind="train_step", mesh=mesh, arch=arch,
-                params0=ref["params0"], tokens=ref["tokens"],
-                draws=ref["draws"], policy=policy, use_floa=use_floa,
-                alpha=ALPHA, batch=batch, seq=SEQ)
-
+    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in a
+    subprocess with 4 host devices."""
+    return jax_reference(
+        tmp_path_factory, 4,
+        train={"train": ((4, 1), ROUTES, "qwen3-4b", None, BATCH)},
+        decode={"decode": ("starcoder2-3b", 8, 72, 3)})   # 64-slot ring
 
 def _seq_inputs():
     g = np.random.default_rng(0)
@@ -224,9 +91,10 @@ def ranks4(jax_ref, tmp_path_factory):
     and BEV on (2, 2, 1), decode on (4, 1), combine_partials over a
     ("model",) mesh of 4, the refusals."""
     tr, dec = jax_ref["train"], jax_ref["decode"]
-    jobs = [_train_job(f"train_{p}_{f}", tr, MESH_41, p, f)
+    jobs = [train_job(f"train_{p}_{f}", tr, MESH_41, p, f, "qwen3-4b", BATCH)
             for p, f in ROUTES]
-    jobs.append(_train_job("train_bev_pod", tr, MESH_221, "bev", True))
+    jobs.append(train_job("train_bev_pod", tr, MESH_221, "bev", True,
+                          "qwen3-4b", BATCH))
     jobs.append(dict(name="decode", kind="decode", mesh=MESH_41,
                      arch="starcoder2-3b", params0=dec["params0"],
                      tokens=dec["tokens"]))
@@ -234,59 +102,6 @@ def ranks4(jax_ref, tmp_path_factory):
                      pos=SEQ_SHAPE["pos"], **_seq_inputs()))
     jobs.append(dict(name="refusals", kind="refusals"))
     return run_ranks(jobs, 4, tmp_path_factory.mktemp("ranks4"))
-
-
-@pytest.fixture(scope="module")
-def ranks2(jax_ref, tmp_path_factory):
-    """One spawn of 2 gloo ranks on (2, 1): the MoE, MLA, SSD and RG-LRU
-    train steps, prefill, greedy serve and recurrentgemma's decode."""
-    pf = jax_ref["prefill"]
-    jobs = [_train_job("moe", jax_ref["moe"], MESH_21, "bev", True,
-                       arch="moonshot-v1-16b-a3b", batch=4),
-            dict(name="prefill", kind="prefill", mesh=MESH_21,
-                 arch="qwen3-4b", params0=pf["params0"], tokens=pf["tokens"]),
-            dict(name="serve", kind="serve", mesh=MESH_21, arch="qwen3-4b",
-                 **SERVE)]
-    jobs += [_train_job(arch, jax_ref[arch], MESH_21, "bev", True,
-                        arch=arch, batch=4) for arch in MLA_SSM]
-    rg = jax_ref["decode_rg"]
-    jobs.append(dict(name="decode_rg", kind="decode", mesh=MESH_21,
-                     arch="recurrentgemma-9b", params0=rg["params0"],
-                     tokens=rg["tokens"]))
-    return run_ranks(jobs, 2, tmp_path_factory.mktemp("ranks2"))
-
-
-def _close(got, want, rtol=RTOL, atol=ATOL, err_msg=""):
-    np.testing.assert_allclose(np.asarray(torch.as_tensor(got).float()),
-                               np.asarray(want, np.float32), rtol=rtol,
-                               atol=atol, err_msg=err_msg)
-
-
-def _assert_train_matches(got, want):
-    """A rank's train-step result against the JAX run at RTOL / ATOL."""
-    assert got["meta"]["num_workers"] == want["meta"]["num_workers"]
-    assert got["meta"]["dim"] == want["meta"]["dim"]
-    for t, (g, w) in enumerate(zip(got["log"], want["log"])):
-        for k in ("gbar", "eps2", "loss", "grad_scale"):
-            _close(g[k], w[k], err_msg=f"step {t} {k}")
-    jleaves = [v for _, v in sorted(_flat(want["params"]).items())]
-    for path, g, w in zip(tree_paths(got["params"]),
-                          tree_leaves(got["params"]), jleaves):
-        assert np.isfinite(w).all()
-        _close(g, w, err_msg=path)
-
-
-def _flat(tree, prefix=""):
-    """A nested dict of numpy leaves by "/"-joined sorted keys (the JAX leaf
-    order)."""
-    out = {}
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out
 
 
 @pytest.mark.parametrize("policy,use_floa", ROUTES)
@@ -299,7 +114,7 @@ def test_train_step_on_four_ranks_matches_jax(ranks4, jax_ref, policy,
     got = ranks4[f"{name}.r0"]
     assert [ranks4[f"{name}.r{r}"]["worker"] for r in range(4)] == [
         (4, r, 1) for r in range(4)]
-    _assert_train_matches(got, jax_ref["train"][(policy, use_floa)])
+    assert_train_matches(got, jax_ref["train"][(policy, use_floa)])
     assert got["meta"]["num_workers"] == 4
     floa = TSTEPS.default_floa(WorkerAxes(4), got["meta"]["dim"])
     assert floa["attack"].byzantine_mask == (True, False, False, False)
@@ -314,27 +129,6 @@ def test_pod_data_mesh_orders_workers_row_major(ranks4):
     pod, flat = ranks4["train_bev_pod.r0"], ranks4["train_bev_True.r0"]
     assert_trees_equal(pod["params"], flat["params"], "params")
     assert_trees_equal(pod["log"], flat["log"], "log")
-
-
-def test_moe_train_step_on_two_ranks_matches_jax(ranks2, jax_ref):
-    """The smoke moonshot on (2, 1): the MoE aux term of the weighted loss
-    is the global batch's (its counts and probability sums all_reduced),
-    as in the reference."""
-    assert_ranks_agree(ranks2, "moe", 2, skip=("worker",))
-    _assert_train_matches(ranks2["moe.r0"], jax_ref["moe"][("bev", True)])
-
-
-@pytest.mark.parametrize("arch", MLA_SSM)
-def test_mla_and_ssd_train_step_on_two_ranks_matches_jax(ranks2, jax_ref,
-                                                         arch):
-    """deepseek-v2-236b (MLA + MoE: the global aux), mamba2-1.3b (SSD)
-    and recurrentgemma-9b (RG-LRU + local attention) on (2, 1), U = 2,
-    each rank 2 of the 4 rows: the batch split and the gradients'
-    all_reduce of the worker axes, no code of their own."""
-    assert_ranks_agree(ranks2, arch, 2, skip=("worker",))
-    assert [ranks2[f"{arch}.r{r}"]["worker"] for r in range(2)] == [
-        (2, r, 1) for r in range(2)]
-    _assert_train_matches(ranks2[f"{arch}.r0"], jax_ref[arch][("bev", True)])
 
 
 def test_moe_aux_loss_is_the_global_batch_s(monkeypatch):
@@ -365,13 +159,6 @@ def test_moe_aux_loss_is_the_global_batch_s(monkeypatch):
                                      cfg)
 
 
-def test_prefill_on_two_ranks_matches_jax(ranks2, jax_ref):
-    assert_ranks_agree(ranks2, "prefill", 2)
-    got, want = ranks2["prefill.r0"]["logits"], jax_ref["prefill"]["logits"]
-    assert got.shape == want.shape == (4, get_smoke("qwen3-4b").padded_vocab)
-    _close(got, want, rtol=RTOL, atol=RTOL * float(np.abs(want).max()))
-
-
 def test_decode_on_four_ranks_matches_jax(ranks4, jax_ref):
     """starcoder2-3b's 64-slot ring past its wrap, each rank decoding 2 of
     the 8 rows against its own caches; every rank returns all 8 rows."""
@@ -379,35 +166,7 @@ def test_decode_on_four_ranks_matches_jax(ranks4, jax_ref):
     got, want = ranks4["decode.r0"], jax_ref["decode"]["logits"]
     assert got["cache_batch"] == 2
     assert got["logits"].shape == want.shape
-    for i, (g, w) in enumerate(zip(got["logits"], want)):
-        _close(g, w, rtol=DECODE_RTOL,
-               atol=DECODE_RTOL * float(np.abs(want).max()),
-               err_msg=f"step {i}")
-
-
-def test_rglru_hybrid_decode_on_two_ranks_matches_jax(ranks2, jax_ref):
-    """recurrentgemma-9b on (2, 1), each rank decoding 2 of the 4 rows
-    against its own RG-LRU states and local rings, 40 steps past the
-    32-slot ring, against the JAX one-device step."""
-    assert_ranks_agree(ranks2, "decode_rg", 2)
-    got, want = ranks2["decode_rg.r0"], jax_ref["decode_rg"]["logits"]
-    assert got["cache_batch"] == RG_DECODE["batch"] // 2
-    assert got["logits"].shape == want.shape
-    for i, (g, w) in enumerate(zip(got["logits"], want)):
-        _close(g, w, rtol=DECODE_RTOL,
-               atol=DECODE_RTOL * float(np.abs(want).max()),
-               err_msg=f"step {i}")
-
-
-def test_greedy_serve_on_two_ranks_equals_one_process(ranks2):
-    assert_ranks_agree(ranks2, "serve", 2)
-    cfg = get_smoke("qwen3-4b")
-    one = serve(cfg, SERVE["batch"], SERVE["prompt_len"], SERVE["gen"],
-                device="cpu", seed=SERVE["seed"])
-    got = ranks2["serve.r0"]
-    assert torch.equal(got["tokens"], one.tokens)
-    _close(got["logits"], one.logits.numpy(), rtol=RTOL,
-           atol=RTOL * float(one.logits.abs().max()))
+    close_decode(got["logits"], want)
 
 
 def test_combine_partials_over_four_ranks(ranks4):

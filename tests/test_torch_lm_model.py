@@ -230,7 +230,9 @@ def test_lm_sweep_config_and_flat_dim_match_jax():
 
 
 def test_prefix_embeddings_raise():
+    """A prefix on a config without a frontend (no projector) raises; the
+    VLM prefix is held against JAX in tests/test_torch_vlm.py."""
     _, tcfg, _, tp = _model("toy")
     toks = torch.zeros((1, 5), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="no frontend"):
         TT.forward(tp, toks, tcfg, embeds_prefix=torch.zeros((1, 2, 8)))

@@ -1,13 +1,16 @@
 """Shared checks of one registered arch of the port against the JAX package
-at its smoke config (tests/test_torch_mla.py, tests/test_torch_ssm.py;
-test_torch_zoo.py and test_torch_lm.py take some of them): the
-weights of JAX `init_lm(PRNGKey(0))` carried across with `params_from_jax`,
+at its smoke config (tests/test_torch_mla.py, tests/test_torch_ssm.py,
+test_torch_vlm.py, test_torch_encdec.py; test_torch_zoo.py and
+test_torch_lm.py take some of them): the weights of JAX
+`init_model(PRNGKey(0))` (`init_lm`, or `init_encdec` for the
+encoder-decoder) carried across with `params_from_jax`,
 then the parameter tree, the loss and its gradient, prefill, teacher-forced
 decode (and decode against the full-sequence forward within each package),
 one FLOA train step with the JAX step's draws replayed, and the greedy
 serve against the JAX serving loop.  Each compares at `rtol` with an atol
 of rtol times the largest |want| (the products sum in another order in the
-two frameworks)."""
+two frameworks).  `extra`, where a check takes it, adds numpy inputs to
+both batches: a VLM's `embeds_prefix`, an encoder-decoder's `frames`."""
 import dataclasses
 import functools
 import warnings
@@ -55,9 +58,16 @@ def setup(arch, n_layers=None):
     if n_layers is not None:
         jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
         tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
-    jparams, _ = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    jparams, _ = JSTEPS.init_model(jcfg, jax.random.PRNGKey(0))
     jparams = jax.tree_util.tree_map(np.asarray, jparams)
     return jcfg, tcfg, jparams, TT.params_from_jax(jparams, "cpu")
+
+
+def batches(toks, extra=None):
+    """The (JAX, port) batches of numpy tokens and the `extra` inputs."""
+    data = {"tokens": toks, **(extra or {})}
+    return ({k: jnp.asarray(v) for k, v in data.items()},
+            {k: torch.as_tensor(v) for k, v in data.items()})
 
 
 def jpaths(tree):
@@ -83,12 +93,13 @@ def check_tree(arch):
     return want
 
 
-def check_loss_and_grads(arch, batch, seq, seed, grad_rtol=RTOL):
+def check_loss_and_grads(arch, batch, seq, seed, grad_rtol=RTOL,
+                         extra=None):
     """lm_loss, the per-example losses and aux, and the gradient of
     lm_loss leaf by leaf at grad_rtol."""
     jcfg, tcfg, jparams, tparams = setup(arch)
     toks = sample_tokens(batch, seq + 1, vocab=jcfg.vocab_size, seed=seed)
-    bj, bt = {"tokens": jnp.asarray(toks)}, {"tokens": torch.as_tensor(toks)}
+    bj, bt = batches(toks, extra)
     close(TT.lm_loss(tparams, bt, tcfg), JT.lm_loss(jparams, bj, jcfg))
     (tper, taux), (jper, jaux) = (TT.lm_per_example_loss(tparams, bt, tcfg),
                                   JT.lm_per_example_loss(jparams, bj, jcfg))
@@ -102,17 +113,21 @@ def check_loss_and_grads(arch, batch, seq, seed, grad_rtol=RTOL):
         close(g, w, grad_rtol, err_msg=p)
 
 
-def check_prefill(arch, batch, seq, seed):
+def check_prefill(arch, batch, seq, seed, extra=None, shape_seq=None):
+    """The prefill step on `seq` tokens (and `extra`), the steps built for
+    an input shape of `shape_seq` (default seq) positions."""
     jcfg, tcfg, jparams, tparams = setup(arch)
     toks = sample_tokens(batch, seq, vocab=jcfg.vocab_size, seed=seed)
     mesh = make_debug_mesh((1, 1), ("data", "model"))
-    shape = dict(global_batch=batch, seq_len=seq, kind="prefill")
+    shape = dict(global_batch=batch, seq_len=shape_seq or seq,
+                 kind="prefill")
     art = JSTEPS.make_prefill_step(jcfg, mesh, shape)
+    bj, bt = batches(toks, extra)
     with mesh:
-        want = jax.jit(art.fn)(jparams, {"tokens": jnp.asarray(toks)})
+        want = jax.jit(art.fn)(jparams, bj)
     step, meta = TSTEPS.make_prefill_step(tcfg, None, shape)
     assert meta["dim"] == art.meta["dim"]
-    close(step(tparams, {"tokens": torch.as_tensor(toks)}), want)
+    close(step(tparams, bt), want)
 
 
 def check_decode(arch, batch, steps, seed):
@@ -153,19 +168,22 @@ def check_decode(arch, batch, steps, seed):
     close(torch.stack(tl, dim=1), tfull, DECODE_RTOL, err_msg="port")
 
 
-def check_train_step(arch, batch, seq, seed, alpha=0.02, n_layers=None):
+def check_train_step(arch, batch, seq, seed, alpha=0.02, n_layers=None,
+                     extra=None, shape_seq=None):
     """One BEV step on a 1x1 mesh (U = 1), the JAX step's gains and
     per-leaf noise replayed (the weighted loss carries the MoE aux term,
-    router_aux_coef * aux * sum(s) / U, on a MoE arch)."""
+    router_aux_coef * aux * sum(s) / U, on a MoE arch); the batch `seq`
+    + 1 tokens (and `extra`), the steps built for an input shape of
+    `shape_seq` (default seq) positions."""
     jcfg, tcfg, jparams, tparams = setup(arch, n_layers)
     mesh = make_debug_mesh((1, 1), ("data", "model"))
-    shape = dict(global_batch=batch, seq_len=seq, kind="train")
+    shape = dict(global_batch=batch, seq_len=shape_seq or seq, kind="train")
     toks = sample_tokens(batch, seq + 1, vocab=jcfg.vocab_size, seed=seed)
     art = JSTEPS.make_train_step(jcfg, mesh, shape, alpha=alpha)
+    bj, bt = batches(toks, extra)
     with mesh:
         wparams, wstate, wm = jax.jit(art.fn, in_shardings=art.in_shardings)(
-            jparams, JSTEPS.init_floa_state(), {"tokens": jnp.asarray(toks)},
-            jnp.uint32(0))
+            jparams, JSTEPS.init_floa_state(), bj, jnp.uint32(0))
     step, meta = TSTEPS.make_train_step(tcfg, None, shape, alpha=alpha)
     assert meta["dim"] == art.meta["dim"]
     channel = JSTEPS.default_floa(mesh, meta["dim"])["channel"]
@@ -175,8 +193,7 @@ def check_train_step(arch, batch, seq, seed, alpha=0.02, n_layers=None):
                  jax.random.fold_in(k_z, i), x.shape, jnp.float32)))
                    for i, x in enumerate(jax.tree_util.tree_leaves(
                        jparams))]}
-    params, state, m = step(tparams, TSTEPS.init_floa_state(),
-                            {"tokens": torch.as_tensor(toks)}, 0,
+    params, state, m = step(tparams, TSTEPS.init_floa_state(), bt, 0,
                             draws=draws)
     for k in ("gbar", "eps2"):
         close(state[k], wstate[k], err_msg=k)

@@ -38,14 +38,18 @@ dict of tensors:
 
     train_step  `make_train_step` on job["arch"]'s smoke config from the
                 numpy params `params0`, one step a `tokens` entry (the
-                global batch) with `draws` (h_abs and one z a leaf, a list
+                global batch; with its `extra` entry's inputs, a VLM's
+                embeds_prefix or an encoder-decoder's frames, when the
+                job has them) with `draws` (h_abs and one z a leaf, a list
                 by step; None: seeded) and the `policy`, `use_floa`,
                 `alpha`, `batch`, `seq`: the final params, and per step
                 gbar, eps2, loss and grad_scale; the mesh's worker layout
     prefill     `make_prefill_step` on `tokens` [B, S]: the logits
     decode      `make_decode_step(cfg, mesh=...)` teacher-forced through
                 `tokens` [B, n] from empty caches of `batch_rows` rows:
-                logits [n, B, Vp], the caches' batch, decode launches
+                logits [n, B, Vp], the caches' batch, decode launches; an
+                encoder-decoder's against the cross K / V of `frames`
+                (`make_cross_kv_step`)
     serve       `launch.serve.serve(cfg, batch, prompt_len, gen, seed,
                 mesh=...)`: tokens and logits
     seq_partial `decode_local_partial` on this rank's share of the S
@@ -100,6 +104,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.sharding import (gather_params,  # noqa: E402
                                          param_specs, shard_params)
 from repro_torch.models import attention as ATT  # noqa: E402
+from repro_torch.models import encdec as ED  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.common import tensor_parallel  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -255,12 +260,21 @@ def run_lm_job(job):
         b, n = tokens.shape
         step, meta = ST.make_decode_step(cfg, mesh=mesh)
         rows = ST.batch_rows(mesh, b)
-        caches = TT.init_caches(cfg, rows.stop - rows.start, n,
-                                window=meta["window"],
-                                model_parallel=axis.size)
+        if cfg.arch_type == "audio":
+            cross = ST.make_cross_kv_step(cfg, mesh)[0](
+                params, torch.as_tensor(job["frames"]))
+            caches = ED.init_dec_caches(cfg, rows.stop - rows.start, n,
+                                        model_parallel=axis.size)
+            one = lambda i: step(params, caches, cross,  # noqa: E731
+                                 tokens[:, i:i + 1], i)
+        else:
+            caches = TT.init_caches(cfg, rows.stop - rows.start, n,
+                                    window=meta["window"],
+                                    model_parallel=axis.size)
+            one = lambda i: step(params, caches,  # noqa: E731
+                                 tokens[:, i:i + 1], i)
         ops.reset_launches()
-        logits = torch.stack([step(params, caches, tokens[:, i:i + 1],
-                                   i)[0][:, 0] for i in range(n)])
+        logits = torch.stack([one(i)[0][:, 0] for i in range(n)])
         return {"logits": logits, "cache_batch": rows.stop - rows.start,
                 "cache_shape": tuple(tree_leaves(caches)[0].shape),
                 "decode_launches": ops.launch_counts()["decode_attention"],
@@ -277,9 +291,11 @@ def run_lm_job(job):
         if draws is not None:
             draws = {"h_abs": torch.as_tensor(draws["h_abs"]),
                      "z": [torch.as_tensor(z) for z in draws["z"]]}
-        params, state, m = step(params, state,
-                                {"tokens": torch.as_tensor(toks)}, t,
-                                draws=draws)
+        batch = {"tokens": torch.as_tensor(toks)}
+        if job.get("extra"):
+            batch.update({k: torch.as_tensor(v)
+                          for k, v in job["extra"][t].items()})
+        params, state, m = step(params, state, batch, t, draws=draws)
         log.append({**state, **m})
     if axis.size > 1:
         model["shapes"] = [tuple(x.shape) for x in tree_leaves(params)]
