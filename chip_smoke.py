@@ -11,6 +11,9 @@
     python3 chip_smoke.py --strict-rates
                                       # phases 1-2, then the warm rounds/s
                                       # of the strict_numerics routes
+    python3 chip_smoke.py --serve-rate
+                                      # phases 1-2, then phase 14's serve's
+                                      # eager ms a decode step
     python3 chip_smoke.py --zoo       # phases 1-2, phase 3's decode rows
                                       # and phases 23-24 alone
     python3 chip_smoke.py --mla-ssm   # phases 1-2 and 26 alone
@@ -18,6 +21,9 @@
                                       # and phase 27 alone
     python3 chip_smoke.py --frontends # phases 1-2, phase 3's decode rows
                                       # and phase 28 alone
+    python3 chip_smoke.py --layouts   # phases 1-2, phase 3's decode rows
+                                      # and phase 29 alone (its (b) in a
+                                      # spawn of 2 ranks of its own)
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -317,17 +323,42 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               over 256 256 columns) and prefill; (e) its f32 cut at 2 +
               2 layers, the decode against `decode_full` at rtol 1e-4
               of the largest |logit|.
-  29. the `kernels` line (with launches and times by shape where a
+  29. layouts the production layouts: (a) `launch.dryrun.trace_step`'s
+              prediction (one device, the fake CPU tensors and the decode
+              kernel's fake rule of every dry-run record) against the
+              card for runs this script makes:
+              phase 20's qwen3-4b train 8 x 64 and prefill 8 x 512, the
+              serve's decode step at batch 8 on 64-slot caches, phase 28
+              (d)'s seamless train 8 x 512: the argument bytes equal the
+              card's, the predicted peak within 10 % of
+              `max_memory_allocated` (both printed); (b) in the rank
+              phases' 2-rank spawn: qwen3-4b at full width cut to 4
+              layers on (2, 1), FSDP storage over "data" against the
+              replicated layout: prefill logits (8 x 512) and 4
+              teacher-forced decode steps (through the kernel at the
+              rank's [4, 64, H32, KV8, 128]) bitwise, the f32 train step
+              (2 BEV steps) within rtol 1e-5, the bf16 FSDP step's ranks
+              bitwise equal, weight bytes and peak a rank and the
+              gather / reduce_scatter ms ("2 ranks, gloo, one card");
+              (c) --mesh single on one card raises the ValueError that
+              names the 256 ranks it needs; (d) the decode kernel's host
+              time a call at the serve's [8, 64, H32, KV8, 128], the
+              wrapper (off the dispatcher, as the main path launches it)
+              against its custom op (as the dry run traces it), 1000
+              calls each, in the order wrapper, op, op, wrapper.
+  30. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 30. the last line, {"ok": true,
+      a rank's too, must have one); 31. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
-mesh phase's unsharded U = 1000 twin.  Copied into the root of another
-checkout (`git archive` of an earlier commit), it times that checkout's
-src/ the same way: two versions compared within one call.
+mesh phase's unsharded U = 1000 twin, `--serve-rate` phase 14's serve (its
+eager ms a decode step, SERVE_RATE_RUNS runs after a warm-up).  Copied
+into the root of another checkout (`git archive` of an earlier commit),
+either times that checkout's src/ the same way: two versions compared
+within one call.
 
 Any failure raises, so the script exits non-zero before the last line.
 Imports nothing of JAX.
@@ -446,6 +477,16 @@ VLM_ARCH, AUDIO_ARCH = "llava-next-mistral-7b", "seamless-m4t-large-v2"
 FRONT_CUT_LAYERS, FRONT_TRAIN_BATCH, FRONT_TRAIN_SEQ = 4, 2, 4096
 AUDIO_FRAMES, AUDIO_CUT = 512, 2
 FRONT_TP_N, FRONT_TP_LAYERS, FRONT_TP_RTOL = 64, 2, 1e-4
+# The layouts phase (29): (a) the dry run's predicted peak against the
+# card's within PEAK_TOL; (b) qwen3-4b cut to FSDP_LAYERS on (2, 1), FSDP
+# against the replicated layout: FSDP_TF steps of teacher-forced decode
+# (each gathers every weight over gloo), FSDP_STEPS f32 train steps held at
+# FSDP_RTOL (the gradients' sums in another order: reduce_scatter against
+# all_reduce)
+PEAK_TOL = 0.10
+FSDP_LAYERS, FSDP_TF, FSDP_STEPS, FSDP_RTOL = 4, 4, 2, 1e-5
+# --serve-rate: phase 14's serve timed this many times after a warm-up
+SERVE_RATE_RUNS = 5
 T_START = time.perf_counter()
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
 LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
@@ -908,10 +949,10 @@ def large_u_sort_check(torch, ops) -> dict:
 def decode_bytes_flops(b, h, kv, dh, pos, eb) -> tuple:
     """Bytes decode attention must move (q in, out, K and V up to pos) and
     its f32 operations (q.k and p.v, 2 each per element, and ~5 for the
-    softmax per score), for element size eb."""
-    n = pos + 1
-    return (2 * b * h * dh * eb + 2 * b * n * kv * dh * eb,
-            4 * b * h * n * dh + 5 * b * h * n)
+    softmax per score), for element size eb: the kernel module's own cost
+    (`decode_attention.bytes_flops`, which the dry run adds too)."""
+    from repro_torch.kernels.decode_attention import bytes_flops
+    return bytes_flops(b, h, kv, dh, pos + 1, eb)
 
 
 def sdpa_call(torch, q, k, v, pos, want, tol):
@@ -1650,7 +1691,7 @@ def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
         its gradients and its output): (checksums of the weights drawn,
         params, log, meta)."""
         step, meta = ST.make_train_step(cfg, where, shape, alpha=TRAIN_ALPHA,
-                                        policy=Policy(policy))
+                                        policy=Policy(policy), fsdp=False)
         params = lm_params(torch, cfg)
         before = bit_checksums(torch, tree_leaves(params))
         torch.cuda.synchronize()
@@ -1707,14 +1748,14 @@ def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
         # (c) the serve, counted, and its sequence teacher-forced
         ops.reset_launches()
         res = serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda",
-                    mesh=mesh)
+                    mesh=mesh, fsdp=False)
         torch.cuda.synchronize()
         shapes = {k: [[list(sh), n] for sh, n in v.items()]
                   for k, v in ops.launch_shapes().items() if v}
         equal = ranks_agree(bit_checksums(
             torch, [res.tokens.to(torch.int32), res.logits]))
         seq = torch.load(os.path.join(out, "seq.pt")).to("cuda")
-        step, meta = ST.make_decode_step(lm, mesh=mesh)
+        step, meta = ST.make_decode_step(lm, mesh=mesh, fsdp=False)
         rows = ST.batch_rows(mesh, SERVE_BATCH)
         params = lm_params(torch, lm)
         n = seq.shape[1]
@@ -1797,9 +1838,11 @@ def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
     ST._sum_over_workers = sum_over_workers
 
 
-def spawn_ranks(flag: str, world: int, work: str, timeout: int):
-    """Run `chip_smoke.py FLAG RANK WORLD STORE WORK` as `world` ranks on
-    this card (a FileStore under `work`, logs in work/<flag>.rank<r>.log);
+def spawn_ranks(flag: str, world: int, work: str, timeout: int,
+                extra=()):
+    """Run `chip_smoke.py FLAG RANK WORLD STORE WORK [EXTRA]` as `world`
+    ranks on this card (a FileStore under `work`, logs in
+    work/<flag>.rank<r>.log);
     every rank must exit 0, and the first that does not (or the timeout)
     ends the others.  The ranks share the card, so their allocators
     map expandable segments (unless PYTORCH_CUDA_ALLOC_CONF says
@@ -1815,7 +1858,7 @@ def spawn_ranks(flag: str, world: int, work: str, timeout: int):
             for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r), str(world),
-         os.path.join(work, f"{tag}.store"), work], cwd=ROOT, env=env,
+         os.path.join(work, f"{tag}.store"), work, *extra], cwd=ROOT, env=env,
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
     try:
         # a rank that fails ends the others at once: they would wait for
@@ -1932,9 +1975,9 @@ def tp_train(torch, cfg, mesh, coll, tape=None):
     from repro_torch.tree import tree_leaves
     shape = dict(global_batch=TRAIN_BATCH, seq_len=tp_seq(cfg), kind="train")
     step, meta = ST.make_train_step(cfg, mesh, shape, alpha=TRAIN_ALPHA,
-                                    policy=Policy.BEV)
+                                    policy=Policy.BEV, fsdp=False)
     params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
-                           "cuda", mesh=mesh)
+                           "cuda", mesh=mesh, fsdp=False)
     before = bit_checksums(torch, tree_leaves(params))
     batches = [lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, t, FRONT_TP_N)
                for t in range(LM_MODEL_STEPS)]
@@ -2581,13 +2624,14 @@ def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
 
 
 def ranks_child(args) -> int:
-    """`chip_smoke.py --ranks-child RANK WORLD STORE OUT`: one of the rank
-    phases' WORLD ranks on cuda:0 in a gloo group (init_method
+    """`chip_smoke.py --ranks-child RANK WORLD STORE OUT [layouts]`: one of
+    the rank phases' WORLD ranks on cuda:0 in a gloo group (init_method
     file://STORE; NCCL refuses two ranks on one device).  Each world size
     is started once and runs every rank phase's jobs: WORLD = 2 phase 21's
-    sharded sweeps (`mesh_child_cases`), phase 22's (a) and (c) and phase
-    25's (a), (b), (d) and (f); WORLD = 4 phase 22's (b) and phase 25's (e)
-    and (c) (`lm_mesh_parts`, `lm_model_parts`).  Prints no result
+    sharded sweeps (`mesh_child_cases`), phase 22's (a) and (c), phase
+    25's (a), (b), (d) and (f) and phase 29's (b); WORLD = 4 phase 22's (b)
+    and phase 25's (e) and (c) (`lm_mesh_parts`, `lm_model_parts`,
+    `fsdp_parts`); "layouts" runs phase 29's (b) alone.  Prints no result
     line."""
     import torch
     if not torch.cuda.is_available():
@@ -2602,11 +2646,15 @@ def ranks_child(args) -> int:
                                   rank=rank, backend="gloo", device="cuda:0",
                                   timeout_s=600):
         raise AssertionError("ranks child: no process group")
-    if world == MESH_RANKS:
-        mesh_child_cases(torch, rank, out)
-    lm_mesh_parts(torch, rank, world, out)
-    torch.cuda.empty_cache()
-    lm_model_parts(torch, rank, world, out, timed_collectives(torch))
+    if args[4:] != ["layouts"]:
+        if world == MESH_RANKS:
+            mesh_child_cases(torch, rank, out)
+        lm_mesh_parts(torch, rank, world, out)
+        torch.cuda.empty_cache()
+        lm_model_parts(torch, rank, world, out, timed_collectives(torch))
+        torch.cuda.empty_cache()
+    if world == 2:
+        fsdp_parts(torch, rank, world)
     dist.destroy_process_group()
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -4332,6 +4380,302 @@ def frontends_phase(torch, ops, tally) -> None:
     emit("frontends", seconds=time.perf_counter() - t_phase)
 
 
+def fsdp_parts(torch, rank: int, world: int) -> None:
+    """Phase 29 (b), in the 2-rank child: qwen3-4b at full width cut to
+    FSDP_LAYERS layers on the (2, 1) mesh, with the large leaves' storage
+    over "data" (FSDP, the steps' default) against the replicated layout
+    (fsdp=False), each from the same seed (`steps.init_model`): the
+    prefill's logits (PREFILL_BATCH x PREFILL_SEQ) and FSDP_TF
+    teacher-forced decode steps of the serve batch (this rank's rows on
+    SERVE_PROMPT + SERVE_GEN-slot caches, through the kernel) bitwise
+    equal; FSDP_STEPS f32 BEV train steps, the gathered params and the
+    stats within FSDP_RTOL; one bf16 FSDP step, every rank's params
+    bitwise equal.  Each run's weight bytes a rank, peak and, under
+    FSDP, the gathers' and reduce_scatters' ms.  One JSON line a part;
+    any miss raises."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import sample_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import gather_params, stored_bytes
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as LM
+    from repro_torch.tree import tree_leaves
+    lm = dataclasses.replace(get_config(LM_ARCH), n_layers=FSDP_LAYERS)
+    mesh = make_debug_mesh((world, 1), ("data", "model"))
+    label = f"{world} ranks, gloo, one card"
+    ms = {"gather": 0.0, "reduce_scatter": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def weights(cfg, fsdp):
+        return ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda", mesh=mesh, fsdp=fsdp)
+
+    gather0, scatter0 = C.gather_storage, dist.reduce_scatter
+    C.gather_storage = timed(gather0, "gather")
+    dist.reduce_scatter = timed(scatter0, "reduce_scatter")
+    try:
+        pbatch = {"tokens": torch.as_tensor(sample_tokens(
+            PREFILL_BATCH, PREFILL_SEQ, lm.vocab_size, seed=7),
+            device="cuda")}
+        seq = torch.as_tensor(sample_tokens(SERVE_BATCH, FSDP_TF,
+                                            lm.vocab_size, seed=3),
+                              device="cuda")
+        n = SERVE_PROMPT + SERVE_GEN
+        positions = torch.arange(n, dtype=torch.int32, device="cuda")
+        runs = {}
+        for fsdp in (True, False):
+            params = weights(lm, fsdp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in ms:
+                ms[k] = 0.0
+            pf, _ = ST.make_prefill_step(lm, mesh, fsdp=fsdp)
+            t0 = time.perf_counter()
+            prefill = pf(params, pbatch)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            step, meta = ST.make_decode_step(lm, mesh=mesh, fsdp=fsdp)
+            rows = ST.batch_rows(mesh, SERVE_BATCH)
+            caches = LM.init_caches(lm, rows.stop - rows.start, n,
+                                    device="cuda")
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            decode = torch.stack([step(params, caches, seq[:, i:i + 1],
+                                       positions[i])[0][:, 0]
+                                  for i in range(FSDP_TF)])
+            torch.cuda.synchronize()
+            runs[fsdp] = dict(
+                prefill=prefill, decode=decode,
+                weight_bytes=stored_bytes(params),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                prefill_ms=prefill_ms,
+                decode_ms_per_step=(time.perf_counter() - t0) * 1e3
+                / FSDP_TF, gather_ms_prefill_and_decode=ms["gather"],
+                launches=ops.launch_counts()["decode_attention"],
+                shapes=[[list(k), v] for k, v in ops.launch_shapes()[
+                    "decode_attention"].items()])
+            del params, caches
+            torch.cuda.empty_cache()
+        bitwise = (torch.equal(runs[True]["prefill"], runs[False]["prefill"])
+                   and torch.equal(runs[True]["decode"],
+                                   runs[False]["decode"]))
+        launched = all(r["launches"] == FSDP_LAYERS * FSDP_TF
+                       for r in runs.values())
+        print(json.dumps({
+            "phase": "layouts_child", "rank": rank, "part": "serve",
+            "arch": lm.name, "layers": FSDP_LAYERS, "mesh": dict(mesh.shape),
+            "logits_bitwise_equal": bitwise, "decode_launches_ok": launched,
+            **{("fsdp" if k else "replicated"): {
+                kk: v for kk, v in r.items() if kk not in ("prefill",
+                                                            "decode")}
+               for k, r in runs.items()}, "rate_label": label}), flush=True)
+        if not (bitwise and launched):
+            raise AssertionError(f"layouts (b) serve: bitwise {bitwise}, "
+                                 f"launches {[r['launches'] for r in runs.values()]}")
+        del runs
+        # the f32 train step, both layouts, then one bf16 FSDP step
+        lm32 = dataclasses.replace(lm, dtype=torch.float32)
+        shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     kind="train")
+        tokens = [torch.as_tensor(sample_tokens(
+            TRAIN_BATCH, TRAIN_SEQ + 1, lm.vocab_size, seed=t),
+            device="cuda") for t in range(FSDP_STEPS)]
+        trained = {}
+        for cfg, fsdp, steps in ((lm32, True, FSDP_STEPS),
+                                 (lm32, False, FSDP_STEPS), (lm, True, 1)):
+            step, meta = ST.make_train_step(cfg, mesh, shape,
+                                            alpha=TRAIN_ALPHA, fsdp=fsdp)
+            params = weights(cfg, fsdp)
+            weight_bytes = stored_bytes(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in ms:
+                ms[k] = 0.0
+            state, log = ST.init_floa_state("cuda"), []
+            for t in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state,
+                                        {"tokens": tokens[t]}, t)
+                torch.cuda.synchronize()
+                log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                            "gather_ms": ms["gather"],
+                            "reduce_scatter_ms": ms["reduce_scatter"],
+                            **{k: float(v) for k, v in (
+                                ("loss", m["loss"]),
+                                ("grad_scale", m["grad_scale"]),
+                                ("gbar", state["gbar"]),
+                                ("eps2", state["eps2"]))}})
+                for k in ms:
+                    ms[k] = 0.0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            full = gather_params(params, meta["params_specs"], mesh,
+                                 meta["data_specs"])
+            equal = ranks_agree(bit_checksums(torch, tree_leaves(full)))
+            del params
+            trained[(cfg.dtype, fsdp)] = full, log
+            print(json.dumps({
+                "phase": "layouts_child", "rank": rank, "part": "train",
+                "dtype": str(cfg.dtype)[6:], "fsdp": fsdp,
+                "data_sharded_leaves": sum(
+                    d is not None for d in tree_leaves(meta["data_specs"])),
+                "weight_bytes": weight_bytes, "peak_memory_gb": peak,
+                "steps": log, "ranks_bitwise_equal": equal,
+                "rate_label": label}), flush=True)
+            if not (equal and all(math.isfinite(x["loss"]) for x in log)):
+                raise AssertionError(f"layouts (b) train {cfg.dtype} fsdp "
+                                     f"{fsdp}: ranks equal {equal}, {log}")
+            torch.cuda.empty_cache()
+        (a, la), (b, lb) = (trained[(torch.float32, True)],
+                            trained[(torch.float32, False)])
+        worst = max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                    for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        ok = all(bool(torch.allclose(x, y, rtol=FSDP_RTOL, atol=1e-6))
+                 for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        ok = ok and all(abs(x[k] - y[k]) <= 1e-6 + FSDP_RTOL * abs(y[k])
+                        for x, y in zip(la, lb)
+                        for k in ("loss", "grad_scale", "eps2")) and all(
+            abs(x["gbar"] - y["gbar"]) <= FSDP_RTOL * abs(y["gbar"])
+            for x, y in zip(la, lb))
+        print(json.dumps({
+            "phase": "layouts_child", "rank": rank, "part": "f32_parity",
+            "rtol": FSDP_RTOL, "params_max_rel_diff": worst, "ok": ok}),
+            flush=True)
+        if not ok:
+            raise AssertionError("layouts (b): the f32 FSDP train step and "
+                                 "the replicated one disagree")
+    finally:
+        C.gather_storage, dist.reduce_scatter = gather0, scatter0
+
+
+def layouts_phase(torch) -> None:
+    """Phase 29 (a), (c) and (d), in this process (the script's (b) runs in
+    the rank phases' 2-rank spawn, `fsdp_parts`): for each run of
+    `layout_cases`, the dry run's prediction (`launch.dryrun.trace_step`:
+    one device, the route of every dry-run record: fake CPU tensors, the
+    decode kernel by its op's fake rule) and then the run on the card from the same arguments
+    (`dryrun.step_args`, with cfg's random weights), once to warm up and
+    once measured: the argument bytes equal, the peak above the memory
+    held before the arguments within PEAK_TOL of the prediction.  Then
+    --mesh single on this one process raises the ValueError naming its
+    256 ranks, and the decode kernel's host time a call is taken through
+    its wrapper and through its op (`dispatch_us`)."""
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch.mesh import mesh_from_arg
+    from repro_torch.launch.steps import make_step
+    rows = []
+    for name, cfg, shape in layout_cases():
+        pred = DRY.trace_step(cfg, "decode_32k", shape, None, route="cuda")
+        step, meta = make_step(cfg, None, "decode_32k", shape)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = DRY.step_args(cfg, "decode_32k", shape, None, meta, "cuda",
+                             params=lm_params(torch, cfg))
+        seed = (0,) if shape["kind"] == "train" else ()
+        out = step(*args, *seed)
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(*args, *seed)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        arg = DRY.storage_bytes(args)
+        del out, args
+        torch.cuda.empty_cache()
+        mem = pred["memory"]
+        rel = (mem["peak"] - peak) / peak
+        rows.append({"run": name, "arch": cfg.name, "shape": shape,
+                     "argument_bytes": arg,
+                     "predicted_argument_bytes": mem["argument_size"],
+                     "peak_bytes": peak, "predicted_peak_bytes": mem["peak"],
+                     "peak_rel_diff": rel, "ms": run_ms,
+                     "predicted_flops": pred["flops_per_device"],
+                     "predicted_bytes_moved": pred["bytes_per_device"],
+                     "trace_s": pred["trace_s"]})
+        print(f"layouts (a) {name}: peak {peak / 1e9:.3f} GB, predicted "
+              f"{mem['peak'] / 1e9:.3f} GB ({100 * rel:+.2f} %); argument "
+              f"bytes {arg}, predicted {mem['argument_size']}", flush=True)
+    try:
+        mesh_from_arg("single")
+        single = None
+    except ValueError as e:
+        single = str(e)
+    ok = (all(r["argument_bytes"] == r["predicted_argument_bytes"]
+              and abs(r["peak_rel_diff"]) <= PEAK_TOL for r in rows)
+          and single is not None and "needs 256 ranks" in single)
+    emit("layouts", peak_tol=PEAK_TOL, runs=rows, mesh_single=single,
+         dispatch_us=dispatch_us(torch),
+         card_total_memory=torch.cuda.get_device_properties(0).total_memory,
+         ok=ok)
+    if not ok:
+        raise AssertionError("layouts: a prediction missed the card, or "
+                             "--mesh single did not refuse one process")
+
+
+def dispatch_us(torch) -> dict:
+    """Host microseconds a call of the decode kernel at the serve's shape
+    ([SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, H, KV, dh] of LM_ARCH, bf16,
+    pos a device tensor as in the decode step): 1000 eager calls with one
+    synchronisation (`call_ms`; the kernel's few microseconds hide behind
+    the host's launch), through the wrapper the main path calls and
+    through the custom op the dry run traces, in the order wrapper, op,
+    op, wrapper."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    lm = get_config(LM_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    s = SERVE_PROMPT + SERVE_GEN
+    q = torch.randn(SERVE_BATCH, lm.n_heads, lm.hd, generator=g,
+                    device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(SERVE_BATCH, s, lm.n_kv_heads, lm.hd, generator=g,
+                        device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    pos = torch.tensor(s - 1, dtype=torch.int32, device="cuda")
+    routes = {"wrapper": lambda: DA.decode_attention(q, k, v, pos),
+              "op": lambda: DA.card_route(q, k, v, pos)}
+    got = {"wrapper": [], "op": []}
+    for name in ("wrapper", "op", "op", "wrapper"):
+        got[name].append(call_ms(torch, routes[name], iters=1000) * 1e3)
+    return {"shape": [SERVE_BATCH, s, lm.n_heads, lm.n_kv_heads, lm.hd],
+            **got, "op_minus_wrapper_us": sum(got["op"]) / 2
+            - sum(got["wrapper"]) / 2}
+
+
+def layout_cases() -> list:
+    """Phase 29 (a)'s runs: (name, config, input shape) of phase 20's
+    qwen3-4b train step and prefill, the serve's decode step (batch 8,
+    SERVE_PROMPT + SERVE_GEN-slot caches, at its last position) and phase
+    28 (d)'s seamless-m4t-large-v2 train step."""
+    from repro_torch.configs import get_config
+    lm, audio = get_config(LM_ARCH), get_config(AUDIO_ARCH)
+    return [("train", lm, dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               kind="train")),
+            ("prefill", lm, dict(global_batch=PREFILL_BATCH,
+                                 seq_len=PREFILL_SEQ, kind="prefill")),
+            ("decode", lm, dict(global_batch=SERVE_BATCH,
+                                seq_len=SERVE_PROMPT + SERVE_GEN,
+                                kind="decode")),
+            ("seamless_train", audio, dict(global_batch=SERVE_BATCH,
+                                           seq_len=AUDIO_FRAMES,
+                                           kind="train"))]
+
+
 def decode_shapes(lm) -> dict:
     """decode_attention's main-path launches by (B, S, H, KV, dh): the
     serve (phase 14) and long-cache (16) runs of lm, the zoo's serves
@@ -4423,6 +4767,22 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if sys.argv[1:] == ["--serve-rate"]:   # 1-2, then phase 14's rate
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import serve
+        lm = get_config(LM_ARCH)
+        params = lm_params(torch, lm)
+        ms = [serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda",
+                    params=params).decode_s * 1e3 / SERVE_GEN
+              for _ in range(SERVE_RATE_RUNS + 1)][1:]
+        emit("serve_rate", src=os.path.join(ROOT, "src"), arch=lm.name,
+             batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+             eager_ms_per_step=ms, median_ms=sorted(ms)[len(ms) // 2])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     if sys.argv[1:] == ["--mla-ssm"]:   # phases 1-2 and 26 alone
         mla_ssm_phase(torch, ops, lambda counts: None)
         print(json.dumps({"ok": True, "device": {
@@ -4445,6 +4805,27 @@ def main() -> int:
     if sys.argv[1:] == ["--frontends"]:   # 1-2, 3's decode rows, 28 alone
         check_kernels(torch, decode_cases(torch, ops), floor_ms)
         frontends_phase(torch, ops, lambda counts: None)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--layouts"]:   # 1-2, 3's decode rows, 29 alone
+        import shutil
+        import tempfile
+        check_kernels(torch, decode_cases(torch, ops), floor_ms)
+        layouts_phase(torch)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        work = tempfile.mkdtemp(prefix="ranks_", dir=os.path.join(ROOT,
+                                                                  "build"))
+        try:
+            lines, wall = spawn_ranks("--ranks-child", 2, work, 600,
+                                      ("layouts",))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        for rank_lines in lines.values():
+            for line in rank_lines:
+                print(json.dumps(line), flush=True)
+        emit("ranks", children_wall_s={2: wall})
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4916,6 +5297,11 @@ def main() -> int:
     # decode kernel at dh 64)
     frontends_phase(torch, ops, tally)
 
+    # 29. the production layouts: the dry run's predictions against the
+    # card, --mesh single on one process ((b), FSDP on ranks, ran in the
+    # rank phases' 2-rank spawn)
+    layouts_phase(torch)
+
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -5026,7 +5412,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 29. the kernel list
+    # 30. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

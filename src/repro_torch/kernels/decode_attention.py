@@ -28,7 +28,15 @@ device, so a 4096-slot ring at pos 524 287 is planned and cut as a
 
 CPU tensors take the plain version (`kernels/ref.py::decode_attention_ref`),
 CUDA tensors launch the kernel or raise; `plain=True` forces the plain
-version for kernel-vs-plain tests.  Launches are counted per wrapper call in
+version for kernel-vs-plain tests.  The launch is also the custom op
+`repro_torch::decode_attention` -> (out, split-K workspace), so that a
+trace on fake tensors (`launch/dryrun.py`, through `card_route`) passes
+it by its fake rule: the same output and workspace, the splits planned
+from an H100's 132 SMs and the occupancy the kernel reports there
+(`H100_OCCUPANCY`), the library never loaded.  The wrapper launches
+directly, off the dispatcher.  `bytes_flops` is the op's cost, which the
+trace adds since an op counter does not see inside a custom op.
+Launches are counted per launch in
 `decode_attention.launches`, and by (B, S, H, KV, dh) in `.shapes`.  At bf16 the two routes differ by rounding:
 the plain version rounds the scores and the probabilities to bf16, as the
 JAX oracle does; the kernel keeps the scores in f32 and rounds the
@@ -40,6 +48,7 @@ from __future__ import annotations
 
 import collections
 import functools
+from typing import Tuple
 
 import torch
 
@@ -53,6 +62,15 @@ HEAD_DIMS = (32, 64, 128, 256)   # the kernel's template instances
 # tensor-core tile's N), so G <= 8 reads K/V once; f32 takes up to 4.
 HEADS_PER_BLOCK = {torch.float32: 4, torch.bfloat16: 8}
 MIN_CHUNK = 256             # fewest cache positions worth a chunk of its own
+# The fake rule's card: an NVIDIA H100's streaming multiprocessors (data
+# sheet), and the pass-1 blocks an SM holds by (dh, dtype), as
+# `decode_attention_occupancy` reports them on an NVIDIA H100 80GB HBM3
+# (700 W, CUDA 12.8).
+H100_SMS = 132
+H100_OCCUPANCY = {(32, torch.float32): 5, (32, torch.bfloat16): 9,
+                  (64, torch.float32): 5, (64, torch.bfloat16): 4,
+                  (128, torch.float32): 5, (128, torch.bfloat16): 2,
+                  (256, torch.float32): 3, (256, torch.bfloat16): 1}
 MAX_SPLITS = 1024           # grid.y stays far below its 65535 limit
 WAVE_FILL = 0.9             # a grid's least share of one wave, and its last
 
@@ -100,14 +118,30 @@ def launch_plan(b: int, h: int, kvh: int, s_len: int, dtype,
     return blocks, num_splits(blocks, s_len, slots)
 
 
+def split_plan(b: int, h: int, kvh: int, s_len: int, dh: int, dtype,
+               slots: int) -> tuple:
+    """(n_split, workspace floats) for one launch shape on a card that
+    holds `slots` pass-1 blocks at once."""
+    _, n = launch_plan(b, h, kvh, s_len, dtype, slots)
+    return n, (b * h * n * (dh + 2) if n > 1 else 0)
+
+
 @functools.lru_cache(maxsize=4096)
 def _plan(device_index: int, b: int, h: int, kvh: int, s_len: int, dh: int,
           dtype) -> tuple:
     """(n_split, workspace floats) for one launch shape on one card."""
-    code = DTYPE_CODES[dtype]
-    _, n = launch_plan(b, h, kvh, s_len, dtype,
-                       _resident_slots(device_index, dh, code))
-    return n, (b * h * n * (dh + 2) if n > 1 else 0)
+    return split_plan(b, h, kvh, s_len, dh, dtype, _resident_slots(
+        device_index, dh, DTYPE_CODES[dtype]))
+
+
+def bytes_flops(b: int, h: int, kv: int, dh: int, n: int,
+                eb: int) -> tuple:
+    """(bytes, operations) of one call over n valid cache positions, for
+    element size eb: q in, out, K and V up to n read once; q.k and p.v, 2
+    operations each per element, and ~5 for the softmax per score (the
+    bound `chip_smoke.py` holds the kernel's time against)."""
+    return (2 * b * h * dh * eb + 2 * b * n * kv * dh * eb,
+            4 * b * h * n * dh + 5 * b * h * n)
 
 
 def _pos_tensor(pos, device) -> Tensor:
@@ -152,16 +186,13 @@ def _check(q, k, v, pos) -> None:
         raise ValueError(f"pos={pos} is negative")
 
 
-def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos, *,
-                     plain: bool = False) -> Tensor:
-    """q [B, H, dh]; k/v [B, S, KV, dh]; pos scalar >= 0 -> [B, H, dh]:
-    the attention over slots [0, min(pos + 1, S))."""
-    _check(q, k, v, pos)
-    if q.device.type == "cpu" or plain:
-        return ref.decode_attention_ref(q, k, v, pos)
+def _launch(q: Tensor, k: Tensor, v: Tensor, pos: Tensor
+            ) -> Tuple[Tensor, Tensor]:
+    """The kernel on checked CUDA tensors (pos a one-element int32 tensor
+    on q's device): (out, the split-K workspace; out itself at one
+    split)."""
     need((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0,
          "decode_attention: q, k and v must be 16-byte aligned")
-    pos_t = _pos_tensor(pos, q.device)
     b, h, dh = q.shape
     s_len, kvh = k.shape[1], k.shape[2]
     dev = q.device.index
@@ -170,13 +201,50 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos, *,
     ws = (torch.empty(ws_numel, dtype=torch.float32, device=q.device)
           if n_split > 1 else out)
     err = _build.library("decode_attention").decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         out.data_ptr(), ws.data_ptr(), b, h, kvh, s_len, dh, n_split,
         DTYPE_CODES[q.dtype], torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     decode_attention.shapes[(b, s_len, h, kvh, dh)] += 1
-    return out
+    return out, ws
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         device_types="cuda")
+def _card_route(q: Tensor, k: Tensor, v: Tensor, pos: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+    """`_launch` as an op: (out, the split-K workspace, empty at one
+    split)."""
+    out, ws = _launch(q, k, v, pos)
+    return out, (q.new_empty(0, dtype=torch.float32) if ws is out else ws)
+
+
+@_card_route.register_fake
+def _card_route_fake(q, k, v, pos):
+    """What the card route allocates, planned for an H100 (`H100_SMS`,
+    `H100_OCCUPANCY`) without loading the library."""
+    b, h, dh = q.shape
+    _, ws_numel = split_plan(b, h, k.shape[2], k.shape[1], dh, q.dtype,
+                             H100_SMS * H100_OCCUPANCY[(dh, q.dtype)])
+    return torch.empty_like(q), q.new_empty(ws_numel, dtype=torch.float32)
+
+
+def card_route(q: Tensor, k: Tensor, v: Tensor, pos) -> Tensor:
+    """The kernel through its op whatever the tensors' device: fake
+    tensors take the op's fake rule, as `launch/dryrun.py` traces them."""
+    _check(q, k, v, pos)
+    return _card_route(q, k, v, _pos_tensor(pos, q.device))[0]
+
+
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos, *,
+                     plain: bool = False) -> Tensor:
+    """q [B, H, dh]; k/v [B, S, KV, dh]; pos scalar >= 0 -> [B, H, dh]:
+    the attention over slots [0, min(pos + 1, S))."""
+    _check(q, k, v, pos)
+    if q.device.type == "cpu" or plain:
+        return ref.decode_attention_ref(q, k, v, pos)
+    return _launch(q, k, v, _pos_tensor(pos, q.device))[0]
 
 
 decode_attention.launches = 0

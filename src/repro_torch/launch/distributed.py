@@ -32,7 +32,12 @@ and `reduce_out` (psum forward, identity backward: the same op as
 `gather_shards` is the differentiable gather of a column-parallel product
 that every rank then reads in its own way (MLA's q_lora columns, the SSD
 block's in_proj columns, the RG-LRU's convolved x): all_gather forward, and backward this rank's
-slice of the group-summed gradient.  The
+slice of the group-summed gradient.
+`gather_storage` joins a weight leaf whose storage is sharded over the
+"data" ranks (`launch.sharding.fsdp_augment`, ZeRO-3) where a layer uses
+it: all_gather forward, a summing reduce_scatter backward (each rank's
+gradient of the whole leaf comes from its own rows, so the sum over the
+"data" ranks is the over-the-air sum of their workers).  The
 reference's `setup_compilation_cache` has no counterpart: the
 port compiles nothing at run time except its CUDA kernels, which
 `kernels/_build.py` builds once into `build/kernels/` and reuses.
@@ -114,7 +119,7 @@ def group_options(backend: str):
     """`backend`'s options for a group made beside the process group,
     carrying the timeout `initialize_distributed` gave it; None (the
     backend's default timeout) for a group started elsewhere."""
-    if _timeout is None:
+    if _timeout is None or backend not in ("nccl", "gloo"):
         return None
     opts = (dist.ProcessGroupNCCL.Options() if backend == "nccl"
             else dist.ProcessGroupGloo._Options())
@@ -251,6 +256,35 @@ def gather_shards(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
     if group is None:
         return x
     return _GatherShards.apply(x, group, dim % x.dim())
+
+
+class _GatherStorage(torch.autograd.Function):
+    """all_gather forward, summing reduce_scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = [p.contiguous() for p in grad.chunk(
+            dist.get_world_size(ctx.group), ctx.dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM,
+                            group=ctx.group)
+        return out, None, None
+
+
+def gather_storage(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The whole of a leaf whose storage `group`'s ranks split along `dim`
+    (this rank's part `x`, the parts in rank order): all_gather forward;
+    backward, the reduce_scatter of the whole leaf's gradient summed over
+    the group, so each rank's part receives every rank's contribution to
+    it once.  `x` itself when group is None."""
+    if group is None:
+        return x
+    return _GatherStorage.apply(x, group, dim % x.dim())
 
 
 class _GatherOut(torch.autograd.Function):

@@ -27,9 +27,12 @@ count, is the size of the worker axes ("pod", "data"), and each worker is
 the M ranks of one position on them (`worker_axes`), which split every
 layer over the "model" axis (`model_axis`: tensor parallelism, M the
 "model" size).  A worker's group of ranks is the ranks that share this
-rank's model index.  `--mesh single|multi`, the reference's 256- and
-512-chip TPU pod layouts, raise (`mesh_from_arg`): over GPU ranks the
-counterpart is `--mesh RxM`.
+rank's model index.  `make_production_mesh` is the reference's
+production layout over the ranks: 16 x 16 ("data", "model"), 256 ranks,
+or 2 x 16 x 16 ("pod", "data", "model"), 512 (`--mesh single|multi`,
+`mesh_from_arg`); on a fake process group of that size its rank 0 is what
+`launch/dryrun.py` traces.  The "data" axis (`data_axis`) also shards
+the storage of the large weights (`launch.sharding.fsdp_augment`).
 
 The reference's `NamedSharding` placement helpers (`lane_sharding`,
 `sweep_state_sharding`, `put_with_sharding`, `stage_batch_block`) have no
@@ -165,11 +168,30 @@ def model_parallel(mesh) -> int:
 
 # What of the LM steps' "model" axis is still to port: the message of its
 # refusals.
-Q_MODEL_AXIS = ("is not ported (ROADMAP.md Queue 1 item 8d: FSDP storage "
-                "sharding over \"data\", sequence-parallel residuals, and "
-                "attention layouts whose query heads the \"model\" axis "
-                "does not divide)")
+Q_MODEL_AXIS = ("is not ported (ROADMAP.md Queue 1 item 8d: attention "
+                "layouts whose query heads the \"model\" axis does not "
+                "divide, and sequence-parallel residuals)")
 STEP_AXES = ("pod", "data", "model")
+# The reference's production layouts (`repro/launch/mesh.py::
+# make_production_mesh`): --mesh single and multi.
+PRODUCTION = {"single": ((16, 16), ("data", "model")),
+              "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> "SweepMesh":
+    """The reference's production mesh over the ranks of the process group:
+    16 x 16 ("data", "model") (256 ranks) or, multi_pod, 2 x 16 x 16
+    ("pod", "data", "model") (512): 16 or 32 FL workers of 16
+    tensor-parallel ranks each.  ValueError, naming the count it needs,
+    unless the process group has exactly that many ranks."""
+    shape, axes = PRODUCTION["multi" if multi_pod else "single"]
+    n, ranks = math.prod(shape), world()[1]
+    if ranks != n:
+        raise ValueError(
+            f"the {'multi' if multi_pod else 'single'}-pod production mesh "
+            f"{' x '.join(map(str, shape))} {axes} needs {n} ranks; the "
+            f"process group has {ranks}")
+    return SweepMesh(shape, axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,12 +227,13 @@ class ModelAxis:
     size: int = 1
     index: int = 0
     group: object = None
+    NAME = "model"
 
     def __post_init__(self):
         if self.size > 1 and self.group is None:
-            raise ValueError(f"a \"model\" axis of {self.size} ranks needs "
-                             f"their process group: take it from the mesh "
-                             f"(model_axis(mesh))")
+            raise ValueError(f"a \"{self.NAME}\" axis of {self.size} ranks "
+                             f"needs their process group: take it from the "
+                             f"mesh ({self.NAME}_axis(mesh))")
 
     def shards(self, n: int) -> bool:
         """Whether a dim of n is split over the axis: the reference's
@@ -221,6 +244,16 @@ class ModelAxis:
         """This rank's indices of a dim of n split over the axis."""
         per = n // self.size
         return slice(self.index * per, (self.index + 1) * per)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataAxis(ModelAxis):
+    """This rank's place on the "data" axis as the weights' storage sees
+    it (`launch.sharding.fsdp_augment`): a data-sharded leaf is split over
+    the `size` ranks of `group` (the ranks that share this rank's "pod"
+    and "model" indices), this rank holding the `index`-th part, and
+    gathered whole where a layer uses it."""
+    NAME = "data"
 
 
 def _subgroup(mesh, axes: Tuple[str, ...]):
@@ -295,29 +328,45 @@ def model_axis(mesh) -> ModelAxis:
     """The "model" axis of an LM step's mesh (`worker_axes`'s meshes):
     (M, this rank's model index, the group of the M ranks); M = 1 for
     None, a `WorkerAxes` and a mesh without the axis."""
+    return _axis(mesh, "model", ModelAxis)
+
+
+def _axis(mesh, name: str, cls):
+    """`cls` of the `name` axis of an LM step's mesh (`worker_axes`'s
+    meshes): size 1 for None, a `WorkerAxes` and a mesh without it."""
     worker_axes(mesh)
     if mesh is None or isinstance(mesh, (WorkerAxes, tuple, list)) \
-            or model_parallel(mesh) == 1:
-        return ModelAxis()
-    return ModelAxis(model_parallel(mesh), mesh.axis_index("model"),
-                     mesh.group("model"))
+            or mesh.shape.get(name, 1) == 1:
+        return cls()
+    return cls(mesh.shape[name], mesh.axis_index(name), mesh.group(name))
+
+
+def data_axis(mesh) -> DataAxis:
+    """The "data" axis of an LM step's mesh, over which the weights'
+    storage is sharded (`launch.sharding.data_specs`): (R, this rank's
+    data index, the group of the R ranks that share its pod and model
+    indices); R = 1 for None, a `WorkerAxes` and a mesh without the
+    axis."""
+    return _axis(mesh, "data", DataAxis)
+
+
+def pod_group(mesh):
+    """The group of the ranks that differ from this one only in "pod"
+    (None without a "pod" axis of more than one): over it a data-sharded
+    leaf's gradient, already summed over "data", is summed over the rest
+    of the workers."""
+    return _axis(mesh, "pod", ModelAxis).group
 
 
 def mesh_from_arg(spec: str) -> Optional[SweepMesh]:
-    """The drivers' --mesh "RxM" over the process group: the (R, M)
+    """The drivers' --mesh over the process group: "single" / "multi", the
+    reference's production meshes (`make_production_mesh`: 256 or 512
+    ranks, else ValueError naming the count), or "RxM", the (R, M)
     ("data", "model") debug mesh of every rank (R FL workers of M ranks
-    each, tensor parallel over "model"), or None for "1x1" in one process
-    (no mesh).  R x M other than the number of ranks raises ValueError;
-    "single" / "multi", the reference's production layouts (16 x 16 and
-    2 x 16 x 16 TPU chips), raise NotImplementedError."""
-    if spec in ("single", "multi"):
-        raise NotImplementedError(
-            f"--mesh {spec}: make_production_mesh is a "
-            f"{256 if spec == 'single' else 512}-chip TPU pod layout "
-            f"(16 x 16, 2 x 16 x 16 chips); over GPU ranks its counterpart "
-            f"is --mesh RxM on the ranks this process group has (R FL "
-            f"workers of M tensor-parallel ranks; ROADMAP.md Queue 1 item "
-            f"8d)")
+    each, tensor parallel over "model"), None for "1x1" in one process (no
+    mesh).  R x M other than the number of ranks raises ValueError."""
+    if spec in PRODUCTION:
+        return make_production_mesh(multi_pod=spec == "multi")
     r, m = (int(x) for x in spec.lower().split("x"))
     ranks = world()[1]
     if r * m != ranks:

@@ -16,8 +16,12 @@ heads); every rank takes the next tokens from the gathered logits, so all
 ranks emit the same stream; rank 0 prints.  Several ranks on one card name
 `--backend gloo` and `--device cuda:0` (NCCL refuses two ranks on one
 device); nothing picks another backend or device on its own.  `--mesh
-single|multi`, the reference's TPU pod layouts, raise (`--mesh RxM` is
-their counterpart over GPU ranks).
+single|multi` are the reference's production layouts over 256 or 512
+ranks (`launch.mesh.make_production_mesh`: 16 x 16 ("data", "model") and
+2 x 16 x 16 ("pod", "data", "model")); on another number of ranks they
+raise ValueError naming the count.  On a mesh of several "data" ranks the
+large weights' storage is split over them too (FSDP,
+`launch.sharding.data_specs`).
 
 Every decoder-only arch serves (qwen3-4b, granite-8b, starcoder2-3b,
 moonshot-v1-16b-a3b, llama4-maverick-400b-a17b, deepseek-v2-236b with MLA,
@@ -86,7 +90,8 @@ def _sync(device: torch.device) -> None:
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
           device="cuda", temperature: float = 0.0, seed: int = 0,
           params: Optional[Dict] = None, plain: bool = False,
-          shape: str = "decode_32k", mesh=None) -> ServeResult:
+          shape: str = "decode_32k", mesh=None,
+          fsdp: bool = True) -> ServeResult:
     """Prefill `batch` prompts of `prompt_len` tokens by decoding them one
     position at a time, then generate `gen` tokens.  `params` (e.g. from
     `transformer.params_from_jax`) replaces the random weights; `plain=True`
@@ -99,7 +104,10 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
     of all rows.  Over a "model" axis of M > 1 `params` are this rank's
     shards (`launch.sharding.shard_params`; the random weights are those
     of one rank from `seed`, each leaf sliced as it is drawn:
-    `steps.init_model`) and the caches hold its KV heads.  The caches,
+    `steps.init_model`) and the caches hold its KV heads; with fsdp (the
+    default) on a mesh of several "data" ranks the large leaves' storage
+    is split over them too (`launch.sharding.data_specs`), each layer
+    gathering its own as it runs.  The caches,
     the step positions and the tokens stay on the device, so the loop
     syncs with the host only at the phase boundaries."""
     if cfg.arch_type == "audio":
@@ -109,11 +117,12 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
             f"takes the cross K / V of launch.steps.make_cross_kv_step")
     dev = resolve_device(device)
     max_len = prompt_len + gen
-    step, meta = make_decode_step(cfg, shape, plain=plain, mesh=mesh)
+    step, meta = make_decode_step(cfg, shape, plain=plain, mesh=mesh,
+                                  fsdp=fsdp)
     m = model_axis(mesh).size
     if params is None:
         params = init_model(cfg, torch.Generator(dev).manual_seed(seed),
-                            dev, mesh=mesh)
+                            dev, mesh=mesh, fsdp=fsdp)
     prompts = torch.as_tensor(
         sample_tokens(batch, prompt_len, vocab=cfg.vocab_size, seed=seed),
         dtype=torch.long, device=dev)
@@ -162,7 +171,8 @@ def main() -> None:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mesh", default="1x1",
                     help="RxM: the batch split over R row groups of M "
-                         "tensor-parallel ranks (torchrun)")
+                         "tensor-parallel ranks (torchrun); single | multi: "
+                         "the production 16 x 16 / 2 x 16 x 16 meshes")
     ap.add_argument("--backend", default=None,
                     help="the process group's backend (gloo for several "
                          "ranks on one card); default NCCL on a card")

@@ -39,25 +39,38 @@ nothing.  A rank's decode caches are built by
 reference's `cache_specs` splits another dim where M does not divide KV;
 `models/attention.py`), the whole MLA latent, its heads' SSD state
 (`models/ssm.py`) and its W / M channels of the RG-LRU state
-(`models/rglru.py`).  `fsdp_augment`'s storage sharding over "data"
-and the sequence-parallel residuals of `make_constrain` are not ported
+(`models/rglru.py`).
+
+Storage over "data" (ZeRO-3, the reference's `fsdp_augment`): a leaf of
+at least FSDP_MIN_SIZE elements is also split over the R "data" ranks on
+its largest dim that the "model" axis leaves whole and R divides (dim 0 of
+a stacked leaf of more than two dims skipped); `data_specs` is that tree,
+each leaf's "data" dim or None, beside `param_specs`.  A rank stores the
+slice of both dims (`shard_params`, `init_shards`), and each layer
+gathers its data-sharded leaves over "data" where it is used
+(`models.common.storage_sharded`, `launch.distributed.gather_storage`),
+so the data gather of a leaf yields its "model" shard.  The
+sequence-parallel residuals of `make_constrain` are not ported
 (ROADMAP.md Queue 1 item 8d); `sweep_state_spec` is the sweep engine's
 column split (`fl/sweep.py::_ModelShards`).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.launch.distributed import all_gather
-from repro_torch.launch.mesh import model_axis
+from repro_torch.launch.mesh import data_axis, model_axis
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
+
+FSDP_MIN_SIZE = 1 << 22  # 4M elements: below this, replication is cheaper
 
 
 def _first_split(shape: Sequence[int], prefer: int, m: int) -> Optional[int]:
@@ -140,8 +153,8 @@ def _specs(tree: Dict, prefix: Tuple[str, ...], stacked: bool,
         if isinstance(v, dict):
             out[k] = _specs(v, path, stacked or k in STACKED, cfg, m)
             continue
-        shape = tuple(v.shape[1:] if stacked else v.shape)
-        dim = _leaf_spec(path, shape, cfg, m) if m > 1 else None
+        dim = _leaf_spec(path, tuple(v.shape[1:] if stacked else v.shape),
+                         cfg, m)
         out[k] = None if dim is None else dim + int(stacked)
     return out
 
@@ -149,54 +162,116 @@ def _specs(tree: Dict, prefix: Tuple[str, ...], stacked: bool,
 def param_specs(cfg: ModelConfig, m: int) -> Dict:
     """Each parameter leaf's "model" dim over m ranks (or None), in the
     parameter tree's structure (`repro_torch.tree` leaf order); shapes from
-    an init on the "meta" device, so nothing is allocated."""
-    return _specs(init_params(cfg, None, "meta"), (), False, cfg, m)
+    an init on the "meta" device, so nothing is allocated.  m = 1 splits
+    nothing."""
+    specs = _specs(init_params(cfg, None, "meta"), (), False, cfg, m)
+    return specs if m > 1 else tree_map(lambda _: None, specs)
 
 
-def _slice(x: Tensor, dim: Optional[int], axis) -> Tensor:
-    """This rank's slice of a leaf split on dim (a copy, so the whole leaf
-    can be freed), or the leaf itself."""
-    if dim is None:
+def fsdp_augment(specs: Dict, shapes: Dict, data_size: int,
+                 min_size: int = FSDP_MIN_SIZE) -> Dict:
+    """Each leaf's "data" dim over data_size ranks, or None (the
+    reference's `fsdp_augment`, as a tree beside the "model" `specs`):
+    leaves of at least min_size elements only, on the largest dim that the
+    leaf's "model" dim is not and that data_size divides; dim 0 of a leaf
+    of more than two dims (a stacked layer dim) is skipped.  `shapes`: the
+    parameter tree (tensors on the "meta" device will do)."""
+    def aug(x, dim_m):
+        shape = tuple(x.shape)
+        if data_size == 1 or math.prod(shape) < min_size:
+            return None
+        cand, cand_sz = None, 0
+        for i in range(1 if len(shape) > 2 else 0, len(shape)):
+            if i != dim_m and shape[i] % data_size == 0 \
+                    and shape[i] > cand_sz:
+                cand, cand_sz = i, shape[i]
+        return cand
+    return tree_map(aug, shapes, specs)
+
+
+def data_specs(cfg: ModelConfig, m: int, r: int) -> Dict:
+    """`fsdp_augment` of cfg's parameters over r "data" ranks at
+    FSDP_MIN_SIZE (read at the call), beside `param_specs(cfg, m)`.  As
+    in the reference, whose specs name "model" on a leaf's dim even over
+    one "model" rank, that dim is left to "model" at m = 1 too."""
+    shapes = init_params(cfg, None, "meta")
+    return fsdp_augment(_specs(shapes, (), False, cfg, m), shapes, r,
+                        FSDP_MIN_SIZE)
+
+
+def _shard(x: Tensor, dim_m: Optional[int], dim_d: Optional[int], axis,
+           daxis) -> Tensor:
+    """This rank's part of a leaf split on dim_m over `axis` and on dim_d
+    over `daxis` (a copy, so the whole leaf can be freed), or the leaf
+    itself when neither splits it."""
+    if dim_m is None and dim_d is None:
         return x
-    return x[(slice(None),) * dim + (axis.part(x.shape[dim]),)].clone()
+    index = [slice(None)] * x.dim()
+    for dim, ax in ((dim_m, axis), (dim_d, daxis)):
+        if dim is not None:
+            index[dim] = ax.part(x.shape[dim])
+    return x[tuple(index)].clone()
 
 
-def shard_params(params: Dict, specs: Dict, mesh) -> Dict:
-    """This rank's shards of a full parameter tree: each split leaf's
-    slice along its dim, the replicated leaves as they are.  `mesh`: a
-    `launch.mesh.SweepMesh`; None or one "model" rank returns `params`."""
-    axis = model_axis(mesh)
-    if axis.size == 1:
-        return params
-    return tree_map(lambda x, dim: _slice(x, dim, axis), params, specs)
+def shard_params(params: Dict, specs: Dict, mesh,
+                 data_specs: Optional[Dict] = None) -> Dict:
+    """This rank's shards of a full parameter tree: each leaf's slice
+    along its "model" dim (`specs`) and, given `data_specs`, its "data"
+    dim; the replicated leaves as they are.  `mesh`: a
+    `launch.mesh.SweepMesh`; with one "model" rank and no data sharding
+    `params` itself."""
+    axis, daxis = model_axis(mesh), data_axis(mesh)
+    if data_specs is None or daxis.size == 1:
+        if axis.size == 1:
+            return params
+        return tree_map(lambda x, dim: _shard(x, dim, None, axis, daxis),
+                        params, specs)
+    return tree_map(lambda x, dm, dd: _shard(x, dm, dd, axis, daxis),
+                    params, specs, data_specs)
 
 
 def init_shards(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device, mesh) -> Dict:
-    """This rank's shards of `init_params(cfg, generator, device)`,
-    bit for bit `shard_params` of the whole draw, without the whole draw:
-    each leaf is drawn whole from the generator, so the stream is one
-    rank's, and sliced at once, so a rank holds at most one whole leaf
-    beside its shards."""
-    axis = model_axis(mesh)
-    if axis.size == 1:
+                device, mesh, fsdp: bool = True) -> Dict:
+    """This rank's shards of `init_params(cfg, generator, device)` (over
+    "model", and over "data" by `data_specs` when fsdp), bit for bit
+    `shard_params` of the whole draw, without the whole draw: each leaf is
+    drawn whole from the generator, so the stream is one rank's, and
+    sliced at once, so a rank holds at most one whole leaf beside its
+    shards."""
+    axis, daxis = model_axis(mesh), data_axis(mesh)
+    fsdp = fsdp and daxis.size > 1
+    if axis.size == 1 and not fsdp:
         return init_params(cfg, generator, device)
     drawn = []   # the leaves in the order they are drawn
     meta = init_params(cfg, None, "meta",
                        keep=lambda x: drawn.append(x) or x)
-    dim_of = {id(x): d for x, d in zip(tree_leaves(meta), tree_leaves(
-        param_specs(cfg, axis.size)))}
-    dims = iter([dim_of[id(x)] for x in drawn])
+    dspecs = tree_leaves(data_specs(cfg, axis.size, daxis.size)) if fsdp \
+        else [None] * len(drawn)
+    dims_of = {id(x): d for x, d in zip(tree_leaves(meta), zip(tree_leaves(
+        param_specs(cfg, axis.size)), dspecs))}
+    dims = iter([dims_of[id(x)] for x in drawn])
     return init_params(cfg, generator, device,
-                       keep=lambda x: _slice(x, next(dims), axis))
+                       keep=lambda x: _shard(x, *next(dims), axis, daxis))
 
 
-def gather_params(local: Dict, specs: Dict, mesh) -> Dict:
-    """The full parameter tree from every "model" rank's shards (a
-    collective over the model group: every rank of it calls, and every rank
-    gets the whole tree); for tests and checkpoints."""
-    axis = model_axis(mesh)
+def gather_params(local: Dict, specs: Dict, mesh,
+                  data_specs: Optional[Dict] = None) -> Dict:
+    """The full parameter tree from every rank's shards: each leaf
+    gathered over "data" along its `data_specs` dim (given), then over
+    "model" along its `specs` dim (a collective over both groups: every
+    rank calls, and every rank gets the whole tree); for tests and
+    checkpoints."""
+    axis, daxis = model_axis(mesh), data_axis(mesh)
+    if data_specs is not None and daxis.size > 1:
+        local = tree_map(lambda x, dd: x if dd is None
+                         else all_gather(x, daxis.group, dd),
+                         local, data_specs)
     if axis.size == 1:
         return local
     return tree_map(lambda x, dim: x if dim is None
                     else all_gather(x, axis.group, dim), local, specs)
+
+
+def stored_bytes(params: Dict) -> int:
+    """Bytes of a (shard) parameter tree: what a rank stores."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))

@@ -45,6 +45,20 @@ and count a replicated leaf once.  Prefill and decode gather the vocab
 shards of the logits over the model group, then the rows over the worker
 group.
 
+FSDP (`fsdp=True`, the default, as the reference's): on a mesh whose
+"data" axis has R > 1 ranks the large leaves' storage is split over them
+too (`launch.sharding.data_specs`, `meta["data_specs"]`: each leaf's
+"data" dim or None), the params a step takes and returns are this rank's
+parts of both dims, and each layer gathers its leaves over "data" where
+it is used (`common.storage_sharded`).  The gather's backward sums a
+data-sharded leaf's gradient over the "data" ranks (a reduce_scatter), so
+the train step sums such a leaf only over "pod" after it, and every other
+leaf over all the worker ranks, as before: each gradient is summed over
+the workers once.  The stale stats sum each leaf's parts over the groups
+that split it, the noise is each leaf's full-shape draw sliced on both
+dims, and the update is the rank's part.  Prefill and decode gather exact
+copies, so their logits equal the unsharded run's bit for bit.
+
 The VLM (arch_type "vlm") batches carry `embeds_prefix` [B, P, feat]
 beside the tokens, and the encoder-decoder's (arch_type "audio") `frames`
 [B, T, feat] (`batch_shapes`); the train step and the prefill split them
@@ -56,6 +70,7 @@ the reference's does (`make_cross_kv_step` builds them on a mesh).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -68,15 +83,18 @@ from repro_torch.core.channel import (ChannelConfig, noise_std_for_snr,
                                       sample_channel_gains)
 from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.launch.distributed import all_gather, all_reduce_sum
-from repro_torch.launch.mesh import model_axis, worker_axes
-from repro_torch.launch.sharding import init_shards, param_specs
+from repro_torch.launch.mesh import (data_axis, model_axis, pod_group,
+                                     worker_axes)
+from repro_torch.launch.sharding import (data_specs, init_params,
+                                         init_shards, param_specs)
 from repro_torch.models import attention as ATT
 from repro_torch.models import encdec as ED
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (ModelConfig, count_params,
-                                       tensor_parallel)
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+                                       storage_sharded, tensor_parallel)
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_unflatten)
 
 Tensor = torch.Tensor
 
@@ -89,13 +107,13 @@ UPDATE_CHUNK = 2 ** 26
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator],
-               device=None, mesh=None) -> Dict:
+               device=None, mesh=None, fsdp: bool = True) -> Dict:
     """Random weights of cfg (`transformer.init_lm`, or
     `encdec.init_encdec` for the encoder-decoder, arch_type "audio"); on a
-    mesh with a "model" axis, this rank's shards of them
-    (`launch.sharding.init_shards`: the whole weights are never
-    formed)."""
-    return init_shards(cfg, generator, device, mesh)
+    mesh with a "model" axis, or (fsdp) a "data" axis, this rank's shards
+    of them (`launch.sharding.init_shards`: the whole weights are never
+    formed): what the steps built with the same `fsdp` take."""
+    return init_shards(cfg, generator, device, mesh, fsdp)
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -139,6 +157,50 @@ def _noisy_sgd(p: Tensor, g: Tensor, shift: Tensor, z: Optional[Tensor],
             x = x + (scale * zf[c]).to(g.dtype)
         of[c] = (pf[c].float() - alpha * x.float()).to(p.dtype)
     return out
+
+
+class _Storage:
+    """A step's layout of the weights' storage over "data": the axis, each
+    leaf's "data" dim (`launch.sharding.data_specs`, all None without
+    FSDP) and each leaf's local shape, which `check` holds the params a
+    step is given against."""
+
+    def __init__(self, cfg: ModelConfig, mesh, specs: Dict, fsdp: bool):
+        self.axis = data_axis(mesh)
+        self.on = fsdp and self.axis.size > 1
+        m = model_axis(mesh).size
+        self.specs = (data_specs(cfg, m, self.axis.size) if self.on
+                      else tree_map(lambda _: None, specs))
+        self.split = tree_leaves(self.specs)
+        full = tree_leaves(init_params(cfg, None, "meta")) if self.on else []
+        self.shapes = {
+            i: tuple(n // self.axis.size if j == d else n // m if j == dm
+                     else n for j, n in enumerate(x.shape))
+            for i, (x, dm, d) in enumerate(zip(full, tree_leaves(specs),
+                                               self.split))
+            if d is not None}
+
+    def check(self, leaves) -> None:
+        """Raise ValueError unless each data-sharded leaf has this rank's
+        part's shape (whole weights given to an FSDP step)."""
+        for i, want in self.shapes.items():
+            if tuple(leaves[i].shape) != want:
+                raise ValueError(
+                    f"leaf {i} has shape {tuple(leaves[i].shape)}, not this "
+                    f"rank's part {want} of its storage over the "
+                    f"{self.axis.size} \"data\" ranks: pass the params of "
+                    f"init_model(..., mesh=mesh) or shard_params(..., "
+                    f"meta[\"data_specs\"]), or build the step with "
+                    f"fsdp=False")
+
+    def scope(self, params):
+        """The `storage_sharded` block of a step's params (a tree, or its
+        leaves); a no-op without FSDP."""
+        if not self.on:
+            return contextlib.nullcontext()
+        leaves = tree_leaves(params) if isinstance(params, dict) else params
+        self.check(leaves)
+        return storage_sharded(self.axis, leaves, self.split)
 
 
 def _sum_over_workers(grads, group, bucket_bytes: int = BUCKET_BYTES):
@@ -241,10 +303,10 @@ def init_floa_state(device=None) -> Dict[str, Tensor]:
 def make_train_step(cfg: ModelConfig, mesh=None,
                     shape: Optional[Dict] = None, *,
                     policy: Policy = Policy.BEV, n_byzantine: int = 2,
-                    alpha: float = 1e-3, use_floa: bool = True
-                    ) -> Tuple[Callable, Dict]:
+                    alpha: float = 1e-3, use_floa: bool = True,
+                    fsdp: bool = True) -> Tuple[Callable, Dict]:
     """The FLOA train step and its meta (dim, num_workers, policy, the
-    batch's shapes):
+    batch's shapes, params_specs, data_specs):
 
         step(params, state, batch, seed, draws=None)
             -> (new_params, new_state, metrics)
@@ -268,7 +330,10 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     "grad_scale": sum(s) + bias_w}.  On a mesh with a "model" axis of
     M > 1 params are this rank's shards (`launch.sharding.shard_params`
     of meta["params_specs"]) and so are the new params; draws["z"] stays
-    one full-shape tensor a leaf, of which each rank takes its slice."""
+    one full-shape tensor a leaf, of which each rank takes its slice.
+    With fsdp on a mesh of R > 1 "data" ranks the params are also split
+    over "data" by meta["data_specs"] (`init_model(..., mesh=)`), and
+    params of another layout raise ValueError."""
     shape = shape or dict(global_batch=256, seq_len=4096)
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
@@ -276,6 +341,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     u, group = wa.num_workers, wa.group
     specs = param_specs(cfg, axis.size)
     split = tree_leaves(specs)   # each leaf's split dim, or None
+    store = _Storage(cfg, mesh, specs, fsdp)
+    dsplit, pod = store.split, pod_group(mesh)
     dim = param_count(cfg)
     floa = default_floa(mesh, dim, policy=policy, n_byzantine=n_byzantine)
     channel, power, attack = floa["channel"], floa["power"], floa["attack"]
@@ -317,23 +384,35 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         # (on a mesh, of this rank's worker, then summed over the ranks)
         xs = [x.detach().requires_grad_(True) for x in leaves_p]
         with torch.enable_grad():
-            wl, per_worker = weighted_loss(tree_unflatten(treedef, xs), rows,
-                                           s)
+            with store.scope(xs):
+                wl, per_worker = weighted_loss(tree_unflatten(treedef, xs),
+                                               rows, s)
             grads = list(torch.autograd.grad(wl, xs))
         if group is None:
             mean_loss = per_worker.mean()
         else:
-            _sum_over_workers(grads, group)
+            # a data-sharded leaf's gradient left the gather's backward
+            # summed over "data": only "pod" is left to sum it over
+            for sub, grp in ((_take(dsplit, False), group),
+                             (_take(dsplit, True), pod)):
+                if grp is not None and sub:
+                    part = [grads[i] for i in sub]
+                    for i in sub:
+                        grads[i] = None
+                    _sum_over_workers(part, grp)
+                    for i, g in zip(sub, part):
+                        grads[i] = g
             mean_loss = all_reduce_sum(per_worker.detach().sum(), group) / u
         with torch.no_grad():
             # stale-stat estimators for the next round, off the noiseless
             # aggregate; every sum in f32
             ssum = torch.sum(s) + bias_w
-            if axis.size == 1:
+            if axis.size == 1 and not store.on:
                 s1 = sum(torch.sum(g, dtype=torch.float32) for g in grads)
                 s2 = sum(torch.sum(torch.square(g.float())) for g in grads)
-            else:   # the split leaves' shards summed over the model group
-                s1, s2 = _split_stats(grads, split, axis.group)
+            else:   # each leaf's parts summed over the groups that split it
+                s1, s2 = _split_stats(grads, split, axis.group, dsplit,
+                                      store.axis.group)
             fdim = float(dim)
             mean_g = s1 / fdim / torch.where(torch.abs(ssum) > 1e-9, ssum,
                                              torch.ones_like(ssum))
@@ -352,12 +431,14 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                 g, grads[i] = grads[i], None
                 z = None
                 if noisy:   # the leaf's full shape, then this rank's slice
-                    z = (torch.randn(_full_shape(g, split[i], axis),
-                                     generator=gen, device=dev)
+                    cuts = ((split[i], axis), (dsplit[i], store.axis))
+                    z = (torch.randn(_full_shape(g, cuts), generator=gen,
+                                     device=dev)
                          if gen is not None else draws["z"][i])
-                    if split[i] is not None:
-                        z = z.narrow(split[i], axis.index * g.shape[split[i]],
-                                     g.shape[split[i]])
+                    for d, ax in cuts:
+                        if d is not None:
+                            z = z.narrow(d, ax.index * g.shape[d],
+                                         g.shape[d])
                 new_leaves.append(_noisy_sgd(
                     p, g, (bias_w * gbar).to(g.dtype), z,
                     eps * channel.noise_std, alpha))
@@ -367,29 +448,46 @@ def make_train_step(cfg: ModelConfig, mesh=None,
 
     return train_step, dict(dim=dim, num_workers=u, policy=str(policy),
                             batch=batch_shapes(cfg, shape, "train"),
-                            params_specs=specs)
+                            params_specs=specs, data_specs=store.specs)
 
 
-def _full_shape(x: Tensor, dim: Optional[int], axis) -> Tuple[int, ...]:
-    """The full shape of a leaf whose shard is x (split on dim, or not)."""
-    if dim is None:
-        return tuple(x.shape)
-    return tuple(n * axis.size if i == dim else n
-                 for i, n in enumerate(x.shape))
+def _take(dsplit, sharded: bool) -> list:
+    """The indices of the leaves that are (or are not) data-sharded."""
+    return [i for i, d in enumerate(dsplit) if (d is not None) == sharded]
 
 
-def _split_stats(grads, split, group) -> Tuple[Tensor, Tensor]:
+def _full_shape(x: Tensor, cuts) -> Tuple[int, ...]:
+    """The full shape of a leaf whose shard is x: `cuts` pairs each dim
+    that is split (or None) with its axis."""
+    shape = list(x.shape)
+    for dim, axis in cuts:
+        if dim is not None:
+            shape[dim] *= axis.size
+    return tuple(shape)
+
+
+def _split_stats(grads, split, group, dsplit,
+                 dgroup) -> Tuple[Tensor, Tensor]:
     """(sum g, sum g^2) over the whole model, f32, from this rank's
-    gradient shards: the split leaves' local sums all_reduced over the
-    model group, plus the replicated leaves' sums, counted once."""
-    def sums(gs):
+    gradient shards: the local sums of the leaves split over "model"
+    (`split`) all_reduced over the model `group`, of those split over
+    "data" (`dsplit`) over `dgroup` (of those split on both, over both),
+    plus the replicated leaves' sums, counted once."""
+    def sums(keep_m, keep_d):
+        gs = [g for g, m, d in zip(grads, split, dsplit)
+              if (m is not None) == keep_m and (d is not None) == keep_d]
         zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
         return torch.stack([
             sum((torch.sum(g, dtype=torch.float32) for g in gs), zero),
             sum((torch.sum(torch.square(g.float())) for g in gs), zero)])
-    local = all_reduce_sum(sums([g for g, d in zip(grads, split)
-                                 if d is not None]), group)
-    s = local + sums([g for g, d in zip(grads, split) if d is None])
+    if dgroup is None:
+        s = all_reduce_sum(sums(True, False), group) + sums(False, False)
+        return s[0], s[1]
+    both, model_only = all_reduce_sum(torch.stack(
+        [sums(True, True), sums(True, False)]), group)
+    both, data_only = all_reduce_sum(torch.stack(
+        [both, sums(False, True)]), dgroup)
+    s = both + model_only + data_only + sums(False, False)
     return s[0], s[1]
 
 
@@ -399,7 +497,8 @@ def _split_stats(grads, split, group) -> Tuple[Tensor, Tensor]:
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None,
-                      shape: Optional[Dict] = None) -> Tuple[Callable, Dict]:
+                      shape: Optional[Dict] = None, *,
+                      fsdp: bool = True) -> Tuple[Callable, Dict]:
     """The prefill (scoring) step: `step(params, batch) -> logits [B, Vp]`
     of the LAST position only (the full [B, S, vocab] logits are never
     formed), batch {"tokens": [B, S]} (and a VLM's "embeds_prefix", an
@@ -408,10 +507,12 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
     tokens.  On a mesh each rank scores its `batch_rows` and the logits
     are gathered, so every rank returns all B rows.  Over a "model" axis
     params are this rank's shards and the vocab shards of the logits are
-    gathered."""
+    gathered; with fsdp over a "data" axis the params are also split by
+    meta["data_specs"] (as `make_train_step`'s)."""
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
     ATT.check_heads(cfg, axis.size)
+    store = _Storage(cfg, mesh, param_specs(cfg, axis.size), fsdp)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -419,7 +520,7 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
         split = rows.stop - rows.start < batch["tokens"].shape[0]
         mine = {k: v[rows] for k, v in batch.items()}
         with MOE.worker_batch(wa.group if split else None, aux=False), \
-                tensor_parallel(axis):
+                tensor_parallel(axis), store.scope(params):
             if cfg.arch_type == "audio":
                 h = ED.decode_hidden(params, mine["tokens"], ED.encode(
                     params, mine["frames"], cfg), cfg)
@@ -430,7 +531,7 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
             logits = T.logits_from_hidden(params, h[:, -1, :], cfg)
         return all_gather(logits, wa.group) if split else logits
 
-    meta = dict(dim=param_count(cfg))
+    meta = dict(dim=param_count(cfg), data_specs=store.specs)
     if shape is not None:
         meta["batch"] = batch_shapes(cfg, shape, "prefill")
     return prefill, meta
@@ -455,7 +556,7 @@ def decode_window(cfg: ModelConfig, shape_name: str) -> Optional[int]:
 
 
 def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
-                     plain: bool = False, mesh=None
+                     plain: bool = False, mesh=None, fsdp: bool = True
                      ) -> Tuple[Callable, Dict]:
     """The serve step of one new token against a KV cache:
     `step(params, caches, tokens1, pos) -> (logits [B, 1, Vp], caches)`,
@@ -475,16 +576,19 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
     that many rows, and the logits are gathered: every rank returns all B
     rows.  Over a "model" axis of M > 1 params are this rank's shards
     (`launch.sharding.shard_params` of `param_specs(cfg, M)`) and the
-    caches its KV heads (`transformer.init_caches(..., model_parallel=M)`)."""
+    caches its KV heads (`transformer.init_caches(..., model_parallel=M)`);
+    with fsdp over a "data" axis the params are also split by
+    meta["data_specs"] (as `make_train_step`'s)."""
     window = decode_window(cfg, shape_name)
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
     ATT.check_heads(cfg, axis.size)
-    meta = dict(dim=param_count(cfg), window=window)
+    store = _Storage(cfg, mesh, param_specs(cfg, axis.size), fsdp)
+    meta = dict(dim=param_count(cfg), window=window, data_specs=store.specs)
     if cfg.arch_type == "audio":
         def encdec_step(params, caches, cross_kv, tokens1, pos):
             rows = batch_rows(wa, tokens1.shape[0])
-            with tensor_parallel(axis):
+            with tensor_parallel(axis), store.scope(params):
                 logits, caches = ED.decode_step(params, caches, cross_kv,
                                                 tokens1[rows], pos, cfg,
                                                 plain=plain)
@@ -496,7 +600,7 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
 
     def step(params, caches, tokens1, pos):
         rows = batch_rows(wa, tokens1.shape[0])
-        with tensor_parallel(axis):
+        with tensor_parallel(axis), store.scope(params):
             if rows.stop - rows.start == tokens1.shape[0]:
                 return T.decode_step(params, caches, tokens1, pos, cfg,
                                      window=window, plain=plain)
@@ -509,25 +613,28 @@ def make_decode_step(cfg: ModelConfig, shape_name: str = "decode_32k", *,
     return step, meta
 
 
-def make_cross_kv_step(cfg: ModelConfig, mesh=None) -> Tuple[Callable, Dict]:
+def make_cross_kv_step(cfg: ModelConfig, mesh=None, *,
+                       fsdp: bool = True) -> Tuple[Callable, Dict]:
     """The encoder-decoder's encoder for decoding: `step(params, frames) ->
     cross_kv`, frames [B, T, feat] the global batch; `encdec.encode`, then
     `encdec.precompute_cross_kv` ([L, B, T, KV, hd] x 2), no gradients.
     On a mesh each rank encodes its `batch_rows(mesh, B)` rows, and over a
     "model" axis the cross K / V are this rank's KV heads: what its
-    decode step (`make_decode_step`) takes."""
+    decode step (`make_decode_step`) takes; with fsdp the params are
+    split over "data" as the other steps' are."""
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
     ATT.check_heads(cfg, axis.size)
+    store = _Storage(cfg, mesh, param_specs(cfg, axis.size), fsdp)
 
     @torch.no_grad()
     def step(params, frames):
         mine = frames[batch_rows(wa, frames.shape[0])]
-        with tensor_parallel(axis):
+        with tensor_parallel(axis), store.scope(params):
             return ED.precompute_cross_kv(params, ED.encode(
                 params, mine, cfg), cfg)
 
-    return step, dict(dim=param_count(cfg))
+    return step, dict(dim=param_count(cfg), data_specs=store.specs)
 
 
 def make_step(cfg: ModelConfig, mesh, shape_name: str,

@@ -22,8 +22,13 @@ weights, `launch.sharding`), the gradients summed over the U workers (the
 over-the-air sum), the first min(N, U // 2 - 1) workers the attackers.
 Several ranks on one card name `--backend gloo` and `--device cuda:0`
 (NCCL refuses two ranks on one device); nothing picks another backend or
-device on its own.  `--mesh single|multi`, the reference's TPU pod
-layouts, raise (`--mesh UxM` is their counterpart over GPU ranks).  Rank 0
+device on its own.  `--mesh single|multi` are the reference's
+production layouts over 256 or 512 ranks
+(`launch.mesh.make_production_mesh`: 16 or 32 FL workers of 16
+tensor-parallel ranks); on another number of ranks they raise ValueError
+naming the count.  On a mesh of several "data" ranks the large weights'
+storage is split over them too (FSDP, `launch.sharding.data_specs`, as
+the reference's train step does), each layer gathering its own.  Rank 0
 prints and writes the checkpoint: --ckpt gathers the shards and writes the
 whole params in the checkpoint format both packages read
 (`checkpoint.save`).  The default
@@ -77,7 +82,8 @@ def main(argv=None) -> None:
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--mesh", default="1x1",
                     help="UxM: U FL workers of M tensor-parallel ranks "
-                         "each (torchrun)")
+                         "each (torchrun); single | multi: the production "
+                         "16 x 16 / 2 x 16 x 16 meshes")
     ap.add_argument("--backend", default=None,
                     help="the process group's backend (gloo for several "
                          "ranks on one card); default NCCL on a card")
@@ -103,7 +109,7 @@ def main(argv=None) -> None:
     step_fn, meta = make_train_step(cfg, mesh, shape, alpha=args.alpha,
                                     policy=Policy(args.policy),
                                     n_byzantine=args.byzantine)
-    specs = meta["params_specs"]
+    specs, dspecs = meta["params_specs"], meta["data_specs"]
     params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev,
                         mesh=mesh)
     state = init_floa_state(dev)
@@ -124,12 +130,12 @@ def main(argv=None) -> None:
             raise RuntimeError("training diverged")
         if (args.ckpt and args.ckpt_every
                 and (t + 1) % args.ckpt_every == 0):
-            full = gather_params(params, specs, mesh)   # every rank calls
+            full = gather_params(params, specs, mesh, dspecs)  # every rank
             if lead:
                 CK.save(args.ckpt, t + 1, full)
             del full
     if args.ckpt:
-        full = gather_params(params, specs, mesh)
+        full = gather_params(params, specs, mesh, dspecs)
         if lead:
             CK.save(args.ckpt, args.steps, full)
             print(f"checkpoint -> {args.ckpt}")

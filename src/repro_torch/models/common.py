@@ -9,7 +9,12 @@ layout is `launch/sharding.py`'s, and inside `with tensor_parallel(axis):`
 (a `launch.mesh.ModelAxis` of M > 1 ranks) each layer computes this rank's
 shard and writes its own collectives, Megatron style
 (`launch.distributed.copy_in` / `reduce_out`), where XLA derives them from
-the specs; `softmax_xent_sharded` is the CE over vocab-sharded logits.
+the specs; `softmax_xent_sharded` is the CE over vocab-sharded logits.  Beside it,
+inside `with storage_sharded(axis, leaves, dims):` the listed weight
+leaves are this rank's parts of leaves whose storage the "data" ranks
+split (ZeRO-3, `launch.sharding.fsdp_augment`), and the model gathers
+each where a layer uses it (`gathered`, `storage_dim`,
+`gather_storage_dim`), so the model code stays layout-free.
 `maybe_scan` has no counterpart: the port loops over layers in Python.
 Parameters are nested dicts of tensors in the JAX layout, so
 `models/transformer.py::params_from_jax` carries JAX weights across as they
@@ -25,7 +30,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.distributed import all_reduce_max, reduce_out
+from repro_torch.launch.distributed import (all_reduce_max, gather_storage,
+                                            reduce_out)
 
 Tensor = torch.Tensor
 
@@ -307,6 +313,50 @@ def model_shards():
     """The `ModelAxis` of the innermost `tensor_parallel` block, None
     outside one (or for one rank)."""
     return _MODEL_AXIS.get()
+
+
+# the "data" axis and the data-sharded leaves of the innermost
+# `storage_sharded` block: (axis, {id(leaf): (leaf, dim)})
+_STORAGE = contextvars.ContextVar("repro_torch_storage", default=None)
+
+
+@contextlib.contextmanager
+def storage_sharded(axis, leaves, dims) -> Iterator[None]:
+    """Inside the block each of `leaves` whose `dims` entry is not None is
+    this rank's part of a leaf split on that dim over `axis` (a
+    `launch.mesh.DataAxis`); `gathered` and `_unstack`'s layers join it
+    where it is used.  An axis of one rank, or no split leaf, changes
+    nothing."""
+    split = {id(x): (x, d) for x, d in zip(leaves, dims) if d is not None}
+    token = _STORAGE.set((axis, split) if split and axis is not None
+                         and axis.size > 1 else None)
+    try:
+        yield
+    finally:
+        _STORAGE.reset(token)
+
+
+def storage_dim(x: Tensor) -> Optional[int]:
+    """The dim along which the innermost `storage_sharded` block splits
+    leaf x over "data", or None."""
+    ctx = _STORAGE.get()
+    if ctx is None:
+        return None
+    hit = ctx[1].get(id(x))
+    return hit[1] if hit is not None and hit[0] is x else None
+
+
+def gather_storage_dim(x: Tensor, dim: int) -> Tensor:
+    """x, a part along dim of a leaf the "data" ranks split, gathered
+    whole (`launch.distributed.gather_storage`)."""
+    return gather_storage(x, _STORAGE.get()[0].group, dim)
+
+
+def gathered(x: Tensor) -> Tensor:
+    """The whole of leaf x, where the innermost `storage_sharded` block
+    splits it over "data"; else x itself."""
+    dim = storage_dim(x)
+    return x if dim is None else gather_storage_dim(x, dim)
 
 
 def count_params(params: Dict) -> int:

@@ -29,7 +29,9 @@ Under `common.tensor_parallel` the layers split as `transformer.py`'s do:
 `enc_in` on its columns (each rank's columns of the frames' projection,
 gathered into the replicated stream), the self- and cross-attentions on
 their heads (a rank's caches and cross K / V hold its KV heads), the
-SwiGLU on f, the embedding, head and CE on the vocab.
+SwiGLU on f, the embedding, head and CE on the vocab.  Under
+`common.storage_sharded` each layer's data-sharded leaves are gathered as
+`transformer._unstack` produces the layer, and `enc_in` where it is used.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ import torch
 from repro_torch.models import attention as ATT
 from repro_torch.models import ffn as FFN
 from repro_torch.models import transformer as T
-from repro_torch.models.common import (ModelConfig, ParamInit, rms_norm,
-                                       rope_cos_sin)
+from repro_torch.models.common import (ModelConfig, ParamInit, gathered,
+                                       rms_norm, rope_cos_sin)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
@@ -96,7 +98,8 @@ def _positions(x: Tensor) -> Tensor:
 def encode(params: Dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
     """frames [B, T, feat] -> the encoder output [B, T, d]
     (bidirectional)."""
-    x = T._column_product(frames.to(cfg.dtype), params["enc_in"], cfg)
+    x = T._column_product(frames.to(cfg.dtype), gathered(params["enc_in"]),
+                          cfg)
     positions = _positions(x)
     for p in T._unstack(params["enc_blocks"], cfg.encdec.n_enc_layers):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -166,8 +169,8 @@ def precompute_cross_kv(params: Dict, enc_out: Tensor,
     """Every decoder layer's cross K / V of enc_out [B, Se, d], stacked
     [L, B, Se, KV, hd] x 2 (this rank's KV heads under
     `tensor_parallel`)."""
-    kv = [ATT.encode_kv(p["cross_attn"], enc_out, cfg) for p in
-          T._unstack(params["dec_blocks"], cfg.encdec.n_dec_layers)]
+    kv = [ATT.encode_kv(p, enc_out, cfg) for p in T._unstack(
+        params["dec_blocks"]["cross_attn"], cfg.encdec.n_dec_layers)]
     return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
 
 
@@ -189,7 +192,12 @@ def decode_step(params: Dict, caches: Dict[str, Tensor],
     leaves, treedef = tree_flatten(caches)
     layer_caches = [tree_unflatten(treedef, list(c))
                     for c in zip(*(x.unbind(0) for x in leaves))]
-    for p, c, ck, cv in zip(T._unstack(params["dec_blocks"], n),
+    # the cross K / V are precomputed: the layers leave out what made them,
+    # so FSDP gathers none of it
+    blocks = dict(params["dec_blocks"])
+    blocks["cross_attn"] = {k: w for k, w in blocks["cross_attn"].items()
+                            if k not in ("wk", "wv", "k_norm")}
+    for p, c, ck, cv in zip(T._unstack(blocks, n),
                             layer_caches, cross_kv[0].unbind(0),
                             cross_kv[1].unbind(0)):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)

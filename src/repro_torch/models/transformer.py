@@ -53,11 +53,14 @@ its vocab rows (each rank looks up the ids in its rows, zeros elsewhere,
 one `reduce_out`), the head on its vocab columns, and the CE is
 `softmax_xent_sharded`, so the [B, S, Vp] logits are never gathered in
 training.  `logits_from_hidden` gathers the vocab shards (prefill and
-decode).
+decode).  Under `common.storage_sharded` (the large leaves' storage split
+over the "data" ranks) a layer's leaves are gathered as its tree is
+produced (`_unstack`, `_layers`: one layer at a time), and the embedding,
+the head and the projector where they are used (`common.gathered`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,9 +72,11 @@ from repro_torch.models import rglru as RGL
 from repro_torch.models import ssm as SSM
 from repro_torch.launch.distributed import (all_gather, copy_in, gather_out,
                                             reduce_out)
-from repro_torch.models.common import (ModelConfig, ParamInit, model_shards,
-                                       rms_norm, rope_cos_sin, softmax_xent,
-                                       softmax_xent_sharded)
+from repro_torch.models.common import (ModelConfig, ParamInit,
+                                       gather_storage_dim, gathered,
+                                       model_shards, rms_norm, rope_cos_sin,
+                                       softmax_xent, softmax_xent_sharded,
+                                       storage_dim)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
@@ -184,9 +189,9 @@ def _vocab_axis(cfg: ModelConfig):
 
 def embed_tokens(params: Dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     axis = _vocab_axis(cfg)
+    emb = gathered(params["embed"])              # this rank's vocab rows
     if axis is None:
-        return params["embed"][tokens.long()]
-    emb = params["embed"]                        # this rank's vocab rows
+        return emb[tokens.long()]
     t = tokens.long() - axis.index * emb.shape[0]
     mine = (t >= 0) & (t < emb.shape[0])
     x = emb[torch.where(mine, t, 0)].masked_fill(~mine[..., None], 0.0)
@@ -194,7 +199,8 @@ def embed_tokens(params: Dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _head(params: Dict, cfg: ModelConfig) -> Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return gathered(params["embed"]).T if cfg.tie_embeddings \
+        else gathered(params["lm_head"])
 
 
 def logits_from_hidden(params: Dict, h: Tensor, cfg: ModelConfig) -> Tensor:
@@ -259,29 +265,38 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
-def _unstack(tree: Dict, n: int) -> List[Dict]:
-    """The n layers of a stacked tree (views), each leaf unbound once: the
-    backward of `unbind` stacks the layers' gradients in one pass, where a
-    select per layer would each add a zero-filled gradient of the whole
-    stack."""
+def _unstack(tree: Dict, n: int) -> Iterator[Dict]:
+    """The n layers of a stacked tree, one at a time (views), each leaf
+    unbound once: the backward of `unbind` stacks the layers' gradients in
+    one pass, where a select per layer would each add a zero-filled
+    gradient of the whole stack.  Under `common.storage_sharded` a layer's
+    data-sharded leaves are gathered as the layer is produced (a leaf
+    split on its layer dim is gathered whole first)."""
     leaves, treedef = tree_flatten(tree)
-    per_leaf = [x.unbind(0) for x in leaves]
-    return [tree_unflatten(treedef, [p[i] for p in per_leaf])
-            for i in range(n)]
+    dims = [storage_dim(x) for x in leaves]
+    per_leaf = [(gather_storage_dim(x, 0) if d == 0 else x).unbind(0)
+                for x, d in zip(leaves, dims)]
+    for i in range(n):
+        yield tree_unflatten(treedef, [
+            p[i] if d in (None, 0) else gather_storage_dim(p[i], d - 1)
+            for p, d in zip(per_leaf, dims)])
 
 
-def _layers(cfg: ModelConfig, tree: Dict) -> List[Tuple[str, Dict]]:
-    """(kind, sub-block tree) of every layer in order: each stacked
-    super-block's sub-blocks, then the tail blocks."""
+def _layers(cfg: ModelConfig, tree: Dict) -> Iterator[Tuple[str, Dict]]:
+    """(kind, sub-block tree) of every layer in order, one at a time: each
+    stacked super-block's sub-blocks, then the tail blocks (their
+    data-sharded leaves gathered, as `_unstack` gathers a layer's)."""
     n_rep, n_tail = layer_counts(cfg)
-    out = []
     if n_rep:
         for sb in _unstack(tree["blocks"], n_rep):
-            out += [(kind, sb[f"b{i}"])
-                    for i, kind in enumerate(cfg.block_pattern)]
-    out += [(cfg.block_pattern[t], tree[f"tail{t}"]["b0"])
-            for t in range(n_tail)]
-    return out
+            yield from ((kind, sb[f"b{i}"])
+                        for i, kind in enumerate(cfg.block_pattern))
+    for t in range(n_tail):
+        sub = tree[f"tail{t}"]["b0"]
+        leaves, treedef = tree_flatten(sub)
+        if any(storage_dim(x) is not None for x in leaves):
+            sub = tree_unflatten(treedef, [gathered(x) for x in leaves])
+        yield cfg.block_pattern[t], sub
 
 
 def _ffn(kind: str, p: Dict, h: Tensor, cfg: ModelConfig
@@ -351,7 +366,7 @@ def project_prefix(params: Dict, embeds_prefix: Tensor,
     """The VLM projector: embeds_prefix [B, P, feat], cast to cfg.dtype,
     through w1 + b1, the tanh GELU (`jax.nn.gelu`'s default), w2 + b2 ->
     [B, P, d]."""
-    pr = params["projector"]
+    pr = {k: gathered(v) for k, v in params["projector"].items()}
     e = _column_product(embeds_prefix.to(cfg.dtype), pr["w1"], cfg) + pr["b1"]
     e = torch.nn.functional.gelu(e, approximate="tanh")
     return _column_product(e, pr["w2"], cfg) + pr["b2"]

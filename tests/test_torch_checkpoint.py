@@ -314,7 +314,8 @@ def test_port_sources_import_no_jax_repro_or_ml_dtypes():
                 "launch/distributed.py", "launch/mesh.py", "models/moe.py",
                 "configs/granite_8b.py", "configs/starcoder2_3b.py",
                 "configs/moonshot_v1_16b_a3b.py",
-                "configs/llama4_maverick_400b_a17b.py"):
+                "configs/llama4_maverick_400b_a17b.py",
+                "launch/dryrun.py", "launch/cost_analysis.py"):
         assert root / "src" / "repro_torch" / new in files, new
     bad = [str(f.relative_to(root)) for f in files
            if pattern.search(f.read_text())]

@@ -35,7 +35,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import steps as TSTEPS
 from repro_torch.models import attention as TATT
 from repro_torch.models import encdec as TED
-from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 ARCH = "seamless-m4t-large-v2"
 FRAMES, DEC = 20, 16         # encoder frames, decoder tokens
@@ -201,7 +201,8 @@ def test_decode_step_of_the_steps_matches_jax():
     for g, w in zip(tkv, jkv):
         AP.close(g, w)
     step, meta = TSTEPS.make_decode_step(tcfg)
-    assert meta == {"dim": art.meta["dim"], "window": None}
+    assert meta == {"dim": art.meta["dim"], "window": None,
+                    "data_specs": tree_map(lambda _: None, tp)}
     jc, tc = JED.init_dec_caches(jcfg, b, n), TED.init_dec_caches(
         tcfg, b, n, device="cpu")
     with mesh:
@@ -211,6 +212,30 @@ def test_decode_step_of_the_steps_matches_jax():
                        jnp.int32(i))
             t, tc = step(tp, tc, tkv, torch.as_tensor(toks[:, i:i + 1]), i)
             AP.close(t, j, AP.DECODE_RTOL, err_msg=f"step {i}")
+
+
+def test_decode_step_reads_no_cross_kv_weights():
+    """The cross K / V are precomputed, so a decode step reads none of the
+    cross-attention's wk, wv and k_norm (under FSDP it gathers none of
+    them): with those emptied the steps' logits are the same."""
+    _, tcfg, _, tp = AP.setup(ARCH)
+    b, n = 2, 4
+    kv_step, _ = TSTEPS.make_cross_kv_step(tcfg)
+    tkv = kv_step(tp, torch.as_tensor(_frames(b, 12)))
+    cross = tp["dec_blocks"]["cross_attn"]
+    cut = dict(tp, dec_blocks=dict(tp["dec_blocks"], cross_attn={
+        k: torch.empty(0) if k in ("wk", "wv", "k_norm") else w
+        for k, w in cross.items()}))
+    toks = _tokens(tcfg, b, n, 13)
+    step, _ = TSTEPS.make_decode_step(tcfg)
+    runs = []
+    for p in (tp, cut):
+        c = TED.init_dec_caches(tcfg, b, n, device="cpu")
+        for i in range(n):
+            logits, c = step(p, c, tkv, torch.as_tensor(toks[:, i:i + 1]),
+                             i)
+        runs.append(logits)
+    assert torch.equal(*runs)
 
 
 def test_shape_applicable_skips_long_500k():

@@ -1421,3 +1421,42 @@ def test_encdec_decode_kernel_route_matches_plain_route(cuda_device):
                               cfg)
     torch.testing.assert_close(runs[False], want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,dh,s,dtype", [
+    (8, 32, 8, 128, 32768, torch.bfloat16), (8, 32, 8, 128, 64, torch.bfloat16),
+    (1, 16, 1, 256, 2048, torch.bfloat16), (8, 16, 16, 64, 512, torch.float32),
+    (2, 8, 2, 32, 777, torch.float32)])
+def test_decode_fake_rule_plans_as_the_kernel(cuda_device, b, h, kv, dh, s,
+                                              dtype):
+    """The card op's fake rule (what `launch/dryrun.py` traces) allocates
+    what the launch does: the output and the split-K workspace, planned
+    from `H100_SMS` and `H100_OCCUPANCY` as the kernel plans them from the
+    card; a real CUDA tensor launches (counted), a fake one never does;
+    the wrapper, off the dispatcher, launches the same kernel."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    lib = _build.library("decode_attention")
+    code = _build.DTYPE_CODES[dtype]
+    assert lib.decode_attention_occupancy(dh, code) == \
+        DA.H100_OCCUPANCY[(dh, dtype)]
+    assert torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count == DA.H100_SMS
+    q, k, v = _decode_inputs(cuda_device, 3, b, h, kv, dh, s, dtype)
+    pos = torch.tensor([s - 1], dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    out, ws = DA._card_route(q, k, v, pos)
+    assert ops.launch_counts()["decode_attention"] == 1
+    n_split, ws_numel = DA._plan(cuda_device.index, b, h, kv, s, dh, dtype)
+    assert ws.numel() == ws_numel
+    assert (n_split, ws_numel) == DA.split_plan(
+        b, h, kv, s, dh, dtype, DA.H100_SMS * DA.H100_OCCUPANCY[(dh, dtype)])
+    with FakeTensorMode() as mode:
+        fq, fk, fv, fpos = (mode.from_tensor(t) for t in (q, k, v, pos))
+        fout, fws = DA._card_route(fq, fk, fv, fpos)
+    assert ops.launch_counts()["decode_attention"] == 1
+    assert (fout.shape, fout.dtype, fout.device) == (out.shape, out.dtype,
+                                                     out.device)
+    assert (fws.shape, fws.dtype) == (ws.shape, ws.dtype)
+    assert torch.equal(DA.decode_attention(q, k, v, pos), out)
+    assert ops.launch_counts()["decode_attention"] == 2

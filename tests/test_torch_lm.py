@@ -43,6 +43,7 @@ from repro_torch.models import attention as TATT
 from repro_torch.models import common as TC
 from repro_torch.models import ffn as TFFN
 from repro_torch.models import transformer as TT
+from repro_torch import tree as TREE
 
 ARCH = "qwen3-4b"
 RTOL, ATOL = 1e-4, 1e-5      # f32 model steps, port vs JAX
@@ -151,7 +152,8 @@ def test_full_width_param_count_on_meta():
     assert TC.count_params(tparams) == FULL_PARAMS
     assert TSTEPS.param_count(cfg) == FULL_PARAMS
     _, meta = TSTEPS.make_decode_step(cfg)
-    assert meta == {"dim": FULL_PARAMS, "window": None}
+    assert meta == {"dim": FULL_PARAMS, "window": None,
+                    "data_specs": TREE.tree_map(lambda _: None, tparams)}
 
 
 def test_random_init_statistics():
@@ -291,7 +293,8 @@ def test_unported_paths_raise():
 
 def test_serve_entry_point(monkeypatch, capsys):
     """`python -m repro_torch.launch.serve` defaults to the card (raises
-    without one), refuses a mesh, and serves the smoke config on the CPU."""
+    without one), refuses a production mesh on too few ranks, and serves
+    the smoke config on the CPU."""
     argv = ["serve", "--arch", ARCH, "--smoke", "--batch", "2",
             "--prompt-len", "4", "--gen", "3"]
     if not torch.cuda.is_available():
@@ -299,7 +302,7 @@ def test_serve_entry_point(monkeypatch, capsys):
         with pytest.raises(RuntimeError, match="cuda"):
             TS.main()
     monkeypatch.setattr(sys, "argv", argv + ["--mesh", "single"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         TS.main()
     monkeypatch.setattr(sys, "argv", argv + ["--device", "cpu"])
     TS.main()

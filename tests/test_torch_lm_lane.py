@@ -10,11 +10,12 @@ attack.  Both engines start from the weights of JAX `init_lm(PRNGKey(0))`
 replays the JAX engine's per-round draws (`torch_parity`).  6 rounds, rtol
 1e-5 on loss, grad norm and the final params leaf by leaf: the flat state,
 the tree state (`flat_state=False`) and the chunked plan (chunk_rounds=3,
-bitwise equal to the monolithic run).  Then the 30-round separation claims
-of `test_lm_lane_attack_and_screening_separation` under the replayed
-draws, the LM lane's `SweepResult` read by the other package both ways,
-a checkpointed tree-state run resumed bitwise, `run_lm_lane` on the CPU,
-and the paper MLP's flat-dict sweep bitwise as before the tree repair.
+bitwise equal to the monolithic run).  Then the LM lane's `SweepResult`
+read by the other package both ways, and the paper MLP's flat-dict sweep
+bitwise as before the tree repair.  The longer runs on the same lane
+(the 30-round separation claims, a resumed tree-state run, `run_lm_lane`
+on the CPU) are tests/test_torch_lm_lane_runs.py, which takes this
+module's helpers.
 """
 import dataclasses
 import functools
@@ -37,11 +38,9 @@ with warnings.catch_warnings():
     from repro.configs import registry as JR
     from repro.models import transformer as JT
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from test_lm_lane import (BATCH, LR, N_ATK, SEQ, U, _check_separation,
-                              tiny_lm_cfg)
+    from test_lm_lane import BATCH, LR, N_ATK, SEQ, U, tiny_lm_cfg
 
 from repro_torch import figures as TF
-from repro_torch.checkpoint import latest_step
 from repro_torch.configs import PAPER_MLP as TPAPER
 from repro_torch.configs import registry as TR
 from repro_torch.core.aggregation import FLOAConfig
@@ -52,7 +51,6 @@ from repro_torch.core.scenario import DefenseSpec
 from repro_torch.data import stack_token_rounds
 from repro_torch.fl import ExecutionPlan
 from repro_torch.fl import sweep as TS
-from repro_torch.kernels import ops as tops
 from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves, tree_paths
 from torch_parity import assert_sweeps_match, jax_case, replay_sweep_draws
@@ -144,15 +142,6 @@ def test_lm_lane_matches_jax_engine(route):
         _bitwise(got, _port_run(ROUNDS))
 
 
-def test_lm_lane_attack_and_screening_separation():
-    """test_lm_lane.py's 30-round claims, restated under the JAX engine's
-    replayed draws: clean descends, the sign-flip lane ends above its start
-    and above clean, median screening recovers descent."""
-    res = _port_run(ROUNDS_LONG)
-    assert res.loss.shape == (3, ROUNDS_LONG)
-    _check_separation(res, ROUNDS_LONG)
-
-
 def test_lm_lane_result_read_by_both_packages(tmp_path):
     """An LM lane's SweepResult (nested params) written by each package
     reads back in the other byte for byte, the tree intact."""
@@ -172,52 +161,6 @@ def test_lm_lane_result_read_by_both_packages(tmp_path):
     for a, b in zip(tree_leaves(back.params),
                     jax.tree_util.tree_leaves(want.params)):
         assert a.numpy().tobytes() == np.asarray(b).tobytes()
-
-
-def test_lm_lane_tree_state_resumes_bitwise(tmp_path):
-    """The tree state (nested leaves [S, ...]) through a checkpoint: a
-    fresh engine resumes from the last committed boundary (round 4 of 6)
-    and ends bitwise as the uninterrupted run."""
-    plan = ExecutionPlan(flat_state=False, chunk_rounds=2,
-                         checkpoint_dir=str(tmp_path))
-    full = _port_run(ROUNDS, plan)
-    assert latest_step(str(tmp_path)) == 4
-    loss, params0, _, batches, spec, _, draws = _problem(ROUNDS)
-    resumed = TS.SweepEngine(loss, spec, plan=plan, device="cpu").run(
-        params0, batches, draws=draws, resume=True)
-    _bitwise(resumed, full)
-
-
-def test_run_lm_lane_on_the_cpu():
-    """The example's entry point on the CPU (plain versions, no launch):
-    three lanes by name, finite, clean descending over 8 rounds; the
-    example's --model-shards in one process (its ("model",) mesh needs a
-    rank a shard, tests/test_torch_model_sharded.py) and a resume without
-    a directory raise."""
-    tops.reset_launches()
-    res = TF.run_lm_lane(8, cfg=_port_cfg(), seq=SEQ, byzantine=N_ATK,
-                         lr=LR, device="cpu")
-    assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
-    assert res.names == ("bev-clean", "bev-signflip", "median-signflip")
-    assert res.loss.shape == (3, 8) and np.isfinite(res.loss).all()
-    tail = max(1, 8 // 5)
-    clean = res.loss[0]
-    assert np.mean(clean[-tail:]) < clean[0]
-    assert res.params["embed"].shape == (3, 256, 64)
-    with pytest.raises(AssertionError, match="model_shards=2"):
-        TF.run_lm_lane(2, cfg=_port_cfg(), device="cpu", model_shards=2)
-    with pytest.raises(ValueError, match="checkpoint_dir"):
-        TF.run_lm_lane(2, cfg=_port_cfg(), device="cpu", resume=True)
-
-
-def test_lm_lanes_match_the_example():
-    """figures.lm_lanes is examples/train_floa_lm.py::lm_lanes."""
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        from train_floa_lm import lm_lanes as jlm_lanes
-    got = [jax_case(c) for c in TF.lm_lanes(8, 2_950_528, 2, 0.2)]
-    assert got == jlm_lanes(8, 2_950_528, 2, 0.2)
 
 
 # ------------------------------------- the tree repair leaves flat dicts be

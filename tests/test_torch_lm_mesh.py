@@ -200,9 +200,10 @@ def test_mesh_refusals(ranks4):
 
 def test_mesh_refusals_in_one_process():
     cfg = get_smoke("qwen3-4b")
-    for spec, chips in (("single", 256), ("multi", 512)):
-        with pytest.raises(NotImplementedError,
-                           match=f"{chips}-chip TPU pod layout.*--mesh RxM"):
+    for spec, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(ValueError,
+                           match=f"needs {ranks} ranks; the process group "
+                                 f"has 1"):
             mesh_from_arg(spec)
     for spec in ("2x1", "4x2"):
         with pytest.raises(ValueError, match="item 8b"):

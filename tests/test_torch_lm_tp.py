@@ -303,8 +303,8 @@ def test_layout_round_trips_and_axes(ranks4, jax_ref, shape):
     rank's shards drawn leaf by leaf (`init_model(..., mesh=)`) and those
     of the whole draw; the ranks are
     row-major over (data, model); `default_floa` and `num_workers` give
-    U = |data| on a model mesh; an unported head layout and --mesh single
-    raise."""
+    U = |data| on a model mesh; an unported head layout raises, and
+    --mesh single on 4 ranks names the 256 it needs."""
     a, b = shape
     name = f"layout_{a}{b}"
     dq = TT.params_from_jax(jax_ref["m12"]["params0"], "cpu")
@@ -319,9 +319,9 @@ def test_layout_round_trips_and_axes(ranks4, jax_ref, shape):
         assert got["floa_workers"] == (a, a, a)
         assert got["heads_refused"][0] == "NotImplementedError"
         assert "item 8d" in got["heads_refused"][1]
-        assert got["single"][0] == "NotImplementedError"
-        assert "256-chip TPU pod layout" in got["single"][1]
-        assert "--mesh RxM" in got["single"][1]
+        assert got["single"][0] == "ValueError"
+        assert "needs 256 ranks; the process group has 4" in \
+            got["single"][1]
         full = [tuple(x.shape) for x in tree_leaves(dq)]
         for loc, f, d in zip(got["local_shapes"], full, tree_leaves(specs)):
             assert loc == (f if d is None else tuple(

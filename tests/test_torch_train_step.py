@@ -246,7 +246,7 @@ def test_train_entry_point_on_the_cpu(capsys, tmp_path):
     out = capsys.readouterr().out
     assert "step    1 loss" in out and "workers=1" in out
     assert (tmp_path / "ckpt_2.meta.json").exists()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="needs 512 ranks"):
         TTRAIN.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                      "--mesh", "multi"])
 

@@ -44,7 +44,8 @@ dict of tensors:
                 by step; None: seeded) and the `policy`, `use_floa`,
                 `alpha`, `batch`, `seq`: the final params, and per step
                 gbar, eps2, loss and grad_scale; the mesh's worker layout
-    prefill     `make_prefill_step` on `tokens` [B, S]: the logits
+    prefill     `make_prefill_step` on `tokens` [B, S] (and an
+                encoder-decoder's `extra` frames): the logits
     decode      `make_decode_step(cfg, mesh=...)` teacher-forced through
                 `tokens` [B, n] from empty caches of `batch_rows` rows:
                 logits [n, B, Vp], the caches' batch, decode launches; an
@@ -62,7 +63,12 @@ On a mesh with a "model" axis of M > 1 (test_torch_lm_tp.py) the train,
 prefill and decode jobs shard `params0` (`launch.sharding.shard_params` of
 the step's `params_specs`), the train job returns the params gathered back
 (`gather_params`) and every job its `model` (M, index) and the local
-shapes; `moe_impl` replaces the MoE config's impl.  Two more kinds:
+shapes; `moe_impl` replaces the MoE config's impl.  The steps run with
+FSDP on (`launch.sharding.data_specs`: `params0` sharded over "data" too,
+and gathered back over both axes) unless the job says "fsdp": False;
+"fsdp_min_size" lowers `launch.sharding.FSDP_MIN_SIZE` for the job (so
+smoke leaves shard), and each of these jobs returns its `stored_bytes`,
+the bytes of the rank's shards.  Three more kinds:
 
     ce          the vocab-parallel CE: `transformer.chunked_ce` of numpy
                 `h` [B, S, d] against `labels` under `tensor_parallel`,
@@ -75,6 +81,11 @@ shapes; `moe_impl` replaces the MoE config's impl.  Two more kinds:
                 draw, the worker and model axes, default_floa's worker
                 count, and the refusals of an unported head layout and
                 of --mesh single
+    count       `launch.dryrun.trace_step` of the smoke config's step at
+                `shape` (`shape_name`) run for real on this rank's CPU
+                zeros (route "cpu", fake=False): its operations,
+                collectives and argument bytes, to hold a fake trace
+                against
 
 Prints TORCH_DIST_OK rank=<rank> at the end.
 """
@@ -94,12 +105,14 @@ from repro_torch.core.power_control import Policy  # noqa: E402
 from repro_torch.fl import ExecutionPlan, SweepEngine, SweepSpec  # noqa: E402
 from repro_torch.fl import sweep as SW  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import dryrun as DRY  # noqa: E402
+from repro_torch.launch import sharding as SH  # noqa: E402
 from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch.distributed import (fetch,  # noqa: E402
                                             initialize_distributed)
-from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
-                                     make_sweep_mesh, mesh_from_arg,
-                                     model_axis, worker_axes)
+from repro_torch.launch.mesh import (data_axis,  # noqa: E402
+                                     make_debug_mesh, make_sweep_mesh,
+                                     mesh_from_arg, model_axis, worker_axes)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.sharding import (gather_params,  # noqa: E402
                                          param_specs, shard_params)
@@ -202,7 +215,8 @@ def run_job(job, sharded=True, resume=False):
 
 
 LM_KINDS = ("train_step", "prefill", "decode", "serve", "seq_partial",
-            "refusals", "ce", "layout")
+            "refusals", "ce", "layout", "count")
+FSDP_MIN_SIZE = SH.FSDP_MIN_SIZE
 
 
 def _raised(fn):
@@ -217,6 +231,7 @@ def _raised(fn):
 def run_lm_job(job):
     """One LM-step job on this rank (see the module docstring)."""
     kind = job["kind"]
+    SH.FSDP_MIN_SIZE = job.get("fsdp_min_size", FSDP_MIN_SIZE)
     if kind == "refusals":
         step, _ = ST.make_train_step(get_smoke("qwen3-4b"), make_debug_mesh(
             (4, 1), ("data", "model")))
@@ -229,6 +244,9 @@ def run_lm_job(job):
     axis = model_axis(mesh)
     if kind in ("ce", "layout"):
         return (ce_job if kind == "ce" else layout_job)(job, mesh, axis)
+    if kind == "count":
+        return DRY.trace_step(get_smoke(job["arch"]), job["shape_name"],
+                              job["shape"], mesh, route="cpu", fake=False)
     if kind == "seq_partial":
         q, k, v = (torch.as_tensor(job[n]) for n in "qkv")
         ranks, r = mesh.shape["model"], mesh.axis_index("model")
@@ -249,19 +267,26 @@ def run_lm_job(job):
         return {"tokens": res.tokens, "logits": res.logits}
     params = TT.params_from_jax(job["params0"], "cpu")
     specs = param_specs(cfg, axis.size)
-    params = shard_params(params, specs, mesh)
+    fsdp = job.get("fsdp", True)
+    dspecs = SH.data_specs(cfg, axis.size, data_axis(mesh).size) \
+        if fsdp else None
+    params = shard_params(params, specs, mesh, dspecs)
     model = {"model": (axis.size, axis.index)} if axis.size > 1 else {}
+    model["stored_bytes"] = sum(x.numel() * x.element_size()
+                                for x in tree_leaves(params))
     if kind == "prefill":
-        step, _ = ST.make_prefill_step(cfg, mesh)
-        return {"logits": step(params, {"tokens": torch.as_tensor(
-            job["tokens"])}), **model}
+        step, _ = ST.make_prefill_step(cfg, mesh, fsdp=fsdp)
+        batch = {k: torch.as_tensor(v) for k, v in job.get("extra",
+                                                          {}).items()}
+        batch["tokens"] = torch.as_tensor(job["tokens"])
+        return {"logits": step(params, batch), **model}
     if kind == "decode":
         tokens = torch.as_tensor(job["tokens"])
         b, n = tokens.shape
-        step, meta = ST.make_decode_step(cfg, mesh=mesh)
+        step, meta = ST.make_decode_step(cfg, mesh=mesh, fsdp=fsdp)
         rows = ST.batch_rows(mesh, b)
         if cfg.arch_type == "audio":
-            cross = ST.make_cross_kv_step(cfg, mesh)[0](
+            cross = ST.make_cross_kv_step(cfg, mesh, fsdp=fsdp)[0](
                 params, torch.as_tensor(job["frames"]))
             caches = ED.init_dec_caches(cfg, rows.stop - rows.start, n,
                                         model_parallel=axis.size)
@@ -283,7 +308,7 @@ def run_lm_job(job):
         cfg, mesh, dict(global_batch=job["batch"], seq_len=job["seq"],
                         kind="train"),
         policy=Policy(job["policy"]), alpha=job["alpha"],
-        use_floa=job["use_floa"])
+        use_floa=job["use_floa"], fsdp=fsdp)
     wa = worker_axes(mesh)
     state, log = ST.init_floa_state(), []
     for t, toks in enumerate(job["tokens"]):
@@ -297,9 +322,9 @@ def run_lm_job(job):
                           for k, v in job["extra"][t].items()})
         params, state, m = step(params, state, batch, t, draws=draws)
         log.append({**state, **m})
-    if axis.size > 1:
+    if axis.size > 1 or any(d is not None for d in tree_leaves(dspecs)):
         model["shapes"] = [tuple(x.shape) for x in tree_leaves(params)]
-        params = gather_params(params, specs, mesh)
+        params = gather_params(params, specs, mesh, dspecs)
     return {"params": params, "log": log, "meta": meta,
             "worker": (wa.num_workers, wa.first, wa.count), **model}
 

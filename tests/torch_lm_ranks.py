@@ -13,7 +13,8 @@ The reference script (`JAX_REF`) runs, for the cases it is given:
   normal from numpy, `extra`), jitted on the ("data", "model") debug mesh;
   each step's draws replayed (gains off PRNGKey(t)'s first key, leaf i's
   noise off fold_in(second key, i), at the leaf's full shape);
-- prefill: name -> (mesh shape, arch, batch, seq, seed);
+- prefill: name -> (mesh shape, arch, batch, seq, seed) (an
+  encoder-decoder's batch adds FRAMES frames, `extra`);
 - decode: name -> (arch, batch, steps, seed): the one-device decode step
   teacher-forced from empty caches (the encoder-decoder's against the
   cross K / V of FRAMES frames).
@@ -135,10 +136,12 @@ JAX_REF = textwrap.dedent("""
         art = S.make_prefill_step(cfg, mesh, dict(global_batch=b, seq_len=s,
                                                   kind="prefill"))
         toks = sample_tokens(b, s, vocab=cfg.vocab_size, seed=seed)
+        ext = extra(cfg, b, seed)
         with mesh:
             logits = jax.jit(art.fn, in_shardings=art.in_shardings)(
-                params, {{"tokens": jnp.asarray(toks)}})
-        return {{"params0": np_tree(params), "tokens": toks,
+                params, {{"tokens": jnp.asarray(toks),
+                         **{{k: jnp.asarray(v) for k, v in ext.items()}}}})
+        return {{"params0": np_tree(params), "tokens": toks, "extra": ext,
                 "logits": np.asarray(logits)}}
 
 
