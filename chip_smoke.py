@@ -24,6 +24,7 @@
     python3 chip_smoke.py --layouts   # phases 1-2, phase 3's decode rows
                                       # and phase 29 alone (its (b) in a
                                       # spawn of 2 ranks of its own)
+    python3 chip_smoke.py --remat     # phases 1-2 and 30 alone
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -346,11 +347,23 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               wrapper (off the dispatcher, as the main path launches it)
               against its custom op (as the dry run traces it), 1000
               calls each, in the order wrapper, op, op, wrapper.
-  30. the `kernels` line (with launches and times by shape where a
+  30. remat   rematerialization (`cfg.remat`, the full configs'
+              default): (a) phase 20's qwen3-4b train step (8 x 64) with
+              remat and without, none, remat, remat, none from the same
+              weights and seed: new params, stats and metrics bitwise,
+              ms and peak each; (b) qwen3-4b at full depth over train_4k's
+              4096 positions at 4 of its 256 rows, remat: a warm-up and a
+              measured step, finite losses, ms a step, the peak within 10 %
+              of `launch.dryrun.trace_step`'s prediction, beside the
+              remat-free trace's peak (computed, not run); (c)
+              moonshot-v1-16b-a3b cut to 4 layers at 2 x 4096: the peak
+              with the expert chunks (`moe.EXPERT_CHUNK_BYTES`) against
+              one forced chunk, chunks, one, one, chunks.
+  31. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 31. the last line, {"ok": true,
+      a rank's too, must have one); 32. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -485,6 +498,15 @@ FRONT_TP_N, FRONT_TP_LAYERS, FRONT_TP_RTOL = 64, 2, 1e-4
 # all_reduce)
 PEAK_TOL = 0.10
 FSDP_LAYERS, FSDP_TF, FSDP_STEPS, FSDP_RTOL = 4, 4, 2, 1e-5
+# The remat phase (30): (a) phase 20's qwen3-4b train step without and with
+# remat, in the order none, remat, remat, none, each from the same weights
+# and seed (bitwise); (b) train_4k's sequence at REMAT_BATCH of its 256
+# rows, full depth, remat: a warm-up step and a measured one, the peak
+# against `launch.dryrun.trace_step`'s within PEAK_TOL, beside the
+# remat-free trace's (computed, not run); (c) moonshot cut to
+# MOE_TRAIN_LAYERS at REMAT_MOE_BATCH x REMAT_SEQ: the expert chunks
+# against one forced chunk, in the order chunks, one, one, chunks
+REMAT_BATCH, REMAT_MOE_BATCH, REMAT_SEQ = 4, 2, 4096
 # --serve-rate: phase 14's serve timed this many times after a warm-up
 SERVE_RATE_RUNS = 5
 T_START = time.perf_counter()
@@ -4628,6 +4650,163 @@ def layouts_phase(torch) -> None:
                              "--mesh single did not refuse one process")
 
 
+def remat_phase(torch, ops) -> None:
+    """Phase 30: rematerialization at full width (`cfg.remat`, the full
+    configs' default; `models.common.recompute`), every train step counted
+    (no kernel of the port runs in one)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch.steps import init_floa_state, make_train_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_leaves
+    lm = get_config(LM_ARCH)
+    no_kernel = {k: 0 for k in ops.KERNELS}
+    params = lm_params(torch, lm)
+
+    def timed(step, args, seed=0):
+        """One step from args: its outputs, ms and peak above what was
+        allocated before it (with the arguments' bytes added, the step's
+        peak as the dry run counts it)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = step(*args, seed)
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() - base)
+
+    # (a) phase 20's step, remat against none, after a warm-up step
+    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    steps = {r: make_train_step(dataclasses.replace(lm, remat=r), None,
+                                shape, alpha=TRAIN_ALPHA)[0]
+             for r in (False, True)}
+    state = init_floa_state("cuda")
+    args = (params, state, lm_batch(torch, lm, TRAIN_BATCH, TRAIN_SEQ, 0))
+    arg_a = DRY.storage_bytes(args)
+    runs, first = [], {}
+
+    def run_a():
+        timed(steps[True], args)
+        for r in (False, True, True, False):
+            out, ms, peak = timed(steps[r], args)
+            if r not in first:
+                first[r] = out
+            runs.append({"remat": r, "ms": ms, "peak_bytes": peak + arg_a,
+                         "loss": float(out[2]["loss"])})
+            same = (all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(out[0]), tree_leaves(first[False][0])))
+                and all(torch.equal(out[i][k], first[False][i][k])
+                        for i in (1, 2) for k in out[i]))
+            runs[-1]["bitwise_no_remat"] = same
+            del out
+
+    _, seconds_a, counts_a = run_phase(torch, ops, "remat_a", run_a,
+                                       no_kernel)
+    first.clear()
+    torch.cuda.empty_cache()
+    if not all(r["bitwise_no_remat"] and math.isfinite(r["loss"])
+               for r in runs):
+        raise AssertionError(f"remat (a): remat differs from none: {runs}")
+
+    # (b) train_4k's sequence, full depth, remat; the dry run's prediction
+    big = dict(global_batch=REMAT_BATCH, seq_len=REMAT_SEQ, kind="train")
+    pred = DRY.trace_step(lm, "train_4k", big, None)
+    pred_plain = DRY.trace_step(dataclasses.replace(lm, remat=False),
+                                "train_4k", big, None)
+    step, _ = make_train_step(lm, None, big, alpha=TRAIN_ALPHA)
+    batch = lm_batch(torch, lm, REMAT_BATCH, REMAT_SEQ, 1)
+    arg_bytes = DRY.storage_bytes((params, state, batch))
+    log = []
+
+    def run_b():
+        for _ in range(2):
+            out, ms, peak = timed(step, (params, state, batch))
+            log.append({"ms": ms, "peak_bytes": peak + arg_bytes,
+                        "loss": float(out[2]["loss"])})
+            del out
+
+    _, seconds_b, counts_b = run_phase(torch, ops, "remat_b", run_b,
+                                       no_kernel)
+    peak = log[-1]["peak_bytes"]
+    rel = (pred["memory"]["peak"] - peak) / peak
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+    if not (all(math.isfinite(x["loss"]) for x in log)
+            and abs(rel) <= PEAK_TOL):
+        raise AssertionError(f"remat (b): {log}, predicted peak "
+                             f"{pred['memory']['peak']} ({rel:+.3f})")
+
+    # (c) moonshot's expert chunks against one forced chunk
+    moe = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    mshape = dict(global_batch=REMAT_MOE_BATCH, seq_len=REMAT_SEQ,
+                  kind="train")
+    mparams = lm_params(torch, moe)
+    mstep, _ = make_train_step(moe, None, mshape, alpha=TRAIN_ALPHA)
+    margs = (mparams, init_floa_state("cuda"),
+             lm_batch(torch, moe, REMAT_MOE_BATCH, REMAT_SEQ, 2))
+    arg_c = DRY.storage_bytes(margs)
+    chunk_bytes = MOE.EXPERT_CHUNK_BYTES
+    m = moe.moe
+    tokens = REMAT_MOE_BATCH * REMAT_SEQ
+    per_chunk = MOE.expert_chunk(m.num_experts, tokens, moe.d_model,
+                                 m.d_expert, moe.dtype.itemsize)
+    mruns = []
+
+    def run_c():
+        timed(mstep, margs)
+        for one in (False, True, True, False):
+            MOE.EXPERT_CHUNK_BYTES = 1 << 62 if one else chunk_bytes
+            try:
+                out, ms, mpeak = timed(mstep, margs)
+            finally:
+                MOE.EXPERT_CHUNK_BYTES = chunk_bytes
+            mruns.append({"one_chunk": one, "ms": ms,
+                          "peak_bytes": mpeak + arg_c,
+                          "loss": float(out[2]["loss"])})
+            del out
+
+    _, seconds_c, counts_c = run_phase(torch, ops, "remat_c", run_c,
+                                       no_kernel)
+    del mparams, margs, mstep
+    torch.cuda.empty_cache()
+    peaks = {one: min(r["peak_bytes"] for r in mruns
+                      if r["one_chunk"] == one) for one in (False, True)}
+    if not (all(math.isfinite(r["loss"]) for r in mruns)
+            and peaks[False] < peaks[True]):
+        raise AssertionError(f"remat (c): {mruns}")
+    emit("remat", a={"arch": lm.name, "layers": lm.n_layers,
+                     "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "argument_bytes": arg_a, "runs": runs,
+                     "seconds": seconds_a, "launches": counts_a},
+         b={"arch": lm.name, "layers": lm.n_layers, "batch": REMAT_BATCH,
+            "seq": REMAT_SEQ, "steps": log, "seconds": seconds_b,
+            "launches": counts_b, "peak_bytes": peak,
+            "predicted_peak_bytes": pred["memory"]["peak"],
+            "peak_rel_diff": rel, "peak_tol": PEAK_TOL,
+            "argument_bytes": arg_bytes,
+            "predicted_argument_bytes": pred["memory"]["argument_size"],
+            "predicted_flops": pred["flops_per_device"],
+            "predicted_no_remat_peak_bytes": pred_plain["memory"]["peak"],
+            "predicted_no_remat_flops": pred_plain["flops_per_device"],
+            "trace_s": pred["trace_s"] + pred_plain["trace_s"]},
+         c={"arch": moe.name, "layers": moe.n_layers,
+            "batch": REMAT_MOE_BATCH, "seq": REMAT_SEQ,
+            "expert_chunk_bytes": chunk_bytes,
+            "experts_a_chunk": per_chunk, "experts": m.num_experts,
+            "argument_bytes": arg_c,
+            "runs": mruns, "peak_bytes_chunks": peaks[False],
+            "peak_bytes_one_chunk": peaks[True], "seconds": seconds_c,
+            "launches": counts_c},
+         card_total_memory=torch.cuda.get_device_properties(0).total_memory)
+    print(f"remat (b): peak {peak / 1e9:.3f} GB, predicted "
+          f"{pred['memory']['peak'] / 1e9:.3f} GB ({100 * rel:+.2f} %), "
+          f"no remat predicted {pred_plain['memory']['peak'] / 1e9:.2f} GB; "
+          f"(c) peak {peaks[False] / 1e9:.2f} GB in chunks of {per_chunk}, "
+          f"{peaks[True] / 1e9:.2f} GB in one", flush=True)
+
+
 def dispatch_us(torch) -> dict:
     """Host microseconds a call of the decode kernel at the serve's shape
     ([SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, H, KV, dh] of LM_ARCH, bf16,
@@ -4778,6 +4957,13 @@ def main() -> int:
         emit("serve_rate", src=os.path.join(ROOT, "src"), arch=lm.name,
              batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
              eager_ms_per_step=ms, median_ms=sorted(ms)[len(ms) // 2])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if sys.argv[1:] == ["--remat"]:   # phases 1-2 and 30 alone
+        remat_phase(torch, ops)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5301,6 +5487,11 @@ def main() -> int:
     # card, --mesh single on one process ((b), FSDP on ranks, ran in the
     # rank phases' 2-rank spawn)
     layouts_phase(torch)
+
+    # 30. rematerialization: qwen3-4b's step with remat against none,
+    # train_4k's sequence at full depth on one card against the dry run,
+    # moonshot's expert chunks against one chunk
+    remat_phase(torch, ops)
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):

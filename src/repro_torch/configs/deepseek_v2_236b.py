@@ -42,7 +42,7 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         full(),
         n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
-        d_ff=128, vocab_size=512, dtype=torch.float32,
+        d_ff=128, vocab_size=512, dtype=torch.float32, remat=False,
         mla=MLAConfig(q_lora=64, kv_lora=32, qk_nope_dim=32, qk_rope_dim=16,
                       v_dim=32),
         moe=MoEConfig(num_experts=4, top_k=2, d_expert=128, num_shared=1,

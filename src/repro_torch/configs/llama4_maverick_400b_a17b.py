@@ -42,5 +42,6 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         full(), n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
         head_dim=32, d_ff=256, vocab_size=512, dtype=torch.float32,
+        remat=False,
         moe=MoEConfig(num_experts=4, top_k=1, d_expert=256, num_shared=1,
                       impl="scan_dense"))

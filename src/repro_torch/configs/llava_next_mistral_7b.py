@@ -41,6 +41,6 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         full(),
         n_layers=2, d_model=256, n_heads=8, n_kv_heads=2, head_dim=32,
-        d_ff=512, vocab_size=512, window=64, dtype=torch.float32,
+        d_ff=512, vocab_size=512, window=64, dtype=torch.float32, remat=False,
         frontend=FrontendConfig(kind="vision", feature_dim=64, n_prefix=16),
     )

@@ -38,5 +38,5 @@ def smoke() -> ModelConfig:
         n_layers=2, d_model=128, n_heads=8, n_kv_heads=8, vocab_size=512,
         ssm=SSMConfig(d_state=16, expand=2, headdim=32, chunk=16, d_conv=4,
                       ngroups=1),
-        dtype=torch.float32,
+        dtype=torch.float32, remat=False,
     )

@@ -36,7 +36,8 @@ def full() -> ModelConfig:
 def smoke() -> ModelConfig:
     return dataclasses.replace(
         full(), n_layers=2, d_model=256, n_heads=8, n_kv_heads=2,
-        head_dim=32, d_ff=512, vocab_size=512, dtype=torch.float32)
+        head_dim=32, d_ff=512, vocab_size=512, dtype=torch.float32,
+        remat=False)
 
 
 def lm_sweep() -> ModelConfig:
@@ -44,8 +45,9 @@ def lm_sweep() -> ModelConfig:
     transformer whose flat parameter count is D = 2 950 528, large enough
     to drive `floa_step_batched` / `grad_stats` / `sort_columns` at
     production D, small enough that the [S, U, D] gradient slab of a
-    few-lane sweep fits one card.  f32, so the flat-state sweeps stay
-    reproducible."""
+    few-lane sweep fits one card.  f32 and remat-free, so the flat-state
+    sweeps stay reproducible."""
     return dataclasses.replace(
         full(), n_layers=2, d_model=256, n_heads=8, n_kv_heads=2,
-        head_dim=32, d_ff=1024, vocab_size=2048, dtype=torch.float32)
+        head_dim=32, d_ff=1024, vocab_size=2048, dtype=torch.float32,
+        remat=False)

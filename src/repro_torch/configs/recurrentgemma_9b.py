@@ -41,5 +41,5 @@ def smoke() -> ModelConfig:
         full(),
         n_layers=5, d_model=128, n_heads=4, n_kv_heads=1, head_dim=32,
         d_ff=256, vocab_size=512, local_window=32, rglru_width=128,
-        dtype=torch.float32,
+        dtype=torch.float32, remat=False,
     )

@@ -40,7 +40,7 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         full(),
         n_layers=4, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
-        d_ff=256, vocab_size=512, dtype=torch.float32,
+        d_ff=256, vocab_size=512, dtype=torch.float32, remat=False,
         encdec=EncDecConfig(n_enc_layers=2, n_dec_layers=2, enc_seq_cap=32),
         frontend=FrontendConfig(kind="audio", feature_dim=64),
     )

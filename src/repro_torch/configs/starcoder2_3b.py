@@ -35,4 +35,4 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         full(), n_layers=2, d_model=256, n_heads=8, n_kv_heads=2,
         head_dim=32, d_ff=512, vocab_size=512, window=64,
-        dtype=torch.float32)
+        dtype=torch.float32, remat=False)

@@ -40,6 +40,14 @@ NODE_CARDS = 8             # cards a node, joined by NVLink
 # HBM3 (700 W, torch 2.11 + CUDA 12.8)
 H100_TOTAL_MEMORY = 85_017_493_504
 
+# Workspace a card's kernel allocates inside an op, beside its inputs and
+# its output, which no traced op shows (op -> fn(args) -> bytes): CUDA's
+# softmax backward forms grad * output before its reduction (torch 2.11,
+# `softmax_backward_cuda_out`; the allocator's history on an H100 shows it)
+CARD_WORKSPACE = {
+    torch.ops.aten._softmax_backward_data.default:
+        lambda grad, *_: _nbytes(grad)}
+
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
          "all_to_all")
 # the c10d ops a collective reaches: (kind, the position of the process
@@ -95,13 +103,18 @@ class CostMode(TorchDispatchMode):
       op -> fn(args) -> (bytes, flops));
     - `live`, `peak`: device bytes held, following each storage from the
       op that makes it to its release (`track` registers storages made
-      before the step, such as its arguments), so `peak` is what an eager
-      run holds, up to the allocator's rounding.
+      before the step, such as its arguments; a "meta" tensor holds
+      none), plus, while an op of
+      `workspace` (op -> fn(args) -> bytes: `CARD_WORKSPACE` for the
+      card's route) runs, the buffer its kernel allocates inside; so
+      `peak` is what an eager run holds, up to the allocator's rounding.
     """
 
-    def __init__(self, costs: Optional[Dict] = None):
+    def __init__(self, costs: Optional[Dict] = None,
+                 workspace: Optional[Dict] = None):
         super().__init__()
         self.costs = costs or {}
+        self.workspace = workspace or {}
         self.collectives = {k: 0 for k in KINDS}
         self.links = {"nvlink": 0, "network": 0}
         self.calls = {k: 0 for k in KINDS}
@@ -122,6 +135,8 @@ class CostMode(TorchDispatchMode):
         return added
 
     def _hold(self, t: torch.Tensor) -> int:
+        if t.device.type == "meta":   # shapes only: no device memory
+            return 0
         st = t.untyped_storage()
         key = st._cdata
         if key in self._held:
@@ -160,6 +175,9 @@ class CostMode(TorchDispatchMode):
                 list(kwargs.values())) + _nbytes(out)
         for t in _tensors(out):
             self._hold(t)
+        if func in self.workspace:
+            self.peak = max(self.peak, self.live
+                            + self.workspace[func](*args, **kwargs))
         return out
 
     def collective_summary(self) -> Dict[str, int]:

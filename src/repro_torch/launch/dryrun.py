@@ -22,17 +22,24 @@ every build of torch (a build without CUDA cannot index or differentiate
 fake "cuda" tensors), and the card's path is traced on them: the decode
 attention goes through the kernel's op (`kernels.decode_attention.
 card_route`), which traces by its fake rule, and its cost
-(`kernels.decode_attention.bytes_flops`) is added.  The model code has no
-other device branch.  An eager trace visits every layer, so its counts
+(`kernels.decode_attention.bytes_flops`) is added, as is the workspace
+the card's kernels allocate inside an op (`cost_analysis.CARD_WORKSPACE`:
+the softmax backward's) to the memory live while it runs.  The model code
+has no other device branch.  An eager trace visits every layer, so its counts
 are whole: the reference's probes at one and two layers, which undo
-XLA's counting a while-body once, have no counterpart.
+XLA's counting a while-body once, have no counterpart.  The trace runs the
+real step's backward, so under the config's `remat` (the full configs')
+it follows each recomputed block, CE chunk and expert chunk: their
+operations are counted twice, as XLA counts the reference's under remat,
+and the peak is what the recompute leaves live.
 
 Each combo writes `<out>/<arch>__<shape>__<mesh>.json`: status "ok" with
 the reference's fields where they have a meaning (n_params, n_active,
 flops_per_device: FlopCounterMode's plus the custom ops' costs;
 bytes_per_device: every op's inputs plus outputs, eager's traffic,
 unfused; collectives: bytes by kind and link; roofline; dominant;
-model_flops; model_flops_per_device; useful_ratio; memory: argument_size
+model_flops; model_flops_per_device; useful_ratio; remat (the config's);
+memory: argument_size
 (shards, state, batch and caches), output_size, temp_size (the peak less
 the arguments), peak, param_bytes, and fits against an H100's memory),
 trace_s in place of lower_s / compile_s, and largest_whole_leaf (the
@@ -185,9 +192,11 @@ def trace_step(cfg, shape_name: str, shape: Dict, mesh=None,
     """One rank's step of cfg at `shape` on `mesh` (None: one device), run
     once on CPU tensors: its counts and memory (the record's fields but
     status and names).  route "cuda" traces the card's path (the decode
-    kernel by its op's fake rule, `_card_decode_route`), "cpu" the CPU's
-    (the plain decode attention).  fake=False runs the same step for real
-    on CPU zeros (route "cpu" only), to hold a trace against.  The train
+    kernel by its op's fake rule, `_card_decode_route`, and the card's
+    kernels' workspace, `cost_analysis.CARD_WORKSPACE`), "cpu" the CPU's
+    (the plain decode attention, no workspace).  fake=False runs the same
+    step for real on CPU zeros (route "cpu" only), to hold a trace
+    against.  The train
     step takes its gains and each leaf's noise from here (`_Noise`), which
     it would otherwise draw from a generator of the device."""
     t0 = time.perf_counter()
@@ -197,7 +206,8 @@ def trace_step(cfg, shape_name: str, shape: Dict, mesh=None,
     with (FakeTensorMode() if fake else contextlib.nullcontext()), reroute:
         args = step_args(cfg, shape_name, shape, mesh, meta, "cpu")
         param_bytes = storage_bytes(args[0])
-        cost = CA.CostMode(COSTS)
+        cost = CA.CostMode(COSTS, CA.CARD_WORKSPACE if route == "cuda"
+                           else None)
         arg_bytes = cost.track(args)
         flops = FlopCounterMode(display=False)
         extra = {}
@@ -287,6 +297,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str,
         model_flops=mflops, model_flops_per_device=mflops / chips,
         useful_ratio=((mflops / chips) / got["flops_per_device"]
                       if got["flops_per_device"] else None),
+        remat=cfg.remat,
         memory=got["memory"], largest_whole_leaf=largest_whole_leaf(cfg),
         meta=got["meta"])
     _write(rec, out_dir)

@@ -14,7 +14,16 @@ receiver AWGN (eps_t * z) are added to the aggregate leaf by leaf, then SGD
 applies it (eq. 8).  The scalar stats (gbar_t, eps_t) the coefficients and
 the noise use are a one-round-stale EMA estimated from the aggregate, as in
 the reference.  The step runs no kernel of the port: its combine is the
-backward itself (autograd and cuBLAS), as the reference's is XLA's.
+backward itself (autograd and cuBLAS), as the reference's is XLA's.  What
+the backward recomputes rather than keeps is the config's, as in the
+reference: under `cfg.remat` (the full configs) each super-block, tail
+block and encoder-decoder block is recomputed from its input
+(`models.common.recompute`, re-entering the step's "model" axis, storage
+split and worker group, since the backward runs after their blocks have
+closed), and whatever remat says each CE chunk (`transformer.chunked_ce`)
+and each chunk of experts (`moe.moe_scan_dense`) is.  Under FSDP a
+recomputed block gathers its layer again rather than keep the gathered
+copy.  The step takes no argument for it.
 
 The JAX versions also derive shardings for a mesh and compile with pjit;
 the port runs eagerly, so each builder returns the step function itself

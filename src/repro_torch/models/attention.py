@@ -208,7 +208,11 @@ def _gqa_core(q: Tensor, k: Tensor, v: Tensor,
               mask: Optional[Tensor]) -> Tensor:
     """q [B, Sq, H, hd], k/v [B, Sk, KV, hd] -> [B, Sq, H, hd]; scores and
     softmax in f32, masked-out scores set to -1e30 (mask broadcasts to
-    [B, KV, G, Sq, Sk])."""
+    [B, KV, G, Sq, Sk]).  The product with v keeps the probabilities'
+    [B, KV, G, Sq] layout (the small output is permuted after it): an
+    [B, KV, Sq, G] product would copy the probabilities for its matmul
+    and hand the softmax's backward a permuted gradient, for which the
+    CUDA kernel makes two hidden temporaries of the scores' size."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
@@ -220,8 +224,8 @@ def _gqa_core(q: Tensor, k: Tensor, v: Tensor,
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgqs,bshd->bqhgd", probs, v)
-    return out.reshape(b, sq, h, hd)
+    out = torch.einsum("bhgqs,bshd->bhgqd", probs, v)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
 
 
 Q_CHUNK = 1024  # query-block size for memory-bounded full attention

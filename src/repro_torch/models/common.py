@@ -16,6 +16,11 @@ split (ZeRO-3, `launch.sharding.fsdp_augment`), and the model gathers
 each where a layer uses it (`gathered`, `storage_dim`,
 `gather_storage_dim`), so the model code stays layout-free.
 `maybe_scan` has no counterpart: the port loops over layers in Python.
+`recompute` is the reference's `jax.checkpoint`: a region's saved tensors
+are dropped after the forward and recomputed in the backward, inside the
+context variables the forward ran in (the "model" axis, the storage
+split, and those the MoE registers: `carry_into_recompute`), so the
+recompute makes the forward's shapes and collectives again.
 Parameters are nested dicts of tensors in the JAX layout, so
 `models/transformer.py::params_from_jax` carries JAX weights across as they
 are.
@@ -29,6 +34,8 @@ import math
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.distributed import (all_reduce_max, gather_storage,
                                             reduce_out)
@@ -96,17 +103,23 @@ class FrontendConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX `ModelConfig` without its XLA execution knobs (model_parallel,
-    remat, scan_layers, unroll_for_analysis); `dtype` is a torch dtype.
-    `lm_head_chunk` stays: it decides how many positions the training loss
-    projects to logits at once (`transformer.chunked_ce`).  `skip_shapes`
-    stays: it is a model property, the input shapes a config does not run
-    (`configs.registry.shape_applicable`).  `moe` is a `MoEConfig`, `mla`
-    an `MLAConfig` (deepseek-v2-236b) and `ssm` an `SSMConfig`
-    (mamba2-1.3b); `rglru_width` and `local_window` shape the RG-LRU
-    hybrid (recurrentgemma-9b); encdec and frontend are carried only as None here: the
-    port's model raises NotImplementedError on either (ROADMAP.md Queue 1
-    item 10)."""
+    """The JAX `ModelConfig` without its XLA execution knobs
+    (model_parallel, scan_layers, unroll_for_analysis); `dtype` is a torch
+    dtype.  `remat` stays, with the reference's default: under it the
+    train step's backward recomputes each super-block, tail block and
+    encoder-decoder block from its input (`recompute`) rather than keep
+    its activations; the full configs keep True, the smoke and lm_sweep
+    configs set False, as the reference's do.  `lm_head_chunk` stays: it
+    decides how many positions the training loss projects to logits at
+    once (`transformer.chunked_ce`, each chunk recomputed whatever remat
+    says).  `skip_shapes` stays: it is a model property, the input shapes
+    a config does not run (`configs.registry.shape_applicable`).  `moe` is
+    a `MoEConfig`, `mla` an `MLAConfig` (deepseek-v2-236b) and `ssm` an
+    `SSMConfig` (mamba2-1.3b); `rglru_width` and `local_window` shape the
+    RG-LRU hybrid (recurrentgemma-9b); `frontend` a VLM's projected prefix
+    (llava-next-mistral-7b, `transformer.project_prefix`) or, with
+    `encdec`, the encoder-decoder's frames (seamless-m4t-large-v2,
+    `models/encdec.py`)."""
     name: str
     arch_type: str                    # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
@@ -138,6 +151,9 @@ class ModelConfig:
     # [B, S, vocab] tensor never materializes.
     lm_head_chunk: int = 1024
     kv_cache_dtype: str = "native"    # or "int8" (models/attention.py)
+    # recompute each block in the backward (`recompute`) instead of keeping
+    # its activations
+    remat: bool = True
 
     @property
     def hd(self) -> int:
@@ -324,9 +340,9 @@ _STORAGE = contextvars.ContextVar("repro_torch_storage", default=None)
 def storage_sharded(axis, leaves, dims) -> Iterator[None]:
     """Inside the block each of `leaves` whose `dims` entry is not None is
     this rank's part of a leaf split on that dim over `axis` (a
-    `launch.mesh.DataAxis`); `gathered` and `_unstack`'s layers join it
-    where it is used.  An axis of one rank, or no split leaf, changes
-    nothing."""
+    `launch.mesh.DataAxis`); `gathered` and `transformer._Layer.tree`
+    join it where it is used.  An axis of one rank, or no split leaf,
+    changes nothing."""
     split = {id(x): (x, d) for x, d in zip(leaves, dims) if d is not None}
     token = _STORAGE.set((axis, split) if split and axis is not None
                          and axis.size > 1 else None)
@@ -357,6 +373,72 @@ def gathered(x: Tensor) -> Tensor:
     splits it over "data"; else x itself."""
     dim = storage_dim(x)
     return x if dim is None else gather_storage_dim(x, dim)
+
+
+# the context variables a recomputed region re-enters, each with what its
+# value at the forward gives the recompute (`carry_into_recompute`)
+_CARRIED: Dict[contextvars.ContextVar, Callable] = {}
+
+
+def _as_is(value):
+    return lambda: value
+
+
+def carry_into_recompute(var: contextvars.ContextVar,
+                         at_forward: Callable = _as_is) -> None:
+    """Have every region `recompute` wraps re-enter `var` when its forward
+    is recomputed: `at_forward(value)`, called at the forward with var's
+    value then, returns the function that gives the value var holds
+    during each recompute (by default that same value)."""
+    _CARRIED[var] = at_forward
+
+
+class _Reentered:
+    """The recompute's side of `recompute`'s context: each carried
+    variable set for the recompute, reset after it (reusable: a second
+    backward recomputes again)."""
+
+    def __init__(self, values):
+        self.values = values
+        self.tokens = []
+
+    def __enter__(self):
+        self.tokens = [(var, var.set(value())) for var, value in self.values]
+
+    def __exit__(self, *exc):
+        for var, token in reversed(self.tokens):
+            var.reset(token)
+        self.tokens = []
+
+
+def recompute(fn: Callable, *args):
+    """fn(*args) with the tensors its backward needs dropped after the
+    forward and recomputed when the backward reaches them (a non-reentrant
+    `torch.utils.checkpoint`, the reference's `jax.checkpoint`), the
+    recompute run inside the context variables the forward ran in
+    (`carry_into_recompute`): the backward runs after the step's `with`
+    blocks have closed, and on the card in autograd's device thread.
+    Collectives inside fn run again in the recompute, in the same order on
+    every rank.  The recompute repeats the forward's operations on the
+    same inputs, so it gives the same bits.  Where no backward can follow
+    (grad off, or no tensor of args requires grad: prefill, decode) or a
+    saved-tensor hook is refused (inside a `torch.func` transform: the
+    sweep's per-worker `vmap(grad)`), fn runs as it is; so fn takes every
+    tensor that may require grad as an argument."""
+    if (torch._C._functorch.peek_interpreter_stack() is not None
+            or not torch.is_grad_enabled()
+            or not any(isinstance(a, Tensor) and a.requires_grad
+                       for a in args)):
+        return fn(*args)
+    values = [(var, at(var.get())) for var, at in _CARRIED.items()]
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _Reentered(values)))
+
+
+carry_into_recompute(_MODEL_AXIS)
+carry_into_recompute(_STORAGE)
 
 
 def count_params(params: Dict) -> int:

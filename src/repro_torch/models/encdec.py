@@ -13,7 +13,11 @@ self_attn, ln_x, cross_attn, ln2, ffn} with a leading layer axis, so JAX
 weights carry across with `transformer.params_from_jax`.  The JAX scans
 over layers are Python loops, as in `models/transformer.py`, whose
 embedding, head (`logits_from_hidden`) and chunked CE (`chunked_ce`: the
-256k vocab needs it) the decoder reuses.
+256k vocab needs it) the decoder reuses.  Under `cfg.remat`, as in the
+reference, each encoder and each decoder block is a region the backward
+recomputes from its input (`transformer.run_block`); a decoder block's
+region also takes the encoder output, which every layer's
+cross-attention reads.
 
 Decode keeps one self-attention KV cache per decoder layer, stacked
 [L, B, S, KV, hd] (`init_dec_caches`), written in place at slot pos by
@@ -30,8 +34,9 @@ Under `common.tensor_parallel` the layers split as `transformer.py`'s do:
 gathered into the replicated stream), the self- and cross-attentions on
 their heads (a rank's caches and cross K / V hold its KV heads), the
 SwiGLU on f, the embedding, head and CE on the vocab.  Under
-`common.storage_sharded` each layer's data-sharded leaves are gathered as
-`transformer._unstack` produces the layer, and `enc_in` where it is used.
+`common.storage_sharded` each layer's data-sharded leaves are gathered
+where the layer runs (inside its region under remat), and `enc_in` where
+it is used.
 """
 from __future__ import annotations
 
@@ -101,11 +106,16 @@ def encode(params: Dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
     x = T._column_product(frames.to(cfg.dtype), gathered(params["enc_in"]),
                           cfg)
     positions = _positions(x)
-    for p in T._unstack(params["enc_blocks"], cfg.encdec.n_enc_layers):
+
+    def block(p, x):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + ATT.gqa_full(p["attn"], h, cfg, positions, causal=False)
-        x = x + T._ffn("attn", p["ffn"], rms_norm(x, p["ln2"],
-                                                  cfg.norm_eps), cfg)[0]
+        return x + T._ffn("attn", p["ffn"], rms_norm(x, p["ln2"],
+                                                     cfg.norm_eps), cfg)[0]
+
+    for layer in T._layer_parts(params["enc_blocks"],
+                                cfg.encdec.n_enc_layers):
+        x = T.run_block(cfg.remat, block, layer, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -115,14 +125,19 @@ def decode_hidden(params: Dict, tokens: Tensor, enc_out: Tensor,
     [B, Se, d] -> the final hidden [B, S, d]."""
     x = T.embed_tokens(params, tokens, cfg)
     positions = _positions(x)
-    for p in T._unstack(params["dec_blocks"], cfg.encdec.n_dec_layers):
+
+    def block(p, x, enc_out):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + ATT.gqa_full(p["self_attn"], h, cfg, positions)
         hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
         kv = ATT.encode_kv(p["cross_attn"], enc_out, cfg)
         x = x + ATT.cross_attention(p["cross_attn"], hx, kv, cfg)
-        x = x + T._ffn("attn", p["ffn"], rms_norm(x, p["ln2"],
-                                                  cfg.norm_eps), cfg)[0]
+        return x + T._ffn("attn", p["ffn"], rms_norm(x, p["ln2"],
+                                                     cfg.norm_eps), cfg)[0]
+
+    for layer in T._layer_parts(params["dec_blocks"],
+                                cfg.encdec.n_dec_layers):
+        x = T.run_block(cfg.remat, block, layer, x, enc_out)
     return rms_norm(x, params["dec_norm"], cfg.norm_eps)
 
 

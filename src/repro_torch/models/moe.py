@@ -8,10 +8,15 @@ einsums outside any Pallas kernel.
 
   * `moe_scan_dense` ("scan_dense"): every expert computes every token,
     weighted by the router's combine weights.  The reference scans the
-    experts one at a time and adds their weighted outputs in expert order;
-    here one `bmm` computes all E experts at once and the weighted outputs
-    are summed over the expert axis (E launches fewer; the sum order
-    differs from the reference's by rounding only).
+    experts one at a time, each step's weighted output under
+    `jax.checkpoint`, and adds them in expert order; here the experts run
+    in chunks of as many as keep a chunk's transients within
+    EXPERT_CHUNK_BYTES (`expert_chunk`), one `bmm` a chunk, the chunk's
+    weighted outputs summed over its experts and the chunks' sums added
+    in order, each chunk recomputed in the backward (`common.recompute`).
+    The serve, decode and smoke shapes take one chunk; the sum order
+    differs from the reference's (and several chunks' from one's) by
+    rounding only.
   * `moe_capacity_gather` ("capacity_gather"): sort-based token -> expert
     buckets of capacity C = ceil(top_k T / E) * capacity_factor, overflow
     dropped (the reference's `.at[slot].set(mode="drop")`: dropped pairs
@@ -29,7 +34,10 @@ version in bf16, say) can swap two nearly tied experts, and one swapped
 expert moves that token's output by a whole expert's share.  To compare
 two such routes, `RoutingTape` records the experts one run chooses and
 replays them in the other (`with routing(tape): ...`), counting the
-choices the replayed run would have made otherwise.
+choices the replayed run would have made otherwise.  A region the
+backward recomputes (`common.recompute`) takes again the experts its
+forward took, from the tape, recording nothing, moving no cursor and
+counting no flips.
 
 Over the worker axes of a mesh (`launch/steps.py`) each rank holds its
 rows of the global batch, and `with worker_batch(group): ...` makes the
@@ -55,17 +63,24 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.distributed import (all_reduce_sum_local_grad,
                                             copy_in, reduce_out)
-from repro_torch.models.common import ModelConfig, ParamInit, model_shards
+from repro_torch.models.common import (ModelConfig, ParamInit,
+                                       carry_into_recompute, model_shards,
+                                       recompute)
 from repro_torch.models.ffn import init_swiglu, swiglu
 
 Tensor = torch.Tensor
+
+# `moe_scan_dense` runs as many experts at once as keep their transients
+# ([Ec, T, f] three times, [Ec, T, d] three times) within this many bytes,
+# at least one: the serve, decode and smoke shapes in one chunk.
+EXPERT_CHUNK_BYTES = 1 << 30
 
 
 def init_moe(pi: ParamInit, cfg: ModelConfig) -> Dict:
@@ -121,6 +136,7 @@ class RoutingTape:
         self.cursor = 0
         self.flips: Optional[Tensor] = None
         self.decisions = 0
+        self.counting = True
 
     def replay(self) -> "RoutingTape":
         self.replaying, self.cursor = True, 0
@@ -136,12 +152,28 @@ class RoutingTape:
                          for i in range(steps) for r in self.recorded]
         return tape.replay()
 
+    def rerun(self) -> Callable[[], "RoutingTape"]:
+        """At a recomputed region's forward: what gives its recompute a
+        tape that replays the choices this tape's calls take from here on,
+        recording nothing and counting no flips (a fresh one for each
+        recompute), leaving this tape as it is."""
+        start = self.cursor if self.replaying else len(self.recorded)
+
+        def fresh():
+            tape = RoutingTape()
+            tape.recorded, tape.cursor = self.recorded, start
+            tape.replaying, tape.counting = True, False
+            return tape
+        return fresh
+
     def route(self, idx: Tensor) -> Tensor:
         if not self.replaying:
             self.recorded.append(idx)
             return idx
         want = self.recorded[self.cursor]
         self.cursor += 1
+        if not self.counting:
+            return want
         differ = (torch.sort(idx, dim=-1).values
                   != torch.sort(want, dim=-1).values).any(dim=-1).sum()
         self.flips = differ if self.flips is None else self.flips + differ
@@ -156,6 +188,11 @@ _TAPE = contextvars.ContextVar("repro_torch_routing_tape", default=None)
 # `worker_batch` block
 _WORKER_GROUP = contextvars.ContextVar("repro_torch_worker_group",
                                        default=(None, False))
+
+
+carry_into_recompute(_TAPE, lambda tape: (lambda: None) if tape is None
+                     else tape.rerun())
+carry_into_recompute(_WORKER_GROUP)
 
 
 @contextlib.contextmanager
@@ -211,12 +248,32 @@ def _routed_split(cfg: ModelConfig) -> bool:
         m.d_expert if m.impl == "scan_dense" else m.num_experts)
 
 
+def expert_chunk(num_experts: int, tokens: int, d: int, f: int,
+                 itemsize: int) -> int:
+    """How many experts a chunk of `moe_scan_dense` runs at once: as many
+    as keep [Ec, T, f] three times (x w1, x wg, their product) and
+    [Ec, T, d] three times (the tokens, the outputs, the weighted
+    outputs) within EXPERT_CHUNK_BYTES, at least one."""
+    per_expert = tokens * 3 * (f + d) * itemsize
+    return max(1, min(num_experts, EXPERT_CHUNK_BYTES // per_expert))
+
+
+def _weighted_experts(w1: Tensor, wg: Tensor, w2: Tensor, comb: Tensor,
+                      x2: Tensor) -> Tensor:
+    """A chunk of experts on every token, each output weighted by its
+    combine weight (comb [T, Ec]) and summed over the chunk -> [T, d]."""
+    out = _experts(w1, wg, w2, x2)                                # [Ec, T, d]
+    return (comb.T[:, :, None].to(out.dtype) * out).sum(dim=0)
+
+
 def moe_scan_dense(p: Dict, x2: Tensor, cfg: ModelConfig
                    ) -> Tuple[Tensor, Tensor]:
     """x2 [T, d] -> ([T, d], aux loss): every expert on every token, each
     output weighted by its (token, expert) combine weight (the top-k gates,
-    0 elsewhere).  Under `tensor_parallel` with the f split, the output is
-    this rank's partial sum."""
+    0 elsewhere); the experts in chunks of `expert_chunk`, each chunk
+    recomputed in the backward, the chunks' sums added in order.  Under
+    `tensor_parallel` with the f split, the output is this rank's partial
+    sum."""
     m = cfg.moe
     probs = router_probs(p, x2, cfg)                              # [T, E]
     gates, idx = _top_k(probs, m.top_k)
@@ -224,8 +281,14 @@ def moe_scan_dense(p: Dict, x2: Tensor, cfg: ModelConfig
     if _routed_split(cfg):
         group = model_shards().group
         x2, comb = copy_in(x2, group), copy_in(comb, group)
-    out = _experts(p["w1"], p["wg"], p["w2"], x2)                 # [E, T, d]
-    y = (comb.T[:, :, None].to(out.dtype) * out).sum(dim=0)
+    e, d, f = p["w1"].shape
+    ec = expert_chunk(e, x2.shape[0], d, f, x2.element_size())
+    y = None
+    for a in range(0, e, ec):
+        c = slice(a, a + ec)
+        part = recompute(_weighted_experts, p["w1"][c], p["wg"][c],
+                         p["w2"][c], comb[:, c], x2)
+        y = part if y is None else y + part
     return y, load_balance_loss(probs, idx, m.num_experts)
 
 

@@ -27,11 +27,15 @@ state, or an RG-LRU layer's conv window and h.  A local_attn layer's
 cache is always a ring of min(max_len, cfg.local_window) slots; the
 `window` of `init_caches` and `decode_step` (long_500k's) applies to the
 attn / attn_moe blocks only.  The JAX scan over layers is a Python loop
-over layer indices here, and `remat` has no counterpart: the backward
-keeps every layer's activations.  `chunked_ce` projects `lm_head_chunk`
-positions to logits at a time, as the reference does, without
-`torch.utils.checkpoint` (it does not compose with `torch.func.grad` /
-`vmap`, through which the sweep takes per-worker gradients).
+over layer indices here.  Under `cfg.remat`, as in the reference, each
+super-block (all its sub-blocks) and each tail block is one region the
+backward recomputes from its input (`run_block`, `common.recompute`), so
+the backward keeps a layer's input and one layer's activations at a
+time; `chunked_ce` projects `lm_head_chunk` positions to logits at a
+time, each chunk recomputed in the backward whatever remat says.  Inside
+a `torch.func` transform (the sweep's per-worker `vmap(grad)`, whose
+configs set remat False) saved-tensor hooks are refused, so there both
+run without recompute, with the same values.
 
 A VLM (cfg.frontend, llava-next-mistral-7b) adds the `projector` leaves
 w1 [feat, d], b1, w2 [d, d], b2: `hidden_for_batch` projects a batch's
@@ -54,13 +58,16 @@ one `reduce_out`), the head on its vocab columns, and the CE is
 `softmax_xent_sharded`, so the [B, S, Vp] logits are never gathered in
 training.  `logits_from_hidden` gathers the vocab shards (prefill and
 decode).  Under `common.storage_sharded` (the large leaves' storage split
-over the "data" ranks) a layer's leaves are gathered as its tree is
-produced (`_unstack`, `_layers`: one layer at a time), and the embedding,
-the head and the projector where they are used (`common.gathered`).
+over the "data" ranks) a layer's leaves are gathered where the layer
+runs (`_Layer.tree`: one layer at a time, inside its recomputed region
+under remat, so the backward gathers it again rather than keep it), and
+the embedding, the head and the projector where they are used
+(`common.gathered`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+import functools
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,9 +81,9 @@ from repro_torch.launch.distributed import (all_gather, copy_in, gather_out,
                                             reduce_out)
 from repro_torch.models.common import (ModelConfig, ParamInit,
                                        gather_storage_dim, gathered,
-                                       model_shards, rms_norm, rope_cos_sin,
-                                       softmax_xent, softmax_xent_sharded,
-                                       storage_dim)
+                                       model_shards, recompute, rms_norm,
+                                       rope_cos_sin, softmax_xent,
+                                       softmax_xent_sharded, storage_dim)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
@@ -265,38 +272,84 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
-def _unstack(tree: Dict, n: int) -> Iterator[Dict]:
-    """The n layers of a stacked tree, one at a time (views), each leaf
-    unbound once: the backward of `unbind` stacks the layers' gradients in
-    one pass, where a select per layer would each add a zero-filled
-    gradient of the whole stack.  Under `common.storage_sharded` a layer's
-    data-sharded leaves are gathered as the layer is produced (a leaf
-    split on its layer dim is gathered whole first)."""
+class _Layer(NamedTuple):
+    """One layer's leaves as this rank holds them (`_layer_parts`): under
+    `common.storage_sharded` a data-sharded leaf is this rank's part,
+    with the dim to gather it on."""
+    treedef: Any
+    leaves: List[Tensor]
+    dims: List[Optional[int]]
+
+    def tree(self, leaves=None) -> Dict:
+        """The layer's tree, each part gathered whole; `leaves` (the
+        same tensors, passed through a recomputed region) in place of
+        self.leaves."""
+        return tree_unflatten(self.treedef, [
+            x if d is None else gather_storage_dim(x, d)
+            for x, d in zip(self.leaves if leaves is None else leaves,
+                            self.dims)])
+
+
+def _layer_parts(tree: Dict, n: int) -> Iterator[_Layer]:
+    """The n layers of a stacked tree, one at a time (views, ungathered),
+    each leaf unbound once: the backward of `unbind` stacks the layers'
+    gradients in one pass, where a select per layer would each add a
+    zero-filled gradient of the whole stack.  A leaf split over "data" on
+    its layer dim is gathered whole first (a 2-dim stacked leaf: FSDP
+    splits no layer's matrix on it), the others are gathered where the
+    layer is used (`_Layer.tree`)."""
     leaves, treedef = tree_flatten(tree)
     dims = [storage_dim(x) for x in leaves]
     per_leaf = [(gather_storage_dim(x, 0) if d == 0 else x).unbind(0)
                 for x, d in zip(leaves, dims)]
+    layer_dims = [None if d in (None, 0) else d - 1 for d in dims]
     for i in range(n):
-        yield tree_unflatten(treedef, [
-            p[i] if d in (None, 0) else gather_storage_dim(p[i], d - 1)
-            for p, d in zip(per_leaf, dims)])
+        yield _Layer(treedef, [p[i] for p in per_leaf], layer_dims)
+
+
+def _unstack(tree: Dict, n: int) -> Iterator[Dict]:
+    """The n layers of a stacked tree, one at a time, each gathered as it
+    is produced (`_layer_parts`)."""
+    for layer in _layer_parts(tree, n):
+        yield layer.tree()
+
+
+def _regions(cfg: ModelConfig, tree: Dict
+             ) -> Iterator[Tuple[Tuple[str, ...], _Layer]]:
+    """(kinds, layer parts) of every region `cfg.remat` recomputes, in
+    order: each stacked super-block ({"b0", "b1", ...}, one sub-block a
+    pattern entry), then each tail block ({"b0"})."""
+    n_rep, n_tail = layer_counts(cfg)
+    if n_rep:
+        for layer in _layer_parts(tree["blocks"], n_rep):
+            yield cfg.block_pattern, layer
+    for t in range(n_tail):
+        leaves, treedef = tree_flatten(tree[f"tail{t}"])
+        yield (cfg.block_pattern[t],), _Layer(
+            treedef, leaves, [storage_dim(x) for x in leaves])
 
 
 def _layers(cfg: ModelConfig, tree: Dict) -> Iterator[Tuple[str, Dict]]:
-    """(kind, sub-block tree) of every layer in order, one at a time: each
-    stacked super-block's sub-blocks, then the tail blocks (their
-    data-sharded leaves gathered, as `_unstack` gathers a layer's)."""
-    n_rep, n_tail = layer_counts(cfg)
-    if n_rep:
-        for sb in _unstack(tree["blocks"], n_rep):
-            yield from ((kind, sb[f"b{i}"])
-                        for i, kind in enumerate(cfg.block_pattern))
-    for t in range(n_tail):
-        sub = tree[f"tail{t}"]["b0"]
-        leaves, treedef = tree_flatten(sub)
-        if any(storage_dim(x) is not None for x in leaves):
-            sub = tree_unflatten(treedef, [gathered(x) for x in leaves])
-        yield cfg.block_pattern[t], sub
+    """(kind, sub-block tree) of every layer in order, one at a time, each
+    gathered as it is produced: each stacked super-block's sub-blocks,
+    then the tail blocks (a decode step's params and caches)."""
+    for kinds, layer in _regions(cfg, tree):
+        sub = layer.tree()
+        yield from ((kind, sub[f"b{i}"]) for i, kind in enumerate(kinds))
+
+
+def run_block(remat: bool, fn, layer: _Layer, *xs: Tensor):
+    """fn(layer's gathered tree, *xs); under remat recomputed in the
+    backward (`common.recompute`), the region taking the rank's parts and
+    gathering them inside itself, so that the backward gathers them again
+    and nothing gathered is kept for it."""
+    if not remat:
+        return fn(layer.tree(), *xs)
+    n = len(xs)
+
+    def region(*args):
+        return fn(layer.tree(list(args[n:])), *args[:n])
+    return recompute(region, *xs, *layer.leaves)
 
 
 def _ffn(kind: str, p: Dict, h: Tensor, cfg: ModelConfig
@@ -339,12 +392,25 @@ def forward_hidden(params: Dict, x: Tensor, positions: Tensor,
                    ) -> Tuple[Tensor, Tensor]:
     """Embedded inputs [B, S, d] -> (final hidden [B, S, d], aux loss):
     the aux loss is the sum of the MoE blocks' load-balance losses (0 for
-    a dense model), f32."""
+    a dense model), f32, each super-block's summed first, as the
+    reference does.  Under cfg.remat each super-block and each tail block
+    is recomputed in the backward (`run_block`)."""
     check_supported(cfg)
     window = window if window is not None else cfg.window
+
+    def blocks(kinds, p, x):
+        aux = None
+        for i, kind in enumerate(kinds):
+            x, a = _apply_subblock(kind, p[f"b{i}"], x, positions, cfg,
+                                   window)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in _layers(cfg, params):
-        x, a = _apply_subblock(kind, p, x, positions, cfg, window)
+    for kinds, layer in _regions(cfg, params):
+        x, a = run_block(cfg.remat, functools.partial(blocks, kinds),
+                         layer, x)
         if a is not None:
             aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
@@ -410,22 +476,26 @@ def chunked_ce(params: Dict, h: Tensor, labels: Tensor,
                cfg: ModelConfig) -> Tensor:
     """Per-position CE [B, S] from hidden states [B, S, d], the lm_head
     applied to `cfg.lm_head_chunk` positions at a time (the last slice
-    holds the remainder), so the [B, S, vocab] logits never exist at
-    once.  Under `tensor_parallel` each chunk's logits are this rank's
-    vocab columns (`softmax_xent_sharded`)."""
+    holds the remainder), each chunk's logits and softmax recomputed in
+    the backward whatever cfg.remat says (`common.recompute`, as the
+    reference's `jax.checkpoint`), so the [B, S, vocab] logits never
+    exist at once, nor a chunk's past its forward.  Under
+    `tensor_parallel` each chunk's logits are this rank's vocab columns
+    (`softmax_xent_sharded`)."""
     head = _head(params, cfg)
     s = h.shape[1]
     ck = min(cfg.lm_head_chunk, s)
     axis = _vocab_axis(cfg)
     if axis is None:
-        return torch.cat([
-            softmax_xent(h[:, i:i + ck] @ head, labels[:, i:i + ck],
-                         cfg.vocab_size) for i in range(0, s, ck)], dim=1)
-    h = copy_in(h, axis.group)
-    return torch.cat([
-        softmax_xent_sharded(h[:, i:i + ck] @ head, labels[:, i:i + ck],
-                             cfg.vocab_size, axis)
-        for i in range(0, s, ck)], dim=1)
+        def ce(hc, lc, head):
+            return softmax_xent(hc @ head, lc, cfg.vocab_size)
+    else:
+        h = copy_in(h, axis.group)
+
+        def ce(hc, lc, head):
+            return softmax_xent_sharded(hc @ head, lc, cfg.vocab_size, axis)
+    return torch.cat([recompute(ce, h[:, i:i + ck], labels[:, i:i + ck],
+                                head) for i in range(0, s, ck)], dim=1)
 
 
 def lm_per_example_loss(params: Dict, batch: Dict, cfg: ModelConfig,

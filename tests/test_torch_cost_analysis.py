@@ -104,3 +104,22 @@ def test_live_bytes_follow_each_storage():
         del c
     assert cost.peak == 1024 + 2000
     assert cost.op_bytes == 2 * 1024 + 2000
+
+
+def test_meta_tensors_and_card_workspace():
+    """A "meta" tensor (shapes only, as `init_params(..., "meta")` makes
+    for the noise's shapes) adds nothing to the live bytes; an op of the
+    card's workspace table (`CARD_WORKSPACE`: the softmax backward's
+    grad * output) adds its buffer to the peak while it runs, beside its
+    output, and leaves nothing live after it."""
+    x = torch.zeros(64, 32, requires_grad=True)
+    with CA.CostMode(workspace=CA.CARD_WORKSPACE) as cost:
+        cost.track(x)
+        torch.empty(1 << 30, device="meta")
+        assert cost.live == cost.peak == 64 * 32 * 4
+        y = torch.softmax(x, dim=-1)
+        g, = torch.autograd.grad(y, x, torch.ones_like(y))
+        del y, g
+    # x, y, the ones, the softmax backward's output and its workspace
+    assert cost.peak == 5 * 64 * 32 * 4
+    assert cost.live == 64 * 32 * 4

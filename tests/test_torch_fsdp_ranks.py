@@ -15,6 +15,13 @@ enc_in), so every gather and reduce_scatter of the layout runs:
   seamless-m4t-large-v2 (frames), and decode of the three (seamless's
   against its cross K / V): logits bitwise equal to the unsharded run's
   and within the existing tolerances of the JAX package's;
+- remat under FSDP on (2, 1) and (2, 2): qwen3-4b's step with remat=True
+  bitwise the remat-free one on every rank, and moonshot-v1-16b-a3b's
+  steps on (2, 1) run
+  twice from the same weights, remat off recording the experts in a
+  `RoutingTape`, remat on replaying them: bitwise, and the recompute
+  (which gathers each layer again and repeats the aux's all_reduce)
+  moves no cursor and flips nothing;
 - `launch.dryrun.trace_step` of the smoke qwen3-4b's train, prefill and
   decode steps on a fake (2, 2) group in this process against the same
   step run for real on rank 0 of the 4 gloo ranks: the operations
@@ -29,7 +36,7 @@ import torch
 
 from torch_lm_ranks import (AXES, ROUTES, RTOL, assert_train_matches,
                             close, close_decode, jax_reference, train_jobs)
-from torch_parity import assert_ranks_agree, run_ranks
+from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
 
 from repro_torch.configs import get_smoke
 from repro_torch.launch import dryrun as DRY
@@ -77,6 +84,13 @@ def ranks2(jax_ref, tmp_path_factory):
                             mesh=((2, 1), AXES), arch=a,
                             params0=ref["params0"], tokens=ref["tokens"],
                             frames=ref.get("frames")))
+    jobs.append(dict(jobs[0], name=jobs[0]["name"] + "_remat", remat=True))
+    rng = np.random.default_rng(11)
+    jobs.append(dict(
+        jobs[0], name="remat_moe", arch=MOE, replay=True, draws=None,
+        params0=jax_ref[f"pf_{MOE}"]["params0"], tokens=[
+            rng.integers(0, 512, (4, 17), dtype=np.int32)
+            for _ in range(2)]))
     return run_ranks(jobs, 2, tmp_path_factory.mktemp("fsdp2"))
 
 
@@ -84,6 +98,7 @@ def ranks2(jax_ref, tmp_path_factory):
 def ranks4(jax_ref, tmp_path_factory):
     jobs = [j for job in train_jobs(jax_ref, "q22", TRAIN)
             for j in _twins(job)]
+    jobs.append(dict(jobs[0], name=jobs[0]["name"] + "_remat", remat=True))
     jobs += [dict(name=f"count_{k}", kind="count", mesh=((2, 2), AXES),
                   arch=QWEN, shape_name="decode_32k", shape=shape,
                   fsdp_min_size=MIN) for k, shape in COUNT.items()]
@@ -131,6 +146,33 @@ def test_fsdp_train_step_matches_jax_and_unsharded(ranks2, ranks4, jax_ref,
     for g, w in zip(got["log"], plain["log"]):
         for k in ("gbar", "eps2", "loss", "grad_scale"):
             close(g[k], w[k].numpy(), err_msg=k)
+
+
+def test_fsdp_remat_step_bitwise_equals_no_remat(ranks2, ranks4):
+    """Under FSDP (and a "model" axis on (2, 2)) the recomputed blocks
+    re-enter the step's axes and gather their layers again inside the
+    backward, on every rank in the same order: the remat step equals the
+    remat-free one bitwise, and a tape's replay passes through the
+    recompute without moving its cursor or counting a flip."""
+    for ranks, name, world in ((ranks2, "q21", 2), (ranks4, "q22", 4)):
+        job = f"{name}_bev_True"
+        assert_ranks_agree(ranks, job + "_remat", world,
+                           skip=("worker", "model"))
+        for r in range(world):
+            got, want = ranks[f"{job}_remat.r{r}"], ranks[f"{job}.r{r}"]
+            assert_trees_equal(got["params"], want["params"])
+            assert_trees_equal(got["log"], want["log"])
+    assert_ranks_agree(ranks2, "remat_moe", 2, skip=("worker",))
+    for r in range(2):
+        moe = ranks2[f"remat_moe.r{r}"]
+        assert_trees_equal(moe["params"], moe["recorded"]["params"])
+        assert_trees_equal(moe["log"], moe["recorded"]["log"])
+        layers = get_smoke(MOE).n_layers
+        assert moe["tape"] == {"recorded": 2 * layers, "cursor": 2 * layers,
+                               "decisions": 2 * layers * 2 * 16,
+                               "flips": 0}
+    assert any(d is not None for d in tree_leaves(
+        ranks2["remat_moe.r0"]["meta"]["data_specs"]))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

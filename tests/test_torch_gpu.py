@@ -1460,3 +1460,49 @@ def test_decode_fake_rule_plans_as_the_kernel(cuda_device, b, h, kv, dh, s,
     assert (fws.shape, fws.dtype) == (ws.shape, ws.dtype)
     assert torch.equal(DA.decode_attention(q, k, v, pos), out)
     assert ops.launch_counts()["decode_attention"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v2-236b", "mamba2-1.3b",
+                                  "recurrentgemma-9b",
+                                  "llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_remat_step_bitwise_equals_no_remat_on_the_card(cuda_device, arch):
+    """One seeded BEV train step of the smoke config with remat=True
+    against remat=False on the card, where the backward (and so each
+    block's recompute) runs in autograd's device thread: new params,
+    stale stats and metrics bitwise; the expert chunks lowered to two
+    experts a chunk on the MoE archs, so several chunks run."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke(arch)
+    shape = dict(global_batch=4, seq_len=24, kind="train")
+    params = ST.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    batch = {}
+    for k, (s, dt) in ST.batch_shapes(cfg, shape, "train").items():
+        batch[k] = (torch.randint(0, cfg.vocab_size, s, generator=gen,
+                                  device=cuda_device, dtype=dt)
+                    if k == "tokens" else
+                    torch.randn(s, generator=gen, device=cuda_device).to(dt))
+    old = MOE.EXPERT_CHUNK_BYTES
+    if cfg.moe is not None:
+        per = 4 * 24 * 3 * (cfg.moe.d_expert + cfg.d_model) * 4
+        MOE.EXPERT_CHUNK_BYTES = 2 * per
+    try:
+        out = [ST.make_train_step(dataclasses.replace(cfg, remat=r), None,
+                                  shape, alpha=0.02)[0](
+            params, ST.init_floa_state(cuda_device), batch, 3)
+            for r in (False, True)]
+    finally:
+        MOE.EXPERT_CHUNK_BYTES = old
+    for a, b in zip(tree_leaves(out[0][0]), tree_leaves(out[1][0])):
+        assert torch.equal(a, b)
+    for i in (1, 2):
+        for k in out[0][i]:
+            assert torch.equal(out[0][i][k], out[1][i][k]), k
+    assert torch.isfinite(out[1][2]["loss"])

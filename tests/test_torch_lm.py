@@ -48,8 +48,8 @@ from repro_torch import tree as TREE
 ARCH = "qwen3-4b"
 RTOL, ATOL = 1e-4, 1e-5      # f32 model steps, port vs JAX
 # XLA-only execution knobs of the JAX config that the port leaves out
-JAX_ONLY_FIELDS = {"model_parallel", "remat", "scan_layers",
-                   "unroll_for_analysis"}
+# (`remat` it keeps: `models.common.recompute`)
+JAX_ONLY_FIELDS = {"model_parallel", "scan_layers", "unroll_for_analysis"}
 FULL_PARAMS = 4_412_079_616   # qwen3-4b at full width
 
 

@@ -126,9 +126,12 @@ def test_masked_segments_keep_the_gradient_finite():
     tp = dict(tp, A_log=torch.full_like(tp["A_log"], 3.0),
               dt_bias=torch.full_like(tp["dt_bias"], 5.0))
     u = _rng(7, 1, 16, tcfg.d_model)
-    AP.close(TSSM.ssd_full(tp, torch.from_numpy(u), tcfg),
-             JSSM.ssd_full(jp, jnp.asarray(u), jcfg))
-    gj = jax.grad(lambda p: JSSM.ssd_full(p, jnp.asarray(u), jcfg).sum())(jp)
+    # the reference's forward and gradient in one program
+    jy, gj = jax.jit(lambda p: (
+        JSSM.ssd_full(p, jnp.asarray(u), jcfg),
+        jax.grad(lambda q: JSSM.ssd_full(q, jnp.asarray(u), jcfg).sum())(
+            p)))(jp)
+    AP.close(TSSM.ssd_full(tp, torch.from_numpy(u), tcfg), jy)
     assert np.isnan(np.asarray(gj["A_log"])).any()
     gt = torch.func.grad(lambda p: TSSM.ssd_full(p, torch.from_numpy(u),
                                                  tcfg).sum())(tp)

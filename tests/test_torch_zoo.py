@@ -77,11 +77,12 @@ def test_loss_and_prefill_match_jax(arch, n_layers):
     toks = sample_tokens(BATCH, SEQ + 1, vocab=jcfg.vocab_size, seed=3)
     batch_j, batch_t = {"tokens": jnp.asarray(toks)}, {
         "tokens": torch.as_tensor(toks)}
-    _close(TT.lm_loss(tparams, batch_t, tcfg),
-           JT.lm_loss(jparams, batch_j, jcfg), RTOL)
-    (tper, taux), (jper, jaux) = (
-        TT.lm_per_example_loss(tparams, batch_t, tcfg),
-        JT.lm_per_example_loss(jparams, batch_j, jcfg))
+    # the reference's loss and per-example losses in one program
+    jloss, (jper, jaux) = jax.jit(lambda p: (
+        JT.lm_loss(p, batch_j, jcfg),
+        JT.lm_per_example_loss(p, batch_j, jcfg)))(jparams)
+    _close(TT.lm_loss(tparams, batch_t, tcfg), jloss, RTOL)
+    tper, taux = TT.lm_per_example_loss(tparams, batch_t, tcfg)
     _close(tper, jper, RTOL)
     _close(taux, jaux, RTOL)
     assert (float(taux) > 0) == (tcfg.moe is not None)

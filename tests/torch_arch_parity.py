@@ -100,12 +100,14 @@ def check_loss_and_grads(arch, batch, seq, seed, grad_rtol=RTOL,
     jcfg, tcfg, jparams, tparams = setup(arch)
     toks = sample_tokens(batch, seq + 1, vocab=jcfg.vocab_size, seed=seed)
     bj, bt = batches(toks, extra)
-    close(TT.lm_loss(tparams, bt, tcfg), JT.lm_loss(jparams, bj, jcfg))
-    (tper, taux), (jper, jaux) = (TT.lm_per_example_loss(tparams, bt, tcfg),
-                                  JT.lm_per_example_loss(jparams, bj, jcfg))
+    # the reference's loss, per-example losses and gradient in one program
+    jloss, (jper, jaux), gj = jax.jit(lambda p: (
+        JT.lm_loss(p, bj, jcfg), JT.lm_per_example_loss(p, bj, jcfg),
+        jax.grad(lambda q: JT.lm_loss(q, bj, jcfg))(p)))(jparams)
+    close(TT.lm_loss(tparams, bt, tcfg), jloss)
+    tper, taux = TT.lm_per_example_loss(tparams, bt, tcfg)
     close(tper, jper)
     close(taux, jaux)
-    gj = jax.jit(jax.grad(lambda p: JT.lm_loss(p, bj, jcfg)))(jparams)
     gt = torch.func.grad(lambda p: TT.lm_loss(p, bt, tcfg))(tparams)
     for p, g, w in zip(tree_paths(gt), tree_leaves(gt),
                        jax.tree_util.tree_leaves(gj)):
@@ -169,13 +171,17 @@ def check_decode(arch, batch, steps, seed):
 
 
 def check_train_step(arch, batch, seq, seed, alpha=0.02, n_layers=None,
-                     extra=None, shape_seq=None):
+                     extra=None, shape_seq=None, remat=None):
     """One BEV step on a 1x1 mesh (U = 1), the JAX step's gains and
     per-leaf noise replayed (the weighted loss carries the MoE aux term,
     router_aux_coef * aux * sum(s) / U, on a MoE arch); the batch `seq`
     + 1 tokens (and `extra`), the steps built for an input shape of
-    `shape_seq` (default seq) positions."""
+    `shape_seq` (default seq) positions; `remat`, given, replaces both
+    configs' remat."""
     jcfg, tcfg, jparams, tparams = setup(arch, n_layers)
+    if remat is not None:
+        jcfg = dataclasses.replace(jcfg, remat=remat)
+        tcfg = dataclasses.replace(tcfg, remat=remat)
     mesh = make_debug_mesh((1, 1), ("data", "model"))
     shape = dict(global_batch=batch, seq_len=shape_seq or seq, kind="train")
     toks = sample_tokens(batch, seq + 1, vocab=jcfg.vocab_size, seed=seed)

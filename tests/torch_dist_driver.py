@@ -43,7 +43,12 @@ dict of tensors:
                 job has them) with `draws` (h_abs and one z a leaf, a list
                 by step; None: seeded) and the `policy`, `use_floa`,
                 `alpha`, `batch`, `seq`: the final params, and per step
-                gbar, eps2, loss and grad_scale; the mesh's worker layout
+                gbar, eps2, loss and grad_scale; the mesh's worker layout.
+                "remat" replaces the config's remat; "replay" runs the
+                steps twice from `params0`, remat off recording the
+                experts in a `moe.RoutingTape` (its result "recorded"),
+                then remat on replaying them, and returns the tape's
+                counts ("tape")
     prefill     `make_prefill_step` on `tokens` [B, S] (and an
                 encoder-decoder's `extra` frames): the logits
     decode      `make_decode_step(cfg, mesh=...)` teacher-forced through
@@ -118,6 +123,7 @@ from repro_torch.launch.sharding import (gather_params,  # noqa: E402
                                          param_specs, shard_params)
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import encdec as ED  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.common import tensor_parallel  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -304,13 +310,34 @@ def run_lm_job(job):
                 "cache_shape": tuple(tree_leaves(caches)[0].shape),
                 "decode_launches": ops.launch_counts()["decode_attention"],
                 **model}
+    if "remat" in job:
+        cfg = dataclasses.replace(cfg, remat=job["remat"])
+    if not job.get("replay"):
+        return {**train_run(job, cfg, mesh, params, fsdp, specs, dspecs),
+                **model}
+    tape = MOE.RoutingTape()
+    with MOE.routing(tape):
+        recorded = train_run(job, dataclasses.replace(cfg, remat=False),
+                             mesh, params, fsdp, specs, dspecs)
+    with MOE.routing(tape.replay()):
+        res = train_run(job, dataclasses.replace(cfg, remat=True), mesh,
+                        params, fsdp, specs, dspecs)
+    return {**res, **model,
+            "recorded": {k: recorded[k] for k in ("params", "log")},
+            "tape": {"recorded": len(tape.recorded), "cursor": tape.cursor,
+                     "decisions": tape.decisions, "flips": int(tape.flips)}}
+
+
+def train_run(job, cfg, mesh, params, fsdp, specs, dspecs):
+    """The train_step job's steps of cfg from this rank's `params`: the
+    final params (gathered back over a split axis), the log and meta."""
     step, meta = ST.make_train_step(
         cfg, mesh, dict(global_batch=job["batch"], seq_len=job["seq"],
                         kind="train"),
         policy=Policy(job["policy"]), alpha=job["alpha"],
         use_floa=job["use_floa"], fsdp=fsdp)
     wa = worker_axes(mesh)
-    state, log = ST.init_floa_state(), []
+    state, log, shapes = ST.init_floa_state(), [], {}
     for t, toks in enumerate(job["tokens"]):
         draws = job["draws"][t] if job["draws"] and job["use_floa"] else None
         if draws is not None:
@@ -322,11 +349,12 @@ def run_lm_job(job):
                           for k, v in job["extra"][t].items()})
         params, state, m = step(params, state, batch, t, draws=draws)
         log.append({**state, **m})
-    if axis.size > 1 or any(d is not None for d in tree_leaves(dspecs)):
-        model["shapes"] = [tuple(x.shape) for x in tree_leaves(params)]
+    if model_axis(mesh).size > 1 or any(d is not None
+                                        for d in tree_leaves(dspecs)):
+        shapes["shapes"] = [tuple(x.shape) for x in tree_leaves(params)]
         params = gather_params(params, specs, mesh, dspecs)
     return {"params": params, "log": log, "meta": meta,
-            "worker": (wa.num_workers, wa.first, wa.count), **model}
+            "worker": (wa.num_workers, wa.first, wa.count), **shapes}
 
 
 def ce_job(job, mesh, axis):
