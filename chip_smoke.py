@@ -25,6 +25,8 @@
                                       # and phase 29 alone (its (b) in a
                                       # spawn of 2 ranks of its own)
     python3 chip_smoke.py --remat     # phases 1-2 and 30 alone
+    python3 chip_smoke.py --heads     # phases 1-2 and 31 alone (a spawn
+                                      # of 16 ranks)
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -180,8 +182,9 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
   22. lm_mesh the LM steps over the worker axes of a mesh
               (`launch.mesh.SweepMesh` over ranks on this card, gloo:
               `--ranks-child`, `lm_mesh_parts`): (a) 2 BEV train steps of
-              qwen3-4b at full width (bf16, the serve weights) on a (2, 1)
-              mesh, batch 8 x 64, U = 2: losses finite, the weights moved,
+              qwen3-4b at full width cut to 12 of its 36 layers (bf16) on
+              a (2, 1) mesh, batch 8 x 64, U = 2: losses finite, the
+              weights moved,
               the ranks' params bitwise equal (exact checksums of every
               leaf's bits), ms a warm step, the gradients' all_reduce ms of
               it, peak memory a rank; (b) its 2-layer f32 cut on (4, 1),
@@ -196,16 +199,18 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               step whose top-2 margin is not clear, tok/s labelled "2
               ranks, gloo, one card" (not a scaling figure).
   23. zoo     `launch.serve.serve` in bf16 with random weights, batch 8,
-              32 + 32 tokens (as phase 14), for granite-8b, starcoder2-3b
-              (its native 4096 window: ring caches), moonshot-v1-16b-a3b
-              (48 MoE layers, 64 experts top-6 + 2 shared) at full width
-              and depth, and llama4-maverick-400b-a17b at full width cut
+              32 + 32 tokens (as phase 14), for granite-8b at full width
+              cut to 20 of its 36 layers, starcoder2-3b (its native 4096
+              window: ring caches) at full width and depth,
+              moonshot-v1-16b-a3b (64 experts top-6 + 2 shared) at full
+              width cut to 16 of its 48 MoE layers, and
+              llama4-maverick-400b-a17b at full width cut
               to one (attn, attn_moe) super-block (2 of 48 layers; the
               full model is 795 GB), counted: ms a step eager and as one
               CUDA graph, tok/s, kernel launches a step and the device's
               busy share (torch.profiler), peak memory; the serve's 64
               tokens teacher-forced through the kernel and the plain route
-              at full depth, at phase 15's bf16 bounds (an MoE model's
+              at the served depth, at phase 15's bf16 bounds (an MoE model's
               plain run replays the kernel run's expert choices, whose
               flips it counts, and is reported unreplayed beside); then
               moonshot's FLOA train step and prefill at 4 layers.
@@ -226,7 +231,8 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               row) pairs whose inputs agree so far, ms a step, tok/s,
               weight bytes and peak memory a rank (the weights drawn leaf
               by leaf, `steps.init_model(..., mesh=)`);
-              (b) 3 BEV train steps of qwen3-4b on (1, 2): losses finite,
+              (b) 3 BEV train steps of qwen3-4b on (1, 2), cut to 12
+              layers: losses finite,
               weights moved, the replicated leaves' checksums equal across
               ranks, ms a step, the collectives' share, peak memory a
               rank; (c) its 2-layer f32 cut on (2, 2) (U = 2) against its
@@ -238,7 +244,7 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               bf16 ulps, the gradient of the step's loss within 1e-1
               relative a leaf, the replicated leaves and their gradients
               bitwise across ranks; (e) starcoder2-3b at full width cut to
-              8 of its 30 layers, served on (1, 4), 16 + 16 tokens (KV 2 <
+              4 of its 30 layers, served on (1, 4), 16 + 16 tokens (KV 2 <
               4: wk / wv split d; the kernel at [8, 32, H6, KV1]), against
               one rank teacher-forced through its sequence at phase 15's
               bounds; (f) deepseek-v2-236b (MLA) cut to 1 layer (bf16)
@@ -276,15 +282,16 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               step and prefill.
   27. hybrid  recurrentgemma-9b (RG-LRU + local MQA attention at head dim
               256; 38 layers, 20.89 GB in bf16) and the int8 KV cache:
-              (a) served at full width and depth as phase 14 serves
-              (counted: the kernel at [8, 64, H16, KV1, 256], 12 local
-              layers a step; ms a step eager and as one graph, launches
+              (a) served at full width, cut to 20 of its 38 layers, as
+              phase 14 serves (counted: the kernel at [8, 64, H16, KV1,
+              256], 6 local layers a step; ms a step eager and as one graph, launches
               a step, peak memory, against the weights' bytes bound), its
               teacher-forced logits kernel route against plain route at
               phase 15's bounds, or, failing them on the mean alone, at
               their max with every clear step agreeing and the kernel's
               mean |diff| from the f32-attention reference no larger than
-              the plain route's; (b) long_500k: batch 1, the
+              the plain route's; (b) long_500k at the same depth: batch 1,
+              the
               2048-slot rings and the RG-LRU states filled as phase 16
               fills its cache, 8 steps at pos 524 280-524 287 (counted),
               eager and as a graph, the kernel route against the plain
@@ -333,9 +340,9 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               (d)'s seamless train 8 x 512: the argument bytes equal the
               card's, the predicted peak within 10 % of
               `max_memory_allocated` (both printed); (b) in the rank
-              phases' 2-rank spawn: qwen3-4b at full width cut to 4
+              phases' 2-rank spawn: qwen3-4b at full width cut to 2
               layers on (2, 1), FSDP storage over "data" against the
-              replicated layout: prefill logits (8 x 512) and 4
+              replicated layout: prefill logits (8 x 512) and 2
               teacher-forced decode steps (through the kernel at the
               rank's [4, 64, H32, KV8, 128]) bitwise, the f32 train step
               (2 BEV steps) within rtol 1e-5, the bf16 FSDP step's ranks
@@ -359,11 +366,23 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               moonshot-v1-16b-a3b cut to 4 layers at 2 x 4096: the peak
               with the expert chunks (`moe.EXPERT_CHUNK_BYTES`) against
               one forced chunk, chunks, one, one, chunks.
-  31. the `kernels` line (with launches and times by shape where a
+  31. heads   the head layouts the "model" axis does not divide, in a
+              spawn of 16 ranks on this card over gloo (`--ranks-child
+              ... heads`) on (1, 16): starcoder2-3b (H 24) at full width
+              cut to 2 layers and llama4 (H 40) cut to its first layer,
+              wq / wk / wv split d and wo hd, every rank computing every
+              head: 2 BEV train steps (llama4's draws replayed), the
+              gradient of the step's loss, a prefill (8 x 128) and the
+              serve (8, 8 + 8 tokens: the decode kernel at [8, 16, H,
+              KV, 128] on every rank, counted), ms a step and the
+              collectives' ms; against one rank from the same weights at
+              phase 25's gates, the replicated leaves, logits and tokens
+              bitwise equal across the ranks.
+  32. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 32. the last line, {"ok": true,
+      a rank's too, must have one); 33. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -423,9 +442,11 @@ ROUNDS_LM_STRICT = 5
 MESH_TOL = {"defenses": (5e-6, 1e-6), "defenses_switch": (5e-6, 1e-6),
             "grid_u1000": (5e-6, 1e-6), "lm": (5e-5, 1e-5)}
 # The LM-mesh phase (22): the train step and the serve over the worker axes,
-# ranks on cuda:0 over gloo: 2 steps a run (cut from 3); (b)'s 2-layer f32
-# cut of qwen3-4b at U = 4 (one attacker) under BEV and CI
-LM_MESH_STEPS, LM_MESH_B_LAYERS = 2, 2
+# ranks on cuda:0 over gloo: 2 steps a run (cut from 3); (a)'s full-width
+# qwen3-4b cut to LM_MESH_A_LAYERS of its 36 layers (the script's time:
+# each step all_reduces the gradients over gloo); (b)'s 2-layer f32 cut of
+# qwen3-4b at U = 4 (one attacker) under BEV and CI
+LM_MESH_STEPS, LM_MESH_A_LAYERS, LM_MESH_B_LAYERS = 2, 12, 2
 LM_MESH_POLICIES = ("bev", "ci")
 # The LM-model phase (25): tensor parallelism over a "model" axis, ranks on
 # cuda:0 over gloo, 3 steps a train run: (a) qwen3-4b's serve and (b) its
@@ -435,7 +456,9 @@ LM_MESH_POLICIES = ("bev", "ci")
 # serve on (1, 4) at full width, cut to TP_SC_LAYERS of its 30 layers, 16 +
 # 16 tokens (wk / wv split d: KV 2 < M 4)
 LM_MODEL_STEPS = 3
-TP_SC_ARCH, TP_SC_LAYERS, TP_SC_PROMPT, TP_SC_GEN = "starcoder2-3b", 8, 16, 16
+# (b)'s full-width train step cut to TP_TRAIN_LAYERS of qwen3-4b's 36
+TP_TRAIN_LAYERS = 12
+TP_SC_ARCH, TP_SC_LAYERS, TP_SC_PROMPT, TP_SC_GEN = "starcoder2-3b", 4, 16, 16
 # (d)'s bf16 params, TP against one rank: each element within two bf16 ulps
 # (an ulp is 2^-8 to 2^-7 of the value) of the other, above a floor
 TP_PARAM_ULPS, TP_PARAM_FLOOR = 2 ** -6, 1e-6
@@ -462,8 +485,8 @@ TP_GRAD_REL_F32 = 1e-3
 MLA_ARCH, MLA_LAYERS, MLA_CUT_LAYERS = "deepseek-v2-236b", 4, 2
 SSD_ARCH, SSD_DUAL_LAYERS, SSD_DUAL_BATCH, SSD_DUAL_SEQ = (
     "mamba2-1.3b", 2, 2, 320)
-# The hybrid phase (27): recurrentgemma-9b at full width and depth (serve,
-# long_500k), at RG_CUT_LAYERS (one super-block) for the f32 checks (the
+# The hybrid phase (27): recurrentgemma-9b at full width cut to
+# RG_SERVE_LAYERS (serve, long_500k), at RG_CUT_LAYERS (one super-block) for the f32 checks (the
 # decode against the forward over RG_WRAP_SEQ tokens: past the 2048-slot
 # ring, a multiple of the 1024-query chunk), at RG_TRAIN_LAYERS (one
 # super-block and the two tail blocks) for the train step and prefill;
@@ -471,6 +494,10 @@ SSD_ARCH, SSD_DUAL_LAYERS, SSD_DUAL_BATCH, SSD_DUAL_SEQ = (
 # against the native one at the reference's bounds (tests/test_kv_quant.py)
 RG_ARCH, RG_CUT_LAYERS, RG_TRAIN_LAYERS, TP_RG_LAYERS = (
     "recurrentgemma-9b", 3, 5, 3)
+# (a) and (b) at full width cut to RG_SERVE_LAYERS of the 38 layers (six
+# super-blocks and the two tail blocks: 6 of the 12 local-attention
+# layers), for the script's time
+RG_SERVE_LAYERS = 20
 RG_WRAP_BATCH, RG_WRAP_SEQ = 1, 3072
 KV_INT8_MAX_REL, KV_INT8_AGREE = 0.05, 0.9
 # The frontends phase (28): llava-next-mistral-7b at full width and depth
@@ -497,7 +524,7 @@ FRONT_TP_N, FRONT_TP_LAYERS, FRONT_TP_RTOL = 64, 2, 1e-4
 # FSDP_RTOL (the gradients' sums in another order: reduce_scatter against
 # all_reduce)
 PEAK_TOL = 0.10
-FSDP_LAYERS, FSDP_TF, FSDP_STEPS, FSDP_RTOL = 4, 4, 2, 1e-5
+FSDP_LAYERS, FSDP_TF, FSDP_STEPS, FSDP_RTOL = 2, 2, 2, 1e-5
 # The remat phase (30): (a) phase 20's qwen3-4b train step without and with
 # remat, in the order none, remat, remat, none, each from the same weights
 # and seed (bitwise); (b) train_4k's sequence at REMAT_BATCH of its 256
@@ -507,6 +534,23 @@ FSDP_LAYERS, FSDP_TF, FSDP_STEPS, FSDP_RTOL = 4, 4, 2, 1e-5
 # MOE_TRAIN_LAYERS at REMAT_MOE_BATCH x REMAT_SEQ: the expert chunks
 # against one forced chunk, in the order chunks, one, one, chunks
 REMAT_BATCH, REMAT_MOE_BATCH, REMAT_SEQ = 4, 2, 4096
+# The heads phase (31): the head layouts the "model" axis does not divide
+# (the reference's `_wspec` fallback: wq / wk / wv split d, wo hd, every
+# rank computing every head) on HEADS_RANKS ranks on cuda:0 over gloo,
+# (1, HEADS_RANKS): (arch, layers, replay) at full width, starcoder2-3b
+# (H 24) cut to 2 of its 30 layers, llama4 (H 40) to its first, dense
+# layer; llama4's train steps take replayed draws (`heads_draws`) in
+# place of their seeded ones (replay True): each rank would draw
+# the embedding's noise at its full shape in f32 (4.1 GB; ROADMAP item
+# 8e), 66 GB over 16 ranks on one card.  HEADS_STEPS BEV train steps at
+# TRAIN_BATCH x TRAIN_SEQ, a prefill of HEADS_PREFILL_BATCH x
+# HEADS_PREFILL_SEQ, the serve of HEADS_PROMPT + HEADS_GEN tokens (a gloo
+# collective takes ~80 ms over 16 ranks), each against one rank at phase
+# 25's gates
+HEADS_RANKS, HEADS_STEPS, HEADS_PROMPT, HEADS_GEN = 16, 2, 8, 8
+HEADS_CASES = (("starcoder2-3b", 2, False),
+               ("llama4-maverick-400b-a17b", 1, True))
+HEADS_PREFILL_BATCH, HEADS_PREFILL_SEQ = 8, 128
 # --serve-rate: phase 14's serve timed this many times after a warm-up
 SERVE_RATE_RUNS = 5
 T_START = time.perf_counter()
@@ -515,8 +559,8 @@ LONG_BATCH, LONG_S, LONG_STEPS = 8, 32768, 8
 # The zoo phase (22): each arch at full width, served as phase 14 serves
 # qwen3-4b; llama4's 48 layers (795 GB) cut to one (attn, attn_moe)
 # super-block.  moonshot's FLOA train step and prefill run at 4 layers.
-ZOO = (("granite-8b", None), ("starcoder2-3b", None),
-       ("moonshot-v1-16b-a3b", None), ("llama4-maverick-400b-a17b", 2))
+ZOO = (("granite-8b", 20), ("starcoder2-3b", None),
+       ("moonshot-v1-16b-a3b", 16), ("llama4-maverick-400b-a17b", 2))
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "moonshot-v1-16b-a3b", 4
 # The long_500k phase (23): batch 1 against a ring of decode_window slots,
 # 8 steps at the shape's last positions; its f32 run crosses a wrap
@@ -548,6 +592,19 @@ def emit(phase: str, **fields) -> None:
     """One phase's JSON line, with the script's seconds so far (`t_s`)."""
     print(json.dumps({"phase": phase, **fields,
                       "t_s": time.perf_counter() - T_START}), flush=True)
+
+
+_PHASE_T0 = [T_START]
+
+
+def phase_seconds(name: str) -> None:
+    """Phase `name`'s seconds (since the last call, or the start) on a
+    line of its own."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": "seconds", "of": name,
+                      "seconds": now - _PHASE_T0[0],
+                      "t_s": now - T_START}), flush=True)
+    _PHASE_T0[0] = now
 
 
 def time_ms(torch, fn, iters: int = 50) -> float:
@@ -1050,6 +1107,12 @@ def decode_cases(torch, ops):
             (SERVE_BATCH, 64, 8, 8, 128, bf16, 63, True),
             (SERVE_BATCH, TP_SC_PROMPT + TP_SC_GEN, 6, 1, 128, bf16,
              TP_SC_PROMPT + TP_SC_GEN - 1, True),
+            # every head on every rank in the heads phase (31):
+            # starcoder2-3b (G = 12) and llama4 (G = 5) on 16-slot caches
+            (SERVE_BATCH, HEADS_PROMPT + HEADS_GEN, 24, 2, 128, bf16,
+             HEADS_PROMPT + HEADS_GEN - 1, True),
+            (SERVE_BATCH, HEADS_PROMPT + HEADS_GEN, 40, 8, 128, bf16,
+             HEADS_PROMPT + HEADS_GEN - 1, True),
             # long_500k's rings (phase 24) at its last position: qwen3-4b
             # and granite-8b (8192 slots), starcoder2-3b (4096), and both
             # in f32 (phase 24's f32 runs across a wrap)
@@ -1668,7 +1731,8 @@ def ranks_agree(sums) -> bool:
 
 def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
     """Phase 22's part of a `--ranks-child` (WORLD ranks on cuda:0, gloo).
-    WORLD = 2: (a) LM_MESH_STEPS BEV train steps of qwen3-4b at full width
+    WORLD = 2: (a) LM_MESH_STEPS BEV train steps of qwen3-4b at full width,
+    cut to LM_MESH_A_LAYERS layers,
     on the (2, 1) mesh from the serve weights, then (c) the serve on it,
     counted, and the serve's sequence (OUT/seq.pt) teacher-forced through
     the mesh's decode step; rank 0 saves the serve's tokens and logits and
@@ -1735,9 +1799,10 @@ def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
         return before, params, log, meta
 
     if world == 2:
-        # (a) the full-width train step
+        # (a) the full-width train step, cut in depth
         ops.reset_launches()
-        before, params, log, meta = train(lm, mesh, "bev")
+        lm_a = dataclasses.replace(lm, n_layers=LM_MESH_A_LAYERS)
+        before, params, log, meta = train(lm_a, mesh, "bev")
         peak = torch.cuda.max_memory_allocated()
         peak_reserved = torch.cuda.max_memory_reserved()
         counts = ops.launch_counts()
@@ -1750,7 +1815,7 @@ def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
         print(json.dumps({
             "phase": "lm_mesh_child", "rank": rank, "part": "train",
             "arch": lm.name, "dtype": str(lm.dtype)[6:],
-            "layers": lm.n_layers,
+            "layers": lm_a.n_layers,
             "mesh": dict(mesh.shape), "workers": meta["num_workers"],
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": log,
             "ms_per_step_warm": sum(x["ms"] for x in log[1:])
@@ -1983,13 +2048,15 @@ def timed_collectives(torch) -> list:
     return acc
 
 
-def tp_train(torch, cfg, mesh, coll, tape=None):
-    """LM_MODEL_STEPS BEV train steps of cfg on `mesh` (a model mesh, or
-    None / a WorkerAxes: one process) from cfg's weights (`lm_params`'s,
-    this rank's shards of them), under `tape`'s routing when given:
-    (checksums of the initial shards, the final shards, the log, meta,
-    peak memory GB).
-    Each step's collectives' ms (`timed_collectives`) in its log entry."""
+def tp_train(torch, cfg, mesh, coll, tape=None, params=None, draws=None,
+             steps=LM_MODEL_STEPS):
+    """`steps` BEV train steps of cfg on `mesh` (a model mesh, or None / a
+    WorkerAxes: one process) from cfg's weights (`lm_params`'s, this
+    rank's shards of them; or `params`, given), under `tape`'s routing
+    when given, each step's draws `draws[t]` (None: seeded t): (checksums
+    of the initial shards, the final shards, the log, meta, peak memory
+    GB).  Each step's collectives' ms (`timed_collectives`) in its log
+    entry."""
     import contextlib
     from repro_torch.core.power_control import Policy
     from repro_torch.launch import steps as ST
@@ -1998,20 +2065,23 @@ def tp_train(torch, cfg, mesh, coll, tape=None):
     shape = dict(global_batch=TRAIN_BATCH, seq_len=tp_seq(cfg), kind="train")
     step, meta = ST.make_train_step(cfg, mesh, shape, alpha=TRAIN_ALPHA,
                                     policy=Policy.BEV, fsdp=False)
-    params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
-                           "cuda", mesh=mesh, fsdp=False)
+    if params is None:
+        params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                               "cuda", mesh=mesh, fsdp=False)
     before = bit_checksums(torch, tree_leaves(params))
     batches = [lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, t, FRONT_TP_N)
-               for t in range(LM_MODEL_STEPS)]
+               for t in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state, log = ST.init_floa_state("cuda"), []
     with (MOE.routing(tape) if tape is not None else contextlib.nullcontext()):
-        for t in range(LM_MODEL_STEPS):
+        for t in range(steps):
             torch.cuda.synchronize()
             t0, c0 = time.perf_counter(), coll[0]
-            params, state, m = step(params, state, batches[t], t)
+            params, state, m = step(params, state, batches[t], t,
+                                    draws=None if draws is None
+                                    else draws[t])
             torch.cuda.synchronize()
             log.append({"ms": (time.perf_counter() - t0) * 1e3,
                         "collective_ms": coll[0] - c0,
@@ -2034,20 +2104,22 @@ def tp_seq(cfg) -> int:
     return TRAIN_SEQ + (FRONT_TP_N if cfg.arch_type == "vlm" else 0)
 
 
-def tp_grads(torch, cfg, mesh, tape):
+def tp_grads(torch, cfg, mesh, tape, params=None):
     """The gradient of the train step's loss at U = 1 and unit weight (the
     mean per-sequence CE plus the MoE aux term) on step 0's batch, from
-    cfg's weights (`lm_params`'s; this rank's shards on a model mesh),
-    under `tape`'s routing: a list of leaves (this rank's shards)."""
+    cfg's weights (`lm_params`'s, or `params`, given; this rank's shards on
+    a model mesh), under `tape`'s routing: a list of leaves (this rank's
+    shards)."""
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import model_axis
     from repro_torch.models import moe as MOE
     from repro_torch.models.common import tensor_parallel
     from repro_torch.tree import tree_flatten, tree_unflatten
-    params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
-                           "cuda", mesh=mesh)
+    if params is None:
+        params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                               "cuda", mesh=mesh)
     leaves, treedef = tree_flatten(params)
-    xs = [x.requires_grad_(True) for x in leaves]
+    xs = [x.detach().requires_grad_(True) for x in leaves]
     batch = lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, FRONT_TP_N)
     with MOE.routing(tape), tensor_parallel(model_axis(mesh)):
         per_ex, aux = ST.per_example_loss(tree_unflatten(treedef, xs),
@@ -2215,7 +2287,7 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
     `coll` the collectives' ms, `timed_collectives`).  WORLD = 2, on
     (1, 2): (a) the qwen3-4b serve, counted (rank 0 saves its sequence and
     logits to OUT/serve_a.pt); (b) LM_MODEL_STEPS BEV train steps of
-    qwen3-4b; (d) moonshot at MOE_TRAIN_LAYERS: the train steps, the
+    qwen3-4b at TP_TRAIN_LAYERS; (d) moonshot at MOE_TRAIN_LAYERS: the train steps, the
     gradient of the step's loss (`tp_grads`) and the serve (counted), each
     recording its expert choices, then each rank in turn the same train
     steps and gradient on one rank replaying them, its shards against its
@@ -2305,9 +2377,10 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
         # (a) the full-width serve on (1, 2)
         serve_part("serve", lm, mesh, SERVE_PROMPT, SERVE_GEN, "serve_a.pt")
         torch.cuda.empty_cache()
-        # (b) the full-width train step on (1, 2)
+        # (b) the full-width train step on (1, 2), cut in depth
         ops.reset_launches()
-        before, params, log, meta, peak = tp_train(torch, lm, mesh, coll)
+        lm_b = dataclasses.replace(lm, n_layers=TP_TRAIN_LAYERS)
+        before, params, log, meta, peak = tp_train(torch, lm_b, mesh, coll)
         counts = ops.launch_counts()
         split = tree_leaves(meta["params_specs"])
         after = bit_checksums(torch, tree_leaves(params))
@@ -2318,7 +2391,7 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
         del params
         torch.cuda.empty_cache()
         warm = log[1:]
-        emit_part("train", arch=lm.name, layers=lm.n_layers,
+        emit_part("train", arch=lm.name, layers=lm_b.n_layers,
                   mesh=dict(mesh.shape), workers=meta["num_workers"],
                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=log,
                   ms_per_step_warm=sum(x["ms"] for x in warm) / len(warm),
@@ -2646,15 +2719,16 @@ def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
 
 
 def ranks_child(args) -> int:
-    """`chip_smoke.py --ranks-child RANK WORLD STORE OUT [layouts]`: one of
-    the rank phases' WORLD ranks on cuda:0 in a gloo group (init_method
-    file://STORE; NCCL refuses two ranks on one device).  Each world size
-    is started once and runs every rank phase's jobs: WORLD = 2 phase 21's
-    sharded sweeps (`mesh_child_cases`), phase 22's (a) and (c), phase
-    25's (a), (b), (d) and (f) and phase 29's (b); WORLD = 4 phase 22's (b)
-    and phase 25's (e) and (c) (`lm_mesh_parts`, `lm_model_parts`,
-    `fsdp_parts`); "layouts" runs phase 29's (b) alone.  Prints no result
-    line."""
+    """`chip_smoke.py --ranks-child RANK WORLD STORE OUT [layouts|heads]`:
+    one of the rank phases' WORLD ranks on cuda:0 in a gloo group
+    (init_method file://STORE; NCCL refuses two ranks on one device).
+    Each world size is started once and runs every rank phase's jobs:
+    WORLD = 2 phase 21's sharded sweeps (`mesh_child_cases`), phase 22's
+    (a) and (c), phase 25's (a), (b), (d) and (f) and phase 29's (b);
+    WORLD = 4 phase 22's (b) and phase 25's (e) and (c) (`lm_mesh_parts`,
+    `lm_model_parts`, `fsdp_parts`); "layouts" runs phase 29's (b) alone,
+    "heads" phase 31 (WORLD = HEADS_RANKS, `heads_parts`).  Prints no
+    result line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2668,7 +2742,9 @@ def ranks_child(args) -> int:
                                   rank=rank, backend="gloo", device="cuda:0",
                                   timeout_s=600):
         raise AssertionError("ranks child: no process group")
-    if args[4:] != ["layouts"]:
+    if args[4:] == ["heads"]:
+        heads_parts(torch, rank, world, out, timed_collectives(torch))
+    elif args[4:] != ["layouts"]:
         if world == MESH_RANKS:
             mesh_child_cases(torch, rank, out)
         lm_mesh_parts(torch, rank, world, out)
@@ -3844,7 +3920,8 @@ def state_bytes(caches, paths) -> dict:
 
 def hybrid_phase(torch, ops, tally, lm) -> None:
     """Phase 27: recurrentgemma-9b (RG-LRU + local MQA attention at head
-    dim 256) and the int8 KV cache.  (a) served at full width and depth
+    dim 256) and the int8 KV cache.  (a) served at full width, cut to
+    RG_SERVE_LAYERS,
     (`serve_cell`, counted: the kernel in each local-attention layer),
     its routes held against each other and the f32-attention reference
     at full depth (`hybrid_routes`); (b) long_500k at batch 1 over filled
@@ -3861,12 +3938,12 @@ def hybrid_phase(torch, ops, tally, lm) -> None:
     from repro_torch.models import transformer as LM
     from repro_torch.tree import tree_map, tree_paths
     t_phase = time.perf_counter()
-    full = get_config(RG_ARCH)
+    full = dataclasses.replace(get_config(RG_ARCH), n_layers=RG_SERVE_LAYERS)
     local = attn_layers(full)
     n_steps = SERVE_PROMPT + SERVE_GEN
     zero = {k: 0 for k in ops.KERNELS}
 
-    # (a) the serve at full width and depth
+    # (a) the serve at full width, cut in depth
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4807,6 +4884,266 @@ def remat_phase(torch, ops) -> None:
           f"{peaks[True] / 1e9:.2f} GB in one", flush=True)
 
 
+def heads_init(torch, cfg, mesh):
+    """This rank's shards of cfg's weights (`lm_params`'s draw, seed 0,
+    each leaf drawn whole and sliced: `steps.init_model`), the ranks
+    drawing in turn while the others wait at a barrier: a whole leaf
+    drawn in f32 beside its cast (llama4's embedding: 6.2 GB) on every
+    rank at once would not fit the shared card."""
+    import torch.distributed as dist
+    from repro_torch.launch.steps import init_model
+    params = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            params = init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                                "cuda", mesh=mesh, fsdp=False)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def heads_draws(torch, cfg, mesh, steps) -> list:
+    """Replayed draws of `steps` train steps of cfg on `mesh` (the same on
+    every rank and on one rank): step t's gains from a generator seeded
+    t, then each leaf's noise one standard-normal f32 row of its last
+    dim, broadcast to the leaf's full shape (a view: a rank materializes
+    only its slice, `steps._noisy_sgd`)."""
+    from repro_torch.core.channel import sample_channel_gains
+    from repro_torch.launch import steps as ST
+    from repro_torch.tree import tree_leaves
+    shapes = [x.shape for x in tree_leaves(ST.init_model(cfg, None,
+                                                         "meta"))]
+    channel = ST.default_floa(mesh, ST.param_count(cfg))["channel"]
+    out = []
+    for t in range(steps):
+        gen = torch.Generator("cuda").manual_seed(t)
+        out.append({"h_abs": sample_channel_gains(gen, channel, "cuda"),
+                    "z": [torch.randn(sh[-1], generator=gen,
+                                      device="cuda").expand(sh)
+                          for sh in shapes]})
+    return out
+
+
+def gather_to_zero(torch, leaves, split) -> list:
+    """Rank 0's whole copy of each leaf, on the host: a leaf split over the
+    process group's ranks on dim `split` (None: replicated, rank 0's own)
+    gathered as bytes through gloo, leaf by leaf; None a leaf on the other
+    ranks."""
+    import torch.distributed as dist
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for x, d in zip(leaves, split):
+        x = x.detach().cpu().contiguous()
+        if d is None:
+            out.append(x if rank == 0 else None)
+            continue
+        raw = x.reshape(-1).view(torch.uint8)
+        parts = ([torch.empty_like(raw) for _ in range(world)] if rank == 0
+                 else None)
+        dist.gather(raw, parts, dst=0)
+        out.append(torch.cat([p.view(x.dtype).reshape(x.shape)
+                              for p in parts], dim=d) if rank == 0 else None)
+    return out
+
+
+def heads_parts(torch, rank: int, world: int, out: str, coll) -> None:
+    """Phase 31's part of a `--ranks-child` (WORLD = HEADS_RANKS ranks on
+    cuda:0, gloo, the mesh (1, WORLD); `coll` the collectives' ms,
+    `timed_collectives`): for each HEADS_CASES arch, whose query heads the
+    "model" axis does not divide, this rank's shards (`heads_init`),
+    HEADS_STEPS BEV train steps (ms and collectives' ms a step; replayed
+    draws where the case says so, `heads_draws`), the gradient of the
+    step's loss, a prefill and the serve, counted (the decode
+    kernel at every head on every rank); every rank's replicated leaves
+    and gradients, prefill logits and serve bitwise equal.  Then rank 0
+    alone, the others at a barrier: the same on one rank from the same
+    weights, the trained shards and the gradients gathered to it through
+    the host (`gather_to_zero`), at phase 25's gates: every param within
+    TP_PARAM_ULPS above TP_PARAM_FLOOR, the losses within BF16_LOGIT_MEAN,
+    eps2 within 1e-2, each leaf's gradient within TP_GRAD_REL (|a - b|_2 /
+    |b|_2), the prefill logits and the serve's logits (teacher-forced on
+    one rank) at phase 15's bf16 bounds.  One JSON line a part: "serve"
+    on every rank (its launches by shape), "heads" on rank 0."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import sample_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.sharding import param_specs
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.attention import head_dims
+    from repro_torch.tree import tree_leaves, tree_paths
+    mesh = make_debug_mesh((1, world), ("data", "model"))
+    label = f"{world} ranks, gloo, one card"
+
+    def emit_part(part, **fields):
+        print(json.dumps({"phase": "heads_child", "rank": rank,
+                          "part": part, **fields,
+                          "t_s": time.perf_counter() - T_START}), flush=True)
+
+    for arch, layers, replay in HEADS_CASES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        specs = param_specs(cfg, world)
+        split, paths = tree_leaves(specs), tree_paths(specs)
+        replicated = [i for i, d in enumerate(split) if d is None]
+        params = heads_init(torch, cfg, mesh)
+        draws = heads_draws(torch, cfg, mesh, HEADS_STEPS) if replay \
+            else None
+        ops.reset_launches()
+        _, trained, log, _, _ = tp_train(torch, cfg, mesh, coll,
+                                         params=params, draws=draws,
+                                         steps=HEADS_STEPS)
+        train_launches = ops.launch_counts()
+        grads = tp_grads(torch, cfg, mesh, MOE.RoutingTape(), params)
+        pf, _ = ST.make_prefill_step(cfg, mesh, fsdp=False)
+        ptoks = {"tokens": torch.as_tensor(sample_tokens(
+            HEADS_PREFILL_BATCH, HEADS_PREFILL_SEQ, cfg.vocab_size, seed=3),
+            device="cuda")}
+        pf(params, ptoks)                                  # warm-up
+        torch.cuda.synchronize()
+        tp, cp = time.perf_counter(), coll[0]
+        logits = pf(params, ptoks)
+        torch.cuda.synchronize()
+        prefill_ms, prefill_coll = ((time.perf_counter() - tp) * 1e3,
+                                    coll[0] - cp)
+        ops.reset_launches()
+        cs = coll[0]
+        res = serve(cfg, SERVE_BATCH, HEADS_PROMPT, HEADS_GEN, device="cuda",
+                    mesh=mesh, params=params, fsdp=False)
+        torch.cuda.synchronize()
+        serve_coll = coll[0] - cs
+        shapes = {k: [[list(sh), n] for sh, n in v.items()]
+                  for k, v in ops.launch_shapes().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        sums = bit_checksums(torch, [x for i, x in enumerate(tree_leaves(
+            trained)) if i in replicated] + [grads[i] for i in replicated]
+            + [logits, res.tokens.to(torch.int32), res.logits])
+        equal = ranks_agree(sums)
+        emit_part("serve", arch=cfg.name, launches_by_shape=shapes)
+        gathered = gather_to_zero(torch, tree_leaves(trained), split)
+        ggathered = gather_to_zero(torch, grads, split)
+        del trained, grads, params
+        torch.cuda.empty_cache()
+        if rank == 0:
+            t1 = time.perf_counter()
+            whole = lm_params(torch, cfg)
+            _, want, wlog, _, _ = tp_train(torch, cfg, None, [0.0],
+                                           params=whole, draws=draws,
+                                           steps=HEADS_STEPS)
+            top, outside = 0.0, []
+            for path, a, b in zip(paths, gathered, tree_leaves(want)):
+                a, b = a.to("cuda").float(), b.float()
+                d = (a - b).abs()
+                lim = TP_PARAM_ULPS * torch.maximum(a.abs(), b.abs())
+                top = max(top, float(d.max()) / max(float(b.abs().max()),
+                                                    1e-30))
+                if bool((d > lim + TP_PARAM_FLOOR).any()):
+                    outside.append(path)
+            del want, a, b, d, lim
+            gwant = tp_grads(torch, cfg, None, MOE.RoutingTape(), whole)
+            grel = {}
+            for path, a, b in zip(paths, ggathered, gwant):
+                a, b = a.to("cuda").float(), b.float()
+                grel[path] = float(torch.linalg.vector_norm(a - b)
+                                   / torch.linalg.vector_norm(b).clamp_min(
+                                       1e-30))
+            del gwant, a, b
+            pf1, _ = ST.make_prefill_step(cfg, None, fsdp=False)
+            prefill_parity, pok = logit_parity(
+                torch, logits[None], pf1(whole, ptoks)[None], cfg.vocab_size)
+            seq = torch.cat([res.prompts, res.tokens], dim=1)
+            serve_parity, sok = logit_parity(
+                torch, res.logits, teacher_forced(torch, cfg, whole, seq,
+                                                  False), cfg.vocab_size)
+            del whole
+            torch.cuda.empty_cache()
+            loss_diff = max(abs(x["loss"] - y["loss"])
+                            for x, y in zip(log, wlog))
+            eps2_rel = max(abs(x["eps2"] - y["eps2"]) / abs(y["eps2"])
+                           for x, y in zip(log, wlog))
+            q_shape = [SERVE_BATCH, HEADS_PROMPT + HEADS_GEN, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.hd]
+            want_shapes = {"decode_attention": [[q_shape, attn_layers(cfg)
+                                                 * (HEADS_PROMPT
+                                                    + HEADS_GEN)]]}
+            warm = log[1:]
+            ok = (equal and pok and sok and not outside
+                  and loss_diff <= BF16_LOGIT_MEAN and eps2_rel <= 1e-2
+                  and max(grel.values()) <= TP_GRAD_REL
+                  and shapes == want_shapes
+                  and not any(train_launches.values())
+                  and all(math.isfinite(x["loss"]) for x in log))
+            emit_part("heads", arch=cfg.name, layers=cfg.n_layers,
+                      mesh=dict(mesh.shape), head_dims=list(head_dims(
+                          cfg, world)), replayed_draws=replay,
+                      batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=log,
+                      one_rank_steps=wlog,
+                      ms_per_step_warm=sum(x["ms"] for x in warm) / len(warm),
+                      collective_ms_warm=sum(x["collective_ms"]
+                                             for x in warm) / len(warm),
+                      prefill_batch=HEADS_PREFILL_BATCH,
+                      prefill_seq=HEADS_PREFILL_SEQ, prefill_ms=prefill_ms,
+                      prefill_collective_ms=prefill_coll,
+                      serve_batch=SERVE_BATCH, prompt_len=HEADS_PROMPT,
+                      gen=HEADS_GEN, serve_prefill_s=res.prefill_s,
+                      serve_decode_s=res.decode_s,
+                      serve_ms_per_step=res.decode_s * 1e3 / HEADS_GEN,
+                      serve_collective_ms=serve_coll,
+                      serve_tok_per_s=res.tok_per_s,
+                      launches_by_shape=shapes,
+                      train_launches=train_launches, peak_memory_gb=peak,
+                      ranks_bitwise_equal=equal,
+                      params_max_rel_diff=top, params_outside=outside,
+                      param_tol={"rel": TP_PARAM_ULPS,
+                                 "floor": TP_PARAM_FLOOR},
+                      loss_max_abs_diff=loss_diff,
+                      eps2_max_rel_diff=eps2_rel,
+                      grads_rel_diff_max=max(grel.values()),
+                      grads_tol=TP_GRAD_REL,
+                      prefill_vs_one_rank=prefill_parity,
+                      serve_vs_one_rank=serve_parity,
+                      one_rank_seconds=time.perf_counter() - t1,
+                      seconds=time.perf_counter() - t0, rate_label=label,
+                      ok=ok)
+            if not ok:
+                raise AssertionError(f"heads {cfg.name}: the {world}-rank "
+                                     f"run and one rank disagree")
+        del gathered, ggathered, res, logits, draws
+        dist.barrier()
+
+
+def heads_phase(torch, shard_tally) -> None:
+    """Phase 31, in the parent: one spawn of HEADS_RANKS ranks on this card
+    over gloo (`--ranks-child ... heads`, `heads_parts`); every rank's
+    decode launches by shape go to `shard_tally`, and rank 0 must report
+    each HEADS_CASES arch."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="heads_", dir=os.path.join(ROOT, "build"))
+    try:
+        lines, wall = spawn_ranks("--ranks-child", HEADS_RANKS, work, 600,
+                                  ("heads",))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for rank_lines in lines.values():
+        for line in rank_lines:
+            print(json.dumps(line), flush=True)
+            if line["part"] == "serve":
+                shard_tally(f"heads_{line['arch']}", {
+                    k: {shape_key(sh): n for sh, n in v}
+                    for k, v in line["launches_by_shape"].items()})
+    reported = [x["arch"] for x in lines[0] if x["part"] == "heads"]
+    if reported != [arch for arch, _, _ in HEADS_CASES]:
+        raise AssertionError(f"heads: rank 0 reported {reported}")
+    emit("heads", ranks=HEADS_RANKS, backend="gloo", device="cuda:0",
+         children_wall_s=wall)
+
+
 def dispatch_us(torch) -> dict:
     """Host microseconds a call of the decode kernel at the serve's shape
     ([SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, H, KV, dh] of LM_ARCH, bf16,
@@ -4883,7 +5220,7 @@ def decode_shapes(lm) -> dict:
         slots = min(long500["seq_len"], decode_window(cfg, "long_500k"))
         add(cfg, long500["global_batch"], slots,
             (cfg.n_layers + 2) * LONG_STEPS)
-    rg = get_config(RG_ARCH)
+    rg = dataclasses.replace(get_config(RG_ARCH), n_layers=RG_SERVE_LAYERS)
     add(rg, SERVE_BATCH, n_steps, attn_layers(rg) * n_steps)
     add(rg, long500["global_batch"], rg.local_window,
         attn_layers(rg) * LONG_STEPS)
@@ -4927,6 +5264,7 @@ def main() -> int:
     emit("device", nvidia_smi=smi, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
+    phase_seconds("1 device")
 
     # 2. build
     build = _build.build_all()
@@ -4937,6 +5275,7 @@ def main() -> int:
     emit("build_redesigned", dynamic_smem_bytes={
         f"decode_mma_kernel<{dh}>": 3 * 2 * 64 * dh * 2
         for dh in (32, 64, 128, 256)}, **redesigned_ptxas(build["ptxas"]))
+    phase_seconds("2 build")
 
     if sys.argv[1:] == ["--strict-rates"]:
         emit("strict_rates", src=os.path.join(ROOT, "src"),
@@ -4964,6 +5303,13 @@ def main() -> int:
 
     if sys.argv[1:] == ["--remat"]:   # phases 1-2 and 30 alone
         remat_phase(torch, ops)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if sys.argv[1:] == ["--heads"]:   # phases 1-2 and 31 alone
+        heads_phase(torch, lambda case, by_shape: None)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5035,6 +5381,7 @@ def main() -> int:
         return 0
     table = check_kernels(torch, kernel_cases(torch, ops), floor_ms)
     emit("large_u_sort_route", **large_u_sort_check(torch, ops))
+    phase_seconds("3 kernels")
 
     # 5's, 8's and 9's sweeps, profiled alone: `chip_smoke.py --profile`
     fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1, alpha_hat=ah,
@@ -5175,9 +5522,11 @@ def main() -> int:
     if not (r1.loss[:, -1] < r1.loss[:, 0]).all():
         raise AssertionError(
             f"benign loss did not fall: {r1.loss[:, [0, -1]]}")
+    phase_seconds("4 main_benign")
 
     # 5. main path, Byzantine: Fig. 3's lanes (one strong attacker, sigma 3)
     drive("main_byzantine", fig3, fused)
+    phase_seconds("5 main_byzantine")
 
     # 6. combine route: a GAUSSIAN-jamming lane beside a STRONGEST lane
     jam = [figures.Experiment("BEV-gauss", Policy.BEV, n_attackers=1,
@@ -5186,6 +5535,7 @@ def main() -> int:
                               rounds=ROUNDS)]
     drive("main_combine_route", jam, {"floa_aggregate_batched": ROUNDS,
                                       "grad_stats": ROUNDS})
+    phase_seconds("6 main_combine_route")
 
     # 7. whole run: kernel route vs plain route from the same draws
     ops.reset_launches()
@@ -5196,6 +5546,7 @@ def main() -> int:
                              f"none from the plain route: "
                              f"{ops.launch_counts()}")
     whole_run_check("kernel_vs_plain_run", rk, rp)
+    phase_seconds("7 kernel_vs_plain_run")
 
     # 8. the digital-defense grid: one analog lane (the fused route) and
     # five digital lanes; median and trimmed mean sort once per round each
@@ -5204,6 +5555,7 @@ def main() -> int:
                run=lambda: figures.run_defenses(ROUNDS, device="cuda"),
                engine=lambda: figures.cases_engine(
                    figures.defense_cases(), ROUNDS, device="cuda"))
+    phase_seconds("8 main_defenses")
 
     # 9. the large-U grid at U = 1000: the bitonic sort, blocked Krum
     drive("main_defenses_large_u", None,
@@ -5215,6 +5567,7 @@ def main() -> int:
           engine=lambda: figures.cases_engine(grid_u, ROUNDS_LARGE_U,
                                               mc=mc_u, device="cuda"),
           rounds=ROUNDS_LARGE_U)
+    phase_seconds("9 main_defenses_large_u")
 
     # 10. the defense grid: kernel route vs plain route from the same draws
     ops.reset_launches()
@@ -5223,6 +5576,7 @@ def main() -> int:
         raise AssertionError(f"the plain route launched kernels: "
                              f"{ops.launch_counts()}")
     whole_run_check("kernel_vs_plain_defenses", rd, rdp)
+    phase_seconds("10 kernel_vs_plain_defenses")
     del rd, rdp, r1, rk, rp
     torch.cuda.empty_cache()
 
@@ -5289,6 +5643,7 @@ def main() -> int:
              accuracy_final=rt.accuracy_final, launches=counts)
     emit("main_trainer", lane=exp_t.name, rounds=ROUNDS,
          rounds_per_s=trainer_rates)
+    phase_seconds("11 main_trainer")
 
     # 12. the Byzantine showdown: 68 lanes at full width, R cut to 20
     showdown_expect = {"floa_aggregate_batched": ROUNDS,
@@ -5303,6 +5658,7 @@ def main() -> int:
         raise AssertionError(f"the plain route launched kernels: "
                              f"{ops.launch_counts()}")
     whole_run_check("kernel_vs_plain_showdown", rsd, rsp)
+    phase_seconds("12 main_showdown")
     del rsd, rsp
     torch.cuda.empty_cache()
 
@@ -5310,6 +5666,7 @@ def main() -> int:
     # reference paths
     plan_phase(torch, np, ops, figures, tally, grid_u, mc_u)
     torch.cuda.empty_cache()
+    phase_seconds("13 plan")
 
     # 14. the serving path at full width: qwen3-4b in bf16, batch 8
     from repro_torch.data import sample_tokens
@@ -5347,6 +5704,7 @@ def main() -> int:
          peak_memory_gb=peak_gb, launches=counts,
          sample_tokens=rs.tokens[0, :12].tolist())
     del steady
+    phase_seconds("14 main_serve")
 
     # 15. parity, bf16, full depth: the serve phase's 64 tokens teacher-
     # forced through the kernel and through its plain version
@@ -5381,6 +5739,7 @@ def main() -> int:
              count_params(params) - params["embed"].numel()
              + SERVE_BATCH * lm.d_model) / HBM_BYTES_PER_S * 1e3)
     del caches
+    phase_seconds("15 kernel_vs_plain_serve_bf16")
 
     # 16. long-cache decode at full width: 8 steps against 32768 positions
     caches = LM.init_caches(lm, LONG_BATCH, LONG_S, device="cuda")
@@ -5430,6 +5789,7 @@ def main() -> int:
     # `layer`, the fill loop's last view, would keep a 19 GB cache alive
     del caches, logits, layer
     torch.cuda.empty_cache()
+    phase_seconds("16 main_long_cache")
 
     # 17. parity, f32, full widths, 2 layers
     lm32 = dataclasses.replace(lm, n_layers=2, dtype=torch.float32)
@@ -5446,15 +5806,18 @@ def main() -> int:
                              "disagree")
     del lk, lp, params32
     torch.cuda.empty_cache()
+    phase_seconds("17 kernel_vs_plain_serve_f32")
 
     # 18-19. the LM lane at production D, and against its plain route
     lm_lane_phase(torch, np, ops, figures, tally)
+    phase_seconds("18-19 lm_lane")
 
     # 20. the FLOA train step and the prefill step at full width, from the
     # serve phase's weights
     train_phase(torch, ops, lm, params)
     del params
     torch.cuda.empty_cache()
+    phase_seconds("20 train")
 
     # 21, 22 and 25. the rank phases, one spawn of 2 ranks and one of 4 on
     # this card over gloo: the sweep sharded over ranks (and one rank on
@@ -5463,35 +5826,48 @@ def main() -> int:
     rank_phases(torch, np, ops, figures, tally, shard_tally, lm, rs)
     del rs
     torch.cuda.empty_cache()
+    phase_seconds("21, 22, 25 ranks")
 
     # 23. the zoo's dense and MoE archs served at full width
     zoo_phase(torch, ops, tally)
+    phase_seconds("23 zoo")
 
     # 24. long_500k: rings of decode_window slots at pos 524 287
     long500_phase(torch, ops, tally)
+    phase_seconds("24 long_500k")
 
     # 26. MLA (deepseek-v2-236b) and the SSD block (mamba2-1.3b): serve,
     # long_500k, train step and prefill; no kernel of the port
     mla_ssm_phase(torch, ops, tally)
+    phase_seconds("26 mla_ssm")
 
     # 27. the RG-LRU hybrid (recurrentgemma-9b, the kernel at dh 256):
     # serve, long_500k, train step and prefill; the int8 KV cache
     hybrid_phase(torch, ops, tally, lm)
+    phase_seconds("27 hybrid")
 
     # 28. the frontends: llava-next-mistral-7b's projected prefix and
     # seamless-m4t-large-v2's encoder-decoder (cross-attention through the
     # decode kernel at dh 64)
     frontends_phase(torch, ops, tally)
+    phase_seconds("28 frontends")
 
     # 29. the production layouts: the dry run's predictions against the
     # card, --mesh single on one process ((b), FSDP on ranks, ran in the
     # rank phases' 2-rank spawn)
     layouts_phase(torch)
+    phase_seconds("29 layouts")
 
     # 30. rematerialization: qwen3-4b's step with remat against none,
     # train_4k's sequence at full depth on one card against the dry run,
     # moonshot's expert chunks against one chunk
     remat_phase(torch, ops)
+    phase_seconds("30 remat")
+
+    # 31. the head layouts the "model" axis does not divide: starcoder2-3b
+    # and llama4 on 16 ranks, every head on every rank, against one rank
+    heads_phase(torch, shard_tally)
+    phase_seconds("31 heads")
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -5562,6 +5938,14 @@ def main() -> int:
         want_shard["decode_attention"][(case, (
             SERVE_BATCH, n, q.stop - q.start, kv.stop - kv.start,
             cfg.hd))] = ranks * layers * n
+    # the heads phase's serves: every rank decodes every head
+    for arch, layers, _ in HEADS_CASES:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        q, kv = local_heads(cfg, HEADS_RANKS, 0)
+        want_shard["decode_attention"][(f"heads_{arch}", (
+            SERVE_BATCH, HEADS_PROMPT + HEADS_GEN, q.stop - q.start,
+            kv.stop - kv.start, cfg.hd))] = (
+            HEADS_RANKS * attn_layers(cfg) * (HEADS_PROMPT + HEADS_GEN))
     if shard_shapes != want_shard or flat_param_dim(get_lm_sweep()) != LM_D:
         raise AssertionError(f"sharded launches by shape: {shard_shapes}, "
                              f"expected {want_shard}")
@@ -5603,7 +5987,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 30. the kernel list
+    # 32. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",
@@ -5638,7 +6022,9 @@ def main() -> int:
         if len(main_shapes.get(name, {})) > 1:
             kernels[-1]["launches_by_shape"] = by_shape(name)
         if shard_shapes.get(name):
-            ranks_of = {case: ranks for _, case, ranks in TP_SERVES}
+            ranks_of = {**{case: ranks for _, case, ranks in TP_SERVES},
+                        **{f"heads_{arch}": HEADS_RANKS
+                           for arch, _, _ in HEADS_CASES}}
             kernels[-1]["launches_by_shard_shape"] = [
                 {"case": case, **phase3_row(name, shape),
                  "shard_shape": list(shape), "launches": n,

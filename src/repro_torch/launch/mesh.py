@@ -168,9 +168,10 @@ def model_parallel(mesh) -> int:
 
 # What of the LM steps' "model" axis is still to port: the message of its
 # refusals.
-Q_MODEL_AXIS = ("is not ported (ROADMAP.md Queue 1 item 8d: attention "
-                "layouts whose query heads the \"model\" axis does not "
-                "divide, and sequence-parallel residuals)")
+Q_MODEL_AXIS = ("is not ported (ROADMAP.md Queue 1 item 8d: MLA layouts "
+                "whose heads or q_lora, SSD layouts whose heads and RG-LRU "
+                "layouts whose width the \"model\" axis does not divide, "
+                "and sequence-parallel residuals)")
 STEP_AXES = ("pod", "data", "model")
 # The reference's production layouts (`repro/launch/mesh.py::
 # make_production_mesh`): --mesh single and multi.

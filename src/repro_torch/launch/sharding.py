@@ -8,9 +8,11 @@ The counterpart of the "model" entries of the reference's specs: the
 rules, as the reference's (a dim is split when M divides it):
 
 - attention wq / wk / wv split their head dim, or the first other dim M
-  divides (`_wspec`: d for the KV heads of the smoke qwen3-4b and
-  starcoder2-3b at M = 4); wo its head dim the same way; q_norm / k_norm
-  are replicated;
+  divides (`models.attention.wspec`, the reference's `_wspec`: d for
+  the KV heads of the smoke qwen3-4b at M = 4, and d for all three of
+  starcoder2-3b's and llama4's at M = 16), or nothing; wo its head dim
+  the same way (hd for those two at M = 16); q_norm / k_norm are
+  replicated;
 - MLA (`repro/models/attention.py::init_mla`): wq_a its q_lora, wq_b /
   wk_b / wv_b their heads and wo its heads, each by `_wspec`'s rule;
   wkv_a, q_norm and kv_norm are replicated;
@@ -35,11 +37,11 @@ A spec tree has the parameter tree's structure, each leaf the split dim
 (an int, stacked layers' leading dim counted) or None.  The port's
 `ModelConfig` has no `model_parallel`: M is an argument, and M = 1 splits
 nothing.  A rank's decode caches are built by
-`transformer.init_caches(..., model_parallel=M)`: its KV heads, whole (the
-reference's `cache_specs` splits another dim where M does not divide KV;
-`models/attention.py`), the whole MLA latent, its heads' SSD state
-(`models/ssm.py`) and its W / M channels of the RG-LRU state
-(`models/rglru.py`).
+`transformer.init_caches(..., model_parallel=M)`: its KV heads, whole
+(every KV head where M does not divide H; the reference's `cache_specs`
+splits another dim where M does not divide KV; `models/attention.py`),
+the whole MLA latent, its heads' SSD state (`models/ssm.py`) and its
+W / M channels of the RG-LRU state (`models/rglru.py`).
 
 Storage over "data" (ZeRO-3, the reference's `fsdp_augment`): a leaf of
 at least FSDP_MIN_SIZE elements is also split over the R "data" ranks on
@@ -57,7 +59,7 @@ column split (`fl/sweep.py::_ModelShards`).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -65,21 +67,13 @@ from repro_torch.launch.distributed import all_gather
 from repro_torch.launch.mesh import data_axis, model_axis
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import wspec
 from repro_torch.models.common import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
 FSDP_MIN_SIZE = 1 << 22  # 4M elements: below this, replication is cheaper
-
-
-def _first_split(shape: Sequence[int], prefer: int, m: int) -> Optional[int]:
-    """The reference's `_wspec`: dim `prefer` if m divides it, else the
-    first other dim m divides, else None."""
-    for i in [prefer] + [j for j in range(len(shape)) if j != prefer]:
-        if shape[i] % m == 0:
-            return i
-    return None
 
 
 def _split(n: int, dim: int, m: int) -> Optional[int]:
@@ -121,8 +115,8 @@ def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
         return _split(shape[1], 1, m)
     if parent in ATTENTION:
         if name in ("wq", "wk", "wv", "wq_a", "wq_b", "wk_b", "wv_b"):
-            return _first_split(shape, 1, m)
-        return _first_split(shape, 0, m) if name == "wo" else None
+            return wspec(shape, 1, m)
+        return wspec(shape, 0, m) if name == "wo" else None
     if parent == "mixer" and _kind(path, cfg) == "rglru":
         if name in ("in_x", "in_gate", "conv_w", "w_a", "w_i"):
             return _split(shape[1], 1, m)

@@ -47,10 +47,16 @@ each worker over M ranks, tensor parallel (`common.tensor_parallel`): the
 params a step takes and returns are this rank's shards
 (`launch.sharding.shard_params` of `param_specs(cfg, M)`), the worker
 group is the ranks of this rank's model index, and the gradients' sum runs
-over it alone.  Each rank draws each leaf's noise at the leaf's full shape
-from the same stream and keeps its slice, so the draws are the one-process
-run's; the stale stats sum each split leaf's shards over the model group
-and count a replicated leaf once.  Prefill and decode gather the vocab
+over it alone.  Where M does not divide a GQA layer's query heads
+(starcoder2-3b's 24 and llama4's 40 at M = 16) the layer's wq / wk / wv
+are split on d (or hd) and wo on hd (or d), as the reference's `_wspec`
+falls back, and every rank computes every head (`models/attention.py`);
+a leaf no dim of which M divides is replicated, and its gradient, whole
+and the same on every rank, is summed over the workers only.  Each rank
+draws each leaf's noise at the leaf's full shape from the same stream
+and keeps its slice, so the draws are the one-process run's; the stale
+stats sum each split leaf's shards over the model group and count a
+replicated leaf once.  Prefill and decode gather the vocab
 shards of the logits over the model group, then the rows over the worker
 group.
 

@@ -51,27 +51,45 @@ c_kv [B, S, kv_lora] and the shared rope keys k_rope [B, S, rope], which
 it writes in place at slot pos, as the GQA decode does (full attention
 always: long_500k keeps its 524 288 slots).
 
-Over a "model" axis of M ranks (`common.tensor_parallel`) each rank holds
-the query heads axis.part(H) of wq and wo (the reference's `_wspec`
-prefers the head dims) and computes their attention: the input enters
-through `copy_in`, and wo's partial product leaves through one
-`reduce_out`.  Its KV heads are axis.part(KV) when M divides KV.  When it
-does not, the reference's spec shards wk / wv on d instead (the smoke
-qwen3-4b and starcoder2-3b at M = 4): the rank's k / v projection is a
-partial product over its d rows, summed over the ranks (one all_reduce,
-and one in the backward), and the rank keeps the KV heads its query heads
-read (`local_heads`; M a multiple of KV).  A rank's decode cache holds
-those KV heads only: where KV does not divide, the reference's
-`cache_specs` shards another dim of the cache (hd, or the sequence), and
-the port does not copy that, since the decode kernel reads whole heads.
-It changes no value.  Query heads M does not divide raise
-NotImplementedError (`check_heads`).  MLA splits wq_a on q_lora (each
-rank's columns of the latent query, gathered with
-`launch.distributed.gather_shards`), wq_b / wk_b / wv_b / wo on the heads;
-wkv_a and the norms are replicated and enter through `copy_in`, and every
-rank keeps the whole latent cache, since each head reads all of it (the
-reference's `cache_specs` splits kv_lora or the sequence; it changes no
-value).  M must divide H and q_lora.
+Over a "model" axis of M ranks (`common.tensor_parallel`) the weights
+are split as the reference's `_wspec` splits them (`wspec`: a leaf's head
+dim where M divides it, else the first other dim M divides, else none).
+Where M divides H, each rank holds the query heads axis.part(H) of wq and
+wo and computes their attention: the input enters through `copy_in`, and
+wo's partial product leaves through one `reduce_out`.  Its KV heads are
+axis.part(KV) when M divides KV.  When it does not, wk / wv are split on
+d (the smoke qwen3-4b at M = 4), hd or nothing: every KV head is formed
+whole on every rank (d: the rows' partial products summed in one
+all_reduce; hd: the columns gathered; whole weights: x as it is), then
+enters through `copy_in`, and the rank keeps a window of the KV heads its
+query heads read, of one width on every rank (`local_heads`: one head
+where M is a multiple of KV; two or more where it is not, as H 12 / KV 3
+at M = 4, and then the rank's query heads are padded with zero heads to
+whole groups of the window, whose outputs are dropped before wo).  Where
+M does not divide H (starcoder2-3b's 24 and llama4's 40 heads at
+M = 16), wq / wk / wv are split on d, or hd, or nothing, and wo on hd,
+or d, or nothing: every rank computes every head whole (q, k and v in
+one all_reduce of the rows' partial products, or one all_gather of the
+hd columns, or whole), so qk-norm, RoPE and the attention see whole
+heads and the attention's FLOPs repeat on every rank; the replicated
+output enters through `copy_in`, and each rank multiplies its hd slice
+by its rows of wo (summed in one `reduce_out`), or its d columns
+(gathered with `gather_out`), or the whole wo.  A product of a replicated
+weight takes x as it is and enters the residual with no sum over "model",
+so its gradient is whole and the same on every rank, as a replicated
+leaf's must be.  Splitting hd inside the scores is not done: each rank
+would hold partial scores, and their sum an all_reduce of [B, H, Sq, Sk]
+f32 a query chunk.  A rank's decode cache holds its KV heads
+(`local_heads`: every KV head where M does not divide H), whole; the
+reference's `cache_specs` shards another dim of the cache (hd, or the
+sequence) where M does not divide KV, and the port does not copy that,
+since the decode kernel reads whole heads.  It changes no value.  MLA
+splits wq_a on q_lora (each rank's columns of the latent query, gathered
+with `launch.distributed.gather_shards`), wq_b / wk_b / wv_b / wo on the
+heads; wkv_a and the norms are replicated and enter through `copy_in`,
+and every rank keeps the whole latent cache, since each head reads all
+of it (the reference's `cache_specs` splits kv_lora or the sequence; it
+changes no value).  M must divide its H and q_lora (`check_heads`).
 
 The sequence-sharded decode of the reference (`decode_local_partial`,
 `combine_partials`: each rank holds a shard of the cache's positions and
@@ -81,14 +99,15 @@ over a process group.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.launch.distributed import (all_reduce_max, all_reduce_sum,
-                                            copy_in, gather_shards,
-                                            reduce_out)
+                                            copy_in, gather_out,
+                                            gather_shards, reduce_out)
 from repro_torch.launch.mesh import Q_MODEL_AXIS
 from repro_torch.models.common import (ModelConfig, ParamInit,
                                        make_causal_mask, model_shards,
@@ -114,14 +133,31 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
     return (x @ w.reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
 
 
+def wspec(shape: Sequence[int], prefer: int, m: int) -> Optional[int]:
+    """The reference's `_wspec`: the "model" dim of a leaf of `shape` over
+    m ranks, dim `prefer` if m divides it, else the first other dim m
+    divides, else None (the leaf replicated)."""
+    for i in [prefer] + [j for j in range(len(shape)) if j != prefer]:
+        if shape[i] % m == 0:
+            return i
+    return None
+
+
+def head_dims(cfg: ModelConfig, m: int
+              ) -> Tuple[Optional[int], Optional[int], Optional[int]]:
+    """The "model" dims of wq [d, H, hd], wk / wv [d, KV, hd] and wo
+    [H, hd, d] over m ranks (`wspec`)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return (wspec((d, h, hd), 1, m), wspec((d, kv, hd), 1, m),
+            wspec((h, hd, d), 0, m))
+
+
 def check_heads(cfg: ModelConfig, m: int) -> None:
     """Raise NotImplementedError unless the port computes cfg's mixers
-    over m "model" ranks: for GQA m divides the query heads, and divides
-    the KV heads or (wk / wv sharded on d) divides d and is a multiple of
-    KV; for MLA m divides the heads and q_lora; for the SSD block m
-    divides its heads (d_inner / headdim); for the RG-LRU block m divides
-    its width."""
-    h, kv = cfg.n_heads, cfg.n_kv_heads
+    over m "model" ranks.  GQA takes every layout (`head_dims`); for MLA m
+    must divide the heads and q_lora; for the SSD block m must divide its
+    heads (d_inner / headdim); for the RG-LRU block m must divide its
+    width."""
     if m == 1:
         return
     bad = False
@@ -129,44 +165,115 @@ def check_heads(cfg: ModelConfig, m: int) -> None:
         bad = (cfg.ssm.expand * cfg.d_model // cfg.ssm.headdim) % m != 0
     if "rglru" in cfg.block_pattern:
         bad = bad or (cfg.rglru_width or cfg.d_model) % m != 0
-    if any(k not in ("ssm", "rglru") for k in cfg.block_pattern):
-        if cfg.mla is not None:
-            bad = bad or h % m != 0 or cfg.mla.q_lora % m != 0
-        else:
-            bad = bad or h % m != 0 or (kv % m != 0 and (
-                m % kv != 0 or cfg.d_model % m != 0))
+    if cfg.mla is not None and any(k not in ("ssm", "rglru")
+                                   for k in cfg.block_pattern):
+        bad = bad or cfg.n_heads % m != 0 or cfg.mla.q_lora % m != 0
     if bad:
         raise NotImplementedError(
-            f"{cfg.name} on {m} \"model\" ranks (H {h}, KV {kv}, d "
+            f"{cfg.name} on {m} \"model\" ranks (H {cfg.n_heads}, d "
             f"{cfg.d_model}): {Q_MODEL_AXIS}")
 
 
 def local_heads(cfg: ModelConfig, m: int, index: int) -> Tuple[slice, slice]:
-    """(query heads, KV heads) of "model" rank `index` of m: its
-    H / m query heads, and the KV heads they read (KV / m of them, or one
-    when m is a multiple of KV)."""
+    """(query heads, KV heads) of "model" rank `index` of m.  Where m
+    divides H: its H / m query heads, and the KV heads they read: KV / m
+    of them where m divides KV, else a window of the KV heads of one width
+    on every rank (the widest span a rank's query heads read) that holds
+    them.  Where m does not divide H: every head."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h % m:
+        return slice(0, h), slice(0, kv)
     hq = h // m
+    q = slice(index * hq, (index + 1) * hq)
     if kv % m == 0:
-        return slice(index * hq, (index + 1) * hq), slice(
-            index * kv // m, (index + 1) * kv // m)
-    g = index * hq * kv // h
-    return slice(index * hq, (index + 1) * hq), slice(g, g + 1)
+        return q, slice(index * kv // m, (index + 1) * kv // m)
+    g = h // kv
+
+    def span(r):   # the KV heads rank r's query heads read
+        return r * hq // g, ((r + 1) * hq - 1) // g + 1
+    width = max(b - a for a, b in map(span, range(m)))
+    lo = min(span(index)[0], kv - width)
+    return q, slice(lo, lo + width)
 
 
-def _kv_heads(p: Dict, x: Tensor, cfg: ModelConfig,
-              axis) -> Tuple[Tensor, Tensor]:
-    """k and v [B, S, heads, hd] of x [B, S, d] (through `copy_in` under a
-    "model" axis): every KV head, or this rank's (wk / wv split on the
-    heads; or on d when M does not divide KV: the partial products
-    summed, then the KV heads of this rank's query heads)."""
-    if axis is None or cfg.n_kv_heads % axis.size == 0:
-        return _proj(x, p["wk"]), _proj(x, p["wv"])
-    xd = x[..., axis.part(cfg.d_model)]
-    kv = torch.cat([_proj(xd, p["wk"]), _proj(xd, p["wv"])], dim=-2)
-    kv = copy_in(reduce_out(kv, axis.group), axis.group)
+def _pad(cfg: ModelConfig, axis) -> Tuple[int, int]:
+    """(before, after): the zero query heads around this rank's own that
+    fill whole groups of its KV heads (`local_heads`); (0, 0) where they
+    read one KV head or fill whole groups already: everywhere but where M
+    divides H and neither divides KV nor is a multiple of it."""
+    q, kv = local_heads(cfg, axis.size, axis.index)
+    if kv.stop - kv.start == 1:
+        return 0, 0
+    g = cfg.n_heads // cfg.n_kv_heads
+    return q.start - kv.start * g, kv.stop * g - q.stop
+
+
+def _whole(x: Tensor, xin: Optional[Tensor], ws: List[Tensor],
+           dim: Optional[int], axis) -> Tensor:
+    """Every head of the products of x [B, S, d] with the leaves `ws`
+    ([d, n, hd] each, this rank's shards split on `dim`), joined on the
+    heads [B, S, sum n, hd], whole and replicated over "model": dim 0 (d)
+    the partial products of this rank's rows summed in one `reduce_out`,
+    dim 2 (hd) its columns joined in one `gather_out`, both from xin (x
+    through `copy_in`, made here when None: a rank's backward holds its
+    rows' or columns' share of x's gradient); None the whole leaves times
+    x as it is (the product's gradient is whole on every rank already)."""
+    w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=1)
+    if dim is None:
+        return _proj(x, w)
+    if xin is None:
+        xin = copy_in(x, axis.group)
+    if dim == 0:
+        xin = xin[..., axis.part(x.shape[-1])]
+    y = _proj(xin, w)
+    return (reduce_out(y, axis.group) if dim == 0
+            else gather_out(y, axis.group, dim=-1))
+
+
+def _project(p: Dict, x: Tensor, cfg: ModelConfig, axis,
+             names: Sequence[str]) -> List[Tensor]:
+    """The products [B, S, heads, hd] of x [B, S, d] with wq and / or wk,
+    wv (`names`, in that order) as this rank attends with them: every
+    head (no axis, or M not dividing H: `_whole`, all of them in one
+    collective); else this rank's query heads and its KV heads
+    (`local_heads`), x entering through one `copy_in`.  KV heads M does
+    not divide are formed whole (`_whole`), then enter through `copy_in`,
+    since each rank reads only its window of them."""
+    if axis is None:
+        return [_proj(x, p[n]) for n in names]
+    dq, dkv, _ = head_dims(cfg, axis.size)
+    if cfg.n_heads % axis.size:
+        ws = [p[n] for n in names]
+        return list(_whole(x, None, ws, dq, axis).split(
+            [w.shape[1] for w in ws], dim=-2))
+    xin = copy_in(x, axis.group)
+    out = [_proj(xin, p["wq"])] if "wq" in names else []
+    if "wk" not in names:
+        return out
+    if dkv == 1:
+        return out + [_proj(xin, p["wk"]), _proj(xin, p["wv"])]
+    kv = copy_in(_whole(x, xin, [p["wk"], p["wv"]], dkv, axis), axis.group)
     heads = local_heads(cfg, axis.size, axis.index)[1]
-    return kv[..., heads, :], kv[..., cfg.n_kv_heads:, :][..., heads, :]
+    return out + [kv[..., heads, :],
+                  kv[..., cfg.n_kv_heads:, :][..., heads, :]]
+
+
+def _scale(w: Tensor, cfg: ModelConfig, axis) -> Tensor:
+    """A replicated scale (q_norm, k_norm) as this rank reads it: through
+    `copy_in` on this rank's heads (its gradient summed over "model"), as
+    it is where every rank computes every head."""
+    if axis is None or cfg.n_heads % axis.size:
+        return w
+    return copy_in(w, axis.group)
+
+
+def _grouped(q: Tensor, cfg: ModelConfig, axis) -> Tensor:
+    """q [..., heads, hd] of this rank's query heads padded with zero heads
+    to whole groups of its KV heads (`_pad`); q itself without padding."""
+    if axis is None:
+        return q
+    before, after = _pad(cfg, axis)
+    return F.pad(q, (0, 0, before, after)) if before or after else q
 
 
 def _qkv(p: Dict, x: Tensor, cfg: ModelConfig,
@@ -174,34 +281,47 @@ def _qkv(p: Dict, x: Tensor, cfg: ModelConfig,
          ) -> Tuple[Tensor, Tensor, Tensor]:
     """Projection, then qk-norm (RMS over hd), then RoPE on q and k; v gets
     neither.  x [B, S, d], rope the (cos, sin) of the positions [B, S]
-    (`rope_cos_sin`) -> [B, S, heads, hd] each (this rank's heads under
-    `tensor_parallel`)."""
+    (`rope_cos_sin`) -> [B, S, heads, hd] each (under `tensor_parallel`
+    the heads this rank attends with, q padded to whole groups:
+    `_project`, `_grouped`)."""
     axis = model_shards()
-    if axis is None:
-        q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-        norms = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else None
-    else:
-        x = copy_in(x, axis.group)
-        q = _proj(x, p["wq"])
-        k, v = _kv_heads(p, x, cfg, axis)
-        # replicated scales on this rank's heads: their gradient is summed
-        norms = (copy_in(torch.stack([p["q_norm"], p["k_norm"]]),
-                         axis.group) if cfg.qk_norm else None)
-    if norms is not None:
+    q, k, v = _project(p, x, cfg, axis, ("wq", "wk", "wv"))
+    if cfg.qk_norm:
+        if axis is None or cfg.n_heads % axis.size:
+            norms = (p["q_norm"], p["k_norm"])
+        else:   # both scales through one `copy_in` (`_scale`)
+            norms = copy_in(torch.stack([p["q_norm"], p["k_norm"]]),
+                            axis.group)
         q = rms_norm(q, norms[0], cfg.norm_eps)
         k = rms_norm(k, norms[1], cfg.norm_eps)
     if rope is not None:
         q, k = rope_rotate(q, *rope), rope_rotate(k, *rope)
-    return q, k, v
+    return _grouped(q, cfg, axis), k, v
 
 
-def _out(p: Dict, out: Tensor) -> Tensor:
-    """The output projection of [B, S, H, hd] attention: wo's product, the
-    ranks' partial products summed under `tensor_parallel`."""
-    h, hd, d = p["wo"].shape
-    y = out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
+def _out(p: Dict, out: Tensor, cfg: ModelConfig) -> Tensor:
+    """The output projection of [B, S, heads, hd] attention under
+    `tensor_parallel`: wo split on the heads takes this rank's heads (the
+    padding dropped) and their partial product is summed; on hd, this
+    rank's hd slice of every head's output (which enters through
+    `copy_in`: each rank reads only its part of it), summed; on d, every
+    head's output times this rank's d columns, gathered; a replicated wo
+    the whole product, no collective."""
+    w = p["wo"]
     axis = model_shards()
-    return y if axis is None else reduce_out(y, axis.group)
+    dwo = None if axis is None else head_dims(cfg, axis.size)[2]
+    if dwo == 0:
+        before, _ = _pad(cfg, axis)
+        out = out[..., before:before + w.shape[0], :]
+    elif dwo is not None:
+        out = copy_in(out, axis.group)
+        if dwo == 1:
+            out = out[..., axis.part(cfg.hd)]
+    y = out.reshape(*out.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+    if dwo is None:
+        return y
+    return (gather_out(y, axis.group, dim=-1) if dwo == 2
+            else reduce_out(y, axis.group))
 
 
 def _gqa_core(q: Tensor, k: Tensor, v: Tensor,
@@ -259,23 +379,18 @@ def gqa_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
     positions [B, S]."""
     rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     q, k, v = _qkv(p, x, cfg, rope)
-    return _out(p, _chunked_attn(q, k, v, causal, window))
-
-
-def _replicated(w: Tensor, axis) -> Tensor:
-    """A replicated leaf read on this rank's heads (`copy_in`: its gradient
-    summed over the "model" group)."""
-    return w if axis is None else copy_in(w, axis.group)
+    return _out(p, _chunked_attn(q, k, v, causal, window), cfg)
 
 
 def _cross_q(p: Dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     """The cross-attention query [B, S, heads, hd] of x [B, S, d]: no RoPE,
-    q_norm under qk_norm; this rank's heads under `tensor_parallel`."""
+    q_norm under qk_norm; under `tensor_parallel` the heads this rank
+    attends with (`_project`, `_grouped`)."""
     axis = model_shards()
-    q = _proj(_replicated(x, axis), p["wq"])
+    q, = _project(p, x, cfg, axis, ("wq",))
     if cfg.qk_norm:
-        q = rms_norm(q, _replicated(p["q_norm"], axis), cfg.norm_eps)
-    return q
+        q = rms_norm(q, _scale(p["q_norm"], cfg, axis), cfg.norm_eps)
+    return _grouped(q, cfg, axis)
 
 
 def encode_kv(p: Dict, enc_out: Tensor, cfg: ModelConfig
@@ -284,9 +399,9 @@ def encode_kv(p: Dict, enc_out: Tensor, cfg: ModelConfig
     [B, Se, d]: no RoPE, k_norm under qk_norm (the reference's
     `encode_kv`); this rank's KV heads under `tensor_parallel`."""
     axis = model_shards()
-    k, v = _kv_heads(p, _replicated(enc_out, axis), cfg, axis)
+    k, v = _project(p, enc_out, cfg, axis, ("wk", "wv"))
     if cfg.qk_norm:
-        k = rms_norm(k, _replicated(p["k_norm"], axis), cfg.norm_eps)
+        k = rms_norm(k, _scale(p["k_norm"], cfg, axis), cfg.norm_eps)
     return k, v
 
 
@@ -298,7 +413,7 @@ def cross_attention(p: Dict, x: Tensor, enc_kv: Tuple[Tensor, Tensor],
     reference's XLA einsums."""
     k, v = enc_kv
     return _out(p, _chunked_attn(_cross_q(p, x, cfg), k, v, causal=False,
-                                 window=None))
+                                 window=None), cfg)
 
 
 def cross_decode(p: Dict, x1: Tensor, enc_kv: Tuple[Tensor, Tensor],
@@ -314,7 +429,7 @@ def cross_decode(p: Dict, x1: Tensor, enc_kv: Tuple[Tensor, Tensor],
     q = _cross_q(p, x1, cfg)
     pos = torch.full((), k.shape[1] - 1, dtype=torch.int32, device=k.device)
     out = ops.decode_attention(q[:, 0].contiguous(), k, v, pos, plain=plain)
-    return _out(p, out.reshape(b, 1, *out.shape[1:]))
+    return _out(p, out.reshape(b, 1, *out.shape[1:]), cfg)
 
 
 KV_CACHE_DTYPES = ("native", "int8")
@@ -333,9 +448,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                model_parallel: int = 1) -> Dict[str, Tensor]:
     """Zeroed KV cache of one attention layer: k/v [B, slots, KV, hd], a ring
     of slots = min(max_len, window) if windowed, else max_len; over
-    model_parallel ranks, the KV heads of one rank (`local_heads`).  Under
-    kv_cache_dtype="int8" k / v are int8 and k_scale / v_scale [B, slots,
-    KV] f16 (the scales of the rank's KV heads)."""
+    model_parallel ranks, the KV heads of a rank (`local_heads`: as many
+    on every rank; all of them where model_parallel does not divide H).
+    Under kv_cache_dtype="int8" k / v are int8 and k_scale / v_scale
+    [B, slots, KV] f16 (the scales of the rank's KV heads)."""
     check_cache_supported(cfg)
     check_heads(cfg, model_parallel)
     slots = min(max_len, window) if window else max_len
@@ -407,7 +523,7 @@ def decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
         ck, cv = cache["k"], cache["v"]
     out = ops.decode_attention(q[:, 0].contiguous(), ck, cv, pos,
                                plain=plain)
-    return _out(p, out.reshape(b, 1, *out.shape[1:])), cache
+    return _out(p, out.reshape(b, 1, *out.shape[1:]), cfg), cache
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,9 @@ as the reference's are XLA einsums.
 
 Under `common.tensor_parallel` the layers split as `transformer.py`'s do:
 `enc_in` on its columns (each rank's columns of the frames' projection,
-gathered into the replicated stream), the self- and cross-attentions on
-their heads (a rank's caches and cross K / V hold its KV heads), the
+gathered into the replicated stream), the self- and cross-attentions by
+`attention.py`'s rules (their heads; every head on every rank where M
+does not divide H: a rank's caches and cross K / V hold its KV heads), the
 SwiGLU on f, the embedding, head and CE on the vocab.  Under
 `common.storage_sharded` each layer's data-sharded leaves are gathered
 where the layer runs (inside its region under remat), and `enc_in` where

@@ -236,7 +236,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     slots (an MLA cache is always max_len slots, as the reference's); a
     local_attn cache is a ring of min(max_len, cfg.local_window) slots
     whatever `window` is.  Over model_parallel "model" ranks, a rank's
-    caches: the KV heads its query heads read (`attention.local_heads`),
+    caches: the KV heads its query heads read (`attention.local_heads`:
+    every KV head where model_parallel does not divide H),
     the whole MLA latent, the SSD state of its heads (`ssm.py`), its W / M
     RG-LRU channels (`rglru.py`)."""
     check_supported(cfg)

@@ -210,11 +210,20 @@ def test_mesh_refusals_in_one_process():
             mesh_from_arg(spec)
     with pytest.raises(ValueError, match="names no ranks"):
         TSTEPS.make_prefill_step(cfg, (2, 2))
+    # every GQA layout runs (the reference's `_wspec` fallback): at M = 4
+    # every rank computes all 6 heads; at M = 2 a rank's 3 query heads read
+    # a window of 2 of the 3 KV heads
     big = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+    for m in (2, 4, 16):
+        TATT.check_heads(big, m)
+    assert TATT.local_heads(big, 4, 1) == (slice(0, 6), slice(0, 3))
+    assert TATT.local_heads(big, 2, 1) == (slice(3, 6), slice(1, 3))
+    # MLA heads the axis does not divide are still refused
+    mla = dataclasses.replace(get_smoke("deepseek-v2-236b"), n_heads=3)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
-        TATT.check_heads(big, 4)
+        TATT.check_heads(mla, 4)
     assert Q_MODEL_AXIS in str(pytest.raises(
-        NotImplementedError, TATT.check_heads, big, 2).value)
+        NotImplementedError, TATT.check_heads, mla, 2).value)
     with pytest.raises(ValueError, match="process group"):
         ModelAxis(2, 1, None)
     with pytest.raises(TypeError, match="is not a mesh"):

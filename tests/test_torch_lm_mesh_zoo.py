@@ -2,7 +2,8 @@
 package (see tests/test_torch_lm_mesh.py): the zoo on a (2, 1) mesh, U = 2,
 each rank one FL worker on 2 of the 4 rows.
 
-One JAX subprocess on 2 host devices (`torch_lm_ranks.JAX_REF`) runs the
+Two JAX subprocesses at once on 2 host devices (`torch_lm_ranks.JAX_REF`,
+the cases dealt out between them) run the
 reference: the BEV train step of the smoke moonshot (MoE),
 deepseek-v2-236b (MLA), mamba2-1.3b (SSD) and recurrentgemma-9b (RG-LRU
 + local attention) on (2, 1), B = 4, 3 steps, the draws replayed; the
@@ -41,15 +42,15 @@ BEV = [("bev", True)]
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in a
-    subprocess with 2 host devices."""
+    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in two
+    subprocesses at once with 2 host devices each."""
     train = {"moe": ((2, 1), BEV, "moonshot-v1-16b-a3b", None, 4),
              **{arch: ((2, 1), BEV, arch, None, 4) for arch in MLA_SSM}}
     return jax_reference(
         tmp_path_factory, 2, train=train,
         prefill={"prefill": ((2, 1), "qwen3-4b", 4, 24, 9)},
         decode={"decode_rg": ("recurrentgemma-9b",
-                              *RG_DECODE.values())})
+                              *RG_DECODE.values())}, procs=2)
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,8 @@ test_torch_lm_tp_moe.py (MoE, MLA), test_torch_lm_tp_recurrent.py (SSD,
 RG-LRU) and test_torch_lm_tp_frontends.py (the VLM prefix, the
 encoder-decoder).
 
-One JAX subprocess on 4 host devices (`torch_lm_ranks.JAX_REF`) runs the
+Two JAX subprocesses at once on 4 host devices (`torch_lm_ranks.JAX_REF`,
+one case each) run the
 reference on the same mesh shapes, its config `dataclasses.replace(
 get_smoke(arch), model_parallel=M)` as tests/test_distributed.py:55 builds
 it: the FLOA train step of the smoke qwen3-4b (f32, B = 8, 3 steps) on
@@ -86,9 +87,9 @@ MODEL_SIZES = (2, 4, 16)
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    """The JAX package's train runs (`torch_lm_ranks.JAX_REF`), once, in a
-    subprocess with 4 host devices."""
-    return jax_reference(tmp_path_factory, 4, train=TRAIN_CASES)
+    """The JAX package's train runs (`torch_lm_ranks.JAX_REF`), once, in two
+    subprocesses at once with 4 host devices each."""
+    return jax_reference(tmp_path_factory, 4, train=TRAIN_CASES, procs=2)
 
 
 def _ce_inputs(m, tied):
@@ -208,8 +209,11 @@ def test_param_specs_equal_the_reference(m, full):
     decoder's.  The
     caches `init_caches(..., model_parallel=M)` builds split the dim the
     reference's `cache_specs` splits, the KV heads, where M divides them;
-    where it does not, a rank caches the one KV head its query heads read,
-    whole (the deviation `models/attention.py` states).  An MLA rank keeps
+    where it does not, a rank caches whole the KV heads its query heads
+    read: one where M divides H (M a multiple of KV), every KV head where
+    M does not divide H (starcoder2-3b and llama4 at M = 16, which
+    compute every head on every rank), where the reference splits another
+    dim (the deviation `models/attention.py` states).  An MLA rank keeps
     the whole latent, which the reference splits (kv_lora or the
     sequence); an SSD rank the ssm state of its heads, the dim the
     reference splits, and the conv window of its x channels plus B and C,
@@ -292,9 +296,12 @@ def test_param_specs_equal_the_reference(m, full):
             if cfg.n_kv_heads % m == 0:
                 assert d == heads, (arch, m)
                 assert loc.shape[heads] == f.shape[heads] // m, (arch, m)
-            else:
+            elif cfg.n_heads % m == 0:
                 assert d not in (None, heads), (arch, m)
                 assert loc.shape[heads] == 1, (arch, m)
+            else:
+                assert d not in (None, heads), (arch, m)
+                assert loc.shape[heads] == f.shape[heads], (arch, m)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
@@ -303,8 +310,9 @@ def test_layout_round_trips_and_axes(ranks4, jax_ref, shape):
     rank's shards drawn leaf by leaf (`init_model(..., mesh=)`) and those
     of the whole draw; the ranks are
     row-major over (data, model); `default_floa` and `num_workers` give
-    U = |data| on a model mesh; an unported head layout raises, and
-    --mesh single on 4 ranks names the 256 it needs."""
+    U = |data| on a model mesh; an unported head layout (MLA heads M
+    does not divide) raises, and --mesh single on 4 ranks names the 256
+    it needs."""
     a, b = shape
     name = f"layout_{a}{b}"
     dq = TT.params_from_jax(jax_ref["m12"]["params0"], "cpu")

@@ -5,14 +5,29 @@ prefill and decode; on (4, 2) (U = 4 workers of two ranks, BEV with one
 strongest attacker) and the same on (2, 2, 2) ("pod", "data", "model");
 starcoder2-3b's decode on (4, 2), 72 steps past its 64-slot ring.
 
-One JAX subprocess on 8 host devices (`torch_lm_ranks.JAX_REF`) runs the
-reference on the same meshes (the qwen3 prefill on (1, 4), the decodes
-on one device); then one spawn of 4 ranks and one of 8.  Train at rtol
+The head layouts the "model" axis does not divide (the reference's
+`_wspec` fallback, `models/attention.py`): starcoder2-3b's smoke config at
+H 6 / KV 2 on (1, 4) (wq / wk / wv split d, wo hd: every rank computes
+every head), llama4's smoke config (H 4, d 128) on (1, 8), the same
+layout; H 12 / KV 3 on (1, 4) (3 query heads a rank reading a window of
+two KV heads, wk / wv split d), and H 6 / KV 2 at d 90, hd 18 on (1, 4),
+where no dim of wq, wk, wv or wo divides 4 (all replicated).  Each: the
+train step, prefill, the shard / gather round trip, and decode but for the
+last (the decode kernel takes head dims 32, 64, 128 and 256, all of
+which 4 divides).
+
+Two JAX subprocesses at once on 8 host devices (`torch_lm_ranks.JAX_REF`,
+the cases dealt out between them) run the reference on the same meshes
+(the prefills on their meshes, the decodes on one device); then one spawn
+of 4 ranks and one of 8.  Train at rtol
 1e-5 / atol 1e-6, prefill at rtol 1e-5, decode at rtol 1e-4 against the
 one-device step.
 
 Marked slow, as tests/test_torch_lm_mesh.py is.
 """
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 
@@ -20,26 +35,48 @@ from torch_lm_ranks import (AXES, RTOL, check_train, close, close_decode,
                             jax_reference, train_jobs)
 from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
 
+from repro_torch.configs import get_smoke
 from repro_torch.launch import steps as TSTEPS
 from repro_torch.launch.mesh import WorkerAxes
+from repro_torch.launch.sharding import param_specs
+from repro_torch.models import transformer as TT
+from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.slow
 
-TRAIN_CASES = {   # name: (mesh shape, routes, arch, moe impl, batch)
+# the head layouts M does not divide: name -> (mesh shape, arch, the
+# smoke config's replaced fields, the "model" dims of a block's wq, wk,
+# wv, wo, its stacked layer dim counted)
+HEADS = {
+    "sc6": ((1, 4), "starcoder2-3b", dict(n_heads=6), (1, 1, 1, 2)),
+    "h12": ((1, 4), "qwen3-4b", dict(n_heads=12, n_kv_heads=3),
+            (2, 1, 1, 1)),
+    "nodim": ((1, 4), "qwen3-4b", dict(d_model=90, n_heads=6, n_kv_heads=2,
+                                       head_dim=18), (None,) * 4),
+    "l4": ((1, 8), "llama4-maverick-400b-a17b", {}, (1, 1, 1, 2)),
+}
+HEADS_DECODE = ("sc6", "h12", "l4")   # nodim's hd 18: no decode kernel
+TRAIN_CASES = {   # name: (mesh shape, routes, arch, moe impl, batch[, over])
     "m42": ((4, 2), [("bev", True)], "qwen3-4b", None, 8),
     "m14": ((1, 4), [("bev", True)], "qwen3-4b", None, 8),
+    **{name: (shape, [("bev", True)], arch, None, 8, over)
+       for name, (shape, arch, over, _) in HEADS.items()},
 }
-PREFILL = {"prefill": ((1, 4), "qwen3-4b", 4, 24, 9)}
+PREFILL = {"prefill": ((1, 4), "qwen3-4b", 4, 24, 9),
+           **{f"prefill_{name}": (shape, arch, 4, 24, 9, over)
+              for name, (shape, arch, over, _) in HEADS.items()}}
 DECODE = {"decode_qwen": ("qwen3-4b", 4, 12, 5),
-          "decode_sc": ("starcoder2-3b", 8, 72, 3)}   # 64-slot ring + 8
+          "decode_sc": ("starcoder2-3b", 8, 72, 3),   # 64-slot ring + 8
+          **{f"decode_{name}": (HEADS[name][1], 4, 8, 5, HEADS[name][2])
+             for name in HEADS_DECODE}}
 
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in a
-    subprocess with 8 host devices."""
+    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in two
+    subprocesses at once with 8 host devices each."""
     return jax_reference(tmp_path_factory, 8, train=TRAIN_CASES,
-                         prefill=PREFILL, decode=DECODE)
+                         prefill=PREFILL, decode=DECODE, procs=2)
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +91,31 @@ def ranks4(jax_ref, tmp_path_factory):
              dict(name="decode_qwen", kind="decode", mesh=((1, 4), AXES),
                   arch="qwen3-4b", params0=dq["params0"],
                   tokens=dq["tokens"])]
+    jobs += heads_jobs(jax_ref, 4)
     return run_ranks(jobs, 4, tmp_path_factory.mktemp("tp4"))
+
+
+def heads_jobs(jax_ref, world):
+    """The jobs of the HEADS cases on `world` ranks: the train step, the
+    prefill, the decode and the layout round trip of each."""
+    jobs = []
+    for name, (shape, arch, over, _) in HEADS.items():
+        if shape[0] * shape[1] != world:
+            continue
+        jobs += train_jobs(jax_ref, name, TRAIN_CASES)
+        mesh, pf = (shape, AXES), jax_ref[f"prefill_{name}"]
+        jobs += [dict(name=f"prefill_{name}", kind="prefill", mesh=mesh,
+                      arch=arch, config=over, params0=pf["params0"],
+                      tokens=pf["tokens"]),
+                 dict(name=f"layout_{name}", kind="layout", mesh=mesh,
+                      arch=arch, config=over,
+                      params0=jax_ref[name]["params0"])]
+        if name in HEADS_DECODE:
+            dec = jax_ref[f"decode_{name}"]
+            jobs.append(dict(name=f"decode_{name}", kind="decode",
+                             mesh=mesh, arch=arch, config=over,
+                             params0=dec["params0"], tokens=dec["tokens"]))
+    return jobs
 
 
 @pytest.fixture(scope="module")
@@ -68,6 +129,7 @@ def ranks8(jax_ref, tmp_path_factory):
     jobs.append(dict(name="decode_sc", kind="decode", mesh=((4, 2), AXES),
                      arch="starcoder2-3b", params0=dec["params0"],
                      tokens=dec["tokens"]))
+    jobs += heads_jobs(jax_ref, 8)
     return run_ranks(jobs, 8, tmp_path_factory.mktemp("tp8"))
 
 
@@ -129,3 +191,73 @@ def test_decode_on_eight_ranks_matches_one_device(ranks8, jax_ref):
     assert got["cache_batch"] == 2 and got["cache_shape"][-2] == 1
     assert got["logits"].shape == want.shape
     close_decode(got["logits"], want)
+
+
+def _ranks(ranks4, ranks8, name):
+    """The spawn a HEADS case ran in, and its world size."""
+    world = math.prod(HEADS[name][0])
+    return (ranks4 if world == 4 else ranks8), world
+
+
+@pytest.mark.parametrize("name", list(HEADS))
+def test_train_step_where_m_does_not_divide_the_heads(ranks4, ranks8,
+                                                      jax_ref, name):
+    """The BEV train step of each HEADS case against the reference's on the
+    same mesh: the specs of `_wspec`'s fallback (every block's wq, wk,
+    wv, wo), each rank's shards, its gathered params and log."""
+    ranks, world = _ranks(ranks4, ranks8, name)
+    first = ranks[f"{name}_bev_True.r0"]
+    for block in first["meta"]["params_specs"]["blocks"].values():
+        attn = block["attn"]
+        assert (attn["wq"], attn["wk"], attn["wv"], attn["wo"]) == \
+            HEADS[name][3], name
+    check_train(ranks, jax_ref, world, name, ("bev", True), TRAIN_CASES)
+
+
+@pytest.mark.parametrize("name", list(HEADS))
+def test_prefill_where_m_does_not_divide_the_heads(ranks4, ranks8, jax_ref,
+                                                   name):
+    """Each HEADS case's prefill against the reference's on its mesh, every
+    rank's logits the same bits."""
+    ranks, world = _ranks(ranks4, ranks8, name)
+    assert_ranks_agree(ranks, f"prefill_{name}", world, skip=("model",))
+    got = ranks[f"prefill_{name}.r0"]["logits"]
+    want = jax_ref[f"prefill_{name}"]["logits"]
+    assert got.shape == want.shape
+    close(got, want, atol=RTOL * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("name", HEADS_DECODE)
+def test_decode_where_m_does_not_divide_the_heads(ranks4, ranks8, jax_ref,
+                                                  name):
+    """Each HEADS case's decode, teacher-forced from a rank's caches,
+    against the one-device JAX step: a rank caches every KV head where M
+    does not divide H (the kernel reads whole heads, every query head on
+    every rank), and a window of two of H 12 / KV 3's three at M = 4."""
+    ranks, world = _ranks(ranks4, ranks8, name)
+    assert_ranks_agree(ranks, f"decode_{name}", world, skip=("model",))
+    got = ranks[f"decode_{name}.r0"]
+    cfg = dataclasses.replace(get_smoke(HEADS[name][1]), **HEADS[name][2])
+    heads = 2 if name == "h12" else cfg.n_kv_heads
+    assert got["cache_shape"][-2] == heads
+    close_decode(got["logits"], jax_ref[f"decode_{name}"]["logits"])
+
+
+@pytest.mark.parametrize("name", list(HEADS))
+def test_head_layouts_round_trip_bit_for_bit(ranks4, ranks8, jax_ref,
+                                             name):
+    """`gather_params(shard_params(p))` is p bit for bit for each HEADS
+    case, and a rank's shards drawn leaf by leaf are those of the whole
+    draw; a rank holds 1/M of each split leaf."""
+    ranks, world = _ranks(ranks4, ranks8, name)
+    cfg = dataclasses.replace(get_smoke(HEADS[name][1]), **HEADS[name][2])
+    full = TT.params_from_jax(jax_ref[name]["params0"], "cpu")
+    m = HEADS[name][0][1]
+    specs = tree_leaves(param_specs(cfg, m))
+    for r in range(world):
+        got = ranks[f"layout_{name}.r{r}"]
+        assert_trees_equal(got["round_trip"], full)
+        assert_trees_equal(got["drawn"], got["sliced"])
+        for loc, f, d in zip(got["local_shapes"], tree_leaves(full), specs):
+            assert loc == tuple(n // m if i == d else n
+                                for i, n in enumerate(f.shape))

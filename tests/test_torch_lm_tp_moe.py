@@ -4,7 +4,8 @@ tests/test_torch_lm_tp.py): the MoE and MLA family.  The smoke moonshot
 deepseek-v2-236b (MLA + MoE) on (1, 2), its train step and its decode
 (10 steps) against the one-device step.
 
-One JAX subprocess on 4 host devices (`torch_lm_ranks.JAX_REF`) runs the
+Two JAX subprocesses at once on 4 host devices (`torch_lm_ranks.JAX_REF`,
+the cases dealt out between them) run the
 reference on the same meshes (B = 4, BEV, 3 steps, the draws replayed);
 then one spawn of 2 ranks and one of 4.  Train at rtol 1e-5 / atol 1e-6,
 decode at rtol 1e-4.
@@ -37,10 +38,11 @@ ARCH_M = [("deepseek-v2-236b", 2)]
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in a
-    subprocess with 4 host devices."""
+    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in two
+    subprocesses at once with 4 host devices each."""
     return jax_reference(tmp_path_factory, 4, train=TRAIN_CASES, decode={
-        "decode_" + a: (a, 4, n, 5) for a, n in DECODE_STEPS.items()})
+        "decode_" + a: (a, 4, n, 5) for a, n in DECODE_STEPS.items()},
+        procs=2)
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,8 @@ recurrentgemma-9b (RG-LRU + local attention) on (1, 2) and (1, 4): their
 train steps, and their decodes against the one-device step (mamba2 10
 steps, recurrentgemma 40, past its 32-slot local ring).
 
-One JAX subprocess on 4 host devices (`torch_lm_ranks.JAX_REF`) runs the
+Two JAX subprocesses at once on 4 host devices (`torch_lm_ranks.JAX_REF`,
+the cases dealt out between them) run the
 reference on the same meshes (B = 4, BEV, 3 steps, the draws replayed);
 then one spawn of 2 ranks and one of 4.  Train at rtol 1e-5 / atol 1e-6,
 decode at rtol 1e-4.
@@ -38,10 +39,11 @@ ARCH_M = [("mamba2-1.3b", 2), ("mamba2-1.3b", 4)]
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in a
-    subprocess with 4 host devices."""
+    """The JAX package's results (`torch_lm_ranks.JAX_REF`), once, in two
+    subprocesses at once with 4 host devices each."""
     return jax_reference(tmp_path_factory, 4, train=TRAIN_CASES, decode={
-        "decode_" + a: (a, 4, n, 5) for a, n in DECODE_STEPS.items()})
+        "decode_" + a: (a, 4, n, 5) for a, n in DECODE_STEPS.items()},
+        procs=2)
 
 
 @pytest.fixture(scope="module")

@@ -179,8 +179,14 @@ def test_step_builders_follow_the_reference():
     assert got["channel"].num_workers == want["channel"].num_workers == 1
     assert got["attack"].attack.value == want["attack"].attack.value
     assert got["attack"].byzantine_mask == want["attack"].byzantine_mask
+    # 16 ranks do not divide the smoke qwen3-4b's 8 heads: wq / wk / wv
+    # split d, wo hd, and every rank computes every head
+    TATT.check_heads(tcfg, 16)
+    assert TATT.head_dims(tcfg, 16) == (0, 0, 1)
+    assert TATT.local_heads(tcfg, 16, 3) == (
+        slice(0, tcfg.n_heads), slice(0, tcfg.n_kv_heads))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TATT.check_heads(tcfg, 16)
+        TATT.check_heads(get_smoke("mamba2-1.3b"), 16)
     with pytest.raises(ValueError, match="process group"):
         ModelAxis(16)
     with pytest.raises(TypeError, match="is not a mesh"):

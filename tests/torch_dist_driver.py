@@ -68,7 +68,8 @@ On a mesh with a "model" axis of M > 1 (test_torch_lm_tp.py) the train,
 prefill and decode jobs shard `params0` (`launch.sharding.shard_params` of
 the step's `params_specs`), the train job returns the params gathered back
 (`gather_params`) and every job its `model` (M, index) and the local
-shapes; `moe_impl` replaces the MoE config's impl.  The steps run with
+shapes; `moe_impl` replaces the MoE config's impl, and a dict "config"
+replaces fields of the smoke config (its heads, widths).  The steps run with
 FSDP on (`launch.sharding.data_specs`: `params0` sharded over "data" too,
 and gathered back over both axes) unless the job says "fsdp": False;
 "fsdp_min_size" lowers `launch.sharding.FSDP_MIN_SIZE` for the job (so
@@ -84,8 +85,8 @@ the bytes of the rank's shards.  Three more kinds:
     layout      shard_params / gather_params of `params0` on `mesh`,
                 `init_model(..., mesh=)` and the shards of the whole
                 draw, the worker and model axes, default_floa's worker
-                count, and the refusals of an unported head layout and
-                of --mesh single
+                count, and the refusals of an unported MLA head layout
+                and of --mesh single
     count       `launch.dryrun.trace_step` of the smoke config's step at
                 `shape` (`shape_name`) run for real on this rank's CPU
                 zeros (route "cpu", fake=False): its operations,
@@ -234,6 +235,13 @@ def _raised(fn):
     return None
 
 
+def smoke_config(job):
+    """The smoke config of job["arch"], its fields replaced by the job's
+    "config" dict."""
+    return dataclasses.replace(get_smoke(job["arch"]),
+                               **job.get("config", {}))
+
+
 def run_lm_job(job):
     """One LM-step job on this rank (see the module docstring)."""
     kind = job["kind"]
@@ -263,7 +271,7 @@ def run_lm_job(job):
         m, l, acc = ATT.decode_local_partial(q, k[:, local], v[:, local],
                                              valid)
         return {"out": ATT.combine_partials(m, l, acc, mesh.group("model"))}
-    cfg = get_smoke(job["arch"])
+    cfg = smoke_config(job)
     if job.get("moe_impl"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, impl=job["moe_impl"]))
@@ -382,13 +390,14 @@ def ce_job(job, mesh, axis):
 
 def layout_job(job, mesh, axis):
     """The shard / gather round trip and the mesh's axes on this rank."""
-    cfg = get_smoke(job["arch"])
+    cfg = smoke_config(job)
     full = TT.params_from_jax(job["params0"], "cpu")
     specs = param_specs(cfg, axis.size)
     local = shard_params(full, specs, mesh)
     wa = worker_axes(mesh)
     floa = ST.default_floa(mesh, ST.param_count(cfg))
-    big = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3, head_dim=32)
+    # MLA heads the "model" axis does not divide: still refused
+    mla = dataclasses.replace(get_smoke("deepseek-v2-236b"), n_heads=3)
     return {"round_trip": gather_params(local, specs, mesh),
             "drawn": ST.init_model(cfg, torch.Generator().manual_seed(4),
                                    "cpu", mesh=mesh),
@@ -401,7 +410,7 @@ def layout_job(job, mesh, axis):
             "floa_workers": (floa["channel"].num_workers,
                              floa["power"].num_workers,
                              len(floa["attack"].byzantine_mask)),
-            "heads_refused": _raised(lambda: ST.make_train_step(big, mesh)),
+            "heads_refused": _raised(lambda: ST.make_train_step(mla, mesh)),
             "single": _raised(lambda: mesh_from_arg("single"))}
 
 

@@ -1,23 +1,25 @@
 """Shared parts of the port's LM rank tests (tests/test_torch_lm_mesh*.py:
 the worker axes; tests/test_torch_lm_tp*.py: the "model" axis): the JAX
-package's reference run in one subprocess on host devices
-(`jax_reference`), the train-step jobs of tests/torch_dist_driver.py built
-from its results, and the checks of a rank's train step against it.
+package's reference run in a subprocess (or several at once) on host
+devices (`jax_reference`), the train-step jobs of
+tests/torch_dist_driver.py built from its results, and the checks of a
+rank's train step against it.
 
 The reference script (`JAX_REF`) runs, for the cases it is given:
 
 - train: name -> (mesh shape, [(policy, use_floa)], arch, MoE impl,
-  batch): the FLOA train step of `get_smoke(arch)` at model_parallel = the
+  batch[, over]): the FLOA train step of `get_smoke(arch)` (its fields
+  replaced by the dict `over`, when given) at model_parallel = the
   mesh's "model" size, STEPS steps of `batch` x SEQ + 1 tokens (a VLM's
   batch adds a prefix, an encoder-decoder's FRAMES frames: standard
   normal from numpy, `extra`), jitted on the ("data", "model") debug mesh;
   each step's draws replayed (gains off PRNGKey(t)'s first key, leaf i's
   noise off fold_in(second key, i), at the leaf's full shape);
-- prefill: name -> (mesh shape, arch, batch, seq, seed) (an
+- prefill: name -> (mesh shape, arch, batch, seq, seed[, over]) (an
   encoder-decoder's batch adds FRAMES frames, `extra`);
-- decode: name -> (arch, batch, steps, seed): the one-device decode step
-  teacher-forced from empty caches (the encoder-decoder's against the
-  cross K / V of FRAMES frames).
+- decode: name -> (arch, batch, steps, seed[, over]): the one-device
+  decode step teacher-forced from empty caches (the encoder-decoder's
+  against the cross K / V of FRAMES frames).
 
 Each file's run holds only its own cases, so its spawns and its JAX run
 carry only its tests' jobs.
@@ -65,8 +67,9 @@ JAX_REF = textwrap.dedent("""
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
 
 
-    def config(arch, m, impl=None):
-        cfg = dataclasses.replace(get_smoke(arch), model_parallel=m)
+    def config(arch, m, impl=None, over=None):
+        cfg = dataclasses.replace(get_smoke(arch), model_parallel=m,
+                                  **(over or {{}}))
         if impl:
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, impl=impl))
@@ -98,8 +101,8 @@ JAX_REF = textwrap.dedent("""
         return out
 
 
-    def train(shape, routes, arch, impl, batch):
-        cfg = config(arch, shape[1], impl)
+    def train(shape, routes, arch, impl, batch, over=None):
+        cfg = config(arch, shape[1], impl, over)
         params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
         mesh = make_debug_mesh(shape, AXES)
         seq = SEQ + (cfg.frontend.n_prefix if cfg.arch_type == "vlm" else 0)
@@ -129,8 +132,8 @@ JAX_REF = textwrap.dedent("""
         return res
 
 
-    def prefill(shape, arch, b, s, seed):
-        cfg = config(arch, shape[1])
+    def prefill(shape, arch, b, s, seed, over=None):
+        cfg = config(arch, shape[1], over=over)
         params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
         mesh = make_debug_mesh(shape, AXES)
         art = S.make_prefill_step(cfg, mesh, dict(global_batch=b, seq_len=s,
@@ -145,8 +148,8 @@ JAX_REF = textwrap.dedent("""
                 "logits": np.asarray(logits)}}
 
 
-    def decode(arch, batch, n, seed):
-        cfg = get_smoke(arch)
+    def decode(arch, batch, n, seed, over=None):
+        cfg = config(arch, 1, over=over)
         params, _ = S.init_model(cfg, jax.random.PRNGKey(0))
         toks = sample_tokens(batch, n, vocab=cfg.vocab_size, seed=seed)
         out = {{"params0": np_tree(params), "tokens": toks}}
@@ -180,22 +183,43 @@ JAX_REF = textwrap.dedent("""
 
 
 def jax_reference(tmp_path_factory, devices, train=None, prefill=None,
-                  decode=None, timeout=900):
+                  decode=None, timeout=900, procs=1):
     """The JAX package's results of the given cases (`JAX_REF`), run once
-    in a subprocess with `devices` host devices: {case name: result}."""
-    script = JAX_REF.format(steps=STEPS, seq=SEQ, alpha=ALPHA, frames=FRAMES,
-                            train=train or {}, prefill=prefill or {},
-                            decode=decode or {})
-    path = tmp_path_factory.mktemp("jax_ref") / "ref.pkl"
+    in subprocesses with `devices` host devices: {case name: result}.
+    procs > 1 deals the cases out to that many subprocesses, which run at
+    once (each compiles its own cases' programs)."""
+    kinds = {"train": train or {}, "prefill": prefill or {},
+             "decode": decode or {}}
+    items = [(k, n, c) for k, cases in kinds.items() for n, c in
+             cases.items()]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
-    r = subprocess.run([sys.executable, "-c", script, str(path)],
-                       capture_output=True, text=True, timeout=timeout,
-                       env=env, cwd=ROOT)
-    assert r.returncode == 0 and "JAX_REF_OK" in r.stdout, (
-        r.stdout[-3000:] + r.stderr[-3000:])
-    with open(path, "rb") as f:
-        return pickle.load(f)
+    runs = []
+    for i in range(max(1, min(procs, len(items)))):
+        part = {k: {} for k in kinds}
+        for k, n, c in items[i::procs]:
+            part[k][n] = c
+        script = JAX_REF.format(steps=STEPS, seq=SEQ, alpha=ALPHA,
+                                frames=FRAMES, **part)
+        path = tmp_path_factory.mktemp("jax_ref") / "ref.pkl"
+        runs.append((path, subprocess.Popen(
+            [sys.executable, "-c", script, str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)))
+    out = {}
+    try:
+        for path, p in runs:
+            stdout, stderr = p.communicate(timeout=timeout)
+            assert p.returncode == 0 and "JAX_REF_OK" in stdout, (
+                stdout[-3000:] + stderr[-3000:])
+            with open(path, "rb") as f:
+                out.update(pickle.load(f))
+    finally:
+        for _, p in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
 
 
 def train_seq(arch):
@@ -218,10 +242,12 @@ def train_job(name, ref, mesh, policy, use_floa, arch, batch):
 
 def train_jobs(ref, name, cases):
     """The train jobs of case `name` of `cases` (`JAX_REF`'s train layout),
-    one a route, named <name>_<policy>_<use_floa>."""
-    shape, routes, arch, impl, batch = cases[name]
+    one a route, named <name>_<policy>_<use_floa>; a case's config
+    replacements go to the driver as the job's "config"."""
+    shape, routes, arch, impl, batch, *over = cases[name]
     return [dict(train_job(f"{name}_{p}_{f}", ref[name], (shape, AXES), p,
-                           f, arch, batch), moe_impl=impl)
+                           f, arch, batch), moe_impl=impl,
+                 config=over[0] if over else {})
             for p, f in routes]
 
 

@@ -48,6 +48,14 @@ from repro_torch.core.scenario import DefenseSpec
 from repro_torch.fl import sweep as TS
 from repro_torch.tree import tree_leaves, tree_paths
 
+# The test run spreads its files over several worker processes on the
+# host's cores, and torch's default of one intra-op thread a core in every
+# worker oversubscribes them (waiting OpenMP threads spin): a run of a
+# dozen of the port's test files took 446 s on 6 workers at 8 threads and
+# 189 s at 1 on an 8-core host.  Every worker imports this module when it
+# collects the tests, so each runs torch on one thread.
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 
 # The JAX sweep's fold_in constants (repro/fl/sweep.py).
