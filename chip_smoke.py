@@ -27,6 +27,7 @@
     python3 chip_smoke.py --remat     # phases 1-2 and 30 alone
     python3 chip_smoke.py --heads     # phases 1-2 and 31 alone (a spawn
                                       # of 16 ranks)
+    python3 chip_smoke.py --draws     # phases 1-2 and 32 alone
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -134,7 +135,8 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               qwen3-4b at full width in bf16 (36 layers, 4.41 B random
               parameters): batch 8, 32 prompt tokens decoded into the cache,
               32 generated greedily; one decode_attention launch per layer
-              per step.
+              per step, and the weights' init one `counter_trunc_normal`
+              launch per leaf it fills.
   15. parity  the serve phase's 64 tokens again, teacher-forced, through the
               kernel and through its plain version (bf16, full depth).
   16. long    8 decode steps at pos 32760-32767 against caches of 32768
@@ -161,8 +163,10 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               steps at batch 8 x seq 64, U = 1, every loss finite and the
               weights moved, ms a warm step, peak device memory; then
               `make_prefill_step` at batch 8 x seq 512 (logits [8, Vp]).
-              The train step runs no kernel of the port (its combine is
-              the backward itself), which the counts confirm.
+              The train step's combine is the backward itself; its
+              update is the `noisy_sgd` kernel, once a leaf a step, its
+              noise drawn from the stream in registers, which the counts
+              confirm.
   21. mesh    the sweep sharded over ranks (`plan.mesh`, a
               `launch.mesh.SweepMesh`): (1) a one-rank NCCL group, fig3's
               four lanes on its ("data",) mesh, bitwise the unmeshed run;
@@ -371,18 +375,35 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               ... heads`) on (1, 16): starcoder2-3b (H 24) at full width
               cut to 2 layers and llama4 (H 40) cut to its first layer,
               wq / wk / wv split d and wo hd, every rank computing every
-              head: 2 BEV train steps (llama4's draws replayed), the
-              gradient of the step's loss, a prefill (8 x 128) and the
+              head: 2 BEV train steps on their own seeded draws (each
+              rank drawing its part of each leaf's noise in the update
+              kernel), the gradient of the step's loss, a prefill (8 x
+              128) and the
               serve (8, 8 + 8 tokens: the decode kernel at [8, 16, H,
               KV, 128] on every rank, counted), ms a step and the
               collectives' ms; against one rank from the same weights at
               phase 25's gates, the replicated leaves, logits and tokens
               bitwise equal across the ranks.
-  32. the `kernels` line (with launches and times by shape where a
+  32. draws   the counter-based stream (`kernels/philox.py`): (a)
+              Philox4x32-10 on the card against Random123's known
+              answers, curand's `curand_Philox4x32_10` over 2^20 random
+              counters and keys, and the plain stream, bitwise; (b) the
+              update kernel's z at qwen3-4b's embedding against the plain
+              stream (atol 1e-5), the fused update bitwise its z-given
+              mode and that mode bitwise the plain update (bf16, f32),
+              and each of the 256 parts of a 5.37e9-element leaf at
+              (16, 16) bitwise the whole leaf's slice, for both kernels;
+              (c) rows as phase 3's for `noisy_sgd` and
+              `counter_trunc_normal` at the embedding and a stacked leaf
+              (blocks/b0/attn/wk, [36, 2560, 1024]); (d) phase 20's
+              step on its own draws
+              from a counted init: warm ms and peak beside phase 20's
+              in two runs before the update kernel.
+  33. the `kernels` line (with launches and times by shape where a
       kernel runs at several main-path shapes, checked against the
       phases' shapes, and the mesh phases' launches by shard-local
       shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 33. the last line, {"ok": true,
+      a rank's too, must have one); 34. the last line, {"ok": true,
       "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
@@ -537,20 +558,46 @@ REMAT_BATCH, REMAT_MOE_BATCH, REMAT_SEQ = 4, 2, 4096
 # The heads phase (31): the head layouts the "model" axis does not divide
 # (the reference's `_wspec` fallback: wq / wk / wv split d, wo hd, every
 # rank computing every head) on HEADS_RANKS ranks on cuda:0 over gloo,
-# (1, HEADS_RANKS): (arch, layers, replay) at full width, starcoder2-3b
-# (H 24) cut to 2 of its 30 layers, llama4 (H 40) to its first, dense
-# layer; llama4's train steps take replayed draws (`heads_draws`) in
-# place of their seeded ones (replay True): each rank would draw
-# the embedding's noise at its full shape in f32 (4.1 GB; ROADMAP item
-# 8e), 66 GB over 16 ranks on one card.  HEADS_STEPS BEV train steps at
+# (1, HEADS_RANKS): (arch, layers) at full width, starcoder2-3b (H 24)
+# cut to 2 of its 30 layers, llama4 (H 40) to its first, dense layer,
+# both training on their own seeded draws: each rank draws its part of
+# each leaf's noise in the update kernel's registers (`noisy_sgd`), so
+# no rank forms a leaf's noise at its full shape (llama4's embedding's
+# would take 4.1 GB of f32 a rank, 66 GB over 16 ranks).
+# HEADS_STEPS BEV train steps at
 # TRAIN_BATCH x TRAIN_SEQ, a prefill of HEADS_PREFILL_BATCH x
 # HEADS_PREFILL_SEQ, the serve of HEADS_PROMPT + HEADS_GEN tokens (a gloo
 # collective takes ~80 ms over 16 ranks), each against one rank at phase
 # 25's gates
 HEADS_RANKS, HEADS_STEPS, HEADS_PROMPT, HEADS_GEN = 16, 2, 8, 8
-HEADS_CASES = (("starcoder2-3b", 2, False),
-               ("llama4-maverick-400b-a17b", 1, True))
+HEADS_CASES = (("starcoder2-3b", 2), ("llama4-maverick-400b-a17b", 1))
 HEADS_PREFILL_BATCH, HEADS_PREFILL_SEQ = 8, 128
+# The draws phase (32): the counter-based stream (`kernels/philox.py`) and
+# its two kernels.  (a) Random123's known answers and curand's
+# `curand_Philox4x32_10` over DRAWS_CURAND_N random counters and keys;
+# (b) the update kernel's z (read back through an f32 update of zeros at
+# alpha -1, which returns z exactly) against the plain stream within
+# DRAWS_Z_ATOL (|z| < 5.8: logf, cosf, sinf differ by a few f32 ulps),
+# the fused update bitwise its z-given mode on that z, the z-given mode
+# bitwise the plain update given the same z, and every part of a
+# DRAWS_BIG leaf (5.37e9 elements: indices past 2^32) at DRAWS_RANKS
+# ("model" on dim 0, "data" on dim 1) bitwise the whole leaf's slice, for
+# both kernels; (c) phase-3 rows at qwen3-4b's embedding and a stacked
+# leaf of it; (d) phase 20's step with its seeded draws from a counted
+# init, DRAWS_STEPS steps.  The rows' gates against the plain version:
+# bf16 outputs within one bf16 ulp (rtol 2^-7: a z that differs by an
+# ulp can round scale z, then the output, the other way), f32 (1e-5,
+# 1e-6).
+SLOW_PLAIN_S = 0.02
+DRAWS_CURAND_N = 2 ** 20
+DRAWS_Z_ATOL = 1e-5
+DRAWS_BIG = (16, 2 ** 28 + 2 ** 26)
+DRAWS_RANKS = (16, 16)
+DRAWS_STEPS = 3
+DRAWS_TOL = {"bfloat16": (2 ** -7, 1e-8), "float32": (1e-5, 1e-6)}
+# phase 20 in two runs of this script before the update kernel (NVIDIA
+# H100 80GB HBM3, 700.00 W): (warm ms a step, peak GB) each
+TRAIN_BEFORE = ((501.61, 33.90), (524.09, 33.90))
 # --serve-rate: phase 14's serve timed this many times after a warm-up
 SERVE_RATE_RUNS = 5
 T_START = time.perf_counter()
@@ -866,7 +913,11 @@ def check_kernels(torch, cases, floor_ms) -> dict:
     for name, label, main_shape, run, lib, nbytes, flops, tol, want_fn, \
             extra in cases:
         got = run(False)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
         want = want_fn() if want_fn else run(True)
+        torch.cuda.synchronize()
+        plain_s = 0.0 if want_fn else time.perf_counter() - t_plain
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
@@ -887,6 +938,9 @@ def check_kernels(torch, cases, floor_ms) -> dict:
         # width (0.83 GB in; torch.sort's graph keeps 2.5 GB a call)
         big = nbytes > 1.5e9
         iters = 5 if big else 50
+        # a plain version of SLOW_PLAIN_S or more a call (the stream's int64
+        # Philox, phase 32) is timed over as few calls as a big row
+        plain_iters = 5 if plain_s >= SLOW_PLAIN_S else iters
         row = {"kernel": name, "shape": label, "max_abs_err": abs_err,
                "max_rel_err": rel_err, "mean_abs_want": typical,
                "err_over_typical": abs_err / max(typical, 1e-30),
@@ -894,7 +948,7 @@ def check_kernels(torch, cases, floor_ms) -> dict:
                "ms": time_ms(torch, lambda: run(False), iters),
                "call_ms": call_ms(torch, lambda: run(False),
                                   10 if big else 200),
-               "plain_ms": time_ms(torch, lambda: run(True), iters),
+               "plain_ms": time_ms(torch, lambda: run(True), plain_iters),
                "library_ms": None if lib is None else time_ms(torch, lib,
                                                               iters),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1250,6 +1304,17 @@ def run_phase(torch, ops, name, fn, expect):
             raise AssertionError(f"{name}: {k} launched {counts[k]} times, "
                                  f"expected {want} ({counts})")
     return result, seconds, counts
+
+
+def step_launches(ops, cfg, steps: int, init: bool = False) -> dict:
+    """Every kernel's launches in `steps` FLOA train steps of cfg (the
+    update kernel once a leaf a step, `noisy_sgd`), after an init of cfg's
+    weights when `init` (`counter_trunc_normal` once a leaf it fills)."""
+    from repro_torch.launch.sharding import filled_leaves, init_params
+    from repro_torch.tree import tree_leaves
+    n = len(tree_leaves(init_params(cfg, None, "meta")))
+    return {**{k: 0 for k in ops.KERNELS}, "noisy_sgd": steps * n,
+            "counter_trunc_normal": filled_leaves(cfg) if init else 0}
 
 
 def lanes_report(result):
@@ -1829,7 +1894,8 @@ def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
             "rate_label": f"{world} ranks, gloo, one card"}), flush=True)
         if not (equal and moved and all(math.isfinite(x["loss"])
                                         for x in log)
-                and not any(counts.values())):
+                and counts == step_launches(ops, lm_a, LM_MESH_STEPS,
+                                            init=True)):
             raise AssertionError(f"lm mesh train: ranks equal {equal}, "
                                  f"{moved} leaves moved, {log}, {counts}")
         # (c) the serve, counted, and its sequence teacher-forced
@@ -2406,7 +2472,8 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                   rate_label=label)
         if not (equal and moved and all(math.isfinite(x["loss"])
                                         for x in log)
-                and not any(counts.values())):
+                and counts == step_launches(ops, lm_b, LM_MODEL_STEPS,
+                                            init=True)):
             raise AssertionError(f"lm model train: replicated equal {equal}, "
                                  f"{moved} leaves moved, {log}, {counts}")
         # (d) moonshot at MOE_TRAIN_LAYERS: train and serve, recording the
@@ -3112,7 +3179,7 @@ def lm_lane_phase(torch, np, ops, figures, tally) -> None:
     res, seconds, counts = run_phase(
         torch, ops, "main_lm_lane",
         lambda: figures.run_lm_lane(ROUNDS, device="cuda"),
-        {**{k: 0 for k in ops.KERNELS}, **expect})
+        {**step_launches(ops, cfg, 0, init=True), **expect})
     peak = torch.cuda.max_memory_allocated()
     tally(counts)
     shapes = ops.launch_shapes()
@@ -3155,9 +3222,11 @@ def lm_lane_phase(torch, np, ops, figures, tally) -> None:
         raise AssertionError("lm_lane: the sign-flip lane does not end above "
                              "the clean lane")
     # 19. the same rounds through the plain versions, from the same draws
+    # and the same weights (their init, as every init on the card, through
+    # counter_trunc_normal)
     ops.reset_launches()
     rp = figures.run_lm_lane(ROUNDS, device="cuda", plain=True)
-    if any(ops.launch_counts().values()):
+    if ops.launch_counts() != step_launches(ops, cfg, 0, init=True):
         raise AssertionError(f"lm_lane: the plain route launched "
                              f"{ops.launch_counts()}")
     whole_run_check("kernel_vs_plain_lm_lane", res, rp)
@@ -3165,9 +3234,11 @@ def lm_lane_phase(torch, np, ops, figures, tally) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(torch, ops, lm, params) -> None:
+def train_phase(torch, ops, lm, params) -> dict:
     """Phase 20: the FLOA train step at full width from `params`, then the
-    prefill step.  Counted: the step launches no kernel of the port."""
+    prefill step.  Counted: the step launches the update kernel once a
+    leaf (`noisy_sgd`, its noise drawn from the stream) and nothing
+    else; returns the counts."""
     from repro_torch.data import sample_tokens
     from repro_torch.launch.steps import (init_floa_state, make_prefill_step,
                                           make_train_step)
@@ -3197,7 +3268,7 @@ def train_phase(torch, ops, lm, params) -> None:
         return p, log
 
     (trained, log), seconds, counts = run_phase(
-        torch, ops, "main_train", run, {k: 0 for k in ops.KERNELS})
+        torch, ops, "main_train", run, step_launches(ops, lm, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x["loss"]) for x in log):
         raise AssertionError(f"train: non-finite loss {log}")
@@ -3240,6 +3311,7 @@ def train_phase(torch, ops, lm, params) -> None:
          elements_changed_share=sum(changed) / n, launches=counts,
          prefill={"batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
                   "ms": prefill_ms, "logits_shape": list(logits.shape)})
+    return counts
 
 
 def weight_bytes(params) -> int:
@@ -3322,12 +3394,13 @@ def lm_train_prefill(torch, ops, cfg, batches=None) -> dict:
     """The FLOA train step (two BEV steps at phase 20's batch and length:
     U = 1, an MoE model's aux term in the weighted loss) and the prefill
     (phase 20's 8 x 512, on the trained weights) of cfg, from its own
-    random weights; neither launches a kernel of the port.  `batches`
+    random weights; the train step launches the update kernel once a leaf
+    (`noisy_sgd`), the prefill no kernel of the port.  `batches`
     replaces phase 20's: (two train batches, their input shape's seq_len,
     the prefill batch, its seq_len), for the frontends' layouts.  Nothing
     holds the drawn weights past the first step (their checksums tell the
-    leaves that moved), so the peak is one step's: its input, gradients,
-    output and one leaf's noise."""
+    leaves that moved), so the peak is one step's: its input, gradients
+    and output (the noise is drawn in the kernel's registers)."""
     from repro_torch.data import sample_tokens
     from repro_torch.launch.steps import (init_floa_state, make_prefill_step,
                                           make_train_step, per_example_loss)
@@ -3364,7 +3437,7 @@ def lm_train_prefill(torch, ops, cfg, batches=None) -> dict:
         return p, log
 
     (params, log), _, counts = run_phase(
-        torch, ops, "lm_train", run, {k: 0 for k in ops.KERNELS})
+        torch, ops, "lm_train", run, step_launches(ops, cfg, 2))
     train_peak = torch.cuda.max_memory_allocated() / 1e9
     moved = int((bit_checksums(torch, tree_leaves(params)) != before)
                 .any(dim=1).sum())
@@ -4737,7 +4810,6 @@ def remat_phase(torch, ops) -> None:
     from repro_torch.models import moe as MOE
     from repro_torch.tree import tree_leaves
     lm = get_config(LM_ARCH)
-    no_kernel = {k: 0 for k in ops.KERNELS}
     params = lm_params(torch, lm)
 
     def timed(step, args, seed=0):
@@ -4779,7 +4851,7 @@ def remat_phase(torch, ops) -> None:
             del out
 
     _, seconds_a, counts_a = run_phase(torch, ops, "remat_a", run_a,
-                                       no_kernel)
+                                       step_launches(ops, lm, 5))
     first.clear()
     torch.cuda.empty_cache()
     if not all(r["bitwise_no_remat"] and math.isfinite(r["loss"])
@@ -4804,7 +4876,7 @@ def remat_phase(torch, ops) -> None:
             del out
 
     _, seconds_b, counts_b = run_phase(torch, ops, "remat_b", run_b,
-                                       no_kernel)
+                                       step_launches(ops, lm, 2))
     peak = log[-1]["peak_bytes"]
     rel = (pred["memory"]["peak"] - peak) / peak
     del params, state, batch, step
@@ -4845,7 +4917,7 @@ def remat_phase(torch, ops) -> None:
             del out
 
     _, seconds_c, counts_c = run_phase(torch, ops, "remat_c", run_c,
-                                       no_kernel)
+                                       step_launches(ops, moe, 5))
     del mparams, margs, mstep
     torch.cuda.empty_cache()
     peaks = {one: min(r["peak_bytes"] for r in mruns
@@ -4885,44 +4957,14 @@ def remat_phase(torch, ops) -> None:
 
 
 def heads_init(torch, cfg, mesh):
-    """This rank's shards of cfg's weights (`lm_params`'s draw, seed 0,
-    each leaf drawn whole and sliced: `steps.init_model`), the ranks
-    drawing in turn while the others wait at a barrier: a whole leaf
-    drawn in f32 beside its cast (llama4's embedding: 6.2 GB) on every
-    rank at once would not fit the shared card."""
-    import torch.distributed as dist
+    """This rank's shards of cfg's weights (`lm_params`'s draw, seed 0:
+    `steps.init_model`, each rank filling only its parts of the leaves
+    through `counter_trunc_normal`)."""
     from repro_torch.launch.steps import init_model
-    params = None
-    for r in range(dist.get_world_size()):
-        if dist.get_rank() == r:
-            params = init_model(cfg, torch.Generator("cuda").manual_seed(0),
-                                "cuda", mesh=mesh, fsdp=False)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-        dist.barrier()
+    params = init_model(cfg, torch.Generator("cuda").manual_seed(0), "cuda",
+                        mesh=mesh, fsdp=False)
+    torch.cuda.synchronize()
     return params
-
-
-def heads_draws(torch, cfg, mesh, steps) -> list:
-    """Replayed draws of `steps` train steps of cfg on `mesh` (the same on
-    every rank and on one rank): step t's gains from a generator seeded
-    t, then each leaf's noise one standard-normal f32 row of its last
-    dim, broadcast to the leaf's full shape (a view: a rank materializes
-    only its slice, `steps._noisy_sgd`)."""
-    from repro_torch.core.channel import sample_channel_gains
-    from repro_torch.launch import steps as ST
-    from repro_torch.tree import tree_leaves
-    shapes = [x.shape for x in tree_leaves(ST.init_model(cfg, None,
-                                                         "meta"))]
-    channel = ST.default_floa(mesh, ST.param_count(cfg))["channel"]
-    out = []
-    for t in range(steps):
-        gen = torch.Generator("cuda").manual_seed(t)
-        out.append({"h_abs": sample_channel_gains(gen, channel, "cuda"),
-                    "z": [torch.randn(sh[-1], generator=gen,
-                                      device="cuda").expand(sh)
-                          for sh in shapes]})
-    return out
 
 
 def gather_to_zero(torch, leaves, split) -> list:
@@ -4952,8 +4994,9 @@ def heads_parts(torch, rank: int, world: int, out: str, coll) -> None:
     cuda:0, gloo, the mesh (1, WORLD); `coll` the collectives' ms,
     `timed_collectives`): for each HEADS_CASES arch, whose query heads the
     "model" axis does not divide, this rank's shards (`heads_init`),
-    HEADS_STEPS BEV train steps (ms and collectives' ms a step; replayed
-    draws where the case says so, `heads_draws`), the gradient of the
+    HEADS_STEPS BEV train steps on their own seeded draws (ms and
+    collectives' ms a step; the update kernel once a leaf), the gradient
+    of the
     step's loss, a prefill and the serve, counted (the decode
     kernel at every head on every rank); every rank's replicated leaves
     and gradients, prefill logits and serve bitwise equal.  Then rank 0
@@ -4984,19 +5027,16 @@ def heads_parts(torch, rank: int, world: int, out: str, coll) -> None:
                           "part": part, **fields,
                           "t_s": time.perf_counter() - T_START}), flush=True)
 
-    for arch, layers, replay in HEADS_CASES:
+    for arch, layers in HEADS_CASES:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
         specs = param_specs(cfg, world)
         split, paths = tree_leaves(specs), tree_paths(specs)
         replicated = [i for i, d in enumerate(split) if d is None]
         params = heads_init(torch, cfg, mesh)
-        draws = heads_draws(torch, cfg, mesh, HEADS_STEPS) if replay \
-            else None
         ops.reset_launches()
         _, trained, log, _, _ = tp_train(torch, cfg, mesh, coll,
-                                         params=params, draws=draws,
-                                         steps=HEADS_STEPS)
+                                         params=params, steps=HEADS_STEPS)
         train_launches = ops.launch_counts()
         grads = tp_grads(torch, cfg, mesh, MOE.RoutingTape(), params)
         pf, _ = ST.make_prefill_step(cfg, mesh, fsdp=False)
@@ -5032,8 +5072,7 @@ def heads_parts(torch, rank: int, world: int, out: str, coll) -> None:
             t1 = time.perf_counter()
             whole = lm_params(torch, cfg)
             _, want, wlog, _, _ = tp_train(torch, cfg, None, [0.0],
-                                           params=whole, draws=draws,
-                                           steps=HEADS_STEPS)
+                                           params=whole, steps=HEADS_STEPS)
             top, outside = 0.0, []
             for path, a, b in zip(paths, gathered, tree_leaves(want)):
                 a, b = a.to("cuda").float(), b.float()
@@ -5075,11 +5114,12 @@ def heads_parts(torch, rank: int, world: int, out: str, coll) -> None:
                   and loss_diff <= BF16_LOGIT_MEAN and eps2_rel <= 1e-2
                   and max(grel.values()) <= TP_GRAD_REL
                   and shapes == want_shapes
-                  and not any(train_launches.values())
+                  and train_launches == step_launches(ops, cfg,
+                                                      HEADS_STEPS)
                   and all(math.isfinite(x["loss"]) for x in log))
             emit_part("heads", arch=cfg.name, layers=cfg.n_layers,
                       mesh=dict(mesh.shape), head_dims=list(head_dims(
-                          cfg, world)), replayed_draws=replay,
+                          cfg, world)), seeded_draws=True,
                       batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=log,
                       one_rank_steps=wlog,
                       ms_per_step_warm=sum(x["ms"] for x in warm) / len(warm),
@@ -5112,7 +5152,7 @@ def heads_parts(torch, rank: int, world: int, out: str, coll) -> None:
             if not ok:
                 raise AssertionError(f"heads {cfg.name}: the {world}-rank "
                                      f"run and one rank disagree")
-        del gathered, ggathered, res, logits, draws
+        del gathered, ggathered, res, logits
         dist.barrier()
 
 
@@ -5138,10 +5178,212 @@ def heads_phase(torch, shard_tally) -> None:
                     k: {shape_key(sh): n for sh, n in v}
                     for k, v in line["launches_by_shape"].items()})
     reported = [x["arch"] for x in lines[0] if x["part"] == "heads"]
-    if reported != [arch for arch, _, _ in HEADS_CASES]:
+    if reported != [arch for arch, _ in HEADS_CASES]:
         raise AssertionError(f"heads: rank 0 reported {reported}")
     emit("heads", ranks=HEADS_RANKS, backend="gloo", device="cuda:0",
          children_wall_s=wall)
+
+
+def draws_phase(torch, ops, tally, floor_ms) -> dict:
+    """Phase 32: the counter-based stream and its kernels (see DRAWS_*
+    above).  Returns the phase-3 rows of `noisy_sgd` and
+    `counter_trunc_normal` by name, for the `kernels` line."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import noisy_update as NU
+    from repro_torch.kernels import philox as P
+    from repro_torch.launch import steps as ST
+    from repro_torch.tree import tree_leaves
+
+    # (a) Philox: the known answers, then curand's over random counters
+    kat = np.array([[0, 0, 0, 0, 0, 0],
+                    [0xffffffff] * 6,
+                    [0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344,
+                     0xa4093822, 0x299f31d0]], dtype=np.uint32)
+    want = np.array([[0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8],
+                     [0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd],
+                     [0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1]],
+                    dtype=np.uint32)
+    dev = torch.from_numpy(kat.view(np.int32)).cuda()
+    got = {c: NU.philox_raw(dev[:, :4].contiguous(), dev[:, 4:].contiguous(),
+                            curand=c).cpu().numpy().view(np.uint32)
+           for c in (False, True)}
+    kat_ok = all(np.array_equal(g, want) for g in got.values())
+    gen = torch.Generator("cuda").manual_seed(5)
+    ctr = torch.randint(-2 ** 31, 2 ** 31, (DRAWS_CURAND_N, 4),
+                        dtype=torch.int32, device="cuda", generator=gen)
+    key = torch.randint(-2 ** 31, 2 ** 31, (DRAWS_CURAND_N, 2),
+                        dtype=torch.int32, device="cuda", generator=gen)
+    mine = NU.philox_raw(ctr, key)
+    curand_equal = torch.equal(mine, NU.philox_raw(ctr, key, curand=True))
+    # the plain stream's words at (q, leaf 3, NOISE) under one seed's key
+    seed = (11 << 36) + 5
+    q = (ctr[:, 0].to(torch.int64) & P.MASK) | (
+        (ctr[:, 1].to(torch.int64) & 0xFF) << 32)
+    k0, k1 = P.key_of(seed)
+    cq = torch.stack([q & P.MASK, q >> 32, torch.full_like(q, 3),
+                      torch.zeros_like(q)], 1).to(torch.int32)
+    kq = torch.tensor([k0, k1], dtype=torch.int64).to(torch.int32).cuda(
+        ).expand(DRAWS_CURAND_N, 2).contiguous()
+    plain_equal = torch.equal(
+        NU.philox_raw(cq, kq).to(torch.int64) & P.MASK,
+        torch.stack(P.bits_at(seed, 3, P.NOISE, q), 1))
+    del ctr, key, mine, q, cq, kq
+    if not (kat_ok and curand_equal and plain_equal):
+        raise AssertionError(f"draws (a): known answers {kat_ok}, curand "
+                             f"{curand_equal}, plain {plain_equal}")
+    emit("draws_philox", known_answers=kat_ok, curand_counters=DRAWS_CURAND_N,
+         curand_bitwise=curand_equal, plain_bitwise=plain_equal)
+
+    # (b) z and the update against the plain version; parts and the whole
+    lm = get_config(LM_ARCH)
+    emb = (lm.padded_vocab, lm.d_model)
+    whole = P.Part.whole(emb)
+    draw = P.Draw(seed, 0, whole)
+    zeros = torch.zeros(emb, device="cuda")
+    one = torch.ones((), device="cuda")
+    z = ops.noisy_sgd(zeros, zeros, torch.zeros((), device="cuda"), one,
+                      -1.0, draw=draw)
+    del zeros
+    z_plain = P.normal(draw, "cuda")
+    z_err = float((z - z_plain).abs().max())
+    z_ok = z_err <= DRAWS_Z_ATOL
+    del z_plain
+    checks = {}
+    for dt in (torch.bfloat16, torch.float32):
+        gen = torch.Generator("cuda").manual_seed(6)
+        p = (torch.randn(emb, generator=gen, device="cuda") * 0.02).to(dt)
+        g = (torch.randn(emb, generator=gen, device="cuda") * 1e-3).to(dt)
+        shift = torch.tensor(1e-4, device="cuda").to(dt)
+        scale = torch.tensor(1e-2, device="cuda")
+        fused = ops.noisy_sgd(p, g, shift, scale, TRAIN_ALPHA, draw=draw)
+        given = ops.noisy_sgd(p, g, shift, scale, TRAIN_ALPHA, z=z)
+        plain_given = ops.noisy_sgd(p, g, shift, scale, TRAIN_ALPHA, z=z,
+                                    chunk=ST.UPDATE_CHUNK, plain=True)
+        checks[str(dt)[6:]] = {
+            "fused_equals_given": torch.equal(fused, given),
+            "given_equals_plain": torch.equal(given, plain_given)}
+        del p, g, fused, given, plain_given
+    del z
+    torch.cuda.empty_cache()
+    # parts of a leaf past 2^32 elements at (16, 16), both kernels
+    big = P.Part.whole(DRAWS_BIG)
+    w = torch.empty(DRAWS_BIG, dtype=torch.bfloat16, device="cuda")
+    ops.counter_trunc_normal(w, seed, 9, big, 0.02)
+    gw = w * 0.5
+    sh = torch.tensor(1e-4, device="cuda").to(torch.bfloat16)
+    sc = torch.tensor(1e-2, device="cuda")
+    out = ops.noisy_sgd(w, gw, sh, sc, TRAIN_ALPHA, draw=P.Draw(seed, 9, big))
+    parts_ok, n_parts = True, 0
+    from collections import namedtuple
+    ax = namedtuple("Ax", "index size")
+    for mi in range(DRAWS_RANKS[0]):
+        for ri in range(DRAWS_RANKS[1]):
+            part = P.split_part(DRAWS_BIG, ((0, ax(mi, DRAWS_RANKS[0])),
+                                            (1, ax(ri, DRAWS_RANKS[1]))))
+            sl = part.slices
+            piece = ops.counter_trunc_normal(torch.empty(
+                part.shape, dtype=torch.bfloat16, device="cuda"), seed, 9,
+                part, 0.02)
+            upd = ops.noisy_sgd(w[sl].contiguous(), gw[sl].contiguous(), sh,
+                                sc, TRAIN_ALPHA, draw=P.Draw(seed, 9, part))
+            parts_ok &= torch.equal(piece, w[sl]) and torch.equal(
+                upd, out[sl])
+            n_parts += 1
+    last_j = P.part_indices(part, part.numel - 1, 1, "cpu")
+    del w, gw, out, piece, upd
+    torch.cuda.empty_cache()
+    ok = z_ok and parts_ok and all(all(v.values()) for v in checks.values())
+    emit("draws_kernels", shape=list(emb), z_max_abs_err=z_err,
+         z_atol=DRAWS_Z_ATOL, update_bitwise=checks, big_leaf=list(DRAWS_BIG),
+         big_leaf_elements=math.prod(DRAWS_BIG), ranks=list(DRAWS_RANKS),
+         parts=n_parts, last_global_index=int(last_j[0]),
+         parts_bitwise_whole=parts_ok, ok=ok)
+    if not ok:
+        raise AssertionError(f"draws (b): z err {z_err}, updates {checks}, "
+                             f"parts {parts_ok}")
+
+    # (c) phase-3 rows: the embedding and a stacked leaf of qwen3-4b
+    stacked = (lm.n_layers, lm.d_model, lm.n_kv_heads * lm.hd)
+    cases = []
+    for label, shape, fan_in in (("embedding", emb, lm.d_model),
+                                 ("stacked_wk", stacked, lm.d_model)):
+        part = P.Part.whole(shape)
+        gen = torch.Generator("cuda").manual_seed(8)
+        p = ops.counter_trunc_normal(torch.empty(
+            shape, dtype=lm.dtype, device="cuda"), seed, 1, part,
+            1.0 / math.sqrt(fan_in))
+        g = (torch.randn(shape, generator=gen, device="cuda")
+             * 1e-3).to(lm.dtype)
+        sh = torch.tensor(1e-4, device="cuda").to(lm.dtype)
+        sc = torch.tensor(1e-2, device="cuda")
+        d = P.Draw(seed, 2, part)
+        tol = DRAWS_TOL[str(lm.dtype)[6:]]
+        nb, nf = NU.bytes_flops(part, lm.dtype.itemsize, "drawn")
+        dims = "x".join(str(n) for n in shape)
+        cases.append((
+            "noisy_sgd", f"{label} [{dims}] {str(lm.dtype)[6:]} drawn", True,
+            (lambda plain, p=p, g=g, sh=sh, sc=sc, d=d: ops.noisy_sgd(
+                p, g, sh, sc, TRAIN_ALPHA, draw=d, chunk=ST.UPDATE_CHUNK,
+                plain=plain)),
+            None, nb, nf, tol, None, None))
+        # one output a route, so the kernel's and the plain version's
+        # fills are held side by side
+        outs = {r: torch.empty(shape, dtype=lm.dtype, device="cuda")
+                for r in (False, True)}
+        tb, tf = NU.trunc_bytes_flops(part, lm.dtype.itemsize)
+        cases.append((
+            "counter_trunc_normal", f"{label} [{dims}] "
+            f"{str(lm.dtype)[6:]}", True,
+            (lambda plain, outs=outs, part=part, fan_in=fan_in:
+             ops.counter_trunc_normal(outs[plain], seed, 3, part,
+                                      1.0 / math.sqrt(fan_in),
+                                      plain=plain)),
+            None, tb, tf, tol, None, None))
+        del p, g, outs
+    table = check_kernels(torch, cases, floor_ms)
+
+    # (d) phase 20's step on its own seeded draws, from a counted init
+    from repro_torch.launch.steps import (init_floa_state, init_model,
+                                          make_train_step)
+    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    step, meta = make_train_step(lm, None, shape, alpha=TRAIN_ALPHA)
+    batches = [lm_batch(torch, lm, TRAIN_BATCH, TRAIN_SEQ, t)
+               for t in range(DRAWS_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+
+    def run():
+        params = init_model(lm, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+        torch.cuda.synchronize()
+        state = init_floa_state("cuda")
+        for t in range(DRAWS_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batches[t], t)
+            torch.cuda.synchronize()
+            log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "loss": float(m["loss"]),
+                        "eps2": float(state["eps2"])})
+        return params
+
+    _, seconds, counts = run_phase(
+        torch, ops, "draws_train", run,
+        step_launches(ops, lm, DRAWS_STEPS, init=True))
+    tally(counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = [x["ms"] for x in log[1:]]
+    if not all(math.isfinite(x["loss"]) for x in log):
+        raise AssertionError(f"draws (d): non-finite loss {log}")
+    emit("draws_train", arch=lm.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=log, ms_per_step_warm=sum(warm) / len(warm),
+         peak_memory_gb=peak, before=TRAIN_BEFORE, launches=counts,
+         leaves=len(tree_leaves(init_model(lm, None, "meta"))),
+         run_seconds=seconds)
+    return table
 
 
 def dispatch_us(torch) -> dict:
@@ -5310,6 +5552,17 @@ def main() -> int:
 
     if sys.argv[1:] == ["--heads"]:   # phases 1-2 and 31 alone
         heads_phase(torch, lambda case, by_shape: None)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if sys.argv[1:] == ["--draws"]:   # phases 1-2 and 32 alone
+        floor_ms = time_ms(torch, lambda: torch.empty(
+            1, device="cuda").zero_())
+        emit("launch_floor", floor_ms=floor_ms)
+        draws_phase(torch, ops, lambda counts: None, floor_ms)
+        phase_seconds("32 draws")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5680,7 +5933,7 @@ def main() -> int:
         torch, ops, "main_serve",
         lambda: serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
                       device="cuda"),
-        {**{k: 0 for k in ops.KERNELS},
+        {**step_launches(ops, lm, 0, init=True),
          "decode_attention": lm.n_layers * n_steps})
     tally(counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -5814,7 +6067,7 @@ def main() -> int:
 
     # 20. the FLOA train step and the prefill step at full width, from the
     # serve phase's weights
-    train_phase(torch, ops, lm, params)
+    tally(train_phase(torch, ops, lm, params))
     del params
     torch.cuda.empty_cache()
     phase_seconds("20 train")
@@ -5868,6 +6121,13 @@ def main() -> int:
     # and llama4 on 16 ranks, every head on every rank, against one rank
     heads_phase(torch, shard_tally)
     phase_seconds("31 heads")
+
+    # 32. the counter-based draws: Philox against its known answers and
+    # curand, the update and init kernels against their plain versions,
+    # by part against the whole past 2^32, their rows, and phase 20's
+    # step on its own draws from a counted init
+    table.update(draws_phase(torch, ops, tally, floor_ms))
+    phase_seconds("32 draws")
 
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -5939,7 +6199,7 @@ def main() -> int:
             SERVE_BATCH, n, q.stop - q.start, kv.stop - kv.start,
             cfg.hd))] = ranks * layers * n
     # the heads phase's serves: every rank decodes every head
-    for arch, layers, _ in HEADS_CASES:
+    for arch, layers in HEADS_CASES:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
         q, kv = local_heads(cfg, HEADS_RANKS, 0)
         want_shard["decode_attention"][(f"heads_{arch}", (
@@ -5987,7 +6247,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 32. the kernel list
+    # 33. the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",
@@ -6003,7 +6263,13 @@ def main() -> int:
                "sort_columns_bitonic": ("defense_sort.cu",
                                         "src/repro/kernels/defense_sort.py:192"),
                "decode_attention": ("decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:72")}
+                                    "src/repro/kernels/decode_attention.py:72"),
+               "noisy_sgd": ("noisy_update.cu",
+                             "none: src/repro/launch/steps.py:222 (the "
+                             "update, fused by XLA)"),
+               "counter_trunc_normal": ("noisy_update.cu",
+                                        "none: src/repro/models/common.py:169 "
+                                        "(the init's truncated normal)")}
     kernels = []
     for name, (src, replaces) in sources.items():
         row = table[name][0]
@@ -6024,7 +6290,7 @@ def main() -> int:
         if shard_shapes.get(name):
             ranks_of = {**{case: ranks for _, case, ranks in TP_SERVES},
                         **{f"heads_{arch}": HEADS_RANKS
-                           for arch, _, _ in HEADS_CASES}}
+                           for arch, _ in HEADS_CASES}}
             kernels[-1]["launches_by_shard_shape"] = [
                 {"case": case, **phase3_row(name, shape),
                  "shard_shape": list(shape), "launches": n,

@@ -8,7 +8,8 @@ into `build/kernels/<name>-<hash>.so` at the root of the checkout (listed in
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 No PyTorch header is included, so a build takes seconds.  The hash covers the
-source and the flags, so a library is rebuilt only when its source changes.
+source, the shared headers (`csrc/*.cuh`) and the flags, so a library is
+rebuilt only when its code changes.
 All sources that need a build compile at once, one nvcc process each.
 Pointers go to the C functions as `ctypes.c_void_p`, and so does the CUDA
 stream (`torch.cuda.current_stream().cuda_stream`); every C entry point
@@ -38,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_int64)
 # C signatures per source file, as exported by csrc/<name>.cu.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "floa_aggregate": {
@@ -59,6 +63,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _P],
         "decode_attention_occupancy": [_I, _I],
+    },
+    "noisy_update": {
+        "noisy_sgd": [_P, _P, _P, _P, _P, _P, _F, _I, _U, _U, _U, _I, _LP,
+                      _LP, _LP, _I, _P],
+        "counter_trunc_normal": [_P, _F, _F, _F, _U, _U, _U, _I, _LP, _LP,
+                                 _LP, _I, _P],
+    },
+    "philox_check": {
+        "philox_raw": [_P, _P, _P, _L, _I, _P],
     },
 }
 
@@ -83,6 +96,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

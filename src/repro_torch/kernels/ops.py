@@ -28,6 +28,7 @@ from repro_torch.kernels.grad_stats import (
     grad_stats_fixed,
     grad_stats_segments,
 )
+from repro_torch.kernels.noisy_update import counter_trunc_normal, noisy_sgd
 
 # Every ported kernel wrapper, by name.
 KERNELS = {
@@ -39,6 +40,8 @@ KERNELS = {
     "sort_columns": sort_columns,
     "sort_columns_bitonic": sort_columns_bitonic,
     "decode_attention": decode_attention,
+    "noisy_sgd": noisy_sgd,
+    "counter_trunc_normal": counter_trunc_normal,
 }
 
 

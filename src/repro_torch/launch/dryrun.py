@@ -20,12 +20,14 @@ is drawn or allocated), and runs the step once under `FlopCounterMode`
 and `launch.cost_analysis.CostMode`.  The fake tensors are CPU tensors on
 every build of torch (a build without CUDA cannot index or differentiate
 fake "cuda" tensors), and the card's path is traced on them: the decode
-attention goes through the kernel's op (`kernels.decode_attention.
-card_route`), which traces by its fake rule, and its cost
-(`kernels.decode_attention.bytes_flops`) is added, as is the workspace
-the card's kernels allocate inside an op (`cost_analysis.CARD_WORKSPACE`:
-the softmax backward's) to the memory live while it runs.  The model code
-has no other device branch.  An eager trace visits every layer, so its counts
+attention and the train step's update go through the kernels' ops
+(`kernels.decode_attention.card_route`, `kernels.noisy_update.
+card_route`), which trace by their fake rules, and their costs
+(`bytes_flops` of each) are added, as is the workspace the card's
+kernels allocate inside an op (`cost_analysis.CARD_WORKSPACE`: the
+softmax backward's) to the memory live while it runs.  The update draws
+each leaf's noise in registers, so no noise tensor is traced.  The model
+code has no other device branch.  An eager trace visits every layer, so its counts
 are whole: the reference's probes at one and two layers, which undo
 XLA's counting a while-body once, have no counterpart.  The trace runs the
 real step's backward, so under the config's `remat` (the full configs')
@@ -42,8 +44,9 @@ model_flops; model_flops_per_device; useful_ratio; remat (the config's);
 memory: argument_size
 (shards, state, batch and caches), output_size, temp_size (the peak less
 the arguments), peak, param_bytes, and fits against an H100's memory),
-trace_s in place of lower_s / compile_s, and largest_whole_leaf (the
-largest leaf `launch.sharding.init_shards` draws whole on a rank); status
+trace_s in place of lower_s / compile_s, and largest_drawn_part (the
+largest part of a leaf `launch.sharding.init_shards` draws on the rank,
+in place: no whole leaf is formed); status
 "skip" for a shape the config does not run (`shape_applicable`),
 "refused" with the message of a head layout the port does not split
 (`models.attention.check_heads`), and under --all "fail" / "timeout" for a
@@ -71,11 +74,11 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, get_config,
                                  shape_applicable)
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import noisy_update as NU
 from repro_torch.kernels import ops
 from repro_torch.launch import cost_analysis as CA
 from repro_torch.launch.mesh import (PRODUCTION, data_axis,
                                      make_production_mesh, model_axis)
-from repro_torch.launch.sharding import init_params
 from repro_torch.launch.steps import (batch_rows, batch_shapes,
                                       init_floa_state, init_model, make_step,
                                       num_workers)
@@ -88,34 +91,22 @@ Tensor = torch.Tensor
 OUT_DIR = os.path.join("results", "dryrun_torch")
 
 
-class _Noise:
-    """The train step's per-leaf noise (`draws["z"]`), drawn when the step
-    reads it at the leaf's full shape, as the step's own seeded draw is:
-    the full leaf is held while its slice is used, then freed."""
-
-    def __init__(self, shapes):
-        self.shapes = shapes
-
-    def __getitem__(self, i: int) -> Tensor:
-        return torch.randn(self.shapes[i], dtype=torch.float32)
-
-
 @contextlib.contextmanager
-def _card_decode_route():
-    """The decode attention of (fake) CPU tensors through the kernel's op,
-    so that its fake rule (and cost) stands in for the kernel in place of
-    the plain version."""
-    plain_route = ops.decode_attention
+def _card_routes():
+    """The decode attention and the train step's update of (fake) CPU
+    tensors through the kernels' ops, so that their fake rules (and costs)
+    stand in for the kernels in place of the plain versions."""
+    plain_decode, plain_update = ops.decode_attention, ops.noisy_sgd
 
-    def card(q, k, v, pos, *, plain=False):
-        return (plain_route(q, k, v, pos, plain=True) if plain
+    def decode(q, k, v, pos, *, plain=False):
+        return (plain_decode(q, k, v, pos, plain=True) if plain
                 else DA.card_route(q, k, v, pos))
 
-    ops.decode_attention = card
+    ops.decode_attention, ops.noisy_sgd = decode, NU.card_route
     try:
         yield
     finally:
-        ops.decode_attention = plain_route
+        ops.decode_attention, ops.noisy_sgd = plain_decode, plain_update
 
 
 def _decode_cost(q, k, v, pos):
@@ -126,7 +117,17 @@ def _decode_cost(q, k, v, pos):
                           q.element_size())
 
 
-COSTS = {torch.ops.repro_torch.decode_attention.default: _decode_cost}
+def _update_cost(p, g, shift, scale, z, alpha, seed, leaf, full, offset):
+    """(bytes, operations) of one `noisy_sgd` launch
+    (`kernels.noisy_update.bytes_flops`)."""
+    part = (NU.Part(tuple(full), tuple(offset), tuple(p.shape)) if full
+            else NU.Part.whole(tuple(p.shape)))
+    mode = "drawn" if full else "given" if z is not None else "none"
+    return NU.bytes_flops(part, p.element_size(), mode)
+
+
+COSTS = {torch.ops.repro_torch.decode_attention.default: _decode_cost,
+         torch.ops.repro_torch.noisy_sgd.default: _update_cost}
 
 
 def step_args(cfg, shape_name: str, shape: Dict, mesh, meta: Dict, device,
@@ -177,13 +178,14 @@ def storage_bytes(*trees) -> int:
     return sum(seen.values())
 
 
-def largest_whole_leaf(cfg) -> Dict:
-    """The largest leaf `launch.sharding.init_shards` draws whole on a rank
-    before slicing it: its path and bytes in cfg's dtype."""
-    full = init_params(cfg, None, "meta")
-    sizes = [(x.numel() * x.element_size(), p)
-             for p, x in zip(tree_paths(full), tree_leaves(full))]
-    n, path = max(sizes)
+def largest_drawn_part(cfg, mesh=None) -> Dict:
+    """The largest piece `launch.sharding.init_shards` holds while drawing
+    on this rank of `mesh` (FSDP on, as the steps'): its largest part of a
+    leaf (the kernel fills each part in place), its path and bytes in the
+    leaf's dtype."""
+    local = init_model(cfg, None, "meta", mesh)
+    n, path = max((x.numel() * x.element_size(), p)
+                  for p, x in zip(tree_paths(local), tree_leaves(local)))
     return {"path": path, "bytes": n}
 
 
@@ -192,16 +194,16 @@ def trace_step(cfg, shape_name: str, shape: Dict, mesh=None,
     """One rank's step of cfg at `shape` on `mesh` (None: one device), run
     once on CPU tensors: its counts and memory (the record's fields but
     status and names).  route "cuda" traces the card's path (the decode
-    kernel by its op's fake rule, `_card_decode_route`, and the card's
-    kernels' workspace, `cost_analysis.CARD_WORKSPACE`), "cpu" the CPU's
-    (the plain decode attention, no workspace).  fake=False runs the same
+    and update kernels by their ops' fake rules, `_card_routes`, and the
+    card's kernels' workspace, `cost_analysis.CARD_WORKSPACE`), "cpu" the
+    CPU's (the plain versions, no workspace).  fake=False runs the same
     step for real on CPU zeros (route "cpu" only), to hold a trace
-    against.  The train
-    step takes its gains and each leaf's noise from here (`_Noise`), which
-    it would otherwise draw from a generator of the device."""
+    against.  The train step takes its gains from here (a generator cannot
+    draw on fake tensors) and draws its noise itself: through the update
+    kernel's op on route "cuda", by the plain stream on route "cpu"."""
     t0 = time.perf_counter()
     step, meta = make_step(cfg, mesh, shape_name, shape)
-    reroute = (_card_decode_route() if route == "cuda"
+    reroute = (_card_routes() if route == "cuda"
                else contextlib.nullcontext())
     with (FakeTensorMode() if fake else contextlib.nullcontext()), reroute:
         args = step_args(cfg, shape_name, shape, mesh, meta, "cpu")
@@ -213,12 +215,8 @@ def trace_step(cfg, shape_name: str, shape: Dict, mesh=None,
         extra = {}
         with flops, cost:
             if shape["kind"] == "train":
-                full = [tuple(x.shape) for x in tree_leaves(
-                    init_params(cfg, None, "meta"))]
-                extra["draws"] = {
-                    "h_abs": torch.ones(meta["num_workers"],
-                                        dtype=torch.float32),
-                    "z": _Noise(full)}
+                extra["draws"] = {"h_abs": torch.ones(meta["num_workers"],
+                                                      dtype=torch.float32)}
                 out = step(*args, 0, **extra)
             else:
                 out = step(*args)
@@ -274,6 +272,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str,
         mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
         try:
             got = trace_step(cfg, shape_name, shape, mesh)
+            drawn = largest_drawn_part(cfg, mesh)
         except NotImplementedError as e:
             rec = dict(head, status="refused", chips=chips, reason=str(e))
             _write(rec, out_dir)
@@ -298,7 +297,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str,
         useful_ratio=((mflops / chips) / got["flops_per_device"]
                       if got["flops_per_device"] else None),
         remat=cfg.remat,
-        memory=got["memory"], largest_whole_leaf=largest_whole_leaf(cfg),
+        memory=got["memory"], largest_drawn_part=drawn,
         meta=got["meta"])
     _write(rec, out_dir)
     return rec

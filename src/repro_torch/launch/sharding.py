@@ -63,6 +63,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import philox
 from repro_torch.launch.distributed import all_gather
 from repro_torch.launch.mesh import data_axis, model_axis
 from repro_torch.models import encdec as ED
@@ -95,11 +96,12 @@ def _kind(path: Tuple[str, ...], cfg: ModelConfig) -> str:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device=None, keep=None) -> Dict:
+                device=None, part=None, drawn=None) -> Dict:
     """cfg's random weights: `encdec.init_encdec` for the encoder-decoder
-    (arch_type "audio"), else `transformer.init_lm`."""
+    (arch_type "audio"), else `transformer.init_lm`; `part` and `drawn` as
+    `models.common.ParamInit`'s."""
     init = ED.init_encdec if cfg.arch_type == "audio" else T.init_lm
-    return init(generator, cfg, device, keep=keep)
+    return init(generator, cfg, device, part=part, drawn=drawn)
 
 
 def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
@@ -224,28 +226,49 @@ def shard_params(params: Dict, specs: Dict, mesh,
                     params, specs, data_specs)
 
 
+def draw_order(cfg: ModelConfig) -> list:
+    """The tree position (`repro_torch.tree` leaf order) of each leaf in
+    the order the init draws it (its leaf index in the stream), from an
+    init on the "meta" device."""
+    drawn = []
+    meta = init_params(cfg, None, "meta", drawn=drawn)
+    pos = {id(x): k for k, x in enumerate(tree_leaves(meta))}
+    return [pos[id(x)] for x, _ in drawn]
+
+
+def filled_leaves(cfg: ModelConfig) -> int:
+    """How many leaves an init of cfg fills from the stream (the others
+    are zeros): one `counter_trunc_normal` launch each on the card."""
+    drawn = []
+    init_params(cfg, None, "meta", drawn=drawn)
+    return sum(filled for _, filled in drawn)
+
+
 def init_shards(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device, mesh, fsdp: bool = True) -> Dict:
     """This rank's shards of `init_params(cfg, generator, device)` (over
     "model", and over "data" by `data_specs` when fsdp), bit for bit
-    `shard_params` of the whole draw, without the whole draw: each leaf is
-    drawn whole from the generator, so the stream is one rank's, and
-    sliced at once, so a rank holds at most one whole leaf beside its
-    shards."""
+    `shard_params` of the whole draw, without the whole draw: each leaf's
+    part is drawn alone from the counter-based stream (`ParamInit`'s
+    `part`; its values depend only on the global indices), so a rank holds
+    its parts and, on the CPU, one chunk of the plain draw's transients."""
     axis, daxis = model_axis(mesh), data_axis(mesh)
     fsdp = fsdp and daxis.size > 1
     if axis.size == 1 and not fsdp:
         return init_params(cfg, generator, device)
-    drawn = []   # the leaves in the order they are drawn
-    meta = init_params(cfg, None, "meta",
-                       keep=lambda x: drawn.append(x) or x)
+    mspecs = tree_leaves(param_specs(cfg, axis.size))
     dspecs = tree_leaves(data_specs(cfg, axis.size, daxis.size)) if fsdp \
-        else [None] * len(drawn)
-    dims_of = {id(x): d for x, d in zip(tree_leaves(meta), zip(tree_leaves(
-        param_specs(cfg, axis.size)), dspecs))}
-    dims = iter([dims_of[id(x)] for x in drawn])
-    return init_params(cfg, generator, device,
-                       keep=lambda x: _shard(x, *next(dims), axis, daxis))
+        else [None] * len(mspecs)
+    order = draw_order(cfg)
+
+    def part(leaf: int, full) -> Optional[philox.Part]:
+        k = order[leaf]
+        if mspecs[k] is None and dspecs[k] is None:
+            return None
+        return philox.split_part(full, ((mspecs[k], axis),
+                                        (dspecs[k], daxis)))
+
+    return init_params(cfg, generator, device, part=part)
 
 
 def gather_params(local: Dict, specs: Dict, mesh,

@@ -13,8 +13,12 @@ workers, Thm 1).  The de-standardization bias (eq. 7, third term) and the
 receiver AWGN (eps_t * z) are added to the aggregate leaf by leaf, then SGD
 applies it (eq. 8).  The scalar stats (gbar_t, eps_t) the coefficients and
 the noise use are a one-round-stale EMA estimated from the aggregate, as in
-the reference.  The step runs no kernel of the port: its combine is the
-backward itself (autograd and cuBLAS), as the reference's is XLA's.  What
+the reference.  Its combine is the backward itself (autograd and cuBLAS),
+as the reference's is XLA's; the update of each leaf is the port's
+`noisy_sgd` kernel, which draws the leaf's noise in registers from the
+counter-based stream (`kernels/philox.py`) at the global indices of the
+rank's part, as the reference's partitionable threefry draws it
+shard-locally, and never stores it.  What
 the backward recomputes rather than keeps is the config's, as in the
 reference: under `cfg.remat` (the full configs) each super-block, tail
 block and encoder-decoder block is recomputed from its input
@@ -35,7 +39,8 @@ In the train step rank w backpropagates s_w L_w (and its tokens' share of
 the MoE term), and one all_reduce of the gradients over the worker group
 (`_sum_over_workers`, a few flat buckets) forms the superposition
 sum_u s_u grad L_u: the reference's psum over the worker axes, which is
-the over-the-air sum.  Every rank draws the same gains and noise and
+the over-the-air sum.  Every rank draws the same gains and the same noise
+values (each a function of the seed, the leaf and its global index) and
 applies the same update, so the replicas stay bitwise equal.  Prefill and
 decode split the batch over the worker axes when U divides it (the
 reference's `tok_spec` rule) and gather the logits, so every rank returns
@@ -53,10 +58,10 @@ are split on d (or hd) and wo on hd (or d), as the reference's `_wspec`
 falls back, and every rank computes every head (`models/attention.py`);
 a leaf no dim of which M divides is replicated, and its gradient, whole
 and the same on every rank, is summed over the workers only.  Each rank
-draws each leaf's noise at the leaf's full shape from the same stream
-and keeps its slice, so the draws are the one-process run's; the stale
-stats sum each split leaf's shards over the model group and count a
-replicated leaf once.  Prefill and decode gather the vocab
+draws only its part of each leaf's noise, at the part's indices in the
+leaf's whole shape, so the draws are the one-process run's bit for bit;
+the stale stats sum each split leaf's shards over the model group and
+count a replicated leaf once.  Prefill and decode gather the vocab
 shards of the logits over the model group, then the rows over the worker
 group.
 
@@ -70,7 +75,7 @@ data-sharded leaf's gradient over the "data" ranks (a reduce_scatter), so
 the train step sums such a leaf only over "pod" after it, and every other
 leaf over all the worker ranks, as before: each gradient is summed over
 the workers once.  The stale stats sum each leaf's parts over the groups
-that split it, the noise is each leaf's full-shape draw sliced on both
+that split it, the noise is drawn at the part's global indices on both
 dims, and the update is the rank's part.  Prefill and decode gather exact
 copies, so their logits equal the unsharded run's bit for bit.
 
@@ -97,6 +102,7 @@ from repro_torch.core.attacks import AttackConfig, AttackType, first_n_mask
 from repro_torch.core.channel import (ChannelConfig, noise_std_for_snr,
                                       sample_channel_gains)
 from repro_torch.core.power_control import Policy, PowerConfig
+from repro_torch.kernels import ops, philox
 from repro_torch.launch.distributed import all_gather, all_reduce_sum
 from repro_torch.launch.mesh import (data_axis, model_axis, pod_group,
                                      worker_axes)
@@ -124,10 +130,12 @@ UPDATE_CHUNK = 2 ** 26
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator],
                device=None, mesh=None, fsdp: bool = True) -> Dict:
     """Random weights of cfg (`transformer.init_lm`, or
-    `encdec.init_encdec` for the encoder-decoder, arch_type "audio"); on a
-    mesh with a "model" axis, or (fsdp) a "data" axis, this rank's shards
-    of them (`launch.sharding.init_shards`: the whole weights are never
-    formed): what the steps built with the same `fsdp` take."""
+    `encdec.init_encdec` for the encoder-decoder, arch_type "audio"),
+    drawn from the counter-based stream keyed by one int64 of `generator`;
+    on a mesh with a "model" axis, or (fsdp) a "data" axis, this rank's
+    shards of them (`launch.sharding.init_shards`: only the rank's part of
+    each leaf is drawn, no whole leaf is formed): what the steps built with
+    the same `fsdp` take."""
     return init_shards(cfg, generator, device, mesh, fsdp)
 
 
@@ -155,23 +163,18 @@ def batch_rows(mesh, batch: int) -> slice:
     return wa.rows(batch)
 
 
-def _noisy_sgd(p: Tensor, g: Tensor, shift: Tensor, z: Optional[Tensor],
-               scale: Tensor, alpha: float) -> Tensor:
+def _noisy_sgd(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
+               alpha: float, z: Optional[Tensor] = None,
+               draw: Optional[philox.Draw] = None) -> Tensor:
     """One leaf's update, p - alpha (g + shift + scale z): the bias `shift`
     and the noise added in g's dtype, the SGD step in f32 and cast to p's
-    dtype (z None: no noise).  Computed UPDATE_CHUNK elements at a time:
-    every op is elementwise, so the bits are those of one pass, and the f32
-    transients of a stacked leaf stay a chunk's size."""
-    out = torch.empty(p.shape, dtype=p.dtype, device=p.device)
-    pf, gf, of = p.reshape(-1), g.reshape(-1), out.view(-1)
-    zf = None if z is None else z.reshape(-1)
-    for a in range(0, pf.numel(), UPDATE_CHUNK):
-        c = slice(a, a + UPDATE_CHUNK)
-        x = gf[c] + shift
-        if zf is not None:
-            x = x + (scale * zf[c]).to(g.dtype)
-        of[c] = (pf[c].float() - alpha * x.float()).to(p.dtype)
-    return out
+    dtype; z drawn from the stream at the part's global indices (`draw`),
+    given (`z`, the part's replayed draws) or none.  `ops.noisy_sgd`: on
+    the card the CUDA kernel (z drawn in registers, never stored), on the
+    CPU its plain version UPDATE_CHUNK elements at a time (the bits of one
+    pass; the f32 transients of a stacked leaf stay a chunk's size)."""
+    return ops.noisy_sgd(p.contiguous(), g.contiguous(), shift, scale,
+                         alpha, z=z, draw=draw, chunk=UPDATE_CHUNK)
 
 
 class _Storage:
@@ -335,17 +338,20 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     `launch.mesh.SweepMesh` whose worker axes span the ranks, or a
     `launch.mesh.WorkerAxes` (`WorkerAxes.every(U)`: all U workers in one
     process, the mesh's one-process twin).  The round's random
-    draws are an input: draws = {"h_abs": [U] Rayleigh gains, "z": one
+    draws may be an input: draws = {"h_abs": [U] Rayleigh gains, "z": one
     standard-normal f32 tensor per leaf, in the JAX package's leaf order
-    (`repro_torch.tree`)}; without them the step draws both from a Philox
-    generator on the params' device seeded from `seed` (gains, then the
-    leaves in order); every rank of a mesh takes the same draws.
+    (`repro_torch.tree`)}.  Without draws the gains come from a generator
+    on the params' device seeded from `seed`; without "z" leaf i's noise
+    comes from the counter-based stream keyed by `seed`
+    (`kernels/philox.py`, purpose NOISE, leaf i), drawn at this rank's
+    part's global indices by the update itself; every rank of a mesh
+    takes the same draws.
     use_floa=False is the plain mean: s = 1/U, no bias, no noise, nothing
     drawn.  metrics: {"loss": the mean per-worker loss over all U,
     "grad_scale": sum(s) + bias_w}.  On a mesh with a "model" axis of
     M > 1 params are this rank's shards (`launch.sharding.shard_params`
     of meta["params_specs"]) and so are the new params; draws["z"] stays
-    one full-shape tensor a leaf, of which each rank takes its slice.
+    one full-shape tensor a leaf, of which each rank takes its part.
     With fsdp on a mesh of R > 1 "data" ranks the params are also split
     over "data" by meta["data_specs"] (`init_model(..., mesh=)`), and
     params of another layout raise ValueError."""
@@ -384,10 +390,10 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         leaves_p, treedef = tree_flatten(params)
         dev = leaves_p[0].device
         gbar, eps2 = state["gbar"], state["eps2"]
-        gen = None
+        seed = int(seed)
         if use_floa:
-            if draws is None:   # gains, then each leaf's noise in order
-                gen = torch.Generator(dev).manual_seed(int(seed))
+            if draws is None:   # the gains; the noise comes from the stream
+                gen = torch.Generator(dev).manual_seed(seed)
                 draws = {"h_abs": sample_channel_gains(gen, channel, dev)}
             s, bias_w = ATK.signed_coefficients(
                 draws["h_abs"], power, channel, attack, gbar, eps2)
@@ -439,24 +445,25 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                                  1e-12, 1e12))
             # de-standardization bias (eq. 7 third term) + receiver AWGN,
             # leaf by leaf; then SGD on the noisy aggregate (eq. 8), in
-            # f32; each gradient is dropped once applied
-            eps = torch.sqrt(eps2)
+            # f32; each gradient is dropped once applied.  The noise of
+            # leaf i is the stream's (seed, leaf i) at this rank's part's
+            # global indices, or the replayed draws' part
+            scale = torch.sqrt(eps2) * channel.noise_std
             new_leaves = []
             for i, p in enumerate(leaves_p):
                 g, grads[i] = grads[i], None
-                z = None
-                if noisy:   # the leaf's full shape, then this rank's slice
-                    cuts = ((split[i], axis), (dsplit[i], store.axis))
-                    z = (torch.randn(_full_shape(g, cuts), generator=gen,
-                                     device=dev)
-                         if gen is not None else draws["z"][i])
-                    for d, ax in cuts:
-                        if d is not None:
-                            z = z.narrow(d, ax.index * g.shape[d],
-                                         g.shape[d])
+                z = draw = None
+                if noisy:
+                    part = philox.local_part(g.shape, (
+                        (split[i], axis), (dsplit[i], store.axis)))
+                    if "z" in draws:
+                        z = draws["z"][i][part.slices].to(
+                            device=dev, dtype=torch.float32).contiguous()
+                    else:
+                        draw = philox.Draw(seed, i, part)
                 new_leaves.append(_noisy_sgd(
-                    p, g, (bias_w * gbar).to(g.dtype), z,
-                    eps * channel.noise_std, alpha))
+                    p, g, (bias_w * gbar).to(g.dtype), scale, alpha, z=z,
+                    draw=draw))
                 del g, z
         metrics = dict(loss=mean_loss.detach(), grad_scale=ssum)
         return tree_unflatten(treedef, new_leaves), new_state, metrics
@@ -469,16 +476,6 @@ def make_train_step(cfg: ModelConfig, mesh=None,
 def _take(dsplit, sharded: bool) -> list:
     """The indices of the leaves that are (or are not) data-sharded."""
     return [i for i, d in enumerate(dsplit) if (d is not None) == sharded]
-
-
-def _full_shape(x: Tensor, cuts) -> Tuple[int, ...]:
-    """The full shape of a leaf whose shard is x: `cuts` pairs each dim
-    that is split (or None) with its axis."""
-    shape = list(x.shape)
-    for dim, axis in cuts:
-        if dim is not None:
-            shape[dim] *= axis.size
-    return tuple(shape)
 
 
 def _split_stats(grads, split, group, dsplit,

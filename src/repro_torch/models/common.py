@@ -37,6 +37,7 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops, philox
 from repro_torch.launch.distributed import (all_reduce_max, gather_storage,
                                             reduce_out)
 
@@ -165,51 +166,83 @@ class ModelConfig:
         return ((self.vocab_size + mult - 1) // mult) * mult
 
 
+class _Stream:
+    """An init's draws: the stream seed and the next leaf index (the draw
+    order), shared by the `ParamInit`s of one init."""
+
+    def __init__(self, seed: Optional[int]):
+        self.seed = seed
+        self.next = 0
+
+    def take(self) -> int:
+        leaf, self.next = self.next, self.next + 1
+        return leaf
+
+
 class ParamInit:
     """Draws parameters as the JAX `ParamFactory` does: truncated normal on
     [-2, 2] in f32, times 1/sqrt(fan_in) (fan_in defaults to shape[0]), cast
     to `dtype` (or the parameter's own `dtype`: the MoE router is f32
     whatever the model's dtype); `init="zeros"` for norm scales.  The draws
-    come from an
-    explicit `torch.Generator` on the parameters' device, so the bits are
-    the port's own, not JAX's.
+    come from the counter-based stream (`kernels/philox.py`, purpose INIT)
+    keyed by one int64 drawn from `generator` when the init starts
+    (`philox.stream_seed`), each element a function of (that seed, the
+    leaf's index in the draw order, its index in the leaf's whole shape):
+    the bits are the port's own, not JAX's, and they do not depend on
+    which part of a leaf is drawn.  The fill is `ops.counter_trunc_normal`
+    (the CUDA kernel on the card, its plain version on the CPU), into the
+    parameter's own storage: no f32 copy of a leaf is formed.
 
-    With `stack=n` every parameter gets a leading layer axis of n and is
-    drawn one layer at a time, so at most one layer's slice exists in f32.
-    On the "meta" device nothing is drawn or allocated (shapes only).
-    `keep`, given, maps each parameter as soon as it is drawn to what is
-    kept of it (a rank's shard: `launch.sharding.init_shards`)."""
+    With `stack=n` every parameter gets a leading layer axis of n
+    (`stacked(n)`: the same stream).  On the "meta" device nothing is drawn
+    or allocated (shapes only).  `part`, given, maps (leaf index, whole
+    shape) to the `philox.Part` of the leaf this rank draws and holds, or
+    None for all of it (`launch.sharding.init_shards`); `drawn`, given, is
+    a list each parameter is appended to as it is made, in draw order, as
+    (tensor, whether it is filled from the stream: not zeros)."""
 
     def __init__(self, generator: Optional[torch.Generator], dtype,
                  device=None, stack: int = 0,
-                 keep: Optional[Callable[[Tensor], Tensor]] = None):
-        self.generator = generator
+                 part: Optional[Callable] = None,
+                 drawn: Optional[list] = None, stream=None):
         self.dtype = dtype
         self.device = torch.device(
             device if device is not None else generator.device)
         self.stack = stack
-        self.keep = keep
+        self.part = part
+        self.drawn = drawn
+        if stream is None:
+            stream = _Stream(None if generator is None
+                             or self.device.type == "meta"
+                             else philox.stream_seed(generator))
+        self.stream = stream
+
+    def stacked(self, n: int) -> "ParamInit":
+        """A ParamInit of the same stream whose parameters have a leading
+        layer axis of n."""
+        return ParamInit(None, self.dtype, self.device, stack=n,
+                         part=self.part, drawn=self.drawn,
+                         stream=self.stream)
 
     def param(self, shape: Tuple[int, ...], fan_in: Optional[int] = None,
               init: str = "normal", dtype=None) -> Tensor:
-        out = self._draw(shape, fan_in, init, dtype)
-        return out if self.keep is None else self.keep(out)
-
-    def _draw(self, shape, fan_in, init, dtype) -> Tensor:
+        leaf = self.stream.take()
         full = ((self.stack,) if self.stack else ()) + tuple(shape)
+        part = self.part(leaf, full) if self.part is not None else None
+        part = part or philox.Part.whole(full)
         dtype = dtype or self.dtype
         if init == "zeros":
-            return torch.zeros(full, dtype=dtype, device=self.device)
-        out = torch.empty(full, dtype=dtype, device=self.device)
-        if self.device.type == "meta":
-            return out
-        scale = 1.0 / math.sqrt(fan_in if fan_in else shape[0])
-        for piece in (out if self.stack else (out,)):
-            draw = torch.empty(piece.shape, dtype=torch.float32,
-                               device=self.device)
-            torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
-                                        generator=self.generator)
-            piece.copy_(draw.mul_(scale))
+            out = torch.zeros(part.shape, dtype=dtype, device=self.device)
+        else:
+            out = torch.empty(part.shape, dtype=dtype, device=self.device)
+            if self.device.type != "meta":
+                if self.stream.seed is None:
+                    raise ValueError("ParamInit: drawing needs a generator")
+                ops.counter_trunc_normal(
+                    out, self.stream.seed, leaf, part,
+                    1.0 / math.sqrt(fan_in if fan_in else shape[0]))
+        if self.drawn is not None:
+            self.drawn.append((out, init != "zeros"))
         return out
 
 

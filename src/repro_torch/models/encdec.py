@@ -74,13 +74,14 @@ def _init_dec_block(pi: ParamInit, cfg: ModelConfig) -> Dict:
 
 
 def init_encdec(generator: Optional[torch.Generator], cfg: ModelConfig,
-                device=None, keep=None) -> Dict[str, Any]:
-    """Random weights in the reference's layout, drawn from `generator` on
-    its device (or `device`; on "meta" nothing is allocated), the stacked
-    blocks one layer at a time (`ParamInit`); `keep` maps each leaf as it
-    is drawn (a rank's shard: `launch.sharding.init_shards`)."""
+                device=None, part=None, drawn=None) -> Dict[str, Any]:
+    """Random weights in the reference's layout, drawn from the stream
+    keyed by one int64 of `generator` on its device (or `device`; on
+    "meta" nothing is allocated), the stacked blocks with a leading layer
+    axis (`ParamInit`); `part` and `drawn` as `ParamInit`'s (a rank's
+    parts: `launch.sharding.init_shards`)."""
     ed = cfg.encdec
-    pi = ParamInit(generator, cfg.dtype, device, keep=keep)
+    pi = ParamInit(generator, cfg.dtype, device, part=part, drawn=drawn)
     vp, d = cfg.padded_vocab, cfg.d_model
     fd = cfg.frontend.feature_dim if cfg.frontend else d
     params: Dict[str, Any] = {
@@ -91,8 +92,7 @@ def init_encdec(generator: Optional[torch.Generator], cfg: ModelConfig,
         "lm_head": pi.param((d, vp), fan_in=d)}
     for name, n, block in (("enc_blocks", ed.n_enc_layers, _init_enc_block),
                            ("dec_blocks", ed.n_dec_layers, _init_dec_block)):
-        params[name] = block(ParamInit(generator, cfg.dtype, pi.device,
-                                       stack=n, keep=keep), cfg)
+        params[name] = block(pi.stacked(n), cfg)
     return params
 
 

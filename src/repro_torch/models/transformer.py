@@ -142,13 +142,14 @@ def _init_subblock(pi: ParamInit, kind: str, cfg: ModelConfig) -> Dict:
 
 
 def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
-            device=None, keep=None) -> Dict[str, Any]:
-    """Random weights in the JAX layout, drawn from `generator` on its
-    device (or `device`; on "meta" nothing is allocated, for counting).
-    Stacked leaves are drawn one layer at a time, so the model never exists
-    in f32.  `keep` maps each leaf as it is drawn (`ParamInit`)."""
+            device=None, part=None, drawn=None) -> Dict[str, Any]:
+    """Random weights in the JAX layout, drawn from the stream keyed by one
+    int64 of `generator` on its device (or `device`; on "meta" nothing is
+    allocated, for counting), each leaf filled in its own dtype, so the
+    model never exists in f32.  `part` and `drawn` as `ParamInit`'s: the
+    part of each leaf to draw and hold, the leaves in draw order."""
     check_supported(cfg)
-    pi = ParamInit(generator, cfg.dtype, device, keep=keep)
+    pi = ParamInit(generator, cfg.dtype, device, part=part, drawn=drawn)
     vp, d = cfg.padded_vocab, cfg.d_model
     params: Dict[str, Any] = {"embed": pi.param((vp, d), fan_in=d),
                               "final_norm": pi.param((d,), init="zeros")}
@@ -162,8 +163,7 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
                                "b2": pi.param((d,), init="zeros")}
     n_rep, n_tail = layer_counts(cfg)
     if n_rep:
-        stacked = ParamInit(generator, cfg.dtype, pi.device, stack=n_rep,
-                            keep=keep)
+        stacked = pi.stacked(n_rep)
         params["blocks"] = {f"b{i}": _init_subblock(stacked, kind, cfg)
                             for i, kind in enumerate(cfg.block_pattern)}
     for t in range(n_tail):

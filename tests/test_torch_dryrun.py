@@ -85,7 +85,7 @@ def test_every_arch_at_long_500k_on_single(tmp_path):
         assert rec["dominant"] in ("compute_s", "memory_s", "collective_s")
         assert 0 < rec["useful_ratio"] and mem["peak"] >= \
             mem["argument_size"]
-        assert rec["largest_whole_leaf"]["bytes"] > 0
+        assert rec["largest_drawn_part"]["bytes"] > 0
     assert not torch.distributed.is_initialized()
 
 

@@ -1506,3 +1506,80 @@ def test_remat_step_bitwise_equals_no_remat_on_the_card(cuda_device, arch):
         for k in out[0][i]:
             assert torch.equal(out[0][i][k], out[1][i][k]), k
     assert torch.isfinite(out[1][2]["loss"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noisy_sgd_kernel_against_its_plain_version(cuda_device, dtype):
+    """The update kernel at a leaf split (16, 4) with misaligned rows: z
+    (an f32 update of zeros at alpha -1) within 1e-5 of the plain stream,
+    the fused update bitwise its z-given mode on that z and the plain
+    update given it, every part bitwise the whole's slice, no noise mode
+    bitwise the plain one; one launch a call."""
+    from collections import namedtuple
+    from repro_torch.kernels import philox as P
+    ax = namedtuple("Ax", "index size")
+    full = (16, 36, 20)
+    draw = P.Draw(2 ** 40 + 9, 5, P.Part.whole(full))
+    zeros = torch.zeros(full, device=cuda_device)
+    zero = torch.zeros((), device=cuda_device)
+    one = torch.ones((), device=cuda_device)
+    ops.reset_launches()
+    z = ops.noisy_sgd(zeros, zeros, zero, one, -1.0, draw=draw)
+    assert ops.launch_counts()["noisy_sgd"] == 1
+    assert float((z - P.normal(draw, cuda_device)).abs().max()) <= 1e-5
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    p = torch.randn(full, generator=gen, device=cuda_device).to(dtype)
+    g = (torch.randn(full, generator=gen, device=cuda_device)
+         * 1e-2).to(dtype)
+    shift = torch.tensor(1e-3, device=cuda_device).to(dtype)
+    scale = torch.tensor(0.1, device=cuda_device)
+    fused = ops.noisy_sgd(p, g, shift, scale, 0.05, draw=draw)
+    given = ops.noisy_sgd(p, g, shift, scale, 0.05, z=z)
+    assert torch.equal(fused, given)
+    assert torch.equal(given, ops.noisy_sgd(p, g, shift, scale, 0.05, z=z,
+                                            plain=True))
+    assert torch.equal(ops.noisy_sgd(p, g, shift, scale, 0.05),
+                       ops.noisy_sgd(p, g, shift, scale, 0.05, plain=True))
+    for mi in range(16):
+        for ri in range(4):
+            part = P.split_part(full, ((0, ax(mi, 16)), (2, ax(ri, 4))))
+            sl = part.slices
+            got = ops.noisy_sgd(p[sl].contiguous(), g[sl].contiguous(),
+                                shift, scale, 0.05,
+                                draw=P.Draw(draw.seed, 5, part))
+            assert torch.equal(got, fused[sl])
+
+
+@pytest.mark.gpu
+def test_counter_trunc_normal_and_philox_on_the_card(cuda_device):
+    """The init's fill within one bf16 ulp of the plain version and its
+    parts bitwise the whole's; Philox4x32-10 bitwise curand's on random
+    counters and keys."""
+    from collections import namedtuple
+    from repro_torch.kernels import noisy_update as NU
+    from repro_torch.kernels import philox as P
+    ax = namedtuple("Ax", "index size")
+    full = (8, 64, 36)
+    whole = P.Part.whole(full)
+    out = ops.counter_trunc_normal(torch.empty(
+        full, dtype=torch.bfloat16, device=cuda_device), 3, 7, whole, 0.05)
+    want = ops.counter_trunc_normal(torch.empty(
+        full, dtype=torch.bfloat16, device=cuda_device), 3, 7, whole, 0.05,
+        plain=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=1e-8)
+    for mi in range(4):
+        part = P.split_part(full, ((2, ax(mi, 4)),))
+        got = ops.counter_trunc_normal(torch.empty(
+            part.shape, dtype=torch.bfloat16, device=cuda_device), 3, 7, part,
+            0.05)
+        assert torch.equal(got, out[part.slices])
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    ctr = torch.randint(-2 ** 31, 2 ** 31, (4096, 4), dtype=torch.int32,
+                        device=cuda_device, generator=gen)
+    key = torch.randint(-2 ** 31, 2 ** 31, (4096, 2), dtype=torch.int32,
+                        device=cuda_device, generator=gen)
+    assert torch.equal(NU.philox_raw(ctr, key),
+                       NU.philox_raw(ctr, key, curand=True))

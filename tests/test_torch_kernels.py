@@ -19,7 +19,7 @@ with warnings.catch_warnings():
     # package imports; the reference is left as it is.
     warnings.simplefilter("ignore", DeprecationWarning)
     from repro.kernels import ops as jops
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, philox, ref
 from repro_torch.kernels import ops as tops
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -141,11 +141,16 @@ def test_cpu_route_launches_nothing():
     tops.sort_columns_bitonic(g[0])
     tops.decode_attention(torch.zeros(1, 4, 32), torch.zeros(1, 8, 2, 32),
                           torch.zeros(1, 8, 2, 32), 3)
+    part = philox.Part.whole((6, 10))
+    tops.noisy_sgd(torch.zeros(6, 10), torch.zeros(6, 10), torch.zeros(()),
+                   torch.ones(()), 0.1, draw=philox.Draw(0, 1, part))
+    tops.counter_trunc_normal(torch.empty(6, 10), 0, 1, part, 0.5)
     assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
     assert set(tops.KERNELS) == {"floa_step_batched", "floa_aggregate",
                                  "floa_aggregate_batched", "grad_stats",
                                  "grad_stats_segments", "sort_columns",
-                                 "sort_columns_bitonic", "decode_attention"}
+                                 "sort_columns_bitonic", "decode_attention",
+                                 "noisy_sgd", "counter_trunc_normal"}
 
 
 def _bad_inputs():
