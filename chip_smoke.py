@@ -394,8 +394,13 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               and each of the 256 parts of a 5.37e9-element leaf at
               (16, 16) bitwise the whole leaf's slice, for both kernels;
               (c) rows as phase 3's for `noisy_sgd` and
-              `counter_trunc_normal` at the embedding and a stacked leaf
-              (blocks/b0/attn/wk, [36, 2560, 1024]); (d) phase 20's
+              `counter_trunc_normal` at the embedding, a stacked leaf
+              (blocks/b0/attn/wk, [36, 2560, 1024]) and wk's part on
+              one of 16 ranks split on its last dim ([36, 2560, 64]:
+              rows of 64), each with its issue bound (the hot loop's
+              SASS, `tools/sass_mix.py`, at the SM clock read under
+              load) beside its bytes bound, the init's beside
+              `torch.nn.init.trunc_normal_`; (d) phase 20's
               step on its own draws
               from a counted init: warm ms and peak beside phase 20's
               in two runs before the update kernel.
@@ -593,6 +598,7 @@ DRAWS_CURAND_N = 2 ** 20
 DRAWS_Z_ATOL = 1e-5
 DRAWS_BIG = (16, 2 ** 28 + 2 ** 26)
 DRAWS_RANKS = (16, 16)
+DRAWS_SHORT_RANKS = 16   # (c)'s wk part: 1024 / 16, rows of 64
 DRAWS_STEPS = 3
 DRAWS_TOL = {"bfloat16": (2 ** -7, 1e-8), "float32": (1e-5, 1e-6)}
 # phase 20 in two runs of this script before the update kernel (NVIDIA
@@ -5194,6 +5200,8 @@ def draws_phase(torch, ops, tally, floor_ms) -> dict:
     from repro_torch.kernels import philox as P
     from repro_torch.launch import steps as ST
     from repro_torch.tree import tree_leaves
+    from collections import namedtuple
+    ax = namedtuple("Ax", "index size")
 
     # (a) Philox: the known answers, then curand's over random counters
     kat = np.array([[0, 0, 0, 0, 0, 0],
@@ -5275,8 +5283,6 @@ def draws_phase(torch, ops, tally, floor_ms) -> dict:
     sc = torch.tensor(1e-2, device="cuda")
     out = ops.noisy_sgd(w, gw, sh, sc, TRAIN_ALPHA, draw=P.Draw(seed, 9, big))
     parts_ok, n_parts = True, 0
-    from collections import namedtuple
-    ax = namedtuple("Ax", "index size")
     for mi in range(DRAWS_RANKS[0]):
         for ri in range(DRAWS_RANKS[1]):
             part = P.split_part(DRAWS_BIG, ((0, ax(mi, DRAWS_RANKS[0])),
@@ -5303,12 +5309,21 @@ def draws_phase(torch, ops, tally, floor_ms) -> dict:
         raise AssertionError(f"draws (b): z err {z_err}, updates {checks}, "
                              f"parts {parts_ok}")
 
-    # (c) phase-3 rows: the embedding and a stacked leaf of qwen3-4b
+    # (c) phase-3 rows: the embedding, a stacked leaf of qwen3-4b and that
+    # leaf's part on one of DRAWS_SHORT_RANKS ranks split on its last dim
+    # (rows of 64), each with its issue bound beside its bytes bound
     stacked = (lm.n_layers, lm.d_model, lm.n_kv_heads * lm.hd)
+    issue = noisy_issue(torch, ops, P, emb, seed)
+    emit("draws_issue", sm_clock_mhz=issue["clocks"],
+         clock_mhz=issue["clock"], cycles_per_element=issue["cycles"],
+         error=issue["error"])
     cases = []
-    for label, shape, fan_in in (("embedding", emb, lm.d_model),
-                                 ("stacked_wk", stacked, lm.d_model)):
-        part = P.Part.whole(shape)
+    for label, part, fan_in in (
+            ("embedding", P.Part.whole(emb), lm.d_model),
+            ("stacked_wk", P.Part.whole(stacked), lm.d_model),
+            ("rows_of_64", P.split_part(stacked, (
+                (2, ax(0, DRAWS_SHORT_RANKS)),)), lm.d_model)):
+        shape = part.shape
         gen = torch.Generator("cuda").manual_seed(8)
         p = ops.counter_trunc_normal(torch.empty(
             shape, dtype=lm.dtype, device="cuda"), seed, 1, part,
@@ -5321,16 +5336,22 @@ def draws_phase(torch, ops, tally, floor_ms) -> dict:
         tol = DRAWS_TOL[str(lm.dtype)[6:]]
         nb, nf = NU.bytes_flops(part, lm.dtype.itemsize, "drawn")
         dims = "x".join(str(n) for n in shape)
+        if part.shape != part.full:
+            dims += " of " + "x".join(str(n) for n in part.full)
+        dt = "bf16" if lm.dtype == torch.bfloat16 else "f32"
         cases.append((
             "noisy_sgd", f"{label} [{dims}] {str(lm.dtype)[6:]} drawn", True,
             (lambda plain, p=p, g=g, sh=sh, sc=sc, d=d: ops.noisy_sgd(
                 p, g, sh, sc, TRAIN_ALPHA, draw=d, chunk=ST.UPDATE_CHUNK,
                 plain=plain)),
-            None, nb, nf, tol, None, None))
+            None, nb, nf, tol, None,
+            (lambda n=part.numel, k=f"noisy_sgd_kernel<{dt}, 2>":
+             issue_row(issue, k, n))))
         # one output a route, so the kernel's and the plain version's
-        # fills are held side by side
+        # fills are held side by side; torch's own trunc_normal_ (its own
+        # stream, the same transform) on a third
         outs = {r: torch.empty(shape, dtype=lm.dtype, device="cuda")
-                for r in (False, True)}
+                for r in (False, True, None)}
         tb, tf = NU.trunc_bytes_flops(part, lm.dtype.itemsize)
         cases.append((
             "counter_trunc_normal", f"{label} [{dims}] "
@@ -5339,7 +5360,10 @@ def draws_phase(torch, ops, tally, floor_ms) -> dict:
              ops.counter_trunc_normal(outs[plain], seed, 3, part,
                                       1.0 / math.sqrt(fan_in),
                                       plain=plain)),
-            None, tb, tf, tol, None, None))
+            (lambda t=outs[None]: torch.nn.init.trunc_normal_(
+                t, 0.0, 1.0, -2.0, 2.0)), tb, tf, tol, None,
+            (lambda n=part.numel, k=f"counter_trunc_normal_kernel<{dt}>":
+             issue_row(issue, k, n))))
         del p, g, outs
     table = check_kernels(torch, cases, floor_ms)
 
@@ -5384,6 +5408,55 @@ def draws_phase(torch, ops, tally, floor_ms) -> dict:
          leaves=len(tree_leaves(init_model(lm, None, "meta"))),
          run_seconds=seconds)
     return table
+
+
+def noisy_issue(torch, ops, P, emb, seed) -> dict:
+    """The issue-rate bounds of csrc/noisy_update.cu as built (the SASS of
+    each kernel instance's hot loop, `tools/sass_mix.py`: SM clocks an
+    element) and the SM clock `nvidia-smi -q -d CLOCK` reads while the
+    bf16 update runs at `emb` (MHz); "error" where either fails."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sass_mix as SM
+    from repro_torch.kernels import _build
+    out = {"cycles": {}, "clocks": [], "clock": None, "error": None}
+    try:
+        text = SM.sass_of(str(_build._target("noisy_update")))
+        for name, entry in SM.kernel_mixes(text, SM.NOISY_PATTERN,
+                                           SM.noisy_name).items():
+            hot = SM.summary(entry, SM.noisy_esize(name)).get("hot")
+            if hot:
+                out["cycles"][name] = {
+                    "cycles_per_element": hot["cycles_per_element"],
+                    "bound_by": hot["bound_by"],
+                    "instructions_per_element": hot["per_element"]["issue"]}
+        p = torch.zeros(emb, dtype=torch.bfloat16, device="cuda")
+        one = torch.ones((), device="cuda")
+        sh = torch.zeros((), dtype=torch.bfloat16, device="cuda")
+        draw = P.Draw(seed, 0, P.Part.whole(emb))
+        out["clocks"] = SM.sm_clock_under_load(
+            lambda: ops.noisy_sgd(p, p, sh, one, TRAIN_ALPHA, draw=draw),
+            torch.cuda.synchronize)
+        out["clock"] = SM.median(out["clocks"])
+        del p
+    except Exception as e:   # the rows keep their bytes bound
+        out["error"] = repr(e)
+    return out
+
+
+def issue_row(issue, kernel, numel) -> dict:
+    """A phase-32 row's issue bound: `numel` elements at the instance's
+    SM clocks an element, over the card's SMs at the measured clock."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sass_mix as SM
+    import torch
+    c = issue["cycles"].get(kernel)
+    if c is None or not issue["clock"]:
+        return {"issue_bound_ms": None, "issue_error": issue["error"]}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"issue_bound_ms": SM.issue_bound_ms(
+        c["cycles_per_element"], numel, sms, issue["clock"]),
+        "issue_bound_by": c["bound_by"], "sm_clock_mhz": issue["clock"],
+        "instructions_per_element": c["instructions_per_element"]}
 
 
 def dispatch_us(torch) -> dict:
@@ -6285,6 +6358,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "call_ms": row["call_ms"]})
+        if "issue_bound_ms" in row:
+            kernels[-1]["issue_bound_ms"] = row["issue_bound_ms"]
         if len(main_shapes.get(name, {})) > 1:
             kernels[-1]["launches_by_shape"] = by_shape(name)
         if shard_shapes.get(name):

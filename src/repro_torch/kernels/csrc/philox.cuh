@@ -13,8 +13,9 @@
 //   lane    = j % 4 picks one of the four outputs
 //
 // A uniform is u = ((x >> 9) + 0.5) * 2^-23: exact in f32 and inside
-// (0, 1).  A normal is Box-Muller on the lane pairs (0, 1) and (2, 3): r =
-// sqrt(-2 ln u_a), then (r cos 2 pi u_b, r sin 2 pi u_b).  The truncated
+// (0, 1), formed from the exponent (`uniform`).  A normal is Box-Muller
+// on the lane pairs (0, 1) and (2, 3): r = sqrt(-2 ln u_a), then
+// (r cos 2 pi u_b, r sin 2 pi u_b).  The truncated
 // normal of the init is torch.nn.init.trunc_normal_'s transform on
 // [-2, 2]: u spread over [2 Phi(-2) - 1, 2 Phi(2) - 1], erfinv, times
 // sqrt 2, clamped.  Every product and sum is written with an explicit
@@ -34,36 +35,60 @@ constexpr uint32_t PHILOX_W0 = 0x9E3779B9u;
 constexpr uint32_t PHILOX_W1 = 0xBB67AE85u;
 constexpr float TWO_PI = 6.28318548202514648f;   // f32(2 pi)
 constexpr float SQRT2 = 1.41421353816986084f;    // f32(sqrt 2)
-constexpr float U_STEP = 1.1920928955078125e-07f;   // 2^-23
+constexpr float ONE_LESS_HALF_STEP = 0.999999940395355224609375f;  // 1 - 2^-24
 constexpr uint32_t NOISE = 0;   // purpose word: the train step's noise
 constexpr uint32_t INIT = 1;    // purpose word: the weights' init
 constexpr int MAX_DIMS = 8;
 
-// Philox4x32-10: ten rounds, the key bumped between rounds.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+// The ten round keys of Philox4x32-10: the key bumped (W0, W1) between
+// rounds.  The same for every call under one key, so a kernel forms them
+// once, outside its loops.
+struct Keys {
+  uint32_t x[10], y[10];
+};
+
+__device__ __forceinline__ Keys round_keys(uint2 k) {
+  Keys r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    r.x[i] = k.x + static_cast<uint32_t>(i) * PHILOX_W0;
+    r.y[i] = k.y + static_cast<uint32_t>(i) * PHILOX_W1;
+  }
+  return r;
+}
+
+// Philox4x32-10: ten rounds under the round keys.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, const Keys& k) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += PHILOX_W0;
-      k.y += PHILOX_W1;
-    }
     const uint32_t hi0 = __umulhi(PHILOX_M0, c.x), lo0 = PHILOX_M0 * c.x;
     const uint32_t hi1 = __umulhi(PHILOX_M1, c.z), lo1 = PHILOX_M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    c = make_uint4(hi1 ^ c.y ^ k.x[r], lo1, hi0 ^ c.w ^ k.y[r], lo0);
   }
   return c;
 }
 
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  return philox4x32_10(c, round_keys(k));
+}
+
 __device__ __forceinline__ uint4 draw_bits(long long q, uint32_t leaf,
-                                           uint32_t purpose, uint2 key) {
+                                           uint32_t purpose,
+                                           const Keys& keys) {
   const unsigned long long uq = static_cast<unsigned long long>(q);
   return philox4x32_10(make_uint4(static_cast<uint32_t>(uq),
                                   static_cast<uint32_t>(uq >> 32), leaf,
-                                  purpose), key);
+                                  purpose), keys);
 }
 
+// u = ((x >> 9) + 0.5) 2^-23 as (1 + m 2^-23) - (1 - 2^-24), m = x >> 9:
+// the first is m under the exponent of 1, both are exact, and so is their
+// difference (Sterbenz's lemma), so the bits are those of converting m,
+// adding 0.5 and scaling, in one integer add and one f32 subtraction
+// (tests/test_torch_draws.py pins the identity over all 2^23 m).
 __device__ __forceinline__ float uniform(uint32_t x) {
-  return __fmul_rn(__fadd_rn(__uint2float_rn(x >> 9), 0.5f), U_STEP);
+  return __fsub_rn(__uint_as_float(0x3F800000u + (x >> 9)),
+                   ONE_LESS_HALF_STEP);
 }
 
 // The four normals of one Philox output, lane by lane.
@@ -99,15 +124,17 @@ struct Part {
   long long len[MAX_DIMS];
 };
 
-// The global index of the first element of the part's row r.
-__device__ __forceinline__ long long row_start(const Part& part,
-                                               long long r) {
+// The global index of the first element of the part's row r (r < the
+// part's rows, so the outermost dim takes r whole: a part of two merged
+// dims divides nothing).
+__host__ __device__ __forceinline__ long long row_start(const Part& part,
+                                                        long long r) {
   long long j = part.off[part.nd - 1];
 #pragma unroll
   for (int k = MAX_DIMS - 2; k >= 0; --k) {
     if (k < part.nd - 1) {
-      const long long i = r % part.len[k];
-      r /= part.len[k];
+      const long long i = k == 0 ? r : r % part.len[k];
+      if (k) r /= part.len[k];
       j += (part.off[k] + i) * part.stride[k];
     }
   }

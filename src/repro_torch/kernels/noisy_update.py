@@ -40,16 +40,22 @@ from repro_torch.kernels.philox import Draw, Part
 
 Tensor = torch.Tensor
 
-# operations a kernel spends, for its bound: a Philox4x32-10 call (10
-# rounds of 2 mul.hi, 2 mul.lo and 4 xor; 9 key bumps of 2 adds) serves 4
-# elements; Box-Muller a pair (2 uniforms of 3 operations, log, 2
-# multiplies, sqrt, cos, sin, 2 multiplies); the update 5 an element (add,
-# multiply, add, multiply, subtract); the truncated normal 7 an element
-# (uniform 3, multiply, add, erfinv, multiply; the clamp and the scale)
-PHILOX_OPS = 10 * 8 + 9 * 2
-NORMAL_PAIR_OPS = 2 * 3 + 1 + 2 + 1 + 2 + 2
-UPDATE_OPS = 5
-TRUNC_OPS = 3 + 2 + 1 + 1 + 2 + 1
+# operations a kernel spends, for its bound: the thread instructions the
+# kernels issue, from the SASS of their hot loops (`tools/sass_mix.py`, an
+# H100 build of csrc/noisy_update.cu): the update with no noise 11 an
+# element (loads, unpacking, add, rounding, multiply, subtract, pack,
+# store, the loop's share); the noise's multiply, add and two roundings 6
+# more (the z-given kernel: 17); a Philox4x32-10 call 42 (10 rounds of two
+# 32 x 32 -> 64 products and two three-way xors) for 4 elements; a
+# Box-Muller pair 91 (two uniforms, libdevice's logf, sqrtf and one range
+# reduction for cosf and sinf, the products; the z-drawn kernel: 73 an
+# element); the truncated normal 36 an element (the uniform, libdevice's
+# erfinvf, the clamp and the scale, a store's share; 46.5 with its Philox)
+PHILOX_OPS = 42
+NORMAL_PAIR_OPS = 91
+UPDATE_OPS = 11
+NOISE_OPS = 6
+TRUNC_OPS = 36
 MODES = {"none": 0, "given": 1, "drawn": 2}
 
 
@@ -160,12 +166,10 @@ def bytes_flops(part: Part, esize: int, mode: str) -> Tuple[int, int]:
     normals and the update."""
     n = part.numel
     nbytes = 3 * n * esize + (4 * n if mode == "given" else 0)
-    ops = UPDATE_OPS * n
+    ops = (UPDATE_OPS + (NOISE_OPS if mode != "none" else 0)) * n
     if mode == "drawn":
         calls = philox.philox_calls(part)
         ops += calls * (PHILOX_OPS + 2 * NORMAL_PAIR_OPS)
-    elif mode == "given":
-        ops += 2 * n
     return nbytes, ops
 
 

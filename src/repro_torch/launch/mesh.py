@@ -372,6 +372,6 @@ def mesh_from_arg(spec: str) -> Optional[SweepMesh]:
     ranks = world()[1]
     if r * m != ranks:
         raise ValueError(f"--mesh {spec}: a mesh spans every rank of the "
-                         f"process group, which has {ranks} (ROADMAP.md "
-                         f"Queue 1 item 8b)")
+                         f"process group, which has {ranks} (the --mesh "
+                         f"forms: launch.mesh.mesh_from_arg's docstring)")
     return None if ranks == 1 else make_debug_mesh((r, m), ("data", "model"))

@@ -92,6 +92,21 @@ def test_counters_past_the_low_word_match_python():
         assert row == _philox_py((qi & P.MASK, qi >> 32, 9, P.NOISE), k)
 
 
+def test_exponent_uniform_equals_the_stream_uniform_bitwise():
+    """csrc/philox.cuh::uniform forms u = ((x >> 9) + 0.5) 2^-23 as (1 + m
+    2^-23) - (1 - 2^-24), m = x >> 9 placed under the exponent of 1: over
+    all 2^23 m, in numpy f32, bit for bit `philox.uniform`'s convert, add
+    and scale (the subtraction is exact by Sterbenz's lemma)."""
+    m = np.arange(2 ** 23, dtype=np.uint32)
+    one_plus = (np.uint32(0x3F800000) + m).view(np.float32)
+    got = one_plus - np.float32(1.0 - 2.0 ** -24)
+    assert got.dtype == np.float32
+    assert np.float32(1.0 - 2.0 ** -24).view(np.uint32) == 0x3F7FFFFF
+    want = P.uniform(torch.from_numpy(m.astype(np.int64) << 9)).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert got.min() > 0 and got.max() < 1
+
+
 def _ks(x: np.ndarray, cdf) -> float:
     x = np.sort(x.astype(np.float64))
     f = cdf(x)

@@ -1583,3 +1583,92 @@ def test_counter_trunc_normal_and_philox_on_the_card(cuda_device):
                         device=cuda_device, generator=gen)
     assert torch.equal(NU.philox_raw(ctr, key),
                        NU.philox_raw(ctr, key, curand=True))
+
+
+# The update kernel's fast path takes 8 elements of one row whose global
+# indices start at a multiple of 4; these parts put its edges everywhere:
+# rows starting at j = 1, 2, 3 (mod 4), rows of 4, 12, 20 and 64 elements
+# over many rows (of two and of three dims after merging), and a tail
+# shorter than one vector.
+_BOUNDARY_PARTS = {
+    "row_start_j1": ((301, 40), (0, 1), (301, 20)),
+    "row_start_j2": ((301, 40), (0, 2), (301, 20)),
+    "row_start_j3": ((301, 40), (0, 3), (301, 20)),
+    "rows_of_4": ((257, 12), (0, 4), (257, 4)),
+    "rows_of_12": ((257, 36), (0, 12), (257, 12)),
+    "rows_of_20": ((257, 60), (0, 40), (257, 20)),
+    "rows_of_64": ((36, 96, 1024), (0, 0, 64), (36, 96, 64)),
+    # three dims after merging: rows from the block's table
+    "three_dims_rows_of_12": ((6, 40, 24), (1, 8, 4), (4, 20, 12)),
+    "three_dims_rows_of_64": ((4, 64, 256), (0, 32, 64), (4, 32, 64)),
+    "tail_under_one_vector": ((4099,), (0,), (4099,)),
+    "three_elements": ((7,), (2,), (3,)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_BOUNDARY_PARTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noisy_kernels_at_the_fast_path_edges(cuda_device, case, dtype):
+    """At each part of `_BOUNDARY_PARTS`: the drawn z (an f32 update of
+    zeros at alpha -1) bitwise the whole leaf's slice; the fused update
+    bitwise its z-given mode, that mode and no-noise mode bitwise the
+    plain update; p and g (and out's fill) at an odd element offset, so no
+    pointer is 16-byte aligned, bitwise the aligned call; the init's fill
+    bitwise the whole leaf's slice and within one bf16 ulp of its plain
+    version."""
+    from repro_torch.kernels import philox as P
+    full, off, shape = _BOUNDARY_PARTS[case]
+    part = P.Part(full, off, shape)
+    whole = P.Part.whole(full)
+    seed, leaf = 2 ** 33 + 17, 4
+    zeros = torch.zeros(full, device=cuda_device)
+    zero = torch.zeros((), device=cuda_device)
+    one = torch.ones((), device=cuda_device)
+    z_whole = ops.noisy_sgd(zeros, zeros, zero, one, -1.0,
+                            draw=P.Draw(seed, leaf, whole))
+    z = ops.noisy_sgd(zeros[part.slices].contiguous(),
+                      zeros[part.slices].contiguous(), zero, one, -1.0,
+                      draw=P.Draw(seed, leaf, part))
+    assert torch.equal(z, z_whole[part.slices])
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    n = part.numel
+    pbuf = torch.randn(n + 1, generator=gen, device=cuda_device).to(dtype)
+    gbuf = (torch.randn(n + 1, generator=gen, device=cuda_device)
+            * 1e-2).to(dtype)
+    p, g = pbuf[:n].view(shape).clone(), gbuf[:n].view(shape).clone()
+    shift = torch.tensor(1e-3, device=cuda_device).to(dtype)
+    scale = torch.tensor(0.1, device=cuda_device)
+    draw = P.Draw(seed, leaf, part)
+    fused = ops.noisy_sgd(p, g, shift, scale, 0.05, draw=draw)
+    given = ops.noisy_sgd(p, g, shift, scale, 0.05, z=z)
+    assert torch.equal(fused, given)
+    assert torch.equal(given, ops.noisy_sgd(p, g, shift, scale, 0.05, z=z,
+                                            plain=True))
+    assert torch.equal(ops.noisy_sgd(p, g, shift, scale, 0.05),
+                       ops.noisy_sgd(p, g, shift, scale, 0.05, plain=True))
+    # the same values at an odd element offset: contiguous, not aligned
+    p1, g1 = pbuf[1:].view(shape), gbuf[1:].view(shape)
+    p1.copy_(p)
+    g1.copy_(g)
+    assert p1.data_ptr() % 16 != 0 and p1.is_contiguous()
+    assert torch.equal(ops.noisy_sgd(p1, g1, shift, scale, 0.05, draw=draw),
+                       fused)
+    assert torch.equal(ops.noisy_sgd(p1, g1, shift, scale, 0.05, z=z),
+                       given)
+    # the init's fill
+    w = ops.counter_trunc_normal(torch.empty(
+        full, dtype=dtype, device=cuda_device), seed, leaf, whole, 0.05)
+    got = ops.counter_trunc_normal(torch.empty(
+        shape, dtype=dtype, device=cuda_device), seed, leaf, part, 0.05)
+    assert torch.equal(got, w[part.slices])
+    obuf = torch.empty(n + 1, dtype=dtype, device=cuda_device)
+    odd = ops.counter_trunc_normal(obuf[1:].view(shape), seed, leaf, part,
+                                   0.05)
+    assert torch.equal(odd, got)
+    want = ops.counter_trunc_normal(torch.empty(
+        shape, dtype=dtype, device=cuda_device), seed, leaf, part, 0.05,
+        plain=True)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=1e-8)
