@@ -28,6 +28,7 @@
     python3 chip_smoke.py --heads     # phases 1-2 and 31 alone (a spawn
                                       # of 16 ranks)
     python3 chip_smoke.py --draws     # phases 1-2 and 32 alone
+    python3 chip_smoke.py --graphs    # phases 1-2 and 33 alone
     python3 chip_smoke.py --profile   # phases 1-3, then a torch.profiler
                                       # breakdown of a warm Fig. 3 sweep,
                                       # defense grid, U = 1000 grid,
@@ -373,7 +374,7 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
   31. heads   the head layouts the "model" axis does not divide, in a
               spawn of 16 ranks on this card over gloo (`--ranks-child
               ... heads`) on (1, 16): starcoder2-3b (H 24) at full width
-              cut to 2 layers and llama4 (H 40) cut to its first layer,
+              cut to 1 layer and llama4 (H 40) to its first,
               wq / wk / wv split d and wo hd, every rank computing every
               head: 2 BEV train steps on their own seeded draws (each
               rank drawing its part of each leaf's noise in the update
@@ -404,12 +405,28 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               step on its own draws
               from a counted init: warm ms and peak beside phase 20's
               in two runs before the update kernel.
-  33. the `kernels` line (with launches and times by shape where a
-      kernel runs at several main-path shapes, checked against the
-      phases' shapes, and the mesh phases' launches by shard-local
-      shape, each with the times of its phase-3 row: every launch shape,
-      a rank's too, must have one); 34. the last line, {"ok": true,
-      "device": ...}.
+  33. graphs  compiled execution (`repro_torch.graphs`): the entry
+              points replay their step captured as a CUDA graph by
+              default (so every phase above runs graphed), and here
+              each of (a) Fig. 3's sweep (R = 20, full width), (b) the
+              defense grid, (c) qwen3-4b's serve (batch 8, 32 + 32)
+              and (d) its FLOA train step (8 x 64, 3 steps, through
+              `launch.train.compile_step`) runs graphed and, under
+              `graphs.disable_graphs()`, eagerly: bitwise equal (lane
+              losses, grad norms and final params, every lane
+              generator's state; tokens and logits; params and the
+              FLOA state after the steps), the same launches from
+              `ops.launch_counts()`, each route's rate, peak memory,
+              captures, replays and capture seconds, and a
+              torch.profiler reading of a warm run, step or round
+              (kernels a step, the device's busy share); (d) also
+              replays the captured step from one state under two
+              device seeds: two different noises.
+  Then the `kernels` line (with launches and times by shape where a
+  kernel runs at several main-path shapes, checked against the phases'
+  shapes, and the mesh phases' launches by shard-local shape, each with
+  the times of its phase-3 row: every launch shape, a rank's too, must
+  have one), and the last line, {"ok": true, "device": ...}.
 
 `--strict-rates` times the strict_numerics routes of the plan phase and the
 mesh phase's unsharded U = 1000 twin, `--serve-rate` phase 14's serve (its
@@ -575,7 +592,7 @@ REMAT_BATCH, REMAT_MOE_BATCH, REMAT_SEQ = 4, 2, 4096
 # collective takes ~80 ms over 16 ranks), each against one rank at phase
 # 25's gates
 HEADS_RANKS, HEADS_STEPS, HEADS_PROMPT, HEADS_GEN = 16, 2, 8, 8
-HEADS_CASES = (("starcoder2-3b", 2), ("llama4-maverick-400b-a17b", 1))
+HEADS_CASES = (("starcoder2-3b", 1), ("llama4-maverick-400b-a17b", 1))
 HEADS_PREFILL_BATCH, HEADS_PREFILL_SEQ = 8, 128
 # The draws phase (32): the counter-based stream (`kernels/philox.py`) and
 # its two kernels.  (a) Random123's known answers and curand's
@@ -1407,18 +1424,31 @@ def lm_params(torch, cfg):
     return init_model(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
 
 
+def decode_steps(step):
+    """fn(params, caches, tokens1, pos) -> logits of `step` (a decode
+    step), replayed as `serve`'s CUDA graph (`launch.serve.
+    compile_decode`) unless a MoE routing tape is active (its cursor
+    moves in Python at each call): the eager step then."""
+    from repro_torch.launch.serve import compile_decode
+    from repro_torch.models import moe as MOE
+    if MOE.active_tape() is not None:
+        return lambda *args: step(*args)[0]
+    return compile_decode(step)
+
+
 def teacher_forced(torch, cfg, params, seq, plain):
     """Logits [steps, B, Vp] of cfg's decode steps fed seq [B, steps] one
     position at a time from empty caches (the kernel route, or its plain
-    version)."""
+    version; `decode_steps`)."""
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import transformer as LM
     step, _ = make_decode_step(cfg, plain=plain)
+    run = decode_steps(step)
     b, n = seq.shape
     caches = LM.init_caches(cfg, b, n, device="cuda")
     positions = torch.arange(n, dtype=torch.int32, device="cuda")
-    return torch.stack([step(params, caches, seq[:, i:i + 1],
-                             positions[i])[0][:, 0] for i in range(n)])
+    return torch.stack([run(params, caches, seq[:, i:i + 1],
+                            positions[i])[:, 0].clone() for i in range(n)])
 
 
 def logit_parity(torch, lk, lp, vocab) -> tuple:
@@ -3583,6 +3613,7 @@ def ring_run(torch, cfg, params, caches, tokens, first, plain=False,
     route or its plain version: logits [steps, B, Vp]."""
     from repro_torch.launch.steps import make_decode_step
     step, _ = make_decode_step(cfg, "long_500k", plain=plain)
+    run = decode_steps(step)
     n = tokens.shape[1]
     positions = torch.arange(first, first + n, dtype=torch.int32,
                              device="cuda")
@@ -3590,8 +3621,8 @@ def ring_run(torch, cfg, params, caches, tokens, first, plain=False,
     if events:
         events[0].record()
     for i in range(n):
-        out.append(step(params, caches, tokens[:, i:i + 1],
-                        positions[i])[0][:, 0])
+        out.append(run(params, caches, tokens[:, i:i + 1],
+                       positions[i])[:, 0].clone())
         if events:
             events[i + 1].record()
     return torch.stack(out)
@@ -3814,6 +3845,7 @@ def decode_vs_prefill(torch, cfg, params, seq) -> dict:
     recurrent form against its chunked dual form.  Held at rtol 1e-4 with
     an atol of 1e-4 of the largest |logit|, as the CPU tests hold decode
     against prefill."""
+    import contextlib
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as LM
     ftape = MOE.RoutingTape()
@@ -3821,7 +3853,10 @@ def decode_vs_prefill(torch, cfg, params, seq) -> dict:
         want = LM.forward(params, seq, cfg)[0].transpose(0, 1)
     b, n = seq.shape
     dtape = ftape.by_step(b, n)
-    with MOE.routing(dtape):
+    # the tape routes an MoE model's decode (so the decode runs eagerly);
+    # a model without experts never reads it, and replays its graph
+    with (MOE.routing(dtape) if cfg.moe is not None
+          else contextlib.nullcontext()):
         got = teacher_forced(torch, cfg, params, seq, False)
     atol = RTOL_WHOLE_RUN * float(want.abs().max())
     ok = bool(torch.allclose(got, want, rtol=RTOL_WHOLE_RUN, atol=atol))
@@ -5410,6 +5445,249 @@ def draws_phase(torch, ops, tally, floor_ms) -> dict:
     return table
 
 
+def graph_routes(torch, ops, name, run, expect) -> dict:
+    """run() graphed and then eagerly (`graphs.disable_graphs()`), each
+    counted as a phase (`run_phase`, the launches checked against
+    `expect`) from a freed cache: {route: {result, seconds, launches,
+    peak_memory_gb (above what was allocated before the route: the
+    graphed route's results stay live through the eager one),
+    captures, replays, capture_s}}; the two routes' launches by kernel
+    and by shape must be equal."""
+    import contextlib
+    from repro_torch import graphs
+    out = {}
+    for route in ("graphed", "eager"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        graphs.reset_totals()
+        with (contextlib.nullcontext() if route == "graphed"
+              else graphs.disable_graphs()):
+            result, seconds, counts = run_phase(
+                torch, ops, f"graphs_{name}_{route}", run,
+                {**{k: 0 for k in ops.KERNELS}, **expect})
+        out[route] = {"result": result, "seconds": seconds,
+                      "launches": counts, "shapes": ops.launch_shapes(),
+                      "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                         - before) / 1e9,
+                      "live_before_gb": before / 1e9, **graphs.totals()}
+    if out["graphed"]["shapes"] != out["eager"]["shapes"]:
+        raise AssertionError(f"graphs {name}: launches by shape differ: "
+                             f"{out['graphed']['shapes']} vs "
+                             f"{out['eager']['shapes']}")
+    if out["graphed"]["captures"] < 1 or out["eager"]["captures"]:
+        raise AssertionError(f"graphs {name}: captures {out}")
+    return out
+
+
+def route_fields(routes, extra=None) -> dict:
+    """The JSON fields of `graph_routes`' two routes (and `extra`'s)."""
+    keys = ("seconds", "launches", "peak_memory_gb", "live_before_gb",
+            "captures", "replays", "capture_s")
+    return {r: {**{k: v[k] for k in keys}, **(extra or {}).get(r, {})}
+            for r, v in routes.items()}
+
+
+def graphs_phase(torch, np, ops, figures, lm) -> None:
+    """Phase 33: each entry point graphed against eager (module
+    docstring), one JSON line each."""
+    import contextlib
+    from repro_torch import graphs
+    from repro_torch.core.power_control import Policy
+    from repro_torch.data import sample_tokens
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.serve import compile_decode, serve
+    from repro_torch.launch.steps import (init_floa_state, make_decode_step,
+                                          make_train_step)
+    from repro_torch.models import transformer as LM
+    from repro_torch.tree import tree_leaves
+
+    def on(route):
+        return (contextlib.nullcontext() if route == "graphed"
+                else graphs.disable_graphs())
+
+    # (a), (b): sweeps through their engines; the lanes' generators kept
+    fig3 = [figures.Experiment(f"{n}@ah{ah}", p, n_attackers=1,
+                               alpha_hat=ah, attacker_sigma=3.0,
+                               rounds=ROUNDS)
+            for ah in (0.1, 1.0) for n, p in [("CI", Policy.CI),
+                                              ("BEV", Policy.BEV)]]
+    fused = {"floa_step_batched": ROUNDS, "grad_stats": ROUNDS}
+    sweeps = {
+        "fig3": (lambda: figures.figure_engine(fig3, device="cuda"),
+                 fused),
+        "defenses": (lambda: figures.cases_engine(
+            figures.defense_cases(), ROUNDS, device="cuda"),
+            {**fused, "sort_columns": 2 * ROUNDS})}
+    for name, (build, expect) in sweeps.items():
+        def run(build=build):
+            engine, params, batches = build()
+            made = []
+            seeded = engine.seeded_draws
+            engine.seeded_draws = lambda d: made.append(seeded(d)) or made[0]
+            res = engine.run(params, batches)
+            return res, made[0].state()
+        routes = graph_routes(torch, ops, name, run, expect)
+        (rg, sg), (re_, se) = (routes["graphed"]["result"],
+                               routes["eager"]["result"])
+        equal = {"loss": bool(np.array_equal(rg.loss, re_.loss)),
+                 "grad_norm": bool(np.array_equal(rg.grad_norm,
+                                                  re_.grad_norm)),
+                 "params": all(torch.equal(rg.params[k], re_.params[k])
+                               for k in re_.params),
+                 "metrics": all(np.array_equal(rg.metrics[k],
+                                               re_.metrics[k], equal_nan=True)
+                                for k in re_.metrics),
+                 "generators": all(torch.equal(sg[k], se[k]) for k in se)}
+        rates, profiles = {}, {}
+        for route in ("graphed", "eager"):
+            with on(route):
+                engine, params, batches = build()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.run(params, batches)
+                torch.cuda.synchronize()
+                rates[route] = {"rounds_per_s": ROUNDS / (
+                    time.perf_counter() - t0)}
+                prof = profile_phase(torch, lambda: engine.run(params,
+                                                               batches))
+                rates[route]["profile"] = {
+                    "kernels_per_round": prof["kernel_launches"] / ROUNDS,
+                    "device_busy_share": prof["device_busy_share"],
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "wall_ms": prof["wall_ms"]}
+        emit("graphs", case=name, lanes=len(rg.names), rounds=ROUNDS,
+             bitwise=equal, **route_fields(routes, rates))
+        if not all(equal.values()):
+            raise AssertionError(f"graphs {name}: graphed and eager differ "
+                                 f"{equal}")
+        del routes, rg, re_
+
+    # (c) the serve: qwen3-4b, batch 8, 32 + 32, from one init
+    params = lm_params(torch, lm)
+    n_steps = SERVE_PROMPT + SERVE_GEN
+    routes = graph_routes(
+        torch, ops, "serve",
+        lambda: serve(lm, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                      device="cuda", params=params),
+        {"decode_attention": lm.n_layers * n_steps})
+    rg, re_ = routes["graphed"]["result"], routes["eager"]["result"]
+    equal = {"tokens": torch.equal(rg.tokens, re_.tokens),
+             "logits": torch.equal(rg.logits, re_.logits)}
+    rates = {}
+    caches = LM.init_caches(lm, SERVE_BATCH, n_steps, device="cuda")
+    positions = torch.arange(n_steps, dtype=torch.int32, device="cuda")
+    tok = rg.tokens[:, :1]
+    step, _ = make_decode_step(lm)
+    for route in ("graphed", "eager"):
+        res = routes[route]["result"]   # its decode phase: warm, replays
+        with on(route):
+            one = compile_decode(step)
+            for i in range(2):    # the warm-up and the capture
+                one(params, caches, tok, positions[i])
+            prof = profile_phase(torch, lambda: one(params, caches, tok,
+                                                    positions[2]))
+        rates[route] = {
+            "decode_tok_per_s": res.tok_per_s,
+            "ms_per_step": res.decode_s * 1e3 / SERVE_GEN,
+            "prefill_s": res.prefill_s,
+            "profile_step": {"kernels": prof["kernel_launches"],
+                             "device_busy_share": prof["device_busy_share"],
+                             "device_busy_ms": prof["device_busy_ms"],
+                             "wall_ms": prof["wall_ms"]}}
+    emit("graphs", case="serve", arch=lm.name, batch=SERVE_BATCH,
+         prompt_len=SERVE_PROMPT, gen=SERVE_GEN, bitwise=equal,
+         **route_fields(routes, rates))
+    if not all(equal.values()):
+        raise AssertionError(f"graphs serve: graphed and eager differ "
+                             f"{equal}")
+    del routes, rg, re_, caches, step, one
+
+    # (d) the train step, 8 x 64, 3 steps, the seed a device counter
+    shape = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, kind="train")
+    train, _ = make_train_step(lm, None, shape, alpha=TRAIN_ALPHA)
+    steps = 3
+    tokens = [torch.as_tensor(sample_tokens(TRAIN_BATCH, TRAIN_SEQ + 1,
+                                            lm.vocab_size, seed=t),
+                              device="cuda") for t in range(steps)]
+    held = {}
+
+    def train_run():
+        graphed = graphs.graphs_enabled()
+        p = _clone_tree(torch, params) if graphed else params
+        step = TR.compile_step(train) if graphed else train
+        state, seed, log = init_floa_state("cuda"), torch.zeros(
+            (), dtype=torch.int64, device="cuda"), []
+        for t in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, state, m = step(p, state, {"tokens": tokens[t]}, seed)
+            seed += 1
+            log.append({"ms": None, "loss": float(m["loss"])})
+            torch.cuda.synchronize()
+            log[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+        if graphed:
+            held.update(step=step, state=state)
+        return p, state, log
+
+    routes = graph_routes(torch, ops, "train", train_run,
+                          step_launches(ops, lm, steps))
+    (pg, sg, lg), (pe, se, le) = (routes["graphed"]["result"],
+                                  routes["eager"]["result"])
+    equal = {"losses": [x["loss"] for x in lg] == [x["loss"] for x in le],
+             "params": all(torch.equal(a, b) for a, b in
+                           zip(tree_leaves(pg), tree_leaves(pe))),
+             "state": all(torch.equal(sg[k], se[k]) for k in se)}
+    del pe, se
+    # one state, replayed under two device seeds: two noises
+    snap = _clone_tree(torch, pg)
+    small = min(range(len(tree_leaves(pg))),
+                key=lambda i: tree_leaves(pg)[i].numel())
+    noises = []
+    for s in (100, 101):
+        for dst, src in zip(tree_leaves(pg), tree_leaves(snap)):
+            dst.copy_(src)
+        held["step"](pg, held["state"], {"tokens": tokens[0]},
+                     torch.full((), s, dtype=torch.int64, device="cuda"))
+        noises.append(tree_leaves(pg)[small].clone())
+    equal["two_seeds_differ"] = not torch.equal(*noises)
+    del snap
+    rates = {}
+    batch = {"tokens": tokens[0]}
+    for route in ("graphed", "eager"):
+        log = routes[route]["result"][2]
+        with on(route):
+            if route == "graphed":
+                st, seed = held["state"], torch.zeros(
+                    (), dtype=torch.int64, device="cuda")
+                fn = lambda: held["step"](pg, st, batch, seed)  # noqa: E731
+            else:
+                st = init_floa_state("cuda")
+                fn = lambda: train(params, st, batch, 0)  # noqa: E731
+            prof = profile_phase(torch, fn)
+        rates[route] = {"steps": log, "ms_per_step_warm":
+                        sum(x["ms"] for x in log[2:]) / len(log[2:]),
+                        "profile_step": {
+                            "kernels": prof["kernel_launches"],
+                            "device_busy_share": prof["device_busy_share"],
+                            "device_busy_ms": prof["device_busy_ms"],
+                            "wall_ms": prof["wall_ms"]}}
+    emit("graphs", case="train", arch=lm.name, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=steps, bitwise=equal,
+         **route_fields(routes, rates))
+    if not all(equal.values()):
+        raise AssertionError(f"graphs train: graphed and eager differ "
+                             f"{equal}")
+    del routes, pg, sg, held, params
+    torch.cuda.empty_cache()
+
+
+def _clone_tree(torch, tree):
+    """A nested dict of tensors, every leaf cloned."""
+    return {k: _clone_tree(torch, v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
 def noisy_issue(torch, ops, P, emb, seed) -> dict:
     """The issue-rate bounds of csrc/noisy_update.cu as built (the SASS of
     each kernel instance's hot loop, `tools/sass_mix.py`: SM clocks an
@@ -5636,6 +5914,15 @@ def main() -> int:
         emit("launch_floor", floor_ms=floor_ms)
         draws_phase(torch, ops, lambda counts: None, floor_ms)
         phase_seconds("32 draws")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if sys.argv[1:] == ["--graphs"]:   # phases 1-2 and 33 alone
+        from repro_torch.configs import get_config
+        graphs_phase(torch, np, ops, figures, get_config(LM_ARCH))
+        phase_seconds("33 graphs")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6202,6 +6489,16 @@ def main() -> int:
     table.update(draws_phase(torch, ops, tally, floor_ms))
     phase_seconds("32 draws")
 
+    # 33. compiled execution: each entry point graphed against eager; the
+    # phases above ran graphed by default (their captures and replays)
+    from repro_torch import graphs
+    so_far = graphs.totals()
+    emit("graphs_so_far", **so_far)
+    if so_far["captures"] < 1 or so_far["replays"] < 1:
+        raise AssertionError(f"no phase replayed a graph: {so_far}")
+    graphs_phase(torch, np, ops, figures, lm)
+    phase_seconds("33 graphs")
+
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -6320,7 +6617,7 @@ def main() -> int:
         for _, shape in shard_shapes.get(name, {}):
             phase3_row(name, shape)
 
-    # 33. the kernel list
+    # the kernel list
     sources = {"floa_step_batched": ("floa_aggregate.cu",
                                      "src/repro/kernels/floa_aggregate.py:126"),
                "floa_aggregate_batched": ("floa_aggregate.cu",

@@ -29,12 +29,13 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.power_control import (PowerConfig, per_worker,
+                                            placed_amplitudes,
                                             transmit_amplitudes)
 
 Tensor = torch.Tensor
@@ -78,9 +79,22 @@ def strongest_attack_amplitude(p_max: Tensor, dim, gbar, eps2) -> Tensor:
                                * (per_worker(gbar)**2 + per_worker(eps2))))
 
 
+def placed_constants(power: PowerConfig, channel: ChannelConfig,
+                     attack: AttackConfig, device) -> Dict[str, Tensor]:
+    """The host-side constants `signed_coefficients` reads (the attack
+    mask, the power caps, `power_control.placed_amplitudes`), placed on
+    `device` once, with the same values: a step captured in a CUDA graph
+    may copy nothing from the host."""
+    return {"mask": attack.mask().to(device),
+            "p_maxes": power.p_maxes().to(device),
+            **placed_amplitudes(power, channel, device)}
+
+
 def signed_coefficients(h_abs: Tensor, power: PowerConfig,
                         channel: ChannelConfig, attack: AttackConfig,
-                        gbar: Tensor, eps2: Tensor) -> Tuple[Tensor, Tensor]:
+                        gbar: Tensor, eps2: Tensor,
+                        placed: Optional[Dict[str, Tensor]] = None
+                        ) -> Tuple[Tensor, Tensor]:
     """Per-worker signed payload coefficients and the de-standardization
     bias weight of one scenario: (s [U], bias_w []).
 
@@ -92,15 +106,18 @@ def signed_coefficients(h_abs: Tensor, power: PowerConfig,
       bias_w  sum over attackers of p_n |h_n|, multiplying gbar_t * 1: the
               PS de-standardizes as if every worker standardized, and only
               the sign-flip attackers did (their bias is 0).
+
+    `placed`: `placed_constants` on h_abs's device (else made here).
     """
     dev = h_abs.device
+    placed = placed or placed_constants(power, channel, attack, dev)
     eps = torch.sqrt(eps2)
-    honest_s = transmit_amplitudes(h_abs, power, channel) * h_abs
-    mask = attack.mask().to(dev)
+    honest_s = transmit_amplitudes(h_abs, power, channel, placed) * h_abs
+    mask = placed["mask"]
     if attack.attack == AttackType.NONE or attack.num_attackers == 0:
         return honest_s, torch.zeros((), device=dev)
     if attack.attack == AttackType.STRONGEST:
-        phat = strongest_attack_amplitude(power.p_maxes().to(dev),
+        phat = strongest_attack_amplitude(placed["p_maxes"],
                                           float(power.dim), gbar, eps2)
         attacker_s = -eps * phat * h_abs
     elif attack.attack == AttackType.SIGN_FLIP_PROTOCOL_POWER:

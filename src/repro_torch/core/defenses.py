@@ -431,12 +431,15 @@ def make_flat_defense_selector(codes: Optional[Sequence[int]] = None,
         lookup[c] = i
     branches = [make_group_defense_kernel(c, gm_iters, masked, plain=plain)
                 for c in codes]
+    placed: Dict[torch.device, Tensor] = {}   # the lookup, by device
 
     def select(code: Tensor, flat: Tensor, trim, num_byzantine, multi,
                *mask) -> Tensor:
         rows = [branch(flat, trim, num_byzantine, multi, *mask)
                 for branch in branches]
-        idx = lookup.to(code.device)[code.long()]
+        if code.device not in placed:   # once: a CUDA graph copies nothing
+            placed[code.device] = lookup.to(code.device)
+        idx = placed[code.device][code.long()]
         out = rows[0]
         for i, row in enumerate(rows[1:], start=1):
             out = torch.where((idx == i)[:, None], row, out)

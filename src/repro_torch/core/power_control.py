@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -76,17 +76,29 @@ def max_amplitude(power: PowerConfig) -> Tensor:
     return max_amplitude_arrays(power.p_maxes(), float(power.dim))
 
 
+def placed_amplitudes(power: PowerConfig, channel: ChannelConfig,
+                      device) -> Dict[str, Tensor]:
+    """`ci_b0` and `max_amplitude`, computed on the host as
+    `transmit_amplitudes` computes them and placed on `device` once: a
+    step captured in a CUDA graph may copy nothing from the host."""
+    return {"ci_b0": ci_b0(power, channel).to(device),
+            "max_amp": max_amplitude(power).to(device)}
+
+
 def transmit_amplitudes(h_abs: Tensor, power: PowerConfig,
-                        channel: ChannelConfig) -> Tensor:
-    """Per-worker transmit amplitude p_i for this round's channel draw.  [U]."""
-    dev = h_abs.device
+                        channel: ChannelConfig,
+                        placed: Optional[Dict[str, Tensor]] = None
+                        ) -> Tensor:
+    """Per-worker transmit amplitude p_i for this round's channel draw.  [U].
+    `placed`: `placed_amplitudes` on h_abs's device (else made here)."""
+    if power.policy in (Policy.CI, Policy.TRUNCATED_CI, Policy.BEV):
+        placed = placed or placed_amplitudes(power, channel, h_abs.device)
     if power.policy == Policy.CI:
-        return ci_b0(power, channel).to(dev) / h_abs
+        return placed["ci_b0"] / h_abs
     if power.policy == Policy.TRUNCATED_CI:
-        return torch.minimum(ci_b0(power, channel).to(dev) / h_abs,
-                             max_amplitude(power).to(dev))
+        return torch.minimum(placed["ci_b0"] / h_abs, placed["max_amp"])
     if power.policy == Policy.BEV:
-        return torch.broadcast_to(max_amplitude(power).to(dev), h_abs.shape)
+        return torch.broadcast_to(placed["max_amp"], h_abs.shape)
     if power.policy == Policy.EF:
         # Error-free: the aggregate is the plain mean; model it as
         # p_i|h_i| = 1/U with h forced to 1 by the caller.

@@ -59,9 +59,25 @@ it run exactly as before:
     participating rows (OMNISCIENT).
 
 The reported loss is the loss of the UPDATED weights on the round's batch,
-and the grad norm is that of the aggregate, as in the JAX engine.  Rounds are
-a Python loop (PyTorch runs eagerly); eval runs on rounds with
-t % eval_every == 0 and on the last round, NaN elsewhere.
+and the grad norm is that of the aggregate, as in the JAX engine.  Eval
+runs on rounds with t % eval_every == 0 and on the last round, NaN
+elsewhere.
+
+Compiled execution.  The JAX engine runs a chunk of rounds as one
+`lax.scan`; on one device the port captures one round of the flat-state
+plan as a CUDA graph (`graphs.StepGraph`) and replays it over each
+staged block's rows: the draws (from the lanes' generators, registered
+with the graph, or a caller's copied in), the per-worker gradients, the
+stats, the coefficients, the fused step or the combine, the loss and the
+grad norm, with the state and the Markov gains written in place in the
+graph's buffers.  Between replays, in Python: the eval on due rounds,
+Markov's first round (it draws the initial gains), the checkpoints (the
+generators' states after the replays are an eager run's) and the staging
+between blocks.  One graph a round rather than a chunk keeps those
+between rounds and the last short chunk on the same graph.  Sharded runs
+(gloo collectives) and the tree-state plan run the rounds eagerly, and so
+does every run inside `graphs.disable_graphs()`; graphed equals eager
+bitwise.
 
 Random draws.  JAX's threefry and PyTorch's Philox cannot give the same
 numbers, so a round takes its draws as inputs: `run(..., draws=fn)` with
@@ -117,6 +133,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import vmap
 
+from repro_torch import graphs
 from repro_torch.checkpoint import ckpt as CKPT
 from repro_torch.core import channel as CH
 from repro_torch.core import defenses as DEF
@@ -647,6 +664,11 @@ class SweepEngine:
     the plain one from the same draws, and the figures never set it.
 
     Every plan knob changes HOW the sweep executes, never WHAT it computes.
+    On the card, the flat state on one device replays its round as a
+    CUDA graph (module docstring: what stays between replays; the mesh
+    routes and the tree state run eagerly, as every route does inside
+    `graphs.disable_graphs()`).
+
     The contracts, as the reference's (`repro/fl/sweep.py`), within the port
     and from the same draws:
 
@@ -682,8 +704,9 @@ class SweepEngine:
     across the boundaries; the batch stack stays on the host and only
     [C, ...] blocks reach the device; the eval schedule stays anchored to
     the absolute round.  Chunked == monolithic bitwise: every round runs
-    the same operations on the same bytes.  A chunk boundary is where a
-    later CUDA graph of C rounds would go.
+    the same operations on the same bytes.  The rounds of a chunk replay
+    one captured round (module docstring); a chunk boundary stages the
+    next block between replays.
 
     async_staging=True (requires chunk_rounds) stages block k+1 through
     pinned host buffers on a side stream while chunk k's rounds are
@@ -1155,6 +1178,29 @@ class SweepEngine:
 
         return one_round, lambda p, i: tree_map(lambda v: v[i], p)
 
+    def _round_graph(self, one_round, seeded: Optional[_SeededDraws],
+                     cur: List[int]) -> graphs.StepGraph:
+        """One round of the flat state as a `graphs.StepGraph`:
+        graph(state, batch, h, draw) -> (loss, gn), the state [S, D] and
+        the Markov gains h held by reference and written in place, the
+        batch row and a caller's draws (None under the seeded draws)
+        copied in.  Under the seeded draws the round draws from every
+        lane's generators inside the graph (registered with it), for round
+        cur[0]."""
+        def body(w, batch, h, draw):
+            if seeded is not None:
+                draw = seeded(cur[0])
+            if self._markov:
+                h_new, draw = self._fade(h, draw)
+                h.copy_(h_new)
+            w_new, loss, gn = one_round(w, batch, draw)
+            w.copy_(w_new)
+            return loss, gn
+
+        gens = ([] if seeded is None
+                else [g for gs in seeded.gens.values() for g in gs])
+        return graphs.StepGraph(body, static=(0, 2), generators=gens)
+
     @torch.no_grad()
     def _eval(self, state, lane_view, num: int) -> Dict[str, Tensor]:
         rows = [self.eval_fn(lane_view(state, i)) for i in range(num)]
@@ -1337,6 +1383,13 @@ class SweepEngine:
             if restored is not None:
                 t, state, h, prior = restored
         traj = _Trajectory(s_loc, prior)
+        # the round as a CUDA graph (the reference's lax.scan body): the
+        # flat state on one device; `cur` is the round it draws for
+        cur = [t]
+        graph = (self._round_graph(one_round, draws if seeded else None,
+                                   cur)
+                 if self.flat_state and self.mesh is None else None)
+        want = tuple(self._wanted_draws(s_loc, d, 1))
         chunk = self.chunk_rounds or max(rounds, 1)
         host = {k: np.asarray(v)[t:] for k, v in batches.items()}
         blocks = iter_chunk_blocks(host, chunk)
@@ -1354,16 +1407,27 @@ class SweepEngine:
             n = next(iter(block.values())).shape[0]
             for j in range(n):   # round t + j reads row j of the block
                 batch = {k: v[j] for k, v in block.items()}
-                draw = draws(t + j)
+                cur[0] = t + j
+                replay = (graph is not None and graphs.graphs_enabled()
+                          and not (self._markov and t + j == 0))
+                draw = None
+                if not (replay and seeded):
+                    draw = draws(t + j)
                 if not seeded:   # full-S rows: this rank's, in its order
                     self._check_draw(draw, num, d, t + j)
                     if self._local_src is not None:
                         draw = SC.permute_lanes(draw, self._local_src)
-                if self._markov:
-                    if t + j == 0:   # stationary: every marginal Rayleigh
-                        h = self._sp_exec.sigma[..., None] * draw["h_init"]
-                    h, draw = self._fade(h, draw)
-                state, loss, gn = one_round(state, batch, draw)
+                if replay:   # state and h written in place
+                    loss, gn = graph(state, batch, h, None if seeded else
+                                     {k: draw[k] for k in want})
+                    loss, gn = loss.clone(), gn.clone()
+                else:
+                    if self._markov:
+                        if t + j == 0:   # stationary: marginals Rayleigh
+                            h = (self._sp_exec.sigma[..., None]
+                                 * draw["h_init"])
+                        h, draw = self._fade(h, draw)
+                    state, loss, gn = one_round(state, batch, draw)
                 due = t + j == rounds - 1 or (
                     self.eval_every > 0 and (t + j) % self.eval_every == 0)
                 traj.add(loss, gn, self._eval(self._full_cols(state),

@@ -13,12 +13,14 @@ defense (`core.defenses.digital_aggregate`), with Byzantine workers
 reporting sign-flipped gradients — the vanilla-FL comparison the paper
 argues cannot be done over the air.
 
-The port of `repro/fl/trainer.py`.  It runs eagerly: `run` is one Python
-round at a time on a sampler, `run_scan` the same rounds on batches stacked
-up front ([R, ...] leaves), and `run_scan(flat=True)` hands the run to the
-sweep engine as one lane (flat [D] state; in FLOA mode the `grad_stats` and
+The port of `repro/fl/trainer.py`.  `run` is one eager Python round at a
+time on a sampler, `run_scan` the same rounds on batches stacked up front
+([R, ...] leaves), and `run_scan(flat=True)` hands the run to the sweep
+engine as one lane (flat [D] state; in FLOA mode the `grad_stats` and
 fused `floa_step_batched` kernels, in digital mode the sort kernels for
-median and trimmed mean).
+median and trimmed mean), whose round the card replays as a CUDA graph
+(`fl/sweep.py`); the looped pytree routes stay eager (the reference jits
+them: ROADMAP Queue 1 item 12).
 
 Random draws.  Each round's draws are an input: `draws(t)` returns
 {"h_abs": [U], "z": leaf dict or None, "jam": leaf dict or None}

@@ -65,8 +65,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "decode_attention_occupancy": [_I, _I],
     },
     "noisy_update": {
-        "noisy_sgd": [_P, _P, _P, _P, _P, _P, _F, _I, _U, _U, _U, _I, _LP,
-                      _LP, _LP, _I, _P],
+        "noisy_sgd": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _U, _I, _LP, _LP,
+                      _LP, _I, _P],
         "counter_trunc_normal": [_P, _F, _F, _F, _U, _U, _U, _I, _LP, _LP,
                                  _LP, _I, _P],
     },

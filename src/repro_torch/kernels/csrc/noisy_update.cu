@@ -40,7 +40,9 @@
 // are the same.
 //
 // Modes: 0 no noise, 1 z given (a contiguous f32 tensor of the part's
-// shape, the replayed draws), 2 z drawn from the stream.
+// shape, the replayed draws), 2 z drawn from the stream, under the key the
+// kernel reads from device memory (the step's seed tensor), so that a
+// launch captured in a CUDA graph draws the replay's noise.
 //
 // `counter_trunc_normal_kernel` fills a part of a leaf with the init's
 // truncated normal times 1/sqrt(fan_in), in the leaf's dtype (purpose 1),
@@ -367,11 +369,14 @@ __global__ void __launch_bounds__(THREADS)
 noisy_sgd_kernel(T* __restrict__ out, const T* __restrict__ p,
                  const T* __restrict__ g, const T* __restrict__ shift,
                  const float* __restrict__ scale, const float* __restrict__ z,
-                 float alpha, uint2 key, uint32_t leaf, ctr::Part part,
-                 Walk w) {
+                 float alpha, const uint32_t* __restrict__ key, uint32_t leaf,
+                 ctr::Part part, Walk w) {
+  // the key's two words from device memory (the seed's int64, little
+  // endian: lo32, hi32), read only where z is drawn
+  const uint2 k = MODE == 2 ? make_uint2(key[0], key[1]) : make_uint2(0u, 0u);
   const Sgd<T, MODE> op{out, p, g, z, load(shift, 0),
                         MODE == 0 ? 0.0f : scale[0], alpha,
-                        ctr::round_keys(key), leaf};
+                        ctr::round_keys(k), leaf};
   extern __shared__ long long table[];
   walk(op, w, part, table);
 }
@@ -452,7 +457,7 @@ Walk plan(K kernel, const ctr::Part& part, long long rows, bool aligned,
 template <typename T, int MODE>
 int launch_sgd_mode(void* out, const void* p, const void* g,
                     const void* shift, const void* scale, const void* z,
-                    float alpha, uint2 key, uint32_t leaf,
+                    float alpha, const void* key, uint32_t leaf,
                     const ctr::Part& part, long long rows, cudaStream_t st) {
   auto kernel = noisy_sgd_kernel<T, MODE>;
   const bool aligned = aligned16(out) && aligned16(p) && aligned16(g) &&
@@ -465,14 +470,14 @@ int launch_sgd_mode(void* out, const void* p, const void* g,
       static_cast<T*>(out), static_cast<const T*>(p),
       static_cast<const T*>(g), static_cast<const T*>(shift),
       static_cast<const float*>(scale), static_cast<const float*>(z), alpha,
-      key, leaf, part, w);
+      static_cast<const uint32_t*>(key), leaf, part, w);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_sgd(void* out, const void* p, const void* g, const void* shift,
                const void* scale, const void* z, float alpha, int mode,
-               uint2 key, uint32_t leaf, const ctr::Part& part,
+               const void* key, uint32_t leaf, const ctr::Part& part,
                long long rows, cudaStream_t st) {
   if (mode == 0)
     return launch_sgd_mode<T, 0>(out, p, g, shift, scale, z, alpha, key,
@@ -507,20 +512,22 @@ extern "C" {
 // dtype code 0 = f32, 1 = bf16; shift a one-element tensor in that dtype,
 // scale one f32, both on the device).  mode 0: no z; 1: z a contiguous f32
 // tensor of the part's shape; 2: z drawn from the stream (key, leaf,
-// purpose 0) at the part's global indices.  The part: nd collapsed dims of
-// the leaf's whole row-major strides, the part's offsets and lengths.
-// Returns the launch's error code.
+// purpose 0) at the part's global indices, the key the two 32-bit words
+// (lo, hi) at `key` in device memory (the seed's int64; unread in modes 0
+// and 1), so a captured launch draws under whatever seed the tensor holds
+// at replay.  The part: nd collapsed dims of the leaf's whole row-major
+// strides, the part's offsets and lengths.  Returns the launch's error
+// code.
 int noisy_sgd(void* out, const void* p, const void* g, const void* shift,
               const void* scale, const void* z, float alpha, int mode,
-              uint32_t key_lo, uint32_t key_hi, uint32_t leaf, int nd,
-              const int64_t* stride, const int64_t* off, const int64_t* len,
-              int dtype, void* stream) {
+              const void* key, uint32_t leaf, int nd, const int64_t* stride,
+              const int64_t* off, const int64_t* len, int dtype,
+              void* stream) {
   ctr::Part part;
   long long rows = 0;
   if (!make_part(nd, stride, off, len, &part, &rows) || mode < 0 ||
-      mode > 2)
+      mode > 2 || (mode == 2 && key == nullptr))
     return cudaErrorInvalidValue;
-  const uint2 key = make_uint2(key_lo, key_hi);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == F32)
     return launch_sgd<float>(out, p, g, shift, scale, z, alpha, mode, key,

@@ -8,11 +8,15 @@ x + (scale z) rounded to g's dtype, then (f32(p) - alpha f32(x)) rounded
 to p's dtype.  z is one of: drawn from the stream (`draw`, a
 `philox.Draw`: the step's seed, the leaf index, the part's place in the
 whole leaf; purpose NOISE), so a rank draws only its part and no z is ever
-stored; given (`z`, a tensor of the part's shape: the replayed draws);
-or none (no noise).  It replaces no Pallas kernel: the reference's update
-is fused by XLA.  `counter_trunc_normal(out, seed, leaf, part, scale)`
-fills a part of a leaf with the init's truncated normal times `scale`
-(`models.common.ParamInit`, purpose INIT).
+stored; the kernel reads the seed's key from device memory (an int seed
+is placed there first), so a launch captured in a CUDA graph draws under
+the seed its tensor holds at each replay; given (`z`, a tensor of the
+part's shape: the replayed draws); or none (no noise).  It replaces no
+Pallas kernel: the reference's update is fused by XLA.
+`counter_trunc_normal(out, seed, leaf, part, scale)` fills a part of a
+leaf with the init's truncated normal times `scale`
+(`models.common.ParamInit`, purpose INIT), under a host key: the init is
+not captured.
 
 CPU tensors take the plain versions (`noisy_sgd_ref`, chunked by the
 caller's `chunk`, which gives the bits of one pass; `philox.
@@ -116,10 +120,11 @@ def noisy_sgd_ref(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
 
 
 def _launch_sgd(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
-                alpha: float, z: Optional[Tensor], seed: int, leaf: int,
-                part: Optional[Part]) -> Tensor:
+                alpha: float, z: Optional[Tensor], key: Optional[Tensor],
+                leaf: int, part: Optional[Part]) -> Tensor:
     """The kernel on checked CUDA tensors: mode "drawn" when `part` is
-    given, else "given" (z) or "none"."""
+    given (under `key`, the seed's 0-d int64 tensor on p's device), else
+    "given" (z) or "none"."""
     out = torch.empty_like(p)
     if p.numel() == 0:
         return out
@@ -127,13 +132,13 @@ def _launch_sgd(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
                  "given" if z is not None else "none"]
     nd, strides, off, lens = _geometry(part if part is not None
                                        else Part.whole((p.numel(),)))
-    k0, k1 = philox.key_of(seed)
     dev = p.device.index
     err = _build.library("noisy_update").noisy_sgd(
         out.data_ptr(), p.data_ptr(), g.data_ptr(), shift.data_ptr(),
         scale.data_ptr(), None if z is None else z.data_ptr(), alpha, mode,
-        k0, k1, leaf & philox.MASK, nd, strides, off, lens,
-        DTYPE_CODES[p.dtype], torch._C._cuda_getCurrentRawStream(dev))
+        None if part is None else key.data_ptr(), leaf & philox.MASK, nd,
+        strides, off, lens, DTYPE_CODES[p.dtype],
+        torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "noisy_sgd")
     noisy_sgd.launches += 1
     return out
@@ -142,18 +147,17 @@ def _launch_sgd(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
 @torch.library.custom_op("repro_torch::noisy_sgd", mutates_args=(),
                          device_types="cuda")
 def _card_route(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
-                z: Optional[Tensor], alpha: float, seed: List[int],
+                z: Optional[Tensor], alpha: float, key: Optional[Tensor],
                 leaf: int, full: List[int], offset: List[int]) -> Tensor:
-    """`_launch_sgd` as an op: seed (lo32, hi32), and `full` empty when
-    nothing is drawn."""
+    """`_launch_sgd` as an op: key the seed's 0-d int64 tensor, and `full`
+    empty (key None) when nothing is drawn."""
     part = (Part(tuple(full), tuple(offset), tuple(p.shape)) if full
             else None)
-    return _launch_sgd(p, g, shift, scale, alpha, z,
-                       seed[0] | (seed[1] << 32), leaf, part)
+    return _launch_sgd(p, g, shift, scale, alpha, z, key, leaf, part)
 
 
 @_card_route.register_fake
-def _card_route_fake(p, g, shift, scale, z, alpha, seed, leaf, full,
+def _card_route_fake(p, g, shift, scale, z, alpha, key, leaf, full,
                      offset):
     """The kernel allocates its output and nothing else."""
     return torch.empty_like(p)
@@ -188,10 +192,11 @@ def card_route(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
     tensors take the op's fake rule, as `launch/dryrun.py` traces them
     (`chunk`, the plain version's, is taken and ignored)."""
     _check(p, g, shift, scale, z, draw)
-    seed = philox.key_of(draw.seed if draw is not None else 0)
+    key = (philox.seed_tensor(draw.seed, p.device) if draw is not None
+           else None)
     full, off = ((list(draw.part.full), list(draw.part.offset))
                  if draw is not None else ([], []))
-    return _card_route(p, g, shift, scale, z, float(alpha), list(seed),
+    return _card_route(p, g, shift, scale, z, float(alpha), key,
                        draw.leaf if draw is not None else 0, full, off)
 
 
@@ -199,20 +204,22 @@ def noisy_sgd(p: Tensor, g: Tensor, shift: Tensor, scale: Tensor,
               alpha: float, *, z: Optional[Tensor] = None,
               draw: Optional[Draw] = None, chunk: Optional[int] = None,
               plain: bool = False) -> Tensor:
-    """One leaf's part: p - alpha (g + shift + scale z), z drawn (`draw`),
-    given (`z`) or none; p, g contiguous of one dtype (f32 or bf16), shift
-    one element of that dtype, scale one f32, alpha a float.  `chunk`: the
-    plain version's elements at a time."""
+    """One leaf's part: p - alpha (g + shift + scale z), z drawn (`draw`,
+    whose seed is an int or a one-element integer tensor: the kernel reads
+    it on the device), given (`z`) or none; p, g contiguous of one dtype
+    (f32 or bf16), shift one element of that dtype, scale one f32, alpha a
+    float.  `chunk`: the plain version's elements at a time."""
     _check(p, g, shift, scale, z, draw)
     if p.device.type == "cpu" or plain:
         return noisy_sgd_ref(p, g, shift, scale, alpha, z, draw,
                              chunk or philox.DRAW_CHUNK)
     need(p.device.type == "cuda", f"noisy_sgd: unsupported device "
          f"{p.device}")
+    if draw is None:
+        return _launch_sgd(p, g, shift, scale, alpha, z, None, 0, None)
     return _launch_sgd(p, g, shift, scale, alpha, z,
-                       draw.seed if draw is not None else 0,
-                       draw.leaf if draw is not None else 0,
-                       draw.part if draw is not None else None)
+                       philox.seed_tensor(draw.seed, p.device), draw.leaf,
+                       draw.part)
 
 
 noisy_sgd.launches = 0

@@ -7,10 +7,14 @@ whatever the layout, and each shard draws only its own elements
 (`repro/core/aggregation.py:91-96`).  The port does the same with
 Philox4x32-10 (Random123's rounds; `curand_Philox4x32_10`'s bits):
 
-- key: the 64-bit stream seed as (lo32, hi32) (`key_of`);
+- key: the 64-bit stream seed as (lo32, hi32) (`key_of`): a Python int,
+  or an integer tensor on the device (the train step's seed, as the
+  reference passes `jnp.uint32(t)`), whose int64 words the kernels read
+  from device memory, so that a captured step draws anew at each replay;
 - counter: (q lo32, q hi32, leaf index, purpose), with q = j // 4 for the
   element's row-major index j in the leaf's WHOLE shape, purpose NOISE (0,
-  the train step's noise) or INIT (1, the weights); the element takes
+  the train step's noise), INIT (1, the weights) or GAINS (2, the train
+  step's Rayleigh gains: leaf 0, j the worker index); the element takes
   output lane j % 4;
 - uniform: u = ((x >> 9) + 0.5) * 2^-23, exact in f32, inside (0, 1);
 - normal: Box-Muller on the lane pairs (0, 1) and (2, 3): r = sqrt(-2 ln
@@ -36,7 +40,7 @@ is rows of consecutive global indices, as the kernels walk it.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,7 +49,7 @@ Tensor = torch.Tensor
 M0, M1 = 0xD2511F53, 0xCD9E8D57      # Philox4x32 multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85      # key bumps (Weyl)
 MASK = 0xFFFFFFFF
-NOISE, INIT = 0, 1                   # the counter's purpose word
+NOISE, INIT, GAINS = 0, 1, 2        # the counter's purpose word
 U_STEP = 2.0 ** -23
 TWO_PI = 2.0 * math.pi               # rounded to f32 where it multiplies
 SQRT2 = math.sqrt(2.0)
@@ -84,17 +88,36 @@ class Part(NamedTuple):
 
 
 class Draw(NamedTuple):
-    """One leaf's part of a stream: the seed, the leaf index (the counter's
-    third word) and the part."""
-    seed: int
+    """One leaf's part of a stream: the seed (an int, or a one-element
+    integer tensor: `key_of`), the leaf index (the counter's third word)
+    and the part."""
+    seed: Union[int, Tensor]
     leaf: int
     part: Part
 
 
-def key_of(seed: int) -> Tuple[int, int]:
-    """(lo32, hi32) of a seed taken modulo 2^64."""
+def key_of(seed) -> Tuple:
+    """(lo32, hi32) of a seed taken modulo 2^64: ints of an int, int64
+    tensors (0-d, on the seed's device) of a one-element integer tensor,
+    read as int64 (two's complement: the same words as the int)."""
+    if isinstance(seed, Tensor):
+        s = seed.reshape(()).to(torch.int64)
+        return s & MASK, (s >> 32) & MASK
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     return s & MASK, s >> 32
+
+
+def seed_tensor(seed, device) -> Tensor:
+    """The seed as a 0-d int64 tensor on `device`, whose two words are
+    `key_of`'s (lo32, hi32): an int taken modulo 2^64 and filled in on the
+    device (no host-to-device copy, so a CUDA graph may capture it, with
+    the int), a tensor cast on its device (no copy when it already is
+    one)."""
+    if isinstance(seed, Tensor):
+        return seed.reshape(()).to(device=device, dtype=torch.int64)
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return torch.full((), s - (1 << 64) if s >> 63 else s,
+                      dtype=torch.int64, device=device)
 
 
 def split_part(full: Sequence[int], cuts) -> Part:
@@ -162,10 +185,11 @@ def _mulhilo(a: Tensor, m: int) -> Tuple[Tensor, Tensor]:
     return (prod >> 32) & MASK, prod & MASK
 
 
-def philox4x32(c0: Tensor, c1: Tensor, c2: Tensor, c3: Tensor, k0: int,
-               k1: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+def philox4x32(c0: Tensor, c1: Tensor, c2: Tensor, c3: Tensor, k0,
+               k1) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Philox4x32-10 of the counters (int64 tensors holding uint32 words)
-    under the key (k0, k1): the four output words, int64."""
+    under the key (k0, k1), ints or 0-d int64 tensors: the four output
+    words, int64."""
     for r in range(10):
         if r:
             k0, k1 = (k0 + W0) & MASK, (k1 + W1) & MASK
@@ -175,10 +199,10 @@ def philox4x32(c0: Tensor, c1: Tensor, c2: Tensor, c3: Tensor, k0: int,
     return c0, c1, c2, c3
 
 
-def bits_at(seed: int, leaf: int, purpose: int, q: Tensor
+def bits_at(seed, leaf: int, purpose: int, q: Tensor
             ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The four words of the counters (q lo, q hi, leaf, purpose) of q (an
-    int64 tensor) under `seed`'s key."""
+    int64 tensor) under `seed`'s key (`key_of`)."""
     k0, k1 = key_of(seed)
     return philox4x32(q & MASK, q >> 32, torch.full_like(q, leaf & MASK),
                       torch.full_like(q, purpose & MASK), k0, k1)
@@ -189,7 +213,7 @@ def uniform(x: Tensor) -> Tensor:
     return ((x >> 9).float() + 0.5) * U_STEP
 
 
-def _lanes(seed: int, leaf: int, purpose: int, j: Tensor, fn) -> Tensor:
+def _lanes(seed, leaf: int, purpose: int, j: Tensor, fn) -> Tensor:
     """fn(the four words) -> the four lanes' f32 values, at the counters
     of global indices j (int64), each j taking its lane."""
     lanes = torch.stack(fn(bits_at(seed, leaf, purpose, j >> 2)), dim=1)
@@ -234,7 +258,7 @@ def _trunc(x) -> tuple:
                              * SQRT2, -2.0, 2.0) for w in x)
 
 
-def normal_at(seed: int, leaf: int, j: Tensor,
+def normal_at(seed, leaf: int, j: Tensor,
               purpose: int = NOISE) -> Tensor:
     """The standard normals (f32) at global indices j (int64)."""
     return _lanes(seed, leaf, purpose, j, _box_muller)
@@ -244,6 +268,19 @@ def trunc_normal_at(seed: int, leaf: int, j: Tensor,
                     purpose: int = INIT) -> Tensor:
     """The init's truncated normals on [-2, 2] (f32) at global indices j."""
     return _lanes(seed, leaf, purpose, j, _trunc)
+
+
+def rayleigh_gains(seed, sigmas: Tensor) -> Tensor:
+    """The train step's gains [U] on sigmas' device: worker u's uniform is
+    the stream's (seed, leaf 0, purpose GAINS) at global index u, and
+    |h_u| = sigma_u sqrt(2 E) with E = -ln u ~ Exp(1), the law of
+    `core.channel.rayleigh_gains` (|h|^2 ~ Exp(mean 2 sigma^2)).  No host
+    value is read, so a captured step draws anew whenever its seed
+    tensor changes."""
+    j = torch.arange(sigmas.shape[-1], dtype=torch.int64,
+                     device=sigmas.device)
+    u = _lanes(seed, 0, GAINS, j, lambda x: tuple(uniform(w) for w in x))
+    return sigmas * torch.sqrt(2.0 * -torch.log(u))
 
 
 def normal_part(draw: Draw, start: int, count: int, device) -> Tensor:

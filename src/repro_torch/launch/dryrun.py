@@ -117,7 +117,7 @@ def _decode_cost(q, k, v, pos):
                           q.element_size())
 
 
-def _update_cost(p, g, shift, scale, z, alpha, seed, leaf, full, offset):
+def _update_cost(p, g, shift, scale, z, alpha, key, leaf, full, offset):
     """(bytes, operations) of one `noisy_sgd` launch
     (`kernels.noisy_update.bytes_flops`)."""
     part = (NU.Part(tuple(full), tuple(offset), tuple(p.shape)) if full

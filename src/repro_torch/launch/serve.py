@@ -46,6 +46,18 @@ bits differ from `jax.random.categorical`'s.  Every GQA attention of
 every step goes through the decode-attention kernel on the card
 (recurrentgemma-9b's local attention at head dim 256 included; MLA, the
 SSD block and the RG-LRU are plain torch, as in the reference).
+
+On one device the decode step is compiled as the reference's `jax.jit`
+compiles it: captured once as a CUDA graph (`graphs.StepGraph`, at the
+second position; the first runs eagerly as its warm-up) and replayed for
+every position of the prefill and of the generation, the token and the
+position copied into the graph's static buffers, the weights and the
+caches (written in place by the step) held by reference, and the logits
+cloned each step, since the next replay overwrites them.  Sampling stays
+outside the graph, as the reference samples outside its jit.  On a mesh
+the steps run eagerly (their gloo collectives cannot be captured), as
+they do under a MoE routing tape (`moe.routing`: its cursor moves in
+Python at each call) and inside `graphs.disable_graphs()`.
 """
 from __future__ import annotations
 
@@ -56,14 +68,17 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data import sample_tokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.distributed import initialize_distributed, world
 from repro_torch.launch.mesh import mesh_from_arg, model_axis
 from repro_torch.launch.steps import batch_rows, init_model, make_decode_step
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
+from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
 
@@ -80,6 +95,32 @@ class ServeResult:
     def tok_per_s(self) -> float:
         """Generated tokens per second of the decode phase."""
         return self.tokens.numel() / self.decode_s
+
+
+def compile_decode(step) -> graphs.StepGraph:
+    """The decode step (`steps.make_decode_step`'s, one device) as the
+    reference's `jax.jit` compiles it: `graph(params, caches, tokens1,
+    pos) -> logits`, a `graphs.StepGraph`: params and caches held by
+    reference (a cache the step returns anew is copied into the one it
+    was given, so the caches stay the graph's buffers), the token and the
+    position copied in; the logits are its static output.  Inside
+    `graphs.disable_graphs()` the same body runs eagerly."""
+    def body(params, caches, tokens1, pos):
+        logits, new = step(params, caches, tokens1, pos)
+        for dst, src in zip(tree_leaves(caches), tree_leaves(new)):
+            if src is not dst:
+                dst.copy_(src)
+        return logits
+
+    return graphs.StepGraph(body, static=(0, 1))
+
+
+def _decode(step, params, caches, tokens1, pos):
+    """One decode step, a `StepGraph`'s (the logits cloned: the caller
+    keeps them) or a mesh's: (logits, caches)."""
+    if isinstance(step, graphs.StepGraph):
+        return step(params, caches, tokens1, pos).clone(), caches
+    return step(params, caches, tokens1, pos)
 
 
 def _sync(device: torch.device) -> None:
@@ -109,7 +150,9 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
     is split over them too (`launch.sharding.data_specs`), each layer
     gathering its own as it runs.  The caches,
     the step positions and the tokens stay on the device, so the loop
-    syncs with the host only at the phase boundaries."""
+    syncs with the host only at the phase boundaries.  Without a mesh the
+    decode step is a CUDA graph replayed at every position (module
+    docstring); the result is the eager loop's bit for bit."""
     if cfg.arch_type == "audio":
         raise ValueError(
             f"{cfg.name} is an encoder-decoder: serve runs the decoder-only "
@@ -134,6 +177,8 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
     sampler = torch.Generator(dev).manual_seed(seed + 7)
     v = cfg.vocab_size
     logits_all = []
+    if mesh is None and MOE.active_tape() is None:
+        step = compile_decode(step)
 
     def next_token(logits: Tensor, sample: bool = True) -> Tensor:
         lg = logits[:, 0, :v].float()
@@ -145,8 +190,8 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(prompt_len):
-        logits, caches = step(params, caches, prompts[:, i:i + 1],
-                              positions[i])
+        logits, caches = _decode(step, params, caches, prompts[:, i:i + 1],
+                                 positions[i])
         logits_all.append(logits[:, 0])
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -155,7 +200,7 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *,
     t0 = time.perf_counter()
     for i in range(prompt_len, max_len):
         out.append(tok)
-        logits, caches = step(params, caches, tok, positions[i])
+        logits, caches = _decode(step, params, caches, tok, positions[i])
         logits_all.append(logits[:, 0])
         tok = next_token(logits)
     _sync(dev)

@@ -99,8 +99,7 @@ import torch.distributed as dist
 
 from repro_torch.core import attacks as ATK
 from repro_torch.core.attacks import AttackConfig, AttackType, first_n_mask
-from repro_torch.core.channel import (ChannelConfig, noise_std_for_snr,
-                                      sample_channel_gains)
+from repro_torch.core.channel import ChannelConfig, noise_std_for_snr
 from repro_torch.core.power_control import Policy, PowerConfig
 from repro_torch.kernels import ops, philox
 from repro_torch.launch.distributed import all_gather, all_reduce_sum
@@ -337,15 +336,25 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     [w B / U, (w + 1) B / U), and U must divide B).  mesh: None, a
     `launch.mesh.SweepMesh` whose worker axes span the ranks, or a
     `launch.mesh.WorkerAxes` (`WorkerAxes.every(U)`: all U workers in one
-    process, the mesh's one-process twin).  The round's random
-    draws may be an input: draws = {"h_abs": [U] Rayleigh gains, "z": one
+    process, the mesh's one-process twin).  `seed` is a one-element
+    integer tensor, as the reference passes `jnp.uint32(t)` (read on the
+    device: the step never reads it on the host), or an int, which the
+    step places on the params' device first.  The round's random draws
+    may be an input: draws = {"h_abs": [U] Rayleigh gains, "z": one
     standard-normal f32 tensor per leaf, in the JAX package's leaf order
-    (`repro_torch.tree`)}.  Without draws the gains come from a generator
-    on the params' device seeded from `seed`; without "z" leaf i's noise
-    comes from the counter-based stream keyed by `seed`
-    (`kernels/philox.py`, purpose NOISE, leaf i), drawn at this rank's
-    part's global indices by the update itself; every rank of a mesh
-    takes the same draws.
+    (`repro_torch.tree`)}.  Without draws the gains come from the
+    counter-based stream keyed by `seed` (`kernels/philox.py`,
+    `philox.rayleigh_gains`: purpose GAINS, leaf 0, worker u at index u);
+    without "z" leaf i's noise comes from the same stream (purpose NOISE,
+    leaf i), drawn at this rank's part's global indices by the update
+    itself, under the key the kernel reads from the seed tensor; every
+    rank of a mesh takes the same draws.  The seeded route on one device
+    reads no host value and, once the seed is a device tensor, copies
+    nothing from the host (the coefficients' constants are placed on the
+    device at the first call), so `launch/train.py` captures it as a CUDA
+    graph and replays it (`graphs.StepGraph`); the route with replayed
+    draws, and every mesh route (its collectives are gloo's, which a
+    graph cannot capture), run eagerly.
     use_floa=False is the plain mean: s = 1/U, no bias, no noise, nothing
     drawn.  metrics: {"loss": the mean per-worker loss over all U,
     "grad_scale": sum(s) + bias_w}.  On a mesh with a "model" axis of
@@ -369,6 +378,14 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     channel, power, attack = floa["channel"], floa["power"], floa["attack"]
     noisy = use_floa and channel.noise_std > 0.0
     moe_coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
+    placed: Dict = {}   # the coefficients' constants, by device
+
+    def constants(dev) -> Dict[str, Tensor]:
+        if dev not in placed:
+            placed[dev] = {**ATK.placed_constants(power, channel, attack,
+                                                  dev),
+                           "sigmas": channel.sigmas().to(dev)}
+        return placed[dev]
 
     def weighted_loss(params, rows, coeffs):
         # this process's rows; on a mesh the MoE aux is the global batch's
@@ -390,13 +407,14 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         leaves_p, treedef = tree_flatten(params)
         dev = leaves_p[0].device
         gbar, eps2 = state["gbar"], state["eps2"]
-        seed = int(seed)
+        seed = philox.seed_tensor(seed, dev)
         if use_floa:
+            const = constants(dev)
             if draws is None:   # the gains; the noise comes from the stream
-                gen = torch.Generator(dev).manual_seed(seed)
-                draws = {"h_abs": sample_channel_gains(gen, channel, dev)}
+                draws = {"h_abs": philox.rayleigh_gains(seed,
+                                                        const["sigmas"])}
             s, bias_w = ATK.signed_coefficients(
-                draws["h_abs"], power, channel, attack, gbar, eps2)
+                draws["h_abs"], power, channel, attack, gbar, eps2, const)
         else:
             s = torch.full((u,), 1.0 / u, device=dev)
             bias_w = torch.zeros((), device=dev)

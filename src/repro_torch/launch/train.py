@@ -8,7 +8,13 @@ training on one device, or on U ranks, one FL worker each.
 
 Runs real steps of `launch.steps.make_train_step` on random weights drawn
 from seed 0, with the synthetic Markov token stream (`data.text`) as the
-batches (step t draws from seed t); as in the reference driver, a VLM's
+batches (step t draws from seed t) and a device step counter as the
+step's seed, as the reference passes `jnp.uint32(t)`.  On one device the
+loop replays the step captured as a CUDA graph (`compile_step`, the
+reference's `jax.jit`; `graphs.disable_graphs()` runs it eagerly), and
+reads the loss each step as the reference's loop does; on a mesh the
+steps run eagerly (their gloo collectives cannot be captured).  As in the
+reference driver, a VLM's
 batch adds a zero image prefix of its n_prefix positions and an
 encoder-decoder's standard-normal frames of min(seq, enc_seq_cap)
 positions (drawn from seed t on the device).  One device is U = 1 worker, so
@@ -44,6 +50,7 @@ import time
 import torch
 
 from repro_torch import checkpoint as CK
+from repro_torch import graphs
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.power_control import Policy
 from repro_torch.data import sample_tokens
@@ -53,6 +60,30 @@ from repro_torch.launch.mesh import mesh_from_arg
 from repro_torch.launch.sharding import gather_params
 from repro_torch.launch.steps import (init_floa_state, init_model,
                                       make_train_step)
+from repro_torch.tree import tree_leaves
+
+
+def compile_step(step_fn) -> graphs.StepGraph:
+    """The one-device train step as the reference's `jax.jit` compiles it:
+    `step(params, state, batch, seed) -> (params, state, metrics)`
+    captured as a CUDA graph (`graphs.StepGraph`) and replayed.  params
+    and state are held by reference, the graph's static parameter
+    buffers: each call writes the new params and state into them in place
+    and returns them, so the caller passes back what it was given (as the
+    loop below does); batch and seed (a one-element integer tensor on the
+    device, read there: a replay draws the gains and the noise of the
+    seed it holds) are copied in at each call.  metrics are the graph's
+    static outputs, overwritten by the next call.  The first call runs
+    eagerly (the warm-up), the second captures; inside
+    `graphs.disable_graphs()` every call runs the same body eagerly."""
+    def body(params, state, batch, seed):
+        new_params, new_state, metrics = step_fn(params, state, batch, seed)
+        for tree, new in ((params, new_params), (state, new_state)):
+            for dst, src in zip(tree_leaves(tree), tree_leaves(new)):
+                dst.copy_(src)
+        return params, state, metrics
+
+    return graphs.StepGraph(body, static=(0, 1))
 
 
 def make_batch(cfg, batch: int, seq: int, step: int, device) -> dict:
@@ -113,6 +144,8 @@ def main(argv=None) -> None:
     params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev,
                         mesh=mesh)
     state = init_floa_state(dev)
+    seed = torch.zeros((), dtype=torch.int64, device=dev)
+    step = compile_step(step_fn) if mesh is None else step_fn
     if lead:
         print(f"arch={cfg.name} params={meta['dim']:,} workers="
               f"{meta['num_workers']} policy={args.policy} "
@@ -121,7 +154,8 @@ def main(argv=None) -> None:
     for t in range(args.steps):
         batch = make_batch(cfg, args.batch, args.seq, t, dev)
         t0 = time.perf_counter()
-        params, state, metrics = step_fn(params, state, batch, t)
+        params, state, metrics = step(params, state, batch, seed)
+        seed += 1
         loss = float(metrics["loss"])
         if lead:
             print(f"step {t:4d} loss {loss:8.4f} "

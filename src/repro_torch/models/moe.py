@@ -219,6 +219,13 @@ def routing(tape: RoutingTape) -> Iterator[RoutingTape]:
         _TAPE.reset(token)
 
 
+def active_tape() -> Optional[RoutingTape]:
+    """The tape of the innermost `routing` block, or None: its cursor
+    moves in Python at every call, so a step run under one is not
+    captured as a CUDA graph (`launch/serve.py`)."""
+    return _TAPE.get()
+
+
 def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """The top-k gates renormalized to sum 1, and their experts [T, k]
     (under `routing`, the tape's experts)."""

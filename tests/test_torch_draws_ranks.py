@@ -3,8 +3,8 @@ ranks (tests/torch_dist_driver.py) runs the f32 smoke qwen3-4b on (2, 1),
 FSDP over "data" at a lowered size (so the noise of most leaves is drawn
 by "data" part), and on (1, 2) (drawn by "model" part), 2 BEV steps each:
 
-- with the step's own draws (`draws=None`: the gains from a generator
-  seeded by the step index, the noise from the counter-based stream);
+- with the step's own draws (`draws=None`: the gains and the noise from
+  the counter-based stream keyed by the step index);
 - with the one-process run's draws replayed: the same gains, and each
   leaf's noise the stream's draw of the WHOLE leaf (`kernels.philox.
   normal`), of which each rank takes its part.
@@ -26,7 +26,6 @@ import torch
 from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
 
 from repro_torch.configs import get_smoke
-from repro_torch.core.channel import sample_channel_gains
 from repro_torch.kernels import philox as P
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import WorkerAxes
@@ -50,14 +49,14 @@ def _tokens(cfg):
 
 
 def _whole_draws(cfg, u):
-    """The one-process run's draws of each step: the gains its generator
-    draws, and every leaf's noise drawn whole from the stream."""
+    """The one-process run's draws of each step: its gains
+    (`philox.rayleigh_gains`), and every leaf's noise drawn whole from the
+    stream."""
     channel = ST.default_floa(WorkerAxes.every(u),
                               ST.param_count(cfg))["channel"]
     shapes = [tuple(x.shape) for x in tree_leaves(
         ST.init_model(cfg, None, "meta"))]
-    return [{"h_abs": sample_channel_gains(
-                torch.Generator().manual_seed(t), channel, "cpu").numpy(),
+    return [{"h_abs": P.rayleigh_gains(t, channel.sigmas()).numpy(),
              "z": [P.normal(P.Draw(t, i, P.Part.whole(sh)), "cpu").numpy()
                    for i, sh in enumerate(shapes)]}
             for t in range(STEPS)]

@@ -6,6 +6,7 @@ package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1127,14 +1128,20 @@ def test_lm_lane_kernels_at_production_d(cuda_device):
 @pytest.mark.gpu
 def test_lm_lane_round_matches_plain_route(cuda_device):
     """Two rounds of the full LM lane through the kernels and through
-    their plain versions, from the same seeded draws."""
+    their plain versions, from the same seeded draws; both runs draw the
+    weights with the init kernel, one launch a filled leaf."""
+    from repro_torch.configs import get_lm_sweep
+    from repro_torch.launch.sharding import filled_leaves
     ops.reset_launches()
     rk = TF.run_lm_lane(2, device=cuda_device)
     counts = ops.launch_counts()
     rp = TF.run_lm_lane(2, device=cuda_device, plain=True)
-    assert ops.launch_counts() == counts
+    inits = filled_leaves(get_lm_sweep())
+    assert ops.launch_counts() == {**counts,
+                                   "counter_trunc_normal": 2 * inits}
     assert {k: v for k, v in counts.items() if v} == {
-        "floa_step_batched": 2, "grad_stats": 2, "sort_columns": 2}
+        "floa_step_batched": 2, "grad_stats": 2, "sort_columns": 2,
+        "counter_trunc_normal": inits}
     np.testing.assert_allclose(rk.loss, rp.loss, rtol=1e-4)
     np.testing.assert_allclose(rk.grad_norm, rp.grad_norm, rtol=1e-4)
     from repro_torch.tree import tree_leaves
@@ -1672,3 +1679,128 @@ def test_noisy_kernels_at_the_fast_path_edges(cuda_device, case, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=2 ** -7,
                                atol=1e-8)
+
+
+# ------------------------------------------------ compiled execution
+
+def _tiny_lm():
+    from repro_torch.configs import get_smoke
+    return dataclasses.replace(get_smoke("qwen3-4b"), n_layers=2)
+
+
+@pytest.mark.gpu
+def test_graphed_serve_equals_eager(cuda_device):
+    """`serve` replaying its captured decode step gives the eager loop's
+    tokens and logits bit for bit (sampled, so the sampler's generator
+    runs between replays), with the same launches; one capture, and every
+    position after the first (the warm-up) a replay."""
+    from repro_torch import graphs
+    from repro_torch.launch.serve import serve
+    cfg, (b, p, g) = _tiny_lm(), (4, 12, 10)
+    graphs.reset_totals()
+    ops.reset_launches()
+    got = serve(cfg, b, p, g, device=cuda_device, temperature=0.7)
+    counts = ops.launch_counts()
+    tot = graphs.totals()
+    assert (tot["captures"], tot["replays"]) == (1, p + g - 1)
+    ops.reset_launches()
+    with graphs.disable_graphs():
+        want = serve(cfg, b, p, g, device=cuda_device, temperature=0.7)
+    assert ops.launch_counts() == counts
+    assert counts["decode_attention"] == (p + g) * cfg.n_layers
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits, want.logits)
+
+
+def _train_runs(dev, seeds, graphed):
+    """The tiny LM's train steps from one init at the given seeds: the
+    graphed loop (`launch.train.compile_step`, a device counter copied
+    in) or the eager steps."""
+    from repro_torch import graphs
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    cfg = _tiny_lm()
+    step, _ = ST.make_train_step(cfg, None, dict(global_batch=4, seq_len=16),
+                                 alpha=0.05)
+    params = ST.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    state = ST.init_floa_state(dev)
+    run = TR.compile_step(step) if graphed else step
+    losses = []
+    with contextlib.nullcontext() if graphed else graphs.disable_graphs():
+        for t, s in enumerate(seeds):
+            batch = TR.make_batch(cfg, 4, 16, t, dev)
+            seed = torch.tensor(s, dtype=torch.int64, device=dev)
+            params, state, m = run(params, state, batch, seed)
+            losses.append(float(m["loss"]))
+    return params, state, losses
+
+
+@pytest.mark.gpu
+def test_graphed_train_step_equals_eager(cuda_device):
+    """Three train steps replaying the captured step (its seed a device
+    tensor the kernel reads) give the eager steps' params, stale stats and
+    losses bit for bit; a replay under another seed draws other noise."""
+    from repro_torch.tree import tree_leaves
+    seeds = [3, 4, 5]
+    gp, gs, gl = _train_runs(cuda_device, seeds, graphed=True)
+    ep, es, el = _train_runs(cuda_device, seeds, graphed=False)
+    assert gl == el
+    for a, b in zip(tree_leaves(gp) + tree_leaves(gs),
+                    tree_leaves(ep) + tree_leaves(es)):
+        assert torch.equal(a, b)
+    op, _, _ = _train_runs(cuda_device, [3, 4, 6], graphed=True)
+    assert not torch.equal(tree_leaves(op)[0], tree_leaves(gp)[0])
+
+
+@pytest.mark.gpu
+def test_graphed_fig1_sweep_equals_eager(cuda_device):
+    """Fig. 1's lanes through the round's captured graph (the seeded
+    draws from the lanes' generators inside it) give the eager loop's
+    losses, grad norms and final params bit for bit, with the same
+    launches by shape."""
+    from repro_torch import graphs
+    ops.reset_launches()
+    got = TF.run_figure(LANES["fig1"], eval_every=2, mc=SMOKE,
+                        device=cuda_device)
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
+    ops.reset_launches()
+    with graphs.disable_graphs():
+        want = TF.run_figure(LANES["fig1"], eval_every=2, mc=SMOKE,
+                             device=cuda_device)
+    assert (ops.launch_counts(), ops.launch_shapes()) == (counts, shapes)
+    assert np.array_equal(got.loss, want.loss)
+    assert np.array_equal(got.grad_norm, want.grad_norm)
+    for k in want.params:
+        assert torch.equal(got.params[k], want.params[k])
+
+
+@pytest.mark.gpu
+def test_graphed_resume_equals_uninterrupted(cuda_device, tmp_path):
+    """The showdown (Markov, K-of-U, colluding lanes) at a smoke width,
+    graphed, chunked with a checkpoint a chunk: resumed from its second
+    checkpoint (a fresh engine, graphed) it ends bitwise as the
+    uninterrupted run, whose checkpoints hold the eager run's generator
+    states."""
+    import shutil
+    from repro_torch import graphs
+    from repro_torch.checkpoint import ckpt as CKPT
+    rounds = 8
+    full = TF.run_showdown(rounds, mc=SMOKE, device=cuda_device,
+                           checkpoint_dir=str(tmp_path / "full"))
+    with graphs.disable_graphs():
+        eager = TF.run_showdown(rounds, mc=SMOKE, device=cuda_device,
+                                checkpoint_dir=str(tmp_path / "eager"))
+    assert np.array_equal(full.loss, eager.loss)
+    a, _ = CKPT.restore_pytree(str(tmp_path / "full"), 4)
+    b, _ = CKPT.restore_pytree(str(tmp_path / "eager"), 4)
+    for k in a["carry"]["rng"]:
+        assert torch.equal(a["carry"]["rng"][k], b["carry"]["rng"][k])
+    shutil.copytree(tmp_path / "full", tmp_path / "cut")
+    for f in (tmp_path / "cut").glob("ckpt_6*"):
+        f.unlink()
+    resumed = TF.run_showdown(rounds, mc=SMOKE, device=cuda_device,
+                              checkpoint_dir=str(tmp_path / "cut"),
+                              resume=True)
+    assert np.array_equal(resumed.loss, full.loss)
+    for k in full.params:
+        assert torch.equal(resumed.params[k], full.params[k])

@@ -113,9 +113,23 @@ def build(label: str, src_dir: str, out_dir: str):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def load(lib: str) -> ctypes.CDLL:
+# `noisy_sgd`'s signature before its key moved to device memory: the key
+# as two uint32 arguments (lo32, hi32) in place of one pointer
+HOST_KEY_SGD = [*_build.SIGNATURES["noisy_update"]["noisy_sgd"][:8],
+                ctypes.c_uint32, ctypes.c_uint32,
+                *_build.SIGNATURES["noisy_update"]["noisy_sgd"][9:]]
+
+
+def load(lib: str, src_dir: str) -> ctypes.CDLL:
+    """The library, its `noisy_sgd` bound by the signature its source
+    declares (`host_key`: the key as two words, before it was read from
+    device memory)."""
     so = ctypes.CDLL(lib)
+    with open(os.path.join(src_dir, "noisy_update.cu")) as f:
+        so.host_key = "const void* key, uint32_t leaf" not in f.read()
     for fn, argtypes in _build.SIGNATURES["noisy_update"].items():
+        if fn == "noisy_sgd" and so.host_key:
+            argtypes = HOST_KEY_SGD
         getattr(so, fn).argtypes = argtypes
         getattr(so, fn).restype = ctypes.c_int
     return so
@@ -147,11 +161,12 @@ def ptxas_table(log: str) -> dict:
 def sgd(lib, out, p, g, shift, scale, z, mode, part):
     """lib's noisy_sgd of one part: out from p, g (and z, mode 1)."""
     nd, st, off, ln = NU._geometry(part)
-    k0, k1 = P.key_of(SEED)
+    key_t = P.seed_tensor(SEED, p.device)   # held past the launch
+    key = P.key_of(SEED) if lib.host_key else (key_t.data_ptr(),)
     _build.check(lib.noisy_sgd(
         out.data_ptr(), p.data_ptr(), g.data_ptr(), shift.data_ptr(),
         scale.data_ptr(), None if z is None else z.data_ptr(), ALPHA, mode,
-        k0, k1, LEAF, nd, st, off, ln, _build.DTYPE_CODES[p.dtype],
+        *key, LEAF, nd, st, off, ln, _build.DTYPE_CODES[p.dtype],
         torch.cuda.current_stream().cuda_stream), "noisy_sgd")
     return out
 
@@ -292,7 +307,7 @@ def main() -> int:
                       if re.search(SM.NOISY_PATTERN, fn)}
         emit(args.out, "sass", version=lb, kernels=mixes[lb],
              trig_reductions=reductions)
-        libs[lb] = load(lib)
+        libs[lb] = load(lib, srcs[lb])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     # the clock under load: the bf16 update, drawn, at the embedding
