@@ -267,8 +267,22 @@ Needs one CUDA card, nvcc, and this checkout.  Phases, one JSON line each
               (their full-sequence logits and the gradient of the
               step's loss, a prefix of 64 positions or 64 frames a row,
               within 1e-4 of one rank) and seamless's train step on
-              (2, 1), the replicas bitwise.  Times labelled "N ranks,
-              gloo, one card".
+              (2, 1), the replicas bitwise.  The train and prefill steps
+              split the residual stream over "model" on the sequence by
+              default ("sequence", the reference's `make_constrain`);
+              (g) beside each case the same work on "batch_only" (the
+              stream replicated) from the same weights and draws: (b)'s
+              and (d)'s train steps (losses, eps2 and params at (d)'s
+              gates), (f)'s and the frontends' gradients of the step's
+              loss (at their gates) and prefill logits (phase 15's
+              bounds; f32: rtol 1e-4), each route's ms, collectives' ms
+              and peak a rank (and above the memory held before); and
+              qwen3-4b cut to 18 layers under remat, 8 x 2048, one
+              train step a route, the peak a rank against
+              `launch.dryrun.trace_step`'s on a fake group of 2 (within
+              10 % on each route), the drop from "batch_only" to
+              "sequence" within 10 % of the trace's.
+              Times labelled "N ranks, gloo, one card".
   26. mla_ssm MLA and the SSD block, no kernel of the port (all counts 0):
               deepseek-v2-236b at full width (d 5120, 128 heads, q_lora
               1536, kv_lora 512, 160 experts top-6 + 2 shared) cut to 4 of
@@ -520,6 +534,19 @@ TP_GRAD_REL = 1e-1
 # third or more
 TP_MLA_LAYERS, TP_SSD_LAYERS = 1, 4
 TP_GRAD_REL_F32 = 1e-3
+# (g) in phase 25's 2-rank child: each case on both routes of the
+# residual stream; qwen3-4b cut to SEQ_PEAK_LAYERS of its 36 under remat
+# at SEQ_PEAK_BATCH x SEQ_PEAK_SEQ on (1, 2), the peak a rank against the
+# dry run's.  At 2 x 2048 the update's peak (the params and their
+# gradients) hides the saved inputs and both routes peak alike; at
+# 8 x 2048 "batch_only" peaks with every block's input whole (the dry
+# run: 12.51 GB at 18 layers, 15.84 at 36) and "sequence" holds half of
+# them (11.59, 15.21); the card's drop from "batch_only" to "sequence"
+# within SEQ_DROP_TOL of the dry run's.  The depth cut halves the step's
+# gloo calls (36 layers: 34 s a step on "sequence", 29 of them gloo's)
+SEQ_ROUTES = ("sequence", "batch_only")
+SEQ_PEAK_BATCH, SEQ_PEAK_SEQ, SEQ_DROP_TOL = 8, 2048, 0.10
+SEQ_PEAK_LAYERS = 18
 # The MLA / SSD phase (26): deepseek-v2-236b at full width cut to MLA_LAYERS
 # of its 60 layers (serve, long_500k), to MLA_CUT_LAYERS for the f32 checks
 # and the train step and prefill; mamba2-1.3b at full width and depth, its
@@ -2030,7 +2057,7 @@ def lm_mesh_parts(torch, rank: int, world: int, out: str) -> None:
 def spawn_ranks(flag: str, world: int, work: str, timeout: int,
                 extra=()):
     """Run `chip_smoke.py FLAG RANK WORLD STORE WORK [EXTRA]` as `world`
-    ranks on this card (a FileStore under `work`, logs in
+    ranks on this card (a new FileStore under `work`, logs in
     work/<flag>.rank<r>.log);
     every rank must exit 0, and the first that does not (or the timeout)
     ends the others.  The ranks share the card, so their allocators
@@ -2042,12 +2069,17 @@ def spawn_ranks(flag: str, world: int, work: str, timeout: int,
     tag = flag.strip("-")
     env = dict(os.environ)
     env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # a store of its own for each group: an earlier group's FileStore, left
+    # behind, would hand this group's ranks its dead ranks' addresses
+    store = os.path.join(work, f"{tag}.{world}.store")
+    if os.path.exists(store):
+        os.remove(store)
     t0 = time.perf_counter()
     logs = [open(os.path.join(work, f"{tag}.rank{r}.log"), "w")
             for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r), str(world),
-         os.path.join(work, f"{tag}.store"), work, *extra], cwd=ROOT, env=env,
+         store, work, *extra], cwd=ROOT, env=env,
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
     try:
         # a rank that fails ends the others at once: they would wait for
@@ -2124,8 +2156,9 @@ def lm_mesh_check(torch, lm, rs, lines, work, shard_tally) -> None:
 
 def timed_collectives(torch) -> list:
     """Time every collective of the LM steps on this rank (the
-    all_reduces of `launch.distributed`, the CE's max, the stale stats'
-    sum and the logits' gathers), the device synced around each: gloo
+    all_reduces, all_gathers and reduce_scatters of `launch.distributed`,
+    the sequence split's among them; the CE's max, the stale stats' sum
+    and the logits' gathers), the device synced around each: gloo
     stages CUDA tensors through the host, which syncs the stream anyway.
     Returns the one-element list the milliseconds accumulate in."""
     from repro_torch.launch import distributed as D
@@ -2144,6 +2177,8 @@ def timed_collectives(torch) -> list:
             return out
         return run
     D.all_reduce_sum = timed(D.all_reduce_sum)
+    D.all_gather = timed(D.all_gather)
+    D.reduce_scatter = timed(D.reduce_scatter)
     C.all_reduce_max = timed(C.all_reduce_max)
     ST.all_reduce_sum = timed(ST.all_reduce_sum)
     LM.all_gather = timed(LM.all_gather)
@@ -2151,14 +2186,15 @@ def timed_collectives(torch) -> list:
 
 
 def tp_train(torch, cfg, mesh, coll, tape=None, params=None, draws=None,
-             steps=LM_MODEL_STEPS):
+             steps=LM_MODEL_STEPS, constrain="sequence"):
     """`steps` BEV train steps of cfg on `mesh` (a model mesh, or None / a
     WorkerAxes: one process) from cfg's weights (`lm_params`'s, this
     rank's shards of them; or `params`, given), under `tape`'s routing
-    when given, each step's draws `draws[t]` (None: seeded t): (checksums
-    of the initial shards, the final shards, the log, meta, peak memory
-    GB).  Each step's collectives' ms (`timed_collectives`) in its log
-    entry."""
+    when given, each step's draws `draws[t]` (None: seeded t), the
+    residual stream on `constrain`'s route: (checksums of the initial
+    shards, the final shards, the log, meta, peak memory GB; meta's
+    "held_gb" the memory held as the steps start).  Each step's
+    collectives' ms (`timed_collectives`) in its log entry."""
     import contextlib
     from repro_torch.core.power_control import Policy
     from repro_torch.launch import steps as ST
@@ -2166,7 +2202,8 @@ def tp_train(torch, cfg, mesh, coll, tape=None, params=None, draws=None,
     from repro_torch.tree import tree_leaves
     shape = dict(global_batch=TRAIN_BATCH, seq_len=tp_seq(cfg), kind="train")
     step, meta = ST.make_train_step(cfg, mesh, shape, alpha=TRAIN_ALPHA,
-                                    policy=Policy.BEV, fsdp=False)
+                                    policy=Policy.BEV, fsdp=False,
+                                    constrain=constrain)
     if params is None:
         params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
                                "cuda", mesh=mesh, fsdp=False)
@@ -2176,6 +2213,7 @@ def tp_train(torch, cfg, mesh, coll, tape=None, params=None, draws=None,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    meta["held_gb"] = torch.cuda.memory_allocated() / 1e9
     state, log = ST.init_floa_state("cuda"), []
     with (MOE.routing(tape) if tape is not None else contextlib.nullcontext()):
         for t in range(steps):
@@ -2206,14 +2244,17 @@ def tp_seq(cfg) -> int:
     return TRAIN_SEQ + (FRONT_TP_N if cfg.arch_type == "vlm" else 0)
 
 
-def tp_grads(torch, cfg, mesh, tape, params=None):
+def tp_grads(torch, cfg, mesh, tape, params=None, sequence=False):
     """The gradient of the train step's loss at U = 1 and unit weight (the
     mean per-sequence CE plus the MoE aux term) on step 0's batch, from
     cfg's weights (`lm_params`'s, or `params`, given; this rank's shards on
-    a model mesh), under `tape`'s routing: a list of leaves (this rank's
-    shards)."""
+    a model mesh), under `tape`'s routing, the residual stream replicated
+    over "model" or (sequence) split on the sequence, the norms' scales
+    then summed over "model" as the train step sums them: a list of
+    leaves (this rank's shards)."""
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import model_axis
+    from repro_torch.launch.sharding import row_leaves
     from repro_torch.models import moe as MOE
     from repro_torch.models.common import tensor_parallel
     from repro_torch.tree import tree_flatten, tree_unflatten
@@ -2223,13 +2264,215 @@ def tp_grads(torch, cfg, mesh, tape, params=None):
     leaves, treedef = tree_flatten(params)
     xs = [x.detach().requires_grad_(True) for x in leaves]
     batch = lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, FRONT_TP_N)
-    with MOE.routing(tape), tensor_parallel(model_axis(mesh)):
+    axis = model_axis(mesh)
+    with MOE.routing(tape), tensor_parallel(axis, sequence):
         per_ex, aux = ST.per_example_loss(tree_unflatten(treedef, xs),
                                           batch, cfg)
         loss = per_ex.float().mean()
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_coef * aux
-    return list(torch.autograd.grad(loss, xs))
+    grads = list(torch.autograd.grad(loss, xs))
+    if sequence:
+        ST.sum_leaves(grads, row_leaves(cfg, axis.size), axis.group)
+    return grads
+
+
+def replaying(tape):
+    """A fresh RoutingTape replaying `tape`'s recorded expert choices (its
+    own flips counted), leaving `tape` as it is."""
+    from repro_torch.models import moe as MOE
+    twin = MOE.RoutingTape()
+    twin.recorded = list(tape.recorded)
+    return twin.replay()
+
+
+def ranks_max(torch, values) -> list:
+    """The elementwise max over the process group of a list of floats."""
+    import torch.distributed as dist
+    t = torch.tensor(values, dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def train_route_fields(log, peak, meta) -> dict:
+    """A train run's (`tp_train`'s log, peak and meta) warm ms a step,
+    collectives' ms, peak a rank and peak above the memory held as it
+    started, on the route it took."""
+    warm = log[1:]
+    return {"constrain": meta["constrain"],
+            "ms_per_step_warm": sum(x["ms"] for x in warm) / len(warm),
+            "collective_ms_warm": sum(x["collective_ms"] for x in warm)
+            / len(warm), "peak_memory_gb": peak,
+            "peak_above_held_gb": peak - meta["held_gb"]}
+
+
+def train_routes(torch, cfg, mesh, coll, first, tape=None) -> dict:
+    """(g) for (b) and (d): `first`, tp_train's (_, params, log, meta,
+    peak) on the default "sequence" route, against the same steps on
+    "batch_only" from the same weights and draws (replaying `tape`'s
+    expert choices when given): each route's ms, collectives' ms and
+    peak; over every rank the params' elements outside TP_PARAM_ULPS
+    above TP_PARAM_FLOOR, their largest relative difference, the losses'
+    largest |difference| and eps2's relative one, and the verdict (the
+    same on every rank)."""
+    from repro_torch.tree import tree_leaves
+    _, params, log, meta, peak = first
+    seq = train_route_fields(log, peak, meta)
+    twin = replaying(tape) if tape is not None else None
+    _, other, olog, ometa, opeak = tp_train(torch, cfg, mesh, coll, twin,
+                                            constrain="batch_only")
+    outside, worst = 0.0, 0.0
+    for a, b in zip(tree_leaves(params), tree_leaves(other)):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        lim = TP_PARAM_ULPS * torch.maximum(a.abs(), b.abs())
+        outside += float((d > lim + TP_PARAM_FLOOR).sum())
+        worst = max(worst, float(d.max()) / max(float(b.abs().max()),
+                                                1e-30))
+    del other, a, b, d, lim
+    torch.cuda.empty_cache()
+    outside, worst, loss, eps2 = ranks_max(torch, [
+        outside, worst, max(abs(x["loss"] - y["loss"])
+                            for x, y in zip(log, olog)),
+        max(abs(x["eps2"] - y["eps2"]) / abs(y["eps2"])
+            for x, y in zip(log, olog))])
+    ok = (seq["constrain"] == "sequence" and ometa["constrain"]
+          == "batch_only" and outside == 0 and loss <= BF16_LOGIT_MEAN
+          and eps2 <= 1e-2)
+    return {"sequence": seq,
+            "batch_only": train_route_fields(olog, opeak, ometa),
+            "params_outside_max_rank": outside, "params_max_rel_diff": worst,
+            "loss_max_abs_diff": loss, "eps2_max_rel_diff": eps2,
+            "router_flips": int(twin.flips) if twin is not None
+            and twin.flips is not None else 0,
+            "param_tol": {"rel": TP_PARAM_ULPS, "floor": TP_PARAM_FLOOR},
+            "loss_tol": BF16_LOGIT_MEAN, "ok": ok}
+
+
+def timed_grads(torch, cfg, mesh, tape, coll, sequence) -> tuple:
+    """`tp_grads` on a route, timed: (the gradient, its route's ms,
+    collectives' ms, peak GB and peak above the memory held before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0, c0 = time.perf_counter(), coll[0]
+    grads = tp_grads(torch, cfg, mesh, tape, sequence=sequence)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return grads, {"constrain": SEQ_ROUTES[not sequence],
+                   "ms": (time.perf_counter() - t0) * 1e3,
+                   "collective_ms": coll[0] - c0,
+                   "peak_memory_gb": peak / 1e9,
+                   "peak_above_held_gb": (peak - held) / 1e9}
+
+
+def grads_routes(torch, cfg, mesh, grads, gtape, coll, first) -> dict:
+    """(g) for (f) and the frontends: the gradient of the step's loss on
+    "sequence" (replaying `gtape`'s expert choices) against `grads`, the
+    "batch_only" one `timed_grads` gave with `first` (its route's
+    fields): each route's ms, collectives' ms and peak, and each leaf's
+    |a - b|_2 / |b|_2 over every rank's shards (the same on every
+    rank)."""
+    import torch.distributed as dist
+    from repro_torch.tree import tree_leaves
+    seq, fields = timed_grads(torch, cfg, mesh, replaying(gtape), coll, True)
+    sums = torch.tensor([[float(torch.sum(torch.square(a.float() - b.float()),
+                                          dtype=torch.float64)),
+                          float(torch.sum(torch.square(b.float()),
+                                          dtype=torch.float64))]
+                         for a, b in zip(seq, grads)], dtype=torch.float64)
+    del seq
+    torch.cuda.empty_cache()
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM)
+    rel = (sums[:, 0].sqrt() / sums[:, 1].sqrt().clamp_min(1e-30)).tolist()
+    return {"sequence": fields, "batch_only": first,
+            "grads_rel_diff_max": max(rel)}
+
+
+def prefill_routes(torch, cfg, mesh, coll) -> dict:
+    """(g): cfg's prefill on both routes from its weights (this rank's
+    shards) on step 0's batch less its last token, the expert choices of
+    "sequence" replayed on "batch_only": each route's ms, collectives' ms,
+    peak and peak above the memory held before, the logits against each other at phase 15's bf16 bounds
+    (f32: rtol RTOL_WHOLE_RUN of the largest |logit|), the verdict the same
+    on every rank."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import moe as MOE
+    params = ST.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                           "cuda", mesh=mesh)
+    batch = lm_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, FRONT_TP_N)
+    batch["tokens"] = batch["tokens"][:, :-1]
+    # a batch of tokens alone: the step is built for its shape, so
+    # meta["constrain"] is this call's route (a frontend's prefix or
+    # frames, FRONT_TP_N positions, are not its config's shape: the route
+    # asked for)
+    shape = None if len(batch) > 1 else dict(
+        global_batch=TRAIN_BATCH, seq_len=batch["tokens"].shape[1])
+    tape, out, logits = MOE.RoutingTape(), {}, {}
+    for c in SEQ_ROUTES:
+        step, meta = ST.make_prefill_step(cfg, mesh, shape, constrain=c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0, c0 = time.perf_counter(), coll[0]
+        with MOE.routing(tape if c == "sequence" else replaying(tape)):
+            logits[c] = step(params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[c] = {"constrain": meta["constrain"],
+                  "ms": (time.perf_counter() - t0) * 1e3,
+                  "collective_ms": coll[0] - c0, "peak_memory_gb": peak / 1e9,
+                  "peak_above_held_gb": (peak - held) / 1e9}
+    a, b = logits["sequence"], logits["batch_only"]
+    if cfg.dtype == torch.float32:
+        atol = RTOL_WHOLE_RUN * float(b.abs().max())
+        parity = {"max_abs_diff": float((a - b).abs().max()),
+                  "rtol": RTOL_WHOLE_RUN, "atol": atol}
+        ok = bool(torch.allclose(a, b, rtol=RTOL_WHOLE_RUN, atol=atol))
+    else:
+        parity, ok = logit_parity(torch, a, b, cfg.vocab_size)
+    ok = ok and [out[c]["constrain"] for c in SEQ_ROUTES] == list(SEQ_ROUTES)
+    out.update(logits_parity=parity,
+               ok=bool(ranks_max(torch, [float(not ok)])[0] == 0))
+    del params, logits, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_peak_part(torch, cfg, mesh, coll) -> dict:
+    """(g): cfg (`seq_peak_cfg`: qwen3-4b, remat) on `mesh`, train_4k's layout
+    at SEQ_PEAK_BATCH x SEQ_PEAK_SEQ, on each route: the step the dry run
+    traces (`steps.make_step`) from this rank's shards and the dry run's
+    arguments (`dryrun.step_args`), one step (the phase's earlier parts
+    built every kernel it launches): its ms, collectives' ms and peak
+    above the memory held before the arguments."""
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch import steps as ST
+    shape = dict(global_batch=SEQ_PEAK_BATCH, seq_len=SEQ_PEAK_SEQ,
+                 kind="train")
+    out = {}
+    for c in SEQ_ROUTES:
+        step, meta = ST.make_step(cfg, mesh, "train_4k", shape, c)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = DRY.step_args(cfg, "train_4k", shape, mesh, meta, "cuda",
+                             params=ST.init_model(
+                                 cfg, torch.Generator("cuda").manual_seed(0),
+                                 "cuda", mesh=mesh))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0, c0 = time.perf_counter(), coll[0]
+        res = step(*args, 0)
+        torch.cuda.synchronize()
+        out[c] = {"constrain": meta["constrain"],
+                  "ms": (time.perf_counter() - t0) * 1e3,
+                  "collective_ms": coll[0] - c0,
+                  "loss": float(res[2]["loss"]),
+                  "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        del res, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def one_rank_stats(torch, cfg, mesh, specs, grads, gtape, coll,
@@ -2428,6 +2671,19 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                           "part": part, **fields,
                           "t_s": time.perf_counter() - T_START}), flush=True)
 
+    def emit_routes(cfg, groutes, proutes, grad_tol):
+        """(g)'s line of a gradient-and-prefill case (every rank, the same
+        verdict), raising if the routes disagree."""
+        ok = groutes["grads_rel_diff_max"] <= grad_tol and proutes["ok"]
+        emit_part("routes", case="grads_prefill", arch=cfg.name,
+                  dtype=str(cfg.dtype)[6:], layers=front_depth(cfg),
+                  mesh={"data": 1, "model": 2}, grads=groutes,
+                  grads_tol=grad_tol, prefill=proutes, rate_label=label,
+                  ok=ok)
+        if not ok:
+            raise AssertionError(f"lm model {cfg.name}: the routes "
+                                 f"disagree")
+
     def counted_serve(cfg, mesh, prompt, gen, tape=None):
         """The serve on `mesh`, its decode launches by shape, its
         collectives' ms, and whether every rank's tokens and logits are
@@ -2490,6 +2746,9 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
         replicated = [i for i, d in enumerate(split) if d is None]
         equal = ranks_agree(after[replicated])
         wb = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+        # (g): the same steps on "batch_only"
+        routes = train_routes(torch, lm_b, mesh, coll,
+                              (before, params, log, meta, peak))
         del params
         torch.cuda.empty_cache()
         warm = log[1:]
@@ -2512,12 +2771,20 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                                             init=True)):
             raise AssertionError(f"lm model train: replicated equal {equal}, "
                                  f"{moved} leaves moved, {log}, {counts}")
+        emit_part("routes", case="train", arch=lm.name, layers=lm_b.n_layers,
+                  mesh=dict(mesh.shape), rate_label=label, **routes)
+        if not routes["ok"]:
+            raise AssertionError(f"lm model train: the routes disagree "
+                                 f"{routes}")
         # (d) moonshot at MOE_TRAIN_LAYERS: train and serve, recording the
         # expert choices
         moe = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
                                   n_layers=MOE_TRAIN_LAYERS)
         tape = MOE.RoutingTape()
         _, params, log, meta, peak = tp_train(torch, moe, mesh, coll, tape)
+        # (g): the same steps on "batch_only", the choices replayed
+        routes = train_routes(torch, moe, mesh, coll,
+                              (None, params, log, meta, peak), tape)
         specs = meta["params_specs"]
         replicated = [i for i, d in enumerate(tree_leaves(specs))
                       if d is None]
@@ -2548,6 +2815,11 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
             raise AssertionError("lm model moe: the ranks' replicated "
                                  "leaves or gradients, serves or expert "
                                  "choices differ")
+        emit_part("routes", case="moe", arch=moe.name, layers=moe.n_layers,
+                  mesh=dict(mesh.shape), rate_label=label, **routes)
+        if not routes["ok"]:
+            raise AssertionError(f"lm model moe: the routes disagree "
+                                 f"{routes}")
         # one rank, the same choices replayed: each rank in turn, against
         # its shards
         t0 = time.perf_counter()
@@ -2592,7 +2864,7 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
             res, shapes, cms, sequal = counted_serve(
                 cfg, mesh, SERVE_PROMPT, SERVE_GEN, stape)
             gtape = MOE.RoutingTape()
-            grads = tp_grads(torch, cfg, mesh, gtape)
+            grads, gfirst = timed_grads(torch, cfg, mesh, gtape, coll, False)
             specs = param_specs(cfg, mesh.shape["model"])
             replicated = [i for i, d in enumerate(tree_leaves(specs))
                           if d is None]
@@ -2602,7 +2874,11 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                                for t in (stape, gtape) if t.recorded)
             stats = one_rank_stats(torch, cfg, mesh, specs, grads, gtape,
                                    coll)
+            # (g): the gradient and the prefill on both routes
+            groutes = grads_routes(torch, cfg, mesh, grads, gtape, coll,
+                                   gfirst)
             del grads
+            proutes = prefill_routes(torch, cfg, mesh, coll)
             torch.cuda.empty_cache()
             parity, ok = rank0_parity(torch, cfg, res, stape)
             ok = (ok and sequal and grads_equal and routes_equal
@@ -2634,13 +2910,14 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
             dist.barrier()
             del res
             torch.cuda.empty_cache()
+            emit_routes(cfg, groutes, proutes, grad_tol)
         # (f) the frontends in f32: llava at FRONT_TP_LAYERS and seamless
         # at AUDIO_CUT + AUDIO_CUT on (1, 2), logits and gradients against
         # one rank; seamless's train step on (2, 1), the replicas bitwise
         for cfg in front_cuts(torch):
             t0 = time.perf_counter()
             gtape = MOE.RoutingTape()
-            grads = tp_grads(torch, cfg, mesh, gtape)
+            grads, gfirst = timed_grads(torch, cfg, mesh, gtape, coll, False)
             specs = param_specs(cfg, mesh.shape["model"])
             replicated = [i for i, d in enumerate(tree_leaves(specs))
                           if d is None]
@@ -2648,7 +2925,11 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                 replicated])
             stats = one_rank_stats(torch, cfg, mesh, specs, grads, gtape,
                                    coll)
+            # (g): the gradient and the prefill on both routes
+            groutes = grads_routes(torch, cfg, mesh, grads, gtape, coll,
+                                   gfirst)
             del grads
+            proutes = prefill_routes(torch, cfg, mesh, coll)
             torch.cuda.empty_cache()
             logits = front_logits(torch, cfg, mesh)
             equal = ranks_agree(bit_checksums(torch, [logits]))
@@ -2683,6 +2964,7 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                     raise AssertionError(f"lm model frontends {cfg.name}: "
                                          f"the mesh and one rank disagree")
             dist.barrier()
+            emit_routes(cfg, groutes, proutes, FRONT_TP_RTOL)
         cfg = front_cuts(torch)[1]
         wmesh = make_debug_mesh((2, 1), axes)
         before, params, log, meta, peak = tp_train(torch, cfg, wmesh, coll)
@@ -2704,6 +2986,15 @@ def lm_model_parts(torch, rank: int, world: int, out: str, coll) -> None:
                                  f"equal {equal}, {moved} leaves moved, "
                                  f"{log}")
         dist.barrier()
+        # (g): qwen3-4b under remat, both routes' peaks (the parent holds
+        # them against the dry run's)
+        peak_routes = seq_peak_part(torch, seq_peak_cfg(lm), mesh, coll)
+        emit_part("seq_peak", arch=lm.name, layers=SEQ_PEAK_LAYERS,
+                  mesh=dict(mesh.shape), batch=SEQ_PEAK_BATCH,
+                  seq=SEQ_PEAK_SEQ, remat=True, routes=peak_routes,
+                  rate_label=label)
+        if not all(math.isfinite(r["loss"]) for r in peak_routes.values()):
+            raise AssertionError(f"lm model seq_peak: {peak_routes}")
     else:
         # (e) starcoder2-3b served on (1, 4): wk / wv split d
         sc = dataclasses.replace(get_config(TP_SC_ARCH),
@@ -2777,9 +3068,11 @@ def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
                         for k, v in line["launches_by_shape"].items()})
         parts = [x["part"] for x in lines[world][0]
                  if x["phase"] == "lm_model_child"]
-        want = (["serve", "train", "moe", "moe_one_rank", "mla_ssm",
-                 "mla_ssm", "hybrid", "mla_ssm", "hybrid", "mla_ssm",
-                 "frontend", "frontend", "frontend_workers"]
+        want = (["serve", "train", "routes", "moe", "routes",
+                 "moe_one_rank", "mla_ssm", "routes", "mla_ssm", "routes",
+                 "hybrid", "mla_ssm", "routes", "hybrid", "mla_ssm",
+                 "routes", "frontend", "routes", "frontend", "routes",
+                 "frontend_workers", "seq_peak"]
                 if world == 2 else ["sc_serve", "f32_cut"])
         if parts != want:
             raise AssertionError(f"lm model: rank 0 of {world} reported "
@@ -2818,7 +3111,58 @@ def lm_model_check(torch, lm, rs, lines, work, shard_tally) -> None:
     if not ok:
         raise AssertionError("lm_model_sc_serve: the mesh serve and one "
                              "rank disagree")
+    seq_peak_check(lm, lines[2][0])
     emit("lm_model", backend="gloo", device="cuda:0")
+
+
+def seq_peak_cfg(lm):
+    """(g)'s config: qwen3-4b cut to SEQ_PEAK_LAYERS, under remat."""
+    return dataclasses.replace(lm, remat=True, n_layers=SEQ_PEAK_LAYERS)
+
+
+def seq_peak_check(lm, rank_lines) -> None:
+    """Phase 25 (g), in the parent: rank 0's measured peaks of qwen3-4b
+    (`seq_peak_cfg`) under remat on (1, 2) (`seq_peak_part`) against
+    `launch.dryrun.trace_step`'s for rank 0 of a fake group of 2, each
+    route, each within PEAK_TOL, and the drop from "batch_only" to
+    "sequence" within SEQ_DROP_TOL of the trace's drop."""
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch.mesh import make_debug_mesh
+    line = next(x for x in rank_lines if x.get("part") == "seq_peak")
+    cfg = seq_peak_cfg(lm)
+    shape = dict(global_batch=SEQ_PEAK_BATCH, seq_len=SEQ_PEAK_SEQ,
+                 kind="train")
+    rows = {}
+    with DRY.fake_group(2):
+        mesh = make_debug_mesh((1, 2), ("data", "model"))
+        for c in SEQ_ROUTES:
+            pred = DRY.trace_step(cfg, "train_4k", shape, mesh, constrain=c)
+            got = line["routes"][c]
+            want = pred["memory"]["peak"]
+            rows[c] = {"constrain": got["constrain"],
+                       "predicted_constrain": pred["meta"]["constrain"],
+                       "peak_bytes": got["peak_bytes"],
+                       "predicted_peak_bytes": want,
+                       "peak_rel_diff": (want - got["peak_bytes"])
+                       / got["peak_bytes"],
+                       "ms": got["ms"], "collective_ms": got["collective_ms"],
+                       "trace_s": pred["trace_s"]}
+    saved = cfg.n_layers * SEQ_PEAK_BATCH * SEQ_PEAK_SEQ * cfg.d_model * 2
+    drop = rows["batch_only"]["peak_bytes"] - rows["sequence"]["peak_bytes"]
+    want = (rows["batch_only"]["predicted_peak_bytes"]
+            - rows["sequence"]["predicted_peak_bytes"])
+    ok = (all(r["constrain"] == r["predicted_constrain"] == c
+              and abs(r["peak_rel_diff"]) <= PEAK_TOL
+              for c, r in rows.items())
+          and want > 0 and abs(drop - want) <= SEQ_DROP_TOL * want)
+    emit("lm_model_seq_peak", arch=cfg.name, layers=cfg.n_layers,
+         batch=SEQ_PEAK_BATCH, seq=SEQ_PEAK_SEQ, remat=True, ranks=2,
+         peak_tol=PEAK_TOL, drop_tol=SEQ_DROP_TOL, routes=rows,
+         saved_residual_bytes=saved, peak_drop_bytes=drop,
+         predicted_peak_drop_bytes=want,
+         rate_label="2 ranks, gloo, one card", ok=ok)
+    if not ok:
+        raise AssertionError(f"lm_model_seq_peak: {rows}")
 
 
 def ranks_child(args) -> int:

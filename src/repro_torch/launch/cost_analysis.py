@@ -48,6 +48,13 @@ CARD_WORKSPACE = {
     torch.ops.aten._softmax_backward_data.default:
         lambda grad, *_: _nbytes(grad)}
 
+# Ops an autograd formula runs out of place on a tensor subclass, such as
+# a fake tensor, and in place on a plain one (op -> the position of the
+# buffer it writes): `gather`'s backward scatters into a fresh zeros
+# buffer (`areAnyTensorSubclassLike`, torch's `gather_backward`), so an
+# eager run never holds the copy a trace makes
+SUBCLASS_OUT_OF_PLACE = {torch.ops.aten.scatter_add.default: 0}
+
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
          "all_to_all")
 # the c10d ops a collective reaches: (kind, the position of the process
@@ -106,8 +113,10 @@ class CostMode(TorchDispatchMode):
       before the step, such as its arguments; a "meta" tensor holds
       none), plus, while an op of
       `workspace` (op -> fn(args) -> bytes: `CARD_WORKSPACE` for the
-      card's route) runs, the buffer its kernel allocates inside; so
-      `peak` is what an eager run holds, up to the allocator's rounding.
+      card's route) runs, the buffer its kernel allocates inside, and
+      less, while an op of `SUBCLASS_OUT_OF_PLACE` makes its output, the
+      buffer an eager run would have written in place; so `peak` is what
+      an eager run holds, up to the allocator's rounding.
     """
 
     def __init__(self, costs: Optional[Dict] = None,
@@ -124,6 +133,7 @@ class CostMode(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._held: Dict[int, int] = {}
+        self._inplace = 0
 
     def track(self, *trees) -> int:
         """Count the storages of the tensors in `trees` as held (each
@@ -144,7 +154,7 @@ class CostMode(TorchDispatchMode):
         n = st.nbytes()
         self._held[key] = n
         self.live += n
-        self.peak = max(self.peak, self.live)
+        self.peak = max(self.peak, self.live - self._inplace)
         weakref.finalize(st, self._release, key)
         return n
 
@@ -173,8 +183,12 @@ class CostMode(TorchDispatchMode):
         elif not func.is_view:
             self.op_bytes += _nbytes(list(args)) + _nbytes(
                 list(kwargs.values())) + _nbytes(out)
+        # the bytes of the output that stand in for a buffer held already
+        self._inplace = (_nbytes(args[SUBCLASS_OUT_OF_PLACE[func]])
+                         if func in SUBCLASS_OUT_OF_PLACE else 0)
         for t in _tensors(out):
             self._hold(t)
+        self._inplace = 0
         if func in self.workspace:
             self.peak = max(self.peak, self.live
                             + self.workspace[func](*args, **kwargs))

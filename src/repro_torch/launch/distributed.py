@@ -37,7 +37,17 @@ slice of the group-summed gradient.
 "data" ranks (`launch.sharding.fsdp_augment`, ZeRO-3) where a layer uses
 it: all_gather forward, a summing reduce_scatter backward (each rank's
 gradient of the whole leaf comes from its own rows, so the sum over the
-"data" ranks is the over-the-air sum of their workers).  The
+"data" ranks is the over-the-air sum of their workers).
+The sequence-parallel residual (the reference's `make_constrain`: each
+"model" rank holds its S / M positions of the [B, S, d] stream) takes
+Megatron's sequence-parallel pair in place of `copy_in` / `reduce_out`:
+`gather_seq` (all_gather on the sequence forward, summing reduce_scatter
+backward) where a rank's rows enter its shard of a layer, and
+`scatter_seq` (reduce_scatter forward, all_gather backward) where the
+shard's partial product leaves it; the two carry the bytes of the one
+all_reduce they replace.  `split_seq` takes a rank's rows of a tensor
+every rank holds whole (slice forward, all_gather backward), and
+`gather_out` on the sequence dim is its inverse.  The
 reference's `setup_compilation_cache` has no counterpart: the
 port compiles nothing at run time except its CUDA kernels, which
 `kernels/_build.py` builds once into `build/kernels/` and reuses.
@@ -258,7 +268,23 @@ def gather_shards(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
     return _GatherShards.apply(x, group, dim % x.dim())
 
 
-class _GatherStorage(torch.autograd.Function):
+def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """This rank's part along `dim` (the parts in rank order) of the
+    elementwise sum over `group` of every rank's `x`; `x` itself when
+    group is None.  ValueError unless the group's size divides the dim."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    parts = [p.contiguous() for p in x.chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _GatherSum(torch.autograd.Function):
     """all_gather forward, summing reduce_scatter backward."""
 
     @staticmethod
@@ -268,12 +294,7 @@ class _GatherStorage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        parts = [p.contiguous() for p in grad.chunk(
-            dist.get_world_size(ctx.group), ctx.dim)]
-        out = torch.empty_like(parts[0])
-        dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM,
-                            group=ctx.group)
-        return out, None, None
+        return reduce_scatter(grad, ctx.group, ctx.dim), None, None
 
 
 def gather_storage(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
@@ -284,7 +305,77 @@ def gather_storage(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     it once.  `x` itself when group is None."""
     if group is None:
         return x
-    return _GatherStorage.apply(x, group, dim % x.dim())
+    return _GatherSum.apply(x, group, dim % x.dim())
+
+
+# the sequence dim of the residual stream [B, S, d]
+SEQ_DIM = 1
+
+
+def gather_seq(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sequence-parallel "copy to the tensor-parallel region": every
+    rank's rows `x` [B, S / M, ...] of `group` joined on the sequence
+    (rank order) into [B, S, ...], which this rank's shard of a layer
+    reads; the gradient of its rows is the reduce_scatter of the
+    gradient summed over the group, since each rank's backward holds only
+    its shard's share of it.  `x` itself when group is None."""
+    if group is None:
+        return x
+    return _GatherSum.apply(x, group, SEQ_DIM)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """reduce_scatter forward, all_gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter(x, group, SEQ_DIM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.group, SEQ_DIM), None
+
+
+def scatter_seq(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sequence-parallel "reduce from the tensor-parallel region":
+    this rank's rows [B, S / M, ...] of the sum over `group` of every
+    rank's partial product `x` [B, S, ...]; the gradient of the partial
+    product is the whole gradient, gathered from the ranks' rows.  `x`
+    itself when group is None."""
+    if group is None:
+        return x
+    return _ScatterSeq.apply(x, group)
+
+
+class _SplitSeq(torch.autograd.Function):
+    """this rank's rows forward, all_gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        if x.shape[SEQ_DIM] % n:
+            raise ValueError(f"split_seq: {tuple(x.shape)} has a sequence "
+                             f"that does not split over {n} ranks")
+        s = x.shape[SEQ_DIM] // n
+        return x.narrow(SEQ_DIM, dist.get_rank(group) * s, s).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.group, SEQ_DIM), None
+
+
+def split_seq(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's rows [B, S / M, ...] of `x` [B, S, ...], which every
+    rank of `group` holds whole and the same (a product of replicated
+    weights, a gathered output); the gradient of the whole tensor is
+    every rank's rows' gradient gathered, whole on every rank as the
+    replicated product's backward wants it.  `x` itself when group is
+    None."""
+    if group is None:
+        return x
+    return _SplitSeq.apply(x, group)
 
 
 class _GatherOut(torch.autograd.Function):

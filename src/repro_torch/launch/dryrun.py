@@ -7,6 +7,8 @@ The counterpart of `repro/launch/dryrun.py`:
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --meshes single,multi   # every combo,
                                      # one subprocess each, resumable
+  python -m repro_torch.launch.dryrun --all --constrain batch_only  # the
+                                     # residual replicated over "model"
 
 The reference lowers and compiles each step for the 256- or 512-chip mesh
 and reads XLA's memory and cost analyses.  Here `run_one` starts a fake
@@ -41,6 +43,10 @@ flops_per_device: FlopCounterMode's plus the custom ops' costs;
 bytes_per_device: every op's inputs plus outputs, eager's traffic,
 unfused; collectives: bytes by kind and link; roofline; dominant;
 model_flops; model_flops_per_device; useful_ratio; remat (the config's);
+constrain (the route of the residual stream the train or prefill step
+took: "sequence", the reference's default `make_constrain`, each
+"model" rank holding S / M positions; "batch_only" where asked for with
+--constrain or where M does not divide the sequence; null for decode);
 memory: argument_size
 (shards, state, batch and caches), output_size, temp_size (the peak less
 the arguments), peak, param_bytes, and fits against an H100's memory),
@@ -79,7 +85,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import cost_analysis as CA
 from repro_torch.launch.mesh import (PRODUCTION, data_axis,
                                      make_production_mesh, model_axis)
-from repro_torch.launch.steps import (batch_rows, batch_shapes,
+from repro_torch.launch.steps import (CONSTRAINS, batch_rows, batch_shapes,
                                       init_floa_state, init_model, make_step,
                                       num_workers)
 from repro_torch.models import attention as ATT
@@ -190,7 +196,8 @@ def largest_drawn_part(cfg, mesh=None) -> Dict:
 
 
 def trace_step(cfg, shape_name: str, shape: Dict, mesh=None,
-               route: str = "cuda", fake: bool = True) -> Dict:
+               route: str = "cuda", fake: bool = True,
+               constrain: str = "sequence") -> Dict:
     """One rank's step of cfg at `shape` on `mesh` (None: one device), run
     once on CPU tensors: its counts and memory (the record's fields but
     status and names).  route "cuda" traces the card's path (the decode
@@ -200,9 +207,11 @@ def trace_step(cfg, shape_name: str, shape: Dict, mesh=None,
     step for real on CPU zeros (route "cpu" only), to hold a trace
     against.  The train step takes its gains from here (a generator cannot
     draw on fake tensors) and draws its noise itself: through the update
-    kernel's op on route "cuda", by the plain stream on route "cpu"."""
+    kernel's op on route "cuda", by the plain stream on route "cpu".
+    `constrain` goes to the train and prefill steps (`steps.CONSTRAINS`);
+    meta["constrain"] is the route the step took."""
     t0 = time.perf_counter()
-    step, meta = make_step(cfg, mesh, shape_name, shape)
+    step, meta = make_step(cfg, mesh, shape_name, shape, constrain)
     reroute = (_card_routes() if route == "cuda"
                else contextlib.nullcontext())
     with (FakeTensorMode() if fake else contextlib.nullcontext()), reroute:
@@ -237,7 +246,8 @@ def trace_step(cfg, shape_name: str, shape: Dict, mesh=None,
                     fits=peak <= CA.H100_TOTAL_MEMORY,
                     card_memory=CA.H100_TOTAL_MEMORY),
         meta={k: v for k, v in meta.items()
-              if k in ("dim", "num_workers", "policy", "window")})
+              if k in ("dim", "num_workers", "policy", "window",
+                       "constrain")})
 
 
 @contextlib.contextmanager
@@ -254,14 +264,15 @@ def fake_group(world_size: int):
         dist.destroy_process_group()
 
 
-def run_one(arch: str, shape_name: str, mesh_kind: str,
-            out_dir: str) -> Dict:
+def run_one(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
+            constrain: str = "sequence") -> Dict:
     """One combo's record (see the module docstring), written to out_dir:
     the card's route on a fake process group of the mesh's size, started
     and ended here."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
-    head = dict(arch=arch, shape=shape_name, mesh=mesh_kind)
+    head = dict(arch=arch, shape=shape_name, mesh=mesh_kind,
+                asked=constrain)
     if not shape_applicable(cfg, shape_name):
         rec = dict(head, status="skip",
                    reason=f"{arch} skips {shape_name} (its skip_shapes)")
@@ -271,7 +282,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str,
     with fake_group(chips):
         mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
         try:
-            got = trace_step(cfg, shape_name, shape, mesh)
+            got = trace_step(cfg, shape_name, shape, mesh,
+                             constrain=constrain)
             drawn = largest_drawn_part(cfg, mesh)
         except NotImplementedError as e:
             rec = dict(head, status="refused", chips=chips, reason=str(e))
@@ -296,21 +308,24 @@ def run_one(arch: str, shape_name: str, mesh_kind: str,
         model_flops=mflops, model_flops_per_device=mflops / chips,
         useful_ratio=((mflops / chips) / got["flops_per_device"]
                       if got["flops_per_device"] else None),
-        remat=cfg.remat,
+        remat=cfg.remat, constrain=got["meta"].get("constrain"),
         memory=got["memory"], largest_drawn_part=drawn,
         meta=got["meta"])
     _write(rec, out_dir)
     return rec
 
 
-def _path(out_dir: str, arch: str, shape: str, mesh: str) -> str:
-    return os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+def _path(out_dir: str, arch: str, shape: str, mesh: str,
+          constrain: str = "sequence") -> str:
+    """A combo's record; the non-default constrain's beside it."""
+    tail = "" if constrain == "sequence" else f"__{constrain}"
+    return os.path.join(out_dir, f"{arch}__{shape}__{mesh}{tail}.json")
 
 
 def _write(rec: Dict, out_dir: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
-    with open(_path(out_dir, rec["arch"], rec["shape"], rec["mesh"]),
-              "w") as f:
+    with open(_path(out_dir, rec["arch"], rec["shape"], rec["mesh"],
+                    rec["asked"]), "w") as f:
         json.dump(rec, f, indent=1)
     mem = rec.get("memory", {})
     peak = f"{mem['peak'] / 1e9:.2f}GB" if mem else "-"
@@ -319,7 +334,8 @@ def _write(rec: Dict, out_dir: str) -> None:
           f"peak={peak} trace={rec.get('trace_s', 0):.1f}s", flush=True)
 
 
-def orchestrate(out_dir: str, meshes, archs, shapes, timeout: int) -> int:
+def orchestrate(out_dir: str, meshes, archs, shapes, timeout: int,
+                constrain: str = "sequence") -> int:
     """Every combo not yet recorded in out_dir, one subprocess each (a
     failure or a timeout is recorded as such); returns the failures."""
     fails = 0
@@ -330,12 +346,12 @@ def orchestrate(out_dir: str, meshes, archs, shapes, timeout: int) -> int:
     for arch in archs:
         for shape in shapes:
             for mesh_kind in meshes:
-                path = _path(out_dir, arch, shape, mesh_kind)
+                path = _path(out_dir, arch, shape, mesh_kind, constrain)
                 if os.path.exists(path):
                     continue  # resumable
                 cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                        "--arch", arch, "--shape", shape, "--mesh", mesh_kind,
-                       "--out", out_dir]
+                       "--out", out_dir, "--constrain", constrain]
                 try:
                     r = subprocess.run(cmd, timeout=timeout, env=env,
                                        capture_output=True, text=True)
@@ -344,8 +360,9 @@ def orchestrate(out_dir: str, meshes, archs, shapes, timeout: int) -> int:
                         err = (r.stdout + r.stderr)[-3000:]
                         with open(path, "w") as f:
                             json.dump(dict(arch=arch, shape=shape,
-                                           mesh=mesh_kind, status="fail",
-                                           error=err), f, indent=1)
+                                           mesh=mesh_kind, asked=constrain,
+                                           status="fail", error=err), f,
+                                      indent=1)
                         print(f"[dryrun] FAIL {arch} {shape} {mesh_kind}:\n"
                               f"{err}", flush=True)
                     else:
@@ -355,8 +372,8 @@ def orchestrate(out_dir: str, meshes, archs, shapes, timeout: int) -> int:
                     fails += 1
                     with open(path, "w") as f:
                         json.dump(dict(arch=arch, shape=shape,
-                                       mesh=mesh_kind, status="timeout"),
-                                  f, indent=1)
+                                       mesh=mesh_kind, asked=constrain,
+                                       status="timeout"), f, indent=1)
                     print(f"[dryrun] TIMEOUT {arch} {shape} {mesh_kind}",
                           flush=True)
     return fails
@@ -371,19 +388,23 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--meshes", default="single,multi")
     ap.add_argument("--timeout", type=int, default=1800)
+    ap.add_argument("--constrain", default="sequence", choices=CONSTRAINS,
+                    help="the train and prefill steps' residual stream: "
+                         "split over \"model\" on the sequence (the "
+                         "reference's default) or replicated")
     args = ap.parse_args(argv)
 
     if args.all:
         archs = [args.arch] if args.arch else ARCH_IDS
         shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
         fails = orchestrate(args.out, args.meshes.split(","), archs, shapes,
-                            args.timeout)
+                            args.timeout, args.constrain)
         sys.exit(1 if fails else 0)
 
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
     try:
-        run_one(args.arch, args.shape, args.mesh, args.out)
+        run_one(args.arch, args.shape, args.mesh, args.out, args.constrain)
     except Exception:   # noqa: BLE001 -- the orchestrator records it
         traceback.print_exc()
         sys.exit(1)

@@ -51,15 +51,21 @@ each leaf's "data" dim or None, beside `param_specs`.  A rank stores the
 slice of both dims (`shard_params`, `init_shards`), and each layer
 gathers its data-sharded leaves over "data" where it is used
 (`models.common.storage_sharded`, `launch.distributed.gather_storage`),
-so the data gather of a leaf yields its "model" shard.  The
-sequence-parallel residuals of `make_constrain` are not ported
-(ROADMAP.md Queue 1 item 8d); `sweep_state_spec` is the sweep engine's
-column split (`fl/sweep.py::_ModelShards`).
+so the data gather of a leaf yields its "model" shard.  The activations'
+layout of `make_constrain` (the residual stream [B, S, d] as P(batch
+axes, "model", None): each "model" rank its S / M positions) is the
+train and prefill steps' default route, `constrain="sequence"`
+(`launch/steps.py`, `models.common.tensor_parallel(axis,
+sequence=True)`); "batch_only" is the reference's
+REPRO_PREFILL_CONSTRAIN=batch_only; decode's caches keep whole
+sequences (the reference's sequence-split `cache_specs` is ROADMAP.md
+Queue 1 item 8d.3).  `sweep_state_spec` is the sweep engine's column
+split (`fl/sweep.py::_ModelShards`).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -162,6 +168,31 @@ def param_specs(cfg: ModelConfig, m: int) -> Dict:
     nothing."""
     specs = _specs(init_params(cfg, None, "meta"), (), False, cfg, m)
     return specs if m > 1 else tree_map(lambda _: None, specs)
+
+
+# the scales of the norms that read the residual stream
+ROW_NORMS = frozenset({"ln1", "ln2", "ln_x", "final_norm", "enc_norm",
+                       "dec_norm"})
+
+
+def row_leaves(cfg: ModelConfig, m: int) -> List[int]:
+    """The indices, in the parameter tree's leaf order, of the leaves
+    applied to the residual's rows under the sequence split over m
+    "model" ranks, so each rank's gradient of one is its rows' share, to
+    be summed over "model" once a step: the norms' scales (ROW_NORMS)
+    and, where m does not divide d_ff, the SwiGLU FFNs that
+    `models.transformer._ffn` runs replicated.  Every other leaf is split
+    over "model" or meets the residual through a collective whose
+    backward sums it.  m = 1: none."""
+    def walk(tree: Dict, key: str) -> Dict:
+        ffn = (key == "ffn" and set(tree) == {"wi", "wg", "wo"}
+               and cfg.d_ff % m != 0)
+        return {k: walk(v, k) if isinstance(v, dict)
+                else ffn or k in ROW_NORMS for k, v in tree.items()}
+    if m == 1:
+        return []
+    rows = tree_leaves(walk(init_params(cfg, None, "meta"), ""))
+    return [i for i, r in enumerate(rows) if r]
 
 
 def fsdp_augment(specs: Dict, shapes: Dict, data_size: int,

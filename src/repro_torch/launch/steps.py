@@ -65,6 +65,23 @@ count a replicated leaf once.  Prefill and decode gather the vocab
 shards of the logits over the model group, then the rows over the worker
 group.
 
+The residual stream between the layers of the train step and the
+prefill is split over "model" on the sequence by default
+(`constrain="sequence"`, the reference's `make_constrain`: [B, S, d] as
+P(batch axes, "model", None)): each rank holds its S / M positions, so a
+recomputed block keeps [B / U, S / M, d], and each layer gathers the
+sequence where it enters its split and reduce-scatters it where it
+leaves (`common.tensor_parallel(axis, sequence=True)`).
+`constrain="batch_only"` keeps it replicated over "model", as the
+reference's REPRO_PREFILL_CONSTRAIN=batch_only does (an argument here,
+not a variable of the environment).  Where M does not divide the step's
+sequence (a VLM's prefix plus its tokens, an encoder-decoder's frames or
+tokens) a call runs "batch_only" (`residual_route` of its batch), and
+meta["constrain"] is the route of a batch of the step's `shape`.  Under
+the split a norm's scale meets only the rank's rows, so its gradient is
+the rows' share: the train step sums those leaves over "model" once a
+step (`launch.sharding.row_leaves`).  Decode splits nothing.
+
 FSDP (`fsdp=True`, the default, as the reference's): on a mesh whose
 "data" axis has R > 1 ranks the large leaves' storage is split over them
 too (`launch.sharding.data_specs`, `meta["data_specs"]`: each leaf's
@@ -92,7 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -106,7 +123,8 @@ from repro_torch.launch.distributed import all_gather, all_reduce_sum
 from repro_torch.launch.mesh import (data_axis, model_axis, pod_group,
                                      worker_axes)
 from repro_torch.launch.sharding import (data_specs, init_params,
-                                         init_shards, param_specs)
+                                         init_shards, param_specs,
+                                         row_leaves)
 from repro_torch.models import attention as ATT
 from repro_torch.models import encdec as ED
 from repro_torch.models import moe as MOE
@@ -242,6 +260,20 @@ def _sum_over_workers(grads, group, bucket_bytes: int = BUCKET_BYTES):
         i = j
 
 
+def sum_leaves(grads: list, index: List[int], group) -> None:
+    """The gradients grads[i], i in `index` (a list in the params' leaf
+    order, replaced in place), summed over `group` (`_sum_over_workers`:
+    in buckets, each unsummed gradient freed as its bucket fills)."""
+    if not index:
+        return
+    part = [grads[i] for i in index]
+    for i in index:
+        grads[i] = None
+    _sum_over_workers(part, group)
+    for i, g in zip(index, part):
+        grads[i] = g
+
+
 def batch_shapes(cfg: ModelConfig, shape: Dict, kind: str
                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of every model input of a given input shape, as the
@@ -317,13 +349,52 @@ def init_floa_state(device=None) -> Dict[str, Tensor]:
 # ---------------------------------------------------------------------------
 
 
+CONSTRAINS = ("sequence", "batch_only")
+
+
+def _sequences(cfg: ModelConfig, shapes: Dict, kind: str) -> Tuple[int, ...]:
+    """The lengths of the residual streams a batch of these input shapes
+    ({name: shape}) runs: the tokens (one fewer in training), after a
+    VLM's prefix; an encoder-decoder's frames and tokens."""
+    toks = shapes["tokens"][1] - (kind == "train")
+    if cfg.arch_type == "vlm":
+        return (shapes["embeds_prefix"][1] + toks,)
+    if cfg.arch_type == "audio":
+        return (shapes["frames"][1], toks)
+    return (toks,)
+
+
+def residual_route(constrain: str, cfg: ModelConfig, m: int,
+                   shapes: Optional[Dict], kind: str) -> str:
+    """The route of the residual stream over m "model" ranks for a batch
+    of these input shapes ({name: shape}; None: no batch yet, the route
+    asked for): "sequence" where it was asked for and m divides every
+    stream's length (`_sequences`), else "batch_only"; ValueError for a
+    constrain not in CONSTRAINS."""
+    if constrain not in CONSTRAINS:
+        raise ValueError(f"constrain={constrain!r}: not one of {CONSTRAINS}")
+    if shapes is None or constrain == "batch_only":
+        return constrain
+    return ("sequence" if all(n % m == 0 for n in
+                              _sequences(cfg, shapes, kind))
+            else "batch_only")
+
+
+def _splits(constrain, cfg, m, batch, kind) -> bool:
+    """Whether a call of a step on this batch ({name: tensor}) splits the
+    sequence (`residual_route` of its shapes)."""
+    return residual_route(constrain, cfg, m, {
+        k: tuple(v.shape) for k, v in batch.items()}, kind) == "sequence"
+
+
 def make_train_step(cfg: ModelConfig, mesh=None,
                     shape: Optional[Dict] = None, *,
                     policy: Policy = Policy.BEV, n_byzantine: int = 2,
                     alpha: float = 1e-3, use_floa: bool = True,
-                    fsdp: bool = True) -> Tuple[Callable, Dict]:
+                    fsdp: bool = True, constrain: str = "sequence"
+                    ) -> Tuple[Callable, Dict]:
     """The FLOA train step and its meta (dim, num_workers, policy, the
-    batch's shapes, params_specs, data_specs):
+    batch's shapes, params_specs, data_specs, constrain):
 
         step(params, state, batch, seed, draws=None)
             -> (new_params, new_state, metrics)
@@ -363,7 +434,14 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     one full-shape tensor a leaf, of which each rank takes its part.
     With fsdp on a mesh of R > 1 "data" ranks the params are also split
     over "data" by meta["data_specs"] (`init_model(..., mesh=)`), and
-    params of another layout raise ValueError."""
+    params of another layout raise ValueError.  constrain: "sequence"
+    (the default) splits the residual stream over "model" on the
+    sequence, "batch_only" keeps it replicated (the module docstring);
+    meta["constrain"] is the route of a batch of `shape`'s shapes, and
+    each call takes the route of its own batch.  Under "sequence" the
+    gradients of the leaves applied to the residual's rows
+    (`launch.sharding.row_leaves`: the norms' scales) are summed over
+    "model" once, in buckets, after the backward."""
     shape = shape or dict(global_batch=256, seq_len=4096)
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
@@ -371,6 +449,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     u, group = wa.num_workers, wa.group
     specs = param_specs(cfg, axis.size)
     split = tree_leaves(specs)   # each leaf's split dim, or None
+    rowed = row_leaves(cfg, axis.size)
     store = _Storage(cfg, mesh, specs, fsdp)
     dsplit, pod = store.split, pod_group(mesh)
     dim = param_count(cfg)
@@ -387,9 +466,16 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                            "sigmas": channel.sigmas().to(dev)}
         return placed[dev]
 
-    def weighted_loss(params, rows, coeffs):
+    meta = dict(dim=dim, num_workers=u, policy=str(policy),
+                batch=batch_shapes(cfg, shape, "train"),
+                params_specs=specs, data_specs=store.specs)
+    meta["constrain"] = residual_route(
+        constrain, cfg, axis.size, {k: s for k, (s, _) in
+                                    meta["batch"].items()}, "train")
+
+    def weighted_loss(params, rows, coeffs, seq):
         # this process's rows; on a mesh the MoE aux is the global batch's
-        with MOE.worker_batch(group), tensor_parallel(axis):
+        with MOE.worker_batch(group), tensor_parallel(axis, seq):
             per_ex, aux = per_example_loss(params, rows, cfg)
         # the local losses L_i of this process's workers
         per_worker = per_ex.reshape(wa.count, -1).mean(dim=1)
@@ -404,6 +490,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             raise ValueError(f"global batch {b} is not a multiple of "
                              f"U = {u} workers")
         rows = {k: v[wa.rows(b)] for k, v in batch.items()}
+        seq = _splits(constrain, cfg, axis.size, rows, "train")
         leaves_p, treedef = tree_flatten(params)
         dev = leaves_p[0].device
         gbar, eps2 = state["gbar"], state["eps2"]
@@ -425,8 +512,10 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         with torch.enable_grad():
             with store.scope(xs):
                 wl, per_worker = weighted_loss(tree_unflatten(treedef, xs),
-                                               rows, s)
+                                               rows, s, seq)
             grads = list(torch.autograd.grad(wl, xs))
+        if seq:   # each rank's rows' share of the norms' scales
+            sum_leaves(grads, rowed, axis.group)
         if group is None:
             mean_loss = per_worker.mean()
         else:
@@ -434,13 +523,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             # summed over "data": only "pod" is left to sum it over
             for sub, grp in ((_take(dsplit, False), group),
                              (_take(dsplit, True), pod)):
-                if grp is not None and sub:
-                    part = [grads[i] for i in sub]
-                    for i in sub:
-                        grads[i] = None
-                    _sum_over_workers(part, grp)
-                    for i, g in zip(sub, part):
-                        grads[i] = g
+                if grp is not None:
+                    sum_leaves(grads, sub, grp)
             mean_loss = all_reduce_sum(per_worker.detach().sum(), group) / u
         with torch.no_grad():
             # stale-stat estimators for the next round, off the noiseless
@@ -486,9 +570,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         metrics = dict(loss=mean_loss.detach(), grad_scale=ssum)
         return tree_unflatten(treedef, new_leaves), new_state, metrics
 
-    return train_step, dict(dim=dim, num_workers=u, policy=str(policy),
-                            batch=batch_shapes(cfg, shape, "train"),
-                            params_specs=specs, data_specs=store.specs)
+    return train_step, meta
 
 
 def _take(dsplit, sharded: bool) -> list:
@@ -528,7 +610,8 @@ def _split_stats(grads, split, group, dsplit,
 
 def make_prefill_step(cfg: ModelConfig, mesh=None,
                       shape: Optional[Dict] = None, *,
-                      fsdp: bool = True) -> Tuple[Callable, Dict]:
+                      fsdp: bool = True, constrain: str = "sequence"
+                      ) -> Tuple[Callable, Dict]:
     """The prefill (scoring) step: `step(params, batch) -> logits [B, Vp]`
     of the LAST position only (the full [B, S, vocab] logits are never
     formed), batch {"tokens": [B, S]} (and a VLM's "embeds_prefix", an
@@ -538,19 +621,30 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
     are gathered, so every rank returns all B rows.  Over a "model" axis
     params are this rank's shards and the vocab shards of the logits are
     gathered; with fsdp over a "data" axis the params are also split by
-    meta["data_specs"] (as `make_train_step`'s)."""
+    meta["data_specs"] (as `make_train_step`'s).  constrain as
+    `make_train_step`'s (meta["constrain"] the route of a batch of
+    `shape`'s shapes, or the one asked for without `shape`; each call
+    takes its own batch's): under "sequence" the last position's hidden
+    state comes from the last "model" rank (`transformer.last_hidden`)."""
     wa = worker_axes(mesh)
     axis = model_axis(mesh)
     ATT.check_heads(cfg, axis.size)
     store = _Storage(cfg, mesh, param_specs(cfg, axis.size), fsdp)
+    meta = dict(dim=param_count(cfg), data_specs=store.specs)
+    if shape is not None:
+        meta["batch"] = batch_shapes(cfg, shape, "prefill")
+    meta["constrain"] = residual_route(
+        constrain, cfg, axis.size, None if shape is None else {
+            k: s for k, (s, _) in meta["batch"].items()}, "prefill")
 
     @torch.no_grad()
     def prefill(params, batch):
         rows = batch_rows(wa, batch["tokens"].shape[0])
         split = rows.stop - rows.start < batch["tokens"].shape[0]
         mine = {k: v[rows] for k, v in batch.items()}
+        seq = _splits(constrain, cfg, axis.size, mine, "prefill")
         with MOE.worker_batch(wa.group if split else None, aux=False), \
-                tensor_parallel(axis), store.scope(params):
+                tensor_parallel(axis, seq), store.scope(params):
             if cfg.arch_type == "audio":
                 h = ED.decode_hidden(params, mine["tokens"], ED.encode(
                     params, mine["frames"], cfg), cfg)
@@ -558,12 +652,9 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
                 h, _ = T.hidden_for_batch(
                     params, mine["tokens"], cfg,
                     embeds_prefix=mine.get("embeds_prefix"))
-            logits = T.logits_from_hidden(params, h[:, -1, :], cfg)
+            logits = T.logits_from_hidden(params, T.last_hidden(h), cfg)
         return all_gather(logits, wa.group) if split else logits
 
-    meta = dict(dim=param_count(cfg), data_specs=store.specs)
-    if shape is not None:
-        meta["batch"] = batch_shapes(cfg, shape, "prefill")
     return prefill, meta
 
 
@@ -667,11 +758,12 @@ def make_cross_kv_step(cfg: ModelConfig, mesh=None, *,
     return step, dict(dim=param_count(cfg), data_specs=store.specs)
 
 
-def make_step(cfg: ModelConfig, mesh, shape_name: str,
-              shape: Dict) -> Tuple[Callable, Dict]:
-    """The step of an input shape's kind (train, prefill or decode)."""
+def make_step(cfg: ModelConfig, mesh, shape_name: str, shape: Dict,
+              constrain: str = "sequence") -> Tuple[Callable, Dict]:
+    """The step of an input shape's kind (train, prefill or decode); the
+    train and prefill steps take `constrain`, decode splits nothing."""
     if shape["kind"] == "train":
-        return make_train_step(cfg, mesh, shape)
+        return make_train_step(cfg, mesh, shape, constrain=constrain)
     if shape["kind"] == "prefill":
-        return make_prefill_step(cfg, mesh, shape)
+        return make_prefill_step(cfg, mesh, shape, constrain=constrain)
     return make_decode_step(cfg, shape_name, mesh=mesh)

@@ -91,6 +91,18 @@ and every rank keeps the whole latent cache, since each head reads all
 of it (the reference's `cache_specs` splits kv_lora or the sequence; it
 changes no value).  M must divide its H and q_lora (`check_heads`).
 
+Under the sequence split (`common.tensor_parallel(axis, sequence=True)`:
+the residual stream's rows [B, S / M, d] on each rank) the same routes
+run on the whole sequence: x enters through `common.enter` where the
+routes above take `copy_in` (the rows gathered, the gradient
+reduce-scattered), a product of replicated weights reads `whole_seq(x)`
+(its gradient whole on every rank, so the rank's rows of it), the
+partial products leave through `common.leave` (a reduce_scatter to the
+rank's rows) where they take `reduce_out`, and an output whole on every
+rank (wo split on d and gathered, or whole) keeps the rank's rows
+(`common.local_seq`).  The queries attend every position: the attention
+itself is unchanged.  Decode never splits the sequence.
+
 The sequence-sharded decode of the reference (`decode_local_partial`,
 `combine_partials`: each rank holds a shard of the cache's positions and
 the partial softmax states are combined with a max and two sums) is plain
@@ -109,9 +121,10 @@ from repro_torch.launch.distributed import (all_reduce_max, all_reduce_sum,
                                             copy_in, gather_out,
                                             gather_shards, reduce_out)
 from repro_torch.launch.mesh import Q_MODEL_AXIS
-from repro_torch.models.common import (ModelConfig, ParamInit,
-                                       make_causal_mask, model_shards,
-                                       rms_norm, rope_cos_sin, rope_rotate)
+from repro_torch.models.common import (ModelConfig, ParamInit, enter, leave,
+                                       local_seq, make_causal_mask,
+                                       model_shards, rms_norm, rope_cos_sin,
+                                       rope_rotate, whole_seq)
 
 Tensor = torch.Tensor
 
@@ -215,14 +228,15 @@ def _whole(x: Tensor, xin: Optional[Tensor], ws: List[Tensor],
     heads [B, S, sum n, hd], whole and replicated over "model": dim 0 (d)
     the partial products of this rank's rows summed in one `reduce_out`,
     dim 2 (hd) its columns joined in one `gather_out`, both from xin (x
-    through `copy_in`, made here when None: a rank's backward holds its
-    rows' or columns' share of x's gradient); None the whole leaves times
-    x as it is (the product's gradient is whole on every rank already)."""
+    through `common.enter`, made here when None: a rank's backward holds
+    its rows' or columns' share of x's gradient); None the whole leaves
+    times x whole (`common.whole_seq`: the product's gradient is whole on
+    every rank already)."""
     w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=1)
     if dim is None:
-        return _proj(x, w)
+        return _proj(whole_seq(x), w)
     if xin is None:
-        xin = copy_in(x, axis.group)
+        xin = enter(x)
     if dim == 0:
         xin = xin[..., axis.part(x.shape[-1])]
     y = _proj(xin, w)
@@ -236,9 +250,9 @@ def _project(p: Dict, x: Tensor, cfg: ModelConfig, axis,
     wv (`names`, in that order) as this rank attends with them: every
     head (no axis, or M not dividing H: `_whole`, all of them in one
     collective); else this rank's query heads and its KV heads
-    (`local_heads`), x entering through one `copy_in`.  KV heads M does
-    not divide are formed whole (`_whole`), then enter through `copy_in`,
-    since each rank reads only its window of them."""
+    (`local_heads`), x entering through one `common.enter`.  KV heads M
+    does not divide are formed whole (`_whole`), then enter through
+    `copy_in`, since each rank reads only its window of them."""
     if axis is None:
         return [_proj(x, p[n]) for n in names]
     dq, dkv, _ = head_dims(cfg, axis.size)
@@ -246,7 +260,7 @@ def _project(p: Dict, x: Tensor, cfg: ModelConfig, axis,
         ws = [p[n] for n in names]
         return list(_whole(x, None, ws, dq, axis).split(
             [w.shape[1] for w in ws], dim=-2))
-    xin = copy_in(x, axis.group)
+    xin = enter(x)
     out = [_proj(xin, p["wq"])] if "wq" in names else []
     if "wk" not in names:
         return out
@@ -306,7 +320,9 @@ def _out(p: Dict, out: Tensor, cfg: ModelConfig) -> Tensor:
     rank's hd slice of every head's output (which enters through
     `copy_in`: each rank reads only its part of it), summed; on d, every
     head's output times this rank's d columns, gathered; a replicated wo
-    the whole product, no collective."""
+    the whole product, no collective.  A sum leaves through
+    `common.leave`; a gathered or whole product keeps the rank's rows
+    under the sequence split (`common.local_seq`)."""
     w = p["wo"]
     axis = model_shards()
     dwo = None if axis is None else head_dims(cfg, axis.size)[2]
@@ -319,9 +335,9 @@ def _out(p: Dict, out: Tensor, cfg: ModelConfig) -> Tensor:
             out = out[..., axis.part(cfg.hd)]
     y = out.reshape(*out.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
     if dwo is None:
-        return y
-    return (gather_out(y, axis.group, dim=-1) if dwo == 2
-            else reduce_out(y, axis.group))
+        return local_seq(y)
+    return (local_seq(gather_out(y, axis.group, dim=-1)) if dwo == 2
+            else leave(y))
 
 
 def _gqa_core(q: Tensor, k: Tensor, v: Tensor,
@@ -555,7 +571,8 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 def _mla_q(p: Dict, x: Tensor, cfg: ModelConfig,
            rope: Tuple[Tensor, Tensor]) -> Tuple[Tensor, Tensor]:
-    """x [B, S, d] (already through `copy_in` under `tensor_parallel`),
+    """x [B, S, d] (already through `common.enter` under
+    `tensor_parallel`),
     rope the (cos, sin) of the positions [B, S] at qk_rope_dim ->
     (q_nope [B, S, H, nope], q_rope [B, S, H, rope]), this rank's heads."""
     m = cfg.mla
@@ -593,11 +610,10 @@ def _latent_proj(c: Tensor, w: Tensor) -> Tensor:
 
 def _mla_out(p: Dict, out: Tensor) -> Tensor:
     """[B, S, H, v] through wo -> [B, S, d]; the ranks' partial products
-    summed under `tensor_parallel`."""
+    summed under `tensor_parallel` (`common.leave`)."""
     h, v, d = p["wo"].shape
-    y = out.reshape(*out.shape[:-2], h * v) @ p["wo"].reshape(h * v, d)
-    axis = model_shards()
-    return y if axis is None else reduce_out(y, axis.group)
+    return leave(out.reshape(*out.shape[:-2], h * v)
+                 @ p["wo"].reshape(h * v, d))
 
 
 def mla_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
@@ -609,9 +625,7 @@ def mla_full(p: Dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
     worth, runs as one chunk.  Scores in the activation dtype, then f32
     times the scale; the probabilities cast to v's dtype."""
     m = cfg.mla
-    axis = model_shards()
-    if axis is not None:
-        x = copy_in(x, axis.group)
+    x = enter(x)
     rope = rope_cos_sin(positions, m.qk_rope_dim, cfg.rope_theta)
     q_nope, q_rope = _mla_q(p, x, cfg, rope)
     c_kv, k_rope = _mla_ckv(p, x, cfg, rope)
@@ -661,9 +675,7 @@ def mla_decode_step(p: Dict, x1: Tensor, cache: Dict[str, Tensor], pos,
     at qk_rope_dim, lets a caller compute them once for every layer.
     Returns ([B, 1, d], the same cache dict)."""
     m = cfg.mla
-    axis = model_shards()
-    if axis is not None:
-        x1 = copy_in(x1, axis.group)
+    x1 = enter(x1)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x1.device)
     if rope is None:
         rope = rope_cos_sin(pos.reshape(1, 1), m.qk_rope_dim, cfg.rope_theta)

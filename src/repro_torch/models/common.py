@@ -9,7 +9,17 @@ layout is `launch/sharding.py`'s, and inside `with tensor_parallel(axis):`
 (a `launch.mesh.ModelAxis` of M > 1 ranks) each layer computes this rank's
 shard and writes its own collectives, Megatron style
 (`launch.distributed.copy_in` / `reduce_out`), where XLA derives them from
-the specs; `softmax_xent_sharded` is the CE over vocab-sharded logits.  Beside it,
+the specs; `softmax_xent_sharded` is the CE over vocab-sharded logits.
+`tensor_parallel(axis, sequence=True)` is the reference's default
+`make_constrain` layout (the train and prefill steps' "sequence" route):
+each rank holds its S / M positions of the residual stream, the norms
+and residual adds run on them, and each layer enters and leaves its
+split through `enter` / `leave` (`gather_seq` / `scatter_seq` in place
+of `copy_in` / `reduce_out`); a product of replicated weights reads the
+whole sequence (`whole_seq`) and keeps its rows (`local_seq`), and a
+replicated weight applied to the rows (a norm's scale) gets each rank's
+rows' share of its gradient, which the train step sums over the axis
+once a step (`launch.sharding.row_leaves`).  Beside it,
 inside `with storage_sharded(axis, leaves, dims):` the listed weight
 leaves are this rank's parts of leaves whose storage the "data" ranks
 split (ZeRO-3, `launch.sharding.fsdp_augment`), and the model gathers
@@ -38,8 +48,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, philox
-from repro_torch.launch.distributed import (all_reduce_max, gather_storage,
-                                            reduce_out)
+from repro_torch.launch.distributed import (all_reduce_max, copy_in,
+                                            gather_out, gather_seq,
+                                            gather_storage, reduce_out,
+                                            scatter_seq, split_seq)
 
 Tensor = torch.Tensor
 
@@ -342,19 +354,27 @@ def softmax_xent_sharded(logits: Tensor, labels: Tensor, vocab: int,
 # the "model" axis of the innermost `tensor_parallel` block (as the
 # reference scopes its sharding hints, `repro/models/common.py::_SHARD_CTX`)
 _MODEL_AXIS = contextvars.ContextVar("repro_torch_model_axis", default=None)
+# whether that block's residual stream is split over the axis on the
+# sequence (`make_constrain`'s "model" entry)
+_SEQ_SPLIT = contextvars.ContextVar("repro_torch_seq_split", default=False)
 
 
 @contextlib.contextmanager
-def tensor_parallel(axis) -> Iterator[None]:
+def tensor_parallel(axis, sequence: bool = False) -> Iterator[None]:
     """Inside the block every layer runs split over `axis` (a
     `launch.mesh.ModelAxis`): the parameters are this rank's shards
-    (`launch.sharding.shard_params`) and the residual stream is replicated
-    over the axis.  None or an axis of one rank changes nothing."""
-    token = _MODEL_AXIS.set(axis if axis is not None and axis.size > 1
-                            else None)
+    (`launch.sharding.shard_params`) and the residual stream is
+    replicated over the axis, or with sequence=True split over it on the
+    sequence: each rank holds positions [r S / M, (r + 1) S / M) of every
+    [B, S, d] activation between the layers, and M must divide S.  None
+    or an axis of one rank changes nothing."""
+    on = axis is not None and axis.size > 1
+    token = _MODEL_AXIS.set(axis if on else None)
+    seq = _SEQ_SPLIT.set(on and sequence)
     try:
         yield
     finally:
+        _SEQ_SPLIT.reset(seq)
         _MODEL_AXIS.reset(token)
 
 
@@ -362,6 +382,66 @@ def model_shards():
     """The `ModelAxis` of the innermost `tensor_parallel` block, None
     outside one (or for one rank)."""
     return _MODEL_AXIS.get()
+
+
+def seq_split() -> bool:
+    """Whether the innermost `tensor_parallel` block splits the residual
+    stream over its axis on the sequence."""
+    return _SEQ_SPLIT.get()
+
+
+@contextlib.contextmanager
+def whole_residual() -> Iterator[None]:
+    """Inside the block the residual stream is replicated over the
+    `tensor_parallel` axis, split or not outside it (a VLM's prefix and
+    token embeddings, joined before the stream is split)."""
+    token = _SEQ_SPLIT.set(False)
+    try:
+        yield
+    finally:
+        _SEQ_SPLIT.reset(token)
+
+
+def enter(x: Tensor) -> Tensor:
+    """The residual x [B, S(/M), d] as this rank's shard of a layer reads
+    it: through `copy_in`, or under the sequence split every rank's rows
+    gathered (`gather_seq`); each rank's backward holds its shard's share
+    of the gradient, summed over the axis.  x itself outside a
+    `tensor_parallel` block."""
+    axis = _MODEL_AXIS.get()
+    if axis is None:
+        return x
+    return (gather_seq if _SEQ_SPLIT.get() else copy_in)(x, axis.group)
+
+
+def leave(y: Tensor) -> Tensor:
+    """A shard's partial product y [B, S, d] back into the residual: the
+    sum over the axis (`reduce_out`), or under the sequence split this
+    rank's rows of it (`scatter_seq`).  y itself outside a
+    `tensor_parallel` block."""
+    axis = _MODEL_AXIS.get()
+    if axis is None:
+        return y
+    return (scatter_seq if _SEQ_SPLIT.get() else reduce_out)(y, axis.group)
+
+
+def whole_seq(x: Tensor) -> Tensor:
+    """The residual x whole on every rank, for a product of replicated
+    weights (whose gradient is whole and the same on every rank): under
+    the sequence split every rank's rows gathered, its backward this
+    rank's rows of the gradient (`gather_out` on the sequence); else x."""
+    if not _SEQ_SPLIT.get():
+        return x
+    return gather_out(x, _MODEL_AXIS.get().group, dim=1)
+
+
+def local_seq(y: Tensor) -> Tensor:
+    """y [B, S, d], whole and the same on every rank (a product of
+    replicated weights, a gathered output), as the residual holds it:
+    under the sequence split this rank's rows (`split_seq`); else y."""
+    if not _SEQ_SPLIT.get():
+        return y
+    return split_seq(y, _MODEL_AXIS.get().group)
 
 
 # the "data" axis and the data-sharded leaves of the innermost
@@ -471,6 +551,7 @@ def recompute(fn: Callable, *args):
 
 
 carry_into_recompute(_MODEL_AXIS)
+carry_into_recompute(_SEQ_SPLIT)
 carry_into_recompute(_STORAGE)
 
 

@@ -37,7 +37,13 @@ does not divide H: a rank's caches and cross K / V hold its KV heads), the
 SwiGLU on f, the embedding, head and CE on the vocab.  Under
 `common.storage_sharded` each layer's data-sharded leaves are gathered
 where the layer runs (inside its region under remat), and `enc_in` where
-it is used.
+it is used.  Under the sequence split (`common.tensor_parallel(axis,
+sequence=True)`, the train and prefill steps' default) both stacks hold
+the rank's rows of their streams: the frames' projection keeps the
+rank's rows of the encoder's positions, the embedding leaves through
+`scatter_seq`, the norms and residual adds are local, each attention
+and FFN gathers the sequence where it enters its split, and a decoder
+layer's cross K / V gather the encoder output's rows the same way.
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import ffn as FFN
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (ModelConfig, ParamInit, gathered,
-                                       rms_norm, rope_cos_sin)
+                                       local_seq, rms_norm, rope_cos_sin)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
@@ -97,22 +103,24 @@ def init_encdec(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def _positions(x: Tensor) -> Tensor:
-    b, s, _ = x.shape
+    """The positions [B, S] of a whole sequence x [B, S, ...]."""
+    b, s = x.shape[:2]
     return torch.arange(s, device=x.device).expand(b, s)
 
 
 def encode(params: Dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
     """frames [B, T, feat] -> the encoder output [B, T, d]
-    (bidirectional)."""
+    (bidirectional; under the sequence split the rank's rows)."""
     x = T._column_product(frames.to(cfg.dtype), gathered(params["enc_in"]),
                           cfg)
     positions = _positions(x)
+    x = local_seq(x)
 
     def block(p, x):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + ATT.gqa_full(p["attn"], h, cfg, positions, causal=False)
-        return x + T._ffn("attn", p["ffn"], rms_norm(x, p["ln2"],
-                                                     cfg.norm_eps), cfg)[0]
+        return x + T._ffn("attn", p["ffn"], rms_norm(
+            x, p["ln2"], cfg.norm_eps), cfg)[0]
 
     for layer in T._layer_parts(params["enc_blocks"],
                                 cfg.encdec.n_enc_layers):
@@ -123,9 +131,10 @@ def encode(params: Dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
 def decode_hidden(params: Dict, tokens: Tensor, enc_out: Tensor,
                   cfg: ModelConfig) -> Tensor:
     """The teacher-forced decoder over tokens [B, S] attending enc_out
-    [B, Se, d] -> the final hidden [B, S, d]."""
+    [B, Se, d] -> the final hidden [B, S, d] (under the sequence split
+    enc_out and the hidden states are the rank's rows)."""
     x = T.embed_tokens(params, tokens, cfg)
-    positions = _positions(x)
+    positions = _positions(tokens)
 
     def block(p, x, enc_out):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -133,8 +142,8 @@ def decode_hidden(params: Dict, tokens: Tensor, enc_out: Tensor,
         hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
         kv = ATT.encode_kv(p["cross_attn"], enc_out, cfg)
         x = x + ATT.cross_attention(p["cross_attn"], hx, kv, cfg)
-        return x + T._ffn("attn", p["ffn"], rms_norm(x, p["ln2"],
-                                                     cfg.norm_eps), cfg)[0]
+        return x + T._ffn("attn", p["ffn"], rms_norm(
+            x, p["ln2"], cfg.norm_eps), cfg)[0]
 
     for layer in T._layer_parts(params["dec_blocks"],
                                 cfg.encdec.n_dec_layers):

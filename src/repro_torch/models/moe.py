@@ -57,7 +57,12 @@ experts (E / M a rank; the tokens are replicated, so the capacity and the
 dropped pairs stay the global ones), and the shared experts split their f;
 the routed and shared partial outputs are summed before the layer's one
 `reduce_out`.  The combine weights enter the split through `copy_in`, so
-the router's gradient is whole on every rank.
+the router's gradient is whole on every rank.  Under the sequence split
+(`common.tensor_parallel(axis, sequence=True)`) the layer reads the
+whole sequence (`common.whole_seq`), so the router, the top-k choices,
+the capacity and the aux loss are the replicated route's; the partial
+sum leaves through `common.leave` (a reduce_scatter to the rank's rows)
+and a replicated part keeps the rank's rows (`common.local_seq`).
 """
 from __future__ import annotations
 
@@ -69,10 +74,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.distributed import (all_reduce_sum_local_grad,
-                                            copy_in, reduce_out)
+                                            copy_in)
 from repro_torch.models.common import (ModelConfig, ParamInit,
-                                       carry_into_recompute, model_shards,
-                                       recompute)
+                                       carry_into_recompute, leave,
+                                       local_seq, model_shards, recompute,
+                                       whole_seq)
 from repro_torch.models.ffn import init_swiglu, swiglu
 
 Tensor = torch.Tensor
@@ -355,7 +361,10 @@ def moe_capacity_gather(p: Dict, x2: Tensor, cfg: ModelConfig
 def moe_ffn(p: Dict, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """[B, S, d] -> ([B, S, d], aux loss), plus the shared experts if the
     config has them.  Under `tensor_parallel` the split parts' partial
-    outputs are summed, then reduced over the ranks once."""
+    outputs are summed, then reduced over the ranks once; under the
+    sequence split x and the output are the rank's rows [B, S / M, d] and
+    the layer reads the whole sequence."""
+    x = whole_seq(x)
     b, s, d = x.shape
     impl = (moe_scan_dense if cfg.moe.impl == "scan_dense"
             else moe_capacity_gather)
@@ -371,9 +380,10 @@ def moe_ffn(p: Dict, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
                                             copy_in(x, axis.group)))
         else:
             whole = _plus(whole, swiglu(p["shared"], x))
+    out = None if whole is None else local_seq(whole)
     if partial is not None:
-        whole = _plus(whole, reduce_out(partial, axis.group))
-    return whole, aux
+        out = _plus(out, leave(partial))
+    return out, aux
 
 
 def _plus(a: Optional[Tensor], b: Tensor) -> Tensor:

@@ -36,7 +36,11 @@ gather_shards`: the backward is this rank's slice of the summed
 gradient); the gates, the scan and the gate product are local, and one
 `reduce_out` of out's partial products finishes the block.  A rank's
 decode state is its W / M channels of the conv window and of h (the
-reference's `cache_specs` splits W too).  M must divide W.
+reference's `cache_specs` splits W too).  M must divide W.  Under the
+sequence split (`common.tensor_parallel(axis, sequence=True)`) the input
+is the rank's rows: it enters through `common.enter` (the rows gathered:
+the convolution and the scan need the whole sequence) and the output
+leaves through `common.leave` (a reduce_scatter to the rank's rows).
 """
 from __future__ import annotations
 
@@ -45,8 +49,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.distributed import copy_in, gather_shards, reduce_out
-from repro_torch.models.common import ModelConfig, ParamInit, model_shards
+from repro_torch.launch.distributed import gather_shards
+from repro_torch.models.common import (ModelConfig, ParamInit, enter, leave,
+                                       model_shards)
 
 Tensor = torch.Tensor
 _C = 8.0
@@ -112,15 +117,13 @@ def _local(p: Dict, x: Tensor) -> Tuple[Tensor, Tensor, object]:
     projections of this rank's channels, the model group or None)."""
     axis = model_shards()
     group = None if axis is None else axis.group
-    if group is not None:
-        x = copy_in(x, group)
+    x = enter(x)
     return (F.gelu(x @ p["in_gate"], approximate="tanh"), x @ p["in_x"],
             group)
 
 
-def _out(p: Dict, y: Tensor, group) -> Tensor:
-    out = y @ p["out"]
-    return out if group is None else reduce_out(out, group)
+def _out(p: Dict, y: Tensor) -> Tensor:
+    return leave(y @ p["out"])
 
 
 def rglru_full(p: Dict, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -129,7 +132,7 @@ def rglru_full(p: Dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     xr = _conv(p, xr)
     a, b = _gates(p, xr, gather_shards(xr, group))
     y = scan(a, b).to(x.dtype) * gate
-    return _out(p, y, group)
+    return _out(p, y)
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device=None,
@@ -155,4 +158,4 @@ def rglru_decode_step(p: Dict, x1: Tensor, state: Dict[str, Tensor],
     y = h.to(x1.dtype) * gate
     state["conv"].copy_(window[:, 1:])
     state["h"].copy_(h)
-    return _out(p, y, group)[:, None], state
+    return _out(p, y)[:, None], state

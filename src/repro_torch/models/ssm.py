@@ -37,7 +37,13 @@ reduces the output once.  Its decode state holds its heads: the conv
 window of its x channels plus B and C, the ssm state of its heads (the
 reference's `cache_specs` splits the conv channels evenly, and the ssm
 state's heads, or at full width its headdim; it changes no value).  M
-must divide H.
+must divide H.  Under the sequence split (`common.tensor_parallel(axis,
+sequence=True)`) the block's input is the rank's rows: it enters through
+`common.enter` (the rows gathered: the chunked scan needs the whole
+sequence) and the output leaves through `common.leave` (a
+reduce_scatter to the rank's rows); the gated norm's sum is unchanged.
+The right-pad to a chunk multiple is applied to the projection's
+outputs (the product of the zero rows the reference pads is zero).
 """
 from __future__ import annotations
 
@@ -47,8 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.distributed import copy_in, gather_shards, reduce_out
-from repro_torch.models.common import (ModelConfig, ParamInit, model_shards,
-                                       rms_norm)
+from repro_torch.models.common import (ModelConfig, ParamInit, enter, leave,
+                                       model_shards, rms_norm)
 
 Tensor = torch.Tensor
 
@@ -101,7 +107,7 @@ def _local(p: Dict, u: Tensor, cfg: ModelConfig):
         z, xbc, dt = _split_proj(u @ w, cfg)
         return z, xbc, dt, cw, cb, slice(0, nheads)
     group = axis.group
-    u = copy_in(u, group)
+    u = enter(u)
     if w.shape[1] < d_in + d_in + 2 * s.ngroups * s.d_state + nheads:
         proj = gather_shards(u @ w, group)   # this rank's columns, gathered
     else:                                    # in_proj replicated
@@ -139,9 +145,7 @@ def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, cfg: ModelConfig,
 
 
 def _out(p: Dict, y: Tensor) -> Tensor:
-    out = y @ p["out_proj"]
-    axis = model_shards()
-    return out if axis is None else reduce_out(out, axis.group)
+    return leave(y @ p["out_proj"])
 
 
 def _causal_conv(xbc: Tensor, w: Tensor, bias: Tensor) -> Tensor:
@@ -154,19 +158,18 @@ def _causal_conv(xbc: Tensor, w: Tensor, bias: Tensor) -> Tensor:
 
 
 def ssd_full(p: Dict, u: Tensor, cfg: ModelConfig) -> Tensor:
-    """Mamba-2 block over a full sequence.  u [B, S, d] -> [B, S, d]."""
+    """Mamba-2 block over a full sequence.  u [B, S, d] -> [B, S, d] (under
+    the sequence split the rank's rows of both)."""
     s, d_in, _ = _dims(cfg)
-    bsz, slen, _ = u.shape
     q = s.chunk
-    if slen % q:   # right-pad to a chunk multiple (causal: nothing leaks)
-        out = ssd_full(p, F.pad(u, (0, 0, 0, q - slen % q)), cfg)
-        return out[:, :slen]
-    nck = slen // q
-
     z, xbc, dt, cw, cb, hs = _local(p, u, cfg)
+    bsz, slen, _ = xbc.shape
+    if slen % q:   # right-pad to a chunk multiple (causal: nothing leaks)
+        xbc, dt = (F.pad(t, (0, 0, 0, q - slen % q)) for t in (xbc, dt))
+    nck = -(-slen // q)
     x, bmat, cmat = _split_xbc(_causal_conv(xbc, cw, cb), cfg)
     nh = hs.stop - hs.start
-    xh = x.reshape(bsz, slen, nh, s.headdim)
+    xh = x.reshape(bsz, nck * q, nh, s.headdim)
     bh, ch = _heads(bmat, cfg, hs), _heads(cmat, cfg, hs)     # [B, S, H, N]
 
     a = -torch.exp(p["A_log"].float())                        # [H], < 0
@@ -207,8 +210,8 @@ def ssd_full(p: Dict, u: Tensor, cfg: ModelConfig) -> Tensor:
     y_off = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", cc,
                          prev_states.to(cc.dtype), torch.exp(cs).to(cc.dtype))
 
-    y = (y_diag + y_off).reshape(bsz, slen, nh, s.headdim)
-    y = y + xh * p["D"].to(xh.dtype)[None, None, :, None]
+    y = (y_diag + y_off).reshape(bsz, nck * q, nh, s.headdim)
+    y = (y + xh * p["D"].to(xh.dtype)[None, None, :, None])[:, :slen]
     y = _gated_norm(y.reshape(bsz, slen, nh * s.headdim), z, p["norm"], cfg,
                     d_in)
     return _out(p, y)

@@ -57,7 +57,17 @@ its vocab rows (each rank looks up the ids in its rows, zeros elsewhere,
 one `reduce_out`), the head on its vocab columns, and the CE is
 `softmax_xent_sharded`, so the [B, S, Vp] logits are never gathered in
 training.  `logits_from_hidden` gathers the vocab shards (prefill and
-decode).  Under `common.storage_sharded` (the large leaves' storage split
+decode).  Under `tensor_parallel(axis, sequence=True)` (the train and
+prefill steps' default, the reference's `make_constrain`) each rank
+holds its S / M positions of the stream: the embedding leaves through
+`scatter_seq` (a VLM's prefix and tokens are joined whole, then split:
+`common.local_seq`), the norms and residual adds run on the rank's rows
+(the norms' scales: `launch.sharding.row_leaves`), each mixer and FFN gathers
+the sequence where it enters its split and scatters its partial
+product where it leaves (`common.enter` / `leave`), a recomputed block
+keeps only its rows, the CE gathers the sequence before the vocab-split
+head, and the prefill's last position comes from the last rank
+(`last_hidden`).  Under `common.storage_sharded` (the large leaves' storage split
 over the "data" ranks) a layer's leaves are gathered where the layer
 runs (`_Layer.tree`: one layer at a time, inside its recomputed region
 under remat, so the backward gathers it again rather than keep it), and
@@ -77,13 +87,14 @@ from repro_torch.models import ffn as FFN
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RGL
 from repro_torch.models import ssm as SSM
-from repro_torch.launch.distributed import (all_gather, copy_in, gather_out,
-                                            reduce_out)
-from repro_torch.models.common import (ModelConfig, ParamInit,
-                                       gather_storage_dim, gathered,
-                                       model_shards, recompute, rms_norm,
-                                       rope_cos_sin, softmax_xent,
-                                       softmax_xent_sharded, storage_dim)
+from repro_torch.launch.distributed import all_gather, copy_in, gather_out
+from repro_torch.models.common import (ModelConfig, ParamInit, enter,
+                                       gather_storage_dim, gathered, leave,
+                                       local_seq, model_shards, recompute,
+                                       rms_norm, rope_cos_sin, seq_split,
+                                       softmax_xent,
+                                       softmax_xent_sharded, storage_dim,
+                                       whole_residual, whole_seq)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
@@ -195,14 +206,17 @@ def _vocab_axis(cfg: ModelConfig):
 
 
 def embed_tokens(params: Dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+    """tokens [B, S] -> [B, S, d] (under the sequence split this rank's
+    rows [B, S / M, d]): a vocab-split embedding's lookups, zeros outside
+    the rank's rows of it, leave through `common.leave`."""
     axis = _vocab_axis(cfg)
     emb = gathered(params["embed"])              # this rank's vocab rows
     if axis is None:
-        return emb[tokens.long()]
+        return local_seq(emb[tokens.long()])
     t = tokens.long() - axis.index * emb.shape[0]
     mine = (t >= 0) & (t < emb.shape[0])
     x = emb[torch.where(mine, t, 0)].masked_fill(~mine[..., None], 0.0)
-    return reduce_out(x, axis.group)
+    return leave(x)
 
 
 def _head(params: Dict, cfg: ModelConfig) -> Tensor:
@@ -218,6 +232,15 @@ def logits_from_hidden(params: Dict, h: Tensor, cfg: ModelConfig) -> Tensor:
         return h @ _head(params, cfg)
     return all_gather(copy_in(h, axis.group) @ _head(params, cfg),
                       axis.group, dim=-1)
+
+
+def last_hidden(h: Tensor) -> Tensor:
+    """h[:, -1] [B, d] of the stack's output h: under the sequence split,
+    where h is this rank's rows, the last rank's last row (each rank's
+    last row gathered; nothing else of the sequence moves)."""
+    if not seq_split():
+        return h[:, -1]
+    return all_gather(h[:, -1:], model_shards().group, dim=1)[:, -1]
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -360,10 +383,9 @@ def _ffn(kind: str, p: Dict, h: Tensor, cfg: ModelConfig
     if kind == "attn_moe":
         return MOE.moe_ffn(p, h, cfg)
     axis = model_shards()
-    if axis is None or not axis.shards(cfg.d_ff):
+    if axis is None or not axis.shards(cfg.d_ff):   # on the rows it has
         return FFN.swiglu(p, h), None
-    return reduce_out(FFN.swiglu(p, copy_in(h, axis.group)),
-                      axis.group), None
+    return leave(FFN.swiglu(p, enter(h))), None
 
 
 def _apply_subblock(kind: str, p: Dict, x: Tensor, positions: Tensor,
@@ -371,7 +393,9 @@ def _apply_subblock(kind: str, p: Dict, x: Tensor, positions: Tensor,
                     ) -> Tuple[Tensor, Optional[Tensor]]:
     """The full-sequence block: x + attn(norm(x)) (or + rglru(norm(x))),
     then + ffn(norm(x)); or x + ssd(norm(x)); returns (x, the MoE aux loss
-    or None).  A local_attn block attends within cfg.local_window."""
+    or None).  A local_attn block attends within cfg.local_window.  Under
+    the sequence split x is the rank's rows and positions the whole
+    sequence's."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         return x + SSM.ssd_full(p["mixer"], h, cfg), None
@@ -384,7 +408,8 @@ def _apply_subblock(kind: str, p: Dict, x: Tensor, positions: Tensor,
         x = x + ATT.mla_full(p["attn"], h, cfg, positions, window=window)
     else:
         x = x + ATT.gqa_full(p["attn"], h, cfg, positions, window=window)
-    y, aux = _ffn(kind, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    y, aux = _ffn(kind, p["ffn"], rms_norm(x, p["ln2"],
+                                          cfg.norm_eps), cfg)
     return x + y, aux
 
 
@@ -395,7 +420,9 @@ def forward_hidden(params: Dict, x: Tensor, positions: Tensor,
     the aux loss is the sum of the MoE blocks' load-balance losses (0 for
     a dense model), f32, each super-block's summed first, as the
     reference does.  Under cfg.remat each super-block and each tail block
-    is recomputed in the backward (`run_block`)."""
+    is recomputed in the backward (`run_block`).  Under the sequence
+    split x and the hidden states are this rank's rows [B, S / M, d],
+    positions [B, S] the whole sequence's."""
     check_supported(cfg)
     window = window if window is not None else cfg.window
 
@@ -447,21 +474,26 @@ def hidden_for_batch(params: Dict, tokens: Tensor, cfg: ModelConfig,
     `embeds_prefix` [B, P, feat] (a VLM's stub features) the projected
     prefix (`project_prefix`) is prepended to the token embeddings and the
     stack runs over all P + S positions; the hidden states are the token
-    region's.  A prefix on a config without a frontend raises
-    ValueError."""
-    x = embed_tokens(params, tokens, cfg)
+    region's.  Under the sequence split h is this rank's rows of all P + S
+    positions (the token region is the last S of them: `chunked_ce` and
+    `last_hidden` take it).  A prefix on a config without a frontend
+    raises ValueError."""
     npfx = 0
-    if embeds_prefix is not None:
+    if embeds_prefix is None:
+        x = embed_tokens(params, tokens, cfg)
+    else:
         if cfg.frontend is None:
             raise ValueError(f"{cfg.name} has no frontend: no projector "
                              f"for embeds_prefix")
-        e = project_prefix(params, embeds_prefix, cfg)
-        x = torch.cat([e, x], dim=1)
+        with whole_residual():   # joined whole, then the rank's rows
+            x = embed_tokens(params, tokens, cfg)
+            e = project_prefix(params, embeds_prefix, cfg)
+        x = local_seq(torch.cat([e, x], dim=1))
         npfx = e.shape[1]
-    b, s, _ = x.shape
+    b, s = tokens.shape[0], npfx + tokens.shape[1]
     positions = torch.arange(s, device=x.device).expand(b, s)
     h, aux = forward_hidden(params, x, positions, cfg, window)
-    return h[:, npfx:], aux
+    return (h if seq_split() else h[:, npfx:]), aux
 
 
 def forward(params: Dict, tokens: Tensor, cfg: ModelConfig,
@@ -482,19 +514,25 @@ def chunked_ce(params: Dict, h: Tensor, labels: Tensor,
     reference's `jax.checkpoint`), so the [B, S, vocab] logits never
     exist at once, nor a chunk's past its forward.  Under
     `tensor_parallel` each chunk's logits are this rank's vocab columns
-    (`softmax_xent_sharded`)."""
+    (`softmax_xent_sharded`); under the sequence split h is this rank's
+    rows, gathered first (`common.enter`, or `whole_seq` for a replicated
+    head), and the CE is the last S = labels.shape[1] positions' (a VLM's
+    token region)."""
     head = _head(params, cfg)
-    s = h.shape[1]
-    ck = min(cfg.lm_head_chunk, s)
     axis = _vocab_axis(cfg)
     if axis is None:
+        h = whole_seq(h)
+
         def ce(hc, lc, head):
             return softmax_xent(hc @ head, lc, cfg.vocab_size)
     else:
-        h = copy_in(h, axis.group)
+        h = enter(h)
 
         def ce(hc, lc, head):
             return softmax_xent_sharded(hc @ head, lc, cfg.vocab_size, axis)
+    s = labels.shape[1]
+    h = h[:, h.shape[1] - s:]
+    ck = min(cfg.lm_head_chunk, s)
     return torch.cat([recompute(ce, h[:, i:i + ck], labels[:, i:i + ck],
                                 head) for i in range(0, s, ck)], dim=1)
 

@@ -4,7 +4,9 @@ the reference's for all ten full configs at the four input shapes; the
 roofline arithmetic on the H100's constants; and `CostMode`'s tally of a
 known sequence of collectives on a fake process group of 16 ranks (two
 nodes of 8), the library's wrappers and a direct `dist.all_reduce`
-included."""
+included; its live bytes, and a trace's peak where `gather`'s backward
+runs out of place on fake tensors against an eager run's."""
+import contextlib
 import warnings
 
 import pytest
@@ -123,3 +125,24 @@ def test_meta_tensors_and_card_workspace():
     # x, y, the ones, the softmax backward's output and its workspace
     assert cost.peak == 5 * 64 * 32 * 4
     assert cost.live == 64 * 32 * 4
+
+
+def test_gather_backward_peaks_as_an_eager_run():
+    """`gather`'s backward scatters into a fresh zeros buffer: in place on
+    plain tensors, out of place on fake ones (`SUBCLASS_OUT_OF_PLACE`).
+    The trace on fake tensors peaks at the eager run's bytes: x, the
+    incoming gradient and the zeros buffer, not a copy of it too."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def peak(fake):
+        with FakeTensorMode() if fake else contextlib.nullcontext():
+            x = torch.zeros(64, 1000, requires_grad=True)
+            idx = torch.zeros(64, 1, dtype=torch.long)
+            with CA.CostMode() as cost:
+                cost.track(x, idx)
+                y = torch.gather(x, 1, idx)
+                g, = torch.autograd.grad(y, x, torch.ones_like(y))
+                del y, g
+        return cost.peak
+
+    assert peak(True) == peak(False) == 2 * 64 * 1000 * 4 + 2 * 64 * 4 + 64 * 8

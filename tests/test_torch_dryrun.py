@@ -11,7 +11,11 @@ check against a real gloo run is in tests/test_torch_fsdp_ranks.py):
 - a trace on fake tensors against the same step run for real on CPU
   zeros (one device): equal operations, argument bytes and peak;
 - the card route traces the decode kernel by its fake rule and cost;
-- `--all` resumes, and records a failing combo as "fail".
+- `--all` resumes, and records a failing combo as "fail";
+- the records carry the route of the residual stream (`constrain`):
+  "sequence" by default, "batch_only" where asked for or where the
+  "model" axis does not divide the sequence (a VLM's prefix plus its
+  tokens, an encoder-decoder's frames), none for decode.
 """
 import dataclasses
 import json
@@ -37,6 +41,8 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ref
 from repro_torch.launch import dryrun as DRY
+from repro_torch.launch import steps as TSTEPS
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves
 
@@ -147,3 +153,45 @@ def test_all_resumes_and_records_failures(tmp_path):
     rec = json.loads((tmp_path / "no-such-arch__decode_32k__single.json")
                      .read_text())
     assert rec["status"] == "fail" and "unknown arch" in rec["error"]
+
+
+@pytest.mark.parametrize("arch,seq,asked,want", [
+    ("qwen3-4b", 16, "sequence", "sequence"),
+    ("qwen3-4b", 16, "batch_only", "batch_only"),
+    ("llava-next-mistral-7b", 31, "sequence", "batch_only"),  # 16 + 15
+    ("llava-next-mistral-7b", 32, "sequence", "sequence"),
+    ("seamless-m4t-large-v2", 18, "sequence", "batch_only"),  # 18 frames
+])
+def test_trace_records_the_residual_route(arch, seq, asked, want):
+    """A smoke train and prefill step on (1, 4) of a fake group, traced:
+    meta["constrain"] is the route taken, "batch_only" where 4 does not
+    divide a stream (`steps.residual_route`); decode records none."""
+    cfg = get_smoke(arch)
+    with DRY.fake_group(4):
+        mesh = make_debug_mesh((1, 4), ("data", "model"))
+        for kind in ("train", "prefill"):
+            shape = dict(global_batch=4, seq_len=seq, kind=kind)
+            got = DRY.trace_step(cfg, "train_4k", shape, mesh,
+                                 constrain=asked)
+            assert got["meta"]["constrain"] == want, kind
+        if arch == "qwen3-4b":
+            dec = DRY.trace_step(cfg, "decode_32k", dict(
+                global_batch=4, seq_len=seq, kind="decode"), mesh)
+            assert "constrain" not in dec["meta"]
+    assert not torch.distributed.is_initialized()
+
+
+def test_constrain_is_checked_and_named_in_the_record(tmp_path):
+    """An unknown constrain raises ValueError at the step's build; a
+    combo run with --constrain batch_only writes its record beside the
+    default's, under its own name."""
+    cfg = get_smoke("qwen3-4b")
+    for make in (TSTEPS.make_train_step, TSTEPS.make_prefill_step):
+        with pytest.raises(ValueError, match="constrain"):
+            make(cfg, None, dict(global_batch=4, seq_len=16),
+                 constrain="model")
+    rec = DRY.run_one("seamless-m4t-large-v2", "long_500k", "single",
+                      str(tmp_path), "batch_only")
+    assert rec["status"] == "skip" and rec["asked"] == "batch_only"
+    assert (tmp_path / "seamless-m4t-large-v2__long_500k__single__"
+            "batch_only.json").exists()

@@ -20,7 +20,13 @@ one of 4:
 - the train step: params (gathered), gbar, eps2 and the metrics at rtol
   1e-5 / atol 1e-6; every rank's gathered params bitwise equal (the model
   replicas of the workers, and each replicated leaf across the model
-  ranks); greedy `serve` on (1, 2) gives the one-process tokens;
+  ranks); greedy `serve` on (1, 2) gives the one-process tokens.  The
+  steps run the default "sequence" route (the residual stream split over
+  "model" on the sequence, as the reference's `make_constrain`); BEV on
+  (1, 2) and (2, 2) also runs "batch_only" (replicated) against the same
+  reference;
+- `gather_seq`, `scatter_seq` and `split_seq` at M = 2 and 4: forward and
+  gradient against the whole-tensor computation;
 - the vocab-parallel CE and the embed / lm_head gradients at M = 2 and 4
   against the unsharded `chunked_ce` at rtol 1e-6;
 - the layout: `param_specs` and the decode caches of every one of the ten
@@ -57,7 +63,8 @@ with warnings.catch_warnings():
     from repro.models import encdec as JED
     from repro.models import transformer as JT
 
-from torch_lm_ranks import (AXES, ROOT, ROUTES, RTOL, check_train, close,
+from torch_lm_ranks import (AXES, ROOT, ROUTES, RTOL, batch_only_jobs,
+                            check_batch_only, check_train, close,
                             jax_reference, train_jobs)
 from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
 from types import SimpleNamespace
@@ -83,6 +90,20 @@ TRAIN_CASES = {   # name: (mesh shape, routes, arch, moe impl, batch)
 }
 SERVE = dict(batch=4, prompt_len=8, gen=8, seed=3)
 MODEL_SIZES = (2, 4, 16)
+SEQ_OPS = dict(b=2, s=8, d=3)
+
+
+def _seq_ops_inputs(m):
+    """The seq_ops job's x [B, S, d] and one weight of x's shape a rank."""
+    g = np.random.default_rng(70 + m)
+    sh = (SEQ_OPS["b"], SEQ_OPS["s"], SEQ_OPS["d"])
+    return dict(x=g.standard_normal(sh).astype(np.float32),
+                w=g.standard_normal((m,) + sh).astype(np.float32))
+
+
+def _seq_ops_job(shape):
+    return dict(name=f"seq_ops_{shape[1]}", kind="seq_ops",
+                mesh=(shape, AXES), **_seq_ops_inputs(shape[1]))
 
 
 @pytest.fixture(scope="module")
@@ -121,9 +142,10 @@ def ranks2(jax_ref, tmp_path_factory):
     """2 ranks on (1, 2): the qwen3 train step for every route, greedy
     serve, the CE at M = 2."""
     jobs = train_jobs(jax_ref, "m12", TRAIN_CASES)
+    jobs += batch_only_jobs(jax_ref, ["m12"], TRAIN_CASES)
     jobs.append(dict(name="serve", kind="serve", mesh=((1, 2), AXES),
                      arch="qwen3-4b", **SERVE))
-    jobs += _ce_jobs((1, 2))
+    jobs += _ce_jobs((1, 2)) + [_seq_ops_job((1, 2))]
     return run_ranks(jobs, 2, tmp_path_factory.mktemp("tp2"))
 
 
@@ -132,7 +154,8 @@ def ranks4(jax_ref, tmp_path_factory):
     """4 ranks on (2, 2) and (1, 4): the train step on (2, 2), the CE at
     M = 4, the layout jobs."""
     jobs = train_jobs(jax_ref, "m22", TRAIN_CASES)
-    jobs += _ce_jobs((1, 4))
+    jobs += batch_only_jobs(jax_ref, ["m22"], TRAIN_CASES)
+    jobs += _ce_jobs((1, 4)) + [_seq_ops_job((1, 4))]
     jobs += [dict(name=f"layout_{a}{b}", kind="layout", mesh=((a, b), AXES),
                   arch="qwen3-4b", params0=jax_ref["m12"]["params0"])
              for a, b in ((2, 2), (1, 4))]
@@ -147,6 +170,45 @@ def test_train_step_on_model_meshes_matches_jax(ranks2, ranks4, jax_ref,
     two ranks), every route, against the reference on the same mesh."""
     ranks, world = (ranks2, 2) if name == "m12" else (ranks4, 4)
     check_train(ranks, jax_ref, world, name, route, TRAIN_CASES)
+    job = f"{name}_{route[0]}_{route[1]}.r0"
+    assert ranks[job]["meta"]["constrain"] == "sequence"
+
+
+@pytest.mark.parametrize("name", ["m12", "m22"])
+def test_batch_only_route_matches_jax(ranks2, ranks4, jax_ref, name):
+    """constrain="batch_only" (the residual replicated over "model", the
+    route before the sequence split) against the same reference run,
+    which splits the sequence: the layout changes no value."""
+    ranks, world = (ranks2, 2) if name == "m12" else (ranks4, 4)
+    check_batch_only(ranks, jax_ref, world, name, TRAIN_CASES)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_sequence_parallel_collectives(ranks2, ranks4, m):
+    """`gather_seq` (all_gather on the sequence, summing reduce_scatter
+    backward), `scatter_seq` (reduce_scatter, all_gather backward) and
+    `split_seq` (the rank's rows, all_gather backward) on m gloo ranks
+    against the whole tensors: rank r holds rows [r S / m, (r + 1) S / m)
+    and weighs its output by w[r]."""
+    ranks = ranks2 if m == 2 else ranks4
+    x, w = (_seq_ops_inputs(m)[k] for k in ("x", "w"))
+    s = x.shape[1] // m
+
+    def rows(r):
+        return slice(r * s, (r + 1) * s)
+    # each rank's rows of the weights, joined in rank order
+    own = np.concatenate([w[r][:, rows(r)] for r in range(m)], axis=1)
+    for r in range(m):
+        got = ranks[f"seq_ops_{m}.r{r}"]
+        assert got["model"] == (m, r)
+        close(got["out"]["gather"], x, rtol=0, atol=0)
+        close(got["grads"]["gather"], w.sum(axis=0)[:, rows(r)],
+              rtol=1e-6)
+        close(got["out"]["scatter"], x[:, rows(r)] * m * (m + 1) / 2,
+              rtol=1e-6)
+        close(got["grads"]["scatter"], own, rtol=0, atol=0)
+        close(got["out"]["split"], x[:, rows(r)], rtol=0, atol=0)
+        close(got["grads"]["split"], own, rtol=0, atol=0)
 
 
 def test_greedy_serve_on_two_model_ranks_equals_one_process(ranks2):

@@ -14,13 +14,17 @@ replicated stream), the self- and cross-attentions their heads, the
 embedding, head and CE the vocab; on (2, 1) each rank is one FL worker
 on 2 rows, frames and all.  Train at rtol 1e-5 / atol 1e-6, every rank's
 gathered params bitwise equal; decode at rtol 1e-4 against the
-one-device JAX step.
+one-device JAX step.  The (1, 2) train steps run the default "sequence"
+route (the prefix and tokens joined, then each rank's rows; the frames'
+projection and the decoder's stream each rank's rows, the cross K / V
+gathering the encoder's), and also "batch_only" against the same
+reference.
 """
 import pytest
 
 from torch_lm_ranks import (AXES, ROUTES, assert_train_matches,
-                            check_train, close_decode, jax_reference,
-                            train_jobs)
+                            batch_only_jobs, check_batch_only, check_train,
+                            close_decode, jax_reference, train_jobs)
 from torch_parity import assert_ranks_agree, run_ranks
 
 from repro_torch.configs import get_smoke
@@ -45,6 +49,7 @@ def jax_ref(tmp_path_factory):
 def ranks2(jax_ref, tmp_path_factory):
     """2 ranks: the three train cases, and both decodes on (1, 2)."""
     jobs = [j for name in TRAIN for j in train_jobs(jax_ref, name, TRAIN)]
+    jobs += batch_only_jobs(jax_ref, ["lv12", "sm12"], TRAIN)
     for name, (arch, *_) in DECODE.items():
         ref = jax_ref[name]
         jobs.append(dict(name=name, kind="decode", mesh=((1, 2), AXES),
@@ -95,3 +100,11 @@ def test_frontends_decode_on_model_meshes(ranks2, jax_ref, arch):
     assert got["cache_shape"] == (layers, 4, DECODE[name][2],
                                   cfg.n_kv_heads // 2, cfg.hd)
     close_decode(got["logits"], jax_ref[name]["logits"])
+
+
+@pytest.mark.parametrize("name", ["lv12", "sm12"])
+def test_frontends_batch_only_route_matches_jax(ranks2, jax_ref, name):
+    """llava and seamless on (1, 2) on "batch_only", the residual
+    replicated over "model", against the same reference, which splits
+    the sequence."""
+    check_batch_only(ranks2, jax_ref, 2, name, TRAIN)

@@ -23,6 +23,14 @@ of 4 ranks and one of 8.  Train at rtol
 1e-5 / atol 1e-6, prefill at rtol 1e-5, decode at rtol 1e-4 against the
 one-device step.
 
+The steps run the default "sequence" route (the residual stream split
+over "model" on the sequence, the reference's `make_constrain`); sc6's
+train step and prefill also run "batch_only" against the same reference.
+Under remat on (1, 4) each recomputed block saves this rank's rows
+[B, S / 4, d] of its input, where "batch_only" saves [B, S, d]
+(`saved_tensors_hooks`); a prefill of 22 positions, which 4 does not
+divide, runs "batch_only" and says so.
+
 Marked slow, as tests/test_torch_lm_mesh.py is.
 """
 import dataclasses
@@ -30,9 +38,11 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
-from torch_lm_ranks import (AXES, RTOL, check_train, close, close_decode,
-                            jax_reference, train_jobs)
+from torch_lm_ranks import (AXES, RTOL, SEQ, batch_only_jobs,
+                            check_batch_only, check_train, close,
+                            close_decode, jax_reference, train_jobs)
 from torch_parity import assert_ranks_agree, assert_trees_equal, run_ranks
 
 from repro_torch.configs import get_smoke
@@ -56,6 +66,7 @@ HEADS = {
     "l4": ((1, 8), "llama4-maverick-400b-a17b", {}, (1, 1, 1, 2)),
 }
 HEADS_DECODE = ("sc6", "h12", "l4")   # nodim's hd 18: no decode kernel
+ODD = 22   # a prefill length 4 does not divide
 TRAIN_CASES = {   # name: (mesh shape, routes, arch, moe impl, batch[, over])
     "m42": ((4, 2), [("bev", True)], "qwen3-4b", None, 8),
     "m14": ((1, 4), [("bev", True)], "qwen3-4b", None, 8),
@@ -90,8 +101,16 @@ def ranks4(jax_ref, tmp_path_factory):
                   tokens=pf["tokens"]),
              dict(name="decode_qwen", kind="decode", mesh=((1, 4), AXES),
                   arch="qwen3-4b", params0=dq["params0"],
-                  tokens=dq["tokens"])]
+                  tokens=dq["tokens"]),
+             dict(name="prefill_odd", kind="prefill", mesh=((1, 4), AXES),
+                  arch="qwen3-4b", params0=pf["params0"],
+                  tokens=pf["tokens"][:, :ODD]),
+             dict(jobs[0], name="saved", kind="saved",
+                  config=dict(lm_head_chunk=SEQ // 2))]
     jobs += heads_jobs(jax_ref, 4)
+    jobs += batch_only_jobs(jax_ref, ["sc6"], TRAIN_CASES)
+    jobs += [dict(j, name="prefill_sc6_batch_only", constrain="batch_only")
+             for j in jobs if j["name"] == "prefill_sc6"]
     return run_ranks(jobs, 4, tmp_path_factory.mktemp("tp4"))
 
 
@@ -261,3 +280,77 @@ def test_head_layouts_round_trip_bit_for_bit(ranks4, ranks8, jax_ref,
         for loc, f, d in zip(got["local_shapes"], tree_leaves(full), specs):
             assert loc == tuple(n // m if i == d else n
                                 for i, n in enumerate(f.shape))
+
+
+def test_batch_only_route_where_m_does_not_divide_the_heads(ranks4,
+                                                            jax_ref):
+    """sc6 (every head on every rank) on "batch_only", the residual
+    replicated over "model": its train step and prefill against the
+    reference's, which split the sequence; the "sequence" jobs took their
+    route."""
+    assert ranks4["prefill_sc6.r0"]["constrain"] == "sequence"
+    check_batch_only(ranks4, jax_ref, 4, "sc6", TRAIN_CASES)
+    got = ranks4["prefill_sc6_batch_only.r0"]
+    assert got["constrain"] == "batch_only"
+    want = jax_ref["prefill_sc6"]["logits"]
+    close(got["logits"], want, atol=RTOL * float(np.abs(want).max()))
+
+
+def test_remat_blocks_save_the_ranks_rows(ranks4):
+    """Under remat on (1, 4) (U = 1, B = 8, S = 16) every tensor of the
+    residual's width the train step saves for its backward is a rank's
+    rows [8, 4, d] or a CE chunk [8, 8, d] on "sequence": each recomputed
+    block keeps [B, S / 4, d], one a block at least, and nothing keeps
+    [B, S, d]; on "batch_only" each block keeps [8, 16, d]."""
+    cfg = get_smoke("qwen3-4b")
+    b, d, blocks = 8, cfg.d_model, cfg.n_layers
+    for r in range(4):
+        got = ranks4[f"saved.r{r}"]
+        seq, rep = got["sequence"], got["batch_only"]
+        assert (seq["route"], rep["route"]) == ("sequence", "batch_only")
+        assert seq["shapes"].count((b, SEQ // 4, d)) >= blocks
+        assert set(seq["shapes"]) <= {(b, SEQ // 4, d), (b, SEQ // 2, d)}
+        assert rep["shapes"].count((b, SEQ, d)) >= blocks
+        assert (b, SEQ // 4, d) not in rep["shapes"]
+
+
+def test_prefill_where_m_does_not_divide_the_sequence(ranks4, jax_ref):
+    """22 positions on (1, 4): the prefill runs "batch_only" (the
+    reference's values come out of its replicated route too) and says so
+    in meta; its logits are the one-process prefill's."""
+    assert_ranks_agree(ranks4, "prefill_odd", 4, skip=("model",))
+    got = ranks4["prefill_odd.r0"]
+    assert got["constrain"] == "batch_only"
+    assert ranks4["prefill.r0"]["constrain"] == "sequence"
+    pf = jax_ref["prefill"]
+    step, meta = TSTEPS.make_prefill_step(get_smoke("qwen3-4b"))
+    one = step(TT.params_from_jax(pf["params0"], "cpu"),
+               {"tokens": torch.as_tensor(pf["tokens"][:, :ODD])})
+    assert meta["constrain"] == "sequence"
+    close(got["logits"], one.numpy(),
+          atol=RTOL * float(one.abs().max()))
+
+
+def _leaf_paths(tree, prefix=""):
+    return {k: _leaf_paths(v, f"{prefix}/{k}") if isinstance(v, dict)
+            else f"{prefix}/{k}" for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch,m,ffn", [
+    ("qwen3-4b", 4, False), ("qwen3-4b", 3, True),
+    ("deepseek-v2-236b", 3, False), ("seamless-m4t-large-v2", 2, False),
+    ("recurrentgemma-9b", 3, True)])
+def test_row_leaves_are_the_norms_and_a_replicated_ffn(arch, m, ffn):
+    """The leaves whose gradient the train step sums over "model" under
+    the sequence split: every norm's scale, and the dense SwiGLU's leaves
+    exactly where m does not divide d_ff (never a MoE's); none at m = 1."""
+    from repro_torch.launch.sharding import ROW_NORMS, init_params, row_leaves
+    cfg = get_smoke(arch)
+    paths = tree_leaves(_leaf_paths(init_params(cfg, None, "meta")))
+    got = {paths[i] for i in row_leaves(cfg, m)}
+    norms = {p for p in paths if p.rsplit("/", 1)[1] in ROW_NORMS}
+    dense = {p for p in paths if p.rsplit("/", 2)[1] == "ffn"
+             and p.rsplit("/", 1)[1] in ("wi", "wg", "wo")}
+    assert norms and norms <= got
+    assert got - norms == (dense if ffn else set())
+    assert row_leaves(cfg, 1) == []

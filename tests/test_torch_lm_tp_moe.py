@@ -8,14 +8,17 @@ Two JAX subprocesses at once on 4 host devices (`torch_lm_ranks.JAX_REF`,
 the cases dealt out between them) run the
 reference on the same meshes (B = 4, BEV, 3 steps, the draws replayed);
 then one spawn of 2 ranks and one of 4.  Train at rtol 1e-5 / atol 1e-6,
-decode at rtol 1e-4.
+decode at rtol 1e-4.  The steps run the default "sequence" route (the
+residual stream split over "model" on the sequence); moe12 and ds12 also
+run "batch_only" (replicated) against the same reference.
 
 Marked slow, as tests/test_torch_lm_mesh.py is.
 """
 import pytest
 
-from torch_lm_ranks import (check_train, close_decode, decode_jobs,
-                            jax_reference, train_jobs)
+from torch_lm_ranks import (batch_only_jobs, check_batch_only, check_train,
+                            close_decode, decode_jobs, jax_reference,
+                            train_jobs)
 from torch_parity import assert_ranks_agree, run_ranks
 
 from repro_torch.configs import get_smoke
@@ -34,6 +37,7 @@ SPAWNS = {2: ("moe12", "cap12", "ds12"), 4: ("moe22",)}
 DECODE_MESHES = {"deepseek-v2-236b": ((1, 2),)}
 DECODE_STEPS = {"deepseek-v2-236b": 10}
 ARCH_M = [("deepseek-v2-236b", 2)]
+BATCH_ONLY = ("moe12", "ds12")   # also run on "batch_only" (2 ranks)
 
 
 @pytest.fixture(scope="module")
@@ -50,6 +54,7 @@ def ranks2(jax_ref, tmp_path_factory):
     """2 ranks: the train cases on (1, 2) and the decodes on (1, 2)."""
     jobs = [j for n in SPAWNS[2] for j in train_jobs(jax_ref, n,
                                                       TRAIN_CASES)]
+    jobs += batch_only_jobs(jax_ref, BATCH_ONLY, TRAIN_CASES)
     return run_ranks(jobs + decode_jobs(jax_ref, 2, DECODE_MESHES), 2,
                      tmp_path_factory.mktemp("tp2"))
 
@@ -115,3 +120,12 @@ def test_mla_and_ssd_decode_on_model_meshes(ranks2, ranks4, jax_ref, arch,
             cfg.n_layers, 4, s.d_conv - 1,
             s.expand * cfg.d_model // m + 2 * s.ngroups * s.d_state)
     close_decode(got["logits"], want)
+
+
+@pytest.mark.parametrize("name", BATCH_ONLY)
+def test_batch_only_route_matches_jax(ranks2, jax_ref, name):
+    """moonshot (MoE) and deepseek (MLA + MoE) on "batch_only", the
+    residual replicated over "model", against the same reference, which
+    splits the sequence: the router and the aux loss see the whole
+    sequence on both routes."""
+    check_batch_only(ranks2, jax_ref, 2, name, TRAIN_CASES)

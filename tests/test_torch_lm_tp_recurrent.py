@@ -8,14 +8,18 @@ Two JAX subprocesses at once on 4 host devices (`torch_lm_ranks.JAX_REF`,
 the cases dealt out between them) run the
 reference on the same meshes (B = 4, BEV, 3 steps, the draws replayed);
 then one spawn of 2 ranks and one of 4.  Train at rtol 1e-5 / atol 1e-6,
-decode at rtol 1e-4.
+decode at rtol 1e-4.  The steps run the default "sequence" route (the
+residual stream split over "model" on the sequence; each scan gathers
+the whole sequence); mb12 and rg14 also run "batch_only" (replicated)
+against the same reference.
 
 Marked slow, as tests/test_torch_lm_mesh.py is.
 """
 import pytest
 
-from torch_lm_ranks import (check_train, close_decode, decode_jobs,
-                            jax_reference, train_jobs)
+from torch_lm_ranks import (batch_only_jobs, check_batch_only, check_train,
+                            close_decode, decode_jobs, jax_reference,
+                            train_jobs)
 from torch_parity import assert_ranks_agree, run_ranks
 
 from repro_torch.configs import get_smoke
@@ -35,6 +39,7 @@ DECODE_MESHES = {"mamba2-1.3b": ((1, 2), (1, 4)),
 # decode steps of each: recurrentgemma's run past its 32-slot ring
 DECODE_STEPS = {"mamba2-1.3b": 10, "recurrentgemma-9b": 40}
 ARCH_M = [("mamba2-1.3b", 2), ("mamba2-1.3b", 4)]
+BATCH_ONLY = {2: ("mb12",), 4: ("rg14",)}   # also run on "batch_only"
 
 
 @pytest.fixture(scope="module")
@@ -51,6 +56,7 @@ def ranks2(jax_ref, tmp_path_factory):
     """2 ranks: the train cases on (1, 2) and the decodes on (1, 2)."""
     jobs = [j for n in SPAWNS[2] for j in train_jobs(jax_ref, n,
                                                       TRAIN_CASES)]
+    jobs += batch_only_jobs(jax_ref, BATCH_ONLY[2], TRAIN_CASES)
     return run_ranks(jobs + decode_jobs(jax_ref, 2, DECODE_MESHES), 2,
                      tmp_path_factory.mktemp("tp2"))
 
@@ -60,6 +66,7 @@ def ranks4(jax_ref, tmp_path_factory):
     """4 ranks: the train cases on 4 ranks and the decodes on (1, 4)."""
     jobs = [j for n in SPAWNS[4] for j in train_jobs(jax_ref, n,
                                                       TRAIN_CASES)]
+    jobs += batch_only_jobs(jax_ref, BATCH_ONLY[4], TRAIN_CASES)
     return run_ranks(jobs + decode_jobs(jax_ref, 4, DECODE_MESHES), 4,
                      tmp_path_factory.mktemp("tp4"))
 
@@ -144,3 +151,13 @@ def test_rglru_hybrid_decode_on_model_meshes(ranks2, ranks4, jax_ref, m):
     assert got["cache_shape"] == (1, 4, 3, cfg.rglru_width // m)
     assert len(got["logits"]) == DECODE_STEPS[arch]
     close_decode(got["logits"], want)
+
+
+@pytest.mark.parametrize("name", ["mb12", "rg14"])
+def test_batch_only_route_matches_jax(ranks2, ranks4, jax_ref, name):
+    """mamba2 (SSD) on (1, 2) and recurrentgemma (RG-LRU + local
+    attention) on (1, 4) on "batch_only", the residual replicated over
+    "model", against the same reference, which splits the sequence."""
+    world = TRAIN_CASES[name][0][1]
+    check_batch_only(ranks2 if world == 2 else ranks4, jax_ref, world, name,
+                     TRAIN_CASES)

@@ -44,13 +44,17 @@ dict of tensors:
                 by step; None: seeded) and the `policy`, `use_floa`,
                 `alpha`, `batch`, `seq`: the final params, and per step
                 gbar, eps2, loss and grad_scale; the mesh's worker layout.
+                "constrain" goes to the step ("sequence", the default, or
+                "batch_only"; meta["constrain"] is the route of its shape);
                 "remat" replaces the config's remat; "replay" runs the
                 steps twice from `params0`, remat off recording the
                 experts in a `moe.RoutingTape` (its result "recorded"),
                 then remat on replaying them, and returns the tape's
                 counts ("tape")
     prefill     `make_prefill_step` on `tokens` [B, S] (and an
-                encoder-decoder's `extra` frames): the logits
+                encoder-decoder's `extra` frames), its "constrain": the
+                logits and meta["constrain"] (a batch of tokens alone:
+                the step is built for its shape, so the route it took)
     decode      `make_decode_step(cfg, mesh=...)` teacher-forced through
                 `tokens` [B, n] from empty caches of `batch_rows` rows:
                 logits [n, B, Vp], the caches' batch, decode launches; an
@@ -87,6 +91,16 @@ the bytes of the rank's shards.  Three more kinds:
                 draw, the worker and model axes, default_floa's worker
                 count, and the refusals of an unported MLA head layout
                 and of --mesh single
+    seq_ops     `gather_seq`, `scatter_seq` and `split_seq` over the
+                "model" group on this rank's rows of the numpy `x`
+                [B, S, d] (scatter_seq's input x times rank + 1), each
+                output's gradient under the weights `w[rank]`: the
+                outputs and the gradients of the inputs
+    saved       the train step of the smoke config under remat (its
+                "config" replaced) from `params0` on `tokens[0]`, for
+                each constrain, with `saved_tensors_hooks` recording the
+                shape of every [B, *, d] tensor the step saves for its
+                backward
     count       `launch.dryrun.trace_step` of the smoke config's step at
                 `shape` (`shape_name`) run for real on this rank's CPU
                 zeros (route "cpu", fake=False): its operations,
@@ -222,6 +236,7 @@ def run_job(job, sharded=True, resume=False):
 
 
 LM_KINDS = ("train_step", "prefill", "decode", "serve", "seq_partial",
+            "seq_ops", "saved",
             "refusals", "ce", "layout", "count")
 FSDP_MIN_SIZE = SH.FSDP_MIN_SIZE
 
@@ -261,6 +276,8 @@ def run_lm_job(job):
     if kind == "count":
         return DRY.trace_step(get_smoke(job["arch"]), job["shape_name"],
                               job["shape"], mesh, route="cpu", fake=False)
+    if kind == "seq_ops":
+        return seq_ops_job(job, axis)
     if kind == "seq_partial":
         q, k, v = (torch.as_tensor(job[n]) for n in "qkv")
         ranks, r = mesh.shape["model"], mesh.axis_index("model")
@@ -289,11 +306,18 @@ def run_lm_job(job):
     model["stored_bytes"] = sum(x.numel() * x.element_size()
                                 for x in tree_leaves(params))
     if kind == "prefill":
-        step, _ = ST.make_prefill_step(cfg, mesh, fsdp=fsdp)
         batch = {k: torch.as_tensor(v) for k, v in job.get("extra",
                                                           {}).items()}
         batch["tokens"] = torch.as_tensor(job["tokens"])
-        return {"logits": step(params, batch), **model}
+        b, n = batch["tokens"].shape
+        step, meta = ST.make_prefill_step(
+            cfg, mesh, None if len(batch) > 1 else dict(
+                global_batch=b, seq_len=n),
+            fsdp=fsdp, constrain=job.get("constrain", "sequence"))
+        return {"logits": step(params, batch),
+                "constrain": meta["constrain"], **model}
+    if kind == "saved":
+        return saved_job(job, cfg, mesh, params)
     if kind == "decode":
         tokens = torch.as_tensor(job["tokens"])
         b, n = tokens.shape
@@ -343,7 +367,8 @@ def train_run(job, cfg, mesh, params, fsdp, specs, dspecs):
         cfg, mesh, dict(global_batch=job["batch"], seq_len=job["seq"],
                         kind="train"),
         policy=Policy(job["policy"]), alpha=job["alpha"],
-        use_floa=job["use_floa"], fsdp=fsdp)
+        use_floa=job["use_floa"], fsdp=fsdp,
+        constrain=job.get("constrain", "sequence"))
     wa = worker_axes(mesh)
     state, log, shapes = ST.init_floa_state(), [], {}
     for t, toks in enumerate(job["tokens"]):
@@ -363,6 +388,50 @@ def train_run(job, cfg, mesh, params, fsdp, specs, dspecs):
         params = gather_params(params, specs, mesh, dspecs)
     return {"params": params, "log": log, "meta": meta,
             "worker": (wa.num_workers, wa.first, wa.count), **shapes}
+
+
+def seq_ops_job(job, axis):
+    """The sequence-parallel collectives on this rank (see the module
+    docstring)."""
+    from repro_torch.launch.distributed import (gather_seq, scatter_seq,
+                                                split_seq)
+    x, w = torch.as_tensor(job["x"]), torch.as_tensor(job["w"][axis.index])
+    s = x.shape[1] // axis.size
+    rows = slice(axis.index * s, (axis.index + 1) * s)
+    out, grads = {}, {}
+    for name, fn, arg, weight in (
+            ("gather", gather_seq, x[:, rows], w),
+            ("scatter", scatter_seq, x * (axis.index + 1), w[:, rows]),
+            ("split", split_seq, x, w[:, rows])):
+        arg = arg.clone().requires_grad_(True)
+        y = fn(arg, axis.group)
+        grads[name], = torch.autograd.grad((y * weight).sum(), [arg])
+        out[name] = y.detach()
+    return {"out": out, "grads": grads, "model": (axis.size, axis.index)}
+
+
+def saved_job(job, cfg, mesh, params):
+    """The shapes of the [B, *, d] tensors one remat train step saves for
+    its backward, by constrain (see the module docstring)."""
+    cfg = dataclasses.replace(cfg, remat=True)
+    batch = {"tokens": torch.as_tensor(job["tokens"][0])}
+    res = {}
+    for constrain in ("sequence", "batch_only"):
+        step, meta = ST.make_train_step(
+            cfg, mesh, dict(global_batch=job["batch"], seq_len=job["seq"],
+                            kind="train"), alpha=job["alpha"],
+            constrain=constrain)
+        shapes = []
+
+        def pack(t):
+            if t.dim() == 3 and t.shape[-1] == cfg.d_model and \
+                    t.shape[0] == job["batch"]:
+                shapes.append(tuple(t.shape))
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            step(params, ST.init_floa_state(), batch, 0)
+        res[constrain] = {"shapes": shapes, "route": meta["constrain"]}
+    return res
 
 
 def ce_job(job, mesh, axis):

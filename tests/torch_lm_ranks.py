@@ -251,6 +251,28 @@ def train_jobs(ref, name, cases):
             for p, f in routes]
 
 
+def batch_only_jobs(ref, names, cases):
+    """The first route's train job of each case in `names` on the
+    "batch_only" route (the residual replicated over "model"), named
+    <name>_batch_only: the same reference, which splits the sequence."""
+    return [dict(train_jobs(ref, n, cases)[0], name=f"{n}_batch_only",
+                 constrain="batch_only") for n in names]
+
+
+def check_batch_only(ranks, jax_ref, world, name, cases):
+    """A `batch_only_jobs` job against the reference's first route: every
+    rank's gathered params and log bitwise equal, the route recorded in
+    meta, the result at RTOL / ATOL; the case's own job took
+    "sequence"."""
+    route = cases[name][1][0]
+    job = f"{name}_batch_only"
+    assert_ranks_agree(ranks, job, world, skip=("worker", "model"))
+    assert ranks[f"{job}.r0"]["meta"]["constrain"] == "batch_only"
+    assert ranks[f"{name}_{route[0]}_{route[1]}.r0"]["meta"][
+        "constrain"] == "sequence"
+    assert_train_matches(ranks[f"{job}.r0"], jax_ref[name][route])
+
+
 def decode_jobs(ref, world, meshes):
     """The decode jobs of `meshes` (arch -> its mesh shapes) whose meshes
     span `world` ranks, named decode_<arch>_<M>, from the reference's
